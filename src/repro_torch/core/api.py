@@ -1,0 +1,217 @@
+"""High-level DecentralizedTrainer: graph + mixer + step, one object.
+
+The port of ``repro.core.api``:
+
+    trainer = DecentralizedTrainer(
+        loss_fn, predict_fn, num_nodes=10,
+        graph="erdos_renyi", graph_kwargs={"p": 0.3},
+        robust=RobustConfig(mu=6.0), lr=0.05)            # device="cuda"
+    state = trainer.init(params_single)
+    state, metrics = trainer.step(state, batch)
+    state, ms = trainer.run(state, batches)              # stacked metrics
+    accs = trainer.eval_per_node(state, x_test, y_test)
+
+``loss_fn`` and ``predict_fn`` are node-stacked (see
+:mod:`repro_torch.models.paper_nets`).  PyTorch runs eagerly, so ``run`` is
+a loop over ``step`` that stacks the metrics on the device; there is no
+compiled scan to donate into.  Batches may be numpy arrays or tensors; they
+are moved to the trainer's device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.comm import CompressionConfig
+from repro_torch.comm.protocol import Mixer
+from repro_torch.core.consensus import make_dense_mixer, make_identity_mixer
+from repro_torch.core.drdsgd import (
+    DecentralizedState,
+    TrainStepConfig,
+    build_eval_step,
+    build_train_step,
+    init_state,
+    replicate_params,
+)
+from repro_torch.core.robust import RobustConfig
+from repro_torch.device import resolve_device
+from repro_torch.graphs import (
+    build_graph,
+    max_degree_weights,
+    metropolis_weights,
+    spectral_norm,
+)
+from repro_torch.optim import Optimizer, sgd
+
+
+def _stack_metrics(ms: list[dict]) -> dict:
+    return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+
+def run_segments(trainer: "DecentralizedTrainer", state, sample_batch,
+                 steps: int, seg: int, on_segment=None):
+    """Drive ``trainer.run`` in host-sampled segments.
+
+    ``sample_batch(step) -> batch`` of numpy leaves; batches are stacked
+    ``seg`` at a time and moved to the device in one copy per leaf.
+    ``on_segment(last_step, state, seg_metrics)`` runs between segments.
+    """
+    done = 0
+    while done < steps:
+        n = min(seg, steps - done)
+        samples = [sample_batch(done + i) for i in range(n)]
+        stacked = tuple(np.stack(parts) for parts in zip(*samples))
+        state, ms = trainer.run(state, stacked)
+        done += n
+        if on_segment is not None:
+            on_segment(done - 1, state, ms)
+    return state
+
+
+@dataclasses.dataclass
+class DecentralizedTrainer:
+    """Decentralized (DR-)DSGD trainer over a communication graph."""
+
+    loss_fn: Callable[[Any, Any], torch.Tensor]
+    predict_fn: Callable[[Any, Any], torch.Tensor] | None = None
+    num_nodes: int = 10
+    graph: str = "erdos_renyi"
+    graph_kwargs: dict = dataclasses.field(default_factory=dict)
+    robust: RobustConfig = dataclasses.field(default_factory=RobustConfig)
+    optimizer: Optimizer | None = None
+    lr: float = 0.05
+    grad_clip: float | None = None
+    mixer: Mixer | None = None            # override (e.g. a test-hooked wire)
+    mixing: str = "metropolis"            # or "max_degree", "none"
+    compression: CompressionConfig | None = None
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        g = build_graph(self.graph, self.num_nodes, **self.graph_kwargs)
+        if not g.is_connected():
+            raise ValueError("communication graph must be connected (Assumption 5)")
+        self.graph_obj = g
+        if self.mixing == "none":
+            self.w = np.eye(self.num_nodes)
+        elif self.mixing == "metropolis":
+            self.w = metropolis_weights(g)
+        elif self.mixing == "max_degree":
+            self.w = max_degree_weights(g)
+        else:
+            raise ValueError(f"unknown mixing {self.mixing!r}")
+        self.rho = spectral_norm(self.w)
+        if self.mixer is None:
+            self.mixer = (
+                make_identity_mixer() if self.mixing == "none"
+                else make_dense_mixer(self.w, compression=self.compression,
+                                      device=self.device))
+        elif self.compression is not None and self.compression.enabled \
+                and self.mixer.compression is None:
+            raise ValueError(
+                "compression is set but the provided mixer is uncompressed; "
+                "build the mixer with the same CompressionConfig")
+        if self.optimizer is None:
+            self.optimizer = sgd(self.lr)
+        step_cfg = TrainStepConfig(robust=self.robust, grad_clip=self.grad_clip,
+                                   compression=self.compression)
+        self._train_step = build_train_step(self.loss_fn, self.optimizer,
+                                            self.mixer, step_cfg)
+        if self.predict_fn is not None:
+            self._eval_step = build_eval_step(self.predict_fn)
+
+    # -- helpers --------------------------------------------------------------
+
+    def _to_device(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _batch(self, batch):
+        return tuple(self._to_device(b) for b in batch)
+
+    # -- public API ---------------------------------------------------------
+
+    def init(self, params_single) -> DecentralizedState:
+        """All nodes start at the same point (Lemma 3 precondition)."""
+        params = {n: self._to_device(x) for n, x in params_single.items()}
+        return self.init_stacked(replicate_params(params, self.num_nodes))
+
+    def init_stacked(self, node_params) -> DecentralizedState:
+        params = {n: self._to_device(node_params[n]) for n in sorted(node_params)}
+        return init_state(params, self.optimizer, mixer=self.mixer)
+
+    def step(self, state: DecentralizedState, batch):
+        """One train step on a (K, B, ...) batch; metrics are 0-d tensors."""
+        return self._train_step(state, self._batch(batch))
+
+    def run(self, state: DecentralizedState, batches, *, steps: int | None = None):
+        """Run many train steps; ``batches`` is the step batch stacked along a
+        leading time axis (every leaf (T, K, ...)).  Returns
+        (final_state, metrics) with every metric stacked to (steps,)."""
+        batches = self._batch(batches)
+        total = batches[0].shape[0]
+        if steps is None:
+            steps = total
+        elif steps > total:
+            raise ValueError(f"steps={steps} > stacked batches T={total}")
+        ms = []
+        for t in range(steps):
+            state, m = self._train_step(state, tuple(b[t] for b in batches))
+            ms.append(m)
+        return state, _stack_metrics(ms)
+
+    def eval_per_node(self, state: DecentralizedState, x, y) -> torch.Tensor:
+        if self.predict_fn is None:
+            raise ValueError("predict_fn not provided")
+        return self._eval_step(state.params, self._to_device(x), self._to_device(y))
+
+    def eval_local_distributions(self, state: DecentralizedState, x_nodes,
+                                 y_nodes) -> dict:
+        """Paper §6.2 protocol: device i's model on device i's distribution.
+
+        x_nodes: (K, n, ...), y_nodes: (K, n).  Worst distribution test
+        accuracy = min_i acc(θ_i, D_i^test); fairness = STDEV across devices.
+        """
+        if self.predict_fn is None:
+            raise ValueError("predict_fn not provided")
+        with torch.no_grad():
+            logits = self.predict_fn(state.params, self._to_device(x_nodes))
+            accs = (logits.argmax(-1) == self._to_device(y_nodes).long()
+                    ).float().mean(-1).cpu().numpy()
+        return {
+            "acc_avg": float(accs.mean()),
+            "acc_worst_dist": float(accs.min()),
+            "acc_node_std": float(accs.std()),
+            "acc_node_min": float(accs.min()),
+            "acc_nodes": [float(a) for a in accs],
+        }
+
+    def eval_worst_distribution(self, state: DecentralizedState, per_class_sets
+                                ) -> dict:
+        """Paper's metrics: avg / worst-distribution accuracy + STDEV.
+
+        Worst-distribution accuracy = min over the non-empty subsets of the
+        mean node accuracy; per-node stats use each node's own model on the
+        union of the subsets.
+        """
+        kept = [(x, y) for x, y in per_class_sets if len(y)]
+        if not kept:
+            raise ValueError(
+                "eval_worst_distribution needs at least one non-empty test "
+                "subset; all per_class_sets entries are empty")
+        accs = [float(self.eval_per_node(state, x, y).mean()) for x, y in kept]
+        x_all = np.concatenate([np.asarray(x) for x, _ in kept])
+        y_all = np.concatenate([np.asarray(y) for _, y in kept])
+        node_accs = self.eval_per_node(state, x_all, y_all).cpu().numpy()
+        return {
+            "acc_avg": float(node_accs.mean()),
+            "acc_worst_dist": float(min(accs)),
+            "acc_node_std": float(node_accs.std()),
+            "acc_node_min": float(node_accs.min()),
+            "acc_nodes": [float(a) for a in node_accs],
+        }

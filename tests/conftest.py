@@ -83,6 +83,12 @@ except ModuleNotFoundError:
     sys.modules["hypothesis.strategies"] = _st
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; the test skips itself where "
+        "torch finds none")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
