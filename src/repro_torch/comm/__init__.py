@@ -9,27 +9,30 @@ from repro_torch.comm.compressors import (
     NoCompressor,
     make_compressor,
 )
-from repro_torch.comm.mixers import CompressedDenseMixer
+from repro_torch.comm.mixers import CompressedDenseMixer, CompressedGossipMixer
 from repro_torch.comm.protocol import (
     CommMetrics,
     CommState,
     Mixer,
     trivial_comm_state,
 )
-from repro_torch.comm.topology import StaticTopology, Topology
-from repro_torch.comm.transport import DenseTransport, Transport
+from repro_torch.comm.topology import ScheduledTopology, StaticTopology, Topology
+from repro_torch.comm.transport import DenseTransport, GossipTransport, Transport
 from repro_torch.comm.wire import (
     ChocoWire,
     CodecWire,
     IdentityWire,
+    MaskedQuantWire,
+    RebaseClock,
     Wire,
     make_codec_wire,
 )
 
 __all__ = [
     "ComposedMixer", "CompressionConfig", "IntQuantizer", "KernelInt8Quantizer",
-    "NoCompressor", "make_compressor", "CompressedDenseMixer", "CommMetrics",
-    "CommState", "Mixer", "trivial_comm_state", "StaticTopology", "Topology",
-    "DenseTransport", "Transport", "ChocoWire", "CodecWire", "IdentityWire",
-    "Wire", "make_codec_wire",
+    "NoCompressor", "make_compressor", "CompressedDenseMixer",
+    "CompressedGossipMixer", "CommMetrics", "CommState", "Mixer",
+    "trivial_comm_state", "ScheduledTopology", "StaticTopology", "Topology",
+    "DenseTransport", "GossipTransport", "Transport", "ChocoWire", "CodecWire",
+    "IdentityWire", "MaskedQuantWire", "RebaseClock", "Wire", "make_codec_wire",
 ]

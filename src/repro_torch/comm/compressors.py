@@ -16,8 +16,9 @@ two frameworks comparable on identical noise.
 * ``IntQuantizer``        — int8 stochastic rounding ``floor(x/scale + u)``,
   one float32 scale per node (what ``--compress int8`` builds).
 * ``KernelInt8Quantizer`` — the same code with a scale per (node, block),
-  served by the hand-written CUDA quantizer on the card
-  (``repro_torch.kernels.quant_gossip``).
+  served by the hand-written CUDA quant_gossip kernels on the card
+  (``repro_torch.kernels.quant_gossip``): quantize, masked quantize, and
+  the fused dequantize-accumulate of the gossip transport.
 
 bf16, int4 (nibble packing), topk and randk raise ``NotImplementedError``
 in :func:`make_compressor` until their slice ports them.
@@ -121,11 +122,12 @@ class IntQuantizer:
 
 
 class KernelInt8Quantizer(IntQuantizer):
-    """int8 quantizer served by the blockwise CUDA quant_gossip kernel.
+    """int8 quantizer served by the blockwise CUDA quant_gossip kernels.
 
     Same wire format as :class:`IntQuantizer` except the scale is per
-    (node, block).  On CUDA tensors every ``compress`` launches the kernel;
-    the plain PyTorch version serves only CPU tensors.
+    (node, block).  On CUDA tensors every call below launches its kernel;
+    the plain PyTorch versions serve only CPU tensors.  ``src`` (K,) int64
+    is the row each node receives from on the gossip transport.
     """
 
     def __init__(self, block_d: int = 65536):
@@ -143,6 +145,32 @@ class KernelInt8Quantizer(IntQuantizer):
 
         q, scale = payload
         return dequantize_blockwise(q, scale)
+
+    def accumulate(self, acc, payload, weight, src=None):
+        """acc + weight·dequantize(payload[src]), fused: one pass over q
+        (the B.3 kernel on the card)."""
+        from repro_torch.kernels.quant_gossip.ops import dequant_accumulate
+
+        q, scale = payload
+        return dequant_accumulate(acc, q, scale, weight, src=src)
+
+    def compress_masked(self, x, u, mask):
+        """Sender-masked quantize (the B.4 kernel on the card): masked rows
+        emit a zero payload and zero scales, so a fully cut-off node's EF
+        innovation stays unsent and its θ̂ frozen.  An all-ones mask is
+        bit-identical to :meth:`compress`."""
+        from repro_torch.kernels.quant_gossip.ops import masked_quantize_blockwise
+
+        return masked_quantize_blockwise(x, u, mask, qmax=float(self.qmax),
+                                         block_d=self.block_d)
+
+    def accumulate_masked(self, acc, payload, weight, mask, src=None):
+        """acc + mask·weight·dequantize(payload[src]), fused (the B.5 kernel
+        on the card); masked links leave acc bitwise."""
+        from repro_torch.kernels.quant_gossip.ops import masked_dequant_accumulate
+
+        q, scale = payload
+        return masked_dequant_accumulate(acc, q, scale, weight, mask, src=src)
 
     def _n_blocks(self, d):
         from repro_torch.kernels.quant_gossip.kernel import num_blocks

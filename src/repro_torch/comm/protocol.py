@@ -11,7 +11,8 @@ mixers carry a trivial state and stamp their static full-precision
 ``wire_bits`` into it every round, so the train step reads one shape of state
 whatever the wire codec.
 
-Host-side fields are Python numbers (``key``: the wire's seed, ``rounds``);
+Host-side fields are Python numbers (``key``: the wire's seed, ``rounds``,
+``ef_rounds``);
 per-round measurements are 0-d float32 tensors on the parameters' device, so
 a training loop never waits on the device to read them.
 """
@@ -43,8 +44,8 @@ class CommState(NamedTuple):
     hat:      public copies θ̂ (float32 dict shaped like the params); the
               error-feedback residual is θ − θ̂.  () for uncompressed mixers
               and for the memoryless (error_feedback=False) wire.
-    hat_mix:  the gossip transport's running mix cache; () on the dense
-              transport (the only one ported so far).
+    hat_mix:  the gossip transport's running mix cache s_i = Σ_j W_ij θ̂_j
+              (EF wires on the gossip transport); () elsewhere.
     key:      seed of the wire's stochastic rounding; the uniforms of round r
               and leaf i are a pure function of (key, r, i).
     res_norm: f32 — innovation norm ‖θ − θ̂‖_F (over all nodes and leaves)
@@ -54,8 +55,11 @@ class CommState(NamedTuple):
               ported).
     rounds:   consensus rounds completed.
     wire_bits: f32 — wire bits injected by the last round.
-    track, ef_rounds, ef_drift: dynamics/gossip state of later slices; ()
-              here.
+    track:    gradient-tracking state of a later slice; () here.
+    ef_rounds: host int — executed rounds of the clocked EF gossip stack
+              (its delta/re-base clock); () on other stacks.
+    ef_drift: f32 — the adaptive re-base's cache drift ‖s − W_r θ̂‖_F
+              measured on the last round; () unless adaptive.
     """
 
     hat: Any
@@ -102,9 +106,14 @@ class Mixer:
     Class attributes:
       compression: the ``CompressionConfig`` the mixer was built with, or
         None for full-precision mixers.
+      traced_wire: the train step reports ``wire_bits / 8`` as the step's
+        ``comm_bytes`` when True, ``bytes_per_round`` otherwise.
     """
 
     compression = None
+    # True where ``CommState.wire_bits`` is the round's measured wire and the
+    # static ``bytes_per_round`` only an estimate (time-varying stacks)
+    traced_wire = False
 
     def init_state(self, params) -> CommState:
         return trivial_comm_state(device=params_device(params))

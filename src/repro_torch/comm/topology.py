@@ -1,8 +1,17 @@
 """Topology layer: the per-round mixing matrix ``W(round)``.
 
-The port of ``repro.comm.topology`` for the static stack: one of the three
-composable consensus layers (see ``comm/composed.py``).  Scheduled and star
-topologies belong to the dynamics and federated slices.
+The port of ``repro.comm.topology``: one of the three composable consensus
+layers (see ``comm/composed.py``).
+
+:class:`StaticTopology`    — a fixed doubly-stochastic W (ring, ER, ...).
+:class:`ScheduledTopology` — a :class:`~repro_torch.dynamics.schedule
+                             .TopologySchedule`: the round's W is a device
+                             tensor computed from the round index.
+
+The reference's fault replay and the star topology belong to the faults and
+federated slices.  Per-round quantities (W_r, the gathered weights and
+masks, the active-link counts) stay on the parameters' device: nothing here
+reads a device value back to the host.
 """
 
 from __future__ import annotations
@@ -13,13 +22,56 @@ import torch
 from repro_torch.device import resolve_device
 
 
-class Topology:
-    """Per-round mixing-weight provider."""
+def active_links(w: torch.Tensor) -> torch.Tensor:
+    """Count (0-d float32 on w's device) of directed links with nonzero
+    weight this round."""
+    k = w.shape[0]
+    off = 1.0 - torch.eye(k, dtype=torch.float32, device=w.device)
+    return ((w > 0).float() * off).sum()
 
+
+def gather_round_vectors(w: torch.Tensor, perm_idx: torch.Tensor):
+    """(self_w, [match_w], [mask]) gathered from a round matrix W_r.
+
+    ``perm_idx`` (M, K) int64 on W's device is the static edge colouring of
+    the union support, one involution per matching.  The per-matching edge
+    weights and {0, 1} link masks are gathered out of W_r, so a dropped link
+    carries weight 0 and mask 0 while the matchings never change.
+    """
+    k = w.shape[0]
+    arange = torch.arange(k, device=w.device)
+    pw = torch.where(perm_idx != arange, w[arange, perm_idx], 0.0)
+    masks = (pw > 0).float()
+    return torch.diagonal(w), list(pw.unbind(0)), list(masks.unbind(0))
+
+
+def active_sends(masks) -> torch.Tensor:
+    """Count (0-d float32) of active directed matching links."""
+    sends = masks[0].sum()
+    for m in masks[1:]:
+        sends = sends + m.sum()
+    return sends
+
+
+class Topology:
+    """Per-round mixing-weight provider.
+
+    ``time_varying`` is a class-level contract: a :class:`ScheduledTopology`
+    over a static schedule is still time-varying (its W is computed per
+    round), as in the reference.
+    """
+
+    time_varying: bool = False
     k: int
 
-    def round_w(self, rounds) -> torch.Tensor:
+    def round_w(self, rounds: int) -> torch.Tensor:
         """The (K, K) doubly-stochastic W of round ``rounds``."""
+        raise NotImplementedError
+
+    def base_weights(self) -> np.ndarray:
+        """Host-side base support: the union of every round's nonzeros.
+        Raises ``ValueError`` when the support is not statically known
+        (geometric re-draws)."""
         raise NotImplementedError
 
 
@@ -27,12 +79,38 @@ class StaticTopology(Topology):
     """A fixed graph: ``round_w`` is constant (float32 on ``device``, which
     defaults to CUDA and raises without it)."""
 
+    time_varying = False
+
     def __init__(self, w, device="cuda"):
-        w = np.asarray(w, np.float64)
-        if w.ndim != 2 or w.shape[0] != w.shape[1]:
-            raise ValueError(f"W must be square, got {w.shape}")
-        self.k = int(w.shape[0])
-        self.w = torch.as_tensor(w, dtype=torch.float32).to(resolve_device(device))
+        self._w_np = np.asarray(w, np.float64)
+        if self._w_np.ndim != 2 or self._w_np.shape[0] != self._w_np.shape[1]:
+            raise ValueError(f"W must be square, got {self._w_np.shape}")
+        self.k = int(self._w_np.shape[0])
+        self.w = torch.as_tensor(self._w_np, dtype=torch.float32).to(resolve_device(device))
 
     def round_w(self, rounds) -> torch.Tensor:
         return self.w
+
+    def base_weights(self) -> np.ndarray:
+        return self._w_np
+
+
+class ScheduledTopology(Topology):
+    """A ``TopologySchedule`` as a topology (the reference composes it with
+    fault replay; faults wait for their slice)."""
+
+    time_varying = True
+
+    def __init__(self, schedule, faults=None):
+        if faults is not None and getattr(faults, "enabled", True):
+            raise NotImplementedError(
+                "faults (stragglers, outages, extra link dropout) are not "
+                "ported yet; they wait for the faults slice")
+        self.schedule = schedule
+        self.k = schedule.k
+
+    def round_w(self, rounds: int) -> torch.Tensor:
+        return self.schedule.round_weights(rounds)
+
+    def base_weights(self) -> np.ndarray:
+        return self.schedule.base_weights()

@@ -1,43 +1,67 @@
 """Wire layer: what crosses each link, and the ``CommState`` fields it owns.
 
-The port of ``repro.comm.wire`` for the static stacks: one of the three
-composable consensus layers (see ``comm/composed.py``).  A wire declares —
-via ``init_fields`` — exactly the ``CommState`` fields it needs, spliced over
-the trivial state, so adding a wire never perturbs fields it does not own.
+The port of ``repro.comm.wire``: one of the three composable consensus
+layers (see ``comm/composed.py``).  A wire declares — via ``init_fields`` —
+exactly the ``CommState`` fields it needs, spliced over the trivial state,
+so adding a wire never perturbs fields it does not own.
 
-:class:`IdentityWire` — full-precision parameters; trivial state.
-:class:`CodecWire`    — memoryless codec: C(θ) crosses the wire every round.
-                        Owns ``key``.
-:class:`ChocoWire`    — CHOCO error feedback: compressed *innovations*
-                        against public copies θ̂.  Owns ``hat`` too.
+:class:`IdentityWire`    — full-precision parameters; trivial state.
+:class:`CodecWire`       — memoryless codec: C(θ) crosses the wire every
+                           round.  Owns ``key``.
+:class:`ChocoWire`       — CHOCO error feedback: compressed *innovations*
+                           against public copies θ̂.  Owns ``hat`` (and
+                           ``hat_mix`` on incremental transports); with a
+                           :class:`RebaseClock` also the ``ef_rounds`` /
+                           ``ef_drift`` delta/re-base clock of the dynamic
+                           gossip stack.
+:class:`MaskedQuantWire` — the memoryless masked int8/int4 wire of the
+                           dynamic gossip transport (masked quantize →
+                           gather → masked dequantize-accumulate per
+                           matching, the CUDA kernels B.4/B.5 on the card).
 
-The re-base clock and the masked gossip wire of the reference belong to the
-gossip and dynamics slices.
-
-Stochastic-rounding noise: the uniforms of round r and leaf i come from a
-``torch.Generator`` seeded with a hash of (``CommState.key``, r, i), drawn on
-the parameters' device — a pure function of the round, like the reference's
-``fold_in`` chain, though not the same numbers.  ``uniforms`` (a callable
-``(round, leaf_idx, shape) -> array``) replaces that draw; the parity tests
-inject the reference's own uniforms through it.
+Stochastic-rounding noise: the uniforms of round r and leaf i (and, on the
+masked wire, matching m) come from a ``torch.Generator`` seeded with a hash
+of (``CommState.key``, r, i[, m]), drawn on the parameters' device — a pure
+function of the round, like the reference's ``fold_in`` chain, though not
+the same numbers.  ``uniforms`` (a callable ``(round, leaf_idx, shape) ->
+array``, or ``(round, leaf_idx, matching_idx, shape)`` on the masked wire)
+replaces that draw; the parity tests inject the reference's own uniforms
+through it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
+import math
 from typing import Callable
 
 import numpy as np
 import torch
 
-from repro_torch.comm.compressors import CompressionConfig, make_compressor
+from repro_torch.comm.compressors import (
+    CompressionConfig,
+    KernelInt8Quantizer,
+    make_compressor,
+)
+from repro_torch.comm.protocol import scalar
 
-UniformsFn = Callable[[int, int, tuple], object]
+UniformsFn = Callable[..., object]
 
 
 def _f32_zeros_like(tree):
     return {n: torch.zeros(x.shape, dtype=torch.float32, device=x.device)
             for n, x in tree.items()}
+
+
+def _send_mask(masks):
+    """Per-node "any live outgoing link this round" vector: ∨ over the
+    per-matching link masks.  A node with every incident link down emits a
+    zero payload and its θ̂ stays frozen (nobody could apply the delta)."""
+    send = masks[0]
+    for m in masks[1:]:
+        send = torch.maximum(send, m)
+    return send
 
 
 def _leaf_payload_bytes(compressor, params, k: int) -> int:
@@ -47,19 +71,68 @@ def _leaf_payload_bytes(compressor, params, k: int) -> int:
     return sum(compressor.payload_bytes(x.numel() // k) for x in params.values())
 
 
-def _noise_seed(key: int, rounds: int, leaf_idx: int) -> int:
-    digest = hashlib.blake2b(f"{key}:{rounds}:{leaf_idx}".encode(),
+def _noise_seed(*parts: int) -> int:
+    digest = hashlib.blake2b(":".join(str(p) for p in parts).encode(),
                              digest_size=8).digest()
     return int.from_bytes(digest, "little") >> 1  # manual_seed takes < 2**63
 
 
+def _uniforms(hook, key: int, index: tuple, x: torch.Tensor) -> torch.Tensor:
+    """U[0, 1) noise shaped like ``x`` on ``x``'s device: ``hook(*index,
+    shape)`` when a hook is set, else a generator seeded from (key,
+    *index)."""
+    if hook is not None:
+        u = hook(*index, tuple(x.shape))
+        if not isinstance(u, torch.Tensor):
+            u = torch.from_numpy(np.array(u, dtype=np.float32))
+        return u.to(device=x.device, dtype=torch.float32)
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(_noise_seed(key, *index))
+    return torch.rand(x.shape, generator=gen, dtype=torch.float32, device=x.device)
+
+
+def wire_bits(senders, per_node_bits: float, device) -> torch.Tensor:
+    """senders × per-node bits as a 0-d float32 tensor; ``senders`` is a host
+    int (static stacks) or a 0-d tensor (time-varying stacks)."""
+    if isinstance(senders, torch.Tensor):
+        return senders * per_node_bits
+    return scalar(senders * per_node_bits, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class RebaseClock:
+    """The delta/re-base cadence of the dynamic EF gossip stack.
+
+    every:     B — re-base the incremental ``hat_mix`` cache from
+               full-precision public copies every B-th executed consensus
+               round (``ef_rounds % B == B − 1``).  0 = never (static
+               fault-free schedules only), 1 = every round.
+    threshold: > 0 replaces the fixed clock with the drift proxy
+               ‖s − W_r θ̂‖_F measured each round (adaptive re-base; the
+               measurement lands in ``CommState.ef_drift``).
+    """
+
+    every: int = 8
+    threshold: float = 0.0
+
+    @property
+    def adaptive(self) -> bool:
+        return self.threshold > 0
+
+
 class Wire:
-    """Payload-semantics layer base: trivial state, no codec."""
+    """Payload-semantics layer base: trivial state, no codec.
+
+    ``init_fields(params, incremental=...)`` returns the ``CommState``
+    fields this wire owns; ``incremental`` is True on transports that keep
+    the receiver-side running mix cache (gossip), where EF wires also own
+    ``hat_mix``.
+    """
 
     compression: CompressionConfig | None = None
     ef = False
 
-    def init_fields(self, params) -> dict:
+    def init_fields(self, params, incremental: bool = False) -> dict:
         return {}
 
 
@@ -79,28 +152,40 @@ class CodecWire(Wire):
         self.compressor = make_compressor(compression)
         self._uniforms = uniforms
 
-    def init_fields(self, params) -> dict:
+    def init_fields(self, params, incremental: bool = False) -> dict:
         return {"key": int(self.compression.seed)}
 
-    def round_wire_bits(self, params, senders: int, k: int) -> int:
+    def per_node_bits(self, params, k: int) -> int:
+        """Wire bits one node's payload carries in a round (sum over leaves)."""
+        return sum(self.compressor.payload_bits(x.numel() // k) for x in params.values())
+
+    def round_wire_bits(self, params, senders, k: int, device) -> torch.Tensor:
         """Wire bits one round injects: senders × per-node payload."""
-        return senders * sum(self.compressor.payload_bits(x.numel() // k)
-                             for x in params.values())
+        return wire_bits(senders, self.per_node_bits(params, k), device)
 
     def uniforms(self, key: int, rounds: int, leaf_idx: int, x: torch.Tensor):
         """U[0, 1) noise shaped like ``x`` for leaf ``leaf_idx`` of round
         ``rounds``, on ``x``'s device."""
-        if self._uniforms is not None:
-            u = self._uniforms(rounds, leaf_idx, tuple(x.shape))
-            if not isinstance(u, torch.Tensor):
-                u = torch.from_numpy(np.array(u, dtype=np.float32))
-            return u.to(device=x.device, dtype=torch.float32)
-        gen = torch.Generator(device=x.device)
-        gen.manual_seed(_noise_seed(key, rounds, leaf_idx))
-        return torch.rand(x.shape, generator=gen, dtype=torch.float32,
-                          device=x.device)
+        return _uniforms(self._uniforms, key, (rounds, leaf_idx), x)
 
-    def encode_leaf(self, x, hat, u):
+    def compress_block(self, x, u, send_mask=None):
+        """Encode one (K, d) block, optionally sender-masked.
+
+        ``send_mask`` (K,) in {0, 1} is the dynamic lowering's per-round
+        "this node has at least one live link" vector: masked rows emit a
+        zero payload and their θ̂ stays frozen.  The kernel quantizer serves
+        it with the masked kernel (B.4); other codecs mask the input block,
+        which encodes to an all-zero payload.  An all-ones mask is
+        bit-identical to the unmasked encode.
+        """
+        if send_mask is None:
+            return self.compressor.compress(x, u)
+        masked = getattr(self.compressor, "compress_masked", None)
+        if masked is not None:
+            return masked(x, u, send_mask)
+        return self.compressor.compress(x * send_mask[:, None], u)
+
+    def encode_leaf(self, x, hat, u, send_mask=None):
         """Compress one flattened (K, d) leaf with uniforms ``u``.
 
         Returns (payload, public', hat') where ``public'`` is this node's new
@@ -108,37 +193,97 @@ class CodecWire(Wire):
         ``hat'`` the state to carry (θ̂' or ()).
         """
         if self.ef:
-            payload = self.compressor.compress(x - hat, u)
+            payload = self.compress_block(x - hat, u, send_mask)
             new_hat = hat + self.compressor.decompress(payload, x.shape[1])
             return payload, new_hat, new_hat
-        payload = self.compressor.compress(x, u)
+        payload = self.compress_block(x, u, send_mask)
         return payload, self.compressor.decompress(payload, x.shape[1]), ()
 
 
 class ChocoWire(CodecWire):
     """CHOCO error-feedback wire: compressed innovations against θ̂.
 
-    Owns ``hat`` (the public copies — the EF residual is θ − θ̂).
+    Owns ``hat`` (the public copies — the EF residual is θ − θ̂), plus
+    ``hat_mix`` on incremental transports (the receiver-side running mix
+    s_i = Σ_j W_ij θ̂_j of the gossip lowering).  With a
+    :class:`RebaseClock` it also owns the ``ef_rounds`` consensus clock (a
+    host int) and, in adaptive mode, ``ef_drift``.
     """
 
     ef = True
 
     def __init__(self, compression: CompressionConfig,
-                 uniforms: UniformsFn | None = None):
+                 uniforms: UniformsFn | None = None,
+                 clock: RebaseClock | None = None):
         if not compression.error_feedback:
             raise ValueError("ChocoWire is the error-feedback wire — build "
                              "CodecWire for the memoryless ablation")
         super().__init__(compression, uniforms)
+        self.clock = clock
 
-    # one device holds every node, so ``hat`` has no partitioning to declare
+    # one device holds every node, so no field has a partitioning to declare
     # (the reference's spec_fields serves its pjit layout)
-    def init_fields(self, params) -> dict:  # repro: noqa[RPR007]
-        return {"hat": _f32_zeros_like(params), "key": int(self.compression.seed)}
+    def init_fields(self, params, incremental: bool = False) -> dict:  # repro: noqa[RPR007]
+        fields = {"hat": _f32_zeros_like(params), "key": int(self.compression.seed)}
+        if incremental:
+            fields["hat_mix"] = _f32_zeros_like(params)
+        if self.clock is not None:
+            fields["ef_rounds"] = 0
+            if self.clock.adaptive:
+                fields["ef_drift"] = scalar(0.0, next(iter(params.values())).device)
+        return fields
+
+
+class MaskedQuantWire(Wire):
+    """Memoryless masked int8/int4 quantization for the dynamic gossip
+    transport: each matching runs masked quantize → gather → masked
+    dequantize-accumulate, with a fresh C(θ) every round (int4 rides the
+    int8 container at qmax = 7).  Owns only ``key``.
+
+    On CUDA tensors the two steps always launch the kernels B.4 and B.5:
+    the reference's ``use_kernel=False`` picks the Pallas kernels' own
+    oracle, which in the port is the kernels' plain version and does not
+    serve the card.  The payload is the same either way.
+    """
+
+    ef = False
+
+    def __init__(self, quantized: CompressionConfig,
+                 uniforms: UniformsFn | None = None):
+        if quantized.kind not in ("int8", "int4"):
+            raise ValueError(
+                "the masked quant_gossip wire serves kind='int8' or "
+                "'int4' (the traced-qmax rate in the int8 container)")
+        self.quantized = quantized
+        self.compression = quantized
+        self._qmax = 127 if quantized.kind == "int8" else 7
+        self.compressor = KernelInt8Quantizer(quantized.block_d)
+        self._uniforms = uniforms
+
+    def init_fields(self, params, incremental: bool = False) -> dict:
+        return {"key": int(self.quantized.seed)}
+
+    def uniforms(self, key: int, rounds: int, leaf_idx: int, matching: int,
+                 x: torch.Tensor):
+        """U[0, 1) noise shaped like ``x`` for (round, leaf, matching)."""
+        return _uniforms(self._uniforms, key, (rounds, leaf_idx, matching), x)
+
+    def leaf_bits(self, d: int) -> float:
+        """Effective wire bits per node for one leaf: ceil(log2(2qmax+1))
+        per entry — 8 for int8, 4 for the int4 rate riding the int8
+        container — plus the per-(node, block) float32 scales."""
+        bits = math.ceil(math.log2(2 * self._qmax + 1))
+        return float(bits * d + 32 * self.compressor._n_blocks(d))
 
 
 def make_codec_wire(compression: CompressionConfig,
-                    uniforms: UniformsFn | None = None) -> CodecWire:
-    """``error_feedback=True`` → :class:`ChocoWire`, False → :class:`CodecWire`."""
+                    uniforms: UniformsFn | None = None,
+                    clock: RebaseClock | None = None) -> CodecWire:
+    """``error_feedback=True`` → :class:`ChocoWire` (+ optional clock),
+    False → :class:`CodecWire`."""
     if compression.error_feedback:
-        return ChocoWire(compression, uniforms)
+        return ChocoWire(compression, uniforms, clock=clock)
+    if clock is not None:
+        raise ValueError("the delta/re-base clock belongs to the "
+                         "error-feedback wire")
     return CodecWire(compression, uniforms)

@@ -1,8 +1,10 @@
 from repro_torch.core.api import DecentralizedTrainer, run_segments
 from repro_torch.core.consensus import (
     DenseMixer,
+    GossipMixer,
     IdentityMixer,
     make_dense_mixer,
+    make_gossip_mixer,
     make_identity_mixer,
 )
 from repro_torch.core.drdsgd import (
@@ -22,8 +24,8 @@ from repro_torch.core.robust import (
 from repro_torch.core.spec import TrainerSpec
 
 __all__ = [
-    "DecentralizedTrainer", "run_segments", "DenseMixer", "IdentityMixer",
-    "make_dense_mixer", "make_identity_mixer", "DecentralizedState",
+    "DecentralizedTrainer", "run_segments", "DenseMixer", "GossipMixer",
+    "IdentityMixer", "make_dense_mixer", "make_gossip_mixer", "make_identity_mixer", "DecentralizedState",
     "TrainStepConfig", "build_eval_step", "build_train_step", "init_state",
     "replicate_params", "RobustConfig", "mixture_weights", "robust_objective",
     "robust_scale", "TrainerSpec",

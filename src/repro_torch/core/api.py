@@ -11,7 +11,10 @@ The port of ``repro.core.api``:
     state, ms = trainer.run(state, batches)              # stacked metrics
     accs = trainer.eval_per_node(state, x_test, y_test)
 
-``loss_fn`` and ``predict_fn`` are node-stacked (see
+``dynamics`` (a :class:`~repro_torch.dynamics.DynamicsConfig`) runs the
+dense lowering over a time-varying topology; the gossip lowering comes in as
+a pre-built ``mixer`` (``make_gossip_mixer``, ``DynamicGossipMixer``), as in
+the reference.  ``loss_fn`` and ``predict_fn`` are node-stacked (see
 :mod:`repro_torch.models.paper_nets`).  PyTorch runs eagerly, so ``run`` is
 a loop over ``step`` that stacks the metrics on the device; there is no
 compiled scan to donate into.  Batches may be numpy arrays or tensors; they
@@ -39,6 +42,7 @@ from repro_torch.core.drdsgd import (
 )
 from repro_torch.core.robust import RobustConfig
 from repro_torch.device import resolve_device
+from repro_torch.dynamics import build_dynamic_mixer
 from repro_torch.graphs import (
     build_graph,
     max_degree_weights,
@@ -85,9 +89,12 @@ class DecentralizedTrainer:
     optimizer: Optimizer | None = None
     lr: float = 0.05
     grad_clip: float | None = None
-    mixer: Mixer | None = None            # override (e.g. a test-hooked wire)
+    mixer: Mixer | None = None            # override (e.g. the gossip lowering)
     mixing: str = "metropolis"            # or "max_degree", "none"
     compression: CompressionConfig | None = None
+    dynamics: Any = None                  # repro_torch.dynamics.DynamicsConfig:
+                                          # time-varying topology; None =
+                                          # static synchronous consensus
     device: str | torch.device = "cuda"
 
     def __post_init__(self):
@@ -105,16 +112,29 @@ class DecentralizedTrainer:
         else:
             raise ValueError(f"unknown mixing {self.mixing!r}")
         self.rho = spectral_norm(self.w)
+        dyn = self.dynamics if (self.dynamics is not None
+                                and self.dynamics.enabled) else None
         if self.mixer is None:
-            self.mixer = (
-                make_identity_mixer() if self.mixing == "none"
-                else make_dense_mixer(self.w, compression=self.compression,
-                                      device=self.device))
-        elif self.compression is not None and self.compression.enabled \
-                and self.mixer.compression is None:
-            raise ValueError(
-                "compression is set but the provided mixer is uncompressed; "
-                "build the mixer with the same CompressionConfig")
+            if dyn is not None and self.mixing != "none":
+                # time-varying topology: the dense-lowering stack
+                self.mixer = build_dynamic_mixer(dyn, self.w, compression=self.compression,
+                                                 device=self.device)
+            else:
+                self.mixer = (
+                    make_identity_mixer() if self.mixing == "none"
+                    else make_dense_mixer(self.w, compression=self.compression,
+                                          device=self.device))
+        else:
+            if dyn is not None:
+                raise ValueError(
+                    "both a pre-built mixer and a DynamicsConfig were "
+                    "provided — build the DynamicGossipMixer yourself or "
+                    "drop one")
+            if self.compression is not None and self.compression.enabled \
+                    and self.mixer.compression is None:
+                raise ValueError(
+                    "compression is set but the provided mixer is uncompressed; "
+                    "build the mixer with the same CompressionConfig")
         if self.optimizer is None:
             self.optimizer = sgd(self.lr)
         step_cfg = TrainStepConfig(robust=self.robust, grad_clip=self.grad_clip,

@@ -115,8 +115,12 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
                                               state.params, state.step)
         # --- consensus: the only cross-node communication of the algorithm
         mixed, comm = mixer(updated, state.comm, round=state.step)
+        # wire bytes this step: the round's measured wire on time-varying
+        # stacks, else the static estimate
+        comm_bytes = (comm.wire_bits / 8.0 if mixer.traced_wire
+                      else scalar(mixer.bytes_per_round(state.params), losses.device))
         metrics = {
-            "comm_bytes": scalar(mixer.bytes_per_round(state.params), losses.device),
+            "comm_bytes": comm_bytes,
             "loss_mean": losses.mean(),
             "loss_worst": losses.max(),
             "loss_std": losses.std(correction=0),

@@ -1,10 +1,13 @@
 """Declarative trainer construction shared by the CLI and the chip smoke run.
 
-The port of ``repro.core.spec`` for what this slice runs: the static graph
-with Metropolis (or max-degree) mixing, DR-DSGD or DSGD, and the consensus
-wire ``compress`` ∈ {"none", "int8"} or a pre-built
+The port of ``repro.core.spec`` for what the port runs: the graph with
+Metropolis (or max-degree) mixing, DR-DSGD or DSGD, the consensus wire
+``compress`` ∈ {"none", "int8"} or a pre-built
 :class:`~repro_torch.comm.CompressionConfig` (the hand-in the benchmarks
-use).
+use), and a time-varying topology (``topology``, ``drop_p``, ``radius``,
+``ef_rebase_every``, ``ef_rebase_threshold``: see
+:class:`~repro_torch.dynamics.DynamicsConfig`).  As in the reference, the
+gossip lowering comes in through ``build(..., mixer=...)``.
 
     spec = TrainerSpec(num_nodes=10, graph="erdos_renyi", compress="int8")
     trainer = spec.build(loss_fn, predict_fn)
@@ -23,13 +26,15 @@ from typing import Any
 from repro_torch.comm import CompressionConfig
 from repro_torch.core.api import DecentralizedTrainer
 from repro_torch.core.robust import RobustConfig
+from repro_torch.dynamics import TOPOLOGY_KINDS, DynamicsConfig
 
 _GRAPH_CHOICES = ("ring", "grid", "torus", "erdos_renyi", "geometric",
                   "complete", "star", "hypercube")
 _COMPRESS_CHOICES = ("none", "bf16", "int8", "int4", "topk", "randk")
 _PORTED_COMPRESS = ("none", "int8")
 
-_DYNAMICS = "the dynamics slice"
+_LOCAL = "the local-updates slice (LocalUpdateMixer)"
+_FAULTS = "the faults slice"
 _SCHEDULES = "the codecs slice (rate schedules)"
 # flag -> (argparse kwargs, default, slice that ports it)
 _UNPORTED_FLAGS = {
@@ -38,18 +43,13 @@ _UNPORTED_FLAGS = {
     "--schedule-threshold": (dict(type=float), 0.5, _SCHEDULES),
     "--schedule-warmup": (dict(type=int), 10, _SCHEDULES),
     "--schedule-rounds": (dict(type=int), 300, _SCHEDULES),
-    "--topology": (dict(), "static", _DYNAMICS),
-    "--drop-p": (dict(type=float), 0.0, _DYNAMICS),
-    "--radius": (dict(type=float), 0.5, _DYNAMICS),
-    "--mix-every": (dict(type=int), 1, _DYNAMICS),
-    "--local-updates": (dict(type=int), 1, _DYNAMICS),
-    "--gradient-tracking": (dict(action="store_true"), False, _DYNAMICS),
-    "--ef-rebase-every": (dict(type=int), 8, _DYNAMICS),
-    "--ef-rebase-threshold": (dict(type=float), 0.0, _DYNAMICS),
-    "--straggler-p": (dict(type=float), 0.0, _DYNAMICS),
-    "--outage-p": (dict(type=float), 0.0, _DYNAMICS),
-    "--outage-len": (dict(type=int), 10, _DYNAMICS),
-    "--straggler-skips-compute": (dict(action="store_true"), False, _DYNAMICS),
+    "--mix-every": (dict(type=int), 1, _LOCAL),
+    "--local-updates": (dict(type=int), 1, _LOCAL),
+    "--gradient-tracking": (dict(action="store_true"), False, _LOCAL),
+    "--straggler-p": (dict(type=float), 0.0, _FAULTS),
+    "--outage-p": (dict(type=float), 0.0, _FAULTS),
+    "--outage-len": (dict(type=int), 10, _FAULTS),
+    "--straggler-skips-compute": (dict(action="store_true"), False, _FAULTS),
     "--sanitize": (dict(action="store_true"), False,
                    "the tooling slice (runtime invariant checks)"),
 }
@@ -74,11 +74,25 @@ class TrainerSpec:
     compress: str | CompressionConfig | None = "none"  # codec kind, or a
                                                        # pre-built config
     error_feedback: bool = True
+    topology: str = "static"              # per-round topology process
+    drop_p: float = 0.0                   # link dropout for topology=dropout
+    radius: float = 0.5                   # radius for topology=geometric
+    ef_rebase_every: int = 8              # B: EF-gossip hat_mix re-base period
+    ef_rebase_threshold: float = 0.0      # adaptive re-base drift threshold
     seed: int = 0
     device: str = "cuda"
 
     def robust_config(self) -> RobustConfig:
         return RobustConfig(mu=self.mu, enabled=self.robust)
+
+    def dynamics_config(self) -> DynamicsConfig | None:
+        """The :class:`DynamicsConfig` this spec describes, or None for a
+        static synchronous setup."""
+        cfg = DynamicsConfig(
+            topology=self.topology, drop_p=self.drop_p, radius=self.radius,
+            ef_rebase_every=self.ef_rebase_every,
+            ef_rebase_threshold=self.ef_rebase_threshold, seed=self.seed)
+        return cfg if cfg.enabled else None
 
     def compression_config(self) -> CompressionConfig | None:
         if isinstance(self.compress, CompressionConfig):
@@ -109,6 +123,7 @@ class TrainerSpec:
             mixer=mixer,
             mixing=self.mixing,
             compression=self.compression_config(),
+            dynamics=self.dynamics_config(),
             device=self.device,
         )
 
@@ -135,6 +150,21 @@ class TrainerSpec:
                         help="ablation: memoryless compression")
         ap.add_argument("--device", default="cuda",
                         help="torch device; 'cpu' runs the plain PyTorch versions")
+        ap.add_argument("--topology", default="static", choices=TOPOLOGY_KINDS,
+                        help="per-round topology process: static graph, "
+                             "round-robin matchings, Bernoulli link dropout or "
+                             "per-round geometric re-draws (hub is not ported)")
+        ap.add_argument("--drop-p", type=float, default=0.0,
+                        help="link dropout probability for --topology dropout")
+        ap.add_argument("--radius", type=float, default=0.5,
+                        help="connection radius for --topology geometric")
+        ap.add_argument("--ef-rebase-every", type=int, default=8,
+                        help="B: re-base period of the error-feedback "
+                             "compressed gossip wire over a time-varying "
+                             "topology (0 = never; static schedules only)")
+        ap.add_argument("--ef-rebase-threshold", type=float, default=0.0,
+                        help="adaptive re-base: re-base when the EF cache "
+                             "drift exceeds this threshold (0 = clock)")
         for flag, (kwargs, default, _) in _UNPORTED_FLAGS.items():
             ap.add_argument(flag, default=default, help="not ported yet", **kwargs)
 
@@ -157,6 +187,9 @@ class TrainerSpec:
         spec = dict(overrides)
         spec.update(mu=args.mu, robust=not args.dsgd, compress=args.compress,
                     error_feedback=not args.no_error_feedback,
+                    topology=args.topology, drop_p=args.drop_p, radius=args.radius,
+                    ef_rebase_every=args.ef_rebase_every,
+                    ef_rebase_threshold=args.ef_rebase_threshold,
                     seed=args.seed, device=args.device)
         if args.nodes is not None:
             spec["num_nodes"] = args.nodes

@@ -1,10 +1,16 @@
 """The quant_gossip functions the rest of the port calls.
 
-``quantize_blockwise`` takes the plain PyTorch version only for tensors on
-the CPU; for CUDA tensors it launches the hand-written kernel or raises —
-there is no fallback.  ``dequantize_blockwise`` is plain PyTorch on every
-device, as in the reference (``repro.kernels.quant_gossip.ops``), where it
-was never a kernel.
+Each kernel's dispatcher takes the plain PyTorch version only for tensors on
+the CPU, and counts those calls in ``.plain_calls``; for CUDA tensors it
+launches the hand-written kernel or raises — there is no fallback.
+``dequantize_blockwise`` is plain PyTorch on every device, as in the
+reference (``repro.kernels.quant_gossip.ops``), where it was never a kernel.
+
+``quant_gossip_round`` and ``masked_quant_gossip_round`` compose one
+compressed matching exchange — quantize → the node-axis gather that stands
+in for the reference's ``ppermute`` → dequantize-accumulate — with the
+gather folded into the accumulate kernel (``src``).  The stochastic-rounding
+uniforms ``u`` come in as a tensor where the reference takes a PRNG key.
 """
 
 from __future__ import annotations
@@ -15,20 +21,88 @@ from repro_torch.kernels.quant_gossip import kernel as _k
 from repro_torch.kernels.quant_gossip import ref as _r
 
 
+def _route(name: str, t: torch.Tensor) -> bool:
+    """True for the kernel (CUDA tensors), False for the plain version."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {t.device}")
+
+
 def quantize_blockwise(x: torch.Tensor, u: torch.Tensor, *, qmax: float = 127.0,
                        block_d: int = 65536):
     """(K, D) f32 -> (q int8 (K, D), per-block scales f32 (K, n_blk))."""
-    if x.device.type == "cuda":
+    if _route("quantize_blockwise", x):
         return _k.quantize_blockwise(x, u, qmax=qmax, block_d=block_d)
-    if x.device.type == "cpu":
-        quantize_blockwise.plain_calls += 1
-        return _r.quantize_blockwise_ref(x, u, qmax=qmax, block_d=block_d)
-    raise ValueError(f"quantize_blockwise: unsupported device {x.device}")
+    quantize_blockwise.plain_calls += 1
+    return _r.quantize_blockwise_ref(x, u, qmax=qmax, block_d=block_d)
 
 
-# how often the plain version served a call (CPU tensors only)
+def masked_quantize_blockwise(x: torch.Tensor, u: torch.Tensor, mask: torch.Tensor, *,
+                              qmax: float = 127.0, block_d: int = 65536):
+    """Masked-sender quantize: rows with mask 0 put nothing on the wire
+    (q = 0, scale = 0).  Serves the memoryless dynamic gossip wire (θ per
+    matching) and the error-feedback dynamic wire (the innovation, once per
+    round, under the any-live-link sender mask)."""
+    if _route("masked_quantize_blockwise", x):
+        return _k.masked_quantize_blockwise(x, u, mask, qmax=qmax, block_d=block_d)
+    masked_quantize_blockwise.plain_calls += 1
+    return _r.masked_quantize_blockwise_ref(x, u, mask, qmax=qmax, block_d=block_d)
+
+
+def dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                       w: torch.Tensor, *, src: torch.Tensor | None = None) -> torch.Tensor:
+    """acc + w·dequant(q[src], scales[src]), one fused pass over the payload."""
+    if _route("dequant_accumulate", acc):
+        return _k.dequant_accumulate(acc, q, scales, w, src=src)
+    dequant_accumulate.plain_calls += 1
+    return _r.dequant_accumulate_ref(acc, q, scales, w, src=src)
+
+
+def masked_dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                              w: torch.Tensor, mask: torch.Tensor, *,
+                              src: torch.Tensor | None = None) -> torch.Tensor:
+    """acc + mask·w·dequant(q[src], scales[src]); a masked link contributes
+    exactly ``acc`` (bitwise)."""
+    if _route("masked_dequant_accumulate", acc):
+        return _k.masked_dequant_accumulate(acc, q, scales, w, mask, src=src)
+    masked_dequant_accumulate.plain_calls += 1
+    return _r.masked_dequant_accumulate_ref(acc, q, scales, w, mask, src=src)
+
+
+# how often each plain version served a call (CPU tensors only)
 quantize_blockwise.plain_calls = 0
+masked_quantize_blockwise.plain_calls = 0
+dequant_accumulate.plain_calls = 0
+masked_dequant_accumulate.plain_calls = 0
 
 
 def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return _r.dequantize_blockwise_ref(q, scales)
+
+
+def quant_gossip_round(x, acc, weight, src, u, *, qmax: float = 127.0,
+                       block_d: int = 65536):
+    """One compressed matching exchange on one card.
+
+    Args:
+      x: (K, D) blocks every node transmits.
+      acc: (K, D) accumulator the received messages are combined into.
+      weight: (K,) receive weights W_{i, src(i)} (0 where node i idles).
+      src: (K,) int64, the row node i receives from (the matching).
+      u: (K, D) stochastic-rounding uniforms.
+
+    Returns acc + weight · dequant(quantize(x)[src]).
+    """
+    q, scales = quantize_blockwise(x, u, qmax=qmax, block_d=block_d)
+    return dequant_accumulate(acc, q, scales, weight, src=src)
+
+
+def masked_quant_gossip_round(x, acc, weight, mask, src, u, *, qmax: float = 127.0,
+                              block_d: int = 65536):
+    """:func:`quant_gossip_round` with the round's link mask (K,) at both
+    ends: masked senders emit a zero payload and masked receivers combine
+    exactly 0.  The link i–src(i) is one link, so mask[src(i)] == mask[i]."""
+    q, scales = masked_quantize_blockwise(x, u, mask, qmax=qmax, block_d=block_d)
+    return masked_dequant_accumulate(acc, q, scales, weight, mask, src=src)

@@ -1,11 +1,15 @@
-"""The CUDA blockwise quantizer against its plain PyTorch version, on the card.
+"""The CUDA quant_gossip kernels against their plain PyTorch versions, on the card.
 
 Needs a CUDA device and ``nvcc``: every test here is marked ``cuda`` and
-skips itself where torch finds no device.  On the card the kernel must give
-the plain version's int8 payload elementwise and its scales exactly, at every
-leaf shape of the paper's MLP and CNN with K = 10 (all of them one block per
-row, including the ragged D = 10 and the D = 512,000 of the CNN's fc0/w),
-at multi-block layouts, and at qmax 127 and 7.  Run it on a machine with a
+skips itself where torch finds no device.  On the card each kernel must give
+its plain version's result bit for bit — the quantizers' int8 payload and
+scales (B.2 at qmax 127 and 7, B.4 with masks all ones, all zeros and mixed),
+the accumulations (B.3, and B.5 at every mask pattern) with ``src`` None and
+each matching of the fmnist graph — at every leaf shape of the paper's MLP
+and CNN with K = 10 (all of them one block per row, including the ragged
+D = 10 and the D = 512,000 of the CNN's fc0/w) and at multi-block layouts.
+The wrappers reject what their kernels do not take, and the dispatchers
+launch on CUDA tensors.  Run it on a machine with a
 card with ``PYTHONPATH=src python -m pytest -q tests/test_torch_kernel.py``.
 """
 
@@ -127,3 +131,163 @@ def test_compressed_round_on_the_card_matches_the_cpu(cuda):
     for n in theta:
         torch.testing.assert_close(t_g[n].cpu(), t_c[n], rtol=0, atol=1e-6)
         assert torch.equal(s_g.hat[n].cpu(), s_c.hat[n])
+
+
+# -- B.3 dequant_accumulate, B.4 masked_quantize_blockwise, B.5
+# masked_dequant_accumulate: bit-equal to their plain versions on the card ----
+
+MASKS = ["ones", "zeros", "mixed"]
+def _mask(kind, k, device):
+    m = {"ones": np.ones(k), "zeros": np.zeros(k), "mixed": np.arange(k) % 2}[kind]
+    return torch.from_numpy(m.astype(np.float32)).to(device)
+
+
+def _srcs(device):
+    """None, then every matching of fmnist_default's graph (K = 10, ER(0.3),
+    seed 0) as a src index tensor."""
+    from repro_torch.graphs import build_graph, metropolis_weights, permutation_decomposition
+
+    w = metropolis_weights(build_graph("erdos_renyi", 10, p=0.3, seed=0))
+    return [None] + [torch.from_numpy(p.astype(np.int64)).to(device)
+                     for p in permutation_decomposition(w).matchings]
+
+
+def _acc_inputs(k, d, block_d, seed, device):
+    x, u = _inputs(k, d, seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    acc = torch.randn((k, d), generator=gen, device=device)
+    w = torch.rand((k,), generator=gen, device=device) * 0.5
+    w[0] = 0.0  # a row that receives nothing
+    q, s = ref.quantize_blockwise_ref(x, u, block_d=block_d)
+    return acc, q, s, w
+
+
+@pytest.mark.parametrize("k,d,block_d", CASES)
+@pytest.mark.parametrize("mask", MASKS)
+def test_masked_quantize_equals_plain(cuda, k, d, block_d, mask):
+    x, u = _inputs(k, d, seed=d + 3 * k, device=cuda)
+    m = _mask(mask, k, cuda)
+    q, s = qk.masked_quantize_blockwise(x, u, m, block_d=block_d)
+    q_p, s_p = ref.masked_quantize_blockwise_ref(x, u, m, block_d=block_d)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q_p) and torch.equal(s, s_p)
+    assert not q[m == 0].any() and not s[m == 0].any()
+
+
+@pytest.mark.parametrize("k,d,block_d", CASES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_dequant_accumulate_equals_plain(cuda, k, d, block_d, masked):
+    """B.3 (and B.5 with every mask pattern) at every src: None and each
+    matching of the fmnist graph (K = 10 only)."""
+    acc, q, s, w = _acc_inputs(k, d, block_d, seed=d + k, device=cuda)
+    srcs = _srcs(cuda) if k == 10 else [None]
+    for src in srcs:
+        for mask in (MASKS if masked else [None]):
+            if mask is None:
+                got = qk.dequant_accumulate(acc, q, s, w, src=src)
+                want = ref.dequant_accumulate_ref(acc, q, s, w, src=src)
+            else:
+                m = _mask(mask, k, cuda)
+                got = qk.masked_dequant_accumulate(acc, q, s, w, m, src=src)
+                want = ref.masked_dequant_accumulate_ref(acc, q, s, w, m, src=src)
+                assert torch.equal(got[m == 0], acc[m == 0])
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (src, mask)
+            assert torch.equal(got[0], acc[0])  # zero weight: acc bitwise
+
+
+def test_new_dispatchers_launch_for_cuda_tensors(cuda):
+    acc, q, s, w = _acc_inputs(10, 640, 65536, seed=1, device=cuda)
+    x, u = _inputs(10, 640, seed=1, device=cuda)
+    m = _mask("mixed", 10, cuda)
+    names = ("dequant_accumulate", "masked_quantize_blockwise", "masked_dequant_accumulate")
+    before = {n: (getattr(qk, n).launches, getattr(ops, n).plain_calls) for n in names}
+    ops.dequant_accumulate(acc, q, s, w)
+    ops.masked_quantize_blockwise(x, u, m)
+    ops.masked_dequant_accumulate(acc, q, s, w, m)
+    for n in names:
+        assert getattr(qk, n).launches == before[n][0] + 1
+        assert getattr(ops, n).plain_calls == before[n][1]
+
+
+@pytest.mark.parametrize("bad", ["float64", "strided", "q-dtype", "scales-shape", "w-shape",
+                                 "src-dtype", "cpu-q"])
+def test_accumulate_wrappers_reject_what_the_kernel_does_not_take(cuda, bad):
+    acc, q, s, w = _acc_inputs(4, 256, 64, seed=2, device=cuda)
+    m = _mask("mixed", 4, cuda)
+    src = None
+    if bad == "float64":
+        acc = acc.double()
+    elif bad == "strided":
+        acc = acc.t().contiguous().t()
+    elif bad == "q-dtype":
+        q = q.int()
+    elif bad == "scales-shape":
+        s = s[:, :2]
+    elif bad == "w-shape":
+        w = w[:3]
+    elif bad == "src-dtype":
+        src = torch.arange(4, device=cuda, dtype=torch.int32)
+    else:
+        q = q.cpu()
+    for fn, args in ((qk.dequant_accumulate, (acc, q, s, w)),
+                     (qk.masked_dequant_accumulate, (acc, q, s, w, m))):
+        launches = fn.launches
+        with pytest.raises((TypeError, ValueError)):
+            fn(*args, src=src)
+        assert fn.launches == launches
+
+
+def test_gossip_rounds_on_the_card_match_the_cpu(cuda):
+    """The static EF gossip round (B.2 + B.3) and the memoryless and EF
+    dropout rounds (B.4 + B.5) on the card and on the CPU, with the same
+    uniforms and W_r: payloads are exact, so θ, θ̂ and hat_mix agree to the
+    float32 rounding of sums taken in another order (atol 1e-6)."""
+    from repro_torch.comm import CompressedGossipMixer, CompressionConfig
+    from repro_torch.dynamics import DropoutSchedule, DynamicGossipMixer
+    from repro_torch.graphs import build_graph, metropolis_weights, permutation_decomposition
+
+    k = 10
+    w = metropolis_weights(build_graph("erdos_renyi", k, p=0.3, seed=0))
+    rng = np.random.default_rng(0)
+    theta = {n: rng.standard_normal((k,) + sh).astype(np.float32)
+             for n, sh in (("fc0/b", (128,)), ("fc0/w", (784, 128)), ("fc1/w", (5,)))}
+
+    def noise(rounds, leaf_idx, *rest):
+        shape = rest[-1]
+        return np.random.default_rng([rounds, leaf_idx, *rest[:-1]]).random(
+            shape, dtype=np.float32)
+
+    ws = {r: DropoutSchedule(w, 0.2, seed=r, device="cpu").round_weights(r) for r in range(3)}
+
+    class Replay(DropoutSchedule):
+        def round_weights(self, rounds):
+            return ws[rounds].to(self.device)
+
+    ef = CompressionConfig(kind="int8", use_kernel=True)
+    memoryless = CompressionConfig(kind="int8", use_kernel=True, error_feedback=False)
+    stacks = {
+        "static-ef": lambda dev: CompressedGossipMixer(permutation_decomposition(w), ef,
+                                                       device=dev, uniforms=noise),
+        "dropout-memoryless": lambda dev: DynamicGossipMixer(
+            Replay(w, 0.2, device=dev), quantized=memoryless, uniforms=noise),
+        "dropout-ef-b2": lambda dev: DynamicGossipMixer(
+            Replay(w, 0.2, device=dev), quantized=ef, ef_rebase_every=2, uniforms=noise),
+    }
+    for name, build in stacks.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            m = build(dev)
+            t = {n: torch.from_numpy(v).to(dev) for n, v in theta.items()}
+            st = m.init_state(t)
+            for _ in range(3):
+                t, st = m(t, st)
+            out[dev] = (t, st)
+        (t_g, s_g), (t_c, s_c) = out["cuda"], out["cpu"]
+        for n in theta:
+            torch.testing.assert_close(t_g[n].cpu(), t_c[n], rtol=0, atol=1e-6, msg=name)
+            if s_c.hat != ():
+                torch.testing.assert_close(s_g.hat[n].cpu(), s_c.hat[n], rtol=0, atol=1e-6)
+                torch.testing.assert_close(s_g.hat_mix[n].cpu(), s_c.hat_mix[n], rtol=0,
+                                           atol=1e-6)
+        assert float(s_g.wire_bits) == float(s_c.wire_bits)

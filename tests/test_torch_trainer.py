@@ -263,7 +263,7 @@ def test_spec_builds_the_paper_trainer():
         TrainerSpec(compress="topk", device="cpu").compression_config()
 
 
-@pytest.mark.parametrize("argv", [["--topology", "dropout"], ["--compress", "topk"],
+@pytest.mark.parametrize("argv", [["--topology", "hub"], ["--compress", "topk"],
                                   ["--compress-schedule", "linear"], ["--arch", "qwen2_0_5b"],
                                   ["--local-updates", "2"], ["--mix-every", "2"]])
 def test_cli_unported_flags_raise(argv):
@@ -271,6 +271,40 @@ def test_cli_unported_flags_raise(argv):
 
     with pytest.raises(NotImplementedError, match="not ported"):
         train.main(["--paper", "fmnist", "--device", "cpu", *argv])
+
+
+def test_cli_builds_the_dense_dynamic_stack():
+    """``--topology dropout --drop-p 0.2`` (and the EF re-base flags) reach a
+    DynamicsConfig, and the trainer builds the dense dynamic stack; with
+    ``--compress int8`` its compressed twin."""
+    import argparse
+
+    from repro_torch.dynamics import (
+        DropoutSchedule,
+        DynamicCompressedDenseMixer,
+        DynamicDenseMixer,
+    )
+
+    ap = argparse.ArgumentParser()
+    TrainerSpec.add_cli_args(ap)
+    for extra, mixer_cls in (([], DynamicDenseMixer),
+                             (["--compress", "int8"], DynamicCompressedDenseMixer)):
+        args = ap.parse_args(["--topology", "dropout", "--drop-p", "0.2", "--device", "cpu",
+                              "--ef-rebase-every", "4", *extra])
+        spec = TrainerSpec.from_args(args, num_nodes=K, graph="erdos_renyi",
+                                     graph_kwargs=GRAPH_KW)
+        cfg = spec.dynamics_config()
+        assert (cfg.topology, cfg.drop_p, cfg.ef_rebase_every) == ("dropout", 0.2, 4)
+        t = spec.build(nets.make_classifier_loss(nets.mlp_apply), nets.mlp_apply)
+        assert type(t.mixer) is mixer_cls
+        assert isinstance(t.mixer.topo.schedule, DropoutSchedule)
+        assert t.mixer.topo.schedule.p == 0.2 and t.mixer.traced_wire
+    static = TrainerSpec.from_args(ap.parse_args(["--device", "cpu"]), num_nodes=K)
+    assert static.dynamics_config() is None
+    with pytest.raises(ValueError, match="pre-built mixer and a DynamicsConfig"):
+        TrainerSpec(num_nodes=K, graph="ring", topology="round_robin", device="cpu").build(
+            nets.make_classifier_loss(nets.mlp_apply),
+            mixer=make_dense_mixer(metropolis_weights(build_graph("ring", K)), device="cpu"))
 
 
 def test_entry_points_raise_without_cuda():
@@ -293,6 +327,16 @@ def test_entry_points_raise_without_cuda():
         DenseMixer(w)
     with pytest.raises(RuntimeError, match="CUDA"):
         CompressedDenseMixer(w, CompressionConfig(kind="int8", use_kernel=True))
+    from repro_torch.core.consensus import make_gossip_mixer
+    from repro_torch.dynamics import DropoutSchedule, make_schedule
+    from repro_torch.graphs import permutation_decomposition
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_gossip_mixer(permutation_decomposition(w))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DropoutSchedule(w, 0.2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_schedule("geometric", k=4)
     from repro_torch.launch import train
 
     with pytest.raises(RuntimeError, match="CUDA"):
