@@ -4,11 +4,12 @@
 
 Drives the port's main paths — the paper's DR-DSGD trainer (Algorithm 2)
 over the dense lowering, and over the gossip lowering on a static and a
-time-varying topology — on the card through their user entry points, and
-holds every CUDA kernel of those paths against its plain PyTorch version:
+time-varying topology, and static-batch LM serving (prefill, then greedy
+decode) — on the card through their user entry points, and holds every
+CUDA kernel of those paths against its plain PyTorch version:
 
-  build    nvcc-compiles the kernels of the paths from src/ (one nvcc per
-           source, started together).
+  build    nvcc-compiles every kernel source under src/ (one nvcc per
+           source, all four started together).
   kernel   the four quant_gossip kernels against their plain versions at
            every leaf shape of the paper's MLP and CNN with K = 10 and at
            three multi-block layouts: quantize_blockwise (B.2) at qmax 127
@@ -44,11 +45,38 @@ holds every CUDA kernel of those paths against its plain PyTorch version:
            CPU, and 20 steps of the dense int8-kernel wire and of the three
            compressed gossip stacks vs the CPU's plain versions with the
            same uniforms and W_r, at the printed tolerances.
+  serve-kernel  flash attention (B.6) at qwen2-0.5b's prefill shapes, at hd
+           80 and 128 with windows 4096 and 64 and gemma2's softcap 50, at
+           G = 1 and at a ragged S = 300; the WKV6 scan (B.7) at rwkv6-7b's
+           shapes and at T = 100 with random u and decays, y and the final
+           state; both against their plain versions at rtol 2e-5 (B.7's atol
+           scaled by max |y|, see SERVE_TOL).  Times each call (CUDA
+           events), its device time (profiler), the plain version, the
+           bound, and for B.6 scaled_dot_product_attention (never on the
+           path).
+  serve    qwen2-0.5b at full width and depth (24 layers, ~494 M
+           parameters), then rwkv6-7b at full width and depth (32 layers,
+           ~7.5 B parameters), seeded weights on the card, batch 4: the
+           main path timed_generate (prefill, then greedy decode; 24 B.6 /
+           32 B.7 launches per prefill, no plain call), held against the
+           decode-only path (use_prefill=False: every prompt token through
+           decode_step, no kernel).  qwen2: last-position logits and every
+           cache leaf within SERVE_REL of their largest value, and generated
+           tokens equal up to the first step whose top-2 logit gap is inside
+           that tolerance.  rwkv6 (random weights amplify float32 rounding
+           with depth, see phase_serve): every layer's prefill output and
+           final state against its decode steps on the same input, within
+           SERVE_REL; the end-to-end gaps are printed.  A profiler pass over
+           one qwen2 prefill and 16 decode steps.
+  serve-parity  both models cut to 2 layers at full width: the same seeded
+           weights on the card (kernels) and on the CPU (plain versions);
+           prefill logits, caches and 8 greedy tokens at SERVE_PARITY_REL.
 
 TF32 is off for matmul and cuDNN throughout, so float32 means float32.
 Weights come from the port's own seeded init, written to and read back
 from a .npz.  Any failed phase raises (non-zero exit, no result line).
-The last stdout line is the device record
+The build starts at most one nvcc per source; the script starts no other
+process but nvidia-smi.  The last stdout line is the device record
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}; the
 line before it is the card's name and power limit from nvidia-smi, and the
 line before that the kernels record.
@@ -70,6 +98,8 @@ K = 10
 CIFAR_STEPS = 50
 CIFAR_GOSSIP_STEPS = 20
 CIFAR_GRAD_CLIP = 2.0      # the repo's CIFAR benchmark setting (see phase_cifar)
+SERVE_BATCH = 4
+SERVE_PARITY_GEN = 8
 DROP_P = 0.2               # fig9's dropout rate
 REBASE_EVERY = 4           # the EF gossip wire's re-base period B
 PROFILE_STEPS = 30
@@ -81,18 +111,28 @@ PARITY_INT8_STEPS = 4.0    # int8: a floor that an ulp of theta - theta_hat flip
 GOSSIP_DENSE_ATOL = 1e-5   # static gossip vs the dense W product: 20 steps,
 GOSSIP_DENSE_DRIFT = 1e-3  # and 300 steps, where float32 order drift reaches
                            # ~1.7e-4 on an H100
-SRC = "src/repro_torch/kernels/quant_gossip/csrc/"
-TPU = "src/repro/kernels/quant_gossip/kernel.py:"
+SERVE_REL = 1e-3          # prefill vs decode-only on the card, relative to max |x|
+SERVE_PARITY_REL = 1e-4   # card vs CPU, 2 layers, relative to max |x|
+SERVE_TOL = 2e-5          # B.6 / B.7 vs plain: rtol, and atol (B.7: times max |y|)
+SRC = "src/repro_torch/kernels/"
+TPU = "src/repro/kernels/"
 # kernel -> (source, the TPU kernel's pallas_call, the CUDA kernels' names)
 KERNELS = {
-    "quantize_blockwise": (SRC + "quantize.cu", TPU + "98",
-                           ("absmax_kernel", "quantize_kernel")),
-    "dequant_accumulate": (SRC + "accumulate.cu", TPU + "125", ("dequant_acc_kernel",)),
-    "masked_quantize_blockwise": (SRC + "quantize.cu", TPU + "154",
+    "quantize_blockwise": (SRC + "quant_gossip/csrc/quantize.cu",
+                           TPU + "quant_gossip/kernel.py:98", ("absmax_kernel", "quantize_kernel")),
+    "dequant_accumulate": (SRC + "quant_gossip/csrc/accumulate.cu",
+                           TPU + "quant_gossip/kernel.py:125", ("dequant_acc_kernel",)),
+    "masked_quantize_blockwise": (SRC + "quant_gossip/csrc/quantize.cu",
+                                  TPU + "quant_gossip/kernel.py:154",
                                   ("absmax_kernel", "quantize_kernel")),
-    "masked_dequant_accumulate": (SRC + "accumulate.cu", TPU + "187",
-                                  ("dequant_acc_kernel",)),
+    "masked_dequant_accumulate": (SRC + "quant_gossip/csrc/accumulate.cu",
+                                  TPU + "quant_gossip/kernel.py:187", ("dequant_acc_kernel",)),
+    "flash_attention_fwd": (SRC + "flash_attention/csrc/flash_fwd.cu",
+                            TPU + "flash_attention/kernel.py:100", ("flash_fwd_kernel",)),
+    "wkv6_scan": (SRC + "rwkv6_scan/csrc/wkv6.cu", TPU + "rwkv6_scan/kernel.py:65",
+                  ("wkv6_kernel",)),
 }
+QUANT = tuple(KERNELS)[:4]
 
 
 def log(msg: str) -> None:
@@ -164,6 +204,22 @@ def device_us_per_call(averages, names) -> float:
     return total
 
 
+def device_ms(fn, iters: int, names, tries: int = 3) -> float:
+    """Device time (ms) of one ``fn()`` that launches each kernel of
+    ``names`` once, under the profiler.  The profiler now and then records
+    no launch of a kernel at all (seen on the H100); the window is then
+    profiled again, up to ``tries`` times."""
+    for attempt in range(tries):
+        _, avg = profiled(fn, iters)
+        try:
+            return device_us_per_call(avg, names) / 1e3
+        except AssertionError:
+            if attempt == tries - 1:
+                raise
+            log(f"[profile] no launch of {names} recorded; profiling again")
+    raise AssertionError("unreachable")
+
+
 def kernel_bound(name: str, k: int, d: int, n_blk: int) -> tuple[float, str]:
     """Least time for one call, every row live.  Quantizers: x and u read,
     q and the scales written once, about 7 float operations per element
@@ -185,23 +241,32 @@ def leaf_dims(params: dict) -> list[tuple[str, int]]:
     return [(n, params[n].numel()) for n in sorted(params)]
 
 
+def _counters() -> dict:
+    """kernel -> (its wrapper, which counts launches; its dispatcher, which
+    counts plain calls)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.quant_gossip import kernel as qk
+    from repro_torch.kernels.quant_gossip import ops as qops
+    from repro_torch.kernels.rwkv6_scan import kernel as wk
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+
+    out = {name: (getattr(qk, name), getattr(qops, name)) for name in QUANT}
+    out["flash_attention_fwd"] = (fk.flash_attention_fwd, fops.flash_attention)
+    out["wkv6_scan"] = (wk.wkv6_scan, wops.wkv6)
+    return out
+
+
 def kernel_counts() -> dict:
     """Launches of each kernel and calls of each plain version since the
     last :func:`reset_counts`."""
-    from repro_torch.kernels.quant_gossip import kernel as qk
-    from repro_torch.kernels.quant_gossip import ops as qops
-
-    return {name: (getattr(qk, name).launches, getattr(qops, name).plain_calls)
-            for name in KERNELS}
+    return {name: (k.launches, o.plain_calls) for name, (k, o) in _counters().items()}
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels.quant_gossip import kernel as qk
-    from repro_torch.kernels.quant_gossip import ops as qops
-
-    for name in KERNELS:
-        getattr(qk, name).launches = 0
-        getattr(qops, name).plain_calls = 0
+    for k, o in _counters().values():
+        k.launches = 0
+        o.plain_calls = 0
 
 
 def check_counts(tag: str, counts: dict, want: dict) -> None:
@@ -214,10 +279,10 @@ def check_counts(tag: str, counts: dict, want: dict) -> None:
 
 
 def phase_build() -> None:
-    from repro_torch.kernels.quant_gossip import kernel as qk
+    from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    built = qk.build()
+    built = _build.build()
     log(f"[build] {', '.join(lib.name for lib, _ in built.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
     for source, (_, out) in built.items():
@@ -257,7 +322,7 @@ def phase_kernel(mlp_leaves, cnn_leaves) -> dict:
     cases += [("layout", "2 blocks", K, 131072, 65536), ("layout", "block 128", 16, 4096, 128),
               ("layout", "ragged", 3, 1000, 256)]
     fmnist_srcs = [torch.from_numpy(p).cuda() for p in _matchings(0.3, 0).matchings]
-    out = {name: dict(max_abs_err=0.0, rows=[]) for name in KERNELS}
+    out = {name: dict(max_abs_err=0.0, rows=[]) for name in QUANT}
 
     def diff(a, b):
         return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
@@ -319,8 +384,7 @@ def phase_kernel(mlp_leaves, cnn_leaves) -> dict:
         for name, (call, plain) in calls.items():
             ms = cuda_ms(call)
             plain_ms = cuda_ms(plain)
-            _, avg = profiled(call, 50)
-            dev_ms = device_us_per_call(avg, KERNELS[name][2]) / 1e3
+            dev_ms = device_ms(call, 50, KERNELS[name][2])
             bound, by = kernel_bound(name, k, d, n_blk)
             out[name]["rows"].append(dict(group=group, leaf=leaf, k=k, d=d, blocks=n_blk, ms=ms,
                                           device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
@@ -767,6 +831,390 @@ def phase_parity(spec_cls, cfg_cls) -> dict:
     return out
 
 
+# -- serving: B.6 / B.7 and the LM path ---------------------------------------
+
+def _pairs(s: int, t: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of one (batch, head), positions from 0."""
+    n = 0
+    for qi in range(s):
+        lo = 0 if window is None else max(0, qi - window + 1)
+        hi = min(t, qi + 1) if causal else t
+        n += max(0, hi - lo)
+    return n
+
+
+def flash_bound(b, h, kvh, s, t, hd, causal, window) -> tuple[float, str]:
+    """Least time of one B.6 call: q, k, v read and out written once at the
+    HBM rate, against 4 hd float operations per unmasked pair (two for q.k,
+    two for p.v) at the float32 FMA peak."""
+    n_bytes = 4 * (2 * b * h * s * hd + 2 * b * kvh * t * hd)
+    ops = 4 * b * h * hd * _pairs(s, t, causal, window)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def wkv6_bound(b, h, t, hd) -> tuple[float, str]:
+    """Least time of one B.7 call: r, k, v, w read, y and the final state
+    written once, u read once, against 4 hd^2 float operations per (b, h, t)
+    at the float32 FMA peak."""
+    n_bytes = 4 * (5 * b * h * t * hd + b * h * hd * hd + h * hd)
+    ops = 4 * b * h * t * hd * hd
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / max |want| over a pair of tensors."""
+    scale = float(want.abs().max())
+    return float((got.double() - want.double()).abs().max()) / max(scale, 1e-30)
+
+
+def phase_serve_kernels() -> dict:
+    """B.6 and B.7 against their plain versions at the serving shapes, on
+    the model's memory layout (strided (B, S, H, hd) views)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rwkv6_scan import kernel as wk
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    flash_cases = [  # tag, b, h, kvh, s, hd, window, softcap
+        ("qwen2-0.5b prefill", 4, 14, 2, 512, 64, None, None),
+        ("hd 80, window 4096", 2, 32, 8, 512, 80, 4096, None),
+        ("hd 128, window 64, softcap 50", 2, 32, 16, 512, 128, 64, 50.0),
+        ("G = 1", 2, 8, 8, 512, 64, None, None),
+        ("ragged S = 300", 4, 14, 2, 300, 64, None, None),
+    ]
+    out = {"flash_attention_fwd": dict(max_abs_err=0.0, rows=[]),
+           "wkv6_scan": dict(max_abs_err=0.0, rows=[])}
+    for tag, b, h, kvh, s, hd, window, softcap in flash_cases:
+        q = randn(b, s, h, hd).permute(0, 2, 1, 3)
+        k, v = (randn(b, s, kvh, hd).permute(0, 2, 1, 3) for _ in range(2))
+        kw = dict(causal=True, window=window, softcap=softcap)
+        got, want = fk.flash_attention_fwd(q, k, v, **kw), attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        out["flash_attention_fwd"]["max_abs_err"] = max(out["flash_attention_fwd"]["max_abs_err"],
+                                                        err)
+        if not torch.allclose(got, want, rtol=SERVE_TOL, atol=SERVE_TOL):
+            raise AssertionError(f"[serve-kernel] B.6 {tag}: kernel != plain (max abs err {err})")
+        ms = cuda_ms(lambda: fk.flash_attention_fwd(q, k, v, **kw), iters=50)
+        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=10, warmup=2)
+        dev_ms = device_ms(lambda: fk.flash_attention_fwd(q, k, v, **kw), 20,
+                           KERNELS["flash_attention_fwd"][2])
+        bound, by = flash_bound(b, h, kvh, s, s, hd, True, window)
+        row = dict(case=tag, b=b, h=h, kvh=kvh, s=s, hd=hd, window=window, softcap=softcap,
+                   max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                   bound_by=by, library_ms=None)
+        if window is None and softcap is None:  # the yardstick: one PyTorch call, contiguous
+            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+            sdpa = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
+            if not torch.allclose(sdpa, want, rtol=1e-4, atol=1e-4):
+                raise AssertionError(f"[serve-kernel] SDPA disagrees with the plain version ({tag})")
+            row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qc, kc, vc, is_causal=True, enable_gqa=True), iters=50)
+        out["flash_attention_fwd"]["rows"].append(row)
+        log("[serve-kernel] " + json.dumps(row))
+
+    for tag, b, h, t, hd, decay in (("rwkv6-7b prefill", 4, 64, 256, 64, "random"),
+                                    ("rwkv6-7b prefill, init decay", 4, 64, 256, 64, "init"),
+                                    ("ragged T = 100", 4, 64, 100, 64, "random")):
+        r, k, v = (randn(b, t, h, hd).permute(0, 2, 1, 3) for _ in range(3))
+        if decay == "random":
+            w = torch.rand((b, t, h, hd), generator=gen, device="cuda").permute(0, 2, 1, 3)
+        else:  # exp(-exp(decay_base = -6)): the state hardly decays
+            w = torch.full((b, t, h, hd), math.exp(-math.exp(-6.0)), device="cuda"
+                           ).permute(0, 2, 1, 3)
+        u = 0.5 * randn(h, hd)
+        (y, st), (y_p, st_p) = wk.wkv6_scan(r, k, v, w, u), wkv6_ref(r, k, v, w, u)
+        torch.cuda.synchronize()
+        errs = {}
+        for what, got, want in (("y", y, y_p), ("state", st, st_p)):
+            scale = float(want.abs().max())
+            errs[what] = float((got - want).abs().max())
+            errs[what + "_max_abs"] = scale
+            if not torch.allclose(got, want, rtol=SERVE_TOL, atol=SERVE_TOL * scale):
+                raise AssertionError(f"[serve-kernel] B.7 {tag} {what}: kernel != plain "
+                                     f"(max abs err {errs[what]}, max |{what}| {scale})")
+        out["wkv6_scan"]["max_abs_err"] = max(out["wkv6_scan"]["max_abs_err"], errs["y"],
+                                              errs["state"])
+        ms = cuda_ms(lambda: wk.wkv6_scan(r, k, v, w, u), iters=50)
+        plain_ms = cuda_ms(lambda: wkv6_ref(r, k, v, w, u), iters=5, warmup=1)
+        dev_ms = device_ms(lambda: wk.wkv6_scan(r, k, v, w, u), 20, KERNELS["wkv6_scan"][2])
+        bound, by = wkv6_bound(b, h, t, hd)
+        row = dict(case=tag, b=b, h=h, t=t, hd=hd, **errs, ms=ms, device_ms=dev_ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
+        out["wkv6_scan"]["rows"].append(row)
+        log("[serve-kernel] " + json.dumps(row))
+    return out
+
+
+def _clone(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return [_clone(v) for v in tree]
+
+
+def _leaves(cache) -> dict:
+    from repro_torch.utils.tree import flatten
+
+    return flatten({"groups": cache["groups"],
+                    "head": {str(i): c for i, c in enumerate(cache["head"])}})
+
+
+def _generate(model, params, prompt, gen_len: int, use_prefill: bool):
+    """Greedy generation by hand, keeping what the comparisons need: the
+    prompt's last logits, the cache right after the prompt, the tokens and
+    each step's top-2 logit gap.  ``use_prefill=False`` is the decode-only
+    path (every prompt token through decode_step, no kernel)."""
+    import torch
+
+    from repro_torch.serve import merge_prefill_cache
+
+    b, s0 = prompt.shape
+    if use_prefill:
+        logits, pf = model.prefill(params, {"tokens": prompt})
+        cache = merge_prefill_cache(model, pf, b, s0 + gen_len, s0)
+    else:
+        cache = model.init_cache(b, s0 + gen_len, prompt.device)
+        for t in range(s0):
+            logits, cache = model.decode_step(params, prompt[:, t:t + 1], t, cache)
+    first, first_cache = logits.clone(), _clone(cache)
+    toks, gaps = [], []
+    for t in range(gen_len):
+        top = logits.topk(2, dim=-1).values
+        gaps.append(top[:, 0] - top[:, 1])
+        toks.append(logits.argmax(dim=-1))
+        logits, cache = model.decode_step(params, toks[-1][:, None], s0 + t, cache)
+    return first, first_cache, torch.stack(toks, 1), torch.stack(gaps, 1)
+
+
+def _same_tokens(tag, got, want, gaps, tol) -> int:
+    """Tokens must agree row by row up to the first step where the
+    reference's top-2 gap is within ``tol`` (a near tie that rounding may
+    break either way; later steps then see other inputs).  Returns the
+    count of identical tokens before that point."""
+    same = 0
+    for row in range(want.shape[0]):
+        for t in range(want.shape[1]):
+            if int(got[row, t]) == int(want[row, t]):
+                same += 1
+                continue
+            if float(gaps[row, t]) > tol:
+                raise AssertionError(f"[{tag}] row {row} step {t}: token {int(got[row, t])} vs "
+                                     f"{int(want[row, t])} with a top-2 gap of "
+                                     f"{float(gaps[row, t])} > {tol}")
+            break
+    return same
+
+
+def _compare(tag, logits, cache, ref_logits, ref_cache, rel) -> dict:
+    d_logits = _rel_err(logits, ref_logits)
+    got, want = _leaves(cache), _leaves(ref_cache)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"[{tag}] cache leaves differ: {sorted(got)} vs {sorted(want)}")
+    d_cache = {name: _rel_err(got[name].to(want[name].device), want[name]) for name in want}
+    worst = max(d_cache.values())
+    if not (d_logits <= rel and worst <= rel):
+        raise AssertionError(f"[{tag}] logits {d_logits}, cache {worst} (relative to max |x|) "
+                             f"> {rel}")
+    return dict(logits_rel_err=d_logits, cache_rel_err_max=worst,
+                cache_worst_leaf=max(d_cache, key=d_cache.get))
+
+
+def _serve_model(arch: str, n_layers: int | None = None):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import TransformerLM
+
+    cfg = get_arch(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return TransformerLM(cfg)
+
+
+def _serve_profile(model, params, prompt, decode_steps: int) -> dict:
+    """One prefill and ``decode_steps`` decode steps under torch.profiler."""
+    from repro_torch.serve import merge_prefill_cache
+
+    b, s0 = prompt.shape
+    out = {}
+    state = {}
+
+    def prefill():
+        state["logits"], state["pf"] = model.prefill(params, {"tokens": prompt})
+
+    def decode():
+        cache = merge_prefill_cache(model, state["pf"], b, s0 + decode_steps, s0)
+        logits = state["logits"]
+        for t in range(decode_steps):
+            logits, cache = model.decode_step(params, logits.argmax(-1)[:, None], s0 + t, cache)
+
+    for phase, fn in (("prefill", prefill), (f"decode x{decode_steps}", decode)):
+        wall, avg = profiled(fn, 1)
+        dev = device_events(avg)
+        busy_us = sum(e.self_device_time_total for e in dev)
+        top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+        out[phase] = dict(wall_ms=1e3 * wall, device_busy_ms=busy_us / 1e3,
+                          device_busy_share=busy_us / 1e6 / wall,
+                          device_ops=sum(e.count for e in dev),
+                          top=[(e.key[:48], round(e.self_device_time_total / 1e3, 3), e.count)
+                               for e in top])
+        log(f"[serve] profile {phase}: " + json.dumps(out[phase]))
+    return out
+
+
+def _layerwise(model, params, prompt) -> dict:
+    """Each rwkv layer's prefill form (one B.7 launch) against its decode
+    form (every prompt token through the layer's decode step from a fresh
+    state), both fed the same input: the prefill path's own hidden states,
+    so rounding differences do not compound from layer to layer.  Returns
+    the largest output and state differences, relative to their largest
+    value."""
+    import torch
+
+    from repro_torch.models.ssm import rwkv_init_state
+
+    b, s = prompt.shape
+    x = model._input_embed(params, {"tokens": prompt})
+    worst = {"layer_out_rel_err": 0.0, "layer_state_rel_err": 0.0}
+    for blk, ffn, p, _ in model._layers(params):
+        if blk != "rwkv":
+            raise ValueError(f"layer by layer is for rwkv blocks, got {blk!r}")
+        y, state = model._apply_layer_fwd(p, x, blk, ffn, True)
+        cache = rwkv_init_state(model.cfg, b, x.device)
+        ys = []
+        for t in range(s):
+            y_t, cache = model._apply_layer_decode(p, x[:, t:t + 1], blk, ffn, t, cache)
+            ys.append(y_t)
+        worst["layer_out_rel_err"] = max(worst["layer_out_rel_err"],
+                                         _rel_err(y, torch.cat(ys, dim=1)))
+        for name, v in state.items():
+            worst["layer_state_rel_err"] = max(worst["layer_state_rel_err"],
+                                               _rel_err(v, cache[name]))
+        x = y
+    return worst
+
+
+def phase_serve(arch: str, prompt_len: int, gen_len: int, kernel: str, profile: bool,
+                end_to_end: bool) -> dict:
+    """One model at full width and depth on the card: the main path
+    (timed_generate) with its launches counted, held against the
+    decode-only path: end to end (logits, caches, tokens) when
+    ``end_to_end``, else layer by layer (``_layerwise``) with the end-to-end
+    gaps recorded.  A randomly initialised rwkv6-7b amplifies float32
+    rounding from layer to layer (the reference's own prefill and decode
+    paths part by 2.6e-6 at 2 layers and 5.8e-3 at 32, at d = 256 on the
+    CPU: tests/rwkv_depth_sweep.py), so its two paths' logits part by O(1) at 32 layers whatever the
+    kernel does; each layer is still held at SERVE_REL."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import timed_generate
+
+    t_start = time.perf_counter()
+    model = _serve_model(arch)
+    cfg = model.cfg
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_BATCH, prompt_len))).cuda()
+    per_prefill = sum(blk != "rwkv" for blk, _ in cfg._full_pattern()) \
+        if kernel == "flash_attention_fwd" else sum(blk == "rwkv" for blk, _ in cfg._full_pattern())
+    rec = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               params=model.num_params(), batch=SERVE_BATCH, prompt_len=prompt_len,
+               gen_len=gen_len, init_s=time.perf_counter() - t_start)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_counts()
+        tokens, stats = timed_generate(model, params, prompt, gen_len)
+        counts = kernel_counts()
+        check_counts(f"serve {arch}", counts, {kernel: 2 * per_prefill})  # 2 prefill calls
+        rec.update(launches=counts[kernel][0], launches_per_prefill=per_prefill,
+                   prefill_tok_s=stats["prefill"]["tok_s"],
+                   prefill_steady_s=stats["prefill"]["steady_s"],
+                   prefill_first_call_extra_s=stats["prefill"]["compile_s"],
+                   decode_ms_per_token=1e3 * stats["decode"]["steady_s"] / max(1, gen_len - 1),
+                   decode_tok_s=stats["decode"]["tok_s"])
+        reset_counts()
+        logits, cache, toks, _ = _generate(model, params, prompt, gen_len, use_prefill=True)
+        check_counts(f"serve {arch} one prefill", kernel_counts(), {kernel: per_prefill})
+        if not torch.equal(toks, tokens):
+            raise AssertionError(f"[serve] {arch}: timed_generate and a second greedy run differ")
+        t0 = time.perf_counter()
+        ref_logits, ref_cache, ref_toks, gaps = _generate(model, params, prompt, gen_len,
+                                                          use_prefill=False)
+        rec["decode_only_s"] = time.perf_counter() - t0
+        tol = SERVE_REL * float(ref_logits.abs().max())
+        if end_to_end:
+            rec.update(_compare(f"serve {arch}", logits, cache, ref_logits, ref_cache,
+                                SERVE_REL))
+            rec["tokens_identical"] = _same_tokens(f"serve {arch}", tokens, ref_toks, gaps, tol)
+        else:
+            rec["end_to_end_logits_rel_err"] = _rel_err(logits, ref_logits)
+            rec["end_to_end_tokens_identical"] = int((tokens == ref_toks).sum())
+            t0 = time.perf_counter()
+            rec.update(_layerwise(model, params, prompt))
+            rec["layerwise_s"] = time.perf_counter() - t0
+            if max(rec["layer_out_rel_err"], rec["layer_state_rel_err"]) > SERVE_REL:
+                raise AssertionError(f"[serve] {arch}: a layer's prefill and decode forms "
+                                     f"differ by more than {SERVE_REL}: {rec}")
+        rec["tokens_total"] = tokens.numel()
+        if not all(bool(torch.isfinite(x).all()) for x in (logits, ref_logits)):
+            raise AssertionError(f"[serve] {arch}: logits not finite")
+        if profile:
+            rec["profile"] = _serve_profile(model, params, prompt, 16)
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["phase_s"] = time.perf_counter() - t_start
+    log("[serve] " + json.dumps({k: v for k, v in rec.items() if k != "profile"}))
+    del params, cache, ref_cache
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve_parity(arch: str, prompt_len: int) -> dict:
+    """The model cut to 2 layers at full width: the same seeded weights on
+    the card (kernels) and on the CPU (plain versions)."""
+    import numpy as np
+    import torch
+
+    model = _serve_model(arch, n_layers=2)
+    params = model.init(torch.Generator().manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, model.cfg.vocab, (SERVE_BATCH, prompt_len)))
+    runs = {}
+    with torch.inference_mode():
+        for device in ("cuda", "cpu"):
+            reset_counts()
+            p = params if device == "cpu" else {n: t.cuda() for n, t in params.items()}
+            runs[device] = _generate(model, p, prompt.to(device), SERVE_PARITY_GEN, True)
+            counts = kernel_counts()
+            launched = sum(c[0] for c in counts.values())
+            plain = sum(c[1] for c in counts.values())
+            if (device == "cuda") != (launched > 0) or (device == "cpu") != (plain > 0):
+                raise AssertionError(f"[serve-parity] {arch} on {device}: {counts}")
+    (lg, cg, tg, _), (lc, cc, tc, gaps) = runs["cuda"], runs["cpu"]
+    rec = dict(arch=model.cfg.name, n_layers=2, batch=SERVE_BATCH, prompt_len=prompt_len,
+               **_compare(f"serve-parity {arch}", lg.cpu(), cg, lc, cc, SERVE_PARITY_REL))
+    tol = SERVE_PARITY_REL * float(lc.abs().max())
+    rec["tokens_identical"] = _same_tokens(f"serve-parity {arch}", tg.cpu(), tc, gaps, tol)
+    rec["tokens_total"] = tc.numel()
+    log("[serve-parity] " + json.dumps(rec))
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -795,6 +1243,13 @@ def main() -> int:
     phase_profile(TrainerSpec, CompressionConfig)
     phase_cifar(TrainerSpec, CompressionConfig)
     phase_parity(TrainerSpec, CompressionConfig)
+    log(f"[done] training phases in {time.perf_counter() - t_start:.1f} s")
+    serve_kern = phase_serve_kernels()
+    qwen = phase_serve("qwen2_0_5b", 512, 64, "flash_attention_fwd", profile=True,
+                       end_to_end=True)
+    rwkv = phase_serve("rwkv6_7b", 256, 32, "wkv6_scan", profile=False, end_to_end=False)
+    phase_serve_parity("qwen2_0_5b", 64)
+    phase_serve_parity("rwkv6_7b", 32)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     # launches on each kernel's main path: B.2 the dense int8 fmnist run,
     # B.3 the static EF gossip run, B.4/B.5 the memoryless dropout run
@@ -805,20 +1260,25 @@ def main() -> int:
                 gossip["dropout0.2-int8-kernel-memoryless"]["launches"]}
     lines = []
     for name, (source, replaces, _) in KERNELS.items():
-        step = kern[name]["per_step"]["mlp"]
-        bound_by = {r["bound_by"] for r in kern[name]["rows"] if r["group"] == "mlp"}
-        lines.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": path[name][name],
-            "max_abs_err": kern[name]["max_abs_err"],
-            # one call per leaf of the fmnist MLP at the main path's shapes:
-            # ms is the wrapper's call time back to back (host launch cost
-            # included), device_ms the kernels' own time under the profiler
-            "ms": step["ms"], "device_ms": step["device_ms"], "plain_ms": step["plain_ms"],
-            "bound_ms": step["bound_ms"],
-            "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
-            "library_ms": None,
-        })
+        if name in QUANT:
+            step = kern[name]["per_step"]["mlp"]
+            bound_by = {r["bound_by"] for r in kern[name]["rows"] if r["group"] == "mlp"}
+            # one call per leaf of the fmnist MLP at the main path's shapes
+            timing = dict(ms=step["ms"], device_ms=step["device_ms"], plain_ms=step["plain_ms"],
+                          bound_ms=step["bound_ms"],
+                          bound_by="bytes" if bound_by == {"bytes"} else "operations",
+                          library_ms=None)
+            err, launches = kern[name]["max_abs_err"], path[name][name]
+        else:  # one call at the main path's shapes: qwen2-0.5b / rwkv6-7b prefill
+            row = serve_kern[name]["rows"][0]
+            timing = {key: row[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}
+            err = serve_kern[name]["max_abs_err"]
+            launches = (qwen if name == "flash_attention_fwd" else rwkv)["launches"]
+        # ms is the wrapper's call time back to back (host launch cost
+        # included), device_ms the kernels' own time under the profiler
+        lines.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                      "launches": launches, "max_abs_err": err, **timing})
     print(json.dumps({"kernels": lines}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

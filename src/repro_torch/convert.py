@@ -7,6 +7,11 @@ port keeps the same leaves, in the same layout, as a flat dict keyed
 the port's kernels need (OIHW convolution weights) happen inside the model
 functions, never at this boundary, so a parameter, its gradient and its wire
 payload have the same element order on both sides.
+
+The LM's tree (``repro.models.TransformerLM``) carries the same way: its
+stacked layer groups keep their leading group axis (``"groups/l0/mix/wq"``:
+(n_groups, d, H, hd)).  ``repro_torch.utils.tree.unflatten`` rebuilds the
+reference's nesting from a flat dict.
 """
 
 from __future__ import annotations
@@ -17,17 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-
-
-def _flatten(tree: Mapping, prefix: str = "") -> dict:
-    out = {}
-    for key, value in tree.items():
-        name = f"{prefix}{key}"
-        if isinstance(value, Mapping):
-            out.update(_flatten(value, name + "/"))
-        else:
-            out[name] = value
-    return out
+from repro_torch.utils.tree import flatten as _flatten
 
 
 def params_from_numpy(tree: Mapping, device: str | torch.device = "cuda"

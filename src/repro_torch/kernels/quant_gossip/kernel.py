@@ -11,13 +11,9 @@ wrapper                        TPU kernel          source
 ``masked_dequant_accumulate``  B.5 (``:187``)      ``csrc/accumulate.cu``
 =============================  ==================  =========================
 
-Each source's header note gives its bound and design.  Every source is
-compiled with ``nvcc`` for ``sm_90a`` into its own shared library with a
-plain C interface at first use (one ``nvcc`` per source, all started
-together), cached under ``build/kernels/`` at the root of the checkout by a
-hash of the source and the flags, and called through ``ctypes`` on
-PyTorch's current stream.  Nothing is compiled when the module is imported;
-the CPU tests import it without a CUDA toolkit.
+Each source's header note gives its bound and design.  The sources are
+built and loaded by :mod:`repro_torch.kernels._build`, together with every
+other kernel family's.
 
 Every wrapper validates what it is given, raises on anything its kernel
 does not take (it never runs the plain version itself) and adds one to its
@@ -30,33 +26,28 @@ identical so that wire-byte accounting matches what the kernels emit.
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-_CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("quantize.cu", "accumulate.cu")
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from repro_torch.kernels import _build
+
+_CSRC = "quant_gossip/csrc/"
+SOURCES = (_CSRC + "quantize.cu", _CSRC + "accumulate.cu")
+NVCC_FLAGS = _build.NVCC_FLAGS
+build = _build.build
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 # exported symbol -> (source, argtypes)
 _SYMBOLS = {
     "quantize_blockwise_f32":
-        ("quantize.cu", [_P, _P, ctypes.c_float, _P, _P, _P, _LL, _LL, _LL, _P]),
+        (SOURCES[0], (_P, _P, ctypes.c_float, _P, _P, _P, _LL, _LL, _LL, _P)),
     "masked_quantize_blockwise_f32":
-        ("quantize.cu", [_P, _P, _P, ctypes.c_float, _P, _P, _P, _LL, _LL, _LL, _P]),
+        (SOURCES[0], (_P, _P, _P, ctypes.c_float, _P, _P, _P, _LL, _LL, _LL, _P)),
     "dequant_accumulate_f32":
-        ("accumulate.cu", [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P]),
+        (SOURCES[1], (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P)),
     "masked_dequant_accumulate_f32":
-        ("accumulate.cu", [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P]),
+        (SOURCES[1], (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P)),
 }
 
 
@@ -73,69 +64,9 @@ def num_blocks(d: int, block_d: int) -> int:
     return d // _pick_block(d, block_d)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the quant_gossip CUDA kernels need the "
-                       "CUDA toolkit to build")
-
-
-def _lib_path(source: str) -> Path:
-    src = _CSRC / source
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:16]
-    return _BUILD_DIR / f"lib{src.stem}_{tag}.so"
-
-
-def build() -> dict[str, tuple[Path, str]]:
-    """Compile every source in :data:`SOURCES` whose library of this source
-    and these flags is not built yet, one ``nvcc`` per source, all started
-    together.  Returns {source: (library path, compiler output; empty when
-    the library was cached)}."""
-    built: dict[str, tuple[Path, str]] = {}
-    running = []
-    try:
-        for source in SOURCES:
-            lib = _lib_path(source)
-            if lib.exists():
-                built[source] = (lib, "")
-                continue
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / source)],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            running.append((source, lib, tmp, proc))
-        for source, lib, tmp, proc in running:
-            out, err = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {source}:\n{err}")
-            os.replace(tmp, lib)  # atomic: concurrent builders never see a partial file
-            built[source] = (lib, out + err)
-    finally:
-        for _, _, _, proc in running:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    return built
-
-
-@functools.cache
 def _entry(symbol: str):
     source, argtypes = _SYMBOLS[symbol]
-    lib_path, _ = build()[source]
-    fn = getattr(ctypes.CDLL(str(lib_path)), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    return _build.entry(source, symbol, argtypes)
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device, dtype: torch.dtype,
@@ -174,11 +105,8 @@ def _quantize(symbol, x, u, mask, qmax, block_d):
     scratch = torch.zeros((k, n_blk), dtype=torch.int32, device=x.device)
     fn = _entry(symbol)
     masks = () if mask is None else (mask.data_ptr(),)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), u.data_ptr(), *masks, float(qmax), q.data_ptr(),
-                 scales.data_ptr(), scratch.data_ptr(), k, d, block, _stream(x.device))
-    if err != 0:
-        raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")
+    _build.launch(fn, symbol, x.device, x.data_ptr(), u.data_ptr(), *masks, float(qmax),
+                  q.data_ptr(), scales.data_ptr(), scratch.data_ptr(), k, d, block)
     return q, scales, True
 
 
@@ -237,12 +165,9 @@ def _accumulate(symbol, name, acc, q, scales, w, mask, src):
         return out, False
     fn = _entry(symbol)
     masks = () if mask is None else (mask.data_ptr(),)
-    with torch.cuda.device(dev):
-        err = fn(acc.data_ptr(), q.data_ptr(), scales.data_ptr(), w.data_ptr(), *masks,
-                 None if src is None else src.data_ptr(), out.data_ptr(), k, kq, d, n_blk,
-                 _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")
+    _build.launch(fn, symbol, dev, acc.data_ptr(), q.data_ptr(), scales.data_ptr(),
+                  w.data_ptr(), *masks, None if src is None else src.data_ptr(),
+                  out.data_ptr(), k, kq, d, n_blk)
     return out, True
 
 

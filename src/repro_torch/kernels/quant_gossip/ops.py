@@ -17,23 +17,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.quant_gossip import kernel as _k
 from repro_torch.kernels.quant_gossip import ref as _r
-
-
-def _route(name: str, t: torch.Tensor) -> bool:
-    """True for the kernel (CUDA tensors), False for the plain version."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"{name}: unsupported device {t.device}")
 
 
 def quantize_blockwise(x: torch.Tensor, u: torch.Tensor, *, qmax: float = 127.0,
                        block_d: int = 65536):
     """(K, D) f32 -> (q int8 (K, D), per-block scales f32 (K, n_blk))."""
-    if _route("quantize_blockwise", x):
+    if _build.route("quantize_blockwise", x):
         return _k.quantize_blockwise(x, u, qmax=qmax, block_d=block_d)
     quantize_blockwise.plain_calls += 1
     return _r.quantize_blockwise_ref(x, u, qmax=qmax, block_d=block_d)
@@ -45,7 +37,7 @@ def masked_quantize_blockwise(x: torch.Tensor, u: torch.Tensor, mask: torch.Tens
     (q = 0, scale = 0).  Serves the memoryless dynamic gossip wire (θ per
     matching) and the error-feedback dynamic wire (the innovation, once per
     round, under the any-live-link sender mask)."""
-    if _route("masked_quantize_blockwise", x):
+    if _build.route("masked_quantize_blockwise", x):
         return _k.masked_quantize_blockwise(x, u, mask, qmax=qmax, block_d=block_d)
     masked_quantize_blockwise.plain_calls += 1
     return _r.masked_quantize_blockwise_ref(x, u, mask, qmax=qmax, block_d=block_d)
@@ -54,7 +46,7 @@ def masked_quantize_blockwise(x: torch.Tensor, u: torch.Tensor, mask: torch.Tens
 def dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
                        w: torch.Tensor, *, src: torch.Tensor | None = None) -> torch.Tensor:
     """acc + w·dequant(q[src], scales[src]), one fused pass over the payload."""
-    if _route("dequant_accumulate", acc):
+    if _build.route("dequant_accumulate", acc):
         return _k.dequant_accumulate(acc, q, scales, w, src=src)
     dequant_accumulate.plain_calls += 1
     return _r.dequant_accumulate_ref(acc, q, scales, w, src=src)
@@ -65,7 +57,7 @@ def masked_dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.
                               src: torch.Tensor | None = None) -> torch.Tensor:
     """acc + mask·w·dequant(q[src], scales[src]); a masked link contributes
     exactly ``acc`` (bitwise)."""
-    if _route("masked_dequant_accumulate", acc):
+    if _build.route("masked_dequant_accumulate", acc):
         return _k.masked_dequant_accumulate(acc, q, scales, w, mask, src=src)
     masked_dequant_accumulate.plain_calls += 1
     return _r.masked_dequant_accumulate_ref(acc, q, scales, w, mask, src=src)

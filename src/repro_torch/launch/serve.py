@@ -1,0 +1,152 @@
+"""Serving CLI: static-batch generation on one GPU (the port of the static
+path of ``repro.launch.serve``).
+
+:func:`timed_generate` runs one prompt batch through ``prefill`` (B.6 on
+every attn/swa layer, B.7 on every rwkv layer) and then decodes, sampling
+from the previous logits each step, with honest throughput numbers: the
+first call and steady state are reported apart, prefill and decode each get
+their own tok/s, and prompt tokens are never counted as generated.  Weights
+come from the port's own seeded init on the device.  The engine
+(``--engine``, ``--page-size``, ``--int8-kv``) comes with ROADMAP A.12, and
+``--log-dir`` with the telemetry of A.13; each raises.
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
+      --batch 4 --prompt-len 512 --gen-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_7b --smoke \
+      --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.device import resolve_device
+from repro_torch.models import TransformerLM
+from repro_torch.serve.prefill import merge_prefill_cache
+from repro_torch.serve.sampling import sample_tokens
+
+
+def _clock(device: torch.device) -> float:
+    """Host seconds, after the device's queued work is done."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.monotonic()
+
+
+@torch.inference_mode()
+def timed_generate(model: TransformerLM, params: dict, prompt: torch.Tensor,
+                   gen_len: int, temperature: float = 0.0, seed: int = 0,
+                   use_prefill: bool = True):
+    """:func:`repro_torch.serve.greedy_generate` with phase accounting.
+
+    Returns ``(tokens (B, gen_len), stats)``, the reference's stats keys:
+    per phase (``prefill``, ``decode``) the first call's extra seconds over
+    a steady one (``compile_s``: kernel build and load, allocator warm-up;
+    the port compiles nothing per shape), the steady seconds, the tokens
+    that phase processed and their rate.  The prefill runs twice on the
+    same prompt, and the second call's outputs are the ones used.
+    """
+    dev = prompt.device
+    b, s0 = prompt.shape
+    cache_len = s0 + gen_len
+    stats = {"prefill": {"compile_s": 0.0, "steady_s": 0.0, "tokens": 0},
+             "decode": {"compile_s": 0.0, "steady_s": 0.0, "tokens": 0}}
+
+    if use_prefill:
+        t0 = _clock(dev)
+        model.prefill(params, {"tokens": prompt})
+        t1 = _clock(dev)
+        logits, pf = model.prefill(params, {"tokens": prompt})
+        t2 = _clock(dev)
+        stats["prefill"] = {"compile_s": max(0.0, (t1 - t0) - (t2 - t1)),
+                            "steady_s": t2 - t1, "tokens": b * s0}
+        cache = merge_prefill_cache(model, pf, b, cache_len, s0)
+    else:
+        cache = model.init_cache(b, cache_len, dev)
+        logits = None
+        t0 = t1 = _clock(dev)
+        for t in range(s0):
+            logits, cache = model.decode_step(params, prompt[:, t:t + 1], t, cache)
+            if t == 0:
+                t1 = _clock(dev)
+        t2 = _clock(dev)
+        stats["prefill"] = {"compile_s": t1 - t0, "steady_s": t2 - t1,
+                            "tokens": b * max(0, s0 - 1)}
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    temp = torch.full((b,), temperature, dtype=torch.float32, device=dev)
+    outs = []
+    t0 = t1 = _clock(dev)
+    for t in range(gen_len):
+        tok = sample_tokens(logits, gen, temp)
+        logits, cache = model.decode_step(params, tok[:, None], s0 + t, cache)
+        outs.append(tok)
+        if t == 0:
+            t1 = _clock(dev)
+    out = torch.stack(outs, dim=1)
+    t2 = _clock(dev)
+    stats["decode"] = {"compile_s": t1 - t0 if gen_len else 0.0,
+                       "steady_s": t2 - t1 if gen_len else 0.0,
+                       "tokens": b * max(0, gen_len - 1)}
+    for ph in stats.values():
+        ph["tok_s"] = ph["tokens"] / ph["steady_s"] if ph["steady_s"] else 0.0
+    return out, stats
+
+
+def _run_static(args, model, params, cfg, device) -> None:
+    rng = np.random.default_rng(args.seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
+                              ).to(device)
+    out, stats = timed_generate(model, params, prompt, args.gen_len, args.temperature,
+                                args.seed, use_prefill=not args.no_prefill)
+    pf, dc = stats["prefill"], stats["decode"]
+    print(f"generated {tuple(out.shape)}")
+    print(f"prefill: {pf['tokens']} prompt tok, first call +{pf['compile_s']:.2f}s,"
+          f" steady {pf['steady_s']:.3f}s -> {pf['tok_s']:.1f} tok/s")
+    print(f"decode:  {dc['tokens']} new tok,    first call +{dc['compile_s']:.2f}s,"
+          f" steady {dc['steady_s']:.3f}s -> {dc['tok_s']:.1f} tok/s")
+    print("sample:", out[0][:16].cpu().numpy())
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-prefill", action="store_true",
+                    help="force the token-by-token decode-path prompt loop")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--engine", action="store_true", help="not ported (ROADMAP A.12)")
+    ap.add_argument("--int8-kv", action="store_true", help="not ported (ROADMAP A.12)")
+    ap.add_argument("--page-size", type=int, default=None, help="not ported (ROADMAP A.12)")
+    ap.add_argument("--log-dir", default=None, help="not ported (ROADMAP A.13)")
+    args = ap.parse_args(argv)
+    for flag, on, item in (("--engine", args.engine, "A.12"),
+                           ("--int8-kv", args.int8_kv, "A.12"),
+                           ("--page-size", args.page_size is not None, "A.12"),
+                           ("--log-dir", args.log_dir is not None, "A.13")):
+        if on:
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
+
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch, smoke=args.smoke)
+    model = TransformerLM(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(args.seed))
+    print(f"serving {cfg.name}: {model.num_params():,} params, batch={args.batch} "
+          f"on {device}")
+    _run_static(args, model, params, cfg, device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,3 +1,4 @@
+from repro_torch.models.config import ArchConfig, MoEConfig, ShapeConfig, SHAPES
 from repro_torch.models.paper_nets import (
     cnn_apply,
     cnn_init,
@@ -6,6 +7,8 @@ from repro_torch.models.paper_nets import (
     mlp_init,
     softmax_xent,
 )
+from repro_torch.models.transformer import TransformerLM
 
-__all__ = ["cnn_apply", "cnn_init", "make_classifier_loss", "mlp_apply",
-           "mlp_init", "softmax_xent"]
+__all__ = ["ArchConfig", "MoEConfig", "SHAPES", "ShapeConfig", "TransformerLM",
+           "cnn_apply", "cnn_init", "make_classifier_loss", "mlp_apply", "mlp_init",
+           "softmax_xent"]

@@ -1,0 +1,80 @@
+"""Shared neural building blocks over the port's flat parameter dicts (the
+port of ``repro.models.layers``).
+
+Each function takes the dict of one module's leaves (``{"scale": ...}``,
+``{"w_gate": ..., "w_up": ..., "w_down": ...}``).  ``chunked_logits_xent``
+serves LM training and comes with that slice (ROADMAP A.11).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import params as pr
+
+
+def rmsnorm_decl(d: int) -> dict:
+    return {"scale": pr.ones((d,), ("embed",))}
+
+
+def rmsnorm(p, x, eps: float = 1e-6):
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps) * p["scale"].float()
+    return out.to(x.dtype)
+
+
+def softcap(x, cap: float | None):
+    """Gemma2-style logit soft-capping: cap * tanh(x / cap)."""
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+# -- rotary position embeddings ---------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: broadcastable to (..., seq)."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)               # (hd/2,)
+    angles = positions[..., None].float() * freqs                # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., None, :]                        # (..., seq, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- GLU MLP ------------------------------------------------------------------
+
+def glu_mlp_decl(d_model: int, d_ff: int) -> dict:
+    return {
+        "w_gate": pr.normal((d_model, d_ff), ("embed", "mlp"), fan_in=d_model),
+        "w_up": pr.normal((d_model, d_ff), ("embed", "mlp"), fan_in=d_model),
+        "w_down": pr.normal((d_ff, d_model), ("mlp", "embed"), fan_in=d_ff),
+    }
+
+
+def glu_mlp(p, x, compute_dtype=None):
+    dt = compute_dtype or x.dtype
+    x = x.to(dt)
+    gate = F.silu(x @ p["w_gate"].to(dt))
+    up = x @ p["w_up"].to(dt)
+    return (gate * up) @ p["w_down"].to(dt)
+
+
+# -- embeddings ---------------------------------------------------------------
+
+def embedding_decl(vocab: int, d_model: int) -> dict:
+    return {"table": pr.normal((vocab, d_model), ("vocab", "embed"), fan_in=d_model)}
+
+
+def embed(p, tokens, compute_dtype=None):
+    out = p["table"][tokens]
+    return out.to(compute_dtype) if compute_dtype else out

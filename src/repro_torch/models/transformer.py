@@ -1,0 +1,250 @@
+"""Decoder-only LM over a tiled ``(block, ffn)`` pattern, for serving (the
+port of ``repro.models.transformer``).
+
+A model is ``ArchConfig.layer_pattern`` x ``ffn_pattern`` applied over
+``n_groups`` repeats, with optional leading layers outside the groups
+(``first_k_dense``).  The port serves the block kinds ``attn`` (full causal
+GQA), ``swa`` (sliding-window GQA) and ``rwkv`` (RWKV6 time + channel mix)
+with the dense GLU FFN or none, over token inputs:
+
+  prefill(params, batch)               — whole prompt -> (last logits, caches)
+  decode_step(params, tok, pos, cache) — one token against the cache
+  logits_all(params, batch)            — every position's logits (eval)
+
+The prefill's attention is one launch of the flash-attention kernel (B.6)
+per attn/swa layer and its RWKV recurrence one launch of the WKV6 kernel
+(B.7) per rwkv layer, on the card.  The layers run as a Python loop over
+the head layers and the groups (the reference's ``lax.scan`` and remat have
+no counterpart here).
+
+Parameters are the port's flat dict (``"groups/l0/mix/wq"``, with the
+groups' leading axis as in the reference).  ``moe`` FFNs, ``mamba`` blocks
+and the stub frontends raise at construction, ``loss`` raises: they come
+with later slices (ROADMAP A.11); the paged cache comes with A.12.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models import params as pr
+from repro_torch.models.attention import (
+    attention_decl,
+    attention_decode,
+    attention_forward,
+    init_kv_cache,
+)
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import (
+    embed,
+    embedding_decl,
+    glu_mlp,
+    glu_mlp_decl,
+    rmsnorm,
+    rmsnorm_decl,
+    softcap,
+)
+from repro_torch.models.ssm import rwkv_decl, rwkv_decode, rwkv_forward, rwkv_init_state
+from repro_torch.utils.tree import flatten, subtree
+
+_BLOCKS = ("attn", "swa", "rwkv")
+_FFNS = ("dense", "none")
+
+
+def _layer_decl(cfg: ArchConfig, blk: str, ffn: str) -> dict:
+    d: dict = {"norm1": rmsnorm_decl(cfg.d_model)}
+    d["mix"] = rwkv_decl(cfg) if blk == "rwkv" else attention_decl(cfg)
+    if ffn == "dense":
+        d["norm2"] = rmsnorm_decl(cfg.d_model)
+        d["ffn"] = glu_mlp_decl(cfg.d_model, cfg.d_ff)
+    return d
+
+
+def _stack(decl: dict, n: int) -> dict:
+    """Prepend the (n_groups, ...) 'layers' axis to every decl leaf."""
+    return {name: pr.ParamDecl((n,) + d.shape, ("layers",) + d.axes, d.init, d.scale,
+                               d.dtype)
+            for name, d in flatten(decl).items()}
+
+
+def _logits(x, table, cap):
+    return softcap(x.float() @ table.float().t(), cap)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerLM:
+    cfg: ArchConfig
+
+    def __post_init__(self):
+        cfg = self.cfg
+        if cfg.frontend != "token":
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.frontend} frontend is not ported yet (ROADMAP A.11)")
+        for blk, ffn in cfg._full_pattern():
+            if blk not in _BLOCKS:
+                raise NotImplementedError(
+                    f"{cfg.name}: {blk!r} blocks are not ported yet (ROADMAP A.11)")
+            if ffn not in _FFNS:
+                raise NotImplementedError(
+                    f"{cfg.name}: {ffn!r} FFNs are not ported yet (ROADMAP A.11)")
+
+    # -- parameters -----------------------------------------------------------
+
+    def decl(self) -> dict[str, pr.ParamDecl]:
+        """Every parameter's declaration, flat and keyed ``"a/b"``."""
+        cfg = self.cfg
+        group = {f"l{i}": _layer_decl(cfg, blk, ffn)
+                 for i, (blk, ffn) in enumerate(cfg.group_pattern())}
+        d = {"embedding": embedding_decl(cfg.vocab, cfg.d_model),
+             "final_norm": rmsnorm_decl(cfg.d_model)}
+        if cfg.first_k_dense:
+            d["head_layers"] = {f"h{i}": _layer_decl(cfg, blk, ffn)
+                                for i, (blk, ffn) in enumerate(cfg.head_layers())}
+        if not cfg.tie_embeddings:
+            d["lm_head"] = {"table": pr.normal((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                                               fan_in=cfg.d_model)}
+        out = flatten(d)
+        out.update({f"groups/{n}": v for n, v in _stack(group, cfg.n_groups).items()})
+        return out
+
+    def init(self, gen: torch.Generator) -> dict[str, torch.Tensor]:
+        """Seeded weights on ``gen``'s device."""
+        return pr.init_tree(gen, self.decl(), gen.device)
+
+    def param_shapes(self) -> dict[str, torch.Tensor]:
+        return pr.shape_tree(self.decl())
+
+    def num_params(self) -> int:
+        return pr.count_params(self.decl())
+
+    # -- helpers --------------------------------------------------------------
+
+    def _unembed_table(self, params):
+        if self.cfg.tie_embeddings:
+            return params["embedding/table"]
+        return params["lm_head/table"]
+
+    def _input_embed(self, params, batch):
+        return embed(subtree(params, "embedding"), batch["tokens"], self.cfg.compute_dtype)
+
+    def _layers(self, params):
+        """[(block, ffn, the layer's leaves, where its cache lives)] in order:
+        the head layers, then each group's pattern."""
+        cfg = self.cfg
+        out = []
+        for i, (blk, ffn) in enumerate(cfg.head_layers()):
+            out.append((blk, ffn, subtree(params, f"head_layers/h{i}"), ("head", i, None)))
+        group = [(blk, ffn, subtree(params, f"groups/l{i}"))
+                 for i, (blk, ffn) in enumerate(cfg.group_pattern())]
+        for g in range(cfg.n_groups):
+            for i, (blk, ffn, p) in enumerate(group):
+                out.append((blk, ffn, {n: t[g] for n, t in p.items()},
+                            ("groups", f"l{i}", g)))
+        return out
+
+    # -- layer application ----------------------------------------------------
+
+    def _ffn(self, p, x, ffn):
+        if ffn == "dense":
+            h2 = rmsnorm(subtree(p, "norm2"), x, self.cfg.rmsnorm_eps)
+            x = x + glu_mlp(subtree(p, "ffn"), h2, self.cfg.compute_dtype).to(x.dtype)
+        return x
+
+    def _apply_layer_fwd(self, p, x, blk, ffn, want_cache: bool):
+        """Full-sequence path; returns (x, new_cache_or_None)."""
+        cfg = self.cfg
+        h = rmsnorm(subtree(p, "norm1"), x, cfg.rmsnorm_eps)
+        mix = subtree(p, "mix")
+        new_cache = None
+        if blk in ("attn", "swa"):
+            out, kv = attention_forward(mix, h, cfg, kind=blk, return_kv=True)
+            window = cfg.sliding_window if blk == "swa" else None
+            if window is not None and kv["k"].shape[1] > window:
+                kv = {k: v[:, -window:] for k, v in kv.items()}
+            new_cache = kv if want_cache else None
+        else:  # rwkv
+            out, st = rwkv_forward(mix, h, cfg)
+            new_cache = st if want_cache else None
+        return self._ffn(p, x + out, ffn), new_cache
+
+    def _apply_layer_decode(self, p, x, blk, ffn, pos, cache):
+        cfg = self.cfg
+        h = rmsnorm(subtree(p, "norm1"), x, cfg.rmsnorm_eps)
+        mix = subtree(p, "mix")
+        if blk in ("attn", "swa"):
+            out, new_cache = attention_decode(mix, h, cfg, kind=blk, cache=cache, pos=pos)
+        else:  # rwkv
+            out, new_cache = rwkv_decode(mix, h, cfg, cache)
+        return self._ffn(p, x + out, ffn), new_cache
+
+    # -- full-sequence forward -------------------------------------------------
+
+    def _forward(self, params, batch, want_cache: bool):
+        cfg = self.cfg
+        x = self._input_embed(params, batch)
+        head, groups = [], {}
+        for blk, ffn, p, (where, name, _) in self._layers(params):
+            x, c = self._apply_layer_fwd(p, x, blk, ffn, want_cache)
+            if where == "head":
+                head.append(c)
+            else:
+                groups.setdefault(name, []).append(c)
+        x = rmsnorm(subtree(params, "final_norm"), x, cfg.rmsnorm_eps)
+        if want_cache:
+            groups = {name: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
+                      for name, cs in groups.items()}
+        return x, (head, groups)
+
+    # -- public API -----------------------------------------------------------
+
+    def loss(self, params, batch):
+        raise NotImplementedError("LM training comes with slice 4 (ROADMAP A.11)")
+
+    def logits_all(self, params, batch):
+        """Full logits over every position (small models / eval only)."""
+        x, _ = self._forward(params, batch, False)
+        return _logits(x, self._unembed_table(params), self.cfg.logit_softcap)
+
+    def prefill(self, params, batch):
+        """Forward the whole prompt ``batch["tokens"]`` (B, S); returns
+        (last-position logits (B, vocab), (head caches, group caches)): KV
+        (B, S, KVH, hd) per attn layer (the last ``window`` positions for
+        swa), the post-prompt state per rwkv layer; group caches stacked on
+        a leading group axis."""
+        x, caches = self._forward(params, batch, True)
+        return _logits(x[:, -1], self._unembed_table(params), self.cfg.logit_softcap), caches
+
+    def init_cache(self, batch: int, seq_len: int, device) -> dict:
+        """Zeroed decode cache for (batch, seq_len) context on ``device``."""
+        cfg = self.cfg
+
+        def layer_cache(blk, lead=()):
+            if blk in ("attn", "swa"):
+                c = init_kv_cache(cfg, batch, seq_len, blk, device)
+            else:
+                c = rwkv_init_state(cfg, batch, device)
+            return {k: v.expand(lead + v.shape).contiguous() for k, v in c.items()}
+
+        return {"head": [layer_cache(blk) for blk, _ in cfg.head_layers()],
+                "groups": {f"l{i}": layer_cache(blk, (cfg.n_groups,))
+                           for i, (blk, _) in enumerate(cfg.group_pattern())}}
+
+    def decode_step(self, params, token, pos: int, cache):
+        """One decode step. token: (B, 1) int; pos: int.
+
+        Updates ``cache`` in place (the new token's K/V slot, the recurrent
+        states) and returns (logits (B, vocab), cache).
+        """
+        cfg = self.cfg
+        x = self._input_embed(params, {"tokens": token})
+        for blk, ffn, p, (where, name, g) in self._layers(params):
+            stored = cache["head"][name] if where == "head" else cache["groups"][name]
+            layer = stored if g is None else {k: v[g] for k, v in stored.items()}
+            x, new = self._apply_layer_decode(p, x, blk, ffn, pos, layer)
+            for k, v in new.items():
+                if v is not layer[k]:  # attention wrote its slot in place already
+                    layer[k].copy_(v)
+        x = rmsnorm(subtree(params, "final_norm"), x, cfg.rmsnorm_eps)
+        return _logits(x[:, 0], self._unembed_table(params), cfg.logit_softcap), cache

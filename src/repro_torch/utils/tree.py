@@ -8,7 +8,40 @@ sums, so every function iterates :func:`leaf_names`.
 
 from __future__ import annotations
 
+from typing import Mapping
+
 import torch
+
+
+def flatten(tree: Mapping, prefix: str = "") -> dict:
+    """A nested dict -> a flat dict keyed ``"a/b"`` (leaves as they are)."""
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(flatten(value, name + "/"))
+        else:
+            out[name] = value
+    return out
+
+
+def unflatten(flat: Mapping) -> dict:
+    """The inverse of :func:`flatten`: ``{"a/b": x}`` -> ``{"a": {"b": x}}``."""
+    out: dict = {}
+    for name, value in flat.items():
+        *path, leaf = name.split("/")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return out
+
+
+def subtree(tree: Mapping, prefix: str) -> dict:
+    """The leaves under ``prefix`` (``"groups/l0/mix"``), keyed by the rest
+    of their name."""
+    cut = len(prefix) + 1
+    return {name[cut:]: v for name, v in tree.items() if name.startswith(prefix + "/")}
 
 
 def leaf_names(tree: dict) -> list[str]:

@@ -9,7 +9,19 @@ each matching of the fmnist graph — at every leaf shape of the paper's MLP
 and CNN with K = 10 (all of them one block per row, including the ragged
 D = 10 and the D = 512,000 of the CNN's fc0/w) and at multi-block layouts.
 The wrappers reject what their kernels do not take, and the dispatchers
-launch on CUDA tensors.  Run it on a machine with a
+launch on CUDA tensors.
+
+The serving kernels are held against their plain versions at rtol = atol =
+2e-5 (the reference's own kernel tests' tolerance): flash attention (B.6)
+at every head dim it is built for, with and without a window, softcap and
+causal mask, at tile-multiple and ragged lengths, on the model's strided
+layout; the WKV6 scan (B.7) at hd 16 and 64, ragged T, from a zero and a
+given state, y and the final state, at rtol 2e-5 and an atol of 2e-5 times
+the largest |value| of the plain version's output: with N(0, 1) inputs and
+the init's decay of 0.9975 over 256 steps the state grows to O(10) and y to
+O(100), and y's 64-term dot products cancel, so the two summation orders
+differ by up to 2e-6 of max |y| (2.2e-4 absolute, measured on an H100).  The LM's prefill on the card launches
+one B.6 per attn/swa layer and one B.7 per rwkv layer and matches the CPU.  Run it on a machine with a
 card with ``PYTHONPATH=src python -m pytest -q tests/test_torch_kernel.py``.
 """
 
@@ -291,3 +303,124 @@ def test_gossip_rounds_on_the_card_match_the_cpu(cuda):
                 torch.testing.assert_close(s_g.hat_mix[n].cpu(), s_c.hat_mix[n], rtol=0,
                                            atol=1e-6)
         assert float(s_g.wire_bits) == float(s_c.wire_bits)
+
+
+# -- serving kernels: flash attention (B.6) and the WKV6 scan (B.7) ------------
+
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import kernel as wk  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ops as wops  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref  # noqa: E402
+from repro_torch.models import TransformerLM  # noqa: E402
+
+SERVE_TOL = dict(rtol=2e-5, atol=2e-5)
+FLASH_CASES = [  # b, h, kvh, s, t, hd, causal, window, softcap
+    (2, 4, 2, 64, 64, 16, True, None, None),
+    (2, 14, 2, 512, 512, 64, True, None, None),      # qwen2-0.5b prefill, B 2
+    (1, 8, 2, 300, 300, 80, True, 64, None),         # h2o-danube's hd, ragged S
+    (1, 8, 4, 200, 200, 128, True, 64, 50.0),        # gemma2's hd and softcap
+    (1, 4, 4, 130, 130, 128, True, None, 50.0),      # G = 1
+    (2, 6, 3, 97, 97, 64, False, None, None),        # non-causal, ragged
+    (1, 4, 1, 33, 77, 16, False, 8, 20.0),           # S != T
+]
+
+
+def _flash_inputs(b, h, kvh, s, t, hd, seed, device, strided):
+    rng = np.random.default_rng(seed)
+    if strided:  # the model's memory: (B, S, H, hd) viewed as (B, H, S, hd)
+        q = rng.standard_normal((b, s, h, hd)).astype(np.float32)
+        k, v = (rng.standard_normal((b, t, kvh, hd)).astype(np.float32) for _ in range(2))
+        return tuple(torch.from_numpy(x).to(device).permute(0, 2, 1, 3) for x in (q, k, v))
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+                 for shape in ((b, h, s, hd), (b, kvh, t, hd), (b, kvh, t, hd)))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("strided", [False, True])
+def test_flash_attention_equals_plain(cuda, case, strided):
+    b, h, kvh, s, t, hd, causal, window, softcap = case
+    q, k, v = _flash_inputs(b, h, kvh, s, t, hd, sum(case[:6]), cuda, strided)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out = fk.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.stride() == q.stride()
+    torch.testing.assert_close(out, attention_ref(q, k, v, **kw), **SERVE_TOL)
+
+
+def _wkv_inputs(b, h, t, hd, seed, device, decay="random"):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((b, t, h, hd)).astype(np.float32) for _ in range(3))
+    if decay == "random":
+        w = rng.uniform(0.0, 1.0, (b, t, h, hd)).astype(np.float32)
+    else:  # the model's init: exp(-exp(-6)) ~ 0.9975
+        w = np.full((b, t, h, hd), np.exp(-np.exp(-6.0)), np.float32)
+    u = (0.5 * rng.standard_normal((h, hd))).astype(np.float32)
+    view = [torch.from_numpy(x).to(device).permute(0, 2, 1, 3) for x in (r, k, v, w)]
+    return (*view, torch.from_numpy(u).to(device))
+
+
+@pytest.mark.parametrize("b,h,t,hd", [(2, 8, 64, 16), (4, 64, 256, 64), (3, 5, 100, 64),
+                                      (1, 2, 1, 16)])
+@pytest.mark.parametrize("decay", ["random", "init"])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv6_equals_plain(cuda, b, h, t, hd, decay, with_state):
+    r, k, v, w, u = _wkv_inputs(b, h, t, hd, b * h + t, cuda, decay)
+    s0 = (torch.randn((b, h, hd, hd), device=cuda) if with_state else None)
+    y, s = wk.wkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    y_p, s_p = wkv6_ref(r, k, v, w, u, s0)
+    assert y.stride() == r.stride()
+    for got, want in ((y, y_p), (s, s_p)):
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("bad", ["bf16", "hd", "grad"])
+def test_serving_kernels_reject_what_they_do_not_take(cuda, bad):
+    q, k, v = _flash_inputs(1, 2, 1, 16, 16, 16, 0, cuda, False)
+    r, kk, vv, w, u = _wkv_inputs(1, 2, 8, 16, 0, cuda)
+    if bad == "bf16":
+        q, r = q.bfloat16(), r.bfloat16()
+    elif bad == "hd":
+        q, k, v = _flash_inputs(1, 2, 1, 16, 16, 32, 0, cuda, False)
+        r, kk, vv, w, u = (x[..., :8] for x in (r, kk, vv, w, u))
+    else:
+        q, r = q.requires_grad_(), r.requires_grad_()
+    with pytest.raises((TypeError, ValueError)):
+        fk.flash_attention_fwd(q, k, v)
+    with pytest.raises((TypeError, ValueError)):
+        wk.wkv6_scan(r, kk, vv, w, u.contiguous())
+
+
+def test_serving_dispatchers_launch_for_cuda_tensors(cuda):
+    q, k, v = _flash_inputs(1, 2, 1, 16, 16, 16, 0, cuda, False)
+    xs = _wkv_inputs(1, 2, 8, 16, 0, cuda)
+    plain = (fops.flash_attention.plain_calls, wops.wkv6.plain_calls)
+    launches = (fk.flash_attention_fwd.launches, wk.wkv6_scan.launches)
+    fops.flash_attention(q, k, v)
+    wops.wkv6(*xs)
+    assert (fops.flash_attention.plain_calls, wops.wkv6.plain_calls) == plain
+    assert (fk.flash_attention_fwd.launches, wk.wkv6_scan.launches) == (
+        launches[0] + 1, launches[1] + 1)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "h2o_danube_1_8b", "gemma2_27b", "rwkv6_7b"])
+def test_lm_prefill_on_the_card_matches_the_cpu(cuda, arch):
+    model = TransformerLM(get_arch(arch, smoke=True))
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, model.cfg.vocab, (2, 40)))
+    with torch.inference_mode():
+        want, want_pf = model.prefill(params, {"tokens": tokens})
+        before = (fk.flash_attention_fwd.launches, wk.wkv6_scan.launches)
+        got, got_pf = model.prefill({n: t.to(cuda) for n, t in params.items()},
+                                    {"tokens": tokens.to(cuda)})
+        torch.cuda.synchronize()
+    kinds = [blk for blk, _ in model.cfg._full_pattern()]
+    assert fk.flash_attention_fwd.launches - before[0] == sum(b != "rwkv" for b in kinds)
+    assert wk.wkv6_scan.launches - before[1] == kinds.count("rwkv")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for name, layer in got_pf[1].items():
+        for leaf, t in layer.items():
+            torch.testing.assert_close(t.cpu(), want_pf[1][name][leaf], rtol=1e-4, atol=1e-4)

@@ -345,7 +345,15 @@ def test_entry_points_raise_without_cuda():
 
 def test_port_imports_neither_jax_nor_repro():
     """Import every repro_torch module and chip_smoke.py (which runs nothing
-    on import) in a fresh interpreter: neither jax nor repro may load."""
+    on import) in a fresh interpreter: neither jax nor repro may load.  The
+    serving slice's modules must be among them."""
+    serving = [f"repro_torch.{m}" for m in (
+        "kernels._build", "kernels.flash_attention.kernel", "kernels.flash_attention.ops",
+        "kernels.flash_attention.ref", "kernels.rwkv6_scan.kernel", "kernels.rwkv6_scan.ops",
+        "kernels.rwkv6_scan.ref", "models.config", "models.params", "models.layers",
+        "models.attention", "models.ssm", "models.transformer", "configs.base",
+        "configs.qwen2_0_5b", "configs.rwkv6_7b", "serve.sampling", "serve.prefill",
+        "launch.serve")]
     script = f"""
 import importlib, importlib.util, pkgutil, sys
 import repro_torch
@@ -358,12 +366,14 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
 assert not bad, bad
+missing = [m for m in {serving!r} if m not in sys.modules]
+assert not missing, missing
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", script], env=env, capture_output=True,
                          text=True, timeout=300, cwd=str(ROOT))
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split("LOADED")[1]) >= 25
+    assert int(out.stdout.split("LOADED")[1]) >= 70
 
 
 def test_paper_schedule_matches_reference():

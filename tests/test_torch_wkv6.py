@@ -1,0 +1,104 @@
+"""The port's WKV6 plain version against the reference's.
+
+The plain version (``repro_torch/kernels/rwkv6_scan/ref.py``) is what the
+port runs on the CPU and what the CUDA kernel (B.7) is held against on the
+card (tests/test_torch_kernel.py).  Here y is held against the reference's
+oracle ``wkv6_ref`` and its Pallas ``wkv6_scan`` in interpret mode on the
+cases of tests/test_kernel_rwkv6.py, at rtol = atol = 2e-5 (those tests'
+tolerance); the final state, which the Pallas kernel drops, against the
+``wkv`` state the reference's ``rwkv_forward`` returns on a smoke block
+with a random ``bonus`` and decay (its init makes u = 0 and w ≈ 0.9975,
+which would hide the u term and the decay), at rtol = atol = 1e-5.  The
+inputs are made with numpy from a seed and handed to both.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as ref_get_arch
+from repro.kernels.rwkv6_scan.kernel import wkv6_scan
+from repro.kernels.rwkv6_scan.ref import wkv6_ref as ref_wkv6
+from repro.models import TransformerLM as RefLM
+from repro.models.ssm import rwkv_forward as ref_rwkv_forward
+from repro_torch import convert
+from repro_torch.configs import get_arch
+from repro_torch.kernels.rwkv6_scan import kernel as wk
+from repro_torch.kernels.rwkv6_scan import ops
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+from repro_torch.models.ssm import rwkv_forward
+from repro_torch.utils.tree import subtree
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _case(seed, b, h, t, hd):
+    """The reference test's distributions: r, k, v ~ 0.5 N(0, 1), w in
+    (0.45, 0.95), u ~ 0.1 N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (0.5 * rng.standard_normal((b, h, t, hd)).astype(np.float32)
+               for _ in range(3))
+    w = (0.5 / (1.0 + np.exp(-rng.standard_normal((b, h, t, hd)))) + 0.45).astype(np.float32)
+    u = (0.1 * rng.standard_normal((h, hd))).astype(np.float32)
+    return r, k, v, w, u
+
+
+def _port(*xs, s0=None):
+    y, s = wkv6_ref(*(torch.from_numpy(x) for x in xs),
+                    None if s0 is None else torch.from_numpy(s0))
+    return y.numpy(), s.numpy()
+
+
+@pytest.mark.parametrize("b,h,t,hd,bt", [(2, 2, 32, 16, 8), (1, 4, 64, 32, 64),
+                                         (2, 1, 16, 8, 4), (1, 2, 64, 16, 16)])
+def test_matches_reference(b, h, t, hd, bt):
+    xs = _case(b * 100 + t, b, h, t, hd)
+    got, _ = _port(*xs)
+    j = tuple(jnp.asarray(x) for x in xs)
+    np.testing.assert_allclose(got, np.asarray(ref_wkv6(*j)), **TOL)
+    np.testing.assert_allclose(got, np.asarray(wkv6_scan(*j, block_t=bt, interpret=True)),
+                               **TOL)
+
+
+def test_state_carries_across_a_split():
+    """Starting the second half from the first half's final state gives the
+    whole run's outputs and final state."""
+    r, k, v, w, u = _case(7, 2, 3, 40, 16)
+    y, s = _port(r, k, v, w, u)
+    y1, s1 = _port(*(x[:, :, :17] for x in (r, k, v, w)), u)
+    y2, s2 = _port(*(x[:, :, 17:] for x in (r, k, v, w)), u, s0=s1)
+    np.testing.assert_allclose(np.concatenate([y1, y2], axis=2), y, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(s2, s, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("seq", [12, 33])
+def test_final_state_matches_reference_rwkv_forward(seq):
+    cfg_ref = ref_get_arch("rwkv6_7b", smoke=True)
+    cfg = get_arch("rwkv6_7b", smoke=True)
+    params = jax.tree.map(np.asarray, RefLM(cfg_ref).init(jax.random.PRNGKey(0)))
+    block = jax.tree.map(lambda a: a[0], params["groups"]["l0"]["mix"])
+    rng = np.random.default_rng(seq)
+    h, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    block["time"]["bonus"] = (0.3 * rng.standard_normal((h, hd))).astype(np.float32)
+    block["time"]["decay_base"] = rng.uniform(-3.0, 1.0, cfg.d_model).astype(np.float32)
+    x = rng.standard_normal((2, seq, cfg.d_model)).astype(np.float32)
+    y_ref, st_ref = ref_rwkv_forward(block, jnp.asarray(x), cfg_ref)
+    p = convert.params_from_numpy(block, device="cpu")
+    y, st = rwkv_forward(p, torch.from_numpy(x), cfg)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), rtol=1e-5, atol=1e-5)
+    for name in ("wkv", "x_time", "x_chan"):
+        np.testing.assert_allclose(st[name].numpy(), np.asarray(st_ref[name]), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+    assert subtree(p, "time")["bonus"].abs().max() > 0
+
+
+def test_dispatcher_runs_the_plain_version_on_cpu_only():
+    xs = tuple(torch.from_numpy(x) for x in _case(3, 1, 2, 10, 16))
+    before, launches = ops.wkv6.plain_calls, wk.wkv6_scan.launches
+    y, s = ops.wkv6(*xs)
+    assert ops.wkv6.plain_calls == before + 1 and wk.wkv6_scan.launches == launches
+    assert y.shape == xs[0].shape and s.shape == (1, 2, 16, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        wk.wkv6_scan(*xs)
