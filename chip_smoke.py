@@ -4,12 +4,13 @@
 
 Drives the port's main paths — the paper's DR-DSGD trainer (Algorithm 2)
 over the dense lowering, and over the gossip lowering on a static and a
-time-varying topology, and static-batch LM serving (prefill, then greedy
-decode) — on the card through their user entry points, and holds every
-CUDA kernel of those paths against its plain PyTorch version:
+time-varying topology, decentralized LM training, and static-batch LM
+serving (prefill, then greedy decode) — on the card through their user
+entry points, and holds every CUDA kernel of those paths against its plain
+PyTorch version:
 
   build    nvcc-compiles every kernel source under src/ (one nvcc per
-           source, all four started together).
+           source, all six started together).
   kernel   the four quant_gossip kernels against their plain versions at
            every leaf shape of the paper's MLP and CNN with K = 10 and at
            three multi-block layouts: quantize_blockwise (B.2) at qmax 127
@@ -20,12 +21,21 @@ CUDA kernel of those paths against its plain PyTorch version:
            accumulations must be equal bit for bit.  Times a call of each
            (CUDA events), its kernels' device time (profiler), the plain
            version, and the memory bound.
+  b1-kernel  the gossip update (B.1) against its plain version: the
+           per-node form on the reference's test cases (d 7 .. 131072, 0-5
+           neighbours, float32 and bfloat16) bit for bit, the node-stacked
+           form at every fmnist leaf (K = 10) and every qwen2-0.5b leaf
+           (K = 8) within STACKED_REL of max |out|; times one call per leaf.
   fmnist   TrainerSpec -> DecentralizedTrainer at the paper's configuration
            (K = 10, ER(p = 0.3) seed 0, Metropolis W, mu = 6, T = 300,
            lr = sqrt(K/T), B = 55, MLP 784-128-64-10): DR-DSGD with the
-           uncompressed dense wire, then with the int8 error-feedback wire
-           served by the CUDA quantizer; kernel launches must be 300 x 6
-           leaves and no plain version called.
+           uncompressed dense wire (SGD and the static W fused into B.1:
+           300 x 6 launches), then with the int8 error-feedback wire served
+           by the CUDA quantizer (300 x 6 launches); no plain version
+           called.
+  b1-nodes one fmnist dense step recomputed node by node through
+           gossip_update_tree (B.1's per-node form, 10 x 6 launches) and
+           held against the fused step.
   gossip   the same configuration over the gossip lowering (a pre-built
            mixer handed to TrainerSpec.build, as the reference's benchmarks
            do), 300 steps on each of four stacks: uncompressed static gossip
@@ -45,6 +55,23 @@ CUDA kernel of those paths against its plain PyTorch version:
            CPU, and 20 steps of the dense int8-kernel wire and of the three
            compressed gossip stacks vs the CPU's plain versions with the
            same uniforms and W_r, at the printed tolerances.
+  bwd-kernel  B.6's backward against autograd of the plain version at
+           qwen2-0.5b's training shapes (B 2, H 14/2, hd 64, S = T = 64 and
+           512) and at the serving shapes below, dq, dk and dv within
+           BWD_REL of their largest |value|; times as below, with SDPA's
+           backward as the yardstick (never on the path).
+  train-lm qwen2-0.5b at full width and depth through the training CLI
+           (train_lm's defaults: K = 8 ring, batch 2, seq 64, lr 0.01, clip
+           1), 20 steps: B.6 forward and backward 24 x 8 per step, B.1 once
+           per leaf, no plain call; every metric finite, the first batch's
+           loss lower after the run, ms per step, tokens per second, peak
+           memory, one profiled step.  Then seq 512 at K = 4, 5 steps
+           (multi-tile B.6 backward).
+  train-parity  qwen2-0.5b cut to 2 layers at full width, K = 4, 3 steps:
+           the same weights and tokens on the card and on the CPU, losses
+           and every leaf within TRAIN_PARITY_REL, updates within
+           UPDATE_REL; one fused step (B.1) against the unfused step from
+           the same state on the card.
   serve-kernel  flash attention (B.6) at qwen2-0.5b's prefill shapes, at hd
            80 and 128 with windows 4096 and 64 and gemma2's softcap 50, at
            G = 1 and at a ragged S = 300; the WKV6 scan (B.7) at rwkv6-7b's
@@ -131,6 +158,15 @@ KERNELS = {
                             TPU + "flash_attention/kernel.py:100", ("flash_fwd_kernel",)),
     "wkv6_scan": (SRC + "rwkv6_scan/csrc/wkv6.cu", TPU + "rwkv6_scan/kernel.py:65",
                   ("wkv6_kernel",)),
+    "gossip_update": (SRC + "gossip_update/csrc/gossip_update.cu",
+                      TPU + "gossip_update/kernel.py:54", ("gossip_update_kernel",)),
+    "gossip_update_stacked": (SRC + "gossip_update/csrc/gossip_update.cu",
+                              TPU + "gossip_update/kernel.py:54",
+                              ("gossip_update_stacked_kernel",)),
+    # the backward of B.6: the reference differentiates its XLA attention
+    "flash_attention_bwd": (SRC + "flash_attention/csrc/flash_bwd.cu",
+                            TPU + "flash_attention/kernel.py:100",
+                            ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")),
 }
 QUANT = tuple(KERNELS)[:4]
 
@@ -251,9 +287,16 @@ def _counters() -> dict:
     from repro_torch.kernels.rwkv6_scan import kernel as wk
     from repro_torch.kernels.rwkv6_scan import ops as wops
 
+    from repro_torch.kernels.gossip_update import kernel as gk
+    from repro_torch.kernels.gossip_update import ops as gops
+
     out = {name: (getattr(qk, name), getattr(qops, name)) for name in QUANT}
     out["flash_attention_fwd"] = (fk.flash_attention_fwd, fops.flash_attention)
     out["wkv6_scan"] = (wk.wkv6_scan, wops.wkv6)
+    out["gossip_update"] = (gk.gossip_update, gops.gossip_update_flat)
+    out["gossip_update_stacked"] = (gk.gossip_update_stacked, gops.gossip_update_stacked)
+    # B.6's dispatcher counts the plain version's calls of both directions
+    out["flash_attention_bwd"] = (fk.flash_attention_bwd, fops.flash_attention)
     return out
 
 
@@ -519,8 +562,9 @@ def phase_fmnist(spec_cls, cfg_cls) -> tuple[dict, dict]:
                            ("int8-kernel", cfg_cls(kind="int8", use_kernel=True))):
         rec, state, counts = _fmnist_run("fmnist", wire, _spec(spec_cls, exp, compress),
                                          exp, fed, batches, params)
+        # the uncompressed dense step is SGD + the static W: fused into B.1
         check_counts(f"fmnist {wire}", counts, {"quantize_blockwise": exp.steps * 6}
-                     if wire == "int8-kernel" else {})
+                     if wire == "int8-kernel" else {"gossip_update_stacked": exp.steps * 6})
         out[wire] = rec
         if wire == "none":
             dense_params = state.params
@@ -1215,6 +1259,423 @@ def phase_serve_parity(arch: str, prompt_len: int) -> dict:
     return rec
 
 
+# -- LM training: B.1 and B.6's backward, and the qwen2-0.5b trainer -------------
+
+LM_ARCH = "qwen2_0_5b"
+LM_NODES, LM_STEPS, LM_SEQ = 8, 20, 64       # train_lm's defaults; 20 steps
+LM_LONG = (512, 4, 5)                       # seq, nodes, steps: multi-tile B.6 tiles
+LM_PARITY = (2, 4, 3)                       # layers, nodes, steps: card vs CPU
+BWD_REL = 1e-4            # B.6 backward vs autograd of the plain version, relative to max
+STACKED_REL = 1e-6        # B.1 stacked (an FMA chain) vs the plain cuBLAS product
+TRAIN_PARITY_REL = 1e-5   # 2-layer qwen2 on the card vs the CPU, relative to max |x|
+UPDATE_REL = 1e-3         # the same runs' parameter updates, relative to the largest
+                          # update of any leaf (a leaf whose own gradient nearly cancels,
+                          # as the key bias's does, differs more relative to itself)
+
+
+def gossip_bound(k: int, d: int, n: int | None, elt: int = 4) -> tuple[float, str]:
+    """Least time of one B.1 call.  Per-node (n neighbours): theta, grad and
+    the neighbours read and out written once, 2 n + 4 float operations per
+    element.  Stacked (n None, K nodes): theta and grad read and out written
+    once, W and the scales read once, 3 K D + 2 K^2 D operations."""
+    if n is None:
+        n_bytes, ops = 3 * k * d * elt + 4 * (k * k + k), 3 * k * d + 2 * k * k * d
+    else:
+        n_bytes, ops = (n + 3) * d * elt + 4 * (n + 2), (2 * n + 4) * d
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_bwd_bound(b, h, kvh, s, t, hd, causal, window) -> tuple[float, str]:
+    """Least time of one B.6 backward call: q, o, dO, k, v and lse read and
+    dq, dk, dv written once at the HBM rate, against 10 hd float operations
+    per unmasked pair (the scores recomputed, then dO.v, dV, dQ and dK: five
+    products of 2 hd each, FlashAttention-2's count) at the float32 peak."""
+    n_bytes = 4 * (4 * b * h * s * hd + 4 * b * kvh * t * hd + b * h * s)
+    ops = 10 * b * h * hd * _pairs(s, t, causal, window)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _time_call(name, call, plain, iters, plain_iters) -> dict:
+    return dict(ms=cuda_ms(call, iters=iters, warmup=2),
+                plain_ms=cuda_ms(plain, iters=plain_iters, warmup=1),
+                device_ms=device_ms(call, max(2, iters // 4), KERNELS[name][2]))
+
+
+def phase_gossip_update_kernels(mlp_leaves) -> dict:
+    """B.1 against its plain version: the per-node form on the reference's
+    test cases (bit for bit), the stacked form at every fmnist leaf (K = 10)
+    and every qwen2-0.5b leaf (K = 8), relative to max |out|.  Times one
+    call per fmnist leaf (per-node: node 0's neighbours) and per qwen2 leaf
+    (stacked)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.graphs import build_graph, metropolis_weights, ring_graph
+    from repro_torch.kernels.gossip_update import kernel as gk
+    from repro_torch.kernels.gossip_update import ref as gref
+
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    out = {"gossip_update": dict(max_abs_err=0.0, rows=[]),
+           "gossip_update_stacked": dict(max_abs_err=0.0, max_rel_err=0.0, rows=[])}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    # per node: d in the reference's cases, n = 0..5, float32 and bfloat16
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (7, 64, 128, 1000, 131072):
+            for n in range(6):
+                theta, grad, nbrs = randn(d, dtype=dtype), randn(d, dtype=dtype), \
+                    randn(n, d, dtype=dtype)
+                w = torch.softmax(randn(n + 1), 0)
+                s = torch.tensor(1.7, device="cuda")
+                got = gk.gossip_update(theta, grad, nbrs, w, s, eta=0.05)
+                want = gref.gossip_update_ref(theta, grad, nbrs, w, s, eta=0.05)
+                err = float((got.float() - want.float()).abs().max())
+                out["gossip_update"]["max_abs_err"] = max(out["gossip_update"]["max_abs_err"],
+                                                          err)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"[b1-kernel] gossip_update d={d} n={n} {dtype}: "
+                                         f"kernel != plain (max abs err {err})")
+    # per node at the fmnist leaves, node 0 of the paper's graph
+    w_fm = metropolis_weights(build_graph("erdos_renyi", K, p=0.3, seed=0))
+    nbr_ids = [j for j in range(K) if j != 0 and w_fm[0, j] > 0]
+    w0 = torch.tensor([w_fm[0, 0]] + [w_fm[0, j] for j in nbr_ids], dtype=torch.float32,
+                      device="cuda")
+    for leaf, d in mlp_leaves:
+        theta, grad, nbrs = randn(d), randn(d), randn(len(nbr_ids), d)
+        s = torch.tensor(1.3, device="cuda")
+        t = _time_call("gossip_update", lambda: gk.gossip_update(theta, grad, nbrs, w0, s, eta=0.1),
+                       lambda: gref.gossip_update_ref(theta, grad, nbrs, w0, s, eta=0.1), 200, 50)
+        bound, by = gossip_bound(1, d, len(nbr_ids))
+        row = dict(group="mlp", leaf=leaf, d=d, n=len(nbr_ids), **t, bound_ms=bound, bound_by=by)
+        out["gossip_update"]["rows"].append(row)
+        log("[b1-kernel] per-node " + json.dumps(row))
+
+    # stacked: every fmnist leaf (K = 10, the paper's W) and every qwen2 leaf (K = 8 ring)
+    lm_shapes = {n: tuple(t.shape) for n, t in _serve_model(LM_ARCH).param_shapes().items()}
+    cases = [("mlp", leaf, K, (d,), w_fm) for leaf, d in mlp_leaves]
+    w_ring = metropolis_weights(ring_graph(LM_NODES))
+    cases += [("qwen2", leaf, LM_NODES, shape, w_ring) for leaf, shape in sorted(lm_shapes.items())]
+    for group, leaf, k, shape, w_np in cases:
+        theta, grad = randn(k, *shape), randn(k, *shape)
+        w = torch.from_numpy(np.asarray(w_np, np.float32)).cuda()
+        s = torch.rand((k,), generator=gen, device="cuda") + 0.5
+        got = gk.gossip_update_stacked(theta, grad, w, s, eta=0.01)
+        want = gref.gossip_update_stacked_ref(theta, grad, w, s, eta=0.01)
+        err, rel = float((got - want).abs().max()), _rel_err(got, want)
+        rec = out["gossip_update_stacked"]
+        rec["max_abs_err"], rec["max_rel_err"] = max(rec["max_abs_err"], err), \
+            max(rec["max_rel_err"], rel)
+        if rel > STACKED_REL:
+            raise AssertionError(f"[b1-kernel] stacked {group} {leaf}: {rel} of max |out| "
+                                 f"> {STACKED_REL}")
+        del got, want
+        big = theta.numel() > 1 << 26
+        t = _time_call("gossip_update_stacked",
+                       lambda: gk.gossip_update_stacked(theta, grad, w, s, eta=0.01),
+                       lambda: gref.gossip_update_stacked_ref(theta, grad, w, s, eta=0.01),
+                       10 if big else 100, 3 if big else 20)
+        bound, by = gossip_bound(k, theta.numel() // k, None)
+        row = dict(group=group, leaf=leaf, k=k, d=theta.numel() // k, max_rel_err=rel, **t,
+                   bound_ms=bound, bound_by=by)
+        rec["rows"].append(row)
+        log("[b1-kernel] stacked " + json.dumps(row))
+        del theta, grad
+        torch.cuda.empty_cache()
+    for name, rec in out.items():
+        rec["per_step"] = {g: {key: sum(r[key] for r in rec["rows"] if r["group"] == g)
+                               for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+                           for g in {r["group"] for r in rec["rows"]}}
+        log(f"[b1-kernel] {name}: one call per leaf: " + json.dumps(rec["per_step"]))
+    return out
+
+
+def phase_flash_bwd_kernels() -> dict:
+    """B.6's backward against autograd of the plain version at the forward's
+    serving shapes and qwen2-0.5b's training shapes (S = T = 64 and 512),
+    dq, dk and dv relative to their largest |value|; times the call, its
+    kernels, the plain backward and SDPA's backward (never on the path)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    cases = [  # tag, b, h, kvh, s, hd, window, softcap
+        ("qwen2-0.5b train S 64", 2, 14, 2, 64, 64, None, None),
+        ("qwen2-0.5b train S 512", 2, 14, 2, 512, 64, None, None),
+        ("qwen2-0.5b prefill", 4, 14, 2, 512, 64, None, None),
+        ("hd 80, window 4096", 2, 32, 8, 512, 80, 4096, None),
+        ("hd 128, window 64, softcap 50", 2, 32, 16, 512, 128, 64, 50.0),
+        ("G = 1", 2, 8, 8, 512, 64, None, None),
+        ("ragged S = 300", 4, 14, 2, 300, 64, None, None),
+    ]
+    out = dict(max_abs_err=0.0, rows=[])
+    for tag, b, h, kvh, s, hd, window, softcap in cases:
+        q = torch.randn((b, s, h, hd), generator=gen, device="cuda").permute(0, 2, 1, 3)
+        k, v = (torch.randn((b, s, kvh, hd), generator=gen, device="cuda").permute(0, 2, 1, 3)
+                for _ in range(2))
+        dout = torch.randn(q.shape, generator=gen, device="cuda")
+        kw = dict(causal=True, window=window, softcap=softcap)
+        o, lse = fk.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        got = fk.flash_attention_bwd(q, k, v, o, lse, dout, **kw)
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        ref_out = attention_ref(*leaves, **kw)
+        want = torch.autograd.grad(ref_out, leaves, dout, retain_graph=True)
+        errs = {n: _rel_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        out["max_abs_err"] = max(out["max_abs_err"], abs_err)
+        if max(errs.values()) > BWD_REL:
+            raise AssertionError(f"[bwd-kernel] {tag}: {errs} (relative to max) > {BWD_REL}")
+
+        def call():
+            fk.flash_attention_bwd(q, k, v, o, lse, dout, **kw)
+
+        def plain():
+            torch.autograd.grad(ref_out, leaves, dout, retain_graph=True)
+
+        t = _time_call("flash_attention_bwd", call, plain, 30, 5)
+        bound, by = flash_bwd_bound(b, h, kvh, s, s, hd, True, window)
+        row = dict(case=tag, b=b, h=h, kvh=kvh, s=s, hd=hd, window=window, softcap=softcap,
+                   rel_err=errs, max_abs_err=abs_err, **t, bound_ms=bound, bound_by=by,
+                   library_ms=None)
+        if window is None and softcap is None:  # the yardstick: SDPA's backward, contiguous
+            qc, kc, vc = (x.detach().contiguous().requires_grad_() for x in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
+            sdpa_g = torch.autograd.grad(sdpa, (qc, kc, vc), dout, retain_graph=True)
+            if max(_rel_err(g, w) for g, w in zip(sdpa_g, want)) > 1e-3:
+                raise AssertionError(f"[bwd-kernel] SDPA's backward disagrees ({tag})")
+            row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                sdpa, (qc, kc, vc), dout, retain_graph=True), iters=30, warmup=2)
+        out["rows"].append(row)
+        log("[bwd-kernel] " + json.dumps(row))
+    return out
+
+
+def _lm_counts(nodes: int, steps: int, layers: int, leaves: int) -> dict:
+    """Launches of one LM training run: B.6 forward and backward on every
+    attention layer of every node, B.1 once per leaf, every step."""
+    per = steps * nodes * layers
+    return {"flash_attention_fwd": per, "flash_attention_bwd": per,
+            "gossip_update_stacked": steps * leaves}
+
+
+def _node_losses(trainer, state, batch) -> list:
+    import torch
+
+    with torch.no_grad():
+        return trainer.loss_fn(state.params, (batch.to(trainer.device),)).tolist()
+
+
+def phase_train_lm(seq: int, nodes: int, steps: int, profile: bool) -> dict:
+    """qwen2-0.5b at full width and depth through the training CLI
+    (``python -m repro_torch.launch.train --arch qwen2_0_5b``, train_lm's
+    defaults otherwise), every launch counted; the first batch's loss before
+    and after the run; the steady ms per step; optionally one profiled step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import make_node_token_streams
+    from repro_torch.launch import train
+
+    argv = ["--arch", LM_ARCH, "--steps", str(steps), "--seq-len", str(seq), "--nodes",
+            str(nodes), "--log-every", "1"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, state, history = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    model = _serve_model(LM_ARCH)
+    cfg = model.cfg
+    check_counts(f"train-lm S {seq} K {nodes}", counts,
+                 _lm_counts(nodes, steps, cfg.n_layers, len(state.params)))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    first = torch.from_numpy(np.stack([s.next_batch(2, seq) for s in
+                                       make_node_token_streams(nodes, cfg.vocab, seed=0)]))
+    loss_end = _node_losses(trainer, state, first)
+    walls = [r["wall_s"] for r in history]
+    steady = np.diff(walls)[1:]  # from the second step on
+    ms_step = 1e3 * float(np.median(steady))
+    tokens = nodes * 2 * seq
+    rec = dict(arch=cfg.name, n_layers=cfg.n_layers, params=model.num_params(),
+               nodes=nodes, batch=2,
+               seq_len=seq, steps=steps, wall_s=wall, ms_per_step=ms_step,
+               ms_per_step_min=1e3 * float(steady.min()), tokens_per_step=tokens,
+               tokens_per_s=tokens / (ms_step / 1e3), peak_memory_gb=peak,
+               loss_first_step=history[0]["loss_mean"], loss_last_step=history[-1]["loss_mean"],
+               first_batch_loss_before=history[0]["loss_mean"],
+               first_batch_loss_after=float(np.mean(loss_end)),
+               ln_vocab=math.log(cfg.vocab),
+               launches={n: c[0] for n, c in counts.items() if c[0]})
+    for r in history:
+        for key in ("loss_mean", "loss_worst", "robust_objective", "comm_bytes", "disagreement"):
+            if not math.isfinite(r[key]):
+                raise AssertionError(f"[train-lm] step {r['step']}: {key} = {r[key]}")
+    if not rec["first_batch_loss_after"] < rec["first_batch_loss_before"]:
+        raise AssertionError(f"[train-lm] the loss did not fall: {rec}")
+    if abs(rec["loss_first_step"] - rec["ln_vocab"]) > 1.5:
+        raise AssertionError(f"[train-lm] a random model's loss should be near ln V: {rec}")
+    if profile:
+        batch = (first.cuda(),)
+        box = [state]
+        del state
+
+        def one_step():
+            box[0], _ = trainer.step(box[0], batch)
+
+        p_wall, avg = profiled(one_step, 1)
+        dev = device_events(avg)
+        busy_us = sum(e.self_device_time_total for e in dev)
+        top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+        rec["profile"] = dict(wall_ms=1e3 * p_wall, device_busy_ms=busy_us / 1e3,
+                              device_busy_share=busy_us / 1e6 / p_wall,
+                              device_ops=sum(e.count for e in dev),
+                              top=[(e.key[:48], round(e.self_device_time_total / 1e3, 3), e.count)
+                                   for e in top])
+        log("[train-lm] profile of one step: " + json.dumps(rec["profile"]))
+        del box
+    log("[train-lm] " + json.dumps({k: v for k, v in rec.items() if k != "profile"}))
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_parity(spec_cls) -> dict:
+    """qwen2-0.5b cut to 2 layers at full width, K = 4, 3 steps of
+    train_lm's stack: the same seeded weights and tokens on the card
+    (kernels) and on the CPU (plain versions): per-step losses and every
+    final leaf relative to its largest |value|, and the updates relative to
+    the largest |update|.  Then, on the card, one fused step against the
+    unfused step (the optimizer and the mixer called directly) from the same
+    state."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import make_node_token_streams
+    from repro_torch.models import make_lm_loss
+    from repro_torch.optim import Optimizer, sgd
+
+    layers, nodes, steps = LM_PARITY
+    model = _serve_model(LM_ARCH, layers)
+    params = model.init(torch.Generator().manual_seed(0))
+    streams = make_node_token_streams(nodes, model.cfg.vocab, seed=0)
+    batches = (np.stack([np.stack([s.next_batch(2, LM_SEQ) for s in streams])
+                         for _ in range(steps)]),)
+
+    def trainer_on(device, optimizer=None):
+        spec = spec_cls(num_nodes=nodes, graph="ring", lr=0.01, grad_clip=1.0, device=device)
+        return spec.build(make_lm_loss(model), optimizer=optimizer)
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        trainer = trainer_on(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        state, ms = trainer.run(trainer.init(params), batches)
+        runs[device] = ({n: t.cpu() for n, t in state.params.items()}, ms["loss_mean"].cpu(),
+                        time.perf_counter() - t0)
+        counts = kernel_counts()
+        if device == "cuda":
+            check_counts("train-parity", counts,
+                         _lm_counts(nodes, steps, layers, len(state.params)))
+        elif sum(c[0] for c in counts.values()) or not sum(c[1] for c in counts.values()):
+            raise AssertionError(f"[train-parity] the CPU run launched a kernel: {counts}")
+        del state
+    (p_g, l_g, s_g), (p_c, l_c, s_c) = runs["cuda"], runs["cpu"]
+    init = {n: t.unsqueeze(0) for n, t in params.items()}
+    leaf_rel = max(_rel_err(p_g[n], p_c[n]) for n in p_c)
+    upd_g, upd_c = ({n: p[n] - init[n] for n in p_c} for p in (p_g, p_c))
+    largest = max(float(u.abs().max()) for u in upd_c.values())
+    update_rel = max(float((upd_g[n] - upd_c[n]).abs().max()) for n in p_c) / largest
+    own = {n: _rel_err(upd_g[n], upd_c[n]) for n in p_c}
+    worst = max(own, key=own.get)
+    loss_rel = float(((l_g - l_c).abs() / l_c.abs()).max())
+    rec = dict(arch=model.cfg.name, n_layers=layers, nodes=nodes, steps=steps,
+               loss_rel_err=loss_rel, leaf_rel_err=leaf_rel, update_rel_err=update_rel,
+               worst_leaf_update_rel_err=(worst, own[worst]), card_s=s_g, cpu_s=s_c)
+    if not (loss_rel <= TRAIN_PARITY_REL and leaf_rel <= TRAIN_PARITY_REL
+            and update_rel <= UPDATE_REL):
+        raise AssertionError(f"[train-parity] card vs CPU outside tolerance: {rec}")
+
+    # fused (B.1) against unfused from the same state, on the card
+    opt = sgd(0.01)
+    fused, unfused = trainer_on("cuda", opt), trainer_on("cuda", Optimizer(opt.init, opt.update))
+    batch = tuple(torch.from_numpy(b[0]) for b in batches)
+    outs = []
+    for trainer in (fused, unfused):
+        reset_counts()
+        state, m = trainer.step(trainer.init(params), batch)
+        outs.append((state.params, m, kernel_counts()))
+    (pf, mf, cf), (pu, mu, cu) = outs
+    if cf["gossip_update_stacked"][0] != len(pf) or cu["gossip_update_stacked"][0] != 0:
+        raise AssertionError(f"[train-parity] fused {cf} / unfused {cu} launches of B.1")
+    rec["fused_vs_unfused_rel_err"] = max(_rel_err(pf[n], pu[n]) for n in pf)
+    rec["fused_vs_unfused_bitwise_leaves"] = sum(bool(torch.equal(pf[n], pu[n])) for n in pf)
+    rec["fused_vs_unfused_metric_rel_err"] = max(
+        float((mf[k] - mu[k]).abs() / mu[k].abs().clamp_min(1e-30)) for k in mf)
+    rec["leaves"] = len(pf)
+    log("[train-parity] " + json.dumps(rec))
+    if rec["fused_vs_unfused_rel_err"] > STACKED_REL:
+        raise AssertionError(f"[train-parity] fused vs unfused: {rec}")
+    del outs, pf, pu, fused, unfused
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_gossip_update_nodes(spec_cls) -> dict:
+    """The per-node form's path: one fmnist dense DR-DSGD step recomputed
+    node by node through ``gossip_update_tree`` (node i combines its own
+    update with its neighbours' updated parameters, Alg. 2 lines 3-4) and
+    held against the fused step's output, row by row."""
+    import torch
+
+    from repro_torch.core.robust import robust_scale
+    from repro_torch.kernels.gossip_update.ops import gossip_update_tree
+    from repro_torch.models import make_classifier_loss, mlp_apply
+
+    exp, fed, batches, params = _fmnist()
+    trainer = _spec(spec_cls, exp, "none").build(make_classifier_loss(mlp_apply), mlp_apply)
+    state = trainer.init(params)
+    batch = tuple(torch.from_numpy(b[0]).cuda() for b in batches)
+    names = sorted(state.params)
+    leaves = [state.params[n].detach().requires_grad_(True) for n in names]
+    losses = trainer.loss_fn(dict(zip(names, leaves)), batch)
+    grads = dict(zip(names, torch.autograd.grad(losses.sum(), leaves)))
+    scale = robust_scale(losses.detach(), trainer.robust)
+    w = trainer.mixer.w
+    eta = exp.lr
+    updated = {n: state.params[n] - eta * (grads[n] * scale.reshape((-1,) + (1,) * (
+        grads[n].ndim - 1))) for n in names}  # what each node sends (Alg. 2 line 3)
+    reset_counts()
+    rows = []
+    for i in range(K):
+        nbrs = [j for j in range(K) if j != i and float(w[i, j]) > 0]
+        weights = torch.stack([w[i, i]] + [w[i, j] for j in nbrs])
+        rows.append(gossip_update_tree({n: state.params[n][i] for n in names},
+                                       {n: grads[n][i] for n in names},
+                                       [{n: updated[n][j] for n in names} for j in nbrs],
+                                       weights, scale[i], eta=eta))
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    check_counts("b1-nodes", counts, {"gossip_update": K * len(names)})
+    fused, _ = trainer.step(state, batch)
+    err = max(_rel_err(torch.stack([r[n] for r in rows]), fused.params[n]) for n in names)
+    rec = dict(nodes=K, leaves=len(names), launches=counts["gossip_update"][0],
+               rel_err_vs_fused_step=err)
+    log("[b1-nodes] " + json.dumps(rec))
+    if err > STACKED_REL:
+        raise AssertionError(f"[b1-nodes] per-node B.1 vs the fused step: {err}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1238,11 +1699,18 @@ def main() -> int:
     mlp = leaf_dims(mlp_init(g))
     cnn = leaf_dims(cnn_init(g))
     kern = phase_kernel(mlp, cnn)
+    b1 = phase_gossip_update_kernels(mlp)
     fm, dense_params = phase_fmnist(TrainerSpec, CompressionConfig)
+    b1_nodes = phase_gossip_update_nodes(TrainerSpec)
     gossip = phase_gossip(TrainerSpec, CompressionConfig, dense_params)
     phase_profile(TrainerSpec, CompressionConfig)
     phase_cifar(TrainerSpec, CompressionConfig)
     phase_parity(TrainerSpec, CompressionConfig)
+    log(f"[done] paper training phases in {time.perf_counter() - t_start:.1f} s")
+    bwd = phase_flash_bwd_kernels()
+    lm = phase_train_lm(LM_SEQ, LM_NODES, LM_STEPS, profile=True)
+    phase_train_lm(*LM_LONG, profile=False)
+    phase_train_parity(TrainerSpec)
     log(f"[done] training phases in {time.perf_counter() - t_start:.1f} s")
     serve_kern = phase_serve_kernels()
     qwen = phase_serve("qwen2_0_5b", 512, 64, "flash_attention_fwd", profile=True,
@@ -1258,9 +1726,29 @@ def main() -> int:
             "masked_quantize_blockwise": gossip["dropout0.2-int8-kernel-memoryless"]["launches"],
             "masked_dequant_accumulate":
                 gossip["dropout0.2-int8-kernel-memoryless"]["launches"]}
+    # B.1 per node: its own path (b1-nodes); stacked and B.6's backward:
+    # the qwen2-0.5b training run
+    path["gossip_update"] = {"gossip_update": b1_nodes["launches"]}
+    for name in ("gossip_update_stacked", "flash_attention_bwd"):
+        path[name] = {name: lm["launches"][name]}
     lines = []
     for name, (source, replaces, _) in KERNELS.items():
-        if name in QUANT:
+        if name.startswith("gossip_update"):
+            # one call per leaf: the fmnist MLP's (per node), qwen2-0.5b's (stacked)
+            rows = [r for r in b1[name]["rows"]
+                    if r["group"] == ("mlp" if name == "gossip_update" else "qwen2")]
+            step = b1[name]["per_step"][rows[0]["group"]]
+            timing = dict(ms=step["ms"], device_ms=step["device_ms"], plain_ms=step["plain_ms"],
+                          bound_ms=step["bound_ms"],
+                          bound_by="bytes" if {r["bound_by"] for r in rows} == {"bytes"}
+                          else "operations", library_ms=None)
+            err, launches = b1[name]["max_abs_err"], path[name][name]
+        elif name == "flash_attention_bwd":  # one call at qwen2-0.5b's training shape
+            row = bwd["rows"][0]
+            timing = {key: row[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}
+            err, launches = bwd["max_abs_err"], path[name][name]
+        elif name in QUANT:
             step = kern[name]["per_step"]["mlp"]
             bound_by = {r["bound_by"] for r in kern[name]["rows"] if r["group"] == "mlp"}
             # one call per leaf of the fmnist MLP at the main path's shapes

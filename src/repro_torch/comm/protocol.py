@@ -125,11 +125,16 @@ class Mixer:
     def _mix(self, theta):
         raise NotImplementedError
 
-    def __call__(self, theta, state: CommState, *, round=None):
-        """One consensus round: ``theta', comm' = mixer(theta, comm, round=i)``."""
-        mixed = self._mix(theta)
-        return mixed, state._replace(
+    def round_state(self, theta, state: CommState) -> CommState:
+        """The state after one full-precision round over ``theta``'s shapes
+        (the base ``__call__``'s bookkeeping; the fused train step advances
+        the state with it when it mixes through the B.1 kernel)."""
+        return state._replace(
             rounds=state.rounds + 1,
             wire_bits=scalar(8.0 * self.bytes_per_round(theta),
                              state.res_norm.device),
         )
+
+    def __call__(self, theta, state: CommState, *, round=None):
+        """One consensus round: ``theta', comm' = mixer(theta, comm, round=i)``."""
+        return self._mix(theta), self.round_state(theta, state)

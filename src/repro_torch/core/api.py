@@ -63,17 +63,23 @@ def run_segments(trainer: "DecentralizedTrainer", state, sample_batch,
     ``sample_batch(step) -> batch`` of numpy leaves; batches are stacked
     ``seg`` at a time and moved to the device in one copy per leaf.
     ``on_segment(last_step, state, seg_metrics)`` runs between segments.
+    The state is handed to ``trainer.run`` without a reference kept here, so
+    a segment's first state is freed after its first step (at LM widths a
+    node-stacked copy of the parameters is many GB).
     """
-    done = 0
+    done, box = 0, [state]  # the box holds the only reference between segments
+    del state
     while done < steps:
         n = min(seg, steps - done)
         samples = [sample_batch(done + i) for i in range(n)]
         stacked = tuple(np.stack(parts) for parts in zip(*samples))
-        state, ms = trainer.run(state, stacked)
+        state, ms = trainer.run(box.pop(), stacked)
         done += n
         if on_segment is not None:
             on_segment(done - 1, state, ms)
-    return state
+        box.append(state)
+        del state
+    return box.pop()
 
 
 @dataclasses.dataclass

@@ -13,6 +13,16 @@ Step 1 is one forward over all K node models and one ``backward()`` of the
 summed node losses: node i's loss depends only on θ_i, so the gradient of
 the sum with respect to the stacked leaves is every node's own gradient.
 
+Where the optimizer is plain :func:`~repro_torch.optim.sgd` and the mixer a
+static uncompressed dense round (``DenseMixer``), steps 2–4 are one call of
+the fused gossip update per leaf, ``W @ (θ − η·(s⊙g))`` (B.1 on the card):
+it reads θ and g once and writes the mixed parameters once, where the
+unfused step holds the scaled gradients, SGD's update and the mixer's
+output beside them.  Its plain version computes in the unfused order, so
+both give the same bits on the CPU; the metrics and the ``CommState`` are
+the same either way.  Every other stack runs the unfused step.  Per-node
+clipping scales the fresh gradients in place.
+
 The metrics stay on the device as 0-d tensors; nothing in a step waits for
 the device.  The reference's telemetry tap, sanitizer and fault masks are
 not ported, nor its consensus period (``mix_every``) and optional
@@ -27,13 +37,17 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.comm import CompressionConfig
+from repro_torch.comm.composed import ComposedMixer
 from repro_torch.comm.protocol import CommState, Mixer, scalar, trivial_comm_state
+from repro_torch.comm.transport import DenseTransport
+from repro_torch.comm.wire import IdentityWire
 from repro_torch.core.robust import (
     RobustConfig,
     mixture_weights,
     robust_objective,
     robust_scale,
 )
+from repro_torch.kernels.gossip_update.ops import gossip_update_stacked
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.utils.tree import leaf_names, tree_node_disagreement
 
@@ -80,6 +94,24 @@ def _node_scale(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape((-1,) + (1,) * (like.ndim - 1)).to(like.dtype)
 
 
+def _fused_w(optimizer: Optimizer, mixer: Mixer):
+    """The (K, K) W of the fused SGD + dense-mixing step, or None where the
+    step is not plain SGD followed by a static uncompressed dense round."""
+    if optimizer.sgd_lr is None or not isinstance(mixer, ComposedMixer):
+        return None
+    if mixer.traced_wire or not isinstance(mixer.transport, DenseTransport) \
+            or not isinstance(mixer.wire, IdentityWire):
+        return None
+    return mixer.w
+
+
+def _owned(grads: dict) -> bool:
+    """Every gradient contiguous and in a storage of its own: safe to
+    scale in place."""
+    ptrs = {g.untyped_storage().data_ptr() for g in grads.values()}
+    return len(ptrs) == len(grads) and all(g.is_contiguous() for g in grads.values())
+
+
 def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
                      cfg: TrainStepConfig):
     """Returns train_step(state, batch) -> (state, metrics).
@@ -93,6 +125,7 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
         raise ValueError(
             "TrainStepConfig.compression is set but the mixer is "
             "uncompressed — build it with the same CompressionConfig")
+    fused_w = _fused_w(optimizer, mixer)
 
     def train_step(state: DecentralizedState, batch):
         if not isinstance(state.comm, CommState):
@@ -105,16 +138,25 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
         grads = dict(zip(names, torch.autograd.grad(losses.sum(), leaves)))
         losses = losses.detach()
         if cfg.grad_clip is not None:
-            grads, _ = clip_by_global_norm(grads, cfg.grad_clip, nodes=True)
+            grads, _ = clip_by_global_norm(grads, cfg.grad_clip, nodes=True,
+                                           inplace=_owned(grads))
         # --- the paper's technique: exponential per-node gradient reweighting
         scale = robust_scale(losses, cfg.robust)   # (K,)
         lam = mixture_weights(losses, cfg.robust)  # (K,) adversarial λ*
-        scaled = {n: g * _node_scale(scale, g) for n, g in grads.items()}
-        # --- local optimizer step (plain SGD in the paper)
-        updated, opt_state = optimizer.update(scaled, state.opt_state,
-                                              state.params, state.step)
-        # --- consensus: the only cross-node communication of the algorithm
-        mixed, comm = mixer(updated, state.comm, round=state.step)
+        if fused_w is not None:
+            # scale, SGD and the dense consensus round in one pass per leaf
+            eta = optimizer.sgd_lr(state.step)
+            mixed = {n: gossip_update_stacked(state.params[n], grads[n], fused_w, scale,
+                                              eta=eta) for n in names}
+            del grads  # a node-stacked copy of the parameters: free it before the metrics
+            opt_state, comm = state.opt_state, mixer.round_state(state.params, state.comm)
+        else:
+            scaled = {n: g * _node_scale(scale, g) for n, g in grads.items()}
+            # --- local optimizer step (plain SGD in the paper)
+            updated, opt_state = optimizer.update(scaled, state.opt_state,
+                                                  state.params, state.step)
+            # --- consensus: the only cross-node communication of the algorithm
+            mixed, comm = mixer(updated, state.comm, round=state.step)
         # wire bytes this step: the round's measured wire on time-varying
         # stacks, else the static estimate
         comm_bytes = (comm.wire_bits / 8.0 if mixer.traced_wire

@@ -9,6 +9,7 @@ from repro_torch.data.partition import (
     dirichlet_partition,
     FederatedDataset,
 )
+from repro_torch.data.tokens import SyntheticTokenStream, make_node_token_streams
 
 __all__ = [
     "SyntheticImageDataset",
@@ -18,4 +19,6 @@ __all__ = [
     "iid_partition",
     "dirichlet_partition",
     "FederatedDataset",
+    "SyntheticTokenStream",
+    "make_node_token_streams",
 ]

@@ -1,1 +1,1 @@
-"""Forward GQA flash attention of the serving prefill (see ``kernel.py``)."""
+"""GQA flash attention (B.6) and its backward (see ``kernel.py``)."""

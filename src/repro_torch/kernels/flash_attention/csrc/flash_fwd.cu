@@ -6,7 +6,10 @@
 // with a causal and an optional sliding-window mask, both position axes
 // starting at 0, masked scores at -1e30 (never -inf, so no row gives NaN),
 // f32 running max, sum and accumulator, and a final divide by max(l, 1e-30).
-// Query head h reads KV head h / (H / KVH); no head is replicated.
+// Query head h reads KV head h / (H / KVH); no head is replicated.  When
+// asked (lse not null), it also writes each row's log-sum-exp
+// m + log(max(l, 1e-30)) as (B, H, S) float32, which the backward
+// (flash_bwd.cu) recomputes the softmax from.
 //
 // What bounds it: at the serving shapes (qwen2-0.5b prefill: B 4, H 14,
 // S = T = 512, hd 64) the work is ~4 S T hd / 2 float operations per head
@@ -51,8 +54,8 @@ template <int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 long long n_heads, long long group, long long S, long long T,
-                 Strides qs, Strides ks, Strides vs, Strides os,
+                 float* __restrict__ lse, long long n_heads, long long group, long long S,
+                 long long T, Strides qs, Strides ks, Strides vs, Strides os,
                  float scale, int causal, long long window, float softcap) {
   constexpr int DPT = HD / TPR;  // head dims per thread
   extern __shared__ float smem[];
@@ -141,11 +144,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* op = o + b * os.b + h * os.h + qi * os.s + lane * DPT;
 #pragma unroll
     for (int d = 0; d < DPT; ++d) op[d] = acc[d] * inv;
+    if (lse != nullptr && lane == 0) lse[(b * n_heads + h) * S + qi] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
 template <int HD>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o,
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse,
                    long long B, long long H, long long KVH, long long S, long long T,
                    Strides qs, Strides ks, Strides vs, Strides os, float scale,
                    int causal, long long window, float softcap, cudaStream_t stream) {
@@ -156,17 +160,18 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   const dim3 grid(static_cast<unsigned>((S + BLOCK_Q - 1) / BLOCK_Q),
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
   flash_fwd_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, H, H / KVH, S, T, qs, ks, vs, os, scale, causal, window, softcap);
+      q, k, v, o, lse, H, H / KVH, S, T, qs, ks, vs, os, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B, H, S, hd), k and v (B, KVH, T, hd), o (B, H, S, hd), each given by
-// its batch, head and sequence strides in elements (head dims contiguous).
-// window <= 0: no window; softcap <= 0: no cap.  Returns a cudaError_t.
+// its batch, head and sequence strides in elements (head dims contiguous);
+// lse (B, H, S) contiguous, or null.  window <= 0: no window; softcap <= 0:
+// no cap.  Returns a cudaError_t.
 extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v, float* o,
-                             long long B, long long H, long long KVH, long long S,
+                             float* lse, long long B, long long H, long long KVH, long long S,
                              long long T, long long hd,
                              long long q_sb, long long q_sh, long long q_ss,
                              long long k_sb, long long k_sh, long long k_ss,
@@ -178,16 +183,16 @@ extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v, flo
       os{o_sb, o_sh, o_ss};
   switch (hd) {
     case 16:
-      return launch<16>(q, k, v, o, B, H, KVH, S, T, qs, ks, vs, os, scale, causal, window,
+      return launch<16>(q, k, v, o, lse, B, H, KVH, S, T, qs, ks, vs, os, scale, causal, window,
                         softcap, stream);
     case 64:
-      return launch<64>(q, k, v, o, B, H, KVH, S, T, qs, ks, vs, os, scale, causal, window,
+      return launch<64>(q, k, v, o, lse, B, H, KVH, S, T, qs, ks, vs, os, scale, causal, window,
                         softcap, stream);
     case 80:
-      return launch<80>(q, k, v, o, B, H, KVH, S, T, qs, ks, vs, os, scale, causal, window,
+      return launch<80>(q, k, v, o, lse, B, H, KVH, S, T, qs, ks, vs, os, scale, causal, window,
                         softcap, stream);
     case 128:
-      return launch<128>(q, k, v, o, B, H, KVH, S, T, qs, ks, vs, os, scale, causal, window,
+      return launch<128>(q, k, v, o, lse, B, H, KVH, S, T, qs, ks, vs, os, scale, causal, window,
                          softcap, stream);
     default:
       return cudaErrorInvalidValue;

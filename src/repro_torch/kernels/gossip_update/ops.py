@@ -1,0 +1,70 @@
+"""The gossip-update functions the rest of the port calls (the port of
+``repro/kernels/gossip_update/ops.py``).
+
+Each dispatcher takes the plain PyTorch version only for tensors on the
+CPU, and counts those calls in ``.plain_calls``; for CUDA tensors it
+launches the hand-written kernel (B.1) or raises — there is no fallback.
+η is a runtime argument: SGD's schedule gives it per step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.gossip_update import kernel as _k
+from repro_torch.kernels.gossip_update import ref as _r
+
+
+def gossip_update_flat(theta, grad, neighbors, weights, scale, *, eta: float):
+    """One node: theta, grad (D,); neighbors (N, D); weights (N+1,) with the
+    self weight first; scale ().  Returns the mixed update (D,)."""
+    if _build.route("gossip_update", theta):
+        return _k.gossip_update(theta, grad, neighbors, weights, scale, eta=eta)
+    gossip_update_flat.plain_calls += 1
+    return _r.gossip_update_ref(theta, grad, neighbors, weights, scale, eta=eta)
+
+
+def gossip_update_tree(theta_tree, grad_tree, neighbor_trees, weights, scale, *,
+                       eta: float):
+    """:func:`gossip_update_flat` leaf by leaf over a (nested) dict.
+
+    ``neighbor_trees`` is a list of dicts shaped like ``theta_tree``, one
+    per neighbour; ``weights`` is (N+1,) with the self weight first.
+    Returns a dict of the same structure."""
+    scale = torch.as_tensor(scale, dtype=torch.float32)
+
+    def leaf(path, th, g):
+        nbrs = [_at(t, path) for t in neighbor_trees]
+        nb = (torch.stack([x.reshape(-1) for x in nbrs]) if nbrs
+              else th.new_zeros((0, th.numel())))
+        out = gossip_update_flat(th.reshape(-1), g.reshape(-1), nb, weights,
+                                 scale.to(th.device), eta=eta)
+        return out.reshape(th.shape)
+
+    def walk(th, g, path):
+        if isinstance(th, dict):
+            return {key: walk(th[key], g[key], path + (key,)) for key in th}
+        return leaf(path, th, g)
+
+    return walk(theta_tree, grad_tree, ())
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def gossip_update_stacked(theta, grad, w, scale, *, eta: float):
+    """Every node of a node-stacked leaf: theta, grad (K, ...); w (K, K);
+    scale (K,).  Returns ``W @ (θ − η·(s⊙g))`` (K, ...)."""
+    if _build.route("gossip_update_stacked", theta):
+        return _k.gossip_update_stacked(theta, grad, w, scale, eta=eta)
+    gossip_update_stacked.plain_calls += 1
+    return _r.gossip_update_stacked_ref(theta, grad, w, scale, eta=eta)
+
+
+# how often the plain version served a call (CPU tensors only)
+gossip_update_flat.plain_calls = 0
+gossip_update_stacked.plain_calls = 0

@@ -6,7 +6,11 @@ q and k positions both starting at 0, which is how every caller uses it
 (``TransformerLM._forward``); the reference names it the oracle of its
 Pallas ``flash_attention`` kernel.  In the port it *is* that kernel: one
 launch of B.6 per layer on the model's (B, S, KVH, G, hd) layout for CUDA
-tensors, the plain version for CPU tensors.
+tensors, the plain version for CPU tensors.  It has a gradient: on the card
+a ``torch.autograd.Function`` whose backward is B.6's backward kernel
+(where the reference differentiates its XLA attention), on the CPU autograd
+through the plain version.  The QKV and output projections and RoPE are
+plain PyTorch either way.
 
 Supports grouped KV heads, RoPE, optional QKV bias (qwen2), sliding-window
 masking (h2o-danube, gemma2 local layers), attention-score soft-capping
@@ -79,7 +83,9 @@ def chunked_attention(q, k, v, *, window=None, softcap_val=None):
     in q's dtype.  One call of the flash-attention kernel (B.6) for CUDA
     tensors, its plain version for CPU tensors; q, k and v are handed over
     as (B, H, S, hd) / (B, KV, T, hd) views, and the kernel writes its
-    output in q's memory layout, so nothing is transposed in memory.
+    output in q's memory layout, so nothing is transposed in memory.  Where
+    autograd records, the backward is one launch of B.6's backward kernel
+    on the card (``kernels/flash_attention/ops.py``).
     """
     b, s, kvh, g, hd = q.shape
     qh = q.reshape(b, s, kvh * g, hd).permute(0, 2, 1, 3)

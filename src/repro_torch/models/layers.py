@@ -2,14 +2,14 @@
 port of ``repro.models.layers``).
 
 Each function takes the dict of one module's leaves (``{"scale": ...}``,
-``{"w_gate": ..., "w_up": ..., "w_down": ...}``).  ``chunked_logits_xent``
-serves LM training and comes with that slice (ROADMAP A.11).
+``{"w_gate": ..., "w_up": ..., "w_down": ...}``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import params as pr
 
@@ -78,3 +78,42 @@ def embedding_decl(vocab: int, d_model: int) -> dict:
 def embed(p, tokens, compute_dtype=None):
     out = p["table"][tokens]
     return out.to(compute_dtype) if compute_dtype else out
+
+
+# -- the LM loss ----------------------------------------------------------------
+
+def _chunk_xent(xc, table, yc, mc, cap):
+    """Summed cross-entropy of one chunk and its count of unmasked positions."""
+    logits = xc.float() @ table.float().t()
+    if cap is not None:
+        logits = cap * torch.tanh(logits / cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, yc[..., None])[..., 0]
+    return ((lse - gold) * mc).sum(), mc.sum()
+
+
+def chunked_logits_xent(x, emb_table, labels, mask=None, chunk: int = 512,
+                        logit_softcap_val: float | None = None):
+    """Cross-entropy over the vocab without materializing (B, S, V) at once.
+
+    Loops over sequence chunks of ``chunk`` positions (the last one may be
+    shorter); each computes its logits (B, c, V) and its CE contribution.
+    Returns the mean CE over unmasked positions.  Where a gradient is taken
+    and the sequence has more than one chunk, each chunk's logits are
+    recomputed in the backward pass (``torch.utils.checkpoint``), so autograd
+    keeps no chunk's logits alive.
+    """
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    mask = torch.ones((b, s), device=x.device) if mask is None else mask.float()
+    labels = labels.long()
+    starts = range(0, s, chunk)
+    recompute = torch.is_grad_enabled() and len(starts) > 1
+    total = count = 0.0
+    for lo in starts:
+        args = (x[:, lo:lo + chunk], emb_table, labels[:, lo:lo + chunk],
+                mask[:, lo:lo + chunk], logit_softcap_val)
+        dl, dc = (checkpoint(_chunk_xent, *args, use_reentrant=False) if recompute
+                  else _chunk_xent(*args))
+        total, count = total + dl, count + dc
+    return total / torch.clamp(count, min=1.0)

@@ -1,26 +1,32 @@
-"""Decoder-only LM over a tiled ``(block, ffn)`` pattern, for serving (the
-port of ``repro.models.transformer``).
+"""Decoder-only LM over a tiled ``(block, ffn)`` pattern, for training and
+serving (the port of ``repro.models.transformer``).
 
 A model is ``ArchConfig.layer_pattern`` x ``ffn_pattern`` applied over
 ``n_groups`` repeats, with optional leading layers outside the groups
-(``first_k_dense``).  The port serves the block kinds ``attn`` (full causal
+(``first_k_dense``).  The port runs the block kinds ``attn`` (full causal
 GQA), ``swa`` (sliding-window GQA) and ``rwkv`` (RWKV6 time + channel mix)
 with the dense GLU FFN or none, over token inputs:
 
+  loss(params, batch)                  — training objective (mean CE)
   prefill(params, batch)               — whole prompt -> (last logits, caches)
   decode_step(params, tok, pos, cache) — one token against the cache
   logits_all(params, batch)            — every position's logits (eval)
 
-The prefill's attention is one launch of the flash-attention kernel (B.6)
-per attn/swa layer and its RWKV recurrence one launch of the WKV6 kernel
-(B.7) per rwkv layer, on the card.  The layers run as a Python loop over
-the head layers and the groups (the reference's ``lax.scan`` and remat have
-no counterpart here).
+The full-sequence forward's attention is one launch of the flash-attention
+kernel (B.6) per attn/swa layer and its RWKV recurrence one launch of the
+WKV6 kernel (B.7) per rwkv layer, on the card.  ``loss`` builds an autograd
+graph: B.6 has a backward kernel (``kernels/flash_attention``), B.7 has
+none yet, so rwkv models train on the CPU only (``models/ssm.py``).  The
+layers run as a Python loop over the head layers and the groups; the
+reference's ``lax.scan`` has no counterpart, and neither has its ``remat``,
+which changes memory and not values.  The MoE aux term of the reference's
+loss is 0 for the families ported here.  :func:`make_lm_loss` is the
+node-stacked loss the decentralized trainer takes.
 
 Parameters are the port's flat dict (``"groups/l0/mix/wq"``, with the
 groups' leading axis as in the reference).  ``moe`` FFNs, ``mamba`` blocks
-and the stub frontends raise at construction, ``loss`` raises: they come
-with later slices (ROADMAP A.11); the paged cache comes with A.12.
+and the stub frontends raise at construction: they come with later slices
+(ROADMAP A.11); the paged cache comes with A.12.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
+    chunked_logits_xent,
     embed,
     embedding_decl,
     glu_mlp,
@@ -126,8 +133,11 @@ class TransformerLM:
             return params["embedding/table"]
         return params["lm_head/table"]
 
-    def _input_embed(self, params, batch):
-        return embed(subtree(params, "embedding"), batch["tokens"], self.cfg.compute_dtype)
+    def _input_embed(self, params, batch, drop_last_token: bool = False):
+        toks = batch["tokens"]
+        if drop_last_token:
+            toks = toks[:, :-1]
+        return embed(subtree(params, "embedding"), toks, self.cfg.compute_dtype)
 
     def _layers(self, params):
         """[(block, ffn, the layer's leaves, where its cache lives)] in order:
@@ -136,7 +146,10 @@ class TransformerLM:
         out = []
         for i, (blk, ffn) in enumerate(cfg.head_layers()):
             out.append((blk, ffn, subtree(params, f"head_layers/h{i}"), ("head", i, None)))
-        group = [(blk, ffn, subtree(params, f"groups/l{i}"))
+        # one unbind per leaf: its backward stacks the groups' gradients
+        # once, where indexing would scatter each into a zeroed full leaf
+        group = [(blk, ffn, {n: t.unbind(0) for n, t in
+                             subtree(params, f"groups/l{i}").items()})
                  for i, (blk, ffn) in enumerate(cfg.group_pattern())]
         for g in range(cfg.n_groups):
             for i, (blk, ffn, p) in enumerate(group):
@@ -181,9 +194,9 @@ class TransformerLM:
 
     # -- full-sequence forward -------------------------------------------------
 
-    def _forward(self, params, batch, want_cache: bool):
+    def _forward(self, params, batch, want_cache: bool, drop_last_token: bool = False):
         cfg = self.cfg
-        x = self._input_embed(params, batch)
+        x = self._input_embed(params, batch, drop_last_token)
         head, groups = [], {}
         for blk, ffn, p, (where, name, _) in self._layers(params):
             x, c = self._apply_layer_fwd(p, x, blk, ffn, want_cache)
@@ -200,7 +213,15 @@ class TransformerLM:
     # -- public API -----------------------------------------------------------
 
     def loss(self, params, batch):
-        raise NotImplementedError("LM training comes with slice 4 (ROADMAP A.11)")
+        """Training objective: mean CE of next-token prediction.
+
+        batch: {"tokens": (B, S+1) int}; positions 0..S-1 are the inputs and
+        1..S the labels.
+        """
+        x, _ = self._forward(params, batch, False, drop_last_token=True)
+        return chunked_logits_xent(x, self._unembed_table(params), batch["tokens"][:, 1:],
+                                   chunk=self.cfg.logits_chunk,
+                                   logit_softcap_val=self.cfg.logit_softcap)
 
     def logits_all(self, params, batch):
         """Full logits over every position (small models / eval only)."""
@@ -248,3 +269,24 @@ class TransformerLM:
                     layer[k].copy_(v)
         x = rmsnorm(subtree(params, "final_norm"), x, cfg.rmsnorm_eps)
         return _logits(x[:, 0], self._unembed_table(params), cfg.logit_softcap), cache
+
+
+def make_lm_loss(model: TransformerLM):
+    """The node-stacked LM loss the decentralized trainer takes (the
+    reference vmaps ``model.loss`` over the node axis).
+
+    ``loss_fn(params, (tokens,))`` with every leaf (K, ...) and tokens (K,
+    B, S+1) returns the (K,) per-node losses: each leaf is unbound into K
+    views and node i's loss runs on its own views and batch row.  The
+    backward of the unbind stacks the K nodes' gradients into one (K, ...)
+    tensor per leaf.
+    """
+
+    def loss_fn(params, batch):
+        (tokens,) = batch
+        names = list(params)
+        views = zip(*(params[n].unbind(0) for n in names))
+        return torch.stack([model.loss(dict(zip(names, node)), {"tokens": tokens[i]})
+                            for i, node in enumerate(views)])
+
+    return loss_fn

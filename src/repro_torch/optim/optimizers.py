@@ -4,7 +4,10 @@ The port of the part of ``repro.optim.optimizers`` the paper's algorithm
 uses.  An :class:`Optimizer` is an (init, update) pair mirroring the
 reference: ``update(grads, opt_state, params, step) -> (params', state')``.
 Updates are out of place, so a state handed to ``update`` stays valid.
-Momentum and Adam wait for the LM slice.
+:func:`sgd` records its schedule on the optimizer (``sgd_lr``), which is how
+the train step recognises plain SGD and fuses it with dense mixing
+(``core/drdsgd.py``).  Momentum and Adam wait for a later slice (ROADMAP
+A.4).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ def _as_schedule(lr) -> Schedule:
 class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, int], tuple[Any, Any]]
+    sgd_lr: Schedule | None = None  # plain SGD's step size per step; None otherwise
 
 
 def sgd(lr) -> Optimizer:
@@ -40,16 +44,18 @@ def sgd(lr) -> Optimizer:
         eta = sched(step)
         return {n: p - eta * grads[n].to(p.dtype) for n, p in params.items()}, state
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, sgd_lr=sched)
 
 
 def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float, *,
-                        nodes: bool = False):
+                        nodes: bool = False, inplace: bool = False):
     """Global-norm gradient clipping (stabilizes exp-scaled gradients).
 
     With ``nodes=True`` every leaf carries a leading node axis and each node
     is clipped by its own global norm (the reference's per-node clip under
-    vmap); the returned norm is then (K,).
+    vmap); the returned norm is then (K,).  ``inplace=True`` scales the
+    given tensors themselves (the same products), which saves a copy of
+    every leaf when the caller owns them.
     """
     if nodes:
         sq = sum(g.float().reshape(g.shape[0], -1).square().sum(1)
@@ -60,7 +66,7 @@ def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float, *,
     scale = torch.clamp(max_norm / (gnorm + 1e-12), max=1.0)
 
     def apply(g):
-        s = scale.reshape((-1,) + (1,) * (g.ndim - 1)) if nodes else scale
-        return g * s.to(g.dtype)
+        s = (scale.reshape((-1,) + (1,) * (g.ndim - 1)) if nodes else scale).to(g.dtype)
+        return g.mul_(s) if inplace else g * s
 
     return {n: apply(g) for n, g in grads.items()}, gnorm

@@ -1,0 +1,200 @@
+"""The fused gossip update (B.1) in the port against the reference, on the CPU.
+
+- The per-node plain version against the reference's Pallas kernel in
+  interpret mode (``gossip_update_flat(..., interpret=True)``) on the cases
+  of ``tests/test_kernel_gossip_update.py``: d in {7, 64, 128, 1000,
+  131072} with n = 0..5 neighbours at rtol 1e-5, atol 1e-6; bfloat16 at
+  2e-2 (the reference's tolerance); a seeded sweep of d, n, η and s at rtol
+  1e-5, atol 1e-6 (the reference holds its own sweep at 2e-4).
+- The node-stacked plain version against the reference's per-node kernel,
+  row by row, on a Metropolis ring: node i's output is row i of
+  W·(θ − η·s⊙g) (paper Eq. 9 / Eq. 20), at rtol 1e-5, atol 1e-5.
+- ``gossip_update_tree`` keeps the tree's structure.
+- The fused train step: 20 fmnist dense-none steps through the fused step
+  (plain SGD + the static dense mixer, one ``gossip_update_stacked`` per
+  leaf) equal the unfused step (the optimizer and the mixer called
+  directly) bit for bit, params and every metric, and the fused step runs
+  where, and only where, it applies.
+
+Inputs come from numpy with a seed.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.gossip_update.ops import gossip_update_flat as ref_flat
+from repro_torch.comm import CompressionConfig
+from repro_torch.core import DecentralizedTrainer, RobustConfig
+from repro_torch.core.consensus import make_gossip_mixer
+from repro_torch.core.drdsgd import _fused_w
+from repro_torch.data import make_fmnist_like, pathological_noniid_partition
+from repro_torch.graphs import (
+    build_graph,
+    metropolis_weights,
+    permutation_decomposition,
+    ring_graph,
+)
+from repro_torch.kernels.gossip_update import kernel as gk
+from repro_torch.kernels.gossip_update import ops
+from repro_torch.kernels.gossip_update.ref import gossip_update_ref
+from repro_torch.models import paper_nets as nets
+from repro_torch.optim import Optimizer, sgd
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _case(seed, d, n):
+    rng = np.random.default_rng(seed)
+    theta, grad = (rng.standard_normal(d).astype(np.float32) for _ in range(2))
+    nbrs = rng.standard_normal((n, d)).astype(np.float32)
+    w = rng.standard_normal(n + 1)
+    w = (np.exp(w) / np.exp(w).sum()).astype(np.float32)
+    return theta, grad, nbrs, w
+
+
+def _both(theta, grad, nbrs, w, s, eta, torch_dtype=torch.float32, jax_dtype=jnp.float32):
+    """(port plain version, reference Pallas kernel in interpret mode), float32 numpy."""
+    th, g, nb = (torch.from_numpy(a).to(torch_dtype) for a in (theta, grad, nbrs))
+    got = ops.gossip_update_flat(th, g, nb, torch.from_numpy(w),
+                                 torch.tensor(s, dtype=torch.float32), eta=eta)
+    want = ref_flat(*(jnp.asarray(a, jax_dtype) for a in (theta, grad, nbrs)), jnp.asarray(w),
+                    jnp.float32(s), eta=eta, interpret=True)
+    assert got.dtype == torch_dtype
+    return got.float().numpy(), np.asarray(want, np.float32)
+
+
+@pytest.mark.parametrize("n", range(6))
+@pytest.mark.parametrize("d", [7, 64, 128, 1000, 131072])
+def test_per_node_matches_reference_kernel(d, n):
+    got, want = _both(*_case(d + n, d, n), 1.7, 0.05)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("n", [0, 2])
+def test_per_node_bf16(n):
+    got, want = _both(*_case(9, 256, n), 0.5, 0.1, torch.bfloat16, jnp.bfloat16)
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_per_node_seeded_sweep(seed):
+    rng = np.random.default_rng(1000 + seed)
+    d, n = int(rng.integers(1, 4097)), int(rng.integers(0, 6))
+    eta, s = float(rng.uniform(1e-4, 1.0)), float(rng.uniform(0.1, 50.0))
+    got, want = _both(*_case(seed, d, n), s, eta)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("d", [40, 3000])
+def test_stacked_matches_reference_kernel_row_by_row(d):
+    k, eta = 6, 0.05
+    g = ring_graph(k)
+    w = metropolis_weights(g)
+    rng = np.random.default_rng(d)
+    thetas, grads = (rng.standard_normal((k, d)).astype(np.float32) for _ in range(2))
+    scales = rng.uniform(0.5, 2.0, size=k).astype(np.float32)
+    got = ops.gossip_update_stacked(torch.from_numpy(thetas), torch.from_numpy(grads),
+                                    torch.from_numpy(w.astype(np.float32)),
+                                    torch.from_numpy(scales), eta=eta).numpy()
+    updated = thetas - eta * scales[:, None] * grads  # what each neighbour sends
+    for i in range(k):
+        nbr_ids = g.neighbors(i)
+        weights = np.concatenate([[w[i, i]], w[i, nbr_ids]]).astype(np.float32)
+        want = ref_flat(jnp.asarray(thetas[i]), jnp.asarray(grads[i]),
+                        jnp.asarray(updated[nbr_ids]), jnp.asarray(weights),
+                        jnp.float32(scales[i]), eta=eta, interpret=True)
+        np.testing.assert_allclose(got[i], np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_stacked_keeps_leaf_shapes_and_dtype():
+    rng = np.random.default_rng(0)
+    theta = torch.from_numpy(rng.standard_normal((4, 3, 5)).astype(np.float32))
+    out = ops.gossip_update_stacked(theta, torch.ones_like(theta), torch.eye(4),
+                                    torch.ones(4), eta=0.5)
+    assert out.shape == theta.shape and out.dtype == theta.dtype
+    assert torch.equal(out, theta - 0.5)
+
+
+def test_tree_structure_preserved():
+    tree = {"w": torch.ones((3, 4)), "b": {"x": torch.arange(5.0)}}
+    grads = {"w": torch.ones((3, 4)), "b": {"x": torch.ones(5)}}
+    nbrs = [{"w": tree["w"] * 2, "b": {"x": tree["b"]["x"] * 2}}]
+    out = ops.gossip_update_tree(tree, grads, nbrs, torch.tensor([0.6, 0.4]), 1.0, eta=0.1)
+    assert set(out) == {"w", "b"} and set(out["b"]) == {"x"}
+    assert out["w"].shape == (3, 4) and out["b"]["x"].shape == (5,)
+    want = gossip_update_ref(tree["b"]["x"], grads["b"]["x"], nbrs[0]["b"]["x"][None],
+                             torch.tensor([0.6, 0.4]), torch.tensor(1.0), eta=0.1)
+    assert torch.equal(out["b"]["x"], want)
+
+
+def test_dispatchers_count_plain_calls_and_kernels_refuse_the_cpu():
+    x = torch.ones(8)
+    before = (ops.gossip_update_flat.plain_calls, ops.gossip_update_stacked.plain_calls)
+    ops.gossip_update_flat(x, x, x[None], torch.tensor([0.5, 0.5]), torch.tensor(1.0), eta=0.1)
+    ops.gossip_update_stacked(x[None], x[None], torch.ones(1, 1), torch.ones(1), eta=0.1)
+    assert (ops.gossip_update_flat.plain_calls, ops.gossip_update_stacked.plain_calls) == (
+        before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        gk.gossip_update(x, x, x[None], torch.tensor([0.5, 0.5]), torch.tensor(1.0), eta=0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        gk.gossip_update_stacked(x[None], x[None], torch.ones(1, 1), torch.ones(1), eta=0.1)
+
+
+# -- the fused train step ---------------------------------------------------------
+
+K, B, STEPS = 10, 55, 20
+LR = (K / 300) ** 0.5
+GRAPH_KW = {"p": 0.3, "seed": 0}
+
+
+@pytest.fixture(scope="module")
+def fmnist():
+    fed = pathological_noniid_partition(make_fmnist_like(n_train=2000, n_test=200), K, seed=0)
+    rng = np.random.default_rng(0)
+    batches = [fed.sample_batch(rng, B) for _ in range(STEPS)]
+    return batches, nets.mlp_init(torch.Generator().manual_seed(0))
+
+
+def _trainer(optimizer, robust, grad_clip, **kw):
+    return DecentralizedTrainer(nets.make_classifier_loss(nets.mlp_apply), nets.mlp_apply,
+                                num_nodes=K, graph="erdos_renyi", graph_kwargs=GRAPH_KW,
+                                robust=RobustConfig(mu=6.0, enabled=robust),
+                                optimizer=optimizer, grad_clip=grad_clip, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("robust,grad_clip", [(True, None), (False, 0.5)],
+                         ids=["dr-dsgd", "dsgd-clip"])
+def test_fused_step_equals_unfused_step(fmnist, robust, grad_clip):
+    batches, params = fmnist
+    fused_opt = sgd(LR)
+    unfused_opt = Optimizer(fused_opt.init, fused_opt.update)  # not recognised as plain SGD
+    fused = _trainer(fused_opt, robust, grad_clip)
+    unfused = _trainer(unfused_opt, robust, grad_clip)
+    assert _fused_w(fused_opt, fused.mixer) is not None
+    assert _fused_w(unfused_opt, unfused.mixer) is None
+    a, b = fused.init(params), unfused.init(params)
+    calls = ops.gossip_update_stacked.plain_calls
+    for t in range(STEPS):
+        a, ma = fused.step(a, batches[t])
+        b, mb = unfused.step(b, batches[t])
+        for name in a.params:
+            assert torch.equal(a.params[name], b.params[name]), (t, name)
+        assert ma.keys() == mb.keys()
+        for key in ma:
+            assert torch.equal(ma[key], mb[key]), (t, key)
+        assert a.comm.rounds == b.comm.rounds == t + 1
+        assert torch.equal(a.comm.wire_bits, b.comm.wire_bits)
+    assert ops.gossip_update_stacked.plain_calls - calls == STEPS * len(params)
+
+
+def test_fused_step_applies_only_to_sgd_with_static_dense_mixing():
+    w = metropolis_weights(build_graph("erdos_renyi", K, **GRAPH_KW))
+    opt = sgd(LR)
+    assert _fused_w(opt, _trainer(opt, True, None).mixer) is not None
+    others = [_trainer(opt, True, None, mixing="none").mixer,
+              _trainer(opt, True, None,
+                       compression=CompressionConfig(kind="int8")).mixer,
+              make_gossip_mixer(permutation_decomposition(w), device="cpu")]
+    assert all(_fused_w(opt, m) is None for m in others)

@@ -20,9 +20,23 @@ given state, y and the final state, at rtol 2e-5 and an atol of 2e-5 times
 the largest |value| of the plain version's output: with N(0, 1) inputs and
 the init's decay of 0.9975 over 256 steps the state grows to O(10) and y to
 O(100), and y's 64-term dot products cancel, so the two summation orders
-differ by up to 2e-6 of max |y| (2.2e-4 absolute, measured on an H100).  The LM's prefill on the card launches
-one B.6 per attn/swa layer and one B.7 per rwkv layer and matches the CPU.  Run it on a machine with a
-card with ``PYTHONPATH=src python -m pytest -q tests/test_torch_kernel.py``.
+differ by up to 2e-6 of max |y| (2.2e-4 absolute, measured on an H100).
+The LM's prefill on the card launches one B.6 per attn/swa layer and one
+B.7 per rwkv layer and matches the CPU.
+
+LM training: the per-node gossip update (B.1) equals its plain version bit
+for bit (float32 and bfloat16, n = 0..5 neighbours); the node-stacked form
+is held within 1e-6 of max |out| in float32 (its sum over the nodes is an
+FMA chain where the plain version is a cuBLAS product) and 1e-2 in
+bfloat16 (the output rounded to 8 bits after that sum), from K = 1 to 64.
+B.6's backward (dq, dk, dv) is held against autograd of the plain version
+within 1e-4 of each gradient's largest |value|, and the forward's row
+log-sum-exp at 2e-5, at every flash case and qwen2-0.5b's training shape;
+the node-stacked LM loss and its gradients on the card match the CPU
+within the same 1e-4; the WKV6 scan refuses to be recorded for a gradient.
+
+Run it on a machine with a card with ``PYTHONPATH=src python -m pytest -q
+tests/test_torch_kernel.py``.
 """
 
 import numpy as np
@@ -424,3 +438,152 @@ def test_lm_prefill_on_the_card_matches_the_cpu(cuda, arch):
     for name, layer in got_pf[1].items():
         for leaf, t in layer.items():
             torch.testing.assert_close(t.cpu(), want_pf[1][name][leaf], rtol=1e-4, atol=1e-4)
+
+
+# -- LM training: the gossip update (B.1) and B.6's backward ------------------
+
+from repro_torch.core.drdsgd import replicate_params  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import MASKED  # noqa: E402
+from repro_torch.kernels.gossip_update import kernel as gk  # noqa: E402
+from repro_torch.kernels.gossip_update import ops as gops  # noqa: E402
+from repro_torch.kernels.gossip_update import ref as gref  # noqa: E402
+from repro_torch.models import make_lm_loss  # noqa: E402
+
+BWD_REL = 1e-4     # B.6's backward against autograd of the plain version, relative to max
+STACKED_REL = 1e-6  # B.1 stacked: an FMA chain against cuBLAS, relative to max |out|
+
+
+def _rel(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [0, 1, 3, 5])
+@pytest.mark.parametrize("d", [7, 64, 128, 1000, 131072])
+def test_gossip_update_equals_plain(cuda, d, n, dtype):
+    rng = np.random.default_rng(d + n)
+    theta, grad = (torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(cuda, dtype)
+                   for _ in range(2))
+    nbrs = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda, dtype)
+    w = torch.softmax(torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32)), 0).to(cuda)
+    s = torch.tensor(1.7, device=cuda)
+    before = gk.gossip_update.launches
+    out = gops.gossip_update_flat(theta, grad, nbrs, w, s, eta=0.05)
+    want = gref.gossip_update_ref(theta, grad, nbrs, w, s, eta=0.05)
+    torch.cuda.synchronize()
+    assert gk.gossip_update.launches == before + 1 and out.dtype == dtype
+    assert torch.equal(out, want)  # the plain version's order, each op rounded once
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,shape", [(8, (896,)), (8, (151936, 8)), (10, (784, 128)),
+                                     (10, (10,)), (64, (4099,)), (1, (33,))])
+def test_gossip_update_stacked_equals_plain(cuda, k, shape, dtype):
+    from repro_torch.graphs import metropolis_weights, ring_graph
+
+    rng = np.random.default_rng(k + sum(shape))
+    theta, grad = (torch.from_numpy(rng.standard_normal((k, *shape)).astype(np.float32))
+                   .to(cuda, dtype) for _ in range(2))
+    w = torch.from_numpy(metropolis_weights(ring_graph(k)).astype(np.float32)
+                         if k > 2 else np.full((k, k), 1.0 / k, np.float32)).to(cuda)
+    s = torch.from_numpy(rng.uniform(0.1, 3.0, k).astype(np.float32)).to(cuda)
+    before = gk.gossip_update_stacked.launches
+    out = gops.gossip_update_stacked(theta, grad, w, s, eta=0.01)
+    want = gref.gossip_update_stacked_ref(theta, grad, w, s, eta=0.01)
+    torch.cuda.synchronize()
+    assert gk.gossip_update_stacked.launches == before + 1
+    assert out.shape == theta.shape and out.dtype == dtype
+    # float32: the sum over j in another order than cuBLAS; bfloat16: and
+    # the output rounded to 8 bits after it
+    assert _rel(out, want) <= (STACKED_REL if dtype == torch.float32 else 1e-2)
+
+
+def test_gossip_update_stacked_rejects_what_it_does_not_take(cuda):
+    x = torch.ones((65, 4), device=cuda)
+    with pytest.raises(ValueError, match="nodes"):
+        gk.gossip_update_stacked(x, x, torch.eye(65, device=cuda), torch.ones(65, device=cuda),
+                                 eta=0.1)
+    y = torch.ones((4, 8), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.gossip_update_stacked(y, y.t().contiguous().t(), torch.eye(4, device=cuda),
+                                 torch.ones(4, device=cuda), eta=0.1)
+    with pytest.raises(TypeError):
+        gk.gossip_update_stacked(y.double(), y.double(), torch.eye(4, device=cuda),
+                                 torch.ones(4, device=cuda), eta=0.1)
+
+
+def _plain_lse(q, k, v, causal, window, softcap):
+    """The row log-sum-exp of the plain version's masked scores."""
+    _, h, s, hd = q.shape
+    kvh, t = k.shape[1], k.shape[2]
+    kk = k.repeat_interleave(h // kvh, dim=1)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, kk) / hd ** 0.5
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(t, device=q.device)[None, :]
+    ok = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= qp >= kp
+    if window is not None:
+        ok &= (qp - kp) < window
+    return torch.where(ok, scores, torch.full_like(scores, MASKED)).logsumexp(-1)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + [(2, 14, 2, 64, 64, 64, True, None, None)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_flash_attention_bwd_equals_plain(cuda, case, strided):
+    b, h, kvh, s, t, hd, causal, window, softcap = case
+    q, k, v = _flash_inputs(b, h, kvh, s, t, hd, sum(case[:6]) + 1, cuda, strided)
+    dout = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(s), device=cuda)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = fk.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    before = fk.flash_attention_bwd.launches
+    dq, dk, dv = fk.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert fk.flash_attention_bwd.launches == before + 1
+    assert dq.stride() == q.stride() and dk.shape == k.shape and dv.shape == v.shape
+    torch.testing.assert_close(lse, _plain_lse(q, k, v, **kw), rtol=2e-5, atol=2e-5)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*leaves, **kw), leaves, dout)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert _rel(got, ref) <= BWD_REL, (name, _rel(got, ref))
+
+
+def test_flash_attention_function_launches_both_kernels(cuda):
+    q, k, v = (x.requires_grad_() for x in _flash_inputs(1, 4, 2, 64, 64, 16, 5, cuda, True))
+    launches = (fk.flash_attention_fwd.launches, fk.flash_attention_bwd.launches)
+    out = fops.flash_attention(q, k, v, window=16)
+    grads = torch.autograd.grad(out.square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert (fk.flash_attention_fwd.launches, fk.flash_attention_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*leaves, window=16).square().sum(), leaves)
+    for got, ref in zip(grads, want):
+        assert _rel(got, ref) <= BWD_REL
+
+
+def test_rwkv_training_raises_on_the_card(cuda):
+    r, k, v, w, u = _wkv_inputs(1, 2, 8, 16, 0, cuda)
+    with pytest.raises(NotImplementedError, match="backward"):
+        wops.wkv6(r.requires_grad_(), k, v, w, u)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "h2o_danube_1_8b", "gemma2_27b"])
+def test_lm_loss_and_grads_on_the_card_match_the_cpu(cuda, arch):
+    """The node-stacked loss (K = 2) and every gradient leaf, card vs CPU."""
+    model = TransformerLM(get_arch(arch, smoke=True))
+    params = replicate_params(model.init(torch.Generator().manual_seed(0)), 2)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, model.cfg.vocab, (2, 2, 41)))
+    loss_fn = make_lm_loss(model)
+    out = {}
+    for dev in ("cpu", cuda):
+        leaves = {n: t.to(dev).requires_grad_() for n, t in params.items()}
+        losses = loss_fn(leaves, (tokens.to(dev),))
+        out[str(dev)] = losses, torch.autograd.grad(losses.sum(), list(leaves.values()))
+    (l_c, g_c), (l_g, g_g) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(l_g.detach().cpu(), l_c.detach(), rtol=1e-5, atol=1e-5)
+    for name, a, b in zip(params, g_g, g_c):
+        assert _rel(a.cpu(), b) <= BWD_REL, (name, _rel(a.cpu(), b))

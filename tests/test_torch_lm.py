@@ -206,8 +206,3 @@ def test_waiting_families_raise(arch):
     with pytest.raises(NotImplementedError, match=WAITING[arch]):
         TransformerLM(get_arch(arch, smoke=True))
 
-
-def test_loss_waits_for_lm_training():
-    model = TransformerLM(get_arch("qwen2_0_5b", smoke=True))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        model.loss({}, {})

@@ -264,7 +264,8 @@ def test_spec_builds_the_paper_trainer():
 
 
 @pytest.mark.parametrize("argv", [["--topology", "hub"], ["--compress", "topk"],
-                                  ["--compress-schedule", "linear"], ["--arch", "qwen2_0_5b"],
+                                  ["--compress-schedule", "linear"],
+                                  ["--arch", "qwen2_0_5b", "--ckpt-dir", "x"],
                                   ["--local-updates", "2"], ["--mix-every", "2"]])
 def test_cli_unported_flags_raise(argv):
     from repro_torch.launch import train
