@@ -10,7 +10,9 @@ entry points, and holds every CUDA kernel of those paths against its plain
 PyTorch version:
 
   build    nvcc-compiles every kernel source under src/ (one nvcc per
-           source, all six started together).
+           source, all six started together), and proves from cuobjdump's
+           SASS that each of B.6's product kernels, at every head dim, runs
+           TF32 tensor-core instructions (HMMA/HGMMA .TF32).
   kernel   the four quant_gossip kernels against their plain versions at
            every leaf shape of the paper's MLP and CNN with K = 10 and at
            three multi-block layouts: quantize_blockwise (B.2) at qmax 127
@@ -59,28 +61,31 @@ PyTorch version:
            qwen2-0.5b's training shapes (B 2, H 14/2, hd 64, S = T = 64 and
            512) and at the serving shapes below, dq, dk and dv within
            BWD_REL of their largest |value|; times as below, with SDPA's
-           backward as the yardstick (never on the path).
+           backward as the yardstick (never on the path): its backend
+           pinned (sdpa_yardstick), timed as a call and as device time.
   train-lm qwen2-0.5b at full width and depth through the training CLI
            (train_lm's defaults: K = 8 ring, batch 2, seq 64, lr 0.01, clip
            1), 20 steps: B.6 forward and backward 24 x 8 per step, B.1 once
            per leaf, no plain call; every metric finite, the first batch's
            loss lower after the run, ms per step, tokens per second, peak
-           memory, one profiled step.  Then seq 512 at K = 4, 5 steps
-           (multi-tile B.6 backward).
+           memory, one profiled step (with B.6's device time in it).  Then
+           seq 512 at K = 4, 5 steps (multi-tile B.6 backward).
   train-parity  qwen2-0.5b cut to 2 layers at full width, K = 4, 3 steps:
            the same weights and tokens on the card and on the CPU, losses
            and every leaf within TRAIN_PARITY_REL, updates within
            UPDATE_REL; one fused step (B.1) against the unfused step from
            the same state on the card.
-  serve-kernel  flash attention (B.6) at qwen2-0.5b's prefill shapes, at hd
-           80 and 128 with windows 4096 and 64 and gemma2's softcap 50, at
-           G = 1 and at a ragged S = 300; the WKV6 scan (B.7) at rwkv6-7b's
-           shapes and at T = 100 with random u and decays, y and the final
-           state; both against their plain versions at rtol 2e-5 (B.7's atol
-           scaled by max |y|, see SERVE_TOL).  Times each call (CUDA
-           events), its device time (profiler), the plain version, the
-           bound, and for B.6 scaled_dot_product_attention (never on the
-           path).
+  serve-kernel  flash attention (B.6) at qwen2-0.5b's prefill and training
+           shapes, at hd 80 and 128 with windows 4096 and 64 and gemma2's
+           softcap 50, at G = 1 and at a ragged S = 300; the WKV6 scan (B.7)
+           at rwkv6-7b's shapes and at T = 100 with random u and decays, y
+           and the final state; both against their plain versions at rtol
+           2e-5 (B.7's atol scaled by max |y|, see SERVE_TOL).  Times each
+           call (CUDA events), its device time (profiler), the plain
+           version, the bound (B.6: its products on the tensor cores as
+           3xTF32, and on the CUDA cores beside it), and for B.6
+           scaled_dot_product_attention with its backend pinned, timed as a
+           call and as device time (never on the path).
   serve    qwen2-0.5b at full width and depth (24 layers, ~494 M
            parameters), then rwkv6-7b at full width and depth (32 layers,
            ~7.5 B parameters), seeded weights on the card, batch 4: the
@@ -111,8 +116,12 @@ line before that the kernels record.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -121,6 +130,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense
 K = 10
 CIFAR_STEPS = 50
 CIFAR_GOSSIP_STEPS = 20
@@ -155,7 +165,7 @@ KERNELS = {
     "masked_dequant_accumulate": (SRC + "quant_gossip/csrc/accumulate.cu",
                                   TPU + "quant_gossip/kernel.py:187", ("dequant_acc_kernel",)),
     "flash_attention_fwd": (SRC + "flash_attention/csrc/flash_fwd.cu",
-                            TPU + "flash_attention/kernel.py:100", ("flash_fwd_kernel",)),
+                            TPU + "flash_attention/kernel.py:100", ("flash_fwd_mma_kernel",)),
     "wkv6_scan": (SRC + "rwkv6_scan/csrc/wkv6.cu", TPU + "rwkv6_scan/kernel.py:65",
                   ("wkv6_kernel",)),
     "gossip_update": (SRC + "gossip_update/csrc/gossip_update.cu",
@@ -166,7 +176,7 @@ KERNELS = {
     # the backward of B.6: the reference differentiates its XLA attention
     "flash_attention_bwd": (SRC + "flash_attention/csrc/flash_bwd.cu",
                             TPU + "flash_attention/kernel.py:100",
-                            ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")),
+                            ("bwd_mma_kernel", "bwd_reduce_kernel")),
 }
 QUANT = tuple(KERNELS)[:4]
 
@@ -203,7 +213,7 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
 
 def profiled(fn, iters: int):
     """Run ``fn`` ``iters`` times under torch.profiler after one warm-up
-    call.  Returns (wall seconds, the profiler's key averages)."""
+    call.  Returns (wall seconds, the profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -215,7 +225,7 @@ def profiled(fn, iters: int):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return wall, prof.key_averages()
+    return wall, prof
 
 
 def device_events(averages, *names: str) -> list:
@@ -240,15 +250,24 @@ def device_us_per_call(averages, names) -> float:
     return total
 
 
+def launch_us(prof, name: str) -> list[float]:
+    """The device time (us) of each launch of the kernels whose name holds
+    ``name`` in a profile, in launch order."""
+    from torch.autograd import DeviceType
+
+    return [e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == DeviceType.CUDA and name in e.name]
+
+
 def device_ms(fn, iters: int, names, tries: int = 3) -> float:
     """Device time (ms) of one ``fn()`` that launches each kernel of
     ``names`` once, under the profiler.  The profiler now and then records
     no launch of a kernel at all (seen on the H100); the window is then
     profiled again, up to ``tries`` times."""
     for attempt in range(tries):
-        _, avg = profiled(fn, iters)
+        _, prof = profiled(fn, iters)
         try:
-            return device_us_per_call(avg, names) / 1e3
+            return device_us_per_call(prof.key_averages(), names) / 1e3
         except AssertionError:
             if attempt == tries - 1:
                 raise
@@ -321,8 +340,57 @@ def check_counts(tag: str, counts: dict, want: dict) -> None:
                                  f"calls, want {want.get(name, 0)} launches and none")
 
 
-def phase_build() -> None:
+def cuobjdump() -> str:
+    """cuobjdump from PATH, else beside nvcc in the CUDA toolkit, else from
+    Triton's bundled binaries (``triton/backends/nvidia/bin``)."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    dirs = [Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin",
+            Path("/usr/local/cuda/bin")]
+    if shutil.which("nvcc"):
+        dirs.append(Path(shutil.which("nvcc")).resolve().parent)
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        dirs.append(Path(spec.origin).parent / "backends" / "nvidia" / "bin")
+    for d in dirs:
+        if (d / "cuobjdump").is_file():
+            return str(d / "cuobjdump")
+    raise RuntimeError(f"cuobjdump not found on PATH nor in {[str(d) for d in dirs]}: "
+                       f"the tensor-core check of B.6 cannot run")
+
+
+# B.6's kernels that do matrix products: each must run them on the tensor
+# cores (bwd_reduce_kernel, the sum of the backward's partials, does none)
+TENSOR_CORE_KERNELS = {"flash_attention/csrc/flash_fwd.cu": ("flash_fwd_mma_kernel",),
+                       "flash_attention/csrc/flash_bwd.cu": ("bwd_mma_kernel",)}
+TF32_MMA = re.compile(r"\bHG?MMA\.[\w.]*TF32")
+
+
+def tf32_mma_counts(lib: Path) -> dict[str, int]:
+    """{kernel function (mangled): its TF32 tensor-core instructions (HMMA or
+    HGMMA with a TF32 operand type)} in the SASS that cuobjdump prints."""
+    sass = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts: dict[str, int] = {}
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and TF32_MMA.search(line):
+            counts[fn] += 1
+    return counts
+
+
+def phase_build() -> dict:
+    """Builds every source, logs ptxas's registers and spills, and proves
+    from the SASS that each of B.6's product kernels, at every head dim it
+    is built for, runs TF32 tensor-core instructions; raises if one has
+    none.  Returns {kernel function: TF32 instructions}."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 
     t0 = time.perf_counter()
     built = _build.build()
@@ -332,6 +400,17 @@ def phase_build() -> None:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build] {source}: {line.strip()}")
+    found = {}
+    for source, names in TENSOR_CORE_KERNELS.items():
+        counts = tf32_mma_counts(built[source][0])
+        for name in names:
+            fns = {fn: n for fn, n in counts.items() if name in fn}
+            log(f"[build] {source}: TF32 tensor-core instructions of {name}: {fns}")
+            if len(fns) != len(HEAD_DIMS) or not all(fns.values()):
+                raise AssertionError(f"[build] {name} must be built for each of {HEAD_DIMS} "
+                                     f"with TF32 HMMA/HGMMA in every instance: {fns}")
+            found.update(fns)
+    return found
 
 
 def _matchings(p: float, seed: int):
@@ -729,8 +808,8 @@ def phase_profile(spec_cls, cfg_cls) -> dict:
         def steps():
             state[0], _ = trainer.run(state[0], batches)
 
-        wall, avg = profiled(steps, 1)
-        dev = device_events(avg)
+        wall, prof = profiled(steps, 1)
+        dev = device_events(prof.key_averages())
         busy_us = sum(e.self_device_time_total for e in dev)
         top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
         rec = dict(stack=stack, steps=PROFILE_STEPS,
@@ -887,14 +966,24 @@ def _pairs(s: int, t: int, causal: bool, window) -> int:
     return n
 
 
-def flash_bound(b, h, kvh, s, t, hd, causal, window) -> tuple[float, str]:
+def _attention_bound(n_bytes: int, ops: int) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, the CUDA cores' bound ms) of an attention
+    kernel whose float32 products run as three TF32 tensor-core products:
+    the larger of the bytes at the HBM rate and 3 x ops at the TF32 rate;
+    beside it the larger of the bytes and ops at the float32 FMA rate."""
+    t_bytes, t_tc = n_bytes / HBM_BYTES_PER_S, 3 * ops / TF32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_tc), "bytes" if t_bytes >= t_tc else "operations",
+            1e3 * max(t_bytes, ops / FP32_OPS_PER_S))
+
+
+def flash_bound(b, h, kvh, s, t, hd, causal, window) -> tuple[float, str, float]:
     """Least time of one B.6 call: q, k, v read and out written once at the
     HBM rate, against 4 hd float operations per unmasked pair (two for q.k,
-    two for p.v) at the float32 FMA peak."""
+    two for p.v), each taken as three TF32 products at the tensor cores'
+    TF32 peak.  Returns (bound ms, "bytes" or "operations", the bound with
+    the operations at the float32 FMA peak instead)."""
     n_bytes = 4 * (2 * b * h * s * hd + 2 * b * kvh * t * hd)
-    ops = 4 * b * h * hd * _pairs(s, t, causal, window)
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return _attention_bound(n_bytes, 4 * b * h * hd * _pairs(s, t, causal, window))
 
 
 def wkv6_bound(b, h, t, hd) -> tuple[float, str]:
@@ -905,6 +994,50 @@ def wkv6_bound(b, h, t, hd) -> tuple[float, str]:
     ops = 4 * b * h * t * hd * hd
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def need_tma(tag: str, **views) -> bool:
+    """True, or raise: B.6's kernels copy each of these (B, heads, rows, hd)
+    views by TMA, not by the slower cp.async they fall back to when the
+    driver refuses a tensor map or a row is not 16-byte aligned."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    off = {n: (tuple(x.shape), x.stride(), x.data_ptr() % 16) for n, x in views.items()
+           if not fk.rows_by_tma(x)}
+    if off:
+        raise AssertionError(f"{tag}: copied by cp.async, not TMA (shape, strides, address "
+                             f"mod 16): {off}")
+    return True
+
+
+def tma_audit(fn) -> dict:
+    """Run ``fn`` with each call of B.6 from ``ops`` (the model's entry)
+    checked first by :func:`need_tma` on the views it copies by TMA: the
+    forward's k and v, the backward's q, k, v, out and dout.  Returns the
+    calls checked, {"fwd": n, "bwd": n}."""
+    import types
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fo
+
+    calls = {"fwd": 0, "bwd": 0}
+
+    def fwd(q, k, v, **kw):
+        calls["fwd"] += need_tma("B.6 forward in the step", k=k, v=v)
+        return fk.flash_attention_fwd(q, k, v, **kw)
+
+    def bwd(q, k, v, out, lse, dout, **kw):
+        dout_rows = dout if dout.stride(-1) == 1 else dout.contiguous()  # as the wrapper
+        calls["bwd"] += need_tma("B.6 backward in the step", q=q, k=k, v=v, out=out,
+                                 dout=dout_rows)
+        return fk.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+
+    fo._k = types.SimpleNamespace(flash_attention_fwd=fwd, flash_attention_bwd=bwd)
+    try:
+        fn()
+    finally:
+        fo._k = fk
+    return calls
 
 
 def _rel_err(got, want) -> float:
@@ -918,6 +1051,7 @@ def phase_serve_kernels() -> dict:
     the model's memory layout (strided (B, S, H, hd) views)."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
 
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -931,6 +1065,7 @@ def phase_serve_kernels() -> dict:
 
     flash_cases = [  # tag, b, h, kvh, s, hd, window, softcap
         ("qwen2-0.5b prefill", 4, 14, 2, 512, 64, None, None),
+        ("qwen2-0.5b train S 64", 2, 14, 2, 64, 64, None, None),
         ("hd 80, window 4096", 2, 32, 8, 512, 80, 4096, None),
         ("hd 128, window 64, softcap 50", 2, 32, 16, 512, 128, 64, 50.0),
         ("G = 1", 2, 8, 8, 512, 64, None, None),
@@ -953,17 +1088,24 @@ def phase_serve_kernels() -> dict:
         plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=10, warmup=2)
         dev_ms = device_ms(lambda: fk.flash_attention_fwd(q, k, v, **kw), 20,
                            KERNELS["flash_attention_fwd"][2])
-        bound, by = flash_bound(b, h, kvh, s, s, hd, True, window)
+        bound, by, fp32_bound = flash_bound(b, h, kvh, s, s, hd, True, window)
         row = dict(case=tag, b=b, h=h, kvh=kvh, s=s, hd=hd, window=window, softcap=softcap,
                    max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
-                   bound_by=by, library_ms=None)
+                   bound_by=by, fp32_bound_ms=fp32_bound, library_ms=None,
+                   tma=need_tma(f"[serve-kernel] B.6 {tag}", k=k, v=v))
         if window is None and softcap is None:  # the yardstick: one PyTorch call, contiguous
             qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-            sdpa = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
-            if not torch.allclose(sdpa, want, rtol=1e-4, atol=1e-4):
+            backend, label, kf, vf, gqa = sdpa_yardstick(qc, kc, vc)
+
+            def sdpa():
+                with sdpa_kernel([backend]):
+                    return F.scaled_dot_product_attention(qc, kf, vf, is_causal=True,
+                                                          enable_gqa=gqa)
+
+            if not torch.allclose(sdpa(), want, rtol=1e-4, atol=1e-4):
                 raise AssertionError(f"[serve-kernel] SDPA disagrees with the plain version ({tag})")
-            row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qc, kc, vc, is_causal=True, enable_gqa=True), iters=50)
+            row.update(library_ms=cuda_ms(sdpa, iters=50),
+                       library_device_ms=window_device_ms(sdpa, 20), library_backend=label)
         out["flash_attention_fwd"]["rows"].append(row)
         log("[serve-kernel] " + json.dumps(row))
 
@@ -1107,8 +1249,8 @@ def _serve_profile(model, params, prompt, decode_steps: int) -> dict:
             logits, cache = model.decode_step(params, logits.argmax(-1)[:, None], s0 + t, cache)
 
     for phase, fn in (("prefill", prefill), (f"decode x{decode_steps}", decode)):
-        wall, avg = profiled(fn, 1)
-        dev = device_events(avg)
+        wall, prof = profiled(fn, 1)
+        dev = device_events(prof.key_averages())
         busy_us = sum(e.self_device_time_total for e in dev)
         top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
         out[phase] = dict(wall_ms=1e3 * wall, device_busy_ms=busy_us / 1e3,
@@ -1286,21 +1428,61 @@ def gossip_bound(k: int, d: int, n: int | None, elt: int = 4) -> tuple[float, st
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def flash_bwd_bound(b, h, kvh, s, t, hd, causal, window) -> tuple[float, str]:
+def flash_bwd_bound(b, h, kvh, s, t, hd, causal, window) -> tuple[float, str, float]:
     """Least time of one B.6 backward call: q, o, dO, k, v and lse read and
     dq, dk, dv written once at the HBM rate, against 10 hd float operations
     per unmasked pair (the scores recomputed, then dO.v, dV, dQ and dK: five
-    products of 2 hd each, FlashAttention-2's count) at the float32 peak."""
+    products of 2 hd each, FlashAttention-2's count), each taken as three
+    TF32 products at the tensor cores' TF32 peak.  Returns (bound ms, "bytes"
+    or "operations", the bound at the float32 FMA peak instead)."""
     n_bytes = 4 * (4 * b * h * s * hd + 4 * b * kvh * t * hd + b * h * s)
-    ops = 10 * b * h * hd * _pairs(s, t, causal, window)
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return _attention_bound(n_bytes, 10 * b * h * hd * _pairs(s, t, causal, window))
 
 
-def _time_call(name, call, plain, iters, plain_iters) -> dict:
+def window_device_ms(fn, iters: int, windows: int = 3) -> float:
+    """Device time (ms) of one ``fn()`` from every device entry the profiler
+    records over ``iters`` calls (kernels, copies, fills), whatever its
+    name: each entry's mean time per launch times its launches per call (its
+    count over ``iters``, rounded), so a launch the profiler drops does not
+    shorten the sum.  The median over ``windows`` windows."""
+    per_call = []
+    for _ in range(windows):
+        _, prof = profiled(fn, iters)
+        per_call.append(sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
+                            for e in device_events(prof.key_averages()) if e.count) / 1e3)
+    return sorted(per_call)[windows // 2]
+
+
+def sdpa_yardstick(q, k, v):
+    """The fastest SDPA backend that takes these float32 inputs:
+    EFFICIENT_ATTENTION, else MATH, each with K/V as they are (enable_gqa)
+    or, where it refuses GQA, expanded over the query heads by
+    repeat_interleave here, outside any timed window.  Returns (backend,
+    its label, k and v as fed, enable_gqa)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = q.shape[1] // k.shape[1]
+    expanded = tuple(x.repeat_interleave(g, dim=1) for x in (k, v))
+    feeds = [((k, v), True, ""), (expanded, False, ", K/V expanded")] if g > 1 \
+        else [((k, v), False, "")]
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        for (kk, vv), gqa, how in feeds:
+            try:
+                with sdpa_kernel([backend]):
+                    F.scaled_dot_product_attention(q, kk, vv, is_causal=True, enable_gqa=gqa)
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            return backend, backend.name + how, kk, vv, gqa
+    raise AssertionError("no SDPA backend takes float32 at this shape")
+
+
+def _time_call(name, call, plain, iters, plain_iters, names=None) -> dict:
     return dict(ms=cuda_ms(call, iters=iters, warmup=2),
                 plain_ms=cuda_ms(plain, iters=plain_iters, warmup=1),
-                device_ms=device_ms(call, max(2, iters // 4), KERNELS[name][2]))
+                device_ms=device_ms(call, max(2, iters // 4), names or KERNELS[name][2]))
 
 
 def phase_gossip_update_kernels(mlp_leaves) -> dict:
@@ -1400,11 +1582,13 @@ def phase_flash_bwd_kernels() -> dict:
     kernels, the plain backward and SDPA's backward (never on the path)."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
 
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     gen = torch.Generator(device="cuda").manual_seed(99)
+    scrub = torch.empty(64 << 20, device="cuda")  # 256 MB written between cold calls: 5x L2
     cases = [  # tag, b, h, kvh, s, hd, window, softcap
         ("qwen2-0.5b train S 64", 2, 14, 2, 64, 64, None, None),
         ("qwen2-0.5b train S 512", 2, 14, 2, 512, 64, None, None),
@@ -1438,22 +1622,45 @@ def phase_flash_bwd_kernels() -> dict:
         def plain():
             torch.autograd.grad(ref_out, leaves, dout, retain_graph=True)
 
-        t = _time_call("flash_attention_bwd", call, plain, 30, 5)
-        bound, by = flash_bwd_bound(b, h, kvh, s, s, hd, True, window)
+        names = tuple(n for n in KERNELS["flash_attention_bwd"][2]
+                      if h > kvh or n != "bwd_reduce_kernel")  # G = 1: no partials to sum
+        def cold_call():  # inputs and code out of L2, as inside a training step
+            scrub.zero_()
+            call()
+
+        t = _time_call("flash_attention_bwd", call, plain, 30, 5, names)
+        bound, by, fp32_bound = flash_bwd_bound(b, h, kvh, s, s, hd, True, window)
         row = dict(case=tag, b=b, h=h, kvh=kvh, s=s, hd=hd, window=window, softcap=softcap,
-                   rel_err=errs, max_abs_err=abs_err, **t, bound_ms=bound, bound_by=by,
-                   library_ms=None)
+                   rel_err=errs, max_abs_err=abs_err, **t,
+                   cold_device_ms=device_ms(cold_call, 10, names), bound_ms=bound,
+                   bound_by=by, fp32_bound_ms=fp32_bound, library_ms=None,
+                   tma=need_tma(f"[bwd-kernel] {tag}", q=q, k=k, v=v, out=o, dout=dout))
         if window is None and softcap is None:  # the yardstick: SDPA's backward, contiguous
-            qc, kc, vc = (x.detach().contiguous().requires_grad_() for x in (q, k, v))
-            sdpa = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
-            sdpa_g = torch.autograd.grad(sdpa, (qc, kc, vc), dout, retain_graph=True)
-            if max(_rel_err(g, w) for g, w in zip(sdpa_g, want)) > 1e-3:
+            qc, kc, vc = (x.detach().contiguous() for x in (q, k, v))
+            backend, label, kf, vf, gqa = sdpa_yardstick(qc, kc, vc)
+            leaves_s = [x.detach().clone().requires_grad_() for x in (qc, kf, vf)]
+            with sdpa_kernel([backend]):
+                sdpa = F.scaled_dot_product_attention(*leaves_s, is_causal=True, enable_gqa=gqa)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(sdpa, leaves_s, dout, retain_graph=True)
+
+            dqs, dks, dvs = sdpa_bwd()
+            if not gqa and h > kvh:  # the expanded K/V's gradients, summed per KV head
+                dks, dvs = (x.view(b, kvh, h // kvh, s, hd).sum(2) for x in (dks, dvs))
+            if max(_rel_err(g, w) for g, w in zip((dqs, dks, dvs), want)) > 1e-3:
                 raise AssertionError(f"[bwd-kernel] SDPA's backward disagrees ({tag})")
-            row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-                sdpa, (qc, kc, vc), dout, retain_graph=True), iters=30, warmup=2)
+            row.update(library_ms=cuda_ms(sdpa_bwd, iters=30, warmup=2),
+                       library_device_ms=window_device_ms(sdpa_bwd, 10), library_backend=label)
         out["rows"].append(row)
         log("[bwd-kernel] " + json.dumps(row))
     return out
+
+
+# B.6's keys in the kernels line: besides the contract's, SDPA's device time
+# and backend (its bound on the CUDA cores stays in the logged rows)
+FLASH_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "library_device_ms", "library_backend")
 
 
 def _lm_counts(nodes: int, steps: int, layers: int, leaves: int) -> dict:
@@ -1523,25 +1730,43 @@ def phase_train_lm(seq: int, nodes: int, steps: int, profile: bool) -> dict:
         raise AssertionError(f"[train-lm] the loss did not fall: {rec}")
     if abs(rec["loss_first_step"] - rec["ln_vocab"]) > 1.5:
         raise AssertionError(f"[train-lm] a random model's loss should be near ln V: {rec}")
+    batch = (first.cuda(),)
+    box = [state]
+    del state
+
+    def one_step():
+        box[0], _ = trainer.step(box[0], batch)
+
+    # one more step, each B.6 call's views checked: the model's own layouts
+    per_step = nodes * cfg.n_layers
+    rec["tma_audit"] = tma_audit(one_step)
+    if rec["tma_audit"] != {"fwd": per_step, "bwd": per_step}:
+        raise AssertionError(f"[train-lm] the TMA audit saw {rec['tma_audit']} B.6 calls, "
+                             f"not {per_step} of each")
     if profile:
-        batch = (first.cuda(),)
-        box = [state]
-        del state
-
-        def one_step():
-            box[0], _ = trainer.step(box[0], batch)
-
-        p_wall, avg = profiled(one_step, 1)
+        p_wall, prof = profiled(one_step, 1)
+        avg = prof.key_averages()
         dev = device_events(avg)
         busy_us = sum(e.self_device_time_total for e in dev)
         top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+        b6 = {name: sum(e.self_device_time_total for e in device_events(avg, *KERNELS[name][2]))
+              / 1e3 for name in ("flash_attention_fwd", "flash_attention_bwd")}
+        # the backward's launches in the step, against the bwd-kernel phase's
+        # warm and cold calls at the same shape
+        mma = sorted(launch_us(prof, "bwd_mma_kernel"))
         rec["profile"] = dict(wall_ms=1e3 * p_wall, device_busy_ms=busy_us / 1e3,
                               device_busy_share=busy_us / 1e6 / p_wall,
+                              b6_fwd_device_ms=b6["flash_attention_fwd"],
+                              b6_bwd_device_ms=b6["flash_attention_bwd"],
+                              bwd_mma_us=dict(launches=len(mma), min=mma[0],
+                                              median=mma[len(mma) // 2], max=mma[-1]),
+                              bwd_reduce_us_mean=float(np.mean(
+                                  launch_us(prof, "bwd_reduce_kernel"))),
                               device_ops=sum(e.count for e in dev),
                               top=[(e.key[:48], round(e.self_device_time_total / 1e3, 3), e.count)
                                    for e in top])
         log("[train-lm] profile of one step: " + json.dumps(rec["profile"]))
-        del box
+    del box
     log("[train-lm] " + json.dumps({k: v for k, v in rec.items() if k != "profile"}))
     del trainer
     torch.cuda.empty_cache()
@@ -1745,8 +1970,7 @@ def main() -> int:
             err, launches = b1[name]["max_abs_err"], path[name][name]
         elif name == "flash_attention_bwd":  # one call at qwen2-0.5b's training shape
             row = bwd["rows"][0]
-            timing = {key: row[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms")}
+            timing = {key: row.get(key) for key in FLASH_KEYS}
             err, launches = bwd["max_abs_err"], path[name][name]
         elif name in QUANT:
             step = kern[name]["per_step"]["mlp"]
@@ -1759,8 +1983,8 @@ def main() -> int:
             err, launches = kern[name]["max_abs_err"], path[name][name]
         else:  # one call at the main path's shapes: qwen2-0.5b / rwkv6-7b prefill
             row = serve_kern[name]["rows"][0]
-            timing = {key: row[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms")}
+            timing = {key: row.get(key) for key in (
+                FLASH_KEYS if name == "flash_attention_fwd" else FLASH_KEYS[:6])}
             err = serve_kern[name]["max_abs_err"]
             launches = (qwen if name == "flash_attention_fwd" else rwkv)["launches"]
         # ms is the wrapper's call time back to back (host launch cost

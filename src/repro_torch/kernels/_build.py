@@ -44,9 +44,10 @@ def _nvcc() -> str:
 
 def lib_path(source: str) -> Path:
     """Where the library of ``source`` (a path in :data:`SOURCES`) is built,
-    keyed by the source's bytes and the flags."""
+    keyed by the source's bytes, the headers beside it and the flags."""
     src = KERNELS_DIR / source
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    tag = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
                          ).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{tag}.so"
 

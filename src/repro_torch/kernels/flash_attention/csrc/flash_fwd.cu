@@ -1,166 +1,258 @@
-// Forward GQA attention with an online softmax, float32, for sm_90a.
+// Forward GQA attention with an online softmax, float32, on the tensor
+// cores of sm_90a (3xTF32 mma.sync).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_fwd :80, _flash_fwd_kernel :30, pallas_call :100): per
 // (batch, query head) it computes softmax(softcap(q k^T / sqrt(hd)) + mask) v
 // with a causal and an optional sliding-window mask, both position axes
 // starting at 0, masked scores at -1e30 (never -inf, so no row gives NaN),
-// f32 running max, sum and accumulator, and a final divide by max(l, 1e-30).
-// Query head h reads KV head h / (H / KVH); no head is replicated.  When
+// f32 running max, sum and accumulator, one exp per score, and a final
+// divide by max(l, 1e-30).  Query head h reads KV head h / (H / KVH).  When
 // asked (lse not null), it also writes each row's log-sum-exp
 // m + log(max(l, 1e-30)) as (B, H, S) float32, which the backward
 // (flash_bwd.cu) recomputes the softmax from.
 //
-// What bounds it: at the serving shapes (qwen2-0.5b prefill: B 4, H 14,
-// S = T = 512, hd 64) the work is ~4 S T hd / 2 float operations per head
-// against 4 (2 S + 2 T) hd bytes, far above the float32 ridge, so the bound
-// is the float32 FMA rate.  This first kernel runs on the CUDA cores in
-// float32 (no wgmma, no TMA): correct and simple before fast.
+// What bounds it: at qwen2-0.5b's prefill (B 4, H 14 over 2 KV heads,
+// S = T = 512, hd 64) the work is 4 hd float operations per visible
+// (query, key) pair against 4 (2 S H + 2 T KVH) hd bytes, far above the
+// ridge: the operations.  In float32 accuracy each product runs as three
+// TF32 tensor-core products (tc_tf32.cuh), so the bound is 3 x operations
+// at the TF32 rate, 2.5x below the CUDA cores' float32 bound.  mma.sync
+// runs below that peak (wgmma's), and each float32 operand costs four more
+// instructions to split, so the kernel is bound by latency and instruction
+// issue well before the tensor cores.  At the
+// training shape (S = 64) the call is a few tiles per warp: launch and
+// latency.
 //
-// Design.  One CTA per (64-row query tile, query head, batch), 256 threads:
-// four threads per query row, each owning hd/4 of the row's head dims, so
-// q and the accumulator stay in registers at hd 128 (32 + 32 floats).  K/V
-// tiles of 64 rows are staged in dynamic shared memory; a score is the
-// four partial dot products summed with two xor-shuffles.  Each tile's
-// scores go to shared memory, the running max and sum move once per tile,
-// then p = exp(s - m) weighs the V rows.  Tiles wholly above the causal
-// diagonal or wholly outside the window are skipped.  S and T need not be
-// multiples of the tile: query rows past S write nothing, key rows past T
-// get weight exactly 0 and are never read.  hd is a template parameter
-// (16, 64, 80, 128: the slice's configs); the wrapper raises on any other.
+// Design.  One CTA of four warps per (64 packed query rows, KV head,
+// batch).  The rows of the G = H / KVH query heads that share a KV head are
+// packed position-major (row p is position p / G of head p % G of the
+// group), so each K/V tile is loaded once for the whole group, and a CTA's
+// 64 rows span 64 / G positions: a tight causal band.  At the training
+// shape (B 2, KVH 2, G 7, S 64) that is 28 CTAs.  The last rows go first:
+// under a causal mask they see the most keys.  Each warp owns 16 rows; q
+// stays in shared memory (copied once by cp.async) and is split as it is
+// read, and each warp's scores (16 x 32 keys) and output accumulator (16 x
+// hd) stay in registers as mma C fragments.  K/V tiles of 32 rows land in a
+// raw buffer in one TMA request (a 4-d tensor map over the strided view,
+// rows past T zero-filled, completion on an mbarrier), or by cp.async where
+// the rows are not 16-byte aligned; the CTA splits each tile once into big
+// and small buffers (tc_tf32.cuh, split_rows), then starts the next tile's
+// copy, which lands under this tile's products.  S = q k^T and O += P V
+// are mma.sync m16n8k8 TF32 products, each float32 product as three, and P
+// goes from the score fragments straight into the P V product's A operand.
+// wgmma is left out: TF32 wgmma wants both operands K-major in shared
+// memory, so V would need a transposed copy for P V, and q's split halves
+// would have to be staged there too; mma.sync takes its A operand from
+// registers.  Each row's max and sum are kept per lane and joined over the
+// lane quad; exp is one ex2.approx (tc_tf32.cuh, exp_fast).  Tiles wholly
+// above the causal diagonal or outside the window are skipped, and a tile
+// inside the band for every row of the CTA is not masked.  S and T need
+// not be multiples of the tiles: rows past S are zero-filled and write
+// nothing, keys past T are zero-filled and get weight exactly 0.  hd is a
+// template parameter (16, 64, 80, 128: the slice's configs); the wrapper
+// raises on any other.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tc_tf32.cuh"
+
 namespace {
 
-constexpr int BLOCK_Q = 64;
-constexpr int BLOCK_K = 64;
-constexpr int TPR = 4;                  // threads per query row
-constexpr int THREADS = BLOCK_Q * TPR;  // 256
-constexpr int S_LD = BLOCK_K + 1;       // padded score row: no bank conflicts
-constexpr float MASKED = -1e30f;        // the reference's masked score
+using namespace flash;
 
-struct Strides {
-  long long b, h, s;  // batch, head and sequence strides; head dims are contiguous
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BM = 16 * WARPS;  // packed query rows per CTA
+constexpr int BN = 32;          // keys per K/V tile
+
+template <int HD>
+struct Tile {
+  static constexpr int LD = HD + 8;   // shared pitch of q and k (floats)
+  static constexpr int LDV = HD + 4;  // of v (read as load_b_kn)
+  // raw k and v (dense), q, k and v split, the copies' barrier
+  static constexpr size_t SMEM =
+      sizeof(float) * (2 * BN * HD + BM * LD + 2 * BN * LD + 2 * BN * LDV) + 16;
+};
+
+struct Args {
+  CUtensorMap tk, tv;  // k and v rows for TMA (when tma)
+  const float *q, *k, *v;
+  float *o, *lse;
+  long long H;
+  int G, S, T;
+  Strides qs, ks, vs, os;
+  float scale, softcap;  // softcap <= 0: none
+  int causal, window;    // window <= 0: none
+  int vec;               // every row of q, k, v and o 16-byte aligned
+  int tma;               // k and v tiles by TMA, else by cp.async
 };
 
 template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * BLOCK_K * HD + BLOCK_Q * S_LD);
-}
+__global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(const __grid_constant__ Args a) {
+  constexpr int LD = Tile<HD>::LD, LDV = Tile<HD>::LDV;
+  constexpr int NT = BN / 8, DT = HD / 8;
+  extern __shared__ __align__(128) float4 smem4[];
+  float* kraw = reinterpret_cast<float*>(smem4);  // [BN][HD], as copied
+  float* vraw = kraw + BN * HD;                   // [BN][HD]
+  float* sq = vraw + BN * HD;                     // [BM][LD]
+  float* kbig = sq + BM * LD;                     // [BN][LD]
+  float* ksmall = kbig + BN * LD;                 // [BN][LD]
+  float* vbig = ksmall + BN * LD;                 // [BN][LDV]
+  float* vsmall = vbig + BN * LDV;                // [BN][LDV]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(vsmall + BN * LDV);
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, long long n_heads, long long group, long long S,
-                 long long T, Strides qs, Strides ks, Strides vs, Strides os,
-                 float scale, int causal, long long window, float softcap) {
-  constexpr int DPT = HD / TPR;  // head dims per thread
-  extern __shared__ float smem[];
-  float* k_tile = smem;                   // [BLOCK_K][HD]
-  float* v_tile = k_tile + BLOCK_K * HD;  // [BLOCK_K][HD]
-  float* s_tile = v_tile + BLOCK_K * HD;  // [BLOCK_Q][S_LD]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const long long kvh = blockIdx.y, b = blockIdx.z;
+  const int rows = a.G * a.S;
+  // the last rows first: under a causal mask they see the most keys
+  const int p0 = (gridDim.x - 1 - blockIdx.x) * BM;
 
-  const int tid = threadIdx.x;
-  const int row = tid / TPR;
-  const int lane = tid % TPR;
-  const long long h = blockIdx.y;
-  const long long b = blockIdx.z;
-  const long long kvh = h / group;
-  const long long q0 = static_cast<long long>(blockIdx.x) * BLOCK_Q;
-  const long long qi = q0 + row;
-  const bool live = qi < S;
+  // the keys any row of the tile can see
+  const int i_lo = p0 / a.G, i_hi = (min(rows, p0 + BM) - 1) / a.G;
+  int k_lo = 0, k_hi = a.T;
+  if (a.causal) k_hi = min(a.T, i_hi + 1);
+  if (a.window > 0) k_lo = max(0, i_lo - a.window + 1);
+  const int k_first = (k_lo / BN) * BN;
+  const int n_tiles = k_hi > k_first ? (k_hi - k_first + BN - 1) / BN : 0;
 
-  float qr[DPT], acc[DPT];
-  const float* qp = q + b * qs.b + h * qs.h + qi * qs.s + lane * DPT;
-#pragma unroll
-  for (int d = 0; d < DPT; ++d) {
-    qr[d] = live ? qp[d] : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = MASKED, l = 0.f;
-
-  // keys any row of this tile can see
-  long long k_lo = 0, k_hi = T;
-  if (causal) k_hi = min(T, min(S, q0 + BLOCK_Q));
-  if (window > 0) k_lo = max(0LL, q0 - window + 1);
-  const float* kb = k + b * ks.b + kvh * ks.h;
-  const float* vb = v + b * vs.b + kvh * vs.h;
-
-  for (long long k0 = (k_lo / BLOCK_K) * BLOCK_K; k0 < k_hi; k0 += BLOCK_K) {
-    for (int i = tid; i < BLOCK_K * HD; i += THREADS) {
-      const int r = i / HD, d = i % HD;
-      const long long kp = k0 + r;
-      const bool in = kp < T;
-      k_tile[i] = in ? kb[kp * ks.s + d] : 0.f;
-      v_tile[i] = in ? vb[kp * vs.s + d] : 0.f;
-    }
-    __syncthreads();
-
-    float tile_max = MASKED;
-    for (int j = 0; j < BLOCK_K; ++j) {
-      const float* kr = k_tile + j * HD + lane * DPT;
-      float part = 0.f;
-#pragma unroll
-      for (int d = 0; d < DPT; ++d) part += qr[d] * kr[d];
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      const long long kp = k0 + j;
-      float s;
-      if (kp >= T) {
-        s = -INFINITY;  // past the keys: weight exactly 0
-      } else {
-        s = part * scale;
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        bool ok = !causal || qi >= kp;
-        if (window > 0) ok = ok && (qi - kp) < window;
-        if (!ok) s = MASKED;
+  const float* kb = a.k + b * a.ks.b + kvh * a.ks.h;
+  const float* vb = a.v + b * a.vs.b + kvh * a.vs.h;
+  // starts the copy of tile n's k and v rows into the raw buffers
+  auto copy_kv = [&](int n) {
+    const int k0 = k_first + n * BN;
+    if (a.tma) {
+      if (threadIdx.x == 0) {
+        mbar_expect(bar, 2 * BN * HD * sizeof(float));
+        tma_rows(kraw, &a.tk, k0, static_cast<int>(kvh), static_cast<int>(b), bar);
+        tma_rows(vraw, &a.tv, k0, static_cast<int>(kvh), static_cast<int>(b), bar);
       }
-      tile_max = fmaxf(tile_max, s);
-      if (lane == 0) s_tile[row * S_LD + j] = s;
+    } else {
+      stage_rows<HD, HD, THREADS>(kraw, BN, a.vec, kb, a.ks.s, k0, a.T);
+      stage_rows<HD, HD, THREADS>(vraw, BN, a.vec, vb, a.vs.s, k0, a.T);
     }
-    __syncwarp();
+    cp_async_commit();
+  };
 
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
+  if (a.tma && threadIdx.x == 0) mbar_init(bar);
+  if (n_tiles > 0) copy_kv(0);  // by TMA: in flight while q is staged
+  stage_packed<HD, LD, THREADS>(sq, BM, a.vec, a.q + b * a.qs.b + kvh * a.G * a.qs.h, a.qs.h,
+                                a.qs.s, a.G, p0, rows);
+  cp_async_commit();
+  __syncthreads();  // the barrier is set up before anyone waits on it
+
+  // this lane's two rows (C fragment rows g and g + 8 of its warp)
+  int pos[2];
+  long long head[2];
+  bool live[2];
 #pragma unroll
-    for (int d = 0; d < DPT; ++d) acc[d] *= alpha;
-    for (int j = 0; j < BLOCK_K; ++j) {
-      const float p = expf(s_tile[row * S_LD + j] - m_new);
-      l += p;
-      const float* vr = v_tile + j * HD + lane * DPT;
-#pragma unroll
-      for (int d = 0; d < DPT; ++d) acc[d] += p * vr[d];
-    }
-    m = m_new;
-    __syncthreads();  // the tiles are overwritten next
+  for (int r = 0; r < 2; ++r) {
+    const int p = p0 + warp * 16 + g + 8 * r;
+    live[r] = p < rows;
+    pos[r] = p / a.G;
+    head[r] = kvh * a.G + p % a.G;
   }
 
-  if (live) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    float* op = o + b * os.b + h * os.h + qi * os.s + lane * DPT;
+  float o[DT][4];
 #pragma unroll
-    for (int d = 0; d < DPT; ++d) op[d] = acc[d] * inv;
-    if (lse != nullptr && lane == 0) lse[(b * n_heads + h) * S + qi] = m + logf(fmaxf(l, 1e-30f));
+  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f};  // l: this lane's share of the row sum
+
+  for (int n = 0; n < n_tiles; ++n) {
+    cp_async_wait<0>();
+    if (a.tma) mbar_wait(bar, n & 1);
+    __syncthreads();  // tile n is in; every warp is done with tile n - 1
+    split_rows<HD, LD, BN, THREADS>(kraw, kbig, ksmall);
+    split_rows<HD, LDV, BN, THREADS>(vraw, vbig, vsmall);
+    __syncthreads();  // split; the raw buffers are free
+    if (n + 1 < n_tiles) copy_kv(n + 1);  // lands under this tile's products
+    const Split2 kt{kbig, ksmall}, vt{vbig, vsmall};
+    const int k0 = k_first + n * BN;
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DT; ++kk) {
+      const Frag<4> qa = load_a<LD>(sq, warp * 16, kk * 8, g, c);
+      mma3_row<NT>(s, qa, [&](int j) { return load_b_nk<LD>(kt, j * 8, kk * 8, g, c); });
+    }
+
+    // a tile inside the band for every row of the CTA needs no mask
+    const bool full = k0 + BN <= a.T &&
+                      all_visible(a.causal, a.window, i_lo, i_hi, k0, k0 + BN - 1);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * a.scale;
+        if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
+        if (!full) {
+          const int kp = k0 + j * 8 + 2 * c + (e & 1);
+          if (kp >= a.T)
+            x = -INFINITY;  // past the keys: weight exactly 0
+          else if (!visible(a.causal, a.window, pos[e / 2], kp))
+            x = MASKED;
+        }
+        s[j][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      const float alpha = exp_fast(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        o[j][2 * r] *= alpha;
+        o[j][2 * r + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp_fast(s[j][e] - m[e / 2]);
+        l[e / 2] += p;
+        s[j][e] = p;
+      }
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      const Frag<4> pa = c_as_a(s[kk]);
+      mma3_row<DT>(o, pa, [&](int j) { return load_b_kn<LDV>(vt, kk * 8, j * 8, g, c); });
+    }
+  }
+  cp_async_wait<0>();  // no copy may outlive the CTA (n_tiles = 0 leaves q in flight)
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float sum = fmaxf(quad_sum(l[r]), 1e-30f);
+    if (!live[r]) continue;
+    const float inv = 1.f / sum;
+    float* op = a.o + b * a.os.b + head[r] * a.os.h + pos[r] * a.os.s + 2 * c;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      store2(op + 8 * j, o[j][2 * r] * inv, o[j][2 * r + 1] * inv, a.vec);
+    if (a.lse != nullptr && c == 0) a.lse[(b * a.H + head[r]) * a.S + pos[r]] = m[r] + logf(sum);
   }
 }
 
 template <int HD>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse,
-                   long long B, long long H, long long KVH, long long S, long long T,
-                   Strides qs, Strides ks, Strides vs, Strides os, float scale,
-                   int causal, long long window, float softcap, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+cudaError_t launch(const Args& a, long long B, long long KVH, cudaStream_t stream) {
+  constexpr size_t smem = Tile<HD>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((S + BLOCK_Q - 1) / BLOCK_Q),
-                  static_cast<unsigned>(H), static_cast<unsigned>(B));
-  flash_fwd_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, lse, H, H / KVH, S, T, qs, ks, vs, os, scale, causal, window, softcap);
+  const dim3 grid(static_cast<unsigned>((static_cast<long long>(a.G) * a.S + BM - 1) / BM),
+                  static_cast<unsigned>(KVH), static_cast<unsigned>(B));
+  flash_fwd_mma_kernel<HD><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -181,20 +273,46 @@ extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v, flo
                              cudaStream_t stream) {
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
       os{o_sb, o_sh, o_ss};
+  Args a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.lse = lse;
+  a.H = H;
+  a.G = static_cast<int>(H / KVH);
+  a.S = static_cast<int>(S);
+  a.T = static_cast<int>(T);
+  a.qs = qs;
+  a.ks = ks;
+  a.vs = vs;
+  a.os = os;
+  a.scale = scale;
+  a.softcap = softcap;
+  a.causal = causal;
+  a.window = window32(window);
+  a.vec = rows_aligned16(q, qs) && rows_aligned16(k, ks) && rows_aligned16(v, vs) &&
+          rows_aligned16(o, os);
+  a.tma = rows_map(&a.tk, k, B, KVH, T, hd, ks, BN) && rows_map(&a.tv, v, B, KVH, T, hd, vs, BN);
   switch (hd) {
     case 16:
-      return launch<16>(q, k, v, o, lse, B, H, KVH, S, T, qs, ks, vs, os, scale, causal, window,
-                        softcap, stream);
+      return launch<16>(a, B, KVH, stream);
     case 64:
-      return launch<64>(q, k, v, o, lse, B, H, KVH, S, T, qs, ks, vs, os, scale, causal, window,
-                        softcap, stream);
+      return launch<64>(a, B, KVH, stream);
     case 80:
-      return launch<80>(q, k, v, o, lse, B, H, KVH, S, T, qs, ks, vs, os, scale, causal, window,
-                        softcap, stream);
+      return launch<80>(a, B, KVH, stream);
     case 128:
-      return launch<128>(q, k, v, o, lse, B, H, KVH, S, T, qs, ks, vs, os, scale, causal, window,
-                         softcap, stream);
+      return launch<128>(a, B, KVH, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// 1 when the rows of a (B, heads, rows, hd) view with these batch, head and
+// sequence strides (in elements) are copied by TMA in these kernels, 0 when
+// by cp.async (rows not 16-byte aligned, or the driver refuses the map)
+extern "C" int flash_rows_tma(const float* base, long long B, long long heads, long long rows,
+                              long long hd, long long sb, long long sh, long long ss) {
+  CUtensorMap map;
+  return rows_map(&map, base, B, heads, rows, hd, Strides{sb, sh, ss}, BN) ? 1 : 0;
 }

@@ -5,7 +5,9 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention/kernel.py``
 ``csrc/flash_fwd.cu``, and adds its backward, ``csrc/flash_bwd.cu`` (the
 reference differentiates its XLA attention instead), both built by
 :mod:`repro_torch.kernels._build`.  The sources' header notes give their
-bounds and designs.
+bounds and designs: both run their products on the tensor cores, each
+float32 product as three TF32 products (``csrc/tc_tf32.cuh``), and their
+backward writes no float atomics, so its gradients repeat bit for bit.
 
 The wrappers take the JAX op's layout, q (B, H, S, hd) and k, v (B, KVH, T,
 hd), as views with any batch, head and sequence strides (head dims
@@ -128,16 +130,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    # each query head's partial dk and dv, summed per KV head in head order
+    part = torch.empty((2, b, h, t, hd), dtype=torch.float32, device=q.device) \
+        if h > kvh else None
     fn = _build.entry(BWD_SOURCE, "flash_bwd_f32", _BWD_ARGTYPES)
     _build.launch(fn, "flash_bwd_f32", q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                  dout.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), b, h, kvh, s, t, hd,
+                  dout.data_ptr(), None if part is None else part.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kvh, s, t, hd,
                   *(st for x in (q, k, v, out, dout, dq, dk, dv) for st in x.stride()[:3]),
                   *_mask_args(hd, causal, window, softcap))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+def rows_by_tma(x: torch.Tensor) -> bool:
+    """Whether the kernels copy the rows of ``x`` (a (B, heads, rows, hd)
+    CUDA float32 view) into shared memory by TMA rather than cp.async."""
+    _check("x", x, x.device)
+    fn = _build.entry(SOURCE, "flash_rows_tma", (_P,) + (_LL,) * 7)
+    return bool(fn(x.data_ptr(), *x.shape, *x.stride()[:3]))
 
 
 # launches since the last reset (the main path's proof of use)

@@ -31,7 +31,9 @@ FMA chain where the plain version is a cuBLAS product) and 1e-2 in
 bfloat16 (the output rounded to 8 bits after that sum), from K = 1 to 64.
 B.6's backward (dq, dk, dv) is held against autograd of the plain version
 within 1e-4 of each gradient's largest |value|, and the forward's row
-log-sum-exp at 2e-5, at every flash case and qwen2-0.5b's training shape;
+log-sum-exp at 2e-5, at every flash case (qwen2-0.5b's training shape and
+the edges of the kernels' tiles among them) and on rows that are not
+16-byte aligned, and two backward calls give the same bits;
 the node-stacked LM loss and its gradients on the card match the CPU
 within the same 1e-4; the WKV6 scan refuses to be recorded for a gradient.
 
@@ -339,6 +341,16 @@ FLASH_CASES = [  # b, h, kvh, s, t, hd, causal, window, softcap
     (1, 4, 4, 130, 130, 128, True, None, 50.0),      # G = 1
     (2, 6, 3, 97, 97, 64, False, None, None),        # non-causal, ragged
     (1, 4, 1, 33, 77, 16, False, 8, 20.0),           # S != T
+    (2, 14, 2, 64, 64, 64, True, None, None),        # qwen2-0.5b training, B 2
+    # the tiles' edges: 64 packed query rows and 32-key K/V tiles (forward,
+    # dQ), 64-key tiles walking 32-row query tiles (dK/dV)
+    (1, 2, 2, 63, 63, 64, True, None, None),
+    (1, 2, 2, 65, 65, 64, True, None, None),
+    (1, 4, 4, 31, 33, 128, False, None, None),
+    (1, 4, 2, 33, 31, 128, True, None, None),
+    (2, 14, 2, 50, 50, 64, True, None, None),        # G = 7, G S = 350 rows
+    (1, 7, 1, 101, 101, 80, True, 32, None),         # G = 7, window
+    (1, 7, 1, 65, 129, 64, False, None, None),       # G = 7, S != T
 ]
 
 
@@ -531,7 +543,7 @@ def _plain_lse(q, k, v, causal, window, softcap):
     return torch.where(ok, scores, torch.full_like(scores, MASKED)).logsumexp(-1)
 
 
-@pytest.mark.parametrize("case", FLASH_CASES + [(2, 14, 2, 64, 64, 64, True, None, None)])
+@pytest.mark.parametrize("case", FLASH_CASES)
 @pytest.mark.parametrize("strided", [False, True])
 def test_flash_attention_bwd_equals_plain(cuda, case, strided):
     b, h, kvh, s, t, hd, causal, window, softcap = case
@@ -549,6 +561,56 @@ def test_flash_attention_bwd_equals_plain(cuda, case, strided):
     want = torch.autograd.grad(attention_ref(*leaves, **kw), leaves, dout)
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert _rel(got, ref) <= BWD_REL, (name, _rel(got, ref))
+
+
+def _misaligned(x):
+    """x's values in memory one float past a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 1, device=x.device)[1:]
+    return flat.view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize("case", [(1, 4, 2, 70, 70, 64, True, None, None),
+                                  (1, 2, 1, 40, 40, 80, True, 16, 30.0)])
+def test_flash_attention_takes_rows_off_16_byte_boundaries(cuda, case):
+    """Rows that 16-byte copies cannot stage go through 4-byte ones."""
+    b, h, kvh, s, t, hd, causal, window, softcap = case
+    q, k, v = (_misaligned(x) for x in _flash_inputs(b, h, kvh, s, t, hd, 3, cuda, False))
+    dout = _misaligned(torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(1),
+                                   device=cuda))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = fk.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    grads = fk.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, attention_ref(q, k, v, **kw), **SERVE_TOL)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*leaves, **kw), leaves, dout)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        assert _rel(got, ref) <= BWD_REL, (name, _rel(got, ref))
+
+
+@pytest.mark.parametrize("case", [(2, 14, 2, 64, 64, 64, True, None, None),
+                                  (2, 14, 2, 512, 512, 64, True, None, None),
+                                  (1, 8, 4, 200, 200, 128, True, 64, 50.0)])
+def test_flash_attention_bwd_repeats_bit_for_bit(cuda, case):
+    """No float atomics: two backward calls give the same bits."""
+    b, h, kvh, s, t, hd, causal, window, softcap = case
+    q, k, v = _flash_inputs(b, h, kvh, s, t, hd, 11, cuda, True)
+    dout = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(2), device=cuda)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = fk.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    first = fk.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    second = fk.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("hd", fk.HEAD_DIMS)
+def test_flash_attention_rows_go_by_tma_where_aligned(cuda, hd):
+    """The model's strided views take TMA copies; rows off 16 bytes cp.async."""
+    q, k, v = _flash_inputs(2, 14, 2, 64, 64, hd, 0, cuda, True)
+    assert all(fk.rows_by_tma(x) for x in (q, k, v))
+    assert not fk.rows_by_tma(_misaligned(k))
 
 
 def test_flash_attention_function_launches_both_kernels(cuda):
