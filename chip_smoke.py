@@ -10,7 +10,7 @@ entry points, and holds every CUDA kernel of those paths against its plain
 PyTorch version:
 
   build    nvcc-compiles every kernel source under src/ (one nvcc per
-           source, all six started together), and proves from cuobjdump's
+           source, all seven started together), and proves from cuobjdump's
            SASS that each of B.6's product kernels, at every head dim, runs
            TF32 tensor-core instructions (HMMA/HGMMA .TF32).
   kernel   the four quant_gossip kernels against their plain versions at
@@ -19,10 +19,18 @@ PyTorch version:
            and 7, masked_quantize_blockwise (B.4) with masks all ones, all
            zeros and mixed, dequant_accumulate (B.3) and
            masked_dequant_accumulate (B.5, every mask pattern) with src None
-           and each matching of the fmnist graph.  Payloads and
+           and each matching of the fmnist graph (B.4 and B.5 per leaf are
+           one-leaf groups of the grouped kernels).  Payloads and
            accumulations must be equal bit for bit.  Times a call of each
            (CUDA events), its kernels' device time (profiler), the plain
-           version, and the memory bound.
+           version, and the memory bound.  Then the grouped B.4 and B.5
+           (one launch over every leaf of a matching, B.4 as thread-block
+           clusters) against the one-leaf plain versions bit for bit: the
+           MLP's 6 leaves, the CNN's 12, the three layouts as groups and a
+           group of 20 leaves (over the cap: 2 launches), every mask, src
+           and qmax; and a grouped call timed against the one-leaf calls
+           of every leaf of the MLP and of the CNN, in turns, with the
+           cluster size and the leaf cap as built.
   b1-kernel  the gossip update (B.1) against its plain version: the
            per-node form on the reference's test cases (d 7 .. 131072, 0-5
            neighbours, float32 and bfloat16) bit for bit, the node-stacked
@@ -44,10 +52,18 @@ PyTorch version:
            (params within 1e-5 of the dense run's after 20 steps, 1e-3 after
            300: the two sum in another order), the static int8 EF
            wire (B.2 + B.3), and dropout p = 0.2 with the memoryless masked
-           int8 wire (B.4 + B.5) and the EF wire re-based every 4 rounds
-           (B.4 + B.5); every count of launches is checked.  Then the CNN
+           int8 wire (grouped B.4 + B.5: 300 x 5 launches each) and the EF
+           wire re-based every 4 rounds (grouped B.4 once per round, B.5
+           once per matching of a delta round); every count of launches is
+           checked, and both dropout stacks must print the one-leaf
+           wire's loss_step300, acc_worst_dist and acc_avg to the bit
+           (ONE_LEAF_TRAJECTORIES).  Then the CNN
            (cifar_default, clipped at norm 2) on the static int8 EF gossip
            wire for 20 steps, so B.3 runs on 512,000-wide rows.
+  b45-leaves  one memoryless dropout round on the fmnist MLP through the
+           mixer (grouped B.4/B.5, 5 launches each) and leaf by leaf through
+           masked_quant_gossip_round (the one-leaf calls, 6 x 5 launches
+           each): equal bit for bit.
   profile  30 fmnist steps of four stacks under torch.profiler: the
            device's busy share and the kernels that take its time.
   cifar    the CNN (K = 10, p = 0.5, gradients clipped at norm 2 as in the
@@ -159,11 +175,20 @@ KERNELS = {
                            TPU + "quant_gossip/kernel.py:98", ("absmax_kernel", "quantize_kernel")),
     "dequant_accumulate": (SRC + "quant_gossip/csrc/accumulate.cu",
                            TPU + "quant_gossip/kernel.py:125", ("dequant_acc_kernel",)),
-    "masked_quantize_blockwise": (SRC + "quant_gossip/csrc/quantize.cu",
+    # B.4 and B.5: one kernel each, called per leaf (a one-leaf group) or
+    # over every leaf of a matching (the grouped entry points, the path)
+    "masked_quantize_blockwise": (SRC + "quant_gossip/csrc/masked_grouped.cu",
                                   TPU + "quant_gossip/kernel.py:154",
-                                  ("absmax_kernel", "quantize_kernel")),
-    "masked_dequant_accumulate": (SRC + "quant_gossip/csrc/accumulate.cu",
-                                  TPU + "quant_gossip/kernel.py:187", ("dequant_acc_kernel",)),
+                                  ("masked_quantize_grouped_kernel",)),
+    "masked_dequant_accumulate": (SRC + "quant_gossip/csrc/masked_grouped.cu",
+                                  TPU + "quant_gossip/kernel.py:187",
+                                  ("masked_dequant_acc_grouped_kernel",)),
+    "masked_quantize_blockwise_grouped": (SRC + "quant_gossip/csrc/masked_grouped.cu",
+                                          TPU + "quant_gossip/kernel.py:154",
+                                          ("masked_quantize_grouped_kernel",)),
+    "masked_dequant_accumulate_grouped_": (SRC + "quant_gossip/csrc/masked_grouped.cu",
+                                           TPU + "quant_gossip/kernel.py:187",
+                                           ("masked_dequant_acc_grouped_kernel",)),
     "flash_attention_fwd": (SRC + "flash_attention/csrc/flash_fwd.cu",
                             TPU + "flash_attention/kernel.py:100", ("flash_fwd_mma_kernel",)),
     "wkv6_scan": (SRC + "rwkv6_scan/csrc/wkv6.cu", TPU + "rwkv6_scan/kernel.py:65",
@@ -178,7 +203,19 @@ KERNELS = {
                             TPU + "flash_attention/kernel.py:100",
                             ("bwd_mma_kernel", "bwd_reduce_kernel")),
 }
-QUANT = tuple(KERNELS)[:4]
+QUANT = tuple(KERNELS)[:6]
+GROUPED = QUANT[4:]
+ONE_LEAF = {"masked_quantize_blockwise_grouped": "masked_quantize_blockwise",
+            "masked_dequant_accumulate_grouped_": "masked_dequant_accumulate"}
+# (loss_step300, acc_worst_dist, acc_avg) that these stacks printed on an
+# H100 in four runs of the one-leaf masked wire, to the bit: the grouped
+# wire changes no bit
+ONE_LEAF_TRAJECTORIES = {
+    "dropout0.2-int8-kernel-memoryless": (0.40981656312942505, 0.5399999618530273,
+                                          0.7120000123977661),
+    "dropout0.2-int8-kernel-ef-B4": (0.43094539642333984, 0.39499998092651367,
+                                     0.7059999704360962),
+}
 
 
 def log(msg: str) -> None:
@@ -444,13 +481,10 @@ def phase_kernel(mlp_leaves, cnn_leaves) -> dict:
     cases += [("layout", "2 blocks", K, 131072, 65536), ("layout", "block 128", 16, 4096, 128),
               ("layout", "ragged", 3, 1000, 256)]
     fmnist_srcs = [torch.from_numpy(p).cuda() for p in _matchings(0.3, 0).matchings]
-    out = {name: dict(max_abs_err=0.0, rows=[]) for name in QUANT}
-
-    def diff(a, b):
-        return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    out = {name: dict(max_abs_err=0.0, rows=[]) for name in QUANT[:4]}
 
     def expect_equal(name, what, got, want):
-        err = max(diff(g, w) for g, w in zip(got, want))
+        err = max(_max_diff(g, w) for g, w in zip(got, want))
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"[kernel] {name} {what}: kernel != plain (max abs err {err})")
@@ -523,6 +557,150 @@ def phase_kernel(mlp_leaves, cnn_leaves) -> dict:
                 f"call {1e3 * v['ms']:.2f} us, plain {1e3 * v['plain_ms']:.2f} us, "
                 f"bound {1e3 * v['bound_ms']:.3f} us; equal to plain everywhere "
                 f"(max abs err {rec['max_abs_err']})")
+    out.update(_grouped_kernels(mlp_leaves, cnn_leaves, fmnist_srcs, gen))
+    return out
+
+
+def _max_diff(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+# the layout cases as groups: (K, widths, block_d), each mixing layouts
+GROUP_LAYOUTS = {"2 blocks": (K, [131072, 100352, 10], 65536),
+                 "block 128": (16, [4096, 1000, 128, 7], 128),
+                 "ragged": (3, [1000, 256, 3], 256)}
+
+
+def _grouped_kernels(mlp_leaves, cnn_leaves, fmnist_srcs, gen) -> dict:
+    """B.4 and B.5 over every leaf of a group, one launch per
+    MAX_GROUP_LEAVES leaves, against the one-leaf plain versions bit for
+    bit: the fmnist MLP's 6 leaves, the CNN's 12, the three layout cases as
+    groups and a group over the leaf cap (20 leaves, 2 launches); masks all
+    ones, all zeros and mixed, qmax 127 and 7, src None and each matching.
+    Then, at the MLP and the CNN, one grouped call against the one-leaf
+    calls of every leaf, in turns (one-leaf, grouped, grouped, one-leaf):
+    call time (CUDA events), device time (every device entry of a call under
+    the profiler: the one-leaf B.4's scratch-free launch, B.5's copy of acc),
+    the plain version's call and the bound (the sum of the leaves')."""
+    import torch
+
+    from repro_torch.kernels.quant_gossip import kernel as qk
+    from repro_torch.kernels.quant_gossip import ref as qref
+
+    cfg = qk.config()
+    log(f"[kernel] grouped B.4/B.5 as built: {cfg}")
+    if (cfg["cluster_size"], cfg["max_group_leaves"], cfg["min_share"], cfg["acc_chunk"]) != \
+            (qk.CLUSTER_SIZE, qk.MAX_GROUP_LEAVES, qk.MIN_SHARE, qk.ACC_CHUNK):
+        raise AssertionError(f"[kernel] masked_grouped.cu's sizes {cfg} are not the wrappers'")
+    mlp_d, cnn_d = [d for _, d in mlp_leaves], [d for _, d in cnn_leaves]
+    groups = {"mlp": (K, mlp_d, 65536), "cnn": (K, cnn_d, 65536), **GROUP_LAYOUTS,
+              "over the cap": (K, mlp_d + cnn_d + [4096, 7], 65536)}
+    out = {name: dict(max_abs_err=0.0, cases=0, cluster_size=cfg["cluster_size"],
+                      max_group_leaves=cfg["max_group_leaves"], rows=[]) for name in GROUPED}
+    inputs = {}
+
+    def expect_equal(name, what, got, want, launches, before):
+        fn = getattr(qk, name)
+        if fn.launches - before != launches:
+            raise AssertionError(f"[kernel] {name} {what}: {fn.launches - before} launches, "
+                                 f"want {launches}")
+        err = max(_max_diff(g, w) for g, w in zip(got, want))
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        out[name]["cases"] += 1
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"[kernel] {name} {what}: kernel != plain (max abs err {err})")
+
+    for group, (k, dims, block_d) in groups.items():
+        xs, us = [], []
+        for d in dims:
+            x = torch.randn((k, d), generator=gen, device="cuda")
+            x *= torch.rand((k, 1), generator=gen, device="cuda") * 3.0
+            if k > 2:
+                x[1] = 0.0  # an all-zero row: scale 1
+            u = torch.rand((k, d), generator=gen, device="cuda")
+            u[0, ::3] = 0.0
+            xs.append(x)
+            us.append(u)
+        masks = {"ones": torch.ones(k, device="cuda"), "zeros": torch.zeros(k, device="cuda"),
+                 "mixed": (torch.arange(k, device="cuda") % 2).float()}
+        srcs = [None] + (fmnist_srcs if k == K else [_involution(k, "cuda")])
+        payloads = [qref.quantize_blockwise_ref(x, u, block_d=block_d) for x, u in zip(xs, us)]
+        w = torch.rand((k,), generator=gen, device="cuda") * 0.5
+        w[0] = 0.0  # a row that receives nothing
+        accs0 = [torch.randn((k, d), generator=gen, device="cuda") for d in dims]
+        n_launch = len(qk.leaf_tables([1] * len(dims)))
+        what = f"{group} ({len(dims)} leaves, K = {k})"
+        for mname, m in masks.items():
+            for qmax in (127.0, 7.0):
+                before = qk.masked_quantize_blockwise_grouped.launches
+                got = qk.masked_quantize_blockwise_grouped(xs, us, m, qmax=qmax, block_d=block_d)
+                want = [qref.masked_quantize_blockwise_ref(x, u, m, qmax=qmax, block_d=block_d)
+                        for x, u in zip(xs, us)]
+                expect_equal("masked_quantize_blockwise_grouped", f"{what} mask {mname} "
+                             f"qmax {qmax}", [t for p in got for t in p],
+                             [t for p in want for t in p], n_launch, before)
+            for i, src in enumerate(srcs):
+                accs = [a.clone() for a in accs0]
+                before = qk.masked_dequant_accumulate_grouped_.launches
+                got = qk.masked_dequant_accumulate_grouped_(accs, payloads, w, m, src=src)
+                want = [qref.masked_dequant_accumulate_ref(a, q, s, w, m, src=src)
+                        for a, (q, s) in zip(accs0, payloads)]
+                if got is not accs:
+                    raise AssertionError("[kernel] the grouped accumulate is not in place")
+                expect_equal("masked_dequant_accumulate_grouped_",
+                             f"{what} mask {mname} src {i}", got, want, n_launch, before)
+        torch.cuda.synchronize()
+        inputs[group] = (k, dims, block_d, xs, us, payloads, w, srcs[1])
+    for name in GROUPED:
+        log(f"[kernel] {name}: {out[name]['cases']} grouped cases equal to the one-leaf plain "
+            f"versions (max abs err {out[name]['max_abs_err']}); cluster size "
+            f"{cfg['cluster_size']}, {cfg['max_group_leaves']} leaves per launch")
+
+    for group in ("mlp", "cnn"):
+        k, dims, block_d, xs, us, payloads, _, src = inputs[group]
+        ones = torch.ones(k, device="cuda")
+        w = 0.25 + 0.5 * torch.rand((k,), generator=gen, device="cuda")  # every row live
+        accs = [torch.randn((k, d), generator=gen, device="cuda") for d in dims]
+        calls = {
+            "masked_quantize_blockwise_grouped": (
+                lambda: qk.masked_quantize_blockwise_grouped(xs, us, ones, block_d=block_d),
+                lambda: [qk.masked_quantize_blockwise(x, u, ones, block_d=block_d)
+                         for x, u in zip(xs, us)],
+                lambda: qref.masked_quantize_blockwise_grouped_ref(xs, us, ones,
+                                                                   block_d=block_d)),
+            "masked_dequant_accumulate_grouped_": (
+                lambda: qk.masked_dequant_accumulate_grouped_(accs, payloads, w, ones, src=src),
+                lambda: [qk.masked_dequant_accumulate(a, q, s, w, ones, src=src)
+                         for a, (q, s) in zip(accs, payloads)],
+                lambda: qref.masked_dequant_accumulate_grouped_ref_(accs, payloads, w, ones,
+                                                                    src=src)),
+        }
+        for name, (grouped, one_leaf, plain) in calls.items():
+            bounds = [kernel_bound(ONE_LEAF[name], k, d, qk.num_blocks(d, block_d))
+                      for d in dims]
+            readings = {"one_leaf": [], "grouped": []}
+            for side in ("one_leaf", "grouped", "grouped", "one_leaf"):
+                fn = grouped if side == "grouped" else one_leaf
+                readings[side].append((cuda_ms(fn), window_device_ms(fn, 50)))
+            mean = {side: [sum(r[j] for r in rs) / len(rs) for j in (0, 1)]
+                    for side, rs in readings.items()}
+            row = dict(group=group, leaves=len(dims), k=k, ms=mean["grouped"][0],
+                       device_ms=mean["grouped"][1], one_leaf_ms=mean["one_leaf"][0],
+                       one_leaf_device_ms=mean["one_leaf"][1],
+                       plain_ms=cuda_ms(plain, iters=50, warmup=2),
+                       bound_ms=sum(b for b, _ in bounds),
+                       bound_by="bytes" if {by for _, by in bounds} == {"bytes"}
+                       else "operations", readings=readings)
+            out[name]["rows"].append(row)
+            log(f"[kernel] {name:34s} {group}: grouped device {1e3 * row['device_ms']:7.2f} us "
+                f"call {1e3 * row['ms']:7.2f} us | {len(dims)} one-leaf calls device "
+                f"{1e3 * row['one_leaf_device_ms']:7.2f} us call "
+                f"{1e3 * row['one_leaf_ms']:7.2f} us | plain {1e3 * row['plain_ms']:8.2f} us "
+                f"| bound {1e3 * row['bound_ms']:.3f} us ({row['bound_by']}); readings "
+                f"(call, device ms) {readings}")
+    for name in GROUPED:
+        out[name]["per_step"] = {r["group"]: {key: r[key] for key in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")} for r in out[name]["rows"]}
     return out
 
 
@@ -679,16 +857,19 @@ GOSSIP_STACKS = ("gossip-none", "gossip-int8-kernel-ef", "dropout0.2-int8-kernel
 
 
 def _gossip_launches(stack: str, steps: int, leaves: int, matchings: int) -> dict:
+    """The static EF wire: B.2 per leaf, B.3 per leaf and matching; the
+    masked wires: one grouped B.4 per matching (memoryless) or per round
+    (EF), one grouped B.5 per matching of a round that sends payloads."""
     if stack == "gossip-int8-kernel-ef":
         return {"quantize_blockwise": steps * leaves,
                 "dequant_accumulate": steps * leaves * matchings}
     if stack == "dropout0.2-int8-kernel-memoryless":
-        return {"masked_quantize_blockwise": steps * leaves * matchings,
-                "masked_dequant_accumulate": steps * leaves * matchings}
+        return {"masked_quantize_blockwise_grouped": steps * matchings,
+                "masked_dequant_accumulate_grouped_": steps * matchings}
     if stack == "dropout0.2-int8-kernel-ef-B4":
         delta_rounds = sum(1 for r in range(steps) if r % REBASE_EVERY != REBASE_EVERY - 1)
-        return {"masked_quantize_blockwise": steps * leaves,
-                "masked_dequant_accumulate": delta_rounds * leaves * matchings}
+        return {"masked_quantize_blockwise_grouped": steps,
+                "masked_dequant_accumulate_grouped_": delta_rounds * matchings}
     return {}
 
 
@@ -708,12 +889,75 @@ def phase_gossip(spec_cls, cfg_cls, dense_params) -> dict:
                                          exp, fed, batches, params, mixer=mixer)
         check_counts(f"gossip {stack}", counts,
                      _gossip_launches(stack, exp.steps, len(params), decomp.num_rounds))
+        if stack in ONE_LEAF_TRAJECTORIES:
+            got = (rec["loss_step300"], rec["acc_worst_dist"], rec["acc_avg"])
+            want = ONE_LEAF_TRAJECTORIES[stack]
+            if got != want:
+                raise AssertionError(f"[gossip] {stack}: (loss_step300, acc_worst_dist, "
+                                     f"acc_avg) = {got}, the one-leaf wire printed {want}")
+            log(f"[gossip] {stack}: loss_step300, acc_worst_dist and acc_avg are the "
+                f"one-leaf wire's to the bit")
         if stack == "gossip-none":
             rec.update(_gossip_vs_dense(spec_cls, exp, batches, params, state, dense_params,
                                         mixer))
         out[stack] = dict(rec, counts=counts)
     out["cifar"] = _gossip_cifar(spec_cls, cfg_cls)
     return out
+
+
+def phase_b45_leaves(cfg_cls) -> dict:
+    """One round of the memoryless dropout-0.2 wire on the fmnist MLP
+    (K = 10, the seeded weights plus seeded noise per node) through the
+    mixer (one grouped B.4 and one grouped B.5 launch per matching), and the
+    same round leaf by leaf through ``masked_quant_gossip_round`` (the
+    one-leaf B.4 and B.5, one launch each per leaf and matching): the same
+    bits."""
+    import torch
+
+    from repro_torch.comm.topology import gather_round_vectors
+    from repro_torch.core.drdsgd import replicate_params
+    from repro_torch.graphs import build_graph, metropolis_weights
+    from repro_torch.kernels.quant_gossip.ops import masked_quant_gossip_round
+    from repro_torch.utils.tree import leaf_names
+
+    exp, _, _, params = _fmnist()
+    w = metropolis_weights(build_graph("erdos_renyi", K, p=exp.p, seed=exp.seed))
+    decomp = _matchings(exp.p, exp.seed)
+    mixer = _gossip_mixer("dropout0.2-int8-kernel-memoryless", decomp, w, exp.seed, cfg_cls)
+    gen = torch.Generator(device="cuda").manual_seed(exp.seed)
+    theta = {n: x + 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
+             for n, x in replicate_params(params, K).items()}
+    state = mixer.init_state(theta)
+    m = decomp.num_rounds
+    reset_counts()
+    mixed, _ = mixer(theta, state)
+    torch.cuda.synchronize()
+    check_counts("b45-leaves grouped", kernel_counts(),
+                 {"masked_quantize_blockwise_grouped": m,
+                  "masked_dequant_accumulate_grouped_": m})
+    self_w, match_ws, masks = gather_round_vectors(mixer.topo.round_w(state.rounds),
+                                                   mixer.transport.perm_idx)
+    reset_counts()
+    equal = {}
+    for i, name in enumerate(leaf_names(theta)):
+        xf = theta[name].reshape(K, -1)
+        acc = xf * self_w[:, None]
+        for j, (pw, mk, src) in enumerate(zip(match_ws, masks, mixer.transport.srcs)):
+            u = mixer.wire.uniforms(state.key, state.rounds, i, j, xf)
+            acc = masked_quant_gossip_round(xf, acc, pw, mk, src, u,
+                                            qmax=float(mixer.wire._qmax),
+                                            block_d=mixer.wire.quantized.block_d)
+        equal[name] = bool(torch.equal(acc.reshape(theta[name].shape), mixed[name]))
+    counts = kernel_counts()
+    check_counts("b45-leaves one-leaf", counts,
+                 {"masked_quantize_blockwise": len(theta) * m,
+                  "masked_dequant_accumulate": len(theta) * m})
+    rec = dict(matchings=m, leaves=len(theta), equal=equal,
+               launches={n: c[0] for n, c in counts.items() if c[0]})
+    log("[b45-leaves] " + json.dumps(rec))
+    if not all(equal.values()):
+        raise AssertionError("[b45-leaves] the grouped round is not the leaf-by-leaf round")
+    return rec
 
 
 def _gossip_vs_dense(spec_cls, exp, batches, params, gossip_state, dense_params,
@@ -1928,6 +2172,7 @@ def main() -> int:
     fm, dense_params = phase_fmnist(TrainerSpec, CompressionConfig)
     b1_nodes = phase_gossip_update_nodes(TrainerSpec)
     gossip = phase_gossip(TrainerSpec, CompressionConfig, dense_params)
+    b45 = phase_b45_leaves(CompressionConfig)
     phase_profile(TrainerSpec, CompressionConfig)
     phase_cifar(TrainerSpec, CompressionConfig)
     phase_parity(TrainerSpec, CompressionConfig)
@@ -1945,12 +2190,15 @@ def main() -> int:
     phase_serve_parity("rwkv6_7b", 32)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     # launches on each kernel's main path: B.2 the dense int8 fmnist run,
-    # B.3 the static EF gossip run, B.4/B.5 the memoryless dropout run
+    # B.3 the static EF gossip run, grouped B.4/B.5 the memoryless dropout
+    # run, their one-leaf calls the leaf-by-leaf round (b45-leaves)
+    memoryless = gossip["dropout0.2-int8-kernel-memoryless"]["launches"]
     path = {"quantize_blockwise": fm["int8-kernel"]["launches"],
             "dequant_accumulate": gossip["gossip-int8-kernel-ef"]["launches"],
-            "masked_quantize_blockwise": gossip["dropout0.2-int8-kernel-memoryless"]["launches"],
-            "masked_dequant_accumulate":
-                gossip["dropout0.2-int8-kernel-memoryless"]["launches"]}
+            "masked_quantize_blockwise": b45["launches"],
+            "masked_dequant_accumulate": b45["launches"],
+            "masked_quantize_blockwise_grouped": memoryless,
+            "masked_dequant_accumulate_grouped_": memoryless}
     # B.1 per node: its own path (b1-nodes); stacked and B.6's backward:
     # the qwen2-0.5b training run
     path["gossip_update"] = {"gossip_update": b1_nodes["launches"]}
@@ -1976,10 +2224,17 @@ def main() -> int:
             step = kern[name]["per_step"]["mlp"]
             bound_by = {r["bound_by"] for r in kern[name]["rows"] if r["group"] == "mlp"}
             # one call per leaf of the fmnist MLP at the main path's shapes
+            # (grouped: one call over all of its leaves)
             timing = dict(ms=step["ms"], device_ms=step["device_ms"], plain_ms=step["plain_ms"],
                           bound_ms=step["bound_ms"],
                           bound_by="bytes" if bound_by == {"bytes"} else "operations",
                           library_ms=None)
+            if name in GROUPED:  # beside it, the MLP's six one-leaf calls in the same turns
+                row = next(r for r in kern[name]["rows"] if r["group"] == "mlp")
+                timing.update(one_leaf_ms=row["one_leaf_ms"],
+                              one_leaf_device_ms=row["one_leaf_device_ms"],
+                              cluster_size=kern[name]["cluster_size"],
+                              max_group_leaves=kern[name]["max_group_leaves"])
             err, launches = kern[name]["max_abs_err"], path[name][name]
         else:  # one call at the main path's shapes: qwen2-0.5b / rwkv6-7b prefill
             row = serve_kern[name]["rows"][0]

@@ -249,25 +249,27 @@ class ComposedMixer(Mixer):
                                      wire_bits=active_sends(masks) * per_node_bits)
 
     def _quantized_gossip(self, theta, state, self_w, match_ws, masks):
-        """Every leaf, every matching: masked quantize of θ with fresh
+        """Every matching, every leaf at once: masked quantize of θ with fresh
         uniforms per (leaf, matching), gather, masked dequantize-accumulate
-        (B.4 and B.5 on the card)."""
-        from repro_torch.kernels.quant_gossip.ops import masked_quant_gossip_round
+        (one B.4 and one B.5 launch per matching on the card).  The leaves
+        are independent, so this is the leaf-by-leaf round bit for bit."""
+        from repro_torch.kernels.quant_gossip.ops import (
+            masked_dequant_accumulate_grouped_,
+            masked_quantize_blockwise_grouped,
+        )
 
         wire = self.wire
-        out = {}
-        for i, name in enumerate(leaf_names(theta)):
-            x = theta[name]
-            k = x.shape[0]
-            xf = x.reshape(k, -1).float()
-            acc = xf * self_w[:, None]
-            for m, (pw, mk, src) in enumerate(zip(match_ws, masks, self.transport.srcs)):
-                u = wire.uniforms(state.key, state.rounds, i, m, xf)
-                acc = masked_quant_gossip_round(xf, acc, pw, mk, src, u,
-                                                qmax=float(wire._qmax),
-                                                block_d=wire.quantized.block_d)
-            out[name] = acc.reshape(x.shape).to(x.dtype)
-        return out
+        names = leaf_names(theta)
+        xfs = [theta[n].reshape(theta[n].shape[0], -1).float() for n in names]
+        accs = [xf * self_w[:, None] for xf in xfs]
+        qmax, block_d = float(wire._qmax), wire.quantized.block_d
+        for m, (pw, mk, src) in enumerate(zip(match_ws, masks, self.transport.srcs)):
+            us = [wire.uniforms(state.key, state.rounds, i, m, xf) for i, xf in enumerate(xfs)]
+            payloads = masked_quantize_blockwise_grouped(xfs, us, mk, qmax=qmax,
+                                                         block_d=block_d)
+            masked_dequant_accumulate_grouped_(accs, payloads, pw, mk, src=src)
+        return {n: acc.reshape(theta[n].shape).to(theta[n].dtype)
+                for n, acc in zip(names, accs)}
 
     # -- codec-wire rounds -----------------------------------------------------
 
@@ -317,32 +319,31 @@ class ComposedMixer(Mixer):
         if match_ws is None:
             match_ws = t.match_ws
         send = _send_mask(masks) if masks is not None else None
+        names = leaf_names(theta)
+        xfs, hats, res_sq = self._flat_leaves(theta, state, self_w.device)
+        us = [self.wire.uniforms(state.key, state.rounds, i, xf) for i, xf in enumerate(xfs)]
+        # encode pass: every leaf (one B.4 launch per round where masked)
+        encoded = self.wire.encode_leaves(xfs, hats, us, send_mask=send)
+        # EF: s_i += W_ii q_i + Σ_m W_i,src(i)·dequant(recv) keeps
+        # s_i = Σ_j W_ij θ̂_j current; memoryless: the same combine of the
+        # fresh C(θ) messages.  Only the payload crosses the wire.
+        if ef:
+            accs = [state.hat_mix[n].reshape(xf.shape) + self_w[:, None] * (public - h)
+                    for n, xf, h, (_, public, _) in zip(names, xfs, hats, encoded)]
+        else:
+            accs = [self_w[:, None] * public for _, public, _ in encoded]
+        payloads = [payload for payload, _, _ in encoded]
+        # accumulate pass: per matching, every leaf (one B.5 launch where masked)
+        for m, (pw, src) in enumerate(zip(match_ws, t.srcs)):
+            accs = self._accumulate_leaves(accs, payloads, pw, src,
+                                           mask=masks[m] if masks is not None else None)
         out_theta, out_hat, out_mix = {}, {}, {}
-        res_sq = torch.zeros((), dtype=torch.float32, device=self_w.device)
-        for i, name in enumerate(leaf_names(theta)):
-            x = theta[name]
-            k = x.shape[0]
-            xf = x.reshape(k, -1).float()
-            h = state.hat[name].reshape(k, -1) if ef else None
+        for n, xf, acc, (_, public, new_hat) in zip(names, xfs, accs, encoded):
+            shape = theta[n].shape
+            out_theta[n] = (xf + (acc - public)).reshape(shape).to(theta[n].dtype)
             if ef:
-                res_sq = res_sq + (xf - h).square().sum()
-            u = self.wire.uniforms(state.key, state.rounds, i, xf)
-            payload, public, new_hat = self.wire.encode_leaf(xf, h, u, send_mask=send)
-            # EF: s_i += W_ii q_i + Σ_m W_i,src(i)·dequant(recv) keeps
-            # s_i = Σ_j W_ij θ̂_j current; memoryless: the same combine of
-            # the fresh C(θ) messages.  Only the payload crosses the wire.
-            if ef:
-                acc = state.hat_mix[name].reshape(k, -1) + self_w[:, None] * (public - h)
-            else:
-                acc = self_w[:, None] * public
-            for m, (pw, src) in enumerate(zip(match_ws, t.srcs)):
-                acc = self._accumulate(acc, payload, pw, src,
-                                       mask=masks[m] if masks is not None else None)
-            out = xf + (acc - public)
-            out_theta[name] = out.reshape(x.shape).to(x.dtype)
-            if ef:
-                out_hat[name] = new_hat.reshape(x.shape)
-                out_mix[name] = acc.reshape(x.shape)
+                out_hat[n] = new_hat.reshape(shape)
+                out_mix[n] = acc.reshape(shape)
         if senders is None:
             senders = self._sends()
         # _replace so fields this round does not own thread through
@@ -351,12 +352,37 @@ class ComposedMixer(Mixer):
             res_norm=torch.sqrt(res_sq), rounds=state.rounds + 1,
             wire_bits=self.wire.round_wire_bits(theta, senders, self.k, res_sq.device))
 
+    def _flat_leaves(self, theta, state, device):
+        """Each leaf as a (K, d) float32 block, its θ̂ block (EF wires; None
+        otherwise), and the EF residual ‖θ − θ̂‖² summed in leaf order."""
+        xfs, hats = [], []
+        res_sq = torch.zeros((), dtype=torch.float32, device=device)
+        for name in leaf_names(theta):
+            x = theta[name]
+            k = x.shape[0]
+            xf = x.reshape(k, -1).float()
+            h = state.hat[name].reshape(k, -1) if self.ef else None
+            if self.ef:
+                res_sq = res_sq + (xf - h).square().sum()
+            xfs.append(xf)
+            hats.append(h)
+        return xfs, hats, res_sq
+
+    def _accumulate_leaves(self, accs, payloads, weight, src, mask=None):
+        """:meth:`_accumulate` of every leaf; a masked round on the kernel
+        quantizer accumulates every leaf in place in one call (B.5)."""
+        grouped = getattr(self.compressor, "accumulate_masked_grouped_", None)
+        if mask is not None and grouped is not None:
+            return grouped(accs, payloads, weight, mask, src)
+        return [self._accumulate(acc, p, weight, src, mask) for acc, p in zip(accs, payloads)]
+
     def _accumulate(self, acc, payload, weight, src, mask=None):
         """acc + weight·dequant(payload[src]), with an optional link mask.
 
         ``mask`` (K,) in {0, 1}: masked links contribute exactly acc.  The
-        kernel quantizer fuses the gather and the combine (B.3 / B.5 on the
-        card); other codecs gather the payload rows and decompress.
+        kernel quantizer fuses the gather and the combine (B.3 on the card;
+        masked, every leaf at once: :meth:`_accumulate_leaves`); other codecs
+        gather the payload rows and decompress.
         """
         if mask is None:
             fused = getattr(self.compressor, "accumulate", None)
@@ -364,9 +390,6 @@ class ComposedMixer(Mixer):
                 return fused(acc, payload, weight, src)
             recv = _gather_payload(payload, src)
             return acc + weight[:, None] * self.compressor.decompress(recv, acc.shape[1])
-        fused = getattr(self.compressor, "accumulate_masked", None)
-        if fused is not None:
-            return fused(acc, payload, weight, mask, src)
         recv = _gather_payload(payload, src)
         return acc + (weight * mask)[:, None] * self.compressor.decompress(
             recv, acc.shape[1])
@@ -415,23 +438,19 @@ class ComposedMixer(Mixer):
         """
         send = _send_mask(masks)
         srcs = self.transport.srcs
+        names = leaf_names(theta)
+        xfs, hats, res_sq = self._flat_leaves(theta, state, self_w.device)
+        us = [self.wire.uniforms(state.key, state.rounds, i, xf) for i, xf in enumerate(xfs)]
+        encoded = self.wire.encode_leaves(xfs, hats, us, send_mask=send)
         out_theta, out_hat, out_mix = {}, {}, {}
-        res_sq = torch.zeros((), dtype=torch.float32, device=self_w.device)
-        for i, name in enumerate(leaf_names(theta)):
-            x = theta[name]
-            k = x.shape[0]
-            xf = x.reshape(k, -1).float()
-            hf = state.hat[name].reshape(k, -1)
-            res_sq = res_sq + (xf - hf).square().sum()
-            u = self.wire.uniforms(state.key, state.rounds, i, xf)
-            _, _, new_hat = self.wire.encode_leaf(xf, hf, u, send_mask=send)
+        for n, xf, (_, _, new_hat) in zip(names, xfs, encoded):
             acc = self_w[:, None] * new_hat
             for pw, mk, src in zip(match_ws, masks, srcs):
                 acc = acc + (pw * mk)[:, None] * new_hat[src]
-            out = xf + (acc - new_hat)
-            out_theta[name] = out.reshape(x.shape).to(x.dtype)
-            out_hat[name] = new_hat.reshape(x.shape)
-            out_mix[name] = acc.reshape(x.shape)
+            shape = theta[n].shape
+            out_theta[n] = (xf + (acc - new_hat)).reshape(shape).to(theta[n].dtype)
+            out_hat[n] = new_hat.reshape(shape)
+            out_mix[n] = acc.reshape(shape)
         # full-precision wire: active links × per-node f32 payload
         full_bits = 32.0 * sum(x.numel() // self.k for x in theta.values())
         return out_theta, state._replace(

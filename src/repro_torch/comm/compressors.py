@@ -17,8 +17,9 @@ two frameworks comparable on identical noise.
   one float32 scale per node (what ``--compress int8`` builds).
 * ``KernelInt8Quantizer`` — the same code with a scale per (node, block),
   served by the hand-written CUDA quant_gossip kernels on the card
-  (``repro_torch.kernels.quant_gossip``): quantize, masked quantize, and
-  the fused dequantize-accumulate of the gossip transport.
+  (``repro_torch.kernels.quant_gossip``): quantize, the fused
+  dequantize-accumulate of the gossip transport, and their sender-masked
+  forms over every leaf at once.
 
 bf16, int4 (nibble packing), topk and randk raise ``NotImplementedError``
 in :func:`make_compressor` until their slice ports them.
@@ -154,23 +155,23 @@ class KernelInt8Quantizer(IntQuantizer):
         q, scale = payload
         return dequant_accumulate(acc, q, scale, weight, src=src)
 
-    def compress_masked(self, x, u, mask):
-        """Sender-masked quantize (the B.4 kernel on the card): masked rows
-        emit a zero payload and zero scales, so a fully cut-off node's EF
-        innovation stays unsent and its θ̂ frozen.  An all-ones mask is
-        bit-identical to :meth:`compress`."""
-        from repro_torch.kernels.quant_gossip.ops import masked_quantize_blockwise
+    def compress_masked_grouped(self, xs, us, mask):
+        """Sender-masked quantize of every leaf at once (one B.4 launch on
+        the card): masked rows emit a zero payload and zero scales, so a
+        fully cut-off node's EF innovation stays unsent and its θ̂ frozen.
+        An all-ones mask is bit-identical to :meth:`compress` per leaf."""
+        from repro_torch.kernels.quant_gossip.ops import masked_quantize_blockwise_grouped
 
-        return masked_quantize_blockwise(x, u, mask, qmax=float(self.qmax),
-                                         block_d=self.block_d)
+        return masked_quantize_blockwise_grouped(xs, us, mask, qmax=float(self.qmax),
+                                                 block_d=self.block_d)
 
-    def accumulate_masked(self, acc, payload, weight, mask, src=None):
-        """acc + mask·weight·dequantize(payload[src]), fused (the B.5 kernel
-        on the card); masked links leave acc bitwise."""
-        from repro_torch.kernels.quant_gossip.ops import masked_dequant_accumulate
+    def accumulate_masked_grouped_(self, accs, payloads, weight, mask, src=None):
+        """acc + mask·weight·dequantize(payload[src]) for every leaf at once,
+        into each acc in place (one B.5 launch on the card); masked links
+        leave acc bitwise.  Returns ``accs``."""
+        from repro_torch.kernels.quant_gossip.ops import masked_dequant_accumulate_grouped_
 
-        q, scale = payload
-        return masked_dequant_accumulate(acc, q, scale, weight, mask, src=src)
+        return masked_dequant_accumulate_grouped_(accs, payloads, weight, mask, src=src)
 
     def _n_blocks(self, d):
         from repro_torch.kernels.quant_gossip.kernel import num_blocks

@@ -173,16 +173,14 @@ class CodecWire(Wire):
 
         ``send_mask`` (K,) in {0, 1} is the dynamic lowering's per-round
         "this node has at least one live link" vector: masked rows emit a
-        zero payload and their θ̂ stays frozen.  The kernel quantizer serves
-        it with the masked kernel (B.4); other codecs mask the input block,
-        which encodes to an all-zero payload.  An all-ones mask is
-        bit-identical to the unmasked encode.
+        zero payload and their θ̂ stays frozen.  A codec without a masked
+        kernel masks the input block, which encodes to an all-zero payload
+        (the kernel quantizer takes every leaf at once:
+        :meth:`encode_leaves`).  An all-ones mask is bit-identical to the
+        unmasked encode.
         """
         if send_mask is None:
             return self.compressor.compress(x, u)
-        masked = getattr(self.compressor, "compress_masked", None)
-        if masked is not None:
-            return masked(x, u, send_mask)
         return self.compressor.compress(x * send_mask[:, None], u)
 
     def encode_leaf(self, x, hat, u, send_mask=None):
@@ -192,12 +190,31 @@ class CodecWire(Wire):
         publicly reconstructible value (θ̂' in EF mode, C(θ) memoryless) and
         ``hat'`` the state to carry (θ̂' or ()).
         """
+        payload = self.compress_block(x - hat if self.ef else x, u, send_mask)
+        return self._decoded(x, hat, payload)
+
+    def encode_leaves(self, xs, hats, us, send_mask=None):
+        """:meth:`encode_leaf` of every leaf: [(payload, public', hat')].
+
+        With a send mask and a codec that quantizes a group at once (the
+        kernel quantizer: one B.4 launch per round on the card) every leaf
+        is encoded by one call; the payloads are the one-leaf calls' bit for
+        bit.
+        """
+        grouped = getattr(self.compressor, "compress_masked_grouped", None)
+        if send_mask is None or grouped is None:
+            return [self.encode_leaf(x, h, u, send_mask) for x, h, u in zip(xs, hats, us)]
+        blocks = [x - h for x, h in zip(xs, hats)] if self.ef else xs
+        payloads = grouped(blocks, us, send_mask)
+        return [self._decoded(x, h, p) for x, h, p in zip(xs, hats, payloads)]
+
+    def _decoded(self, x, hat, payload):
+        """(payload, public', hat') of one leaf from its payload."""
+        public = self.compressor.decompress(payload, x.shape[1])
         if self.ef:
-            payload = self.compress_block(x - hat, u, send_mask)
-            new_hat = hat + self.compressor.decompress(payload, x.shape[1])
+            new_hat = hat + public
             return payload, new_hat, new_hat
-        payload = self.compress_block(x, u, send_mask)
-        return payload, self.compressor.decompress(payload, x.shape[1]), ()
+        return payload, public, ()
 
 
 class ChocoWire(CodecWire):

@@ -20,7 +20,8 @@ it reads θ and g once and writes the mixed parameters once, where the
 unfused step holds the scaled gradients, SGD's update and the mixer's
 output beside them.  Its plain version computes in the unfused order, so
 both give the same bits on the CPU; the metrics and the ``CommState`` are
-the same either way.  Every other stack runs the unfused step.  Per-node
+the same either way.  Every other stack, and any K above the stacked
+kernel's 64 nodes, runs the unfused step.  Per-node
 clipping scales the fresh gradients in place.
 
 The metrics stay on the device as 0-d tensors; nothing in a step waits for
@@ -47,6 +48,7 @@ from repro_torch.core.robust import (
     robust_objective,
     robust_scale,
 )
+from repro_torch.kernels.gossip_update.kernel import MAX_NODES
 from repro_torch.kernels.gossip_update.ops import gossip_update_stacked
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.utils.tree import leaf_names, tree_node_disagreement
@@ -96,11 +98,16 @@ def _node_scale(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def _fused_w(optimizer: Optimizer, mixer: Mixer):
     """The (K, K) W of the fused SGD + dense-mixing step, or None where the
-    step is not plain SGD followed by a static uncompressed dense round."""
+    step is not plain SGD followed by a static uncompressed dense round, or
+    where K exceeds the stacked B.1 kernel's ``MAX_NODES`` (64): such a step
+    takes the unfused path (the optimizer, then the mixer), on every device,
+    so the card and the CPU run one semantics at any K."""
     if optimizer.sgd_lr is None or not isinstance(mixer, ComposedMixer):
         return None
     if mixer.traced_wire or not isinstance(mixer.transport, DenseTransport) \
             or not isinstance(mixer.wire, IdentityWire):
+        return None
+    if mixer.w.shape[0] > MAX_NODES:
         return None
     return mixer.w
 

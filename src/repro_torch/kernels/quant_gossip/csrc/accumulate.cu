@@ -1,13 +1,12 @@
 // Fused dequantize-accumulate of the compressed gossip wire, for Hopper
-// (sm_90a), plain and link-masked, with the one-card ppermute folded in.
+// (sm_90a), with the one-card ppermute folded in.
 //
-// Replaces two Pallas TPU kernels of src/repro/kernels/quant_gossip/kernel.py:
-//   `_dequant_acc_kernel` / `dequant_accumulate` (B.3), and
-//   `_masked_dequant_acc_kernel` / `masked_dequant_accumulate` (B.5).
-// For every row i of a (K, D) float32 accumulator, with an int8 payload q
-// and per-(row, block) float32 scales:
+// Replaces the Pallas TPU kernel `_dequant_acc_kernel` / `dequant_accumulate`
+// (B.3) of src/repro/kernels/quant_gossip/kernel.py.  (Its link-masked twin
+// B.5 is masked_grouped.cu.)  For every row i of a (K, D) float32
+// accumulator, with an int8 payload q and per-(row, block) float32 scales:
 //
-//     a       = w[i]                    (B.3)   or  m[i] * w[i]   (B.5)
+//     a       = w[i]
 //     r       = src[i]                  (the row node i receives from;
 //                                        i itself when src is null)
 //     out[i,j] = acc[i,j] + (a * scales[r, j / block]) * q[r, j]
@@ -16,7 +15,7 @@
 // sum rounded once (__fmul_rn, __fadd_rn: nvcc would otherwise contract the
 // multiply-add into an FMA), so the result is bit-equal to the plain
 // PyTorch version (ref.py).  A row with a == 0 (an idle node of the
-// matching, a dropped link, a masked receiver) returns acc bitwise without
+// matching) returns acc bitwise without
 // reading the payload.  `src` is the reference's ppermute on one card: the
 // kernel reads row src[i] of q and scales directly, so no per-matching copy
 // of the payload is made; an out-of-range src traps.
@@ -48,18 +47,17 @@ __device__ __forceinline__ float acc_one(float acc, float as, signed char q) {
   return __fadd_rn(acc, __fmul_rn(as, static_cast<float>(q)));
 }
 
-template <bool kVec, bool kMasked>
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 dequant_acc_kernel(const float* __restrict__ acc, const int8_t* __restrict__ q,
                    const float* __restrict__ scales, const float* __restrict__ w,
-                   const float* __restrict__ mask, const long long* __restrict__ src,
+                   const long long* __restrict__ src,
                    float* __restrict__ out, long long rows_q, long long d, long long block,
                    long long blocks_per_row, long long chunks_per_row) {
   const long long row = blockIdx.x / chunks_per_row;
   const long long begin = (blockIdx.x % chunks_per_row) * kChunk;
   const long long end = min(begin + kChunk, d);
-  float a = __ldg(w + row);
-  if (kMasked) a = __fmul_rn(__ldg(mask + row), a);
+  const float a = __ldg(w + row);
   const float* acc_r = acc + row * d;
   float* out_r = out + row * d;
   if (a == 0.0f) {  // nothing arrives on this row: out = acc, bitwise
@@ -100,9 +98,8 @@ dequant_acc_kernel(const float* __restrict__ acc, const int8_t* __restrict__ q,
   }
 }
 
-template <bool kMasked>
 int launch(const float* acc, const int8_t* q, const float* scales, const float* w,
-           const float* mask, const long long* src, float* out, long long rows,
+           const long long* src, float* out, long long rows,
            long long rows_q, long long d, long long blocks_per_row, void* stream) {
   if (rows <= 0 || rows_q <= 0 || d <= 0 || blocks_per_row <= 0 || d % blocks_per_row != 0 ||
       (src == nullptr && rows_q != rows)) {
@@ -118,11 +115,11 @@ int launch(const float* acc, const int8_t* q, const float* scales, const float* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 g(static_cast<unsigned>(grid));
   if (vec) {
-    dequant_acc_kernel<true, kMasked><<<g, kThreads, 0, s>>>(
-        acc, q, scales, w, mask, src, out, rows_q, d, block, blocks_per_row, chunks_per_row);
+    dequant_acc_kernel<true><<<g, kThreads, 0, s>>>(acc, q, scales, w, src, out, rows_q, d,
+                                                    block, blocks_per_row, chunks_per_row);
   } else {
-    dequant_acc_kernel<false, kMasked><<<g, kThreads, 0, s>>>(
-        acc, q, scales, w, mask, src, out, rows_q, d, block, blocks_per_row, chunks_per_row);
+    dequant_acc_kernel<false><<<g, kThreads, 0, s>>>(acc, q, scales, w, src, out, rows_q, d,
+                                                     block, blocks_per_row, chunks_per_row);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -137,17 +134,5 @@ extern "C" int dequant_accumulate_f32(const float* acc, const int8_t* q, const f
                                       const float* w, const long long* src, float* out,
                                       long long rows, long long rows_q, long long d,
                                       long long blocks_per_row, void* stream) {
-  return launch<false>(acc, q, scales, w, nullptr, src, out, rows, rows_q, d, blocks_per_row,
-                       stream);
-}
-
-// The same with mask: (rows,) float32 in {0, 1}; a = mask[i] * w[i].
-extern "C" int masked_dequant_accumulate_f32(const float* acc, const int8_t* q,
-                                             const float* scales, const float* w,
-                                             const float* mask, const long long* src,
-                                             float* out, long long rows, long long rows_q,
-                                             long long d, long long blocks_per_row,
-                                             void* stream) {
-  return launch<true>(acc, q, scales, w, mask, src, out, rows, rows_q, d, blocks_per_row,
-                      stream);
+  return launch(acc, q, scales, w, src, out, rows, rows_q, d, blocks_per_row, stream);
 }

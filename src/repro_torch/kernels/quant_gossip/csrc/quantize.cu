@@ -1,18 +1,13 @@
 // Blockwise int8 stochastic-rounding quantizer of the compressed consensus
-// wire, for Hopper (sm_90a), plain and sender-masked.
+// wire, for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of src/repro/kernels/quant_gossip/kernel.py:
-//   `_quantize_kernel` / `quantize_blockwise` (B.2), and
-//   `_masked_quantize_kernel` / `masked_quantize_blockwise` (B.4).
-// For every (row, block) of a (K, D) float32 array x, with uniforms u of the
-// same shape:
+// Replaces the Pallas TPU kernel `_quantize_kernel` / `quantize_blockwise`
+// (B.2) of src/repro/kernels/quant_gossip/kernel.py.  (Its sender-masked
+// twin B.4 is masked_grouped.cu.)  For every (row, block) of a (K, D)
+// float32 array x, with uniforms u of the same shape:
 //
 //     scale = absmax(x[row, block]) / qmax          (1.0 if absmax is 0)
 //     q     = clip(floor(x / scale + u), -qmax, qmax) as int8
-//
-// The masked form takes a per-row mask m in {0, 1}: a live row (m > 0)
-// writes q and scale * m; a masked row writes q = 0 and scale = 0 without
-// reading x or u (nothing crosses the wire for it).
 //
 // The result is bit-exact against the plain PyTorch version (ref.py) and the
 // reference's jnp oracle given the same u: both divisions are correctly
@@ -23,8 +18,7 @@
 // Bound: memory.  Per element the kernel reads x and u (8 bytes) and writes q
 // (1 byte); each (row, block) adds one 4-byte scale: about 9 bytes per
 // element of HBM traffic against a handful of float operations, far below
-// the card's ~20 FLOP/byte float32 ridge.  A masked row moves 1 byte per
-// element (the zero payload).
+// the card's ~20 FLOP/byte float32 ridge.
 //
 // Design.  The TPU grid runs one program per (row, block), which on this
 // card would launch K CTAs for a leaf whose `_pick_block` fallback makes the
@@ -36,7 +30,6 @@
 //           with atomicMax on the float's bit pattern, which orders like the
 //           value because |x| >= 0 (a NaN's bits exceed +inf's, so a NaN
 //           propagates as jnp.max does).  The slots are zeroed by the caller.
-//           A masked row's CTAs return at once.
 //   pass 2  quantize: each CTA derives the segment's scale from the slot,
 //           quantizes its chunk with 16-byte loads of x and u and a 4-byte
 //           store of q; the first chunk's CTA writes the scale.
@@ -89,13 +82,11 @@ __device__ __forceinline__ Chunk chunk_of_cta(long long block, long long chunks_
   return c;
 }
 
-template <bool kVec, bool kMasked>
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-absmax_kernel(const float* __restrict__ x, const float* __restrict__ mask,
-              unsigned* __restrict__ absmax_bits, long long block,
-              long long blocks_per_row, long long chunks_per_seg) {
+absmax_kernel(const float* __restrict__ x, unsigned* __restrict__ absmax_bits,
+              long long block, long long chunks_per_seg) {
   const Chunk c = chunk_of_cta(block, chunks_per_seg);
-  if (kMasked && !(__ldg(mask + c.seg / blocks_per_row) > 0.0f)) return;
   const float* base = x + c.seg * block;
   unsigned m = 0u;
   if (kVec) {  // block % 4 == 0, so every offset here is a multiple of 4
@@ -118,33 +109,17 @@ absmax_kernel(const float* __restrict__ x, const float* __restrict__ mask,
   }
 }
 
-template <bool kVec, bool kMasked>
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 quantize_kernel(const float* __restrict__ x, const float* __restrict__ u,
-                const float* __restrict__ mask,
                 const unsigned* __restrict__ absmax_bits, float qmax,
                 int8_t* __restrict__ q, float* __restrict__ scales,
-                long long block, long long blocks_per_row, long long chunks_per_seg) {
+                long long block, long long chunks_per_seg) {
   const Chunk c = chunk_of_cta(block, chunks_per_seg);
   const long long off = c.seg * block;
   int8_t* qs = q + off;
-  float m = 1.0f;
-  if (kMasked) {
-    m = __ldg(mask + c.seg / blocks_per_row);
-    if (!(m > 0.0f)) {  // masked sender: zero payload, zero scale
-      if (c.begin == 0 && threadIdx.x == 0) scales[c.seg] = 0.0f;
-      if (kVec) {
-        for (long long i = c.begin + 4 * threadIdx.x; i < c.end; i += 4 * kThreads) {
-          *reinterpret_cast<char4*>(qs + i) = make_char4(0, 0, 0, 0);
-        }
-      } else {
-        for (long long i = c.begin + threadIdx.x; i < c.end; i += kThreads) qs[i] = 0;
-      }
-      return;
-    }
-  }
   const float scale = segment_scale(absmax_bits[c.seg], qmax);
-  if (c.begin == 0 && threadIdx.x == 0) scales[c.seg] = kMasked ? __fmul_rn(scale, m) : scale;
+  if (c.begin == 0 && threadIdx.x == 0) scales[c.seg] = scale;
   const float* xs = x + off;
   const float* us = u + off;
   if (kVec) {
@@ -165,10 +140,9 @@ quantize_kernel(const float* __restrict__ x, const float* __restrict__ u,
   }
 }
 
-template <bool kMasked>
-int launch(const float* x, const float* u, const float* mask, float qmax, int8_t* q,
-           float* scales, unsigned* absmax_scratch, long long rows, long long d,
-           long long block, void* stream) {
+int launch(const float* x, const float* u, float qmax, int8_t* q, float* scales,
+           unsigned* absmax_scratch, long long rows, long long d, long long block,
+           void* stream) {
   if (rows <= 0 || d <= 0 || block <= 0 || d % block != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -183,20 +157,18 @@ int launch(const float* x, const float* u, const float* mask, float qmax, int8_t
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 g(static_cast<unsigned>(grid));
   if (vec) {
-    absmax_kernel<true, kMasked><<<g, kThreads, 0, s>>>(x, mask, absmax_scratch, block,
-                                                        blocks_per_row, chunks_per_seg);
+    absmax_kernel<true><<<g, kThreads, 0, s>>>(x, absmax_scratch, block, chunks_per_seg);
   } else {
-    absmax_kernel<false, kMasked><<<g, kThreads, 0, s>>>(x, mask, absmax_scratch, block,
-                                                         blocks_per_row, chunks_per_seg);
+    absmax_kernel<false><<<g, kThreads, 0, s>>>(x, absmax_scratch, block, chunks_per_seg);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (vec) {
-    quantize_kernel<true, kMasked><<<g, kThreads, 0, s>>>(
-        x, u, mask, absmax_scratch, qmax, q, scales, block, blocks_per_row, chunks_per_seg);
+    quantize_kernel<true><<<g, kThreads, 0, s>>>(x, u, absmax_scratch, qmax, q, scales, block,
+                                                 chunks_per_seg);
   } else {
-    quantize_kernel<false, kMasked><<<g, kThreads, 0, s>>>(
-        x, u, mask, absmax_scratch, qmax, q, scales, block, blocks_per_row, chunks_per_seg);
+    quantize_kernel<false><<<g, kThreads, 0, s>>>(x, u, absmax_scratch, qmax, q, scales,
+                                                  block, chunks_per_seg);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -211,15 +183,5 @@ extern "C" int quantize_blockwise_f32(const float* x, const float* u, float qmax
                                       int8_t* q, float* scales,
                                       unsigned* absmax_scratch, long long rows,
                                       long long d, long long block, void* stream) {
-  return launch<false>(x, u, nullptr, qmax, q, scales, absmax_scratch, rows, d, block,
-                       stream);
-}
-
-// The same with mask: (rows,) float32 in {0, 1}.
-extern "C" int masked_quantize_blockwise_f32(const float* x, const float* u,
-                                             const float* mask, float qmax, int8_t* q,
-                                             float* scales, unsigned* absmax_scratch,
-                                             long long rows, long long d, long long block,
-                                             void* stream) {
-  return launch<true>(x, u, mask, qmax, q, scales, absmax_scratch, rows, d, block, stream);
+  return launch(x, u, qmax, q, scales, absmax_scratch, rows, d, block, stream);
 }

@@ -2,22 +2,28 @@
 
 Replaces the four Pallas TPU kernels of ``repro/kernels/quant_gossip/kernel.py``:
 
-=============================  ==================  =========================
-wrapper                        TPU kernel          source
-=============================  ==================  =========================
-``quantize_blockwise``         B.2 (``:98``)       ``csrc/quantize.cu``
-``masked_quantize_blockwise``  B.4 (``:154``)      ``csrc/quantize.cu``
-``dequant_accumulate``         B.3 (``:125``)      ``csrc/accumulate.cu``
-``masked_dequant_accumulate``  B.5 (``:187``)      ``csrc/accumulate.cu``
-=============================  ==================  =========================
+=========================================  =============  ========================
+wrapper                                    TPU kernel     source
+=========================================  =============  ========================
+``quantize_blockwise``                     B.2 (``:98``)  ``csrc/quantize.cu``
+``masked_quantize_blockwise_grouped``      B.4 (``:154``) ``csrc/masked_grouped.cu``
+``masked_quantize_blockwise`` (one leaf)   B.4 (``:154``) ``csrc/masked_grouped.cu``
+``dequant_accumulate``                     B.3 (``:125``) ``csrc/accumulate.cu``
+``masked_dequant_accumulate_grouped_``     B.5 (``:187``) ``csrc/masked_grouped.cu``
+``masked_dequant_accumulate`` (one leaf)   B.5 (``:187``) ``csrc/masked_grouped.cu``
+=========================================  =============  ========================
 
 Each source's header note gives its bound and design.  The sources are
 built and loaded by :mod:`repro_torch.kernels._build`, together with every
 other kernel family's.
 
+The grouped wrappers take every leaf of one matching in one launch (up to
+:data:`MAX_GROUP_LEAVES` leaves; a larger group is split into several
+launches by :func:`leaf_tables`); the one-leaf wrappers are one-leaf groups.
+
 Every wrapper validates what it is given, raises on anything its kernel
 does not take (it never runs the plain version itself) and adds one to its
-``.launches`` where it launches.
+``.launches`` for each launch.
 
 ``_pick_block`` and ``num_blocks`` are the reference's layout rules, kept
 identical so that wire-byte accounting matches what the kernels emit.
@@ -32,9 +38,15 @@ import torch
 from repro_torch.kernels import _build
 
 _CSRC = "quant_gossip/csrc/"
-SOURCES = (_CSRC + "quantize.cu", _CSRC + "accumulate.cu")
+SOURCES = (_CSRC + "quantize.cu", _CSRC + "accumulate.cu", _CSRC + "masked_grouped.cu")
 NVCC_FLAGS = _build.NVCC_FLAGS
 build = _build.build
+
+# the fixed sizes of csrc/masked_grouped.cu (its masked_grouped_config)
+CLUSTER_SIZE = 16        # CTAs per B.4 thread-block cluster
+MAX_GROUP_LEAVES = 16    # leaves per grouped launch (the CNN has 12)
+MIN_SHARE = 8192         # B.4: a segment this long or shorter is one CTA's
+ACC_CHUNK = 4096         # B.5: elements per CTA
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -42,12 +54,12 @@ _LL = ctypes.c_longlong
 _SYMBOLS = {
     "quantize_blockwise_f32":
         (SOURCES[0], (_P, _P, ctypes.c_float, _P, _P, _P, _LL, _LL, _LL, _P)),
-    "masked_quantize_blockwise_f32":
-        (SOURCES[0], (_P, _P, _P, ctypes.c_float, _P, _P, _P, _LL, _LL, _LL, _P)),
     "dequant_accumulate_f32":
         (SOURCES[1], (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P)),
-    "masked_dequant_accumulate_f32":
-        (SOURCES[1], (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P)),
+    "masked_quantize_grouped_f32":
+        (SOURCES[2], (_P, ctypes.c_int, _P, ctypes.c_float, _LL, _P)),
+    "masked_dequant_accumulate_grouped_f32":
+        (SOURCES[2], (_P, ctypes.c_int, _P, _P, _P, _LL, _LL, _P)),
 }
 
 
@@ -67,6 +79,45 @@ def num_blocks(d: int, block_d: int) -> int:
 def _entry(symbol: str):
     source, argtypes = _SYMBOLS[symbol]
     return _build.entry(source, symbol, argtypes)
+
+
+def config() -> dict:
+    """The grouped kernels' fixed sizes as compiled (builds the source)."""
+    fn = _build.entry(SOURCES[2], "masked_grouped_config", (_P,))
+    fn.restype = None
+    out = (_LL * 5)()
+    fn(ctypes.addressof(out))
+    return dict(zip(("cluster_size", "max_group_leaves", "min_share", "acc_chunk",
+                     "smem_cap_floats"), out))
+
+
+def quantize_clusters(k: int, d: int, block_d: int) -> int:
+    """B.4's thread-block clusters for a (k, d) leaf: one per (row, block)
+    segment, or, where a segment is at most MIN_SHARE long and so one CTA's
+    whole, one per CLUSTER_SIZE segments (packed, rounded up)."""
+    block = _pick_block(d, block_d)
+    segments = k * (d // block)
+    return -(-segments // CLUSTER_SIZE) if block <= MIN_SHARE else segments
+
+
+def leaf_tables(units, cap: int = MAX_GROUP_LEAVES) -> list[list[tuple[int, int]]]:
+    """The leaf tables of a group: ``units[l]`` work units of leaf l (B.4:
+    its thread-block clusters, :func:`quantize_clusters`; B.5: its K ×
+    chunks CTAs) go in launches of at most ``cap`` leaves, in order.  Each
+    launch's table lists (leaf index, units of the launch's earlier leaves);
+    a leaf with no units is left out."""
+    tables, table, begin = [], [], 0
+    for leaf, n in enumerate(units):
+        if n == 0:
+            continue
+        if len(table) == cap:
+            tables.append(table)
+            table, begin = [], 0
+        table.append((leaf, begin))
+        begin += n
+    if table:
+        tables.append(table)
+    return tables
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device, dtype: torch.dtype,
@@ -94,7 +145,7 @@ def _check_quantize_args(x, u, mask, qmax, name):
         raise ValueError(f"qmax must be in (0, 127] for an int8 payload, got {qmax}")
 
 
-def _quantize(symbol, x, u, mask, qmax, block_d):
+def _quantize(x, u, qmax, block_d):
     k, d = x.shape
     block = _pick_block(d, block_d)
     n_blk = d // block
@@ -103,9 +154,8 @@ def _quantize(symbol, x, u, mask, qmax, block_d):
     if x.numel() == 0:
         return q, scales, False
     scratch = torch.zeros((k, n_blk), dtype=torch.int32, device=x.device)
-    fn = _entry(symbol)
-    masks = () if mask is None else (mask.data_ptr(),)
-    _build.launch(fn, symbol, x.device, x.data_ptr(), u.data_ptr(), *masks, float(qmax),
+    symbol = "quantize_blockwise_f32"
+    _build.launch(_entry(symbol), symbol, x.device, x.data_ptr(), u.data_ptr(), float(qmax),
                   q.data_ptr(), scales.data_ptr(), scratch.data_ptr(), k, d, block)
     return q, scales, True
 
@@ -118,24 +168,84 @@ def quantize_blockwise(x: torch.Tensor, u: torch.Tensor, *, qmax: float = 127.0,
     ``quantize_blockwise.launches``.
     """
     _check_quantize_args(x, u, None, qmax, "quantize_blockwise")
-    q, scales, launched = _quantize("quantize_blockwise_f32", x, u, None, qmax, block_d)
+    q, scales, launched = _quantize(x, u, qmax, block_d)
     quantize_blockwise.launches += launched
     return q, scales
+
+
+def _aligned_offsets(sizes, align: int) -> tuple[list[int], int]:
+    """Offsets of consecutive buffers of ``sizes`` elements, each rounded up
+    to a multiple of ``align`` elements; and the total."""
+    offsets, total = [], 0
+    for n in sizes:
+        offsets.append(total)
+        total += -(-n // align) * align
+    return offsets, total
+
+
+def _quantize_grouped(xs, us, mask, qmax, block_d, name):
+    if not xs or len(xs) != len(us):
+        raise ValueError(f"{name} takes one or more leaves and one u per leaf, got "
+                         f"{len(xs)} x and {len(us)} u")
+    if mask.device.type != "cuda":
+        raise ValueError(f"{name} kernel needs CUDA tensors, got mask on {mask.device}")
+    k = mask.reshape(-1).shape[0]
+    for x, u in zip(xs, us):
+        if x.ndim != 2 or x.shape[0] != k:
+            raise ValueError(f"{name} kernel takes (K, D) leaves with the mask's K = {k}, "
+                             f"got {tuple(x.shape)}")
+        _check_quantize_args(x, u, mask, qmax, name)
+    dims = [x.shape[1] for x in xs]
+    blocks = [_pick_block(d, block_d) for d in dims]
+    n_blks = [d // b for d, b in zip(dims, blocks)]
+    dev = mask.device
+    # the outputs are views into one allocation each; every leaf's q starts
+    # on 16 bytes, so the kernel's 4-byte stores stay aligned
+    q_off, q_total = _aligned_offsets([k * d for d in dims], 16)
+    s_off, s_total = _aligned_offsets([k * n for n in n_blks], 1)
+    q_flat = torch.empty(q_total, dtype=torch.int8, device=dev)
+    s_flat = torch.empty(s_total, dtype=torch.float32, device=dev)
+    qs = [q_flat[o:o + k * d].view(k, d) for o, d in zip(q_off, dims)]
+    ss = [s_flat[o:o + k * n].view(k, n) for o, n in zip(s_off, n_blks)]
+    launched = 0
+    symbol = "masked_quantize_grouped_f32"
+    for table in leaf_tables([quantize_clusters(k, d, block_d) for d in dims]):
+        desc = (_LL * (7 * len(table)))(*[v for leaf, begin in table for v in (
+            xs[leaf].data_ptr(), us[leaf].data_ptr(), qs[leaf].data_ptr(),
+            ss[leaf].data_ptr(), dims[leaf], blocks[leaf], begin)])
+        _build.launch(_entry(symbol), symbol, dev, ctypes.addressof(desc), len(table),
+                      mask.data_ptr(), float(qmax), k)
+        launched += 1
+    return list(zip(qs, ss)), launched
+
+
+def masked_quantize_blockwise_grouped(xs, us, mask: torch.Tensor, *, qmax: float = 127.0,
+                                      block_d: int = 65536):
+    """B.4 over every leaf of a group: ``xs``, ``us`` lists of (K, D_l)
+    float32 CUDA tensors, ``mask`` (K,) float32 in {0, 1} -> [(q_l int8 (K,
+    D_l), scales_l f32 (K, D_l / block_l))], each leaf laid out by
+    :func:`_pick_block` as the one-leaf call does; a masked row emits q = 0
+    and scale = 0.  The q's are views into one allocation, the scales into
+    another.  One launch per :data:`MAX_GROUP_LEAVES` leaves, each adding one
+    to ``masked_quantize_blockwise_grouped.launches``."""
+    out, launched = _quantize_grouped(xs, us, mask, qmax, block_d,
+                                      "masked_quantize_blockwise_grouped")
+    masked_quantize_blockwise_grouped.launches += launched
+    return out
 
 
 def masked_quantize_blockwise(x: torch.Tensor, u: torch.Tensor, mask: torch.Tensor, *,
                               qmax: float = 127.0, block_d: int = 65536):
     """B.2 with a per-row sender mask (K,) float32 in {0, 1}: a masked row
-    emits q = 0 and scale = 0.  Launches the B.4 kernel and adds one to
-    ``masked_quantize_blockwise.launches``."""
-    _check_quantize_args(x, u, mask, qmax, "masked_quantize_blockwise")
-    q, scales, launched = _quantize("masked_quantize_blockwise_f32", x, u, mask, qmax,
-                                    block_d)
+    emits q = 0 and scale = 0.  A one-leaf group of the B.4 kernel; adds one
+    to ``masked_quantize_blockwise.launches``."""
+    [(q, scales)], launched = _quantize_grouped([x], [u], mask, qmax, block_d,
+                                                "masked_quantize_blockwise")
     masked_quantize_blockwise.launches += launched
     return q, scales
 
 
-def _accumulate(symbol, name, acc, q, scales, w, mask, src):
+def _check_accumulate(name, acc, q, scales, w, mask, src):
     if acc.device.type != "cuda":
         raise ValueError(f"{name} kernel needs CUDA tensors, got acc on {acc.device}")
     if acc.ndim != 2 or q.ndim != 2 or scales.ndim != 2:
@@ -160,15 +270,7 @@ def _accumulate(symbol, name, acc, q, scales, w, mask, src):
             raise ValueError(f"without src, q must have acc's {k} rows, got {kq}")
     else:
         _check("src", src, dev, torch.int64, (k,))
-    out = torch.empty_like(acc)
-    if acc.numel() == 0:
-        return out, False
-    fn = _entry(symbol)
-    masks = () if mask is None else (mask.data_ptr(),)
-    _build.launch(fn, symbol, dev, acc.data_ptr(), q.data_ptr(), scales.data_ptr(),
-                  w.data_ptr(), *masks, None if src is None else src.data_ptr(),
-                  out.data_ptr(), k, kq, d, n_blk)
-    return out, True
+    return w, mask
 
 
 def dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
@@ -180,26 +282,73 @@ def dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
     bitwise.  Launches the B.3 kernel and adds one to
     ``dequant_accumulate.launches``.
     """
-    out, launched = _accumulate("dequant_accumulate_f32", "dequant_accumulate",
-                                acc, q, scales, w, None, src)
-    dequant_accumulate.launches += launched
+    w, _ = _check_accumulate("dequant_accumulate", acc, q, scales, w, None, src)
+    out = torch.empty_like(acc)
+    if acc.numel() == 0:
+        return out
+    k, d = acc.shape
+    symbol = "dequant_accumulate_f32"
+    _build.launch(_entry(symbol), symbol, acc.device, acc.data_ptr(), q.data_ptr(),
+                  scales.data_ptr(), w.data_ptr(), None if src is None else src.data_ptr(),
+                  out.data_ptr(), k, q.shape[0], d, scales.shape[1])
+    dequant_accumulate.launches += 1
     return out
+
+
+def _accumulate_grouped(name, accs, payloads, w, mask, src) -> int:
+    if not accs or len(accs) != len(payloads):
+        raise ValueError(f"{name} takes one or more leaves and one payload per leaf, got "
+                         f"{len(accs)} accs and {len(payloads)} payloads")
+    # each check holds the leaf to the same (K,) weights and mask
+    w, mask = [_check_accumulate(name, acc, q, scales, w, mask, src)
+               for acc, (q, scales) in zip(accs, payloads)][0]
+    k, kq = accs[0].shape[0], payloads[0][0].shape[0]
+    if any(q.shape[0] != kq for q, _ in payloads):
+        raise ValueError(f"every leaf's payload must have {kq} rows")
+    dims = [a.shape[1] for a in accs]
+    launched = 0
+    symbol = "masked_dequant_accumulate_grouped_f32"
+    for table in leaf_tables([k * -(-d // ACC_CHUNK) for d in dims]):
+        desc = (_LL * (6 * len(table)))(*[v for leaf, begin in table for v in (
+            accs[leaf].data_ptr(), payloads[leaf][0].data_ptr(), payloads[leaf][1].data_ptr(),
+            dims[leaf], payloads[leaf][1].shape[1], begin)])
+        _build.launch(_entry(symbol), symbol, accs[0].device, ctypes.addressof(desc),
+                      len(table), w.data_ptr(), mask.data_ptr(),
+                      None if src is None else src.data_ptr(), k, kq)
+        launched += 1
+    return launched
+
+
+def masked_dequant_accumulate_grouped_(accs, payloads, w: torch.Tensor, mask: torch.Tensor,
+                                       *, src: torch.Tensor | None = None):
+    """B.5 over every leaf of a group, in place: for each leaf,
+    ``acc_l += ((m·w)·scales_l[src])·q_l[src]`` with ``accs`` (K, D_l)
+    float32 and ``payloads`` [(q_l int8 (Kq, D_l), scales_l f32 (Kq,
+    n_blk_l))]; a row with m·w = 0 is left as it is (it is not read).
+    Returns ``accs``.  One launch per :data:`MAX_GROUP_LEAVES` leaves, each
+    adding one to ``masked_dequant_accumulate_grouped_.launches``."""
+    masked_dequant_accumulate_grouped_.launches += _accumulate_grouped(
+        "masked_dequant_accumulate_grouped_", accs, payloads, w, mask, src)
+    return accs
 
 
 def masked_dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
                               w: torch.Tensor, mask: torch.Tensor, *,
                               src: torch.Tensor | None = None) -> torch.Tensor:
     """B.3 with the weight ``mask[i]·w[i]``; a masked row returns acc bitwise
-    without reading the payload.  Launches the B.5 kernel and adds one to
-    ``masked_dequant_accumulate.launches``."""
-    out, launched = _accumulate("masked_dequant_accumulate_f32",
-                                "masked_dequant_accumulate", acc, q, scales, w, mask, src)
-    masked_dequant_accumulate.launches += launched
+    without reading the payload.  A one-leaf group of the B.5 kernel on a
+    copy of acc; adds one to ``masked_dequant_accumulate.launches``."""
+    _check_accumulate("masked_dequant_accumulate", acc, q, scales, w, mask, src)
+    out = acc.clone()
+    masked_dequant_accumulate.launches += _accumulate_grouped(
+        "masked_dequant_accumulate", [out], [(q, scales)], w, mask, src)
     return out
 
 
 # launches of each kernel since the last reset (the main path's proof of use)
 quantize_blockwise.launches = 0
 masked_quantize_blockwise.launches = 0
+masked_quantize_blockwise_grouped.launches = 0
 dequant_accumulate.launches = 0
 masked_dequant_accumulate.launches = 0
+masked_dequant_accumulate_grouped_.launches = 0

@@ -6,10 +6,13 @@ launches the hand-written kernel or raises — there is no fallback.
 ``dequantize_blockwise`` is plain PyTorch on every device, as in the
 reference (``repro.kernels.quant_gossip.ops``), where it was never a kernel.
 
+The grouped dispatchers take every leaf of one matching at once: the
+memoryless masked gossip round calls them once per matching.
+
 ``quant_gossip_round`` and ``masked_quant_gossip_round`` compose one
-compressed matching exchange — quantize → the node-axis gather that stands
-in for the reference's ``ppermute`` → dequantize-accumulate — with the
-gather folded into the accumulate kernel (``src``).  The stochastic-rounding
+compressed matching exchange of one leaf — quantize → the node-axis gather
+that stands in for the reference's ``ppermute`` → dequantize-accumulate —
+with the gather folded into the accumulate kernel (``src``).  The stochastic-rounding
 uniforms ``u`` come in as a tensor where the reference takes a PRNG key.
 """
 
@@ -43,6 +46,16 @@ def masked_quantize_blockwise(x: torch.Tensor, u: torch.Tensor, mask: torch.Tens
     return _r.masked_quantize_blockwise_ref(x, u, mask, qmax=qmax, block_d=block_d)
 
 
+def masked_quantize_blockwise_grouped(xs, us, mask: torch.Tensor, *, qmax: float = 127.0,
+                                      block_d: int = 65536):
+    """:func:`masked_quantize_blockwise` over every leaf of a group (lists of
+    (K, D_l) ``xs`` and ``us``, one (K,) mask): one launch on the card."""
+    if _build.route("masked_quantize_blockwise_grouped", mask):
+        return _k.masked_quantize_blockwise_grouped(xs, us, mask, qmax=qmax, block_d=block_d)
+    masked_quantize_blockwise_grouped.plain_calls += 1
+    return _r.masked_quantize_blockwise_grouped_ref(xs, us, mask, qmax=qmax, block_d=block_d)
+
+
 def dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
                        w: torch.Tensor, *, src: torch.Tensor | None = None) -> torch.Tensor:
     """acc + w·dequant(q[src], scales[src]), one fused pass over the payload."""
@@ -63,11 +76,23 @@ def masked_dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.
     return _r.masked_dequant_accumulate_ref(acc, q, scales, w, mask, src=src)
 
 
+def masked_dequant_accumulate_grouped_(accs, payloads, w: torch.Tensor, mask: torch.Tensor,
+                                       *, src: torch.Tensor | None = None):
+    """:func:`masked_dequant_accumulate` over every leaf of a group, into
+    each ``acc_l`` in place (one launch on the card); returns ``accs``."""
+    if _build.route("masked_dequant_accumulate_grouped_", mask):
+        return _k.masked_dequant_accumulate_grouped_(accs, payloads, w, mask, src=src)
+    masked_dequant_accumulate_grouped_.plain_calls += 1
+    return _r.masked_dequant_accumulate_grouped_ref_(accs, payloads, w, mask, src=src)
+
+
 # how often each plain version served a call (CPU tensors only)
 quantize_blockwise.plain_calls = 0
 masked_quantize_blockwise.plain_calls = 0
+masked_quantize_blockwise_grouped.plain_calls = 0
 dequant_accumulate.plain_calls = 0
 masked_dequant_accumulate.plain_calls = 0
+masked_dequant_accumulate_grouped_.plain_calls = 0
 
 
 def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:

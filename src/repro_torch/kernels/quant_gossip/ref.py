@@ -11,6 +11,9 @@ correctly rounded float32 operation.
   move ``scale`` by an ulp.
 * masked quantize: a masked row gives q = 0 and scale·m = 0, as the
   reference's oracle does.
+* the grouped forms (every leaf of one matching in one call, as the card
+  runs them) are loops over the one-leaf versions; the grouped accumulate
+  writes into each ``acc`` in place, as the kernel does.
 * dequantize-accumulate: ``acc + (a·scale)·q`` with ``a = w`` (or
   ``m·w``), the multiplication order of the reference's Pallas kernels
   (``kernel.py:46, 70``).  The reference's jnp oracle computes
@@ -83,3 +86,18 @@ def masked_dequant_accumulate_ref(acc, q, scales, w, mask, *, src=None):
     """acc + ((m·w)·scale)·q; masked rows give acc bitwise."""
     a = mask.reshape(-1).float() * w.reshape(-1).float()
     return dequant_accumulate_ref(acc, q, scales, a, src=src)
+
+
+def masked_quantize_blockwise_grouped_ref(xs, us, mask, *, qmax: float = 127.0,
+                                          block_d: int = 65536):
+    """[(q_l, scales_l)] of :func:`masked_quantize_blockwise_ref` per leaf."""
+    return [masked_quantize_blockwise_ref(x, u, mask, qmax=qmax, block_d=block_d)
+            for x, u in zip(xs, us)]
+
+
+def masked_dequant_accumulate_grouped_ref_(accs, payloads, w, mask, *, src=None):
+    """Each ``acc_l`` overwritten in place with
+    :func:`masked_dequant_accumulate_ref` of it; returns ``accs``."""
+    for acc, (q, scales) in zip(accs, payloads):
+        acc.copy_(masked_dequant_accumulate_ref(acc, q, scales, w, mask, src=src))
+    return accs

@@ -37,6 +37,18 @@ the edges of the kernels' tiles among them) and on rows that are not
 the node-stacked LM loss and its gradients on the card match the CPU
 within the same 1e-4; the WKV6 scan refuses to be recorded for a gradient.
 
+The masked int8 wire's grouped kernels (B.4 over every leaf of a matching
+in thread-block clusters, B.5 in place) equal the one-leaf plain versions
+bit for bit on the fmnist MLP's and the CNN's leaves, the layout cases as
+groups and a group over the leaf cap (two launches), with every mask, src
+and qmax, on rows off 16-byte boundaries too; the accumulate keeps acc's
+storage; the wrappers refuse what the kernels do not take and are built
+with the sizes the Python side states; a memoryless round through them
+equals the leaf-by-leaf round.  At K = 65, above the stacked B.1 kernel's
+64 nodes, the SGD step on the card takes the unfused path (no B.1 launch),
+equals the unfused step and stays within 1.5e-4 of the largest update of
+the CPU's.
+
 Run it on a machine with a card with ``PYTHONPATH=src python -m pytest -q
 tests/test_torch_kernel.py``.
 """
@@ -649,3 +661,208 @@ def test_lm_loss_and_grads_on_the_card_match_the_cpu(cuda, arch):
     torch.testing.assert_close(l_g.detach().cpu(), l_c.detach(), rtol=1e-5, atol=1e-5)
     for name, a, b in zip(params, g_g, g_c):
         assert _rel(a.cpu(), b) <= BWD_REL, (name, _rel(a.cpu(), b))
+
+
+# -- the grouped masked wire: B.4 and B.5 over every leaf of a matching, one
+# launch each (up to qk.MAX_GROUP_LEAVES leaves), bit-equal to the one-leaf
+# plain versions; the fused step above 64 nodes ------------------------------
+
+MLP_D = [128, 100352, 64, 8192, 10, 640]
+CNN_D = [32, 864, 64, 18432, 64, 36864, 500, 512000, 500, 250000, 10, 5000]
+GROUPS = {  # name -> (K, widths, block_d)
+    "mlp": (10, MLP_D, 65536),
+    "cnn": (10, CNN_D, 65536),
+    "2 blocks": (10, [131072, 100352, 10], 65536),
+    "block 128": (16, [4096, 1000, 128, 7], 128),
+    "ragged": (3, [1000, 256, 3], 256),
+    "over the cap": (10, MLP_D + CNN_D + [4096, 7], 65536),
+}
+
+
+def _group(k, dims, seed, device):
+    xs, us = zip(*(_inputs(k, d, seed + i, device) for i, d in enumerate(dims)))
+    return list(xs), list(us)
+
+
+def test_grouped_kernels_are_built_as_stated(cuda):
+    cfg = qk.config()
+    assert cfg["cluster_size"] == qk.CLUSTER_SIZE
+    assert cfg["max_group_leaves"] == qk.MAX_GROUP_LEAVES
+    assert cfg["min_share"] == qk.MIN_SHARE
+    assert cfg["acc_chunk"] == qk.ACC_CHUNK
+
+
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("group", list(GROUPS))
+def test_grouped_quantize_equals_plain(cuda, group, mask):
+    k, dims, block_d = GROUPS[group]
+    xs, us = _group(k, dims, seed=7 * k, device=cuda)
+    m = _mask(mask, k, cuda)
+    launches = len(qk.leaf_tables([1] * len(dims)))
+    for qmax in (127.0, 7.0):
+        before = qk.masked_quantize_blockwise_grouped.launches
+        got = qk.masked_quantize_blockwise_grouped(xs, us, m, qmax=qmax, block_d=block_d)
+        want = ref.masked_quantize_blockwise_grouped_ref(xs, us, m, qmax=qmax, block_d=block_d)
+        torch.cuda.synchronize()
+        assert qk.masked_quantize_blockwise_grouped.launches == before + launches
+        for i, ((q, s), (q_p, s_p)) in enumerate(zip(got, want)):
+            assert torch.equal(q, q_p) and torch.equal(s, s_p), (i, qmax)
+
+
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("group", list(GROUPS))
+def test_grouped_accumulate_equals_plain_in_place(cuda, group, mask):
+    k, dims, block_d = GROUPS[group]
+    xs, us = _group(k, dims, seed=11 * k, device=cuda)
+    payloads = [ref.quantize_blockwise_ref(x, u, block_d=block_d) for x, u in zip(xs, us)]
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    w = torch.rand((k,), generator=gen, device=cuda) * 0.5
+    w[0] = 0.0  # a row that receives nothing
+    accs0 = [torch.randn((k, d), generator=gen, device=cuda) for d in dims]
+    m = _mask(mask, k, cuda)
+    srcs = _srcs(cuda) if k == 10 else [None, torch.tensor(
+        [i ^ 1 if (i ^ 1) < k else i for i in range(k)], device=cuda)]
+    for src in srcs:
+        accs = [a.clone() for a in accs0]
+        ptrs = [a.data_ptr() for a in accs]
+        before = qk.masked_dequant_accumulate_grouped_.launches
+        out = qk.masked_dequant_accumulate_grouped_(accs, payloads, w, m, src=src)
+        want = ref.masked_dequant_accumulate_grouped_ref_([a.clone() for a in accs0], payloads,
+                                                          w, m, src=src)
+        torch.cuda.synchronize()
+        assert qk.masked_dequant_accumulate_grouped_.launches == \
+            before + len(qk.leaf_tables([1] * len(dims)))
+        assert out is accs and [a.data_ptr() for a in out] == ptrs
+        for a, b in zip(out, want):
+            assert torch.equal(a, b), (group, mask, src)
+
+
+def test_grouped_kernels_take_rows_off_16_byte_boundaries(cuda):
+    """Leaves whose data do not start on 16 bytes take the scalar paths."""
+    k, dims = 4, [1024, 640]
+    xs0, us0 = _group(k, dims, seed=5, device=cuda)
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape).copy_(t)
+
+    xs, us = [shifted(x) for x in xs0], [shifted(u) for u in us0]
+    m = _mask("mixed", k, cuda)
+    got = qk.masked_quantize_blockwise_grouped(xs, us, m, block_d=256)
+    want = ref.masked_quantize_blockwise_grouped_ref(xs0, us0, m, block_d=256)
+    assert all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(got, want))
+    w = torch.full((k,), 0.25, device=cuda)
+    accs = [shifted(torch.randn((k, d), device=cuda)) for d in dims]
+    want = ref.masked_dequant_accumulate_grouped_ref_([a.clone() for a in accs], got, w, m)
+    qk.masked_dequant_accumulate_grouped_(accs, got, w, m)
+    assert all(torch.equal(a, b) for a, b in zip(accs, want))
+
+
+@pytest.mark.parametrize("bad", ["float64", "strided", "k", "cpu-mask", "u-count", "empty"])
+def test_grouped_wrappers_reject_what_the_kernels_do_not_take(cuda, bad):
+    xs, us = _group(4, [256, 64], seed=2, device=cuda)
+    m = _mask("mixed", 4, cuda)
+    if bad == "float64":
+        xs[1] = xs[1].double()
+    elif bad == "strided":
+        xs[0] = xs[0].t().contiguous().t()
+    elif bad == "k":
+        xs[1], us[1] = xs[1][:3], us[1][:3]
+    elif bad == "cpu-mask":
+        m = m.cpu()
+    elif bad == "u-count":
+        us = us[:1]
+    else:
+        xs, us = [], []
+    launches = qk.masked_quantize_blockwise_grouped.launches
+    with pytest.raises((TypeError, ValueError)):
+        qk.masked_quantize_blockwise_grouped(xs, us, m, block_d=64)
+    assert qk.masked_quantize_blockwise_grouped.launches == launches
+    if bad in ("float64", "strided", "k"):
+        payloads = [ref.quantize_blockwise_ref(x.float().contiguous(), u, block_d=64)
+                    for x, u in zip(xs, us)]
+        w = torch.ones(4, device=cuda)
+        launches = qk.masked_dequant_accumulate_grouped_.launches
+        with pytest.raises((TypeError, ValueError)):
+            qk.masked_dequant_accumulate_grouped_(xs, payloads, w, m)
+        assert qk.masked_dequant_accumulate_grouped_.launches == launches
+
+
+def test_grouped_dispatchers_launch_for_cuda_tensors(cuda):
+    xs, us = _group(10, MLP_D, seed=3, device=cuda)
+    m = _mask("mixed", 10, cuda)
+    w = torch.full((10,), 0.5, device=cuda)
+    names = ("masked_quantize_blockwise_grouped", "masked_dequant_accumulate_grouped_")
+    before = {n: (getattr(qk, n).launches, getattr(ops, n).plain_calls) for n in names}
+    payloads = ops.masked_quantize_blockwise_grouped(xs, us, m)
+    ops.masked_dequant_accumulate_grouped_([x.clone() for x in xs], payloads, w, m)
+    for n in names:
+        assert getattr(qk, n).launches == before[n][0] + 1
+        assert getattr(ops, n).plain_calls == before[n][1]
+
+
+def test_grouped_memoryless_round_on_the_card_equals_the_one_leaf_round(cuda):
+    """The dropout-0.2 memoryless round through the grouped kernels (one B.4
+    and one B.5 launch per matching) equals the same round leaf by leaf
+    through ``masked_quant_gossip_round`` (one-leaf kernels), bit for bit."""
+    from repro_torch.comm import CompressionConfig
+    from repro_torch.comm.topology import gather_round_vectors
+    from repro_torch.dynamics import DropoutSchedule, DynamicGossipMixer
+    from repro_torch.graphs import build_graph, metropolis_weights
+    from repro_torch.utils.tree import leaf_names
+
+    w = metropolis_weights(build_graph("erdos_renyi", 10, p=0.3, seed=0))
+    mixer = DynamicGossipMixer(DropoutSchedule(w, 0.2, seed=0, device=cuda),
+                               quantized=CompressionConfig(kind="int8", use_kernel=True,
+                                                           error_feedback=False))
+    xs, _ = _group(10, MLP_D, seed=4, device=cuda)
+    theta = dict(zip(["fc0/b", "fc0/w", "fc1/b", "fc1/w", "fc2/b", "fc2/w"], xs))
+    state = mixer.init_state(theta)
+    self_w, match_ws, masks = gather_round_vectors(mixer.topo.round_w(0),
+                                                   mixer.transport.perm_idx)
+    before = (qk.masked_quantize_blockwise_grouped.launches,
+              qk.masked_dequant_accumulate_grouped_.launches)
+    got = mixer._quantized_gossip(theta, state, self_w, match_ws, masks)
+    n_match = len(mixer.transport.srcs)
+    assert (qk.masked_quantize_blockwise_grouped.launches,
+            qk.masked_dequant_accumulate_grouped_.launches) == \
+        (before[0] + n_match, before[1] + n_match)
+    wire = mixer.wire
+    for i, name in enumerate(leaf_names(theta)):
+        acc = theta[name] * self_w[:, None]
+        for j, (pw, mk, src) in enumerate(zip(match_ws, masks, mixer.transport.srcs)):
+            u = wire.uniforms(state.key, state.rounds, i, j, theta[name])
+            acc = ops.masked_quant_gossip_round(theta[name], acc, pw, mk, src, u)
+        assert torch.equal(got[name], acc), name
+
+
+def test_fused_step_at_65_nodes_equals_the_unfused_step(cuda):
+    """K = 65 is above the stacked B.1 kernel's 64 nodes: the SGD step on
+    the card takes the unfused path (no B.1 launch) and equals the unfused
+    step; both stay within 1.5e-4 of the largest update of the CPU's."""
+    from repro_torch.core import DecentralizedTrainer, RobustConfig
+    from repro_torch.data import make_fmnist_like, pathological_noniid_partition
+    from repro_torch.models import paper_nets as nets
+    from repro_torch.optim import Optimizer, sgd
+
+    k = 65
+    fed = pathological_noniid_partition(make_fmnist_like(n_train=6500, n_test=200), k, seed=0)
+    batch = fed.sample_batch(np.random.default_rng(0), 55)
+    params = nets.mlp_init(torch.Generator().manual_seed(0))
+    opt = sgd((10 / 300) ** 0.5)
+    out = {}
+    for tag, dev, o in (("fused", cuda, opt), ("unfused", cuda, Optimizer(opt.init, opt.update)),
+                        ("cpu", "cpu", opt)):
+        trainer = DecentralizedTrainer(nets.make_classifier_loss(nets.mlp_apply), nets.mlp_apply,
+                                       num_nodes=k, graph="erdos_renyi",
+                                       graph_kwargs={"p": 0.3, "seed": 0},
+                                       robust=RobustConfig(mu=6.0), optimizer=o, device=dev)
+        state = trainer.init(params)
+        before = gk.gossip_update_stacked.launches
+        state, _ = trainer.step(state, batch)
+        assert gk.gossip_update_stacked.launches == before
+        out[tag] = {n: v.cpu() for n, v in state.params.items()}
+    start = {n: v.unsqueeze(0).expand(out["cpu"][n].shape) for n, v in params.items()}
+    largest = max(float((out["cpu"][n] - start[n]).abs().max()) for n in params)
+    for n in params:
+        assert torch.equal(out["fused"][n], out["unfused"][n]), n
+        assert float((out["fused"][n] - out["cpu"][n]).abs().max()) <= 1.5e-4 * largest, n
