@@ -10,7 +10,7 @@ entry points, and holds every CUDA kernel of those paths against its plain
 PyTorch version:
 
   build    nvcc-compiles every kernel source under src/ (one nvcc per
-           source, all seven started together), and proves from cuobjdump's
+           source, all six started together), and proves from cuobjdump's
            SASS that each of B.6's product kernels, at every head dim, runs
            TF32 tensor-core instructions (HMMA/HGMMA .TF32).
   kernel   the four quant_gossip kernels against their plain versions at
@@ -19,18 +19,18 @@ PyTorch version:
            and 7, masked_quantize_blockwise (B.4) with masks all ones, all
            zeros and mixed, dequant_accumulate (B.3) and
            masked_dequant_accumulate (B.5, every mask pattern) with src None
-           and each matching of the fmnist graph (B.4 and B.5 per leaf are
-           one-leaf groups of the grouped kernels).  Payloads and
+           and each matching of the fmnist graph (B.3, B.4 and B.5 per leaf
+           are one-leaf groups of the grouped kernels).  Payloads and
            accumulations must be equal bit for bit.  Times a call of each
            (CUDA events), its kernels' device time (profiler), the plain
-           version, and the memory bound.  Then the grouped B.4 and B.5
+           version, and the memory bound.  Then the grouped B.3, B.4 and B.5
            (one launch over every leaf of a matching, B.4 as thread-block
-           clusters) against the one-leaf plain versions bit for bit: the
-           MLP's 6 leaves, the CNN's 12, the three layouts as groups and a
-           group of 20 leaves (over the cap: 2 launches), every mask, src
-           and qmax; and a grouped call timed against the one-leaf calls
-           of every leaf of the MLP and of the CNN, in turns, with the
-           cluster size and the leaf cap as built.
+           clusters, B.3 as B.5's kernel with no mask) against the one-leaf
+           plain versions bit for bit: the MLP's 6 leaves, the CNN's 12, the
+           three layouts as groups and a group of 20 leaves (over the cap: 2
+           launches), every mask, src and qmax; and a grouped call timed
+           against the one-leaf calls of every leaf of the MLP and of the
+           CNN, in turns, with the cluster size and the leaf cap as built.
   b1-kernel  the gossip update (B.1) against its plain version: the
            per-node form on the reference's test cases (d 7 .. 131072, 0-5
            neighbours, float32 and bfloat16) bit for bit, the node-stacked
@@ -51,7 +51,10 @@ PyTorch version:
            do), 300 steps on each of four stacks: uncompressed static gossip
            (params within 1e-5 of the dense run's after 20 steps, 1e-3 after
            300: the two sum in another order), the static int8 EF
-           wire (B.2 + B.3), and dropout p = 0.2 with the memoryless masked
+           wire (B.2 per leaf + grouped B.3: 300 x 5 launches; it must print
+           the per-leaf B.3 wire's loss_step300, acc_worst_dist and acc_avg
+           to the bit, PER_LEAF_TRAJECTORIES), and dropout p = 0.2 with the
+           memoryless masked
            int8 wire (grouped B.4 + B.5: 300 x 5 launches each) and the EF
            wire re-based every 4 rounds (grouped B.4 once per round, B.5
            once per matching of a delta round); every count of launches is
@@ -59,11 +62,17 @@ PyTorch version:
            wire's loss_step300, acc_worst_dist and acc_avg to the bit
            (ONE_LEAF_TRAJECTORIES).  Then the CNN
            (cifar_default, clipped at norm 2) on the static int8 EF gossip
-           wire for 20 steps, so B.3 runs on 512,000-wide rows.
+           wire for 20 steps with cuDNN held deterministic, so B.3 runs on
+           512,000-wide rows; its losses must be the per-leaf B.3 wire's to
+           the bit (PER_LEAF_CIFAR).
   b45-leaves  one memoryless dropout round on the fmnist MLP through the
            mixer (grouped B.4/B.5, 5 launches each) and leaf by leaf through
            masked_quant_gossip_round (the one-leaf calls, 6 x 5 launches
            each): equal bit for bit.
+  b3-leaves  two static int8 EF rounds on the fmnist MLP through the mixer
+           (grouped B.3, 5 launches each) and with the quantizer's grouped
+           call hidden (the one-leaf B.3, 6 x 5 launches each): θ, θ̂ and
+           the mix cache equal bit for bit.
   profile  30 fmnist steps of four stacks under torch.profiler: the
            device's busy share and the kernels that take its time.
   cifar    the CNN (K = 10, p = 0.5, gradients clipped at norm 2 as in the
@@ -94,9 +103,11 @@ PyTorch version:
   serve-kernel  flash attention (B.6) at qwen2-0.5b's prefill and training
            shapes, at hd 80 and 128 with windows 4096 and 64 and gemma2's
            softcap 50, at G = 1 and at a ragged S = 300; the WKV6 scan (B.7)
-           at rwkv6-7b's shapes and at T = 100 with random u and decays, y
-           and the final state; both against their plain versions at rtol
-           2e-5 (B.7's atol scaled by max |y|, see SERVE_TOL).  Times each
+           at rwkv6-7b's shapes (random and init decays), at T = 100, at T =
+           1 from a given state, at hd 16, with w = 1e-6 and on rows off 16
+           bytes (plain loads, not TMA; WKV6_CASES), y and the final state;
+           both against their plain versions at rtol 2e-5 (B.7's atol scaled
+           by max |y|, see SERVE_TOL).  Times each
            call (CUDA events), its device time (profiler), the plain
            version, the bound (B.6: its products on the tensor cores as
            3xTF32, and on the CUDA cores beside it), and for B.6
@@ -173,10 +184,12 @@ TPU = "src/repro/kernels/"
 KERNELS = {
     "quantize_blockwise": (SRC + "quant_gossip/csrc/quantize.cu",
                            TPU + "quant_gossip/kernel.py:98", ("absmax_kernel", "quantize_kernel")),
-    "dequant_accumulate": (SRC + "quant_gossip/csrc/accumulate.cu",
-                           TPU + "quant_gossip/kernel.py:125", ("dequant_acc_kernel",)),
-    # B.4 and B.5: one kernel each, called per leaf (a one-leaf group) or
-    # over every leaf of a matching (the grouped entry points, the path)
+    # B.3, B.4 and B.5: one kernel each (B.3 is B.5's without a mask),
+    # called per leaf (a one-leaf group) or over every leaf of a matching
+    # (the grouped entry points, the path)
+    "dequant_accumulate": (SRC + "quant_gossip/csrc/masked_grouped.cu",
+                           TPU + "quant_gossip/kernel.py:125",
+                           ("masked_dequant_acc_grouped_kernel",)),
     "masked_quantize_blockwise": (SRC + "quant_gossip/csrc/masked_grouped.cu",
                                   TPU + "quant_gossip/kernel.py:154",
                                   ("masked_quantize_grouped_kernel",)),
@@ -189,10 +202,13 @@ KERNELS = {
     "masked_dequant_accumulate_grouped_": (SRC + "quant_gossip/csrc/masked_grouped.cu",
                                            TPU + "quant_gossip/kernel.py:187",
                                            ("masked_dequant_acc_grouped_kernel",)),
+    "dequant_accumulate_grouped_": (SRC + "quant_gossip/csrc/masked_grouped.cu",
+                                    TPU + "quant_gossip/kernel.py:125",
+                                    ("masked_dequant_acc_grouped_kernel",)),
     "flash_attention_fwd": (SRC + "flash_attention/csrc/flash_fwd.cu",
                             TPU + "flash_attention/kernel.py:100", ("flash_fwd_mma_kernel",)),
     "wkv6_scan": (SRC + "rwkv6_scan/csrc/wkv6.cu", TPU + "rwkv6_scan/kernel.py:65",
-                  ("wkv6_kernel",)),
+                  ("wkv6_keysplit_kernel",)),
     "gossip_update": (SRC + "gossip_update/csrc/gossip_update.cu",
                       TPU + "gossip_update/kernel.py:54", ("gossip_update_kernel",)),
     "gossip_update_stacked": (SRC + "gossip_update/csrc/gossip_update.cu",
@@ -203,10 +219,11 @@ KERNELS = {
                             TPU + "flash_attention/kernel.py:100",
                             ("bwd_mma_kernel", "bwd_reduce_kernel")),
 }
-QUANT = tuple(KERNELS)[:6]
+QUANT = tuple(KERNELS)[:7]
 GROUPED = QUANT[4:]
 ONE_LEAF = {"masked_quantize_blockwise_grouped": "masked_quantize_blockwise",
-            "masked_dequant_accumulate_grouped_": "masked_dequant_accumulate"}
+            "masked_dequant_accumulate_grouped_": "masked_dequant_accumulate",
+            "dequant_accumulate_grouped_": "dequant_accumulate"}
 # (loss_step300, acc_worst_dist, acc_avg) that these stacks printed on an
 # H100 in four runs of the one-leaf masked wire, to the bit: the grouped
 # wire changes no bit
@@ -216,6 +233,16 @@ ONE_LEAF_TRAJECTORIES = {
     "dropout0.2-int8-kernel-ef-B4": (0.43094539642333984, 0.39499998092651367,
                                      0.7059999704360962),
 }
+# the same three of the static int8 EF stack, which the per-leaf B.3 printed
+# on an H100 in two runs of one call: grouped B.3 changes no bit
+PER_LEAF_TRAJECTORIES = {
+    "gossip-int8-kernel-ef": (0.4425765573978424, 0.5349999666213989, 0.7104999423027039),
+}
+# (loss_step0, loss_last, loss_worst_max) of the CIFAR static EF gossip run
+# (20 steps) through the per-leaf B.3 with cuDNN held deterministic, the
+# same in two runs of one call on an H100; without that cuDNN's convolution
+# backward moves loss_last between runs (1.733568549156189, 1.73506760597229)
+PER_LEAF_CIFAR = (2.761140823364258, 1.7332394123077393, 3.964625358581543)
 
 
 def log(msg: str) -> None:
@@ -572,16 +599,17 @@ GROUP_LAYOUTS = {"2 blocks": (K, [131072, 100352, 10], 65536),
 
 
 def _grouped_kernels(mlp_leaves, cnn_leaves, fmnist_srcs, gen) -> dict:
-    """B.4 and B.5 over every leaf of a group, one launch per
+    """B.3, B.4 and B.5 over every leaf of a group, one launch per
     MAX_GROUP_LEAVES leaves, against the one-leaf plain versions bit for
     bit: the fmnist MLP's 6 leaves, the CNN's 12, the three layout cases as
     groups and a group over the leaf cap (20 leaves, 2 launches); masks all
-    ones, all zeros and mixed, qmax 127 and 7, src None and each matching.
-    Then, at the MLP and the CNN, one grouped call against the one-leaf
-    calls of every leaf, in turns (one-leaf, grouped, grouped, one-leaf):
-    call time (CUDA events), device time (every device entry of a call under
-    the profiler: the one-leaf B.4's scratch-free launch, B.5's copy of acc),
-    the plain version's call and the bound (the sum of the leaves')."""
+    ones, all zeros and mixed (B.4, B.5), qmax 127 and 7, src None and each
+    matching.  Then, at the MLP and the CNN, one grouped call against the
+    one-leaf calls of every leaf, in turns (one-leaf, grouped, grouped,
+    one-leaf): call time (CUDA events), device time (every device entry of a
+    call under the profiler: the one-leaf B.4's scratch-free launch, B.3's
+    and B.5's copy of acc), the plain version's call and the bound (the sum
+    of the leaves')."""
     import torch
 
     from repro_torch.kernels.quant_gossip import kernel as qk
@@ -649,6 +677,16 @@ def _grouped_kernels(mlp_leaves, cnn_leaves, fmnist_srcs, gen) -> dict:
                     raise AssertionError("[kernel] the grouped accumulate is not in place")
                 expect_equal("masked_dequant_accumulate_grouped_",
                              f"{what} mask {mname} src {i}", got, want, n_launch, before)
+        for i, src in enumerate(srcs):  # B.3: no mask
+            accs = [a.clone() for a in accs0]
+            before = qk.dequant_accumulate_grouped_.launches
+            got = qk.dequant_accumulate_grouped_(accs, payloads, w, src=src)
+            want = [qref.dequant_accumulate_ref(a, q, s, w, src=src)
+                    for a, (q, s) in zip(accs0, payloads)]
+            if got is not accs:
+                raise AssertionError("[kernel] the grouped B.3 is not in place")
+            expect_equal("dequant_accumulate_grouped_", f"{what} src {i}", got, want, n_launch,
+                         before)
         torch.cuda.synchronize()
         inputs[group] = (k, dims, block_d, xs, us, payloads, w, srcs[1])
     for name in GROUPED:
@@ -674,6 +712,11 @@ def _grouped_kernels(mlp_leaves, cnn_leaves, fmnist_srcs, gen) -> dict:
                          for a, (q, s) in zip(accs, payloads)],
                 lambda: qref.masked_dequant_accumulate_grouped_ref_(accs, payloads, w, ones,
                                                                     src=src)),
+            "dequant_accumulate_grouped_": (
+                lambda: qk.dequant_accumulate_grouped_(accs, payloads, w, src=src),
+                lambda: [qk.dequant_accumulate(a, q, s, w, src=src)
+                         for a, (q, s) in zip(accs, payloads)],
+                lambda: qref.dequant_accumulate_grouped_ref_(accs, payloads, w, src=src)),
         }
         for name, (grouped, one_leaf, plain) in calls.items():
             bounds = [kernel_bound(ONE_LEAF[name], k, d, qk.num_blocks(d, block_d))
@@ -857,12 +900,12 @@ GOSSIP_STACKS = ("gossip-none", "gossip-int8-kernel-ef", "dropout0.2-int8-kernel
 
 
 def _gossip_launches(stack: str, steps: int, leaves: int, matchings: int) -> dict:
-    """The static EF wire: B.2 per leaf, B.3 per leaf and matching; the
+    """The static EF wire: B.2 per leaf, one grouped B.3 per matching; the
     masked wires: one grouped B.4 per matching (memoryless) or per round
     (EF), one grouped B.5 per matching of a round that sends payloads."""
     if stack == "gossip-int8-kernel-ef":
         return {"quantize_blockwise": steps * leaves,
-                "dequant_accumulate": steps * leaves * matchings}
+                "dequant_accumulate_grouped_": steps * matchings}
     if stack == "dropout0.2-int8-kernel-memoryless":
         return {"masked_quantize_blockwise_grouped": steps * matchings,
                 "masked_dequant_accumulate_grouped_": steps * matchings}
@@ -889,14 +932,16 @@ def phase_gossip(spec_cls, cfg_cls, dense_params) -> dict:
                                          exp, fed, batches, params, mixer=mixer)
         check_counts(f"gossip {stack}", counts,
                      _gossip_launches(stack, exp.steps, len(params), decomp.num_rounds))
-        if stack in ONE_LEAF_TRAJECTORIES:
+        pinned = {**ONE_LEAF_TRAJECTORIES, **PER_LEAF_TRAJECTORIES}
+        if stack in pinned:
             got = (rec["loss_step300"], rec["acc_worst_dist"], rec["acc_avg"])
-            want = ONE_LEAF_TRAJECTORIES[stack]
-            if got != want:
+            wire = "one-leaf" if stack in ONE_LEAF_TRAJECTORIES else "per-leaf B.3"
+            if got != pinned[stack]:
                 raise AssertionError(f"[gossip] {stack}: (loss_step300, acc_worst_dist, "
-                                     f"acc_avg) = {got}, the one-leaf wire printed {want}")
+                                     f"acc_avg) = {got}, the {wire} wire printed "
+                                     f"{pinned[stack]}")
             log(f"[gossip] {stack}: loss_step300, acc_worst_dist and acc_avg are the "
-                f"one-leaf wire's to the bit")
+                f"{wire} wire's to the bit")
         if stack == "gossip-none":
             rec.update(_gossip_vs_dense(spec_cls, exp, batches, params, state, dense_params,
                                         mixer))
@@ -960,6 +1005,65 @@ def phase_b45_leaves(cfg_cls) -> dict:
     return rec
 
 
+class _PerLeafB3:
+    """The kernel quantizer without its grouped accumulate: a static round
+    then accumulates leaf by leaf through the one-leaf B.3, as it did before
+    B.3 was grouped."""
+
+    def __init__(self, quantizer):
+        self._q = quantizer
+
+    def __getattr__(self, name):
+        if name == "accumulate_grouped_":
+            raise AttributeError(name)
+        return getattr(self._q, name)
+
+
+def phase_b3_leaves(cfg_cls) -> dict:
+    """Two rounds of the static int8 EF wire on the fmnist MLP (K = 10, the
+    seeded weights plus seeded noise per node) through the mixer (one
+    grouped B.3 launch per matching), and the same rounds from the same
+    states leaf by leaf (the one-leaf B.3, one launch per leaf and
+    matching): θ, θ̂ and the mix cache equal bit for bit."""
+    import torch
+
+    from repro_torch.core.drdsgd import replicate_params
+    from repro_torch.graphs import build_graph, metropolis_weights
+
+    exp, _, _, params = _fmnist()
+    w = metropolis_weights(build_graph("erdos_renyi", K, p=exp.p, seed=exp.seed))
+    decomp = _matchings(exp.p, exp.seed)
+    grouped = _gossip_mixer("gossip-int8-kernel-ef", decomp, w, exp.seed, cfg_cls)
+    per_leaf = _gossip_mixer("gossip-int8-kernel-ef", decomp, w, exp.seed, cfg_cls)
+    per_leaf.compressor = _PerLeafB3(per_leaf.compressor)
+    gen = torch.Generator(device="cuda").manual_seed(exp.seed)
+    theta = {n: x + 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
+             for n, x in replicate_params(params, K).items()}
+    m, leaves = decomp.num_rounds, len(theta)
+    runs, counts = {}, {}
+    for tag, mixer in (("grouped", grouped), ("per-leaf", per_leaf)):
+        t, state = theta, mixer.init_state(theta)
+        reset_counts()
+        for _ in range(2):
+            t, state = mixer(t, state)
+        torch.cuda.synchronize()
+        counts[tag] = kernel_counts()
+        runs[tag] = (t, state)
+    check_counts("b3-leaves grouped", counts["grouped"],
+                 {"quantize_blockwise": 2 * leaves, "dequant_accumulate_grouped_": 2 * m})
+    check_counts("b3-leaves per-leaf", counts["per-leaf"],
+                 {"quantize_blockwise": 2 * leaves, "dequant_accumulate": 2 * leaves * m})
+    (ta, sa), (tb, sb) = runs["grouped"], runs["per-leaf"]
+    equal = {n: bool(torch.equal(ta[n], tb[n]) and torch.equal(sa.hat[n], sb.hat[n])
+                     and torch.equal(sa.hat_mix[n], sb.hat_mix[n])) for n in theta}
+    rec = dict(rounds=2, matchings=m, leaves=leaves, equal=equal,
+               launches={n: c[0] for n, c in counts["per-leaf"].items() if c[0]})
+    log("[b3-leaves] " + json.dumps(rec))
+    if not all(equal.values()):
+        raise AssertionError("[b3-leaves] the grouped round is not the leaf-by-leaf round")
+    return rec
+
+
 def _gossip_vs_dense(spec_cls, exp, batches, params, gossip_state, dense_params,
                      mixer) -> dict:
     """Uncompressed static gossip against the dense W product: the two sum
@@ -988,7 +1092,11 @@ def _gossip_vs_dense(spec_cls, exp, batches, params, gossip_state, dense_params,
 
 
 def _gossip_cifar(spec_cls, cfg_cls) -> dict:
-    """The CNN on the static int8 EF gossip wire: B.3 on 512,000-wide rows."""
+    """The CNN on the static int8 EF gossip wire: B.3 on 512,000-wide rows,
+    with cuDNN held deterministic so that the run prints the per-leaf B.3's
+    losses to the bit (PER_LEAF_CIFAR)."""
+    import torch
+
     from repro_torch.configs import cifar_default
     from repro_torch.data import make_cifar_like, pathological_noniid_partition
     from repro_torch.graphs import build_graph, metropolis_weights
@@ -1004,9 +1112,14 @@ def _gossip_cifar(spec_cls, cfg_cls) -> dict:
     spec = spec_cls(num_nodes=K, graph="erdos_renyi", graph_kwargs={"p": exp.p, "seed": exp.seed},
                     mu=exp.mu, lr=exp.lr, grad_clip=CIFAR_GRAD_CLIP, compress=mixer.compression,
                     device="cuda")
-    _, _, ms, ms_step, counts = _train(spec, make_classifier_loss(cnn_apply), cnn_apply, params,
-                                       batches, CIFAR_GOSSIP_STEPS,
-                                       tuple(b[:2] for b in batches), mixer=mixer)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, _, ms, ms_step, counts = _train(spec, make_classifier_loss(cnn_apply), cnn_apply,
+                                           params, batches, CIFAR_GOSSIP_STEPS,
+                                           tuple(b[:2] for b in batches), mixer=mixer)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     check_counts("gossip cifar", counts, _gossip_launches(
         "gossip-int8-kernel-ef", CIFAR_GOSSIP_STEPS, len(params), decomp.num_rounds))
     rec = dict(stack="gossip-int8-kernel-ef", model="cnn", steps=CIFAR_GOSSIP_STEPS,
@@ -1016,6 +1129,12 @@ def _gossip_cifar(spec_cls, cfg_cls) -> dict:
                comm_bytes_per_round=float(ms["comm_bytes"][-1]), ms_per_step=ms_step,
                launches={n: c[0] for n, c in counts.items() if c[0]})
     log("[gossip] " + json.dumps(rec))
+    got = (rec["loss_step0"], rec["loss_last"], rec["loss_worst_max"])
+    if got != PER_LEAF_CIFAR:
+        raise AssertionError(f"[gossip] cifar: (loss_step0, loss_last, loss_worst_max) = {got}, "
+                             f"the per-leaf B.3 wire printed {PER_LEAF_CIFAR}")
+    log("[gossip] cifar: loss_step0, loss_last and loss_worst_max are the per-leaf B.3 "
+        "wire's to the bit")
     return rec
 
 
@@ -1230,14 +1349,33 @@ def flash_bound(b, h, kvh, s, t, hd, causal, window) -> tuple[float, str, float]
     return _attention_bound(n_bytes, 4 * b * h * hd * _pairs(s, t, causal, window))
 
 
-def wkv6_bound(b, h, t, hd) -> tuple[float, str]:
+def wkv6_bound(b, h, t, hd, given_state: bool = False) -> tuple[float, str]:
     """Least time of one B.7 call: r, k, v, w read, y and the final state
-    written once, u read once, against 4 hd^2 float operations per (b, h, t)
-    at the float32 FMA peak."""
-    n_bytes = 4 * (5 * b * h * t * hd + b * h * hd * hd + h * hd)
-    ops = 4 * b * h * t * hd * hd
+    written once, u (and a given state) read once, against the least
+    arithmetic at the float32 peak: 5 float operations per (i, j, t), a
+    multiply (k_i v_j) and two FMAs (y's sum and the decayed state), the
+    bonus being one scalar per (b, h, t)."""
+    n_bytes = 4 * (5 * b * h * t * hd + (1 + given_state) * b * h * hd * hd + h * hd)
+    ops = 5 * b * h * t * hd * hd
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# B.7's serve-kernel cases: tag, B, H, T, hd, decay, a given state, layout
+# ("model": the model's strided views, staged by TMA; "odd": rows off 16
+# bytes, staged by plain loads)
+WKV6_CASES = (
+    ("rwkv6-7b prefill", 4, 64, 256, 64, "random", False, "model"),
+    ("rwkv6-7b prefill, init decay", 4, 64, 256, 64, "init", False, "model"),
+    ("ragged T = 100", 4, 64, 100, 64, "random", False, "model"),
+    ("T = 1, given state", 4, 64, 1, 64, "random", True, "model"),
+    ("hd 16", 4, 256, 256, 16, "random", False, "model"),
+    ("w = 1e-6", 4, 64, 256, 64, "1e-6", False, "model"),
+    ("rows off 16 bytes, given state", 2, 8, 70, 64, "random", True, "odd"),
+)
+# the device time of the kernel this design replaced (one thread per column
+# of the state) on an H100 80GB HBM3 at 700.00 W, printed beside the cases
+WKV6_PREVIOUS_US = {"rwkv6-7b prefill": "one thread per column: 155.13 us"}
 
 
 def need_tma(tag: str, **views) -> bool:
@@ -1353,17 +1491,28 @@ def phase_serve_kernels() -> dict:
         out["flash_attention_fwd"]["rows"].append(row)
         log("[serve-kernel] " + json.dumps(row))
 
-    for tag, b, h, t, hd, decay in (("rwkv6-7b prefill", 4, 64, 256, 64, "random"),
-                                    ("rwkv6-7b prefill, init decay", 4, 64, 256, 64, "init"),
-                                    ("ragged T = 100", 4, 64, 100, 64, "random")):
-        r, k, v = (randn(b, t, h, hd).permute(0, 2, 1, 3) for _ in range(3))
+    for tag, b, h, t, hd, decay, given, layout in WKV6_CASES:
+        if layout == "model":  # the model's (B, T, H, hd) projections
+            def view():
+                return randn(b, t, h, hd).permute(0, 2, 1, 3)
+        else:  # rows of H hd + 1 floats: only the first row is on 16 bytes
+            def view():
+                return randn(b, t, h * hd + 1)[:, :, :h * hd].unflatten(
+                    2, (h, hd)).permute(0, 2, 1, 3)
+        r, k, v, w = view(), view(), view(), view()
         if decay == "random":
-            w = torch.rand((b, t, h, hd), generator=gen, device="cuda").permute(0, 2, 1, 3)
-        else:  # exp(-exp(decay_base = -6)): the state hardly decays
-            w = torch.full((b, t, h, hd), math.exp(-math.exp(-6.0)), device="cuda"
-                           ).permute(0, 2, 1, 3)
+            w.copy_(torch.rand(w.shape, generator=gen, device="cuda"))
+        elif decay == "init":  # exp(-exp(decay_base = -6)): the state hardly decays
+            w.fill_(math.exp(-math.exp(-6.0)))
+        else:  # the state is forgotten at every step
+            w.fill_(1e-6)
         u = 0.5 * randn(h, hd)
-        (y, st), (y_p, st_p) = wk.wkv6_scan(r, k, v, w, u), wkv6_ref(r, k, v, w, u)
+        s0 = randn(b, h, hd, hd) if given else None
+        tma = all(wk.rows_by_tma(x) for x in (r, k, v, w))
+        if tma != (layout == "model"):
+            raise AssertionError(f"[serve-kernel] B.7 {tag}: staged by "
+                                 f"{'TMA' if tma else 'plain loads'}")
+        (y, st), (y_p, st_p) = wk.wkv6_scan(r, k, v, w, u, s0), wkv6_ref(r, k, v, w, u, s0)
         torch.cuda.synchronize()
         errs = {}
         for what, got, want in (("y", y, y_p), ("state", st, st_p)):
@@ -1375,14 +1524,19 @@ def phase_serve_kernels() -> dict:
                                      f"(max abs err {errs[what]}, max |{what}| {scale})")
         out["wkv6_scan"]["max_abs_err"] = max(out["wkv6_scan"]["max_abs_err"], errs["y"],
                                               errs["state"])
-        ms = cuda_ms(lambda: wk.wkv6_scan(r, k, v, w, u), iters=50)
-        plain_ms = cuda_ms(lambda: wkv6_ref(r, k, v, w, u), iters=5, warmup=1)
-        dev_ms = device_ms(lambda: wk.wkv6_scan(r, k, v, w, u), 20, KERNELS["wkv6_scan"][2])
-        bound, by = wkv6_bound(b, h, t, hd)
-        row = dict(case=tag, b=b, h=h, t=t, hd=hd, **errs, ms=ms, device_ms=dev_ms,
-                   plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
+        ms = cuda_ms(lambda: wk.wkv6_scan(r, k, v, w, u, s0), iters=50)
+        plain_ms = cuda_ms(lambda: wkv6_ref(r, k, v, w, u, s0), iters=5, warmup=1)
+        dev_ms = device_ms(lambda: wk.wkv6_scan(r, k, v, w, u, s0), 20,
+                           KERNELS["wkv6_scan"][2])
+        bound, by = wkv6_bound(b, h, t, hd, given)
+        row = dict(case=tag, b=b, h=h, t=t, hd=hd, decay=decay, given_state=given,
+                   tma=tma, **errs, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                   bound_ms=bound, bound_by=by, library_ms=None)
         out["wkv6_scan"]["rows"].append(row)
         log("[serve-kernel] " + json.dumps(row))
+        log(f"[serve-kernel] B.7 {tag}: device {1e3 * dev_ms:.2f} us "
+            f"[{WKV6_PREVIOUS_US.get(tag, 'not measured')}], call {1e3 * ms:.2f} us, plain "
+            f"{1e3 * plain_ms:.2f} us, bound {1e3 * bound:.3f} us ({by})")
     return out
 
 
@@ -2173,6 +2327,7 @@ def main() -> int:
     b1_nodes = phase_gossip_update_nodes(TrainerSpec)
     gossip = phase_gossip(TrainerSpec, CompressionConfig, dense_params)
     b45 = phase_b45_leaves(CompressionConfig)
+    b3 = phase_b3_leaves(CompressionConfig)
     phase_profile(TrainerSpec, CompressionConfig)
     phase_cifar(TrainerSpec, CompressionConfig)
     phase_parity(TrainerSpec, CompressionConfig)
@@ -2190,15 +2345,17 @@ def main() -> int:
     phase_serve_parity("rwkv6_7b", 32)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     # launches on each kernel's main path: B.2 the dense int8 fmnist run,
-    # B.3 the static EF gossip run, grouped B.4/B.5 the memoryless dropout
-    # run, their one-leaf calls the leaf-by-leaf round (b45-leaves)
+    # grouped B.3 the static EF gossip run, grouped B.4/B.5 the memoryless
+    # dropout run, their one-leaf calls the leaf-by-leaf rounds (b3-leaves,
+    # b45-leaves)
     memoryless = gossip["dropout0.2-int8-kernel-memoryless"]["launches"]
     path = {"quantize_blockwise": fm["int8-kernel"]["launches"],
-            "dequant_accumulate": gossip["gossip-int8-kernel-ef"]["launches"],
+            "dequant_accumulate": b3["launches"],
             "masked_quantize_blockwise": b45["launches"],
             "masked_dequant_accumulate": b45["launches"],
             "masked_quantize_blockwise_grouped": memoryless,
-            "masked_dequant_accumulate_grouped_": memoryless}
+            "masked_dequant_accumulate_grouped_": memoryless,
+            "dequant_accumulate_grouped_": gossip["gossip-int8-kernel-ef"]["launches"]}
     # B.1 per node: its own path (b1-nodes); stacked and B.6's backward:
     # the qwen2-0.5b training run
     path["gossip_update"] = {"gossip_update": b1_nodes["launches"]}

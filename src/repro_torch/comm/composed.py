@@ -333,7 +333,8 @@ class ComposedMixer(Mixer):
         else:
             accs = [self_w[:, None] * public for _, public, _ in encoded]
         payloads = [payload for payload, _, _ in encoded]
-        # accumulate pass: per matching, every leaf (one B.5 launch where masked)
+        # accumulate pass: per matching, every leaf (one B.3 launch on the
+        # static wire, one B.5 where masked)
         for m, (pw, src) in enumerate(zip(match_ws, t.srcs)):
             accs = self._accumulate_leaves(accs, payloads, pw, src,
                                            mask=masks[m] if masks is not None else None)
@@ -369,20 +370,27 @@ class ComposedMixer(Mixer):
         return xfs, hats, res_sq
 
     def _accumulate_leaves(self, accs, payloads, weight, src, mask=None):
-        """:meth:`_accumulate` of every leaf; a masked round on the kernel
-        quantizer accumulates every leaf in place in one call (B.5)."""
-        grouped = getattr(self.compressor, "accumulate_masked_grouped_", None)
-        if mask is not None and grouped is not None:
-            return grouped(accs, payloads, weight, mask, src)
+        """:meth:`_accumulate` of every leaf; the kernel quantizer
+        accumulates every leaf in place in one call (B.3 without a mask, B.5
+        with one).  In place is safe: :meth:`_gossip_round` builds each acc
+        afresh every round, and nothing else holds it until the round ends."""
+        if mask is None:
+            grouped = getattr(self.compressor, "accumulate_grouped_", None)
+            if grouped is not None:
+                return grouped(accs, payloads, weight, src)
+        else:
+            grouped = getattr(self.compressor, "accumulate_masked_grouped_", None)
+            if grouped is not None:
+                return grouped(accs, payloads, weight, mask, src)
         return [self._accumulate(acc, p, weight, src, mask) for acc, p in zip(accs, payloads)]
 
     def _accumulate(self, acc, payload, weight, src, mask=None):
         """acc + weight·dequant(payload[src]), with an optional link mask.
 
         ``mask`` (K,) in {0, 1}: masked links contribute exactly acc.  The
-        kernel quantizer fuses the gather and the combine (B.3 on the card;
-        masked, every leaf at once: :meth:`_accumulate_leaves`); other codecs
-        gather the payload rows and decompress.
+        kernel quantizer fuses the gather and the combine (one leaf: B.3 on
+        the card; every leaf at once: :meth:`_accumulate_leaves`); other
+        codecs gather the payload rows and decompress.
         """
         if mask is None:
             fused = getattr(self.compressor, "accumulate", None)

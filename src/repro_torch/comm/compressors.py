@@ -18,8 +18,8 @@ two frameworks comparable on identical noise.
 * ``KernelInt8Quantizer`` — the same code with a scale per (node, block),
   served by the hand-written CUDA quant_gossip kernels on the card
   (``repro_torch.kernels.quant_gossip``): quantize, the fused
-  dequantize-accumulate of the gossip transport, and their sender-masked
-  forms over every leaf at once.
+  dequantize-accumulate of the gossip transport over every leaf at once,
+  and their sender-masked forms.
 
 bf16, int4 (nibble packing), topk and randk raise ``NotImplementedError``
 in :func:`make_compressor` until their slice ports them.
@@ -154,6 +154,13 @@ class KernelInt8Quantizer(IntQuantizer):
 
         q, scale = payload
         return dequant_accumulate(acc, q, scale, weight, src=src)
+
+    def accumulate_grouped_(self, accs, payloads, weight, src=None):
+        """acc + weight·dequantize(payload[src]) for every leaf at once, into
+        each acc in place (one B.3 launch on the card).  Returns ``accs``."""
+        from repro_torch.kernels.quant_gossip.ops import dequant_accumulate_grouped_
+
+        return dequant_accumulate_grouped_(accs, payloads, weight, src=src)
 
     def compress_masked_grouped(self, xs, us, mask):
         """Sender-masked quantize of every leaf at once (one B.4 launch on

@@ -1,11 +1,12 @@
-// The masked int8 gossip wire's two kernels, grouped over every leaf of a
-// parameter tree, for Hopper (sm_90a): one launch quantizes every leaf of
-// one matching (B.4), one launch accumulates every leaf of one matching
-// (B.5).
+// The int8 gossip wire's grouped kernels, over every leaf of a parameter
+// tree, for Hopper (sm_90a): one launch quantizes every leaf of one
+// matching (B.4), one launch accumulates every leaf of one matching (B.5,
+// and B.3, which is B.5 without a mask).
 //
-// Replaces two Pallas TPU kernels of src/repro/kernels/quant_gossip/kernel.py:
-//   `_masked_quantize_kernel` / `masked_quantize_blockwise` (B.4), and
-//   `_masked_dequant_acc_kernel` / `masked_dequant_accumulate` (B.5).
+// Replaces three Pallas TPU kernels of src/repro/kernels/quant_gossip/kernel.py:
+//   `_masked_quantize_kernel` / `masked_quantize_blockwise` (B.4),
+//   `_masked_dequant_acc_kernel` / `masked_dequant_accumulate` (B.5), and
+//   `_dequant_acc_kernel` / `dequant_accumulate` (B.3).
 //
 // B.4, for every leaf l, row i and block b of a (K, D_l) float32 x_l with
 // uniforms u_l and one sender mask m (K,) in {0, 1}:
@@ -21,6 +22,8 @@
 //     acc_l[i, j] += (a * scales_l[r, j / block_l]) * q_l[r, j]
 //
 // a row with a == 0 is skipped outright: its acc already holds the answer.
+// B.3 is the same launch with a null mask, a = w[i]: with m = 1, m * w is
+// w exactly, so B.3 and B.5 share one kernel bit for bit.
 //
 // Bits: both divisions are correctly rounded (__fdiv_rn), the adds and
 // products rounded once each (__fadd_rn, __fmul_rn: no contraction into an
@@ -29,8 +32,8 @@
 // without --use_fast_math and without -prec-div=false.
 //
 // Bound: memory.  B.4 reads x and u (8 bytes per element) and writes q (1
-// byte) plus a 4-byte scale per block; B.5 reads acc and q and writes acc (9
-// bytes).  Both do a handful of float operations per element, far below
+// byte) plus a 4-byte scale per block; B.5 and B.3 read acc and q and
+// write acc (9 bytes).  All do a handful of float operations per element, far below
 // the card's float32 ridge.  At the fmnist MLP's widths (K = 10, 6 leaves,
 // 1.07 M elements) that is 2.94 us at 3.35 TB/s, which is below the cost of
 // launching one kernel per leaf: the per-leaf design (a scratch fill, an
@@ -64,7 +67,7 @@
 //   shared memory alive until the cluster has read it.  What bounds it at
 //   the MLP's widths is in PERF.md (tests/b4_variants.py times variants of
 //   this source on the card).
-// * B.5: a flat grid over (leaf, row, chunk of kChunk elements), in place,
+// * B.5 and B.3: a flat grid over (leaf, row, chunk of kChunk elements), in place,
 //   16-byte loads and stores where the block length is a multiple of 4 and
 //   the rows are aligned (the four elements then share a scale; a thread
 //   issues all of its loads before its first store), scalar otherwise.
@@ -361,7 +364,8 @@ masked_dequant_acc_grouped_kernel(const __grid_constant__ AccTable t) {
   const AccLeaf& L = t.leaf[l];
   const long long local = cta - L.chunk_begin;
   const long long row = local / L.chunks;
-  const float a = __fmul_rn(__ldg(t.mask + row), __ldg(t.w + row));
+  const float a = t.mask == nullptr ? __ldg(t.w + row)  // B.3
+                                    : __fmul_rn(__ldg(t.mask + row), __ldg(t.w + row));
   if (a == 0.0f) return;  // nothing arrives on this row: acc is the answer
   long long r = row;
   if (t.src != nullptr) {
@@ -408,6 +412,44 @@ masked_dequant_acc_grouped_kernel(const __grid_constant__ AccTable t) {
 
 bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// B.5 (a mask) or B.3 (mask null) over n leaves, in place; see the entry
+// points below.
+int launch_accumulate(const long long* desc, int n, const float* w, const float* mask,
+                      const long long* src, long long rows, long long rows_q, void* stream) {
+  if (n <= 0 || n > kMaxLeaves || rows <= 0 || rows_q <= 0 ||
+      (src == nullptr && rows_q != rows)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  AccTable t = {};
+  t.w = w;
+  t.mask = mask;
+  t.src = src;
+  t.rows_q = rows_q;
+  t.n = n;
+  long long ctas = 0;
+  for (int l = 0; l < n; ++l) {
+    const long long* e = desc + kAccDesc * l;
+    AccLeaf& L = t.leaf[l];
+    L.acc = reinterpret_cast<float*>(e[0]);
+    L.q = reinterpret_cast<const int8_t*>(e[1]);
+    L.scales = reinterpret_cast<const float*>(e[2]);
+    L.d = e[3];
+    L.bpr = e[4];
+    L.chunk_begin = e[5];
+    if (L.d <= 0 || L.bpr <= 0 || L.d % L.bpr != 0 || L.chunk_begin != ctas) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    L.block = L.d / L.bpr;
+    L.chunks = (L.d + kChunk - 1) / kChunk;
+    L.vec = L.block % 4 == 0 && aligned(L.acc, 16) && aligned(L.q, 4);
+    ctas += rows * L.chunks;
+  }
+  if (ctas > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  masked_dequant_acc_grouped_kernel<<<static_cast<unsigned>(ctas), kThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(t);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -502,36 +544,14 @@ extern "C" int masked_dequant_accumulate_grouped_f32(const long long* desc, int 
                                                      const float* w, const float* mask,
                                                      const long long* src, long long rows,
                                                      long long rows_q, void* stream) {
-  if (n <= 0 || n > kMaxLeaves || rows <= 0 || rows_q <= 0 ||
-      (src == nullptr && rows_q != rows)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  AccTable t = {};
-  t.w = w;
-  t.mask = mask;
-  t.src = src;
-  t.rows_q = rows_q;
-  t.n = n;
-  long long ctas = 0;
-  for (int l = 0; l < n; ++l) {
-    const long long* e = desc + kAccDesc * l;
-    AccLeaf& L = t.leaf[l];
-    L.acc = reinterpret_cast<float*>(e[0]);
-    L.q = reinterpret_cast<const int8_t*>(e[1]);
-    L.scales = reinterpret_cast<const float*>(e[2]);
-    L.d = e[3];
-    L.bpr = e[4];
-    L.chunk_begin = e[5];
-    if (L.d <= 0 || L.bpr <= 0 || L.d % L.bpr != 0 || L.chunk_begin != ctas) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    L.block = L.d / L.bpr;
-    L.chunks = (L.d + kChunk - 1) / kChunk;
-    L.vec = L.block % 4 == 0 && aligned(L.acc, 16) && aligned(L.q, 4);
-    ctas += rows * L.chunks;
-  }
-  if (ctas > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  masked_dequant_acc_grouped_kernel<<<static_cast<unsigned>(ctas), kThreads, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(t);
-  return static_cast<int>(cudaGetLastError());
+  if (mask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_accumulate(desc, n, w, mask, src, rows, rows_q, stream);
+}
+
+// B.3 over n <= kMaxLeaves leaves, in place: B.5 with every mask entry 1.
+// The arguments are B.5's without the mask.
+extern "C" int dequant_accumulate_grouped_f32(const long long* desc, int n, const float* w,
+                                              const long long* src, long long rows,
+                                              long long rows_q, void* stream) {
+  return launch_accumulate(desc, n, w, nullptr, src, rows, rows_q, stream);
 }

@@ -8,7 +8,8 @@ wrapper                                    TPU kernel     source
 ``quantize_blockwise``                     B.2 (``:98``)  ``csrc/quantize.cu``
 ``masked_quantize_blockwise_grouped``      B.4 (``:154``) ``csrc/masked_grouped.cu``
 ``masked_quantize_blockwise`` (one leaf)   B.4 (``:154``) ``csrc/masked_grouped.cu``
-``dequant_accumulate``                     B.3 (``:125``) ``csrc/accumulate.cu``
+``dequant_accumulate_grouped_``            B.3 (``:125``) ``csrc/masked_grouped.cu``
+``dequant_accumulate`` (one leaf)          B.3 (``:125``) ``csrc/masked_grouped.cu``
 ``masked_dequant_accumulate_grouped_``     B.5 (``:187``) ``csrc/masked_grouped.cu``
 ``masked_dequant_accumulate`` (one leaf)   B.5 (``:187``) ``csrc/masked_grouped.cu``
 =========================================  =============  ========================
@@ -20,6 +21,8 @@ other kernel family's.
 The grouped wrappers take every leaf of one matching in one launch (up to
 :data:`MAX_GROUP_LEAVES` leaves; a larger group is split into several
 launches by :func:`leaf_tables`); the one-leaf wrappers are one-leaf groups.
+B.3 is B.5's kernel with no mask (``a = w``), so the two share one launch
+path bit for bit.
 
 Every wrapper validates what it is given, raises on anything its kernel
 does not take (it never runs the plain version itself) and adds one to its
@@ -38,7 +41,7 @@ import torch
 from repro_torch.kernels import _build
 
 _CSRC = "quant_gossip/csrc/"
-SOURCES = (_CSRC + "quantize.cu", _CSRC + "accumulate.cu", _CSRC + "masked_grouped.cu")
+SOURCES = (_CSRC + "quantize.cu", _CSRC + "masked_grouped.cu")
 NVCC_FLAGS = _build.NVCC_FLAGS
 build = _build.build
 
@@ -54,12 +57,12 @@ _LL = ctypes.c_longlong
 _SYMBOLS = {
     "quantize_blockwise_f32":
         (SOURCES[0], (_P, _P, ctypes.c_float, _P, _P, _P, _LL, _LL, _LL, _P)),
-    "dequant_accumulate_f32":
-        (SOURCES[1], (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P)),
     "masked_quantize_grouped_f32":
-        (SOURCES[2], (_P, ctypes.c_int, _P, ctypes.c_float, _LL, _P)),
+        (SOURCES[1], (_P, ctypes.c_int, _P, ctypes.c_float, _LL, _P)),
     "masked_dequant_accumulate_grouped_f32":
-        (SOURCES[2], (_P, ctypes.c_int, _P, _P, _P, _LL, _LL, _P)),
+        (SOURCES[1], (_P, ctypes.c_int, _P, _P, _P, _LL, _LL, _P)),
+    "dequant_accumulate_grouped_f32":
+        (SOURCES[1], (_P, ctypes.c_int, _P, _P, _LL, _LL, _P)),
 }
 
 
@@ -83,7 +86,7 @@ def _entry(symbol: str):
 
 def config() -> dict:
     """The grouped kernels' fixed sizes as compiled (builds the source)."""
-    fn = _build.entry(SOURCES[2], "masked_grouped_config", (_P,))
+    fn = _build.entry(SOURCES[1], "masked_grouped_config", (_P,))
     fn.restype = None
     out = (_LL * 5)()
     fn(ctypes.addressof(out))
@@ -273,28 +276,6 @@ def _check_accumulate(name, acc, q, scales, w, mask, src):
     return w, mask
 
 
-def dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
-                       w: torch.Tensor, *, src: torch.Tensor | None = None) -> torch.Tensor:
-    """acc (K, D) f32 + (w[i]·scales[src[i], blk])·q[src[i]] -> (K, D) f32.
-
-    ``w`` holds K float32 weights, ``src`` (K,) int64 is the row each node
-    receives from (None: its own row).  A row with w = 0 returns acc
-    bitwise.  Launches the B.3 kernel and adds one to
-    ``dequant_accumulate.launches``.
-    """
-    w, _ = _check_accumulate("dequant_accumulate", acc, q, scales, w, None, src)
-    out = torch.empty_like(acc)
-    if acc.numel() == 0:
-        return out
-    k, d = acc.shape
-    symbol = "dequant_accumulate_f32"
-    _build.launch(_entry(symbol), symbol, acc.device, acc.data_ptr(), q.data_ptr(),
-                  scales.data_ptr(), w.data_ptr(), None if src is None else src.data_ptr(),
-                  out.data_ptr(), k, q.shape[0], d, scales.shape[1])
-    dequant_accumulate.launches += 1
-    return out
-
-
 def _accumulate_grouped(name, accs, payloads, w, mask, src) -> int:
     if not accs or len(accs) != len(payloads):
         raise ValueError(f"{name} takes one or more leaves and one payload per leaf, got "
@@ -307,16 +288,49 @@ def _accumulate_grouped(name, accs, payloads, w, mask, src) -> int:
         raise ValueError(f"every leaf's payload must have {kq} rows")
     dims = [a.shape[1] for a in accs]
     launched = 0
-    symbol = "masked_dequant_accumulate_grouped_f32"
+    # B.5 takes the mask; B.3 is the same kernel without one (a = w)
+    symbol = "dequant_accumulate_grouped_f32" if mask is None else \
+        "masked_dequant_accumulate_grouped_f32"
+    masks = () if mask is None else (mask.data_ptr(),)
     for table in leaf_tables([k * -(-d // ACC_CHUNK) for d in dims]):
         desc = (_LL * (6 * len(table)))(*[v for leaf, begin in table for v in (
             accs[leaf].data_ptr(), payloads[leaf][0].data_ptr(), payloads[leaf][1].data_ptr(),
             dims[leaf], payloads[leaf][1].shape[1], begin)])
         _build.launch(_entry(symbol), symbol, accs[0].device, ctypes.addressof(desc),
-                      len(table), w.data_ptr(), mask.data_ptr(),
+                      len(table), w.data_ptr(), *masks,
                       None if src is None else src.data_ptr(), k, kq)
         launched += 1
     return launched
+
+
+def dequant_accumulate_grouped_(accs, payloads, w: torch.Tensor, *,
+                                src: torch.Tensor | None = None):
+    """B.3 over every leaf of a group, in place: for each leaf,
+    ``acc_l += (w·scales_l[src])·q_l[src]`` with ``accs`` (K, D_l) float32
+    and ``payloads`` [(q_l int8 (Kq, D_l), scales_l f32 (Kq, n_blk_l))];
+    ``w`` holds K float32 weights and ``src`` (K,) int64 is the row each
+    node receives from (None: its own row).  A row with w = 0 is left as it
+    is (it is not read).  Returns ``accs``.  B.5's kernel with no mask: one
+    launch per :data:`MAX_GROUP_LEAVES` leaves, each adding one to
+    ``dequant_accumulate_grouped_.launches``."""
+    dequant_accumulate_grouped_.launches += _accumulate_grouped(
+        "dequant_accumulate_grouped_", accs, payloads, w, None, src)
+    return accs
+
+
+def dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                       w: torch.Tensor, *, src: torch.Tensor | None = None) -> torch.Tensor:
+    """acc (K, D) f32 + (w[i]·scales[src[i], blk])·q[src[i]] -> (K, D) f32.
+
+    A one-leaf group of :func:`dequant_accumulate_grouped_` on a copy of
+    acc; a row with w = 0 returns acc bitwise.  Adds one to
+    ``dequant_accumulate.launches``.
+    """
+    _check_accumulate("dequant_accumulate", acc, q, scales, w, None, src)
+    out = acc.clone()
+    dequant_accumulate.launches += _accumulate_grouped(
+        "dequant_accumulate", [out], [(q, scales)], w, None, src)
+    return out
 
 
 def masked_dequant_accumulate_grouped_(accs, payloads, w: torch.Tensor, mask: torch.Tensor,
@@ -350,5 +364,6 @@ quantize_blockwise.launches = 0
 masked_quantize_blockwise.launches = 0
 masked_quantize_blockwise_grouped.launches = 0
 dequant_accumulate.launches = 0
+dequant_accumulate_grouped_.launches = 0
 masked_dequant_accumulate.launches = 0
 masked_dequant_accumulate_grouped_.launches = 0

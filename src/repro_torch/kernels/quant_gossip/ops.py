@@ -7,7 +7,8 @@ launches the hand-written kernel or raises — there is no fallback.
 reference (``repro.kernels.quant_gossip.ops``), where it was never a kernel.
 
 The grouped dispatchers take every leaf of one matching at once: the
-memoryless masked gossip round calls them once per matching.
+memoryless masked gossip round calls B.4's and B.5's once per matching, the
+static error-feedback round B.3's once per matching.
 
 ``quant_gossip_round`` and ``masked_quant_gossip_round`` compose one
 compressed matching exchange of one leaf — quantize → the node-axis gather
@@ -65,6 +66,16 @@ def dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
     return _r.dequant_accumulate_ref(acc, q, scales, w, src=src)
 
 
+def dequant_accumulate_grouped_(accs, payloads, w: torch.Tensor, *,
+                                src: torch.Tensor | None = None):
+    """:func:`dequant_accumulate` over every leaf of a group, into each
+    ``acc_l`` in place (one launch on the card); returns ``accs``."""
+    if _build.route("dequant_accumulate_grouped_", w):
+        return _k.dequant_accumulate_grouped_(accs, payloads, w, src=src)
+    dequant_accumulate_grouped_.plain_calls += 1
+    return _r.dequant_accumulate_grouped_ref_(accs, payloads, w, src=src)
+
+
 def masked_dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
                               w: torch.Tensor, mask: torch.Tensor, *,
                               src: torch.Tensor | None = None) -> torch.Tensor:
@@ -91,6 +102,7 @@ quantize_blockwise.plain_calls = 0
 masked_quantize_blockwise.plain_calls = 0
 masked_quantize_blockwise_grouped.plain_calls = 0
 dequant_accumulate.plain_calls = 0
+dequant_accumulate_grouped_.plain_calls = 0
 masked_dequant_accumulate.plain_calls = 0
 masked_dequant_accumulate_grouped_.plain_calls = 0
 

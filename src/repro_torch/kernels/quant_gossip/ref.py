@@ -101,3 +101,11 @@ def masked_dequant_accumulate_grouped_ref_(accs, payloads, w, mask, *, src=None)
     for acc, (q, scales) in zip(accs, payloads):
         acc.copy_(masked_dequant_accumulate_ref(acc, q, scales, w, mask, src=src))
     return accs
+
+
+def dequant_accumulate_grouped_ref_(accs, payloads, w, *, src=None):
+    """Each ``acc_l`` overwritten in place with
+    :func:`dequant_accumulate_ref` of it; returns ``accs``."""
+    for acc, (q, scales) in zip(accs, payloads):
+        acc.copy_(dequant_accumulate_ref(acc, q, scales, w, src=src))
+    return accs

@@ -12,86 +12,445 @@
 // final S (B, H, hd, hd), which models/ssm.py's rwkv_forward returns and
 // the decode cache carries.
 //
-// What bounds it: 4 hd^2 float operations per (b, h, t) against 4 * 5 hd
-// bytes in and out, so at hd 64 it is far above the float32 ridge; the
-// bound is the float32 FMA rate, but a single recurrence per head leaves
-// little parallelism (B H CTAs of hd threads: 256 CTAs at rwkv6-7b's B 4).
+// Arithmetic.  Since r_t^T (u (.) k_t v_t^T) = v_t (sum_i r_i u_i k_i), the
+// bonus is one scalar per (b, h, t), computed once per step; what is left
+// per (i, j, t) is
 //
-// Design.  One CTA per (head, batch) with hd threads.  Thread j keeps
-// column j of S in registers (hd floats).  Time runs in chunks of 32 steps:
-// the chunk's r, k, w and v rows are staged in shared memory with one
-// coalesced load, then each step reads r_t, k_t, w_t and u as broadcasts.
-// T is arbitrary (no block_t divisibility).  hd is a template parameter
-// (16 and 64: the slice's configs); the wrapper raises on any other.
+//     acc_j  = fma(r_i, S_ij, acc_j)
+//     S_ij   = fma(w_i, S_ij, k_i * v_j)
+//
+// three instructions, five float operations.  y_j = (the lanes' partial
+// sums of acc_j, joined by a tree) + v_j * bonus.  The summation order is
+// not the plain version's (ref.py keeps the reference's); the two agree to
+// a few ulp of max |y| per step (tests/test_torch_wkv6.py models this
+// order on the CPU).
+//
+// What bounds it: 5 hd^2 float operations per (b, h, t) against 4 * 5 hd
+// bytes in and out (r, k, v, w read, y written), so 0.25 hd operations per
+// byte: at hd 64 that is 16, below the card's float32 ridge (67 TFLOP/s
+// over 3.35 TB/s = 20), so the bytes bound it, with the operations close
+// behind.  At rwkv6-7b's prefill (B 4, H 64, T 256) the bytes take 26.3 us
+// and the operations 20 us.
+//
+// Design.  One CTA per (head, batch).  The previous design (one thread per
+// column of S, hd threads) issued a scalar shared-memory load for every
+// (i, j, t) and left 2 warps per CTA.  Here each thread owns an R x J tile
+// of S in registers: R rows of the key index i (four-row groups g, g + NG,
+// ..., so that the NG lanes of a column group read NG distinct float4 and
+// no two share a bank) and J columns.  Per step a thread reads its rows of
+// r_t, k_t, w_t as float4 and its J values of v_t: at hd 64 (R 8, J 4, 128
+// threads) 28 floats for 32 (i, j) pairs, against 4 per pair before.
+//
+// The NG lanes of a column group are neighbours in a warp, and their
+// partial sums are joined by a reduce-scatter of __shfl_xor_sync over SB
+// steps at once: the first levels halve the columns a lane keeps (a lane's
+// J column slots are its columns permuted by its own lane bits, so that
+// what it sends and what it keeps sit in fixed slots: no selects), the next
+// halve the steps, and a butterfly sums whatever is left.  At hd 64 with
+// SB = 4 that is 14 shuffles for 4 steps, after which every lane holds two
+// finished (step, column) sums, adds v_j * bonus and stores them: no lane
+// idles and no branch splits the batch, so the compiler schedules the
+// batch's loads, FMAs and shuffles as one block (unrolling the loop over
+// batches as well did not help: tests/wkv6_variants.py).  The bonuses of a
+// chunk are computed before its steps by P = threads / C lanes per step (u
+// stays in registers for the whole scan) and kept in shared memory.
+//
+// Staging.  Time runs in chunks of C steps.  A chunk of r, k, w and v lands
+// in one of two shared buffers by four TMA requests (a 4-d tensor map over
+// each (B, H, T, hd) view, rows past T zero-filled, completion counted on
+// the buffer's mbarrier), issued one chunk ahead, so chunk c + 1 lands
+// while chunk c runs.  (A first version copied each row by its own
+// cp.async.bulk, 128 requests per chunk: the copy engine then took longer
+// than the chunk's arithmetic; tests/wkv6_variants.py.)  TMA needs every
+// row on 16 bytes (the model's views are: row strides of D floats); for
+// other layouts, or where the driver refuses a map, the kernel is the
+// template that loads each chunk with plain loads (the same arithmetic).
+// T is arbitrary: full batches of SB steps, then single steps.  hd is a
+// template parameter (16: R 4, J 2, 32 threads; 64: R 8, J 4, 128
+// threads); the wrapper raises on any other.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_runtime.h>
 
-namespace {
+#include <climits>
+#include <cstdint>
 
-constexpr int CHUNK = 32;
+namespace {
 
 struct Strides {
   long long b, h, t;  // batch, head and time strides; head dims are contiguous
 };
 
 template <int HD>
-__global__ void __launch_bounds__(HD)
-wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ w,
-            const float* __restrict__ u, const float* __restrict__ s0,
-            float* __restrict__ y, float* __restrict__ s_out,
-            long long H, long long T, Strides in, Strides out) {
-  __shared__ float r_c[CHUNK][HD], k_c[CHUNK][HD], w_c[CHUNK][HD], v_c[CHUNK][HD];
-  __shared__ float u_s[HD];
+struct Shape;
+template <>
+struct Shape<16> {
+  static constexpr int R = 4, J = 2, C = 32, SB = 4;
+};
+template <>
+struct Shape<64> {
+  static constexpr int R = 8, J = 4, C = 32, SB = 4;
+};
 
-  const int j = threadIdx.x;
-  const long long h = blockIdx.x;
-  const long long b = blockIdx.y;
-  const long long state = (b * H + h) * HD * HD;  // (B, H, hd, hd) contiguous
+__host__ __device__ constexpr int log2i(int x) { return x <= 1 ? 0 : 1 + log2i(x / 2); }
 
-  float S[HD];
-#pragma unroll
-  for (int i = 0; i < HD; ++i) S[i] = s0 ? s0[state + i * HD + j] : 0.f;
-  u_s[j] = u[h * HD + j];
+template <int HD>
+struct Cfg {
+  static constexpr int R = Shape<HD>::R;    // rows of S per thread
+  static constexpr int J = Shape<HD>::J;    // columns of S per thread
+  static constexpr int C = Shape<HD>::C;    // steps per chunk
+  static constexpr int SB = Shape<HD>::SB;  // steps per reduce-scatter
+  static constexpr int NG = HD / R;         // lanes that split a column group's rows
+  static constexpr int NT = NG * (HD / J);
+  static constexpr int NQ = R / 4;          // float4 row groups per thread
+  static constexpr int P = NT / C;          // lanes per step of the bonus pass
+  static constexpr int PQ = HD / P / 4;     // float4 row groups per bonus lane
+  static constexpr int TILE = C * HD;       // floats of one tensor's chunk
+  static constexpr int BUF = 4 * TILE;      // floats of one buffer: r, k, w, v
+  // two buffers, two chunks of bonuses, two mbarriers
+  static constexpr size_t SMEM = sizeof(float) * (2 * BUF + 2 * C) + 2 * sizeof(uint64_t);
+  static_assert(R % 4 == 0 && HD % R == 0 && HD % J == 0, "tile");
+  static_assert(NG <= 32 && 32 % NG == 0 && J <= NG, "a column group within a warp");
+  static_assert((J & (J - 1)) == 0 && (NG & (NG - 1)) == 0 && (SB & (SB - 1)) == 0,
+                "powers of two");
+  static_assert(C % SB == 0, "batches");
+  static_assert(NT % C == 0 && (P & (P - 1)) == 0 && P <= 32 && HD % (4 * P) == 0,
+                "bonus lanes");
+};
 
-  const long long base = b * in.b + h * in.h;
-  float* yb = y + b * out.b + h * out.h;
-  for (long long t0 = 0; t0 < T; t0 += CHUNK) {
-    const int n = static_cast<int>(min(static_cast<long long>(CHUNK), T - t0));
-    for (int c = 0; c < n; ++c) {
-      const long long at = base + (t0 + c) * in.t + j;
-      r_c[c][j] = r[at];
-      k_c[c][j] = k[at];
-      w_c[c][j] = w[at];
-      v_c[c][j] = v[at];
-    }
-    __syncthreads();
-    for (int c = 0; c < n; ++c) {
-      const float vj = v_c[c][j];
-      float acc = 0.f;
-#pragma unroll
-      for (int i = 0; i < HD; ++i) {
-        const float kv = k_c[c][i] * vj;
-        acc += r_c[c][i] * (S[i] + u_s[i] * kv);
-        S[i] = w_c[c][i] * S[i] + kv;
-      }
-      yb[(t0 + c) * out.t + j] = acc;
-    }
-    __syncthreads();  // the chunk is overwritten next
-  }
-  if (s_out) {
-#pragma unroll
-    for (int i = 0; i < HD; ++i) s_out[state + i * HD + j] = S[i];
+struct Args {
+  CUtensorMap map[4];   // r, k, w, v rows for TMA (the TMA template)
+  const float* src[4];  // r, k, w, v at (0, 0, 0, 0)
+  const float* u;
+  const float* s0;
+  float* y;
+  float* s_out;
+  long long H, T;
+  Strides in, out;
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// thread 0: expect `bytes` more on bar (one arrival of its count of 1)
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// every thread: wait for bar's phase `parity` to complete; a copy that never
+// lands traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  for (long long spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin > (1LL << 24)) __trap();
   }
 }
 
+// thread 0: the chunk of C rows from row t0 on of (head, batch) of every
+// map into buf (r, k, w, v, dense; rows past T zero-filled), counted on
+// bar.  A CTA barrier in front of it orders every read of buf before these
+// writes; the fence carries that order to the copy engine.
 template <int HD>
-cudaError_t launch(const float* r, const float* k, const float* v, const float* w,
-                   const float* u, const float* s0, float* y, float* s_out, long long B,
-                   long long H, long long T, Strides in, Strides out, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(H), static_cast<unsigned>(B));
-  wkv6_kernel<HD><<<grid, HD, 0, stream>>>(r, k, v, w, u, s0, y, s_out, H, T, in, out);
+__device__ __forceinline__ void tma_chunk(float* buf, const Args& a, int t0, int head,
+                                          int batch, uint64_t* bar) {
+  using K = Cfg<HD>;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  mbar_expect(bar, static_cast<unsigned>(sizeof(float) * K::BUF));
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(buf + x * K::TILE)),
+        "l"(reinterpret_cast<uint64_t>(&a.map[x])), "r"(0), "r"(t0), "r"(head), "r"(batch),
+        "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+// every thread: the chunk's n rows of r, k, w, v into buf with plain loads
+// (the layouts TMA does not take); a CTA barrier follows
+template <int HD>
+__device__ __forceinline__ void load_chunk(float* buf, const Args& a, long long base,
+                                           long long t0, int n) {
+  using K = Cfg<HD>;
+  for (int idx = threadIdx.x; idx < 4 * n * HD; idx += K::NT) {
+    const int x = idx / (n * HD), rem = idx % (n * HD);
+    buf[x * K::TILE + rem] = a.src[x][base + (t0 + rem / HD) * a.in.t + rem % HD];
+  }
+}
+
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// SB consecutive steps from step c of the chunk in cur: the state update
+// of this thread's tile and, once the lanes' sums are joined, y.
+template <int HD, int SB>
+__device__ __forceinline__ void steps(float (&S)[Cfg<HD>::NQ][4][Cfg<HD>::J], const float* cur,
+                                      const float* bonus, int c, int g, int cg, int mcol,
+                                      float* yt, long long yst) {
+  using K = Cfg<HD>;
+  constexpr int J = K::J, NG = K::NG, NQ = K::NQ;
+  constexpr int LCOL = log2i(J);  // levels halving columns
+  constexpr int LSTEP = log2i(SB) < log2i(NG) - LCOL ? log2i(SB) : log2i(NG) - LCOL;
+  constexpr int LDUP = log2i(NG) - LCOL - LSTEP;  // levels left: a butterfly
+  const float* vv = cur + 3 * K::TILE;
+  float acc[SB][J];
+#pragma unroll
+  for (int s = 0; s < SB; ++s) {
+    const float4* r4 = reinterpret_cast<const float4*>(cur + (c + s) * HD);
+    const float4* k4 = reinterpret_cast<const float4*>(cur + K::TILE + (c + s) * HD);
+    const float4* w4 = reinterpret_cast<const float4*>(cur + 2 * K::TILE + (c + s) * HD);
+    float vj[J];
+#pragma unroll
+    for (int jj = 0; jj < J; ++jj) {
+      vj[jj] = vv[(c + s) * HD + J * cg + (jj ^ mcol)];
+      acc[s][jj] = 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const float4 rq = r4[g + NG * q], kq = k4[g + NG * q], wq = w4[g + NG * q];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ri = comp(rq, e), ki = comp(kq, e), wi = comp(wq, e);
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj) {
+          acc[s][jj] = fmaf(ri, S[q][e][jj], acc[s][jj]);
+          S[q][e][jj] = fmaf(wi, S[q][e][jj], ki * vj[jj]);
+        }
+      }
+    }
+  }
+  // columns: slot jj holds column jj ^ mcol, so at the level of lane bit
+  // `bit` every lane keeps slots [0, half) and sends [half, 2 half)
+#pragma unroll
+  for (int l = 0; l < LCOL; ++l) {
+    const int bit = NG >> (l + 1), half = J >> (l + 1);
+#pragma unroll
+    for (int s = 0; s < SB; ++s)
+#pragma unroll
+      for (int e = 0; e < half; ++e)
+        acc[s][e] += __shfl_xor_sync(0xffffffffu, acc[s][e + half], bit);
+  }
+  // steps: the upper lane of each pair keeps the later half
+  float val[SB];
+#pragma unroll
+  for (int s = 0; s < SB; ++s) val[s] = acc[s][0];
+  int sbase = 0;
+#pragma unroll
+  for (int l = 0; l < LSTEP; ++l) {
+    const int bit = NG >> (LCOL + l + 1), half = SB >> (l + 1);
+    const bool upper = (g & bit) != 0;
+#pragma unroll
+    for (int e = 0; e < half; ++e) {
+      const float send = upper ? val[e] : val[e + half];
+      const float keep = upper ? val[e + half] : val[e];
+      val[e] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+    }
+    sbase += upper ? half : 0;
+  }
+#pragma unroll
+  for (int l = 0; l < LDUP; ++l) {
+    const int bit = NG >> (LCOL + LSTEP + l + 1);
+#pragma unroll
+    for (int e = 0; e < (SB >> LSTEP); ++e) val[e] += __shfl_xor_sync(0xffffffffu, val[e], bit);
+  }
+  if ((g & ((1 << LDUP) - 1)) == 0) {
+    const int j = J * cg + mcol;
+#pragma unroll
+    for (int e = 0; e < (SB >> LSTEP); ++e) {
+      const int t = c + sbase + e;
+      yt[t * yst + j] = fmaf(vv[t * HD + j], bonus[t], val[e]);
+    }
+  }
+}
+
+template <int HD, bool TMA>
+__global__ void __launch_bounds__(Cfg<HD>::NT)
+wkv6_keysplit_kernel(const __grid_constant__ Args a) {
+  using K = Cfg<HD>;
+  constexpr int J = K::J, C = K::C, NG = K::NG, NQ = K::NQ, P = K::P, SB = K::SB;
+  extern __shared__ __align__(128) float smem[];
+  float* bonus = smem + 2 * K::BUF;  // [2][C]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(bonus + 2 * C);
+
+  const int tid = threadIdx.x;
+  const int g = tid % NG;   // row group: rows 4 (g + NG q) + e
+  const int cg = tid / NG;  // column group: columns J cg + (jj ^ mcol)
+  int mcol = 0;             // the lane's permutation of its column slots
+#pragma unroll
+  for (int l = 0; l < log2i(J); ++l) mcol |= (g & (NG >> (l + 1))) ? (J >> (l + 1)) : 0;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const long long state = (static_cast<long long>(b) * a.H + h) * HD * HD;
+  const long long base = b * a.in.b + h * a.in.h;
+  float* yb = a.y + b * a.out.b + h * a.out.h;
+
+  float S[NQ][4][J];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int jj = 0; jj < J; ++jj)
+        S[q][e][jj] = a.s0 ? a.s0[state + (4 * (g + NG * q) + e) * HD + J * cg + (jj ^ mcol)]
+                           : 0.f;
+
+  // the bonus pass: lane pp of step pc sums rows 4 (pp + P q) + e
+  const int pc = tid / P, pp = tid % P;
+  float4 u4[K::PQ];
+#pragma unroll
+  for (int q = 0; q < K::PQ; ++q) {
+    const float* uq = a.u + h * HD + 4 * (pp + P * q);
+    u4[q] = make_float4(uq[0], uq[1], uq[2], uq[3]);
+  }
+
+  const int n_chunks = static_cast<int>((a.T + C - 1) / C);
+  if (TMA) {
+    if (tid == 0) {
+      mbar_init(&bar[0]);
+      mbar_init(&bar[1]);
+    }
+    __syncthreads();
+    if (tid == 0) tma_chunk<HD>(smem, a, 0, h, b, &bar[0]);
+  }
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int nb = ch & 1;
+    const long long t0 = static_cast<long long>(ch) * C;
+    const int n = static_cast<int>(min(static_cast<long long>(C), a.T - t0));
+    float* cur = smem + nb * K::BUF;
+    if (TMA) {
+      mbar_wait(&bar[nb], static_cast<unsigned>((ch >> 1) & 1));
+    } else {
+      load_chunk<HD>(cur, a, base, t0, n);
+      __syncthreads();
+    }
+    // the chunk's bonuses, sum_i r_i u_i k_i per step (lanes past n compute
+    // on rows that are zero or stale and store nothing; every lane joins the
+    // shuffles)
+    {
+      const float4* rr = reinterpret_cast<const float4*>(cur + pc * HD);
+      const float4* kk = reinterpret_cast<const float4*>(cur + K::TILE + pc * HD);
+      float part = 0.f;
+#pragma unroll
+      for (int q = 0; q < K::PQ; ++q) {
+        const float4 r4 = rr[pp + P * q], k4 = kk[pp + P * q];
+        part = fmaf(r4.x * u4[q].x, k4.x, part);
+        part = fmaf(r4.y * u4[q].y, k4.y, part);
+        part = fmaf(r4.z * u4[q].z, k4.z, part);
+        part = fmaf(r4.w * u4[q].w, k4.w, part);
+      }
+#pragma unroll
+      for (int off = P / 2; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+      if (pp == 0 && pc < n) bonus[nb * C + pc] = part;
+    }
+    // the bonuses are visible, and every thread is done with chunk ch - 1,
+    // so the other buffer may be refilled
+    __syncthreads();
+    if (TMA && tid == 0 && ch + 1 < n_chunks) {
+      tma_chunk<HD>(smem + (nb ^ 1) * K::BUF, a, static_cast<int>(t0 + C), h, b, &bar[nb ^ 1]);
+    }
+    float* yt = yb + t0 * a.out.t;
+    int c = 0;
+#pragma unroll 1
+    for (; c + SB <= n; c += SB)
+      steps<HD, SB>(S, cur, bonus + nb * C, c, g, cg, mcol, yt, a.out.t);
+    for (; c < n; ++c) steps<HD, 1>(S, cur, bonus + nb * C, c, g, cg, mcol, yt, a.out.t);
+  }
+  if (a.s_out) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj)
+          a.s_out[state + (4 * (g + NG * q) + e) * HD + J * cg + (jj ^ mcol)] = S[q][e][jj];
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda),
+// or null where the driver has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A TMA map of a (B, H, T, hd) float32 view given by its strides, copied
+// box_rows rows at a time; false (the caller loads with plain loads) where
+// a row is not on 16 bytes or the driver refuses the map.
+bool rows_map(CUtensorMap* map, const float* base, long long B, long long H, long long T,
+              long long hd, const Strides& s, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 || s.b % 4 != 0 ||
+      s.h % 4 != 0 || s.t % 4 != 0)
+    return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.t) * 4,
+                                 static_cast<cuuint64_t>(s.h) * 4,
+                                 static_cast<cuuint64_t>(s.b) * 4};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(hd), static_cast<cuuint32_t>(box_rows), 1,
+                             1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base), dims, strides,
+            box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int HD>
+bool maps(Args& a, long long B) {
+  for (int x = 0; x < 4; ++x) {
+    if (!rows_map(&a.map[x], a.src[x], B, a.H, a.T, HD, a.in, Cfg<HD>::C)) return false;
+  }
+  return true;
+}
+
+template <int HD, bool TMA>
+cudaError_t launch_one(const Args& a, long long B, cudaStream_t stream) {
+  using K = Cfg<HD>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wkv6_keysplit_kernel<HD, TMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(K::SMEM));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(static_cast<unsigned>(a.H), static_cast<unsigned>(B));
+  wkv6_keysplit_kernel<HD, TMA><<<grid, K::NT, K::SMEM, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch(Args& a, long long B, cudaStream_t stream) {
+  // the grid's limits, and TMA's 32-bit coordinates
+  if (a.H > INT_MAX || B > 65535 || a.T > (1LL << 30)) return cudaErrorInvalidValue;
+  return maps<HD>(a, B) ? launch_one<HD, true>(a, B, stream)
+                        : launch_one<HD, false>(a, B, stream);
 }
 
 }  // namespace
@@ -107,13 +466,34 @@ extern "C" int wkv6_f32(const float* r, const float* k, const float* v, const fl
                         long long in_sb, long long in_sh, long long in_st,
                         long long y_sb, long long y_sh, long long y_st,
                         cudaStream_t stream) {
-  const Strides in{in_sb, in_sh, in_st}, out{y_sb, y_sh, y_st};
+  Args a = {};
+  a.src[0] = r;
+  a.src[1] = k;
+  a.src[2] = w;
+  a.src[3] = v;
+  a.u = u;
+  a.s0 = s0;
+  a.y = y;
+  a.s_out = s_out;
+  a.H = H;
+  a.T = T;
+  a.in = Strides{in_sb, in_sh, in_st};
+  a.out = Strides{y_sb, y_sh, y_st};
   switch (hd) {
     case 16:
-      return launch<16>(r, k, v, w, u, s0, y, s_out, B, H, T, in, out, stream);
+      return launch<16>(a, B, stream);
     case 64:
-      return launch<64>(r, k, v, w, u, s0, y, s_out, B, H, T, in, out, stream);
+      return launch<64>(a, B, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// 1 when a (B, H, T, hd) view with these strides (in elements) is staged by
+// TMA in this kernel, 0 when by plain loads (a row off 16 bytes, or the
+// driver refuses the map)
+extern "C" int wkv6_rows_tma(const float* base, long long B, long long H, long long T,
+                             long long hd, long long sb, long long sh, long long st) {
+  CUtensorMap map;
+  return rows_map(&map, base, B, H, T, hd, Strides{sb, sh, st}, Cfg<64>::C) ? 1 : 0;
 }

@@ -12,6 +12,9 @@ projections without a transposed copy; y has r's memory layout.  The
 wrapper raises on what the kernel does not take — a dtype other than
 float32, a head dim other than 16 or 64, an input that requires grad (the
 reference has no backward) — and never runs the plain version itself.
+The kernel stages the chunks of r, k, w and v by TMA where every row is
+16-byte aligned (:func:`rows_by_tma`; the model's views are), by plain loads
+otherwise.
 """
 
 from __future__ import annotations
@@ -26,6 +29,15 @@ SOURCE = "rwkv6_scan/csrc/wkv6.cu"
 HEAD_DIMS = (16, 64)
 _P, _LL = ctypes.c_void_p, ctypes.c_longlong
 _ARGTYPES = (_P,) * 8 + (_LL,) * 4 + (_LL,) * 6 + (_P,)
+
+
+def rows_by_tma(x: torch.Tensor) -> bool:
+    """True where the kernel stages this (B, H, T, hd) CUDA view by TMA (its
+    rows on 16 bytes and the driver takes the map), False where by plain
+    loads (csrc/wkv6.cu, ``rows_map``).  Builds the kernels."""
+    fn = _build.entry(SOURCE, "wkv6_rows_tma", (_P,) + (_LL,) * 7)
+    b, h, t, hd = x.shape
+    return bool(fn(x.data_ptr(), b, h, t, hd, *x.stride()[:3]))
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device) -> None:

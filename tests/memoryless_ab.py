@@ -1,9 +1,10 @@
-"""The memoryless masked gossip step of two checkouts, in turns on one card.
+"""A gossip stack's fmnist step of two checkouts, in turns on one card.
 
-    python tests/memoryless_ab.py PARENT_ROOT [CHANGE_ROOT]
+    python tests/memoryless_ab.py PARENT_ROOT [CHANGE_ROOT] [--stack STACK]
 
-Runs the fmnist configuration on the dropout-0.2 memoryless int8 wire
-(``chip_smoke.py``'s ``dropout0.2-int8-kernel-memoryless`` stack) from the
+Runs the fmnist configuration on one of ``chip_smoke.py``'s gossip stacks
+(default ``dropout0.2-int8-kernel-memoryless``, the dropout-0.2 memoryless
+int8 wire; ``gossip-int8-kernel-ef`` is the static int8 EF wire) from the
 checkout at PARENT_ROOT and from CHANGE_ROOT (default: this checkout), in
 the order parent, change, change, parent, each in a process of its own that
 imports that checkout's ``chip_smoke.py`` and package: 300 steps timed on
@@ -49,6 +50,11 @@ print("AB " + json.dumps(out), flush=True)
 
 
 def main(argv) -> int:
+    stack = STACK
+    if "--stack" in argv:
+        i = argv.index("--stack")
+        stack = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -59,7 +65,7 @@ def main(argv) -> int:
     print(smi, flush=True)
     for tag, root in (("parent", parent), ("change", change), ("change", change),
                       ("parent", parent)):
-        proc = subprocess.run([sys.executable, "-c", CHILD, root, STACK], capture_output=True,
+        proc = subprocess.run([sys.executable, "-c", CHILD, root, stack], capture_output=True,
                               text=True, timeout=900, cwd=root)
         lines = [ln[3:] for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
         if proc.returncode or not lines:

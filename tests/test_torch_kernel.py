@@ -15,8 +15,10 @@ The serving kernels are held against their plain versions at rtol = atol =
 2e-5 (the reference's own kernel tests' tolerance): flash attention (B.6)
 at every head dim it is built for, with and without a window, softcap and
 causal mask, at tile-multiple and ragged lengths, on the model's strided
-layout; the WKV6 scan (B.7) at hd 16 and 64, ragged T, from a zero and a
-given state, y and the final state, at rtol 2e-5 and an atol of 2e-5 times
+layout; the WKV6 scan (B.7) at hd 16 and 64, ragged T (batches of four
+steps and single steps after them), one step, w = 1e-6, from a zero and a
+given state, on views staged by TMA and on rows off 16 bytes (plain
+loads), y and the final state, at rtol 2e-5 and an atol of 2e-5 times
 the largest |value| of the plain version's output: with N(0, 1) inputs and
 the init's decay of 0.9975 over 256 steps the state grows to O(10) and y to
 O(100), and y's 64-term dot products cancel, so the two summation orders
@@ -44,7 +46,10 @@ groups and a group over the leaf cap (two launches), with every mask, src
 and qmax, on rows off 16-byte boundaries too; the accumulate keeps acc's
 storage; the wrappers refuse what the kernels do not take and are built
 with the sizes the Python side states; a memoryless round through them
-equals the leaf-by-leaf round.  At K = 65, above the stacked B.1 kernel's
+equals the leaf-by-leaf round.  B.3 grouped (B.5's kernel with no mask)
+equals the one-leaf plain versions likewise, in place, and two static EF
+rounds through it equal the rounds through the one-leaf B.3.  At K = 65,
+above the stacked B.1 kernel's
 64 nodes, the SGD step on the card takes the unfused path (no B.1 launch),
 equals the unfused step and stays within 1.5e-4 of the largest update of
 the CPU's.
@@ -393,6 +398,8 @@ def _wkv_inputs(b, h, t, hd, seed, device, decay="random"):
     r, k, v = (rng.standard_normal((b, t, h, hd)).astype(np.float32) for _ in range(3))
     if decay == "random":
         w = rng.uniform(0.0, 1.0, (b, t, h, hd)).astype(np.float32)
+    elif decay == "1e-6":  # the state is forgotten at every step
+        w = np.full((b, t, h, hd), 1e-6, np.float32)
     else:  # the model's init: exp(-exp(-6)) ~ 0.9975
         w = np.full((b, t, h, hd), np.exp(-np.exp(-6.0)), np.float32)
     u = (0.5 * rng.standard_normal((h, hd))).astype(np.float32)
@@ -411,6 +418,47 @@ def test_wkv6_equals_plain(cuda, b, h, t, hd, decay, with_state):
     torch.cuda.synchronize()
     y_p, s_p = wkv6_ref(r, k, v, w, u, s0)
     assert y.stride() == r.stride()
+    for got, want in ((y, y_p), (s, s_p)):
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("b,h,t,hd", [(4, 64, 1, 64), (4, 256, 256, 16), (2, 8, 35, 64),
+                                      (2, 8, 33, 16), (1, 3, 67, 64)])
+@pytest.mark.parametrize("decay", ["random", "1e-6"])
+def test_wkv6_new_cases_equal_plain(cuda, b, h, t, hd, decay):
+    """The key-split kernel at one step with a given state, at hd 16 at the
+    model's width, at T that leave single steps after the batches of four
+    and a ragged chunk, and with w = 1e-6; the views staged by TMA."""
+    r, k, v, w, u = _wkv_inputs(b, h, t, hd, 7 * b + t, cuda, decay)
+    assert all(wk.rows_by_tma(x) for x in (r, k, v, w))
+    s0 = torch.randn((b, h, hd, hd), device=cuda)
+    for state in (None, s0):
+        y, s = wk.wkv6_scan(r, k, v, w, u, state)
+        torch.cuda.synchronize()
+        y_p, s_p = wkv6_ref(r, k, v, w, u, state)
+        for got, want in ((y, y_p), (s, s_p)):
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+def test_wkv6_takes_rows_off_16_byte_boundaries(cuda, hd):
+    """Rows of H hd + 1 floats are not on 16 bytes: TMA does not take them
+    and the kernel loads the chunks with plain loads, to the same answer."""
+    b, h, t = 2, 8, 70
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+
+    def view():
+        flat = torch.randn((b, t, h * hd + 1), generator=gen, device=cuda)
+        return flat[:, :, :h * hd].unflatten(2, (h, hd)).permute(0, 2, 1, 3)
+
+    r, k, v, w = view(), view(), view(), view()
+    w.uniform_(0.0, 1.0, generator=gen)
+    u = 0.5 * torch.randn((h, hd), generator=gen, device=cuda)
+    s0 = torch.randn((b, h, hd, hd), generator=gen, device=cuda)
+    assert not any(wk.rows_by_tma(x) for x in (r, k, v, w))
+    y, s = wk.wkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    y_p, s_p = wkv6_ref(r, k, v, w, u, s0)
     for got, want in ((y, y_p), (s, s_p)):
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * float(want.abs().max()))
 
@@ -735,6 +783,76 @@ def test_grouped_accumulate_equals_plain_in_place(cuda, group, mask):
         assert out is accs and [a.data_ptr() for a in out] == ptrs
         for a, b in zip(out, want):
             assert torch.equal(a, b), (group, mask, src)
+
+
+@pytest.mark.parametrize("group", list(GROUPS))
+def test_grouped_b3_accumulate_equals_plain_in_place(cuda, group):
+    """B.3 over every leaf of a group (B.5's kernel with no mask), in place,
+    bit for bit against the one-leaf plain versions, every src; the one-leaf
+    B.3 (a one-leaf group on a copy) likewise."""
+    k, dims, block_d = GROUPS[group]
+    xs, us = _group(k, dims, seed=13 * k, device=cuda)
+    payloads = [ref.quantize_blockwise_ref(x, u, block_d=block_d) for x, u in zip(xs, us)]
+    gen = torch.Generator(device=cuda).manual_seed(k + 3)
+    w = torch.rand((k,), generator=gen, device=cuda) * 0.5
+    w[0] = 0.0  # a row that receives nothing
+    accs0 = [torch.randn((k, d), generator=gen, device=cuda) for d in dims]
+    srcs = _srcs(cuda) if k == 10 else [None, torch.tensor(
+        [i ^ 1 if (i ^ 1) < k else i for i in range(k)], device=cuda)]
+    for src in srcs:
+        accs = [a.clone() for a in accs0]
+        ptrs = [a.data_ptr() for a in accs]
+        before = qk.dequant_accumulate_grouped_.launches
+        out = qk.dequant_accumulate_grouped_(accs, payloads, w, src=src)
+        one = [qk.dequant_accumulate(a, q, sc, w, src=src) for a, (q, sc) in zip(accs0, payloads)]
+        want = [ref.dequant_accumulate_ref(a, q, sc, w, src=src)
+                for a, (q, sc) in zip(accs0, payloads)]
+        torch.cuda.synchronize()
+        assert qk.dequant_accumulate_grouped_.launches == \
+            before + len(qk.leaf_tables([1] * len(dims)))
+        assert out is accs and [a.data_ptr() for a in out] == ptrs
+        for a, o, b in zip(out, one, want):
+            assert torch.equal(a, b) and torch.equal(o, b), (group, src)
+
+
+def test_grouped_b3_static_round_on_the_card_equals_the_per_leaf_round(cuda):
+    """Two rounds of the static int8 EF gossip wire through the grouped B.3
+    (one launch per matching) and with the quantizer's grouped call hidden
+    (the one-leaf B.3 per leaf and matching): θ, θ̂ and the mix cache bit
+    for bit."""
+    from repro_torch.comm import CompressedGossipMixer, CompressionConfig
+    from repro_torch.graphs import build_graph, metropolis_weights, permutation_decomposition
+
+    decomp = permutation_decomposition(
+        metropolis_weights(build_graph("erdos_renyi", 10, p=0.3, seed=0)))
+    cfg = CompressionConfig(kind="int8", use_kernel=True)
+    grouped = CompressedGossipMixer(decomp, cfg, device=cuda)
+    per_leaf = CompressedGossipMixer(decomp, cfg, device=cuda)
+
+    class PerLeaf:  # the kernel quantizer without its grouped accumulate
+        def __init__(self, quantizer):
+            self.quantizer = quantizer
+
+        def __getattr__(self, name):
+            if name == "accumulate_grouped_":
+                raise AttributeError(name)
+            return getattr(self.quantizer, name)
+
+    per_leaf.compressor = PerLeaf(per_leaf.compressor)
+    xs, _ = _group(10, MLP_D, seed=6, device=cuda)
+    theta = dict(zip(["fc0/b", "fc0/w", "fc1/b", "fc1/w", "fc2/b", "fc2/w"], xs))
+    (ta, sa), (tb, sb) = (theta, grouped.init_state(theta)), (theta, per_leaf.init_state(theta))
+    n_match = len(decomp.matchings)
+    for _ in range(2):
+        g0, o0 = qk.dequant_accumulate_grouped_.launches, qk.dequant_accumulate.launches
+        ta, sa = grouped(ta, sa)
+        assert qk.dequant_accumulate_grouped_.launches == g0 + n_match
+        tb, sb = per_leaf(tb, sb)
+        assert qk.dequant_accumulate.launches == o0 + n_match * len(theta)
+        torch.cuda.synchronize()
+        for n in theta:
+            assert torch.equal(ta[n], tb[n]) and torch.equal(sa.hat[n], sb.hat[n])
+            assert torch.equal(sa.hat_mix[n], sb.hat_mix[n])
 
 
 def test_grouped_kernels_take_rows_off_16_byte_boundaries(cuda):

@@ -15,7 +15,12 @@ the plain versions, which must be the one-leaf plain versions bit for bit:
 - the memoryless masked gossip round, now matching-outer, equals a copy of
   the leaf-outer loop it replaced bit for bit, and so do the EF wire's
   delta and re-base rounds, now an encode pass and an accumulate pass;
-- the fused SGD step (B.1) is declined above the stacked kernel's 64 nodes.
+- the fused SGD step (B.1) is declined above the stacked kernel's 64 nodes;
+- B.3 grouped (``dequant_accumulate_grouped_``: every leaf of a matching in
+  place, no mask) equals the one-leaf plain version per leaf, and the
+  static int8 gossip round, now one grouped B.3 call per matching, equals
+  a copy of the per-leaf loop it replaced bit for bit; ``_accumulate_leaves``
+  routes unmasked rounds to it.
 
 The kernels themselves are held against these plain versions on the card
 (tests/test_torch_kernel.py, chip_smoke.py).  Inputs come from numpy with a
@@ -121,6 +126,35 @@ def test_grouped_accumulate_equals_one_leaf_calls_in_place(group, mask):
             want = ops.masked_dequant_accumulate(a0, q, s, w, m, src=src)
             assert torch.equal(a, want)
             assert torch.equal(a[~live], a0[~live])  # masked or idle rows: acc bitwise
+
+
+@pytest.mark.parametrize("group", list(GROUPS) + ["over the cap"])
+def test_grouped_b3_accumulate_equals_one_leaf_plain_versions_in_place(group):
+    """B.3 over every leaf of a group (no mask): each acc is overwritten in
+    its own storage with dequant_accumulate_ref of it, bit for bit, for
+    every src; a row with w = 0 keeps its acc bitwise."""
+    if group == "over the cap":
+        k, dims, block_d = K, MLP_D + CNN_D + [4096, 7], 65536
+    else:
+        k, dims, block_d = GROUPS[group]
+    xs, us = _leaves(k, dims, seed=5 * len(dims) + k)
+    payloads = [ref.quantize_blockwise_ref(x, u, block_d=block_d) for x, u in zip(xs, us)]
+    gen = torch.Generator().manual_seed(k + 1)
+    w = torch.rand((k,), generator=gen) * 0.5
+    w[0] = 0.0  # a row that receives nothing
+    accs0 = [torch.randn((k, d), generator=gen) for d in dims]
+    for src in _srcs(k):
+        accs = [a.clone() for a in accs0]
+        ptrs = [a.data_ptr() for a in accs]
+        calls = ops.dequant_accumulate_grouped_.plain_calls
+        one_leaf = ops.dequant_accumulate.plain_calls
+        out = ops.dequant_accumulate_grouped_(accs, payloads, w, src=src)
+        assert ops.dequant_accumulate_grouped_.plain_calls == calls + 1
+        assert ops.dequant_accumulate.plain_calls == one_leaf
+        assert out is accs and [a.data_ptr() for a in out] == ptrs
+        for a0, a, (q, sc) in zip(accs0, out, payloads):
+            assert torch.equal(a, ref.dequant_accumulate_ref(a0, q, sc, w, src=src))
+            assert torch.equal(a[0], a0[0])
 
 
 def _segments(k, dims, block_d):
@@ -371,6 +405,115 @@ def test_matching_outer_round_is_the_composed_exchange():
     want = _old_quantized_gossip(mixer, theta, state, self_w, match_ws, masks)
     got = mixer._quantized_gossip(theta, state, self_w, match_ws, masks)
     assert all(torch.equal(got[n], want[n]) for n in theta)
+
+
+# -- the static wire's round: B.3 grouped against the per-leaf loop -----------
+
+def _old_static_gossip_round(self, theta, state, **_):
+    """The static wire's round as it was before B.3 was grouped: encode
+    pass, then per matching every leaf through the one-leaf B.3
+    (``_accumulate`` → ``KernelInt8Quantizer.accumulate``)."""
+    t = self.transport
+    ef = self.ef
+    names = leaf_names(theta)
+    xfs, hats, res_sq = self._flat_leaves(theta, state, t.self_w.device)
+    us = [self.wire.uniforms(state.key, state.rounds, i, xf) for i, xf in enumerate(xfs)]
+    encoded = self.wire.encode_leaves(xfs, hats, us)
+    if ef:
+        accs = [state.hat_mix[n].reshape(xf.shape) + t.self_w[:, None] * (public - h)
+                for n, xf, h, (_, public, _) in zip(names, xfs, hats, encoded)]
+    else:
+        accs = [t.self_w[:, None] * public for _, public, _ in encoded]
+    payloads = [payload for payload, _, _ in encoded]
+    for pw, src in zip(t.match_ws, t.srcs):
+        accs = [self._accumulate(acc, p, pw, src) for acc, p in zip(accs, payloads)]
+    out_theta, out_hat, out_mix = {}, {}, {}
+    for n, xf, acc, (_, public, new_hat) in zip(names, xfs, accs, encoded):
+        shape = theta[n].shape
+        out_theta[n] = (xf + (acc - public)).reshape(shape).to(theta[n].dtype)
+        if ef:
+            out_hat[n] = new_hat.reshape(shape)
+            out_mix[n] = acc.reshape(shape)
+    return out_theta, state._replace(
+        hat=out_hat if ef else (), hat_mix=out_mix if ef else (),
+        res_norm=torch.sqrt(res_sq), rounds=state.rounds + 1,
+        wire_bits=self.wire.round_wire_bits(theta, self._sends(), self.k, res_sq.device))
+
+
+def _static_mixer(ef):
+    from repro_torch.comm import CompressedGossipMixer, CompressionConfig
+    from repro_torch.graphs import build_graph, metropolis_weights, permutation_decomposition
+
+    decomp = permutation_decomposition(
+        metropolis_weights(build_graph("erdos_renyi", K, p=0.3, seed=0)))
+    return CompressedGossipMixer(decomp, CompressionConfig(kind="int8", use_kernel=True,
+                                                           error_feedback=ef), device="cpu")
+
+
+@pytest.mark.parametrize("ef", [True, False], ids=["ef", "memoryless"])
+def test_static_round_grouped_b3_equals_the_per_leaf_loop(ef):
+    """Three rounds of the static int8 gossip wire (EF: θ̂ and its mix cache
+    carried; memoryless) through the grouped B.3 (one call per matching)
+    and through a copy of the per-leaf loop it replaced (one call per leaf
+    and matching): θ, θ̂, the mix cache, the residual and the wire bits bit
+    for bit."""
+    new, old = _static_mixer(ef), _static_mixer(ef)
+    old._gossip_round = types.MethodType(_old_static_gossip_round, old)
+    theta = _theta(2)
+    (ta, sa), (tb, sb) = (theta, new.init_state(theta)), (theta, old.init_state(theta))
+    matchings = len(new.transport.srcs)
+    for r in range(3):
+        g0 = ops.dequant_accumulate_grouped_.plain_calls
+        o0 = ops.dequant_accumulate.plain_calls
+        ta, sa = new(ta, sa)
+        assert ops.dequant_accumulate_grouped_.plain_calls - g0 == matchings
+        assert ops.dequant_accumulate.plain_calls == o0
+        tb, sb = old(tb, sb)
+        assert ops.dequant_accumulate.plain_calls - o0 == matchings * len(theta)
+        for n in theta:
+            assert torch.equal(ta[n], tb[n]), (r, n)
+            if ef:
+                assert torch.equal(sa.hat[n], sb.hat[n]), (r, n)
+                assert torch.equal(sa.hat_mix[n], sb.hat_mix[n]), (r, n)
+        assert torch.equal(sa.wire_bits, sb.wire_bits)
+        assert torch.equal(sa.res_norm, sb.res_norm)
+
+
+def test_accumulate_leaves_routes_unmasked_rounds_to_grouped_b3():
+    """``_accumulate_leaves`` with no mask hands every leaf to the kernel
+    quantizer's ``accumulate_grouped_`` at once (in place), with a mask to
+    its ``accumulate_masked_grouped_``; a codec without them goes leaf by
+    leaf."""
+    from repro_torch.comm.compressors import IntQuantizer
+
+    mixer = _static_mixer(True)
+    calls = []
+    quantizer = mixer.compressor
+    mixer.compressor = types.SimpleNamespace(
+        accumulate_grouped_=lambda *a: calls.append(("b3", a)) or a[0],
+        accumulate_masked_grouped_=lambda *a: calls.append(("b5", a)) or a[0])
+    accs = [torch.zeros((K, 3)), torch.zeros((K, 5))]
+    payloads = ["p0", "p1"]
+    w, src, mask = torch.ones(K), torch.arange(K), torch.ones(K)
+    assert mixer._accumulate_leaves(accs, payloads, w, src) is accs
+    assert mixer._accumulate_leaves(accs, payloads, w, src, mask=mask) is accs
+    assert [c[0] for c in calls] == ["b3", "b5"]
+    assert calls[0][1] == (accs, payloads, w, src)
+    assert calls[1][1] == (accs, payloads, w, mask, src)
+    # the real quantizer: the grouped dispatcher once, no one-leaf call
+    mixer.compressor = quantizer
+    xs, us = _leaves(K, [3, 5], seed=9)
+    payloads = [quantizer.compress(x, u) for x, u in zip(xs, us)]
+    g0, o0 = ops.dequant_accumulate_grouped_.plain_calls, ops.dequant_accumulate.plain_calls
+    out = mixer._accumulate_leaves(accs, payloads, w * 0.5, src)
+    assert out is accs
+    assert ops.dequant_accumulate_grouped_.plain_calls == g0 + 1
+    assert ops.dequant_accumulate.plain_calls == o0
+    # a codec without grouped calls: one accumulate per leaf
+    mixer.compressor = IntQuantizer(8)
+    payloads = [mixer.compressor.compress(x, u) for x, u in zip(xs, us)]
+    out = mixer._accumulate_leaves(accs, payloads, w, src)
+    assert out is not accs and len(out) == 2
 
 
 # -- the fused step's routing above 64 nodes -----------------------------------

@@ -94,6 +94,93 @@ def test_final_state_matches_reference_rwkv_forward(seq):
     assert subtree(p, "time")["bonus"].abs().max() > 0
 
 
+# -- the CUDA kernel's arithmetic order (csrc/wkv6.cu) --------------------------
+
+def _f32(x):
+    """Round float64 values to float32 and keep them in float64, where the
+    product of two float32 values is exact."""
+    return x.to(torch.float32).to(torch.float64)
+
+
+def _fma(a, b, c):
+    """fma(a, b, c) of float32 values: a·b + c rounded once (to float64,
+    then float32; the double rounding can move an ulp on rare ties)."""
+    return _f32(a * b + c)
+
+
+def _tree(x):
+    """The lanes' shuffle tree over the last axis: the halves added pairwise,
+    the highest lane bit first, as __shfl_xor_sync with offsets n/2 .. 1."""
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = _f32(x[..., :half] + x[..., half:])
+    return x[..., 0]
+
+
+def keysplit_wkv6(r, k, v, w, u, s0=None):
+    """B.7's arithmetic as csrc/wkv6.cu orders it, in float32: per step the
+    bonus sum_i (r_i u_i) k_i as FMAs over each of P lanes' rows (rows
+    4 (p + P q) + e), joined by the shuffle tree; per row group g of NG
+    (rows 4 (g + NG q) + e, in that order) the partial y_j as a chain of
+    fma(r_i, S_ij, acc) and the state as fma(w_i, S_ij, k_i v_j); the row
+    groups joined by the shuffle tree; y_j = fma(v_j, bonus, sum).  numpy
+    in, numpy out: (y (B, H, T, hd), final S (B, H, hd, hd))."""
+    r, k, v, w, u = (torch.from_numpy(x).double() for x in (r, k, v, w, u))
+    b, h, t, hd = r.shape
+    rows, cols, chunk = {16: (4, 2, 32), 64: (8, 4, 32)}[hd]
+    ng = hd // rows
+    lanes = ng * hd // cols // chunk  # bonus lanes per step
+    order = torch.tensor([[4 * (g + ng * q) + e for q in range(rows // 4) for e in range(4)]
+                          for g in range(ng)])                       # (NG, R)
+    bonus_rows = torch.tensor([[4 * (p + lanes * q) + e for q in range(hd // lanes // 4)
+                                for e in range(4)] for p in range(lanes)])
+    s = (torch.zeros((b, h, hd, hd), dtype=torch.float64) if s0 is None
+         else torch.from_numpy(s0).double())
+    ys = []
+    for i in range(t):
+        rt, kt, vt, wt = (x[:, :, i] for x in (r, k, v, w))
+        parts = torch.zeros((b, h, lanes), dtype=torch.float64)
+        for m in range(bonus_rows.shape[1]):
+            idx = bonus_rows[:, m]
+            parts = _fma(_f32(rt[..., idx] * u[:, idx]), kt[..., idx], parts)
+        bonus = _tree(parts)
+        acc = torch.zeros((b, h, hd, ng), dtype=torch.float64)     # (.., column, group)
+        for m in range(rows):
+            idx = order[:, m]
+            s_rows = s[:, :, idx, :]                                 # (B, H, NG, hd)
+            acc = _fma(rt[..., idx][..., None, :], s_rows.transpose(2, 3), acc)
+            kv = _f32(kt[..., idx][..., :, None] * vt[..., None, :])
+            s[:, :, idx, :] = _fma(wt[..., idx][..., :, None], s_rows, kv)
+        ys.append(_fma(vt, bonus[..., None], _tree(acc)))
+    return (torch.stack(ys, dim=2).float().numpy(), s.float().numpy())
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("decay", ["random", "init", "1e-6"])
+def test_keysplit_order_matches_reference(decay, hd):
+    """The kernel's summation order (key-split partial sums joined by the
+    lanes' tree, the bonus as one scalar per step) against the reference's
+    oracle at TOL, for decays drawn in (0.45, 0.95), at the init value
+    exp(-exp(-6)) ≈ 0.9975 (the state hardly decays) and at 1e-6 (it is
+    forgotten every step); from zero and from a given state."""
+    r, k, v, w, u = _case(11 + hd, 2, 2, 40, hd)
+    if decay == "init":
+        w = np.full_like(w, np.exp(-np.exp(-6.0)))
+    elif decay == "1e-6":
+        w = np.full_like(w, 1e-6)
+    u = (5.0 * u).astype(np.float32)  # a bonus term of the state's size
+    y, s = keysplit_wkv6(r, k, v, w, u)
+    want = np.asarray(ref_wkv6(*(jnp.asarray(x) for x in (r, k, v, w, u))))
+    np.testing.assert_allclose(y, want, **TOL)
+    _, s_plain = _port(r, k, v, w, u)
+    np.testing.assert_allclose(s, s_plain, **TOL)
+    s0 = np.random.default_rng(hd).standard_normal(s.shape).astype(np.float32)
+    y0, s1 = keysplit_wkv6(r, k, v, w, u, s0=s0)
+    y0_plain, s1_plain = _port(r, k, v, w, u, s0=s0)
+    np.testing.assert_allclose(y0, y0_plain, **TOL)
+    np.testing.assert_allclose(s1, s1_plain, **TOL)
+
+
 def test_dispatcher_runs_the_plain_version_on_cpu_only():
     xs = tuple(torch.from_numpy(x) for x in _case(3, 1, 2, 10, 16))
     before, launches = ops.wkv6.plain_calls, wk.wkv6_scan.launches
