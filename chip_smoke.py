@@ -10,7 +10,7 @@ entry points, and holds every CUDA kernel of those paths against its plain
 PyTorch version:
 
   build    nvcc-compiles every kernel source under src/ (one nvcc per
-           source, all six started together), and proves from cuobjdump's
+           source, all five started together), and proves from cuobjdump's
            SASS that each of B.6's product kernels, at every head dim, runs
            TF32 tensor-core instructions (HMMA/HGMMA .TF32).
   kernel   the four quant_gossip kernels against their plain versions at
@@ -19,16 +19,17 @@ PyTorch version:
            and 7, masked_quantize_blockwise (B.4) with masks all ones, all
            zeros and mixed, dequant_accumulate (B.3) and
            masked_dequant_accumulate (B.5, every mask pattern) with src None
-           and each matching of the fmnist graph (B.3, B.4 and B.5 per leaf
-           are one-leaf groups of the grouped kernels).  Payloads and
-           accumulations must be equal bit for bit.  Times a call of each
+           and each matching of the fmnist graph (B.2, B.3, B.4 and B.5
+           per leaf are one-leaf groups of the grouped kernels).  Payloads
+           and accumulations must be equal bit for bit.  Times a call of each
            (CUDA events), its kernels' device time (profiler), the plain
-           version, and the memory bound.  Then the grouped B.3, B.4 and B.5
-           (one launch over every leaf of a matching, B.4 as thread-block
-           clusters, B.3 as B.5's kernel with no mask) against the one-leaf
-           plain versions bit for bit: the MLP's 6 leaves, the CNN's 12, the
-           three layouts as groups and a group of 20 leaves (over the cap: 2
-           launches), every mask, src and qmax; and a grouped call timed
+           version, and the memory bound.  Then the grouped B.2, B.3, B.4
+           and B.5 (one launch over every leaf of a round or matching, B.4
+           as thread-block clusters, B.2 as B.4's kernel and B.3 as B.5's
+           with no mask) against the one-leaf plain versions bit for bit:
+           the MLP's 6 leaves, the CNN's 12, the three layouts as groups
+           and a group of 20 leaves (over the cap: 2 launches), every
+           mask, src and qmax; and a grouped call timed
            against the one-leaf calls of every leaf of the MLP and of the
            CNN, in turns, with the cluster size and the leaf cap as built.
   b1-kernel  the gossip update (B.1) against its plain version: the
@@ -36,22 +37,30 @@ PyTorch version:
            neighbours, float32 and bfloat16) bit for bit, the node-stacked
            form at every fmnist leaf (K = 10) and every qwen2-0.5b leaf
            (K = 8) within STACKED_REL of max |out|; times one call per leaf.
+           Then the grouped stacked form (one launch over every leaf) at
+           both leaf sets: equal to the one-leaf kernel bit for bit, timed
+           against the one-leaf calls of every leaf, in turns.
   fmnist   TrainerSpec -> DecentralizedTrainer at the paper's configuration
            (K = 10, ER(p = 0.3) seed 0, Metropolis W, mu = 6, T = 300,
            lr = sqrt(K/T), B = 55, MLP 784-128-64-10): DR-DSGD with the
-           uncompressed dense wire (SGD and the static W fused into B.1:
-           300 x 6 launches), then with the int8 error-feedback wire served
-           by the CUDA quantizer (300 x 6 launches); no plain version
-           called.
+           uncompressed dense wire (SGD and the static W fused into B.1,
+           one grouped launch per step over every leaf: 300 launches), then
+           with the int8 error-feedback wire served by the CUDA quantizer
+           (one grouped B.2 launch per round: 300); no plain version
+           called; both must print the per-leaf launches' loss_step300,
+           acc_worst_dist and acc_avg to the bit (PER_LEAF_DENSE).
   b1-nodes one fmnist dense step recomputed node by node through
            gossip_update_tree (B.1's per-node form, 10 x 6 launches) and
-           held against the fused step.
+           held against the fused step; and (b1-leaves) its stacked update
+           leaf by leaf through gossip_update_stacked (6 launches), equal
+           bit for bit to one grouped call.
   gossip   the same configuration over the gossip lowering (a pre-built
            mixer handed to TrainerSpec.build, as the reference's benchmarks
            do), 300 steps on each of four stacks: uncompressed static gossip
            (params within 1e-5 of the dense run's after 20 steps, 1e-3 after
            300: the two sum in another order), the static int8 EF
-           wire (B.2 per leaf + grouped B.3: 300 x 5 launches; it must print
+           wire (grouped B.2 once per round: 300 launches, and grouped B.3
+           once per matching: 300 x 5; it must print
            the per-leaf B.3 wire's loss_step300, acc_worst_dist and acc_avg
            to the bit, PER_LEAF_TRAJECTORIES), and dropout p = 0.2 with the
            memoryless masked
@@ -73,11 +82,16 @@ PyTorch version:
            (grouped B.3, 5 launches each) and with the quantizer's grouped
            call hidden (the one-leaf B.3, 6 x 5 launches each): θ, θ̂ and
            the mix cache equal bit for bit.
+  b2-leaves  two dense int8 EF rounds on the fmnist MLP through the mixer
+           (grouped B.2, one launch each) and with the wire's grouped call
+           hidden (the one-leaf B.2, 6 launches each): θ and θ̂ equal bit
+           for bit.
   profile  30 fmnist steps of four stacks under torch.profiler: the
            device's busy share and the kernels that take its time.
   cifar    the CNN (K = 10, p = 0.5, gradients clipped at norm 2 as in the
            repo's CIFAR benchmark), dense int8-kernel wire, 50 steps; losses
-           finite, launches must be 50 x 12 leaves.
+           finite, launches must be 50 (one grouped B.2 over the 12 leaves
+           per round).
   parity   20 uncompressed dense fmnist steps on the card vs the port on the
            CPU, and 20 steps of the dense int8-kernel wire and of the three
            compressed gossip stacks vs the CPU's plain versions with the
@@ -90,11 +104,12 @@ PyTorch version:
            pinned (sdpa_yardstick), timed as a call and as device time.
   train-lm qwen2-0.5b at full width and depth through the training CLI
            (train_lm's defaults: K = 8 ring, batch 2, seq 64, lr 0.01, clip
-           1), 20 steps: B.6 forward and backward 24 x 8 per step, B.1 once
-           per leaf, no plain call; every metric finite, the first batch's
-           loss lower after the run, ms per step, tokens per second, peak
-           memory, one profiled step (with B.6's device time in it).  Then
-           seq 512 at K = 4, 5 steps (multi-tile B.6 backward).
+           1), 20 steps: B.6 forward and backward 24 x 8 per step, grouped
+           B.1 once per step over the 14 leaves, no plain call; every
+           metric finite, the first batch's loss lower after the run, ms
+           per step, tokens per second, peak memory, one profiled step
+           (with B.6's device time in it).  Then seq 512 at K = 4, 5 steps
+           (multi-tile B.6 backward).
   train-parity  qwen2-0.5b cut to 2 layers at full width, K = 4, 3 steps:
            the same weights and tokens on the card and on the CPU, losses
            and every leaf within TRAIN_PARITY_REL, updates within
@@ -182,11 +197,12 @@ SRC = "src/repro_torch/kernels/"
 TPU = "src/repro/kernels/"
 # kernel -> (source, the TPU kernel's pallas_call, the CUDA kernels' names)
 KERNELS = {
-    "quantize_blockwise": (SRC + "quant_gossip/csrc/quantize.cu",
-                           TPU + "quant_gossip/kernel.py:98", ("absmax_kernel", "quantize_kernel")),
-    # B.3, B.4 and B.5: one kernel each (B.3 is B.5's without a mask),
-    # called per leaf (a one-leaf group) or over every leaf of a matching
-    # (the grouped entry points, the path)
+    # B.2, B.3, B.4 and B.5: two kernels (B.2 is B.4's without a mask, B.3
+    # B.5's), called per leaf (a one-leaf group) or over every leaf of a
+    # round or matching (the grouped entry points, the path)
+    "quantize_blockwise": (SRC + "quant_gossip/csrc/masked_grouped.cu",
+                           TPU + "quant_gossip/kernel.py:98",
+                           ("masked_quantize_grouped_kernel",)),
     "dequant_accumulate": (SRC + "quant_gossip/csrc/masked_grouped.cu",
                            TPU + "quant_gossip/kernel.py:125",
                            ("masked_dequant_acc_grouped_kernel",)),
@@ -205,25 +221,34 @@ KERNELS = {
     "dequant_accumulate_grouped_": (SRC + "quant_gossip/csrc/masked_grouped.cu",
                                     TPU + "quant_gossip/kernel.py:125",
                                     ("masked_dequant_acc_grouped_kernel",)),
+    "quantize_blockwise_grouped": (SRC + "quant_gossip/csrc/masked_grouped.cu",
+                                   TPU + "quant_gossip/kernel.py:98",
+                                   ("masked_quantize_grouped_kernel",)),
     "flash_attention_fwd": (SRC + "flash_attention/csrc/flash_fwd.cu",
                             TPU + "flash_attention/kernel.py:100", ("flash_fwd_mma_kernel",)),
     "wkv6_scan": (SRC + "rwkv6_scan/csrc/wkv6.cu", TPU + "rwkv6_scan/kernel.py:65",
                   ("wkv6_keysplit_kernel",)),
     "gossip_update": (SRC + "gossip_update/csrc/gossip_update.cu",
                       TPU + "gossip_update/kernel.py:54", ("gossip_update_kernel",)),
+    # B.1 stacked: one kernel, called per leaf (a one-leaf group) or over
+    # every leaf of a step (the grouped entry point, the path)
     "gossip_update_stacked": (SRC + "gossip_update/csrc/gossip_update.cu",
                               TPU + "gossip_update/kernel.py:54",
-                              ("gossip_update_stacked_kernel",)),
+                              ("gossip_update_stacked_grouped_kernel",)),
+    "gossip_update_stacked_grouped": (SRC + "gossip_update/csrc/gossip_update.cu",
+                                      TPU + "gossip_update/kernel.py:54",
+                                      ("gossip_update_stacked_grouped_kernel",)),
     # the backward of B.6: the reference differentiates its XLA attention
     "flash_attention_bwd": (SRC + "flash_attention/csrc/flash_bwd.cu",
                             TPU + "flash_attention/kernel.py:100",
                             ("bwd_mma_kernel", "bwd_reduce_kernel")),
 }
-QUANT = tuple(KERNELS)[:7]
+QUANT = tuple(KERNELS)[:8]   # the quant_gossip wrappers
 GROUPED = QUANT[4:]
 ONE_LEAF = {"masked_quantize_blockwise_grouped": "masked_quantize_blockwise",
             "masked_dequant_accumulate_grouped_": "masked_dequant_accumulate",
-            "dequant_accumulate_grouped_": "dequant_accumulate"}
+            "dequant_accumulate_grouped_": "dequant_accumulate",
+            "quantize_blockwise_grouped": "quantize_blockwise"}
 # (loss_step300, acc_worst_dist, acc_avg) that these stacks printed on an
 # H100 in four runs of the one-leaf masked wire, to the bit: the grouped
 # wire changes no bit
@@ -237,6 +262,14 @@ ONE_LEAF_TRAJECTORIES = {
 # on an H100 in two runs of one call: grouped B.3 changes no bit
 PER_LEAF_TRAJECTORIES = {
     "gossip-int8-kernel-ef": (0.4425765573978424, 0.5349999666213989, 0.7104999423027039),
+}
+# the same three of the fmnist dense runs, uncompressed (the fused step,
+# B.1 once per leaf) and int8 EF (B.2 once per leaf), which the parent
+# printed on an H100 in two runs of one call: grouped B.1 and B.2 change no
+# bit
+PER_LEAF_DENSE = {
+    "none": (0.4424481987953186, 0.5299999713897705, 0.7099999189376831),
+    "int8-kernel": (0.442539781332016, 0.5349999666213989, 0.7104999423027039),
 }
 # (loss_step0, loss_last, loss_worst_max) of the CIFAR static EF gossip run
 # (20 steps) through the per-leaf B.3 with cuDNN held deterministic, the
@@ -378,6 +411,8 @@ def _counters() -> dict:
     out["wkv6_scan"] = (wk.wkv6_scan, wops.wkv6)
     out["gossip_update"] = (gk.gossip_update, gops.gossip_update_flat)
     out["gossip_update_stacked"] = (gk.gossip_update_stacked, gops.gossip_update_stacked)
+    out["gossip_update_stacked_grouped"] = (gk.gossip_update_stacked_grouped,
+                                            gops.gossip_update_stacked_grouped)
     # B.6's dispatcher counts the plain version's calls of both directions
     out["flash_attention_bwd"] = (fk.flash_attention_bwd, fops.flash_attention)
     return out
@@ -599,12 +634,12 @@ GROUP_LAYOUTS = {"2 blocks": (K, [131072, 100352, 10], 65536),
 
 
 def _grouped_kernels(mlp_leaves, cnn_leaves, fmnist_srcs, gen) -> dict:
-    """B.3, B.4 and B.5 over every leaf of a group, one launch per
+    """B.2, B.3, B.4 and B.5 over every leaf of a group, one launch per
     MAX_GROUP_LEAVES leaves, against the one-leaf plain versions bit for
     bit: the fmnist MLP's 6 leaves, the CNN's 12, the three layout cases as
     groups and a group over the leaf cap (20 leaves, 2 launches); masks all
-    ones, all zeros and mixed (B.4, B.5), qmax 127 and 7, src None and each
-    matching.  Then, at the MLP and the CNN, one grouped call against the
+    ones, all zeros and mixed (B.4, B.5), qmax 127 and 7 (B.2, B.4), src
+    None and each matching.  Then, at the MLP and the CNN, one grouped call against the
     one-leaf calls of every leaf, in turns (one-leaf, grouped, grouped,
     one-leaf): call time (CUDA events), device time (every device entry of a
     call under the profiler: the one-leaf B.4's scratch-free launch, B.3's
@@ -677,6 +712,14 @@ def _grouped_kernels(mlp_leaves, cnn_leaves, fmnist_srcs, gen) -> dict:
                     raise AssertionError("[kernel] the grouped accumulate is not in place")
                 expect_equal("masked_dequant_accumulate_grouped_",
                              f"{what} mask {mname} src {i}", got, want, n_launch, before)
+        for qmax in (127.0, 7.0):  # B.2: no mask
+            before = qk.quantize_blockwise_grouped.launches
+            got = qk.quantize_blockwise_grouped(xs, us, qmax=qmax, block_d=block_d)
+            want = [qref.quantize_blockwise_ref(x, u, qmax=qmax, block_d=block_d)
+                    for x, u in zip(xs, us)]
+            expect_equal("quantize_blockwise_grouped", f"{what} qmax {qmax}",
+                         [t for p in got for t in p], [t for p in want for t in p], n_launch,
+                         before)
         for i, src in enumerate(srcs):  # B.3: no mask
             accs = [a.clone() for a in accs0]
             before = qk.dequant_accumulate_grouped_.launches
@@ -717,6 +760,10 @@ def _grouped_kernels(mlp_leaves, cnn_leaves, fmnist_srcs, gen) -> dict:
                 lambda: [qk.dequant_accumulate(a, q, s, w, src=src)
                          for a, (q, s) in zip(accs, payloads)],
                 lambda: qref.dequant_accumulate_grouped_ref_(accs, payloads, w, src=src)),
+            "quantize_blockwise_grouped": (
+                lambda: qk.quantize_blockwise_grouped(xs, us, block_d=block_d),
+                lambda: [qk.quantize_blockwise(x, u, block_d=block_d) for x, u in zip(xs, us)],
+                lambda: qref.quantize_blockwise_grouped_ref(xs, us, block_d=block_d)),
         }
         for name, (grouped, one_leaf, plain) in calls.items():
             bounds = [kernel_bound(ONE_LEAF[name], k, d, qk.num_blocks(d, block_d))
@@ -862,9 +909,17 @@ def phase_fmnist(spec_cls, cfg_cls) -> tuple[dict, dict]:
                            ("int8-kernel", cfg_cls(kind="int8", use_kernel=True))):
         rec, state, counts = _fmnist_run("fmnist", wire, _spec(spec_cls, exp, compress),
                                          exp, fed, batches, params)
-        # the uncompressed dense step is SGD + the static W: fused into B.1
-        check_counts(f"fmnist {wire}", counts, {"quantize_blockwise": exp.steps * 6}
-                     if wire == "int8-kernel" else {"gossip_update_stacked": exp.steps * 6})
+        # the uncompressed dense step is SGD + the static W: fused into B.1,
+        # one launch per step over every leaf; the int8 wire quantizes every
+        # leaf of a round in one B.2 launch
+        check_counts(f"fmnist {wire}", counts, {"quantize_blockwise_grouped": exp.steps}
+                     if wire == "int8-kernel" else {"gossip_update_stacked_grouped": exp.steps})
+        got = (rec["loss_step300"], rec["acc_worst_dist"], rec["acc_avg"])
+        if got != PER_LEAF_DENSE[wire]:
+            raise AssertionError(f"[fmnist] {wire}: (loss_step300, acc_worst_dist, acc_avg) = "
+                                 f"{got}, the per-leaf launches printed {PER_LEAF_DENSE[wire]}")
+        log(f"[fmnist] {wire}: loss_step300, acc_worst_dist and acc_avg are the per-leaf "
+            f"launches' to the bit")
         out[wire] = rec
         if wire == "none":
             dense_params = state.params
@@ -900,11 +955,12 @@ GOSSIP_STACKS = ("gossip-none", "gossip-int8-kernel-ef", "dropout0.2-int8-kernel
 
 
 def _gossip_launches(stack: str, steps: int, leaves: int, matchings: int) -> dict:
-    """The static EF wire: B.2 per leaf, one grouped B.3 per matching; the
-    masked wires: one grouped B.4 per matching (memoryless) or per round
-    (EF), one grouped B.5 per matching of a round that sends payloads."""
+    """The static EF wire: one grouped B.2 per round (per 16 leaves), one
+    grouped B.3 per matching; the masked wires: one grouped B.4 per
+    matching (memoryless) or per round (EF), one grouped B.5 per matching of
+    a round that sends payloads."""
     if stack == "gossip-int8-kernel-ef":
-        return {"quantize_blockwise": steps * leaves,
+        return {"quantize_blockwise_grouped": steps * -(-leaves // 16),
                 "dequant_accumulate_grouped_": steps * matchings}
     if stack == "dropout0.2-int8-kernel-memoryless":
         return {"masked_quantize_blockwise_grouped": steps * matchings,
@@ -1005,16 +1061,17 @@ def phase_b45_leaves(cfg_cls) -> dict:
     return rec
 
 
-class _PerLeafB3:
-    """The kernel quantizer without its grouped accumulate: a static round
-    then accumulates leaf by leaf through the one-leaf B.3, as it did before
-    B.3 was grouped."""
+class _Without:
+    """The kernel quantizer without one of its grouped calls: a round then
+    goes leaf by leaf through the one-leaf kernel, as it did before that
+    kernel was grouped (``accumulate_grouped_``: B.3; ``compress_grouped``:
+    B.2)."""
 
-    def __init__(self, quantizer):
-        self._q = quantizer
+    def __init__(self, quantizer, hidden: str):
+        self._q, self._hidden = quantizer, hidden
 
     def __getattr__(self, name):
-        if name == "accumulate_grouped_":
+        if name == self._hidden:
             raise AttributeError(name)
         return getattr(self._q, name)
 
@@ -1035,7 +1092,7 @@ def phase_b3_leaves(cfg_cls) -> dict:
     decomp = _matchings(exp.p, exp.seed)
     grouped = _gossip_mixer("gossip-int8-kernel-ef", decomp, w, exp.seed, cfg_cls)
     per_leaf = _gossip_mixer("gossip-int8-kernel-ef", decomp, w, exp.seed, cfg_cls)
-    per_leaf.compressor = _PerLeafB3(per_leaf.compressor)
+    per_leaf.compressor = _Without(per_leaf.compressor, "accumulate_grouped_")
     gen = torch.Generator(device="cuda").manual_seed(exp.seed)
     theta = {n: x + 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
              for n, x in replicate_params(params, K).items()}
@@ -1050,9 +1107,9 @@ def phase_b3_leaves(cfg_cls) -> dict:
         counts[tag] = kernel_counts()
         runs[tag] = (t, state)
     check_counts("b3-leaves grouped", counts["grouped"],
-                 {"quantize_blockwise": 2 * leaves, "dequant_accumulate_grouped_": 2 * m})
+                 {"quantize_blockwise_grouped": 2, "dequant_accumulate_grouped_": 2 * m})
     check_counts("b3-leaves per-leaf", counts["per-leaf"],
-                 {"quantize_blockwise": 2 * leaves, "dequant_accumulate": 2 * leaves * m})
+                 {"quantize_blockwise_grouped": 2, "dequant_accumulate": 2 * leaves * m})
     (ta, sa), (tb, sb) = runs["grouped"], runs["per-leaf"]
     equal = {n: bool(torch.equal(ta[n], tb[n]) and torch.equal(sa.hat[n], sb.hat[n])
                      and torch.equal(sa.hat_mix[n], sb.hat_mix[n])) for n in theta}
@@ -1061,6 +1118,50 @@ def phase_b3_leaves(cfg_cls) -> dict:
     log("[b3-leaves] " + json.dumps(rec))
     if not all(equal.values()):
         raise AssertionError("[b3-leaves] the grouped round is not the leaf-by-leaf round")
+    return rec
+
+
+def phase_b2_leaves(cfg_cls) -> dict:
+    """Two rounds of the dense int8 EF wire on the fmnist MLP (K = 10, the
+    seeded weights plus seeded noise per node) through the mixer (one
+    grouped B.2 launch per round over every leaf), and the same rounds from
+    the same states with the wire's grouped call hidden (the one-leaf B.2,
+    one launch per leaf and round): θ and θ̂ equal bit for bit."""
+    import torch
+
+    from repro_torch.core.consensus import make_dense_mixer
+    from repro_torch.core.drdsgd import replicate_params
+    from repro_torch.graphs import build_graph, metropolis_weights
+
+    exp, _, _, params = _fmnist()
+    w = metropolis_weights(build_graph("erdos_renyi", K, p=exp.p, seed=exp.seed))
+    cfg = cfg_cls(kind="int8", use_kernel=True)
+    grouped = make_dense_mixer(w, compression=cfg, device="cuda")
+    per_leaf = make_dense_mixer(w, compression=cfg, device="cuda")
+    per_leaf.wire.compressor = _Without(per_leaf.wire.compressor, "compress_grouped")
+    gen = torch.Generator(device="cuda").manual_seed(exp.seed)
+    theta = {n: x + 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
+             for n, x in replicate_params(params, K).items()}
+    leaves = len(theta)
+    runs, counts = {}, {}
+    for tag, mixer in (("grouped", grouped), ("per-leaf", per_leaf)):
+        t, state = theta, mixer.init_state(theta)
+        reset_counts()
+        for _ in range(2):
+            t, state = mixer(t, state)
+        torch.cuda.synchronize()
+        counts[tag] = kernel_counts()
+        runs[tag] = (t, state)
+    check_counts("b2-leaves grouped", counts["grouped"], {"quantize_blockwise_grouped": 2})
+    check_counts("b2-leaves per-leaf", counts["per-leaf"], {"quantize_blockwise": 2 * leaves})
+    (ta, sa), (tb, sb) = runs["grouped"], runs["per-leaf"]
+    equal = {n: bool(torch.equal(ta[n], tb[n]) and torch.equal(sa.hat[n], sb.hat[n]))
+             for n in theta}
+    rec = dict(rounds=2, leaves=leaves, equal=equal,
+               launches={n: c[0] for n, c in counts["per-leaf"].items() if c[0]})
+    log("[b2-leaves] " + json.dumps(rec))
+    if not all(equal.values()):
+        raise AssertionError("[b2-leaves] the grouped round is not the leaf-by-leaf round")
     return rec
 
 
@@ -1210,13 +1311,13 @@ def phase_cifar(spec_cls, cfg_cls) -> dict:
                     compress=cfg_cls(kind="int8", use_kernel=True), device="cuda")
     trainer, state, ms, ms_step, counts = _train(
         spec, make_classifier_loss(cnn_apply), cnn_apply, params, batches, CIFAR_STEPS, warm)
-    check_counts("cifar", counts, {"quantize_blockwise": CIFAR_STEPS * 12})
+    check_counts("cifar", counts, {"quantize_blockwise_grouped": CIFAR_STEPS})
     rec = dict(wire="int8-kernel", steps=CIFAR_STEPS, batch=exp.batch_size,
                grad_clip=CIFAR_GRAD_CLIP, loss_step0=float(ms["loss_mean"][0]),
                loss_last=float(ms["loss_mean"][-1]),
                loss_worst_max=float(ms["loss_worst"].max()),
                comm_bytes=float(ms["comm_bytes"][-1]), ms_per_step=ms_step,
-               launches=counts["quantize_blockwise"][0])
+               launches=counts["quantize_blockwise_grouped"][0])
     log("[cifar] " + json.dumps(rec))
     return rec
 
@@ -1970,6 +2071,99 @@ def phase_gossip_update_kernels(mlp_leaves) -> dict:
                                for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
                            for g in {r["group"] for r in rec["rows"]}}
         log(f"[b1-kernel] {name}: one call per leaf: " + json.dumps(rec["per_step"]))
+    out["gossip_update_stacked_grouped"] = _stacked_grouped(
+        [("mlp", K, [(d,) for _, d in mlp_leaves], w_fm),
+         ("qwen2", LM_NODES, [shape for _, shape in sorted(lm_shapes.items())], w_ring)], gen,
+        {g: v["plain_ms"] for g, v in out["gossip_update_stacked"]["per_step"].items()})
+    return out
+
+
+def _stacked_grouped(groups, gen, plain_ms) -> dict:
+    """B.1 stacked over every leaf of a step in one launch, at the fmnist
+    MLP's leaves (K = 10) and qwen2-0.5b's (K = 8): each output equal to
+    the one-leaf kernel's bit for bit and within STACKED_REL of the plain
+    version; then the grouped call against the one-leaf calls of every
+    leaf, in turns (one-leaf, grouped, grouped, one-leaf): call time (CUDA
+    events) and device time (every device entry of a call, the profiler's
+    median window), and the bound (the sum of the leaves').  The plain
+    version (the one-leaf plain calls in turn) is ``plain_ms[group]``, the
+    one-leaf rows' sum: at qwen2 its outputs and temporaries beside the
+    inputs would not fit the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.gossip_update import kernel as gk
+    from repro_torch.kernels.gossip_update import ref as gref
+
+    cfg = gk.config()
+    if cfg != dict(max_group_leaves=gk.MAX_GROUP_LEAVES, max_nodes=gk.MAX_NODES,
+                   stacked_cols=gk.STACKED_COLS):
+        raise AssertionError(f"[b1-kernel] gossip_update.cu's sizes {cfg} are not the wrapper's")
+    out = dict(max_abs_err=0.0, max_rel_err=0.0, rows=[], **cfg)
+    for group, k, shapes, w_np in groups:
+        thetas = [torch.randn((k, *shape), generator=gen, device="cuda") for shape in shapes]
+        grads = [torch.randn((k, *shape), generator=gen, device="cuda") for shape in shapes]
+        w = torch.from_numpy(np.asarray(w_np, np.float32)).cuda()
+        s = torch.rand((k,), generator=gen, device="cuda") + 0.5
+        before = gk.gossip_update_stacked_grouped.launches
+        got = gk.gossip_update_stacked_grouped(thetas, grads, w, s, eta=0.01)
+        launches = gk.gossip_update_stacked_grouped.launches - before
+        if launches != len(gk.leaf_tables([t.numel() // k for t in thetas])):
+            raise AssertionError(f"[b1-kernel] grouped stacked {group}: {launches} launches")
+        for i in range(len(shapes)):
+            one = gk.gossip_update_stacked(thetas[i], grads[i], w, s, eta=0.01)
+            if not torch.equal(got[i], one):
+                raise AssertionError(f"[b1-kernel] grouped stacked {group} leaf {i} != the "
+                                     f"one-leaf kernel (max abs err {_max_diff(got[i], one)})")
+            del one
+            want = gref.gossip_update_stacked_ref(thetas[i], grads[i], w, s, eta=0.01)
+            diff = (got[i] - want).abs_()  # float32: a qwen2 leaf in double would not fit
+            err = float(diff.max())
+            rel = err / max(float(want.abs().max()), 1e-30)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out["max_rel_err"] = max(out["max_rel_err"], rel)
+            if rel > STACKED_REL:
+                raise AssertionError(f"[b1-kernel] grouped stacked {group} leaf {i}: {rel} of "
+                                     f"max |out| > {STACKED_REL}")
+            del want, diff
+        del got
+        torch.cuda.empty_cache()
+        big = sum(t.numel() for t in thetas) > 1 << 26
+        iters = 5 if big else 200
+
+        def grouped():
+            gk.gossip_update_stacked_grouped(thetas, grads, w, s, eta=0.01)
+
+        def one_leaf():
+            for theta, grad in zip(thetas, grads):
+                gk.gossip_update_stacked(theta, grad, w, s, eta=0.01)
+
+        readings = {"one_leaf": [], "grouped": []}
+        for side in ("one_leaf", "grouped", "grouped", "one_leaf"):
+            fn = grouped if side == "grouped" else one_leaf
+            readings[side].append((cuda_ms(fn, iters=iters, warmup=2),
+                                   window_device_ms(fn, 3 if big else 50)))
+        mean = {side: [sum(r[j] for r in rs) / len(rs) for j in (0, 1)]
+                for side, rs in readings.items()}
+        bounds = [gossip_bound(k, t.numel() // k, None) for t in thetas]
+        row = dict(group=group, leaves=len(shapes), k=k, launches=launches,
+                   ms=mean["grouped"][0], device_ms=mean["grouped"][1],
+                   one_leaf_ms=mean["one_leaf"][0], one_leaf_device_ms=mean["one_leaf"][1],
+                   plain_ms=plain_ms[group], bound_ms=sum(b for b, _ in bounds),
+                   bound_by="bytes" if {by for _, by in bounds} == {"bytes"} else "operations",
+                   readings=readings)
+        out["rows"].append(row)
+        log(f"[b1-kernel] grouped stacked {group}: device {1e3 * row['device_ms']:.2f} us call "
+            f"{1e3 * row['ms']:.2f} us ({launches} launch) | {len(shapes)} one-leaf calls "
+            f"device {1e3 * row['one_leaf_device_ms']:.2f} us call "
+            f"{1e3 * row['one_leaf_ms']:.2f} us | plain {1e3 * row['plain_ms']:.2f} us | bound "
+            f"{1e3 * row['bound_ms']:.3f} us ({row['bound_by']}); readings (call, device ms) "
+            f"{readings}")
+        del thetas, grads
+        torch.cuda.empty_cache()
+    out["per_step"] = {r["group"]: {key: r[key] for key in (
+        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "one_leaf_ms",
+        "one_leaf_device_ms")} for r in out["rows"]}
     return out
 
 
@@ -2063,10 +2257,10 @@ FLASH_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms
 
 def _lm_counts(nodes: int, steps: int, layers: int, leaves: int) -> dict:
     """Launches of one LM training run: B.6 forward and backward on every
-    attention layer of every node, B.1 once per leaf, every step."""
+    attention layer of every node, B.1 once per 16 leaves, every step."""
     per = steps * nodes * layers
     return {"flash_attention_fwd": per, "flash_attention_bwd": per,
-            "gossip_update_stacked": steps * leaves}
+            "gossip_update_stacked_grouped": steps * -(-leaves // 16)}
 
 
 def _node_losses(trainer, state, batch) -> list:
@@ -2238,7 +2432,8 @@ def phase_train_parity(spec_cls) -> dict:
         state, m = trainer.step(trainer.init(params), batch)
         outs.append((state.params, m, kernel_counts()))
     (pf, mf, cf), (pu, mu, cu) = outs
-    if cf["gossip_update_stacked"][0] != len(pf) or cu["gossip_update_stacked"][0] != 0:
+    if cf["gossip_update_stacked_grouped"][0] != -(-len(pf) // 16) or \
+            cu["gossip_update_stacked_grouped"][0] != 0:
         raise AssertionError(f"[train-parity] fused {cf} / unfused {cu} launches of B.1")
     rec["fused_vs_unfused_rel_err"] = max(_rel_err(pf[n], pu[n]) for n in pf)
     rec["fused_vs_unfused_bitwise_leaves"] = sum(bool(torch.equal(pf[n], pu[n])) for n in pf)
@@ -2257,11 +2452,18 @@ def phase_gossip_update_nodes(spec_cls) -> dict:
     """The per-node form's path: one fmnist dense DR-DSGD step recomputed
     node by node through ``gossip_update_tree`` (node i combines its own
     update with its neighbours' updated parameters, Alg. 2 lines 3-4) and
-    held against the fused step's output, row by row."""
+    held against the fused step's output, row by row.  The one-leaf
+    stacked form's path (b1-leaves): the same update leaf by leaf through
+    ``gossip_update_stacked``, bit-equal to one grouped call over every
+    leaf."""
     import torch
 
     from repro_torch.core.robust import robust_scale
-    from repro_torch.kernels.gossip_update.ops import gossip_update_tree
+    from repro_torch.kernels.gossip_update.ops import (
+        gossip_update_stacked,
+        gossip_update_stacked_grouped,
+        gossip_update_tree,
+    )
     from repro_torch.models import make_classifier_loss, mlp_apply
 
     exp, fed, batches, params = _fmnist()
@@ -2289,13 +2491,30 @@ def phase_gossip_update_nodes(spec_cls) -> dict:
     torch.cuda.synchronize()
     counts = kernel_counts()
     check_counts("b1-nodes", counts, {"gossip_update": K * len(names)})
+    # the stacked form of the same update: one grouped launch over every
+    # leaf, then leaf by leaf through the one-leaf calls
+    reset_counts()
+    grouped = gossip_update_stacked_grouped([state.params[n] for n in names],
+                                            [grads[n] for n in names], w, scale, eta=eta)
+    one_leaf = [gossip_update_stacked(state.params[n], grads[n], w, scale, eta=eta)
+                for n in names]
+    torch.cuda.synchronize()
+    stacked = kernel_counts()
+    check_counts("b1-leaves", stacked, {"gossip_update_stacked_grouped": 1,
+                                        "gossip_update_stacked": len(names)})
+    leaves_equal = all(torch.equal(a, b) for a, b in zip(grouped, one_leaf))
     fused, _ = trainer.step(state, batch)
     err = max(_rel_err(torch.stack([r[n] for r in rows]), fused.params[n]) for n in names)
+    err_stacked = max(_rel_err(g, fused.params[n]) for g, n in zip(grouped, names))
     rec = dict(nodes=K, leaves=len(names), launches=counts["gossip_update"][0],
-               rel_err_vs_fused_step=err)
+               stacked_launches=stacked["gossip_update_stacked"][0],
+               rel_err_vs_fused_step=err, one_leaf_equals_grouped=leaves_equal,
+               grouped_rel_err_vs_fused_step=err_stacked)
     log("[b1-nodes] " + json.dumps(rec))
-    if err > STACKED_REL:
-        raise AssertionError(f"[b1-nodes] per-node B.1 vs the fused step: {err}")
+    if err > STACKED_REL or err_stacked > STACKED_REL:
+        raise AssertionError(f"[b1-nodes] per-node or grouped B.1 vs the fused step: {rec}")
+    if not leaves_equal:
+        raise AssertionError("[b1-nodes] the one-leaf stacked calls are not the grouped call")
     return rec
 
 
@@ -2328,6 +2547,7 @@ def main() -> int:
     gossip = phase_gossip(TrainerSpec, CompressionConfig, dense_params)
     b45 = phase_b45_leaves(CompressionConfig)
     b3 = phase_b3_leaves(CompressionConfig)
+    b2 = phase_b2_leaves(CompressionConfig)
     phase_profile(TrainerSpec, CompressionConfig)
     phase_cifar(TrainerSpec, CompressionConfig)
     phase_parity(TrainerSpec, CompressionConfig)
@@ -2344,26 +2564,35 @@ def main() -> int:
     phase_serve_parity("qwen2_0_5b", 64)
     phase_serve_parity("rwkv6_7b", 32)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
-    # launches on each kernel's main path: B.2 the dense int8 fmnist run,
-    # grouped B.3 the static EF gossip run, grouped B.4/B.5 the memoryless
-    # dropout run, their one-leaf calls the leaf-by-leaf rounds (b3-leaves,
-    # b45-leaves)
+    # launches on each kernel's main path: grouped B.2 the dense int8 fmnist
+    # run (and the static EF gossip run), grouped B.3 the static EF gossip
+    # run, grouped B.4/B.5 the memoryless dropout run, their one-leaf calls
+    # the leaf-by-leaf rounds (b2-leaves, b3-leaves, b45-leaves)
     memoryless = gossip["dropout0.2-int8-kernel-memoryless"]["launches"]
-    path = {"quantize_blockwise": fm["int8-kernel"]["launches"],
+    path = {"quantize_blockwise": b2["launches"],
             "dequant_accumulate": b3["launches"],
             "masked_quantize_blockwise": b45["launches"],
             "masked_dequant_accumulate": b45["launches"],
             "masked_quantize_blockwise_grouped": memoryless,
             "masked_dequant_accumulate_grouped_": memoryless,
-            "dequant_accumulate_grouped_": gossip["gossip-int8-kernel-ef"]["launches"]}
-    # B.1 per node: its own path (b1-nodes); stacked and B.6's backward:
-    # the qwen2-0.5b training run
+            "dequant_accumulate_grouped_": gossip["gossip-int8-kernel-ef"]["launches"],
+            "quantize_blockwise_grouped": fm["int8-kernel"]["launches"]}
+    # B.1 per node: its own path (b1-nodes); stacked, grouped: the fmnist
+    # dense run (and the qwen2-0.5b training run); one leaf at a time:
+    # b1-leaves; B.6's backward: the qwen2-0.5b training run
     path["gossip_update"] = {"gossip_update": b1_nodes["launches"]}
-    for name in ("gossip_update_stacked", "flash_attention_bwd"):
-        path[name] = {name: lm["launches"][name]}
+    path["gossip_update_stacked"] = {"gossip_update_stacked": b1_nodes["stacked_launches"]}
+    path["gossip_update_stacked_grouped"] = fm["none"]["launches"]
+    path["flash_attention_bwd"] = {"flash_attention_bwd": lm["launches"]["flash_attention_bwd"]}
+    other_runs = {
+        "quantize_blockwise_grouped": {
+            "gossip-int8-kernel-ef": gossip["gossip-int8-kernel-ef"]["launches"][
+                "quantize_blockwise_grouped"]},
+        "gossip_update_stacked_grouped": {
+            "train-lm": lm["launches"]["gossip_update_stacked_grouped"]}}
     lines = []
     for name, (source, replaces, _) in KERNELS.items():
-        if name.startswith("gossip_update"):
+        if name in ("gossip_update", "gossip_update_stacked"):
             # one call per leaf: the fmnist MLP's (per node), qwen2-0.5b's (stacked)
             rows = [r for r in b1[name]["rows"]
                     if r["group"] == ("mlp" if name == "gossip_update" else "qwen2")]
@@ -2372,7 +2601,18 @@ def main() -> int:
                           bound_ms=step["bound_ms"],
                           bound_by="bytes" if {r["bound_by"] for r in rows} == {"bytes"}
                           else "operations", library_ms=None)
+            if name == "gossip_update_stacked":  # and at the fmnist MLP's leaves
+                timing["mlp"] = b1[name]["per_step"]["mlp"]
             err, launches = b1[name]["max_abs_err"], path[name][name]
+        elif name == "gossip_update_stacked_grouped":
+            # one call over the fmnist MLP's leaves (the path), beside the six
+            # one-leaf calls in the same turns; and over qwen2-0.5b's
+            rec = b1[name]
+            timing = dict(rec["per_step"]["mlp"], library_ms=None,
+                          qwen2=rec["per_step"]["qwen2"],
+                          max_group_leaves=rec["max_group_leaves"],
+                          stacked_cols=rec["stacked_cols"])
+            err, launches = rec["max_abs_err"], path[name][name]
         elif name == "flash_attention_bwd":  # one call at qwen2-0.5b's training shape
             row = bwd["rows"][0]
             timing = {key: row.get(key) for key in FLASH_KEYS}
@@ -2381,7 +2621,7 @@ def main() -> int:
             step = kern[name]["per_step"]["mlp"]
             bound_by = {r["bound_by"] for r in kern[name]["rows"] if r["group"] == "mlp"}
             # one call per leaf of the fmnist MLP at the main path's shapes
-            # (grouped: one call over all of its leaves)
+            # (grouped: one call over all of its leaves; and the CNN's)
             timing = dict(ms=step["ms"], device_ms=step["device_ms"], plain_ms=step["plain_ms"],
                           bound_ms=step["bound_ms"],
                           bound_by="bytes" if bound_by == {"bytes"} else "operations",
@@ -2390,6 +2630,7 @@ def main() -> int:
                 row = next(r for r in kern[name]["rows"] if r["group"] == "mlp")
                 timing.update(one_leaf_ms=row["one_leaf_ms"],
                               one_leaf_device_ms=row["one_leaf_device_ms"],
+                              cnn=kern[name]["per_step"]["cnn"],
                               cluster_size=kern[name]["cluster_size"],
                               max_group_leaves=kern[name]["max_group_leaves"])
             err, launches = kern[name]["max_abs_err"], path[name][name]
@@ -2399,6 +2640,8 @@ def main() -> int:
                 FLASH_KEYS if name == "flash_attention_fwd" else FLASH_KEYS[:6])}
             err = serve_kern[name]["max_abs_err"]
             launches = (qwen if name == "flash_attention_fwd" else rwkv)["launches"]
+        if name in other_runs:  # the kernel's launches on the other runs that take it
+            timing["launches_other_runs"] = other_runs[name]
         # ms is the wrapper's call time back to back (host launch cost
         # included), device_ms the kernels' own time under the profiler
         lines.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -276,24 +276,22 @@ class ComposedMixer(Mixer):
     def _dense_round(self, theta, state: CommState):
         """One compressed dense round: every node encodes each leaf (its
         innovation against θ̂ in EF mode), the public copies are mixed by W,
-        and θ moves by γ(Σ_j W_ij θ̂_j − θ̂_i) with the quantizers' γ = 1."""
+        and θ moves by γ(Σ_j W_ij θ̂_j − θ̂_i) with the quantizers' γ = 1.
+        An encode pass over every leaf (one B.2 launch on the card), then a
+        mix pass; the uniforms are drawn per (key, round, leaf), so this is
+        the leaf-by-leaf round bit for bit."""
         w = self._round_w(state)
+        names = leaf_names(theta)
+        xfs, hats, res_sq = self._flat_leaves(theta, state, w.device)
+        us = [self.wire.uniforms(state.key, state.rounds, i, xf) for i, xf in enumerate(xfs)]
+        encoded = self.wire.encode_leaves(xfs, hats, us)
         out_theta, out_hat = {}, {}
-        res_sq = torch.zeros((), dtype=torch.float32, device=w.device)
-        for i, name in enumerate(leaf_names(theta)):
-            x = theta[name]
-            k = x.shape[0]
-            xf = x.reshape(k, -1).float()
-            hf = state.hat[name].reshape(k, -1) if self.ef else None
+        for name, xf, (_, public, new_hat) in zip(names, xfs, encoded):
+            shape = theta[name].shape
+            out = xf + (w @ public - public)
+            out_theta[name] = out.reshape(shape).to(theta[name].dtype)
             if self.ef:
-                res_sq = res_sq + (xf - hf).square().sum()
-            u = self.wire.uniforms(state.key, state.rounds, i, xf)
-            _, public, new_hat = self.wire.encode_leaf(xf, hf, u)
-            mixed = w @ public
-            out = xf + (mixed - public)
-            out_theta[name] = out.reshape(x.shape).to(x.dtype)
-            if self.ef:
-                out_hat[name] = new_hat.reshape(x.shape)
+                out_hat[name] = new_hat.reshape(shape)
         # _replace, not CommState(...): fields this round does not own must
         # thread through untouched
         return out_theta, state._replace(

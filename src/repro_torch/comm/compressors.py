@@ -141,6 +141,13 @@ class KernelInt8Quantizer(IntQuantizer):
 
         return quantize_blockwise(x, u, qmax=float(self.qmax), block_d=self.block_d)
 
+    def compress_grouped(self, xs, us):
+        """:meth:`compress` of every leaf at once (one B.2 launch on the
+        card): [(q, scales)] per leaf, bit-identical to the one-leaf calls."""
+        from repro_torch.kernels.quant_gossip.ops import quantize_blockwise_grouped
+
+        return quantize_blockwise_grouped(xs, us, qmax=float(self.qmax), block_d=self.block_d)
+
     def decompress(self, payload, d):
         from repro_torch.kernels.quant_gossip.ops import dequantize_blockwise
 

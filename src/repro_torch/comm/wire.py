@@ -196,16 +196,17 @@ class CodecWire(Wire):
     def encode_leaves(self, xs, hats, us, send_mask=None):
         """:meth:`encode_leaf` of every leaf: [(payload, public', hat')].
 
-        With a send mask and a codec that quantizes a group at once (the
-        kernel quantizer: one B.4 launch per round on the card) every leaf
-        is encoded by one call; the payloads are the one-leaf calls' bit for
-        bit.
+        With a codec that quantizes a group at once (the kernel quantizer:
+        one B.2 launch per round on the card, one B.4 launch under a send
+        mask) every leaf is encoded by one call; the payloads are the
+        one-leaf calls' bit for bit.
         """
-        grouped = getattr(self.compressor, "compress_masked_grouped", None)
-        if send_mask is None or grouped is None:
+        grouped = getattr(self.compressor, "compress_grouped" if send_mask is None
+                          else "compress_masked_grouped", None)
+        if grouped is None:
             return [self.encode_leaf(x, h, u, send_mask) for x, h, u in zip(xs, hats, us)]
         blocks = [x - h for x, h in zip(xs, hats)] if self.ef else xs
-        payloads = grouped(blocks, us, send_mask)
+        payloads = grouped(blocks, us) if send_mask is None else grouped(blocks, us, send_mask)
         return [self._decoded(x, h, p) for x, h, p in zip(xs, hats, payloads)]
 
     def _decoded(self, x, hat, payload):

@@ -15,14 +15,15 @@ the sum with respect to the stacked leaves is every node's own gradient.
 
 Where the optimizer is plain :func:`~repro_torch.optim.sgd` and the mixer a
 static uncompressed dense round (``DenseMixer``), steps 2–4 are one call of
-the fused gossip update per leaf, ``W @ (θ − η·(s⊙g))`` (B.1 on the card):
-it reads θ and g once and writes the mixed parameters once, where the
-unfused step holds the scaled gradients, SGD's update and the mixer's
-output beside them.  Its plain version computes in the unfused order, so
-both give the same bits on the CPU; the metrics and the ``CommState`` are
-the same either way.  Every other stack, and any K above the stacked
-kernel's 64 nodes, runs the unfused step.  Per-node
-clipping scales the fresh gradients in place.
+the fused gossip update over every leaf, ``W @ (θ − η·(s⊙g))`` (B.1 on the
+card: one launch per step, per 16 leaves and per dtype of the leaves): it
+reads θ and g once and writes the mixed parameters once, where the unfused
+step holds the scaled gradients, SGD's update and the mixer's output beside
+them.  Its plain version computes in the unfused order, so both give the
+same bits on the CPU; the metrics and the ``CommState`` are the same either
+way.  Every other stack, and any K above the stacked kernel's 64 nodes,
+runs the unfused step.  Per-node clipping scales the fresh gradients in
+place.
 
 The metrics stay on the device as 0-d tensors; nothing in a step waits for
 the device.  The reference's telemetry tap, sanitizer and fault masks are
@@ -49,7 +50,7 @@ from repro_torch.core.robust import (
     robust_scale,
 )
 from repro_torch.kernels.gossip_update.kernel import MAX_NODES
-from repro_torch.kernels.gossip_update.ops import gossip_update_stacked
+from repro_torch.kernels.gossip_update.ops import gossip_update_stacked_grouped
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.utils.tree import leaf_names, tree_node_disagreement
 
@@ -112,6 +113,15 @@ def _fused_w(optimizer: Optimizer, mixer: Mixer):
     return mixer.w
 
 
+def _dtype_groups(params: dict, names: list) -> list[list]:
+    """``names`` split by their leaves' dtype, each in the order of
+    ``names`` (one group where every leaf has one dtype)."""
+    groups: dict = {}
+    for n in names:
+        groups.setdefault(params[n].dtype, []).append(n)
+    return list(groups.values())
+
+
 def _owned(grads: dict) -> bool:
     """Every gradient contiguous and in a storage of its own: safe to
     scale in place."""
@@ -151,10 +161,16 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
         scale = robust_scale(losses, cfg.robust)   # (K,)
         lam = mixture_weights(losses, cfg.robust)  # (K,) adversarial λ*
         if fused_w is not None:
-            # scale, SGD and the dense consensus round in one pass per leaf
+            # scale, SGD and the dense consensus round: one pass over every
+            # leaf of a dtype (one B.1 launch per step on the card)
             eta = optimizer.sgd_lr(state.step)
-            mixed = {n: gossip_update_stacked(state.params[n], grads[n], fused_w, scale,
-                                              eta=eta) for n in names}
+            mixed = {}
+            for group in _dtype_groups(state.params, names):
+                outs = gossip_update_stacked_grouped(
+                    [state.params[n] for n in group], [grads[n] for n in group], fused_w,
+                    scale, eta=eta)
+                mixed.update(zip(group, outs))
+            mixed = {n: mixed[n] for n in names}
             del grads  # a node-stacked copy of the parameters: free it before the metrics
             opt_state, comm = state.opt_state, mixer.round_state(state.params, state.comm)
         else:

@@ -65,6 +65,17 @@ def gossip_update_stacked(theta, grad, w, scale, *, eta: float):
     return _r.gossip_update_stacked_ref(theta, grad, w, scale, eta=eta)
 
 
+def gossip_update_stacked_grouped(thetas, grads, w, scale, *, eta: float):
+    """:func:`gossip_update_stacked` over every leaf of a group (lists of
+    (K, ...) ``thetas`` and ``grads`` of one dtype): one launch on the card.
+    Returns one new tensor per leaf."""
+    if _build.route("gossip_update_stacked_grouped", w):
+        return _k.gossip_update_stacked_grouped(thetas, grads, w, scale, eta=eta)
+    gossip_update_stacked_grouped.plain_calls += 1
+    return _r.gossip_update_stacked_grouped_ref(thetas, grads, w, scale, eta=eta)
+
+
 # how often the plain version served a call (CPU tensors only)
 gossip_update_flat.plain_calls = 0
 gossip_update_stacked.plain_calls = 0
+gossip_update_stacked_grouped.plain_calls = 0

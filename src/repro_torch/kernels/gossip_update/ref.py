@@ -7,8 +7,9 @@ Pallas kernel (``repro/kernels/gossip_update/kernel.py``): float32
 order of the port's unfused train step — the robust scale ``g·s``, SGD's
 ``θ − η·(g·s)``, then the dense mixer's ``W @ u`` in float32 — so a step
 that calls it computes the same bits as one that calls the optimizer and the
-mixer.  The CPU path of the port and the tests use them; on the card they
-serve only as the kernel's yardstick.
+mixer; ``gossip_update_stacked_grouped_ref`` is it over every leaf of a
+group, in order.  The CPU path of the port and the tests use them; on the
+card they serve only as the kernel's yardstick.
 """
 
 from __future__ import annotations
@@ -35,3 +36,9 @@ def gossip_update_stacked_ref(theta, grad, w, scale, *, eta: float):
     s = scale.reshape((-1,) + (1,) * (grad.ndim - 1)).to(grad.dtype)
     u = theta - eta * (grad * s).to(theta.dtype)
     return (w @ u.reshape(k, -1).float()).reshape(theta.shape).to(theta.dtype)
+
+
+def gossip_update_stacked_grouped_ref(thetas, grads, w, scale, *, eta: float):
+    """[:func:`gossip_update_stacked_ref` of each leaf], in order."""
+    return [gossip_update_stacked_ref(theta, grad, w, scale, eta=eta)
+            for theta, grad in zip(thetas, grads)]

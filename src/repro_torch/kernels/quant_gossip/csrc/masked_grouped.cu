@@ -1,9 +1,11 @@
 // The int8 gossip wire's grouped kernels, over every leaf of a parameter
 // tree, for Hopper (sm_90a): one launch quantizes every leaf of one
-// matching (B.4), one launch accumulates every leaf of one matching (B.5,
-// and B.3, which is B.5 without a mask).
+// matching or round (B.4, and B.2, which is B.4 without a mask), one launch
+// accumulates every leaf of one matching (B.5, and B.3, which is B.5
+// without a mask).
 //
-// Replaces three Pallas TPU kernels of src/repro/kernels/quant_gossip/kernel.py:
+// Replaces four Pallas TPU kernels of src/repro/kernels/quant_gossip/kernel.py:
+//   `_quantize_kernel` / `quantize_blockwise` (B.2),
 //   `_masked_quantize_kernel` / `masked_quantize_blockwise` (B.4),
 //   `_masked_dequant_acc_kernel` / `masked_dequant_accumulate` (B.5), and
 //   `_dequant_acc_kernel` / `dequant_accumulate` (B.3).
@@ -16,8 +18,10 @@
 //     scales_l[i, b] = scale * m[i]
 //
 // and a masked row (m[i] <= 0) writes q = 0 and scale 0 without reading x or
-// u.  B.5, in place, for every leaf l and row i with a = m[i] * w[i] != 0
-// and r = src[i] (i itself when src is null):
+// u.  B.2 is the same launch with a null mask, m = 1: scale * 1 is scale
+// exactly, so B.2 and B.4 share one kernel bit for bit.  B.5, in place,
+// for every leaf l and row i with a = m[i] * w[i] != 0 and r = src[i] (i
+// itself when src is null):
 //
 //     acc_l[i, j] += (a * scales_l[r, j / block_l]) * q_l[r, j]
 //
@@ -38,7 +42,8 @@
 // 1.07 M elements) that is 2.94 us at 3.35 TB/s, which is below the cost of
 // launching one kernel per leaf: the per-leaf design (a scratch fill, an
 // absmax pass and a quantize pass per leaf, 18 device ops per matching) ran
-// at 29.8 us for B.4 and 12.9 us for B.5 per matching on an H100.
+// at 29.8 us for B.4 and 12.9 us for B.5 per matching on an H100, and B.2's
+// (the same three per leaf) at 26.3 us per round.
 //
 // Design.
 // * Grouping.  The leaves of one call go to the kernel by value, as a
@@ -224,7 +229,7 @@ masked_quantize_grouped_kernel(const __grid_constant__ QuantTable t) {
   // Every decision below that leads to a cluster barrier is the same for
   // every CTA of the cluster (a packed cluster's CTAs reach none): a
   // cluster barrier is reached by all of its CTAs or by none.
-  const float m = __ldg(t.mask + row);
+  const float m = t.mask == nullptr ? 1.0f : __ldg(t.mask + row);  // B.2: no mask
   if (!(m > 0.0f)) {  // masked sender: zero payload, zero scale
     if (begin == 0 && threadIdx.x == 0) L.scales[local] = 0.0f;
     if (L.vec) {
@@ -452,28 +457,10 @@ int launch_accumulate(const long long* desc, int n, const float* w, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// The kernels' fixed sizes, for the caller's leaf table: {cluster size,
-// leaves per launch, B.4's least share, B.5's chunk, B.4's shared-memory
-// cap in floats}.
-extern "C" void masked_grouped_config(long long* out) {
-  out[0] = kCluster;
-  out[1] = kMaxLeaves;
-  out[2] = kMinShare;
-  out[3] = kChunk;
-  out[4] = kSmemCap;
-}
-
-// B.4 over n <= kMaxLeaves leaves of `rows` rows each.  desc holds, per
-// leaf, kQuantDesc longs: x, u (float32, (rows, d)), q (int8, (rows, d)),
-// scales (float32, (rows, d / block)), d, block (divides d), and the prefix
-// count of clusters before it (per leaf: its rows * d / block segments, or
-// a kCluster-th of them, rounded up, where a segment is packed).  mask:
-// (rows,) float32.  Launches on `stream`; returns the cudaError_t (0 on
-// success).
-extern "C" int masked_quantize_grouped_f32(const long long* desc, int n, const float* mask,
-                                           float qmax, long long rows, void* stream) {
+// B.4 (a mask) or B.2 (mask null) over n leaves; see the entry points
+// below.
+int launch_quantize(const long long* desc, int n, const float* mask, float qmax,
+                    long long rows, void* stream) {
   if (n <= 0 || n > kMaxLeaves || rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
   QuantTable t = {};
   t.mask = mask;
@@ -532,6 +519,39 @@ extern "C" int masked_quantize_grouped_f32(const long long* desc, int n, const f
                           args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The kernels' fixed sizes, for the caller's leaf table: {cluster size,
+// leaves per launch, B.4's least share, B.5's chunk, B.4's shared-memory
+// cap in floats}.
+extern "C" void masked_grouped_config(long long* out) {
+  out[0] = kCluster;
+  out[1] = kMaxLeaves;
+  out[2] = kMinShare;
+  out[3] = kChunk;
+  out[4] = kSmemCap;
+}
+
+// B.4 over n <= kMaxLeaves leaves of `rows` rows each.  desc holds, per
+// leaf, kQuantDesc longs: x, u (float32, (rows, d)), q (int8, (rows, d)),
+// scales (float32, (rows, d / block)), d, block (divides d), and the prefix
+// count of clusters before it (per leaf: its rows * d / block segments, or
+// a kCluster-th of them, rounded up, where a segment is packed).  mask:
+// (rows,) float32.  Launches on `stream`; returns the cudaError_t (0 on
+// success).
+extern "C" int masked_quantize_grouped_f32(const long long* desc, int n, const float* mask,
+                                           float qmax, long long rows, void* stream) {
+  if (mask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_quantize(desc, n, mask, qmax, rows, stream);
+}
+
+// B.2 over n <= kMaxLeaves leaves: B.4 with every mask entry 1.  The
+// arguments are B.4's without the mask.
+extern "C" int quantize_grouped_f32(const long long* desc, int n, float qmax, long long rows,
+                                    void* stream) {
+  return launch_quantize(desc, n, nullptr, qmax, rows, stream);
 }
 
 // B.5 over n <= kMaxLeaves leaves, in place.  desc holds, per leaf,

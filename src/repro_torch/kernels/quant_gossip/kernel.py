@@ -5,7 +5,8 @@ Replaces the four Pallas TPU kernels of ``repro/kernels/quant_gossip/kernel.py``
 =========================================  =============  ========================
 wrapper                                    TPU kernel     source
 =========================================  =============  ========================
-``quantize_blockwise``                     B.2 (``:98``)  ``csrc/quantize.cu``
+``quantize_blockwise_grouped``             B.2 (``:98``)  ``csrc/masked_grouped.cu``
+``quantize_blockwise`` (one leaf)          B.2 (``:98``)  ``csrc/masked_grouped.cu``
 ``masked_quantize_blockwise_grouped``      B.4 (``:154``) ``csrc/masked_grouped.cu``
 ``masked_quantize_blockwise`` (one leaf)   B.4 (``:154``) ``csrc/masked_grouped.cu``
 ``dequant_accumulate_grouped_``            B.3 (``:125``) ``csrc/masked_grouped.cu``
@@ -14,15 +15,15 @@ wrapper                                    TPU kernel     source
 ``masked_dequant_accumulate`` (one leaf)   B.5 (``:187``) ``csrc/masked_grouped.cu``
 =========================================  =============  ========================
 
-Each source's header note gives its bound and design.  The sources are
-built and loaded by :mod:`repro_torch.kernels._build`, together with every
-other kernel family's.
+The source's header note gives its bound and design.  It is built and
+loaded by :mod:`repro_torch.kernels._build`, together with every other
+kernel family's.
 
 The grouped wrappers take every leaf of one matching in one launch (up to
 :data:`MAX_GROUP_LEAVES` leaves; a larger group is split into several
 launches by :func:`leaf_tables`); the one-leaf wrappers are one-leaf groups.
-B.3 is B.5's kernel with no mask (``a = w``), so the two share one launch
-path bit for bit.
+B.2 is B.4's kernel with no mask (``m = 1``) and B.3 is B.5's (``a = w``),
+so each pair shares one launch path bit for bit.
 
 Every wrapper validates what it is given, raises on anything its kernel
 does not take (it never runs the plain version itself) and adds one to its
@@ -40,8 +41,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-_CSRC = "quant_gossip/csrc/"
-SOURCES = (_CSRC + "quantize.cu", _CSRC + "masked_grouped.cu")
+SOURCE = "quant_gossip/csrc/masked_grouped.cu"
 NVCC_FLAGS = _build.NVCC_FLAGS
 build = _build.build
 
@@ -53,16 +53,12 @@ ACC_CHUNK = 4096         # B.5: elements per CTA
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
-# exported symbol -> (source, argtypes)
+# exported symbol -> argtypes
 _SYMBOLS = {
-    "quantize_blockwise_f32":
-        (SOURCES[0], (_P, _P, ctypes.c_float, _P, _P, _P, _LL, _LL, _LL, _P)),
-    "masked_quantize_grouped_f32":
-        (SOURCES[1], (_P, ctypes.c_int, _P, ctypes.c_float, _LL, _P)),
-    "masked_dequant_accumulate_grouped_f32":
-        (SOURCES[1], (_P, ctypes.c_int, _P, _P, _P, _LL, _LL, _P)),
-    "dequant_accumulate_grouped_f32":
-        (SOURCES[1], (_P, ctypes.c_int, _P, _P, _LL, _LL, _P)),
+    "quantize_grouped_f32": (_P, ctypes.c_int, ctypes.c_float, _LL, _P),
+    "masked_quantize_grouped_f32": (_P, ctypes.c_int, _P, ctypes.c_float, _LL, _P),
+    "masked_dequant_accumulate_grouped_f32": (_P, ctypes.c_int, _P, _P, _P, _LL, _LL, _P),
+    "dequant_accumulate_grouped_f32": (_P, ctypes.c_int, _P, _P, _LL, _LL, _P),
 }
 
 
@@ -80,13 +76,12 @@ def num_blocks(d: int, block_d: int) -> int:
 
 
 def _entry(symbol: str):
-    source, argtypes = _SYMBOLS[symbol]
-    return _build.entry(source, symbol, argtypes)
+    return _build.entry(SOURCE, symbol, _SYMBOLS[symbol])
 
 
 def config() -> dict:
     """The grouped kernels' fixed sizes as compiled (builds the source)."""
-    fn = _build.entry(SOURCES[1], "masked_grouped_config", (_P,))
+    fn = _build.entry(SOURCE, "masked_grouped_config", (_P,))
     fn.restype = None
     out = (_LL * 5)()
     fn(ctypes.addressof(out))
@@ -104,11 +99,11 @@ def quantize_clusters(k: int, d: int, block_d: int) -> int:
 
 
 def leaf_tables(units, cap: int = MAX_GROUP_LEAVES) -> list[list[tuple[int, int]]]:
-    """The leaf tables of a group: ``units[l]`` work units of leaf l (B.4:
-    its thread-block clusters, :func:`quantize_clusters`; B.5: its K ×
-    chunks CTAs) go in launches of at most ``cap`` leaves, in order.  Each
-    launch's table lists (leaf index, units of the launch's earlier leaves);
-    a leaf with no units is left out."""
+    """The leaf tables of a group: ``units[l]`` work units of leaf l (B.2
+    and B.4: its thread-block clusters, :func:`quantize_clusters`; B.5: its
+    K × chunks CTAs; B.1 stacked: its CTAs) go in launches of at most
+    ``cap`` leaves, in order.  Each launch's table lists (leaf index, units
+    of the launch's earlier leaves); a leaf with no units is left out."""
     tables, table, begin = [], [], 0
     for leaf, n in enumerate(units):
         if n == 0:
@@ -148,34 +143,6 @@ def _check_quantize_args(x, u, mask, qmax, name):
         raise ValueError(f"qmax must be in (0, 127] for an int8 payload, got {qmax}")
 
 
-def _quantize(x, u, qmax, block_d):
-    k, d = x.shape
-    block = _pick_block(d, block_d)
-    n_blk = d // block
-    q = torch.empty((k, d), dtype=torch.int8, device=x.device)
-    scales = torch.empty((k, n_blk), dtype=torch.float32, device=x.device)
-    if x.numel() == 0:
-        return q, scales, False
-    scratch = torch.zeros((k, n_blk), dtype=torch.int32, device=x.device)
-    symbol = "quantize_blockwise_f32"
-    _build.launch(_entry(symbol), symbol, x.device, x.data_ptr(), u.data_ptr(), float(qmax),
-                  q.data_ptr(), scales.data_ptr(), scratch.data_ptr(), k, d, block)
-    return q, scales, True
-
-
-def quantize_blockwise(x: torch.Tensor, u: torch.Tensor, *, qmax: float = 127.0,
-                       block_d: int = 65536):
-    """x, u: (K, D) float32 CUDA tensors -> (q int8 (K, D), scales f32 (K, D/block)).
-
-    Launches the B.2 kernel on the current stream and adds one to
-    ``quantize_blockwise.launches``.
-    """
-    _check_quantize_args(x, u, None, qmax, "quantize_blockwise")
-    q, scales, launched = _quantize(x, u, qmax, block_d)
-    quantize_blockwise.launches += launched
-    return q, scales
-
-
 def _aligned_offsets(sizes, align: int) -> tuple[list[int], int]:
     """Offsets of consecutive buffers of ``sizes`` elements, each rounded up
     to a multiple of ``align`` elements; and the total."""
@@ -187,21 +154,23 @@ def _aligned_offsets(sizes, align: int) -> tuple[list[int], int]:
 
 
 def _quantize_grouped(xs, us, mask, qmax, block_d, name):
+    """B.4 (a (K,) mask) or B.2 (mask None) over every leaf of a group."""
     if not xs or len(xs) != len(us):
         raise ValueError(f"{name} takes one or more leaves and one u per leaf, got "
                          f"{len(xs)} x and {len(us)} u")
-    if mask.device.type != "cuda":
-        raise ValueError(f"{name} kernel needs CUDA tensors, got mask on {mask.device}")
-    k = mask.reshape(-1).shape[0]
+    lead = xs[0] if mask is None else mask
+    if lead.device.type != "cuda":
+        raise ValueError(f"{name} kernel needs CUDA tensors, got {lead.device}")
+    k = (xs[0].shape[0] if xs[0].ndim else 0) if mask is None else mask.reshape(-1).shape[0]
     for x, u in zip(xs, us):
         if x.ndim != 2 or x.shape[0] != k:
-            raise ValueError(f"{name} kernel takes (K, D) leaves with the mask's K = {k}, "
+            raise ValueError(f"{name} kernel takes (K, D) leaves of one K = {k}, "
                              f"got {tuple(x.shape)}")
         _check_quantize_args(x, u, mask, qmax, name)
     dims = [x.shape[1] for x in xs]
     blocks = [_pick_block(d, block_d) for d in dims]
     n_blks = [d // b for d, b in zip(dims, blocks)]
-    dev = mask.device
+    dev = lead.device
     # the outputs are views into one allocation each; every leaf's q starts
     # on 16 bytes, so the kernel's 4-byte stores stay aligned
     q_off, q_total = _aligned_offsets([k * d for d in dims], 16)
@@ -211,15 +180,44 @@ def _quantize_grouped(xs, us, mask, qmax, block_d, name):
     qs = [q_flat[o:o + k * d].view(k, d) for o, d in zip(q_off, dims)]
     ss = [s_flat[o:o + k * n].view(k, n) for o, n in zip(s_off, n_blks)]
     launched = 0
-    symbol = "masked_quantize_grouped_f32"
+    # B.4 takes the mask; B.2 is the same kernel without one (m = 1)
+    symbol = "quantize_grouped_f32" if mask is None else "masked_quantize_grouped_f32"
+    masks = () if mask is None else (mask.data_ptr(),)
     for table in leaf_tables([quantize_clusters(k, d, block_d) for d in dims]):
         desc = (_LL * (7 * len(table)))(*[v for leaf, begin in table for v in (
             xs[leaf].data_ptr(), us[leaf].data_ptr(), qs[leaf].data_ptr(),
             ss[leaf].data_ptr(), dims[leaf], blocks[leaf], begin)])
         _build.launch(_entry(symbol), symbol, dev, ctypes.addressof(desc), len(table),
-                      mask.data_ptr(), float(qmax), k)
+                      *masks, float(qmax), k)
         launched += 1
     return list(zip(qs, ss)), launched
+
+
+def quantize_blockwise_grouped(xs, us, *, qmax: float = 127.0, block_d: int = 65536):
+    """B.2 over every leaf of a group: ``xs``, ``us`` lists of (K, D_l)
+    float32 CUDA tensors of one K -> [(q_l int8 (K, D_l), scales_l f32 (K,
+    D_l / block_l))], each leaf laid out by :func:`_pick_block` as the
+    one-leaf call does.  The q's are views into one allocation, the scales
+    into another.  B.4's kernel with no mask: one launch per
+    :data:`MAX_GROUP_LEAVES` leaves, each adding one to
+    ``quantize_blockwise_grouped.launches``."""
+    out, launched = _quantize_grouped(xs, us, None, qmax, block_d,
+                                      "quantize_blockwise_grouped")
+    quantize_blockwise_grouped.launches += launched
+    return out
+
+
+def quantize_blockwise(x: torch.Tensor, u: torch.Tensor, *, qmax: float = 127.0,
+                       block_d: int = 65536):
+    """x, u: (K, D) float32 CUDA tensors -> (q int8 (K, D), scales f32 (K, D/block)).
+
+    A one-leaf group of :func:`quantize_blockwise_grouped` on the current
+    stream; adds one to ``quantize_blockwise.launches``.
+    """
+    [(q, scales)], launched = _quantize_grouped([x], [u], None, qmax, block_d,
+                                                "quantize_blockwise")
+    quantize_blockwise.launches += launched
+    return q, scales
 
 
 def masked_quantize_blockwise_grouped(xs, us, mask: torch.Tensor, *, qmax: float = 127.0,
@@ -361,6 +359,7 @@ def masked_dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.
 
 # launches of each kernel since the last reset (the main path's proof of use)
 quantize_blockwise.launches = 0
+quantize_blockwise_grouped.launches = 0
 masked_quantize_blockwise.launches = 0
 masked_quantize_blockwise_grouped.launches = 0
 dequant_accumulate.launches = 0

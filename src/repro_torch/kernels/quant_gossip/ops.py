@@ -6,9 +6,10 @@ launches the hand-written kernel or raises — there is no fallback.
 ``dequantize_blockwise`` is plain PyTorch on every device, as in the
 reference (``repro.kernels.quant_gossip.ops``), where it was never a kernel.
 
-The grouped dispatchers take every leaf of one matching at once: the
-memoryless masked gossip round calls B.4's and B.5's once per matching, the
-static error-feedback round B.3's once per matching.
+The grouped dispatchers take every leaf of one matching or round at once:
+the memoryless masked gossip round calls B.4's and B.5's once per matching,
+the static error-feedback round B.2's once per round and B.3's once per
+matching, the compressed dense round B.2's once per round.
 
 ``quant_gossip_round`` and ``masked_quant_gossip_round`` compose one
 compressed matching exchange of one leaf — quantize → the node-axis gather
@@ -33,6 +34,15 @@ def quantize_blockwise(x: torch.Tensor, u: torch.Tensor, *, qmax: float = 127.0,
         return _k.quantize_blockwise(x, u, qmax=qmax, block_d=block_d)
     quantize_blockwise.plain_calls += 1
     return _r.quantize_blockwise_ref(x, u, qmax=qmax, block_d=block_d)
+
+
+def quantize_blockwise_grouped(xs, us, *, qmax: float = 127.0, block_d: int = 65536):
+    """:func:`quantize_blockwise` over every leaf of a group (lists of (K,
+    D_l) ``xs`` and ``us`` of one K): one launch on the card."""
+    if _build.route("quantize_blockwise_grouped", xs[0]):
+        return _k.quantize_blockwise_grouped(xs, us, qmax=qmax, block_d=block_d)
+    quantize_blockwise_grouped.plain_calls += 1
+    return _r.quantize_blockwise_grouped_ref(xs, us, qmax=qmax, block_d=block_d)
 
 
 def masked_quantize_blockwise(x: torch.Tensor, u: torch.Tensor, mask: torch.Tensor, *,
@@ -99,6 +109,7 @@ def masked_dequant_accumulate_grouped_(accs, payloads, w: torch.Tensor, mask: to
 
 # how often each plain version served a call (CPU tensors only)
 quantize_blockwise.plain_calls = 0
+quantize_blockwise_grouped.plain_calls = 0
 masked_quantize_blockwise.plain_calls = 0
 masked_quantize_blockwise_grouped.plain_calls = 0
 dequant_accumulate.plain_calls = 0

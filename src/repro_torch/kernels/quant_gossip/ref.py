@@ -88,6 +88,11 @@ def masked_dequant_accumulate_ref(acc, q, scales, w, mask, *, src=None):
     return dequant_accumulate_ref(acc, q, scales, a, src=src)
 
 
+def quantize_blockwise_grouped_ref(xs, us, *, qmax: float = 127.0, block_d: int = 65536):
+    """[(q_l, scales_l)] of :func:`quantize_blockwise_ref` per leaf."""
+    return [quantize_blockwise_ref(x, u, qmax=qmax, block_d=block_d) for x, u in zip(xs, us)]
+
+
 def masked_quantize_blockwise_grouped_ref(xs, us, mask, *, qmax: float = 127.0,
                                           block_d: int = 65536):
     """[(q_l, scales_l)] of :func:`masked_quantize_blockwise_ref` per leaf."""

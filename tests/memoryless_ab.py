@@ -1,12 +1,14 @@
-"""A gossip stack's fmnist step of two checkouts, in turns on one card.
+"""An fmnist stack's step of two checkouts, in turns on one card.
 
-    python tests/memoryless_ab.py PARENT_ROOT [CHANGE_ROOT] [--stack STACK]
+    python tests/memoryless_ab.py PARENT_ROOT [CHANGE_ROOT] [--stack STACK[,STACK...]]
 
 Runs the fmnist configuration on one of ``chip_smoke.py``'s gossip stacks
 (default ``dropout0.2-int8-kernel-memoryless``, the dropout-0.2 memoryless
-int8 wire; ``gossip-int8-kernel-ef`` is the static int8 EF wire) from the
-checkout at PARENT_ROOT and from CHANGE_ROOT (default: this checkout), in
-the order parent, change, change, parent, each in a process of its own that
+int8 wire; ``gossip-int8-kernel-ef`` is the static int8 EF wire) or dense
+stacks (``dense-none``: the fused B.1 step; ``dense-int8-kernel``: the int8
+EF wire) from the checkout at PARENT_ROOT and from CHANGE_ROOT (default:
+this checkout), for each stack given in the order parent, change, change,
+parent, each in a process of its own that
 imports that checkout's ``chip_smoke.py`` and package: 300 steps timed on
 the host clock, ended by a synchronise (``_fmnist_run``: ms per step, the
 launches, the final metrics), then ``phase_profile``'s 30 profiled steps
@@ -36,9 +38,15 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 exp, fed, batches, params = cs._fmnist()
 w = metropolis_weights(build_graph("erdos_renyi", cs.K, p=exp.p, seed=exp.seed))
-mixer = cs._gossip_mixer(sys.argv[2], cs._matchings(exp.p, exp.seed), w, exp.seed,
-                         CompressionConfig)
-rec, _, _ = cs._fmnist_run("ab", sys.argv[2], cs._spec(TrainerSpec, exp, mixer.compression),
+if sys.argv[2].startswith("dense-"):
+    mixer = None
+    compress = "none" if sys.argv[2] == "dense-none" else CompressionConfig(kind="int8",
+                                                                             use_kernel=True)
+else:
+    mixer = cs._gossip_mixer(sys.argv[2], cs._matchings(exp.p, exp.seed), w, exp.seed,
+                             CompressionConfig)
+    compress = mixer.compression
+rec, _, _ = cs._fmnist_run("ab", sys.argv[2], cs._spec(TrainerSpec, exp, compress),
                            exp, fed, batches, params, mixer=mixer)
 prof = cs.phase_profile(TrainerSpec, CompressionConfig)[sys.argv[2]]
 keys = ("ms_per_step", "launches", "loss_step300", "acc_worst_dist", "acc_avg")
@@ -63,15 +71,17 @@ def main(argv) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
-    for tag, root in (("parent", parent), ("change", change), ("change", change),
-                      ("parent", parent)):
-        proc = subprocess.run([sys.executable, "-c", CHILD, root, stack], capture_output=True,
-                              text=True, timeout=900, cwd=root)
-        lines = [ln[3:] for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
-        if proc.returncode or not lines:
-            print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
-            raise RuntimeError(f"the {tag} run ({root}) failed: rc {proc.returncode}")
-        print(json.dumps({"run": tag, "root": root, **json.loads(lines[-1])}), flush=True)
+    for one in stack.split(","):
+        for tag, root in (("parent", parent), ("change", change), ("change", change),
+                          ("parent", parent)):
+            proc = subprocess.run([sys.executable, "-c", CHILD, root, one], capture_output=True,
+                                  text=True, timeout=900, cwd=root)
+            lines = [ln[3:] for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
+            if proc.returncode or not lines:
+                print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
+                raise RuntimeError(f"the {tag} run ({root}) failed: rc {proc.returncode}")
+            print(json.dumps({"stack": one, "run": tag, "root": root,
+                              **json.loads(lines[-1])}), flush=True)
     return 0
 
 

@@ -1,5 +1,6 @@
-"""Pins of a checkout on the card: the static int8 EF gossip stack's
-fmnist metrics and the CIFAR gossip run's losses (each twice, so that a
+"""Pins of a checkout on the card: the fmnist metrics of the dense stacks
+(uncompressed: the fused B.1 step; int8 EF: B.2) and of the static int8 EF
+gossip stack, and the CIFAR gossip run's losses (each twice, so that a
 difference between runs shows), and B.7's error and times at rwkv6-7b's
 prefill, one step from a given state, hd 16 and w = 1e-6.
 
@@ -7,8 +8,8 @@ prefill, one step from a given state, hd 16 and w = 1e-6.
 
 ROOT is the checkout to measure (its ``chip_smoke.py`` and package are
 imported), e.g. the parent commit unpacked under build/ with
-``git archive HEAD | tar -x -C build/parent``.  Prints ``PIN``,
-``PINCIFAR`` and ``PINWKV`` lines.  Needs a CUDA device and nvcc.
+``git archive HEAD | tar -x -C build/parent``.  Prints ``PINDENSE``,
+``PIN``, ``PINCIFAR`` and ``PINWKV`` lines.  Needs a CUDA device and nvcc.
 ``tests/pin_cifar.py`` repeats the CIFAR run with cuDNN deterministic.
 """
 import json, math, sys
@@ -25,6 +26,13 @@ torch.backends.cudnn.allow_tf32 = False
 print(cs.nvidia_smi(), flush=True)
 cs.phase_build()
 exp, fed, batches, params = cs._fmnist()
+keys = ("loss_step300", "acc_worst_dist", "acc_avg", "ms_per_step", "launches")
+for wire, compress in (("none", "none"),
+                       ("int8-kernel", CompressionConfig(kind="int8", use_kernel=True))):
+    for rep in range(2):
+        rec, _, _ = cs._fmnist_run("pin", f"dense-{wire}", cs._spec(TrainerSpec, exp, compress),
+                                   exp, fed, batches, params)
+        print("PINDENSE " + json.dumps({"wire": wire, **{k: rec[k] for k in keys}}), flush=True)
 w = metropolis_weights(build_graph("erdos_renyi", cs.K, p=exp.p, seed=exp.seed))
 decomp = cs._matchings(exp.p, exp.seed)
 stack = "gossip-int8-kernel-ef"
@@ -32,8 +40,7 @@ for rep in range(2):
     mixer = cs._gossip_mixer(stack, decomp, w, exp.seed, CompressionConfig)
     rec, state, counts = cs._fmnist_run("pin", stack, cs._spec(TrainerSpec, exp, mixer.compression),
                                         exp, fed, batches, params, mixer=mixer)
-    print("PIN " + json.dumps({k: rec[k] for k in ("loss_step300", "acc_worst_dist", "acc_avg",
-                                                   "ms_per_step", "launches")}), flush=True)
+    print("PIN " + json.dumps({k: rec[k] for k in keys}), flush=True)
 for rep in range(2):
     print("PINCIFAR " + json.dumps(cs._gossip_cifar(TrainerSpec, CompressionConfig)), flush=True)
 

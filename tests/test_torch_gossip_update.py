@@ -11,10 +11,16 @@
   W·(θ − η·s⊙g) (paper Eq. 9 / Eq. 20), at rtol 1e-5, atol 1e-5.
 - ``gossip_update_tree`` keeps the tree's structure.
 - The fused train step: 20 fmnist dense-none steps through the fused step
-  (plain SGD + the static dense mixer, one ``gossip_update_stacked`` per
-  leaf) equal the unfused step (the optimizer and the mixer called
+  (plain SGD + the static dense mixer, one ``gossip_update_stacked_grouped``
+  call per step over every leaf) equal the unfused step (the optimizer and the mixer called
   directly) bit for bit, params and every metric, and the fused step runs
-  where, and only where, it applies.
+  where, and only where, it applies (not at K = 65, above the stacked
+  kernel's 64 nodes).
+- The grouped stacked form (every leaf of a step in one call, one launch on
+  the card) equals the one-leaf plain version leaf by leaf, bit for bit,
+  in float32 and bfloat16, K from 1 to 64, over the leaf cap too; its leaf
+  tables equal a direct count of CTAs; the fused step groups its leaves by
+  dtype in their order.
 
 Inputs come from numpy with a seed.
 """
@@ -175,7 +181,8 @@ def test_fused_step_equals_unfused_step(fmnist, robust, grad_clip):
     assert _fused_w(fused_opt, fused.mixer) is not None
     assert _fused_w(unfused_opt, unfused.mixer) is None
     a, b = fused.init(params), unfused.init(params)
-    calls = ops.gossip_update_stacked.plain_calls
+    calls = ops.gossip_update_stacked_grouped.plain_calls
+    one_leaf = ops.gossip_update_stacked.plain_calls
     for t in range(STEPS):
         a, ma = fused.step(a, batches[t])
         b, mb = unfused.step(b, batches[t])
@@ -186,7 +193,9 @@ def test_fused_step_equals_unfused_step(fmnist, robust, grad_clip):
             assert torch.equal(ma[key], mb[key]), (t, key)
         assert a.comm.rounds == b.comm.rounds == t + 1
         assert torch.equal(a.comm.wire_bits, b.comm.wire_bits)
-    assert ops.gossip_update_stacked.plain_calls - calls == STEPS * len(params)
+    # one grouped call per step over every leaf, no one-leaf call
+    assert ops.gossip_update_stacked_grouped.plain_calls - calls == STEPS
+    assert ops.gossip_update_stacked.plain_calls == one_leaf
 
 
 def test_fused_step_applies_only_to_sgd_with_static_dense_mixing():
@@ -198,3 +207,109 @@ def test_fused_step_applies_only_to_sgd_with_static_dense_mixing():
                        compression=CompressionConfig(kind="int8")).mixer,
               make_gossip_mixer(permutation_decomposition(w), device="cpu")]
     assert all(_fused_w(opt, m) is None for m in others)
+
+
+# -- the grouped stacked form: every leaf of a step in one call ----------------
+
+MLP_SHAPES = [(784, 128), (128,), (128, 64), (64,), (64, 10), (10,)]
+
+
+def _stacked_leaves(k, shapes, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    thetas = [torch.from_numpy(rng.standard_normal((k, *s)).astype(np.float32)).to(dtype)
+              for s in shapes]
+    grads = [torch.from_numpy(rng.standard_normal((k, *s)).astype(np.float32)).to(dtype)
+             for s in shapes]
+    w = metropolis_weights(ring_graph(k)) if k > 2 else np.full((k, k), 1.0 / k)
+    scale = torch.from_numpy(rng.uniform(0.1, 3.0, k).astype(np.float32))
+    return thetas, grads, torch.from_numpy(w.astype(np.float32)), scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,shapes", [(10, MLP_SHAPES), (8, [(896,), (151, 8), (3, 4, 5)]),
+                                      (1, [(33,), (1,)]), (64, [(257,), (10,)]),
+                                      (10, [(1,)] * 20)],
+                         ids=["mlp", "lm-like", "k1", "k64", "over-the-cap"])
+def test_grouped_stacked_equals_the_one_leaf_plain_version(k, shapes, dtype):
+    """Every leaf of a group in one call: each output is the one-leaf plain
+    version of its leaf, bit for bit, in the leaf's shape and dtype, in a
+    tensor of its own; one grouped plain call, no one-leaf call."""
+    thetas, grads, w, s = _stacked_leaves(k, shapes, seed=k + len(shapes), dtype=dtype)
+    calls = ops.gossip_update_stacked_grouped.plain_calls
+    one_leaf = ops.gossip_update_stacked.plain_calls
+    got = ops.gossip_update_stacked_grouped(thetas, grads, w, s, eta=0.03)
+    assert ops.gossip_update_stacked_grouped.plain_calls == calls + 1
+    assert ops.gossip_update_stacked.plain_calls == one_leaf
+    assert len(got) == len(thetas)
+    assert len({t.data_ptr() for t in got}) == len(got)
+    for theta, grad, out in zip(thetas, grads, got):
+        want = ops.gossip_update_stacked(theta, grad, w, s, eta=0.03)
+        assert out.shape == theta.shape and out.dtype == dtype
+        assert torch.equal(out, want)
+
+
+def _direct_stacked_tables(dims, cap):
+    """B.1's leaf tables by a direct count: each leaf's CTAs counted column
+    tile by column tile, the non-empty leaves cut into launches of ``cap``,
+    each with the CTAs of its launch's earlier leaves summed one by one."""
+    ctas = []
+    for d in dims:
+        n = 0
+        for start in range(0, d, gk.STACKED_COLS):
+            n += 1
+        ctas.append(n)
+    leaves = [leaf for leaf, n in enumerate(ctas) if n]
+    tables = []
+    for start in range(0, len(leaves), cap):
+        launch = leaves[start:start + cap]
+        tables.append([(leaf, sum(ctas[j] for j in launch[:i])) for i, leaf in enumerate(launch)])
+    return tables
+
+
+@pytest.mark.parametrize("cap", [gk.MAX_GROUP_LEAVES, 5, 1])
+@pytest.mark.parametrize("dims", [[100352, 128, 8192, 64, 640, 10],
+                                  [136134656, 896, 0, 1023, 1024, 1025] + [1] * 14],
+                         ids=["mlp", "lm-like-over-the-cap"])
+def test_stacked_leaf_tables_match_a_direct_count(dims, cap):
+    tables = gk.leaf_tables(dims, cap)
+    assert tables == _direct_stacked_tables(dims, cap)
+    assert all(len(t) <= cap for t in tables)
+    assert [leaf for t in tables for leaf, _ in t] == [i for i, d in enumerate(dims) if d]
+    assert gk.MAX_GROUP_LEAVES == 16 and gk.STACKED_COLS == 1024
+
+
+def test_grouped_stacked_kernel_refuses_what_it_does_not_take():
+    thetas, grads, w, s = _stacked_leaves(4, [(8,), (3,)], seed=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        gk.gossip_update_stacked_grouped(thetas, grads, w, s, eta=0.1)
+    with pytest.raises(ValueError, match="one or more"):
+        gk.gossip_update_stacked_grouped(thetas, grads[:1], w, s, eta=0.1)
+
+
+def test_dtype_groups_keep_the_leaf_order():
+    from repro_torch.core.drdsgd import _dtype_groups
+
+    params = {"a": torch.zeros(2, dtype=torch.bfloat16), "b": torch.zeros(2),
+              "c": torch.zeros(2, dtype=torch.bfloat16), "d": torch.zeros(2)}
+    assert _dtype_groups(params, ["a", "b", "c", "d"]) == [["a", "c"], ["b", "d"]]
+    assert _dtype_groups({"a": params["b"], "b": params["d"]}, ["a", "b"]) == [["a", "b"]]
+
+
+def test_fused_step_is_declined_at_65_nodes(fmnist):
+    """K = 65 is above the stacked kernel's 64 nodes: the step takes the
+    unfused path (the optimizer, then the mixer) and calls no form of the
+    stacked update."""
+    _, params = fmnist
+    k = 65
+    fed = pathological_noniid_partition(make_fmnist_like(n_train=6500, n_test=200), k, seed=0)
+    batch = fed.sample_batch(np.random.default_rng(0), B)
+    opt = sgd(LR)
+    trainer = DecentralizedTrainer(nets.make_classifier_loss(nets.mlp_apply), nets.mlp_apply,
+                                   num_nodes=k, graph="erdos_renyi", graph_kwargs=GRAPH_KW,
+                                   robust=RobustConfig(mu=6.0), optimizer=opt, device="cpu")
+    assert _fused_w(opt, trainer.mixer) is None
+    calls = (ops.gossip_update_stacked_grouped.plain_calls, ops.gossip_update_stacked.plain_calls)
+    state, _ = trainer.step(trainer.init(params), batch)
+    assert (ops.gossip_update_stacked_grouped.plain_calls,
+            ops.gossip_update_stacked.plain_calls) == calls
+    assert all(bool(torch.isfinite(v).all()) for v in state.params.values())

@@ -48,7 +48,14 @@ storage; the wrappers refuse what the kernels do not take and are built
 with the sizes the Python side states; a memoryless round through them
 equals the leaf-by-leaf round.  B.3 grouped (B.5's kernel with no mask)
 equals the one-leaf plain versions likewise, in place, and two static EF
-rounds through it equal the rounds through the one-leaf B.3.  At K = 65,
+rounds through it equal the rounds through the one-leaf B.3.  B.2 grouped
+(B.4's kernel with no mask) equals the one-leaf plain version on the same
+groups and on the serving layout's block 128, on rows off 16 bytes too.
+B.1 stacked, grouped (every leaf of a step in one launch), equals the
+one-leaf kernel bit for bit and the plain version within STACKED_REL (1e-2
+in bfloat16), K in {1, 8, 10, 16, 33, 64}, leaves of 1, 10, 255, 257 and
+100,352 columns, 20 leaves over the cap (two launches) and leaves that do
+not start on the vector width.  At K = 65,
 above the stacked B.1 kernel's
 64 nodes, the SGD step on the card takes the unfused path (no B.1 launch),
 equals the unfused step and stays within 1.5e-4 of the largest update of
@@ -168,9 +175,10 @@ def test_compressed_round_on_the_card_matches_the_cpu(cuda):
     for dev in ("cuda", "cpu"):
         m = make_dense_mixer(w, compression=cfg, device=dev, uniforms=noise)
         t = {n: torch.from_numpy(v).to(dev) for n, v in theta.items()}
-        launches = qk.quantize_blockwise.launches
+        launches = qk.quantize_blockwise_grouped.launches
         t2, st = m(t, m.init_state(t))
-        assert qk.quantize_blockwise.launches == launches + (3 if dev == "cuda" else 0)
+        # one grouped B.2 launch per round over every leaf
+        assert qk.quantize_blockwise_grouped.launches == launches + (dev == "cuda")
         out[dev] = (t2, st)
     (t_g, s_g), (t_c, s_c) = out["cuda"], out["cpu"]
     for n in theta:
@@ -975,12 +983,146 @@ def test_fused_step_at_65_nodes_equals_the_unfused_step(cuda):
                                        graph_kwargs={"p": 0.3, "seed": 0},
                                        robust=RobustConfig(mu=6.0), optimizer=o, device=dev)
         state = trainer.init(params)
-        before = gk.gossip_update_stacked.launches
+        before = (gk.gossip_update_stacked.launches, gk.gossip_update_stacked_grouped.launches)
         state, _ = trainer.step(state, batch)
-        assert gk.gossip_update_stacked.launches == before
+        assert (gk.gossip_update_stacked.launches,
+                gk.gossip_update_stacked_grouped.launches) == before
         out[tag] = {n: v.cpu() for n, v in state.params.items()}
     start = {n: v.unsqueeze(0).expand(out["cpu"][n].shape) for n, v in params.items()}
     largest = max(float((out["cpu"][n] - start[n]).abs().max()) for n in params)
     for n in params:
         assert torch.equal(out["fused"][n], out["unfused"][n]), n
         assert float((out["fused"][n] - out["cpu"][n]).abs().max()) <= 1.5e-4 * largest, n
+
+
+# -- B.2 grouped: B.4's kernel with no mask, one launch over every leaf ---------
+
+B2_GROUPS = {**GROUPS, "kv block 128": (32, [128 * 64, 128, 384], 128)}
+
+
+@pytest.mark.parametrize("qmax", [127.0, 7.0])
+@pytest.mark.parametrize("group", list(B2_GROUPS))
+def test_grouped_b2_equals_one_leaf_plain(cuda, group, qmax):
+    k, dims, block_d = B2_GROUPS[group]
+    xs, us = _group(k, dims, seed=11 * k, device=cuda)
+    launches = len(qk.leaf_tables([1] * len(dims)))
+    before = qk.quantize_blockwise_grouped.launches
+    got = qk.quantize_blockwise_grouped(xs, us, qmax=qmax, block_d=block_d)
+    torch.cuda.synchronize()
+    assert qk.quantize_blockwise_grouped.launches == before + launches
+    for i, (x, u, (q, s)) in enumerate(zip(xs, us, got)):
+        q_p, s_p = ref.quantize_blockwise_ref(x, u, qmax=qmax, block_d=block_d)
+        assert torch.equal(q, q_p) and torch.equal(s, s_p), i
+
+
+def test_grouped_b2_takes_rows_off_16_byte_boundaries(cuda):
+    k, dims = 4, [1024, 640, 10]
+    xs0, us0 = _group(k, dims, seed=6, device=cuda)
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape).copy_(t)
+
+    got = qk.quantize_blockwise_grouped([shifted(x) for x in xs0], [shifted(u) for u in us0],
+                                        block_d=256)
+    want = ref.quantize_blockwise_grouped_ref(xs0, us0, block_d=256)
+    assert all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(got, want))
+
+
+def test_grouped_b2_dispatcher_launches_and_rejects(cuda):
+    xs, us = _group(10, MLP_D, seed=4, device=cuda)
+    before = (qk.quantize_blockwise_grouped.launches, ops.quantize_blockwise_grouped.plain_calls)
+    ops.quantize_blockwise_grouped(xs, us)
+    assert (qk.quantize_blockwise_grouped.launches,
+            ops.quantize_blockwise_grouped.plain_calls) == (before[0] + 1, before[1])
+    with pytest.raises(ValueError, match="one K"):
+        qk.quantize_blockwise_grouped([xs[0], xs[1][:3]], [us[0], us[1][:3]])
+    with pytest.raises(TypeError):
+        qk.quantize_blockwise_grouped([xs[0].double()], [us[0]])
+    assert qk.quantize_blockwise_grouped.launches == before[0] + 1
+
+
+# -- B.1 stacked, grouped: one launch over every leaf of a step ----------------
+
+STACKED_DIMS = [1, 10, 255, 257, 100352]
+
+
+def _stacked_group(k, dims, seed, dtype, device):
+    from repro_torch.graphs import metropolis_weights, ring_graph
+
+    rng = np.random.default_rng(seed)
+    thetas, grads = ([torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32))
+                      .to(device, dtype) for d in dims] for _ in range(2))
+    w = torch.from_numpy(metropolis_weights(ring_graph(k)).astype(np.float32)
+                         if k > 2 else np.full((k, k), 1.0 / k, np.float32)).to(device)
+    s = torch.from_numpy(rng.uniform(0.1, 3.0, k).astype(np.float32)).to(device)
+    return thetas, grads, w, s
+
+
+def test_grouped_stacked_kernel_is_built_as_stated(cuda):
+    assert gk.config() == dict(max_group_leaves=gk.MAX_GROUP_LEAVES, max_nodes=gk.MAX_NODES,
+                               stacked_cols=gk.STACKED_COLS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 8, 10, 16, 33, 64])
+def test_grouped_stacked_equals_one_leaf_kernel_and_plain(cuda, k, dtype):
+    """Every leaf in one launch: each output equals the one-leaf kernel's
+    bit for bit (the same FMA chain per row) and the plain version within
+    STACKED_REL (float32; 1e-2 in bfloat16)."""
+    thetas, grads, w, s = _stacked_group(k, STACKED_DIMS, k, dtype, cuda)
+    before = (gk.gossip_update_stacked_grouped.launches, gk.gossip_update_stacked.launches)
+    got = gk.gossip_update_stacked_grouped(thetas, grads, w, s, eta=0.01)
+    torch.cuda.synchronize()
+    assert gk.gossip_update_stacked_grouped.launches == before[0] + 1
+    for theta, grad, out in zip(thetas, grads, got):
+        one = gk.gossip_update_stacked(theta, grad, w, s, eta=0.01)
+        want = gref.gossip_update_stacked_ref(theta, grad, w, s, eta=0.01)
+        assert out.shape == theta.shape and out.dtype == dtype
+        assert torch.equal(out, one)
+        assert _rel(out, want) <= (STACKED_REL if dtype == torch.float32 else 1e-2)
+    assert gk.gossip_update_stacked.launches == before[1] + len(STACKED_DIMS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_stacked_over_the_cap_and_off_alignment(cuda, dtype):
+    """20 leaves (2 launches), some of them views that do not start on the
+    vector width (the one-column path): each equals the one-leaf kernel on
+    a contiguous copy, bit for bit."""
+    k = 10
+    dims = [100352, 128, 8192, 64, 640, 10] * 3 + [7, 4096]
+    thetas, grads, w, s = _stacked_group(k, dims, 3, dtype, cuda)
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:].view(t.shape).copy_(t)
+
+    thetas[1], grads[4] = shifted(thetas[1]), shifted(grads[4])
+    before = gk.gossip_update_stacked_grouped.launches
+    got = gk.gossip_update_stacked_grouped(thetas, grads, w, s, eta=0.2)
+    assert gk.gossip_update_stacked_grouped.launches == before + 2
+    for theta, grad, out in zip(thetas, grads, got):
+        one = gk.gossip_update_stacked(theta.clone(), grad.clone(), w, s, eta=0.2)
+        assert torch.equal(out, one)
+
+
+def test_grouped_stacked_rejects_what_it_does_not_take(cuda):
+    thetas, grads, w, s = _stacked_group(4, [8, 16], 1, torch.float32, cuda)
+    before = gk.gossip_update_stacked_grouped.launches
+    with pytest.raises(TypeError, match="one dtype"):
+        gk.gossip_update_stacked_grouped([thetas[0], thetas[1].bfloat16()],
+                                         [grads[0], grads[1].bfloat16()], w, s, eta=0.1)
+    with pytest.raises(ValueError, match="one K"):
+        gk.gossip_update_stacked_grouped([thetas[0], thetas[1][:3]], [grads[0], grads[1][:3]],
+                                         w, s, eta=0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.gossip_update_stacked_grouped([thetas[0].t().contiguous().t()], [grads[0]], w, s,
+                                         eta=0.1)
+    assert gk.gossip_update_stacked_grouped.launches == before
+
+
+def test_grouped_stacked_dispatcher_launches_for_cuda_tensors(cuda):
+    thetas, grads, w, s = _stacked_group(10, [784 * 128, 128], 2, torch.float32, cuda)
+    before = (gk.gossip_update_stacked_grouped.launches,
+              gops.gossip_update_stacked_grouped.plain_calls)
+    gops.gossip_update_stacked_grouped(thetas, grads, w, s, eta=0.1)
+    assert (gk.gossip_update_stacked_grouped.launches,
+            gops.gossip_update_stacked_grouped.plain_calls) == (before[0] + 1, before[1])

@@ -1,4 +1,4 @@
-"""The grouped masked int8 wire (B.4 and B.5 over every leaf of a matching), on the CPU.
+"""The grouped int8 wire (B.2 to B.5 over every leaf of a round or matching), on the CPU.
 
 On the card one launch quantizes every leaf of a matching
 (``masked_quantize_blockwise_grouped``) and one accumulates every leaf in
@@ -20,7 +20,14 @@ the plain versions, which must be the one-leaf plain versions bit for bit:
   place, no mask) equals the one-leaf plain version per leaf, and the
   static int8 gossip round, now one grouped B.3 call per matching, equals
   a copy of the per-leaf loop it replaced bit for bit; ``_accumulate_leaves``
-  routes unmasked rounds to it.
+  routes unmasked rounds to it;
+- B.2 grouped (``quantize_blockwise_grouped``: every leaf of a round, no
+  mask) equals the one-leaf plain version per leaf (the MLP's and the
+  CNN's leaves, the layouts, block 128 with many segments, a group over the
+  leaf cap) and B.4 grouped with every row live; unmasked
+  ``encode_leaves`` equals the per-leaf encodes; the compressed dense
+  round, now an encode pass (one grouped B.2 call) and a mix pass, equals a
+  copy of the leaf-outer loop it replaced bit for bit.
 
 The kernels themselves are held against these plain versions on the card
 (tests/test_torch_kernel.py, chip_smoke.py).  Inputs come from numpy with a
@@ -532,3 +539,146 @@ def test_fused_step_is_declined_above_64_nodes(k):
     assert (fused is not None) == (k <= MAX_NODES)
     if fused is not None:
         assert fused.shape == (k, k)
+
+
+# -- B.2 grouped: the unmasked quantizer over every leaf of a round ------------
+
+@pytest.mark.parametrize("qmax", [127.0, 7.0])
+@pytest.mark.parametrize("group", list(GROUPS) + ["block 128, many segments", "over the cap"])
+def test_grouped_b2_quantize_equals_one_leaf_plain_versions(group, qmax):
+    """B.2 over every leaf of a group (no mask): each leaf's (q, scales) is
+    quantize_blockwise_ref of it, bit for bit, laid out by _pick_block (the
+    ragged fallback, block 128 with many segments, two blocks per row); the
+    one-leaf dispatcher is not called.  The launches split as B.4's do."""
+    if group == "over the cap":
+        k, dims, block_d = K, MLP_D + CNN_D + [4096, 7], 65536
+    elif group == "block 128, many segments":  # the serving int8 KV layout
+        k, dims, block_d = 32, [128 * 64, 128, 128 * 3], 128
+    else:
+        k, dims, block_d = GROUPS[group]
+    xs, us = _leaves(k, dims, seed=7 * len(dims) + k)
+    calls = ops.quantize_blockwise_grouped.plain_calls
+    one_leaf = ops.quantize_blockwise.plain_calls
+    got = ops.quantize_blockwise_grouped(xs, us, qmax=qmax, block_d=block_d)
+    assert ops.quantize_blockwise_grouped.plain_calls == calls + 1
+    assert ops.quantize_blockwise.plain_calls == one_leaf
+    assert len(got) == len(dims)
+    for x, u, (q, s), d in zip(xs, us, got, dims):
+        q1, s1 = ref.quantize_blockwise_ref(x, u, qmax=qmax, block_d=block_d)
+        assert q.dtype == torch.int8 and s.shape == (k, qk.num_blocks(d, block_d))
+        assert torch.equal(q, q1) and torch.equal(s, s1)
+        # and the one-leaf dispatcher gives the same
+        q2, s2 = ops.quantize_blockwise(x, u, qmax=qmax, block_d=block_d)
+        assert torch.equal(q, q2) and torch.equal(s, s2)
+    units = [qk.quantize_clusters(k, d, block_d) for d in dims]
+    assert len(qk.leaf_tables(units)) == math.ceil(len(dims) / qk.MAX_GROUP_LEAVES)
+
+
+def test_grouped_b2_is_masked_b4_with_every_row_live():
+    """B.2 grouped is B.4 grouped with a mask of ones, bit for bit (the
+    kernel shares one launch path: a null mask reads m = 1)."""
+    xs, us = _leaves(K, MLP_D, seed=11)
+    got = ops.quantize_blockwise_grouped(xs, us)
+    want = ops.masked_quantize_blockwise_grouped(xs, us, torch.ones(K))
+    for (q, s), (q1, s1) in zip(got, want):
+        assert torch.equal(q, q1) and torch.equal(s, s1)
+
+
+def test_grouped_b2_kernel_refuses_the_cpu_and_a_missing_u():
+    xs, us = _leaves(K, [8, 4], seed=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        qk.quantize_blockwise_grouped(xs, us)
+    with pytest.raises(ValueError, match="CUDA"):
+        qk.quantize_blockwise(xs[0], us[0])
+    with pytest.raises(ValueError, match="one or more"):
+        qk.quantize_blockwise_grouped(xs, us[:1])
+
+
+@pytest.mark.parametrize("ef", [True, False], ids=["ef", "memoryless"])
+@pytest.mark.parametrize("kernel", [True, False], ids=["int8-kernel", "int8"])
+def test_unmasked_encode_leaves_equal_the_per_leaf_encodes(ef, kernel):
+    """``encode_leaves`` with no send mask: the kernel quantizer encodes
+    every leaf in one grouped B.2 call; any codec gives the per-leaf
+    ``encode_leaf`` payloads, public copies and θ̂ bit for bit."""
+    from repro_torch.comm import CompressionConfig
+    from repro_torch.comm.wire import ChocoWire, CodecWire
+
+    cfg = CompressionConfig(kind="int8", use_kernel=kernel, error_feedback=ef)
+    wire = ChocoWire(cfg) if ef else CodecWire(cfg)
+    xs, us = _leaves(K, MLP_D, seed=21)
+    gen = torch.Generator().manual_seed(3)
+    hats = [0.9 * x + 0.01 * torch.randn(x.shape, generator=gen) for x in xs] if ef \
+        else [None] * len(xs)
+    calls = ops.quantize_blockwise_grouped.plain_calls
+    one_leaf = ops.quantize_blockwise.plain_calls
+    got = wire.encode_leaves(xs, hats, us)
+    assert ops.quantize_blockwise_grouped.plain_calls == calls + int(kernel)
+    assert ops.quantize_blockwise.plain_calls == one_leaf
+    want = [wire.encode_leaf(x, h, u) for x, h, u in zip(xs, hats, us)]
+    assert ops.quantize_blockwise.plain_calls == one_leaf + (len(xs) if kernel else 0)
+    for (p, pub, hat), (p1, pub1, hat1) in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(p, p1))
+        assert torch.equal(pub, pub1)
+        if ef:
+            assert torch.equal(hat, hat1)
+        else:
+            assert hat == hat1 == ()
+
+
+def _old_dense_round(self, theta, state):
+    """The compressed dense round as it was: leaf by leaf, each leaf's
+    uniforms, encode and W product in turn."""
+    w = self._round_w(state)
+    out_theta, out_hat = {}, {}
+    res_sq = torch.zeros((), dtype=torch.float32, device=w.device)
+    for i, name in enumerate(leaf_names(theta)):
+        x = theta[name]
+        k = x.shape[0]
+        xf = x.reshape(k, -1).float()
+        hf = state.hat[name].reshape(k, -1) if self.ef else None
+        if self.ef:
+            res_sq = res_sq + (xf - hf).square().sum()
+        u = self.wire.uniforms(state.key, state.rounds, i, xf)
+        _, public, new_hat = self.wire.encode_leaf(xf, hf, u)
+        mixed = w @ public
+        out = xf + (mixed - public)
+        out_theta[name] = out.reshape(x.shape).to(x.dtype)
+        if self.ef:
+            out_hat[name] = new_hat.reshape(x.shape)
+    return out_theta, state._replace(
+        hat=out_hat if self.ef else (),
+        res_norm=torch.sqrt(res_sq), rounds=state.rounds + 1,
+        wire_bits=self.wire.round_wire_bits(theta, self._senders(w), self.k, w.device))
+
+
+@pytest.mark.parametrize("kernel", [True, False], ids=["int8-kernel", "int8"])
+@pytest.mark.parametrize("ef", [True, False], ids=["ef", "memoryless"])
+def test_two_pass_dense_round_equals_the_leaf_outer_loop(ef, kernel):
+    """Three compressed dense rounds (fmnist's graph, K = 10, the MLP's
+    leaves) through the two-pass round (encode every leaf: one grouped B.2
+    call per round for the kernel quantizer; then mix each leaf) and
+    through a copy of the leaf-outer loop it replaced: θ, θ̂, the residual
+    and the wire bits bit for bit."""
+    from repro_torch.comm import CompressionConfig
+    from repro_torch.core.consensus import make_dense_mixer
+    from repro_torch.graphs import build_graph, metropolis_weights
+
+    w = metropolis_weights(build_graph("erdos_renyi", K, p=0.3, seed=0))
+    cfg = CompressionConfig(kind="int8", use_kernel=kernel, error_feedback=ef)
+    new, old = (make_dense_mixer(w, compression=cfg, device="cpu") for _ in range(2))
+    old._dense_round = types.MethodType(_old_dense_round, old)
+    theta = _theta(3)
+    (ta, sa), (tb, sb) = (theta, new.init_state(theta)), (theta, old.init_state(theta))
+    for r in range(3):
+        calls = ops.quantize_blockwise_grouped.plain_calls
+        one_leaf = ops.quantize_blockwise.plain_calls
+        ta, sa = new(ta, sa)
+        assert ops.quantize_blockwise_grouped.plain_calls == calls + int(kernel)
+        assert ops.quantize_blockwise.plain_calls == one_leaf
+        tb, sb = old(tb, sb)
+        for n in theta:
+            assert torch.equal(ta[n], tb[n]), (r, n)
+            if ef:
+                assert torch.equal(sa.hat[n], sb.hat[n]), (r, n)
+        assert torch.equal(sa.res_norm, sb.res_norm)
+        assert torch.equal(sa.wire_bits, sb.wire_bits)
