@@ -96,6 +96,31 @@ PyTorch version:
            CPU, and 20 steps of the dense int8-kernel wire and of the three
            compressed gossip stacks vs the CPU's plain versions with the
            same uniforms and W_r, at the printed tolerances.
+  codecs   fig7's fmnist task (K = 8 ring, Metropolis W, DR-DSGD mu = 3, B =
+           55, lr 0.18, 400 steps, clipped at 2 as the figure's runner
+           clips, lr_compensate off): dense none (fused B.1), bf16, int8,
+           int4, topk 2 % (EF, default gamma) and int8 on the kernel (B.2
+           once per round), gossip topk and randk 2 % over the ring's
+           matchings; the CNN (B = 40, lr 0.05) with int4 and topk 2 %, cut
+           to CIFAR_STEPS steps.  Each prints worst-distribution accuracy,
+           total comm bytes and the median ms per step; each must lower its
+           first batch's loss, keep every metric finite, bill each round the
+           port's own accounting and launch what its wire launches.
+  schedules  fig8: B.2 grouped with qmax a 0-d tensor on the card equal to
+           the float form and the plain version bit for bit (qmax 127, 7,
+           42.5; the MLP's and the CNN's leaves) and timed beside it; the
+           linear rate on the card equal to hi + (lo - hi)·min(r/300, 1);
+           14 rounds of each scheduled kernel stack (dense and gossip EF,
+           adaptive and linear) against the CPU with the same uniforms; one
+           scheduled round synchronising no more than an unscheduled one
+           (CUDA's sync debug mode); then 600 fmnist steps of int8_fixed,
+           int4_fixed, int8_adaptive (threshold 1, warmup 10) and
+           int8_linear (anneal 300) on the per-node quantizer, and of
+           int8_adaptive and int8_linear on the kernel quantizer over the
+           dense and the gossip EF lowering (B.2 with the rate as qmax once
+           per round: every launch counted as a tensor-qmax launch), each
+           printing its rate at rounds 0, 10 and the last, its wire bits and
+           worst-distribution accuracy.
   bwd-kernel  B.6's backward against autograd of the plain version at
            qwen2-0.5b's training shapes (B 2, H 14/2, hd 64, S = T = 64 and
            512) and at the serving shapes below, dq, dk and dv within
@@ -356,11 +381,11 @@ def launch_us(prof, name: str) -> list[float]:
             if e.device_type == DeviceType.CUDA and name in e.name]
 
 
-def device_ms(fn, iters: int, names, tries: int = 3) -> float:
+def device_ms(fn, iters: int, names, tries: int = 6) -> float:
     """Device time (ms) of one ``fn()`` that launches each kernel of
     ``names`` once, under the profiler.  The profiler now and then records
-    no launch of a kernel at all (seen on the H100); the window is then
-    profiled again, up to ``tries`` times."""
+    no launch of a kernel at all (seen on the H100, once three windows in
+    a row); the window is then profiled again, up to ``tries`` times."""
     for attempt in range(tries):
         _, prof = profiled(fn, iters)
         try:
@@ -425,9 +450,12 @@ def kernel_counts() -> dict:
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels.quant_gossip import kernel as qk
+
     for k, o in _counters().values():
         k.launches = 0
         o.plain_calls = 0
+    qk.quantize_blockwise_grouped.tensor_qmax_launches = 0
 
 
 def check_counts(tag: str, counts: dict, want: dict) -> None:
@@ -1415,6 +1443,433 @@ def phase_parity(spec_cls, cfg_cls) -> dict:
         if not (d_param <= atol and d_metric <= rtol):
             raise AssertionError(f"[parity] {wire}: GPU vs CPU outside tolerance")
         out[wire] = rec
+    return out
+
+
+# -- the compressed-wire codecs and rate schedules (fig7, fig8) ---------------
+
+FIG_K = 8                  # fig7/fig8: K = 8 ring, Metropolis W, DR-DSGD mu = 3
+FIG_MU = 3.0
+FIG_CLIP = 2.0             # run_decentralized's grad_clip, the figures' default
+FIG7_STEPS = 400
+FIG7_FMNIST = (55, 0.18)   # batch, lr (benchmarks/fig7_compression.py _TASK)
+FIG7_CIFAR = (40, 0.05)
+FIG7_RATIO = 0.02          # topk2pct
+FIG8_STEPS = 600
+FIG8_ANNEAL = FIG8_STEPS // 2
+SCHED_PARITY_ROUNDS = 14   # past fig8's warmup of 10 rounds
+SCHED_RATE_RTOL = 1e-4     # adaptive rate, card vs CPU (res_norm's summation order)
+TENSOR_QMAX = (127.0, 7.0, 42.5)
+
+
+def _fig_spec(spec_cls, compress, batch_lr, **kw):
+    return spec_cls(num_nodes=FIG_K, graph="ring", mu=FIG_MU, lr=batch_lr[1],
+                    grad_clip=FIG_CLIP, compress=compress, device="cuda", **kw)
+
+
+def _fig_data(model: str, steps: int, batch: int, seed: int = 0):
+    """fig7/fig8's task at K = 8: data, batches, per-node test sets and
+    seeded weights on the card."""
+    from repro_torch.data import (
+        make_cifar_like,
+        make_fmnist_like,
+        pathological_noniid_partition,
+    )
+    from repro_torch.models import cnn_init, mlp_init
+
+    make, init = (make_fmnist_like, mlp_init) if model == "mlp" else (make_cifar_like, cnn_init)
+    fed = pathological_noniid_partition(make(), FIG_K, seed=seed)
+    return (_sample(fed, steps, batch, seed), fed.per_node_test_sets(n_per_node=200, seed=seed),
+            _params_via_npz(init, seed, model, "cuda"))
+
+
+def _ring_decomp():
+    from repro_torch.graphs import build_graph, metropolis_weights, permutation_decomposition
+
+    return permutation_decomposition(metropolis_weights(build_graph("ring", FIG_K)))
+
+
+def _fig_run(tag, name, spec, model, data, steps, want_counts, mixer=None) -> dict:
+    """``steps`` steps of ``trainer.step``, each timed to a synchronised
+    end, after a 3-step warm-up on a throwaway state, with every launch
+    count set to 0 just before.  Holds: loss falls on the first batch,
+    every metric finite, each round's bytes equal to the port's own
+    accounting (a scheduled wire's ``round_wire_bits`` at the round's rate,
+    which the wire reports before the step; else ``bytes_per_round``), and
+    the launches ``want_counts`` with no plain call.  Returns the record."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels.quant_gossip import kernel as qk
+    from repro_torch.models import cnn_apply, make_classifier_loss, mlp_apply
+
+    apply_fn = mlp_apply if model == "mlp" else cnn_apply
+    batches, (x_nodes, y_nodes), params = data
+    trainer = spec.build(make_classifier_loss(apply_fn), apply_fn, mixer=mixer)
+    trainer.run(trainer.init(params), tuple(b[:3] for b in batches))
+    state = trainer.init(params)
+    wire = trainer.mixer.wire
+    sched = getattr(wire, "schedule", None)
+    torch.cuda.synchronize()
+    reset_counts()
+    rates, times, metrics = [], [], []
+    for t in range(steps):
+        if sched is not None:
+            rates.append(wire.rate(state.comm))  # the round's rate, on the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, tuple(b[t] for b in batches))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append(m)
+    counts = kernel_counts()
+    tensor_qmax = qk.quantize_blockwise_grouped.tensor_qmax_launches
+    ms = {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+    _finite(ms)
+    check_counts(f"{tag} {name}", counts, want_counts)
+    # the port's own accounting of every round's wire
+    if sched is not None:
+        senders = trainer.mixer._sends() if trainer.mixer._is_gossip else FIG_K
+        want_bits = torch.stack([wire.round_wire_bits(state.params, r, senders, FIG_K, "cuda")
+                                 for r in rates])
+        if not torch.equal(ms["wire_bits"], want_bits):
+            raise AssertionError(f"[{tag}] {name}: wire_bits are not the round's accounting")
+        if not torch.equal(ms["comm_bytes"], ms["wire_bits"] / 8.0):
+            raise AssertionError(f"[{tag}] {name}: comm_bytes are not wire_bits / 8")
+        if "int8-kernel" in name and tensor_qmax != steps:
+            raise AssertionError(f"[{tag}] {name}: {tensor_qmax} B.2 launches read qmax on "
+                                 f"the card, want {steps}")
+    else:
+        per_round = trainer.mixer.bytes_per_round(state.params)
+        if not bool((ms["comm_bytes"] == per_round).all()):
+            raise AssertionError(f"[{tag}] {name}: comm_bytes are not bytes_per_round "
+                                 f"{per_round}")
+    loss0 = float(ms["loss_mean"][0])
+    loss_end = _loss_on(trainer, state, tuple(b[0] for b in batches))
+    stats = trainer.eval_local_distributions(state, x_nodes, y_nodes)
+    rec = dict(run=name, model=model, steps=steps, loss_step0=loss0, loss_end=loss_end,
+               acc_worst_dist=stats["acc_worst_dist"], acc_avg=stats["acc_avg"],
+               comm_bytes_total=float(ms["comm_bytes"].double().sum()),
+               wire_bits_total=float(ms["wire_bits"].double().sum()),
+               comm_bytes_round0=float(ms["comm_bytes"][0]),
+               ms_per_step_median=1e3 * statistics.median(times),
+               launches={n: c[0] for n, c in counts.items() if c[0]})
+    if sched is not None:
+        rec["rate"] = {r: float(rates[r]) for r in (0, 10, steps - 1)}
+        rec["tensor_qmax_launches"] = tensor_qmax
+    log(f"[{tag}] " + json.dumps(rec))
+    if not loss_end < loss0:
+        raise AssertionError(f"[{tag}] {name}: loss did not fall ({loss0} -> {loss_end})")
+    if not all(math.isfinite(v) for v in (stats["acc_worst_dist"], stats["acc_avg"])):
+        raise AssertionError(f"[{tag}] {name}: eval metrics not finite")
+    return rec
+
+
+def phase_codecs(spec_cls, cfg_cls) -> dict:
+    """fig7: every codec on the fmnist task (K = 8 ring, DR-DSGD mu = 3, B =
+    55, lr 0.18, 400 steps, clipped at 2, lr_compensate off) over the dense
+    lowering — none (the fused B.1 step), bf16, int8, int4, topk 2 % (EF,
+    default gamma), int8 on the kernel (B.2 once per round) — and topk and
+    randk 2 % over the ring's gossip matchings; then the CNN (B = 40, lr
+    0.05, clipped at 2) with int4 and topk 2 %, cut from 400 to CIFAR_STEPS
+    steps as phase_cifar is.  Each run is held by :func:`_fig_run`."""
+    from repro_torch.comm import CompressedGossipMixer
+
+    out = {}
+    data = _fig_data("mlp", FIG7_STEPS, FIG7_FMNIST[0])
+    dense = {"none": "none", "bf16": cfg_cls(kind="bf16"), "int8": cfg_cls(kind="int8"),
+             "int4": cfg_cls(kind="int4"),
+             "topk2pct": cfg_cls(kind="topk", ratio=FIG7_RATIO),
+             "int8-kernel": cfg_cls(kind="int8", use_kernel=True)}
+    for name, cfg in dense.items():
+        want = {"none": {"gossip_update_stacked_grouped": FIG7_STEPS},
+                "int8-kernel": {"quantize_blockwise_grouped": FIG7_STEPS}}.get(name, {})
+        out[f"dense-{name}"] = _fig_run("codecs", f"dense-{name}",
+                                        _fig_spec(spec_cls, cfg, FIG7_FMNIST), "mlp", data,
+                                        FIG7_STEPS, want)
+    decomp = _ring_decomp()
+    for kind in ("topk", "randk"):
+        mixer = CompressedGossipMixer(decomp, cfg_cls(kind=kind, ratio=FIG7_RATIO))
+        name = f"gossip-{kind}2pct"
+        out[name] = _fig_run("codecs", name, _fig_spec(spec_cls, mixer.compression, FIG7_FMNIST),
+                             "mlp", data, FIG7_STEPS, {}, mixer=mixer)
+    cifar = _fig_data("cnn", CIFAR_STEPS, FIG7_CIFAR[0])
+    for name, cfg in (("int4", cfg_cls(kind="int4")),
+                      ("topk2pct", cfg_cls(kind="topk", ratio=FIG7_RATIO))):
+        out[f"cifar-{name}"] = _fig_run("codecs", f"cifar-dense-{name}",
+                                        _fig_spec(spec_cls, cfg, FIG7_CIFAR), "cnn", cifar,
+                                        CIFAR_STEPS, {})
+    return out
+
+
+def _sched_cfg(cfg_cls, kind: str, **kw):
+    from repro_torch.comm import ScheduleConfig
+
+    schedule = {"adaptive": ScheduleConfig(kind="adaptive", threshold=1.0, warmup_rounds=10),
+                "linear": ScheduleConfig(kind="linear", anneal_rounds=FIG8_ANNEAL)}[kind]
+    return cfg_cls(kind="int8", schedule=schedule, **kw)
+
+
+def _sched_mixer(stack: str, cfg, device, uniforms=None):
+    """The scheduled kernel stacks: dense, or gossip EF over the ring."""
+    from repro_torch.comm import CompressedGossipMixer
+    from repro_torch.core.consensus import make_dense_mixer
+    from repro_torch.graphs import build_graph, metropolis_weights, permutation_decomposition
+
+    w = metropolis_weights(build_graph("ring", FIG_K))
+    if stack == "dense":
+        return make_dense_mixer(w, compression=cfg, device=device, uniforms=uniforms)
+    return CompressedGossipMixer(permutation_decomposition(w), cfg, device=device,
+                                 uniforms=uniforms)
+
+
+def _tensor_qmax_kernel(mlp_leaves, cnn_leaves) -> dict:
+    """B.2 grouped with qmax as a 0-d float32 tensor on the card against the
+    float form and the plain version, bit for bit, at TENSOR_QMAX, on the
+    fmnist MLP's leaves and the CNN's (K = 10, the kernel phase's inputs);
+    then the MLP's call timed in both forms, in turns (float, tensor,
+    tensor, float), beside the plain version with the tensor and the bound
+    (the grouped B.2's, plus the 4-byte qmax)."""
+    import torch
+
+    from repro_torch.kernels.quant_gossip import kernel as qk
+    from repro_torch.kernels.quant_gossip import ref as qref
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    rec = dict(cases=0, max_abs_err=0.0)
+    inputs = {}
+    for group, leaves in (("mlp", mlp_leaves), ("cnn", cnn_leaves)):
+        dims = [d for _, d in leaves]
+        xs = [torch.randn((K, d), generator=gen, device="cuda")
+              * (0.01 + 3.0 * torch.rand((K, 1), generator=gen, device="cuda")) for d in dims]
+        us = [torch.rand((K, d), generator=gen, device="cuda") for d in dims]
+        inputs[group] = (dims, xs, us)
+        for qmax in TENSOR_QMAX:
+            q_t = torch.full((), qmax, dtype=torch.float32, device="cuda")
+            got = qk.quantize_blockwise_grouped(xs, us, qmax=q_t)
+            flt = qk.quantize_blockwise_grouped(xs, us, qmax=qmax)
+            plain = qref.quantize_blockwise_grouped_ref(xs, us, qmax=q_t)
+            for (q, s), (qf, sf), (qp, sp) in zip(got, flt, plain):
+                err = max(_max_diff(q, qp), _max_diff(s, sp))
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                if not (torch.equal(q, qf) and torch.equal(s, sf) and torch.equal(q, qp)
+                        and torch.equal(s, sp)):
+                    raise AssertionError(f"[schedules] B.2 with a tensor qmax {qmax} on the "
+                                         f"{group} leaves != the float form / plain version")
+                rec["cases"] += 1
+    log(f"[schedules] B.2 grouped, tensor qmax {TENSOR_QMAX}: equal to the float form and "
+        f"the plain version on the MLP's and the CNN's leaves ({rec['cases']} leaf cases)")
+    dims, xs, us = inputs["mlp"]
+    q_t = torch.full((), 127.0, dtype=torch.float32, device="cuda")
+    forms = {"float": lambda: qk.quantize_blockwise_grouped(xs, us, qmax=127.0),
+             "tensor": lambda: qk.quantize_blockwise_grouped(xs, us, qmax=q_t)}
+    readings = {"float": [], "tensor": []}
+    for side in ("float", "tensor", "tensor", "float"):
+        readings[side].append((cuda_ms(forms[side]), window_device_ms(forms[side], 50)))
+    mean = {side: [sum(r[j] for r in rs) / len(rs) for j in (0, 1)]
+            for side, rs in readings.items()}
+    bounds = [kernel_bound("quantize_blockwise", K, d, qk.num_blocks(d, 65536)) for d in dims]
+    rec.update(ms=mean["tensor"][0], device_ms=mean["tensor"][1], float_ms=mean["float"][0],
+               float_device_ms=mean["float"][1],
+               plain_ms=cuda_ms(lambda: qref.quantize_blockwise_grouped_ref(xs, us, qmax=q_t),
+                                iters=50, warmup=2),
+               bound_ms=sum(b for b, _ in bounds) + 1e3 * 4 / HBM_BYTES_PER_S,
+               bound_by="bytes" if {by for _, by in bounds} == {"bytes"} else "operations",
+               readings=readings)
+    log(f"[schedules] B.2 grouped on the MLP's leaves: tensor qmax device "
+        f"{1e3 * rec['device_ms']:.2f} us call {1e3 * rec['ms']:.2f} us | float qmax device "
+        f"{1e3 * rec['float_device_ms']:.2f} us call {1e3 * rec['float_ms']:.2f} us | plain "
+        f"{1e3 * rec['plain_ms']:.2f} us | bound {1e3 * rec['bound_ms']:.3f} us; readings "
+        f"(call, device ms) {readings}")
+    return rec
+
+
+def _linear_rates_on_card(cfg_cls) -> int:
+    """The linear schedule's rate at round r, computed on the card, equals
+    hi + (lo - hi)·min(r / 300, 1) in float32 bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.comm.schedule import CompressionSchedule
+
+    cfg = _sched_cfg(cfg_cls, "linear")
+    sched = CompressionSchedule(cfg.schedule, "int8", cfg.ratio)
+    zero = torch.zeros((), device="cuda")
+    checked = 0
+    for r in (0, 1, 10, 100, 150, 299, 300, 450, FIG8_STEPS - 1):
+        got = sched.rate(r, zero, zero)
+        hi, lo = np.float32(127.0), np.float32(7.0)
+        want = hi + (lo - hi) * np.minimum(np.float32(r) / np.float32(FIG8_ANNEAL),
+                                           np.float32(1.0))
+        if got.device.type != "cuda" or np.float32(got.cpu()).view(np.uint32) != \
+                np.float32(want).view(np.uint32):
+            raise AssertionError(f"[schedules] linear rate at round {r}: {float(got)} on "
+                                 f"{got.device}, want {float(want)}")
+        checked += 1
+    log(f"[schedules] linear rate on the card = hi + (lo - hi) min(r/{FIG8_ANNEAL}, 1) at "
+        f"{checked} rounds, bit for bit")
+    return checked
+
+
+def _sched_parity(cfg_cls) -> dict:
+    """SCHED_PARITY_ROUNDS rounds of each scheduled kernel stack (dense and
+    gossip EF, adaptive and linear) on the card and the port on the CPU,
+    from the same θ (the seeded MLP, K = 8, each node moved by its own
+    normal draw) with the same uniforms: rates (linear bitwise, adaptive
+    within SCHED_RATE_RTOL), θ within PARITY_INT8_STEPS quantization steps
+    (max |θ − θ̂| / rate over the rounds), and wire bits within one bit per
+    entry (quant_bits of a rate at a power-of-two edge)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.models import mlp_init
+
+    base = convert.params_to_numpy(mlp_init(torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(5)
+    theta_np = {n: (x[None] + 0.05 * rng.standard_normal((FIG_K,) + x.shape)).astype(np.float32)
+                for n, x in base.items()}
+    entries = sum(x[0].size for x in theta_np.values())
+
+    def noise(rounds, leaf_idx, shape):
+        return np.random.default_rng([rounds, leaf_idx]).random(shape, dtype=np.float32)
+
+    out = {}
+    for stack in ("dense", "gossip"):
+        for kind in ("adaptive", "linear"):
+            cfg = _sched_cfg(cfg_cls, kind, use_kernel=True)
+            runs = {}
+            for device in ("cuda", "cpu"):
+                mixer = _sched_mixer(stack, cfg, device, uniforms=noise)
+                theta = {n: torch.from_numpy(v).to(device) for n, v in theta_np.items()}
+                state = mixer.init_state(theta)
+                rates, bits, q_step = [], [], 0.0
+                for _ in range(SCHED_PARITY_ROUNDS):
+                    rate = mixer.wire.rate(state)
+                    q_step = max(q_step, max(float((theta[n] - state.hat[n]).abs().max())
+                                             for n in theta) / float(rate))
+                    theta, state = mixer(theta, state)
+                    rates.append(float(rate))
+                    bits.append(float(state.wire_bits))
+                runs[device] = (theta, rates, bits, q_step, mixer)
+            (t_gpu, r_gpu, b_gpu, _, m_gpu), (t_cpu, r_cpu, b_cpu, q_step, _) = \
+                runs["cuda"], runs["cpu"]
+            d_theta = max(float((t_gpu[n].cpu() - t_cpu[n]).abs().max()) for n in t_cpu)
+            d_rate = max(abs(a - b) / b for a, b in zip(r_gpu, r_cpu))
+            senders = m_gpu._sends() if stack == "gossip" else FIG_K
+            d_bits = max(abs(a - b) for a, b in zip(b_gpu, b_cpu))
+            rate_tol = SCHED_RATE_RTOL if kind == "adaptive" else 0.0
+            rec = dict(stack=f"{stack}-int8-kernel-{kind}", rounds=SCHED_PARITY_ROUNDS,
+                       rates_card=r_gpu, max_rel_rate_diff=d_rate, rate_rtol=rate_tol,
+                       max_abs_theta_diff=d_theta, theta_atol=PARITY_INT8_STEPS * q_step,
+                       max_wire_bits_diff=d_bits, wire_bits_atol=senders * entries)
+            log("[schedules] parity " + json.dumps(rec))
+            if not (d_rate <= rate_tol and d_theta <= PARITY_INT8_STEPS * q_step
+                    and d_bits <= senders * entries):
+                raise AssertionError(f"[schedules] {rec['stack']}: card vs CPU outside "
+                                     f"tolerance")
+            if kind == "adaptive" and not min(r_gpu) < 127.0:
+                raise AssertionError(f"[schedules] {rec['stack']}: the rate never annealed")
+            out[rec["stack"]] = rec
+    return out
+
+
+def _round_syncs(mixer, theta, state) -> dict:
+    """What one round does that waits on the card: the synchronising calls
+    CUDA's sync debug mode reports, and under the profiler the runtime's
+    synchronise calls and the device-to-host copies."""
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            mixer(theta, state)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mixer(theta, state)
+    torch.cuda.synchronize()
+    events = prof.events()
+    return dict(
+        # the mode's own one-time "prototype feature" notice is not a sync
+        debug_mode=sum(1 for w in caught
+                       if "called a synchronizing CUDA operation" in str(w.message)),
+        runtime_syncs=sum(1 for e in events if e.device_type == DeviceType.CPU
+                          and "Synchronize" in e.name),
+        dtoh_copies=sum(1 for e in events if e.device_type == DeviceType.CUDA
+                        and "DtoH" in e.name))
+
+
+def _sync_counts(cfg_cls) -> dict:
+    """One round of each kernel stack unscheduled and scheduled (adaptive,
+    past its warmup, and linear), the wire's own noise drawn on the card:
+    the scheduled round may make no more synchronisations than the
+    unscheduled one."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for stack in ("dense", "gossip"):
+        counts = {}
+        for kind in ("none", "adaptive", "linear"):
+            cfg = cfg_cls(kind="int8", use_kernel=True) if kind == "none" \
+                else _sched_cfg(cfg_cls, kind, use_kernel=True)
+            mixer = _sched_mixer(stack, cfg, "cuda")
+            theta = {"fc0/w": torch.randn((FIG_K, 784, 128), generator=gen, device="cuda"),
+                     "fc0/b": torch.randn((FIG_K, 128), generator=gen, device="cuda")}
+            state = mixer.init_state(theta)
+            for _ in range(12):  # past the adaptive warmup: res_ref latched
+                theta, state = mixer(theta, state)
+            counts[kind] = _round_syncs(mixer, theta, state)
+        log(f"[schedules] synchronisations in one {stack} int8-kernel round: {counts}")
+        if any(counts[kind][key] > counts["none"][key] for kind in ("adaptive", "linear")
+               for key in counts["none"]):
+            raise AssertionError(f"[schedules] a scheduled {stack} round synchronises more "
+                                 f"than an unscheduled one: {counts}")
+        out[stack] = counts
+    return out
+
+
+def phase_schedules(spec_cls, cfg_cls, mlp_leaves, cnn_leaves) -> dict:
+    """fig8: int8_fixed, int4_fixed, int8_adaptive (threshold 1.0, warmup
+    10) and int8_linear (anneal 300) on the per-node quantizer, 600 fmnist
+    steps (K = 8 ring, mu = 3, B = 55, lr 0.18, clipped at 2); then
+    int8_adaptive and int8_linear on the kernel quantizer, over the dense
+    lowering (grouped B.2 once per round, qmax the rate on the card) and
+    the static EF gossip lowering (grouped B.2 once per round, grouped B.3
+    once per matching).  Before them: B.2 with a tensor qmax against the
+    float form and the plain version (and timed), the linear rate on the
+    card, the scheduled kernel stacks against the CPU, and their rounds'
+    synchronisations."""
+    out = {"b2_tensor_qmax": _tensor_qmax_kernel(mlp_leaves, cnn_leaves),
+           "linear_rates_checked": _linear_rates_on_card(cfg_cls),
+           "parity": _sched_parity(cfg_cls), "syncs": _sync_counts(cfg_cls)}
+    data = _fig_data("mlp", FIG8_STEPS, FIG7_FMNIST[0])
+    runs = {"int8_fixed": cfg_cls(kind="int8"), "int4_fixed": cfg_cls(kind="int4"),
+            "int8_adaptive": _sched_cfg(cfg_cls, "adaptive"),
+            "int8_linear": _sched_cfg(cfg_cls, "linear")}
+    for name, cfg in runs.items():
+        out[name] = _fig_run("schedules", name, _fig_spec(spec_cls, cfg, FIG7_FMNIST), "mlp",
+                             data, FIG8_STEPS, {})
+    matchings = _ring_decomp().num_rounds
+    for stack in ("dense", "gossip"):
+        for kind in ("adaptive", "linear"):
+            cfg = _sched_cfg(cfg_cls, kind, use_kernel=True)
+            mixer = _sched_mixer(stack, cfg, "cuda") if stack == "gossip" else None
+            want = {"quantize_blockwise_grouped": FIG8_STEPS}
+            if stack == "gossip":
+                want["dequant_accumulate_grouped_"] = FIG8_STEPS * matchings
+            name = f"{stack}-int8-kernel-{kind}"
+            out[name] = _fig_run("schedules", name, _fig_spec(spec_cls, cfg, FIG7_FMNIST), "mlp",
+                                 data, FIG8_STEPS, want, mixer=mixer)
     return out
 
 
@@ -2551,6 +3006,10 @@ def main() -> int:
     phase_profile(TrainerSpec, CompressionConfig)
     phase_cifar(TrainerSpec, CompressionConfig)
     phase_parity(TrainerSpec, CompressionConfig)
+    t_codecs = time.perf_counter()
+    phase_codecs(TrainerSpec, CompressionConfig)
+    sched = phase_schedules(TrainerSpec, CompressionConfig, mlp, cnn)
+    log(f"[done] codecs and schedules in {time.perf_counter() - t_codecs:.1f} s")
     log(f"[done] paper training phases in {time.perf_counter() - t_start:.1f} s")
     bwd = phase_flash_bwd_kernels()
     lm = phase_train_lm(LM_SEQ, LM_NODES, LM_STEPS, profile=True)
@@ -2584,10 +3043,15 @@ def main() -> int:
     path["gossip_update_stacked"] = {"gossip_update_stacked": b1_nodes["stacked_launches"]}
     path["gossip_update_stacked_grouped"] = fm["none"]["launches"]
     path["flash_attention_bwd"] = {"flash_attention_bwd": lm["launches"]["flash_attention_bwd"]}
+    scheduled = {name: sched[name]["tensor_qmax_launches"] for name in (
+        "dense-int8-kernel-adaptive", "dense-int8-kernel-linear",
+        "gossip-int8-kernel-adaptive", "gossip-int8-kernel-linear")}
     other_runs = {
         "quantize_blockwise_grouped": {
             "gossip-int8-kernel-ef": gossip["gossip-int8-kernel-ef"]["launches"][
-                "quantize_blockwise_grouped"]},
+                "quantize_blockwise_grouped"],
+            **{f"schedules {n}": sched[n]["launches"]["quantize_blockwise_grouped"]
+               for n in scheduled}},
         "gossip_update_stacked_grouped": {
             "train-lm": lm["launches"]["gossip_update_stacked_grouped"]}}
     lines = []
@@ -2642,6 +3106,16 @@ def main() -> int:
             launches = (qwen if name == "flash_attention_fwd" else rwkv)["launches"]
         if name in other_runs:  # the kernel's launches on the other runs that take it
             timing["launches_other_runs"] = other_runs[name]
+        if name == "quantize_blockwise_grouped":
+            # qmax a 0-d tensor on the card (a schedule's rate): its launches on
+            # the scheduled kernel stacks, and its call on the MLP's leaves
+            # timed beside the float form in the same turns
+            b2t = sched["b2_tensor_qmax"]
+            timing["tensor_qmax"] = dict(
+                launches=sum(scheduled.values()), launches_by_run=scheduled,
+                max_abs_err=b2t["max_abs_err"],
+                **{key: b2t[key] for key in ("ms", "device_ms", "float_ms", "float_device_ms",
+                                             "plain_ms", "bound_ms", "bound_by")})
         # ms is the wrapper's call time back to back (host launch cost
         # included), device_ms the kernels' own time under the profiler
         lines.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -3,11 +3,15 @@ behind one :class:`~repro_torch.comm.protocol.Mixer` protocol."""
 
 from repro_torch.comm.composed import ComposedMixer
 from repro_torch.comm.compressors import (
+    BF16Compressor,
     CompressionConfig,
     IntQuantizer,
     KernelInt8Quantizer,
     NoCompressor,
+    RandKCompressor,
+    TopKCompressor,
     make_compressor,
+    quant_bits,
 )
 from repro_torch.comm.mixers import CompressedDenseMixer, CompressedGossipMixer
 from repro_torch.comm.protocol import (
@@ -16,6 +20,7 @@ from repro_torch.comm.protocol import (
     Mixer,
     trivial_comm_state,
 )
+from repro_torch.comm.schedule import CompressionSchedule, ScheduleConfig
 from repro_torch.comm.topology import ScheduledTopology, StaticTopology, Topology
 from repro_torch.comm.transport import DenseTransport, GossipTransport, Transport
 from repro_torch.comm.wire import (
@@ -29,8 +34,10 @@ from repro_torch.comm.wire import (
 )
 
 __all__ = [
-    "ComposedMixer", "CompressionConfig", "IntQuantizer", "KernelInt8Quantizer",
-    "NoCompressor", "make_compressor", "CompressedDenseMixer",
+    "ComposedMixer", "CompressionConfig", "NoCompressor", "BF16Compressor",
+    "IntQuantizer", "KernelInt8Quantizer", "TopKCompressor", "RandKCompressor",
+    "make_compressor", "quant_bits", "ScheduleConfig", "CompressionSchedule",
+    "CompressedDenseMixer",
     "CompressedGossipMixer", "CommMetrics", "CommState", "Mixer",
     "trivial_comm_state", "ScheduledTopology", "StaticTopology", "Topology",
     "DenseTransport", "GossipTransport", "Transport", "ChocoWire", "CodecWire",

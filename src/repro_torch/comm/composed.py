@@ -17,6 +17,11 @@ choco+clock × sched×gossip  :meth:`_clocked_gossip_call` (delta/re-base
                             two-mode round on ``ef_rounds``)
 ==========================  ==============================================
 
+A codec wire with a rate schedule takes the round's rate (a 0-d tensor on
+the device, from ``res_norm``, ``res_ref`` and ``rounds``) into its encode
+pass and its consensus step γ, advances ``res_ref`` after the round and
+bills the round's ``wire_bits`` at that rate (``traced_wire``).
+
 Where the reference runs one ``ppermute`` per matching inside
 ``shard_map``, the port gathers along the node axis (``src`` per matching;
 ``comm/transport.py``).  The reference's ``lax.cond`` on the re-base clock
@@ -60,6 +65,13 @@ from repro_torch.comm.wire import (
 from repro_torch.utils.tree import leaf_names, tree_bytes
 
 
+def _step(xf, gamma, delta):
+    """θ + γ·Δ; a host γ = 1 (the quantizers' default) adds Δ as it is."""
+    if isinstance(gamma, float) and gamma == 1.0:  # repro: noqa[RPR001] (a host float)
+        return xf + delta
+    return xf + gamma * delta
+
+
 def _gather_payload(payload, src):
     """The payload rows each node receives (the one-card ``ppermute``)."""
     if isinstance(payload, tuple):
@@ -87,7 +99,8 @@ class ComposedMixer(Mixer):
         elif transport is not None:
             self.k = transport.k
         if isinstance(transport, DenseTransport) and not self._dynamic:
-            self.w = topology.round_w(0)
+            # the static W is cast once to the transport's compute dtype
+            self.w = topology.round_w(0).to(transport.compute_dtype)
         if self._is_gossip and self._dynamic and topology.k != transport.k:
             raise ValueError(f"topology K={topology.k} != transport K={transport.k}")
         if isinstance(wire, CodecWire):
@@ -117,7 +130,7 @@ class ComposedMixer(Mixer):
 
     @property
     def traced_wire(self) -> bool:
-        return self._dynamic
+        return self._dynamic or self.wire.traced_wire
 
     def _round_w(self, state: CommState) -> torch.Tensor:
         """The W of the codec-dense round about to run: static, or the
@@ -275,29 +288,33 @@ class ComposedMixer(Mixer):
 
     def _dense_round(self, theta, state: CommState):
         """One compressed dense round: every node encodes each leaf (its
-        innovation against θ̂ in EF mode), the public copies are mixed by W,
-        and θ moves by γ(Σ_j W_ij θ̂_j − θ̂_i) with the quantizers' γ = 1.
-        An encode pass over every leaf (one B.2 launch on the card), then a
-        mix pass; the uniforms are drawn per (key, round, leaf), so this is
-        the leaf-by-leaf round bit for bit."""
+        innovation against θ̂ in EF mode) at the round's rate, the public
+        copies are mixed by W, and θ moves by γ(Σ_j W_ij θ̂_j − θ̂_i).  An
+        encode pass over every leaf (one B.2 launch on the card, a
+        schedule's rate read there), then a mix pass; the uniforms are drawn
+        per (key, round, leaf), so this is the leaf-by-leaf round bit for
+        bit."""
         w = self._round_w(state)
+        rate = self.wire.rate(state)
+        gamma = self.wire.gamma_for(rate)
         names = leaf_names(theta)
         xfs, hats, res_sq = self._flat_leaves(theta, state, w.device)
         us = [self.wire.uniforms(state.key, state.rounds, i, xf) for i, xf in enumerate(xfs)]
-        encoded = self.wire.encode_leaves(xfs, hats, us)
+        encoded = self.wire.encode_leaves(xfs, hats, us, rate)
         out_theta, out_hat = {}, {}
         for name, xf, (_, public, new_hat) in zip(names, xfs, encoded):
             shape = theta[name].shape
-            out = xf + (w @ public - public)
+            out = _step(xf, gamma, w @ public - public)
             out_theta[name] = out.reshape(shape).to(theta[name].dtype)
             if self.ef:
                 out_hat[name] = new_hat.reshape(shape)
+        res_norm, res_ref, rounds = self.wire.next_sched_state(state, torch.sqrt(res_sq))
         # _replace, not CommState(...): fields this round does not own must
         # thread through untouched
         return out_theta, state._replace(
-            hat=out_hat if self.ef else (),
-            res_norm=torch.sqrt(res_sq), rounds=state.rounds + 1,
-            wire_bits=self.wire.round_wire_bits(theta, self._senders(w), self.k, w.device))
+            hat=out_hat if self.ef else (), res_norm=res_norm, res_ref=res_ref,
+            rounds=rounds, wire_bits=self.wire.round_wire_bits(
+                theta, rate, self._senders(w), self.k, w.device))
 
     def _gossip_round(self, theta, state: CommState, *, self_w=None,
                       match_ws=None, masks=None, senders=None):
@@ -316,12 +333,14 @@ class ComposedMixer(Mixer):
             self_w = t.self_w
         if match_ws is None:
             match_ws = t.match_ws
+        rate = self.wire.rate(state)
+        gamma = self.wire.gamma_for(rate)
         send = _send_mask(masks) if masks is not None else None
         names = leaf_names(theta)
         xfs, hats, res_sq = self._flat_leaves(theta, state, self_w.device)
         us = [self.wire.uniforms(state.key, state.rounds, i, xf) for i, xf in enumerate(xfs)]
-        # encode pass: every leaf (one B.4 launch per round where masked)
-        encoded = self.wire.encode_leaves(xfs, hats, us, send_mask=send)
+        # encode pass: every leaf (one B.2 launch per round, B.4 where masked)
+        encoded = self.wire.encode_leaves(xfs, hats, us, rate, send_mask=send)
         # EF: s_i += W_ii q_i + Σ_m W_i,src(i)·dequant(recv) keeps
         # s_i = Σ_j W_ij θ̂_j current; memoryless: the same combine of the
         # fresh C(θ) messages.  Only the payload crosses the wire.
@@ -339,17 +358,18 @@ class ComposedMixer(Mixer):
         out_theta, out_hat, out_mix = {}, {}, {}
         for n, xf, acc, (_, public, new_hat) in zip(names, xfs, accs, encoded):
             shape = theta[n].shape
-            out_theta[n] = (xf + (acc - public)).reshape(shape).to(theta[n].dtype)
+            out_theta[n] = _step(xf, gamma, acc - public).reshape(shape).to(theta[n].dtype)
             if ef:
                 out_hat[n] = new_hat.reshape(shape)
                 out_mix[n] = acc.reshape(shape)
         if senders is None:
             senders = self._sends()
+        res_norm, res_ref, rounds = self.wire.next_sched_state(state, torch.sqrt(res_sq))
         # _replace so fields this round does not own thread through
         return out_theta, state._replace(
             hat=out_hat if ef else (), hat_mix=out_mix if ef else (),
-            res_norm=torch.sqrt(res_sq), rounds=state.rounds + 1,
-            wire_bits=self.wire.round_wire_bits(theta, senders, self.k, res_sq.device))
+            res_norm=res_norm, res_ref=res_ref, rounds=rounds,
+            wire_bits=self.wire.round_wire_bits(theta, rate, senders, self.k, res_sq.device))
 
     def _flat_leaves(self, theta, state, device):
         """Each leaf as a (K, d) float32 block, its θ̂ block (EF wires; None
@@ -444,21 +464,24 @@ class ComposedMixer(Mixer):
         """
         send = _send_mask(masks)
         srcs = self.transport.srcs
+        rate = self.wire.rate(state)
+        gamma = self.wire.gamma_for(rate)
         names = leaf_names(theta)
         xfs, hats, res_sq = self._flat_leaves(theta, state, self_w.device)
         us = [self.wire.uniforms(state.key, state.rounds, i, xf) for i, xf in enumerate(xfs)]
-        encoded = self.wire.encode_leaves(xfs, hats, us, send_mask=send)
+        encoded = self.wire.encode_leaves(xfs, hats, us, rate, send_mask=send)
         out_theta, out_hat, out_mix = {}, {}, {}
         for n, xf, (_, _, new_hat) in zip(names, xfs, encoded):
             acc = self_w[:, None] * new_hat
             for pw, mk, src in zip(match_ws, masks, srcs):
                 acc = acc + (pw * mk)[:, None] * new_hat[src]
             shape = theta[n].shape
-            out_theta[n] = (xf + (acc - new_hat)).reshape(shape).to(theta[n].dtype)
+            out_theta[n] = _step(xf, gamma, acc - new_hat).reshape(shape).to(theta[n].dtype)
             out_hat[n] = new_hat.reshape(shape)
             out_mix[n] = acc.reshape(shape)
         # full-precision wire: active links × per-node f32 payload
         full_bits = 32.0 * sum(x.numel() // self.k for x in theta.values())
+        res_norm, res_ref, rounds = self.wire.next_sched_state(state, torch.sqrt(res_sq))
         return out_theta, state._replace(
-            hat=out_hat, hat_mix=out_mix, res_norm=torch.sqrt(res_sq),
-            rounds=state.rounds + 1, wire_bits=wire_bits(senders, full_bits, None))
+            hat=out_hat, hat_mix=out_mix, res_norm=res_norm, res_ref=res_ref,
+            rounds=rounds, wire_bits=wire_bits(senders, full_bits, None))

@@ -51,9 +51,9 @@ class CommState(NamedTuple):
     res_norm: f32 — innovation norm ‖θ − θ̂‖_F (over all nodes and leaves)
               offered to the codec on the last round; 0 before the first
               round, in memoryless mode, and for uncompressed mixers.
-    res_ref:  f32 — reference norm of adaptive schedules (0 until those are
-              ported).
-    rounds:   consensus rounds completed.
+    res_ref:  f32 — reference norm latched by an adaptive rate schedule
+              after its warmup (0 until then, and on other wires).
+    rounds:   consensus rounds completed (the schedules' clock).
     wire_bits: f32 — wire bits injected by the last round.
     track:    gradient-tracking state of a later slice; () here.
     ef_rounds: host int — executed rounds of the clocked EF gossip stack

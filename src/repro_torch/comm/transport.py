@@ -57,14 +57,26 @@ class Transport:
 
 
 class DenseTransport(Transport):
-    """θ_i ← Σ_j W_ij θ_j along the leading node axis, in float32 (the
-    reference's ``compute_dtype`` knob is not ported)."""
+    """θ_i ← Σ_j W_ij θ_j along the leading node axis.
+
+    The leaves are cast to ``compute_dtype`` (float32 by default) before the
+    product, and the product runs in the promotion of W's dtype and that
+    one, as the reference's einsum promotes: the static W is cast once to
+    ``compute_dtype`` (bfloat16 throughout), a time-varying float32 W_r
+    multiplies the bfloat16-rounded leaves in float32.
+    """
+
+    def __init__(self, compute_dtype=torch.float32):
+        self.compute_dtype = compute_dtype
 
     def apply_w(self, w, theta):
         """One full-precision dense mixing round under a given W."""
+        dtype = torch.promote_types(w.dtype, self.compute_dtype)
+
         def leaf(x):
             k = x.shape[0]
-            out = w @ x.reshape(k, -1).float()
+            xc = x.reshape(k, -1).to(self.compute_dtype).to(dtype)
+            out = w.to(dtype) @ xc
             return out.reshape(x.shape).to(x.dtype)
 
         return {n: leaf(x) for n, x in theta.items()}

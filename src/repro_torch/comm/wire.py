@@ -7,7 +7,8 @@ so adding a wire never perturbs fields it does not own.
 
 :class:`IdentityWire`    — full-precision parameters; trivial state.
 :class:`CodecWire`       — memoryless codec: C(θ) crosses the wire every
-                           round.  Owns ``key``.
+                           round.  Owns ``key``; drives the codec-rate
+                           schedule (``res_ref`` and ``rounds``).
 :class:`ChocoWire`       — CHOCO error feedback: compressed *innovations*
                            against public copies θ̂.  Owns ``hat`` (and
                            ``hat_mix`` on incremental transports); with a
@@ -44,7 +45,8 @@ from repro_torch.comm.compressors import (
     KernelInt8Quantizer,
     make_compressor,
 )
-from repro_torch.comm.protocol import scalar
+from repro_torch.comm.protocol import CommState, scalar
+from repro_torch.comm.schedule import CompressionSchedule
 
 UniformsFn = Callable[..., object]
 
@@ -91,10 +93,11 @@ def _uniforms(hook, key: int, index: tuple, x: torch.Tensor) -> torch.Tensor:
     return torch.rand(x.shape, generator=gen, dtype=torch.float32, device=x.device)
 
 
-def wire_bits(senders, per_node_bits: float, device) -> torch.Tensor:
+def wire_bits(senders, per_node_bits, device) -> torch.Tensor:
     """senders × per-node bits as a 0-d float32 tensor; ``senders`` is a host
-    int (static stacks) or a 0-d tensor (time-varying stacks)."""
-    if isinstance(senders, torch.Tensor):
+    int (static stacks) or a 0-d tensor (time-varying stacks), and
+    ``per_node_bits`` a host number or a 0-d tensor (a scheduled rate)."""
+    if isinstance(senders, torch.Tensor) or isinstance(per_node_bits, torch.Tensor):
         return senders * per_node_bits
     return scalar(senders * per_node_bits, device)
 
@@ -131,6 +134,7 @@ class Wire:
 
     compression: CompressionConfig | None = None
     ef = False
+    traced_wire = False
 
     def init_fields(self, params, incremental: bool = False) -> dict:
         return {}
@@ -150,25 +154,57 @@ class CodecWire(Wire):
                  uniforms: UniformsFn | None = None):
         self.compression = compression
         self.compressor = make_compressor(compression)
+        self.gamma = compression.resolved_gamma
+        self.schedule = (
+            CompressionSchedule(compression.schedule, compression.kind, compression.ratio)
+            if compression.schedule is not None else None)
         self._uniforms = uniforms
+
+    @property
+    def traced_wire(self) -> bool:
+        """A scheduled wire's ``wire_bits`` is the round's measured wire."""
+        return self.schedule is not None
 
     def init_fields(self, params, incremental: bool = False) -> dict:
         return {"key": int(self.compression.seed)}
 
-    def per_node_bits(self, params, k: int) -> int:
-        """Wire bits one node's payload carries in a round (sum over leaves)."""
-        return sum(self.compressor.payload_bits(x.numel() // k) for x in params.values())
+    # -- schedule / accounting -------------------------------------------------
 
-    def round_wire_bits(self, params, senders, k: int, device) -> torch.Tensor:
-        """Wire bits one round injects: senders × per-node payload."""
-        return wire_bits(senders, self.per_node_bits(params, k), device)
+    def rate(self, state: CommState):
+        """The codec rate of the round about to run: a 0-d float32 tensor on
+        the parameters' device, or None without a schedule."""
+        if self.schedule is None:
+            return None
+        return self.schedule.rate(state.rounds, state.res_norm, state.res_ref)
+
+    def gamma_for(self, rate):
+        """The round's consensus step: the config-resolved γ (a host float),
+        or min(γ, 2·rate) under a sparsifier schedule with ``damp_gamma``."""
+        if self.schedule is None:
+            return self.gamma
+        return self.schedule.gamma_for(self.gamma, rate)
+
+    def next_sched_state(self, state: CommState, res_norm):
+        """(res_norm', res_ref', rounds') after a round observing res_norm."""
+        res_ref = (self.schedule.update_ref(state.rounds, res_norm, state.res_ref)
+                   if self.schedule is not None else state.res_ref)
+        return res_norm, res_ref, state.rounds + 1
+
+    def round_wire_bits(self, params, rate, senders, k: int, device) -> torch.Tensor:
+        """Wire bits one round injects: senders × the per-node payload, a sum
+        over the leaves in their order (a 0-d tensor under a rate, summed in
+        float32 as the reference does)."""
+        per_node = 0.0
+        for x in params.values():
+            per_node = per_node + self.compressor.payload_bits(x.numel() // k, rate)
+        return wire_bits(senders, per_node, device)
 
     def uniforms(self, key: int, rounds: int, leaf_idx: int, x: torch.Tensor):
         """U[0, 1) noise shaped like ``x`` for leaf ``leaf_idx`` of round
         ``rounds``, on ``x``'s device."""
         return _uniforms(self._uniforms, key, (rounds, leaf_idx), x)
 
-    def compress_block(self, x, u, send_mask=None):
+    def compress_block(self, x, u, rate=None, send_mask=None):
         """Encode one (K, d) block, optionally sender-masked.
 
         ``send_mask`` (K,) in {0, 1} is the dynamic lowering's per-round
@@ -180,20 +216,21 @@ class CodecWire(Wire):
         unmasked encode.
         """
         if send_mask is None:
-            return self.compressor.compress(x, u)
-        return self.compressor.compress(x * send_mask[:, None], u)
+            return self.compressor.compress(x, u, rate)
+        return self.compressor.compress(x * send_mask[:, None], u, rate)
 
-    def encode_leaf(self, x, hat, u, send_mask=None):
-        """Compress one flattened (K, d) leaf with uniforms ``u``.
+    def encode_leaf(self, x, hat, u, rate=None, send_mask=None):
+        """Compress one flattened (K, d) leaf with uniforms ``u`` at the
+        round's ``rate`` (None: the codec's static rate).
 
         Returns (payload, public', hat') where ``public'`` is this node's new
         publicly reconstructible value (θ̂' in EF mode, C(θ) memoryless) and
         ``hat'`` the state to carry (θ̂' or ()).
         """
-        payload = self.compress_block(x - hat if self.ef else x, u, send_mask)
+        payload = self.compress_block(x - hat if self.ef else x, u, rate, send_mask)
         return self._decoded(x, hat, payload)
 
-    def encode_leaves(self, xs, hats, us, send_mask=None):
+    def encode_leaves(self, xs, hats, us, rate=None, send_mask=None):
         """:meth:`encode_leaf` of every leaf: [(payload, public', hat')].
 
         With a codec that quantizes a group at once (the kernel quantizer:
@@ -204,9 +241,10 @@ class CodecWire(Wire):
         grouped = getattr(self.compressor, "compress_grouped" if send_mask is None
                           else "compress_masked_grouped", None)
         if grouped is None:
-            return [self.encode_leaf(x, h, u, send_mask) for x, h, u in zip(xs, hats, us)]
+            return [self.encode_leaf(x, h, u, rate, send_mask) for x, h, u in zip(xs, hats, us)]
         blocks = [x - h for x, h in zip(xs, hats)] if self.ef else xs
-        payloads = grouped(blocks, us) if send_mask is None else grouped(blocks, us, send_mask)
+        payloads = grouped(blocks, us, rate=rate) if send_mask is None \
+            else grouped(blocks, us, send_mask, rate=rate)
         return [self._decoded(x, h, p) for x, h, p in zip(xs, hats, payloads)]
 
     def _decoded(self, x, hat, payload):
@@ -272,6 +310,8 @@ class MaskedQuantWire(Wire):
             raise ValueError(
                 "the masked quant_gossip wire serves kind='int8' or "
                 "'int4' (the traced-qmax rate in the int8 container)")
+        if quantized.schedule is not None:
+            raise ValueError("rate schedules are not supported on the masked wire")
         self.quantized = quantized
         self.compression = quantized
         self._qmax = 127 if quantized.kind == "int8" else 7

@@ -19,6 +19,7 @@ The hierarchical, hub and repeated mixers wait for their slices.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.comm import (
     CompressedDenseMixer,
@@ -35,15 +36,19 @@ from repro_torch.graphs.mixing import MixingDecomposition
 
 
 class DenseMixer(ComposedMixer):
-    """θ_i ← Σ_j W_ij θ_j along the leading node axis."""
+    """θ_i ← Σ_j W_ij θ_j along the leading node axis, in ``compute_dtype``
+    (W cast to it once)."""
 
-    def __init__(self, w: np.ndarray, *, device="cuda"):
-        super().__init__(StaticTopology(w, device), DenseTransport(), IdentityWire())
+    def __init__(self, w: np.ndarray, compute_dtype=torch.float32, *, device="cuda"):
+        super().__init__(StaticTopology(w, device), DenseTransport(compute_dtype),
+                         IdentityWire())
 
 
 def make_dense_mixer(w: np.ndarray, compression: CompressionConfig | None = None, *,
-                     device="cuda", uniforms: UniformsFn | None = None) -> Mixer:
-    """Dense mixing on ``device`` (or its compressed counterpart).
+                     compute_dtype=torch.float32, device="cuda",
+                     uniforms: UniformsFn | None = None) -> Mixer:
+    """Dense mixing on ``device`` (or its compressed counterpart, which
+    mixes in float32 whatever ``compute_dtype`` says, as the reference's).
 
     ``uniforms`` is the compressed wire's noise hook (tests only; see
     :mod:`repro_torch.comm.wire`).
@@ -51,7 +56,7 @@ def make_dense_mixer(w: np.ndarray, compression: CompressionConfig | None = None
     dev = resolve_device(device)
     if compression is not None and compression.enabled:
         return CompressedDenseMixer(w, compression, device=dev, uniforms=uniforms)
-    return DenseMixer(w, device=dev)
+    return DenseMixer(w, compute_dtype, device=dev)
 
 
 class GossipMixer(ComposedMixer):

@@ -99,14 +99,17 @@ def _node_scale(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def _fused_w(optimizer: Optimizer, mixer: Mixer):
     """The (K, K) W of the fused SGD + dense-mixing step, or None where the
-    step is not plain SGD followed by a static uncompressed dense round, or
-    where K exceeds the stacked B.1 kernel's ``MAX_NODES`` (64): such a step
-    takes the unfused path (the optimizer, then the mixer), on every device,
-    so the card and the CPU run one semantics at any K."""
+    step is not plain SGD followed by a static uncompressed dense round in
+    float32 (B.1 computes in float32; a bfloat16 ``compute_dtype`` rounds the
+    round's inputs), or where K exceeds the stacked B.1 kernel's
+    ``MAX_NODES`` (64): such a step takes the unfused path (the optimizer,
+    then the mixer), on every device, so the card and the CPU run one
+    semantics at any K."""
     if optimizer.sgd_lr is None or not isinstance(mixer, ComposedMixer):
         return None
     if mixer.traced_wire or not isinstance(mixer.transport, DenseTransport) \
-            or not isinstance(mixer.wire, IdentityWire):
+            or not isinstance(mixer.wire, IdentityWire) \
+            or mixer.transport.compute_dtype != torch.float32:
         return None
     if mixer.w.shape[0] > MAX_NODES:
         return None

@@ -2,9 +2,11 @@
 
 The port of ``repro.core.spec`` for what the port runs: the graph with
 Metropolis (or max-degree) mixing, DR-DSGD or DSGD, the consensus wire
-``compress`` ∈ {"none", "int8"} or a pre-built
-:class:`~repro_torch.comm.CompressionConfig` (the hand-in the benchmarks
-use), and a time-varying topology (``topology``, ``drop_p``, ``radius``,
+``compress`` ∈ {"none", "bf16", "int8", "int4", "topk", "randk"} with its
+kept fraction ``compress_ratio`` and rate schedule (``compress_schedule``,
+``schedule_threshold``, ``schedule_warmup``, ``schedule_rounds``), or a
+pre-built :class:`~repro_torch.comm.CompressionConfig` (the hand-in the
+benchmarks use), and a time-varying topology (``topology``, ``drop_p``, ``radius``,
 ``ef_rebase_every``, ``ef_rebase_threshold``: see
 :class:`~repro_torch.dynamics.DynamicsConfig`).  As in the reference, the
 gossip lowering comes in through ``build(..., mixer=...)``.
@@ -23,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-from repro_torch.comm import CompressionConfig
+from repro_torch.comm import CompressionConfig, ScheduleConfig
 from repro_torch.core.api import DecentralizedTrainer
 from repro_torch.core.robust import RobustConfig
 from repro_torch.dynamics import TOPOLOGY_KINDS, DynamicsConfig
@@ -31,18 +33,12 @@ from repro_torch.dynamics import TOPOLOGY_KINDS, DynamicsConfig
 _GRAPH_CHOICES = ("ring", "grid", "torus", "erdos_renyi", "geometric",
                   "complete", "star", "hypercube")
 _COMPRESS_CHOICES = ("none", "bf16", "int8", "int4", "topk", "randk")
-_PORTED_COMPRESS = ("none", "int8")
+_SCHEDULE_CHOICES = ("none", "constant", "linear", "adaptive")
 
 _LOCAL = "the local-updates slice (LocalUpdateMixer)"
 _FAULTS = "the faults slice"
-_SCHEDULES = "the codecs slice (rate schedules)"
 # flag -> (argparse kwargs, default, slice that ports it)
 _UNPORTED_FLAGS = {
-    "--compress-ratio": (dict(type=float), 0.01, "the codecs slice (topk/randk)"),
-    "--compress-schedule": (dict(), "none", _SCHEDULES),
-    "--schedule-threshold": (dict(type=float), 0.5, _SCHEDULES),
-    "--schedule-warmup": (dict(type=int), 10, _SCHEDULES),
-    "--schedule-rounds": (dict(type=int), 300, _SCHEDULES),
     "--mix-every": (dict(type=int), 1, _LOCAL),
     "--local-updates": (dict(type=int), 1, _LOCAL),
     "--gradient-tracking": (dict(action="store_true"), False, _LOCAL),
@@ -73,7 +69,12 @@ class TrainerSpec:
     grad_clip: float | None = None
     compress: str | CompressionConfig | None = "none"  # codec kind, or a
                                                        # pre-built config
+    compress_ratio: float = 0.01
     error_feedback: bool = True
+    compress_schedule: str = "none"
+    schedule_threshold: float = 0.5
+    schedule_warmup: int = 10
+    schedule_rounds: int = 300
     topology: str = "static"              # per-round topology process
     drop_p: float = 0.0                   # link dropout for topology=dropout
     radius: float = 0.5                   # radius for topology=geometric
@@ -99,14 +100,23 @@ class TrainerSpec:
             # a pre-built config passes through (benchmarks hand these in)
             return self.compress if self.compress.enabled else None
         if self.compress is None or self.compress == "none":
+            if self.compress_schedule != "none":
+                raise ValueError("compress_schedule needs a codec "
+                                 "(compress='int8'|'int4'|'topk'|'randk')")
             return None
-        if self.compress not in _PORTED_COMPRESS:
-            raise NotImplementedError(
-                f"compress={self.compress!r} is not ported yet; it waits for "
-                f"the codecs slice (bf16/int4/topk/randk)")
-        return CompressionConfig(kind=self.compress,
-                                 error_feedback=self.error_feedback,
-                                 seed=self.seed)
+        schedule = None
+        if self.compress_schedule != "none":
+            schedule = ScheduleConfig(
+                kind=self.compress_schedule,
+                threshold=self.schedule_threshold,
+                warmup_rounds=self.schedule_warmup,
+                anneal_rounds=self.schedule_rounds,
+            )
+        return CompressionConfig(
+            kind=self.compress, ratio=self.compress_ratio,
+            error_feedback=self.error_feedback, seed=self.seed,
+            schedule=schedule,
+        )
 
     def build(self, loss_fn, predict_fn=None, *, mixer=None, optimizer=None
               ) -> DecentralizedTrainer:
@@ -145,7 +155,22 @@ class TrainerSpec:
         ap.add_argument("--lr", type=float, default=None)
         ap.add_argument("--seed", type=int, default=0)
         ap.add_argument("--compress", default="none", choices=_COMPRESS_CHOICES,
-                        help="consensus wire codec; this port runs none and int8")
+                        help="consensus wire codec (repro_torch.comm)")
+        ap.add_argument("--compress-ratio", type=float, default=0.01,
+                        help="kept fraction for topk/randk")
+        ap.add_argument("--compress-schedule", default="none", choices=_SCHEDULE_CHOICES,
+                        help="adapt the codec rate during training "
+                             "(repro_torch.comm.schedule): int8->int4 / annealed "
+                             "topk ratio, driven by rounds (linear) or the "
+                             "error-feedback innovation norm (adaptive)")
+        ap.add_argument("--schedule-threshold", type=float, default=0.5,
+                        help="adaptive: innovation-norm fraction below which "
+                             "the rate anneals")
+        ap.add_argument("--schedule-warmup", type=int, default=10,
+                        help="adaptive: full-rate rounds before the reference "
+                             "norm is latched")
+        ap.add_argument("--schedule-rounds", type=int, default=300,
+                        help="linear: rounds to anneal full -> aggressive rate")
         ap.add_argument("--no-error-feedback", action="store_true",
                         help="ablation: memoryless compression")
         ap.add_argument("--device", default="cuda",
@@ -180,13 +205,14 @@ class TrainerSpec:
         for flag, (_, default, later) in _UNPORTED_FLAGS.items():
             if getattr(args, _dest(flag), default) != default:
                 raise NotImplementedError(f"{flag} is not ported yet; it waits for {later}")
-        if args.compress not in _PORTED_COMPRESS:
-            raise NotImplementedError(
-                f"--compress {args.compress} is not ported yet; it waits for "
-                f"the codecs slice (bf16/int4/topk/randk)")
         spec = dict(overrides)
         spec.update(mu=args.mu, robust=not args.dsgd, compress=args.compress,
+                    compress_ratio=args.compress_ratio,
                     error_feedback=not args.no_error_feedback,
+                    compress_schedule=args.compress_schedule,
+                    schedule_threshold=args.schedule_threshold,
+                    schedule_warmup=args.schedule_warmup,
+                    schedule_rounds=args.schedule_rounds,
                     topology=args.topology, drop_p=args.drop_p, radius=args.radius,
                     ef_rebase_every=args.ef_rebase_every,
                     ef_rebase_threshold=args.ef_rebase_threshold,

@@ -32,6 +32,8 @@ one card and are dropped.  Faults (``faults=``) and the hierarchical
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.comm.composed import ComposedMixer
 from repro_torch.comm.compressors import CompressionConfig
 from repro_torch.comm.mixers import CompressedDenseMixer, CompressedGossipMixer
@@ -58,9 +60,10 @@ class DynamicDenseMixer(ComposedMixer):
     :class:`repro_torch.core.consensus.DenseMixer` under a
     :class:`~repro_torch.dynamics.schedule.StaticSchedule`."""
 
-    def __init__(self, schedule: TopologySchedule, faults=None):
-        super().__init__(ScheduledTopology(schedule, faults), DenseTransport(),
-                         IdentityWire())
+    def __init__(self, schedule: TopologySchedule, faults=None,
+                 compute_dtype=torch.float32):
+        super().__init__(ScheduledTopology(schedule, faults),
+                         DenseTransport(compute_dtype), IdentityWire())
 
 
 class DynamicGossipMixer(ComposedMixer):

@@ -19,7 +19,10 @@
 //
 // and a masked row (m[i] <= 0) writes q = 0 and scale 0 without reading x or
 // u.  B.2 is the same launch with a null mask, m = 1: scale * 1 is scale
-// exactly, so B.2 and B.4 share one kernel bit for bit.  B.5, in place,
+// exactly, so B.2 and B.4 share one kernel bit for bit.  qmax is a float of
+// the launch's table, or one float32 on the card (a compression schedule's
+// rate, which then never goes to the host) that each CTA loads once; the
+// same value gives the same bits either way.  B.5, in place,
 // for every leaf l and row i with a = m[i] * w[i] != 0 and r = src[i] (i
 // itself when src is null):
 //
@@ -121,6 +124,7 @@ struct QuantLeaf {
 struct QuantTable {
   QuantLeaf leaf[kMaxLeaves];
   const float* mask;
+  const float* qmax_ptr;  // qmax on the card (a schedule's rate), or null: qmax
   float qmax;
   int n;
   long long smem_floats;  // the launch's shared-memory cache of x, per CTA
@@ -207,6 +211,9 @@ masked_quantize_grouped_kernel(const __grid_constant__ QuantTable t) {
   __shared__ unsigned cta_max;  // this CTA's partial, read by the whole cluster
   __shared__ unsigned seg_max;
 
+  // qmax from the card where the caller gives it there (one 4-byte load
+  // per CTA, held in a register), else from the table
+  const float qmax = t.qmax_ptr != nullptr ? __ldg(t.qmax_ptr) : t.qmax;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const long long c = blockIdx.x / kCluster;
@@ -305,16 +312,16 @@ masked_quantize_grouped_kernel(const __grid_constant__ QuantTable t) {
 
   // phase 2: quantize this CTA's share
   const float absmax = __uint_as_float(seg_max);
-  const float scale = absmax > 0.0f ? __fdiv_rn(absmax, t.qmax) : 1.0f;
+  const float scale = absmax > 0.0f ? __fdiv_rn(absmax, qmax) : 1.0f;
   if (begin == 0 && threadIdx.x == 0) L.scales[local] = __fmul_rn(scale, m);
   if (!L.vec) {
     const bool in_smem = end - begin <= t.smem_floats;
     for (long long i = begin + threadIdx.x; i < end; i += kQThreads) {
       const float xv = in_smem ? cache[i - begin] : __ldg(xs + i);
-      qs[i] = quantize_one(xv, __ldg(us + i), scale, t.qmax);
+      qs[i] = quantize_one(xv, __ldg(us + i), scale, qmax);
     }
   } else if (one_tile) {
-    quantize_tile(x0, u0, qs, base0, end, scale, t.qmax);
+    quantize_tile(x0, u0, qs, base0, end, scale, qmax);
   } else {
     for (long long base = base0; base < end; base += kTile) {
       float4 xv[kUnroll], uv[kUnroll];
@@ -328,7 +335,7 @@ masked_quantize_grouped_kernel(const __grid_constant__ QuantTable t) {
         load_tile(xv, xs, base, end);
       }
       load_tile(uv, us, base, end);
-      quantize_tile(xv, uv, qs, base, end, scale, t.qmax);
+      quantize_tile(xv, uv, qs, base, end, scale, qmax);
     }
   }
   if (n_act > 1) cluster_wait();  // no CTA leaves while another may read its cta_max
@@ -460,11 +467,12 @@ int launch_accumulate(const long long* desc, int n, const float* w, const float*
 // B.4 (a mask) or B.2 (mask null) over n leaves; see the entry points
 // below.
 int launch_quantize(const long long* desc, int n, const float* mask, float qmax,
-                    long long rows, void* stream) {
+                    const float* qmax_ptr, long long rows, void* stream) {
   if (n <= 0 || n > kMaxLeaves || rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
   QuantTable t = {};
   t.mask = mask;
   t.qmax = qmax;
+  t.qmax_ptr = qmax_ptr;
   t.n = n;
   long long clusters = 0;
   for (int l = 0; l < n; ++l) {
@@ -539,19 +547,21 @@ extern "C" void masked_grouped_config(long long* out) {
 // scales (float32, (rows, d / block)), d, block (divides d), and the prefix
 // count of clusters before it (per leaf: its rows * d / block segments, or
 // a kCluster-th of them, rounded up, where a segment is packed).  mask:
-// (rows,) float32.  Launches on `stream`; returns the cudaError_t (0 on
-// success).
+// (rows,) float32.  qmax_ptr: one float32 on the card, read there in place
+// of qmax, or null (the caller has range-checked the value it points to).
+// Launches on `stream`; returns the cudaError_t (0 on success).
 extern "C" int masked_quantize_grouped_f32(const long long* desc, int n, const float* mask,
-                                           float qmax, long long rows, void* stream) {
+                                           float qmax, const float* qmax_ptr, long long rows,
+                                           void* stream) {
   if (mask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_quantize(desc, n, mask, qmax, rows, stream);
+  return launch_quantize(desc, n, mask, qmax, qmax_ptr, rows, stream);
 }
 
 // B.2 over n <= kMaxLeaves leaves: B.4 with every mask entry 1.  The
 // arguments are B.4's without the mask.
-extern "C" int quantize_grouped_f32(const long long* desc, int n, float qmax, long long rows,
-                                    void* stream) {
-  return launch_quantize(desc, n, nullptr, qmax, rows, stream);
+extern "C" int quantize_grouped_f32(const long long* desc, int n, float qmax,
+                                    const float* qmax_ptr, long long rows, void* stream) {
+  return launch_quantize(desc, n, nullptr, qmax, qmax_ptr, rows, stream);
 }
 
 // B.5 over n <= kMaxLeaves leaves, in place.  desc holds, per leaf,

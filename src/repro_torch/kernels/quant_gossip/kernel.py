@@ -27,7 +27,11 @@ so each pair shares one launch path bit for bit.
 
 Every wrapper validates what it is given, raises on anything its kernel
 does not take (it never runs the plain version itself) and adds one to its
-``.launches`` for each launch.
+``.launches`` for each launch.  The quantizers take ``qmax`` as a float
+(range-checked here) or as a 0-d float32 tensor on the leaves' device (a
+compression schedule's rate), which the kernel reads on the card: the
+tensor is never read on the host, and the same value gives the same bits
+either way.
 
 ``_pick_block`` and ``num_blocks`` are the reference's layout rules, kept
 identical so that wire-byte accounting matches what the kernels emit.
@@ -55,8 +59,8 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 # exported symbol -> argtypes
 _SYMBOLS = {
-    "quantize_grouped_f32": (_P, ctypes.c_int, ctypes.c_float, _LL, _P),
-    "masked_quantize_grouped_f32": (_P, ctypes.c_int, _P, ctypes.c_float, _LL, _P),
+    "quantize_grouped_f32": (_P, ctypes.c_int, ctypes.c_float, _P, _LL, _P),
+    "masked_quantize_grouped_f32": (_P, ctypes.c_int, _P, ctypes.c_float, _P, _LL, _P),
     "masked_dequant_accumulate_grouped_f32": (_P, ctypes.c_int, _P, _P, _P, _LL, _LL, _P),
     "dequant_accumulate_grouped_f32": (_P, ctypes.c_int, _P, _P, _LL, _LL, _P),
 }
@@ -139,7 +143,11 @@ def _check_quantize_args(x, u, mask, qmax, name):
     _check("u", u, x.device, torch.float32, x.shape)
     if mask is not None:
         _check("mask", mask, x.device, torch.float32, (x.shape[0],))
-    if not 0.0 < float(qmax) <= 127.0:
+    if isinstance(qmax, torch.Tensor):
+        # read on the card, never here: a schedule's rate, whose range
+        # CompressionSchedule checks once
+        _check("qmax", qmax, x.device, torch.float32, ())
+    elif not 0.0 < float(qmax) <= 127.0:
         raise ValueError(f"qmax must be in (0, 127] for an int8 payload, got {qmax}")
 
 
@@ -183,31 +191,37 @@ def _quantize_grouped(xs, us, mask, qmax, block_d, name):
     # B.4 takes the mask; B.2 is the same kernel without one (m = 1)
     symbol = "quantize_grouped_f32" if mask is None else "masked_quantize_grouped_f32"
     masks = () if mask is None else (mask.data_ptr(),)
+    # a tensor qmax goes to the kernel by its address and is read there
+    qmax_args = (0.0, qmax.data_ptr()) if isinstance(qmax, torch.Tensor) \
+        else (float(qmax), None)
     for table in leaf_tables([quantize_clusters(k, d, block_d) for d in dims]):
         desc = (_LL * (7 * len(table)))(*[v for leaf, begin in table for v in (
             xs[leaf].data_ptr(), us[leaf].data_ptr(), qs[leaf].data_ptr(),
             ss[leaf].data_ptr(), dims[leaf], blocks[leaf], begin)])
         _build.launch(_entry(symbol), symbol, dev, ctypes.addressof(desc), len(table),
-                      *masks, float(qmax), k)
+                      *masks, *qmax_args, k)
         launched += 1
     return list(zip(qs, ss)), launched
 
 
-def quantize_blockwise_grouped(xs, us, *, qmax: float = 127.0, block_d: int = 65536):
+def quantize_blockwise_grouped(xs, us, *, qmax: float | torch.Tensor = 127.0, block_d: int = 65536):
     """B.2 over every leaf of a group: ``xs``, ``us`` lists of (K, D_l)
     float32 CUDA tensors of one K -> [(q_l int8 (K, D_l), scales_l f32 (K,
     D_l / block_l))], each leaf laid out by :func:`_pick_block` as the
     one-leaf call does.  The q's are views into one allocation, the scales
     into another.  B.4's kernel with no mask: one launch per
     :data:`MAX_GROUP_LEAVES` leaves, each adding one to
-    ``quantize_blockwise_grouped.launches``."""
+    ``quantize_blockwise_grouped.launches`` (and, with a tensor ``qmax``, to
+    ``.tensor_qmax_launches``)."""
     out, launched = _quantize_grouped(xs, us, None, qmax, block_d,
                                       "quantize_blockwise_grouped")
     quantize_blockwise_grouped.launches += launched
+    if isinstance(qmax, torch.Tensor):
+        quantize_blockwise_grouped.tensor_qmax_launches += launched
     return out
 
 
-def quantize_blockwise(x: torch.Tensor, u: torch.Tensor, *, qmax: float = 127.0,
+def quantize_blockwise(x: torch.Tensor, u: torch.Tensor, *, qmax: float | torch.Tensor = 127.0,
                        block_d: int = 65536):
     """x, u: (K, D) float32 CUDA tensors -> (q int8 (K, D), scales f32 (K, D/block)).
 
@@ -220,7 +234,8 @@ def quantize_blockwise(x: torch.Tensor, u: torch.Tensor, *, qmax: float = 127.0,
     return q, scales
 
 
-def masked_quantize_blockwise_grouped(xs, us, mask: torch.Tensor, *, qmax: float = 127.0,
+def masked_quantize_blockwise_grouped(xs, us, mask: torch.Tensor,
+                                      *, qmax: float | torch.Tensor = 127.0,
                                       block_d: int = 65536):
     """B.4 over every leaf of a group: ``xs``, ``us`` lists of (K, D_l)
     float32 CUDA tensors, ``mask`` (K,) float32 in {0, 1} -> [(q_l int8 (K,
@@ -236,7 +251,7 @@ def masked_quantize_blockwise_grouped(xs, us, mask: torch.Tensor, *, qmax: float
 
 
 def masked_quantize_blockwise(x: torch.Tensor, u: torch.Tensor, mask: torch.Tensor, *,
-                              qmax: float = 127.0, block_d: int = 65536):
+                              qmax: float | torch.Tensor = 127.0, block_d: int = 65536):
     """B.2 with a per-row sender mask (K,) float32 in {0, 1}: a masked row
     emits q = 0 and scale = 0.  A one-leaf group of the B.4 kernel; adds one
     to ``masked_quantize_blockwise.launches``."""
@@ -360,6 +375,7 @@ def masked_dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.
 # launches of each kernel since the last reset (the main path's proof of use)
 quantize_blockwise.launches = 0
 quantize_blockwise_grouped.launches = 0
+quantize_blockwise_grouped.tensor_qmax_launches = 0  # of those, qmax read on the card
 masked_quantize_blockwise.launches = 0
 masked_quantize_blockwise_grouped.launches = 0
 dequant_accumulate.launches = 0

@@ -27,7 +27,7 @@ from repro_torch.kernels.quant_gossip import kernel as _k
 from repro_torch.kernels.quant_gossip import ref as _r
 
 
-def quantize_blockwise(x: torch.Tensor, u: torch.Tensor, *, qmax: float = 127.0,
+def quantize_blockwise(x: torch.Tensor, u: torch.Tensor, *, qmax: float | torch.Tensor = 127.0,
                        block_d: int = 65536):
     """(K, D) f32 -> (q int8 (K, D), per-block scales f32 (K, n_blk))."""
     if _build.route("quantize_blockwise", x):
@@ -36,7 +36,7 @@ def quantize_blockwise(x: torch.Tensor, u: torch.Tensor, *, qmax: float = 127.0,
     return _r.quantize_blockwise_ref(x, u, qmax=qmax, block_d=block_d)
 
 
-def quantize_blockwise_grouped(xs, us, *, qmax: float = 127.0, block_d: int = 65536):
+def quantize_blockwise_grouped(xs, us, *, qmax: float | torch.Tensor = 127.0, block_d: int = 65536):
     """:func:`quantize_blockwise` over every leaf of a group (lists of (K,
     D_l) ``xs`` and ``us`` of one K): one launch on the card."""
     if _build.route("quantize_blockwise_grouped", xs[0]):
@@ -46,7 +46,7 @@ def quantize_blockwise_grouped(xs, us, *, qmax: float = 127.0, block_d: int = 65
 
 
 def masked_quantize_blockwise(x: torch.Tensor, u: torch.Tensor, mask: torch.Tensor, *,
-                              qmax: float = 127.0, block_d: int = 65536):
+                              qmax: float | torch.Tensor = 127.0, block_d: int = 65536):
     """Masked-sender quantize: rows with mask 0 put nothing on the wire
     (q = 0, scale = 0).  Serves the memoryless dynamic gossip wire (θ per
     matching) and the error-feedback dynamic wire (the innovation, once per
@@ -57,7 +57,8 @@ def masked_quantize_blockwise(x: torch.Tensor, u: torch.Tensor, mask: torch.Tens
     return _r.masked_quantize_blockwise_ref(x, u, mask, qmax=qmax, block_d=block_d)
 
 
-def masked_quantize_blockwise_grouped(xs, us, mask: torch.Tensor, *, qmax: float = 127.0,
+def masked_quantize_blockwise_grouped(xs, us, mask: torch.Tensor,
+                                      *, qmax: float | torch.Tensor = 127.0,
                                       block_d: int = 65536):
     """:func:`masked_quantize_blockwise` over every leaf of a group (lists of
     (K, D_l) ``xs`` and ``us``, one (K,) mask): one launch on the card."""
@@ -122,7 +123,7 @@ def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return _r.dequantize_blockwise_ref(q, scales)
 
 
-def quant_gossip_round(x, acc, weight, src, u, *, qmax: float = 127.0,
+def quant_gossip_round(x, acc, weight, src, u, *, qmax: float | torch.Tensor = 127.0,
                        block_d: int = 65536):
     """One compressed matching exchange on one card.
 
@@ -139,7 +140,7 @@ def quant_gossip_round(x, acc, weight, src, u, *, qmax: float = 127.0,
     return dequant_accumulate(acc, q, scales, weight, src=src)
 
 
-def masked_quant_gossip_round(x, acc, weight, mask, src, u, *, qmax: float = 127.0,
+def masked_quant_gossip_round(x, acc, weight, mask, src, u, *, qmax: float | torch.Tensor = 127.0,
                               block_d: int = 65536):
     """:func:`quant_gossip_round` with the round's link mask (K,) at both
     ends: masked senders emit a zero payload and masked receivers combine

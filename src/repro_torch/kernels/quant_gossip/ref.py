@@ -5,10 +5,11 @@ correctly rounded float32 operation.
 
 * quantize: ``scale = absmax / qmax`` (1 where the block is all zero) and
   ``q = clip(floor(x / scale + u), ±qmax)``, bit-exact against the
-  reference's ``quantize_blockwise_ref`` too.  ``qmax`` is divided as a
-  tensor on ``x``'s device: PyTorch's CUDA division by a Python number
-  multiplies by its reciprocal, which is not correctly rounded and would
-  move ``scale`` by an ulp.
+  reference's ``quantize_blockwise_ref`` too.  ``qmax`` is a float or a
+  0-d float32 tensor (a schedule's rate), divided as a tensor on ``x``'s
+  device either way: PyTorch's CUDA division by a Python number multiplies
+  by its reciprocal, which is not correctly rounded and would move
+  ``scale`` by an ulp.
 * masked quantize: a masked row gives q = 0 and scale·m = 0, as the
   reference's oracle does.
 * the grouped forms (every leaf of one matching in one call, as the card
@@ -35,16 +36,17 @@ def _blocked(x: torch.Tensor, n_blk: int) -> torch.Tensor:
     return x.reshape(k, n_blk, d // n_blk)
 
 
-def quantize_blockwise_ref(x, u, *, qmax: float = 127.0, block_d: int = 65536):
+def quantize_blockwise_ref(x, u, *, qmax: float | torch.Tensor = 127.0, block_d: int = 65536):
     """x, u: (K, D) -> (q int8 (K, D), scales f32 (K, D/block))."""
     k, d = x.shape
     n_blk = d // _pick_block(d, block_d)
     xb = _blocked(x.float(), n_blk)
-    qmax_t = torch.full((), float(qmax), dtype=torch.float32, device=x.device)
+    qmax_t = qmax.to(device=x.device, dtype=torch.float32) if isinstance(qmax, torch.Tensor) \
+        else torch.full((), float(qmax), dtype=torch.float32, device=x.device)
     absmax = xb.abs().amax(dim=2, keepdim=True)
     scale = torch.where(absmax > 0, absmax / qmax_t, torch.ones_like(absmax))
     y = torch.floor(xb / scale + _blocked(u.float(), n_blk))
-    q = torch.clamp(y, -float(qmax), float(qmax)).to(torch.int8)
+    q = torch.clamp(y, -qmax_t, qmax_t).to(torch.int8)
     return q.reshape(k, d), scale.reshape(k, n_blk)
 
 
@@ -55,7 +57,7 @@ def dequantize_blockwise_ref(q, scales):
     return (_blocked(q.float(), n_blk) * scales[:, :, None]).reshape(k, d)
 
 
-def masked_quantize_blockwise_ref(x, u, mask, *, qmax: float = 127.0,
+def masked_quantize_blockwise_ref(x, u, mask, *, qmax: float | torch.Tensor = 127.0,
                                   block_d: int = 65536):
     """Masked-sender version: rows with mask 0 emit zero payload and zero
     scales."""
@@ -88,12 +90,13 @@ def masked_dequant_accumulate_ref(acc, q, scales, w, mask, *, src=None):
     return dequant_accumulate_ref(acc, q, scales, a, src=src)
 
 
-def quantize_blockwise_grouped_ref(xs, us, *, qmax: float = 127.0, block_d: int = 65536):
+def quantize_blockwise_grouped_ref(xs, us,
+                                   *, qmax: float | torch.Tensor = 127.0, block_d: int = 65536):
     """[(q_l, scales_l)] of :func:`quantize_blockwise_ref` per leaf."""
     return [quantize_blockwise_ref(x, u, qmax=qmax, block_d=block_d) for x, u in zip(xs, us)]
 
 
-def masked_quantize_blockwise_grouped_ref(xs, us, mask, *, qmax: float = 127.0,
+def masked_quantize_blockwise_grouped_ref(xs, us, mask, *, qmax: float | torch.Tensor = 127.0,
                                           block_d: int = 65536):
     """[(q_l, scales_l)] of :func:`masked_quantize_blockwise_ref` per leaf."""
     return [masked_quantize_blockwise_ref(x, u, mask, qmax=qmax, block_d=block_d)

@@ -23,6 +23,10 @@ A.10), ``--log-dir`` and ``--profile`` (A.13) raise as not ported.
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --paper fmnist
   PYTHONPATH=src python -m repro_torch.launch.train --paper cifar --steps 50
+  PYTHONPATH=src python -m repro_torch.launch.train --paper fmnist \
+      --compress int8 --compress-schedule adaptive
+  PYTHONPATH=src python -m repro_torch.launch.train --paper fmnist \
+      --compress topk --compress-ratio 0.02 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --smoke \
       --steps 3 --nodes 4 --device cpu

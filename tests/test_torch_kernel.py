@@ -61,6 +61,13 @@ above the stacked B.1 kernel's
 equals the unfused step and stays within 1.5e-4 of the largest update of
 the CPU's.
 
+B.2 and B.4 grouped with qmax as a 0-d float32 tensor on the card (a
+compression schedule's rate) equal the float form and the plain version bit
+for bit at qmax 127, 7 and 42.5 on the MLP's and the CNN's leaves and the
+serving layout, with and without a mask; such a call, and scheduled dense
+int8-kernel rounds, run under CUDA's sync debug mode "error" (no
+device-to-host copy, no synchronisation).
+
 Run it on a machine with a card with ``PYTHONPATH=src python -m pytest -q
 tests/test_torch_kernel.py``.
 """
@@ -1126,3 +1133,96 @@ def test_grouped_stacked_dispatcher_launches_for_cuda_tensors(cuda):
     gops.gossip_update_stacked_grouped(thetas, grads, w, s, eta=0.1)
     assert (gk.gossip_update_stacked_grouped.launches,
             gops.gossip_update_stacked_grouped.plain_calls) == (before[0] + 1, before[1])
+
+
+# -- B.2 and B.4 with qmax on the card (a compression schedule's rate) ---------
+
+TENSOR_QMAX = [127.0, 7.0, 42.5]
+
+
+@pytest.mark.parametrize("group", ["mlp", "cnn", "block 128"])
+@pytest.mark.parametrize("mask", [None, "mixed"], ids=["b2", "b4-mixed"])
+def test_tensor_qmax_equals_float_qmax(cuda, group, mask):
+    """B.2 (no mask) and B.4 (a mixed mask) grouped, qmax as a 0-d float32
+    tensor on the card at 127, 7 and the fractional 42.5: the payload and
+    scales are the float form's and the plain version's bit for bit, in one
+    launch per MAX_GROUP_LEAVES leaves."""
+    k, dims, block_d = GROUPS[group]
+    xs, us = _group(k, dims, seed=5 * k, device=cuda)
+    m = None if mask is None else _mask(mask, k, cuda)
+    fn = qk.quantize_blockwise_grouped if m is None else qk.masked_quantize_blockwise_grouped
+    args = (xs, us) if m is None else (xs, us, m)
+    plain = ref.quantize_blockwise_grouped_ref if m is None \
+        else ref.masked_quantize_blockwise_grouped_ref
+    launches = len(qk.leaf_tables([1] * len(dims)))
+    for qmax in TENSOR_QMAX:
+        q_t = torch.tensor(qmax, dtype=torch.float32, device=cuda)
+        before = fn.launches
+        got = fn(*args, qmax=q_t, block_d=block_d)
+        torch.cuda.synchronize()
+        assert fn.launches == before + launches
+        want = fn(*args, qmax=qmax, block_d=block_d)
+        plain_out = plain(*args, qmax=q_t, block_d=block_d)
+        for i, ((q, s), (q_f, s_f), (q_p, s_p)) in enumerate(zip(got, want, plain_out)):
+            assert torch.equal(q, q_f) and torch.equal(s, s_f), (group, qmax, i)
+            assert torch.equal(q, q_p) and torch.equal(s, s_p), (group, qmax, i)
+
+
+def test_tensor_qmax_is_never_read_on_the_host(cuda):
+    """With CUDA's sync debug mode set to error, a grouped B.2 and B.4 call
+    with a tensor qmax (and the one-leaf call) makes no device-to-host copy
+    and no synchronisation; a tensor on another device or of another dtype
+    is refused before any launch."""
+    k, dims, block_d = GROUPS["mlp"]
+    xs, us = _group(k, dims, seed=3, device=cuda)
+    m = _mask("mixed", k, cuda)
+    q_t = torch.tensor(7.0, device=cuda)
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        qk.quantize_blockwise_grouped(xs, us, qmax=q_t, block_d=block_d)
+        qk.masked_quantize_blockwise_grouped(xs, us, m, qmax=q_t, block_d=block_d)
+        ops.quantize_blockwise(xs[0], us[0], qmax=q_t, block_d=block_d)
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    launched = qk.quantize_blockwise_grouped.launches
+    for bad in (torch.tensor(7.0), torch.tensor(7.0, dtype=torch.float64, device=cuda),
+                torch.tensor([7.0], device=cuda)):
+        with pytest.raises((ValueError, TypeError)):
+            qk.quantize_blockwise_grouped(xs, us, qmax=bad, block_d=block_d)
+    assert qk.quantize_blockwise_grouped.launches == launched
+
+
+def test_scheduled_rounds_on_the_card_make_no_host_sync(cuda):
+    """Dense int8-kernel rounds under the adaptive and the linear schedule
+    (the rate, B.2 with the rate as qmax, the wire bits), past the warmup,
+    run under sync debug mode "error": no device-to-host copy and no
+    synchronisation.  The wire's own noise is drawn on the card (a test's
+    numpy uniforms would be a host-to-device copy)."""
+    from repro_torch.comm import CompressionConfig, ScheduleConfig
+    from repro_torch.core.consensus import make_dense_mixer
+    from repro_torch.graphs import build_graph, metropolis_weights
+
+    w = metropolis_weights(build_graph("ring", 10))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for kind in ("adaptive", "linear"):
+        cfg = CompressionConfig(kind="int8", use_kernel=True, schedule=ScheduleConfig(
+            kind=kind, warmup_rounds=1, threshold=0.9, anneal_rounds=3))
+        mixer = make_dense_mixer(w, compression=cfg, device=cuda)
+        theta = {"a": torch.randn((10, 3136), generator=gen, device=cuda),
+                 "b": torch.randn((10, 10), generator=gen, device=cuda)}
+        state = mixer.init_state(theta)
+        before = qk.quantize_blockwise_grouped.launches
+        for r in range(5):
+            torch.cuda.synchronize()
+            if r >= 2:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                theta, state = mixer(theta, state)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert qk.quantize_blockwise_grouped.launches == before + 5
+        assert all(bool(torch.isfinite(t).all()) for t in theta.values())
+        if kind == "linear":  # annealed to qmax 7: 4 bits per entry
+            assert float(state.wire_bits) == 10 * (4 * 3146 + 2 * 32)

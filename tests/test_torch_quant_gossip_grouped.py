@@ -311,7 +311,7 @@ def _old_gossip_round(self, theta, state, *, self_w=None, match_ws=None, masks=N
     return out_theta, state._replace(
         hat=out_hat if ef else (), hat_mix=out_mix if ef else (),
         res_norm=torch.sqrt(res_sq), rounds=state.rounds + 1,
-        wire_bits=self.wire.round_wire_bits(theta, senders, self.k, res_sq.device))
+        wire_bits=self.wire.round_wire_bits(theta, None, senders, self.k, res_sq.device))
 
 
 def _old_rebase_round(self, theta, state, self_w, match_ws, masks, senders):
@@ -444,7 +444,7 @@ def _old_static_gossip_round(self, theta, state, **_):
     return out_theta, state._replace(
         hat=out_hat if ef else (), hat_mix=out_mix if ef else (),
         res_norm=torch.sqrt(res_sq), rounds=state.rounds + 1,
-        wire_bits=self.wire.round_wire_bits(theta, self._sends(), self.k, res_sq.device))
+        wire_bits=self.wire.round_wire_bits(theta, None, self._sends(), self.k, res_sq.device))
 
 
 def _static_mixer(ef):
@@ -648,7 +648,7 @@ def _old_dense_round(self, theta, state):
     return out_theta, state._replace(
         hat=out_hat if self.ef else (),
         res_norm=torch.sqrt(res_sq), rounds=state.rounds + 1,
-        wire_bits=self.wire.round_wire_bits(theta, self._senders(w), self.k, w.device))
+        wire_bits=self.wire.round_wire_bits(theta, None, self._senders(w), self.k, w.device))
 
 
 @pytest.mark.parametrize("kernel", [True, False], ids=["int8-kernel", "int8"])

@@ -29,6 +29,7 @@ step.  The CNN runs at lr 0.05 and B = 8: at the paper's lr a flip grows
 steps.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -259,12 +260,22 @@ def test_spec_builds_the_paper_trainer():
     t = spec.build(nets.make_classifier_loss(nets.mlp_apply), nets.mlp_apply)
     assert t.compression.use_kernel and t.mixer.compression.kind == "int8"
     assert TrainerSpec(compress="int8", device="cpu").compression_config().kind == "int8"
-    with pytest.raises(NotImplementedError, match="codecs slice"):
-        TrainerSpec(compress="topk", device="cpu").compression_config()
+    # every codec and schedule flag reaches the config the reference's spec builds
+    from repro.core.spec import TrainerSpec as RefTrainerSpec
+
+    for kw in (dict(compress="topk", compress_ratio=0.02),
+               dict(compress="int8", compress_schedule="adaptive", schedule_threshold=0.7,
+                    schedule_warmup=5),
+               dict(compress="randk", compress_schedule="linear", schedule_rounds=40,
+                    error_feedback=False, seed=4)):
+        got = TrainerSpec(device="cpu", **kw).compression_config()
+        want = RefTrainerSpec(**kw).compression_config()
+        assert dataclasses.asdict(got) == {k: v for k, v in dataclasses.asdict(want).items()
+                                           if k != "interpret"}
 
 
-@pytest.mark.parametrize("argv", [["--topology", "hub"], ["--compress", "topk"],
-                                  ["--compress-schedule", "linear"],
+@pytest.mark.parametrize("argv", [["--topology", "hub"], ["--straggler-p", "0.1"],
+                                  ["--gradient-tracking"],
                                   ["--arch", "qwen2_0_5b", "--ckpt-dir", "x"],
                                   ["--local-updates", "2"], ["--mix-every", "2"]])
 def test_cli_unported_flags_raise(argv):
