@@ -121,6 +121,33 @@ PyTorch version:
            per round: every launch counted as a tensor-qmax launch), each
            printing its rate at rounds 0, 10 and the last, its wire bits and
            worst-distribution accuracy.
+  dynamics fig9's local-update rows and faults on fig7's task (K = 8 ring,
+           DR-DSGD mu = 3, B = 55, lr 0.18, clipped at 2, 400 steps): dense
+           dropout 0.2 at H = 2 and 4 and at H = 4 with gradient tracking
+           (its consensus rounds bill 2x the H = 4 run's, local rounds 0);
+           dense stragglers 0.1 with outages 0.05 over windows of 10, with
+           and without straggler_skips_compute; the memoryless int8 gossip
+           wire under stragglers 0.1 (grouped B.4 and B.5 once per matching
+           per round, held against their plain versions bit for bit on
+           three rounds in which a straggler's row is masked in every
+           matching); the EF int8 gossip wire re-based every 4 rounds under
+           dropout 0.2 inside LocalUpdateMixer(H = 2) (grouped B.4 once per
+           consensus round, grouped B.5 once per matching of a delta round
+           on the EF clock, no launch on a local round, checked round by
+           round).  Each row prints worst-distribution accuracy, total wire
+           bytes, the median synchronised ms per step, the observed
+           straggler, outage and link-keep rates against the configured
+           ones (held within RATE_SIGMAS) and its launches.  Before them,
+           12 rounds of each new mixer (faulted dense and memoryless gossip,
+           dense gradient tracking, EF gossip under H = 2, the hub, the int8
+           hub under H = 4, a repeated dense round) on the card against the
+           CPU with the same fault masks, W_r and uniforms, within
+           DYN_UPDATE_REL of the round's largest update, wire bits equal.
+  hub      fig11 without its hierarchical row: gossip over the static ring,
+           the hub at H = 1 (disagreement at float noise at the end), FedAvg
+           and SCAFFOLD at H = 4 (SCAFFOLD's consensus rounds bill 2x), and
+           int8 FedAvg at H = 4 on the kernel quantizer (grouped B.2 over the
+           star W once per consensus round: 100 launches).
   bwd-kernel  B.6's backward against autograd of the plain version at
            qwen2-0.5b's training shapes (B 2, H 14/2, hd 64, S = T = 64 and
            512) and at the serving shapes below, dq, dk and dv within
@@ -1873,6 +1900,506 @@ def phase_schedules(spec_cls, cfg_cls, mlp_leaves, cnn_leaves) -> dict:
     return out
 
 
+# -- faults, local updates and the federated hub (fig9, fig11) ----------------
+
+FIG9_STEPS = 400            # fig9/fig11's steps (benchmarks/fig9_dynamics.py, fig11_hub.py)
+FIG9_DROP = 0.2             # fig9's dropout under the local-update rows
+FIG9_FAULTS = dict(straggler_p=0.1, outage_p=0.05, outage_len=10)
+EF_LOCAL = (4, 2)           # the EF gossip row: re-base period B, local-update period H
+HUB_H = 4                   # fig11's FedAvg / SCAFFOLD period
+DYN_PARITY_ROUNDS = 12
+DYN_UPDATE_REL = 1.5e-4     # card vs CPU, relative to the largest update (ROADMAP §C)
+RATE_SIGMAS = 5.0           # an observed fault rate against its configured one
+
+
+def _dyn_run(tag, name, spec, data, steps, want_counts, mixer=None, period=1) -> dict:
+    """``steps`` steps of ``trainer.step`` on fig9/fig11's task, each timed
+    to a synchronised end, after a 3-step warm-up on a throwaway state,
+    with every launch count set to 0 just before.  Holds: loss falls on the
+    first batch, every metric finite, ``comm_bytes`` the round's measured
+    wire (``wire_bits / 8``) on time-varying stacks and ``bytes_per_round``
+    on static ones, 0 on the local steps of a period-H stack, and the
+    launches ``want_counts`` with no plain call.  Returns the record, with
+    the per-step wire bits and launches, the final state and the trainer's
+    mixer beside it (not logged)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.models import make_classifier_loss, mlp_apply
+
+    batches, (x_nodes, y_nodes), params = data
+    trainer = spec.build(make_classifier_loss(mlp_apply), mlp_apply, mixer=mixer)
+    trainer.run(trainer.init(params), tuple(b[:3] for b in batches))
+    state = trainer.init(params)
+    torch.cuda.synchronize()
+    reset_counts()
+    times, metrics, step_launches = [], [], []
+    for t in range(steps):
+        before = {n: c[0] for n, c in kernel_counts().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, tuple(b[t] for b in batches))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append(m)
+        step_launches.append({n: c[0] - before[n] for n, c in kernel_counts().items()
+                              if c[0] != before[n]})
+    counts = kernel_counts()
+    ms = {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+    _finite(ms)
+    check_counts(f"{tag} {name}", counts, want_counts)
+    if trainer.mixer.traced_wire:
+        if not torch.equal(ms["comm_bytes"], ms["wire_bits"] / 8.0):
+            raise AssertionError(f"[{tag}] {name}: comm_bytes are not wire_bits / 8")
+    elif not bool((ms["comm_bytes"] == trainer.mixer.bytes_per_round(state.params)).all()):
+        raise AssertionError(f"[{tag}] {name}: comm_bytes are not bytes_per_round")
+    local = [t for t in range(steps) if t % period != period - 1]
+    if local and bool(ms["comm_bytes"][local].any()):
+        raise AssertionError(f"[{tag}] {name}: a local step billed wire bytes")
+    if local and any(step_launches[t] for t in local):
+        raise AssertionError(f"[{tag}] {name}: a local step launched a kernel")
+    loss0 = float(ms["loss_mean"][0])
+    loss_end = _loss_on(trainer, state, tuple(b[0] for b in batches))
+    stats = trainer.eval_local_distributions(state, x_nodes, y_nodes)
+    rec = dict(run=name, steps=steps, period=period, loss_step0=loss0, loss_end=loss_end,
+               acc_worst_dist=stats["acc_worst_dist"], acc_avg=stats["acc_avg"],
+               comm_bytes_total=float(ms["comm_bytes"].double().sum()),
+               disagreement_final=float(ms["disagreement"][-1]),
+               ms_per_step_median=1e3 * statistics.median(times),
+               launches={n: c[0] for n, c in counts.items() if c[0]})
+    log(f"[{tag}] " + json.dumps(rec))
+    if not loss_end < loss0:
+        raise AssertionError(f"[{tag}] {name}: loss did not fall ({loss0} -> {loss_end})")
+    if not all(math.isfinite(v) for v in (stats["acc_worst_dist"], stats["acc_avg"])):
+        raise AssertionError(f"[{tag}] {name}: eval metrics not finite")
+    return dict(rec, wire_bits=ms["wire_bits"].cpu(), step_launches=step_launches,
+                final=state, mixer=trainer.mixer)
+
+
+def _rate(tag, what, observed: float, configured: float, n: int) -> dict:
+    """An observed fault rate beside its configured one, held within
+    RATE_SIGMAS binomial standard deviations over ``n`` draws."""
+    sigma = (configured * (1 - configured) / n) ** 0.5
+    if abs(observed - configured) > RATE_SIGMAS * sigma:
+        raise AssertionError(f"[{tag}] {what}: observed {observed}, configured {configured}, "
+                             f"sigma {sigma} over {n} draws")
+    return dict(observed=observed, configured=configured, sigma=sigma, draws=n)
+
+
+def _observed_rates(tag, steps: int, drop_p: float = 0.0, faults=None) -> dict:
+    """The card's own coins over the run's ``steps`` rounds, replayed from
+    the configs: the link-keep share of the ring's links under dropout, and
+    per stream the straggler share (per round) and the outage share (per
+    window) — the streams are independent generators, so each is replayed
+    alone."""
+    import numpy as np
+
+    from repro_torch.dynamics import DropoutSchedule, FaultConfig, replay_fault_masks
+    from repro_torch.graphs import build_graph, metropolis_weights
+
+    k, out = FIG_K, {}
+    w = metropolis_weights(build_graph("ring", k))
+    iu = np.triu_indices(k, 1)
+    links = w[iu] > 0
+    if drop_p > 0:
+        sched = DropoutSchedule(w, drop_p, seed=0, device="cuda")
+        kept = np.stack([sched.round_weights(r).cpu().numpy()[iu][links] > 0
+                         for r in range(steps)])
+        out["link_keep"] = _rate(tag, "link keep", float(kept.mean()), 1 - drop_p, kept.size)
+    if faults is not None:
+        rounds = np.arange(steps)
+        if faults.straggler_p > 0:
+            _, up = replay_fault_masks(FaultConfig(straggler_p=faults.straggler_p,
+                                                   seed=faults.seed), rounds, k, "cuda")
+            out["straggler"] = _rate(tag, "straggler", float(1 - up.mean()), faults.straggler_p,
+                                     up.size)
+        if faults.outage_p > 0:
+            starts = np.arange(0, steps, faults.outage_len)
+            _, up = replay_fault_masks(FaultConfig(outage_p=faults.outage_p,
+                                                   outage_len=faults.outage_len,
+                                                   seed=faults.seed), starts, k, "cuda")
+            out["outage"] = _rate(tag, "outage", float(1 - up.mean()), faults.outage_p, up.size)
+        keep, _ = replay_fault_masks(faults, rounds, k, "cuda")
+        p_up = (1 - faults.straggler_p) * (1 - faults.outage_p)
+        out["link_keep"] = dict(observed=float(keep[:, iu[0], iu[1]][:, links].mean()),
+                                configured=p_up * p_up * (1 - faults.link_drop_p))
+    return out
+
+
+def _time_grouped(name, call, plain, dims, block_d: int) -> dict:
+    """One grouped call on a new path's leaves (K = FIG_K): call time (CUDA
+    events), the kernel's device time (profiler), the plain version's call
+    and the bound, the sum of the leaves' (:func:`kernel_bound`)."""
+    from repro_torch.kernels.quant_gossip import kernel as qk
+
+    bounds = [kernel_bound(name, FIG_K, d, qk.num_blocks(d, block_d)) for d in dims]
+    rec = dict(_time_call(name, call, plain, 200, 10), bound_ms=sum(b for b, _ in bounds),
+               bound_by="bytes" if {b for _, b in bounds} == {"bytes"} else "operations",
+               leaves=len(dims), nodes=FIG_K)
+    log(f"[timing] {name} on a new path's leaves: " + json.dumps(rec))
+    return rec
+
+
+def _b45_on_straggler_rounds(tag, mixer, theta, rounds: int, cfg) -> dict:
+    """The memoryless straggler wire's grouped B.4 and B.5 on the card
+    against their plain versions on the same card tensors, bit for bit, on
+    the first three rounds in which a straggler masks a whole row (its row
+    is 0 in every matching's mask), with the round's own uniforms."""
+    import torch
+
+    from repro_torch.comm.topology import gather_round_vectors
+    from repro_torch.dynamics import replay_fault_masks
+    from repro_torch.kernels.quant_gossip import kernel as qk
+    from repro_torch.kernels.quant_gossip import ref as qref
+    from repro_torch.utils.tree import leaf_names
+
+    _, up = replay_fault_masks(cfg, range(rounds), FIG_K, theta[next(iter(theta))].device)
+    picked = [r for r in range(rounds) if up[r].min() == 0][:3]
+    if len(picked) < 3:
+        raise AssertionError(f"[{tag}] fewer than 3 straggler rounds in {rounds}")
+    names = leaf_names(theta)
+    xfs = [theta[n].reshape(FIG_K, -1).float().contiguous() for n in names]
+    wire, t = mixer.wire, mixer.transport
+    err, down_rows = 0.0, 0
+    for r in picked:
+        self_w, pws, masks = gather_round_vectors(mixer.topo.round_w(r), t.perm_idx)
+        for i in (up[r] == 0).nonzero()[0]:
+            if any(float(mk[i]) != 0.0 for mk in masks):
+                raise AssertionError(f"[{tag}] round {r}: straggler {i} is not masked")
+            down_rows += 1
+        accs = [xf * self_w[:, None] for xf in xfs]
+        plain_accs = [a.clone() for a in accs]
+        for m, (pw, mk, src) in enumerate(zip(pws, masks, t.srcs)):
+            us = [wire.uniforms(int(wire.quantized.seed), r, i, m, xf)
+                  for i, xf in enumerate(xfs)]
+            got = qk.masked_quantize_blockwise_grouped(xfs, us, mk, qmax=127.0,
+                                                       block_d=wire.quantized.block_d)
+            want = qref.masked_quantize_blockwise_grouped_ref(xfs, us, mk, qmax=127.0,
+                                                              block_d=wire.quantized.block_d)
+            for (gq, gs), (wq, ws) in zip(got, want):
+                if not (torch.equal(gq, wq) and torch.equal(gs, ws)):
+                    raise AssertionError(f"[{tag}] round {r}: B.4 differs from its plain version")
+            qk.masked_dequant_accumulate_grouped_(accs, got, pw, mk, src=src)
+            qref.masked_dequant_accumulate_grouped_ref_(plain_accs, want, pw, mk, src=src)
+            err = max(err, max(_max_diff(a, b) for a, b in zip(accs, plain_accs)))
+        if err != 0.0:
+            raise AssertionError(f"[{tag}] round {r}: B.5 differs from its plain version ({err})")
+    # one matching of the last picked round, timed: the straggler-masked B.4
+    # and B.5 over every leaf at the path's shapes
+    block_d, dims = wire.quantized.block_d, [x.shape[1] for x in xfs]
+    scratch = [a.clone() for a in accs]
+    timing = {
+        "masked_quantize_blockwise_grouped": _time_grouped(
+            "masked_quantize_blockwise_grouped",
+            lambda: qk.masked_quantize_blockwise_grouped(xfs, us, mk, qmax=127.0,
+                                                         block_d=block_d),
+            lambda: qref.masked_quantize_blockwise_grouped_ref(xfs, us, mk, qmax=127.0,
+                                                               block_d=block_d),
+            dims, block_d),
+        "masked_dequant_accumulate_grouped_": _time_grouped(
+            "masked_dequant_accumulate_grouped_",
+            lambda: qk.masked_dequant_accumulate_grouped_(scratch, got, pw, mk, src=src),
+            lambda: qref.masked_dequant_accumulate_grouped_ref_(scratch, want, pw, mk, src=src),
+            dims, block_d)}
+    rec = dict(rounds=picked, down_rows=down_rows, max_abs_err=err, timing=timing)
+    log(f"[{tag}] B.4/B.5 on straggler rounds: " + json.dumps(rec))
+    return rec
+
+
+def _state_to(state, device):
+    """A CommState (tensors, dicts of tensors, host ints) on ``device``."""
+    import torch
+
+    def move(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device)
+        if isinstance(v, dict):
+            return {n: move(x) for n, x in v.items()}
+        if isinstance(v, tuple):
+            return tuple(move(x) for x in v)
+        return v
+
+    return state._replace(**{f: move(getattr(state, f)) for f in state._fields})
+
+
+def _dyn_parity(cfg_cls) -> dict:
+    """DYN_PARITY_ROUNDS rounds of each new mixer on the card and the port on
+    the CPU from the same θ (the seeded MLP, K = 8, each node moved by its
+    own normal draw, and kicked again between rounds), with the same fault
+    masks, W_r and uniforms on both devices (the card's coins are its own):
+    each round starts both from the card's θ and state, and the outputs
+    agree within DYN_UPDATE_REL of the round's largest update (exactly on a
+    local round), with equal wire bits."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.comm import topology as comm_topology
+    from repro_torch.core import DenseMixer, HubMixer, make_hub_mixer, repeat_mixer
+    from repro_torch.dynamics import (
+        DropoutSchedule,
+        DynamicDenseMixer,
+        DynamicGossipMixer,
+        FaultConfig,
+        LocalUpdateMixer,
+        StaticSchedule,
+        fault_keep_matrix,
+    )
+    from repro_torch.graphs import build_graph, metropolis_weights
+    from repro_torch.models import mlp_init
+
+    w = metropolis_weights(build_graph("ring", FIG_K))
+    base = convert.params_to_numpy(mlp_init(torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(6)
+    theta_np = {n: (x[None] + 0.05 * rng.standard_normal((FIG_K,) + x.shape)).astype(np.float32)
+                for n, x in base.items()}
+    kicks = [{n: (0.01 * rng.standard_normal(x.shape)).astype(np.float32)
+              for n, x in theta_np.items()} for _ in range(DYN_PARITY_ROUNDS)]
+    faults = FaultConfig(link_drop_p=0.1, straggler_p=0.2, outage_p=0.1, outage_len=4, seed=3)
+    masks = [fault_keep_matrix(faults, r, FIG_K, "cpu") for r in range(DYN_PARITY_ROUNDS)]
+    sched = DropoutSchedule(w, FIG9_DROP, seed=0, device="cpu")
+    ws = {r: sched.round_weights(r) for r in range(DYN_PARITY_ROUNDS)}
+
+    def noise(rounds, leaf_idx, *rest):  # identical uniforms for both devices
+        return np.random.default_rng([rounds, leaf_idx, *rest[:-1]]).random(
+            rest[-1], dtype=np.float32)
+
+    def kernel_int8(**kw):
+        return cfg_cls(kind="int8", use_kernel=True, **kw)
+
+    def stacks(device):
+        replay = _replay_schedule(w, ws, device)
+        return {
+            "dense-faults": DynamicDenseMixer(StaticSchedule(w, device=device), faults=faults),
+            "gossip-int8-memoryless-faults": DynamicGossipMixer(
+                StaticSchedule(w, device=device), faults=faults,
+                quantized=kernel_int8(error_feedback=False), uniforms=noise),
+            "dense-dropout-gt-H2": LocalUpdateMixer(DynamicDenseMixer(replay), 2,
+                                                    gradient_tracking=True),
+            "gossip-int8-ef-B4-H2": LocalUpdateMixer(DynamicGossipMixer(
+                replay, quantized=kernel_int8(), ef_rebase_every=EF_LOCAL[0], uniforms=noise),
+                EF_LOCAL[1]),
+            "hub": HubMixer(FIG_K, device=device),
+            "hub-int8-kernel-H4": LocalUpdateMixer(make_hub_mixer(
+                FIG_K, kernel_int8(), device=device, uniforms=noise), HUB_H),
+            "repeat-dense-2": repeat_mixer(DenseMixer(w, device=device), 2),
+        }
+
+    saved = comm_topology.round_fault_masks
+
+    def injected(cfg, rounds, k, device):  # the same masks on both devices
+        keep, up = masks[rounds]
+        return keep.to(device), up.to(device)
+
+    # the kernels each stack launches in its rounds on the card: the memoryless
+    # wire B.4/B.5 per matching; the EF wire under H = 2 B.4 per consensus
+    # round and B.5 per matching of a delta round (EF clock 0..5, B = 4); the
+    # int8 hub under H = 4 one B.2 per consensus round
+    m = 2  # the ring's matchings
+    b, h = EF_LOCAL
+    ef = DYN_PARITY_ROUNDS // h
+    want_launches = {
+        "gossip-int8-memoryless-faults": {"masked_quantize_blockwise_grouped": 12 * m,
+                                          "masked_dequant_accumulate_grouped_": 12 * m},
+        "gossip-int8-ef-B4-H2": {"masked_quantize_blockwise_grouped": ef,
+                                 "masked_dequant_accumulate_grouped_":
+                                     m * sum(1 for c in range(ef) if c % b != b - 1)},
+        "hub-int8-kernel-H4": {"quantize_blockwise_grouped": DYN_PARITY_ROUNDS // HUB_H}}
+    comm_topology.round_fault_masks = injected
+    out = {}
+    try:
+        card, cpu = stacks("cuda"), stacks("cpu")
+        for name in card:
+            theta = {n: torch.from_numpy(v).to("cuda") for n, v in theta_np.items()}
+            state = card[name].init_state(theta)
+            worst, launches_before = 0.0, kernel_counts()
+            for r in range(DYN_PARITY_ROUNDS):
+                theta_cpu = {n: v.cpu() for n, v in theta.items()}
+                state_cpu = _state_to(state, "cpu")
+                got, state = card[name](theta, state)
+                want, want_state = cpu[name](theta_cpu, state_cpu)
+                update = max(float((want[n] - theta_cpu[n]).abs().max()) for n in want)
+                diff = max(float((got[n].cpu() - want[n]).abs().max()) for n in want)
+                if update == 0.0 and diff != 0.0 or diff > DYN_UPDATE_REL * update:
+                    raise AssertionError(f"[dynamics] parity {name} round {r}: card vs CPU "
+                                         f"differ by {diff} (largest update {update})")
+                if float(state.wire_bits) != float(want_state.wire_bits):
+                    raise AssertionError(f"[dynamics] parity {name} round {r}: wire bits "
+                                         f"{float(state.wire_bits)} vs "
+                                         f"{float(want_state.wire_bits)}")
+                worst = max(worst, diff / update if update else 0.0)
+                theta = {n: got[n] + torch.from_numpy(kicks[r][n]).to("cuda") for n in got}
+            after = kernel_counts()
+            launched = {n: after[n][0] - launches_before[n][0] for n in after
+                        if after[n][0] != launches_before[n][0]}
+            rec = dict(stack=name, rounds=DYN_PARITY_ROUNDS, max_update_rel_diff=worst,
+                       update_rtol=DYN_UPDATE_REL, launches=launched)
+            log("[dynamics] parity " + json.dumps(rec))
+            if launched != want_launches.get(name, {}):
+                raise AssertionError(f"[dynamics] parity {name}: launched {launched}, want "
+                                     f"{want_launches.get(name, {})}")
+            out[name] = rec
+    finally:
+        comm_topology.round_fault_masks = saved
+    return out
+
+
+def phase_dynamics(spec_cls, cfg_cls) -> dict:
+    """fig9's local-update rows and faults on fig9's task (K = 8 ring,
+    Metropolis W, DR-DSGD mu = 3, B = 55, lr 0.18, clipped at 2, 400 steps,
+    lr_compensate off): dense dropout 0.2 at H = 2 and 4, and H = 4 with
+    gradient tracking (its consensus rounds bill 2× the H = 4 run's, on the
+    same W_r); dense stragglers 0.1 with outages 0.05 over windows of 10,
+    with and without straggler_skips_compute; the memoryless int8 gossip
+    wire under stragglers 0.1 (grouped B.4 and B.5 once per matching per
+    round; held against their plain versions on rounds a straggler masks a
+    whole row); the EF int8 gossip wire re-based every 4 under dropout 0.2
+    inside LocalUpdateMixer(H = 2): grouped B.4 once per consensus round,
+    grouped B.5 once per matching of a delta round on the EF clock, nothing
+    on a local round.  Before them: each new mixer card vs CPU."""
+    from repro_torch.dynamics import (
+        DropoutSchedule,
+        DynamicGossipMixer,
+        FaultConfig,
+        LocalUpdateMixer,
+        StaticSchedule,
+    )
+    from repro_torch.graphs import build_graph, metropolis_weights
+
+    out = {"parity": _dyn_parity(cfg_cls)}
+    data = _fig_data("mlp", FIG9_STEPS, FIG7_FMNIST[0])
+    w = metropolis_weights(build_graph("ring", FIG_K))
+    matchings = _ring_decomp().num_rounds
+    n = FIG9_STEPS
+    dense = {
+        f"dropout{FIG9_DROP:g}-H2": (dict(topology="dropout", drop_p=FIG9_DROP, local_updates=2),
+                                     2),
+        f"dropout{FIG9_DROP:g}-H4": (dict(topology="dropout", drop_p=FIG9_DROP, local_updates=4),
+                                     4),
+        f"dropout{FIG9_DROP:g}-H4-gt": (dict(topology="dropout", drop_p=FIG9_DROP,
+                                             local_updates=4, gradient_tracking=True), 4),
+        "faults": (dict(FIG9_FAULTS), 1),
+        "faults-skips-compute": (dict(FIG9_FAULTS, straggler_skips_compute=True), 1),
+    }
+    fault_cfg = FaultConfig(seed=0, **FIG9_FAULTS)
+    for name, (kw, period) in dense.items():
+        rec = _dyn_run("dynamics", f"dense-{name}",
+                       _fig_spec(spec_cls, "none", FIG7_FMNIST, **kw), data, n, {},
+                       period=period)
+        rec["rates"] = _observed_rates(f"dynamics {name}", n, kw.get("drop_p", 0.0),
+                                       fault_cfg if "straggler_p" in kw else None)
+        log(f"[dynamics] dense-{name} fault rates: " + json.dumps(rec["rates"]))
+        out[f"dense-{name}"] = rec
+    # gradient tracking bills 2x a consensus round: the GT and the plain H = 4
+    # runs share the schedule's seed, so their consensus rounds share W_r
+    gt, plain = out[f"dense-dropout{FIG9_DROP:g}-H4-gt"], out[f"dense-dropout{FIG9_DROP:g}-H4"]
+    if not bool((gt["wire_bits"] == 2.0 * plain["wire_bits"]).all()):
+        raise AssertionError("[dynamics] gradient tracking does not bill 2x the plain rounds")
+    straggler = FaultConfig(straggler_p=FIG9_FAULTS["straggler_p"], seed=0)
+    mixer = DynamicGossipMixer(StaticSchedule(w, device="cuda"), faults=straggler,
+                               quantized=cfg_cls(kind="int8", use_kernel=True,
+                                                 error_feedback=False))
+    name = f"gossip-straggler{straggler.straggler_p:g}-int8-kernel-memoryless"
+    rec = _dyn_run("dynamics", name, _fig_spec(spec_cls, mixer.compression, FIG7_FMNIST),
+                   data, n, {"masked_quantize_blockwise_grouped": n * matchings,
+                    "masked_dequant_accumulate_grouped_": n * matchings}, mixer=mixer)
+    rec["rates"] = _observed_rates(f"dynamics {name}", n, faults=straggler)
+    rec["b45_straggler_rounds"] = _b45_on_straggler_rounds("dynamics", mixer,
+                                                           rec["final"].params, n, straggler)
+    out[name] = rec
+    b, h = EF_LOCAL
+    ef_rounds = n // h
+    delta_rounds = sum(1 for r in range(ef_rounds) if r % b != b - 1)
+    mixer = LocalUpdateMixer(DynamicGossipMixer(
+        DropoutSchedule(w, FIG9_DROP, seed=0, device="cuda"),
+        quantized=cfg_cls(kind="int8", use_kernel=True), ef_rebase_every=b), h)
+    name = f"gossip-dropout{FIG9_DROP:g}-int8-kernel-ef-B{b}-H{h}"
+    rec = _dyn_run("dynamics", name, _fig_spec(spec_cls, mixer.compression, FIG7_FMNIST),
+                   data, n, {"masked_quantize_blockwise_grouped": ef_rounds,
+                    "masked_dequant_accumulate_grouped_": delta_rounds * matchings},
+                   mixer=mixer, period=h)
+    # the EF clock: consensus round c (step c·H + H − 1) is a re-base when
+    # c % B == B − 1 and launches B.4 alone; a delta round adds B.5 per matching
+    for c in range(ef_rounds):
+        want = {"masked_quantize_blockwise_grouped": 1}
+        if c % b != b - 1:
+            want["masked_dequant_accumulate_grouped_"] = matchings
+        if rec["step_launches"][c * h + h - 1] != want:
+            raise AssertionError(f"[dynamics] {name}: consensus round {c} launched "
+                                 f"{rec['step_launches'][c * h + h - 1]}, want {want}")
+    if rec["final"].comm.ef_rounds != ef_rounds or rec["final"].comm.rounds != n:
+        raise AssertionError(f"[dynamics] {name}: clocks {rec['final'].comm.ef_rounds}, "
+                             f"{rec['final'].comm.rounds}")
+    rec["rates"] = _observed_rates(f"dynamics {name}", n, FIG9_DROP)
+    out[name] = rec
+    return out
+
+
+def _hub_b2_timing(run) -> dict:
+    """The int8 hub round's grouped B.2 (EF: the innovation against θ̂ of
+    every leaf) at the path's shapes, block length and uniforms (those of
+    the run's last consensus round), timed; bit-equal to its plain version
+    first."""
+    import torch
+
+    from repro_torch.kernels.quant_gossip import kernel as qk
+    from repro_torch.kernels.quant_gossip import ref as qref
+    from repro_torch.utils.tree import leaf_names
+
+    state, wire = run["final"], run["mixer"].inner.wire
+    names, block_d = leaf_names(state.params), wire.compression.block_d
+    xs = [(state.params[n] - state.comm.hat[n]).reshape(FIG_K, -1).contiguous() for n in names]
+    us = [wire.uniforms(state.comm.key, state.comm.rounds - 1, i, x) for i, x in enumerate(xs)]
+    got = qk.quantize_blockwise_grouped(xs, us, qmax=127.0, block_d=block_d)
+    want = qref.quantize_blockwise_grouped_ref(xs, us, qmax=127.0, block_d=block_d)
+    if not all(torch.equal(g, w) for gp, wp in zip(got, want) for g, w in zip(gp, wp)):
+        raise AssertionError("[hub] grouped B.2 differs from its plain version")
+    return _time_grouped("quantize_blockwise_grouped",
+                         lambda: qk.quantize_blockwise_grouped(xs, us, qmax=127.0,
+                                                               block_d=block_d),
+                         lambda: qref.quantize_blockwise_grouped_ref(xs, us, qmax=127.0,
+                                                                     block_d=block_d),
+                         [x.shape[1] for x in xs], block_d)
+
+
+def phase_hub(spec_cls, cfg_cls) -> dict:
+    """fig11 without its hierarchical row, on fig9's task: gossip over the
+    static ring, the hub at H = 1 (exact server averaging: the run must end
+    at float-noise disagreement, as the reference's fig11 asserts), FedAvg
+    and SCAFFOLD at H = 4 (SCAFFOLD's consensus rounds bill 2× FedAvg's),
+    and int8 FedAvg at H = 4 on the kernel quantizer (grouped B.2 over the
+    star W once per consensus round: steps / H launches)."""
+    from repro_torch.core.consensus import make_gossip_mixer
+
+    data = _fig_data("mlp", FIG9_STEPS, FIG7_FMNIST[0])
+    n, out = FIG9_STEPS, {}
+    mixer = make_gossip_mixer(_ring_decomp(), device="cuda")
+    out["gossip-ring"] = _dyn_run("hub", "gossip-ring",
+                                  _fig_spec(spec_cls, "none", FIG7_FMNIST), data, n, {},
+                                  mixer=mixer)
+    rows = {"hub-H1": (dict(topology="hub"), "none", 1, {}),
+            f"hub-H{HUB_H}-fedavg": (dict(topology="hub", local_updates=HUB_H), "none", HUB_H,
+                                     {}),
+            f"hub-H{HUB_H}-scaffold": (dict(topology="hub", local_updates=HUB_H,
+                                            gradient_tracking=True), "none", HUB_H, {}),
+            f"hub-H{HUB_H}-fedavg-int8-kernel": (
+                dict(topology="hub", local_updates=HUB_H),
+                cfg_cls(kind="int8", use_kernel=True), HUB_H,
+                {"quantize_blockwise_grouped": n // HUB_H})}
+    for name, (kw, compress, period, want) in rows.items():
+        out[name] = _dyn_run("hub", name, _fig_spec(spec_cls, compress, FIG7_FMNIST, **kw),
+                             data, n, want, period=period)
+    out["b2_timing"] = _hub_b2_timing(out[f"hub-H{HUB_H}-fedavg-int8-kernel"])
+    if not out["hub-H1"]["disagreement_final"] < 1e-6:
+        raise AssertionError(f"[hub] hub H=1 must reach exact consensus every round: "
+                             f"disagreement {out['hub-H1']['disagreement_final']}")
+    fed, scaffold = out[f"hub-H{HUB_H}-fedavg"], out[f"hub-H{HUB_H}-scaffold"]
+    if not bool((scaffold["wire_bits"] == 2.0 * fed["wire_bits"]).all()):
+        raise AssertionError("[hub] SCAFFOLD does not bill 2x FedAvg's consensus rounds")
+    return out
+
+
 # -- serving: B.6 / B.7 and the LM path ---------------------------------------
 
 def _pairs(s: int, t: int, causal: bool, window) -> int:
@@ -3010,6 +3537,10 @@ def main() -> int:
     phase_codecs(TrainerSpec, CompressionConfig)
     sched = phase_schedules(TrainerSpec, CompressionConfig, mlp, cnn)
     log(f"[done] codecs and schedules in {time.perf_counter() - t_codecs:.1f} s")
+    t_dyn = time.perf_counter()
+    dyn = phase_dynamics(TrainerSpec, CompressionConfig)
+    hub = phase_hub(TrainerSpec, CompressionConfig)
+    log(f"[done] dynamics and hub in {time.perf_counter() - t_dyn:.1f} s")
     log(f"[done] paper training phases in {time.perf_counter() - t_start:.1f} s")
     bwd = phase_flash_bwd_kernels()
     lm = phase_train_lm(LM_SEQ, LM_NODES, LM_STEPS, profile=True)
@@ -3046,14 +3577,25 @@ def main() -> int:
     scheduled = {name: sched[name]["tensor_qmax_launches"] for name in (
         "dense-int8-kernel-adaptive", "dense-int8-kernel-linear",
         "gossip-int8-kernel-adaptive", "gossip-int8-kernel-linear")}
+    fedavg_int8 = f"hub-H{HUB_H}-fedavg-int8-kernel"
+    straggler_run = next(rec for name, rec in dyn.items() if "memoryless" in name)
+    new_path_timing = {**straggler_run["b45_straggler_rounds"]["timing"],
+                       "quantize_blockwise_grouped": hub["b2_timing"]}
+    # the faulted memoryless wire and the EF wire under local updates (dynamics)
+    masked_runs = {name: rec["launches"] for name, rec in dyn.items()
+                   if name.startswith("gossip-")}
     other_runs = {
         "quantize_blockwise_grouped": {
             "gossip-int8-kernel-ef": gossip["gossip-int8-kernel-ef"]["launches"][
                 "quantize_blockwise_grouped"],
             **{f"schedules {n}": sched[n]["launches"]["quantize_blockwise_grouped"]
-               for n in scheduled}},
+               for n in scheduled},
+            f"hub {fedavg_int8}": hub[fedavg_int8]["launches"]["quantize_blockwise_grouped"]},
         "gossip_update_stacked_grouped": {
-            "train-lm": lm["launches"]["gossip_update_stacked_grouped"]}}
+            "train-lm": lm["launches"]["gossip_update_stacked_grouped"]},
+        **{kernel: {f"dynamics {name}": launches[kernel] for name, launches in masked_runs.items()}
+           for kernel in ("masked_quantize_blockwise_grouped",
+                          "masked_dequant_accumulate_grouped_")}}
     lines = []
     for name, (source, replaces, _) in KERNELS.items():
         if name in ("gossip_update", "gossip_update_stacked"):
@@ -3106,6 +3648,8 @@ def main() -> int:
             launches = (qwen if name == "flash_attention_fwd" else rwkv)["launches"]
         if name in other_runs:  # the kernel's launches on the other runs that take it
             timing["launches_other_runs"] = other_runs[name]
+        if name in new_path_timing:  # one call at a new path's shapes (K = 8)
+            timing["new_path"] = new_path_timing[name]
         if name == "quantize_blockwise_grouped":
             # qmax a 0-d tensor on the card (a schedule's rate): its launches on
             # the scheduled kernel stacks, and its call on the MLP's leaves

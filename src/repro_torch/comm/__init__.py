@@ -21,8 +21,18 @@ from repro_torch.comm.protocol import (
     trivial_comm_state,
 )
 from repro_torch.comm.schedule import CompressionSchedule, ScheduleConfig
-from repro_torch.comm.topology import ScheduledTopology, StaticTopology, Topology
-from repro_torch.comm.transport import DenseTransport, GossipTransport, Transport
+from repro_torch.comm.topology import (
+    ScheduledTopology,
+    StarTopology,
+    StaticTopology,
+    Topology,
+)
+from repro_torch.comm.transport import (
+    DenseTransport,
+    GossipTransport,
+    StarTransport,
+    Transport,
+)
 from repro_torch.comm.wire import (
     ChocoWire,
     CodecWire,
@@ -39,7 +49,8 @@ __all__ = [
     "make_compressor", "quant_bits", "ScheduleConfig", "CompressionSchedule",
     "CompressedDenseMixer",
     "CompressedGossipMixer", "CommMetrics", "CommState", "Mixer",
-    "trivial_comm_state", "ScheduledTopology", "StaticTopology", "Topology",
-    "DenseTransport", "GossipTransport", "Transport", "ChocoWire", "CodecWire",
+    "trivial_comm_state", "ScheduledTopology", "StarTopology", "StaticTopology",
+    "Topology", "DenseTransport", "GossipTransport", "StarTransport", "Transport",
+    "ChocoWire", "CodecWire",
     "IdentityWire", "MaskedQuantWire", "RebaseClock", "Wire", "make_codec_wire",
 ]

@@ -7,6 +7,7 @@ stack                       round body
 ==========================  ==============================================
 none (no transport)         identity (IdentityMixer)
 identity × static           base ``Mixer.__call__`` over :meth:`_mix`
+                            (dense W product, gossip, or the star mean)
 identity × scheduled×dense  :meth:`_dynamic_dense_call` (W_r product,
                             active-link wire accounting)
 identity × scheduled×gossip :meth:`_dynamic_gossip_call` (gathered
@@ -26,8 +27,11 @@ Where the reference runs one ``ppermute`` per matching inside
 ``shard_map``, the port gathers along the node axis (``src`` per matching;
 ``comm/transport.py``).  The reference's ``lax.cond`` on the re-base clock
 becomes a host branch on the host int ``ef_rounds``; the adaptive re-base
-reads the cache drift on the host, one sync per round.  The star transport,
-the hierarchical replica axis and fault replay wait for their slices.
+reads the cache drift on the host, one sync per round.  The star transport
+(the hub) runs the identity wire as an exact node mean; codec wires on the
+hub ride the dense transport with the star W (``make_hub_mixer``).  Fault
+replay lives in the scheduled topology, so every dynamic stack above mixes
+with the faulted W_r.  The hierarchical replica axis waits for its slice.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from repro_torch.comm.topology import (
 from repro_torch.comm.transport import (
     DenseTransport,
     GossipTransport,
+    StarTransport,
     Transport,
     gossip_mix_local,
 )
@@ -106,6 +111,10 @@ class ComposedMixer(Mixer):
         if isinstance(wire, CodecWire):
             if transport is None:
                 raise ValueError("a codec wire needs a transport")
+            if isinstance(transport, StarTransport):
+                raise ValueError(
+                    "codec wires on the hub stack ride the dense transport "
+                    "with the star W (see make_hub_mixer)")
             self.compressor = wire.compressor
             self.ef = wire.ef
             clock = getattr(wire, "clock", None)
@@ -123,6 +132,10 @@ class ComposedMixer(Mixer):
                 raise ValueError(
                     "the masked quant wire rides the dynamic gossip "
                     "transport (per-round link masks)")
+        if isinstance(transport, StarTransport) and self._dynamic:
+            raise ValueError(
+                "the hub stack has no fault/schedule model yet — "
+                "the star topology is static (ROADMAP: federated faults)")
 
     @property
     def compression(self):
@@ -189,6 +202,9 @@ class ComposedMixer(Mixer):
             if b == 1:
                 return sends * full
             return round(sends * ((b - 1) * q + full) / b)
+        if isinstance(t, StarTransport):
+            # hub round: K uploads + K downloads of the per-node block
+            return 2 * tree_bytes(params)
         if isinstance(t, DenseTransport):
             if self._dynamic:
                 try:
@@ -206,6 +222,8 @@ class ComposedMixer(Mixer):
         t = self.transport
         if t is None:
             return theta
+        if isinstance(t, StarTransport):
+            return t.apply(theta)
         if isinstance(t, DenseTransport):
             return t.apply_w(self.w, theta)
         return gossip_mix_local(theta, t.self_w, t.match_ws, t.srcs)

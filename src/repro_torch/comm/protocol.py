@@ -55,7 +55,12 @@ class CommState(NamedTuple):
               after its warmup (0 until then, and on other wires).
     rounds:   consensus rounds completed (the schedules' clock).
     wire_bits: f32 — wire bits injected by the last round.
-    track:    gradient-tracking state of a later slice; () here.
+    track:    state carried across rounds by wrapper mixers: the
+              gradient-tracking (correction, anchor) of
+              :class:`repro_torch.dynamics.LocalUpdateMixer`, two float32
+              dicts shaped like the params, each leaf in a storage of its
+              own.  () for every plain mixer; inner mixers treat it as
+              opaque and wrappers re-attach it after delegating.
     ef_rounds: host int — executed rounds of the clocked EF gossip stack
               (its delta/re-base clock); () on other stacks.
     ef_drift: f32 — the adaptive re-base's cache drift ‖s − W_r θ̂‖_F
@@ -124,6 +129,13 @@ class Mixer:
 
     def _mix(self, theta):
         raise NotImplementedError
+
+    def mix_tree(self, tree, state: CommState):
+        """Pure consensus applied to an arbitrary dict (no state advance, no
+        codec) — the gradient-tracking tracker exchange of
+        :class:`repro_torch.dynamics.LocalUpdateMixer`.  Compressed mixers
+        do not implement this (their wire is entangled with their state)."""
+        return self._mix(tree)
 
     def round_state(self, theta, state: CommState) -> CommState:
         """The state after one full-precision round over ``theta``'s shapes

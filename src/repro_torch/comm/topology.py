@@ -5,13 +5,20 @@ layers (see ``comm/composed.py``).
 
 :class:`StaticTopology`    — a fixed doubly-stochastic W (ring, ER, ...).
 :class:`ScheduledTopology` — a :class:`~repro_torch.dynamics.schedule
-                             .TopologySchedule`: the round's W is a device
-                             tensor computed from the round index.
+                             .TopologySchedule` composed with an optional
+                             :class:`~repro_torch.dynamics.faults.FaultConfig`
+                             replay (link drops, stragglers and outages
+                             renormalised back to doubly stochastic): the
+                             round's W is a device tensor computed from the
+                             round index.
+:class:`StarTopology`      — hub-and-spoke: ``W = 11ᵀ/K``, the exact server
+                             average of federated optimisation.
 
-The reference's fault replay and the star topology belong to the faults and
-federated slices.  Per-round quantities (W_r, the gathered weights and
-masks, the active-link counts) stay on the parameters' device: nothing here
-reads a device value back to the host.
+Every round's fault masks come from :func:`round_fault_masks`, the one place
+the topology and the train step's ``straggler_skips_compute`` draw them.
+Per-round quantities (W_r, the gathered weights and masks, the active-link
+counts) stay on the parameters' device: nothing here reads a device value
+back to the host.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.graphs.mixing import renormalize_masked_weights
 
 
 def active_links(w: torch.Tensor) -> torch.Tensor:
@@ -51,6 +59,15 @@ def active_sends(masks) -> torch.Tensor:
     for m in masks[1:]:
         sends = sends + m.sum()
     return sends
+
+
+def round_fault_masks(faults, rounds: int, k: int, device):
+    """The round's (keep (K, K), up (K,)) fault masks on ``device``:
+    :func:`repro_torch.dynamics.faults.fault_keep_matrix`.  Tests replace
+    this function to inject the reference's replayed masks."""
+    from repro_torch.dynamics.faults import fault_keep_matrix
+
+    return fault_keep_matrix(faults, rounds, k, device)
 
 
 class Topology:
@@ -96,21 +113,52 @@ class StaticTopology(Topology):
 
 
 class ScheduledTopology(Topology):
-    """A ``TopologySchedule`` as a topology (the reference composes it with
-    fault replay; faults wait for their slice)."""
+    """``TopologySchedule`` composed with optional fault replay.
+
+    The faults are a pure function of the round index
+    (:func:`round_fault_masks`), so a run replays the same keep-mask
+    sequence; the masked W is renormalised back to doubly stochastic on the
+    device.  ``faults`` is kept only when enabled (None otherwise).
+    """
 
     time_varying = True
 
     def __init__(self, schedule, faults=None):
-        if faults is not None and getattr(faults, "enabled", True):
-            raise NotImplementedError(
-                "faults (stragglers, outages, extra link dropout) are not "
-                "ported yet; they wait for the faults slice")
         self.schedule = schedule
+        self.faults = faults if (faults is not None and faults.enabled) else None
         self.k = schedule.k
 
     def round_w(self, rounds: int) -> torch.Tensor:
-        return self.schedule.round_weights(rounds)
+        w = self.schedule.round_weights(rounds)
+        if self.faults is not None:
+            keep, _ = round_fault_masks(self.faults, rounds, self.k, w.device)
+            w = renormalize_masked_weights(w, keep)
+        return w
 
     def base_weights(self) -> np.ndarray:
         return self.schedule.base_weights()
+
+
+class StarTopology(Topology):
+    """Hub-and-spoke: every consensus round is the exact global average.
+
+    ``W = 11ᵀ/K`` (float32 on ``device``) — the server-averaging step of
+    federated optimisation, lowered as a topology so the federated stack
+    reuses the dense and star transports.  One round reaches consensus
+    exactly (ρ = 0).
+    """
+
+    time_varying = False
+
+    def __init__(self, k: int, device="cuda"):
+        if k < 1:
+            raise ValueError(f"hub topology needs k >= 1, got {k}")
+        self.k = int(k)
+        self._w_np = np.full((self.k, self.k), 1.0 / self.k, np.float64)
+        self.w = torch.as_tensor(self._w_np, dtype=torch.float32).to(resolve_device(device))
+
+    def round_w(self, rounds) -> torch.Tensor:
+        return self.w
+
+    def base_weights(self) -> np.ndarray:
+        return self._w_np

@@ -16,9 +16,13 @@ composable consensus layers (see ``comm/composed.py``).
                            node reads its own row with weight 0.
                            ``incremental = True``: the receiver keeps a
                            running mix cache, so EF wires own ``hat_mix``.
+:class:`StarTransport`   — hub-and-spoke: every node uploads its block to a
+                           (virtual) server and downloads the exact mean —
+                           the federated server-averaging round, simulated
+                           as a node-axis mean.  Wire model: 2K × per-node
+                           payload (up + down).
 
-The star transport (federated) and the hierarchical replica axis wait for
-their slices.
+The hierarchical replica axis waits for its slice (it is multi-device).
 """
 
 from __future__ import annotations
@@ -78,6 +82,27 @@ class DenseTransport(Transport):
             xc = x.reshape(k, -1).to(self.compute_dtype).to(dtype)
             out = w.to(dtype) @ xc
             return out.reshape(x.shape).to(x.dtype)
+
+        return {n: leaf(x) for n, x in theta.items()}
+
+
+class StarTransport(Transport):
+    """Hub-and-spoke server averaging, simulated as an exact node mean.
+
+    ``apply`` is the ``W = 11ᵀ/K`` product computed as a mean over the node
+    axis in float32, written to every node and cast back to each leaf's
+    dtype (each output leaf owns its storage).
+    """
+
+    def __init__(self, k: int):
+        if k < 1:
+            raise ValueError(f"star transport needs k >= 1, got {k}")
+        self.k = int(k)
+
+    def apply(self, theta):
+        def leaf(x):
+            avg = x.float().mean(dim=0, keepdim=True)
+            return avg.expand(x.shape).to(x.dtype).contiguous()
 
         return {n: leaf(x) for n, x in theta.items()}
 

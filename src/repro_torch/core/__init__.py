@@ -2,10 +2,14 @@ from repro_torch.core.api import DecentralizedTrainer, run_segments
 from repro_torch.core.consensus import (
     DenseMixer,
     GossipMixer,
+    HubMixer,
     IdentityMixer,
+    RepeatMixer,
     make_dense_mixer,
     make_gossip_mixer,
+    make_hub_mixer,
     make_identity_mixer,
+    repeat_mixer,
 )
 from repro_torch.core.drdsgd import (
     DecentralizedState,
@@ -21,12 +25,13 @@ from repro_torch.core.robust import (
     robust_objective,
     robust_scale,
 )
-from repro_torch.core.spec import TrainerSpec
+from repro_torch.core.spec import TrainerSpec, add_dynamics_cli_args
 
 __all__ = [
     "DecentralizedTrainer", "run_segments", "DenseMixer", "GossipMixer",
-    "IdentityMixer", "make_dense_mixer", "make_gossip_mixer", "make_identity_mixer", "DecentralizedState",
+    "HubMixer", "IdentityMixer", "RepeatMixer", "make_dense_mixer", "make_gossip_mixer",
+    "make_hub_mixer", "make_identity_mixer", "repeat_mixer", "DecentralizedState",
     "TrainStepConfig", "build_eval_step", "build_train_step", "init_state",
     "replicate_params", "RobustConfig", "mixture_weights", "robust_objective",
-    "robust_scale", "TrainerSpec",
+    "robust_scale", "TrainerSpec", "add_dynamics_cli_args",
 ]

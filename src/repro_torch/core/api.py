@@ -12,9 +12,11 @@ The port of ``repro.core.api``:
     accs = trainer.eval_per_node(state, x_test, y_test)
 
 ``dynamics`` (a :class:`~repro_torch.dynamics.DynamicsConfig`) runs the
-dense lowering over a time-varying topology; the gossip lowering comes in as
-a pre-built ``mixer`` (``make_gossip_mixer``, ``DynamicGossipMixer``), as in
-the reference.  ``loss_fn`` and ``predict_fn`` are node-stacked (see
+dense lowering over a time-varying topology with faults and local updates,
+or the federated hub; the gossip lowering comes in as a pre-built ``mixer``
+(``make_gossip_mixer``, ``DynamicGossipMixer``, wrapped in a
+``LocalUpdateMixer`` where wanted), as in the reference.  ``mix_every`` > 1
+mixes every ``mix_every``-th step only.  ``loss_fn`` and ``predict_fn`` are node-stacked (see
 :mod:`repro_torch.models.paper_nets`).  PyTorch runs eagerly, so ``run`` is
 a loop over ``step`` that stacks the metrics on the device; there is no
 compiled scan to donate into.  Batches may be numpy arrays or tensors; they
@@ -99,8 +101,10 @@ class DecentralizedTrainer:
     mixing: str = "metropolis"            # or "max_degree", "none"
     compression: CompressionConfig | None = None
     dynamics: Any = None                  # repro_torch.dynamics.DynamicsConfig:
-                                          # time-varying topology; None =
+                                          # time-varying topology, faults,
+                                          # local updates, hub; None =
                                           # static synchronous consensus
+    mix_every: int = 1                    # consensus period (local SGD when > 1)
     device: str | torch.device = "cuda"
 
     def __post_init__(self):
@@ -134,8 +138,8 @@ class DecentralizedTrainer:
             if dyn is not None:
                 raise ValueError(
                     "both a pre-built mixer and a DynamicsConfig were "
-                    "provided — build the DynamicGossipMixer yourself or "
-                    "drop one")
+                    "provided — wrap the mixer yourself (repro_torch.dynamics."
+                    "LocalUpdateMixer / DynamicGossipMixer) or drop one")
             if self.compression is not None and self.compression.enabled \
                     and self.mixer.compression is None:
                 raise ValueError(
@@ -144,7 +148,7 @@ class DecentralizedTrainer:
         if self.optimizer is None:
             self.optimizer = sgd(self.lr)
         step_cfg = TrainStepConfig(robust=self.robust, grad_clip=self.grad_clip,
-                                   compression=self.compression)
+                                   mix_every=self.mix_every, compression=self.compression)
         self._train_step = build_train_step(self.loss_fn, self.optimizer,
                                             self.mixer, step_cfg)
         if self.predict_fn is not None:

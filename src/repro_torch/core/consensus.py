@@ -12,8 +12,13 @@ The port of ``repro.core.consensus`` for one card.  Every factory returns a
   edge-coloured graph (the reference's ``ppermute`` lowering on one card),
   or its compressed twin.
 * ``make_identity_mixer`` — no communication (pure local SGD ablation).
+* ``make_hub_mixer``      — the federated lowering: every consensus round
+  is the exact server average (W = 11ᵀ/K, the ρ = 0 endpoint).  Under
+  ``LocalUpdateMixer`` this is FedAvg; with ``gradient_tracking=True`` the
+  tracker correction is SCAFFOLD's control variate.
+* ``repeat_mixer``        — several consensus rounds per optimizer step.
 
-The hierarchical, hub and repeated mixers wait for their slices.
+The hierarchical mixer waits for its slice (it is multi-device).
 """
 
 from __future__ import annotations
@@ -27,9 +32,9 @@ from repro_torch.comm import (
     CompressionConfig,
 )
 from repro_torch.comm.composed import ComposedMixer
-from repro_torch.comm.protocol import Mixer
-from repro_torch.comm.topology import StaticTopology
-from repro_torch.comm.transport import DenseTransport, GossipTransport
+from repro_torch.comm.protocol import CommState, Mixer, params_device, scalar
+from repro_torch.comm.topology import StarTopology, StaticTopology
+from repro_torch.comm.transport import DenseTransport, GossipTransport, StarTransport
 from repro_torch.comm.wire import IdentityWire, UniformsFn
 from repro_torch.device import resolve_device
 from repro_torch.graphs.mixing import MixingDecomposition
@@ -87,3 +92,73 @@ class IdentityMixer(ComposedMixer):
 
 def make_identity_mixer() -> Mixer:
     return IdentityMixer()
+
+
+class HubMixer(ComposedMixer):
+    """Hub-and-spoke (federated) consensus: the exact global average.
+
+    Star topology × star transport: each round every node uploads its block
+    and downloads the mean, so one round reaches consensus exactly (ρ = 0).
+    ``LocalUpdateMixer(HubMixer(k), H)`` is FedAvg with H local steps;
+    adding ``gradient_tracking=True`` yields the SCAFFOLD control variate
+    (the tracker update (Δ̄ − Δ_i)/H under W = 11ᵀ/K is exactly c_i).
+    """
+
+    def __init__(self, k: int, *, device="cuda"):
+        super().__init__(StarTopology(k, device), StarTransport(k), IdentityWire())
+
+
+def make_hub_mixer(k: int, compression: CompressionConfig | None = None, *,
+                   device="cuda", uniforms: UniformsFn | None = None) -> Mixer:
+    """Federated server averaging on ``device`` (or its compressed twin).
+
+    The compressed hub rides the dense transport with the star W: the codec
+    round re-mixes the full public-copy matrix, which with W = 11ᵀ/K is
+    "the server averages the reconstructed client innovations" (with
+    ``use_kernel`` int8, one grouped B.2 launch per round on the card).
+    """
+    if compression is not None and compression.enabled:
+        return CompressedDenseMixer(np.full((k, k), 1.0 / k), compression,
+                                    device=device, uniforms=uniforms)
+    return HubMixer(k, device=device)
+
+
+class RepeatMixer(Mixer):
+    """θ ← θ·W^rounds: several consensus rounds per optimizer step.
+
+    Theorem 1's consensus term contracts like ρ^rounds, so m rounds on a
+    sparse graph can stand in for a denser graph at m× the wire.
+    ``wire_bits`` sums the inner rounds' bits.
+    """
+
+    def __init__(self, mixer: Mixer, rounds: int):
+        if rounds < 1:
+            raise ValueError("rounds must be >= 1")
+        self.inner = mixer
+        self.rounds = rounds
+
+    @property
+    def compression(self):
+        return self.inner.compression
+
+    @property
+    def traced_wire(self) -> bool:
+        return self.inner.traced_wire
+
+    def init_state(self, params) -> CommState:
+        return self.inner.init_state(params)
+
+    def __call__(self, theta, state: CommState, *, round=None):
+        total_bits = scalar(0.0, params_device(theta))
+        for _ in range(self.rounds):
+            theta, state = self.inner(theta, state, round=round)
+            total_bits = total_bits + state.wire_bits
+        # wire_bits is per-step accounting: sum the inner rounds
+        return theta, state._replace(wire_bits=total_bits)
+
+    def bytes_per_round(self, params) -> int:
+        return self.rounds * self.inner.bytes_per_round(params)
+
+
+def repeat_mixer(mixer: Mixer, rounds: int) -> Mixer:
+    return RepeatMixer(mixer, rounds)

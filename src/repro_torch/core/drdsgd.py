@@ -21,14 +21,22 @@ reads θ and g once and writes the mixed parameters once, where the unfused
 step holds the scaled gradients, SGD's update and the mixer's output beside
 them.  Its plain version computes in the unfused order, so both give the
 same bits on the CPU; the metrics and the ``CommState`` are the same either
-way.  Every other stack, and any K above the stacked kernel's 64 nodes,
-runs the unfused step.  Per-node clipping scales the fresh gradients in
-place.
+way.  Every other stack — a wrapper mixer (local updates, repeated rounds),
+a consensus period ``mix_every`` > 1, and any K above the stacked kernel's
+64 nodes — runs the unfused step.  Per-node clipping scales the fresh
+gradients in place.
+
+``TrainStepConfig.mix_every`` > 1 mixes only on the steps ``mix_every − 1,
+2·mix_every − 1, ...``: the off-steps skip the mixer, pass the
+``CommState`` through unchanged and report 0 ``comm_bytes`` and
+``wire_bits``.  A fault process with ``straggler_skips_compute`` (found by
+peeling ``LocalUpdateMixer`` and ``RepeatMixer`` off the mixer) multiplies
+the robust scale by the round's node-up vector, replayed on the device from
+``state.comm.rounds`` before the round.
 
 The metrics stay on the device as 0-d tensors; nothing in a step waits for
-the device.  The reference's telemetry tap, sanitizer and fault masks are
-not ported, nor its consensus period (``mix_every``) and optional
-disagreement metric: every step mixes and reports ``disagreement``.
+the device.  The reference's telemetry tap and sanitizer are not ported,
+nor its optional disagreement metric: every step reports ``disagreement``.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.comm import CompressionConfig
+from repro_torch.comm import topology as comm_topology
 from repro_torch.comm.composed import ComposedMixer
 from repro_torch.comm.protocol import CommState, Mixer, scalar, trivial_comm_state
 from repro_torch.comm.transport import DenseTransport
@@ -68,6 +77,9 @@ class DecentralizedState(NamedTuple):
 class TrainStepConfig:
     robust: RobustConfig
     grad_clip: float | None = None        # per-node global-norm clip (pre-scale)
+    mix_every: int = 1                    # consensus period: 1 = DSGD/DR-DSGD;
+                                          # > 1 = local SGD with periodic
+                                          # averaging (off-steps skip the mixer)
     compression: CompressionConfig | None = None
                                           # wire codec the mixer was built
                                           # with; recorded so the step can
@@ -97,15 +109,17 @@ def _node_scale(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape((-1,) + (1,) * (like.ndim - 1)).to(like.dtype)
 
 
-def _fused_w(optimizer: Optimizer, mixer: Mixer):
+def _fused_w(optimizer: Optimizer, mixer: Mixer, mix_every: int):
     """The (K, K) W of the fused SGD + dense-mixing step, or None where the
     step is not plain SGD followed by a static uncompressed dense round in
-    float32 (B.1 computes in float32; a bfloat16 ``compute_dtype`` rounds the
-    round's inputs), or where K exceeds the stacked B.1 kernel's
-    ``MAX_NODES`` (64): such a step takes the unfused path (the optimizer,
-    then the mixer), on every device, so the card and the CPU run one
-    semantics at any K."""
-    if optimizer.sgd_lr is None or not isinstance(mixer, ComposedMixer):
+    float32 on every step (B.1 computes in float32; a bfloat16
+    ``compute_dtype`` rounds the round's inputs).  A wrapper mixer
+    (``LocalUpdateMixer``, ``RepeatMixer``: not a ``ComposedMixer``) and a
+    consensus period ``mix_every`` > 1 are declined, since B.1 mixes on
+    every call; so is any K above the stacked B.1 kernel's ``MAX_NODES``
+    (64).  A declined step takes the unfused path (the optimizer, then the
+    mixer), on every device, so the card and the CPU run one semantics."""
+    if optimizer.sgd_lr is None or mix_every > 1 or not isinstance(mixer, ComposedMixer):
         return None
     if mixer.traced_wire or not isinstance(mixer.transport, DenseTransport) \
             or not isinstance(mixer.wire, IdentityWire) \
@@ -114,6 +128,21 @@ def _fused_w(optimizer: Optimizer, mixer: Mixer):
     if mixer.w.shape[0] > MAX_NODES:
         return None
     return mixer.w
+
+
+def _step_faults(mixer: Mixer):
+    """The fault process whose down nodes lose their gradient
+    (``straggler_skips_compute`` with stragglers or outages), found by
+    peeling wrapper mixers (``inner``) down to a scheduled topology; None
+    otherwise."""
+    m, faults = mixer, None
+    while m is not None and faults is None:
+        faults = getattr(getattr(m, "topo", None), "faults", None)
+        m = getattr(m, "inner", None)
+    if faults is not None and faults.enabled and faults.straggler_skips_compute \
+            and (faults.straggler_p > 0 or faults.outage_p > 0):
+        return faults
+    return None
 
 
 def _dtype_groups(params: dict, names: list) -> list[list]:
@@ -145,7 +174,14 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
         raise ValueError(
             "TrainStepConfig.compression is set but the mixer is "
             "uncompressed — build it with the same CompressionConfig")
-    fused_w = _fused_w(optimizer, mixer)
+    if cfg.mix_every > 1 and getattr(mixer, "period", 1) > 1:
+        raise ValueError(
+            "mix_every > 1 with a LocalUpdateMixer (period > 1) runs two "
+            "consensus clocks against each other — express the local-update "
+            "period in ONE place (the mixer's period is the dynamics-aware "
+            "spelling: it keeps CommState.rounds ticking every step)")
+    fused_w = _fused_w(optimizer, mixer, cfg.mix_every)
+    step_faults = _step_faults(mixer)
 
     def train_step(state: DecentralizedState, batch):
         if not isinstance(state.comm, CommState):
@@ -163,6 +199,14 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
         # --- the paper's technique: exponential per-node gradient reweighting
         scale = robust_scale(losses, cfg.robust)   # (K,)
         lam = mixture_weights(losses, cfg.robust)  # (K,) adversarial λ*
+        if step_faults is not None:
+            # a down node loses its gradient: the round's up vector, replayed
+            # from the clock before the round (the round the mixer consumes)
+            _, up = comm_topology.round_fault_masks(step_faults, state.comm.rounds,
+                                                    losses.shape[0], losses.device)
+            scale = scale * up
+        # mix_every > 1: off-steps skip the mixer (state.step is a host int)
+        is_mix_step = state.step % cfg.mix_every == cfg.mix_every - 1
         if fused_w is not None:
             # scale, SGD and the dense consensus round: one pass over every
             # leaf of a dtype (one B.1 launch per step on the card)
@@ -182,11 +226,18 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
             updated, opt_state = optimizer.update(scaled, state.opt_state,
                                                   state.params, state.step)
             # --- consensus: the only cross-node communication of the algorithm
-            mixed, comm = mixer(updated, state.comm, round=state.step)
+            if is_mix_step:  # repro: noqa[RPR001] (a host bool: step is a host int)
+                mixed, comm = mixer(updated, state.comm, round=state.step)
+            else:
+                mixed, comm = updated, state.comm
         # wire bytes this step: the round's measured wire on time-varying
-        # stacks, else the static estimate
-        comm_bytes = (comm.wire_bits / 8.0 if mixer.traced_wire
-                      else scalar(mixer.bytes_per_round(state.params), losses.device))
+        # stacks, else the static estimate; 0 on a step that skips the mixer
+        if is_mix_step:  # repro: noqa[RPR001] (a host bool, as above)
+            wire = comm.metrics.wire_bits
+            comm_bytes = (comm.wire_bits / 8.0 if mixer.traced_wire
+                          else scalar(mixer.bytes_per_round(state.params), losses.device))
+        else:
+            comm_bytes = wire = scalar(0.0, losses.device)
         metrics = {
             "comm_bytes": comm_bytes,
             "loss_mean": losses.mean(),
@@ -196,7 +247,7 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
             "scale_mean": scale.mean(),
             "scale_max": scale.max(),
             "lambda_max": lam.max(),
-            "wire_bits": comm.metrics.wire_bits,
+            "wire_bits": wire,
             "ef_residual_norm": comm.metrics.res_norm,
             "disagreement": tree_node_disagreement(mixed),
         }

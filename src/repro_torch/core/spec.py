@@ -1,23 +1,27 @@
 """Declarative trainer construction shared by the CLI and the chip smoke run.
 
 The port of ``repro.core.spec`` for what the port runs: the graph with
-Metropolis (or max-degree) mixing, DR-DSGD or DSGD, the consensus wire
-``compress`` ∈ {"none", "bf16", "int8", "int4", "topk", "randk"} with its
-kept fraction ``compress_ratio`` and rate schedule (``compress_schedule``,
-``schedule_threshold``, ``schedule_warmup``, ``schedule_rounds``), or a
-pre-built :class:`~repro_torch.comm.CompressionConfig` (the hand-in the
-benchmarks use), and a time-varying topology (``topology``, ``drop_p``, ``radius``,
-``ef_rebase_every``, ``ef_rebase_threshold``: see
-:class:`~repro_torch.dynamics.DynamicsConfig`).  As in the reference, the
-gossip lowering comes in through ``build(..., mixer=...)``.
+Metropolis (or max-degree) mixing, DR-DSGD or DSGD, the consensus period
+``mix_every``, the consensus wire ``compress`` ∈ {"none", "bf16", "int8",
+"int4", "topk", "randk"} with its kept fraction ``compress_ratio`` and rate
+schedule (``compress_schedule``, ``schedule_threshold``,
+``schedule_warmup``, ``schedule_rounds``), or a pre-built
+:class:`~repro_torch.comm.CompressionConfig` (the hand-in the benchmarks
+use), and the dynamics (``topology`` including the federated ``hub``,
+``drop_p``, ``radius``, ``local_updates``, ``gradient_tracking``,
+``ef_rebase_every``, ``ef_rebase_threshold``, and the faults
+``straggler_p``, ``outage_p``, ``outage_len``,
+``straggler_skips_compute``: see :class:`~repro_torch.dynamics.DynamicsConfig`).
+As in the reference, the gossip lowering comes in through
+``build(..., mixer=...)``.
 
     spec = TrainerSpec(num_nodes=10, graph="erdos_renyi", compress="int8")
     trainer = spec.build(loss_fn, predict_fn)
 
-The CLI installs the reference's flag names.  Flags of features that are
-not ported yet are accepted by the parser and raise ``NotImplementedError``
-naming the slice that will port them when set to anything but their
-default.  The one flag the reference lacks is ``--device``.
+The CLI installs the reference's flag names.  ``--sanitize`` (runtime
+invariant checks, not ported yet) is accepted by the parser and raises
+``NotImplementedError`` naming the slice that will port it when set.  The
+one flag the reference lacks is ``--device``.
 """
 
 from __future__ import annotations
@@ -28,27 +32,58 @@ from typing import Any
 from repro_torch.comm import CompressionConfig, ScheduleConfig
 from repro_torch.core.api import DecentralizedTrainer
 from repro_torch.core.robust import RobustConfig
-from repro_torch.dynamics import TOPOLOGY_KINDS, DynamicsConfig
+from repro_torch.dynamics import TOPOLOGY_KINDS, DynamicsConfig, FaultConfig
 
 _GRAPH_CHOICES = ("ring", "grid", "torus", "erdos_renyi", "geometric",
                   "complete", "star", "hypercube")
 _COMPRESS_CHOICES = ("none", "bf16", "int8", "int4", "topk", "randk")
 _SCHEDULE_CHOICES = ("none", "constant", "linear", "adaptive")
 
-_LOCAL = "the local-updates slice (LocalUpdateMixer)"
-_FAULTS = "the faults slice"
 # flag -> (argparse kwargs, default, slice that ports it)
 _UNPORTED_FLAGS = {
-    "--mix-every": (dict(type=int), 1, _LOCAL),
-    "--local-updates": (dict(type=int), 1, _LOCAL),
-    "--gradient-tracking": (dict(action="store_true"), False, _LOCAL),
-    "--straggler-p": (dict(type=float), 0.0, _FAULTS),
-    "--outage-p": (dict(type=float), 0.0, _FAULTS),
-    "--outage-len": (dict(type=int), 10, _FAULTS),
-    "--straggler-skips-compute": (dict(action="store_true"), False, _FAULTS),
     "--sanitize": (dict(action="store_true"), False,
                    "the tooling slice (runtime invariant checks)"),
 }
+
+
+def add_dynamics_cli_args(ap) -> None:
+    """Install the dynamic-graph, fault and local-update flags
+    (``repro_torch.dynamics``) on an argparse parser."""
+    ap.add_argument("--topology", default="static", choices=TOPOLOGY_KINDS,
+                    help="per-round topology process: static graph, "
+                         "round-robin matchings, Bernoulli link dropout, "
+                         "per-round geometric re-draws, or hub — federated "
+                         "server averaging (FedAvg with --local-updates; "
+                         "SCAFFOLD with --gradient-tracking)")
+    ap.add_argument("--drop-p", type=float, default=0.0,
+                    help="link dropout probability for --topology dropout")
+    ap.add_argument("--radius", type=float, default=0.5,
+                    help="connection radius for --topology geometric")
+    ap.add_argument("--local-updates", type=int, default=1,
+                    help="H: optimizer steps per consensus round "
+                         "(local SGD between mixes when > 1)")
+    ap.add_argument("--gradient-tracking", action="store_true",
+                    help="carry the local-update drift correction "
+                         "(2x consensus wire; uncompressed mixers only)")
+    ap.add_argument("--ef-rebase-every", type=int, default=8,
+                    help="B: re-base period of the error-feedback "
+                         "compressed gossip wire over a time-varying "
+                         "topology (0 = never; static schedules only)")
+    ap.add_argument("--ef-rebase-threshold", type=float, default=0.0,
+                    help="adaptive re-base: re-base when the EF cache "
+                         "drift exceeds this threshold (0 = clock)")
+    ap.add_argument("--straggler-p", type=float, default=0.0,
+                    help="per-node per-round probability of skipping "
+                         "communication")
+    ap.add_argument("--outage-p", type=float, default=0.0,
+                    help="per-window probability a node is down for a whole "
+                         "outage window (correlated faults)")
+    ap.add_argument("--outage-len", type=int, default=10,
+                    help="rounds per outage window")
+    ap.add_argument("--straggler-skips-compute", action="store_true",
+                    help="down nodes (stragglers/outages) lose their "
+                         "gradient too: the robust per-node scale is masked "
+                         "with the round's up vector")
 
 
 def _dest(flag: str) -> str:
@@ -67,6 +102,7 @@ class TrainerSpec:
     robust: bool = True
     lr: float = 0.05
     grad_clip: float | None = None
+    mix_every: int = 1
     compress: str | CompressionConfig | None = "none"  # codec kind, or a
                                                        # pre-built config
     compress_ratio: float = 0.01
@@ -78,8 +114,14 @@ class TrainerSpec:
     topology: str = "static"              # per-round topology process
     drop_p: float = 0.0                   # link dropout for topology=dropout
     radius: float = 0.5                   # radius for topology=geometric
+    local_updates: int = 1                # H: steps per consensus round
+    gradient_tracking: bool = False       # local-update drift correction
     ef_rebase_every: int = 8              # B: EF-gossip hat_mix re-base period
     ef_rebase_threshold: float = 0.0      # adaptive re-base drift threshold
+    straggler_p: float = 0.0              # per-round node comm skips
+    outage_p: float = 0.0                 # correlated node outages
+    outage_len: int = 10
+    straggler_skips_compute: bool = False  # down nodes lose their gradient too
     seed: int = 0
     device: str = "cuda"
 
@@ -89,10 +131,19 @@ class TrainerSpec:
     def dynamics_config(self) -> DynamicsConfig | None:
         """The :class:`DynamicsConfig` this spec describes, or None for a
         static synchronous setup."""
+        faults = None
+        if self.straggler_p > 0 or self.outage_p > 0:
+            faults = FaultConfig(
+                straggler_p=self.straggler_p, outage_p=self.outage_p,
+                outage_len=self.outage_len, seed=self.seed,
+                straggler_skips_compute=self.straggler_skips_compute)
         cfg = DynamicsConfig(
             topology=self.topology, drop_p=self.drop_p, radius=self.radius,
+            local_updates=self.local_updates,
+            gradient_tracking=self.gradient_tracking,
             ef_rebase_every=self.ef_rebase_every,
-            ef_rebase_threshold=self.ef_rebase_threshold, seed=self.seed)
+            ef_rebase_threshold=self.ef_rebase_threshold,
+            faults=faults, seed=self.seed)
         return cfg if cfg.enabled else None
 
     def compression_config(self) -> CompressionConfig | None:
@@ -134,6 +185,7 @@ class TrainerSpec:
             mixing=self.mixing,
             compression=self.compression_config(),
             dynamics=self.dynamics_config(),
+            mix_every=self.mix_every,
             device=self.device,
         )
 
@@ -152,6 +204,8 @@ class TrainerSpec:
                         help="edge probability for erdos_renyi graphs")
         ap.add_argument("--mu", type=float, default=6.0)
         ap.add_argument("--dsgd", action="store_true", help="disable DR (baseline)")
+        ap.add_argument("--mix-every", type=int, default=1,
+                        help="consensus period (local SGD when > 1)")
         ap.add_argument("--lr", type=float, default=None)
         ap.add_argument("--seed", type=int, default=0)
         ap.add_argument("--compress", default="none", choices=_COMPRESS_CHOICES,
@@ -175,21 +229,7 @@ class TrainerSpec:
                         help="ablation: memoryless compression")
         ap.add_argument("--device", default="cuda",
                         help="torch device; 'cpu' runs the plain PyTorch versions")
-        ap.add_argument("--topology", default="static", choices=TOPOLOGY_KINDS,
-                        help="per-round topology process: static graph, "
-                             "round-robin matchings, Bernoulli link dropout or "
-                             "per-round geometric re-draws (hub is not ported)")
-        ap.add_argument("--drop-p", type=float, default=0.0,
-                        help="link dropout probability for --topology dropout")
-        ap.add_argument("--radius", type=float, default=0.5,
-                        help="connection radius for --topology geometric")
-        ap.add_argument("--ef-rebase-every", type=int, default=8,
-                        help="B: re-base period of the error-feedback "
-                             "compressed gossip wire over a time-varying "
-                             "topology (0 = never; static schedules only)")
-        ap.add_argument("--ef-rebase-threshold", type=float, default=0.0,
-                        help="adaptive re-base: re-base when the EF cache "
-                             "drift exceeds this threshold (0 = clock)")
+        add_dynamics_cli_args(ap)
         for flag, (kwargs, default, _) in _UNPORTED_FLAGS.items():
             ap.add_argument(flag, default=default, help="not ported yet", **kwargs)
 
@@ -213,9 +253,15 @@ class TrainerSpec:
                     schedule_threshold=args.schedule_threshold,
                     schedule_warmup=args.schedule_warmup,
                     schedule_rounds=args.schedule_rounds,
+                    mix_every=args.mix_every,
                     topology=args.topology, drop_p=args.drop_p, radius=args.radius,
+                    local_updates=args.local_updates,
+                    gradient_tracking=args.gradient_tracking,
                     ef_rebase_every=args.ef_rebase_every,
                     ef_rebase_threshold=args.ef_rebase_threshold,
+                    straggler_p=args.straggler_p, outage_p=args.outage_p,
+                    outage_len=args.outage_len,
+                    straggler_skips_compute=args.straggler_skips_compute,
                     seed=args.seed, device=args.device)
         if args.nodes is not None:
             spec["num_nodes"] = args.nodes

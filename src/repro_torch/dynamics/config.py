@@ -1,36 +1,31 @@
 """Declarative dynamics setup: one config object from CLI to mixer.
 
 The port of ``repro.dynamics.config``.  :class:`DynamicsConfig` is the
-dynamics twin of ``CompressionConfig``: which
-:class:`~repro_torch.dynamics.schedule.TopologySchedule` the trainer runs.
+dynamics twin of ``CompressionConfig``: everything the trainer needs to
+build a time-varying consensus operator — which
+:class:`~repro_torch.dynamics.schedule.TopologySchedule`, which faults, the
+local-update period H and whether gradient tracking is on.
 :func:`build_dynamic_mixer` assembles the dense-lowering mixer stack
-(schedule → [compression]); the gossip lowering is built explicitly with
+(schedule → faults → [compression] → [local updates]), or the federated hub
+(``topology="hub"``); the gossip lowering is built explicitly with
 :class:`~repro_torch.dynamics.mixers.DynamicGossipMixer`, as in the
 reference.
-
-Options of later slices are accepted by the config and raise
-``NotImplementedError`` naming that slice: ``local_updates > 1`` and
-``gradient_tracking`` (local SGD), ``faults``, and ``topology="hub"``
-(federated).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
 
 import numpy as np
 
 from repro_torch.comm.compressors import CompressionConfig
 from repro_torch.comm.protocol import Mixer
+from repro_torch.dynamics.faults import FaultConfig
+from repro_torch.dynamics.local import LocalUpdateMixer
 from repro_torch.dynamics.mixers import DynamicCompressedDenseMixer, DynamicDenseMixer
 from repro_torch.dynamics.schedule import make_schedule
 
 TOPOLOGY_KINDS = ("static", "round_robin", "dropout", "geometric", "hub")
-
-
-def _faults_enabled(faults) -> bool:
-    return faults is not None and getattr(faults, "enabled", True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,20 +35,28 @@ class DynamicsConfig:
     Attributes:
       topology: "static" | "round_robin" | "dropout" | "geometric" — the
         per-round topology process (``repro_torch.dynamics.schedule``) — or
-        "hub", the federated lowering (not ported yet).
+        "hub": the federated hub-and-spoke lowering (every consensus round
+        is the exact server average, W = 11ᵀ/K; with ``local_updates`` H > 1
+        this is FedAvg, and adding ``gradient_tracking`` yields SCAFFOLD's
+        control variate).  "hub" has no fault model, so it refuses
+        ``faults``.
       drop_p: link dropout probability for topology="dropout".
       radius: connection radius for topology="geometric" re-draws.
-      local_updates: H — optimizer steps per consensus round (not ported
-        beyond 1 yet).
-      gradient_tracking: local-update drift correction (not ported yet).
-      faults: the reference's ``FaultConfig`` (not ported yet; must be None).
+      local_updates: H — optimizer steps per consensus round (H > 1 = local
+        SGD between mixes).
+      gradient_tracking: carry the drift correction of
+        :class:`~repro_torch.dynamics.local.LocalUpdateMixer` (needs an
+        uncompressed wire; 2× consensus bytes).
+      faults: optional :class:`~repro_torch.dynamics.faults.FaultConfig`
+        (stragglers, correlated outages, extra link dropout) composed on
+        top of the schedule.
       ef_rebase_every: B — re-base period of the error-feedback compressed
-        gossip lowering; 0 = never (static topologies only).  The dense EF
-        lowering ignores it.
+        gossip lowering; 0 = never (static fault-free topologies only).  The
+        dense EF lowering ignores it.
       ef_rebase_threshold: adaptive re-base: when > 0, the EF gossip
         lowering re-bases the round its cache drift exceeds this threshold
         instead of on the B clock.
-      seed: schedule seed.
+      seed: schedule seed (the fault process has its own in ``FaultConfig``).
     """
 
     topology: str = "static"
@@ -61,7 +64,7 @@ class DynamicsConfig:
     radius: float = 0.5
     local_updates: int = 1
     gradient_tracking: bool = False
-    faults: Any = None
+    faults: FaultConfig | None = None
     ef_rebase_every: int = 8
     ef_rebase_threshold: float = 0.0
     seed: int = 0
@@ -79,7 +82,8 @@ class DynamicsConfig:
             raise ValueError("ef_rebase_threshold must be >= 0")
         if self.topology == "dropout" and not 0.0 <= self.drop_p < 1.0:
             raise ValueError("drop_p must be in [0, 1)")
-        if self.topology == "hub" and _faults_enabled(self.faults):
+        if (self.topology == "hub" and self.faults is not None
+                and self.faults.enabled):
             raise ValueError(
                 "topology='hub' (federated server averaging) has no "
                 "fault/schedule model yet — the star topology is static "
@@ -93,17 +97,6 @@ class DynamicsConfig:
                 f"{self.topology!r}; pass topology='dropout' (or use "
                 "FaultConfig.link_drop_p to compose dropout with another "
                 "schedule)")
-        if self.topology == "hub":
-            raise NotImplementedError(
-                "topology='hub' is not ported yet; it waits for the federated "
-                "slice (hub/FedAvg/SCAFFOLD)")
-        if self.local_updates > 1 or self.gradient_tracking:
-            raise NotImplementedError(
-                "local_updates > 1 and gradient_tracking are not ported yet; "
-                "they wait for the local-updates slice (LocalUpdateMixer)")
-        if _faults_enabled(self.faults):
-            raise NotImplementedError(
-                "faults are not ported yet; they wait for the faults slice")
 
     @property
     def enabled(self) -> bool:
@@ -111,7 +104,7 @@ class DynamicsConfig:
         return (self.topology != "static"
                 or self.local_updates > 1
                 or self.gradient_tracking
-                or _faults_enabled(self.faults))
+                or (self.faults is not None and self.faults.enabled))
 
 
 def build_dynamic_mixer(cfg: DynamicsConfig, w: np.ndarray,
@@ -119,10 +112,27 @@ def build_dynamic_mixer(cfg: DynamicsConfig, w: np.ndarray,
                         device="cuda") -> Mixer:
     """Assemble the dense-lowering mixer stack for a dynamics config on
     ``device``.  ``w`` is the base doubly-stochastic matrix;
-    topology="geometric" keeps only its K."""
+    topology="geometric" keeps only its K, and so does topology="hub" (the
+    star W = 11ᵀ/K replaces the graph)."""
+    k = int(np.asarray(w).shape[0])
+    if cfg.topology == "hub":
+        from repro_torch.core.consensus import make_hub_mixer
+
+        mixer = make_hub_mixer(k, compression, device=device)
+        if cfg.local_updates > 1 or cfg.gradient_tracking:
+            # FedAvg; with gradient_tracking the tracker correction under
+            # W = 11ᵀ/K is exactly SCAFFOLD's control variate
+            mixer = LocalUpdateMixer(mixer, cfg.local_updates,
+                                     gradient_tracking=cfg.gradient_tracking)
+        return mixer
     schedule = make_schedule(
-        cfg.topology, w=w, k=int(np.asarray(w).shape[0]),
-        drop_p=cfg.drop_p, radius=cfg.radius, seed=cfg.seed, device=device)
+        cfg.topology, w=w, k=k, drop_p=cfg.drop_p, radius=cfg.radius,
+        seed=cfg.seed, device=device)
     if compression is not None and compression.enabled:
-        return DynamicCompressedDenseMixer(schedule, compression)
-    return DynamicDenseMixer(schedule)
+        mixer: Mixer = DynamicCompressedDenseMixer(schedule, compression, faults=cfg.faults)
+    else:
+        mixer = DynamicDenseMixer(schedule, faults=cfg.faults)
+    if cfg.local_updates > 1 or cfg.gradient_tracking:
+        mixer = LocalUpdateMixer(mixer, cfg.local_updates,
+                                 gradient_tracking=cfg.gradient_tracking)
+    return mixer

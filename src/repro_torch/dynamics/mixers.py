@@ -2,8 +2,10 @@
 
 The port of ``repro.dynamics.mixers`` for one card.  Every mixer follows
 the uniform protocol (``mixer(theta, CommState, round=...)``) and takes the
-round's W from its schedule as a device tensor.  All share
-:class:`repro_torch.comm.topology.ScheduledTopology` as the topology layer:
+round's W from its schedule as a device tensor, fault-masked by
+:func:`repro_torch.dynamics.faults.fault_keep_matrix` when ``faults`` is
+given.  All share :class:`repro_torch.comm.topology.ScheduledTopology`
+(schedule ∘ fault replay) as the topology layer:
 
 * :class:`DynamicDenseMixer`   = Scheduled × Dense × Identity — W_r product;
   runs any schedule including moving-support ones.
@@ -20,14 +22,20 @@ round's W from its schedule as a device tensor.  All share
   W_r and is re-based from full-precision public copies every
   ``ef_rebase_every`` rounds.
 
+* :class:`repro_torch.dynamics.local.LocalUpdateMixer` wraps any of them:
+  H − 1 local rounds between consensus rounds, with an optional
+  gradient-tracking correction carried in ``CommState.track``.
+
 Wire accounting: the dynamic mixers count active directed links × the
-per-node payload each round (``wire_bits``, a device tensor).
+per-node payload each round (``wire_bits``, a device tensor), so a round in
+which every node straggles reports 0 bits.  On the gossip lowering the
+per-matching weights and masks are gathered out of the faulted W_r, so a
+straggler's row is masked in every matching.
 
 The reference's ``mesh``, ``node_axis`` and ``param_specs`` mean nothing on
-one card and are dropped.  Faults (``faults=``) and the hierarchical
-``replica_axis`` raise ``NotImplementedError`` until their slices.
-``uniforms`` is the codec wires' noise hook (tests only; see
-:mod:`repro_torch.comm.wire`).
+one card and are dropped; its hierarchical ``replica_axis`` raises
+``NotImplementedError`` (multi-device).  ``uniforms`` is the codec wires'
+noise hook (tests only; see :mod:`repro_torch.comm.wire`).
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ import torch
 from repro_torch.comm.composed import ComposedMixer
 from repro_torch.comm.compressors import CompressionConfig
 from repro_torch.comm.mixers import CompressedDenseMixer, CompressedGossipMixer
-from repro_torch.comm.topology import ScheduledTopology
+from repro_torch.comm.topology import ScheduledTopology, gather_round_vectors
 from repro_torch.comm.transport import DenseTransport, GossipTransport
 from repro_torch.comm.wire import (
     ChocoWire,
@@ -47,11 +55,13 @@ from repro_torch.comm.wire import (
     UniformsFn,
     make_codec_wire,
 )
+from repro_torch.dynamics.faults import FaultConfig
 from repro_torch.dynamics.schedule import StaticSchedule, TopologySchedule
 
 __all__ = [
     "DynamicDenseMixer", "DynamicGossipMixer",
     "DynamicCompressedDenseMixer", "DynamicCompressedGossipMixer",
+    "gather_round_vectors",
 ]
 
 
@@ -60,7 +70,7 @@ class DynamicDenseMixer(ComposedMixer):
     :class:`repro_torch.core.consensus.DenseMixer` under a
     :class:`~repro_torch.dynamics.schedule.StaticSchedule`."""
 
-    def __init__(self, schedule: TopologySchedule, faults=None,
+    def __init__(self, schedule: TopologySchedule, faults: FaultConfig | None = None,
                  compute_dtype=torch.float32):
         super().__init__(ScheduledTopology(schedule, faults),
                          DenseTransport(compute_dtype), IdentityWire())
@@ -85,7 +95,7 @@ class DynamicGossipMixer(ComposedMixer):
       ``ef_rebase_every`` is ignored.
     """
 
-    def __new__(cls, schedule: TopologySchedule = None, faults=None,
+    def __new__(cls, schedule: TopologySchedule = None, faults: FaultConfig | None = None,
                 quantized: CompressionConfig | None = None,
                 ef_rebase_every: int = 8, ef_rebase_threshold: float = 0.0, *,
                 uniforms: UniformsFn | None = None):
@@ -99,7 +109,7 @@ class DynamicGossipMixer(ComposedMixer):
                 ef_rebase_threshold=ef_rebase_threshold, uniforms=uniforms)
         return super().__new__(cls)
 
-    def __init__(self, schedule: TopologySchedule, faults=None,
+    def __init__(self, schedule: TopologySchedule, faults: FaultConfig | None = None,
                  quantized: CompressionConfig | None = None,
                  ef_rebase_every: int = 8, ef_rebase_threshold: float = 0.0, *,
                  uniforms: UniformsFn | None = None):
@@ -123,7 +133,7 @@ class DynamicCompressedDenseMixer(CompressedDenseMixer):
     ships on its next live round."""
 
     def __init__(self, schedule: TopologySchedule, compression: CompressionConfig,
-                 faults=None, *, uniforms: UniformsFn | None = None):
+                 faults: FaultConfig | None = None, *, uniforms: UniformsFn | None = None):
         ComposedMixer.__init__(self, ScheduledTopology(schedule, faults),
                                DenseTransport(), make_codec_wire(compression, uniforms))
 
@@ -153,7 +163,7 @@ class DynamicCompressedGossipMixer(CompressedGossipMixer):
     """
 
     def __init__(self, schedule: TopologySchedule, compression: CompressionConfig,
-                 faults=None, ef_rebase_every: int = 8,
+                 faults: FaultConfig | None = None, ef_rebase_every: int = 8,
                  ef_rebase_threshold: float = 0.0,
                  replica_axis: str | None = None, *,
                  uniforms: UniformsFn | None = None):
@@ -175,7 +185,8 @@ class DynamicCompressedGossipMixer(CompressedGossipMixer):
         if ef_rebase_threshold < 0:
             raise ValueError("ef_rebase_threshold must be >= 0")
         adaptive = ef_rebase_threshold > 0
-        time_varying = not isinstance(schedule, StaticSchedule)
+        time_varying = (not isinstance(schedule, StaticSchedule)
+                        or topo.faults is not None)
         if ef_rebase_every == 0 and time_varying and not adaptive:
             raise ValueError(
                 "ef_rebase_every=0 (never re-base) keeps the incremental "

@@ -17,6 +17,15 @@ plain SGD with dense mixing, so it runs through the fused gossip update
 (B.1); the attention forward and backward run through B.6.  RWKV models
 train on the CPU only (B.7 has no backward yet).
 
+Dynamic graphs (``repro_torch.dynamics``) on either path: ``--topology
+dropout --drop-p 0.2`` trains over per-round link failures; ``--local-updates
+H`` runs H local steps per consensus round and ``--gradient-tracking`` adds
+the drift correction; ``--straggler-p``/``--outage-p``/``--outage-len``
+inject node faults (``--straggler-skips-compute``: down nodes lose their
+gradient too); ``--topology hub`` is the federated server average (FedAvg
+with ``--local-updates``, SCAFFOLD with ``--gradient-tracking``);
+``--mix-every N`` mixes every N-th step only.
+
 Weights come from the port's own seeded init.  ``--ckpt-dir`` (ROADMAP
 A.10), ``--log-dir`` and ``--profile`` (A.13) raise as not ported.
 
@@ -27,6 +36,11 @@ Examples:
       --compress int8 --compress-schedule adaptive
   PYTHONPATH=src python -m repro_torch.launch.train --paper fmnist \
       --compress topk --compress-ratio 0.02 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --paper fmnist --nodes 8 \
+      --graph ring --topology dropout --drop-p 0.2 --local-updates 4 \
+      --gradient-tracking --straggler-p 0.1 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --paper fmnist --nodes 8 \
+      --topology hub --local-updates 4 --gradient-tracking
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --smoke \
       --steps 3 --nodes 4 --device cpu
@@ -66,6 +80,18 @@ _UNPORTED = {"--ckpt-dir": ("ckpt_dir", "the checkpoint slice (ROADMAP A.10)"),
 _TRAIN_FIELDS = ("loss_mean", "loss_worst", "robust_objective", "comm_bytes", "disagreement")
 
 
+def _dynamics_meta(spec) -> dict:
+    """The dynamics fields of the meta record (the reference's, so a run's
+    fault events replay from its config)."""
+    return dict(topology=spec.topology, local_updates=spec.local_updates,
+                gradient_tracking=spec.gradient_tracking, mix_every=spec.mix_every,
+                seed=spec.seed, drop_p=spec.drop_p, straggler_p=spec.straggler_p,
+                outage_p=spec.outage_p, outage_len=spec.outage_len,
+                straggler_skips_compute=spec.straggler_skips_compute,
+                ef_rebase_every=spec.ef_rebase_every,
+                ef_rebase_threshold=spec.ef_rebase_threshold)
+
+
 def train_lm(args):
     """The LM stack; returns (trainer, final state, the train records)."""
     steps = args.steps or 50
@@ -77,8 +103,9 @@ def train_lm(args):
     trainer = spec.build(make_lm_loss(model))
     print(json.dumps(dict(kind="meta", arch=cfg.name, params=model.num_params(), nodes=k,
                           rho=round(trainer.rho, 4), mu=spec.mu, robust=spec.robust,
-                          compress=args.compress, topology=spec.topology, steps=steps,
-                          batch=bsz, seq_len=args.seq_len, device=str(trainer.device))),
+                          compress=args.compress, steps=steps, batch=bsz,
+                          seq_len=args.seq_len, device=str(trainer.device),
+                          **_dynamics_meta(spec))),
           flush=True)
     params = model.init(torch.Generator(trainer.device).manual_seed(args.seed))
     streams = make_node_token_streams(k, cfg.vocab, seed=args.seed)
@@ -122,7 +149,7 @@ def train_paper(args):
     print(json.dumps(dict(kind="meta", paper=args.paper, nodes=k, steps=steps,
                           batch=bsz, lr=spec.lr, mu=spec.mu, robust=spec.robust,
                           rho=round(trainer.rho, 4), compress=args.compress,
-                          device=str(trainer.device))), flush=True)
+                          device=str(trainer.device), **_dynamics_meta(spec))), flush=True)
     t0 = time.perf_counter()
 
     def on_segment(step, seg_state, ms):

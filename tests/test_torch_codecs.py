@@ -325,10 +325,10 @@ def test_bf16_dense_rounds_match_reference(dynamic):
 def test_fused_step_declines_bfloat16_dense_rounds():
     """B.1 computes in float32, so the fused SGD + dense step takes a
     float32 DenseMixer and declines a bfloat16 one (and a compressed one)."""
-    assert _fused_w(sgd(0.1), DenseMixer(W, device="cpu")) is not None
-    assert _fused_w(sgd(0.1), DenseMixer(W, torch.bfloat16, device="cpu")) is None
+    assert _fused_w(sgd(0.1), DenseMixer(W, device="cpu"), 1) is not None
+    assert _fused_w(sgd(0.1), DenseMixer(W, torch.bfloat16, device="cpu"), 1) is None
     cfg = CompressionConfig(kind="bf16")
-    assert _fused_w(sgd(0.1), make_dense_mixer(W, cfg, device="cpu")) is None
+    assert _fused_w(sgd(0.1), make_dense_mixer(W, cfg, device="cpu"), 1) is None
 
 
 # -- gossip rounds (the reference in a subprocess with 8 host devices) -------------

@@ -212,14 +212,35 @@ def test_dynamics_config_raises_the_reference_errors(kwargs):
         _error(lambda: RefDynamicsConfig(**kwargs))
 
 
-@pytest.mark.parametrize("kwargs,later", [
+@pytest.mark.parametrize("kwargs,ported_in", [
     (dict(topology="hub"), "federated slice"),
     (dict(local_updates=2), "local-updates slice"),
     (dict(gradient_tracking=True), "local-updates slice"),
-    (dict(faults=object()), "faults slice")])
-def test_unported_dynamics_options_raise(kwargs, later):
-    with pytest.raises(NotImplementedError, match=later):
-        DynamicsConfig(**kwargs)
+    (dict(faults=dict(straggler_p=0.1)), "faults slice")])
+def test_unported_dynamics_options_raise(kwargs, ported_in):
+    """The options that raised until their slice (``ported_in``) was ported
+    now build as the reference's do (``enabled``, the stack's classes); what
+    still raises is the reference's own refusal of a hub with faults.
+    ``faults`` holds the FaultConfig's fields, built on both sides."""
+    from repro.dynamics import FaultConfig as RefFaultConfig
+    from repro.dynamics import build_dynamic_mixer as ref_build
+
+    from repro_torch.dynamics import FaultConfig
+
+    ref_kwargs = dict(kwargs)
+    if "faults" in kwargs:
+        kwargs = dict(faults=FaultConfig(**kwargs["faults"]))
+        ref_kwargs = dict(faults=RefFaultConfig(**ref_kwargs["faults"]))
+    cfg, ref_cfg = DynamicsConfig(**kwargs), RefDynamicsConfig(**ref_kwargs)
+    assert cfg.enabled and ref_cfg.enabled, ported_in
+    got = build_dynamic_mixer(cfg, W, device="cpu")
+    want = ref_build(ref_cfg, W)
+    assert type(got).__name__ == type(want).__name__, ported_in
+    assert type(getattr(got, "inner", got)).__name__ == \
+        type(getattr(want, "inner", want)).__name__
+    if "faults" in kwargs:
+        assert _error(lambda: DynamicsConfig(topology="hub", **kwargs)) == \
+            _error(lambda: RefDynamicsConfig(topology="hub", **ref_kwargs))
 
 
 def test_dynamics_config_builds_the_dense_stack():
@@ -268,8 +289,16 @@ def test_dynamic_gossip_mixer_checks_and_redirect():
                                                               error_feedback=False))
     with pytest.raises(NotImplementedError, match="hierarchical slice"):
         DynamicCompressedGossipMixer(sched, ef, replica_axis="replica")
-    with pytest.raises(NotImplementedError, match="faults slice"):
-        DynamicGossipMixer(sched, faults=object())
+    # faults compose on the gossip lowering; they make a static schedule
+    # time-varying, so the EF wire must re-base, as in the reference
+    from repro_torch.dynamics import FaultConfig
+
+    faults = FaultConfig(straggler_p=0.1)
+    assert DynamicGossipMixer(sched, faults=faults).topo.faults is faults
+    assert DynamicGossipMixer(sched, faults=FaultConfig()).topo.faults is None
+    with pytest.raises(ValueError, match="ef_rebase_every=0"):
+        DynamicCompressedGossipMixer(StaticSchedule(W, device="cpu"), ef, faults=faults,
+                                     ef_rebase_every=0)
 
 
 def test_mix_tree_matches_reference():

@@ -178,8 +178,8 @@ def test_fused_step_equals_unfused_step(fmnist, robust, grad_clip):
     unfused_opt = Optimizer(fused_opt.init, fused_opt.update)  # not recognised as plain SGD
     fused = _trainer(fused_opt, robust, grad_clip)
     unfused = _trainer(unfused_opt, robust, grad_clip)
-    assert _fused_w(fused_opt, fused.mixer) is not None
-    assert _fused_w(unfused_opt, unfused.mixer) is None
+    assert _fused_w(fused_opt, fused.mixer, 1) is not None
+    assert _fused_w(unfused_opt, unfused.mixer, 1) is None
     a, b = fused.init(params), unfused.init(params)
     calls = ops.gossip_update_stacked_grouped.plain_calls
     one_leaf = ops.gossip_update_stacked.plain_calls
@@ -201,12 +201,12 @@ def test_fused_step_equals_unfused_step(fmnist, robust, grad_clip):
 def test_fused_step_applies_only_to_sgd_with_static_dense_mixing():
     w = metropolis_weights(build_graph("erdos_renyi", K, **GRAPH_KW))
     opt = sgd(LR)
-    assert _fused_w(opt, _trainer(opt, True, None).mixer) is not None
+    assert _fused_w(opt, _trainer(opt, True, None).mixer, 1) is not None
     others = [_trainer(opt, True, None, mixing="none").mixer,
               _trainer(opt, True, None,
                        compression=CompressionConfig(kind="int8")).mixer,
               make_gossip_mixer(permutation_decomposition(w), device="cpu")]
-    assert all(_fused_w(opt, m) is None for m in others)
+    assert all(_fused_w(opt, m, 1) is None for m in others)
 
 
 # -- the grouped stacked form: every leaf of a step in one call ----------------
@@ -307,7 +307,7 @@ def test_fused_step_is_declined_at_65_nodes(fmnist):
     trainer = DecentralizedTrainer(nets.make_classifier_loss(nets.mlp_apply), nets.mlp_apply,
                                    num_nodes=k, graph="erdos_renyi", graph_kwargs=GRAPH_KW,
                                    robust=RobustConfig(mu=6.0), optimizer=opt, device="cpu")
-    assert _fused_w(opt, trainer.mixer) is None
+    assert _fused_w(opt, trainer.mixer, 1) is None
     calls = (ops.gossip_update_stacked_grouped.plain_calls, ops.gossip_update_stacked.plain_calls)
     state, _ = trainer.step(trainer.init(params), batch)
     assert (ops.gossip_update_stacked_grouped.plain_calls,

@@ -68,6 +68,16 @@ serving layout, with and without a mask; such a call, and scheduled dense
 int8-kernel rounds, run under CUDA's sync debug mode "error" (no
 device-to-host copy, no synchronisation).
 
+Faults, local updates, ``mix_every`` and the hub on the card: a static
+dense SGD stack with ``mix_every = 2`` takes the unfused step (no B.1
+launch) and stays within 1.5e-4 of the largest update of the CPU's; the
+fault masks are drawn on the card without a host sync; a straggler's row
+is masked in every matching of the memoryless round, whose grouped B.4/B.5
+equal their plain versions bit for bit; the EF gossip wire inside
+``LocalUpdateMixer(H = 2)`` launches B.4/B.5 on consensus rounds only, on
+the EF clock; the int8 hub launches one grouped B.2 per round and equals
+the CPU's round.
+
 Run it on a machine with a card with ``PYTHONPATH=src python -m pytest -q
 tests/test_torch_kernel.py``.
 """
@@ -1226,3 +1236,182 @@ def test_scheduled_rounds_on_the_card_make_no_host_sync(cuda):
         assert all(bool(torch.isfinite(t).all()) for t in theta.values())
         if kind == "linear":  # annealed to qmax 7: 4 bits per entry
             assert float(state.wire_bits) == 10 * (4 * 3146 + 2 * 32)
+
+
+# -- faults, local updates, mix_every and the hub on the card ------------------
+
+def test_mix_every_run_on_the_card_equals_the_cpu(cuda):
+    """A static dense SGD stack with mix_every = 2: the fused B.1 step is
+    declined (B.1 mixes on every call), so the card launches no B.1 and
+    mixes on the odd steps only; 4 steps stay within 1.5e-4 of the largest
+    update of the CPU's, with the same comm bytes per step."""
+    from repro_torch.core import DecentralizedTrainer, RobustConfig
+    from repro_torch.data import make_fmnist_like, pathological_noniid_partition
+    from repro_torch.models import paper_nets as nets
+
+    k = 10
+    fed = pathological_noniid_partition(make_fmnist_like(n_train=1000, n_test=200), k, seed=0)
+    rng = np.random.default_rng(0)
+    batches = [fed.sample_batch(rng, 55) for _ in range(4)]
+    params = nets.mlp_init(torch.Generator().manual_seed(0))
+    out = {}
+    for dev in (cuda, "cpu"):
+        trainer = DecentralizedTrainer(nets.make_classifier_loss(nets.mlp_apply), nets.mlp_apply,
+                                       num_nodes=k, graph="erdos_renyi",
+                                       graph_kwargs={"p": 0.3, "seed": 0},
+                                       robust=RobustConfig(mu=6.0), lr=(10 / 300) ** 0.5,
+                                       mix_every=2, device=dev)
+        state = trainer.init(params)
+        before = (gk.gossip_update_stacked.launches, gk.gossip_update_stacked_grouped.launches)
+        bytes_ = []
+        for b in batches:
+            state, m = trainer.step(state, b)
+            bytes_.append(float(m["comm_bytes"]))
+        assert (gk.gossip_update_stacked.launches,
+                gk.gossip_update_stacked_grouped.launches) == before
+        assert [x > 0 for x in bytes_] == [False, True, False, True]
+        out[str(dev)] = ({n: v.cpu() for n, v in state.params.items()}, bytes_)
+    (card, card_bytes), (cpu, cpu_bytes) = out[str(cuda)], out["cpu"]
+    assert card_bytes == cpu_bytes
+    start = {n: v.unsqueeze(0).expand(cpu[n].shape) for n, v in params.items()}
+    largest = max(float((cpu[n] - start[n]).abs().max()) for n in params)
+    for n in params:
+        assert float((card[n] - cpu[n]).abs().max()) <= 1.5e-4 * largest, n
+
+
+def test_fault_masks_on_the_card_follow_the_card_generator(cuda):
+    """The masks are drawn on the card (its generator gives other bits than
+    the CPU's, so the structure is held): symmetric keep, links only
+    between up nodes, a pure function of the round, no host sync."""
+    from repro_torch.dynamics import FaultConfig, fault_keep_matrix
+
+    cfg = FaultConfig(link_drop_p=0.3, straggler_p=0.2, outage_p=0.2, outage_len=4, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        keep, up = fault_keep_matrix(cfg, 3, 12, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert keep.device.type == up.device.type == "cuda"
+    assert torch.equal(keep, keep.T)
+    assert torch.equal(keep * up[:, None] * up[None, :], keep)
+    keep2, up2 = fault_keep_matrix(cfg, 3, 12, device=cuda)
+    assert torch.equal(keep, keep2) and torch.equal(up, up2)
+
+
+def test_faulted_memoryless_round_on_the_card_masks_straggler_rows(cuda):
+    """The memoryless int8 round under a straggler fault on the card: the
+    masks gathered from the faulted W_r zero the straggler's row in every
+    matching, and grouped B.4/B.5 equal their plain versions bit for bit on
+    that round (one launch each per matching)."""
+    from repro_torch.comm import CompressionConfig
+    from repro_torch.comm import topology as comm_topology
+    from repro_torch.comm.topology import gather_round_vectors
+    from repro_torch.dynamics import DynamicGossipMixer, FaultConfig, StaticSchedule
+    from repro_torch.graphs import build_graph, metropolis_weights
+
+    k = 10
+    w = metropolis_weights(build_graph("erdos_renyi", k, p=0.3, seed=0))
+    mixer = DynamicGossipMixer(StaticSchedule(w, device=cuda), faults=FaultConfig(straggler_p=0.2),
+                               quantized=CompressionConfig(kind="int8", use_kernel=True,
+                                                           error_feedback=False))
+    keep = torch.ones((k, k), device=cuda)
+    keep[3, :] = keep[:, 3] = 0.0  # node 3 straggles
+    up = torch.ones(k, device=cuda)
+    up[3] = 0.0
+    saved = comm_topology.round_fault_masks
+    comm_topology.round_fault_masks = lambda cfg, r, kk, device: (keep, up)
+    try:
+        w_r = mixer.topo.round_w(0)
+    finally:
+        comm_topology.round_fault_masks = saved
+    self_w, match_ws, masks = gather_round_vectors(w_r, mixer.transport.perm_idx)
+    assert all(float(m[3]) == 0.0 for m in masks) and float(self_w[3]) == 1.0
+    xs, _ = _group(k, MLP_D, seed=7, device=cuda)
+    xs = [x.contiguous() for x in xs]
+    before = (qk.masked_quantize_blockwise_grouped.launches,
+              qk.masked_dequant_accumulate_grouped_.launches)
+    accs = [x * self_w[:, None] for x in xs]
+    plain = [a.clone() for a in accs]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for pw, mk, src in zip(match_ws, masks, mixer.transport.srcs):
+        us = [torch.rand(x.shape, generator=gen, device=cuda) for x in xs]
+        got = qk.masked_quantize_blockwise_grouped(xs, us, mk, qmax=127.0, block_d=65536)
+        want = ref.masked_quantize_blockwise_grouped_ref(xs, us, mk, qmax=127.0, block_d=65536)
+        for (gq, gs), (wq, ws) in zip(got, want):
+            assert torch.equal(gq, wq) and torch.equal(gs, ws)
+            assert not gq[3].any() and not gs[3].any()  # the straggler sends nothing
+        qk.masked_dequant_accumulate_grouped_(accs, got, pw, mk, src=src)
+        ref.masked_dequant_accumulate_grouped_ref_(plain, want, pw, mk, src=src)
+    for a, p, x in zip(accs, plain, xs):
+        assert torch.equal(a, p)
+        assert torch.equal(a[3], x[3])  # and receives nothing
+    n_match = len(masks)
+    assert (qk.masked_quantize_blockwise_grouped.launches,
+            qk.masked_dequant_accumulate_grouped_.launches) == \
+        (before[0] + n_match, before[1] + n_match)
+
+
+def test_ef_gossip_under_local_updates_launches_on_consensus_rounds_only(cuda):
+    """The EF int8 gossip wire (B = 2) inside LocalUpdateMixer(H = 2) on the
+    card: B.4 once per consensus round, B.5 once per matching of a delta
+    round on the EF clock, nothing on a local round; the reference's
+    literal wire bits."""
+    from repro_torch.comm import CompressionConfig
+    from repro_torch.dynamics import DropoutSchedule, DynamicCompressedGossipMixer, LocalUpdateMixer
+    from repro_torch.graphs import build_graph, metropolis_weights
+
+    k, d = 8, 64
+    w = metropolis_weights(build_graph("ring", k))
+    inner = DynamicCompressedGossipMixer(DropoutSchedule(w, 0.0, seed=2, device=cuda),
+                                         CompressionConfig(kind="int8", seed=1, use_kernel=True),
+                                         ef_rebase_every=2)
+    mixer = LocalUpdateMixer(inner, 2)
+    theta = {"a": torch.randn((k, d), generator=torch.Generator(device=cuda).manual_seed(0),
+                              device=cuda)}
+    state = mixer.init_state(theta)
+    calls, wires = [], []
+    for r in range(8):
+        before = (qk.masked_quantize_blockwise_grouped.launches,
+                  qk.masked_dequant_accumulate_grouped_.launches)
+        theta, state = mixer(theta, state, round=r)
+        calls.append((qk.masked_quantize_blockwise_grouped.launches - before[0],
+                      qk.masked_dequant_accumulate_grouped_.launches - before[1]))
+        wires.append(float(state.wire_bits))
+    m = len(inner.transport.srcs)
+    assert calls == [(0, 0), (1, m), (0, 0), (1, 0)] * 2, calls
+    assert wires == [0.0, 16 * 8.0 * (d + 4), 0.0, 16 * 32.0 * d] * 2, wires
+    assert state.ef_rounds == 4 and state.rounds == 8
+
+
+def test_int8_hub_round_on_the_card_equals_the_cpu(cuda):
+    """The int8 hub (the dense codec stack over W = 11ᵀ/K) on the card: one
+    grouped B.2 launch per round, and with the same uniforms the CPU's
+    round (θ within 1.5e-4 of the largest update, θ̂ likewise)."""
+    from repro_torch.comm import CompressionConfig
+    from repro_torch.core import make_hub_mixer
+
+    k = 8
+    rng = np.random.default_rng(2)
+    theta_np = {"fc0/w": rng.standard_normal((k, 784 * 128)).astype(np.float32),
+                "fc0/b": rng.standard_normal((k, 128)).astype(np.float32)}
+
+    def noise(rounds, leaf_idx, shape):
+        return np.random.default_rng([rounds, leaf_idx]).random(shape, dtype=np.float32)
+
+    out = {}
+    for dev in (cuda, "cpu"):
+        m = make_hub_mixer(k, CompressionConfig(kind="int8", use_kernel=True), device=dev,
+                           uniforms=noise)
+        theta = {n: torch.from_numpy(v).to(dev) for n, v in theta_np.items()}
+        before = qk.quantize_blockwise_grouped.launches
+        got, state = m(theta, m.init_state(theta))
+        launched = qk.quantize_blockwise_grouped.launches - before
+        out[str(dev)] = ({n: v.cpu() for n, v in got.items()},
+                         {n: v.cpu() for n, v in state.hat.items()}, launched)
+    (card, card_hat, launched), (cpu, cpu_hat, _) = out[str(cuda)], out["cpu"]
+    assert launched == 1
+    largest = max(float((cpu[n] - torch.from_numpy(theta_np[n])).abs().max()) for n in cpu)
+    for n in cpu:
+        assert float((card[n] - cpu[n]).abs().max()) <= 1.5e-4 * largest, n
+        assert torch.equal(card_hat[n], cpu_hat[n]), n

@@ -534,7 +534,7 @@ def test_fused_step_is_declined_above_64_nodes(k):
     from repro_torch.optim import sgd
 
     mixer = make_dense_mixer(metropolis_weights(ring_graph(k)), device="cpu")
-    fused = _fused_w(sgd(0.1), mixer)
+    fused = _fused_w(sgd(0.1), mixer, 1)
     assert MAX_NODES == 64
     assert (fused is not None) == (k <= MAX_NODES)
     if fused is not None:
