@@ -4,10 +4,11 @@
 
 Drives the port's main paths — the paper's DR-DSGD trainer (Algorithm 2)
 over the dense lowering, and over the gossip lowering on a static and a
-time-varying topology, decentralized LM training, and static-batch LM
-serving (prefill, then greedy decode) — on the card through their user
-entry points, and holds every CUDA kernel of those paths against its plain
-PyTorch version:
+time-varying topology, checkpointed and resumed, decentralized LM training,
+static-batch LM serving (prefill, then greedy decode) and the
+continuous-batching engine over a paged float32 or int8 KV pool — on the
+card through their user entry points, and holds every CUDA kernel of those
+paths against its plain PyTorch version:
 
   build    nvcc-compiles every kernel source under src/ (one nvcc per
            source, all five started together), and proves from cuobjdump's
@@ -148,6 +149,15 @@ PyTorch version:
            and SCAFFOLD at H = 4 (SCAFFOLD's consensus rounds bill 2x), and
            int8 FedAvg at H = 4 on the kernel quantizer (grouped B.2 over the
            star W once per consensus round: 100 launches).
+  ckpt     fig7's fmnist task (K = 8 ring) through the fused B.1 step, the
+           EF int8 gossip wire re-based every 4 under dropout 0.2 and the
+           memoryless int8 gossip wire under stragglers 0.1: saved at step
+           150 of 300 (save_train_state), restored (restore_train_state)
+           and resumed; the restored state and the resumed run's every
+           leaf and metric equal the uninterrupted run's bit for bit.  A
+           qwen2-0.5b train state cut to 2 layers at K = 4 with a bfloat16
+           leaf round-trips bit for bit; seconds to save and restore and
+           the file's bytes printed.
   bwd-kernel  B.6's backward against autograd of the plain version at
            qwen2-0.5b's training shapes (B 2, H 14/2, hd 64, S = T = 64 and
            512) and at the serving shapes below, dq, dk and dv within
@@ -197,6 +207,21 @@ PyTorch version:
   serve-parity  both models cut to 2 layers at full width: the same seeded
            weights on the card (kernels) and on the CPU (plain versions);
            prefill logits, caches and 8 greedy tokens at SERVE_PARITY_REL.
+  engine   B.2 at the KV writes (k and v of a layer in one launch: 1 to 8
+           rows of D = 128, an admission's 456 rows, gemma2's D = 2048)
+           bit-equal to its plain version, B.6 (batch 1, S = 5 and 19, and
+           gemma2's hd 128 with softcap) and B.7 (batch 1, T = 5 and 19) at
+           the admission shapes at SERVE_TOL, timed.  Then the main path:
+           ``serve --engine`` and ``--engine --int8-kv`` (qwen2-0.5b at full
+           width and depth, 4 slots, 8-token pages, SMOKE_CLASSES at 2
+           requests/s for 8 s, the wall clock), every launch counted
+           (_engine_launches) and no plain call; decode ms per step, TTFT and
+           per-token percentiles, peak memory.  On the steps clock: float32
+           engine tokens equal each request's isolated greedy tokens up to a
+           near tie, int8 diverging from float32 only where the top-2 margin
+           is below twice the row's measured logit error; 2 layers card vs
+           CPU at SERVE_PARITY_REL; rwkv6-7b and gemma2 (int8 too) at 2
+           layers, launches counted, tokens against isolated greedy.
 
 TF32 is off for matmul and cuDNN throughout, so float32 means float32.
 Weights come from the port's own seeded init, written to and read back
@@ -2515,13 +2540,6 @@ def phase_serve_kernels() -> dict:
     """B.6 and B.7 against their plain versions at the serving shapes, on
     the model's memory layout (strided (B, S, H, hd) views)."""
     import torch
-    import torch.nn.functional as F
-    from torch.nn.attention import sdpa_kernel
-
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.rwkv6_scan import kernel as wk
-    from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
 
@@ -2538,89 +2556,122 @@ def phase_serve_kernels() -> dict:
     ]
     out = {"flash_attention_fwd": dict(max_abs_err=0.0, rows=[]),
            "wkv6_scan": dict(max_abs_err=0.0, rows=[])}
-    for tag, b, h, kvh, s, hd, window, softcap in flash_cases:
-        q = randn(b, s, h, hd).permute(0, 2, 1, 3)
-        k, v = (randn(b, s, kvh, hd).permute(0, 2, 1, 3) for _ in range(2))
-        kw = dict(causal=True, window=window, softcap=softcap)
-        got, want = fk.flash_attention_fwd(q, k, v, **kw), attention_ref(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        out["flash_attention_fwd"]["max_abs_err"] = max(out["flash_attention_fwd"]["max_abs_err"],
-                                                        err)
-        if not torch.allclose(got, want, rtol=SERVE_TOL, atol=SERVE_TOL):
-            raise AssertionError(f"[serve-kernel] B.6 {tag}: kernel != plain (max abs err {err})")
-        ms = cuda_ms(lambda: fk.flash_attention_fwd(q, k, v, **kw), iters=50)
-        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=10, warmup=2)
-        dev_ms = device_ms(lambda: fk.flash_attention_fwd(q, k, v, **kw), 20,
-                           KERNELS["flash_attention_fwd"][2])
-        bound, by, fp32_bound = flash_bound(b, h, kvh, s, s, hd, True, window)
-        row = dict(case=tag, b=b, h=h, kvh=kvh, s=s, hd=hd, window=window, softcap=softcap,
-                   max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
-                   bound_by=by, fp32_bound_ms=fp32_bound, library_ms=None,
-                   tma=need_tma(f"[serve-kernel] B.6 {tag}", k=k, v=v))
-        if window is None and softcap is None:  # the yardstick: one PyTorch call, contiguous
-            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-            backend, label, kf, vf, gqa = sdpa_yardstick(qc, kc, vc)
-
-            def sdpa():
-                with sdpa_kernel([backend]):
-                    return F.scaled_dot_product_attention(qc, kf, vf, is_causal=True,
-                                                          enable_gqa=gqa)
-
-            if not torch.allclose(sdpa(), want, rtol=1e-4, atol=1e-4):
-                raise AssertionError(f"[serve-kernel] SDPA disagrees with the plain version ({tag})")
-            row.update(library_ms=cuda_ms(sdpa, iters=50),
-                       library_device_ms=window_device_ms(sdpa, 20), library_backend=label)
-        out["flash_attention_fwd"]["rows"].append(row)
-        log("[serve-kernel] " + json.dumps(row))
-
+    for case in flash_cases:
+        _add_row(out["flash_attention_fwd"], _flash_case("serve-kernel", randn, *case))
     for tag, b, h, t, hd, decay, given, layout in WKV6_CASES:
-        if layout == "model":  # the model's (B, T, H, hd) projections
-            def view():
-                return randn(b, t, h, hd).permute(0, 2, 1, 3)
-        else:  # rows of H hd + 1 floats: only the first row is on 16 bytes
-            def view():
-                return randn(b, t, h * hd + 1)[:, :, :h * hd].unflatten(
-                    2, (h, hd)).permute(0, 2, 1, 3)
-        r, k, v, w = view(), view(), view(), view()
-        if decay == "random":
-            w.copy_(torch.rand(w.shape, generator=gen, device="cuda"))
-        elif decay == "init":  # exp(-exp(decay_base = -6)): the state hardly decays
-            w.fill_(math.exp(-math.exp(-6.0)))
-        else:  # the state is forgotten at every step
-            w.fill_(1e-6)
-        u = 0.5 * randn(h, hd)
-        s0 = randn(b, h, hd, hd) if given else None
-        tma = all(wk.rows_by_tma(x) for x in (r, k, v, w))
-        if tma != (layout == "model"):
-            raise AssertionError(f"[serve-kernel] B.7 {tag}: staged by "
-                                 f"{'TMA' if tma else 'plain loads'}")
-        (y, st), (y_p, st_p) = wk.wkv6_scan(r, k, v, w, u, s0), wkv6_ref(r, k, v, w, u, s0)
-        torch.cuda.synchronize()
-        errs = {}
-        for what, got, want in (("y", y, y_p), ("state", st, st_p)):
-            scale = float(want.abs().max())
-            errs[what] = float((got - want).abs().max())
-            errs[what + "_max_abs"] = scale
-            if not torch.allclose(got, want, rtol=SERVE_TOL, atol=SERVE_TOL * scale):
-                raise AssertionError(f"[serve-kernel] B.7 {tag} {what}: kernel != plain "
-                                     f"(max abs err {errs[what]}, max |{what}| {scale})")
-        out["wkv6_scan"]["max_abs_err"] = max(out["wkv6_scan"]["max_abs_err"], errs["y"],
-                                              errs["state"])
-        ms = cuda_ms(lambda: wk.wkv6_scan(r, k, v, w, u, s0), iters=50)
-        plain_ms = cuda_ms(lambda: wkv6_ref(r, k, v, w, u, s0), iters=5, warmup=1)
-        dev_ms = device_ms(lambda: wk.wkv6_scan(r, k, v, w, u, s0), 20,
-                           KERNELS["wkv6_scan"][2])
-        bound, by = wkv6_bound(b, h, t, hd, given)
-        row = dict(case=tag, b=b, h=h, t=t, hd=hd, decay=decay, given_state=given,
-                   tma=tma, **errs, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                   bound_ms=bound, bound_by=by, library_ms=None)
-        out["wkv6_scan"]["rows"].append(row)
-        log("[serve-kernel] " + json.dumps(row))
-        log(f"[serve-kernel] B.7 {tag}: device {1e3 * dev_ms:.2f} us "
-            f"[{WKV6_PREVIOUS_US.get(tag, 'not measured')}], call {1e3 * ms:.2f} us, plain "
-            f"{1e3 * plain_ms:.2f} us, bound {1e3 * bound:.3f} us ({by})")
+        row = _wkv6_case("serve-kernel", randn, gen, tag, b, h, t, hd, decay, given, layout)
+        _add_row(out["wkv6_scan"], row)
     return out
+
+
+def _add_row(rec: dict, row: dict) -> None:
+    rec["max_abs_err"] = max(rec["max_abs_err"], row["max_abs_err"])
+    rec["rows"].append(row)
+
+
+def _flash_case(phase, randn, tag, b, h, kvh, s, hd, window, softcap,
+                require_tma: bool = True) -> dict:
+    """B.6 at one shape on the model's layout (strided (B, S, H, hd) views)
+    against its plain version at SERVE_TOL; its call, device and plain
+    times, its bound, and SDPA's times where SDPA computes the same
+    function (no window, no softcap).  Fails where K/V would be copied by
+    cp.async rather than TMA, unless ``require_tma`` is off (then the row
+    records which)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q = randn(b, s, h, hd).permute(0, 2, 1, 3)
+    k, v = (randn(b, s, kvh, hd).permute(0, 2, 1, 3) for _ in range(2))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    got, want = fk.flash_attention_fwd(q, k, v, **kw), attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=SERVE_TOL, atol=SERVE_TOL):
+        raise AssertionError(f"[{phase}] B.6 {tag}: kernel != plain (max abs err {err})")
+    ms = cuda_ms(lambda: fk.flash_attention_fwd(q, k, v, **kw), iters=50)
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=10, warmup=2)
+    dev_ms = device_ms(lambda: fk.flash_attention_fwd(q, k, v, **kw), 20,
+                       KERNELS["flash_attention_fwd"][2])
+    bound, by, fp32_bound = flash_bound(b, h, kvh, s, s, hd, True, window)
+    row = dict(case=tag, b=b, h=h, kvh=kvh, s=s, hd=hd, window=window, softcap=softcap,
+               max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=by, fp32_bound_ms=fp32_bound, library_ms=None,
+               tma=need_tma(f"[{phase}] B.6 {tag}", k=k, v=v) if require_tma
+               else fk.rows_by_tma(k) and fk.rows_by_tma(v))
+    if window is None and softcap is None:  # the yardstick: one PyTorch call, contiguous
+        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+        backend, label, kf, vf, gqa = sdpa_yardstick(qc, kc, vc)
+
+        def sdpa():
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(qc, kf, vf, is_causal=True,
+                                                      enable_gqa=gqa)
+
+        if not torch.allclose(sdpa(), want, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"[{phase}] SDPA disagrees with the plain version ({tag})")
+        row.update(library_ms=cuda_ms(sdpa, iters=50),
+                   # None: the profiler recorded no device time of SDPA
+                   library_device_ms=window_device_ms(sdpa, 20) or None,
+                   library_backend=label)
+    log(f"[{phase}] " + json.dumps(row))
+    return row
+
+
+def _wkv6_case(phase, randn, gen, tag, b, h, t, hd, decay, given, layout) -> dict:
+    """B.7 at one shape against its plain version (y and the final state)
+    at SERVE_TOL (atol scaled by the largest value); call, device and
+    plain times and the bound."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import kernel as wk
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+
+    if layout == "model":  # the model's (B, T, H, hd) projections
+        def view():
+            return randn(b, t, h, hd).permute(0, 2, 1, 3)
+    else:  # rows of H hd + 1 floats: only the first row is on 16 bytes
+        def view():
+            return randn(b, t, h * hd + 1)[:, :, :h * hd].unflatten(
+                2, (h, hd)).permute(0, 2, 1, 3)
+    r, k, v, w = view(), view(), view(), view()
+    if decay == "random":
+        w.copy_(torch.rand(w.shape, generator=gen, device="cuda"))
+    elif decay == "init":  # exp(-exp(decay_base = -6)): the state hardly decays
+        w.fill_(math.exp(-math.exp(-6.0)))
+    else:  # the state is forgotten at every step
+        w.fill_(1e-6)
+    u = 0.5 * randn(h, hd)
+    s0 = randn(b, h, hd, hd) if given else None
+    tma = all(wk.rows_by_tma(x) for x in (r, k, v, w))
+    if tma != (layout == "model"):
+        raise AssertionError(f"[{phase}] B.7 {tag}: staged by "
+                             f"{'TMA' if tma else 'plain loads'}")
+    (y, st), (y_p, st_p) = wk.wkv6_scan(r, k, v, w, u, s0), wkv6_ref(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    errs = {}
+    for what, got, want in (("y", y, y_p), ("state", st, st_p)):
+        scale = float(want.abs().max())
+        errs[what] = float((got - want).abs().max())
+        errs[what + "_max_abs"] = scale
+        if not torch.allclose(got, want, rtol=SERVE_TOL, atol=SERVE_TOL * scale):
+            raise AssertionError(f"[{phase}] B.7 {tag} {what}: kernel != plain "
+                                 f"(max abs err {errs[what]}, max |{what}| {scale})")
+    ms = cuda_ms(lambda: wk.wkv6_scan(r, k, v, w, u, s0), iters=50)
+    plain_ms = cuda_ms(lambda: wkv6_ref(r, k, v, w, u, s0), iters=5, warmup=1)
+    dev_ms = device_ms(lambda: wk.wkv6_scan(r, k, v, w, u, s0), 20, KERNELS["wkv6_scan"][2])
+    bound, by = wkv6_bound(b, h, t, hd, given)
+    row = dict(case=tag, b=b, h=h, t=t, hd=hd, decay=decay, given_state=given,
+               tma=tma, **errs, max_abs_err=max(errs["y"], errs["state"]), ms=ms,
+               device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
+    log(f"[{phase}] " + json.dumps(row))
+    log(f"[{phase}] B.7 {tag}: device {1e3 * dev_ms:.2f} us "
+        f"[{WKV6_PREVIOUS_US.get(tag, 'not measured')}], call {1e3 * ms:.2f} us, plain "
+        f"{1e3 * plain_ms:.2f} us, bound {1e3 * bound:.3f} us ({by})")
+    return row
 
 
 def _clone(tree):
@@ -2925,13 +2976,20 @@ def window_device_ms(fn, iters: int, windows: int = 3) -> float:
     records over ``iters`` calls (kernels, copies, fills), whatever its
     name: each entry's mean time per launch times its launches per call (its
     count over ``iters``, rounded), so a launch the profiler drops does not
-    shorten the sum.  The median over ``windows`` windows."""
+    shorten the sum.  The median over ``windows`` windows that recorded
+    any device time (seen on the H100: windows of SDPA at batch 1 that
+    recorded none), in at most twice as many tries; 0.0 where none did."""
     per_call = []
-    for _ in range(windows):
+    for _ in range(2 * windows):  # a window the profiler recorded nothing of is taken again
         _, prof = profiled(fn, iters)
-        per_call.append(sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
-                            for e in device_events(prof.key_averages()) if e.count) / 1e3)
-    return sorted(per_call)[windows // 2]
+        ms = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
+                 for e in device_events(prof.key_averages()) if e.count) / 1e3
+        if ms > 0:
+            per_call.append(ms)
+        if len(per_call) == windows:
+            return sorted(per_call)[windows // 2]
+    log(f"[profile] device time recorded in {len(per_call)} of {2 * windows} windows")
+    return sorted(per_call)[len(per_call) // 2] if per_call else 0.0
 
 
 def sdpa_yardstick(q, k, v):
@@ -3500,6 +3558,482 @@ def phase_gossip_update_nodes(spec_cls) -> dict:
     return rec
 
 
+# -- checkpoints (A.10) and the serving engine (A.12) --------------------------
+
+CKPT_SAVE, CKPT_STEPS = 150, 300   # save at step 150 of a 300-step run
+CKPT_LM = (2, 4)                   # qwen2-0.5b layers, nodes of the round-tripped LM state
+ENGINE_ARCH = "qwen2_0_5b"
+ENGINE_ARGS = ("--batch", "4", "--page-size", "8", "--rate", "2.0", "--horizon", "8")
+ENGINE_CUT = 2                     # layers of the card-vs-CPU and the rwkv6/gemma2 runs
+
+
+def _state_leaves(tree, prefix: str = "") -> dict:
+    """Every tensor and host value of a train state (or its metrics), keyed
+    by its path."""
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_state_leaves(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {f"{prefix}#len": len(tree)}
+        for i, v in enumerate(tree):
+            out.update(_state_leaves(v, f"{prefix}[{i}]"))
+        return out
+    return {prefix: tree}
+
+
+def _same_bits(tag: str, got, want) -> int:
+    """Every leaf of ``got`` equal to ``want``'s bit for bit (dtypes and
+    host values too); returns the tensors compared."""
+    import torch
+
+    a, b = _state_leaves(got), _state_leaves(want)
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"[{tag}] leaves differ: {sorted(set(a) ^ set(b))}")
+    n = 0
+    for name, x in b.items():
+        y = a[name]
+        if isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and y.dtype == x.dtype and torch.equal(y, x)):
+                raise AssertionError(f"[{tag}] {name} differs")
+            n += 1
+        elif type(x) is not type(y) or x != y:
+            raise AssertionError(f"[{tag}] {name}: {y!r} != {x!r}")
+    return n
+
+
+def _ckpt_dir(name: str) -> Path:
+    path = ROOT / "build" / "chip_smoke" / "ckpt" / name
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def phase_ckpt(spec_cls, cfg_cls) -> dict:
+    """A.10 on the card: three fmnist stacks of fig7's task (K = 8 ring) run
+    300 steps, saved at step 150 with save_train_state, restored with
+    restore_train_state and continued: the dense wire through the fused
+    B.1 step, the EF int8 gossip wire re-based every 4 under dropout 0.2
+    (hat, hat_mix, ef_rounds) and the memoryless int8 gossip wire under
+    stragglers 0.1.  The restored state equals the saved one and the resumed
+    run the uninterrupted one, every leaf and every metric bit for bit.
+    Then a qwen2-0.5b train state cut to 2 layers at K = 4 (one step of
+    train_lm's stack, its final norm in bfloat16) round-trips bit for bit.
+    Prints the seconds to save and restore and the file's bytes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import restore_train_state, save_train_state
+    from repro_torch.dynamics import (
+        DropoutSchedule,
+        DynamicGossipMixer,
+        FaultConfig,
+        StaticSchedule,
+    )
+    from repro_torch.graphs import build_graph, metropolis_weights
+    from repro_torch.models import make_classifier_loss, make_lm_loss, mlp_apply
+
+    t_phase = time.perf_counter()
+    batches, _, params = _fig_data("mlp", CKPT_STEPS, FIG7_FMNIST[0])
+    first = tuple(b[:CKPT_SAVE] for b in batches)
+    rest = tuple(b[CKPT_SAVE:] for b in batches)
+    w = metropolis_weights(build_graph("ring", FIG_K))
+    stacks = {
+        "dense-none-fused": (lambda: None, "gossip_update_stacked_grouped"),
+        f"gossip-dropout{DROP_P:g}-int8-kernel-ef-B{REBASE_EVERY}": (
+            lambda: DynamicGossipMixer(DropoutSchedule(w, DROP_P, seed=0, device="cuda"),
+                                       quantized=cfg_cls(kind="int8", use_kernel=True),
+                                       ef_rebase_every=REBASE_EVERY),
+            "masked_quantize_blockwise_grouped"),
+        f"gossip-straggler{FIG9_FAULTS['straggler_p']:g}-int8-kernel-memoryless": (
+            lambda: DynamicGossipMixer(
+                StaticSchedule(w, device="cuda"),
+                faults=FaultConfig(straggler_p=FIG9_FAULTS["straggler_p"], seed=0),
+                quantized=cfg_cls(kind="int8", use_kernel=True, error_feedback=False)),
+            "masked_quantize_blockwise_grouped"),
+    }
+    out = {}
+    for name, (make_mixer, kernel) in stacks.items():
+        mixer = make_mixer()
+        spec = _fig_spec(spec_cls, mixer.compression if mixer is not None else "none",
+                         FIG7_FMNIST)
+        trainer = spec.build(make_classifier_loss(mlp_apply), mlp_apply, mixer=mixer)
+        state, _ = trainer.run(trainer.init(params), first)
+        path = _ckpt_dir(name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_train_state(str(path), CKPT_SAVE, state)
+        t_save = time.perf_counter() - t0
+        restored, step = restore_train_state(str(path), device="cuda")
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0 - t_save
+        tensors = _same_bits(f"ckpt {name} restored", restored, state)
+        reset_counts()
+        want, want_ms = trainer.run(state, rest)
+        got, got_ms = trainer.run(restored, rest)
+        counts = kernel_counts()
+        if counts[kernel][0] == 0 or any(c[1] for c in counts.values()):
+            raise AssertionError(f"[ckpt] {name}: {counts}")
+        _same_bits(f"ckpt {name} resumed", got, want)
+        _same_bits(f"ckpt {name} metrics", got_ms, want_ms)
+        _finite(got_ms)
+        comm = got.comm
+        out[name] = dict(saved_at=step, steps=CKPT_STEPS, tensors=tensors,
+                         bytes=json.loads((path / f"step_{CKPT_SAVE:08d}" /
+                                           "manifest.json").read_text())["bytes"],
+                         save_s=t_save, restore_s=t_restore, rounds=comm.rounds,
+                         ef_rounds=comm.ef_rounds if comm.ef_rounds != () else None,
+                         loss_last=float(got_ms["loss_mean"][-1]),
+                         launches_resumed={n: c[0] for n, c in counts.items() if c[0]},
+                         bitwise=True)
+        log("[ckpt] " + json.dumps({"stack": name, **out[name]}))
+
+    layers, nodes = CKPT_LM
+    model = _serve_model(LM_ARCH, layers)
+    trainer = spec_cls(num_nodes=nodes, graph="ring", lr=0.01, grad_clip=1.0,
+                       device="cuda").build(make_lm_loss(model))
+    state = trainer.init(model.init(torch.Generator(device="cuda").manual_seed(0)))
+    tokens = np.random.default_rng(0).integers(0, model.cfg.vocab, (nodes, 2, LM_SEQ + 1))
+    state, _ = trainer.step(state, (tokens,))
+    norm = "final_norm/scale"
+    state = state._replace(params={**state.params, norm: state.params[norm].to(torch.bfloat16)})
+    path = _ckpt_dir("qwen2-2layers")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_train_state(str(path), 1, state)
+    t_save = time.perf_counter() - t0
+    restored, _ = restore_train_state(str(path), device="cuda")
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0 - t_save
+    if restored.params[norm].dtype != torch.bfloat16:
+        raise AssertionError("[ckpt] the bfloat16 leaf came back as "
+                             f"{restored.params[norm].dtype}")
+    out["qwen2-2layers"] = dict(
+        arch=model.cfg.name, n_layers=layers, nodes=nodes, params=model.num_params(),
+        tensors=_same_bits("ckpt qwen2", restored, state), bf16_leaf=norm,
+        bytes=json.loads((path / "step_00000001" / "manifest.json").read_text())["bytes"],
+        save_s=t_save, restore_s=t_restore, bitwise=True)
+    log("[ckpt] " + json.dumps(out["qwen2-2layers"]))
+    del state, restored, trainer
+    shutil.rmtree(ROOT / "build" / "chip_smoke" / "ckpt", ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[ckpt] phase in {out['phase_s']:.1f} s")
+    return out
+
+
+def _attn_layers(cfg) -> tuple[int, int]:
+    """(attn/swa layers, attn/swa entries of the head layers and the group
+    pattern): B.2 launches once per attention layer and decode step, and
+    once per entry and admission (every group's rows in one call)."""
+    layers = sum(blk in ("attn", "swa") for blk, _ in cfg._full_pattern())
+    entries = sum(blk in ("attn", "swa") for blk, _ in cfg.head_layers() + cfg.group_pattern())
+    return layers, entries
+
+
+def _engine_launches(cfg, report, quantized: bool) -> dict:
+    """The kernels one engine run launches: B.6 (B.7) once per attn (rwkv)
+    layer per admission with s0 > 1; B.2 (int8 pools) once per attention
+    layer per decode step and once per attention entry per such admission."""
+    decode_calls = report["decode"]["steady_steps"] + (report["completed"] > 0)
+    prefills = sum(c.s0 > 1 for c in report["completions"])
+    layers, entries = _attn_layers(cfg)
+    rwkv = sum(blk == "rwkv" for blk, _ in cfg._full_pattern())
+    want = {"flash_attention_fwd": layers * prefills, "wkv6_scan": rwkv * prefills}
+    if quantized:
+        want["quantize_blockwise_grouped"] = layers * decode_calls + entries * prefills
+    return {k: v for k, v in want.items() if v}
+
+
+def _logged_engine(model, params, quantized: bool, trace, max_len: int):
+    """A steps-clock engine run (4 slots, 8-token pages) with each decode
+    step's logits kept per request.  Returns (report, {rid: [logits row of
+    each of its decode steps]})."""
+    from repro_torch.serve import ServeEngine
+
+    engine = ServeEngine(model, params, max_batch=4, max_len=max_len, page_size=8,
+                         quantized=quantized)
+    rows: dict = {}
+    step, decode = engine._step, model.paged_decode_step
+    captured = []
+
+    def logged():
+        rids = {int(slot): engine._slot_meta[slot]["req"].rid
+                for slot in engine._active_np.nonzero()[0]}
+        out = step()
+        logits = captured.pop()
+        for slot, rid in rids.items():
+            rows.setdefault(rid, []).append(logits[slot])
+        return out
+
+    def capture(*args, **kw):
+        logits, cache = decode(*args, **kw)
+        captured.append(logits.clone())
+        return logits, cache
+
+    engine._step = logged
+    object.__setattr__(model, "paged_decode_step", capture)
+    try:
+        report = engine.run(trace, clock="steps")
+    finally:
+        object.__delattr__(model, "paged_decode_step")
+    return report, rows
+
+
+def _tokens_of(report) -> dict:
+    return {c.rid: [int(t) for t in c.tokens] for c in report["completions"]}
+
+
+def _near_tie_divergence(tag, rows_a, rows_b, toks_a, toks_b, tol=None) -> dict:
+    """Per request, the decode steps of run b against run a's: equal tokens
+    up to a first divergence, which must fall where a's top-2 logit margin
+    is below ``tol`` (default: twice the largest |b - a| of that row, as
+    both logits of the pair may move by that much).  Returns the largest
+    row error relative to max |a| before any divergence, the steps
+    compared and the divergences (rid, step, margin, bound)."""
+    worst, compared, diverged = 0.0, 0, []
+    for rid, ra in rows_a.items():
+        rb = rows_b[rid]
+        for t, (a, b) in enumerate(zip(ra, rb)):
+            b = b.to(a.device)
+            err = float((b - a).abs().max())
+            top = a.topk(2).values
+            margin = float(top[0] - top[1])
+            compared += 1
+            if toks_a[rid][t] != toks_b[rid][t]:
+                bound = 2 * err if tol is None else tol
+                if not margin < bound:
+                    raise AssertionError(f"[{tag}] rid {rid} step {t}: tokens "
+                                         f"{toks_a[rid][t]} vs {toks_b[rid][t]} with a top-2 "
+                                         f"margin of {margin} >= {bound}")
+                diverged.append((rid, t, margin, bound))
+                break
+            worst = max(worst, err / float(a.abs().max()))
+    return dict(rel_err=worst, steps_compared=compared, divergences=diverged)
+
+
+def _engine_vs_greedy(tag, model, params, report, trace) -> int:
+    """Each request's engine tokens against its isolated greedy generation
+    (prefill of the whole prompt, then decode), equal up to a near tie
+    (SERVE_REL of the prompt's largest logit).  Returns the tokens that
+    agreed before any such tie."""
+    import torch
+
+    prompts = {r.rid: r.prompt for r in trace}
+    device = next(iter(params.values())).device
+    same = 0
+    with torch.inference_mode():
+        for c in report["completions"]:
+            prompt = torch.from_numpy(prompts[c.rid][None].astype("int64")).to(device)
+            first, _, toks, gaps = _generate(model, params, prompt, c.max_new, True)
+            got = torch.from_numpy(c.tokens[None].astype("int64"))
+            same += _same_tokens(tag, got, toks.cpu(), gaps.cpu(),
+                                 SERVE_REL * float(first.abs().max()))
+    return same
+
+
+def _kv_write_case(tag, randn, n: int, d: int, timed: bool) -> dict:
+    """B.2 at a KV write: a layer's k and v rows, (n, d) each, in one
+    grouped launch with u = 0.5, qmax 127 and 128-wide blocks (the pool's
+    layout), through the path's wrapper (``quantize_kv_rows``), bit-equal to
+    the plain version; timed as call, device and plain where ``timed``."""
+    import torch
+
+    from repro_torch.kernels.quant_gossip.kernel import _pick_block
+    from repro_torch.kernels.quant_gossip.ref import quantize_blockwise_grouped_ref
+    from repro_torch.models.attention import KV_SCALE_BLOCK, quantize_kv_rows
+
+    rows = [randn(n, d) * (1.0 + 10.0 * torch.rand(n, 1, device="cuda")) for _ in range(2)]
+    half = [torch.full((n, d), 0.5, device="cuda")] * 2
+
+    def plain():
+        return quantize_blockwise_grouped_ref(rows, half, qmax=127.0, block_d=KV_SCALE_BLOCK)
+
+    got, want = quantize_kv_rows(rows), plain()
+    torch.cuda.synchronize()
+    for (q, s), (q_p, s_p) in zip(got, want):
+        if not (torch.equal(q, q_p) and torch.equal(s, s_p)):
+            raise AssertionError(f"[engine-kernel] B.2 {tag}: kernel != plain")
+    n_blk = d // _pick_block(d, KV_SCALE_BLOCK)
+    row = dict(case=tag, rows=n, d=d, leaves=2, blocks_per_row=n_blk, max_abs_err=0.0,
+               library_ms=None)
+    if timed:
+        bound, by = kernel_bound("quantize_blockwise_grouped", 2 * n, d, n_blk)
+        row.update(ms=cuda_ms(lambda: quantize_kv_rows(rows), iters=200),
+                   device_ms=device_ms(lambda: quantize_kv_rows(rows), 50,
+                                       KERNELS["quantize_blockwise_grouped"][2]),
+                   plain_ms=cuda_ms(plain, iters=50, warmup=5), bound_ms=bound, bound_by=by)
+    log("[engine-kernel] " + json.dumps(row))
+    return row
+
+
+def _engine_kernels() -> dict:
+    """The kernels at the engine's shapes: B.2 at the KV writes (decode: 1
+    to 8 rows of qwen2-0.5b's D = 128 per leaf, the 16-CTA cluster packing
+    at its smallest; admission: 24 layers of a 6- and a 20-token prompt's
+    rows in one call; gemma2's D = 2048, 16 blocks per row), B.6 at the
+    admission prefills (batch 1, S = 5 and 19: one ragged tile; gemma2's hd
+    128 with softcap 50) and B.7 at rwkv6-7b's (batch 1, T = 5 and 19), each
+    against its plain version; the decode and the longer admission timed."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2112)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    out = {"quantize_blockwise_grouped": dict(max_abs_err=0.0, rows=[]),
+           "flash_attention_fwd": dict(max_abs_err=0.0, rows=[]),
+           "wkv6_scan": dict(max_abs_err=0.0, rows=[])}
+    kv = [(f"decode, batch {n}", n, 128, n == 4) for n in range(1, 9)]
+    kv += [("admission, chat: 24 layers x 5 rows", 120, 128, False),
+           ("admission, doc: 24 layers x 19 rows", 456, 128, True),
+           ("gemma2 decode, batch 4, D 2048", 4, 2048, False)]
+    for tag, n, d, timed in kv:
+        _add_row(out["quantize_blockwise_grouped"], _kv_write_case(tag, randn, n, d, timed))
+    for case in (("admission, chat: S 5", 1, 14, 2, 5, 64, None, None),
+                 ("admission, doc: S 19", 1, 14, 2, 19, 64, None, None),
+                 ("gemma2 admission: S 19, hd 128, softcap 50", 1, 32, 16, 19, 128, None, 50.0)):
+        _add_row(out["flash_attention_fwd"],
+                 _flash_case("engine-kernel", randn, *case, require_tma=False))
+    for t in (5, 19):
+        _add_row(out["wkv6_scan"], _wkv6_case("engine-kernel", randn, gen,
+                                               f"rwkv6-7b admission: T {t}", 1, 64, t, 64,
+                                               "random", False, "model"))
+    return out
+
+
+def phase_engine() -> dict:
+    """A.12 on the card.  The main path: the serving CLI's engine (``serve
+    --engine``, the reference's example: qwen2-0.5b at full width and
+    depth, 4 slots, 8-token pages, SMOKE_CLASSES at 2 requests per second
+    for 8 s, the wall clock), float32 and then ``--int8-kv``, its launches
+    counted exactly (_engine_launches) with no plain call; decode ms per
+    step, TTFT and per-token percentiles and peak memory.  Then the same
+    trace on the steps clock: float32 engine tokens equal each request's
+    isolated greedy tokens up to a near tie, and int8 equal to float32 up to
+    a first divergence that falls on a top-2 margin below twice the int8
+    row's logit error.  qwen2-0.5b cut to 2 layers on the card against the
+    CPU (float32 logits within SERVE_PARITY_REL of their largest value).
+    rwkv6-7b (B.7 at admission) and gemma2 (swa and attn pools, softcap; int8
+    too) cut to 2 layers through the engine, launches counted, tokens
+    against isolated greedy."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import SMOKE_CLASSES, poisson_trace
+
+    t_phase = time.perf_counter()
+    out = {"kernels": _engine_kernels()}
+    max_len = max(c.prompt_len + c.gen_max for c in SMOKE_CLASSES)
+
+    def trace(vocab):
+        return poisson_trace(SMOKE_CLASSES, rate=2.0, horizon=8.0, vocab=vocab, seed=0)
+
+    cfg = get_arch(ENGINE_ARCH)
+    for label, flags in (("f32", ()), ("int8", ("--int8-kv",))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        report = serve_cli.main(["--arch", ENGINE_ARCH, "--engine", *ENGINE_ARGS, *flags])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = kernel_counts()
+        check_counts(f"engine {label}", counts, _engine_launches(cfg, report, bool(flags)))
+        if not report["admitted"] or report["completed"] != report["admitted"]:
+            raise AssertionError(f"[engine] {label}: {report['completed']} of "
+                                 f"{report['admitted']} requests completed")
+        dc, lat = report["decode"], report["latency"]
+        rec = dict(arch=cfg.name, n_layers=cfg.n_layers, kv=label, clock="wall",
+                   admitted=report["admitted"], completed=report["completed"],
+                   steps=report["steps"], wall_s=report["wall_s"], run_s=run_s,
+                   decode_ms_per_step=1e3 * dc["steady_s"] / max(1, dc["steady_steps"]),
+                   decode_tok_s=dc["tok_s"], decode_first_call_s=dc["compile_s"],
+                   prefill_tok_s=report["prefill"]["tok_s"],
+                   prefill_first_calls_s=report["prefill"]["compile_s"],
+                   **{k: lat.get(k) for k in ("ttft_p50_s", "ttft_p99_s", "per_token_p50_s",
+                                              "per_token_p99_s", "queued_p50_s")},
+                   per_class={c: d["requests"] for c, d in lat["per_class"].items()},
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches={n: c[0] for n, c in counts.items() if c[0]})
+        out[f"wall-{label}"] = rec
+        log("[engine] " + json.dumps(rec))
+        torch.cuda.empty_cache()
+
+    model = _serve_model(ENGINE_ARCH)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    reqs = trace(model.cfg.vocab)
+    runs = {q: _logged_engine(model, params, q, reqs, max_len) for q in (False, True)}
+    (f32, rows32), (i8, rows8) = runs[False], runs[True]
+    rec = dict(arch=model.cfg.name, clock="steps", requests=len(reqs), steps=f32["steps"],
+               tokens=sum(c.n_tokens for c in f32["completions"]),
+               tokens_equal_isolated_greedy=_engine_vs_greedy("engine", model, params, f32,
+                                                              reqs),
+               int8_vs_f32=_near_tie_divergence("engine int8", rows32, rows8,
+                                                 _tokens_of(f32), _tokens_of(i8)))
+    out["steps-qwen2"] = rec
+    log("[engine] " + json.dumps(rec))
+    del params, runs, rows32, rows8
+    torch.cuda.empty_cache()
+
+    model = _serve_model(ENGINE_ARCH, ENGINE_CUT)
+    params = model.init(torch.Generator().manual_seed(0))
+    reqs = trace(model.cfg.vocab)
+    device_runs = {}
+    for device in ("cuda", "cpu"):
+        reset_counts()
+        p = params if device == "cpu" else {n: t.cuda() for n, t in params.items()}
+        device_runs[device] = _logged_engine(model, p, False, reqs, max_len)
+        counts = kernel_counts()
+        launched, plain = sum(c[0] for c in counts.values()), sum(c[1] for c in counts.values())
+        if (device == "cuda") != (launched > 0) or (device == "cpu") != (plain > 0):
+            raise AssertionError(f"[engine] card vs CPU on {device}: {counts}")
+    (card, rows_card), (cpu, rows_cpu) = device_runs["cuda"], device_runs["cpu"]
+    tol = SERVE_PARITY_REL * max(float(r.abs().max()) for rs in rows_cpu.values() for r in rs)
+    parity = _near_tie_divergence("engine card vs CPU", rows_cpu, rows_card, _tokens_of(cpu),
+                                  _tokens_of(card), tol=tol)
+    if parity["rel_err"] > SERVE_PARITY_REL:
+        raise AssertionError(f"[engine] card vs CPU logits {parity['rel_err']} > "
+                             f"{SERVE_PARITY_REL} of their largest value")
+    out["card-vs-cpu"] = dict(arch=model.cfg.name, n_layers=ENGINE_CUT, **parity)
+    log("[engine] card vs CPU: " + json.dumps(out["card-vs-cpu"]))
+    del device_runs
+
+    for arch, kvs in (("rwkv6_7b", (False,)), ("gemma2_27b", (False, True))):
+        model = _serve_model(arch, ENGINE_CUT)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        reqs = trace(model.cfg.vocab)
+        runs = {}
+        for q in kvs:
+            reset_counts()
+            runs[q] = _logged_engine(model, params, q, reqs, max_len)
+            check_counts(f"engine {arch} {'int8' if q else 'f32'}", kernel_counts(),
+                         _engine_launches(model.cfg, runs[q][0], q))
+        report = runs[False][0]
+        rec = dict(arch=model.cfg.name, n_layers=ENGINE_CUT, requests=len(reqs),
+                   steps=report["steps"],
+                   tokens_equal_isolated_greedy=_engine_vs_greedy(f"engine {arch}", model,
+                                                                  params, report, reqs),
+                   tokens=sum(c.n_tokens for c in report["completions"]),
+                   launches=_engine_launches(model.cfg, report, False))
+        if True in runs:
+            rec["int8_vs_f32"] = _near_tie_divergence(
+                f"engine {arch} int8", runs[False][1], runs[True][1], _tokens_of(report),
+                _tokens_of(runs[True][0]))
+            rec["int8_launches"] = _engine_launches(model.cfg, runs[True][0], True)
+        out[f"cut-{arch}"] = rec
+        log("[engine] " + json.dumps(rec))
+        del params, runs
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[engine] phase in {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3541,6 +4075,7 @@ def main() -> int:
     dyn = phase_dynamics(TrainerSpec, CompressionConfig)
     hub = phase_hub(TrainerSpec, CompressionConfig)
     log(f"[done] dynamics and hub in {time.perf_counter() - t_dyn:.1f} s")
+    phase_ckpt(TrainerSpec, CompressionConfig)
     log(f"[done] paper training phases in {time.perf_counter() - t_start:.1f} s")
     bwd = phase_flash_bwd_kernels()
     lm = phase_train_lm(LM_SEQ, LM_NODES, LM_STEPS, profile=True)
@@ -3553,6 +4088,7 @@ def main() -> int:
     rwkv = phase_serve("rwkv6_7b", 256, 32, "wkv6_scan", profile=False, end_to_end=False)
     phase_serve_parity("qwen2_0_5b", 64)
     phase_serve_parity("rwkv6_7b", 32)
+    engine = phase_engine()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     # launches on each kernel's main path: grouped B.2 the dense int8 fmnist
     # run (and the static EF gossip run), grouped B.3 the static EF gossip
@@ -3596,6 +4132,17 @@ def main() -> int:
         **{kernel: {f"dynamics {name}": launches[kernel] for name, launches in masked_runs.items()}
            for kernel in ("masked_quantize_blockwise_grouped",
                           "masked_dequant_accumulate_grouped_")}}
+    engine_launches = {
+        "quantize_blockwise_grouped": {
+            "serve --engine --int8-kv": engine["wall-int8"]["launches"][
+                "quantize_blockwise_grouped"],
+            "gemma2 2 layers, int8": engine["cut-gemma2_27b"]["int8_launches"][
+                "quantize_blockwise_grouped"]},
+        "flash_attention_fwd": {
+            "serve --engine": engine["wall-f32"]["launches"]["flash_attention_fwd"],
+            "serve --engine --int8-kv": engine["wall-int8"]["launches"]["flash_attention_fwd"],
+            "gemma2 2 layers": engine["cut-gemma2_27b"]["launches"]["flash_attention_fwd"]},
+        "wkv6_scan": {"rwkv6-7b 2 layers": engine["cut-rwkv6_7b"]["launches"]["wkv6_scan"]}}
     lines = []
     for name, (source, replaces, _) in KERNELS.items():
         if name in ("gossip_update", "gossip_update_stacked"):
@@ -3650,6 +4197,16 @@ def main() -> int:
             timing["launches_other_runs"] = other_runs[name]
         if name in new_path_timing:  # one call at a new path's shapes (K = 8)
             timing["new_path"] = new_path_timing[name]
+        if name in engine["kernels"]:
+            # the engine's shapes: B.2 at the KV writes (k and v of a layer in
+            # one launch), B.6 / B.7 at the admission prefills; launches of
+            # the engine's runs (the CLI's int8 run for B.2)
+            rows = engine["kernels"][name]["rows"]
+            timing["engine"] = dict(
+                max_abs_err=engine["kernels"][name]["max_abs_err"],
+                rows=[r for r in rows if "ms" in r],
+                cases_held=len(rows),
+                launches=engine_launches[name])
         if name == "quantize_blockwise_grouped":
             # qmax a 0-d tensor on the card (a schedule's rate): its launches on
             # the scheduled kernel stacks, and its call on the MLP's leaves

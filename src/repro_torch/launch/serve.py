@@ -1,20 +1,29 @@
-"""Serving CLI: static-batch generation on one GPU (the port of the static
-path of ``repro.launch.serve``).
+"""Serving CLI on one GPU: static-batch generation or the
+continuous-batching engine (the port of ``repro.launch.serve``).
 
-:func:`timed_generate` runs one prompt batch through ``prefill`` (B.6 on
-every attn/swa layer, B.7 on every rwkv layer) and then decodes, sampling
-from the previous logits each step, with honest throughput numbers: the
-first call and steady state are reported apart, prefill and decode each get
-their own tok/s, and prompt tokens are never counted as generated.  Weights
-come from the port's own seeded init on the device.  The engine
-(``--engine``, ``--page-size``, ``--int8-kv``) comes with ROADMAP A.12, and
-``--log-dir`` with the telemetry of A.13; each raises.
+* default: :func:`timed_generate` runs one prompt batch through
+  ``prefill`` (B.6 on every attn/swa layer, B.7 on every rwkv layer) and
+  then decodes, sampling from the previous logits each step, with honest
+  throughput numbers: the first call and steady state are reported apart,
+  prefill and decode each get their own tok/s, and prompt tokens are never
+  counted as generated.
+* ``--engine``: a :class:`repro_torch.serve.ServeEngine` over an open-loop
+  Poisson trace of ``SMOKE_CLASSES`` (``--rate`` requests per clock unit
+  until ``--horizon``), ``--batch`` slots over a paged KV pool of
+  ``--page-size`` tokens per page, int8 with ``--int8-kv`` (B.2 writes
+  every KV row on the card).  The clock is decode steps with ``--smoke``,
+  wall seconds otherwise, as in the reference.
+
+Weights come from the port's own seeded init on the device.  ``--log-dir``
+(the telemetry of ROADMAP A.13) raises.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
       --batch 4 --prompt-len 512 --gen-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
+      --engine --int8-kv --rate 2.0 --horizon 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_7b --smoke \
-      --device cpu
+      --engine --device cpu
 """
 
 from __future__ import annotations
@@ -114,6 +123,35 @@ def _run_static(args, model, params, cfg, device) -> None:
     print("sample:", out[0][:16].cpu().numpy())
 
 
+def _run_engine(args, model, params, cfg) -> dict:
+    from repro_torch.serve import SMOKE_CLASSES, ServeEngine, poisson_trace
+
+    # the context bound comes from the traffic classes' worst case, not --prompt-len
+    max_len = max(c.prompt_len + c.gen_max for c in SMOKE_CLASSES)
+    engine = ServeEngine(model, params, max_batch=args.batch, max_len=max_len,
+                         page_size=args.page_size, quantized=args.int8_kv, seed=args.seed,
+                         log_every=args.log_every)
+    trace = poisson_trace(SMOKE_CLASSES, rate=args.rate, horizon=args.horizon, vocab=cfg.vocab,
+                          seed=args.seed)
+    report = engine.run(trace, clock="steps" if args.smoke else "wall")
+    dc = report["decode"]
+    print(f"engine: {report['completed']}/{report['admitted']} requests, "
+          f"{report['steps']} steps in {report['wall_s']:.2f}s")
+    print(f"decode: first call +{dc['compile_s']:.2f}s, steady {dc['steady_s']:.3f}s -> "
+          f"{dc['tok_s']:.1f} tok/s ({dc['steady_tokens']} tok)")
+    lat = report["latency"]
+    if lat["requests"]:
+        line = f"latency: ttft p50 {lat['ttft_p50_s']:.3f}s p99 {lat['ttft_p99_s']:.3f}s"
+        if "per_token_p50_s" in lat:
+            line += (f", per-token p50 {lat['per_token_p50_s'] * 1e3:.1f}ms "
+                     f"p99 {lat['per_token_p99_s'] * 1e3:.1f}ms")
+        print(line)
+        for cls, d in lat["per_class"].items():
+            print(f"  class {cls}: {d['requests']} req, "
+                  f"ttft p50 {d['ttft_p50_s']:.3f}s p99 {d['ttft_p99_s']:.3f}s")
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -127,25 +165,29 @@ def main(argv=None):
     ap.add_argument("--no-prefill", action="store_true",
                     help="force the token-by-token decode-path prompt loop")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--engine", action="store_true", help="not ported (ROADMAP A.12)")
-    ap.add_argument("--int8-kv", action="store_true", help="not ported (ROADMAP A.12)")
-    ap.add_argument("--page-size", type=int, default=None, help="not ported (ROADMAP A.12)")
+    ap.add_argument("--engine", action="store_true",
+                    help="continuous-batching engine over a Poisson trace")
+    ap.add_argument("--rate", type=float, default=1.0,
+                    help="engine: arrivals per clock unit")
+    ap.add_argument("--horizon", type=float, default=16.0,
+                    help="engine: trace length in clock units")
+    ap.add_argument("--page-size", type=int, default=8)
+    ap.add_argument("--int8-kv", action="store_true")
+    ap.add_argument("--log-every", type=int, default=16)
     ap.add_argument("--log-dir", default=None, help="not ported (ROADMAP A.13)")
     args = ap.parse_args(argv)
-    for flag, on, item in (("--engine", args.engine, "A.12"),
-                           ("--int8-kv", args.int8_kv, "A.12"),
-                           ("--page-size", args.page_size is not None, "A.12"),
-                           ("--log-dir", args.log_dir is not None, "A.13")):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
+    if args.log_dir is not None:
+        raise NotImplementedError("--log-dir is not ported yet (ROADMAP A.13)")
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch, smoke=args.smoke)
     model = TransformerLM(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     print(f"serving {cfg.name}: {model.num_params():,} params, batch={args.batch} "
-          f"on {device}")
-    _run_static(args, model, params, cfg, device)
+          f"engine={args.engine} on {device}")
+    if args.engine:
+        return _run_engine(args, model, params, cfg)
+    return _run_static(args, model, params, cfg, device)
 
 
 if __name__ == "__main__":

@@ -26,8 +26,11 @@ gradient too); ``--topology hub`` is the federated server average (FedAvg
 with ``--local-updates``, SCAFFOLD with ``--gradient-tracking``);
 ``--mix-every N`` mixes every N-th step only.
 
-Weights come from the port's own seeded init.  ``--ckpt-dir`` (ROADMAP
-A.10), ``--log-dir`` and ``--profile`` (A.13) raise as not ported.
+Weights come from the port's own seeded init.  ``--ckpt-dir DIR`` saves
+the full final state (parameters and ``CommState``) with
+``repro_torch.checkpoint.save_train_state`` at ``DIR/step_<steps>``;
+``restore_train_state(DIR, device=...)`` reads it back.  ``--log-dir``
+and ``--profile`` (ROADMAP A.13) raise as not ported.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --paper fmnist
@@ -43,7 +46,7 @@ Examples:
       --topology hub --local-updates 4 --gradient-tracking
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --smoke \
-      --steps 3 --nodes 4 --device cpu
+      --steps 3 --nodes 4 --device cpu --ckpt-dir /tmp/ckpt
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import save_train_state
 from repro_torch.configs import cifar_default, fmnist_default, get_arch
 from repro_torch.core import TrainerSpec, run_segments
 from repro_torch.data import (
@@ -74,8 +78,7 @@ from repro_torch.models import (
 )
 
 # flag -> (its attribute, the slice that ports it)
-_UNPORTED = {"--ckpt-dir": ("ckpt_dir", "the checkpoint slice (ROADMAP A.10)"),
-             "--log-dir": ("log_dir", "the tooling slice (ROADMAP A.13)"),
+_UNPORTED = {"--log-dir": ("log_dir", "the tooling slice (ROADMAP A.13)"),
              "--profile": ("profile", "the tooling slice (ROADMAP A.13)")}
 _TRAIN_FIELDS = ("loss_mean", "loss_worst", "robust_objective", "comm_bytes", "disagreement")
 
@@ -125,6 +128,7 @@ def train_lm(args):
     t0 = time.perf_counter()
     state = run_segments(trainer, trainer.init(params), sample_batch, steps, args.log_every,
                          on_segment)
+    _save(args, steps, state)
     return trainer, state, history
 
 
@@ -161,8 +165,17 @@ def train_paper(args):
             disagreement=float(ms["disagreement"][-1]),
             **{k: v for k, v in stats.items() if k != "acc_nodes"})), flush=True)
 
-    return run_segments(trainer, state, lambda step: fed.sample_batch(rng, bsz),
-                        steps, args.log_every, on_segment)
+    state = run_segments(trainer, state, lambda step: fed.sample_batch(rng, bsz),
+                         steps, args.log_every, on_segment)
+    _save(args, steps, state)
+    return state
+
+
+def _save(args, steps: int, state) -> None:
+    """The full final state, CommState included, under ``--ckpt-dir``."""
+    if args.ckpt_dir:
+        save_train_state(args.ckpt_dir, steps, state)
+        print(f"checkpoint saved to {args.ckpt_dir}", flush=True)
 
 
 def main(argv=None):
@@ -176,7 +189,8 @@ def main(argv=None):
     ap.add_argument("--batch-per-node", type=int, default=None)
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--log-every", type=int, default=10)
-    ap.add_argument("--ckpt-dir", default=None, help="not ported yet")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="save the final train state (parameters and CommState) here")
     ap.add_argument("--log-dir", default=None, help="not ported yet")
     ap.add_argument("--profile", action="store_true", help="not ported yet")
     TrainerSpec.add_cli_args(ap)

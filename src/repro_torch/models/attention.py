@@ -16,16 +16,29 @@ Supports grouped KV heads, RoPE, optional QKV bias (qwen2), sliding-window
 masking (h2o-danube, gemma2 local layers), attention-score soft-capping
 (gemma2), and ring-buffer KV caches for decode.  ``attention_decode``
 writes the new token's K/V into the cache in place (one token per layer
-and step, no copy of the cache).  The paged KV pool (``init_paged_kv``,
-``paged_kv_write``/``gather``, ``paged_attention_decode``) comes with the
-engine slice (ROADMAP A.12).
+and step, no copy of the cache).
+
+The paged KV pool of the serving engine (``init_paged_kv``,
+``paged_kv_write``/``gather``, ``paged_attention_decode``): one layer's KV
+in a shared pool of fixed-size pages ``(num_pages, page_size, kvh, hd)``,
+addressed through a per-slot block table ``(B, n_blocks)``: logical ring
+position ``s`` of slot ``i`` lives at ``pool[table[i, s // page_size], s %
+page_size]``.  Pools are written in place.  A quantized pool keeps int8
+payloads with per-(token, block) float32 scales, the quant_gossip wire's
+blockwise-absmax layout, written by its quantizer (B.2, one launch for a
+layer's k and v rows on the card) with u = 0.5, i.e. round to nearest: a
+KV write is deterministic.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.quant_gossip import ops as qops
+from repro_torch.kernels.quant_gossip.kernel import num_blocks
 from repro_torch.models import params as pr
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import apply_rope
@@ -156,3 +169,141 @@ def attention_decode(p, x, cfg: ArchConfig, *, kind: str, cache, pos: int):
     out = torch.einsum("bkgqs,bskh->bqkgh", att, cache["v"].float())
     out = out.reshape(b, 1, h, hd).to(x.dtype)
     return _out_proj(p, out), cache
+
+
+# -- the paged KV pool (repro_torch.serve) --------------------------------------
+
+#: feature-dim block one float32 scale covers in a quantized pool (the
+#: reference's layout: 128 lanes, or all of D where 128 does not divide it)
+KV_SCALE_BLOCK = 128
+
+
+def paged_kv_len(cfg: ArchConfig, kind: str, max_len: int) -> int:
+    """Logical ring length of a paged layer (sliding window caps "swa")."""
+    t = max_len
+    if kind == "swa" and cfg.sliding_window is not None:
+        t = min(t, cfg.sliding_window)
+    return t
+
+
+def kv_scale_blocks(cfg: ArchConfig, scale_block: int = KV_SCALE_BLOCK) -> int:
+    """Scales per token a quantized pool stores (the quantizer's layout)."""
+    return num_blocks(cfg.n_kv_heads * cfg.resolved_head_dim, scale_block)
+
+
+def init_paged_kv(cfg: ArchConfig, num_pages: int, page_size: int, *, quantized: bool,
+                  device, scale_block: int = KV_SCALE_BLOCK) -> dict:
+    """Zeroed page pool of one attention layer (page 0 is the trash page)."""
+    shape = (num_pages, page_size, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if not quantized:
+        return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+    scales = (num_pages, page_size, kv_scale_blocks(cfg, scale_block))
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(scales, dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(scales, dtype=torch.float32, device=device)}
+
+
+@functools.lru_cache(maxsize=64)
+def _half(n: int, d: int, device: torch.device) -> torch.Tensor:
+    """The rounding offset u = 0.5 of an (n, d) KV write, made once per
+    shape (an ordinary tensor, usable in and out of inference mode)."""
+    with torch.inference_mode(False):
+        return torch.full((n, d), 0.5, dtype=torch.float32, device=device)
+
+
+def quantize_kv_rows(rows, *, scale_block: int = KV_SCALE_BLOCK):
+    """[(N, D) rows of one N] -> [(q int8 (N, D), scales f32 (N, D/block))],
+    round to nearest.
+
+    The quant_gossip blockwise quantizer with u = 0.5 and qmax 127, so
+    ``q = clip(floor(x / scale + 0.5), ±127)`` with ``scale = absmax/127``
+    per (row, block).  Every list element goes through one grouped call:
+    one B.2 launch on the card for a layer's k and v (the reference
+    quantizes one (N, D) array per call).
+    """
+    rows = [r.float().contiguous() for r in rows]
+    n, d = rows[0].shape
+    half = _half(n, d, rows[0].device)
+    return qops.quantize_blockwise_grouped(rows, [half] * len(rows), qmax=127.0,
+                                           block_d=scale_block)
+
+
+def paged_kv_write(pool: dict, k, v, page_ids, offsets, *,
+                   scale_block: int = KV_SCALE_BLOCK) -> dict:
+    """Scatter one new token per slot into ``pool``, in place.
+
+    k, v: (B, kvh, hd); page_ids, offsets: (B,) int64 (inactive slots point
+    at the trash page 0; which of their duplicate writes lands is
+    unspecified, and those rows are never read).  Returns ``pool``.
+    """
+    b, kvh, hd = k.shape
+    if "k_scale" not in pool:
+        pool["k"][page_ids, offsets] = k.to(pool["k"].dtype)
+        pool["v"][page_ids, offsets] = v.to(pool["v"].dtype)
+        return pool
+    (qk, sk), (qv, sv) = quantize_kv_rows([k.reshape(b, kvh * hd), v.reshape(b, kvh * hd)],
+                                          scale_block=scale_block)
+    pool["k"][page_ids, offsets] = qk.reshape(b, kvh, hd)
+    pool["v"][page_ids, offsets] = qv.reshape(b, kvh, hd)
+    pool["k_scale"][page_ids, offsets] = sk
+    pool["v_scale"][page_ids, offsets] = sv
+    return pool
+
+
+def paged_kv_gather(pool: dict, table, t: int, out_dtype):
+    """Read (k, v) (B, t, kvh, hd) through the block table, dequantizing.
+
+    ``table`` (B, n_blocks) with n_blocks * page_size >= t.  Unwritten
+    logical slots come back as whatever the page holds: callers mask
+    validity by position exactly as the contiguous decode path does.
+    """
+    ps, kvh, hd = pool["k"].shape[1:]
+    d = kvh * hd
+
+    def one(name):
+        g = pool[name][table]                       # (B, NB, ps, kvh, hd)
+        b, nb = g.shape[:2]
+        g = g.reshape(b, nb * ps, kvh, hd)[:, :t]
+        if name + "_scale" not in pool:
+            return g.to(out_dtype)
+        s = pool[name + "_scale"][table].reshape(b, nb * ps, -1)[:, :t]
+        full = g.float().reshape(b, t, d) * s.repeat_interleave(d // s.shape[-1], dim=-1)
+        return full.reshape(b, t, kvh, hd).to(out_dtype)
+
+    return one("k"), one("v")
+
+
+def paged_attention_decode(p, x, cfg: ArchConfig, *, kind: str, pool: dict, table, pos,
+                           max_len: int, scale_block: int = KV_SCALE_BLOCK):
+    """Single-token decode against a paged pool, one position per slot.
+
+    x: (B, 1, D); pos: (B,) int64 on x's device (each serving slot at its
+    own position, ring slot ``pos % t``); pool: one layer's page pool,
+    written in place; table: (B, n_blocks).  Returns (out (B, 1, D),
+    pool).  The math of :func:`attention_decode`: with a float32 pool and
+    lockstep positions the logits are bit-equal.
+    """
+    b = x.shape[0]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    t = paged_kv_len(cfg, kind, max_len)
+    ps = pool["k"].shape[1]
+    q, k, v = _project_qkv(p, x, cfg, pos[:, None])
+
+    slot = pos % t  # ring position, exactly as the contiguous cache
+    page_ids = table.gather(1, (slot // ps)[:, None])[:, 0]
+    paged_kv_write(pool, k[:, 0], v[:, 0], page_ids, slot % ps, scale_block=scale_block)
+    ck, cv = paged_kv_gather(pool, table, t, pool["k"].dtype
+                             if "k_scale" not in pool else cfg.compute_dtype)
+
+    idx = torch.arange(t, device=x.device)
+    valid = (idx[None, :] <= pos[:, None]) | (pos[:, None] >= t)  # (B, t)
+    scale = 1.0 / (hd ** 0.5)
+    qh = q.reshape(b, 1, kvh, h // kvh, hd)
+    sc = _scores(qh, ck, scale, cfg.attn_softcap)             # (B,KV,G,1,T)
+    sc = torch.where(valid[:, None, None, None, :], sc, torch.full_like(sc, MASKED))
+    att = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", att, cv.float())
+    out = out.reshape(b, 1, h, hd).to(x.dtype)
+    return _out_proj(p, out), pool

@@ -10,6 +10,9 @@ with the dense GLU FFN or none, over token inputs:
   loss(params, batch)                  — training objective (mean CE)
   prefill(params, batch)               — whole prompt -> (last logits, caches)
   decode_step(params, tok, pos, cache) — one token against the cache
+  paged_decode_step(params, tok, pos, cache, tables, max_len=...)
+                                       — one token per serving slot against
+                                         the paged pools (the engine's step)
   logits_all(params, batch)            — every position's logits (eval)
 
 The full-sequence forward's attention is one launch of the flash-attention
@@ -26,7 +29,7 @@ node-stacked loss the decentralized trainer takes.
 Parameters are the port's flat dict (``"groups/l0/mix/wq"``, with the
 groups' leading axis as in the reference).  ``moe`` FFNs, ``mamba`` blocks
 and the stub frontends raise at construction: they come with later slices
-(ROADMAP A.11); the paged cache comes with A.12.
+(ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ from repro_torch.models.attention import (
     attention_decode,
     attention_forward,
     init_kv_cache,
+    init_paged_kv,
+    paged_attention_decode,
 )
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
@@ -182,11 +187,18 @@ class TransformerLM:
             new_cache = st if want_cache else None
         return self._ffn(p, x + out, ffn), new_cache
 
-    def _apply_layer_decode(self, p, x, blk, ffn, pos, cache):
+    def _apply_layer_decode(self, p, x, blk, ffn, pos, cache, *, tables=None, max_len=None):
+        """One decode layer.  ``tables`` switches attn/swa layers onto the
+        paged read/write path (``pos`` is then per-slot (B,) instead of an
+        int); recurrent layers are per-slot rows either way."""
         cfg = self.cfg
         h = rmsnorm(subtree(p, "norm1"), x, cfg.rmsnorm_eps)
         mix = subtree(p, "mix")
-        if blk in ("attn", "swa"):
+        if blk in ("attn", "swa") and tables is not None:
+            out, new_cache = paged_attention_decode(mix, h, cfg, kind=blk, pool=cache,
+                                                    table=tables[blk], pos=pos,
+                                                    max_len=max_len)
+        elif blk in ("attn", "swa"):
             out, new_cache = attention_decode(mix, h, cfg, kind=blk, cache=cache, pos=pos)
         else:  # rwkv
             out, new_cache = rwkv_decode(mix, h, cfg, cache)
@@ -237,20 +249,35 @@ class TransformerLM:
         x, caches = self._forward(params, batch, True)
         return _logits(x[:, -1], self._unembed_table(params), self.cfg.logit_softcap), caches
 
-    def init_cache(self, batch: int, seq_len: int, device) -> dict:
-        """Zeroed decode cache for (batch, seq_len) context on ``device``."""
+    def _caches(self, attention_cache, batch: int, device) -> dict:
+        """The decode cache tree: ``attention_cache(blk)`` for each attn/swa
+        layer, a (batch, ...) recurrent state for each rwkv layer; group
+        entries stacked on a leading group axis."""
         cfg = self.cfg
 
         def layer_cache(blk, lead=()):
-            if blk in ("attn", "swa"):
-                c = init_kv_cache(cfg, batch, seq_len, blk, device)
-            else:
-                c = rwkv_init_state(cfg, batch, device)
+            c = attention_cache(blk) if blk in ("attn", "swa") \
+                else rwkv_init_state(cfg, batch, device)
             return {k: v.expand(lead + v.shape).contiguous() for k, v in c.items()}
 
         return {"head": [layer_cache(blk) for blk, _ in cfg.head_layers()],
                 "groups": {f"l{i}": layer_cache(blk, (cfg.n_groups,))
                            for i, (blk, _) in enumerate(cfg.group_pattern())}}
+
+    def init_cache(self, batch: int, seq_len: int, device) -> dict:
+        """Zeroed decode cache for (batch, seq_len) context on ``device``."""
+        return self._caches(lambda blk: init_kv_cache(self.cfg, batch, seq_len, blk, device),
+                            batch, device)
+
+    def init_paged_cache(self, batch: int, num_pages: dict, page_size: int, *,
+                         quantized: bool, device) -> dict:
+        """Paged decode cache on ``device``: attn/swa layers become shared
+        page pools (``num_pages`` per layer, keyed by block kind), recurrent
+        layers stay per-slot (batch, ...) rows; the structure of
+        :meth:`init_cache`."""
+        return self._caches(lambda blk: init_paged_kv(self.cfg, num_pages[blk], page_size,
+                                                      quantized=quantized, device=device),
+                            batch, device)
 
     def decode_step(self, params, token, pos: int, cache):
         """One decode step. token: (B, 1) int; pos: int.
@@ -258,12 +285,26 @@ class TransformerLM:
         Updates ``cache`` in place (the new token's K/V slot, the recurrent
         states) and returns (logits (B, vocab), cache).
         """
+        return self._decode_common(params, token, pos, cache)
+
+    def paged_decode_step(self, params, token, pos, cache, tables, *, max_len: int):
+        """One decode step against a paged cache (:meth:`init_paged_cache`).
+
+        token: (B, 1) int; pos: (B,) int64 per-slot positions on the
+        device; tables: {kind: (B, n_blocks) int64} block tables.
+        ``max_len`` is the logical ring length of full-attention layers.
+        Updates ``cache`` in place; returns (logits (B, vocab), cache).
+        """
+        return self._decode_common(params, token, pos, cache, tables=tables, max_len=max_len)
+
+    def _decode_common(self, params, token, pos, cache, tables=None, max_len=None):
         cfg = self.cfg
         x = self._input_embed(params, {"tokens": token})
         for blk, ffn, p, (where, name, g) in self._layers(params):
             stored = cache["head"][name] if where == "head" else cache["groups"][name]
             layer = stored if g is None else {k: v[g] for k, v in stored.items()}
-            x, new = self._apply_layer_decode(p, x, blk, ffn, pos, layer)
+            x, new = self._apply_layer_decode(p, x, blk, ffn, pos, layer, tables=tables,
+                                              max_len=max_len)
             for k, v in new.items():
                 if v is not layer[k]:  # attention wrote its slot in place already
                     layer[k].copy_(v)

@@ -276,12 +276,14 @@ def test_spec_builds_the_paper_trainer():
 
 @pytest.mark.parametrize("argv", [["--sanitize"], ["--log-dir", "x"],
                                   ["--profile"],
-                                  ["--arch", "qwen2_0_5b", "--ckpt-dir", "x"],
-                                  ["--ckpt-dir", "x"], ["--sanitize", "--topology", "hub"]])
+                                  ["--arch", "qwen2_0_5b", "--ckpt-dir", "x", "--profile"],
+                                  ["--ckpt-dir", "x", "--log-dir", "y"],
+                                  ["--sanitize", "--topology", "hub"]])
 def test_cli_unported_flags_raise(argv):
-    """The flags still unported raise; the dynamics flags that raised here
-    before are held by tests/test_torch_local.py, test_torch_faults.py and
-    test_torch_hub.py."""
+    """The flags still unported raise, beside a ported one too; the
+    dynamics flags that raised here before are held by
+    tests/test_torch_local.py, test_torch_faults.py and test_torch_hub.py,
+    and ``--ckpt-dir`` by tests/test_torch_checkpoint.py."""
     from repro_torch.launch import train
 
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -360,15 +362,17 @@ def test_entry_points_raise_without_cuda():
 
 def test_port_imports_neither_jax_nor_repro():
     """Import every repro_torch module and chip_smoke.py (which runs nothing
-    on import) in a fresh interpreter: neither jax nor repro may load.  The
-    serving slice's modules must be among them."""
+    on import) in a fresh interpreter: neither jax nor repro may load, nor
+    ml_dtypes or msgpack (the checkpoints carry their own codec).  The
+    serving and checkpoint modules must be among them."""
     serving = [f"repro_torch.{m}" for m in (
         "kernels._build", "kernels.flash_attention.kernel", "kernels.flash_attention.ops",
         "kernels.flash_attention.ref", "kernels.rwkv6_scan.kernel", "kernels.rwkv6_scan.ops",
         "kernels.rwkv6_scan.ref", "models.config", "models.params", "models.layers",
         "models.attention", "models.ssm", "models.transformer", "configs.base",
         "configs.qwen2_0_5b", "configs.rwkv6_7b", "serve.sampling", "serve.prefill",
-        "launch.serve")]
+        "launch.serve", "serve.engine", "serve.pool", "serve.scheduler", "serve.traffic",
+        "obs.report", "checkpoint.io", "checkpoint._msgpack")]
     script = f"""
 import importlib, importlib.util, pkgutil, sys
 import repro_torch
@@ -378,7 +382,7 @@ spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / "chip_sm
 importlib.util.module_from_spec(spec)
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes", "msgpack"))
 print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
 assert not bad, bad
 missing = [m for m in {serving!r} if m not in sys.modules]
