@@ -4,14 +4,15 @@
 
 Drives the port's main paths — the paper's DR-DSGD trainer (Algorithm 2)
 over the dense lowering, and over the gossip lowering on a static and a
-time-varying topology, checkpointed and resumed, decentralized LM training,
-static-batch LM serving (prefill, then greedy decode) and the
-continuous-batching engine over a paged float32 or int8 KV pool — on the
-card through their user entry points, and holds every CUDA kernel of those
-paths against its plain PyTorch version:
+time-varying topology, checkpointed and resumed, decentralized LM training
+(attention and RWKV), static-batch LM serving (prefill, then greedy decode),
+the continuous-batching engine over a paged float32 or int8 KV pool, and
+the port's four examples — on the card through their user entry points,
+and holds every CUDA kernel of those paths against its plain PyTorch
+version:
 
   build    nvcc-compiles every kernel source under src/ (one nvcc per
-           source, all five started together), and proves from cuobjdump's
+           source, all six started together), and proves from cuobjdump's
            SASS that each of B.6's product kernels, at every head dim, runs
            TF32 tensor-core instructions (HMMA/HGMMA .TF32).
   kernel   the four quant_gossip kernels against their plain versions at
@@ -177,9 +178,27 @@ paths against its plain PyTorch version:
            and every leaf within TRAIN_PARITY_REL, updates within
            UPDATE_REL; one fused step (B.1) against the unfused step from
            the same state on the card.
+  train-rwkv  B.7 forward and its backward kernel at rwkv6-7b's training
+           shape (B 2, H 64, T 64, hd 64), at hd 16, with w = 1e-6 and the
+           init's decay from a given state with the final state's cotangent
+           (WKV6_TRAIN_CASES): the forward against its plain version at
+           SERVE_TOL, the backward against its plain version (an explicit
+           reverse loop) and against autograd of the plain forward on the
+           card, each gradient within WKV_BWD_REL of its largest |value|, two
+           backward calls equal bit for bit; timed.  Then ``train --arch
+           rwkv6_7b --smoke`` (3 steps), rwkv6-7b at full width cut to 2
+           layers at K = 4 (batch 2, seq 64, 10 steps: B.7 forward and
+           backward 2 x 4 per step, grouped B.1 twice per step over the 23
+           leaves, exact; the first batch's loss lower after the run; ms per
+           step, peak memory, one profiled step's busy share) and cut to 1
+           layer at K = 2 on the card against the CPU (5 steps, as
+           train-parity: losses and every leaf within TRAIN_PARITY_REL;
+           every entry's update within RWKV_UPDATE_REL of the largest
+           update, or within UPDATE_ULPS ulps of its own value).
   serve-kernel  flash attention (B.6) at qwen2-0.5b's prefill and training
            shapes, at hd 80 and 128 with windows 4096 and 64 and gemma2's
-           softcap 50, at G = 1 and at a ragged S = 300; the WKV6 scan (B.7)
+           softcap 50, at G = 1, at a ragged S = 300 and at the LM example's
+           hd 32 (HD32_CASE; bwd-kernel too); the WKV6 scan (B.7)
            at rwkv6-7b's shapes (random and init decays), at T = 100, at T =
            1 from a given state, at hd 16, with w = 1e-6 and on rows off 16
            bytes (plain loads, not TMA; WKV6_CASES), y and the final state;
@@ -222,6 +241,14 @@ paths against its plain PyTorch version:
            is below twice the row's measured logit error; 2 layers card vs
            CPU at SERVE_PARITY_REL; rwkv6-7b and gemma2 (int8 too) at 2
            layers, launches counted, tokens against isolated greedy.
+  examples the port's four examples through their main(argv) at their
+           defaults with cut steps: examples/torch_quickstart.py (100
+           steps) and torch_decentralized_fmnist.py (T = 100, both runs)
+           through grouped B.1, torch_train_lm_drdsgd.py (5 steps at K = 8,
+           batch 4, seq 128, head dim 32: B.6 forward and backward on every
+           layer of every node; then --full-width, 2 steps, peak memory),
+           torch_serve_decode.py (rwkv6 smoke: B.7 at the static batch's
+           prefill and each admission); exact launches, wall time each.
 
 TF32 is off for matmul and cuDNN throughout, so float32 means float32.
 Weights come from the port's own seeded init, written to and read back
@@ -235,6 +262,7 @@ line before that the kernels record.
 
 from __future__ import annotations
 
+import gc
 import importlib.util
 import json
 import math
@@ -319,6 +347,9 @@ KERNELS = {
     "flash_attention_bwd": (SRC + "flash_attention/csrc/flash_bwd.cu",
                             TPU + "flash_attention/kernel.py:100",
                             ("bwd_mma_kernel", "bwd_reduce_kernel")),
+    # the backward of B.7: the reference differentiates its XLA scan
+    "wkv6_bwd": (SRC + "rwkv6_scan/csrc/wkv6_bwd.cu", TPU + "rwkv6_scan/kernel.py:65",
+                 ("wkv6_bwd_kernel", "wkv6_du_kernel")),
 }
 QUANT = tuple(KERNELS)[:8]   # the quant_gossip wrappers
 GROUPED = QUANT[4:]
@@ -490,8 +521,9 @@ def _counters() -> dict:
     out["gossip_update_stacked"] = (gk.gossip_update_stacked, gops.gossip_update_stacked)
     out["gossip_update_stacked_grouped"] = (gk.gossip_update_stacked_grouped,
                                             gops.gossip_update_stacked_grouped)
-    # B.6's dispatcher counts the plain version's calls of both directions
+    # B.6's and B.7's dispatchers count the plain version's calls of both directions
     out["flash_attention_bwd"] = (fk.flash_attention_bwd, fops.flash_attention)
+    out["wkv6_bwd"] = (wk.wkv6_bwd, wops.wkv6)
     return out
 
 
@@ -2469,6 +2501,10 @@ def wkv6_bound(b, h, t, hd, given_state: bool = False) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# B.6 at the LM example's shape (examples/torch_train_lm_drdsgd.py's
+# defaults: batch 4, seq 128, d_model 256 over 8 heads of 32, 2 KV heads)
+HD32_CASE = "LM example: hd 32"
+
 # B.7's serve-kernel cases: tag, B, H, T, hd, decay, a given state, layout
 # ("model": the model's strided views, staged by TMA; "odd": rows off 16
 # bytes, staged by plain loads)
@@ -2553,6 +2589,7 @@ def phase_serve_kernels() -> dict:
         ("hd 128, window 64, softcap 50", 2, 32, 16, 512, 128, 64, 50.0),
         ("G = 1", 2, 8, 8, 512, 64, None, None),
         ("ragged S = 300", 4, 14, 2, 300, 64, None, None),
+        (HD32_CASE, 4, 8, 2, 128, 32, None, None),
     ]
     out = {"flash_attention_fwd": dict(max_abs_err=0.0, rows=[]),
            "wkv6_scan": dict(max_abs_err=0.0, rows=[])}
@@ -2615,7 +2652,7 @@ def _flash_case(phase, randn, tag, b, h, kvh, s, hd, window, softcap,
             raise AssertionError(f"[{phase}] SDPA disagrees with the plain version ({tag})")
         row.update(library_ms=cuda_ms(sdpa, iters=50),
                    # None: the profiler recorded no device time of SDPA
-                   library_device_ms=window_device_ms(sdpa, 20) or None,
+                   library_device_ms=window_device_ms(sdpa, 50) or None,
                    library_backend=label)
     log(f"[{phase}] " + json.dumps(row))
     return row
@@ -2937,6 +2974,8 @@ def phase_serve_parity(arch: str, prompt_len: int) -> dict:
 
 LM_ARCH = "qwen2_0_5b"
 LM_NODES, LM_STEPS, LM_SEQ = 8, 20, 64       # train_lm's defaults; 20 steps
+LM_BATCH = 2                                # train_lm's batch per node
+LM_PAIR = ("flash_attention_fwd", "flash_attention_bwd")  # an attention layer's kernels
 LM_LONG = (512, 4, 5)                       # seq, nodes, steps: multi-tile B.6 tiles
 LM_PARITY = (2, 4, 3)                       # layers, nodes, steps: card vs CPU
 BWD_REL = 1e-4            # B.6 backward vs autograd of the plain version, relative to max
@@ -2978,9 +3017,9 @@ def window_device_ms(fn, iters: int, windows: int = 3) -> float:
     count over ``iters``, rounded), so a launch the profiler drops does not
     shorten the sum.  The median over ``windows`` windows that recorded
     any device time (seen on the H100: windows of SDPA at batch 1 that
-    recorded none), in at most twice as many tries; 0.0 where none did."""
+    recorded none), in at most four times as many tries; 0.0 where none did."""
     per_call = []
-    for _ in range(2 * windows):  # a window the profiler recorded nothing of is taken again
+    for _ in range(4 * windows):  # a window the profiler recorded nothing of is taken again
         _, prof = profiled(fn, iters)
         ms = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
                  for e in device_events(prof.key_averages()) if e.count) / 1e3
@@ -2988,7 +3027,7 @@ def window_device_ms(fn, iters: int, windows: int = 3) -> float:
             per_call.append(ms)
         if len(per_call) == windows:
             return sorted(per_call)[windows // 2]
-    log(f"[profile] device time recorded in {len(per_call)} of {2 * windows} windows")
+    log(f"[profile] device time recorded in {len(per_call)} of {4 * windows} windows")
     return sorted(per_call)[len(per_call) // 2] if per_call else 0.0
 
 
@@ -3229,6 +3268,7 @@ def phase_flash_bwd_kernels() -> dict:
         ("hd 128, window 64, softcap 50", 2, 32, 16, 512, 128, 64, 50.0),
         ("G = 1", 2, 8, 8, 512, 64, None, None),
         ("ragged S = 300", 4, 14, 2, 300, 64, None, None),
+        (HD32_CASE, 4, 8, 2, 128, 32, None, None),
     ]
     out = dict(max_abs_err=0.0, rows=[])
     for tag, b, h, kvh, s, hd, window, softcap in cases:
@@ -3295,11 +3335,12 @@ FLASH_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms
               "library_device_ms", "library_backend")
 
 
-def _lm_counts(nodes: int, steps: int, layers: int, leaves: int) -> dict:
-    """Launches of one LM training run: B.6 forward and backward on every
-    attention layer of every node, B.1 once per 16 leaves, every step."""
+def _lm_counts(nodes: int, steps: int, layers: int, leaves: int, pair=LM_PAIR) -> dict:
+    """Launches of one LM training run: the layers' kernel forward and
+    backward (``pair``: B.6 on attention layers, RWKV_PAIR on rwkv layers)
+    on every layer of every node, B.1 once per 16 leaves, every step."""
     per = steps * nodes * layers
-    return {"flash_attention_fwd": per, "flash_attention_bwd": per,
+    return {pair[0]: per, pair[1]: per,
             "gossip_update_stacked_grouped": steps * -(-leaves // 16)}
 
 
@@ -3310,6 +3351,72 @@ def _node_losses(trainer, state, batch) -> list:
         return trainer.loss_fn(state.params, (batch.to(trainer.device),)).tolist()
 
 
+def _lm_tokens(nodes: int, steps: int, vocab: int, seq: int = LM_SEQ):
+    """train_lm's token streams (seed 0) at its batch: (steps, nodes,
+    LM_BATCH, seq)."""
+    import numpy as np
+
+    from repro_torch.data import make_node_token_streams
+
+    streams = make_node_token_streams(nodes, vocab, seed=0)
+    return np.stack([np.stack([s.next_batch(LM_BATCH, seq) for s in streams])
+                     for _ in range(steps)])
+
+
+def _lm_step_profile(trainer, box, batch, pair) -> tuple[dict, object]:
+    """One training step from ``box[0]`` (the state, replaced) under the
+    profiler: wall and device-busy ms, the busy share, the layers' kernel
+    pair's device ms, device ops and the eight costliest device kernels."""
+    def one_step():
+        box[0], _ = trainer.step(box[0], batch)
+
+    p_wall, prof = profiled(one_step, 1)
+    avg = prof.key_averages()
+    dev = device_events(avg)
+    busy_us = sum(e.self_device_time_total for e in dev)
+    kern = [sum(e.self_device_time_total for e in device_events(avg, *KERNELS[name][2])) / 1e3
+            for name in pair]
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(wall_ms=1e3 * p_wall, device_busy_ms=busy_us / 1e3,
+                device_busy_share=busy_us / 1e6 / p_wall, fwd_device_ms=kern[0],
+                bwd_device_ms=kern[1], device_ops=sum(e.count for e in dev),
+                top=[(e.key[:48], round(e.self_device_time_total / 1e3, 3), e.count)
+                     for e in top]), prof
+
+
+def _lm_run_record(tag: str, trainer, state, model, nodes: int, seq: int, history: list,
+                   steady_s, counts: dict, pair, first, loss_before: float) -> dict:
+    """The record and checks of one LM training run: exact launches
+    (_lm_counts), every logged metric finite, the steady ms per step (median
+    of ``steady_s``), peak memory, and the first batch's mean node loss lower
+    after the run than ``loss_before``."""
+    import numpy as np
+    import torch
+
+    cfg = model.cfg
+    check_counts(tag, counts, _lm_counts(nodes, len(history), cfg.n_layers,
+                                         len(state.params), pair))
+    for r in history:
+        for key, x in r.items():
+            if isinstance(x, float) and not math.isfinite(x):
+                raise AssertionError(f"[{tag}] step {r['step']}: {key} = {x}")
+    ms_step = 1e3 * float(np.median(steady_s))
+    tokens = nodes * LM_BATCH * seq
+    rec = dict(arch=cfg.name, n_layers=cfg.n_layers, params=model.num_params(),
+               nodes=nodes, batch=LM_BATCH, seq_len=seq, steps=len(history),
+               ms_per_step=ms_step, ms_per_step_min=1e3 * float(np.min(steady_s)),
+               tokens_per_step=tokens, tokens_per_s=tokens / (ms_step / 1e3),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               loss_first_step=history[0]["loss_mean"], loss_last_step=history[-1]["loss_mean"],
+               first_batch_loss_before=loss_before,
+               first_batch_loss_after=float(np.mean(_node_losses(trainer, state, first))),
+               ln_vocab=math.log(cfg.vocab),
+               launches={n: c[0] for n, c in counts.items() if c[0]})
+    if not rec["first_batch_loss_after"] < rec["first_batch_loss_before"]:
+        raise AssertionError(f"[{tag}] the first batch's loss did not fall: {rec}")
+    return rec
+
+
 def phase_train_lm(seq: int, nodes: int, steps: int, profile: bool) -> dict:
     """qwen2-0.5b at full width and depth through the training CLI
     (``python -m repro_torch.launch.train --arch qwen2_0_5b``, train_lm's
@@ -3318,7 +3425,6 @@ def phase_train_lm(seq: int, nodes: int, steps: int, profile: bool) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.data import make_node_token_streams
     from repro_torch.launch import train
 
     argv = ["--arch", LM_ARCH, "--steps", str(steps), "--seq-len", str(seq), "--nodes",
@@ -3334,32 +3440,12 @@ def phase_train_lm(seq: int, nodes: int, steps: int, profile: bool) -> dict:
     counts = kernel_counts()
     model = _serve_model(LM_ARCH)
     cfg = model.cfg
-    check_counts(f"train-lm S {seq} K {nodes}", counts,
-                 _lm_counts(nodes, steps, cfg.n_layers, len(state.params)))
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    first = torch.from_numpy(np.stack([s.next_batch(2, seq) for s in
-                                       make_node_token_streams(nodes, cfg.vocab, seed=0)]))
-    loss_end = _node_losses(trainer, state, first)
-    walls = [r["wall_s"] for r in history]
-    steady = np.diff(walls)[1:]  # from the second step on
-    ms_step = 1e3 * float(np.median(steady))
-    tokens = nodes * 2 * seq
-    rec = dict(arch=cfg.name, n_layers=cfg.n_layers, params=model.num_params(),
-               nodes=nodes, batch=2,
-               seq_len=seq, steps=steps, wall_s=wall, ms_per_step=ms_step,
-               ms_per_step_min=1e3 * float(steady.min()), tokens_per_step=tokens,
-               tokens_per_s=tokens / (ms_step / 1e3), peak_memory_gb=peak,
-               loss_first_step=history[0]["loss_mean"], loss_last_step=history[-1]["loss_mean"],
-               first_batch_loss_before=history[0]["loss_mean"],
-               first_batch_loss_after=float(np.mean(loss_end)),
-               ln_vocab=math.log(cfg.vocab),
-               launches={n: c[0] for n, c in counts.items() if c[0]})
-    for r in history:
-        for key in ("loss_mean", "loss_worst", "robust_objective", "comm_bytes", "disagreement"):
-            if not math.isfinite(r[key]):
-                raise AssertionError(f"[train-lm] step {r['step']}: {key} = {r[key]}")
-    if not rec["first_batch_loss_after"] < rec["first_batch_loss_before"]:
-        raise AssertionError(f"[train-lm] the loss did not fall: {rec}")
+    first = torch.from_numpy(_lm_tokens(nodes, 1, cfg.vocab, seq)[0])
+    # from the second step on; the CLI's first step logs the first batch's loss
+    rec = _lm_run_record(f"train-lm S {seq} K {nodes}", trainer, state, model, nodes, seq,
+                         history, np.diff([r["wall_s"] for r in history])[1:], counts,
+                         LM_PAIR, first, history[0]["loss_mean"])
+    rec["wall_s"] = wall
     if abs(rec["loss_first_step"] - rec["ln_vocab"]) > 1.5:
         raise AssertionError(f"[train-lm] a random model's loss should be near ln V: {rec}")
     batch = (first.cuda(),)
@@ -3376,27 +3462,14 @@ def phase_train_lm(seq: int, nodes: int, steps: int, profile: bool) -> dict:
         raise AssertionError(f"[train-lm] the TMA audit saw {rec['tma_audit']} B.6 calls, "
                              f"not {per_step} of each")
     if profile:
-        p_wall, prof = profiled(one_step, 1)
-        avg = prof.key_averages()
-        dev = device_events(avg)
-        busy_us = sum(e.self_device_time_total for e in dev)
-        top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
-        b6 = {name: sum(e.self_device_time_total for e in device_events(avg, *KERNELS[name][2]))
-              / 1e3 for name in ("flash_attention_fwd", "flash_attention_bwd")}
+        rec["profile"], prof = _lm_step_profile(trainer, box, batch, LM_PAIR)
         # the backward's launches in the step, against the bwd-kernel phase's
         # warm and cold calls at the same shape
         mma = sorted(launch_us(prof, "bwd_mma_kernel"))
-        rec["profile"] = dict(wall_ms=1e3 * p_wall, device_busy_ms=busy_us / 1e3,
-                              device_busy_share=busy_us / 1e6 / p_wall,
-                              b6_fwd_device_ms=b6["flash_attention_fwd"],
-                              b6_bwd_device_ms=b6["flash_attention_bwd"],
-                              bwd_mma_us=dict(launches=len(mma), min=mma[0],
+        rec["profile"].update(bwd_mma_us=dict(launches=len(mma), min=mma[0],
                                               median=mma[len(mma) // 2], max=mma[-1]),
                               bwd_reduce_us_mean=float(np.mean(
-                                  launch_us(prof, "bwd_reduce_kernel"))),
-                              device_ops=sum(e.count for e in dev),
-                              top=[(e.key[:48], round(e.self_device_time_total / 1e3, 3), e.count)
-                                   for e in top])
+                                  launch_us(prof, "bwd_reduce_kernel"))))
         log("[train-lm] profile of one step: " + json.dumps(rec["profile"]))
     del box
     log("[train-lm] " + json.dumps({k: v for k, v in rec.items() if k != "profile"}))
@@ -3405,67 +3478,100 @@ def phase_train_lm(seq: int, nodes: int, steps: int, profile: bool) -> dict:
     return rec
 
 
-def phase_train_parity(spec_cls) -> dict:
-    """qwen2-0.5b cut to 2 layers at full width, K = 4, 3 steps of
-    train_lm's stack: the same seeded weights and tokens on the card
-    (kernels) and on the CPU (plain versions): per-step losses and every
-    final leaf relative to its largest |value|, and the updates relative to
-    the largest |update|.  Then, on the card, one fused step against the
-    unfused step (the optimizer and the mixer called directly) from the same
-    state."""
-    import numpy as np
+def _card_vs_cpu(tag: str, spec_cls, arch: str, cut: tuple, pair, update_rel: float,
+                 ulps: int = 0) -> tuple[dict, object, dict, object]:
+    """``arch`` at full width cut to ``cut`` = (layers, nodes, steps) on
+    train_lm's stack (ring, lr 0.01, clip 1, batch 2, seq 64): the same
+    seeded weights and tokens on the card (the layers' kernel ``pair`` and
+    grouped B.1, launches exact) and on the CPU (plain versions, no launch).
+    Held: per-step losses and every final leaf within TRAIN_PARITY_REL of
+    its largest |value|; every entry's update within ``update_rel`` of the
+    largest |update| of any leaf or, where ``ulps`` is set, within ``ulps``
+    float32 ulps of the entry's own value (the two runs round each step's
+    theta + update apart; an update small beside its weight moves the
+    weight by few ulps).  Returns the record, the model, the initial params
+    and the tokens."""
     import torch
 
-    from repro_torch.data import make_node_token_streams
     from repro_torch.models import make_lm_loss
-    from repro_torch.optim import Optimizer, sgd
 
-    layers, nodes, steps = LM_PARITY
-    model = _serve_model(LM_ARCH, layers)
+    layers, nodes, steps = cut
+    model = _serve_model(arch, layers)
     params = model.init(torch.Generator().manual_seed(0))
-    streams = make_node_token_streams(nodes, model.cfg.vocab, seed=0)
-    batches = (np.stack([np.stack([s.next_batch(2, LM_SEQ) for s in streams])
-                         for _ in range(steps)]),)
-
-    def trainer_on(device, optimizer=None):
-        spec = spec_cls(num_nodes=nodes, graph="ring", lr=0.01, grad_clip=1.0, device=device)
-        return spec.build(make_lm_loss(model), optimizer=optimizer)
-
+    toks = _lm_tokens(nodes, steps, model.cfg.vocab)
     runs = {}
     for device in ("cuda", "cpu"):
-        trainer = trainer_on(device)
+        trainer = spec_cls(num_nodes=nodes, graph="ring", lr=0.01, grad_clip=1.0,
+                           device=device).build(make_lm_loss(model))
         reset_counts()
         t0 = time.perf_counter()
-        state, ms = trainer.run(trainer.init(params), batches)
+        state, ms = trainer.run(trainer.init(params), (toks,))
         runs[device] = ({n: t.cpu() for n, t in state.params.items()}, ms["loss_mean"].cpu(),
                         time.perf_counter() - t0)
         counts = kernel_counts()
         if device == "cuda":
-            check_counts("train-parity", counts,
-                         _lm_counts(nodes, steps, layers, len(state.params)))
+            check_counts(tag, counts, _lm_counts(nodes, steps, layers, len(state.params), pair))
+            launches = {n: c[0] for n, c in counts.items() if c[0]}
         elif sum(c[0] for c in counts.values()) or not sum(c[1] for c in counts.values()):
-            raise AssertionError(f"[train-parity] the CPU run launched a kernel: {counts}")
-        del state
+            raise AssertionError(f"[{tag}] the CPU run launched a kernel: {counts}")
+        del state, trainer
     (p_g, l_g, s_g), (p_c, l_c, s_c) = runs["cuda"], runs["cpu"]
-    init = {n: t.unsqueeze(0) for n, t in params.items()}
-    leaf_rel = max(_rel_err(p_g[n], p_c[n]) for n in p_c)
-    upd_g, upd_c = ({n: p[n] - init[n] for n in p_c} for p in (p_g, p_c))
+    upd_g, upd_c = ({n: p[n] - params[n].unsqueeze(0) for n in p_c} for p in (p_g, p_c))
     largest = max(float(u.abs().max()) for u in upd_c.values())
-    update_rel = max(float((upd_g[n] - upd_c[n]).abs().max()) for n in p_c) / largest
     own = {n: _rel_err(upd_g[n], upd_c[n]) for n in p_c}
     worst = max(own, key=own.get)
-    loss_rel = float(((l_g - l_c).abs() / l_c.abs()).max())
+    over, by_ulp, worst_ulps = 0, 0, 0.0
+    for n in p_c:
+        diff = (p_g[n] - p_c[n]).abs()
+        beyond = diff > update_rel * largest
+        if ulps and bool(beyond.any()):
+            theta = p_c[n].abs()
+            in_ulps = diff[beyond] / (torch.nextafter(theta, torch.tensor(math.inf)) -
+                                      theta)[beyond]
+            worst_ulps = max(worst_ulps, float(in_ulps.max()))
+            by_ulp += int((in_ulps <= ulps).sum())
+            beyond[beyond.clone()] = in_ulps > ulps
+        over += int(beyond.sum())
     rec = dict(arch=model.cfg.name, n_layers=layers, nodes=nodes, steps=steps,
-               loss_rel_err=loss_rel, leaf_rel_err=leaf_rel, update_rel_err=update_rel,
-               worst_leaf_update_rel_err=(worst, own[worst]), card_s=s_g, cpu_s=s_c)
-    if not (loss_rel <= TRAIN_PARITY_REL and leaf_rel <= TRAIN_PARITY_REL
-            and update_rel <= UPDATE_REL):
-        raise AssertionError(f"[train-parity] card vs CPU outside tolerance: {rec}")
+               loss_rel_err=float(((l_g - l_c).abs() / l_c.abs()).max()),
+               leaf_rel_err=max(_rel_err(p_g[n], p_c[n]) for n in p_c),
+               update_rel_err=max(float((upd_g[n] - upd_c[n]).abs().max()) for n in p_c)
+               / largest, largest_update=largest,
+               worst_leaf_update_rel_err=(worst, own[worst]),
+               update_rtol=update_rel, entries_within_ulps=by_ulp,
+               worst_ulps_beyond_rtol=worst_ulps, entries_outside=over,
+               losses_card=l_g.tolist(), losses_cpu=l_c.tolist(), card_s=s_g, cpu_s=s_c,
+               launches=launches)
+    log(f"[{tag}] card vs CPU: " + json.dumps(rec))
+    if not (rec["loss_rel_err"] <= TRAIN_PARITY_REL and rec["leaf_rel_err"] <= TRAIN_PARITY_REL
+            and over == 0):
+        raise AssertionError(f"[{tag}] card vs CPU outside tolerance: {rec}")
+    return rec, model, params, toks
+
+
+def phase_train_parity(spec_cls) -> dict:
+    """qwen2-0.5b cut to 2 layers at full width, K = 4, 3 steps of
+    train_lm's stack, card vs CPU (_card_vs_cpu; updates within UPDATE_REL
+    of the largest update).  Then, on the card, one fused step against the
+    unfused step (the optimizer and the mixer called directly) from the same
+    state."""
+    import torch
+
+    from repro_torch.models import make_lm_loss
+    from repro_torch.optim import Optimizer, sgd
+
+    rec, model, params, toks = _card_vs_cpu("train-parity", spec_cls, LM_ARCH, LM_PARITY,
+                                            LM_PAIR, UPDATE_REL)
+    nodes = LM_PARITY[1]
+
+    def trainer_on(optimizer):
+        spec = spec_cls(num_nodes=nodes, graph="ring", lr=0.01, grad_clip=1.0, device="cuda")
+        return spec.build(make_lm_loss(model), optimizer=optimizer)
 
     # fused (B.1) against unfused from the same state, on the card
     opt = sgd(0.01)
-    fused, unfused = trainer_on("cuda", opt), trainer_on("cuda", Optimizer(opt.init, opt.update))
-    batch = tuple(torch.from_numpy(b[0]) for b in batches)
+    fused, unfused = trainer_on(opt), trainer_on(Optimizer(opt.init, opt.update))
+    batch = (torch.from_numpy(toks[0]),)
     outs = []
     for trainer in (fused, unfused):
         reset_counts()
@@ -3486,6 +3592,265 @@ def phase_train_parity(spec_cls) -> dict:
     del outs, pf, pu, fused, unfused
     torch.cuda.empty_cache()
     return rec
+
+
+RWKV_ARCH = "rwkv6_7b"
+RWKV_TRAIN = (2, 4, 10)     # layers, nodes, steps: rwkv6-7b at full width on one card
+RWKV_PARITY = (1, 2, 5)     # layers, nodes, steps: card vs CPU
+RWKV_UPDATE_REL = 1.5e-4  # card vs CPU, relative to the largest update (ROADMAP §C) ...
+UPDATE_ULPS = 2           # ... or within 2 float32 ulps of the entry's own value
+WKV_BWD_REL = 1e-4        # B.7's backward vs the plain version and autograd, relative to max
+RWKV_PAIR = ("wkv6_scan", "wkv6_bwd")  # an rwkv layer's kernels in training
+# B.7 forward and backward: tag, B, H, T, hd, decay, a given state (and the
+# final state's cotangent); the first is rwkv6-7b's training shape
+WKV6_TRAIN_CASES = (
+    ("rwkv6-7b train", 2, 64, 64, 64, "random", False),
+    ("hd 16", 2, 256, 64, 16, "random", False),
+    ("w = 1e-6, given state, T = 19", 2, 64, 19, 64, "1e-6", True),
+    ("init decay, given state, hd 16, T = 37", 2, 8, 37, 16, "init", True),
+)
+
+
+def wkv6_bwd_bound(b, h, t, hd, given_state: bool = False) -> tuple[float, str]:
+    """Least time of one B.7 backward call: r, k, v, w and dy read, dr, dk,
+    dv and dw written once, u read and du written once (and a given state,
+    the final state's cotangent and ds0), against 14 float operations per
+    (i, j, t): the state recomputed once (3), S dy (2), G's update (3), G v,
+    G^T k and G (.) S (2 each); and 16 per (i, t) for the u terms, which
+    the function needs per row only: v.dy (2), sum r u k (3), u k (v.dy) into
+    dr, u r (v.dy) into dk and r k (v.dy) into du (3 each), (sum r u k) dy
+    into dv (2); at the float32 peak."""
+    n_bytes = 4 * (9 * b * h * t * hd + 2 * h * hd + 3 * given_state * b * h * hd * hd)
+    ops = b * h * t * hd * (14 * hd + 16)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _wkv6_bwd_case(gen, tag, b, h, t, hd, decay, given) -> dict:
+    """B.7's backward at one shape on the model's layout: two calls equal
+    bit for bit, each gradient within WKV_BWD_REL of its largest |value|
+    against the plain version (an explicit reverse loop) and against
+    autograd of the forward's plain version, on the card; call, device and
+    plain times and the bound."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import kernel as wk
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_bwd_ref, wkv6_ref
+
+    def view():  # the model's (B, T, H, hd) projections
+        return torch.randn((b, t, h, hd), generator=gen, device="cuda").permute(0, 2, 1, 3)
+
+    r, k, v, w, dy = view(), view(), view(), view(), view()
+    if decay == "random":
+        w.uniform_(0.0, 1.0, generator=gen)
+    elif decay == "init":
+        w.fill_(math.exp(-math.exp(-6.0)))
+    else:
+        w.fill_(1e-6)
+    u = 0.5 * torch.randn((h, hd), generator=gen, device="cuda")
+    s0, ds = ((torch.randn((b, h, hd, hd), generator=gen, device="cuda") for _ in range(2))
+              if given else (None, None))
+    args = (r, k, v, w, u, dy, s0, ds)
+    got, again = wk.wkv6_bwd(*args), wk.wkv6_bwd(*args)
+    plain = wkv6_bwd_ref(*args)
+    leaves = [x.detach().clone().requires_grad_() for x in (r, k, v, w, u)]
+    state = s0.clone().requires_grad_() if given else None
+    y, s = wkv6_ref(*leaves, state)
+    loss = (y * dy).sum() + ((s * ds).sum() if given else 0.0)
+    auto = torch.autograd.grad(loss, leaves + ([state] if given else []))
+    torch.cuda.synchronize()
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")[:len(auto)]
+    if not all(torch.equal(x, z) for x, z in zip(got[:len(auto)], again[:len(auto)])):
+        raise AssertionError(f"[train-rwkv] B.7 backward {tag}: two calls differ")
+    rel = {n: max(_rel_err(g, p), _rel_err(g, a))
+           for n, g, p, a in zip(names, got, plain, auto)}
+    abs_err = max(float((g - p).abs().max()) for g, p in zip(got, plain[:len(auto)]))
+    if max(rel.values()) > WKV_BWD_REL:
+        raise AssertionError(f"[train-rwkv] B.7 backward {tag}: {rel} (relative to max) > "
+                             f"{WKV_BWD_REL}")
+
+    def call():
+        wk.wkv6_bwd(*args)
+
+    bound, by = wkv6_bwd_bound(b, h, t, hd, given)
+    row = dict(case=tag, b=b, h=h, t=t, hd=hd, decay=decay, given_state=given, rel_err=rel,
+               max_abs_err=abs_err, bitwise_repeat=True, ms=cuda_ms(call, iters=50),
+               device_ms=device_ms(call, 20, KERNELS["wkv6_bwd"][2]),
+               plain_ms=cuda_ms(lambda: wkv6_bwd_ref(*args), iters=3, warmup=1),
+               bound_ms=bound, bound_by=by, library_ms=None)
+    log("[train-rwkv] " + json.dumps(row))
+    return row
+
+
+def _rwkv_full_width(spec_cls) -> dict:
+    """rwkv6-7b at full width cut to RWKV_TRAIN's layers and nodes through
+    TrainerSpec -> DecentralizedTrainer (train_lm's stack: ring, lr 0.01,
+    clip 1, batch 2, seq 64): _lm_run_record's checks and one profiled
+    step's busy share."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import make_lm_loss
+
+    layers, nodes, steps = RWKV_TRAIN
+    model = _serve_model(RWKV_ARCH, layers)
+    trainer = spec_cls(num_nodes=nodes, graph="ring", lr=0.01, grad_clip=1.0).build(
+        make_lm_loss(model))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.init(model.init(torch.Generator("cuda").manual_seed(0)))
+    toks = _lm_tokens(nodes, steps, model.cfg.vocab)
+    first = torch.from_numpy(toks[0])
+    loss_before = float(np.mean(_node_losses(trainer, state, first)))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reset_counts()
+    walls, history = [], []
+    for t in range(steps):
+        t1 = time.perf_counter()
+        state, m = trainer.step(state, (toks[t],))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        history.append(dict(step=t, **{k: float(v) for k, v in m.items()}))
+    rec = _lm_run_record("train-rwkv full width", trainer, state, model, nodes, LM_SEQ,
+                         history, walls[1:], kernel_counts(), RWKV_PAIR, first, loss_before)
+    rec.update(init_s=init_s, ms_per_step_first=1e3 * walls[0])
+    box = [state]
+    del state
+    rec["profile"], _ = _lm_step_profile(trainer, box, (first.cuda(),), RWKV_PAIR)
+    log("[train-rwkv] full width: " + json.dumps(rec))
+    del box, trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_rwkv(spec_cls) -> dict:
+    """A.15 on the card.  B.7's forward and its backward kernel at
+    rwkv6-7b's training shape and the other WKV6_TRAIN_CASES against their
+    plain versions (the forward at SERVE_TOL, the backward at WKV_BWD_REL,
+    also against autograd of the plain forward; two backward calls equal bit
+    for bit), timed.  Then the training CLI at the smoke config (``train
+    --arch rwkv6_7b --smoke``), rwkv6-7b at full width cut to 2 layers at
+    K = 4 (_rwkv_full_width) and cut to 1 layer at K = 2 against the CPU
+    (_card_vs_cpu); every launch counted, no plain call."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(7007)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    out = {"wkv6_scan": dict(max_abs_err=0.0, rows=[]), "wkv6_bwd": dict(max_abs_err=0.0, rows=[])}
+    for tag, b, h, t, hd, decay, given in WKV6_TRAIN_CASES:
+        _add_row(out["wkv6_scan"], _wkv6_case("train-rwkv", randn, gen, tag, b, h, t, hd,
+                                               decay, given, "model"))
+        _add_row(out["wkv6_bwd"], _wkv6_bwd_case(gen, tag, b, h, t, hd, decay, given))
+
+    reset_counts()
+    trainer, state, history = train.main(["--arch", RWKV_ARCH, "--smoke", "--steps", "3",
+                                          "--log-every", "1"])
+    torch.cuda.synchronize()
+    smoke_layers = get_arch(RWKV_ARCH, smoke=True).n_layers
+    counts = kernel_counts()
+    check_counts("train-rwkv smoke CLI", counts,
+                 _lm_counts(trainer.num_nodes, 3, smoke_layers, len(state.params), RWKV_PAIR))
+    if not all(math.isfinite(r["loss_mean"]) for r in history):
+        raise AssertionError(f"[train-rwkv] smoke CLI: {history}")
+    out["smoke_cli"] = dict(nodes=trainer.num_nodes, losses=[r["loss_mean"] for r in history],
+                            launches={n: c[0] for n, c in counts.items() if c[0]})
+    log("[train-rwkv] train --arch rwkv6_7b --smoke: " + json.dumps(out["smoke_cli"]))
+    del trainer, state
+    out["full_width"] = _rwkv_full_width(spec_cls)
+    out["parity"] = _card_vs_cpu("train-rwkv parity", spec_cls, RWKV_ARCH, RWKV_PARITY,
+                                 RWKV_PAIR, RWKV_UPDATE_REL, UPDATE_ULPS)[0]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train-rwkv] phase in {out['phase_s']:.1f} s")
+    return out
+
+
+def _example(name: str):
+    """examples/<name>.py as a module (its main() is not run on import)."""
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples() -> dict:
+    """A.16 on the card: the port's four examples through their ``main(argv)``
+    at their defaults with cut steps: the quickstart (100 steps) and the
+    fmnist reproduction (T = 100, both runs) through grouped B.1 once per
+    step; the LM example (5 steps: K = 8, batch 4, seq 128, head dim 32)
+    through B.6 forward and backward on every attention layer of every
+    node, then ``--full-width`` (qwen2-0.5b, 2 steps; peak memory); the
+    serving example (rwkv6 smoke) through B.7 at its prefill and every
+    admission.  Exact launches, no plain call, wall time each."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    out = {}
+
+    def run(tag, fn, want):
+        gc.collect()  # earlier phases' cyclic garbage would count in the peak
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 1e9  # what earlier phases still hold
+        reset_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        check_counts(f"examples {tag}", counts, want(result) if callable(want) else want)
+        out[tag] = dict(wall_s=wall, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                        base_memory_gb=base,
+                        launches={n: c[0] for n, c in counts.items() if c[0]})
+        log(f"[examples] {tag}: " + json.dumps(out[tag]))
+        return result
+
+    quick = _example("torch_quickstart")
+    hist = run("torch_quickstart --steps 100", lambda: quick.main(["--steps", "100"]),
+               {"gossip_update_stacked_grouped": 100})
+    fm = _example("torch_decentralized_fmnist")
+    fm.T, fm.EVAL_EVERY = 100, 50
+    dr, ds = run("torch_decentralized_fmnist (T = 100)", lambda: fm.main([]),
+                 {"gossip_update_stacked_grouped": 200})
+    for h in hist + dr + ds:
+        if not 0.0 <= h["acc_worst_dist"] <= h["acc_avg"] <= 1.0:
+            raise AssertionError(f"[examples] fmnist accuracies: {h}")
+    lm = _example("torch_train_lm_drdsgd")
+    for argv, steps in ((["--steps", "5"], 5), (["--full-width", "--steps", "2"], 2)):
+        model = lm.model_for("--full-width" in argv)
+        cfg = model.cfg
+        history = run("torch_train_lm_drdsgd " + " ".join(argv), lambda: lm.main(argv),
+                      _lm_counts(8, steps, cfg.n_layers, len(model.param_shapes())))
+        if not all(math.isfinite(h["loss_mean"]) for h in history):
+            raise AssertionError(f"[examples] LM losses: {history}")
+        out["torch_train_lm_drdsgd " + " ".join(argv)].update(
+            head_dim=cfg.d_model // cfg.n_heads, losses=[h["loss_mean"] for h in history])
+    serve = _example("torch_serve_decode")
+    cfg = get_arch("rwkv6_7b", smoke=True)
+
+    def serve_want(result):
+        want = _engine_launches(cfg, result["report"], False)
+        # and the static batch's prefill: B.7 once per layer
+        want["wkv6_scan"] = want.get("wkv6_scan", 0) + cfg.n_layers
+        return want
+
+    result = run("torch_serve_decode", lambda: serve.main([]), serve_want)
+    if result["report"]["completed"] != 5 or result["tokens"].shape != (4, 24):
+        raise AssertionError(f"[examples] serve_decode: {result['report']['completed']} "
+                             f"completed, tokens {result['tokens'].shape}")
+    return out
 
 
 def phase_gossip_update_nodes(spec_cls) -> dict:
@@ -4081,6 +4446,7 @@ def main() -> int:
     lm = phase_train_lm(LM_SEQ, LM_NODES, LM_STEPS, profile=True)
     phase_train_lm(*LM_LONG, profile=False)
     phase_train_parity(TrainerSpec)
+    rwkv_train = phase_train_rwkv(TrainerSpec)
     log(f"[done] training phases in {time.perf_counter() - t_start:.1f} s")
     serve_kern = phase_serve_kernels()
     qwen = phase_serve("qwen2_0_5b", 512, 64, "flash_attention_fwd", profile=True,
@@ -4089,6 +4455,9 @@ def main() -> int:
     phase_serve_parity("qwen2_0_5b", 64)
     phase_serve_parity("rwkv6_7b", 32)
     engine = phase_engine()
+    t_examples = time.perf_counter()
+    examples = phase_examples()
+    log(f"[done] examples in {time.perf_counter() - t_examples:.1f} s")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     # launches on each kernel's main path: grouped B.2 the dense int8 fmnist
     # run (and the static EF gossip run), grouped B.3 the static EF gossip
@@ -4170,6 +4539,12 @@ def main() -> int:
             row = bwd["rows"][0]
             timing = {key: row.get(key) for key in FLASH_KEYS}
             err, launches = bwd["max_abs_err"], path[name][name]
+        elif name == "wkv6_bwd":  # one call at rwkv6-7b's training shape, and at hd 16
+            rows = rwkv_train[name]["rows"]
+            timing = {key: rows[0].get(key) for key in FLASH_KEYS[:6]}
+            timing["hd16"] = {key: rows[1].get(key) for key in FLASH_KEYS[:6]}
+            err = rwkv_train[name]["max_abs_err"]
+            launches = rwkv_train["full_width"]["launches"][name]
         elif name in QUANT:
             step = kern[name]["per_step"]["mlp"]
             bound_by = {r["bound_by"] for r in kern[name]["rows"] if r["group"] == "mlp"}
@@ -4193,6 +4568,22 @@ def main() -> int:
                 FLASH_KEYS if name == "flash_attention_fwd" else FLASH_KEYS[:6])}
             err = serve_kern[name]["max_abs_err"]
             launches = (qwen if name == "flash_attention_fwd" else rwkv)["launches"]
+        if name in ("wkv6_scan", "wkv6_bwd"):  # the training runs (train-rwkv)
+            timing.setdefault("launches_other_runs", {}).update(
+                {"train-rwkv card vs CPU": rwkv_train["parity"]["launches"][name],
+                 "train --arch rwkv6_7b --smoke": rwkv_train["smoke_cli"]["launches"][name]})
+        if name == "wkv6_scan":  # one call at the training shape
+            row = rwkv_train[name]["rows"][0]
+            timing["train"] = dict({key: row.get(key) for key in FLASH_KEYS[:6]},
+                                   launches=rwkv_train["full_width"]["launches"][name])
+        if name in ("flash_attention_fwd", "flash_attention_bwd"):
+            # head dim 32 at the LM example's shape, and its launches there
+            rows = (serve_kern[name] if name == "flash_attention_fwd" else bwd)["rows"]
+            row = next(r for r in rows if r["case"] == HD32_CASE)
+            timing["hd32"] = dict({key: row.get(key) for key in FLASH_KEYS},
+                                  max_abs_err=row["max_abs_err"],
+                                  launches=examples["torch_train_lm_drdsgd --steps 5"][
+                                      "launches"][name])
         if name in other_runs:  # the kernel's launches on the other runs that take it
             timing["launches_other_runs"] = other_runs[name]
         if name in new_path_timing:  # one call at a new path's shapes (K = 8)

@@ -9,6 +9,8 @@ The port of ``repro.core.api``:
     state = trainer.init(params_single)
     state, metrics = trainer.step(state, batch)
     state, ms = trainer.run(state, batches)              # stacked metrics
+    state, ms = trainer.run(state, batches, epoch_steps=50,
+                            on_epoch=lambda e, st, m: ...)  # a hook between epochs
     accs = trainer.eval_per_node(state, x_test, y_test)
 
 ``dynamics`` (a :class:`~repro_torch.dynamics.DynamicsConfig`) runs the
@@ -179,21 +181,38 @@ class DecentralizedTrainer:
         """One train step on a (K, B, ...) batch; metrics are 0-d tensors."""
         return self._train_step(state, self._batch(batch))
 
-    def run(self, state: DecentralizedState, batches, *, steps: int | None = None):
+    def run(self, state: DecentralizedState, batches, *, steps: int | None = None,
+            epoch_steps: int | None = None, on_epoch=None):
         """Run many train steps; ``batches`` is the step batch stacked along a
         leading time axis (every leaf (T, K, ...)).  Returns
-        (final_state, metrics) with every metric stacked to (steps,)."""
+        (final_state, metrics) with every metric stacked to (steps,).
+
+        ``epoch_steps``/``on_epoch``: the reference's hook for eval and
+        logging.  The steps run in epochs of ``epoch_steps`` (the last one
+        ragged) and ``on_epoch(epoch_index, state, epoch_metrics)`` runs
+        between them, each metric of the epoch stacked to (its steps,);
+        without a split (no hook, no ``epoch_steps``, or ``epoch_steps >=
+        steps``) it runs once after the last step with index 0.  The loop
+        is the same eager loop either way, so the split changes no bit.
+        """
         batches = self._batch(batches)
         total = batches[0].shape[0]
         if steps is None:
             steps = total
         elif steps > total:
             raise ValueError(f"steps={steps} > stacked batches T={total}")
-        ms = []
-        for t in range(steps):
-            state, m = self._train_step(state, tuple(b[t] for b in batches))
-            ms.append(m)
-        return state, _stack_metrics(ms)
+        if on_epoch is None or epoch_steps is None or epoch_steps >= steps:
+            epoch_steps = steps
+        chunks = []
+        for e, start in enumerate(range(0, steps, epoch_steps)):
+            ms = []
+            for t in range(start, min(start + epoch_steps, steps)):
+                state, m = self._train_step(state, tuple(b[t] for b in batches))
+                ms.append(m)
+            chunks.append(_stack_metrics(ms))
+            if on_epoch is not None:
+                on_epoch(e, state, chunks[-1])
+        return state, {key: torch.cat([c[key] for c in chunks]) for key in chunks[0]}
 
     def eval_per_node(self, state: DecentralizedState, x, y) -> torch.Tensor:
         if self.predict_fn is None:

@@ -60,7 +60,7 @@
 //      G heads' partials, in head order.
 // Tiles wholly outside the causal/window band are skipped and tiles inside
 // it for every pair are not masked, as in the forward.  hd is a template
-// parameter (16, 64, 80, 128).
+// parameter (16, 32, 64, 80, 128).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -540,6 +540,7 @@ extern "C" int flash_bwd_f32(const float* q, const float* k, const float* v, con
     return launch<HD>(a, dk, dv, dks, dvs, part, B, KVH, stream);
   switch (hd) {
     FLASH_BWD_CASE(16)
+    FLASH_BWD_CASE(32)
     FLASH_BWD_CASE(64)
     FLASH_BWD_CASE(80)
     FLASH_BWD_CASE(128)

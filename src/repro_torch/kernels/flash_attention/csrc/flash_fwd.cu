@@ -50,8 +50,8 @@
 // inside the band for every row of the CTA is not masked.  S and T need
 // not be multiples of the tiles: rows past S are zero-filled and write
 // nothing, keys past T are zero-filled and get weight exactly 0.  hd is a
-// template parameter (16, 64, 80, 128: the slice's configs); the wrapper
-// raises on any other.
+// template parameter (16, 32, 64, 80, 128: the slice's configs and the LM
+// example's width); the wrapper raises on any other.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -297,6 +297,8 @@ extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v, flo
   switch (hd) {
     case 16:
       return launch<16>(a, B, KVH, stream);
+    case 32:
+      return launch<32>(a, B, KVH, stream);
     case 64:
       return launch<64>(a, B, KVH, stream);
     case 80:

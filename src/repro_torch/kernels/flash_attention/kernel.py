@@ -16,7 +16,7 @@ KVH, hd) k/v without a transposed copy; outputs and gradients have their
 input's memory layout.  The forward writes the row log-sum-exp (B, H, S)
 when asked, which the backward recomputes the softmax from.  Each wrapper
 raises on what its kernel does not take — a dtype other than float32, a
-head dim other than 16, 64, 80 or 128, and for the forward an input that
+head dim other than 16, 32, 64, 80 or 128, and for the forward an input that
 requires grad while autograd records (``ops.flash_attention`` is the
 differentiable entry) — never runs the plain version itself, and adds one
 to its ``.launches`` per call.
@@ -32,7 +32,7 @@ from repro_torch.kernels import _build
 
 SOURCE = "flash_attention/csrc/flash_fwd.cu"
 BWD_SOURCE = "flash_attention/csrc/flash_bwd.cu"
-HEAD_DIMS = (16, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 _P, _LL = ctypes.c_void_p, ctypes.c_longlong
 _MASK = (ctypes.c_float, ctypes.c_int, _LL, ctypes.c_float, _P)  # scale .. stream
 _ARGTYPES = (_P,) * 5 + (_LL,) * 6 + (_LL,) * 12 + _MASK

@@ -1,1 +1,1 @@
-"""The RWKV6 WKV recurrence of the serving prefill (see ``kernel.py``)."""
+"""The RWKV6 WKV recurrence (B.7) and its backward (see ``kernel.py``)."""

@@ -1,20 +1,26 @@
-"""The CUDA WKV6 kernel (B.7): load and launch.
+"""The CUDA WKV6 kernels (B.7 and its backward): load and launch.
 
 Replaces the Pallas TPU kernel ``repro/kernels/rwkv6_scan/kernel.py``
-(``wkv6_scan``, ``pallas_call`` at ``:65``) with ``csrc/wkv6.cu``, built by
-:mod:`repro_torch.kernels._build`.  The source's header note gives its bound
-and design.  Beyond the TPU kernel it starts from a given state and returns
-the final state, which ``rwkv_forward`` hands to the decode cache.
+(``wkv6_scan``, ``pallas_call`` at ``:65``) with ``csrc/wkv6.cu``, and adds
+its backward, ``csrc/wkv6_bwd.cu`` (the reference differentiates its XLA
+scan instead), both built by :mod:`repro_torch.kernels._build`.  The
+sources' header notes give their bounds and designs.  Beyond the TPU kernel
+the forward starts from a given state and returns the final state, which
+``rwkv_forward`` hands to the decode cache; the backward takes the final
+state's cotangent and returns the initial state's.
 
 r, k, v and w are (B, H, T, hd) views sharing one set of batch, head and
 time strides (head dims contiguous), so the model passes its (B, T, D)
-projections without a transposed copy; y has r's memory layout.  The
-wrapper raises on what the kernel does not take — a dtype other than
-float32, a head dim other than 16 or 64, an input that requires grad (the
-reference has no backward) — and never runs the plain version itself.
-The kernel stages the chunks of r, k, w and v by TMA where every row is
+projections without a transposed copy; y and the gradients dr, dk, dv, dw
+have r's memory layout.  The wrappers raise on what the kernels do not take
+— a dtype other than float32, a head dim other than 16 or 64 — and never
+run the plain version themselves.  They record nothing for autograd, so
+they refuse an input that requires grad while autograd records:
+``ops.WKV6`` is the differentiable entry (its forward and backward run with
+grad mode off).
+The forward stages the chunks of r, k, w and v by TMA where every row is
 16-byte aligned (:func:`rows_by_tma`; the model's views are), by plain loads
-otherwise.
+otherwise; the backward by plain loads.
 """
 
 from __future__ import annotations
@@ -26,9 +32,11 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = "rwkv6_scan/csrc/wkv6.cu"
+BWD_SOURCE = "rwkv6_scan/csrc/wkv6_bwd.cu"
 HEAD_DIMS = (16, 64)
 _P, _LL = ctypes.c_void_p, ctypes.c_longlong
 _ARGTYPES = (_P,) * 8 + (_LL,) * 4 + (_LL,) * 6 + (_P,)
+_BWD_ARGTYPES = (_P,) * 16 + (_LL,) * 4 + (_LL,) * 9 + (_P,)
 
 
 def rows_by_tma(x: torch.Tensor) -> bool:
@@ -44,25 +52,29 @@ def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
     if t.device != device:
         raise ValueError(f"{name} must be on {device}, got {t.device}")
     if t.dtype != torch.float32:
-        raise TypeError(f"wkv6_scan takes float32, got {name} {t.dtype}")
-    if t.requires_grad:
-        raise ValueError("wkv6_scan has no backward: call it on tensors that do not "
-                         "require grad (torch.inference_mode())")
+        raise TypeError(f"the WKV6 kernels take float32, got {name} {t.dtype}")
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise ValueError("the WKV6 kernels build no autograd graph: call ops.wkv6 "
+                         "(ops.WKV6's backward is B.7's backward kernel) or run under "
+                         "torch.no_grad()")
 
 
-def wkv6_scan(r, k, v, w, u, s0=None):
-    """r, k, v, w: (B, H, T, hd); u: (H, hd); s0: (B, H, hd, hd) or None (zero).
+def _check_state(name: str, s, b, h, hd, device) -> None:
+    if s is not None:
+        _check(name, s, device)
+        if s.shape != (b, h, hd, hd) or not s.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {(b, h, hd, hd)}, got "
+                             f"{tuple(s.shape)}")
 
-    Returns (y (B, H, T, hd), final state (B, H, hd, hd)), float32 on the
-    card.  Launches the B.7 kernel on the current stream and adds one to
-    ``wkv6_scan.launches``.
-    """
+
+def _check_scan(fn: str, r, k, v, w, u, s0) -> tuple[int, int, int, int]:
+    """Validate the forward's inputs; returns (B, H, T, hd)."""
     if r.device.type != "cuda":
-        raise ValueError(f"wkv6_scan needs CUDA tensors, got r on {r.device}")
+        raise ValueError(f"{fn} needs CUDA tensors, got r on {r.device}")
     dev = r.device
     b, h, t, hd = r.shape
     if hd not in HEAD_DIMS:
-        raise ValueError(f"wkv6_scan is built for head dims {HEAD_DIMS}, got {hd}")
+        raise ValueError(f"{fn} is built for head dims {HEAD_DIMS}, got {hd}")
     for name, x in (("r", r), ("k", k), ("v", v), ("w", w)):
         _check(name, x, dev)
         if x.shape != r.shape or x.stride() != r.stride():
@@ -73,23 +85,84 @@ def wkv6_scan(r, k, v, w, u, s0=None):
     _check("u", u, dev)
     if u.shape != (h, hd) or not u.is_contiguous():
         raise ValueError(f"u must be a contiguous {(h, hd)}, got {tuple(u.shape)}")
-    if s0 is not None:
-        _check("s0", s0, dev)
-        if s0.shape != (b, h, hd, hd) or not s0.is_contiguous():
-            raise ValueError(f"s0 must be a contiguous {(b, h, hd, hd)}, got "
-                             f"{tuple(s0.shape)}")
+    _check_state("s0", s0, b, h, hd, dev)
+    return b, h, t, hd
+
+
+def wkv6_scan(r, k, v, w, u, s0=None):
+    """r, k, v, w: (B, H, T, hd); u: (H, hd); s0: (B, H, hd, hd) or None (zero).
+
+    Returns (y (B, H, T, hd), final state (B, H, hd, hd)), float32 on the
+    card.  Launches the B.7 kernel on the current stream and adds one to
+    ``wkv6_scan.launches``.
+    """
+    b, h, t, hd = _check_scan("wkv6_scan", r, k, v, w, u, s0)
+    dev = r.device
     y = torch.empty_like(r)  # r's strides: the model's (B, T, H, hd) memory
     state = torch.empty((b, h, hd, hd), dtype=torch.float32, device=dev)
     if t == 0 or b * h == 0:
         return y, state.copy_(s0) if s0 is not None else state.zero_()
     fn = _build.entry(SOURCE, "wkv6_f32", _ARGTYPES)
     _build.launch(fn, "wkv6_f32", dev, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  w.data_ptr(), u.data_ptr(), None if s0 is None else s0.data_ptr(),
-                  y.data_ptr(), state.data_ptr(), b, h, t, hd, *r.stride()[:3],
-                  *y.stride()[:3])
+                  w.data_ptr(), u.data_ptr(), _ptr(s0), y.data_ptr(), state.data_ptr(), b, h,
+                  t, hd, *r.stride()[:3], *y.stride()[:3])
     wkv6_scan.launches += 1
     return y, state
 
 
 # launches since the last reset (the main path's proof of use)
 wkv6_scan.launches = 0
+
+
+def wkv6_bwd(r, k, v, w, u, dy, s0=None, ds=None):
+    """The backward of :func:`wkv6_scan` at the same inputs: dy (B, H, T, hd)
+    with any strides (head dims contiguous), ds, the final state's
+    cotangent, (B, H, hd, hd) or None (zero).
+
+    Returns (dr, dk, dv, dw in r's memory layout, du (H, hd), ds0 (B, H, hd,
+    hd), or None when s0 is None), float32 on the card.  Launches the
+    backward kernel (and its sum of du over the batches) on the current
+    stream and adds one to ``wkv6_bwd.launches``.  Scratch: the forward's
+    state every ``chunk(hd)`` steps, B H ceil(T / chunk) hd^2 floats.
+    """
+    b, h, t, hd = _check_scan("wkv6_bwd", r, k, v, w, u, s0)
+    dev = r.device
+    _check("dy", dy, dev)
+    if dy.shape != r.shape or dy.stride(3) != 1:
+        raise ValueError(f"dy must be {tuple(r.shape)} with contiguous head dims, got "
+                         f"{tuple(dy.shape)} strides {dy.stride()}")
+    _check_state("ds", ds, b, h, hd, dev)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))  # one layout, r's
+    du = torch.empty((h, hd), dtype=torch.float32, device=dev)
+    ds0 = None if s0 is None else torch.empty((b, h, hd, hd), dtype=torch.float32, device=dev)
+    if t == 0 or b * h == 0:
+        for x in (dr, dk, dv, dw, du):
+            x.zero_()
+        if ds0 is not None:
+            ds0.zero_() if ds is None else ds0.copy_(ds)
+        return dr, dk, dv, dw, du, ds0
+    n_chunks = -(-t // chunk(hd))
+    ckpt = torch.empty(b * h * n_chunks * hd * hd, dtype=torch.float32, device=dev)
+    du_part = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+    fn = _build.entry(BWD_SOURCE, "wkv6_bwd_f32", _BWD_ARGTYPES)
+    _build.launch(fn, "wkv6_bwd_f32", dev, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  w.data_ptr(), u.data_ptr(), _ptr(s0), dy.data_ptr(), _ptr(ds), dr.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(), _ptr(ds0),
+                  ckpt.data_ptr(), du_part.data_ptr(), b, h, t, hd, *r.stride()[:3],
+                  *dy.stride()[:3], *dr.stride()[:3])
+    wkv6_bwd.launches += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def chunk(hd: int) -> int:
+    """The backward's checkpoint stride at head dim ``hd``, as compiled
+    (csrc/wkv6_bwd.cu).  Builds the kernels."""
+    return _build.entry(BWD_SOURCE, "wkv6_bwd_chunk", (_LL,))(hd)
+
+
+# launches since the last reset (the main path's proof of use)
+wkv6_bwd.launches = 0

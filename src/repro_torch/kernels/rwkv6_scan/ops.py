@@ -2,18 +2,44 @@
 
 ``wkv6`` takes the plain PyTorch version only for tensors on the CPU, and
 counts those calls in ``.plain_calls``; autograd differentiates it there.
-For CUDA tensors it launches the hand-written kernel (B.7) or raises —
-there is no fallback.  B.7 has no backward yet, so on the card a call that
-autograd would record raises ``NotImplementedError``.
+For CUDA tensors it launches the hand-written kernels or raises — there is
+no fallback: the forward (B.7) alone where no gradient is recorded, else
+:class:`WKV6`, whose backward is B.7's backward kernel.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6_scan import kernel as _k
 from repro_torch.kernels.rwkv6_scan import ref as _r
+
+
+class WKV6(torch.autograd.Function):
+    """B.7 with its backward kernel, for CUDA tensors.  An output autograd
+    does not reach (the final state, in training) has no cotangent: the
+    kernel takes it as zero."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        y, state = _k.wkv6_scan(r, k, v, w, u, s0)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, ds):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        elif dy.stride(-1) != 1:
+            dy = dy.contiguous()
+        if ds is not None:
+            ds = ds.contiguous()
+        return _k.wkv6_bwd(r, k, v, w, u, dy, s0, ds)
 
 
 def wkv6(r, k, v, w, u, s0=None):
@@ -24,13 +50,12 @@ def wkv6(r, k, v, w, u, s0=None):
     if _build.route("wkv6", r):
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad for t in (r, k, v, w, u, s0)):
-            raise NotImplementedError(
-                "wkv6: B.7 has no backward yet, so RWKV trains on the CPU only; the "
-                "B.7 backward comes with the RWKV training slice (ROADMAP)")
+            return WKV6.apply(r, k, v, w, u, s0)
         return _k.wkv6_scan(r, k, v, w, u, s0)
     wkv6.plain_calls += 1
     return _r.wkv6_ref(r, k, v, w, u, s0)
 
 
-# how often the plain version served a call (CPU tensors only)
+# how often the plain version served a call (CPU tensors only; autograd
+# differentiates it there, so it stands for the backward's plain calls too)
 wkv6.plain_calls = 0

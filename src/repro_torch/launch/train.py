@@ -14,8 +14,8 @@ clipped at global norm 1, batch 2 per node of ``--seq-len`` 64 tokens from
 each node's own synthetic token stream; every ``--log-every`` steps a
 ``train`` line with the step's loss and consensus metrics.  The step is
 plain SGD with dense mixing, so it runs through the fused gossip update
-(B.1); the attention forward and backward run through B.6.  RWKV models
-train on the CPU only (B.7 has no backward yet).
+(B.1); the attention forward and backward run through B.6, the RWKV time
+mix's WKV recurrence through B.7 and its backward kernel.
 
 Dynamic graphs (``repro_torch.dynamics``) on either path: ``--topology
 dropout --drop-p 0.2`` trains over per-round link failures; ``--local-updates
@@ -45,6 +45,7 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --paper fmnist --nodes 8 \
       --topology hub --local-updates 4 --gradient-tracking
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6_7b --smoke --steps 10
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b --smoke \
       --steps 3 --nodes 4 --device cpu --ckpt-dir /tmp/ckpt
 """

@@ -9,9 +9,9 @@ the decay are computed for all T at once; one call of the WKV6 kernel (B.7
 on the card, its plain version on the CPU) gives y and the final WKV state;
 then come the gate and ``w_o``.  Decode (:func:`rwkv_decode`) is one step
 of the same recurrence in plain PyTorch.  Training differentiates the
-plain WKV6 version on the CPU; B.7 has no backward yet, so on the card a
-forward that autograd records raises ``NotImplementedError`` (the RWKV
-training slice).  Mamba waits for its slice (ROADMAP A.11).
+plain WKV6 version on the CPU; on the card a forward that autograd records
+goes through ``WKV6`` (B.7 forward, then B.7's backward kernel).  Mamba
+waits for its slice (ROADMAP A.11).
 """
 
 from __future__ import annotations

@@ -371,7 +371,7 @@ from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import kernel as wk  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as wops  # noqa: E402
-from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_bwd_ref, wkv6_ref  # noqa: E402
 from repro_torch.models import TransformerLM  # noqa: E402
 
 SERVE_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -393,6 +393,8 @@ FLASH_CASES = [  # b, h, kvh, s, t, hd, causal, window, softcap
     (2, 14, 2, 50, 50, 64, True, None, None),        # G = 7, G S = 350 rows
     (1, 7, 1, 101, 101, 80, True, 32, None),         # G = 7, window
     (1, 7, 1, 65, 129, 64, False, None, None),       # G = 7, S != T
+    (4, 8, 2, 128, 128, 32, True, None, None),       # the LM example's hd 32
+    (1, 4, 4, 40, 37, 32, False, 8, 20.0),           # hd 32, window, softcap, S != T
 ]
 
 
@@ -490,12 +492,16 @@ def test_wkv6_takes_rows_off_16_byte_boundaries(cuda, hd):
 
 @pytest.mark.parametrize("bad", ["bf16", "hd", "grad"])
 def test_serving_kernels_reject_what_they_do_not_take(cuda, bad):
+    """B.6's and B.7's wrappers refuse an input that requires grad while
+    autograd records (``ops.FlashAttention`` and ``ops.WKV6`` are the
+    differentiable entries); with grad mode off B.7's computes on it and
+    records nothing."""
     q, k, v = _flash_inputs(1, 2, 1, 16, 16, 16, 0, cuda, False)
     r, kk, vv, w, u = _wkv_inputs(1, 2, 8, 16, 0, cuda)
     if bad == "bf16":
         q, r = q.bfloat16(), r.bfloat16()
     elif bad == "hd":
-        q, k, v = _flash_inputs(1, 2, 1, 16, 16, 32, 0, cuda, False)
+        q, k, v = _flash_inputs(1, 2, 1, 16, 16, 24, 0, cuda, False)
         r, kk, vv, w, u = (x[..., :8] for x in (r, kk, vv, w, u))
     else:
         q, r = q.requires_grad_(), r.requires_grad_()
@@ -503,6 +509,95 @@ def test_serving_kernels_reject_what_they_do_not_take(cuda, bad):
         fk.flash_attention_fwd(q, k, v)
     with pytest.raises((TypeError, ValueError)):
         wk.wkv6_scan(r, kk, vv, w, u.contiguous())
+    dy = torch.zeros(r.shape, dtype=torch.float32, device=cuda)
+    with pytest.raises((TypeError, ValueError)):
+        wk.wkv6_bwd(r, kk, vv, w, u.contiguous(), dy)
+    if bad == "grad":
+        with torch.no_grad():
+            y, s = wk.wkv6_scan(r, kk, vv, w, u.contiguous())
+            grads = wk.wkv6_bwd(r, kk, vv, w, u.contiguous(), dy)
+        assert not (y.requires_grad or s.requires_grad)
+        assert not any(g.requires_grad for g in grads[:5]) and grads[5] is None
+
+
+WKV_BWD_REL = 1e-4  # each gradient against the plain version, relative to its largest |value|
+
+
+def _wkv_bwd_case(b, h, t, hd, decay, with_state, device, seed=0):
+    r, k, v, w, u = _wkv_inputs(b, h, t, hd, seed + b * h + t, device, decay)
+    gen = torch.Generator(device).manual_seed(seed + t)
+    dy = torch.randn((b, t, h, hd), generator=gen, device=device).permute(0, 2, 1, 3)
+    s0, ds = ((torch.randn((b, h, hd, hd), generator=gen, device=device) for _ in range(2))
+              if with_state else (None, None))
+    return r, k, v, w, u, dy, s0, ds
+
+
+@pytest.mark.parametrize("b,h,t,hd", [(2, 64, 64, 64), (2, 8, 37, 16), (3, 5, 19, 64),
+                                      (2, 4, 1, 64), (1, 16, 70, 16)])
+@pytest.mark.parametrize("decay", ["random", "init", "1e-6"])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv6_bwd_equals_plain(cuda, b, h, t, hd, decay, with_state):
+    """B.7's backward against its plain version (an explicit reverse loop),
+    each gradient within WKV_BWD_REL of its largest |value|: at rwkv6-7b's
+    training shape, at T not a multiple of the checkpoint stride, T = 1,
+    decay near 1 and w = 1e-6, from zero and from a given state with the
+    final state's cotangent; two calls give the same bits."""
+    r, k, v, w, u, dy, s0, ds = _wkv_bwd_case(b, h, t, hd, decay, with_state, cuda)
+    before = wk.wkv6_bwd.launches
+    got = wk.wkv6_bwd(r, k, v, w, u, dy, s0, ds)
+    again = wk.wkv6_bwd(r, k, v, w, u, dy, s0, ds)
+    torch.cuda.synchronize()
+    assert wk.wkv6_bwd.launches == before + 2
+    want = wkv6_bwd_ref(r, k, v, w, u, dy, s0, ds)
+    assert all(x.stride() == r.stride() for x in got[:4])
+    for name, x, y, z in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, again, want):
+        if z is None:
+            assert x is None and y is None, name
+            continue
+        assert torch.equal(x, y), name
+        assert _rel(x, z) <= WKV_BWD_REL, (name, _rel(x, z))
+
+
+def test_wkv6_bwd_takes_rows_off_16_byte_boundaries_and_dense_dy(cuda):
+    b, h, t, hd = 2, 8, 21, 64
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def view():
+        flat = torch.randn((b, t, h * hd + 1), generator=gen, device=cuda)
+        return flat[:, :, :h * hd].unflatten(2, (h, hd)).permute(0, 2, 1, 3)
+
+    r, k, v, w = view(), view(), view(), view()
+    w.uniform_(0.0, 1.0, generator=gen)
+    u = 0.5 * torch.randn((h, hd), generator=gen, device=cuda)
+    dy = torch.randn((b, h, t, hd), generator=gen, device=cuda)
+    got = wk.wkv6_bwd(r, k, v, w, u, dy)
+    torch.cuda.synchronize()
+    want = wkv6_bwd_ref(r, k, v, w, u, dy)
+    for name, x, z in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        assert _rel(x, z) <= WKV_BWD_REL, (name, _rel(x, z))
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+def test_wkv6_function_trains_through_both_kernels(cuda, hd):
+    """``ops.wkv6`` on inputs that require grad goes through ``WKV6``: one
+    forward and one backward launch, no plain call, gradients (s0 and the
+    final state's cotangent included) against autograd of the plain
+    version on the card."""
+    b, h, t = 2, 4, 33
+    r, k, v, w, u, dy, s0, ds = _wkv_bwd_case(b, h, t, hd, "random", True, cuda, seed=3)
+    leaves = [x.detach().clone().requires_grad_() for x in (r, k, v, w, u, s0)]
+    launches = (wk.wkv6_scan.launches, wk.wkv6_bwd.launches)
+    plain = wops.wkv6.plain_calls
+    y, s = wops.wkv6(*leaves)
+    grads = torch.autograd.grad((y * dy).sum() + (s * ds).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (wk.wkv6_scan.launches, wk.wkv6_bwd.launches) == (launches[0] + 1, launches[1] + 1)
+    assert wops.wkv6.plain_calls == plain
+    ref_leaves = [x.detach().clone().requires_grad_() for x in (r, k, v, w, u, s0)]
+    y_p, s_p = wkv6_ref(*ref_leaves)
+    want = torch.autograd.grad((y_p * dy).sum() + (s_p * ds).sum(), ref_leaves)
+    for name, got, ref in zip(("dr", "dk", "dv", "dw", "du", "ds0"), grads, want):
+        assert _rel(got, ref) <= WKV_BWD_REL, (name, _rel(got, ref))
 
 
 def test_serving_dispatchers_launch_for_cuda_tensors(cuda):
@@ -713,12 +808,22 @@ def test_flash_attention_function_launches_both_kernels(cuda):
 
 
 def test_rwkv_training_raises_on_the_card(cuda):
+    """What raised before B.7 had a backward: a call autograd records now
+    runs both kernels, and only the final state's cotangent may be absent
+    (the training loss drops the state)."""
     r, k, v, w, u = _wkv_inputs(1, 2, 8, 16, 0, cuda)
-    with pytest.raises(NotImplementedError, match="backward"):
-        wops.wkv6(r.requires_grad_(), k, v, w, u)
+    r.requires_grad_()
+    before = wk.wkv6_bwd.launches
+    y, _ = wops.wkv6(r, k, v, w, u)
+    (dr,) = torch.autograd.grad(y.square().sum(), (r,))
+    torch.cuda.synchronize()
+    assert wk.wkv6_bwd.launches == before + 1
+    leaf = r.detach().clone().requires_grad_()
+    (want,) = torch.autograd.grad(wkv6_ref(leaf, k, v, w, u)[0].square().sum(), (leaf,))
+    assert _rel(dr, want) <= WKV_BWD_REL
 
 
-@pytest.mark.parametrize("arch", ["qwen2_0_5b", "h2o_danube_1_8b", "gemma2_27b"])
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "h2o_danube_1_8b", "gemma2_27b", "rwkv6_7b"])
 def test_lm_loss_and_grads_on_the_card_match_the_cpu(cuda, arch):
     """The node-stacked loss (K = 2) and every gradient leaf, card vs CPU."""
     model = TransformerLM(get_arch(arch, smoke=True))

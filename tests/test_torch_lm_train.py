@@ -151,6 +151,33 @@ def test_attention_grad_matches_reference(s, g, window, cap):
         assert err <= GRAD_REL, (name, err)
 
 
+@pytest.mark.parametrize("s,g,window,cap", [(24, 4, None, None), (17, 2, 6, 10.0)])
+def test_attention_hd32_matches_reference(s, g, window, cap):
+    """Head dim 32 (examples/torch_train_lm_drdsgd.py's width, where B.6 runs
+    on the card): the forward at rtol 1e-5 and dq, dk, dv within GRAD_REL."""
+    rng = np.random.default_rng(s * 32 + g)
+    kvh, hd = 2, 32
+    q = rng.standard_normal((B, s, kvh, g, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((B, s, kvh, hd)).astype(np.float32) for _ in range(2))
+    cot = rng.standard_normal((B, s, kvh, g, hd)).astype(np.float32)
+    pos = jnp.arange(s, dtype=jnp.int32)
+
+    def ref_out(q, k, v):
+        return ref_chunked_attention(q, k, v, pos, pos, window=window, softcap_val=cap,
+                                     q_chunk=8, kv_chunk=8)
+
+    want_out = ref_out(q, k, v)
+    want = jax.grad(lambda *a: jnp.sum(ref_out(*a) * cot), argnums=(0, 1, 2))(q, k, v)
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = chunked_attention(qt, kt, vt, window=window, softcap_val=cap)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), rtol=1e-5,
+                               atol=1e-5)
+    got = torch.autograd.grad((out * torch.from_numpy(cot)).sum(), (qt, kt, vt))
+    for name, a, b in zip("qkv", got, want):
+        err = _rel(a, b)
+        assert err <= GRAD_REL, (name, err)
+
+
 @pytest.mark.parametrize("robust,grad_clip", [(True, 1.0), (False, None)])
 def test_trajectory_matches_reference(robust, grad_clip):
     k, steps, lr = 4, 5, 1e-2

@@ -361,10 +361,11 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Import every repro_torch module and chip_smoke.py (which runs nothing
-    on import) in a fresh interpreter: neither jax nor repro may load, nor
-    ml_dtypes or msgpack (the checkpoints carry their own codec).  The
-    serving and checkpoint modules must be among them."""
+    """Import every repro_torch module, chip_smoke.py and the port's
+    examples (``examples/torch_*.py``; none runs anything on import) in a
+    fresh interpreter: neither jax nor repro may load, nor ml_dtypes or
+    msgpack (the checkpoints carry their own codec).  The serving and
+    checkpoint modules must be among them."""
     serving = [f"repro_torch.{m}" for m in (
         "kernels._build", "kernels.flash_attention.kernel", "kernels.flash_attention.ops",
         "kernels.flash_attention.ref", "kernels.rwkv6_scan.kernel", "kernels.rwkv6_scan.ops",
@@ -374,13 +375,18 @@ def test_port_imports_neither_jax_nor_repro():
         "launch.serve", "serve.engine", "serve.pool", "serve.scheduler", "serve.traffic",
         "obs.report", "checkpoint.io", "checkpoint._msgpack")]
     script = f"""
-import importlib, importlib.util, pkgutil, sys
+import importlib, importlib.util, pathlib, pkgutil, sys
 import repro_torch
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
 spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / "chip_smoke.py")!r})
 importlib.util.module_from_spec(spec)
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
+examples = sorted(pathlib.Path({str(ROOT / "examples")!r}).glob("torch_*.py"))
+assert len(examples) == 4, examples
+for path in examples:
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes", "msgpack"))
 print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
