@@ -52,10 +52,13 @@ version:
            called; both must print the per-leaf launches' loss_step300,
            acc_worst_dist and acc_avg to the bit (PER_LEAF_DENSE).
   b1-nodes one fmnist dense step recomputed node by node through
-           gossip_update_tree (B.1's per-node form, 10 x 6 launches) and
-           held against the fused step; and (b1-leaves) its stacked update
-           leaf by leaf through gossip_update_stacked (6 launches), equal
-           bit for bit to one grouped call.
+           gossip_update_tree (B.1's per-node form, one launch per node
+           over its 6 leaves: 10 launches) and held against the fused step,
+           each node bit-equal to the plain version; one node's call timed
+           against the 6 one-leaf calls in turns and against its bound; and
+           (b1-leaves) its stacked update leaf by leaf through
+           gossip_update_stacked (6 launches), equal bit for bit to one
+           grouped call.
   gossip   the same configuration over the gossip lowering (a pre-built
            mixer handed to TrainerSpec.build, as the reference's benchmarks
            do), 300 steps on each of four stacks: uncompressed static gossip
@@ -185,7 +188,9 @@ version:
            SERVE_TOL, the backward against its plain version (an explicit
            reverse loop) and against autograd of the plain forward on the
            card, each gradient within WKV_BWD_REL of its largest |value|, two
-           backward calls equal bit for bit; timed.  Then ``train --arch
+           backward calls equal bit for bit; timed, the backward beside its
+           first design's time at the same shape (PARENT_BWD_US).  Then
+           ``train --arch
            rwkv6_7b --smoke`` (3 steps), rwkv6-7b at full width cut to 2
            layers at K = 4 (batch 2, seq 64, 10 steps: B.7 forward and
            backward 2 x 4 per step, grouped B.1 twice per step over the 23
@@ -3176,7 +3181,7 @@ def _stacked_grouped(groups, gen, plain_ms) -> dict:
 
     cfg = gk.config()
     if cfg != dict(max_group_leaves=gk.MAX_GROUP_LEAVES, max_nodes=gk.MAX_NODES,
-                   stacked_cols=gk.STACKED_COLS):
+                   stacked_cols=gk.STACKED_COLS, node_nbr_pool=gk.NODE_NBR_POOL):
         raise AssertionError(f"[b1-kernel] gossip_update.cu's sizes {cfg} are not the wrapper's")
     out = dict(max_abs_err=0.0, max_rel_err=0.0, rows=[], **cfg)
     for group, k, shapes, w_np in groups:
@@ -3611,6 +3616,15 @@ WKV6_TRAIN_CASES = (
 )
 
 
+# B.7 backward's device us per WKV6_TRAIN_CASES row in its first design
+# (one CTA per (b, h)), timed by tests/wkv6_bwd_variants.py --root <that
+# tree> at these shapes on an H100 80GB HBM3 at 700 W (chip_smoke.py's own
+# run of that design read 113.87 and 62.77 for the first two)
+PARENT_BWD_US = {"rwkv6-7b train": 109.80, "hd 16": 62.49,
+                 "w = 1e-6, given state, T = 19": 35.71,
+                 "init decay, given state, hd 16, T = 37": 31.85}
+
+
 def wkv6_bwd_bound(b, h, t, hd, given_state: bool = False) -> tuple[float, str]:
     """Least time of one B.7 backward call: r, k, v, w and dy read, dr, dk,
     dv and dw written once, u read and du written once (and a given state,
@@ -3677,8 +3691,12 @@ def _wkv6_bwd_case(gen, tag, b, h, t, hd, decay, given) -> dict:
                max_abs_err=abs_err, bitwise_repeat=True, ms=cuda_ms(call, iters=50),
                device_ms=device_ms(call, 20, KERNELS["wkv6_bwd"][2]),
                plain_ms=cuda_ms(lambda: wkv6_bwd_ref(*args), iters=3, warmup=1),
-               bound_ms=bound, bound_by=by, library_ms=None)
-    log("[train-rwkv] " + json.dumps(row))
+               bound_ms=bound, bound_by=by, library_ms=None,
+               parent_device_us=PARENT_BWD_US[tag])
+    parent = row["parent_device_us"]
+    log(f"[train-rwkv] B.7 backward {tag}: device {1e3 * row['device_ms']:.2f} us "
+        f"[{parent:.2f} before the redesign], bound {1e3 * bound:.3f} us ({by}): "
+        + json.dumps(row))
     return row
 
 
@@ -3853,6 +3871,57 @@ def phase_examples() -> dict:
     return out
 
 
+def _node_call_timing(params, grads, updated, w, scale, eta, names) -> dict:
+    """Node 0's per-node update over every leaf of the fmnist MLP: one
+    ``gossip_update_tree`` call (one launch) against the same update leaf by
+    leaf through the one-leaf ``kernel.gossip_update`` (its neighbours'
+    rows stacked first, a launch per leaf), in turns
+    (one-leaf, tree, tree, one-leaf): call time (CUDA events) and device
+    time (every device entry of a call, the profiler's median window); the
+    plain version's call time (the leaves through ``gossip_update_ref`` on
+    the card); the bound, the leaves' bytes and operations summed."""
+    import torch
+
+    from repro_torch.kernels.gossip_update import kernel as gk
+    from repro_torch.kernels.gossip_update.ops import gossip_update_tree
+    from repro_torch.kernels.gossip_update.ref import gossip_update_ref
+
+    nbrs = [j for j in range(K) if j != 0 and float(w[0, j]) > 0]
+    weights = torch.stack([w[0, 0]] + [w[0, j] for j in nbrs])
+    theta = {n: params[n][0] for n in names}
+    grad = {n: grads[n][0] for n in names}
+    nbr_trees = [{n: updated[n][j] for n in names} for j in nbrs]
+
+    def tree():
+        gossip_update_tree(theta, grad, nbr_trees, weights, scale[0], eta=eta)
+
+    def one_leaf():
+        for n in names:
+            gk.gossip_update(theta[n].reshape(-1), grad[n].reshape(-1),
+                             torch.stack([t[n].reshape(-1) for t in nbr_trees]), weights,
+                             scale[0], eta=eta)
+
+    def plain():
+        for n in names:
+            gossip_update_ref(theta[n].reshape(-1), grad[n].reshape(-1),
+                              torch.stack([t[n].reshape(-1) for t in nbr_trees]), weights,
+                              scale[0], eta=eta)
+
+    readings = {"one_leaf": [], "tree": []}
+    for side in ("one_leaf", "tree", "tree", "one_leaf"):
+        fn = tree if side == "tree" else one_leaf
+        readings[side].append((cuda_ms(fn, iters=200, warmup=5), window_device_ms(fn, 50)))
+    mean = {side: [sum(r[j] for r in rs) / len(rs) for j in (0, 1)]
+            for side, rs in readings.items()}
+    bounds = [gossip_bound(1, theta[n].numel(), len(nbrs)) for n in names]
+    return dict(leaves=len(names), n=len(nbrs), ms=mean["tree"][0], device_ms=mean["tree"][1],
+                one_leaf_ms=mean["one_leaf"][0], one_leaf_device_ms=mean["one_leaf"][1],
+                plain_ms=cuda_ms(plain, iters=50, warmup=2),
+                bound_ms=sum(b for b, _ in bounds),
+                bound_by="bytes" if {by for _, by in bounds} == {"bytes"} else "operations",
+                readings=readings)
+
+
 def phase_gossip_update_nodes(spec_cls) -> dict:
     """The per-node form's path: one fmnist dense DR-DSGD step recomputed
     node by node through ``gossip_update_tree`` (node i combines its own
@@ -3869,6 +3938,7 @@ def phase_gossip_update_nodes(spec_cls) -> dict:
         gossip_update_stacked_grouped,
         gossip_update_tree,
     )
+    from repro_torch.kernels.gossip_update.ref import gossip_update_ref
     from repro_torch.models import make_classifier_loss, mlp_apply
 
     exp, fed, batches, params = _fmnist()
@@ -3895,7 +3965,19 @@ def phase_gossip_update_nodes(spec_cls) -> dict:
                                        weights, scale[i], eta=eta))
     torch.cuda.synchronize()
     counts = kernel_counts()
-    check_counts("b1-nodes", counts, {"gossip_update": K * len(names)})
+    check_counts("b1-nodes", counts, {"gossip_update": K})  # one launch per node
+    for i, row in enumerate(rows):  # each node bit-equal to the plain version, leaf by leaf
+        nbrs = [j for j in range(K) if j != i and float(w[i, j]) > 0]
+        weights = torch.stack([w[i, i]] + [w[i, j] for j in nbrs])
+        for n in names:
+            want = gossip_update_ref(state.params[n][i].reshape(-1), grads[n][i].reshape(-1),
+                                     torch.stack([updated[n][j].reshape(-1) for j in nbrs]),
+                                     weights, scale[i], eta=eta)
+            if not torch.equal(row[n].reshape(-1), want):
+                raise AssertionError(f"[b1-nodes] node {i} leaf {n}: the per-node kernel is "
+                                     f"not its plain version (max abs err "
+                                     f"{_max_diff(row[n].reshape(-1), want)})")
+    node = _node_call_timing(state.params, grads, updated, w, scale, eta, names)
     # the stacked form of the same update: one grouped launch over every
     # leaf, then leaf by leaf through the one-leaf calls
     reset_counts()
@@ -3912,6 +3994,7 @@ def phase_gossip_update_nodes(spec_cls) -> dict:
     err = max(_rel_err(torch.stack([r[n] for r in rows]), fused.params[n]) for n in names)
     err_stacked = max(_rel_err(g, fused.params[n]) for g, n in zip(grouped, names))
     rec = dict(nodes=K, leaves=len(names), launches=counts["gossip_update"][0],
+               bitwise_vs_plain=True, node_call=node,
                stacked_launches=stacked["gossip_update_stacked"][0],
                rel_err_vs_fused_step=err, one_leaf_equals_grouped=leaves_equal,
                grouped_rel_err_vs_fused_step=err_stacked)
@@ -4514,17 +4597,24 @@ def main() -> int:
         "wkv6_scan": {"rwkv6-7b 2 layers": engine["cut-rwkv6_7b"]["launches"]["wkv6_scan"]}}
     lines = []
     for name, (source, replaces, _) in KERNELS.items():
-        if name in ("gossip_update", "gossip_update_stacked"):
-            # one call per leaf: the fmnist MLP's (per node), qwen2-0.5b's (stacked)
-            rows = [r for r in b1[name]["rows"]
-                    if r["group"] == ("mlp" if name == "gossip_update" else "qwen2")]
+        if name == "gossip_update":
+            # one per-node call over every leaf of the fmnist MLP (node 0),
+            # beside the six one-leaf calls in the same turns
+            node = b1_nodes["node_call"]
+            timing = {key: node[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "one_leaf_ms",
+                                                 "one_leaf_device_ms")}
+            timing["library_ms"] = None
+            err, launches = b1[name]["max_abs_err"], path[name][name]
+        elif name == "gossip_update_stacked":
+            # one call per leaf: qwen2-0.5b's
+            rows = [r for r in b1[name]["rows"] if r["group"] == "qwen2"]
             step = b1[name]["per_step"][rows[0]["group"]]
             timing = dict(ms=step["ms"], device_ms=step["device_ms"], plain_ms=step["plain_ms"],
                           bound_ms=step["bound_ms"],
                           bound_by="bytes" if {r["bound_by"] for r in rows} == {"bytes"}
                           else "operations", library_ms=None)
-            if name == "gossip_update_stacked":  # and at the fmnist MLP's leaves
-                timing["mlp"] = b1[name]["per_step"]["mlp"]
+            timing["mlp"] = b1[name]["per_step"]["mlp"]  # and at the fmnist MLP's leaves
             err, launches = b1[name]["max_abs_err"], path[name][name]
         elif name == "gossip_update_stacked_grouped":
             # one call over the fmnist MLP's leaves (the path), beside the six

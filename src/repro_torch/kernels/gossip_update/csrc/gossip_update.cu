@@ -5,13 +5,13 @@
 // (`_gossip_update_kernel`, `gossip_update`, pallas_call :54).  Two entry
 // points:
 //
-//   gossip_update_<t>                  the reference's per-node form: for
-//       one node
-//       out = W_ii (theta - eta s g) + sum_n W_in nbr_n
-//       with theta, g (D,), the neighbours' updated parameters nbr (N, D),
-//       weights (N+1,) (self weight first) and the node's scale s (),
-//       accumulated in float32 and returned in theta's dtype;
-//       out = weights[0] (theta - eta s g) when N = 0.
+//   gossip_update_nodes_<t>            the reference's per-node form over
+//       every leaf l of one node's tree at once (one leaf is a group of one):
+//       out_l = W_ii (theta_l - eta s g_l) + sum_n W_in nbr_{n,l}
+//       with theta_l, g_l (D_l,), the neighbours' updated parameters
+//       nbr_{n,l} (D_l,) each, weights (N+1,) (self weight first) and the
+//       node's scale s (), accumulated in float32 and returned in theta's
+//       dtype; out = weights[0] (theta - eta s g) when N = 0.
 //   gossip_update_stacked_grouped_<t>  every node of every node-stacked
 //       leaf of a group at once, the form the decentralized train step
 //       runs (one launch per step over every leaf; one leaf is a group of
@@ -37,6 +37,15 @@
 // is an FMA chain over j = 0..K-1 from 0, and the two agree within
 // rounding.  Every leaf of a group, and a leaf alone, gets the same chain,
 // so the grouped and one-leaf launches give the same bits.
+//
+// Design of the per-node form.  The leaves go to the kernel by value, as a
+// __grid_constant__ table like the stacked form's: theta, g and out
+// pointers, D and the CTAs of the launch's earlier leaves per leaf, and
+// every leaf's neighbour pointers in one pool of kNbrPool (leaf l's
+// neighbour n at l N + n), so the neighbours' rows are read where they lie:
+// no stacked copy.  A group of more than kMaxLeaves leaves, or of more
+// leaves than the pool holds at N, is split by the caller.  Each CTA covers
+// kCols columns of one leaf, a thread 4 columns kThreads apart (coalesced).
 //
 // Bound: memory.  The stacked form reads theta and g once and writes out
 // once, 3 K D elements (at K = 8, the qwen2-0.5b node-stacked parameters:
@@ -81,6 +90,8 @@ constexpr int kMaxNodes = 64;              // the stacked form's largest K
 constexpr int kColsPerThread = 4;
 constexpr long long kCols = static_cast<long long>(kThreads) * kColsPerThread;  // per CTA
 constexpr int kStackedDesc = 5;            // longs per leaf in a stacked descriptor
+constexpr int kNodeDesc = 5;               // longs per leaf in a per-node descriptor
+constexpr int kNbrPool = 384;              // neighbour pointers per per-node launch
 
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) {
@@ -95,21 +106,51 @@ __device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// -- the per-node form, grouped -----------------------------------------------
+
+template <typename T>
+struct NodeLeaf {
+  const T* theta;
+  const T* grad;
+  T* out;
+  long long d;          // columns
+  long long cta_begin;  // CTAs of the launch's earlier leaves
+};
+
+template <typename T>
+struct NodeTable {
+  NodeLeaf<T> leaf[kMaxLeaves];
+  const T* nbr[kNbrPool];  // leaf l's neighbour n at l * n_nbrs + n
+  const float* weights;    // (N + 1,), the self weight first
+  const float* scale;      // ()
+  float eta;
+  int n;        // leaves
+  int n_nbrs;   // N
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gossip_update_kernel(const T* __restrict__ theta, const T* __restrict__ grad,
-                     const T* __restrict__ nbrs, const float* __restrict__ weights,
-                     const float* __restrict__ scale, T* __restrict__ out, long long d,
-                     int n, long long nbr_stride, float eta) {
-  const long long c = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (c >= d) return;
-  const float es = __fmul_rn(eta, __ldg(scale));
-  const float upd = __fsub_rn(load(theta + c), __fmul_rn(es, load(grad + c)));
-  float acc = __fmul_rn(__ldg(weights), upd);
-  for (int j = 0; j < n; ++j) {
-    acc = __fadd_rn(acc, __fmul_rn(__ldg(weights + j + 1), load(nbrs + j * nbr_stride + c)));
+gossip_update_kernel(const __grid_constant__ NodeTable<T> t) {
+  const long long cta = blockIdx.x;
+  int l = 0;
+  while (l + 1 < t.n && cta >= t.leaf[l + 1].cta_begin) ++l;
+  const NodeLeaf<T>& L = t.leaf[l];
+  const T* const* nbr = t.nbr + l * t.n_nbrs;
+  const long long c0 = (cta - L.cta_begin) * kCols + threadIdx.x;
+  const float es = __fmul_rn(t.eta, __ldg(t.scale));
+  const float w0 = __ldg(t.weights);
+#pragma unroll 1
+  for (int p = 0; p < kColsPerThread; ++p) {
+    const long long c = c0 + static_cast<long long>(p) * kThreads;
+    if (c >= L.d) break;
+    const float upd = __fsub_rn(load(L.theta + c), __fmul_rn(es, load(L.grad + c)));
+    float acc = __fmul_rn(w0, upd);
+#pragma unroll 4
+    for (int j = 0; j < t.n_nbrs; ++j) {
+      acc = __fadd_rn(acc, __fmul_rn(__ldg(t.weights + j + 1), load(nbr[j] + c)));
+    }
+    store(L.out + c, acc);
   }
-  store(out + c, acc);
 }
 
 // -- the stacked form, grouped ---------------------------------------------------
@@ -298,19 +339,36 @@ gossip_update_stacked_grouped_kernel(const __grid_constant__ StackedTable<T> t) 
   }
 }
 
-unsigned blocks(long long d) { return static_cast<unsigned>((d + kThreads - 1) / kThreads); }
-
 bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 template <typename T>
-int per_node(const T* theta, const T* grad, const T* nbrs, const float* weights,
-             const float* scale, T* out, long long d, int n, long long nbr_stride, float eta,
-             cudaStream_t stream) {
-  if (d <= 0) return cudaSuccess;
-  gossip_update_kernel<T><<<blocks(d), kThreads, 0, stream>>>(theta, grad, nbrs, weights, scale,
-                                                              out, d, n, nbr_stride, eta);
+int per_node(const long long* desc, int n, const long long* nbrs, int n_nbrs,
+             const float* weights, const float* scale, float eta, cudaStream_t stream) {
+  if (n <= 0 || n > kMaxLeaves || n_nbrs < 0 || n * n_nbrs > kNbrPool)
+    return cudaErrorInvalidValue;
+  NodeTable<T> t = {};
+  t.weights = weights;
+  t.scale = scale;
+  t.eta = eta;
+  t.n = n;
+  t.n_nbrs = n_nbrs;
+  long long ctas = 0;
+  for (int l = 0; l < n; ++l) {
+    const long long* e = desc + kNodeDesc * l;
+    NodeLeaf<T>& L = t.leaf[l];
+    L.theta = reinterpret_cast<const T*>(e[0]);
+    L.grad = reinterpret_cast<const T*>(e[1]);
+    L.out = reinterpret_cast<T*>(e[2]);
+    L.d = e[3];
+    L.cta_begin = e[4];
+    if (L.d <= 0 || L.cta_begin != ctas) return cudaErrorInvalidValue;
+    ctas += (L.d + kCols - 1) / kCols;
+  }
+  for (int i = 0; i < n * n_nbrs; ++i) t.nbr[i] = reinterpret_cast<const T*>(nbrs[i]);
+  if (ctas > INT_MAX) return cudaErrorInvalidConfiguration;
+  gossip_update_kernel<T><<<static_cast<unsigned>(ctas), kThreads, 0, stream>>>(t);
   return cudaGetLastError();
 }
 
@@ -359,28 +417,32 @@ int stacked_grouped(const long long* desc, int n, const float* w, const float* s
 
 }  // namespace
 
-// The stacked form's fixed sizes, for the caller's leaf table: {leaves per
-// launch, largest K, columns per CTA}.
+// The fixed sizes, for the caller's leaf tables: {leaves per launch, the
+// stacked form's largest K, columns per CTA, the per-node form's pool of
+// neighbour pointers}.
 extern "C" void gossip_update_config(long long* out) {
   out[0] = kMaxLeaves;
   out[1] = kMaxNodes;
   out[2] = kCols;
+  out[3] = kNbrPool;
 }
 
-// theta, grad, out (D,); nbrs (N, D) with row stride nbr_stride (elements);
-// weights (N+1,) and scale () float32 on the device.  Returns a cudaError_t.
-extern "C" int gossip_update_f32(const float* theta, const float* grad, const float* nbrs,
-                                 const float* weights, const float* scale, float* out,
-                                 long long d, int n, long long nbr_stride, float eta,
-                                 cudaStream_t stream) {
-  return per_node(theta, grad, nbrs, weights, scale, out, d, n, nbr_stride, eta, stream);
+// The per-node form over n <= kMaxLeaves leaves of one node.  desc holds,
+// per leaf, kNodeDesc longs: theta, grad, out ((d,), of the entry point's
+// dtype), d, and the prefix count of CTAs (ceil(d / kCols) per leaf) before
+// it; nbrs n * n_nbrs pointers (leaf l's neighbour j at l * n_nbrs + j, each
+// (d,) of the leaf's d), n * n_nbrs <= kNbrPool; weights (n_nbrs + 1,) and
+// scale () float32 on the device.  Returns a cudaError_t.
+extern "C" int gossip_update_nodes_f32(const long long* desc, int n, const long long* nbrs,
+                                       int n_nbrs, const float* weights, const float* scale,
+                                       float eta, cudaStream_t stream) {
+  return per_node<float>(desc, n, nbrs, n_nbrs, weights, scale, eta, stream);
 }
 
-extern "C" int gossip_update_bf16(const __nv_bfloat16* theta, const __nv_bfloat16* grad,
-                                  const __nv_bfloat16* nbrs, const float* weights,
-                                  const float* scale, __nv_bfloat16* out, long long d, int n,
-                                  long long nbr_stride, float eta, cudaStream_t stream) {
-  return per_node(theta, grad, nbrs, weights, scale, out, d, n, nbr_stride, eta, stream);
+extern "C" int gossip_update_nodes_bf16(const long long* desc, int n, const long long* nbrs,
+                                        int n_nbrs, const float* weights, const float* scale,
+                                        float eta, cudaStream_t stream) {
+  return per_node<__nv_bfloat16>(desc, n, nbrs, n_nbrs, weights, scale, eta, stream);
 }
 
 // The stacked form over n <= kMaxLeaves leaves of K <= kMaxNodes nodes each.

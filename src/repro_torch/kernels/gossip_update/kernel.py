@@ -5,7 +5,12 @@ Replaces the Pallas TPU kernel ``repro/kernels/gossip_update/kernel.py``
 ``csrc/gossip_update.cu``, built by :mod:`repro_torch.kernels._build`; the
 source's header note gives its bound and design.
 
-Three wrappers: :func:`gossip_update`, the reference's per-node form;
+Four wrappers: :func:`gossip_update_leaves`, the reference's per-node form
+over every leaf of one node's tree in one launch (up to
+:data:`MAX_GROUP_LEAVES` leaves and :data:`NODE_NBR_POOL` neighbour rows
+per launch, a larger group split by :func:`node_tables`), reading each
+neighbour's row where it lies; :func:`gossip_update`, one leaf with its
+neighbours' rows stacked (N, D), a one-leaf group of the same kernel;
 :func:`gossip_update_stacked_grouped`, every node of every node-stacked
 leaf of a group in one launch (the form the train step runs, once per
 step; up to :data:`MAX_GROUP_LEAVES` leaves per launch, a larger group
@@ -13,7 +18,8 @@ split by :func:`leaf_tables`); and :func:`gossip_update_stacked`, one leaf,
 a one-leaf group of the same kernel.  Each takes float32 or bfloat16
 parameters and float32 weights and scales on the card, raises on anything
 its kernel does not take (it never runs the plain version itself) and adds
-one to its ``.launches`` for each launch.
+one to a ``.launches`` for each launch: the per-node kernel's launches,
+from either of its wrappers, count on ``gossip_update.launches``.
 """
 
 from __future__ import annotations
@@ -29,10 +35,12 @@ SOURCE = "gossip_update/csrc/gossip_update.cu"
 # the fixed sizes of csrc/gossip_update.cu (its gossip_update_config)
 MAX_NODES = 64          # the stacked kernel's largest K
 MAX_GROUP_LEAVES = 16   # leaves per stacked launch
-STACKED_COLS = 1024     # columns of a leaf per CTA
+STACKED_COLS = 1024     # columns of a leaf per CTA (both forms)
+NODE_NBR_POOL = 384     # neighbour rows per per-node launch (over its leaves)
+MAX_NEIGHBORS = MAX_NODES - 1  # the per-node form's largest N
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-_NODE_ARGS = (_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _F, _P)
+_NODE_ARGS = (_P, _I, _P, _I, _P, _P, _F, _P)
 _GROUPED_ARGS = (_P, _I, _P, _P, _I, _F, _P)
 
 
@@ -48,6 +56,18 @@ def leaf_tables(dims, cap: int = MAX_GROUP_LEAVES) -> list[list[tuple[int, int]]
     (leaf index, CTAs of the launch's earlier leaves); a leaf with no
     columns is left out."""
     return _leaf_tables([stacked_ctas(d) for d in dims], cap)
+
+
+def node_tables(dims, n_nbrs: int) -> list[list[tuple[int, int]]]:
+    """The per-node launches of one node's leaves of ``dims`` columns each
+    with ``n_nbrs`` neighbours: :func:`leaf_tables` at a cap of
+    :data:`MAX_GROUP_LEAVES` leaves, lowered so that a launch's neighbour
+    rows fit the pool of :data:`NODE_NBR_POOL`."""
+    if not 0 <= n_nbrs <= MAX_NEIGHBORS:
+        raise ValueError(f"the per-node gossip-update kernel takes 0..{MAX_NEIGHBORS} "
+                         f"neighbours, got {n_nbrs}")
+    cap = MAX_GROUP_LEAVES if n_nbrs == 0 else min(MAX_GROUP_LEAVES, NODE_NBR_POOL // n_nbrs)
+    return leaf_tables(dims, cap)
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device, dtype: torch.dtype,
@@ -70,24 +90,94 @@ def _dtype(theta: torch.Tensor) -> str:
     return _SUFFIX[theta.dtype]
 
 
+def _node_launches(thetas, grads, nbr_ptrs, n, weights, scale, eta):
+    """The per-node kernel over every leaf of one node, the leaves checked
+    by the caller, ``nbr_ptrs`` per leaf the N neighbours' row addresses;
+    returns (outs, launches)."""
+    dev = thetas[0].device
+    if not 0 <= n <= MAX_NEIGHBORS:
+        raise ValueError(f"the per-node gossip-update kernel takes 0..{MAX_NEIGHBORS} "
+                         f"neighbours, got {n}")
+    _check("weights", weights, dev, torch.float32, (n + 1,))
+    _check("scale", scale, dev, torch.float32, ())
+    outs = [torch.empty_like(theta) for theta in thetas]
+    symbol = f"gossip_update_nodes_{_SUFFIX[thetas[0].dtype]}"
+    fn = _build.entry(SOURCE, symbol, _NODE_ARGS)
+    tables = ([[(0, 0)]] if len(thetas) == 1 and thetas[0].numel()
+              else node_tables([theta.numel() for theta in thetas], n))
+    for table in tables:
+        desc, nbrs = node_descriptors(table, thetas, grads, outs, nbr_ptrs)
+        desc_c = (_LL * len(desc))(*desc)  # kept alive until the launch returns
+        nbrs_c = (_LL * max(len(nbrs), 1))(*nbrs)
+        _build.launch(fn, symbol, dev, ctypes.addressof(desc_c), len(table),
+                      ctypes.addressof(nbrs_c), n, weights.data_ptr(), scale.data_ptr(),
+                      float(eta))
+    return outs, len(tables)
+
+
+def node_descriptors(table, thetas, grads, outs, nbr_ptrs) -> tuple[list[int], list[int]]:
+    """One per-node launch's arguments (csrc/gossip_update.cu,
+    gossip_update_nodes_<t>): per leaf of ``table`` its theta, grad and
+    out pointers, columns and earlier CTAs; and the neighbour pool, the
+    table's l-th leaf's neighbour j at l N + j (``nbr_ptrs`` per leaf)."""
+    desc = [v for leaf, begin in table for v in (
+        thetas[leaf].data_ptr(), grads[leaf].data_ptr(), outs[leaf].data_ptr(),
+        thetas[leaf].numel(), begin)]
+    return desc, [p for leaf, _ in table for p in nbr_ptrs[leaf]]
+
+
+def gossip_update_leaves(thetas, grads, neighbors, weights: torch.Tensor, scale: torch.Tensor,
+                         *, eta: float) -> list[torch.Tensor]:
+    """Every leaf of one node at once: ``thetas``, ``grads`` lists of
+    contiguous leaves of one dtype (float32 or bfloat16; any shape, D_l
+    elements); ``neighbors`` per leaf a list of the N neighbours' updated
+    leaves (contiguous, D_l elements each), in the node's neighbour order
+    (N <= :data:`MAX_NEIGHBORS`, the same for every leaf); weights (N+1,)
+    and scale () float32 -> [``W_ii·(θ_l − η·s·g_l) + Σ_n W_in·nbr_{n,l}``],
+    one new tensor per leaf in θ_l's shape.  One launch per
+    :func:`node_tables` table (one for the fmnist MLP's 6 leaves), each
+    adding one to ``gossip_update.launches``."""
+    if not thetas or len(grads) != len(thetas) or len(neighbors) != len(thetas):
+        raise ValueError(f"gossip_update_leaves takes one or more leaves and one gradient "
+                         f"and one neighbour list per leaf, got {len(thetas)} thetas, "
+                         f"{len(grads)} grads and {len(neighbors)} neighbour lists")
+    _dtype(thetas[0])
+    dev, dtype, n = thetas[0].device, thetas[0].dtype, len(neighbors[0])
+    for theta, grad, nbrs in zip(thetas, grads, neighbors):
+        _check("theta", theta, dev, dtype, theta.shape)
+        _check("grad", grad, dev, dtype, theta.shape)
+        if len(nbrs) != n:
+            raise ValueError(f"every leaf takes the node's {n} neighbours, got {len(nbrs)}")
+        d = theta.numel()
+        for nbr in nbrs:
+            if nbr.numel() != d or nbr.dtype != dtype or not nbr.is_contiguous() or \
+                    nbr.device != dev:
+                raise ValueError(f"a neighbour's leaf must be a contiguous {dtype} of {d} "
+                                 f"elements on {dev}, got {tuple(nbr.shape)} {nbr.dtype} "
+                                 f"on {nbr.device}")
+    outs, launched = _node_launches(thetas, grads,
+                                    [[x.data_ptr() for x in nbrs] for nbrs in neighbors], n,
+                                    weights, scale, eta)
+    gossip_update.launches += launched
+    return outs
+
+
 def gossip_update(theta: torch.Tensor, grad: torch.Tensor, neighbors: torch.Tensor,
                   weights: torch.Tensor, scale: torch.Tensor, *, eta: float) -> torch.Tensor:
     """theta, grad: (D,); neighbors: (N, D); weights: (N+1,) and scale ()
-    float32 -> (D,) in θ's dtype.  Adds one to ``gossip_update.launches``."""
-    suffix = _dtype(theta)
-    dev, (d,) = theta.device, theta.shape
-    n = neighbors.shape[0]
+    float32 -> (D,) in θ's dtype.  A one-leaf group of the per-node kernel
+    (the rows of ``neighbors`` read in place); adds one to
+    ``gossip_update.launches``."""
+    _dtype(theta)
+    dev, (d,), n = theta.device, theta.shape, neighbors.shape[0]
     _check("grad", grad, dev, theta.dtype, (d,))
     _check("neighbors", neighbors, dev, theta.dtype, (n, d))
-    _check("weights", weights, dev, torch.float32, (n + 1,))
-    _check("scale", scale, dev, torch.float32, ())
     _check("theta", theta, dev, theta.dtype, (d,))
-    out = torch.empty_like(theta)
-    symbol = f"gossip_update_{suffix}"
-    _build.launch(_build.entry(SOURCE, symbol, _NODE_ARGS), symbol, dev,
-                  theta.data_ptr(), grad.data_ptr(), neighbors.data_ptr(), weights.data_ptr(),
-                  scale.data_ptr(), out.data_ptr(), d, n, d, float(eta))
-    gossip_update.launches += 1
+    row = d * neighbors.element_size()
+    [out], launched = _node_launches([theta], [grad],
+                                     [[neighbors.data_ptr() + j * row for j in range(n)]], n,
+                                     weights, scale, eta)
+    gossip_update.launches += launched
     return out
 
 
@@ -150,12 +240,12 @@ def gossip_update_stacked(theta: torch.Tensor, grad: torch.Tensor, w: torch.Tens
 
 
 def config() -> dict:
-    """The stacked kernel's fixed sizes as compiled (builds the source)."""
+    """The kernels' fixed sizes as compiled (builds the source)."""
     fn = _build.entry(SOURCE, "gossip_update_config", (_P,))
     fn.restype = None
-    out = (_LL * 3)()
+    out = (_LL * 4)()
     fn(ctypes.addressof(out))
-    return dict(zip(("max_group_leaves", "max_nodes", "stacked_cols"), out))
+    return dict(zip(("max_group_leaves", "max_nodes", "stacked_cols", "node_nbr_pool"), out))
 
 
 # launches of each kernel since the last reset (the main path's proof of use)

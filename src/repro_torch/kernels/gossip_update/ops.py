@@ -27,27 +27,45 @@ def gossip_update_flat(theta, grad, neighbors, weights, scale, *, eta: float):
 
 def gossip_update_tree(theta_tree, grad_tree, neighbor_trees, weights, scale, *,
                        eta: float):
-    """:func:`gossip_update_flat` leaf by leaf over a (nested) dict.
+    """:func:`gossip_update_flat` over every leaf of a (nested) dict.
 
     ``neighbor_trees`` is a list of dicts shaped like ``theta_tree``, one
     per neighbour; ``weights`` is (N+1,) with the self weight first.
-    Returns a dict of the same structure."""
+    Returns a dict of the same structure.  On the card every leaf goes to
+    one launch of the per-node kernel (:func:`kernel.gossip_update_leaves`,
+    the neighbours' leaves read in place); on the CPU the plain version
+    runs leaf by leaf."""
     scale = torch.as_tensor(scale, dtype=torch.float32)
+    paths = []
 
-    def leaf(path, th, g):
-        nbrs = [_at(t, path) for t in neighbor_trees]
-        nb = (torch.stack([x.reshape(-1) for x in nbrs]) if nbrs
-              else th.new_zeros((0, th.numel())))
-        out = gossip_update_flat(th.reshape(-1), g.reshape(-1), nb, weights,
-                                 scale.to(th.device), eta=eta)
-        return out.reshape(th.shape)
-
-    def walk(th, g, path):
+    def collect(th, path):
         if isinstance(th, dict):
-            return {key: walk(th[key], g[key], path + (key,)) for key in th}
-        return leaf(path, th, g)
+            for key in th:
+                collect(th[key], path + (key,))
+        else:
+            paths.append(path)
 
-    return walk(theta_tree, grad_tree, ())
+    collect(theta_tree, ())
+    thetas = [_at(theta_tree, p) for p in paths]
+    grads = [_at(grad_tree, p) for p in paths]
+    nbrs = [[_at(t, p) for t in neighbor_trees] for p in paths]
+    if thetas and _build.route("gossip_update", thetas[0]):
+        flat = _k.gossip_update_leaves(thetas, grads, nbrs, weights,
+                                       scale.to(thetas[0].device), eta=eta)
+    else:
+        flat = [gossip_update_flat(th.reshape(-1), g.reshape(-1),
+                                   torch.stack([x.reshape(-1) for x in nb]) if nb
+                                   else th.new_zeros((0, th.numel())), weights,
+                                   scale.to(th.device), eta=eta)
+                for th, g, nb in zip(thetas, grads, nbrs)]
+    outs = iter(flat)
+
+    def rebuild(th):
+        if isinstance(th, dict):
+            return {key: rebuild(th[key]) for key in th}
+        return next(outs).view(th.shape)
+
+    return rebuild(theta_tree)
 
 
 def _at(tree, path):

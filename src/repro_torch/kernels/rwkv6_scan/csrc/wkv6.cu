@@ -58,7 +58,8 @@
 // Staging.  Time runs in chunks of C steps.  A chunk of r, k, w and v lands
 // in one of two shared buffers by four TMA requests (a 4-d tensor map over
 // each (B, H, T, hd) view, rows past T zero-filled, completion counted on
-// the buffer's mbarrier), issued one chunk ahead, so chunk c + 1 lands
+// the buffer's mbarrier; the helpers in tma_rows.cuh, shared with the
+// backward), issued one chunk ahead, so chunk c + 1 lands
 // while chunk c runs.  (A first version copied each row by its own
 // cp.async.bulk, 128 requests per chunk: the copy engine then took longer
 // than the chunk's arithmetic; tests/wkv6_variants.py.)  TMA needs every
@@ -69,17 +70,14 @@
 // template parameter (16: R 4, J 2, 32 threads; 64: R 8, J 4, 128
 // threads); the wrapper raises on any other.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
-namespace {
+#include "tma_rows.cuh"
 
-struct Strides {
-  long long b, h, t;  // batch, head and time strides; head dims are contiguous
-};
+namespace {
 
 template <int HD>
 struct Shape;
@@ -129,38 +127,6 @@ struct Args {
   Strides in, out;
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// thread 0: expect `bytes` more on bar (one arrival of its count of 1)
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// every thread: wait for bar's phase `parity` to complete; a copy that never
-// lands traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  for (long long spin = 0;; ++spin) {
-    unsigned done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin > (1LL << 24)) __trap();
-  }
-}
-
 // thread 0: the chunk of C rows from row t0 on of (head, batch) of every
 // map into buf (r, k, w, v, dense; rows past T zero-filled), counted on
 // bar.  A CTA barrier in front of it orders every read of buf before these
@@ -172,14 +138,7 @@ __device__ __forceinline__ void tma_chunk(float* buf, const Args& a, int t0, int
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   mbar_expect(bar, static_cast<unsigned>(sizeof(float) * K::BUF));
 #pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(buf + x * K::TILE)),
-        "l"(reinterpret_cast<uint64_t>(&a.map[x])), "r"(0), "r"(t0), "r"(head), "r"(batch),
-        "r"(smem_addr(bar))
-        : "memory");
-  }
+  for (int x = 0; x < 4; ++x) tma_rows(buf + x * K::TILE, &a.map[x], t0, head, batch, bar);
 }
 
 // every thread: the chunk's n rows of r, k, w, v into buf with plain loads
@@ -382,53 +341,10 @@ wkv6_keysplit_kernel(const __grid_constant__ Args a) {
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda),
-// or null where the driver has none
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A TMA map of a (B, H, T, hd) float32 view given by its strides, copied
-// box_rows rows at a time; false (the caller loads with plain loads) where
-// a row is not on 16 bytes or the driver refuses the map.
-bool rows_map(CUtensorMap* map, const float* base, long long B, long long H, long long T,
-              long long hd, const Strides& s, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 || s.b % 4 != 0 ||
-      s.h % 4 != 0 || s.t % 4 != 0)
-    return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(T),
-                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.t) * 4,
-                                 static_cast<cuuint64_t>(s.h) * 4,
-                                 static_cast<cuuint64_t>(s.b) * 4};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(hd), static_cast<cuuint32_t>(box_rows), 1,
-                             1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base), dims, strides,
-            box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
 template <int HD>
 bool maps(Args& a, long long B) {
   for (int x = 0; x < 4; ++x) {
-    if (!rows_map(&a.map[x], a.src[x], B, a.H, a.T, HD, a.in, Cfg<HD>::C)) return false;
+    if (rows_map(&a.map[x], a.src[x], B, a.H, a.T, HD, a.in, Cfg<HD>::C) != 1) return false;
   }
   return true;
 }
@@ -495,5 +411,5 @@ extern "C" int wkv6_f32(const float* r, const float* k, const float* v, const fl
 extern "C" int wkv6_rows_tma(const float* base, long long B, long long H, long long T,
                              long long hd, long long sb, long long sh, long long st) {
   CUtensorMap map;
-  return rows_map(&map, base, B, H, T, hd, Strides{sb, sh, st}, Cfg<64>::C) ? 1 : 0;
+  return rows_map(&map, base, B, H, T, hd, Strides{sb, sh, st}, Cfg<64>::C) == 1 ? 1 : 0;
 }

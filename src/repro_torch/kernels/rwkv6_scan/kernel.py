@@ -18,9 +18,10 @@ run the plain version themselves.  They record nothing for autograd, so
 they refuse an input that requires grad while autograd records:
 ``ops.WKV6`` is the differentiable entry (its forward and backward run with
 grad mode off).
-The forward stages the chunks of r, k, w and v by TMA where every row is
-16-byte aligned (:func:`rows_by_tma`; the model's views are), by plain loads
-otherwise; the backward by plain loads.
+Both stage their chunks of r, k, w and v (and the backward's dy) by TMA
+where every row is 16-byte aligned (:func:`rows_by_tma`; the model's views
+are), by plain loads otherwise; the backward raises where the CUDA
+driver refuses the map of aligned rows.
 """
 
 from __future__ import annotations
@@ -34,6 +35,10 @@ from repro_torch.kernels import _build
 SOURCE = "rwkv6_scan/csrc/wkv6.cu"
 BWD_SOURCE = "rwkv6_scan/csrc/wkv6_bwd.cu"
 HEAD_DIMS = (16, 64)
+# the backward's shape per head dim, as csrc/wkv6_bwd.cu compiles it
+# (Shape<hd>; ``bwd_shape`` reads it back): CTAs per cluster (the column
+# split), columns per thread, steps per chunk (the checkpoint stride)
+BWD_SHAPE = {16: dict(nc=1, j=2, c=16), 64: dict(nc=2, j=4, c=8)}
 _P, _LL = ctypes.c_void_p, ctypes.c_longlong
 _ARGTYPES = (_P,) * 8 + (_LL,) * 4 + (_LL,) * 6 + (_P,)
 _BWD_ARGTYPES = (_P,) * 16 + (_LL,) * 4 + (_LL,) * 9 + (_P,)
@@ -122,8 +127,9 @@ def wkv6_bwd(r, k, v, w, u, dy, s0=None, ds=None):
     Returns (dr, dk, dv, dw in r's memory layout, du (H, hd), ds0 (B, H, hd,
     hd), or None when s0 is None), float32 on the card.  Launches the
     backward kernel (and its sum of du over the batches) on the current
-    stream and adds one to ``wkv6_bwd.launches``.  Scratch: the forward's
-    state every ``chunk(hd)`` steps, B H ceil(T / chunk) hd^2 floats.
+    stream and adds one to ``wkv6_bwd.launches``.  Scratch: the state at
+    the start of every ``chunk(hd)`` steps but the first, B H (ceil(T /
+    chunk) - 1) hd^2 floats; du's sums per batch.
     """
     b, h, t, hd = _check_scan("wkv6_bwd", r, k, v, w, u, s0)
     dev = r.device
@@ -141,8 +147,8 @@ def wkv6_bwd(r, k, v, w, u, dy, s0=None, ds=None):
         if ds0 is not None:
             ds0.zero_() if ds is None else ds0.copy_(ds)
         return dr, dk, dv, dw, du, ds0
-    n_chunks = -(-t // chunk(hd))
-    ckpt = torch.empty(b * h * n_chunks * hd * hd, dtype=torch.float32, device=dev)
+    n_ck = max(-(-t // chunk(hd)) - 1, 1)
+    ckpt = torch.empty(b * h * n_ck * hd * hd, dtype=torch.float32, device=dev)
     du_part = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
     fn = _build.entry(BWD_SOURCE, "wkv6_bwd_f32", _BWD_ARGTYPES)
     _build.launch(fn, "wkv6_bwd_f32", dev, r.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -156,6 +162,16 @@ def wkv6_bwd(r, k, v, w, u, dy, s0=None, ds=None):
 
 def _ptr(x):
     return None if x is None else x.data_ptr()
+
+
+def bwd_shape(hd: int) -> dict:
+    """The backward's shape at head dim ``hd`` as compiled (the keys of
+    :data:`BWD_SHAPE`).  Builds the kernels."""
+    fn = _build.entry(BWD_SOURCE, "wkv6_bwd_shape", (_LL, _P))
+    fn.restype = None
+    out = (_LL * 3)()
+    fn(hd, ctypes.addressof(out))
+    return dict(zip(("nc", "j", "c"), out))
 
 
 def chunk(hd: int) -> int:

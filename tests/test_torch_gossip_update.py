@@ -9,7 +9,10 @@
 - The node-stacked plain version against the reference's per-node kernel,
   row by row, on a Metropolis ring: node i's output is row i of
   W·(θ − η·s⊙g) (paper Eq. 9 / Eq. 20), at rtol 1e-5, atol 1e-5.
-- ``gossip_update_tree`` keeps the tree's structure.
+- ``gossip_update_tree`` keeps the tree's structure; the per-node launches
+  of a node's leaves (B.1 over every leaf at once, split at 16 leaves and at
+  the pool of 384 neighbour rows) equal a direct count, and each launch's
+  table points at every leaf and every neighbour's row in place.
 - The fused train step: 20 fmnist dense-none steps through the fused step
   (plain SGD + the static dense mixer, one ``gossip_update_stacked_grouped``
   call per step over every leaf) equal the unfused step (the optimizer and the mixer called
@@ -276,6 +279,53 @@ def test_stacked_leaf_tables_match_a_direct_count(dims, cap):
     assert all(len(t) <= cap for t in tables)
     assert [leaf for t in tables for leaf, _ in t] == [i for i, d in enumerate(dims) if d]
     assert gk.MAX_GROUP_LEAVES == 16 and gk.STACKED_COLS == 1024
+
+
+def _direct_node_tables(dims, n):
+    """Per-node launches: at most 16 leaves, and at most 384 // n of them
+    where n neighbours' rows would overflow the pool of 384."""
+    cap = 16 if n == 0 else min(16, 384 // n)
+    return _direct_stacked_tables(dims, cap)
+
+
+@pytest.mark.parametrize("n", [0, 1, 9, 24, 25, 63])
+@pytest.mark.parametrize("dims", [[100352, 128, 8192, 64, 640, 10],
+                                  [7, 0, 1025] + [33] * 30],
+                         ids=["mlp", "over-the-cap"])
+def test_node_tables_match_a_direct_count(dims, n):
+    """B.1's per-node launches for one node's leaves: the split at
+    MAX_GROUP_LEAVES and at the neighbour pool, against a direct count."""
+    tables = gk.node_tables(dims, n)
+    assert tables == _direct_node_tables(dims, n)
+    assert all(len(t) * n <= gk.NODE_NBR_POOL for t in tables)
+    if dims[0] == 100352 and n <= 24:
+        assert len(tables) == 1  # the fmnist MLP's 6 leaves: one launch per node
+    assert gk.NODE_NBR_POOL == 384 and gk.MAX_NEIGHBORS == 63
+
+
+def test_node_tables_refuse_more_than_63_neighbours():
+    with pytest.raises(ValueError, match="neighbours"):
+        gk.node_tables([8], 64)
+
+
+def test_node_descriptors_point_at_every_leaf_and_neighbour_row():
+    """The per-node launch's table and neighbour pool, against pointers
+    taken directly: leaf l's neighbour j at l N + j, no copy of a row."""
+    rng = np.random.default_rng(3)
+    dims, n = [5, 2000, 3, 1024, 1], 3
+    thetas, grads, outs = ([torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+                            for d in dims] for _ in range(3))
+    nbrs = [[torch.zeros(d) for _ in range(n)] for d in dims]
+    [table] = gk.node_tables(dims, n)
+    desc, pool = gk.node_descriptors(table, thetas, grads, outs,
+                                     [[x.data_ptr() for x in leaf] for leaf in nbrs])
+    begin = 0
+    for i, d in enumerate(dims):
+        assert desc[5 * i:5 * i + 5] == [thetas[i].data_ptr(), grads[i].data_ptr(),
+                                         outs[i].data_ptr(), d, begin]
+        begin += -(-d // gk.STACKED_COLS)
+        assert pool[n * i:n * i + n] == [x.data_ptr() for x in nbrs[i]]
+    assert len(pool) == n * len(dims)
 
 
 def test_grouped_stacked_kernel_refuses_what_it_does_not_take():

@@ -532,16 +532,20 @@ def _wkv_bwd_case(b, h, t, hd, decay, with_state, device, seed=0):
     return r, k, v, w, u, dy, s0, ds
 
 
-@pytest.mark.parametrize("b,h,t,hd", [(2, 64, 64, 64), (2, 8, 37, 16), (3, 5, 19, 64),
-                                      (2, 4, 1, 64), (1, 16, 70, 16)])
+@pytest.mark.parametrize("b,h,t,hd", [(2, 64, 64, 64), (2, 256, 64, 16), (2, 8, 37, 16),
+                                      (2, 4, 37, 64), (3, 5, 19, 64), (2, 8, 19, 16),
+                                      (2, 4, 1, 64), (2, 4, 1, 16), (1, 16, 70, 16),
+                                      (1, 4, 65, 64)])
 @pytest.mark.parametrize("decay", ["random", "init", "1e-6"])
 @pytest.mark.parametrize("with_state", [False, True])
 def test_wkv6_bwd_equals_plain(cuda, b, h, t, hd, decay, with_state):
-    """B.7's backward against its plain version (an explicit reverse loop),
-    each gradient within WKV_BWD_REL of its largest |value|: at rwkv6-7b's
-    training shape, at T not a multiple of the checkpoint stride, T = 1,
-    decay near 1 and w = 1e-6, from zero and from a given state with the
-    final state's cotangent; two calls give the same bits."""
+    """B.7's backward against its plain version (an explicit reverse loop)
+    and against autograd of the forward's plain version, each gradient
+    within WKV_BWD_REL of its largest |value|: at rwkv6-7b's training shape
+    and at hd 16, T = 1, 19, 37, 64 and off every stride (the checkpoint
+    chunk, the first sweep's copy of 4 chunks), decay near 1 and w = 1e-6,
+    from zero and from a given state with the final state's cotangent, on
+    the model's strided views; two calls give the same bits."""
     r, k, v, w, u, dy, s0, ds = _wkv_bwd_case(b, h, t, hd, decay, with_state, cuda)
     before = wk.wkv6_bwd.launches
     got = wk.wkv6_bwd(r, k, v, w, u, dy, s0, ds)
@@ -549,17 +553,34 @@ def test_wkv6_bwd_equals_plain(cuda, b, h, t, hd, decay, with_state):
     torch.cuda.synchronize()
     assert wk.wkv6_bwd.launches == before + 2
     want = wkv6_bwd_ref(r, k, v, w, u, dy, s0, ds)
+    leaves = [x.detach().clone().requires_grad_() for x in (r, k, v, w, u)]
+    state = s0.clone().requires_grad_() if with_state else None
+    y, s = wkv6_ref(*leaves, state)
+    loss = (y * dy).sum() + ((s * ds).sum() if with_state else 0.0)
+    inputs = leaves + ([state] if with_state else [])
+    auto = tuple(torch.zeros_like(x) if g is None else g for x, g in zip(
+        inputs, torch.autograd.grad(loss, inputs, allow_unused=True)))  # T = 1: w unused
     assert all(x.stride() == r.stride() for x in got[:4])
-    for name, x, y, z in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, again, want):
+    for name, x, y, z, a in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, again, want,
+                                auto + (None,) * (6 - len(auto))):
         if z is None:
             assert x is None and y is None, name
             continue
         assert torch.equal(x, y), name
         assert _rel(x, z) <= WKV_BWD_REL, (name, _rel(x, z))
+        assert _rel(x, a) <= WKV_BWD_REL, (name, _rel(x, a))
 
 
-def test_wkv6_bwd_takes_rows_off_16_byte_boundaries_and_dense_dy(cuda):
-    b, h, t, hd = 2, 8, 21, 64
+@pytest.mark.parametrize("hd", [16, 64])
+def test_wkv6_bwd_shape_is_compiled(cuda, hd):
+    """``BWD_SHAPE`` (which tests/test_torch_wkv6_bwd.py's CPU model of the
+    summation order reads) is the kernel's as compiled."""
+    assert wk.bwd_shape(hd) == wk.BWD_SHAPE[hd] and wk.chunk(hd) == wk.BWD_SHAPE[hd]["c"]
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+def test_wkv6_bwd_takes_rows_off_16_byte_boundaries_and_dense_dy(cuda, hd):
+    b, h, t = 2, 8, 21
     gen = torch.Generator(device=cuda).manual_seed(5)
 
     def view():
@@ -570,9 +591,17 @@ def test_wkv6_bwd_takes_rows_off_16_byte_boundaries_and_dense_dy(cuda):
     w.uniform_(0.0, 1.0, generator=gen)
     u = 0.5 * torch.randn((h, hd), generator=gen, device=cuda)
     dy = torch.randn((b, h, t, hd), generator=gen, device=cuda)
+    assert not wk.rows_by_tma(r)  # the plain-load template
     got = wk.wkv6_bwd(r, k, v, w, u, dy)
     torch.cuda.synchronize()
     want = wkv6_bwd_ref(r, k, v, w, u, dy)
+    for name, x, z in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        assert _rel(x, z) <= WKV_BWD_REL, (name, _rel(x, z))
+    # dense rows and a dense dy: the TMA template with dy's own strides
+    dense = [x.contiguous() for x in (r, k, v, w)]
+    assert wk.rows_by_tma(dense[0])
+    got = wk.wkv6_bwd(*dense, u, dy)
+    torch.cuda.synchronize()
     for name, x, z in zip(("dr", "dk", "dv", "dw", "du"), got, want):
         assert _rel(x, z) <= WKV_BWD_REL, (name, _rel(x, z))
 
@@ -666,6 +695,42 @@ def test_gossip_update_equals_plain(cuda, d, n, dtype):
     torch.cuda.synchronize()
     assert gk.gossip_update.launches == before + 1 and out.dtype == dtype
     assert torch.equal(out, want)  # the plain version's order, each op rounded once
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,dims", [(9, [100352, 128, 8192, 64, 640, 10]),
+                                    (0, [7, 1000]), (63, [33] * 20 + [5000])])
+def test_gossip_update_tree_is_one_launch_per_node(cuda, n, dims, dtype):
+    """B.1's per-node form over a node's whole tree: one launch for the
+    fmnist MLP's 6 leaves (N = 9, node 0 of the paper's graph), more only
+    where node_tables splits (16 leaves, or the pool of neighbour rows at N
+    = 63); every leaf equal bit for bit to the plain version, the
+    neighbours' leaves read where they lie."""
+    rng = np.random.default_rng(n + len(dims))
+
+    def leaves():
+        return {f"l{i:02d}": torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+                .to(cuda, dtype).reshape((d // 2, 2) if d % 2 == 0 else (d,))
+                for i, d in enumerate(dims)}
+
+    theta, grad = leaves(), leaves()
+    nbrs = [leaves() for _ in range(n)]
+    w = torch.softmax(torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32)), 0).to(cuda)
+    s = torch.tensor(1.3, device=cuda)
+    before, plain = gk.gossip_update.launches, gops.gossip_update_flat.plain_calls
+    out = gops.gossip_update_tree(theta, grad, nbrs, w, s, eta=0.05)
+    torch.cuda.synchronize()
+    assert gk.gossip_update.launches - before == len(gk.node_tables(dims, n))
+    assert gops.gossip_update_flat.plain_calls == plain
+    if n == 9:
+        assert gk.gossip_update.launches - before == 1
+    for name in theta:
+        stacked = (torch.stack([nb[name].reshape(-1) for nb in nbrs]) if nbrs
+                   else theta[name].new_zeros((0, theta[name].numel())))
+        want = gref.gossip_update_ref(theta[name].reshape(-1), grad[name].reshape(-1), stacked,
+                                      w, s, eta=0.05)
+        assert out[name].shape == theta[name].shape and out[name].dtype == dtype
+        assert torch.equal(out[name].reshape(-1), want), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1182,7 +1247,7 @@ def _stacked_group(k, dims, seed, dtype, device):
 
 def test_grouped_stacked_kernel_is_built_as_stated(cuda):
     assert gk.config() == dict(max_group_leaves=gk.MAX_GROUP_LEAVES, max_nodes=gk.MAX_NODES,
-                               stacked_cols=gk.STACKED_COLS)
+                               stacked_cols=gk.STACKED_COLS, node_nbr_pool=gk.NODE_NBR_POOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
