@@ -4,10 +4,13 @@
 
 Drives the port's main paths — the paper's DR-DSGD trainer (Algorithm 2)
 over the dense lowering, and over the gossip lowering on a static and a
-time-varying topology, checkpointed and resumed, decentralized LM training
-(attention and RWKV), static-batch LM serving (prefill, then greedy decode),
-the continuous-batching engine over a paged float32 or int8 KV pool, and
-the port's four examples — on the card through their user entry points,
+time-varying topology, checkpointed and resumed, with momentum, nesterov
+and Adam, decentralized LM training (attention, RWKV, MoE, the frame
+stub), static-batch LM serving (prefill, then greedy decode; a prefix
+frontend through decode), the continuous-batching engine over a paged
+float32 or int8 KV pool (jamba's mamba rows beside it), a Mamba block at
+jamba's width, the ten architectures' smoke configs, and the port's four
+examples — on the card through their user entry points,
 and holds every CUDA kernel of those paths against its plain PyTorch
 version:
 
@@ -162,9 +165,17 @@ version:
            qwen2-0.5b train state cut to 2 layers at K = 4 with a bfloat16
            leaf round-trips bit for bit; seconds to save and restore and
            the file's bytes printed.
+  optim    fmnist_default's dense stack (K = 10, ER(0.3), DR-DSGD) for 50
+           steps with chain_clip(momentum(cosine_schedule), 2), nesterov
+           momentum and adam(linear_warmup_cosine, weight decay, eps 1e-6)
+           through TrainerSpec.build(optimizer=...): the unfused step, no
+           launch; the card against the CPU within OPTIM_UPDATE_REL of the
+           largest update, the first batch's loss lower after the run.
   bwd-kernel  B.6's backward against autograd of the plain version at
            qwen2-0.5b's training shapes (B 2, H 14/2, hd 64, S = T = 64 and
-           512) and at the serving shapes below, dq, dk and dv within
+           512), deepseek-moe-16b's (B 2, H 16/16, S 64, hd 128) and
+           musicgen-medium's (B 2, H 24/24, S 320, hd 64), and at the
+           serving shapes below, dq, dk and dv within
            BWD_REL of their largest |value|; times as below, with SDPA's
            backward as the yardstick (never on the path): its backend
            pinned (sdpa_yardstick), timed as a call and as device time.
@@ -202,8 +213,10 @@ version:
            update, or within UPDATE_ULPS ulps of its own value).
   serve-kernel  flash attention (B.6) at qwen2-0.5b's prefill and training
            shapes, at hd 80 and 128 with windows 4096 and 64 and gemma2's
-           softcap 50, at G = 1, at a ragged S = 300 and at the LM example's
-           hd 32 (HD32_CASE; bwd-kernel too); the WKV6 scan (B.7)
+           softcap 50, at G = 1, at a ragged S = 300, at the LM example's
+           hd 32 (HD32_CASE; bwd-kernel too) and on A.11's paths
+           (A11_FWD_CASES: deepseek-moe-16b's prefill and training shape at
+           hd 128, musicgen-medium's S = 320); the WKV6 scan (B.7)
            at rwkv6-7b's shapes (random and init decays), at T = 100, at T =
            1 from a given state, at hd 16, with w = 1e-6 and on rows off 16
            bytes (plain loads, not TMA; WKV6_CASES), y and the final state;
@@ -246,6 +259,38 @@ version:
            is below twice the row's measured logit error; 2 layers card vs
            CPU at SERVE_PARITY_REL; rwkv6-7b and gemma2 (int8 too) at 2
            layers, launches counted, tokens against isolated greedy.
+  train-moe  deepseek-moe-16b at its published width (d_model 2048, 16
+           heads of 128, 64 routed experts of 1,408 top-6 + 2 shared, vocab
+           102,400) cut to 2 layers (the dense first layer and one MoE
+           layer, ~1.03 B parameters) at K = 4 on train_lm's stack (batch
+           2, seq 64, 5 steps): B.6 forward and backward at hd 128 on both
+           layers of every node and grouped B.1 twice per step, exact; the
+           first batch's loss lower after the run, the aux term finite and
+           positive; ms per step, peak memory, one profiled step.  One MoE
+           layer (first_k_dense 0) at K = 2 on the card against the CPU
+           (_card_vs_cpu).
+  frontend musicgen-medium at its published width (d_model 1536, 24 heads
+           of 64, vocab 2048) with the frame stub's 256 frames before 64
+           text tokens: 2 layers at K = 4, 5 steps (B.6 forward and
+           backward at S = 320), 1 layer at K = 2 against the CPU, and all
+           48 layers served through the decode path (no kernel; tokens
+           equal greedy_generate's).
+  serve-moe  deepseek-moe-16b, 2 layers at full width: timed_generate
+           (batch 4, prompt 256, 32 tokens; B.6 at hd 128 once per
+           attention layer per prefill); card vs CPU at prompt 32: every
+           MoE call's routing (expert choices, ranks, drops) equal up to a
+           near tie, logits, caches and 8 greedy tokens at
+           SERVE_PARITY_REL.
+  mamba-layer  one Mamba block at jamba-1.5-large's width (d_model 8192,
+           d_inner 16384, d_state 16, dt_rank 512; ~420 M parameters):
+           prefill 4 x 256 tokens and 32 decode steps timed, decode against
+           one forward, card vs CPU at B 2, S 32 (output, conv and SSM
+           states).
+  smoke-archs  grok-1, deepseek-moe, jamba, pixtral and musicgen at their
+           smoke configs: the serving and training CLIs (launches exact),
+           serving and 2 node-stacked train steps card vs CPU, and jamba
+           through ``serve --engine --int8-kv`` (B.2 on its attention KV
+           rows, B.6 on admissions, exact).
   examples the port's four examples through their main(argv) at their
            defaults with cut steps: examples/torch_quickstart.py (100
            steps) and torch_decentralized_fmnist.py (T = 100, both runs)
@@ -421,15 +466,20 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled(fn, iters: int):
+def profiled(fn, iters: int, lead: int = 0):
     """Run ``fn`` ``iters`` times under torch.profiler after one warm-up
-    call.  Returns (wall seconds, the profiler)."""
+    call; inside the window, ``lead`` one-float fills run first (see
+    device_time).  Returns (wall seconds of the calls, the profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    buf = torch.empty(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(lead):
+            buf.fill_(0.0)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -469,20 +519,73 @@ def launch_us(prof, name: str) -> list[float]:
             if e.device_type == DeviceType.CUDA and name in e.name]
 
 
-def device_ms(fn, iters: int, names, tries: int = 6) -> float:
-    """Device time (ms) of one ``fn()`` that launches each kernel of
-    ``names`` once, under the profiler.  The profiler now and then records
-    no launch of a kernel at all (seen on the H100, once three windows in
-    a row); the window is then profiled again, up to ``tries`` times."""
+PROFILE_LEAD = 64  # launches that open a device_time window, 4x more on each retry
+
+
+def device_time(fn, iters: int, names, tries: int = 4) -> dict:
+    """Device time of one ``fn()`` that launches each kernel of ``names``
+    once, under the profiler: ``{"device_ms": ms}``.  Late in a run the
+    profiler loses the first launches of a window (seen on the H100: the
+    first one after ~25 s of work, all seven of a short window after ~5
+    minutes; a host sleep in the window does not help, launches before
+    the calls do), so each window opens with PROFILE_LEAD one-float fills,
+    four times as many on each retry, which take the loss.  A window that
+    still recorded no launch of a kernel is logged with what it did
+    record; after ``tries`` such windows the time comes from CUDA events
+    (queued_device_ms), which also count the gaps between launches and
+    anything else ``fn`` queues, and the result says so:
+    ``"device_source": "cuda events"``."""
     for attempt in range(tries):
-        _, prof = profiled(fn, iters)
+        _, prof = profiled(fn, iters, PROFILE_LEAD * 4 ** attempt)
+        averages = prof.key_averages()
         try:
-            return device_us_per_call(prof.key_averages(), names) / 1e3
+            return {"device_ms": device_us_per_call(averages, names) / 1e3}
         except AssertionError:
-            if attempt == tries - 1:
-                raise
-            log(f"[profile] no launch of {names} recorded; profiling again")
-    raise AssertionError("unreachable")
+            seen = sorted(((e.count, e.key[:40]) for e in device_events(averages)),
+                          reverse=True)
+            log(f"[profile] no launch of {names} recorded in window {attempt + 1} "
+                f"({PROFILE_LEAD * 4 ** attempt} fills first); it recorded {len(seen)} "
+                f"device entries {seen[:4]}")
+    ms = queued_device_ms(fn, iters)
+    log(f"[profile] no launch of {names} in {tries} windows: {ms} ms per call from CUDA "
+        f"events behind a sleep kernel (queued_device_ms)")
+    return {"device_ms": ms, "device_source": "cuda events"}
+
+
+def device_ms(fn, iters: int, names) -> float:
+    """device_time's milliseconds alone (the variant scripts under tests/
+    call this name in this tree and in older ones)."""
+    return device_time(fn, iters, names)["device_ms"]
+
+
+def timing_keys(row: dict, keys) -> dict:
+    """``row``'s ``keys`` (None where absent), and its device_source where
+    it has one."""
+    out = {key: row.get(key) for key in keys}
+    if "device_source" in row:
+        out["device_source"] = row["device_source"]
+    return out
+
+
+def queued_device_ms(fn, iters: int) -> float:
+    """Device time (ms) of one ``fn()`` from two CUDA events around
+    ``iters`` calls queued behind a ~50 ms sleep kernel: the host enqueues
+    every call before the device reaches them, so the events time the
+    device running them back to back (the gaps between launches
+    included).  For calls that do not wait for the device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's ~1.98 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def kernel_bound(name: str, k: int, d: int, n_blk: int) -> tuple[float, str]:
@@ -719,10 +822,11 @@ def phase_kernel(mlp_leaves, cnn_leaves) -> dict:
         for name, (call, plain) in calls.items():
             ms = cuda_ms(call)
             plain_ms = cuda_ms(plain)
-            dev_ms = device_ms(call, 50, KERNELS[name][2])
+            dev = device_time(call, 50, KERNELS[name][2])
+            dev_ms = dev["device_ms"]
             bound, by = kernel_bound(name, k, d, n_blk)
             out[name]["rows"].append(dict(group=group, leaf=leaf, k=k, d=d, blocks=n_blk, ms=ms,
-                                          device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                                          **dev, plain_ms=plain_ms, bound_ms=bound,
                                           bound_by=by))
             log(f"[kernel] {name:25s} {group:6s} {leaf:9s} K={k:2d} D={d:7d} "
                 f"blocks={n_blk:3d} device {1e3 * dev_ms:7.2f} us  call {1e3 * ms:7.2f} us  "
@@ -731,6 +835,9 @@ def phase_kernel(mlp_leaves, cnn_leaves) -> dict:
         rec["per_step"] = {g: {key: sum(r[key] for r in rec["rows"] if r["group"] == g)
                                for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
                            for g in ("mlp", "cnn")}
+        for g, v in rec["per_step"].items():  # a sum with a term from CUDA events says so
+            if any("device_source" in r for r in rec["rows"] if r["group"] == g):
+                v["device_source"] = "cuda events"
         for g, v in rec["per_step"].items():
             log(f"[kernel] {name}: one call per {g} leaf: device {1e3 * v['device_ms']:.2f} us, "
                 f"call {1e3 * v['ms']:.2f} us, plain {1e3 * v['plain_ms']:.2f} us, "
@@ -2509,6 +2616,15 @@ def wkv6_bound(b, h, t, hd, given_state: bool = False) -> tuple[float, str]:
 # B.6 at the LM example's shape (examples/torch_train_lm_drdsgd.py's
 # defaults: batch 4, seq 128, d_model 256 over 8 heads of 32, 2 KV heads)
 HD32_CASE = "LM example: hd 32"
+# B.6 on A.11's paths (tag, b, h, kvh, s, hd, window, softcap): deepseek-moe-16b's
+# static prefill (serve-moe) and training step (train-moe) at hd 128, and
+# musicgen-medium's 256 frames + 64 text tokens (frontend); the backward
+# at the two training shapes
+A11_FWD_CASES = (
+    ("deepseek-moe-16b prefill", 4, 16, 16, 256, 128, None, None),
+    ("deepseek-moe-16b train S 64", 2, 16, 16, 64, 128, None, None),
+    ("musicgen-medium train S 320", 2, 24, 24, 320, 64, None, None),
+)
 
 # B.7's serve-kernel cases: tag, B, H, T, hd, decay, a given state, layout
 # ("model": the model's strided views, staged by TMA; "odd": rows off 16
@@ -2595,6 +2711,7 @@ def phase_serve_kernels() -> dict:
         ("G = 1", 2, 8, 8, 512, 64, None, None),
         ("ragged S = 300", 4, 14, 2, 300, 64, None, None),
         (HD32_CASE, 4, 8, 2, 128, 32, None, None),
+        *A11_FWD_CASES,
     ]
     out = {"flash_attention_fwd": dict(max_abs_err=0.0, rows=[]),
            "wkv6_scan": dict(max_abs_err=0.0, rows=[])}
@@ -2636,11 +2753,11 @@ def _flash_case(phase, randn, tag, b, h, kvh, s, hd, window, softcap,
         raise AssertionError(f"[{phase}] B.6 {tag}: kernel != plain (max abs err {err})")
     ms = cuda_ms(lambda: fk.flash_attention_fwd(q, k, v, **kw), iters=50)
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=10, warmup=2)
-    dev_ms = device_ms(lambda: fk.flash_attention_fwd(q, k, v, **kw), 20,
-                       KERNELS["flash_attention_fwd"][2])
+    dev = device_time(lambda: fk.flash_attention_fwd(q, k, v, **kw), 20,
+                      KERNELS["flash_attention_fwd"][2])
     bound, by, fp32_bound = flash_bound(b, h, kvh, s, s, hd, True, window)
     row = dict(case=tag, b=b, h=h, kvh=kvh, s=s, hd=hd, window=window, softcap=softcap,
-               max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+               max_abs_err=err, ms=ms, **dev, plain_ms=plain_ms, bound_ms=bound,
                bound_by=by, fp32_bound_ms=fp32_bound, library_ms=None,
                tma=need_tma(f"[{phase}] B.6 {tag}", k=k, v=v) if require_tma
                else fk.rows_by_tma(k) and fk.rows_by_tma(v))
@@ -2704,11 +2821,12 @@ def _wkv6_case(phase, randn, gen, tag, b, h, t, hd, decay, given, layout) -> dic
                                  f"(max abs err {errs[what]}, max |{what}| {scale})")
     ms = cuda_ms(lambda: wk.wkv6_scan(r, k, v, w, u, s0), iters=50)
     plain_ms = cuda_ms(lambda: wkv6_ref(r, k, v, w, u, s0), iters=5, warmup=1)
-    dev_ms = device_ms(lambda: wk.wkv6_scan(r, k, v, w, u, s0), 20, KERNELS["wkv6_scan"][2])
+    dev = device_time(lambda: wk.wkv6_scan(r, k, v, w, u, s0), 20, KERNELS["wkv6_scan"][2])
+    dev_ms = dev["device_ms"]
     bound, by = wkv6_bound(b, h, t, hd, given)
     row = dict(case=tag, b=b, h=h, t=t, hd=hd, decay=decay, given_state=given,
                tma=tma, **errs, max_abs_err=max(errs["y"], errs["state"]), ms=ms,
-               device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
+               **dev, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
     log(f"[{phase}] " + json.dumps(row))
     log(f"[{phase}] B.7 {tag}: device {1e3 * dev_ms:.2f} us "
         f"[{WKV6_PREVIOUS_US.get(tag, 'not measured')}], call {1e3 * ms:.2f} us, plain "
@@ -2793,16 +2911,18 @@ def _compare(tag, logits, cache, ref_logits, ref_cache, rel) -> dict:
                 cache_worst_leaf=max(d_cache, key=d_cache.get))
 
 
-def _serve_model(arch: str, n_layers: int | None = None):
+def _serve_model(arch: str, n_layers: int | None = None, smoke: bool = False, **fields):
+    """``arch``'s model at its published width (``smoke``: its smoke
+    config), cut to ``n_layers``, other config ``fields`` replaced."""
     import dataclasses
 
     from repro_torch.configs import get_arch
     from repro_torch.models import TransformerLM
 
-    cfg = get_arch(arch)
+    cfg = get_arch(arch, smoke=smoke)
     if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    return TransformerLM(cfg)
+        fields["n_layers"] = n_layers
+    return TransformerLM(dataclasses.replace(cfg, **fields) if fields else cfg)
 
 
 def _serve_profile(model, params, prompt, decode_steps: int) -> dict:
@@ -2848,12 +2968,12 @@ def _layerwise(model, params, prompt) -> dict:
     from repro_torch.models.ssm import rwkv_init_state
 
     b, s = prompt.shape
-    x = model._input_embed(params, {"tokens": prompt})
+    x, _ = model._input_embed(params, {"tokens": prompt})
     worst = {"layer_out_rel_err": 0.0, "layer_state_rel_err": 0.0}
     for blk, ffn, p, _ in model._layers(params):
         if blk != "rwkv":
             raise ValueError(f"layer by layer is for rwkv blocks, got {blk!r}")
-        y, state = model._apply_layer_fwd(p, x, blk, ffn, True)
+        y, _, state = model._apply_layer_fwd(p, x, blk, ffn, 0.0, True)
         cache = rwkv_init_state(model.cfg, b, x.device)
         ys = []
         for t in range(s):
@@ -3065,7 +3185,7 @@ def sdpa_yardstick(q, k, v):
 def _time_call(name, call, plain, iters, plain_iters, names=None) -> dict:
     return dict(ms=cuda_ms(call, iters=iters, warmup=2),
                 plain_ms=cuda_ms(plain, iters=plain_iters, warmup=1),
-                device_ms=device_ms(call, max(2, iters // 4), names or KERNELS[name][2]))
+                **device_time(call, max(2, iters // 4), names or KERNELS[name][2]))
 
 
 def phase_gossip_update_kernels(mlp_leaves) -> dict:
@@ -3274,6 +3394,7 @@ def phase_flash_bwd_kernels() -> dict:
         ("G = 1", 2, 8, 8, 512, 64, None, None),
         ("ragged S = 300", 4, 14, 2, 300, 64, None, None),
         (HD32_CASE, 4, 8, 2, 128, 32, None, None),
+        *A11_FWD_CASES[1:],
     ]
     out = dict(max_abs_err=0.0, rows=[])
     for tag, b, h, kvh, s, hd, window, softcap in cases:
@@ -3309,7 +3430,9 @@ def phase_flash_bwd_kernels() -> dict:
         bound, by, fp32_bound = flash_bwd_bound(b, h, kvh, s, s, hd, True, window)
         row = dict(case=tag, b=b, h=h, kvh=kvh, s=s, hd=hd, window=window, softcap=softcap,
                    rel_err=errs, max_abs_err=abs_err, **t,
-                   cold_device_ms=device_ms(cold_call, 10, names), bound_ms=bound,
+                   **{"cold_" + key: value
+                      for key, value in device_time(cold_call, 10, names).items()},
+                   bound_ms=bound,
                    bound_by=by, fp32_bound_ms=fp32_bound, library_ms=None,
                    tma=need_tma(f"[bwd-kernel] {tag}", q=q, k=k, v=v, out=o, dout=dout))
         if window is None and softcap is None:  # the yardstick: SDPA's backward, contiguous
@@ -3343,17 +3466,40 @@ FLASH_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms
 def _lm_counts(nodes: int, steps: int, layers: int, leaves: int, pair=LM_PAIR) -> dict:
     """Launches of one LM training run: the layers' kernel forward and
     backward (``pair``: B.6 on attention layers, RWKV_PAIR on rwkv layers)
-    on every layer of every node, B.1 once per 16 leaves, every step."""
+    on each of the ``layers`` that run it (_pair_layers) of every node, B.1
+    once per 16 leaves, every step."""
     per = steps * nodes * layers
     return {pair[0]: per, pair[1]: per,
             "gossip_update_stacked_grouped": steps * -(-leaves // 16)}
 
 
+def _pair_layers(cfg, pair=LM_PAIR) -> int:
+    """The layers that run ``pair``: attn/swa for B.6, rwkv for B.7 (mamba
+    blocks and MoE FFNs run plain PyTorch)."""
+    kinds = ("rwkv",) if pair == RWKV_PAIR else ("attn", "swa")
+    return sum(blk in kinds for blk, _ in cfg._full_pattern())
+
+
 def _node_losses(trainer, state, batch) -> list:
+    """Each node's loss on ``batch``: its tokens, or (tokens, embeddings)."""
     import torch
 
+    batch = (batch,) if isinstance(batch, torch.Tensor) else batch
     with torch.no_grad():
-        return trainer.loss_fn(state.params, (batch.to(trainer.device),)).tolist()
+        return trainer.loss_fn(state.params, tuple(b.to(trainer.device) for b in batch)
+                               ).tolist()
+
+
+def _lm_embeddings(cfg, nodes: int, steps: int, seed: int = 0):
+    """A stub frontend's embeddings as train_lm draws them (seed 0):
+    (steps, nodes, LM_BATCH, P, D); None for a token frontend."""
+    import numpy as np
+
+    if cfg.frontend == "token":
+        return None
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.standard_normal((nodes, LM_BATCH, cfg.frontend_len, cfg.d_model)
+                                         ).astype(np.float32) * 0.02 for _ in range(steps)])
 
 
 def _lm_tokens(nodes: int, steps: int, vocab: int, seq: int = LM_SEQ):
@@ -3399,7 +3545,7 @@ def _lm_run_record(tag: str, trainer, state, model, nodes: int, seq: int, histor
     import torch
 
     cfg = model.cfg
-    check_counts(tag, counts, _lm_counts(nodes, len(history), cfg.n_layers,
+    check_counts(tag, counts, _lm_counts(nodes, len(history), _pair_layers(cfg, pair),
                                          len(state.params), pair))
     for r in history:
         for key, x in r.items():
@@ -3484,8 +3630,10 @@ def phase_train_lm(seq: int, nodes: int, steps: int, profile: bool) -> dict:
 
 
 def _card_vs_cpu(tag: str, spec_cls, arch: str, cut: tuple, pair, update_rel: float,
-                 ulps: int = 0) -> tuple[dict, object, dict, object]:
-    """``arch`` at full width cut to ``cut`` = (layers, nodes, steps) on
+                 ulps: int = 0, smoke: bool = False, **fields) -> tuple[dict, object, dict, object]:
+    """``arch`` at full width (``smoke``: its smoke config; other config
+    ``fields`` replaced) cut to ``cut`` = (layers, nodes, steps; layers
+    None keeps the config's) on
     train_lm's stack (ring, lr 0.01, clip 1, batch 2, seq 64): the same
     seeded weights and tokens on the card (the layers' kernel ``pair`` and
     grouped B.1, launches exact) and on the CPU (plain versions, no launch).
@@ -3494,28 +3642,33 @@ def _card_vs_cpu(tag: str, spec_cls, arch: str, cut: tuple, pair, update_rel: fl
     largest |update| of any leaf or, where ``ulps`` is set, within ``ulps``
     float32 ulps of the entry's own value (the two runs round each step's
     theta + update apart; an update small beside its weight moves the
-    weight by few ulps).  Returns the record, the model, the initial params
-    and the tokens."""
+    weight by few ulps).  A stub frontend's steps carry train_lm's
+    embeddings.  Returns the record, the model, the initial params and the
+    tokens."""
     import torch
 
     from repro_torch.models import make_lm_loss
 
     layers, nodes, steps = cut
-    model = _serve_model(arch, layers)
+    model = _serve_model(arch, layers, smoke, **fields)
+    layers = model.cfg.n_layers
     params = model.init(torch.Generator().manual_seed(0))
     toks = _lm_tokens(nodes, steps, model.cfg.vocab)
+    emb = _lm_embeddings(model.cfg, nodes, steps)
+    batches = (toks,) if emb is None else (toks, emb)
     runs = {}
     for device in ("cuda", "cpu"):
         trainer = spec_cls(num_nodes=nodes, graph="ring", lr=0.01, grad_clip=1.0,
                            device=device).build(make_lm_loss(model))
         reset_counts()
         t0 = time.perf_counter()
-        state, ms = trainer.run(trainer.init(params), (toks,))
+        state, ms = trainer.run(trainer.init(params), batches)
         runs[device] = ({n: t.cpu() for n, t in state.params.items()}, ms["loss_mean"].cpu(),
                         time.perf_counter() - t0)
         counts = kernel_counts()
         if device == "cuda":
-            check_counts(tag, counts, _lm_counts(nodes, steps, layers, len(state.params), pair))
+            check_counts(tag, counts, _lm_counts(nodes, steps, _pair_layers(model.cfg, pair),
+                                                 len(state.params), pair))
             launches = {n: c[0] for n, c in counts.items() if c[0]}
         elif sum(c[0] for c in counts.values()) or not sum(c[1] for c in counts.values()):
             raise AssertionError(f"[{tag}] the CPU run launched a kernel: {counts}")
@@ -3689,7 +3842,7 @@ def _wkv6_bwd_case(gen, tag, b, h, t, hd, decay, given) -> dict:
     bound, by = wkv6_bwd_bound(b, h, t, hd, given)
     row = dict(case=tag, b=b, h=h, t=t, hd=hd, decay=decay, given_state=given, rel_err=rel,
                max_abs_err=abs_err, bitwise_repeat=True, ms=cuda_ms(call, iters=50),
-               device_ms=device_ms(call, 20, KERNELS["wkv6_bwd"][2]),
+               **device_time(call, 20, KERNELS["wkv6_bwd"][2]),
                plain_ms=cuda_ms(lambda: wkv6_bwd_ref(*args), iters=3, warmup=1),
                bound_ms=bound, bound_by=by, library_ms=None,
                parent_device_us=PARENT_BWD_US[tag])
@@ -3700,18 +3853,18 @@ def _wkv6_bwd_case(gen, tag, b, h, t, hd, decay, given) -> dict:
     return row
 
 
-def _rwkv_full_width(spec_cls) -> dict:
-    """rwkv6-7b at full width cut to RWKV_TRAIN's layers and nodes through
+def _full_width_train(tag: str, spec_cls, model, nodes: int, steps: int, pair,
+                      seq: int = LM_SEQ, check=None) -> dict:
+    """``model`` (full width, cut in depth) at K = ``nodes`` through
     TrainerSpec -> DecentralizedTrainer (train_lm's stack: ring, lr 0.01,
-    clip 1, batch 2, seq 64): _lm_run_record's checks and one profiled
-    step's busy share."""
+    clip 1, batch 2, ``seq`` tokens, and a stub frontend's embeddings),
+    ``steps`` steps: _lm_run_record's checks, ``check(trainer, state,
+    first batch)``'s record, and one profiled step's busy share."""
     import numpy as np
     import torch
 
     from repro_torch.models import make_lm_loss
 
-    layers, nodes, steps = RWKV_TRAIN
-    model = _serve_model(RWKV_ARCH, layers)
     trainer = spec_cls(num_nodes=nodes, graph="ring", lr=0.01, grad_clip=1.0).build(
         make_lm_loss(model))
     torch.cuda.synchronize()
@@ -3719,8 +3872,10 @@ def _rwkv_full_width(spec_cls) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = trainer.init(model.init(torch.Generator("cuda").manual_seed(0)))
-    toks = _lm_tokens(nodes, steps, model.cfg.vocab)
-    first = torch.from_numpy(toks[0])
+    toks = _lm_tokens(nodes, steps, model.cfg.vocab, seq)
+    emb = _lm_embeddings(model.cfg, nodes, steps)
+    batches = [(toks[t],) if emb is None else (toks[t], emb[t]) for t in range(steps)]
+    first = tuple(torch.from_numpy(b) for b in batches[0])
     loss_before = float(np.mean(_node_losses(trainer, state, first)))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -3728,20 +3883,30 @@ def _rwkv_full_width(spec_cls) -> dict:
     walls, history = [], []
     for t in range(steps):
         t1 = time.perf_counter()
-        state, m = trainer.step(state, (toks[t],))
+        state, m = trainer.step(state, batches[t])
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t1)
         history.append(dict(step=t, **{k: float(v) for k, v in m.items()}))
-    rec = _lm_run_record("train-rwkv full width", trainer, state, model, nodes, LM_SEQ,
-                         history, walls[1:], kernel_counts(), RWKV_PAIR, first, loss_before)
+    rec = _lm_run_record(tag, trainer, state, model, nodes, seq, history, walls[1:],
+                         kernel_counts(), pair, first, loss_before)
     rec.update(init_s=init_s, ms_per_step_first=1e3 * walls[0])
+    if check is not None:
+        rec.update(check(trainer, state, first))
     box = [state]
     del state
-    rec["profile"], _ = _lm_step_profile(trainer, box, (first.cuda(),), RWKV_PAIR)
-    log("[train-rwkv] full width: " + json.dumps(rec))
+    rec["profile"], _ = _lm_step_profile(trainer, box, tuple(b.cuda() for b in first), pair)
+    log(f"[{tag}] " + json.dumps(rec))
     del box, trainer
     torch.cuda.empty_cache()
     return rec
+
+
+def _rwkv_full_width(spec_cls) -> dict:
+    """rwkv6-7b at full width cut to RWKV_TRAIN's layers and nodes
+    (_full_width_train)."""
+    layers, nodes, steps = RWKV_TRAIN
+    return _full_width_train("train-rwkv full width", spec_cls,
+                             _serve_model(RWKV_ARCH, layers), nodes, steps, RWKV_PAIR)
 
 
 def phase_train_rwkv(spec_cls) -> dict:
@@ -4284,8 +4449,8 @@ def _engine_vs_greedy(tag, model, params, report, trace) -> int:
 
 def _kv_write_case(tag, randn, n: int, d: int, timed: bool) -> dict:
     """B.2 at a KV write: a layer's k and v rows, (n, d) each, in one
-    grouped launch with u = 0.5, qmax 127 and 128-wide blocks (the pool's
-    layout), through the path's wrapper (``quantize_kv_rows``), bit-equal to
+    grouped launch with u = 0.5, qmax 127 and blocks of up to 128 (the
+    pool's layout), through the path's wrapper (``quantize_kv_rows``), bit-equal to
     the plain version; timed as call, device and plain where ``timed``."""
     import torch
 
@@ -4310,8 +4475,8 @@ def _kv_write_case(tag, randn, n: int, d: int, timed: bool) -> dict:
     if timed:
         bound, by = kernel_bound("quantize_blockwise_grouped", 2 * n, d, n_blk)
         row.update(ms=cuda_ms(lambda: quantize_kv_rows(rows), iters=200),
-                   device_ms=device_ms(lambda: quantize_kv_rows(rows), 50,
-                                       KERNELS["quantize_blockwise_grouped"][2]),
+                   **device_time(lambda: quantize_kv_rows(rows), 50,
+                                 KERNELS["quantize_blockwise_grouped"][2]),
                    plain_ms=cuda_ms(plain, iters=50, warmup=5), bound_ms=bound, bound_by=by)
     log("[engine-kernel] " + json.dumps(row))
     return row
@@ -4321,9 +4486,10 @@ def _engine_kernels() -> dict:
     """The kernels at the engine's shapes: B.2 at the KV writes (decode: 1
     to 8 rows of qwen2-0.5b's D = 128 per leaf, the 16-CTA cluster packing
     at its smallest; admission: 24 layers of a 6- and a 20-token prompt's
-    rows in one call; gemma2's D = 2048, 16 blocks per row), B.6 at the
-    admission prefills (batch 1, S = 5 and 19: one ragged tile; gemma2's hd
-    128 with softcap 50) and B.7 at rwkv6-7b's (batch 1, T = 5 and 19), each
+    rows in one call; gemma2's D = 2048, 16 blocks per row; jamba smoke's D
+    = 32, one 32-wide block per row), B.6 at the admission prefills (batch
+    1, S = 5 and 19: one ragged tile; gemma2's hd 128 with softcap 50;
+    jamba smoke's hd 16) and B.7 at rwkv6-7b's (batch 1, T = 5 and 19), each
     against its plain version; the decode and the longer admission timed."""
     import torch
 
@@ -4338,12 +4504,15 @@ def _engine_kernels() -> dict:
     kv = [(f"decode, batch {n}", n, 128, n == 4) for n in range(1, 9)]
     kv += [("admission, chat: 24 layers x 5 rows", 120, 128, False),
            ("admission, doc: 24 layers x 19 rows", 456, 128, True),
-           ("gemma2 decode, batch 4, D 2048", 4, 2048, False)]
+           ("gemma2 decode, batch 4, D 2048", 4, 2048, False),
+           ("jamba smoke decode, batch 4, D 32", 4, 32, False),
+           ("jamba smoke admission: 2 layers x 19 rows", 38, 32, False)]
     for tag, n, d, timed in kv:
         _add_row(out["quantize_blockwise_grouped"], _kv_write_case(tag, randn, n, d, timed))
     for case in (("admission, chat: S 5", 1, 14, 2, 5, 64, None, None),
                  ("admission, doc: S 19", 1, 14, 2, 19, 64, None, None),
-                 ("gemma2 admission: S 19, hd 128, softcap 50", 1, 32, 16, 19, 128, None, 50.0)):
+                 ("gemma2 admission: S 19, hd 128, softcap 50", 1, 32, 16, 19, 128, None, 50.0),
+                 ("jamba smoke admission: S 19, hd 16", 1, 8, 2, 19, 16, None, None)):
         _add_row(out["flash_attention_fwd"],
                  _flash_case("engine-kernel", randn, *case, require_tma=False))
     for t in (5, 19):
@@ -4482,6 +4651,590 @@ def phase_engine() -> dict:
     return out
 
 
+# -- A.4 and A.11: the other optimizers and the other model families ---------------
+
+OPTIM_STEPS = 50
+OPTIM_UPDATE_REL = 1.5e-4  # card vs CPU, relative to the largest update (DYN_UPDATE_REL)
+# name -> the optimizer on fmnist_default's task (the default K = 10, ER(0.3))
+OPTIM_CASES = ("clip-momentum-cosine", "nesterov", "adam-warmup-cosine-wd")
+
+
+def _optimizer(name: str):
+    """Adam's eps is 1e-6: at 1e-8 it maps an entry whose gradient is near
+    eps, where float32 summation noise is a large part of it, to an update
+    of O(lr) that any two summation orders part on (tests/test_torch_optim.py)."""
+    from repro_torch import optim
+
+    if name == "clip-momentum-cosine":
+        return optim.chain_clip(optim.momentum(optim.cosine_schedule(0.02, OPTIM_STEPS)), 2.0)
+    if name == "nesterov":
+        return optim.momentum(0.02, beta=0.9, nesterov=True)
+    return optim.adam(optim.linear_warmup_cosine(1e-3, 5, OPTIM_STEPS), eps=1e-6,
+                      weight_decay=1e-4)
+
+
+def phase_optim(spec_cls) -> dict:
+    """A.4 on the card: fmnist_default's dense stack (K = 10, ER(0.3),
+    DR-DSGD, the uncompressed dense wire) for OPTIM_STEPS steps with each of
+    OPTIM_CASES through TrainerSpec.build(optimizer=...), on the card and on
+    the CPU from the same weights and batches.  None sets ``sgd_lr``, so the
+    step is unfused: no B.1 launch, no kernel at all.  Every entry's update
+    within OPTIM_UPDATE_REL of the largest update, the losses at rtol 1e-4,
+    the first batch's loss lower after the run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import make_classifier_loss, mlp_apply
+
+    t_phase = time.perf_counter()
+    exp, fed, batches, params = _fmnist()
+    cpu_params = {n: t.cpu() for n, t in params.items()}
+    batches = tuple(b[:OPTIM_STEPS] for b in batches)
+    out = {}
+    for name in OPTIM_CASES:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            spec = spec_cls(num_nodes=K, graph="erdos_renyi",
+                            graph_kwargs={"p": exp.p, "seed": exp.seed}, mu=exp.mu, lr=exp.lr,
+                            device=device)
+            trainer = spec.build(make_classifier_loss(mlp_apply), mlp_apply,
+                                 optimizer=_optimizer(name))
+            reset_counts()
+            t0 = time.perf_counter()
+            state, ms = trainer.run(trainer.init(params if device == "cuda" else cpu_params),
+                                    batches)
+            first = tuple(b[0] for b in batches)
+            loss_after = _loss_on(trainer, state, first)
+            secs = time.perf_counter() - t0
+            check_counts(f"optim {name} on {device}", kernel_counts(), {})
+            runs[device] = ({n: t.cpu() for n, t in state.params.items()},
+                            ms["loss_mean"].cpu(), secs, loss_after)
+        (p_g, l_g, s_g, after_g), (p_c, l_c, s_c, after_c) = runs["cuda"], runs["cpu"]
+        upd = {n: p_c[n] - cpu_params[n].unsqueeze(0) for n in p_c}
+        largest = max(float(u.abs().max()) for u in upd.values())
+        worst = max(float((p_g[n] - p_c[n]).abs().max()) for n in p_c) / largest
+        rec = dict(optimizer=name, steps=OPTIM_STEPS, nodes=K, largest_update=largest,
+                   update_rel_err=worst,
+                   loss_rel_err=float(((l_g - l_c).abs() / l_c.abs()).max()),
+                   loss_step0=float(l_c[0]), first_batch_loss_after=after_g,
+                   first_batch_loss_after_cpu=after_c, card_s=s_g, cpu_s=s_c,
+                   ms_per_step_card=1e3 * s_g / OPTIM_STEPS)
+        log("[optim] " + json.dumps(rec))
+        if not (worst <= OPTIM_UPDATE_REL and rec["loss_rel_err"] <= 1e-4
+                and after_g < rec["loss_step0"] and all(np.isfinite(l_g.numpy()))):
+            raise AssertionError(f"[optim] {name}: card vs CPU or loss: {rec}")
+        out[name] = rec
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[optim] phase in {out['phase_s']:.1f} s")
+    return out
+
+
+MOE_ARCH = "deepseek_moe_16b"
+MOE_CUT = 2                 # the dense first layer and one MoE layer, at full width
+MOE_SERVE = (256, 32)       # prompt, new tokens at SERVE_BATCH
+MOE_PARITY_PROMPT = 32
+MOE_TRAIN = (MOE_CUT, 4, 5)  # layers, nodes, steps
+MOE_PARITY = (1, 2, 2)      # one MoE layer (first_k_dense 0), nodes, steps: card vs CPU
+
+
+def _moe_inputs(fn) -> list:
+    """Run ``fn`` with every MoE FFN call recording its (params, input)."""
+    from repro_torch.models import transformer
+
+    seen, moe_ffn = [], transformer.moe_ffn
+
+    def recording(p, x, cfg):
+        seen.append((p, x.detach().clone()))
+        return moe_ffn(p, x, cfg)
+
+    transformer.moe_ffn = recording
+    try:
+        fn()
+    finally:
+        transformer.moe_ffn = moe_ffn
+    return seen
+
+
+def _routing_vs(tag, cfg, card_calls, cpu_calls) -> dict:
+    """Each MoE call's routing on the card against the CPU's, on each
+    device's own input, call by call in order: expert choices, ranks and
+    drops equal, except where a token's top-k boundary margin of the CPU's
+    router probabilities is below twice the measured largest |card - CPU|
+    probability (the repo's near-tie rule, ROADMAP C).  A flip taints its
+    batch row from that call on (its output, and so its later inputs, part),
+    and a drop it moves taints the moved token's row; tainted rows are left
+    out of later calls.  Returns the tokens compared, the near ties that
+    flipped, the tainted rows and the probability error."""
+    import torch
+
+    from repro_torch.models.moe import moe_route
+
+    if len(card_calls) != len(cpu_calls):
+        raise AssertionError(f"[{tag}] {len(card_calls)} MoE calls on the card, "
+                             f"{len(cpu_calls)} on the CPU")
+    k = cfg.moe.top_k
+    tokens = flips = 0
+    err = 0.0
+    tainted: set = set()
+    for (pg, xg), (pc, xc) in zip(card_calls, cpu_calls):
+        b = xc.shape[0]
+        row = torch.arange(b).repeat_interleave(xc.numel() // (b * xc.shape[-1]))
+        live = torch.tensor([int(r) not in tainted for r in row])
+        xg, xc = xg.reshape(-1, xg.shape[-1]), xc.reshape(-1, xc.shape[-1])
+        rg, rc = moe_route(pg, xg, cfg), moe_route(pc, xc, cfg)
+        probs_c = torch.softmax(xc.float() @ pc["router"].float(), -1)
+        probs_g = torch.softmax(xg.float() @ pg["router"].float(), -1).cpu()
+        err = max(err, float((probs_g[live] - probs_c[live]).abs().max()))
+        differ = (rg["expert_ids"].cpu() != rc["expert_ids"]).any(-1) & live
+        srt = probs_c.sort(-1, descending=True).values
+        margin = (srt[:, :k] - srt[:, 1:k + 1]).min(-1).values
+        bad = differ & (margin >= 2 * err)
+        if bool(bad.any()):
+            raise AssertionError(f"[{tag}] {int(bad.sum())} tokens route apart with a top-k "
+                                 f"margin above 2 x {err}")
+        flips += int(differ.sum())
+        keep_g, keep_c = rg["keep"].cpu(), rc["keep"]
+        if not tainted and not bool(differ.any()):
+            if not (torch.equal(rg["rank"].cpu(), rc["rank"]) and torch.equal(keep_g, keep_c)):
+                raise AssertionError(f"[{tag}] equal choices, different ranks or drops")
+        else:  # ranks follow every earlier token's choices; a moved drop moves its row
+            moved = (keep_g != keep_c).any(-1) & live
+            tainted.update(int(r) for r in row[differ | moved])
+        tokens += int(live.sum())
+    return dict(moe_calls=len(cpu_calls), tokens_routed=tokens, near_tie_flips=flips,
+                tainted_rows=sorted(tainted), router_prob_err=err)
+
+
+def _batch_rows(cache, rows) -> dict:
+    """The cache's entries of batch ``rows`` (head leaves are (B, ...),
+    group leaves (layers, B, ...))."""
+    from repro_torch.utils.tree import flatten, unflatten
+
+    return {"head": [unflatten({n: t[rows] for n, t in flatten(c).items()})
+                     for c in cache["head"]],
+            "groups": unflatten({n: t[:, rows] for n, t in flatten(cache["groups"]).items()})}
+
+
+def phase_serve_moe() -> dict:
+    """deepseek-moe-16b at its published width (d_model 2048, 16 heads of
+    128, 64 routed experts of 1,408 top-6 plus 2 shared, vocab 102,400) cut
+    to MOE_CUT layers: the static serving path (timed_generate, SERVE_BATCH
+    x 256-token prompts, 32 new tokens): B.6 at hd 128 once per attention
+    layer per prefill, no plain call; tokens equal a second greedy run.
+    Then card vs CPU at prompt MOE_PARITY_PROMPT: every MoE call's routing
+    (_routing_vs), and the prefill's logits and caches and 8 greedy tokens
+    at SERVE_PARITY_REL on every batch row no near tie flipped a choice of
+    (at least one)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import timed_generate
+
+    t_phase = time.perf_counter()
+    model = _serve_model(MOE_ARCH, MOE_CUT)
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(0))
+    card = {n: t.cuda() for n, t in params.items()}
+    prompt_len, gen_len = MOE_SERVE
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_BATCH, prompt_len))).cuda()
+    per_prefill = _pair_layers(cfg)
+    rec = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               params=model.num_params(), active_params=model.num_active_params(),
+               batch=SERVE_BATCH, prompt_len=prompt_len, gen_len=gen_len)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        reset_counts()
+        tokens, stats = timed_generate(model, card, prompt, gen_len)
+        counts = kernel_counts()
+        check_counts("serve-moe", counts, {"flash_attention_fwd": 2 * per_prefill})
+        rec.update(launches=counts["flash_attention_fwd"][0], launches_per_prefill=per_prefill,
+                   prefill_tok_s=stats["prefill"]["tok_s"],
+                   prefill_steady_s=stats["prefill"]["steady_s"],
+                   decode_ms_per_token=1e3 * stats["decode"]["steady_s"] / max(1, gen_len - 1),
+                   decode_tok_s=stats["decode"]["tok_s"],
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        _, _, again, _ = _generate(model, card, prompt, gen_len, use_prefill=True)
+        if not torch.equal(again, tokens):
+            raise AssertionError("[serve-moe] timed_generate and a second greedy run differ")
+        prompt = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab, (SERVE_BATCH, MOE_PARITY_PROMPT)))
+        runs, calls = {}, {}
+        for device, p in (("cuda", card), ("cpu", params)):
+            reset_counts()
+            calls[device] = _moe_inputs(lambda: runs.__setitem__(device, _generate(
+                model, p, prompt.to(device), SERVE_PARITY_GEN, True)))
+            counts = kernel_counts()
+            launched = sum(c[0] for c in counts.values())
+            if (device == "cuda") != (launched > 0) or \
+                    (device == "cpu") != (sum(c[1] for c in counts.values()) > 0):
+                raise AssertionError(f"[serve-moe] card vs CPU on {device}: {counts}")
+    rec["routing"] = _routing_vs("serve-moe", cfg, calls["cuda"], calls["cpu"])
+    (lg, cg, tg, _), (lc, cc, tc, gaps) = runs["cuda"], runs["cpu"]
+    # a flipped choice moves its row's output: the other rows are held
+    rows = [r for r in range(SERVE_BATCH) if r not in rec["routing"]["tainted_rows"]]
+    if not rows:
+        raise AssertionError(f"[serve-moe] near ties tainted every row: {rec['routing']}")
+    rec.update(rows_compared=rows,
+               **_compare("serve-moe card vs CPU", lg.cpu()[rows], _batch_rows(cg, rows),
+                          lc[rows], _batch_rows(cc, rows), SERVE_PARITY_REL))
+    rec["tokens_identical"] = _same_tokens("serve-moe card vs CPU", tg.cpu()[rows], tc[rows],
+                                           gaps[rows],
+                                           SERVE_PARITY_REL * float(lc[rows].abs().max()))
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log("[serve-moe] " + json.dumps(rec))
+    del card, params, runs, calls
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_moe(spec_cls) -> dict:
+    """deepseek-moe-16b at full width cut to MOE_CUT layers through
+    train_lm's stack at K = 4, 5 steps (_full_width_train): B.6 forward and
+    backward on both attention layers of every node, the fused B.1 once
+    per 16 leaves, exact; the loss falls; the aux term of node 0's loss on
+    the first batch finite and positive.  Then one MoE layer (n_layers 1,
+    first_k_dense 0) at K = 2 on the card against the CPU (_card_vs_cpu,
+    updates within UPDATE_REL of the largest)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    layers, nodes, steps = MOE_TRAIN
+    model = _serve_model(MOE_ARCH, layers)
+
+    def aux_term(trainer, state, first):
+        node0 = {n: t[0] for n, t in state.params.items()}
+        with torch.no_grad():
+            aux = float(model._forward(node0, {"tokens": first[0][0].cuda()}, False,
+                                       drop_last_token=True)[1])
+        if not (math.isfinite(aux) and aux > 0):
+            raise AssertionError(f"[train-moe] aux term {aux}")
+        return {"aux_node0_first_batch": aux}
+
+    out = {"full_width": _full_width_train("train-moe", spec_cls, model, nodes, steps,
+                                           LM_PAIR, check=aux_term)}
+    out["parity"] = _card_vs_cpu("train-moe parity", spec_cls, MOE_ARCH, MOE_PARITY, LM_PAIR,
+                                 UPDATE_REL, first_k_dense=0)[0]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train-moe] phase in {out['phase_s']:.1f} s")
+    return out
+
+
+MAMBA_ARCH = "jamba_1_5_large_398b"
+MAMBA_SERVE = (4, 256, 32)   # batch, prefill tokens, decode steps
+MAMBA_PARITY = (2, 32)       # batch, tokens: card vs CPU
+
+
+def phase_mamba_layer() -> dict:
+    """One Mamba block at jamba-1.5-large's published width (d_model 8192,
+    d_inner 16384, d_state 16, d_conv 4, dt_rank 512; ~420 M parameters),
+    seeded weights: prefill B 4 x S 256 then 32 decode steps from its
+    state (mamba_forward, mamba_decode), timed; the decode steps' outputs
+    and states against one forward over all 288 tokens at SERVE_REL; then
+    card vs CPU at B 2, S 32: output, conv state and SSM state at
+    SERVE_PARITY_REL of their largest value.  The scan is plain PyTorch
+    (no kernel: check_counts holds every count at 0)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import params as pr
+    from repro_torch.models.ssm import mamba_decl, mamba_decode, mamba_forward
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(MAMBA_ARCH)
+    decl = mamba_decl(cfg)
+    params = pr.init_tree(torch.Generator().manual_seed(0), decl, "cpu")
+    card = {n: t.cuda() for n, t in params.items()}
+    b, s, steps = MAMBA_SERVE
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((b, s + steps, cfg.d_model), generator=gen, device="cuda")
+    rec = dict(arch=cfg.name, d_model=cfg.d_model, d_inner=cfg.mamba_expand * cfg.d_model,
+               d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv,
+               dt_rank=params["dt_proj"].shape[0], params=pr.count_params(decl), batch=b,
+               prefill_tokens=s, decode_steps=steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.inference_mode():
+        times = []
+        for _ in range(3):
+            t0 = _cuda_clock()
+            y, state = mamba_forward(card, x[:, :s], cfg)
+            times.append(_cuda_clock() - t0)
+        decode_s, ys = [], []
+        for t in range(s, s + steps):
+            t0 = _cuda_clock()
+            y_t, state = mamba_decode(card, x[:, t:t + 1], cfg, state)
+            decode_s.append(_cuda_clock() - t0)
+            ys.append(y_t)
+        whole, whole_state = mamba_forward(card, x, cfg)
+        check_counts("mamba-layer", kernel_counts(), {})
+        rec.update(prefill_ms=1e3 * min(times), prefill_ms_first=1e3 * times[0],
+                   prefill_tok_s=b * s / min(times),
+                   decode_ms_per_step=1e3 * sorted(decode_s)[len(decode_s) // 2],
+                   decode_vs_forward_rel_err=max(
+                       _rel_err(torch.cat(ys, 1), whole[:, s:]),
+                       *(_rel_err(state[k], whole_state[k]) for k in state)),
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if rec["decode_vs_forward_rel_err"] > SERVE_REL:
+            raise AssertionError(f"[mamba-layer] decode vs forward: {rec}")
+        pb, ps = MAMBA_PARITY
+        xp = torch.randn((pb, ps, cfg.d_model), generator=torch.Generator().manual_seed(9))
+        reset_counts()
+        yg, sg = mamba_forward(card, xp.cuda(), cfg)
+        yc, sc = mamba_forward(params, xp, cfg)
+        check_counts("mamba-layer parity", kernel_counts(), {})
+        errs = {"out": _rel_err(yg.cpu(), yc),
+                **{k: _rel_err(sg[k].cpu(), sc[k]) for k in ("conv", "ssm")}}
+    rec["card_vs_cpu_rel_err"] = errs
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log("[mamba-layer] " + json.dumps(rec))
+    if max(errs.values()) > SERVE_PARITY_REL or not all(
+            bool(torch.isfinite(v).all()) for v in (y, whole, yg)):
+        raise AssertionError(f"[mamba-layer] card vs CPU: {errs}")
+    del card, params, state, whole_state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _cuda_clock() -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+FRONTEND_ARCH = "musicgen_medium"
+FRONTEND_TEXT = 64            # text tokens beside the 256 prefix frames: B.6 at S = 320
+FRONTEND_TRAIN = (2, 4, 5)    # layers, nodes, steps
+FRONTEND_PARITY = (1, 2, 3)   # layers, nodes, steps: card vs CPU
+FRONTEND_SERVE = (64, 16)     # prompt, new tokens at SERVE_BATCH, all 48 layers
+
+
+def phase_frontend(spec_cls) -> dict:
+    """musicgen-medium at its published width (d_model 1536, 24 heads of 64,
+    vocab 2048) with the frame stub: 256 prefix frames and FRONTEND_TEXT
+    text tokens per sequence, so B.6 runs at S = 320.  Cut to 2 layers at
+    K = 4 through train_lm's stack (_full_width_train, 5 steps: B.6 forward
+    and backward per layer per node, B.1 exact), 1 layer at K = 2 on the
+    card against the CPU (_card_vs_cpu), and all 48 layers served through
+    the decode path (a prefix frontend has no prompt-only prefill): no
+    kernel, the tokens equal greedy_generate's, ms per token."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import timed_generate
+    from repro_torch.serve import greedy_generate
+
+    t_phase = time.perf_counter()
+    layers, nodes, steps = FRONTEND_TRAIN
+    out = {"train": _full_width_train("frontend train", spec_cls,
+                                      _serve_model(FRONTEND_ARCH, layers), nodes, steps,
+                                      LM_PAIR, seq=FRONTEND_TEXT)}
+    out["parity"] = _card_vs_cpu("frontend parity", spec_cls, FRONTEND_ARCH, FRONTEND_PARITY,
+                                 LM_PAIR, UPDATE_REL)[0]
+    model = _serve_model(FRONTEND_ARCH)
+    cfg = model.cfg
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    prompt_len, gen_len = FRONTEND_SERVE
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_BATCH, prompt_len))).cuda()
+    torch.cuda.synchronize()
+    reset_counts()
+    tokens, stats = timed_generate(model, params, prompt, gen_len)
+    again = greedy_generate(model, params, prompt, gen_len)
+    check_counts("frontend serve", kernel_counts(), {})
+    if not torch.equal(tokens, again):
+        raise AssertionError("[frontend] timed_generate and greedy_generate differ")
+    out["serve"] = dict(arch=cfg.name, n_layers=cfg.n_layers, params=model.num_params(),
+                        batch=SERVE_BATCH, prompt_len=prompt_len, gen_len=gen_len,
+                        prompt_through_decode_tok_s=stats["prefill"]["tok_s"],
+                        decode_ms_per_token=1e3 * stats["decode"]["steady_s"]
+                        / max(1, gen_len - 1),
+                        decode_tok_s=stats["decode"]["tok_s"])
+    log("[frontend] serve: " + json.dumps(out["serve"]))
+    del params
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[frontend] phase in {out['phase_s']:.1f} s")
+    return out
+
+
+SMOKE_ARCHS = ("grok_1_314b", "deepseek_moe_16b", "jamba_1_5_large_398b", "pixtral_12b",
+               "musicgen_medium")
+SMOKE_TRAIN = (None, 2, 2)    # the smoke config's layers, nodes, steps: card vs CPU
+
+
+def _smoke_serve_parity(arch: str) -> dict:
+    """One smoke family served on the card and on the CPU from the same
+    weights: token frontends through prefill then greedy decode (_generate),
+    the prefix frontends' prefill with their embeddings (logits, caches)
+    and their greedy tokens through the decode path; SERVE_PARITY_REL."""
+    import numpy as np
+    import torch
+
+    model = _serve_model(arch, smoke=True)
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE_BATCH, 24)))
+    emb = None if cfg.frontend == "token" else torch.from_numpy(
+        (rng.standard_normal((SERVE_BATCH, cfg.frontend_len, cfg.d_model)) * 0.02
+         ).astype(np.float32))
+    runs = {}
+    with torch.inference_mode():
+        for device in ("cuda", "cpu"):
+            reset_counts()
+            p = params if device == "cpu" else {n: t.cuda() for n, t in params.items()}
+            if emb is None:
+                runs[device] = _generate(model, p, prompt.to(device), SERVE_PARITY_GEN, True)
+            else:
+                logits, pf = model.prefill(p, {"tokens": prompt.to(device),
+                                               "embeddings": emb.to(device)})
+                _, _, toks, gaps = _generate(model, p, prompt.to(device), SERVE_PARITY_GEN,
+                                             False)
+                runs[device] = (logits, {"head": pf[0], "groups": pf[1]}, toks, gaps)
+            counts = kernel_counts()
+            launched, plain = (sum(c[i] for c in counts.values()) for i in (0, 1))
+            if (device == "cuda") != (launched > 0) or (device == "cpu") != (plain > 0):
+                raise AssertionError(f"[smoke-archs] {arch} serve on {device}: {counts}")
+    (lg, cg, tg, _), (lc, cc, tc, gaps) = runs["cuda"], runs["cpu"]
+    rec = dict(arch=cfg.name, **_compare(f"smoke-archs {arch}", lg.cpu(), cg, lc, cc,
+                                          SERVE_PARITY_REL))
+    rec["tokens_identical"] = _same_tokens(f"smoke-archs {arch}", tg.cpu(), tc, gaps,
+                                           SERVE_PARITY_REL * float(lc.abs().max()))
+    return rec
+
+
+def _jamba_engine_parity() -> dict:
+    """jamba's smoke config through the engine on the steps clock (the
+    engine phase's trace), float32 and int8, on the card and on the CPU
+    from the same weights: the card's launches exact; the card's float32
+    tokens equal each request's isolated greedy tokens (a Mamba row left
+    from a slot's last request would part them); float32 card logits within
+    SERVE_PARITY_REL of the CPU's, tokens equal up to a near tie; int8 card
+    tokens equal the CPU's up to a near tie (twice the row's logit error:
+    a KV row that rounds to another int8 code moves a logit by more than
+    float noise), and the card's int8 equal its float32 up to one."""
+    import torch
+
+    from repro_torch.serve import SMOKE_CLASSES, poisson_trace
+
+    model = _serve_model(MAMBA_ARCH, smoke=True)
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(0))
+    card = {n: t.cuda() for n, t in params.items()}
+    reqs = poisson_trace(SMOKE_CLASSES, rate=2.0, horizon=8.0, vocab=cfg.vocab, seed=0)
+    max_len = max(c.prompt_len + c.gen_max for c in SMOKE_CLASSES)
+    runs = {}
+    for device, p in (("cuda", card), ("cpu", params)):
+        for q in (False, True):
+            reset_counts()
+            runs[device, q] = _logged_engine(model, p, q, reqs, max_len)
+            counts = kernel_counts()
+            if device == "cuda":
+                check_counts(f"smoke-archs jamba engine {'int8' if q else 'f32'} steps clock",
+                             counts, _engine_launches(cfg, runs[device, q][0], q))
+            elif sum(c[0] for c in counts.values()) or not sum(c[1] for c in counts.values()):
+                raise AssertionError(f"[smoke-archs] jamba engine on the CPU: {counts}")
+    (f32, rows32), (i8, rows8) = runs["cuda", False], runs["cuda", True]
+    (f32_c, rows32_c), (i8_c, rows8_c) = runs["cpu", False], runs["cpu", True]
+    tol = SERVE_PARITY_REL * max(float(r.abs().max()) for rs in rows32_c.values() for r in rs)
+    rec = dict(requests=len(reqs), steps=f32["steps"],
+               tokens=sum(c.n_tokens for c in f32["completions"]),
+               tokens_equal_isolated_greedy=_engine_vs_greedy("smoke-archs jamba engine", model,
+                                                              card, f32, reqs),
+               f32_card_vs_cpu=_near_tie_divergence("smoke-archs jamba engine card vs CPU",
+                                                    rows32_c, rows32, _tokens_of(f32_c),
+                                                    _tokens_of(f32), tol=tol),
+               int8_card_vs_cpu=_near_tie_divergence("smoke-archs jamba engine int8 card vs "
+                                                     "CPU", rows8_c, rows8, _tokens_of(i8_c),
+                                                     _tokens_of(i8)),
+               int8_vs_f32=_near_tie_divergence("smoke-archs jamba engine int8", rows32, rows8,
+                                                 _tokens_of(f32), _tokens_of(i8)))
+    if rec["f32_card_vs_cpu"]["rel_err"] > SERVE_PARITY_REL:
+        raise AssertionError(f"[smoke-archs] jamba engine card vs CPU logits "
+                             f"{rec['f32_card_vs_cpu']['rel_err']} > {SERVE_PARITY_REL} of "
+                             f"their largest value")
+    return rec
+
+
+def phase_smoke_archs(spec_cls) -> dict:
+    """The five families A.11 adds, at their smoke configs, through the
+    entry points: the serving CLI's static batch (B.6 twice per attention
+    layer for a token frontend, no kernel for a prefix frontend) and the
+    training CLI (K = 4, 2 steps, B.6 and B.1 exact); serving and 2
+    node-stacked train steps card vs CPU (_smoke_serve_parity;
+    _card_vs_cpu at UPDATE_REL or UPDATE_ULPS ulps of the entry: at smoke
+    width the largest update is ~2e-4, and one ulp of a norm scale of 1.0,
+    1.19e-7, is ~6e-4 of it, so two roundings of theta + update apart
+    leave UPDATE_REL); and jamba through ``serve --engine
+    --int8-kv`` (B.2 on its attention layers' KV rows, B.6 on admissions,
+    exact), then through the engine on the card and the CPU
+    (_jamba_engine_parity)."""
+    import torch
+
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    out = {}
+    for arch in SMOKE_ARCHS:
+        model = _serve_model(arch, smoke=True)
+        cfg = model.cfg
+        rec = dict(arch=cfg.name)
+        reset_counts()
+        serve_cli.main(["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "16",
+                        "--gen-len", "4"])
+        torch.cuda.synchronize()
+        check_counts(f"smoke-archs serve {arch}", kernel_counts(),
+                     {"flash_attention_fwd": 2 * _pair_layers(cfg)}
+                     if model.has_prompt_prefill else {})
+        reset_counts()
+        trainer, state, history = train.main(["--arch", arch, "--smoke", "--steps", "2",
+                                              "--nodes", "4", "--log-every", "1"])
+        torch.cuda.synchronize()
+        check_counts(f"smoke-archs train {arch}", kernel_counts(),
+                     _lm_counts(4, 2, _pair_layers(cfg), len(state.params)))
+        if not all(math.isfinite(r["loss_mean"]) for r in history):
+            raise AssertionError(f"[smoke-archs] train {arch}: {history}")
+        rec["train_cli_losses"] = [r["loss_mean"] for r in history]
+        del trainer, state
+        rec["serve"] = _smoke_serve_parity(arch)
+        rec["train"] = _card_vs_cpu(f"smoke-archs {arch}", spec_cls, arch, SMOKE_TRAIN,
+                                    LM_PAIR, UPDATE_REL, UPDATE_ULPS, smoke=True)[0]
+        out[arch] = rec
+        log("[smoke-archs] " + json.dumps({k: v for k, v in rec.items() if k != "train"}))
+    cfg = _serve_model(MAMBA_ARCH, smoke=True).cfg
+    reset_counts()
+    report = serve_cli.main(["--arch", MAMBA_ARCH, "--smoke", "--engine", "--int8-kv",
+                             *ENGINE_ARGS])
+    torch.cuda.synchronize()
+    want = _engine_launches(cfg, report, True)
+    check_counts("smoke-archs jamba engine", kernel_counts(), want)
+    if not report["admitted"] or report["completed"] != report["admitted"]:
+        raise AssertionError(f"[smoke-archs] jamba engine: {report['completed']} of "
+                             f"{report['admitted']}")
+    out["jamba-engine-int8"] = dict(arch=cfg.name, admitted=report["admitted"],
+                                    steps=report["steps"], launches=want,
+                                    steps_clock=_jamba_engine_parity())
+    log("[smoke-archs] jamba engine: " + json.dumps(out["jamba-engine-int8"]))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[smoke-archs] phase in {out['phase_s']:.1f} s")
+    return out
+
+
+def _a11_train_runs(moe_train, frontend, smoke):
+    """(phase, run, record) of A.11's training runs on the card."""
+    yield "train-moe", "deepseek-moe-16b 2 layers K 4", moe_train["full_width"]
+    yield "train-moe", "1 MoE layer K 2 vs CPU", moe_train["parity"]
+    yield "frontend", "musicgen-medium 2 layers K 4", frontend["train"]
+    yield "frontend", "1 layer K 2 vs CPU", frontend["parity"]
+    for arch in SMOKE_ARCHS:
+        yield "smoke-archs", f"{arch} K 2 vs CPU", smoke[arch]["train"]
+
+
 def main() -> int:
     import torch
 
@@ -4524,12 +5277,15 @@ def main() -> int:
     hub = phase_hub(TrainerSpec, CompressionConfig)
     log(f"[done] dynamics and hub in {time.perf_counter() - t_dyn:.1f} s")
     phase_ckpt(TrainerSpec, CompressionConfig)
+    phase_optim(TrainerSpec)
     log(f"[done] paper training phases in {time.perf_counter() - t_start:.1f} s")
     bwd = phase_flash_bwd_kernels()
     lm = phase_train_lm(LM_SEQ, LM_NODES, LM_STEPS, profile=True)
     phase_train_lm(*LM_LONG, profile=False)
     phase_train_parity(TrainerSpec)
     rwkv_train = phase_train_rwkv(TrainerSpec)
+    moe_train = phase_train_moe(TrainerSpec)
+    frontend = phase_frontend(TrainerSpec)
     log(f"[done] training phases in {time.perf_counter() - t_start:.1f} s")
     serve_kern = phase_serve_kernels()
     qwen = phase_serve("qwen2_0_5b", 512, 64, "flash_attention_fwd", profile=True,
@@ -4537,7 +5293,10 @@ def main() -> int:
     rwkv = phase_serve("rwkv6_7b", 256, 32, "wkv6_scan", profile=False, end_to_end=False)
     phase_serve_parity("qwen2_0_5b", 64)
     phase_serve_parity("rwkv6_7b", 32)
+    moe_serve = phase_serve_moe()
+    phase_mamba_layer()
     engine = phase_engine()
+    smoke = phase_smoke_archs(TrainerSpec)
     t_examples = time.perf_counter()
     examples = phase_examples()
     log(f"[done] examples in {time.perf_counter() - t_examples:.1f} s")
@@ -4584,11 +5343,27 @@ def main() -> int:
         **{kernel: {f"dynamics {name}": launches[kernel] for name, launches in masked_runs.items()}
            for kernel in ("masked_quantize_blockwise_grouped",
                           "masked_dequant_accumulate_grouped_")}}
+    # A.11's paths: deepseek-moe-16b served and trained, musicgen-medium
+    # trained at S = 320, the smoke families trained, jamba's int8 engine
+    for kernel, runs in {
+            "flash_attention_fwd": {
+                "serve-moe deepseek-moe-16b 2 layers": moe_serve["launches"],
+                **{f"{tag} {what}": rec["launches"]["flash_attention_fwd"]
+                   for tag, what, rec in _a11_train_runs(moe_train, frontend, smoke)}},
+            "flash_attention_bwd": {
+                f"{tag} {what}": rec["launches"]["flash_attention_bwd"]
+                for tag, what, rec in _a11_train_runs(moe_train, frontend, smoke)},
+            "gossip_update_stacked_grouped": {
+                f"{tag} {what}": rec["launches"]["gossip_update_stacked_grouped"]
+                for tag, what, rec in _a11_train_runs(moe_train, frontend, smoke)}}.items():
+        other_runs.setdefault(kernel, {}).update(runs)
     engine_launches = {
         "quantize_blockwise_grouped": {
             "serve --engine --int8-kv": engine["wall-int8"]["launches"][
                 "quantize_blockwise_grouped"],
             "gemma2 2 layers, int8": engine["cut-gemma2_27b"]["int8_launches"][
+                "quantize_blockwise_grouped"],
+            "jamba smoke --engine --int8-kv": smoke["jamba-engine-int8"]["launches"][
                 "quantize_blockwise_grouped"]},
         "flash_attention_fwd": {
             "serve --engine": engine["wall-f32"]["launches"]["flash_attention_fwd"],
@@ -4627,12 +5402,12 @@ def main() -> int:
             err, launches = rec["max_abs_err"], path[name][name]
         elif name == "flash_attention_bwd":  # one call at qwen2-0.5b's training shape
             row = bwd["rows"][0]
-            timing = {key: row.get(key) for key in FLASH_KEYS}
+            timing = timing_keys(row, FLASH_KEYS)
             err, launches = bwd["max_abs_err"], path[name][name]
         elif name == "wkv6_bwd":  # one call at rwkv6-7b's training shape, and at hd 16
             rows = rwkv_train[name]["rows"]
-            timing = {key: rows[0].get(key) for key in FLASH_KEYS[:6]}
-            timing["hd16"] = {key: rows[1].get(key) for key in FLASH_KEYS[:6]}
+            timing = timing_keys(rows[0], FLASH_KEYS[:6])
+            timing["hd16"] = timing_keys(rows[1], FLASH_KEYS[:6])
             err = rwkv_train[name]["max_abs_err"]
             launches = rwkv_train["full_width"]["launches"][name]
         elif name in QUANT:
@@ -4654,8 +5429,8 @@ def main() -> int:
             err, launches = kern[name]["max_abs_err"], path[name][name]
         else:  # one call at the main path's shapes: qwen2-0.5b / rwkv6-7b prefill
             row = serve_kern[name]["rows"][0]
-            timing = {key: row.get(key) for key in (
-                FLASH_KEYS if name == "flash_attention_fwd" else FLASH_KEYS[:6])}
+            timing = timing_keys(row, FLASH_KEYS if name == "flash_attention_fwd"
+                                 else FLASH_KEYS[:6])
             err = serve_kern[name]["max_abs_err"]
             launches = (qwen if name == "flash_attention_fwd" else rwkv)["launches"]
         if name in ("wkv6_scan", "wkv6_bwd"):  # the training runs (train-rwkv)
@@ -4664,16 +5439,20 @@ def main() -> int:
                  "train --arch rwkv6_7b --smoke": rwkv_train["smoke_cli"]["launches"][name]})
         if name == "wkv6_scan":  # one call at the training shape
             row = rwkv_train[name]["rows"][0]
-            timing["train"] = dict({key: row.get(key) for key in FLASH_KEYS[:6]},
+            timing["train"] = dict(timing_keys(row, FLASH_KEYS[:6]),
                                    launches=rwkv_train["full_width"]["launches"][name])
         if name in ("flash_attention_fwd", "flash_attention_bwd"):
             # head dim 32 at the LM example's shape, and its launches there
             rows = (serve_kern[name] if name == "flash_attention_fwd" else bwd)["rows"]
             row = next(r for r in rows if r["case"] == HD32_CASE)
-            timing["hd32"] = dict({key: row.get(key) for key in FLASH_KEYS},
+            timing["hd32"] = dict(timing_keys(row, FLASH_KEYS),
                                   max_abs_err=row["max_abs_err"],
                                   launches=examples["torch_train_lm_drdsgd --steps 5"][
                                       "launches"][name])
+            # A.11's shapes: deepseek-moe-16b at hd 128, musicgen-medium at S = 320
+            timing["a11"] = {r["case"]: dict(timing_keys(r, FLASH_KEYS),
+                                             max_abs_err=r["max_abs_err"])
+                             for r in rows if r["case"] in {c[0] for c in A11_FWD_CASES}}
         if name in other_runs:  # the kernel's launches on the other runs that take it
             timing["launches_other_runs"] = other_runs[name]
         if name in new_path_timing:  # one call at a new path's shapes (K = 8)
@@ -4699,7 +5478,8 @@ def main() -> int:
                 **{key: b2t[key] for key in ("ms", "device_ms", "float_ms", "float_device_ms",
                                              "plain_ms", "bound_ms", "bound_by")})
         # ms is the wrapper's call time back to back (host launch cost
-        # included), device_ms the kernels' own time under the profiler
+        # included), device_ms the kernels' own time under the profiler (device_source
+        # "cuda events" where the profiler recorded no launch: see device_time)
         lines.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                       "launches": launches, "max_abs_err": err, **timing})
     print(json.dumps({"kernels": lines}), flush=True)

@@ -4,13 +4,14 @@ continuous engine.
 1. Static batch — ``repro_torch.serve.greedy_generate``: one prefill for the
    prompt batch (on the card, the flash-attention kernel B.6 on every
    attention layer, the WKV6 scan B.7 on every RWKV layer), then one
-   sample-and-decode step per token.  The attn, swa and rwkv families run;
-   Jamba's mamba blocks and the prefix frontends are not ported yet
-   (``--arch jamba_1_5_large_398b`` raises, citing ROADMAP A.11).
+   sample-and-decode step per token.  Every arch family runs, including
+   the recurrent ones (RWKV6 state, Jamba's mamba + KV hybrid) and the
+   prefix frontends (pixtral, musicgen: the prompt teacher-forced through
+   the decode path).
 2. Continuous batching — ``repro_torch.serve.ServeEngine``: requests of
-   mixed prompt/gen lengths arrive over time into a paged KV pool (RWKV
-   keeps its recurrent state per slot); each admission runs a prefill, and
-   one decode step serves every slot.
+   mixed prompt/gen lengths arrive over time into a paged KV pool (RWKV and
+   Mamba keep their recurrent states per slot); each admission runs a
+   prefill, and one decode step serves every slot (token frontends only).
 
 The port of ``examples/serve_decode.py``: the same flags, printed lines and
 defaults, plus ``--device`` (the card by default; ``cpu`` runs the plain
@@ -21,7 +22,7 @@ tokens are drawn from a ``torch.Generator``, not JAX's random bits (at 0,
 greedy, they are the reference's).  The weights come from the port's own
 seeded init unless ``main`` is handed parameters.
 
-Run:  PYTHONPATH=src python examples/torch_serve_decode.py [--arch rwkv6_7b] [--device cpu]
+Run:  PYTHONPATH=src python examples/torch_serve_decode.py [--arch jamba_1_5_large_398b] [--device cpu]
       (smoke-width; the arch family is what matters)
 """
 
@@ -70,6 +71,9 @@ def main(argv=None, params=None) -> dict:
     print("sample tokens:", gen[0][:12])
 
     # -- 2. continuous batching over a paged KV pool --------------------------
+    if not model.has_prompt_prefill:
+        print("engine demo skipped (prefix frontend)")
+        return dict(tokens=gen, report=None)
     reqs = [
         Request(rid=i, prompt=rng.integers(0, cfg.vocab, (s0,)).astype(np.int32),
                 max_new=n, arrival=float(arr))

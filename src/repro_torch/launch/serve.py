@@ -2,8 +2,8 @@
 continuous-batching engine (the port of ``repro.launch.serve``).
 
 * default: :func:`timed_generate` runs one prompt batch through
-  ``prefill`` (B.6 on every attn/swa layer, B.7 on every rwkv layer) and
-  then decodes, sampling from the previous logits each step, with honest
+  ``prefill`` (B.6 on every attn/swa layer, B.7 on every rwkv layer; the
+  stub frontends feed it through the decode path) and then decodes, sampling from the previous logits each step, with honest
   throughput numbers: the first call and steady state are reported apart,
   prefill and decode each get their own tok/s, and prompt tokens are never
   counted as generated.
@@ -59,7 +59,9 @@ def timed_generate(model: TransformerLM, params: dict, prompt: torch.Tensor,
     a steady one (``compile_s``: kernel build and load, allocator warm-up;
     the port compiles nothing per shape), the steady seconds, the tokens
     that phase processed and their rate.  The prefill runs twice on the
-    same prompt, and the second call's outputs are the ones used.
+    same prompt, and the second call's outputs are the ones used.  The stub
+    frontends (and ``use_prefill=False``) feed the prompt through the
+    decode path, one token per step, as the reference does.
     """
     dev = prompt.device
     b, s0 = prompt.shape
@@ -67,7 +69,7 @@ def timed_generate(model: TransformerLM, params: dict, prompt: torch.Tensor,
     stats = {"prefill": {"compile_s": 0.0, "steady_s": 0.0, "tokens": 0},
              "decode": {"compile_s": 0.0, "steady_s": 0.0, "tokens": 0}}
 
-    if use_prefill:
+    if use_prefill and model.has_prompt_prefill:
         t0 = _clock(dev)
         model.prefill(params, {"tokens": prompt})
         t1 = _clock(dev)

@@ -15,7 +15,10 @@ each node's own synthetic token stream; every ``--log-every`` steps a
 ``train`` line with the step's loss and consensus metrics.  The step is
 plain SGD with dense mixing, so it runs through the fused gossip update
 (B.1); the attention forward and backward run through B.6, the RWKV time
-mix's WKV recurrence through B.7 and its backward kernel.
+mix's WKV recurrence through B.7 and its backward kernel; the MoE dispatch
+and the Mamba scan are plain PyTorch.  The stub frontends (pixtral,
+musicgen) get fresh (K, B, P, D) embeddings each step, drawn as the
+reference draws them (``0.02 * standard_normal`` from ``default_rng(seed)``).
 
 Dynamic graphs (``repro_torch.dynamics``) on either path: ``--topology
 dropout --drop-p 0.2`` trains over per-round link failures; ``--local-updates
@@ -113,10 +116,17 @@ def train_lm(args):
           flush=True)
     params = model.init(torch.Generator(trainer.device).manual_seed(args.seed))
     streams = make_node_token_streams(k, cfg.vocab, seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    prefix = cfg.frontend_len if cfg.frontend != "token" else 0
     history = []
 
     def sample_batch(step):
-        return (np.stack([s.next_batch(bsz, args.seq_len) for s in streams]),)
+        toks = np.stack([s.next_batch(bsz, args.seq_len) for s in streams])
+        if not prefix:
+            return (toks,)
+        # the stub frontends' (K, B, P, D) embeddings, drawn as the reference draws them
+        emb = rng.standard_normal((k, bsz, prefix, cfg.d_model)).astype(np.float32) * 0.02
+        return toks, emb
 
     def on_segment(step, seg_state, ms):
         rec = dict(kind="train", step=step, wall_s=round(time.perf_counter() - t0, 3),

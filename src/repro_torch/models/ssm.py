@@ -1,5 +1,5 @@
-"""RWKV6 ("Finch") time-mix and channel-mix blocks (the RWKV half of the
-port of ``repro.models.ssm``).
+"""RWKV6 ("Finch") time-mix and channel-mix blocks and the Mamba selective
+SSM of Jamba (the port of ``repro.models.ssm``).
 
 RWKV6's data-dependent per-channel decay ``w_t = exp(-exp(w0 + tanh(x̃_t A)
 B))``, the per-head bonus ``u`` and the token-shift interpolation follow the
@@ -10,8 +10,14 @@ on the card, its plain version on the CPU) gives y and the final WKV state;
 then come the gate and ``w_o``.  Decode (:func:`rwkv_decode`) is one step
 of the same recurrence in plain PyTorch.  Training differentiates the
 plain WKV6 version on the CPU; on the card a forward that autograd records
-goes through ``WKV6`` (B.7 forward, then B.7's backward kernel).  Mamba
-waits for its slice (ROADMAP A.11).
+goes through ``WKV6`` (B.7 forward, then B.7's backward kernel).
+
+Mamba (:func:`mamba_forward`) is the reference's: the input projection, a
+depthwise causal conv whose state carries the last ``d_conv − 1`` inputs,
+and the selective scan in float32 with ``dt = softplus(dt_low·dt_proj +
+dt_bias)`` and ``a = −exp(a_log)``, a Python loop over time in plain
+PyTorch (the reference scans it in plain JAX, outside any Pallas kernel).
+Decode is the forward at S = 1.
 """
 
 from __future__ import annotations
@@ -172,3 +178,105 @@ def rwkv_decode(p, x, cfg: ArchConfig, state):
     c = _rwkv_chan_step(subtree(p, "chan"), x1, state["x_chan"], cfg)
     y = x1 + c
     return y[:, None], {"x_time": xt, "x_chan": x1, "wkv": s_new}
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM) — the recurrent half of Jamba
+# ---------------------------------------------------------------------------
+
+def mamba_decl(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    di = cfg.mamba_expand * d
+    ds = cfg.mamba_d_state
+    dc = cfg.mamba_d_conv
+    dtr = cfg.mamba_dt_rank or max(1, (d + 15) // 16)
+    return {
+        "in_proj": pr.normal((d, 2 * di), ("embed", "hidden"), fan_in=d),
+        "conv_w": pr.normal((di, dc), ("hidden", None), fan_in=dc),
+        "conv_b": pr.zeros((di,), ("hidden",)),
+        "x_proj": pr.normal((di, dtr + 2 * ds), ("hidden", None), fan_in=di),
+        "dt_proj": pr.normal((dtr, di), (None, "hidden"), fan_in=dtr),
+        "dt_bias": pr.zeros((di,), ("hidden",)),
+        "a_log": pr.constant((di, ds), ("hidden", "state"), 0.0),
+        "d_skip": pr.ones((di,), ("hidden",)),
+        "out_proj": pr.normal((di, d), ("hidden", "embed"), fan_in=di),
+    }
+
+
+def mamba_init_state(cfg: ArchConfig, batch: int, device) -> dict:
+    """The zero state: the last ``d_conv − 1`` conv inputs (B, d_conv − 1,
+    d_inner) and the SSM state (B, d_inner, d_state) in float32."""
+    di = cfg.mamba_expand * cfg.d_model
+    return {
+        "conv": torch.zeros((batch, cfg.mamba_d_conv - 1, di), dtype=cfg.compute_dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, di, cfg.mamba_d_state), dtype=torch.float32, device=device),
+    }
+
+
+def _mamba_ssm_scan(p, u, cfg: ArchConfig, h0):
+    """Selective scan in float32, a Python loop over time.  u: (B, S, di)
+    post-conv activations.  Returns (y (B, S, di) float32, h_T)."""
+    ds = cfg.mamba_d_state
+    dtr = p["dt_proj"].shape[0]
+    u32 = u.float()
+    proj = u32 @ p["x_proj"].float()
+    dt_low, bmat, cmat = torch.split(proj, [dtr, ds, ds], dim=-1)
+    dt = F.softplus(dt_low @ p["dt_proj"].float() + p["dt_bias"].float())  # (B, S, di)
+    a = -torch.exp(p["a_log"].float())                                     # (di, ds)
+    h, ys = h0, []
+    for t in range(u.shape[1]):
+        dt_t = dt[:, t, :, None]                                           # (B, di, 1)
+        da = torch.exp(dt_t * a)                                           # (B, di, ds)
+        dbu = dt_t * bmat[:, t, None, :] * u32[:, t, :, None]
+        h = da * h + dbu
+        ys.append(torch.einsum("bds,bs->bd", h, cmat[:, t]))
+    y = torch.stack(ys, dim=1) + u32 * p["d_skip"].float()
+    return y, h
+
+
+def _causal_conv(p, x, cfg: ArchConfig, conv_state=None):
+    """Depthwise causal conv1d. x: (B, S, di).  Returns (out, the last
+    ``d_conv − 1`` inputs)."""
+    dc = cfg.mamba_d_conv
+    if conv_state is None:
+        pad = torch.zeros((x.shape[0], dc - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        pad = conv_state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                                        # (B, S+dc-1, di)
+    w = p["conv_w"].to(x.dtype)                                            # (di, dc)
+    s = x.shape[1]
+    out = sum(xp[:, i:i + s] * w[:, i] for i in range(dc)) + p["conv_b"].to(x.dtype)
+    return out, xp[:, -(dc - 1):]
+
+
+def mamba_forward(p, x, cfg: ArchConfig, state=None):
+    """x: (B, S, D) -> (y (B, S, D), state).  ``state`` None starts from
+    zeros."""
+    if state is None:
+        state = mamba_init_state(cfg, x.shape[0], x.device)
+    dt_ = cfg.compute_dtype
+    di = cfg.mamba_expand * cfg.d_model
+    xz = x.to(dt_) @ p["in_proj"].to(dt_)
+    u, z = torch.split(xz, [di, di], dim=-1)
+    u, conv_state = _causal_conv(p, u, cfg, state["conv"])
+    u = F.silu(u)
+    y, ssm_state = _mamba_ssm_scan(p, u, cfg, state["ssm"])
+    y = y.to(dt_) * F.silu(z)
+    out = y @ p["out_proj"].to(dt_)
+    return out.to(x.dtype), {"conv": conv_state, "ssm": ssm_state}
+
+
+def mamba_decode(p, x, cfg: ArchConfig, state):
+    """Single token: the forward at S = 1 (the conv state carries the
+    history)."""
+    return mamba_forward(p, x, cfg, state)
+
+
+def recurrent_init_state(cfg: ArchConfig, blk: str, batch: int, device) -> dict:
+    """The zero state of a recurrent (``mamba`` or ``rwkv``) layer."""
+    if blk == "mamba":
+        return mamba_init_state(cfg, batch, device)
+    if blk == "rwkv":
+        return rwkv_init_state(cfg, batch, device)
+    raise ValueError(blk)

@@ -1,35 +1,39 @@
 """Decoder-only LM over a tiled ``(block, ffn)`` pattern, for training and
-serving (the port of ``repro.models.transformer``).
+serving (the port of ``repro.models.transformer``), covering all ten
+architectures of ``repro_torch.configs``.
 
 A model is ``ArchConfig.layer_pattern`` x ``ffn_pattern`` applied over
 ``n_groups`` repeats, with optional leading layers outside the groups
-(``first_k_dense``).  The port runs the block kinds ``attn`` (full causal
-GQA), ``swa`` (sliding-window GQA) and ``rwkv`` (RWKV6 time + channel mix)
-with the dense GLU FFN or none, over token inputs:
+(``first_k_dense``, DeepSeekMoE).  Block kinds: ``attn`` (full causal GQA),
+``swa`` (sliding-window GQA), ``mamba`` (selective SSM, ``models/ssm.py``)
+and ``rwkv`` (RWKV6 time + channel mix); FFN kinds: ``dense`` (GLU),
+``moe`` (top-k capacity dispatch, ``models/moe.py``) and ``none``.  The
+stub frontends (``patch_stub``, ``frame_stub``) prepend the precomputed
+``batch["embeddings"]`` (B, P, D) to the token embeddings; the loss and
+the logits read the text positions only.
 
-  loss(params, batch)                  — training objective (mean CE)
+  loss(params, batch)                  — training objective (CE + MoE aux)
   prefill(params, batch)               — whole prompt -> (last logits, caches)
   decode_step(params, tok, pos, cache) — one token against the cache
   paged_decode_step(params, tok, pos, cache, tables, max_len=...)
                                        — one token per serving slot against
                                          the paged pools (the engine's step)
-  logits_all(params, batch)            — every position's logits (eval)
+  logits_all(params, batch)            — every text position's logits (eval)
 
 The full-sequence forward's attention is one launch of the flash-attention
 kernel (B.6) per attn/swa layer and its RWKV recurrence one launch of the
 WKV6 kernel (B.7) per rwkv layer, on the card.  ``loss`` builds an autograd
-graph: B.6 has a backward kernel (``kernels/flash_attention``), B.7 has
-none yet, so rwkv models train on the CPU only (``models/ssm.py``).  The
-layers run as a Python loop over the head layers and the groups; the
-reference's ``lax.scan`` has no counterpart, and neither has its ``remat``,
-which changes memory and not values.  The MoE aux term of the reference's
-loss is 0 for the families ported here.  :func:`make_lm_loss` is the
-node-stacked loss the decentralized trainer takes.
+graph: on the card B.6 and B.7 go through their backward kernels
+(``kernels/flash_attention``, ``kernels/rwkv6_scan``).  The MoE dispatch
+and the Mamba scan are plain PyTorch on every device, as the reference
+computes them in plain JAX.  The layers run as a Python loop over the head
+layers and the groups; the reference's ``lax.scan`` has no counterpart,
+and neither has its ``remat``, which changes memory and not values.
+:func:`make_lm_loss` is the node-stacked loss the decentralized trainer
+takes.
 
 Parameters are the port's flat dict (``"groups/l0/mix/wq"``, with the
-groups' leading axis as in the reference).  ``moe`` FFNs, ``mamba`` blocks
-and the stub frontends raise at construction: they come with later slices
-(ROADMAP A.11).
+groups' leading axis as in the reference).
 """
 
 from __future__ import annotations
@@ -58,19 +62,36 @@ from repro_torch.models.layers import (
     rmsnorm_decl,
     softcap,
 )
-from repro_torch.models.ssm import rwkv_decl, rwkv_decode, rwkv_forward, rwkv_init_state
+from repro_torch.models.moe import moe_decl, moe_ffn
+from repro_torch.models.ssm import (
+    mamba_decl,
+    mamba_forward,
+    recurrent_init_state,
+    rwkv_decl,
+    rwkv_decode,
+    rwkv_forward,
+)
 from repro_torch.utils.tree import flatten, subtree
-
-_BLOCKS = ("attn", "swa", "rwkv")
-_FFNS = ("dense", "none")
 
 
 def _layer_decl(cfg: ArchConfig, blk: str, ffn: str) -> dict:
     d: dict = {"norm1": rmsnorm_decl(cfg.d_model)}
-    d["mix"] = rwkv_decl(cfg) if blk == "rwkv" else attention_decl(cfg)
+    if blk in ("attn", "swa"):
+        d["mix"] = attention_decl(cfg)
+    elif blk == "mamba":
+        d["mix"] = mamba_decl(cfg)
+    elif blk == "rwkv":
+        d["mix"] = rwkv_decl(cfg)
+    else:
+        raise ValueError(f"unknown block kind {blk!r}")
     if ffn == "dense":
         d["norm2"] = rmsnorm_decl(cfg.d_model)
         d["ffn"] = glu_mlp_decl(cfg.d_model, cfg.d_ff)
+    elif ffn == "moe":
+        d["norm2"] = rmsnorm_decl(cfg.d_model)
+        d["ffn"] = moe_decl(cfg)
+    elif ffn != "none":
+        raise ValueError(f"unknown ffn kind {ffn!r}")
     return d
 
 
@@ -88,19 +109,6 @@ def _logits(x, table, cap):
 @dataclasses.dataclass(frozen=True)
 class TransformerLM:
     cfg: ArchConfig
-
-    def __post_init__(self):
-        cfg = self.cfg
-        if cfg.frontend != "token":
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.frontend} frontend is not ported yet (ROADMAP A.11)")
-        for blk, ffn in cfg._full_pattern():
-            if blk not in _BLOCKS:
-                raise NotImplementedError(
-                    f"{cfg.name}: {blk!r} blocks are not ported yet (ROADMAP A.11)")
-            if ffn not in _FFNS:
-                raise NotImplementedError(
-                    f"{cfg.name}: {ffn!r} FFNs are not ported yet (ROADMAP A.11)")
 
     # -- parameters -----------------------------------------------------------
 
@@ -131,6 +139,25 @@ class TransformerLM:
     def num_params(self) -> int:
         return pr.count_params(self.decl())
 
+    @property
+    def has_prompt_prefill(self) -> bool:
+        """Whether :meth:`prefill` serves a prompt of tokens alone: a prefix
+        frontend's prefill needs its embeddings, so its prompt goes
+        through the decode path instead."""
+        return self.cfg.frontend == "token"
+
+    def num_active_params(self) -> int:
+        """Params touched per token (MoE: only the top_k routed experts)."""
+        cfg = self.cfg
+        total = self.num_params()
+        if cfg.moe is None:
+            return total
+        n_moe = sum(1 for _, f in cfg._full_pattern() if f == "moe")
+        per_expert = 3 * cfg.d_model * cfg.moe.d_expert
+        routed = n_moe * cfg.moe.num_experts * per_expert
+        active = n_moe * cfg.moe.top_k * per_expert
+        return total - routed + active
+
     # -- helpers --------------------------------------------------------------
 
     def _unembed_table(self, params):
@@ -139,10 +166,17 @@ class TransformerLM:
         return params["lm_head/table"]
 
     def _input_embed(self, params, batch, drop_last_token: bool = False):
+        """Returns (x (B, P + S, D), P): the stub frontends prepend
+        ``batch["embeddings"]`` (B, P, D); P = 0 for token frontends."""
+        cfg = self.cfg
         toks = batch["tokens"]
         if drop_last_token:
             toks = toks[:, :-1]
-        return embed(subtree(params, "embedding"), toks, self.cfg.compute_dtype)
+        x = embed(subtree(params, "embedding"), toks, cfg.compute_dtype)
+        if cfg.frontend == "token":
+            return x, 0
+        emb = batch["embeddings"].to(cfg.compute_dtype)
+        return torch.cat([emb, x], dim=1), emb.shape[1]
 
     def _layers(self, params):
         """[(block, ffn, the layer's leaves, where its cache lives)] in order:
@@ -164,28 +198,34 @@ class TransformerLM:
 
     # -- layer application ----------------------------------------------------
 
-    def _ffn(self, p, x, ffn):
+    def _ffn(self, p, x, ffn, aux):
+        """The layer's FFN with its residual; returns (x, aux + the MoE's
+        aux loss)."""
+        cfg = self.cfg
+        if ffn == "none":
+            return x, aux
+        h2 = rmsnorm(subtree(p, "norm2"), x, cfg.rmsnorm_eps)
         if ffn == "dense":
-            h2 = rmsnorm(subtree(p, "norm2"), x, self.cfg.rmsnorm_eps)
-            x = x + glu_mlp(subtree(p, "ffn"), h2, self.cfg.compute_dtype).to(x.dtype)
-        return x
+            return x + glu_mlp(subtree(p, "ffn"), h2, cfg.compute_dtype).to(x.dtype), aux
+        out, moe_aux = moe_ffn(subtree(p, "ffn"), h2, cfg)
+        return x + out, aux + moe_aux
 
-    def _apply_layer_fwd(self, p, x, blk, ffn, want_cache: bool):
-        """Full-sequence path; returns (x, new_cache_or_None)."""
+    def _apply_layer_fwd(self, p, x, blk, ffn, aux, want_cache: bool):
+        """Full-sequence path; returns (x, aux, new_cache_or_None)."""
         cfg = self.cfg
         h = rmsnorm(subtree(p, "norm1"), x, cfg.rmsnorm_eps)
         mix = subtree(p, "mix")
-        new_cache = None
         if blk in ("attn", "swa"):
-            out, kv = attention_forward(mix, h, cfg, kind=blk, return_kv=True)
+            out, st = attention_forward(mix, h, cfg, kind=blk, return_kv=True)
             window = cfg.sliding_window if blk == "swa" else None
-            if window is not None and kv["k"].shape[1] > window:
-                kv = {k: v[:, -window:] for k, v in kv.items()}
-            new_cache = kv if want_cache else None
+            if window is not None and st["k"].shape[1] > window:
+                st = {k: v[:, -window:] for k, v in st.items()}
+        elif blk == "mamba":
+            out, st = mamba_forward(mix, h, cfg)
         else:  # rwkv
             out, st = rwkv_forward(mix, h, cfg)
-            new_cache = st if want_cache else None
-        return self._ffn(p, x + out, ffn), new_cache
+        x, aux = self._ffn(p, x + out, ffn, aux)
+        return x, aux, st if want_cache else None
 
     def _apply_layer_decode(self, p, x, blk, ffn, pos, cache, *, tables=None, max_len=None):
         """One decode layer.  ``tables`` switches attn/swa layers onto the
@@ -200,18 +240,23 @@ class TransformerLM:
                                                     max_len=max_len)
         elif blk in ("attn", "swa"):
             out, new_cache = attention_decode(mix, h, cfg, kind=blk, cache=cache, pos=pos)
+        elif blk == "mamba":
+            out, new_cache = mamba_forward(mix, h, cfg, cache)
         else:  # rwkv
             out, new_cache = rwkv_decode(mix, h, cfg, cache)
-        return self._ffn(p, x + out, ffn), new_cache
+        return self._ffn(p, x + out, ffn, 0.0)[0], new_cache
 
     # -- full-sequence forward -------------------------------------------------
 
     def _forward(self, params, batch, want_cache: bool, drop_last_token: bool = False):
+        """Returns (x after the final norm, aux, P, (head caches, group
+        caches)); aux is the MoE layers' summed aux loss (0.0 without)."""
         cfg = self.cfg
-        x = self._input_embed(params, batch, drop_last_token)
+        x, prefix = self._input_embed(params, batch, drop_last_token)
+        aux = 0.0
         head, groups = [], {}
         for blk, ffn, p, (where, name, _) in self._layers(params):
-            x, c = self._apply_layer_fwd(p, x, blk, ffn, want_cache)
+            x, aux, c = self._apply_layer_fwd(p, x, blk, ffn, aux, want_cache)
             if where == "head":
                 head.append(c)
             else:
@@ -220,44 +265,47 @@ class TransformerLM:
         if want_cache:
             groups = {name: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
                       for name, cs in groups.items()}
-        return x, (head, groups)
+        return x, aux, prefix, (head, groups)
 
     # -- public API -----------------------------------------------------------
 
     def loss(self, params, batch):
-        """Training objective: mean CE of next-token prediction.
+        """Training objective: mean CE of next-token prediction over the
+        text positions, plus the MoE aux loss.
 
-        batch: {"tokens": (B, S+1) int}; positions 0..S-1 are the inputs and
-        1..S the labels.
+        batch: {"tokens": (B, S+1) int[, "embeddings": (B, P, D)]};
+        positions 0..S-1 are the inputs and 1..S the labels.
         """
-        x, _ = self._forward(params, batch, False, drop_last_token=True)
-        return chunked_logits_xent(x, self._unembed_table(params), batch["tokens"][:, 1:],
-                                   chunk=self.cfg.logits_chunk,
-                                   logit_softcap_val=self.cfg.logit_softcap)
+        x, aux, prefix, _ = self._forward(params, batch, False, drop_last_token=True)
+        ce = chunked_logits_xent(x[:, prefix:], self._unembed_table(params),
+                                 batch["tokens"][:, 1:], chunk=self.cfg.logits_chunk,
+                                 logit_softcap_val=self.cfg.logit_softcap)
+        return ce + aux
 
     def logits_all(self, params, batch):
-        """Full logits over every position (small models / eval only)."""
-        x, _ = self._forward(params, batch, False)
-        return _logits(x, self._unembed_table(params), self.cfg.logit_softcap)
+        """Full logits over every text position (small models / eval only)."""
+        x, _, prefix, _ = self._forward(params, batch, False)
+        return _logits(x[:, prefix:], self._unembed_table(params), self.cfg.logit_softcap)
 
     def prefill(self, params, batch):
-        """Forward the whole prompt ``batch["tokens"]`` (B, S); returns
-        (last-position logits (B, vocab), (head caches, group caches)): KV
-        (B, S, KVH, hd) per attn layer (the last ``window`` positions for
-        swa), the post-prompt state per rwkv layer; group caches stacked on
+        """Forward the whole prompt ``batch["tokens"]`` (B, S) (after the
+        stub frontends' ``batch["embeddings"]``); returns (last-position
+        logits (B, vocab), (head caches, group caches)): KV (B, P + S, KVH,
+        hd) per attn layer (the last ``window`` positions for swa), the
+        post-prompt state per mamba and rwkv layer; group caches stacked on
         a leading group axis."""
-        x, caches = self._forward(params, batch, True)
+        x, _, _, caches = self._forward(params, batch, True)
         return _logits(x[:, -1], self._unembed_table(params), self.cfg.logit_softcap), caches
 
     def _caches(self, attention_cache, batch: int, device) -> dict:
         """The decode cache tree: ``attention_cache(blk)`` for each attn/swa
-        layer, a (batch, ...) recurrent state for each rwkv layer; group
-        entries stacked on a leading group axis."""
+        layer, a (batch, ...) recurrent state for each mamba and rwkv layer;
+        group entries stacked on a leading group axis."""
         cfg = self.cfg
 
         def layer_cache(blk, lead=()):
             c = attention_cache(blk) if blk in ("attn", "swa") \
-                else rwkv_init_state(cfg, batch, device)
+                else recurrent_init_state(cfg, blk, batch, device)
             return {k: v.expand(lead + v.shape).contiguous() for k, v in c.items()}
 
         return {"head": [layer_cache(blk) for blk, _ in cfg.head_layers()],
@@ -299,7 +347,7 @@ class TransformerLM:
 
     def _decode_common(self, params, token, pos, cache, tables=None, max_len=None):
         cfg = self.cfg
-        x = self._input_embed(params, {"tokens": token})
+        x = embed(subtree(params, "embedding"), token, cfg.compute_dtype)
         for blk, ffn, p, (where, name, g) in self._layers(params):
             stored = cache["head"][name] if where == "head" else cache["groups"][name]
             layer = stored if g is None else {k: v[g] for k, v in stored.items()}
@@ -316,18 +364,24 @@ def make_lm_loss(model: TransformerLM):
     """The node-stacked LM loss the decentralized trainer takes (the
     reference vmaps ``model.loss`` over the node axis).
 
-    ``loss_fn(params, (tokens,))`` with every leaf (K, ...) and tokens (K,
-    B, S+1) returns the (K,) per-node losses: each leaf is unbound into K
-    views and node i's loss runs on its own views and batch row.  The
-    backward of the unbind stacks the K nodes' gradients into one (K, ...)
-    tensor per leaf.
+    ``loss_fn(params, (tokens,))`` or ``loss_fn(params, (tokens,
+    embeddings))`` with every leaf (K, ...), tokens (K, B, S+1) and the stub
+    frontends' embeddings (K, B, P, D) returns the (K,) per-node losses
+    (CE + aux): each leaf is unbound into K views and node i's loss runs on
+    its own views and batch rows.  The backward of the unbind stacks the K
+    nodes' gradients into one (K, ...) tensor per leaf.
     """
 
     def loss_fn(params, batch):
-        (tokens,) = batch
+        tokens, *rest = batch
         names = list(params)
         views = zip(*(params[n].unbind(0) for n in names))
-        return torch.stack([model.loss(dict(zip(names, node)), {"tokens": tokens[i]})
-                            for i, node in enumerate(views)])
+        losses = []
+        for i, node in enumerate(views):
+            node_batch = {"tokens": tokens[i]}
+            if rest:
+                node_batch["embeddings"] = rest[0][i]
+            losses.append(model.loss(dict(zip(names, node)), node_batch))
+        return torch.stack(losses)
 
     return loss_fn

@@ -1,5 +1,27 @@
-from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm, sgd
-from repro_torch.optim.schedules import constant_schedule, paper_schedule
+from repro_torch.optim.optimizers import (
+    Optimizer,
+    sgd,
+    momentum,
+    adam,
+    clip_by_global_norm,
+    chain_clip,
+)
+from repro_torch.optim.schedules import (
+    constant_schedule,
+    paper_schedule,
+    cosine_schedule,
+    linear_warmup_cosine,
+)
 
-__all__ = ["Optimizer", "clip_by_global_norm", "sgd", "constant_schedule",
-           "paper_schedule"]
+__all__ = [
+    "Optimizer",
+    "sgd",
+    "momentum",
+    "adam",
+    "clip_by_global_norm",
+    "chain_clip",
+    "constant_schedule",
+    "paper_schedule",
+    "cosine_schedule",
+    "linear_warmup_cosine",
+]

@@ -1,19 +1,22 @@
-"""SGD and global-norm clipping over dicts of node-stacked tensors.
+"""Optimizers and global-norm clipping over dicts of node-stacked tensors
+(the port of ``repro.optim.optimizers``).
 
-The port of the part of ``repro.optim.optimizers`` the paper's algorithm
-uses.  An :class:`Optimizer` is an (init, update) pair mirroring the
-reference: ``update(grads, opt_state, params, step) -> (params', state')``.
-Updates are out of place, so a state handed to ``update`` stays valid.
-:func:`sgd` records its schedule on the optimizer (``sgd_lr``), which is how
-the train step recognises plain SGD and fuses it with dense mixing
-(``core/drdsgd.py``).  Momentum and Adam wait for a later slice (ROADMAP
-A.4).
+An :class:`Optimizer` is an (init, update) pair mirroring the reference:
+``update(grads, opt_state, params, step) -> (params', state')``, with
+``step`` the train state's host int.  Updates are out of place, so a state
+handed to ``update`` stays valid.  :func:`sgd` records its schedule on the
+optimizer (``sgd_lr``), which is how the train step recognises plain SGD and
+fuses it with dense mixing (``core/drdsgd.py``); :func:`momentum`,
+:func:`adam` and :func:`chain_clip` leave ``sgd_lr`` unset, so their steps
+run unfused (the optimizer, then the mixer), as in the reference.  Adam's
+bias corrections are computed in float32 on the host, as the reference
+computes them (``t = float32(step) + 1``, ``b ** t``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -47,6 +50,68 @@ def sgd(lr) -> Optimizer:
     return Optimizer(init, update, sgd_lr=sched)
 
 
+class MomentumState(NamedTuple):
+    velocity: Any
+
+
+def momentum(lr, beta: float = 0.9, nesterov: bool = False) -> Optimizer:
+    """Heavy-ball momentum (``nesterov``: the look-ahead update)."""
+    sched = _as_schedule(lr)
+
+    def init(params):
+        return MomentumState({n: torch.zeros_like(p) for n, p in params.items()})
+
+    def update(grads, state, params, step):
+        eta = sched(step)
+        vel = {n: beta * v + grads[n].to(v.dtype) for n, v in state.velocity.items()}
+        upd = ({n: beta * v + grads[n].to(v.dtype) for n, v in vel.items()} if nesterov
+               else vel)
+        return {n: p - eta * upd[n] for n, p in params.items()}, MomentumState(vel)
+
+    return Optimizer(init, update)
+
+
+class AdamState(NamedTuple):
+    mu: Any
+    nu: Any
+
+
+def _bias_corrections(b1: float, b2: float, step: int) -> tuple[float, float]:
+    """1 - b1**t and 1 - b2**t at t = step + 1, in float32 (exact as floats)."""
+    t = torch.tensor(step, dtype=torch.float32) + 1.0
+    f32 = torch.float32
+    return (float(1.0 - torch.pow(torch.tensor(b1, dtype=f32), t)),
+            float(1.0 - torch.pow(torch.tensor(b2, dtype=f32), t)))
+
+
+def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         weight_decay: float = 0.0) -> Optimizer:
+    """Adam with bias correction; ``weight_decay`` adds ``wd * p`` to the
+    update (decoupled, AdamW-style)."""
+    sched = _as_schedule(lr)
+
+    def init(params):
+        return AdamState(mu={n: torch.zeros_like(p) for n, p in params.items()},
+                         nu={n: torch.zeros_like(p) for n, p in params.items()})
+
+    def update(grads, state, params, step):
+        eta = sched(step)
+        bc1, bc2 = _bias_corrections(b1, b2, step)
+        mu = {n: b1 * m + (1 - b1) * grads[n].to(m.dtype) for n, m in state.mu.items()}
+        nu = {n: b2 * v + (1 - b2) * grads[n].to(v.dtype).square()
+              for n, v in state.nu.items()}
+
+        def step_fn(n, p):
+            upd = (mu[n] / bc1) / (torch.sqrt(nu[n] / bc2) + eps)
+            if weight_decay:
+                upd = upd + weight_decay * p
+            return p - eta * upd
+
+        return {n: step_fn(n, p) for n, p in params.items()}, AdamState(mu, nu)
+
+    return Optimizer(init, update)
+
+
 def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float, *,
                         nodes: bool = False, inplace: bool = False):
     """Global-norm gradient clipping (stabilizes exp-scaled gradients).
@@ -70,3 +135,15 @@ def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float, *,
         return g.mul_(s) if inplace else g * s
 
     return {n: apply(g) for n, g in grads.items()}, gnorm
+
+
+def chain_clip(opt: Optimizer, max_norm: float) -> Optimizer:
+    """Wrap an optimizer with global-norm clipping of the gradients it is
+    handed (one norm over every leaf, node axis included, as the
+    reference's wrapper sees the stacked tree)."""
+
+    def update(grads, state, params, step):
+        grads, _ = clip_by_global_norm(grads, max_norm)
+        return opt.update(grads, state, params, step)
+
+    return Optimizer(opt.init, update)

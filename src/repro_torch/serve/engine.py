@@ -113,6 +113,10 @@ class ServeEngine:
                  page_size: int = 8, num_pages: dict | None = None, quantized: bool = False,
                  eos: int = -1, seed: int = 0, log_every: int = 64):
         cfg = model.cfg
+        if not model.has_prompt_prefill:
+            raise ValueError(
+                f"ServeEngine needs a token frontend (got {cfg.frontend!r}) "
+                "— prefix-frontend archs have no prompt-only prefill")
         self.model = model
         self.params = params
         self.device = next(iter(params.values())).device

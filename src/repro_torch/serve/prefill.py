@@ -12,7 +12,8 @@
   B.2 launch on the card), as the reference quantizes a pattern slot's
   stacked rows at once.
 * :func:`greedy_generate` runs the prompt through ``prefill`` (or, with
-  ``use_prefill=False``, token by token through the decode path) and then
+  ``use_prefill=False`` and for the stub frontends, which have no
+  prompt-only prefill, token by token through the decode path) and then
   samples from the previous logits and decodes, one token per step.
 """
 
@@ -22,7 +23,7 @@ import torch
 
 from repro_torch.models import TransformerLM
 from repro_torch.models.attention import paged_kv_len, quantize_kv_rows
-from repro_torch.models.ssm import rwkv_init_state
+from repro_torch.models.ssm import recurrent_init_state
 from repro_torch.serve.sampling import sample_tokens
 
 
@@ -34,8 +35,8 @@ def _place_layer(blk: str, dst: dict, src: dict, s0: int, grouped: bool) -> dict
     ``0..s0-1``; a full sliding-window ring buffer (prefill keeps the last
     ``window`` positions) is rolled so position p sits at slot ``p % window``
     — exactly where ``attention_decode`` will read and write next.
-    Recurrent states (rwkv) are already the post-prompt state and pass
-    through.  Writes into ``dst`` and returns it.
+    Recurrent states (mamba, rwkv) are already the post-prompt state and
+    pass through.  Writes into ``dst`` and returns it.
     """
     if blk not in ("attn", "swa"):
         return src
@@ -166,7 +167,7 @@ def clear_slot_state(model: TransformerLM, cache: dict, slot: int) -> dict:
     def place(blk, dst, grouped, i):
         if blk in ("attn", "swa"):
             return dst
-        fresh = rwkv_init_state(model.cfg, 1, next(iter(dst.values())).device)
+        fresh = recurrent_init_state(model.cfg, blk, 1, next(iter(dst.values())).device)
         if grouped:
             fresh = {k: v[None] for k, v in fresh.items()}
         return _set_row(dst, fresh, slot, grouped)
@@ -183,10 +184,11 @@ def greedy_generate(model: TransformerLM, params: dict, prompt: torch.Tensor,
     b, s0 = prompt.shape
     cache_len = s0 + gen_len
     with torch.inference_mode():
-        if use_prefill:
+        if use_prefill and model.has_prompt_prefill:
             logits, pf = model.prefill(params, {"tokens": prompt})
             cache = merge_prefill_cache(model, pf, b, cache_len, s0)
-        else:  # the prompt token by token through the decode path
+        else:  # stub frontends (or use_prefill=False): the prompt token by token
+            # through the decode path
             cache = model.init_cache(b, cache_len, prompt.device)
             logits = None
             for t in range(s0):

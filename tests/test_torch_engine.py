@@ -3,12 +3,17 @@ reference's (``repro.serve``, ``repro.models.attention``).
 
 Float32:
 * ``paged_decode_step`` is bit-equal to ``decode_step`` over 20 steps for
-  qwen2, gemma2 (its 16-token sliding-window ring wraps) and rwkv6, as
+  qwen2, gemma2 (its 16-token sliding-window ring wraps), rwkv6 and jamba, as
   tests/test_serve.py holds the reference.
 * Engine tokens equal isolated ``greedy_generate`` per request on the
   reference test's 6-request, 3-slot trace (slot reuse, queueing, a
   length-1 prompt), for qwen2, rwkv6 (B.7's admission, a recurrent row
-  cleared on reuse) and gemma2 on a trace whose prompts overflow its window.
+  cleared on reuse), gemma2 on a trace whose prompts overflow its window,
+  and jamba (mamba rows placed on admission and reset for a length-1
+  prompt).
+* jamba's engine, float32 and int8, gives the reference engine's tokens on
+  the 6-request trace from the reference's parameters; the engine refuses
+  the prefix frontends with the reference's ValueError.
 * On the reference's parameters, the port's engine gives the reference
   engine's tokens on that trace, and on the CLI's Poisson trace
   (``SMOKE_CLASSES``, rate 2, horizon 8, the steps clock) its report counts
@@ -71,7 +76,7 @@ from repro_torch.serve import (
 )
 from repro_torch.utils.tree import flatten, subtree
 
-ARCHS = ("qwen2_0_5b", "gemma2_27b", "rwkv6_7b")
+ARCHS = ("qwen2_0_5b", "gemma2_27b", "rwkv6_7b", "jamba_1_5_large_398b")
 # (prompt_len, max_new, arrival_step): tests/test_serve.py's trace, 6
 # requests through 3 slots
 TRACE = [(6, 5, 0), (10, 4, 0), (6, 3, 2), (1, 4, 3), (10, 6, 5), (6, 2, 9)]
@@ -156,8 +161,9 @@ def test_paged_decode_bit_equals_contiguous(port_models, arch):
 
 
 @pytest.mark.parametrize("arch,trace", [("qwen2_0_5b", TRACE), ("rwkv6_7b", TRACE),
-                                        ("gemma2_27b", WINDOW_TRACE)],
-                         ids=["qwen2", "rwkv6", "gemma2-window"])
+                                        ("gemma2_27b", WINDOW_TRACE),
+                                        ("jamba_1_5_large_398b", TRACE)],
+                         ids=["qwen2", "rwkv6", "gemma2-window", "jamba"])
 def test_engine_matches_isolated_greedy(port_models, arch, trace):
     model, params = port_models[arch]
     reqs = _requests(model.cfg.vocab, trace)
@@ -393,6 +399,34 @@ def test_int8_engine_diverges_only_on_near_ties(qwen):
 
 
 # -- pool, scheduler, traffic (tests/test_serve.py's cases) -------------------------
+
+@pytest.mark.parametrize("arch", ["pixtral_12b", "musicgen_medium"])
+def test_engine_refuses_prefix_frontends(arch):
+    model = TransformerLM(get_arch(arch, smoke=True))
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="token frontend"):
+        ServeEngine(model, params, max_batch=2, max_len=24)
+    with pytest.raises(ValueError, match="token frontend"):
+        RefEngine(RefLM(ref_get_arch(arch, smoke=True)), None, max_batch=2, max_len=24)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+def test_jamba_engine_matches_reference_engine(quantized):
+    """jamba (mamba rows per slot, one attention layer's paged KV, MoE) on
+    TRACE through the port's engine and the reference's, the same weights:
+    the same tokens (the length-1 prompt resets the slot's mamba rows)."""
+    ref = RefLM(ref_get_arch("jamba_1_5_large_398b", smoke=True))
+    rparams = ref.init(jax.random.PRNGKey(0))
+    want = _tokens(RefEngine(ref, rparams, max_batch=3, max_len=24, page_size=4,
+                             quantized=quantized).run(
+        _requests(ref.cfg.vocab, cls=RefRequest), clock="steps"))
+    model = TransformerLM(get_arch("jamba_1_5_large_398b", smoke=True))
+    params = convert.params_from_numpy(jax.tree.map(np.asarray, rparams), device="cpu")
+    got = _tokens(ServeEngine(model, params, max_batch=3, max_len=24, page_size=4,
+                              quantized=quantized).run(_requests(model.cfg.vocab),
+                                                       clock="steps"))
+    assert got == want
+
 
 def test_engine_rejects_oversized_request(port_models):
     model, params = port_models["qwen2_0_5b"]

@@ -20,7 +20,9 @@ reference's (the fmnist example's DSGD run; up to 6.8e-4 over 40 steps:
 the drift grows with the run, and the cut holds it at a fixed horizon).  The reference's scan and its per-step jit agree bit for
 bit on these runs, so the drift is the frameworks', not the scan's.  The
 accuracies the examples print are held at 0.01; the serving example's
-tokens (greedy) and engine lines as printed.
+tokens (greedy) and engine lines as printed, for rwkv6 (its default),
+jamba, deepseek-moe and the two prefix frontends (whose engine demo is
+skipped, as the reference's).
 
 The epoch hook: ``run(..., epoch_steps, on_epoch)`` calls the hook with the
 reference's epoch indices and per-epoch metric shapes, a ragged last epoch
@@ -197,10 +199,29 @@ def test_serve_decode_matches_reference(monkeypatch):
     assert "decode steps=" in got and "programs" not in got
 
 
-def test_serve_decode_raises_for_jamba():
-    port_mod = _load("torch_serve_decode.py")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        port_mod.main(["--arch", "jamba_1_5_large_398b", "--device", "cpu"])
+@pytest.mark.parametrize("arch", ["jamba_1_5_large_398b", "pixtral_12b", "musicgen_medium",
+                                  "deepseek_moe_16b"])
+def test_serve_decode_family_matches_reference(monkeypatch, arch):
+    """The other families through the serving example at temperature 0:
+    jamba (mamba + attention, MoE) and deepseek-moe through the static batch
+    and the engine, the prefix frontends through the decode path, their
+    engine demo skipped; the printed tokens are the reference's."""
+    ref_mod, port_mod = _load("serve_decode.py"), _load("torch_serve_decode.py")
+    argv = ["--arch", arch, "--temperature", "0", "--gen-len", "8"]
+    want = _ref_main(ref_mod, argv, monkeypatch)
+    ref_params = RefLM(ref_get_arch(arch, smoke=True)).init(jax.random.PRNGKey(0))
+    params = convert.params_from_numpy(_np_tree(ref_params), device="cpu")
+    result, got = _port_main(port_mod, argv, params=params)
+    assert got.splitlines()[0] == want.splitlines()[0]  # family, params
+    assert _engine_lines(got) == _engine_lines(want)
+    assert result["tokens"].shape == (4, 8)
+    skipped = "engine demo skipped (prefix frontend)"
+    if ref_get_arch(arch, smoke=True).frontend == "token":
+        assert result["report"]["completed"] == 5 and skipped not in got
+        assert len(_engine_lines(got)) == 6  # the sample line and five requests
+    else:
+        assert result["report"] is None
+        assert got.splitlines()[-1] == want.splitlines()[-1] == skipped
 
 
 # -- the epoch hook ------------------------------------------------------------

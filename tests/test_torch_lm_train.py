@@ -23,7 +23,11 @@ numpy-made tokens go through both packages.
   make_dense_mixer(w), ...)`` as ``tests/test_arch_smoke.py`` builds it:
   params and every metric at rtol 1e-5, atol 1e-6 (slice 1's tolerance).
   The port's step runs through the fused gossip update's plain version.
-- The ``--arch`` CLI runs on the CPU and its losses are finite.
+- The same trajectory (K = 2, 3 steps, clipped DR-DSGD) for deepseek-moe
+  (the aux term in every node's loss), jamba (mamba + attention, MoE) and
+  musicgen (the frame stub's embeddings, drawn as ``train_lm`` draws them).
+- The ``--arch`` CLI runs on the CPU and its losses are finite; for a stub
+  frontend it hands every step the reference's embeddings.
 """
 
 import jax
@@ -226,3 +230,82 @@ def test_cli_arch_runs_on_the_cpu(capsys):
     assert trainer.num_nodes == 4 and trainer.grad_clip == 1.0
     assert state.step == 3 and all(bool(torch.isfinite(p).all()) for p in state.params.values())
     assert '"kind": "train"' in capsys.readouterr().out
+
+
+def _lm_batches(cfg, k, steps, seed=0):
+    """train_lm's batches: each node's token stream, and for the stub
+    frontends (K, B, P, D) embeddings drawn as both CLIs draw them."""
+    streams = make_node_token_streams(k, cfg.vocab, seed=seed)
+    rng = np.random.default_rng(seed)
+    prefix = cfg.frontend_len if cfg.frontend != "token" else 0
+    out = []
+    for _ in range(steps):
+        toks = np.stack([s.next_batch(B, S) for s in streams])
+        emb = (rng.standard_normal((k, B, prefix, cfg.d_model)).astype(np.float32) * 0.02
+               if prefix else None)
+        out.append((toks, emb))
+    return out
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "jamba_1_5_large_398b", "musicgen_medium"])
+def test_family_trajectory_matches_reference(arch):
+    """DR-DSGD clipped at 1 (train_lm's stack) on K = 2 nodes, 3 steps: an
+    MoE model (the aux term in every node's loss), the mamba + attention
+    hybrid and a frame-stub model with its embeddings."""
+    k, steps, lr = 2, 3, 1e-2
+    cfg = ref_get_arch(arch, smoke=True)
+    ref = RefLM(cfg)
+    ref_params = ref.init(jax.random.PRNGKey(0))
+    w = metropolis_weights(ring_graph(k))
+    batches = _lm_batches(cfg, k, steps)
+    robust = RefRobust(mu=6.0)
+    ref_step = jax.jit(ref_build_train_step(ref.loss, ref_sgd(lr), ref_make_dense_mixer(w),
+                                            RefStepConfig(robust=robust, grad_clip=1.0)))
+    ref_state = ref_init_state(ref_replicate(ref_params, k), ref_sgd(lr))
+    model = TransformerLM(get_arch(arch, smoke=True))
+    mixer = make_dense_mixer(w, device="cpu")
+    step = build_train_step(make_lm_loss(model), sgd(lr), mixer,
+                            TrainStepConfig(robust=RobustConfig(mu=6.0), grad_clip=1.0))
+    state = init_state(replicate_params(convert.params_from_numpy(_np(ref_params), device="cpu"),
+                                        k), sgd(lr), mixer)
+    for t, (toks, emb) in enumerate(batches):
+        ref_batch = {"tokens": toks} if emb is None else {"tokens": toks, "embeddings": emb}
+        ref_state, ref_m = ref_step(ref_state, ref_batch)
+        args = (torch.from_numpy(toks),) + (() if emb is None else (torch.from_numpy(emb),))
+        state, m = step(state, args)
+        want = convert.params_from_numpy(_np(ref_state.params), device="cpu")
+        for name, p in state.params.items():
+            np.testing.assert_allclose(p.numpy(), want[name].numpy(), **TRAJ,
+                                       err_msg=f"step {t} {name}")
+        for key in ("loss_mean", "loss_worst", "robust_objective", "scale_max"):
+            np.testing.assert_allclose(float(m[key]), float(ref_m[key]), **TRAJ,
+                                       err_msg=f"step {t} {key}")
+
+
+def test_cli_hands_the_stub_frontends_their_embeddings(monkeypatch):
+    """``train --arch musicgen_medium --smoke``: every step's batch carries
+    (K, B, P, D) embeddings drawn as the reference's train_lm draws them."""
+    from repro_torch.launch import train
+
+    seen = []
+    run = train.run_segments
+
+    def recording(trainer, state, sample_batch, *a, **kw):
+        def sample(step):
+            batch = sample_batch(step)
+            seen.append(batch)
+            return batch
+        return run(trainer, state, sample, *a, **kw)
+
+    monkeypatch.setattr(train, "run_segments", recording)
+    _, state, history = train.main(["--arch", "musicgen_medium", "--smoke", "--steps", "2",
+                                    "--nodes", "2", "--seq-len", str(S), "--batch-per-node",
+                                    str(B), "--device", "cpu", "--log-every", "1"])
+    cfg = get_arch("musicgen_medium", smoke=True)
+    want = _lm_batches(cfg, 2, 2)
+    assert len(seen) == 2 and state.step == 2
+    for (toks, emb), (want_toks, want_emb) in zip(seen, want):
+        np.testing.assert_array_equal(toks, want_toks)
+        assert emb.shape == (2, B, cfg.frontend_len, cfg.d_model)
+        np.testing.assert_array_equal(emb, want_emb)
+    assert all(np.isfinite(r["loss_mean"]) for r in history)

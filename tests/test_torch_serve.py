@@ -2,14 +2,17 @@
 
 ``repro_torch.serve.greedy_generate`` must give the reference's greedy
 tokens (``repro.serve.prefill.greedy_generate``) exactly, with and without
-prefill, on the cases of tests/test_serve.py that the slice covers: qwen2
-with a 12-token prompt, gemma2 with 24 (past its 16-token window, so the
-swa ring buffer wraps) and rwkv6 with 12; the reference's parameters are
+prefill, on the cases of tests/test_serve.py: qwen2 with a 12-token
+prompt, gemma2 with 24 (past its 16-token window, so the swa ring buffer
+wraps), rwkv6, jamba, deepseek-moe, grok-1 and the prefix frontends
+(pixtral, musicgen: both paths teacher-force the prompt through decode)
+with 12; the reference's parameters are
 carried across and the prompts made with numpy.  ``merge_prefill_cache``
 equals the reference's at the sliding-window boundary (prompt 16 and 17
 against window 16, batch 1 and 2).  Also: ``sample_tokens`` (argmax at
 temperature 0, the softmax's distribution above it), ``timed_generate``'s
-stats keys, and the CLI on the CPU with its unported flag raising.
+stats keys and token counts (a prefix frontend's prompt through decode),
+and the CLI on the CPU with its unported flag raising.
 """
 
 import jax
@@ -30,7 +33,9 @@ from repro_torch.models import TransformerLM
 from repro_torch.serve import greedy_generate, merge_prefill_cache, sample_tokens
 from repro_torch.utils.tree import flatten
 
-CASES = [("qwen2_0_5b", 12), ("gemma2_27b", 24), ("rwkv6_7b", 12)]
+CASES = [("qwen2_0_5b", 12), ("gemma2_27b", 24), ("rwkv6_7b", 12), ("jamba_1_5_large_398b", 12),
+         ("deepseek_moe_16b", 12), ("grok_1_314b", 12), ("pixtral_12b", 12),
+         ("musicgen_medium", 12)]
 GEN = 6
 
 
@@ -38,7 +43,7 @@ GEN = 6
 def models():
     """{arch: (reference model, reference params, port model, port params)}."""
     out = {}
-    for arch in ("qwen2_0_5b", "gemma2_27b", "rwkv6_7b"):
+    for arch, _ in CASES:
         ref = RefLM(ref_get_arch(arch, smoke=True))
         params = ref.init(jax.random.PRNGKey(0))
         port = TransformerLM(get_arch(arch, smoke=True))
@@ -91,8 +96,11 @@ def test_sample_tokens_greedy_and_distribution():
     assert int(mixed[0]) == 1
 
 
-def test_timed_generate_keeps_the_reference_stats(models):
-    ref, rparams, port, params = models["qwen2_0_5b"]
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "musicgen_medium"])
+def test_timed_generate_keeps_the_reference_stats(models, arch):
+    """A prefix frontend (musicgen) prefills through the decode path: the
+    reference's prompt-token count, b (s0 - 1)."""
+    ref, rparams, port, params = models[arch]
     prompt = np.random.default_rng(3).integers(0, ref.cfg.vocab, (2, 8))
     want_out, want = ref_timed_generate(ref, rparams, jnp.asarray(prompt, jnp.int32), 4)
     got_out, got = cli.timed_generate(port, params, torch.from_numpy(prompt), 4)
