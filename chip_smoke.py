@@ -171,6 +171,24 @@ version:
            through TrainerSpec.build(optimizer=...): the unfused step, no
            launch; the card against the CPU within OPTIM_UPDATE_REL of the
            largest update, the first batch's loss lower after the run.
+  obs      A.13: the train CLI's ``--paper fmnist --log-dir D --profile
+           --sanitize`` (300 steps, grouped B.1 300 times; the JSONL valid,
+           300 train records, vectors every 8th, a perf record per segment;
+           B.1's kernel and the obs: ranges in the Chrome trace); through
+           the trainer API the same run with the sink off, on, on, off
+           (metrics and final parameters bit-equal, each run's seconds),
+           the int8 wire on the kernel quantizer with the sink and the
+           sanitizer (grouped B.2 300 times, no check fired), then
+           one injected violation per check (a W row off by 1e-2, a NaN in
+           a node, a qmax of 128, a half link mask on the straggler gossip
+           stack) firing that check first at its step; the memoryless int8
+           gossip wire under stragglers 0.2 with the sink and the sanitizer
+           (grouped B.4 and B.5 once per matching per round), its report's
+           fault replay on the card naming exactly the straggler rounds
+           the mixer applied; audit_host_syncs of one fmnist step (dense
+           and int8) with the sink and sanitizer off and on, on never
+           above off.  Each part's wall seconds.  The engine phase's
+           float32 CLI run writes its JSONL under ``--log-dir``.
   bwd-kernel  B.6's backward against autograd of the plain version at
            qwen2-0.5b's training shapes (B 2, H 14/2, hd 64, S = T = 64 and
            512), deepseek-moe-16b's (B 2, H 16/16, S 64, hd 128) and
@@ -1971,45 +1989,14 @@ def _sched_parity(cfg_cls) -> dict:
     return out
 
 
-def _round_syncs(mixer, theta, state) -> dict:
-    """What one round does that waits on the card: the synchronising calls
-    CUDA's sync debug mode reports, and under the profiler the runtime's
-    synchronise calls and the device-to-host copies."""
-    import warnings
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            mixer(theta, state)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        mixer(theta, state)
-    torch.cuda.synchronize()
-    events = prof.events()
-    return dict(
-        # the mode's own one-time "prototype feature" notice is not a sync
-        debug_mode=sum(1 for w in caught
-                       if "called a synchronizing CUDA operation" in str(w.message)),
-        runtime_syncs=sum(1 for e in events if e.device_type == DeviceType.CPU
-                          and "Synchronize" in e.name),
-        dtoh_copies=sum(1 for e in events if e.device_type == DeviceType.CUDA
-                        and "DtoH" in e.name))
-
-
 def _sync_counts(cfg_cls) -> dict:
     """One round of each kernel stack unscheduled and scheduled (adaptive,
     past its warmup, and linear), the wire's own noise drawn on the card:
     the scheduled round may make no more synchronisations than the
     unscheduled one."""
     import torch
+
+    from repro_torch.analysis import audit_host_syncs
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     out = {}
@@ -2024,7 +2011,7 @@ def _sync_counts(cfg_cls) -> dict:
             state = mixer.init_state(theta)
             for _ in range(12):  # past the adaptive warmup: res_ref latched
                 theta, state = mixer(theta, state)
-            counts[kind] = _round_syncs(mixer, theta, state)
+            counts[kind] = audit_host_syncs(mixer, theta, state)
         log(f"[schedules] synchronisations in one {stack} int8-kernel round: {counts}")
         if any(counts[kind][key] > counts["none"][key] for kind in ("adaptive", "linear")
                for key in counts["none"]):
@@ -4551,7 +4538,8 @@ def phase_engine() -> dict:
         return poisson_trace(SMOKE_CLASSES, rate=2.0, horizon=8.0, vocab=vocab, seed=0)
 
     cfg = get_arch(ENGINE_ARCH)
-    for label, flags in (("f32", ()), ("int8", ("--int8-kv",))):
+    log_dir = _obs_dir("engine")
+    for label, flags in (("f32", ("--log-dir", str(log_dir))), ("int8", ("--int8-kv",))):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -4560,7 +4548,18 @@ def phase_engine() -> dict:
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         counts = kernel_counts()
-        check_counts(f"engine {label}", counts, _engine_launches(cfg, report, bool(flags)))
+        check_counts(f"engine {label}", counts,
+                     _engine_launches(cfg, report, "--int8-kv" in flags))
+        if "--log-dir" in flags:
+            # A.13: the engine's sink wrote its records; the latency is theirs
+            from repro_torch.obs import load_records, serve_latency_summary
+
+            jsonl = log_dir / "telemetry.jsonl"
+            kinds = _validated("engine", jsonl)["kinds"]
+            if serve_latency_summary(load_records(str(jsonl))) != report["latency"]:
+                raise AssertionError("[engine] the JSONL's latency summary is not the report's")
+            out["telemetry"] = dict(kinds=kinds, latency_from_jsonl=True)
+            log("[engine] --log-dir: " + json.dumps(out["telemetry"]))
         if not report["admitted"] or report["completed"] != report["admitted"]:
             raise AssertionError(f"[engine] {label}: {report['completed']} of "
                                  f"{report['admitted']} requests completed")
@@ -5235,6 +5234,297 @@ def _a11_train_runs(moe_train, frontend, smoke):
         yield "smoke-archs", f"{arch} K 2 vs CPU", smoke[arch]["train"]
 
 
+# -- A.13: the tooling on the card ----------------------------------------------
+
+OBS_GOSSIP_STEPS = 100       # the straggler-masked memoryless gossip run
+OBS_INJECT = (8, 5)          # steps of an injected-violation run, the injected step
+OBS_STRAGGLER_P = 0.2
+
+
+def _obs_dir(name: str) -> Path:
+    path = ROOT / "build" / "chip_smoke" / "obs" / name
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def _validated(tag: str, path: Path) -> dict:
+    """The port's validator over a JSONL stream; any error fails the phase."""
+    from repro_torch.obs import validate_jsonl
+
+    summary = validate_jsonl(str(path))
+    if summary["errors"]:
+        raise AssertionError(f"[obs] {tag}: {path} fails the schema: {summary['errors'][:5]}")
+    return summary
+
+
+def _obs_trainer(spec_cls, exp, compress, sanitize, obs=None, mixer=None):
+    from repro_torch.models import make_classifier_loss, mlp_apply
+
+    spec = spec_cls(num_nodes=exp.num_nodes, graph="erdos_renyi",
+                    graph_kwargs={"p": exp.p, "seed": exp.seed}, lr=exp.lr, mu=exp.mu,
+                    compress=compress, sanitize=sanitize, device="cuda")
+    return spec.build(make_classifier_loss(mlp_apply), mlp_apply, mixer=mixer, obs=obs)
+
+
+def _straggler_gossip(cfg_cls, exp):
+    """The memoryless int8 gossip wire over fmnist_default's ER graph under
+    stragglers: grouped B.4 and B.5 once per matching per round."""
+    from repro_torch.dynamics import DynamicGossipMixer, FaultConfig, StaticSchedule
+    from repro_torch.graphs import build_graph, metropolis_weights
+
+    w = metropolis_weights(build_graph("erdos_renyi", exp.num_nodes, p=exp.p, seed=exp.seed))
+    return DynamicGossipMixer(StaticSchedule(w, device="cuda"),
+                              faults=FaultConfig(straggler_p=OBS_STRAGGLER_P, seed=exp.seed),
+                              quantized=cfg_cls(kind="int8", use_kernel=True,
+                                                error_feedback=False))
+
+
+def _injected(tag, trainer, params, batches, check, inject) -> dict:
+    """OBS_INJECT's run with ``inject(target mixer, state)`` between its two
+    epochs: the sanitizer must fire ``check`` first at the injected step."""
+    from repro_torch.analysis import SanitizeError
+
+    steps, at = OBS_INJECT
+    target = trainer.mixer
+    while hasattr(target, "inner"):
+        target = target.inner
+
+    def on_epoch(e, st, ms):
+        if e == 0:
+            inject(target, st)
+
+    try:
+        trainer.run(trainer.init(params), tuple(b[:steps] for b in batches), epoch_steps=at,
+                    on_epoch=on_epoch)
+    except SanitizeError as err:
+        first = min(step for step, _ in err.fired.values())
+        if err.fired.get(check, (None,))[0] != at or first != at:
+            raise AssertionError(f"[obs] {tag}: fired {err.fired}, want {check} at {at}")
+        return {name: dict(step=step, value=value) for name, (step, value) in err.fired.items()}
+    raise AssertionError(f"[obs] {tag}: the injected violation fired no check")
+
+
+def phase_obs(spec_cls, cfg_cls) -> dict:
+    """A.13 on the card, through the user entry points.
+
+    1. ``train --paper fmnist --log-dir D --profile --sanitize``
+       (fmnist_default: K = 10, 300 steps, the fused step through grouped
+       B.1): the JSONL passes the port's validator with 300 train records,
+       vectors on every 8th and one perf record per segment; B.1 launched
+       300 times (the launch counter); the Chrome trace holds B.1's kernel
+       and the step's obs: ranges.  Then the same weights and batches
+       through the trainer API with the sink off, on, on, off: the metrics
+       and the final parameters bit-equal, and each run's seconds.
+    2. The int8 wire on the kernel quantizer (grouped B.2 once per step,
+       300) with the sink and the sanitizer, through the trainer API (the
+       CLI's ``--compress int8`` is the reference's plain codec and never
+       reaches B.2): no check fires; then runs of OBS_INJECT steps with one
+       violation each injected at its step (a W row off by 1e-2, a NaN in
+       one node's parameters, a qmax of 128; a mask entry of 0.5 on the
+       gossip stack of 3) fire that check first, at that step.
+    3. The memoryless int8 gossip wire under stragglers (0.2) with the sink
+       and the sanitizer (the train CLI builds only the dense lowering, as
+       the reference's does: the gossip stack is the trainer API's
+       ``mixer=``), OBS_GOSSIP_STEPS steps: B.4 and B.5 once per matching
+       per round; ``python -m repro_torch.obs report`` replays the run's
+       faults on the card and names exactly the straggler rounds the mixer
+       applied (read through ``comm/topology.py::round_fault_masks``).
+    4. ``audit_host_syncs`` on one fmnist step (dense and int8), sink and
+       sanitizer off and on: on may make no more synchronisations than off.
+    Part 5, the engine with a sink, runs in the engine phase."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.analysis.audit import fmnist_step_syncs
+    from repro_torch.comm import topology as comm_topology
+    from repro_torch.launch import train
+    from repro_torch.obs import MetricsSink, find_perfetto_trace, load_records
+    from repro_torch.obs import report as obs_report
+
+    t_phase = time.perf_counter()
+    out = {}
+    exp, fed, batches, params = _fmnist()
+    steps = exp.steps
+
+    # 1. the dense wire through B.1: the CLI with the sink, the profiler and
+    #    the sanitizer
+    t0 = time.perf_counter()
+    d1 = _obs_dir("fmnist-dense")
+    reset_counts()
+    train.main(["--paper", "fmnist", "--log-dir", str(d1), "--profile", "--sanitize"])
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    check_counts("obs fmnist --log-dir --profile --sanitize", counts,
+                 {"gossip_update_stacked_grouped": steps})
+    summary = _validated("fmnist dense", d1 / "telemetry.jsonl")
+    recs = load_records(str(d1))
+    train_recs = [r for r in recs if r["kind"] == "train"]
+    with_vec = [r["step"] for r in train_recs if "loss_nodes" in r]
+    segments = -(-steps // 10)
+    if (len(train_recs) != steps or with_vec != list(range(0, steps, 8))
+            or summary["kinds"].get("perf") != segments or not summary["train_steps_contiguous"]):
+        raise AssertionError(f"[obs] fmnist dense: {summary['kinds']}, vectors on {with_vec}")
+    prof = find_perfetto_trace(str(d1))
+    text = Path(prof).read_text()
+    names = ["gossip_update_stacked_grouped_kernel", "obs:grad", "obs:dr_weighting",
+             "obs:local_update", "obs:consensus", "obs:sanitize", "obs:tap", "obs:run",
+             "obs:hook"]
+    # a kernel's name is its C++ signature ("void name<float>(...)")
+    missing = [n for n in names if (f'"{n}' if n.startswith("obs:") else n) not in text]
+    if missing:
+        raise AssertionError(f"[obs] the profile {prof} lacks {missing}")
+    cli_s = time.perf_counter() - t0
+    # the sink on and off through the trainer API, the same weights and
+    # batches, in turns off, on, on, off: the metrics callers see and the
+    # final parameters bit-equal; each run's wall seconds
+    runs = {"off": [], "on": []}
+    for turn in ("off", "on", "on", "off"):
+        trainer = _obs_trainer(spec_cls, exp, None, False,
+                               obs=MetricsSink() if turn == "on" else None)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fin, ms = trainer.run(trainer.init(params), batches)
+        torch.cuda.synchronize()
+        runs[turn].append((time.perf_counter() - t1, fin, ms))
+        if turn == "on" and len(trainer.obs.records("train")) != steps:
+            raise AssertionError("[obs] the sink did not get one train record per step")
+    _, fin0, ms0 = runs["off"][0]
+    for turn, got in runs.items():
+        for _, fin, ms in got:
+            differ = ([n for n in fin0.params if not torch.equal(fin.params[n], fin0.params[n])]
+                      + [k for k in ms0 if k not in ms or not torch.equal(ms[k], ms0[k])]
+                      + [k for k in ms if k not in ms0])
+            if differ:
+                raise AssertionError(f"[obs] sink {turn}: the run differs in {differ}")
+    out["fmnist-dense"] = dict(
+        steps=steps, kinds=summary["kinds"], vector_steps=len(with_vec),
+        launches={n: c[0] for n, c in counts.items() if c[0]}, profile_mb=len(text) / 1e6,
+        cli_s=cli_s, sink_on_off_bitwise=True,
+        run_s_without_sink=[r[0] for r in runs["off"]],
+        run_s_with_sink=[r[0] for r in runs["on"]], wall_s=time.perf_counter() - t0)
+    del runs, fin0, ms0
+    log("[obs] " + json.dumps(out["fmnist-dense"]))
+
+    # 2. the int8 wire on the kernel quantizer (grouped B.2) with the sink and
+    #    the sanitizer, through the trainer API: the CLI's --compress int8 is
+    #    the reference's codec (use_kernel=False, plain PyTorch, no kernel);
+    #    then one violation each
+    t0 = time.perf_counter()
+    d2 = _obs_dir("fmnist-int8")
+    with MetricsSink(str(d2)) as sink:
+        trainer = _obs_trainer(spec_cls, exp, cfg_cls(kind="int8", use_kernel=True), True,
+                               obs=sink)
+        sink.log("meta", 0, paper="fmnist", nodes=exp.num_nodes, steps=steps,
+                 compress="int8", sanitize=True, device=str(trainer.device))
+        reset_counts()
+        trainer.run(trainer.init(params), batches, epoch_steps=10, on_epoch=lambda *a: None)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+    check_counts("obs fmnist int8 kernel wire, sanitized", counts,
+                 {"quantize_blockwise_grouped": steps})
+    if _validated("fmnist int8", d2 / "telemetry.jsonl")["kinds"].get("train") != steps:
+        raise AssertionError("[obs] fmnist int8: not one train record per step")
+    rec = dict(steps=steps, fired={}, launches={n: c[0] for n, c in counts.items() if c[0]})
+
+    def bad_w(target, st):
+        target.w[0, 0] += 1e-2
+
+    def nan(target, st):
+        st.params["fc0/w"][1, 0, 0] = float("nan")
+
+    def qmax128(target, st):
+        target._rate = lambda comm: torch.full((), 128.0, device="cuda")
+
+    def half_mask(target, st):
+        inner = target._round_vectors
+
+        def vectors(w):
+            self_w, match_ws, masks = inner(w)
+            return self_w, match_ws, [masks[0] * 0.5] + list(masks[1:])
+        target._round_vectors = vectors
+
+    for check, inject in (("doubly_stochastic", bad_w), ("finite", nan),
+                          ("rate_in_container", qmax128)):
+        trainer = _obs_trainer(spec_cls, exp, cfg_cls(kind="int8", use_kernel=True), True)
+        rec["fired"][check] = _injected(f"int8 {check}", trainer, params, batches, check,
+                                        inject)
+    mixer = _straggler_gossip(cfg_cls, exp)
+    trainer = _obs_trainer(spec_cls, exp, mixer.compression, True, mixer=mixer)
+    rec["fired"]["masks_binary"] = _injected("gossip masks_binary", trainer, params, batches,
+                                             "masks_binary", half_mask)
+    rec["wall_s"] = time.perf_counter() - t0
+    out["fmnist-int8-sanitize"] = rec
+    log("[obs] " + json.dumps(rec))
+
+    # 3. the straggler-masked memoryless gossip wire: B.4/B.5, fault replay
+    t0 = time.perf_counter()
+    d3 = _obs_dir("gossip-stragglers")
+    mixer = _straggler_gossip(cfg_cls, exp)
+    matchings = len(mixer.transport.srcs)
+    applied = {}
+    seam = comm_topology.round_fault_masks
+
+    def spy(faults, rounds, k, device):
+        keep, up = seam(faults, rounds, k, device)
+        applied[rounds] = [int(n) for n in torch.nonzero(up < 0.5)[:, 0].tolist()]
+        return keep, up
+
+    n = OBS_GOSSIP_STEPS
+    with MetricsSink(str(d3)) as sink:
+        trainer = _obs_trainer(spec_cls, exp, mixer.compression, True, obs=sink, mixer=mixer)
+        sink.log("meta", 0, paper="fmnist", nodes=exp.num_nodes, steps=n,
+                 topology="static-gossip", straggler_p=OBS_STRAGGLER_P, seed=exp.seed,
+                 compress="int8", sanitize=True, device=str(trainer.device))
+        reset_counts()
+        comm_topology.round_fault_masks = spy
+        try:
+            trainer.run(trainer.init(params), tuple(b[:n] for b in batches), epoch_steps=10,
+                        on_epoch=lambda *a: None)
+            torch.cuda.synchronize()
+        finally:
+            comm_topology.round_fault_masks = seam
+        counts = kernel_counts()
+    check_counts("obs gossip stragglers", counts,
+                 {"masked_quantize_blockwise_grouped": n * matchings,
+                  "masked_dequant_accumulate_grouped_": n * matchings})
+    _validated("gossip stragglers", d3 / "telemetry.jsonl")
+    report_out = io.StringIO()
+    with contextlib.redirect_stdout(report_out):
+        rc = obs_report.main(["report", str(d3), "--json",
+                              "--export-trace", str(d3 / "events.json")])
+    summary = json.loads(report_out.getvalue().split("\ntrace")[0])
+    if rc or "events_error" in summary:
+        raise AssertionError(f"[obs] report: rc {rc}, {summary.get('events_error')}")
+    replayed = {e["step"]: e["down_nodes"] for e in obs_report.summarize_run(
+        load_records(str(d3)))["trace_records"] if e["event"] == "fault"}
+    want = {r: nodes for r, nodes in sorted(applied.items()) if nodes and r < n}
+    if replayed != want:
+        raise AssertionError(f"[obs] replayed straggler rounds {replayed} != applied {want}")
+    out["gossip-stragglers"] = dict(
+        steps=n, matchings=matchings, straggler_rounds=len(want),
+        down_node_rounds=sum(len(v) for v in want.values()), events=summary.get("events"),
+        launches={k: c[0] for k, c in counts.items() if c[0]},
+        wall_s=time.perf_counter() - t0)
+    log("[obs] " + json.dumps(out["gossip-stragglers"]))
+
+    # 4. host synchronisations of one step, the sink and the sanitizer off and on
+    t0 = time.perf_counter()
+    syncs = {c: fmnist_step_syncs(c) for c in ("none", "int8")}
+    for c, counts in syncs.items():
+        worse = [(s, k) for s, v in counts["on"].items() for k in v
+                 if v[k] > counts["off"][s][k]]
+        if worse:
+            raise AssertionError(f"[obs] {c}: the sink and sanitizer add syncs: {counts}")
+    out["audit"] = dict(syncs, wall_s=time.perf_counter() - t0)
+    log("[obs] synchronisations of one fmnist step, sink and sanitizer off/on: "
+        + json.dumps(out["audit"]))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[obs] phase in {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5278,6 +5568,7 @@ def main() -> int:
     log(f"[done] dynamics and hub in {time.perf_counter() - t_dyn:.1f} s")
     phase_ckpt(TrainerSpec, CompressionConfig)
     phase_optim(TrainerSpec)
+    phase_obs(TrainerSpec, CompressionConfig)
     log(f"[done] paper training phases in {time.perf_counter() - t_start:.1f} s")
     bwd = phase_flash_bwd_kernels()
     lm = phase_train_lm(LM_SEQ, LM_NODES, LM_STEPS, profile=True)

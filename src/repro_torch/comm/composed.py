@@ -32,9 +32,18 @@ reads the cache drift on the host, one sync per round.  The star transport
 hub ride the dense transport with the star W (``make_hub_mixer``).  Fault
 replay lives in the scheduled topology, so every dynamic stack above mixes
 with the faulted W_r.  The hierarchical replica axis waits for its slice.
+
+Each round runs inside an ``obs:consensus/<class name>`` profiler range.
+The sanitizer (``repro_torch.analysis.sanitize``) duck-types on the
+reference's hooks: the *instance* attributes ``_round_topology_w``
+(time-varying stacks only) and ``_round_vectors`` (dynamic gossip with the
+identity or masked wire only), ``w`` (static dense and hub stacks) and
+:meth:`ComposedMixer._rate`.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -67,6 +76,7 @@ from repro_torch.comm.wire import (
     _send_mask,
     wire_bits,
 )
+from repro_torch.obs.profiler import scope
 from repro_torch.utils.tree import leaf_names, tree_bytes
 
 
@@ -103,9 +113,18 @@ class ComposedMixer(Mixer):
             self.k = topology.k
         elif transport is not None:
             self.k = transport.k
+        if self._dynamic:
+            # the sanitizer's hook: W_r of a round, replayed
+            self._round_topology_w = topology.round_w
         if isinstance(transport, DenseTransport) and not self._dynamic:
             # the static W is cast once to the transport's compute dtype
             self.w = topology.round_w(0).to(transport.compute_dtype)
+        elif isinstance(transport, StarTransport):
+            # the star W the mean applies, for the sanitizer
+            self.w = topology.round_w(0).float()
+        if self._is_gossip and self._dynamic and not isinstance(wire, CodecWire):
+            # the sanitizer's mask check; the clocked EF stack has none
+            self._round_vectors = partial(gather_round_vectors, perm_idx=transport.perm_idx)
         if self._is_gossip and self._dynamic and topology.k != transport.k:
             raise ValueError(f"topology K={topology.k} != transport K={transport.k}")
         if isinstance(wire, CodecWire):
@@ -144,6 +163,11 @@ class ComposedMixer(Mixer):
     @property
     def traced_wire(self) -> bool:
         return self._dynamic or self.wire.traced_wire
+
+    def _rate(self, state: CommState):
+        """The codec rate of the round about to run (None = static): the
+        sanitizer's rate-in-container hook."""
+        return self.wire.rate(state) if isinstance(self.wire, CodecWire) else None
 
     def _round_w(self, state: CommState) -> torch.Tensor:
         """The W of the codec-dense round about to run: static, or the
@@ -244,17 +268,18 @@ class ComposedMixer(Mixer):
     # -- the protocol ----------------------------------------------------------
 
     def __call__(self, theta, state: CommState, *, round=None):
-        if isinstance(self.wire, CodecWire):
-            if self._is_gossip and getattr(self.wire, "clock", None) is not None:
-                return self._clocked_gossip_call(theta, state)
-            if self._is_gossip:
-                return self._gossip_round(theta, state)
-            return self._dense_round(theta, state)
-        if self._dynamic:
-            if self._is_gossip:
-                return self._dynamic_gossip_call(theta, state)
-            return self._dynamic_dense_call(theta, state)
-        return super().__call__(theta, state, round=round)
+        with scope(f"obs:consensus/{type(self).__name__}"):
+            if isinstance(self.wire, CodecWire):
+                if self._is_gossip and getattr(self.wire, "clock", None) is not None:
+                    return self._clocked_gossip_call(theta, state)
+                if self._is_gossip:
+                    return self._gossip_round(theta, state)
+                return self._dense_round(theta, state)
+            if self._dynamic:
+                if self._is_gossip:
+                    return self._dynamic_gossip_call(theta, state)
+                return self._dynamic_dense_call(theta, state)
+            return super().__call__(theta, state, round=round)
 
     # -- identity-wire dynamic rounds ------------------------------------------
 

@@ -25,7 +25,7 @@ from repro_torch.core.robust import (
     robust_objective,
     robust_scale,
 )
-from repro_torch.core.spec import TrainerSpec, add_dynamics_cli_args
+from repro_torch.core.spec import TrainerSpec, add_dynamics_cli_args, add_obs_cli_args
 
 __all__ = [
     "DecentralizedTrainer", "run_segments", "DenseMixer", "GossipMixer",
@@ -33,5 +33,5 @@ __all__ = [
     "make_hub_mixer", "make_identity_mixer", "repeat_mixer", "DecentralizedState",
     "TrainStepConfig", "build_eval_step", "build_train_step", "init_state",
     "replicate_params", "RobustConfig", "mixture_weights", "robust_objective",
-    "robust_scale", "TrainerSpec", "add_dynamics_cli_args",
+    "robust_scale", "TrainerSpec", "add_dynamics_cli_args", "add_obs_cli_args",
 ]

@@ -23,6 +23,16 @@ mixes every ``mix_every``-th step only.  ``loss_fn`` and ``predict_fn`` are node
 a loop over ``step`` that stacks the metrics on the device; there is no
 compiled scan to donate into.  Batches may be numpy arrays or tensors; they
 are moved to the trainer's device.
+
+``obs`` (a :class:`repro_torch.obs.MetricsSink`) streams one ``train``
+record per step: ``step`` and ``run`` pop the step's packed record from its
+metrics and queue it in the sink, which moves the queue to the host in one
+copy when it is read.  ``sanitize=True`` stages the in-step invariant
+checks of :mod:`repro_torch.analysis.sanitize`; ``step`` reads their flags
+after its step and ``run`` after each epoch (one device-to-host copy each)
+and raises :class:`~repro_torch.analysis.sanitize.SanitizeError` naming the
+failed checks and their first steps.  Both leave the metrics and the
+trajectory bit-exact.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ from repro_torch.graphs import (
     metropolis_weights,
     spectral_norm,
 )
+from repro_torch.obs.profiler import PhaseTimer
 from repro_torch.optim import Optimizer, sgd
 
 
@@ -61,7 +72,7 @@ def _stack_metrics(ms: list[dict]) -> dict:
 
 
 def run_segments(trainer: "DecentralizedTrainer", state, sample_batch,
-                 steps: int, seg: int, on_segment=None):
+                 steps: int, seg: int, on_segment=None, *, obs=None):
     """Drive ``trainer.run`` in host-sampled segments.
 
     ``sample_batch(step) -> batch`` of numpy leaves; batches are stacked
@@ -70,19 +81,35 @@ def run_segments(trainer: "DecentralizedTrainer", state, sample_batch,
     The state is handed to ``trainer.run`` without a reference kept here, so
     a segment's first state is freed after its first step (at LM widths a
     node-stacked copy of the parameters is many GB).
+
+    ``obs`` (a :class:`repro_torch.obs.MetricsSink`) adds the phase-timer
+    rollup: every chunk emits one ``perf`` record (steps/s, wire bytes/s,
+    wall-clock per ``sample``/``run``/``hook`` phase), and the ``run``
+    phase ends by reading the segment's wire bytes, which waits for its
+    steps: one synchronisation per segment, so the timings are wall-clock
+    honest.
     """
+    timer = PhaseTimer()
     done, box = 0, [state]  # the box holds the only reference between segments
     del state
     while done < steps:
         n = min(seg, steps - done)
-        samples = [sample_batch(done + i) for i in range(n)]
-        stacked = tuple(np.stack(parts) for parts in zip(*samples))
-        state, ms = trainer.run(box.pop(), stacked)
+        with timer.phase("sample"):
+            samples = [sample_batch(done + i) for i in range(n)]
+            stacked = tuple(np.stack(parts) for parts in zip(*samples))
+        with timer.phase("run"):
+            state, ms = trainer.run(box.pop(), stacked)
+            # with a sink, wait for the segment here: its one synchronisation
+            wire = float(ms["comm_bytes"].sum()) if obs is not None else None
         done += n
         if on_segment is not None:
-            on_segment(done - 1, state, ms)
+            with timer.phase("hook"):
+                on_segment(done - 1, state, ms)
         box.append(state)
         del state
+        if obs is not None:
+            obs.log("perf", done - 1, **timer.rollup(steps=n, wire_bytes=wire))
+        timer.reset()
     return box.pop()
 
 
@@ -108,6 +135,12 @@ class DecentralizedTrainer:
                                           # static synchronous consensus
     mix_every: int = 1                    # consensus period (local SGD when > 1)
     device: str | torch.device = "cuda"
+    obs: Any = None                       # repro_torch.obs.MetricsSink: one
+                                          # train record per step; None = no
+                                          # telemetry
+    sanitize: bool = False                # in-step invariant checks
+                                          # (repro_torch.analysis.sanitize),
+                                          # raised at a segment's end
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -151,8 +184,14 @@ class DecentralizedTrainer:
             self.optimizer = sgd(self.lr)
         step_cfg = TrainStepConfig(robust=self.robust, grad_clip=self.grad_clip,
                                    mix_every=self.mix_every, compression=self.compression)
+        self._checks = None
+        if self.sanitize:
+            from repro_torch.analysis.sanitize import SanitizeFlags
+
+            self._checks = SanitizeFlags()
         self._train_step = build_train_step(self.loss_fn, self.optimizer,
-                                            self.mixer, step_cfg)
+                                            self.mixer, step_cfg, obs=self.obs,
+                                            sanitize=self._checks)
         if self.predict_fn is not None:
             self._eval_step = build_eval_step(self.predict_fn)
 
@@ -166,6 +205,18 @@ class DecentralizedTrainer:
     def _batch(self, batch):
         return tuple(self._to_device(b) for b in batch)
 
+    def _drain_tap(self, metrics: dict) -> dict:
+        """Queue the step's packed record in the sink and drop it from the
+        metrics, which are then the same with the sink on or off."""
+        if self.obs is None:
+            return metrics
+        return self.obs.tap_drain(metrics)
+
+    def _throw(self) -> None:
+        """Raise if a sanitizer check failed since the last read."""
+        if self._checks is not None:
+            self._checks.throw()
+
     # -- public API ---------------------------------------------------------
 
     def init(self, params_single) -> DecentralizedState:
@@ -178,8 +229,11 @@ class DecentralizedTrainer:
         return init_state(params, self.optimizer, mixer=self.mixer)
 
     def step(self, state: DecentralizedState, batch):
-        """One train step on a (K, B, ...) batch; metrics are 0-d tensors."""
-        return self._train_step(state, self._batch(batch))
+        """One train step on a (K, B, ...) batch; metrics are 0-d tensors.
+        With ``sanitize`` it reads the checks' flags after the step."""
+        state, metrics = self._train_step(state, self._batch(batch))
+        self._throw()
+        return state, self._drain_tap(metrics)
 
     def run(self, state: DecentralizedState, batches, *, steps: int | None = None,
             epoch_steps: int | None = None, on_epoch=None):
@@ -194,6 +248,8 @@ class DecentralizedTrainer:
         without a split (no hook, no ``epoch_steps``, or ``epoch_steps >=
         steps``) it runs once after the last step with index 0.  The loop
         is the same eager loop either way, so the split changes no bit.
+        With ``sanitize``, each epoch's checks are read at its end, before
+        ``on_epoch``.
         """
         batches = self._batch(batches)
         total = batches[0].shape[0]
@@ -208,7 +264,8 @@ class DecentralizedTrainer:
             ms = []
             for t in range(start, min(start + epoch_steps, steps)):
                 state, m = self._train_step(state, tuple(b[t] for b in batches))
-                ms.append(m)
+                ms.append(self._drain_tap(m))
+            self._throw()
             chunks.append(_stack_metrics(ms))
             if on_epoch is not None:
                 on_epoch(e, state, chunks[-1])

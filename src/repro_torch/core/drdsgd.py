@@ -35,8 +35,22 @@ the robust scale by the round's node-up vector, replayed on the device from
 ``state.comm.rounds`` before the round.
 
 The metrics stay on the device as 0-d tensors; nothing in a step waits for
-the device.  The reference's telemetry tap and sanitizer are not ported,
-nor its optional disagreement metric: every step reports ``disagreement``.
+the device.  Every step reports ``disagreement`` (the reference's optional
+metric, on by default there).
+
+``obs`` (a :class:`repro_torch.obs.MetricsSink`) adds the telemetry tap:
+the step packs its record — the metrics, the EF clock's ``ef_rounds`` and
+``ef_drift`` where the stack has them, and on every
+``obs.vector_every``-th step the per-node ``loss_nodes``, ``dr_weights``
+and the ``hist_*`` counts of :data:`repro_torch.obs.hist.TRAIN_HISTOGRAMS`
+— into one float32 payload on the device under the ``_tap`` key, which the
+trainer pops before the metrics reach its caller.  ``sanitize`` (a
+:class:`repro_torch.analysis.sanitize.SanitizeFlags`) stages the in-step
+invariant checks after the round.  Both only read what the step computes,
+and neither synchronises; with both off the step is unchanged.  The phases
+run inside ``obs:grad``, ``obs:dr_weighting``, ``obs:local_update``,
+``obs:consensus``, ``obs:sanitize`` and ``obs:tap`` profiler ranges (the
+fused step's one call is both ``obs:local_update`` and ``obs:consensus``).
 """
 
 from __future__ import annotations
@@ -60,6 +74,8 @@ from repro_torch.core.robust import (
 )
 from repro_torch.kernels.gossip_update.kernel import MAX_NODES
 from repro_torch.kernels.gossip_update.ops import gossip_update_stacked_grouped
+from repro_torch.obs.hist import TRAIN_HISTOGRAMS, edges, hist_counts
+from repro_torch.obs.profiler import scope
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.utils.tree import leaf_names, tree_node_disagreement
 
@@ -161,13 +177,36 @@ def _owned(grads: dict) -> bool:
     return len(ptrs) == len(grads) and all(g.is_contiguous() for g in grads.values())
 
 
+def _tap_fields(obs, step: int, metrics: dict, comm, losses, lam, edge_cache: dict) -> dict:
+    """The step's record for ``obs``: the metrics, the EF clock where the
+    stack has one, and on a vector step the per-node vectors and the
+    histogram counts (their edges copied to the device once per spec)."""
+    rec = dict(metrics)
+    if isinstance(comm.ef_rounds, int):
+        rec["ef_rounds"] = comm.ef_rounds
+    if isinstance(comm.ef_drift, torch.Tensor):
+        rec["ef_drift"] = comm.ef_drift
+    vectors = None
+    if obs.wants_vectors(step):  # repro: noqa[RPR001] (a host int: the loop's step)
+        vectors = {"loss_nodes": losses.float(), "dr_weights": lam}
+        sources = {"loss_nodes": losses, "dr_weights": lam, "ef_res": comm.metrics.res_norm}
+        for spec in TRAIN_HISTOGRAMS:
+            key = (spec, losses.device)
+            if key not in edge_cache:  # repro: noqa[RPR001] (a host dict)
+                edge_cache[key] = edges(spec, losses.device)
+            vectors[spec.field] = hist_counts(sources[spec.source], spec, edge_cache[key])
+    return obs.tap_pack(step, rec, vectors=vectors)
+
+
 def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
-                     cfg: TrainStepConfig):
+                     cfg: TrainStepConfig, *, obs=None, sanitize=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``loss_fn(params, batch)`` takes the node-stacked params and batch and
     returns the (K,) per-node mean losses.  The metrics dict has the keys
-    of the reference's step (``repro/core/drdsgd.py:242-258``).
+    of the reference's step (``repro/core/drdsgd.py:242-258``), plus
+    ``_tap`` when ``obs`` (a ``MetricsSink``) is given.  ``sanitize`` (a
+    ``SanitizeFlags``) receives the in-step checks.
     """
     if cfg.compression is not None and cfg.compression.enabled \
             and mixer.compression is None:
@@ -182,6 +221,9 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
             "spelling: it keeps CommState.rounds ticking every step)")
     fused_w = _fused_w(optimizer, mixer, cfg.mix_every)
     step_faults = _step_faults(mixer)
+    edge_cache: dict = {}
+    if sanitize is not None:
+        from repro_torch.analysis.sanitize import step_checks
 
     def train_step(state: DecentralizedState, batch):
         if not isinstance(state.comm, CommState):
@@ -189,47 +231,55 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
                 "DecentralizedState.comm must be the mixer's CommState — "
                 "build the state with init_state(params, optimizer, mixer=mixer)")
         names = leaf_names(state.params)
-        leaves = [state.params[n].detach().requires_grad_(True) for n in names]
-        losses = loss_fn(dict(zip(names, leaves)), batch)
-        grads = dict(zip(names, torch.autograd.grad(losses.sum(), leaves)))
-        losses = losses.detach()
-        if cfg.grad_clip is not None:
-            grads, _ = clip_by_global_norm(grads, cfg.grad_clip, nodes=True,
-                                           inplace=_owned(grads))
+        with scope("obs:grad"):
+            leaves = [state.params[n].detach().requires_grad_(True) for n in names]
+            losses = loss_fn(dict(zip(names, leaves)), batch)
+            grads = dict(zip(names, torch.autograd.grad(losses.sum(), leaves)))
+            losses = losses.detach()
+            if cfg.grad_clip is not None:
+                grads, _ = clip_by_global_norm(grads, cfg.grad_clip, nodes=True,
+                                               inplace=_owned(grads))
         # --- the paper's technique: exponential per-node gradient reweighting
-        scale = robust_scale(losses, cfg.robust)   # (K,)
-        lam = mixture_weights(losses, cfg.robust)  # (K,) adversarial λ*
-        if step_faults is not None:
-            # a down node loses its gradient: the round's up vector, replayed
-            # from the clock before the round (the round the mixer consumes)
-            _, up = comm_topology.round_fault_masks(step_faults, state.comm.rounds,
-                                                    losses.shape[0], losses.device)
-            scale = scale * up
+        with scope("obs:dr_weighting"):
+            scale = robust_scale(losses, cfg.robust)   # (K,)
+            lam = mixture_weights(losses, cfg.robust)  # (K,) adversarial λ*
+            if step_faults is not None:
+                # a down node loses its gradient: the round's up vector, replayed
+                # from the clock before the round (the round the mixer consumes)
+                _, up = comm_topology.round_fault_masks(step_faults, state.comm.rounds,
+                                                        losses.shape[0], losses.device)
+                scale = scale * up
         # mix_every > 1: off-steps skip the mixer (state.step is a host int)
         is_mix_step = state.step % cfg.mix_every == cfg.mix_every - 1
         if fused_w is not None:
             # scale, SGD and the dense consensus round: one pass over every
             # leaf of a dtype (one B.1 launch per step on the card)
-            eta = optimizer.sgd_lr(state.step)
-            mixed = {}
-            for group in _dtype_groups(state.params, names):
-                outs = gossip_update_stacked_grouped(
-                    [state.params[n] for n in group], [grads[n] for n in group], fused_w,
-                    scale, eta=eta)
-                mixed.update(zip(group, outs))
-            mixed = {n: mixed[n] for n in names}
-            del grads  # a node-stacked copy of the parameters: free it before the metrics
-            opt_state, comm = state.opt_state, mixer.round_state(state.params, state.comm)
+            with scope("obs:local_update"), scope("obs:consensus"):
+                eta = optimizer.sgd_lr(state.step)
+                mixed = {}
+                for group in _dtype_groups(state.params, names):
+                    outs = gossip_update_stacked_grouped(
+                        [state.params[n] for n in group], [grads[n] for n in group],
+                        fused_w, scale, eta=eta)
+                    mixed.update(zip(group, outs))
+                mixed = {n: mixed[n] for n in names}
+                del grads  # a node-stacked copy of the parameters: free it before the metrics
+                opt_state, comm = state.opt_state, mixer.round_state(state.params, state.comm)
         else:
-            scaled = {n: g * _node_scale(scale, g) for n, g in grads.items()}
             # --- local optimizer step (plain SGD in the paper)
-            updated, opt_state = optimizer.update(scaled, state.opt_state,
-                                                  state.params, state.step)
+            with scope("obs:local_update"):
+                scaled = {n: g * _node_scale(scale, g) for n, g in grads.items()}
+                updated, opt_state = optimizer.update(scaled, state.opt_state,
+                                                      state.params, state.step)
             # --- consensus: the only cross-node communication of the algorithm
-            if is_mix_step:  # repro: noqa[RPR001] (a host bool: step is a host int)
-                mixed, comm = mixer(updated, state.comm, round=state.step)
-            else:
-                mixed, comm = updated, state.comm
+            with scope("obs:consensus"):
+                if is_mix_step:  # repro: noqa[RPR001] (a host bool: step is a host int)
+                    mixed, comm = mixer(updated, state.comm, round=state.step)
+                else:
+                    mixed, comm = updated, state.comm
+        if sanitize is not None:
+            with scope("obs:sanitize"):
+                step_checks(mixer, state.comm, mixed, comm, sanitize, state.step)
         # wire bytes this step: the round's measured wire on time-varying
         # stacks, else the static estimate; 0 on a step that skips the mixer
         if is_mix_step:  # repro: noqa[RPR001] (a host bool, as above)
@@ -251,6 +301,12 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
             "ef_residual_norm": comm.metrics.res_norm,
             "disagreement": tree_node_disagreement(mixed),
         }
+        if obs is not None:
+            # the record rides the metrics as one packed entry; the trainer
+            # pops it, so the metrics its caller sees are the same either way
+            with scope("obs:tap"):
+                metrics.update(_tap_fields(obs, state.step, metrics, comm, losses, lam,
+                                           edge_cache))
         return DecentralizedState(mixed, opt_state, state.step + 1, comm), metrics
 
     return train_step

@@ -18,10 +18,10 @@ As in the reference, the gossip lowering comes in through
     spec = TrainerSpec(num_nodes=10, graph="erdos_renyi", compress="int8")
     trainer = spec.build(loss_fn, predict_fn)
 
-The CLI installs the reference's flag names.  ``--sanitize`` (runtime
-invariant checks, not ported yet) is accepted by the parser and raises
-``NotImplementedError`` naming the slice that will port it when set.  The
-one flag the reference lacks is ``--device``.
+The CLI installs the reference's flag names, ``--sanitize`` (the in-step
+invariant checks of :mod:`repro_torch.analysis.sanitize`) among them, and
+:func:`add_obs_cli_args` the observability flags.  The one flag the
+reference lacks is ``--device``.
 """
 
 from __future__ import annotations
@@ -38,12 +38,6 @@ _GRAPH_CHOICES = ("ring", "grid", "torus", "erdos_renyi", "geometric",
                   "complete", "star", "hypercube")
 _COMPRESS_CHOICES = ("none", "bf16", "int8", "int4", "topk", "randk")
 _SCHEDULE_CHOICES = ("none", "constant", "linear", "adaptive")
-
-# flag -> (argparse kwargs, default, slice that ports it)
-_UNPORTED_FLAGS = {
-    "--sanitize": (dict(action="store_true"), False,
-                   "the tooling slice (runtime invariant checks)"),
-}
 
 
 def add_dynamics_cli_args(ap) -> None:
@@ -86,8 +80,27 @@ def add_dynamics_cli_args(ap) -> None:
                          "with the round's up vector")
 
 
-def _dest(flag: str) -> str:
-    return flag.lstrip("-").replace("-", "_")
+def add_obs_cli_args(ap) -> None:
+    """Install the observability flags (``repro_torch.obs``) on an argparse
+    parser.
+
+    ``--log-every`` is deliberately not here: entry points own their logging
+    cadence (it doubles as the ``run_segments`` chunk length).
+    """
+    ap.add_argument("--log-dir", default=None,
+                    help="write schema-versioned JSONL telemetry "
+                         "(repro_torch.obs.MetricsSink: per-step train records, "
+                         "eval fairness metrics, per-chunk perf rollups) "
+                         "into this directory")
+    ap.add_argument("--profile", action="store_true",
+                    help="wrap the run in torch.profiler and write a Chrome "
+                         "trace under --log-dir (phases carry obs:... range "
+                         "names)")
+    ap.add_argument("--tap-vectors-every", type=int, default=8,
+                    help="decimation of the tap's vector payload: per-node "
+                         "losses / DR weights / histogram counts land on "
+                         "every N-th train record (scalars land every "
+                         "step; 1 = vectors every step)")
 
 
 @dataclasses.dataclass
@@ -123,6 +136,7 @@ class TrainerSpec:
     outage_len: int = 10
     straggler_skips_compute: bool = False  # down nodes lose their gradient too
     seed: int = 0
+    sanitize: bool = False                # in-step invariant checks
     device: str = "cuda"
 
     def robust_config(self) -> RobustConfig:
@@ -169,7 +183,7 @@ class TrainerSpec:
             schedule=schedule,
         )
 
-    def build(self, loss_fn, predict_fn=None, *, mixer=None, optimizer=None
+    def build(self, loss_fn, predict_fn=None, *, mixer=None, optimizer=None, obs=None
               ) -> DecentralizedTrainer:
         return DecentralizedTrainer(
             loss_fn,
@@ -187,6 +201,8 @@ class TrainerSpec:
             dynamics=self.dynamics_config(),
             mix_every=self.mix_every,
             device=self.device,
+            obs=obs,
+            sanitize=self.sanitize,
         )
 
     # -- CLI integration ------------------------------------------------------
@@ -229,9 +245,13 @@ class TrainerSpec:
                         help="ablation: memoryless compression")
         ap.add_argument("--device", default="cuda",
                         help="torch device; 'cpu' runs the plain PyTorch versions")
+        ap.add_argument("--sanitize", action="store_true",
+                        help="stage the in-step invariant checks (doubly "
+                             "stochastic W, CHOCO drift, finite parameters, "
+                             "binary link masks, in-container codec rate; "
+                             "repro_torch.analysis.sanitize); a violation "
+                             "raises at the end of its segment")
         add_dynamics_cli_args(ap)
-        for flag, (kwargs, default, _) in _UNPORTED_FLAGS.items():
-            ap.add_argument(flag, default=default, help="not ported yet", **kwargs)
 
     @classmethod
     def from_args(cls, args, **overrides: Any) -> "TrainerSpec":
@@ -239,12 +259,8 @@ class TrainerSpec:
 
         For ``--nodes``/``--lr``/``--graph`` the CLI value wins when passed,
         otherwise the ``overrides`` fallback applies; every other flag is
-        copied from ``args``.  A flag of an unported feature set to anything
-        but its default raises ``NotImplementedError``.
+        copied from ``args``.
         """
-        for flag, (_, default, later) in _UNPORTED_FLAGS.items():
-            if getattr(args, _dest(flag), default) != default:
-                raise NotImplementedError(f"{flag} is not ported yet; it waits for {later}")
         spec = dict(overrides)
         spec.update(mu=args.mu, robust=not args.dsgd, compress=args.compress,
                     compress_ratio=args.compress_ratio,
@@ -262,7 +278,7 @@ class TrainerSpec:
                     straggler_p=args.straggler_p, outage_p=args.outage_p,
                     outage_len=args.outage_len,
                     straggler_skips_compute=args.straggler_skips_compute,
-                    seed=args.seed, device=args.device)
+                    seed=args.seed, sanitize=args.sanitize, device=args.device)
         if args.nodes is not None:
             spec["num_nodes"] = args.nodes
         if args.lr is not None:

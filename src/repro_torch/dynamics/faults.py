@@ -123,11 +123,16 @@ def replay_fault_masks(cfg: FaultConfig, rounds, k: int, device="cuda"):
     """Replay the fault process for an array of round indices at once.
 
     The process is a pure function of the round, so a past run's masks
-    rebuild exactly from its config.  Returns numpy
-    ``(keep (R, K, K), up (R, K))``.
+    rebuild exactly from its config on the device that drew them (a CUDA
+    generator's bits are not a CPU generator's).  Each round goes through
+    :func:`repro_torch.comm.topology.round_fault_masks`, the seam the
+    mixers use.  Returns numpy ``(keep (R, K, K), up (R, K))``.
     """
+    from repro_torch.comm import topology
+
     rounds = np.asarray(rounds, np.int64).reshape(-1)
-    masks = [fault_keep_matrix(cfg, int(r), k, device) for r in rounds]
+    dev = resolve_device(device)
+    masks = [topology.round_fault_masks(cfg, int(r), k, dev) for r in rounds]
     if not masks:
         return np.zeros((0, k, k), np.float32), np.zeros((0, k), np.float32)
     keep = torch.stack([m[0] for m in masks]).cpu().numpy()

@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.comm.protocol import CommState, Mixer, params_device, scalar
+from repro_torch.obs.profiler import scope
 
 
 def _f32_copy(tree) -> dict:
@@ -110,7 +111,8 @@ class LocalUpdateMixer(Mixer):
         mixed, st2 = self.inner(theta, state, round=round)
         if self.gt:
             delta = {n: x.float() - anchor[n] for n, x in theta.items()}
-            wdelta = self.inner.mix_tree(delta, state)
+            with scope("obs:consensus/tracker_exchange"):
+                wdelta = self.inner.mix_tree(delta, state)
             corr2 = {n: corr[n] + (wdelta[n] - delta[n]) / self.period for n in corr}
             st2 = st2._replace(track=(corr2, _f32_copy(mixed)), wire_bits=2.0 * st2.wire_bits)
         else:

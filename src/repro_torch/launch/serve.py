@@ -15,13 +15,15 @@ continuous-batching engine (the port of ``repro.launch.serve``).
   wall seconds otherwise, as in the reference.
 
 Weights come from the port's own seeded init on the device.  ``--log-dir``
-(the telemetry of ROADMAP A.13) raises.
+gives the engine a :class:`repro_torch.obs.MetricsSink` writing
+``<log-dir>/telemetry.jsonl`` (its request lifecycle and heartbeat records);
+the static path ignores it, as the reference's does.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
       --batch 4 --prompt-len 512 --gen-len 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
-      --engine --int8-kv --rate 2.0 --horizon 8
+      --engine --int8-kv --rate 2.0 --horizon 8 --log-dir runs/serve
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_7b --smoke \
       --engine --device cpu
 """
@@ -126,12 +128,14 @@ def _run_static(args, model, params, cfg, device) -> None:
 
 
 def _run_engine(args, model, params, cfg) -> dict:
+    from repro_torch.obs import MetricsSink
     from repro_torch.serve import SMOKE_CLASSES, ServeEngine, poisson_trace
 
     # the context bound comes from the traffic classes' worst case, not --prompt-len
     max_len = max(c.prompt_len + c.gen_max for c in SMOKE_CLASSES)
     engine = ServeEngine(model, params, max_batch=args.batch, max_len=max_len,
                          page_size=args.page_size, quantized=args.int8_kv, seed=args.seed,
+                         sink=MetricsSink(args.log_dir) if args.log_dir else None,
                          log_every=args.log_every)
     trace = poisson_trace(SMOKE_CLASSES, rate=args.rate, horizon=args.horizon, vocab=cfg.vocab,
                           seed=args.seed)
@@ -151,6 +155,9 @@ def _run_engine(args, model, params, cfg) -> dict:
         for cls, d in lat["per_class"].items():
             print(f"  class {cls}: {d['requests']} req, "
                   f"ttft p50 {d['ttft_p50_s']:.3f}s p99 {d['ttft_p99_s']:.3f}s")
+    engine.sink.close()
+    if engine.sink.path:
+        print(f"telemetry: {engine.sink.path}")
     return report
 
 
@@ -175,11 +182,10 @@ def main(argv=None):
                     help="engine: trace length in clock units")
     ap.add_argument("--page-size", type=int, default=8)
     ap.add_argument("--int8-kv", action="store_true")
+    ap.add_argument("--log-dir", default=None,
+                    help="engine: write its telemetry JSONL into this directory")
     ap.add_argument("--log-every", type=int, default=16)
-    ap.add_argument("--log-dir", default=None, help="not ported (ROADMAP A.13)")
     args = ap.parse_args(argv)
-    if args.log_dir is not None:
-        raise NotImplementedError("--log-dir is not ported yet (ROADMAP A.13)")
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch, smoke=args.smoke)

@@ -32,11 +32,29 @@ with ``--local-updates``, SCAFFOLD with ``--gradient-tracking``);
 Weights come from the port's own seeded init.  ``--ckpt-dir DIR`` saves
 the full final state (parameters and ``CommState``) with
 ``repro_torch.checkpoint.save_train_state`` at ``DIR/step_<steps>``;
-``restore_train_state(DIR, device=...)`` reads it back.  ``--log-dir``
-and ``--profile`` (ROADMAP A.13) raise as not ported.
+``restore_train_state(DIR, device=...)`` reads it back.
+
+Telemetry (``repro_torch.obs``): every run streams through a
+:class:`~repro_torch.obs.MetricsSink` — the train step's tap delivers one
+``train`` record per optimizer step (scalar metrics; per-node losses, DR
+weights and histogram counts every ``--tap-vectors-every`` steps), the eval
+hook writes the paper's fairness metrics as ``eval`` records, and
+``run_segments`` rolls up wall-clock phase timings as ``perf`` records.
+The console lines are formatters over those same records; ``--log-dir``
+also writes them as schema-versioned JSONL (``python -m
+repro_torch.obs.schema`` validates; ``python -m repro_torch.obs report
+<log-dir>`` renders the fairness/comm summary and replays the run's fault
+events on its device), and ``--profile`` wraps the run in
+``torch.profiler`` and writes a Chrome trace under ``--log-dir`` (phases
+carry ``obs:...`` ranges).  ``--sanitize`` stages the in-step invariant
+checks (``repro_torch.analysis.sanitize``): a violation raises at the end
+of its segment, naming the check and the step; the trajectory is the same
+bits with the flag off.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --paper fmnist
+  PYTHONPATH=src python -m repro_torch.launch.train --paper fmnist \
+      --log-dir runs/fmnist --profile --sanitize
   PYTHONPATH=src python -m repro_torch.launch.train --paper cifar --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --paper fmnist \
       --compress int8 --compress-schedule adaptive
@@ -56,7 +74,6 @@ Examples:
 from __future__ import annotations
 
 import argparse
-import json
 import time
 
 import numpy as np
@@ -64,7 +81,7 @@ import torch
 
 from repro_torch.checkpoint import save_train_state
 from repro_torch.configs import cifar_default, fmnist_default, get_arch
-from repro_torch.core import TrainerSpec, run_segments
+from repro_torch.core import TrainerSpec, add_obs_cli_args, run_segments
 from repro_torch.data import (
     make_cifar_like,
     make_fmnist_like,
@@ -80,11 +97,7 @@ from repro_torch.models import (
     mlp_apply,
     mlp_init,
 )
-
-# flag -> (its attribute, the slice that ports it)
-_UNPORTED = {"--log-dir": ("log_dir", "the tooling slice (ROADMAP A.13)"),
-             "--profile": ("profile", "the tooling slice (ROADMAP A.13)")}
-_TRAIN_FIELDS = ("loss_mean", "loss_worst", "robust_objective", "comm_bytes", "disagreement")
+from repro_torch.obs import MetricsSink, format_eval, format_meta, format_train, profile
 
 
 def _dynamics_meta(spec) -> dict:
@@ -99,7 +112,21 @@ def _dynamics_meta(spec) -> dict:
                 ef_rebase_threshold=spec.ef_rebase_threshold)
 
 
-def train_lm(args):
+def _run(args, trainer, params, sample_batch, steps: int, on_segment, sink: MetricsSink):
+    """``run_segments`` from ``trainer.init(params)`` with the perf rollup,
+    under ``--profile``.  The initial state is handed over without a name
+    here, so run_segments frees it after the first step (at LM widths a
+    node-stacked copy of the parameters is K x 2 GB)."""
+    with profile(args.log_dir, enabled=args.profile) as prof:
+        state = run_segments(trainer, trainer.init(params), sample_batch, steps,
+                             args.log_every, on_segment, obs=sink)
+        sink.barrier()
+    if prof.trace_path:
+        print(f"profiler trace: {prof.trace_path}", flush=True)
+    return state
+
+
+def train_lm(args, sink: MetricsSink):
     """The LM stack; returns (trainer, final state, the train records)."""
     steps = args.steps or 50
     bsz = args.batch_per_node or 2
@@ -107,13 +134,12 @@ def train_lm(args):
     model = TransformerLM(cfg)
     spec = TrainerSpec.from_args(args, num_nodes=8, lr=0.01, grad_clip=1.0, graph="ring")
     k = spec.num_nodes
-    trainer = spec.build(make_lm_loss(model))
-    print(json.dumps(dict(kind="meta", arch=cfg.name, params=model.num_params(), nodes=k,
-                          rho=round(trainer.rho, 4), mu=spec.mu, robust=spec.robust,
-                          compress=args.compress, steps=steps, batch=bsz,
-                          seq_len=args.seq_len, device=str(trainer.device),
-                          **_dynamics_meta(spec))),
-          flush=True)
+    trainer = spec.build(make_lm_loss(model), obs=sink)
+    print(format_meta(sink.log(
+        "meta", 0, arch=cfg.name, params=model.num_params(), nodes=k,
+        rho=round(trainer.rho, 4), mu=spec.mu, robust=spec.robust, compress=args.compress,
+        steps=steps, batch=bsz, seq_len=args.seq_len, sanitize=spec.sanitize,
+        device=str(trainer.device), **_dynamics_meta(spec))), flush=True)
     params = model.init(torch.Generator(trainer.device).manual_seed(args.seed))
     streams = make_node_token_streams(k, cfg.vocab, seed=args.seed)
     rng = np.random.default_rng(args.seed)
@@ -128,22 +154,23 @@ def train_lm(args):
         emb = rng.standard_normal((k, bsz, prefix, cfg.d_model)).astype(np.float32) * 0.02
         return toks, emb
 
-    def on_segment(step, seg_state, ms):
-        rec = dict(kind="train", step=step, wall_s=round(time.perf_counter() - t0, 3),
-                   **{key: float(ms[key][-1]) for key in _TRAIN_FIELDS})
-        history.append(rec)
-        print(json.dumps(rec), flush=True)
+    compressed = trainer.compression is not None
 
-    # hand the initial state over without keeping it: at full width each
-    # node-stacked copy of the parameters is K x 2 GB
+    def on_segment(step, seg_state, ms):
+        # the console line and the history entry are the record the step's
+        # tap delivered for this step
+        rec = dict(sink.last("train"))
+        rec["wall_s"] = time.perf_counter() - t0
+        history.append(rec)
+        print(format_train(rec, compressed=compressed), flush=True)
+
     t0 = time.perf_counter()
-    state = run_segments(trainer, trainer.init(params), sample_batch, steps, args.log_every,
-                         on_segment)
+    state = _run(args, trainer, params, sample_batch, steps, on_segment, sink)
     _save(args, steps, state)
     return trainer, state, history
 
 
-def train_paper(args):
+def train_paper(args, sink: MetricsSink):
     exp = fmnist_default() if args.paper == "fmnist" else cifar_default()
     steps = args.steps or exp.steps
     gen = torch.Generator().manual_seed(args.seed)
@@ -157,27 +184,28 @@ def train_paper(args):
     k = spec.num_nodes
     fed = pathological_noniid_partition(ds, k, seed=args.seed)
     x_nodes, y_nodes = fed.per_node_test_sets(n_per_node=200, seed=args.seed)
-    trainer = spec.build(make_classifier_loss(apply_fn), apply_fn)
-    state = trainer.init(params)
+    trainer = spec.build(make_classifier_loss(apply_fn), apply_fn, obs=sink)
     rng = np.random.default_rng(args.seed)
     bsz = args.batch_per_node or exp.batch_size
-    print(json.dumps(dict(kind="meta", paper=args.paper, nodes=k, steps=steps,
-                          batch=bsz, lr=spec.lr, mu=spec.mu, robust=spec.robust,
-                          rho=round(trainer.rho, 4), compress=args.compress,
-                          device=str(trainer.device), **_dynamics_meta(spec))), flush=True)
-    t0 = time.perf_counter()
+    print(format_meta(sink.log(
+        "meta", 0, paper=args.paper, nodes=k, steps=steps, batch=bsz, lr=spec.lr, mu=spec.mu,
+        robust=spec.robust, rho=round(trainer.rho, 4), compress=args.compress,
+        sanitize=spec.sanitize, device=str(trainer.device), **_dynamics_meta(spec))),
+        flush=True)
 
     def on_segment(step, seg_state, ms):
+        # the paper's fairness metrics (worst-distribution accuracy, per-device
+        # STDEV) into the stream, with the DR-weight snapshot of the newest
+        # train record that carries it (the vectors are decimated)
         stats = trainer.eval_local_distributions(seg_state, x_nodes, y_nodes)
-        print(json.dumps(dict(
-            kind="eval", step=step, wall_s=round(time.perf_counter() - t0, 3),
-            loss_mean=float(ms["loss_mean"][-1]),
-            comm_bytes=float(ms["comm_bytes"][-1]),
-            disagreement=float(ms["disagreement"][-1]),
-            **{k: v for k, v in stats.items() if k != "acc_nodes"})), flush=True)
+        train_rec = sink.last_with("train", "dr_weights")
+        rec = sink.log("eval", step, loss_mean=float(ms["loss_mean"][-1]),
+                       comm_bytes=float(ms["comm_bytes"][-1]),
+                       dr_weights=(train_rec or {}).get("dr_weights"), **stats)
+        print(format_eval(rec), flush=True)
 
-    state = run_segments(trainer, state, lambda step: fed.sample_batch(rng, bsz),
-                         steps, args.log_every, on_segment)
+    state = _run(args, trainer, params, lambda step: fed.sample_batch(rng, bsz), steps,
+                 on_segment, sink)
     _save(args, steps, state)
     return state
 
@@ -202,18 +230,16 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--ckpt-dir", default=None,
                     help="save the final train state (parameters and CommState) here")
-    ap.add_argument("--log-dir", default=None, help="not ported yet")
-    ap.add_argument("--profile", action="store_true", help="not ported yet")
+    add_obs_cli_args(ap)
     TrainerSpec.add_cli_args(ap)
     args = ap.parse_args(argv)
-    for flag, (dest, later) in _UNPORTED.items():
-        if getattr(args, dest):
-            raise NotImplementedError(f"{flag} is not ported yet; it waits for {later}")
-    if args.paper:
-        return train_paper(args)
-    if args.arch:
-        return train_lm(args)
-    raise SystemExit("provide --arch <id> or --paper fmnist|cifar")
+    if not (args.paper or args.arch):
+        raise SystemExit("provide --arch <id> or --paper fmnist|cifar")
+    with MetricsSink(args.log_dir, vector_every=args.tap_vectors_every) as sink:
+        out = train_paper(args, sink) if args.paper else train_lm(args, sink)
+        if sink.path:
+            print(f"telemetry: {sink.path}", flush=True)
+    return out
 
 
 if __name__ == "__main__":

@@ -33,15 +33,20 @@ pages on the host only; the next admission's prefill overwrites them.
 Inactive slots keep decoding into the trash page (page 0), masked and
 never read.
 
-The request lifecycle goes to ``records`` as the reference's ``trace``
-records — ``queued`` → ``admitted`` → ``prefill`` → ``first_token`` →
-``finished``, with slot ids, page reservations and run-relative times; the
-``finished`` record carries the request's latency accounting
-(``queued_s``/``ttft_s``/``per_token_s``), and the report's ``latency`` is
-:func:`repro_torch.obs.serve_latency_summary` over them.  Every
-``log_every`` steps a ``serve`` record joins them.  The JSONL sink and the
-recompile watchdog are ROADMAP A.13; the report has no ``programs`` key,
-since eager PyTorch compiles no program per shape.
+Observability: the engine always owns a :class:`repro_torch.obs.MetricsSink`
+(in-memory unless one with a log directory is passed) and writes the request
+lifecycle into it as the reference's ``trace`` records — ``queued`` →
+``admitted`` → ``prefill`` → ``first_token`` → ``finished``, with slot ids,
+page reservations and run-relative times; the ``finished`` record carries
+the request's latency accounting (``queued_s``/``ttft_s``/``per_token_s``),
+and the report's ``latency`` is :func:`repro_torch.obs.serve_latency_summary`
+over every ``finished`` record of the run, which the engine keeps beside
+the sink (the sink's ring holds only its newest records; its JSONL holds
+them all).  Every ``log_every`` steps a ``serve`` record joins them.  The decode step, the sampling and the
+admission prefill run inside ``obs:serve/decode``, ``obs:serve/sample`` and
+``obs:serve/prefill`` profiler ranges.  The report has no ``programs`` key:
+eager PyTorch compiles no program per shape, so there is no recompile
+watchdog.
 """
 
 from __future__ import annotations
@@ -54,7 +59,9 @@ import torch
 
 from repro_torch.models import TransformerLM
 from repro_torch.models.attention import paged_kv_len
+from repro_torch.obs.profiler import scope
 from repro_torch.obs.report import serve_latency_summary
+from repro_torch.obs.sink import MetricsSink
 from repro_torch.serve.pool import TRASH_PAGE
 from repro_torch.serve.prefill import clear_slot_state, place_paged_prefill
 from repro_torch.serve.sampling import sample_tokens
@@ -104,6 +111,7 @@ class ServeEngine:
       quantized: int8 KV pool (blockwise scales) instead of float32.
       eos: token id that ends a slot (-1 = never).
       seed: the sampling generator's seed.
+      sink: the telemetry stream (a fresh in-memory one when None).
       log_every: a ``serve`` record every this many decode steps.
 
     The engine runs on the parameters' device.
@@ -111,7 +119,8 @@ class ServeEngine:
 
     def __init__(self, model: TransformerLM, params: dict, *, max_batch: int, max_len: int,
                  page_size: int = 8, num_pages: dict | None = None, quantized: bool = False,
-                 eos: int = -1, seed: int = 0, log_every: int = 64):
+                 eos: int = -1, seed: int = 0, sink: MetricsSink | None = None,
+                 log_every: int = 64):
         cfg = model.cfg
         if not model.has_prompt_prefill:
             raise ValueError(
@@ -126,7 +135,10 @@ class ServeEngine:
         self.quantized = quantized
         self.eos = eos
         self.log_every = log_every
-        self.records: list[dict] = []
+        # the engine always has a sink: the lifecycle trace records are the
+        # latency accounting even for in-memory runs
+        self.sink = sink if sink is not None else MetricsSink()
+        self._finished: list[dict] = []  # every finished record: the latency
 
         blocks = {blk for blk, _ in cfg.head_layers()} | {blk for blk, _ in cfg.group_pattern()}
         self.kinds = sorted(blocks & {"attn", "swa"})
@@ -179,9 +191,11 @@ class ServeEngine:
         active mask) on the device."""
         c = self._carry
         pos, active = c["pos"], c["active"]
-        logits, _ = self.model.paged_decode_step(self.params, c["tok"], pos, c["cache"],
-                                                 self._tables, max_len=self.max_len)
-        nxt = sample_tokens(logits, self._gen, c["temp"])
+        with scope("obs:serve/decode"):
+            logits, _ = self.model.paged_decode_step(self.params, c["tok"], pos, c["cache"],
+                                                     self._tables, max_len=self.max_len)
+        with scope("obs:serve/sample"):
+            nxt = sample_tokens(logits, self._gen, c["temp"])
         done = (nxt == self.eos) | (pos >= c["limit"])
         still = active & ~done
         out = torch.stack([torch.where(active, nxt, -1), still.long()])
@@ -211,8 +225,9 @@ class ServeEngine:
             clear_slot_state(self.model, c["cache"], slot)
         else:
             prompt = torch.from_numpy(req.prompt[None, :s0 - 1].astype(np.int64)).to(self.device)
-            _, pf = self.model.prefill(self.params, {"tokens": prompt})
-            place_paged_prefill(self.model, pf, c["cache"], rows, slot, s0, self.max_len)
+            with scope("obs:serve/prefill"):
+                _, pf = self.model.prefill(self.params, {"tokens": prompt})
+                place_paged_prefill(self.model, pf, c["cache"], rows, slot, s0, self.max_len)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         dt = time.monotonic() - t0
@@ -341,6 +356,11 @@ class ServeEngine:
 
     # -- reporting ------------------------------------------------------------
 
+    @property
+    def records(self) -> list[dict]:
+        """The sink's records (its ring buffer)."""
+        return self.sink.records()
+
     def report(self, completions: list[Completion], wall_s: float) -> dict:
         """The reference's run report without ``programs``: completions,
         latency (from the ``finished`` trace records), steps, wall seconds,
@@ -350,7 +370,7 @@ class ServeEngine:
                          if self._prefill_steady_s > 0 else 0.0)
         return {
             "completions": completions,
-            "latency": serve_latency_summary(self.records),
+            "latency": serve_latency_summary(self._finished),
             "steps": self._steps,
             "wall_s": wall_s,
             "admitted": self._admitted,
@@ -370,22 +390,20 @@ class ServeEngine:
             },
         }
 
-    def _record(self, kind: str, **fields) -> None:
-        """One record in the reference's form: kind, the decode-step index,
-        and the fields that are not None."""
-        self.records.append({"kind": kind, "step": self._steps,
-                             **{k: v for k, v in fields.items() if v is not None}})
-
     def _trace(self, event: str, **fields) -> None:
-        self._record("trace", event=event, **fields)
+        """One lifecycle trace record; ``step`` is the decode-step index."""
+        rec = self.sink.log("trace", self._steps, event=event, **fields)
+        if event == "finished":
+            self._finished.append(rec)
 
     def _decode_tok_s(self) -> float:
         return (self._steady_tokens / self._decode_steady_s
                 if self._decode_steady_s > 0 else 0.0)
 
     def _log_serve(self, step_ms: float | None) -> None:
-        self._record("serve", active_slots=self.sched.active_slots, queued=self.sched.queued,
-                     kv_occupancy=self.sched.occupancy(), kv_pages_used=self.sched.pages_used(),
-                     kv_pages_total=self.sched.pages_total(), admitted=self._admitted,
-                     completed=self._completed, decode_tok_s=self._decode_tok_s(),
-                     step_ms=step_ms)
+        self.sink.log("serve", self._steps, active_slots=self.sched.active_slots,
+                      queued=self.sched.queued, kv_occupancy=self.sched.occupancy(),
+                      kv_pages_used=self.sched.pages_used(),
+                      kv_pages_total=self.sched.pages_total(), admitted=self._admitted,
+                      completed=self._completed, decode_tok_s=self._decode_tok_s(),
+                      step_ms=step_ms)

@@ -41,7 +41,9 @@ int8:
 Pool, scheduler and traffic: the reference's cases (the oversized request,
 allocator accounting, ``pages_needed`` clamping, FIFO and release), and
 ``poisson_trace`` equal to the reference's for three seeds.  The CLI's
-``--engine``, ``--int8-kv`` and ``--page-size`` run on the CPU.
+``--engine``, ``--int8-kv`` and ``--page-size`` run on the CPU.  The
+report's latency counts every request when the sink's ring holds fewer
+records than the run writes.
 """
 
 import jax
@@ -62,6 +64,7 @@ from repro_torch.configs import get_arch
 from repro_torch.launch import serve as cli
 from repro_torch.models import TransformerLM
 from repro_torch.models import attention as attn
+from repro_torch.obs import MetricsSink, load_records, serve_latency_summary
 from repro_torch.serve import (
     SMOKE_CLASSES,
     TRASH_PAGE,
@@ -176,6 +179,23 @@ def test_engine_matches_isolated_greedy(port_models, arch, trace):
         want = greedy_generate(model, params, torch.from_numpy(r.prompt[None].astype(np.int64)),
                                r.max_new)
         assert tokens[r.rid] == want[0].tolist(), f"rid {r.rid}"
+
+
+def test_latency_counts_every_request_past_the_sinks_ring(port_models, tmp_path):
+    """A sink whose ring holds fewer records than the run writes: the
+    report's latency still counts every request, and equals the summary
+    over the whole JSONL."""
+    model, params = port_models["qwen2_0_5b"]
+    reqs = _requests(model.cfg.vocab)
+    with MetricsSink(str(tmp_path), ring=8) as sink:
+        engine = ServeEngine(model, params, max_batch=3, max_len=24, page_size=4, sink=sink)
+        report = engine.run(list(reqs), clock="steps")
+        assert len(sink.records()) == 8
+    written = load_records(str(tmp_path))
+    # five lifecycle records per request: the ring lost most of them
+    assert sum(r["kind"] == "trace" for r in written) == 5 * len(reqs)
+    assert report["latency"]["requests"] == len(reqs)
+    assert report["latency"] == serve_latency_summary(written)
 
 
 def test_engine_matches_reference_engine(qwen, ref_engine_tokens):

@@ -121,8 +121,25 @@ def test_cli_serves_on_the_cpu(capsys):
                                   ["--engine", "--int8-kv", "--log-dir", "logs"],
                                   ["--engine", "--page-size", "8", "--log-dir", "logs"],
                                   ["--log-dir", "logs"]])
-def test_cli_unported_flags_raise(flag):
-    """``--log-dir`` (ROADMAP A.13) raises, on the static path and beside
-    the engine's flags (tests/test_torch_engine.py holds those)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        cli.main(["--arch", "qwen2_0_5b", "--smoke", "--device", "cpu", *flag])
+def test_cli_unported_flags_raise(flag, tmp_path):
+    """``--log-dir``, which raised here until the tooling was ported, now
+    does what the reference's does: under ``--engine`` (beside its flags,
+    which tests/test_torch_engine.py holds) the engine's sink writes its
+    lifecycle and heartbeat records, valid under both packages' validators,
+    and the report's latency is the summary of those records; the static
+    path ignores it and writes nothing."""
+    from repro.obs.schema import validate_jsonl as ref_validate_jsonl
+    from repro_torch.obs import load_records, serve_latency_summary, validate_jsonl
+
+    logs = tmp_path / "logs"
+    flag = [str(logs) if a == "logs" else a for a in flag]
+    report = cli.main(["--arch", "qwen2_0_5b", "--smoke", "--device", "cpu", "--batch", "2",
+                       "--prompt-len", "6", "--gen-len", "3", "--horizon", "4", *flag])
+    if "--engine" not in flag:
+        assert report is None and not logs.exists()
+        return
+    path = str(logs / "telemetry.jsonl")
+    for summary in (validate_jsonl(path), ref_validate_jsonl(path)):
+        assert summary["errors"] == [] and set(summary["kinds"]) == {"trace", "serve"}
+    assert report["completed"] == report["admitted"] > 0
+    assert serve_latency_summary(load_records(path)) == report["latency"]

@@ -279,15 +279,57 @@ def test_spec_builds_the_paper_trainer():
                                   ["--arch", "qwen2_0_5b", "--ckpt-dir", "x", "--profile"],
                                   ["--ckpt-dir", "x", "--log-dir", "y"],
                                   ["--sanitize", "--topology", "hub"]])
-def test_cli_unported_flags_raise(argv):
-    """The flags still unported raise, beside a ported one too; the
-    dynamics flags that raised here before are held by
-    tests/test_torch_local.py, test_torch_faults.py and test_torch_hub.py,
-    and ``--ckpt-dir`` by tests/test_torch_checkpoint.py."""
+def test_cli_unported_flags_raise(argv, tmp_path, capsys):
+    """The flags that raised here until the tooling was ported (``--sanitize``,
+    ``--log-dir``, ``--profile``, alone and beside ``--ckpt-dir`` and
+    ``--topology hub``) now run at a few steps and write what the
+    reference's CLI writes: the telemetry JSONL under ``--log-dir`` (valid
+    under the reference's validator, train steps contiguous), the final
+    state under ``--ckpt-dir``, nothing for ``--profile`` without a log
+    directory, and a meta record naming ``sanitize``; the sanitized hub
+    run's star W passes the doubly-stochastic check, as in the reference.
+    (``--paper`` wins over ``--arch``, as in the reference.)"""
+    from repro.obs.schema import validate_jsonl as ref_validate_jsonl
+    from repro_torch.checkpoint import latest_step
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train.main(["--paper", "fmnist", "--device", "cpu", *argv])
+    argv = [str(tmp_path / a) if a in ("x", "y") else a for a in argv]
+    state = train.main(["--paper", "fmnist", "--device", "cpu", "--steps", "3",
+                        "--nodes", "4", "--graph", "ring", "--log-every", "3", *argv])
+    assert state.step == 3 and all(bool(torch.isfinite(p).all())
+                                   for p in state.params.values())
+    out = capsys.readouterr().out
+    assert f"sanitize={'--sanitize' in argv}" in out
+    made = sorted(p.name for p in tmp_path.iterdir())
+    if "--log-dir" in argv:
+        log = argv[argv.index("--log-dir") + 1]
+        summary = ref_validate_jsonl(f"{log}/telemetry.jsonl")
+        assert summary["errors"] == [] and summary["train_steps_contiguous"]
+        assert summary["kinds"] == {"meta": 1, "train": 3, "eval": 1, "perf": 1}
+        assert f"telemetry: {log}/telemetry.jsonl" in out
+    if "--ckpt-dir" in argv:
+        assert latest_step(argv[argv.index("--ckpt-dir") + 1]) == 3
+    assert len(made) == ("--log-dir" in argv) + ("--ckpt-dir" in argv)
+    assert "profiler trace" not in out
+
+
+def test_cli_log_dir_profile_sanitize(tmp_path, capsys):
+    """``--log-dir D --profile --sanitize``: the JSONL, and a Chrome trace
+    under D/profile holding the step's obs: ranges."""
+    import json
+
+    from repro_torch.launch import train
+    from repro_torch.obs import find_perfetto_trace
+
+    train.main(["--paper", "fmnist", "--device", "cpu", "--steps", "2", "--nodes", "4",
+                "--graph", "ring", "--log-every", "2", "--log-dir", str(tmp_path),
+                "--profile", "--sanitize"])
+    path = find_perfetto_trace(str(tmp_path))
+    assert path is not None and f"profiler trace: {path}" in capsys.readouterr().out
+    with open(path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"obs:grad", "obs:dr_weighting", "obs:local_update", "obs:consensus",
+            "obs:sanitize", "obs:tap", "obs:run", "obs:hook"} <= names
 
 
 def test_cli_builds_the_dense_dynamic_stack():
