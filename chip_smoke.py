@@ -727,8 +727,11 @@ def phase_build() -> dict:
     is built for, runs TF32 tensor-core instructions; raises if one has
     none.  Returns {kernel function: TF32 instructions}."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+    from repro_torch.kernels.flash_attention.kernel import BWD_HEAD_DIMS, DTYPES, HEAD_DIMS
 
+    # an instance per head dim, and the forward's per input dtype too
+    instances = {"flash_fwd_mma_kernel": (len(HEAD_DIMS) * len(DTYPES), HEAD_DIMS),
+                 "bwd_mma_kernel": (len(BWD_HEAD_DIMS), BWD_HEAD_DIMS)}
     t0 = time.perf_counter()
     built = _build.build()
     log(f"[build] {', '.join(lib.name for lib, _ in built.values())} in "
@@ -743,9 +746,10 @@ def phase_build() -> dict:
         for name in names:
             fns = {fn: n for fn, n in counts.items() if name in fn}
             log(f"[build] {source}: TF32 tensor-core instructions of {name}: {fns}")
-            if len(fns) != len(HEAD_DIMS) or not all(fns.values()):
-                raise AssertionError(f"[build] {name} must be built for each of {HEAD_DIMS} "
-                                     f"with TF32 HMMA/HGMMA in every instance: {fns}")
+            want, dims = instances[name]
+            if len(fns) != want or not all(fns.values()):
+                raise AssertionError(f"[build] {name} must be built {want} times (head dims "
+                                     f"{dims}) with TF32 HMMA/HGMMA in every instance: {fns}")
             found.update(fns)
     return found
 
@@ -2568,33 +2572,46 @@ def _pairs(s: int, t: int, causal: bool, window) -> int:
     return n
 
 
-def _attention_bound(n_bytes: int, ops: int) -> tuple[float, str, float]:
+def _attention_bound(n_bytes: int, ops: int,
+                     tc_ops: int | None = None) -> tuple[float, str, float]:
     """(bound ms, what bounds it, the CUDA cores' bound ms) of an attention
-    kernel whose float32 products run as three TF32 tensor-core products:
-    the larger of the bytes at the HBM rate and 3 x ops at the TF32 rate;
-    beside it the larger of the bytes and ops at the float32 FMA rate."""
-    t_bytes, t_tc = n_bytes / HBM_BYTES_PER_S, 3 * ops / TF32_OPS_PER_S
+    kernel whose float32 products run on the TF32 tensor cores: the larger
+    of the bytes at the HBM rate and ``tc_ops``, the TF32 products'
+    operations (by default 3 x ops: each float32 product as three TF32
+    products), at the TF32 rate; beside it the larger of the bytes and ops
+    at the float32 FMA rate."""
+    tc_ops = 3 * ops if tc_ops is None else tc_ops
+    t_bytes, t_tc = n_bytes / HBM_BYTES_PER_S, tc_ops / TF32_OPS_PER_S
     return (1e3 * max(t_bytes, t_tc), "bytes" if t_bytes >= t_tc else "operations",
             1e3 * max(t_bytes, ops / FP32_OPS_PER_S))
 
 
-def flash_bound(b, h, kvh, s, t, hd, causal, window) -> tuple[float, str, float]:
+def flash_bound(b, h, kvh, s, t, hd, causal, window,
+                elem_bytes: int = 4) -> tuple[float, str, float]:
     """Least time of one B.6 call: q, k, v read and out written once at the
-    HBM rate, against 4 hd float operations per unmasked pair (two for q.k,
-    two for p.v), each taken as three TF32 products at the tensor cores'
-    TF32 peak.  Returns (bound ms, "bytes" or "operations", the bound with
-    the operations at the float32 FMA peak instead)."""
-    n_bytes = 4 * (2 * b * h * s * hd + 2 * b * kvh * t * hd)
-    return _attention_bound(n_bytes, 4 * b * h * hd * _pairs(s, t, causal, window))
+    HBM rate (``elem_bytes`` each: 2 for bfloat16), against 4 hd float
+    operations per unmasked pair (two for q.k, two for p.v) as the TF32
+    products the inputs' type needs, at the tensor cores' TF32 peak: in
+    float32 three for q.k and three for p.v (3xTF32); in bfloat16 a value
+    is its own TF32 big half, so one for q.k and two for p.v (P's two
+    halves times V).  Returns (bound ms, "bytes" or "operations", the bound
+    with the operations at the float32 FMA peak instead)."""
+    n_bytes = elem_bytes * (2 * b * h * s * hd + 2 * b * kvh * t * hd)
+    macs = 2 * b * h * hd * _pairs(s, t, causal, window)
+    products = 3 + 3 if elem_bytes == 4 else 1 + 2
+    return _attention_bound(n_bytes, 2 * macs, products * macs)
 
 
-def wkv6_bound(b, h, t, hd, given_state: bool = False) -> tuple[float, str]:
+def wkv6_bound(b, h, t, hd, given_state: bool = False,
+               elem_bytes: int = 4) -> tuple[float, str]:
     """Least time of one B.7 call: r, k, v, w read, y and the final state
-    written once, u (and a given state) read once, against the least
-    arithmetic at the float32 peak: 5 float operations per (i, j, t), a
-    multiply (k_i v_j) and two FMAs (y's sum and the decayed state), the
+    written once, u (and a given state) read once (r, k, v, w, y and u at
+    ``elem_bytes`` each: 2 for bfloat16; the states float32), against the
+    least arithmetic at the float32 peak: 5 float operations per (i, j, t),
+    a multiply (k_i v_j) and two FMAs (y's sum and the decayed state), the
     bonus being one scalar per (b, h, t)."""
-    n_bytes = 4 * (5 * b * h * t * hd + (1 + given_state) * b * h * hd * hd + h * hd)
+    n_bytes = (elem_bytes * (5 * b * h * t * hd + h * hd)
+               + 4 * (1 + given_state) * b * h * hd * hd)
     ops = 5 * b * h * t * hd * hd
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -2707,6 +2724,156 @@ def phase_serve_kernels() -> dict:
     for tag, b, h, t, hd, decay, given, layout in WKV6_CASES:
         row = _wkv6_case("serve-kernel", randn, gen, tag, b, h, t, hd, decay, given, layout)
         _add_row(out["wkv6_scan"], row)
+    out["domain"] = _serve_domain(gen)
+    return out
+
+
+# The reference kernels' input domain (its tests' shapes): bfloat16 inputs,
+# and head dim 8 (B.6) and 8 and 32 (B.7).  B.6: b, h, kvh, s, t, hd
+# (tests/test_kernel_flash_attention.py:26-33 and its bf16 and window /
+# softcap cases); B.7: b, h, t, hd (tests/test_kernel_rwkv6.py:25-30).
+DOMAIN_FLASH_SHAPES = ((2, 4, 2, 64, 64, 16), (1, 4, 4, 128, 128, 32), (2, 8, 2, 64, 64, 16),
+                       (1, 2, 1, 32, 32, 8), (1, 6, 2, 96, 96, 16), (1, 2, 2, 64, 64, 32))
+DOMAIN_FLASH_MASKS = ((True, None, None), (True, 8, None), (True, 16, 20.0), (False, None, None))
+DOMAIN_WKV6_SHAPES = ((2, 2, 32, 16), (1, 4, 64, 32), (2, 1, 16, 8), (1, 2, 64, 16),
+                      (1, 2, 32, 16), (4, 64, 64, 8), (4, 64, 64, 32))
+# the bfloat16 case timed per kernel: the main path's serving shapes
+DOMAIN_FLASH_TIMED = ("qwen2-0.5b prefill, bf16", 4, 14, 2, 512, 64)
+DOMAIN_WKV6_TIMED = ("rwkv6-7b prefill, bf16", 4, 64, 256, 64)
+
+
+def bf16_ulps(got, want, atol: float = 0.0) -> float:
+    """The largest |got - want| over (one bfloat16 ulp of the larger
+    magnitude of the pair + ``atol``): at most 1 where the two differ by one
+    rounding to bfloat16 of values that agreed within ``atol`` before it."""
+    import torch
+
+    g, w = got.float(), want.float()
+    m = torch.maximum(g.abs(), w.abs())
+    ulp = torch.where(m > 0, torch.exp2(torch.floor(torch.log2(m.clamp_min(1e-38))) - 7),
+                      torch.zeros_like(m))
+    return float(((g - w).abs() / (ulp + atol).clamp_min(1e-38)).max())
+
+
+def _domain_check(tag: str, got, want, bf16: bool, scale_atol: bool) -> float:
+    """Against the plain version's output: float32 at SERVE_TOL (atol times
+    max |want| where ``scale_atol``, B.7's rule); bfloat16 within one
+    bfloat16 ulp plus that float32 atol (the kernel and the plain version
+    both round a float32 result once; where a result is near 0 their
+    float32 sums, taken in other orders, differ by up to the atol).
+    Returns the error (abs; for bfloat16 the bf16_ulps ratio, at most 1)."""
+    import torch
+
+    atol = SERVE_TOL * (float(want.abs().max()) if scale_atol else 1.0)
+    if bf16:
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"[serve-domain] {tag}: output {got.dtype}, not bfloat16")
+        ratio = bf16_ulps(got, want, atol)
+        if ratio > 1.0:
+            raise AssertionError(f"[serve-domain] {tag}: {ratio} of (one bf16 ulp + {atol}) "
+                                 f"from plain")
+        return ratio
+    if not torch.allclose(got, want, rtol=SERVE_TOL, atol=atol):
+        raise AssertionError(f"[serve-domain] {tag}: kernel != plain "
+                             f"(max abs err {float((got - want).abs().max())})")
+    return float((got - want).abs().max())
+
+
+def _serve_domain(gen) -> dict:
+    """B.6 and B.7 on the reference kernels' domain against their plain
+    versions on the card: B.6 in bfloat16 at every reference shape (hd 8,
+    16, 32) under each mask (causal, windows, a softcap, non-causal) and in
+    float32 at hd 8; B.7 in float32 and bfloat16 at every reference shape
+    (hd 8, 16, 32) and at rwkv6-7b's heads with hd 8 and 32, from zero and
+    from a given state (the final state float32 at SERVE_TOL).  Then one
+    bfloat16 case per kernel at the main path's serving shape timed: call,
+    device, plain, bound (bytes at 2 per element) and, for B.6, SDPA in
+    bfloat16."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rwkv6_scan import kernel as wk
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+
+    t0 = time.perf_counter()
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    out = {"flash_attention_fwd": dict(cases=0, max_abs_err_f32=0.0, max_ratio_bf16=0.0),
+           "wkv6_scan": dict(cases=0, max_abs_err_f32=0.0, max_ratio_bf16=0.0)}
+
+    def note(name, err, bf16):
+        rec = out[name]
+        rec["cases"] += 1
+        key = "max_ratio_bf16" if bf16 else "max_abs_err_f32"
+        rec[key] = max(rec[key], err)
+
+    for b, h, kvh, s, t, hd in DOMAIN_FLASH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32) if hd == 8 else (torch.bfloat16,):
+            q, k, v = randn(b, h, s, hd, dtype=dtype), *(randn(b, kvh, t, hd, dtype=dtype)
+                                                         for _ in range(2))
+            for causal, window, softcap in DOMAIN_FLASH_MASKS:
+                kw = dict(causal=causal, window=window, softcap=softcap)
+                got, want = fk.flash_attention_fwd(q, k, v, **kw), attention_ref(q, k, v, **kw)
+                torch.cuda.synchronize()
+                tag = f"B.6 {dtype} {(b, h, kvh, s, t, hd)} {kw}"
+                note("flash_attention_fwd",
+                     _domain_check(tag, got, want, dtype == torch.bfloat16, False),
+                     dtype == torch.bfloat16)
+    for b, h, t, hd in DOMAIN_WKV6_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            r, k, v = (randn(b, t, h, hd, dtype=dtype).permute(0, 2, 1, 3) for _ in range(3))
+            w = torch.rand((b, t, h, hd), generator=gen, device="cuda").to(dtype).permute(
+                0, 2, 1, 3)
+            u = (0.5 * randn(h, hd)).to(dtype)
+            for s0 in (None, randn(b, h, hd, hd)):
+                (y, st), (y_p, st_p) = wk.wkv6_scan(r, k, v, w, u, s0), wkv6_ref(r, k, v, w, u,
+                                                                                 s0)
+                torch.cuda.synchronize()
+                tag = f"B.7 {dtype} {(b, h, t, hd)} state {s0 is not None}"
+                bf16 = dtype == torch.bfloat16
+                note("wkv6_scan", _domain_check(tag + " y", y, y_p, bf16, True), bf16)
+                _domain_check(tag + " state", st, st_p, False, True)
+    # one bfloat16 case per kernel, timed
+    tag, b, h, kvh, s, hd = DOMAIN_FLASH_TIMED
+    q = randn(b, s, h, hd, dtype=torch.bfloat16).permute(0, 2, 1, 3)
+    k, v = (randn(b, s, kvh, hd, dtype=torch.bfloat16).permute(0, 2, 1, 3) for _ in range(2))
+    got, want = fk.flash_attention_fwd(q, k, v), attention_ref(q, k, v)
+    err = _domain_check(tag, got, want, True, False)
+    bound, by, _ = flash_bound(b, h, kvh, s, s, hd, True, None, elem_bytes=2)
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
+
+    sdpa_err = float((sdpa().float() - want.float()).abs().max())
+    if sdpa_err > 2e-2:  # SDPA rounds P to bfloat16: the reference's bf16 tolerance
+        raise AssertionError(f"[serve-domain] SDPA in bfloat16 disagrees with the plain "
+                             f"version ({tag}): max abs err {sdpa_err}")
+    out["flash_attention_fwd"]["timed"] = dict(
+        case=tag, bf16_ratio=err, library_max_abs_err=sdpa_err, **_time_call("flash_attention_fwd",
+                                         lambda: fk.flash_attention_fwd(q, k, v),
+                                         lambda: attention_ref(q, k, v), 50, 10),
+        bound_ms=bound, bound_by=by, library_ms=cuda_ms(sdpa, iters=50),
+        library_device_ms=window_device_ms(sdpa, 50) or None,
+        library_backend="SDPA default dispatch, bfloat16, enable_gqa")
+    tag, b, h, t, hd = DOMAIN_WKV6_TIMED
+    r, k, v = (randn(b, t, h, hd, dtype=torch.bfloat16).permute(0, 2, 1, 3) for _ in range(3))
+    w = torch.rand((b, t, h, hd), generator=gen, device="cuda").to(torch.bfloat16).permute(
+        0, 2, 1, 3)
+    u = (0.5 * randn(h, hd)).to(torch.bfloat16)
+    (y, _), (y_p, _) = wk.wkv6_scan(r, k, v, w, u), wkv6_ref(r, k, v, w, u)
+    err = _domain_check(tag, y, y_p, True, True)
+    bound, by = wkv6_bound(b, h, t, hd, elem_bytes=2)
+    out["wkv6_scan"]["timed"] = dict(
+        case=tag, bf16_ratio=err, **_time_call("wkv6_scan", lambda: wk.wkv6_scan(r, k, v, w, u),
+                                         lambda: wkv6_ref(r, k, v, w, u), 50, 5),
+        bound_ms=bound, bound_by=by, library_ms=None)
+    out["wall_s"] = time.perf_counter() - t0
+    log("[serve-domain] " + json.dumps(out))
     return out
 
 
@@ -5257,6 +5424,141 @@ def _validated(tag: str, path: Path) -> dict:
     return summary
 
 
+# benchmarks/bench_trainer.py's sink-off / sink-on pair: fmnist_default's K
+# = 10 ER(0.3) graph, mu 6, lr 0.1, clip 2, batch 32, 200 steps in segments
+# of 50 through run_segments, in alternated rounds; the ceiling this run
+# asserts on the median of the rounds' paired readings, above the
+# reference's 3 % budget (one pass of a mode differs from the next by up
+# to ~20 % on a shared host) and below the +16 % of the fault it guards
+SINK_BENCH = dict(lr=0.1, grad_clip=2.0, batch=32, steps=200, seg=50, rounds=10)
+SINK_OVERHEAD_CEILING_PCT = 10.0
+# where the sink sits in a pass: off, no sink; on, the trainer's tap and
+# run_segments' per-segment work (one synchronisation, one drain and one
+# perf record per segment); tap, the tap only (drained at the pass's end);
+# hooks, the per-segment work around a trainer without a sink
+SINK_KINDS = ("off", "on", "tap", "hooks")
+
+
+def sink_passes(spec_cls, exp, fed, params, kinds=("off", "on"),
+                rounds: int | None = None) -> dict:
+    """Time fmnist in SINK_BENCH's configuration with the telemetry sink
+    placed as each of ``kinds`` (SINK_KINDS) says: every kind warmed up on
+    one segment, then ``rounds`` (by default SINK_BENCH's) rounds of one
+    pass per kind, the kinds' order rotated by one each round (with two kinds: off, on, then on, off),
+    each pass from the same weights with the same batches and ending
+    synchronised (the sink drained), garbage collected before it and the
+    earlier phases' heap frozen out of the collector.  Raises unless every
+    kind's final parameters are bit-equal to the first kind's.  Returns
+    {"wall_s": {kind: [s per round]}, "order": [kinds per round],
+    "sinks": {kind: its MetricsSink or None}}."""
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import run_segments
+    from repro_torch.models import make_classifier_loss, mlp_apply
+    from repro_torch.obs import MetricsSink
+
+    cfg = SINK_BENCH
+    rounds = cfg["rounds"] if rounds is None else rounds
+
+    def build(sink, tap: bool):
+        spec = spec_cls(num_nodes=exp.num_nodes, graph="erdos_renyi",
+                        graph_kwargs={"p": exp.p, "seed": exp.seed}, mu=exp.mu, robust=True,
+                        lr=cfg["lr"], grad_clip=cfg["grad_clip"], seed=exp.seed, device="cuda")
+        return spec.build(make_classifier_loss(mlp_apply), mlp_apply,
+                          obs=sink if tap else None)
+
+    # (trainer, the sink to drain, the sink run_segments gets); on and tap
+    # share one tapped trainer
+    modes, tapped = {}, None
+    for kind in kinds:
+        if kind in ("on", "tap"):
+            if tapped is None:
+                sink = MetricsSink()
+                tapped = (build(sink, True), sink)
+            modes[kind] = (*tapped, tapped[1] if kind == "on" else None)
+        else:
+            sink = MetricsSink() if kind == "hooks" else None
+            modes[kind] = (build(None, False), sink, sink)
+
+    def one_pass(kind, steps):
+        trainer, sink, seg_obs = modes[kind]
+        rng = np.random.default_rng(exp.seed)
+        state = trainer.init(params)
+        gc.collect()  # no collection of the previous pass's garbage inside this one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = run_segments(trainer, state, lambda step: fed.sample_batch(rng, cfg["batch"]),
+                             steps, cfg["seg"], obs=seg_obs)
+        torch.cuda.synchronize()
+        if sink is not None:
+            sink.barrier()
+        return time.perf_counter() - t0, state
+
+    for kind in kinds:
+        one_pass(kind, cfg["seg"])
+    walls, order, final = {k: [] for k in kinds}, [], {}
+    # a full collection in a pass scans only what the passes make
+    gc.collect()
+    gc.freeze()
+    try:
+        for rnd in range(rounds):
+            turn = kinds[rnd % len(kinds):] + kinds[:rnd % len(kinds)]
+            order.append(list(turn))
+            for kind in turn:
+                wall, final[kind] = one_pass(kind, cfg["steps"])
+                walls[kind].append(wall)
+    finally:
+        gc.unfreeze()
+    for kind in kinds[1:]:
+        differ = [n for n in final[kinds[0]].params
+                  if not torch.equal(final[kinds[0]].params[n], final[kind].params[n])]
+        if differ:
+            raise AssertionError(f"[obs] sink {kind}: the final parameters differ from "
+                                 f"{kinds[0]}'s in {differ}")
+    return dict(wall_s=walls, order=order, sinks={k: m[1] for k, m in modes.items()})
+
+
+def _sink_overhead(spec_cls, exp, fed, params) -> dict:
+    """The sink's cost per step in bench_trainer.py's configuration
+    (:func:`sink_passes`, off and on over SINK_BENCH["rounds"] alternated
+    rounds).  sink_overhead_pct is bench_trainer's statistic, 100 (1 - off
+    / on) of each mode's best pass; sink_overhead_paired_pct the median
+    over the rounds of each round's 100 (1 - off / on), which the run
+    asserts is at most SINK_OVERHEAD_CEILING_PCT.  The final parameters
+    bit-equal; one train record per step, vectors on every 8th."""
+    import numpy as np
+
+    cfg = SINK_BENCH
+    run = sink_passes(spec_cls, exp, fed, params)
+    walls = run["wall_s"]
+    best = {name: min(w) for name, w in walls.items()}
+    pct = 100.0 * (1.0 - best["off"] / best["on"])
+    per_round = [100.0 * (1.0 - off / on) for off, on in zip(walls["off"], walls["on"])]
+    paired = float(np.median(per_round))
+    log(f"[obs] sink_overhead_pct {pct:.3f} (best of {cfg['rounds']}: off {best['off']:.4f} s, "
+        f"on {best['on']:.4f} s for {cfg['steps']} steps); sink_overhead_paired_pct "
+        f"{paired:.3f} (median of the rounds' readings, ceiling {SINK_OVERHEAD_CEILING_PCT} %; "
+        f"the reference's budget 3 %); passes " + json.dumps(walls))
+    sink = run["sinks"]["on"]
+    recs = sink.records("train")
+    want = cfg["seg"] + cfg["rounds"] * cfg["steps"]
+    vec = sum(1 for r in recs if "loss_nodes" in r)
+    if len(recs) != want or vec != sum(1 for r in recs if r["step"] % sink.vector_every == 0):
+        raise AssertionError(f"[obs] sink on: {len(recs)} train records ({want} expected), "
+                             f"{vec} with vectors")
+    if paired > SINK_OVERHEAD_CEILING_PCT:
+        raise AssertionError(f"[obs] the sink costs a median {paired:.2f} % of the step over "
+                             f"{cfg['rounds']} rounds, above {SINK_OVERHEAD_CEILING_PCT} %: "
+                             f"{per_round}")
+    return dict(config=cfg, wall_s=walls, best_s=best,
+                steps_per_s={n: cfg["steps"] / w for n, w in best.items()},
+                sink_overhead_pct=pct, round_pct=per_round, sink_overhead_paired_pct=paired,
+                ceiling_pct=SINK_OVERHEAD_CEILING_PCT, params_bitwise=True,
+                train_records=len(recs), vector_records=vec)
+
+
 def _obs_trainer(spec_cls, exp, compress, sanitize, obs=None, mixer=None):
     from repro_torch.models import make_classifier_loss, mlp_apply
 
@@ -5331,6 +5633,10 @@ def phase_obs(spec_cls, cfg_cls) -> dict:
        applied (read through ``comm/topology.py::round_fault_masks``).
     4. ``audit_host_syncs`` on one fmnist step (dense and int8), sink and
        sanitizer off and on: on may make no more synchronisations than off.
+    Part 1 ends with bench_trainer.py's sink-off / sink-on pair in
+    alternated rounds (:func:`_sink_overhead`): the median of the rounds'
+    ``sink_overhead_pct`` at most SINK_OVERHEAD_CEILING_PCT, the parameters
+    bit-equal.
     Part 5, the engine with a sink, runs in the engine phase."""
     import contextlib
     import io
@@ -5406,6 +5712,7 @@ def phase_obs(spec_cls, cfg_cls) -> dict:
         run_s_with_sink=[r[0] for r in runs["on"]], wall_s=time.perf_counter() - t0)
     del runs, fin0, ms0
     log("[obs] " + json.dumps(out["fmnist-dense"]))
+    out["sink-overhead"] = _sink_overhead(spec_cls, exp, fed, params)
 
     # 2. the int8 wire on the kernel quantizer (grouped B.2) with the sink and
     #    the sanitizer, through the trainer API: the CLI's --compress int8 is
@@ -5744,6 +6051,10 @@ def main() -> int:
             timing["a11"] = {r["case"]: dict(timing_keys(r, FLASH_KEYS),
                                              max_abs_err=r["max_abs_err"])
                              for r in rows if r["case"] in {c[0] for c in A11_FWD_CASES}}
+        if name in serve_kern["domain"]:
+            # the reference kernels' domain: bfloat16, hd 8 (and 32 for B.7),
+            # its cases held, and one bfloat16 case timed
+            timing["new_domain"] = serve_kern["domain"][name]
         if name in other_runs:  # the kernel's launches on the other runs that take it
             timing["launches_other_runs"] = other_runs[name]
         if name in new_path_timing:  # one call at a new path's shapes (K = 8)

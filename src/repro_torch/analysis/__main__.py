@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 
 
@@ -29,6 +28,8 @@ def _audit_smoke() -> int:
 
 
 def main(argv=None) -> int:
+    """The linter's command line, :func:`repro_torch.analysis.lint.main`,
+    plus ``--audit-smoke``."""
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
         description="repo-discipline linter (RPR001, RPR002, RPR004, RPR005) + "
@@ -40,19 +41,9 @@ def main(argv=None) -> int:
                          "with the sink and the sanitizer off and on")
     args = ap.parse_args(argv)
 
-    from repro_torch.analysis.lint import lint_paths
+    from repro_torch.analysis.lint import main as lint_main
 
-    default = os.path.join("src", "repro_torch")
-    paths = args.paths or ([default] if os.path.isdir(default) else ["."])
-    findings = lint_paths(paths)
-    for f in findings:
-        print(f)
-    rc = 0
-    if findings:
-        print(f"{len(findings)} lint finding(s)")
-        rc = 1
-    else:
-        print("repro_torch.analysis.lint: clean")
+    rc = lint_main(args.paths or [])
     if args.audit_smoke:
         rc = max(rc, _audit_smoke())
     return rc

@@ -434,3 +434,28 @@ def lint_paths(paths) -> list[LintFinding]:
     if protocol_path and io_path:
         findings.extend(lint_schema(protocol_path, io_path))
     return findings
+
+
+def main(argv=None) -> int:
+    """The linter's command line (the reference's ``lint.main``): lint
+    ``paths`` (default ``src/repro_torch``, else ``.``), print each finding
+    and return 1 when there is one, else print that the tree is clean and
+    return 0."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.analysis",
+        description="repo-discipline linter (rules RPR001, RPR002, RPR004, RPR005)")
+    ap.add_argument("paths", nargs="*", default=None,
+                    help="files/directories to lint (default: src/repro_torch or .)")
+    args = ap.parse_args(argv)
+    default = os.path.join("src", "repro_torch")
+    paths = args.paths or ([default] if os.path.isdir(default) else ["."])
+    findings = lint_paths(paths)
+    for f in findings:
+        print(f)
+    if findings:
+        print(f"{len(findings)} finding(s)")
+        return 1
+    print("repro_torch.analysis.lint: clean")
+    return 0

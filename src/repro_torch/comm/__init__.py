@@ -40,6 +40,7 @@ from repro_torch.comm.wire import (
     MaskedQuantWire,
     RebaseClock,
     Wire,
+    ef_residual,
     make_codec_wire,
 )
 
@@ -52,5 +53,5 @@ __all__ = [
     "trivial_comm_state", "ScheduledTopology", "StarTopology", "StaticTopology",
     "Topology", "DenseTransport", "GossipTransport", "StarTransport", "Transport",
     "ChocoWire", "CodecWire",
-    "IdentityWire", "MaskedQuantWire", "RebaseClock", "Wire", "make_codec_wire",
+    "IdentityWire", "MaskedQuantWire", "RebaseClock", "Wire", "ef_residual", "make_codec_wire",
 ]

@@ -48,6 +48,15 @@ from repro_torch.comm.compressors import (
 from repro_torch.comm.protocol import CommState, scalar
 from repro_torch.comm.schedule import CompressionSchedule
 
+
+def ef_residual(theta: dict, state: CommState) -> dict:
+    """The error-feedback residual e = θ − θ̂ (what compression still owes),
+    in float32, leaf by leaf; raises for a memoryless wire, which keeps no
+    θ̂."""
+    if isinstance(state.hat, tuple) and state.hat == ():
+        raise ValueError("memoryless mixer (error_feedback=False) keeps no residual")
+    return {n: x.float() - state.hat[n] for n, x in theta.items()}
+
 UniformsFn = Callable[..., object]
 
 

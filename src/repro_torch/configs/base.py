@@ -48,6 +48,11 @@ def canonical(name: str) -> str:
     return name
 
 
+def all_archs(smoke: bool = False) -> dict[str, ArchConfig]:
+    """Every supported architecture's config, keyed by its id."""
+    return {a: get_arch(a, smoke) for a in ARCH_IDS}
+
+
 def get_arch(name: str, smoke: bool = False) -> ArchConfig:
     mod = importlib.import_module(f"repro_torch.configs.{canonical(name)}")
     return mod.smoke() if smoke else mod.full()

@@ -42,9 +42,11 @@ metric, on by default there).
 the step packs its record — the metrics, the EF clock's ``ef_rounds`` and
 ``ef_drift`` where the stack has them, and on every
 ``obs.vector_every``-th step the per-node ``loss_nodes``, ``dr_weights``
-and the ``hist_*`` counts of :data:`repro_torch.obs.hist.TRAIN_HISTOGRAMS`
-— into one float32 payload on the device under the ``_tap`` key, which the
-trainer pops before the metrics reach its caller.  ``sanitize`` (a
+and the values behind the ``hist_*`` counts of
+:data:`repro_torch.obs.hist.TRAIN_HISTOGRAMS`, which the sink buckets when
+it drains — under the ``_tap`` key (no launch on an ordinary step: the
+sink stacks the queued records into one float32 payload when it drains),
+which the trainer pops before the metrics reach its caller.  ``sanitize`` (a
 :class:`repro_torch.analysis.sanitize.SanitizeFlags`) stages the in-step
 invariant checks after the round.  Both only read what the step computes,
 and neither synchronises; with both off the step is unchanged.  The phases
@@ -74,7 +76,7 @@ from repro_torch.core.robust import (
 )
 from repro_torch.kernels.gossip_update.kernel import MAX_NODES
 from repro_torch.kernels.gossip_update.ops import gossip_update_stacked_grouped
-from repro_torch.obs.hist import TRAIN_HISTOGRAMS, edges, hist_counts
+from repro_torch.obs.hist import TRAIN_HISTOGRAMS
 from repro_torch.obs.profiler import scope
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.utils.tree import leaf_names, tree_node_disagreement
@@ -177,25 +179,23 @@ def _owned(grads: dict) -> bool:
     return len(ptrs) == len(grads) and all(g.is_contiguous() for g in grads.values())
 
 
-def _tap_fields(obs, step: int, metrics: dict, comm, losses, lam, edge_cache: dict) -> dict:
+def _tap_fields(obs, step: int, metrics: dict, comm, losses, lam) -> dict:
     """The step's record for ``obs``: the metrics, the EF clock where the
-    stack has one, and on a vector step the per-node vectors and the
-    histogram counts (their edges copied to the device once per spec)."""
+    stack has one, and on a vector step the per-node vectors and the values
+    the histograms bucket (the sink counts them when it drains).  No
+    launch on an ordinary step: the sink stacks the queued metrics when it
+    drains."""
     rec = dict(metrics)
     if isinstance(comm.ef_rounds, int):
         rec["ef_rounds"] = comm.ef_rounds
     if isinstance(comm.ef_drift, torch.Tensor):
         rec["ef_drift"] = comm.ef_drift
-    vectors = None
-    if obs.wants_vectors(step):  # repro: noqa[RPR001] (a host int: the loop's step)
-        vectors = {"loss_nodes": losses.float(), "dr_weights": lam}
-        sources = {"loss_nodes": losses, "dr_weights": lam, "ef_res": comm.metrics.res_norm}
-        for spec in TRAIN_HISTOGRAMS:
-            key = (spec, losses.device)
-            if key not in edge_cache:  # repro: noqa[RPR001] (a host dict)
-                edge_cache[key] = edges(spec, losses.device)
-            vectors[spec.field] = hist_counts(sources[spec.source], spec, edge_cache[key])
-    return obs.tap_pack(step, rec, vectors=vectors)
+    if not obs.wants_vectors(step):  # repro: noqa[RPR001] (a host int: the loop's step)
+        return obs.tap_pack(step, rec)
+    loss_nodes = losses.float()
+    sources = {"loss_nodes": loss_nodes, "dr_weights": lam, "ef_res": comm.metrics.res_norm}
+    return obs.tap_pack(step, rec, vectors={"loss_nodes": loss_nodes, "dr_weights": lam},
+                        hists={spec: sources[spec.source] for spec in TRAIN_HISTOGRAMS})
 
 
 def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
@@ -221,7 +221,6 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
             "spelling: it keeps CommState.rounds ticking every step)")
     fused_w = _fused_w(optimizer, mixer, cfg.mix_every)
     step_faults = _step_faults(mixer)
-    edge_cache: dict = {}
     if sanitize is not None:
         from repro_torch.analysis.sanitize import step_checks
 
@@ -305,8 +304,7 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
             # the record rides the metrics as one packed entry; the trainer
             # pops it, so the metrics its caller sees are the same either way
             with scope("obs:tap"):
-                metrics.update(_tap_fields(obs, state.step, metrics, comm, losses, lam,
-                                           edge_cache))
+                metrics.update(_tap_fields(obs, state.step, metrics, comm, losses, lam))
         return DecentralizedState(mixed, opt_state, state.step + 1, comm), metrics
 
     return train_step

@@ -20,7 +20,9 @@ As in the reference, the gossip lowering comes in through
 
 The CLI installs the reference's flag names, ``--sanitize`` (the in-step
 invariant checks of :mod:`repro_torch.analysis.sanitize`) among them, and
-:func:`add_obs_cli_args` the observability flags.  The one flag the
+:func:`add_obs_cli_args` the observability flags.  The codec flags come
+from :func:`add_compression_cli_args` (which :func:`compression_from_args`
+reads back), shared with entry points that build raw mixers.  The one flag the
 reference lacks is ``--device``.
 """
 
@@ -78,6 +80,55 @@ def add_dynamics_cli_args(ap) -> None:
                     help="down nodes (stragglers/outages) lose their "
                          "gradient too: the robust per-node scale is masked "
                          "with the round's up vector")
+
+
+def add_compression_cli_args(ap) -> None:
+    """Install the standard consensus wire-codec flags on an argparse parser
+    (the reference's ``add_compression_cli_args``; :meth:`TrainerSpec.add_cli_args`
+    installs them too)."""
+    ap.add_argument("--compress", default="none", choices=_COMPRESS_CHOICES,
+                    help="consensus wire codec (repro_torch.comm)")
+    ap.add_argument("--compress-ratio", type=float, default=0.01,
+                    help="kept fraction for topk/randk")
+    ap.add_argument("--compress-schedule", default="none", choices=_SCHEDULE_CHOICES,
+                    help="adapt the codec rate during training "
+                         "(repro_torch.comm.schedule): int8->int4 / annealed "
+                         "topk ratio, driven by rounds (linear) or the "
+                         "error-feedback innovation norm (adaptive)")
+    ap.add_argument("--schedule-threshold", type=float, default=0.5,
+                    help="adaptive: innovation-norm fraction below which "
+                         "the rate anneals")
+    ap.add_argument("--schedule-warmup", type=int, default=10,
+                    help="adaptive: full-rate rounds before the reference "
+                         "norm is latched")
+    ap.add_argument("--schedule-rounds", type=int, default=300,
+                    help="linear: rounds to anneal full -> aggressive rate")
+    ap.add_argument("--no-error-feedback", action="store_true",
+                    help="ablation: memoryless compression (stalls at the "
+                         "quantization noise floor)")
+
+
+def compression_from_args(args, seed: int = 0) -> CompressionConfig | None:
+    """The CompressionConfig that :func:`add_compression_cli_args`'s flags
+    describe (the reference's ``compression_from_args``): a thin CLI
+    wrapper over :meth:`TrainerSpec.compression_config`, raising SystemExit
+    instead of ValueError for flag misuse."""
+    spec = TrainerSpec(
+        compress=args.compress,
+        compress_ratio=args.compress_ratio,
+        error_feedback=not args.no_error_feedback,
+        compress_schedule=args.compress_schedule,
+        schedule_threshold=args.schedule_threshold,
+        schedule_warmup=args.schedule_warmup,
+        schedule_rounds=args.schedule_rounds,
+        seed=getattr(args, "seed", seed),
+    )
+    try:
+        return spec.compression_config()
+    except ValueError as e:
+        raise SystemExit(
+            "--compress-schedule needs a codec: pass --compress "
+            "int8|int4|topk|randk") from e
 
 
 def add_obs_cli_args(ap) -> None:
@@ -224,25 +275,7 @@ class TrainerSpec:
                         help="consensus period (local SGD when > 1)")
         ap.add_argument("--lr", type=float, default=None)
         ap.add_argument("--seed", type=int, default=0)
-        ap.add_argument("--compress", default="none", choices=_COMPRESS_CHOICES,
-                        help="consensus wire codec (repro_torch.comm)")
-        ap.add_argument("--compress-ratio", type=float, default=0.01,
-                        help="kept fraction for topk/randk")
-        ap.add_argument("--compress-schedule", default="none", choices=_SCHEDULE_CHOICES,
-                        help="adapt the codec rate during training "
-                             "(repro_torch.comm.schedule): int8->int4 / annealed "
-                             "topk ratio, driven by rounds (linear) or the "
-                             "error-feedback innovation norm (adaptive)")
-        ap.add_argument("--schedule-threshold", type=float, default=0.5,
-                        help="adaptive: innovation-norm fraction below which "
-                             "the rate anneals")
-        ap.add_argument("--schedule-warmup", type=int, default=10,
-                        help="adaptive: full-rate rounds before the reference "
-                             "norm is latched")
-        ap.add_argument("--schedule-rounds", type=int, default=300,
-                        help="linear: rounds to anneal full -> aggressive rate")
-        ap.add_argument("--no-error-feedback", action="store_true",
-                        help="ablation: memoryless compression")
+        add_compression_cli_args(ap)
         ap.add_argument("--device", default="cuda",
                         help="torch device; 'cpu' runs the plain PyTorch versions")
         ap.add_argument("--sanitize", action="store_true",

@@ -1,5 +1,5 @@
-// Forward GQA attention with an online softmax, float32, on the tensor
-// cores of sm_90a (3xTF32 mma.sync).
+// Forward GQA attention with an online softmax, float32 arithmetic on the
+// tensor cores of sm_90a (3xTF32 mma.sync), float32 or bfloat16 inputs.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_fwd :80, _flash_fwd_kernel :30, pallas_call :100): per
@@ -50,11 +50,23 @@
 // inside the band for every row of the CTA is not masked.  S and T need
 // not be multiples of the tiles: rows past S are zero-filled and write
 // nothing, keys past T are zero-filled and get weight exactly 0.  hd is a
-// template parameter (16, 32, 64, 80, 128: the slice's configs and the LM
-// example's width); the wrapper raises on any other.
+// template parameter (8, 16, 32, 64, 80, 128: the configs', the LM
+// example's and the reference kernel's test widths; hd 8 is one k-step of
+// m16n8k8); the wrapper raises on any other.
+//
+// bfloat16.  As the TPU kernel does, bfloat16 q, k and v are widened to
+// float32 as they are read and the output is rounded to bfloat16 (to
+// nearest even) as it is written; lse, the softmax and every product stay
+// float32 (3xTF32: a widened bfloat16 value is its own TF32 big half, so
+// its small half is 0).  Their rows come by plain loads, converted on the
+// way into the float32 buffers the TMA and cp.async copies fill for
+// float32 inputs, so the products are the float32 kernel's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "tc_tf32.cuh"
 
@@ -76,21 +88,58 @@ struct Tile {
       sizeof(float) * (2 * BN * HD + BM * LD + 2 * BN * LD + 2 * BN * LDV) + 16;
 };
 
+template <class In>
 struct Args {
-  CUtensorMap tk, tv;  // k and v rows for TMA (when tma)
-  const float *q, *k, *v;
-  float *o, *lse;
+  CUtensorMap tk, tv;  // k and v rows for TMA (when tma; float32 only)
+  const In *q, *k, *v;
+  In* o;
+  float* lse;
   long long H;
   int G, S, T;
   Strides qs, ks, vs, os;
   float scale, softcap;  // softcap <= 0: none
   int causal, window;    // window <= 0: none
-  int vec;               // every row of q, k, v and o 16-byte aligned
-  int tma;               // k and v tiles by TMA, else by cp.async
+  int vec;               // float32: every row of q, k, v and o 16-byte aligned;
+                         // bfloat16: o's rows 4-byte aligned (paired stores)
+  int tma;               // k and v tiles by TMA, else by cp.async (float32)
 };
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(const __grid_constant__ Args a) {
+// bfloat16 rows p0 + r (r < n_rows) of a view whose row p is at base + (p %
+// G) hs + (p / G) ps (G = 1: plain rows), widened to float32 into dst
+// (pitch LD); rows at or past `rows` zero-filled.  Plain loads, one element
+// per thread and step, neighbouring threads on neighbouring elements.
+template <int HD, int LD, int THREADS>
+__device__ __forceinline__ void load_rows_bf16(float* dst, int n_rows, const __nv_bfloat16* base,
+                                               long long hs, long long ps, int G, int p0,
+                                               int rows) {
+  for (int idx = threadIdx.x; idx < n_rows * HD; idx += THREADS) {
+    const int r = idx / HD, d = idx % HD, p = p0 + r;
+    float x = 0.f;
+    if (p < rows) {
+      const int i = p / G;
+      x = __bfloat162float(base[(p - i * G) * hs + i * ps + d]);
+    }
+    dst[r * LD + d] = x;
+  }
+}
+
+using flash::store2;  // float32; the bfloat16 overload follows
+
+// x0, x1 rounded to bfloat16 at p[0], p[1]: one 4-byte store where o's rows
+// are 4-byte aligned (vec; p is then 4-byte aligned)
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x0, float x1, bool vec) {
+  if (vec) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+  } else {
+    p[0] = __float2bfloat16_rn(x0);
+    p[1] = __float2bfloat16_rn(x1);
+  }
+}
+
+template <int HD, class In>
+__global__ void __launch_bounds__(THREADS)
+    flash_fwd_mma_kernel(const __grid_constant__ Args<In> a) {
+  constexpr bool F32 = std::is_same<In, float>::value;
   constexpr int LD = Tile<HD>::LD, LDV = Tile<HD>::LDV;
   constexpr int NT = BN / 8, DT = HD / 8;
   extern __shared__ __align__(128) float4 smem4[];
@@ -118,29 +167,39 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(const __grid_con
   const int k_first = (k_lo / BN) * BN;
   const int n_tiles = k_hi > k_first ? (k_hi - k_first + BN - 1) / BN : 0;
 
-  const float* kb = a.k + b * a.ks.b + kvh * a.ks.h;
-  const float* vb = a.v + b * a.vs.b + kvh * a.vs.h;
+  const In* kb = a.k + b * a.ks.b + kvh * a.ks.h;
+  const In* vb = a.v + b * a.vs.b + kvh * a.vs.h;
   // starts the copy of tile n's k and v rows into the raw buffers
+  // (bfloat16: loads them, widened, before it returns)
   auto copy_kv = [&](int n) {
     const int k0 = k_first + n * BN;
-    if (a.tma) {
-      if (threadIdx.x == 0) {
-        mbar_expect(bar, 2 * BN * HD * sizeof(float));
-        tma_rows(kraw, &a.tk, k0, static_cast<int>(kvh), static_cast<int>(b), bar);
-        tma_rows(vraw, &a.tv, k0, static_cast<int>(kvh), static_cast<int>(b), bar);
+    if constexpr (F32) {
+      if (a.tma) {
+        if (threadIdx.x == 0) {
+          mbar_expect(bar, 2 * BN * HD * sizeof(float));
+          tma_rows(kraw, &a.tk, k0, static_cast<int>(kvh), static_cast<int>(b), bar);
+          tma_rows(vraw, &a.tv, k0, static_cast<int>(kvh), static_cast<int>(b), bar);
+        }
+      } else {
+        stage_rows<HD, HD, THREADS>(kraw, BN, a.vec, kb, a.ks.s, k0, a.T);
+        stage_rows<HD, HD, THREADS>(vraw, BN, a.vec, vb, a.vs.s, k0, a.T);
       }
+      cp_async_commit();
     } else {
-      stage_rows<HD, HD, THREADS>(kraw, BN, a.vec, kb, a.ks.s, k0, a.T);
-      stage_rows<HD, HD, THREADS>(vraw, BN, a.vec, vb, a.vs.s, k0, a.T);
+      load_rows_bf16<HD, HD, THREADS>(kraw, BN, kb, 0, a.ks.s, 1, k0, a.T);
+      load_rows_bf16<HD, HD, THREADS>(vraw, BN, vb, 0, a.vs.s, 1, k0, a.T);
     }
-    cp_async_commit();
   };
 
   if (a.tma && threadIdx.x == 0) mbar_init(bar);
   if (n_tiles > 0) copy_kv(0);  // by TMA: in flight while q is staged
-  stage_packed<HD, LD, THREADS>(sq, BM, a.vec, a.q + b * a.qs.b + kvh * a.G * a.qs.h, a.qs.h,
-                                a.qs.s, a.G, p0, rows);
-  cp_async_commit();
+  const In* qb = a.q + b * a.qs.b + kvh * a.G * a.qs.h;
+  if constexpr (F32) {
+    stage_packed<HD, LD, THREADS>(sq, BM, a.vec, qb, a.qs.h, a.qs.s, a.G, p0, rows);
+    cp_async_commit();
+  } else {
+    load_rows_bf16<HD, LD, THREADS>(sq, BM, qb, a.qs.h, a.qs.s, a.G, p0, rows);
+  }
   __syncthreads();  // the barrier is set up before anyone waits on it
 
   // this lane's two rows (C fragment rows g and g + 8 of its warp)
@@ -235,7 +294,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(const __grid_con
     const float sum = fmaxf(quad_sum(l[r]), 1e-30f);
     if (!live[r]) continue;
     const float inv = 1.f / sum;
-    float* op = a.o + b * a.os.b + head[r] * a.os.h + pos[r] * a.os.s + 2 * c;
+    In* op = a.o + b * a.os.b + head[r] * a.os.h + pos[r] * a.os.s + 2 * c;
 #pragma unroll
     for (int j = 0; j < DT; ++j)
       store2(op + 8 * j, o[j][2 * r] * inv, o[j][2 * r + 1] * inv, a.vec);
@@ -243,37 +302,31 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(const __grid_con
   }
 }
 
-template <int HD>
-cudaError_t launch(const Args& a, long long B, long long KVH, cudaStream_t stream) {
+template <int HD, class In>
+cudaError_t launch(const Args<In>& a, long long B, long long KVH, cudaStream_t stream) {
   constexpr size_t smem = Tile<HD>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<HD>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<HD, In>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((static_cast<long long>(a.G) * a.S + BM - 1) / BM),
                   static_cast<unsigned>(KVH), static_cast<unsigned>(B));
-  flash_fwd_mma_kernel<HD><<<grid, THREADS, smem, stream>>>(a);
+  flash_fwd_mma_kernel<HD, In><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-}  // namespace
+// every row of a bfloat16 view starts on 4 bytes
+inline bool rows_aligned4(const void* p, const Strides& s) {
+  return (reinterpret_cast<uintptr_t>(p) & 3) == 0 && s.b % 2 == 0 && s.h % 2 == 0 &&
+         s.s % 2 == 0;
+}
 
-// q (B, H, S, hd), k and v (B, KVH, T, hd), o (B, H, S, hd), each given by
-// its batch, head and sequence strides in elements (head dims contiguous);
-// lse (B, H, S) contiguous, or null.  window <= 0: no window; softcap <= 0:
-// no cap.  Returns a cudaError_t.
-extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v, float* o,
-                             float* lse, long long B, long long H, long long KVH, long long S,
-                             long long T, long long hd,
-                             long long q_sb, long long q_sh, long long q_ss,
-                             long long k_sb, long long k_sh, long long k_ss,
-                             long long v_sb, long long v_sh, long long v_ss,
-                             long long o_sb, long long o_sh, long long o_ss,
-                             float scale, int causal, long long window, float softcap,
-                             cudaStream_t stream) {
-  const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
-      os{o_sb, o_sh, o_ss};
-  Args a{};
+template <class In>
+int flash_fwd(const In* q, const In* k, const In* v, In* o, float* lse, long long B,
+              long long H, long long KVH, long long S, long long T, long long hd,
+              const Strides& qs, const Strides& ks, const Strides& vs, const Strides& os,
+              float scale, int causal, long long window, float softcap, cudaStream_t stream) {
+  Args<In> a{};
   a.q = q;
   a.k = k;
   a.v = v;
@@ -291,10 +344,18 @@ extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v, flo
   a.softcap = softcap;
   a.causal = causal;
   a.window = window32(window);
-  a.vec = rows_aligned16(q, qs) && rows_aligned16(k, ks) && rows_aligned16(v, vs) &&
-          rows_aligned16(o, os);
-  a.tma = rows_map(&a.tk, k, B, KVH, T, hd, ks, BN) && rows_map(&a.tv, v, B, KVH, T, hd, vs, BN);
+  if constexpr (std::is_same<In, float>::value) {
+    a.vec = rows_aligned16(q, qs) && rows_aligned16(k, ks) && rows_aligned16(v, vs) &&
+            rows_aligned16(o, os);
+    a.tma =
+        rows_map(&a.tk, k, B, KVH, T, hd, ks, BN) && rows_map(&a.tv, v, B, KVH, T, hd, vs, BN);
+  } else {
+    a.vec = rows_aligned4(o, os);
+    a.tma = 0;
+  }
   switch (hd) {
+    case 8:
+      return launch<8>(a, B, KVH, stream);
     case 16:
       return launch<16>(a, B, KVH, stream);
     case 32:
@@ -308,6 +369,42 @@ extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v, flo
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// q (B, H, S, hd), k and v (B, KVH, T, hd), o (B, H, S, hd), each given by
+// its batch, head and sequence strides in elements (head dims contiguous);
+// lse (B, H, S) contiguous, or null.  window <= 0: no window; softcap <= 0:
+// no cap.  Returns a cudaError_t.
+extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v, float* o,
+                             float* lse, long long B, long long H, long long KVH, long long S,
+                             long long T, long long hd,
+                             long long q_sb, long long q_sh, long long q_ss,
+                             long long k_sb, long long k_sh, long long k_ss,
+                             long long v_sb, long long v_sh, long long v_ss,
+                             long long o_sb, long long o_sh, long long o_ss,
+                             float scale, int causal, long long window, float softcap,
+                             cudaStream_t stream) {
+  return flash_fwd(q, k, v, o, lse, B, H, KVH, S, T, hd, Strides{q_sb, q_sh, q_ss},
+                   Strides{k_sb, k_sh, k_ss}, Strides{v_sb, v_sh, v_ss},
+                   Strides{o_sb, o_sh, o_ss}, scale, causal, window, softcap, stream);
+}
+
+// The same with bfloat16 q, k, v and o (lse float32).
+extern "C" int flash_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                              const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
+                              long long B, long long H, long long KVH, long long S,
+                              long long T, long long hd,
+                              long long q_sb, long long q_sh, long long q_ss,
+                              long long k_sb, long long k_sh, long long k_ss,
+                              long long v_sb, long long v_sh, long long v_ss,
+                              long long o_sb, long long o_sh, long long o_ss,
+                              float scale, int causal, long long window, float softcap,
+                              cudaStream_t stream) {
+  return flash_fwd(q, k, v, o, lse, B, H, KVH, S, T, hd, Strides{q_sb, q_sh, q_ss},
+                   Strides{k_sb, k_sh, k_ss}, Strides{v_sb, v_sh, v_ss},
+                   Strides{o_sb, o_sh, o_ss}, scale, causal, window, softcap, stream);
 }
 
 // 1 when the rows of a (B, heads, rows, hd) view with these batch, head and

@@ -118,10 +118,11 @@ __device__ __forceinline__ Frag<4> c_as_a(const float (&acc)[4]) {
 }
 
 // d[j] += a b(j) for j < NJ, where b(j) loads B fragment j, in groups of
-// mma3 of 4 accumulators (2 where NJ is not a multiple of 4)
+// mma3 of 4 accumulators (2 where NJ is not a multiple of 4, 1 where it is
+// odd: hd 8's one column tile)
 template <int NJ, class LoadB>
 __device__ __forceinline__ void mma3_row(float (*d)[4], const Frag<4>& a, LoadB b) {
-  constexpr int GRP = NJ % 4 == 0 ? 4 : 2;
+  constexpr int GRP = NJ % 4 == 0 ? 4 : NJ % 2 == 0 ? 2 : 1;
 #pragma unroll
   for (int j0 = 0; j0 < NJ; j0 += GRP) {
     Frag<2> f[GRP];

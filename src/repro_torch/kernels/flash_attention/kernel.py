@@ -14,12 +14,16 @@ hd), as views with any batch, head and sequence strides (head dims
 contiguous), so the model hands over its (B, S, KVH, G, hd) q and (B, T,
 KVH, hd) k/v without a transposed copy; outputs and gradients have their
 input's memory layout.  The forward writes the row log-sum-exp (B, H, S)
-when asked, which the backward recomputes the softmax from.  Each wrapper
-raises on what its kernel does not take — a dtype other than float32, a
-head dim other than 16, 32, 64, 80 or 128, and for the forward an input that
-requires grad while autograd records (``ops.flash_attention`` is the
-differentiable entry) — never runs the plain version itself, and adds one
-to its ``.launches`` per call.
+when asked, which the backward recomputes the softmax from.  The forward
+takes q, k and v in float32 or bfloat16 (one dtype for the three; bfloat16
+is widened as it is read and the output written in it, as the TPU kernel
+does; lse is float32) at head dims 8, 16, 32, 64, 80 and 128; the backward
+takes float32 at head dims 16, 32, 64, 80 and 128 (``ops.FlashAttention``
+widens saved bfloat16 inputs for it).  Each wrapper raises on anything
+else, and the forward on an input that requires grad while autograd
+records (``ops.flash_attention`` is the differentiable entry); neither runs
+the plain version itself, and each adds one to its ``.launches`` per
+call.
 """
 
 from __future__ import annotations
@@ -32,33 +36,45 @@ from repro_torch.kernels import _build
 
 SOURCE = "flash_attention/csrc/flash_fwd.cu"
 BWD_SOURCE = "flash_attention/csrc/flash_bwd.cu"
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (8, 16, 32, 64, 80, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128)
+DTYPES = (torch.float32, torch.bfloat16)
 _P, _LL = ctypes.c_void_p, ctypes.c_longlong
 _MASK = (ctypes.c_float, ctypes.c_int, _LL, ctypes.c_float, _P)  # scale .. stream
 _ARGTYPES = (_P,) * 5 + (_LL,) * 6 + (_LL,) * 12 + _MASK
 _BWD_ARGTYPES = (_P,) * 10 + (_LL,) * 6 + (_LL,) * 24 + _MASK
+_SYMBOL = {torch.float32: "flash_fwd_f32", torch.bfloat16: "flash_fwd_bf16"}
 
 
-def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
+def _check(name: str, t: torch.Tensor, device: torch.device,
+           dtypes: tuple = (torch.float32,)) -> None:
     if t.device != device:
         raise ValueError(f"{name} must be on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"the flash-attention kernels take float32, got {name} {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: this flash-attention kernel takes "
+                        f"{', '.join(map(str, dtypes))}, got {t.dtype}")
     if t.ndim != 4 or t.stride(3) != 1:
         raise ValueError(f"{name} must be 4-d with contiguous head dims, got shape "
                          f"{tuple(t.shape)} strides {t.stride()}")
 
 
-def _check_qkv(name: str, q, k, v, window, softcap) -> tuple[int, ...]:
-    """Validate q, k, v and the mask; returns (B, H, KVH, S, T, hd)."""
+def check_head_dim(name: str, hd: int, dims: tuple) -> None:
+    if hd not in dims:
+        raise ValueError(f"{name} is built for head dims {dims}, got {hd}")
+
+
+def _check_qkv(name: str, q, k, v, window, softcap, dims=HEAD_DIMS, dtypes=DTYPES
+               ) -> tuple[int, ...]:
+    """Validate q, k, v and the mask for a kernel built for head dims
+    ``dims`` and input dtypes ``dtypes``; returns (B, H, KVH, S, T, hd)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got q on {q.device}")
+    _check("q", q, q.device, dtypes)
     for arg, t in (("q", q), ("k", k), ("v", v)):
-        _check(arg, t, q.device)
+        _check(arg, t, q.device, (q.dtype,))
     b, h, s, hd = q.shape
     kvh, t = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name} is built for head dims {HEAD_DIMS}, got {hd}")
+    check_head_dim(name, hd, dims)
     if k.shape != (b, kvh, t, hd) or v.shape != k.shape:
         raise ValueError(f"k and v must be (B, KVH, T, hd) = {(b, kvh, t, hd)}, got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
@@ -81,8 +97,9 @@ def _mask_args(hd, causal, window, softcap) -> tuple:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int | None = None,
                         softcap: float | None = None, return_lse: bool = False):
-    """q: (B, H, S, hd); k, v: (B, KVH, T, hd) CUDA float32 -> out (B, H, S,
-    hd), and with ``return_lse`` also the row log-sum-exp (B, H, S).
+    """q: (B, H, S, hd); k, v: (B, KVH, T, hd) CUDA float32 or bfloat16 ->
+    out (B, H, S, hd) in q's dtype, and with ``return_lse`` also the row
+    log-sum-exp (B, H, S) float32.
 
     Launches the B.6 kernel on the current stream and adds one to
     ``flash_attention_fwd.launches``.
@@ -95,8 +112,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)  # q's strides: the model's (B, S, H, hd) memory
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel():
-        fn = _build.entry(SOURCE, "flash_fwd_f32", _ARGTYPES)
-        _build.launch(fn, "flash_fwd_f32", q.device,
+        fn = _build.entry(SOURCE, _SYMBOL[q.dtype], _ARGTYPES)
+        _build.launch(fn, _SYMBOL[q.dtype], q.device,
                       q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                       None if lse is None else lse.data_ptr(),
                       b, h, kvh, s, t, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -116,7 +133,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     Launches the B.6 backward kernels (``csrc/flash_bwd.cu``) on the current
     stream and adds one to ``flash_attention_bwd.launches``.
     """
-    b, h, kvh, s, t, hd = _check_qkv("flash_attention_bwd", q, k, v, window, softcap)
+    b, h, kvh, s, t, hd = _check_qkv("flash_attention_bwd", q, k, v, window, softcap,
+                                     BWD_HEAD_DIMS, (torch.float32,))
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
     for arg, x in (("out", out), ("dout", dout)):
@@ -146,8 +164,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
 
 def rows_by_tma(x: torch.Tensor) -> bool:
     """Whether the kernels copy the rows of ``x`` (a (B, heads, rows, hd)
-    CUDA float32 view) into shared memory by TMA rather than cp.async."""
-    _check("x", x, x.device)
+    CUDA view) into shared memory by TMA rather than cp.async (float32) or
+    plain loads (bfloat16: never by TMA)."""
+    _check("x", x, x.device, DTYPES)
+    if x.dtype != torch.float32:
+        return False
     fn = _build.entry(SOURCE, "flash_rows_tma", (_P,) + (_LL,) * 7)
     return bool(fn(x.data_ptr(), *x.shape, *x.stride()[:3]))
 

@@ -16,13 +16,17 @@ from torch.autograd.function import once_differentiable
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as _k
 from repro_torch.kernels.flash_attention import ref as _r
+from repro_torch.kernels.flash_attention.kernel import BWD_HEAD_DIMS, check_head_dim
 
 
 class FlashAttention(torch.autograd.Function):
-    """B.6 with its backward kernel, for CUDA tensors."""
+    """B.6 with its backward kernel, for CUDA tensors.  The backward kernel
+    takes float32: saved bfloat16 inputs (and the bfloat16 output) are
+    widened for it, and each gradient comes back in its input's dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
+        check_head_dim("flash attention's backward", q.shape[-1], BWD_HEAD_DIMS)
         out, lse = _k.flash_attention_fwd(q, k, v, causal=causal, window=window,
                                           softcap=softcap, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -33,8 +37,9 @@ class FlashAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _k.flash_attention_bwd(q, k, v, out, lse, dout, **ctx.mask)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = _k.flash_attention_bwd(q.float(), k.float(), v.float(), out.float(), lse,
+                                            dout.float(), **ctx.mask)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

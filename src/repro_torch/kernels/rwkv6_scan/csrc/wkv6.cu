@@ -1,4 +1,5 @@
-// The RWKV6 WKV recurrence with data-dependent decay, float32, for sm_90a.
+// The RWKV6 WKV recurrence with data-dependent decay, for sm_90a: float32
+// or bfloat16 inputs, float32 arithmetic and state.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/rwkv6_scan/kernel.py
 // (wkv6_scan :57, _wkv6_kernel :30, pallas_call :65).  Per (batch, head),
@@ -67,13 +68,23 @@
 // other layouts, or where the driver refuses a map, the kernel is the
 // template that loads each chunk with plain loads (the same arithmetic).
 // T is arbitrary: full batches of SB steps, then single steps.  hd is a
-// template parameter (16: R 4, J 2, 32 threads; 64: R 8, J 4, 128
-// threads); the wrapper raises on any other.
+// template parameter (8: R 4, J 1, 16 threads; 16: R 4, J 2, 32 threads;
+// 32: R 4, J 4, 64 threads; 64: R 8, J 4, 128 threads: the reference
+// kernel's test widths and the configs'); the wrapper raises on any other.
+//
+// bfloat16.  As the TPU kernel does, bfloat16 r, k, v, w and u are widened
+// to float32 as they are read and y is rounded to bfloat16 (to nearest
+// even) as it is written; the arithmetic, s0 and the final state stay
+// float32.  A bfloat16 chunk comes by the plain loads of the template
+// without TMA, converted on the way into the same float32 buffers, so the
+// steps are the float32 kernel's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "tma_rows.cuh"
 
@@ -82,8 +93,16 @@ namespace {
 template <int HD>
 struct Shape;
 template <>
+struct Shape<8> {
+  static constexpr int R = 4, J = 1, C = 16, SB = 4;
+};
+template <>
 struct Shape<16> {
   static constexpr int R = 4, J = 2, C = 32, SB = 4;
+};
+template <>
+struct Shape<32> {
+  static constexpr int R = 4, J = 4, C = 32, SB = 4;
 };
 template <>
 struct Shape<64> {
@@ -100,6 +119,8 @@ struct Cfg {
   static constexpr int SB = Shape<HD>::SB;  // steps per reduce-scatter
   static constexpr int NG = HD / R;         // lanes that split a column group's rows
   static constexpr int NT = NG * (HD / J);
+  // the CTA's lanes in the shuffles (hd 8 runs 16 threads: half a warp)
+  static constexpr unsigned MASK = NT >= 32 ? 0xffffffffu : (1u << NT) - 1u;
   static constexpr int NQ = R / 4;          // float4 row groups per thread
   static constexpr int P = NT / C;          // lanes per step of the bonus pass
   static constexpr int PQ = HD / P / 4;     // float4 row groups per bonus lane
@@ -116,23 +137,36 @@ struct Cfg {
                 "bonus lanes");
 };
 
+template <class In>
 struct Args {
-  CUtensorMap map[4];   // r, k, w, v rows for TMA (the TMA template)
-  const float* src[4];  // r, k, w, v at (0, 0, 0, 0)
-  const float* u;
+  CUtensorMap map[4];  // r, k, w, v rows for TMA (the TMA template, float32)
+  const In* src[4];    // r, k, w, v at (0, 0, 0, 0)
+  const In* u;
   const float* s0;
-  float* y;
+  In* y;
   float* s_out;
   long long H, T;
   Strides in, out;
 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// y's element type from the float32 sum (bfloat16: rounded to nearest even)
+template <class In>
+__device__ __forceinline__ In from_f32(float x) {
+  if constexpr (std::is_same<In, float>::value)
+    return x;
+  else
+    return __float2bfloat16_rn(x);
+}
 
 // thread 0: the chunk of C rows from row t0 on of (head, batch) of every
 // map into buf (r, k, w, v, dense; rows past T zero-filled), counted on
 // bar.  A CTA barrier in front of it orders every read of buf before these
 // writes; the fence carries that order to the copy engine.
 template <int HD>
-__device__ __forceinline__ void tma_chunk(float* buf, const Args& a, int t0, int head,
+__device__ __forceinline__ void tma_chunk(float* buf, const Args<float>& a, int t0, int head,
                                           int batch, uint64_t* bar) {
   using K = Cfg<HD>;
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -142,14 +176,15 @@ __device__ __forceinline__ void tma_chunk(float* buf, const Args& a, int t0, int
 }
 
 // every thread: the chunk's n rows of r, k, w, v into buf with plain loads
-// (the layouts TMA does not take); a CTA barrier follows
-template <int HD>
-__device__ __forceinline__ void load_chunk(float* buf, const Args& a, long long base,
+// (the layouts TMA does not take, and bfloat16, widened here); a CTA
+// barrier follows
+template <int HD, class In>
+__device__ __forceinline__ void load_chunk(float* buf, const Args<In>& a, long long base,
                                            long long t0, int n) {
   using K = Cfg<HD>;
   for (int idx = threadIdx.x; idx < 4 * n * HD; idx += K::NT) {
     const int x = idx / (n * HD), rem = idx % (n * HD);
-    buf[x * K::TILE + rem] = a.src[x][base + (t0 + rem / HD) * a.in.t + rem % HD];
+    buf[x * K::TILE + rem] = to_f32(a.src[x][base + (t0 + rem / HD) * a.in.t + rem % HD]);
   }
 }
 
@@ -159,10 +194,10 @@ __device__ __forceinline__ float comp(const float4& v, int e) {
 
 // SB consecutive steps from step c of the chunk in cur: the state update
 // of this thread's tile and, once the lanes' sums are joined, y.
-template <int HD, int SB>
+template <int HD, int SB, class In>
 __device__ __forceinline__ void steps(float (&S)[Cfg<HD>::NQ][4][Cfg<HD>::J], const float* cur,
                                       const float* bonus, int c, int g, int cg, int mcol,
-                                      float* yt, long long yst) {
+                                      In* yt, long long yst) {
   using K = Cfg<HD>;
   constexpr int J = K::J, NG = K::NG, NQ = K::NQ;
   constexpr int LCOL = log2i(J);  // levels halving columns
@@ -204,7 +239,7 @@ __device__ __forceinline__ void steps(float (&S)[Cfg<HD>::NQ][4][Cfg<HD>::J], co
     for (int s = 0; s < SB; ++s)
 #pragma unroll
       for (int e = 0; e < half; ++e)
-        acc[s][e] += __shfl_xor_sync(0xffffffffu, acc[s][e + half], bit);
+        acc[s][e] += __shfl_xor_sync(K::MASK, acc[s][e + half], bit);
   }
   // steps: the upper lane of each pair keeps the later half
   float val[SB];
@@ -219,7 +254,7 @@ __device__ __forceinline__ void steps(float (&S)[Cfg<HD>::NQ][4][Cfg<HD>::J], co
     for (int e = 0; e < half; ++e) {
       const float send = upper ? val[e] : val[e + half];
       const float keep = upper ? val[e + half] : val[e];
-      val[e] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+      val[e] = keep + __shfl_xor_sync(K::MASK, send, bit);
     }
     sbase += upper ? half : 0;
   }
@@ -227,21 +262,21 @@ __device__ __forceinline__ void steps(float (&S)[Cfg<HD>::NQ][4][Cfg<HD>::J], co
   for (int l = 0; l < LDUP; ++l) {
     const int bit = NG >> (LCOL + LSTEP + l + 1);
 #pragma unroll
-    for (int e = 0; e < (SB >> LSTEP); ++e) val[e] += __shfl_xor_sync(0xffffffffu, val[e], bit);
+    for (int e = 0; e < (SB >> LSTEP); ++e) val[e] += __shfl_xor_sync(K::MASK, val[e], bit);
   }
   if ((g & ((1 << LDUP) - 1)) == 0) {
     const int j = J * cg + mcol;
 #pragma unroll
     for (int e = 0; e < (SB >> LSTEP); ++e) {
       const int t = c + sbase + e;
-      yt[t * yst + j] = fmaf(vv[t * HD + j], bonus[t], val[e]);
+      yt[t * yst + j] = from_f32<In>(fmaf(vv[t * HD + j], bonus[t], val[e]));
     }
   }
 }
 
-template <int HD, bool TMA>
+template <int HD, bool TMA, class In>
 __global__ void __launch_bounds__(Cfg<HD>::NT)
-wkv6_keysplit_kernel(const __grid_constant__ Args a) {
+wkv6_keysplit_kernel(const __grid_constant__ Args<In> a) {
   using K = Cfg<HD>;
   constexpr int J = K::J, C = K::C, NG = K::NG, NQ = K::NQ, P = K::P, SB = K::SB;
   extern __shared__ __align__(128) float smem[];
@@ -257,7 +292,7 @@ wkv6_keysplit_kernel(const __grid_constant__ Args a) {
   const int h = blockIdx.x, b = blockIdx.y;
   const long long state = (static_cast<long long>(b) * a.H + h) * HD * HD;
   const long long base = b * a.in.b + h * a.in.h;
-  float* yb = a.y + b * a.out.b + h * a.out.h;
+  In* yb = a.y + b * a.out.b + h * a.out.h;
 
   float S[NQ][4][J];
 #pragma unroll
@@ -274,12 +309,12 @@ wkv6_keysplit_kernel(const __grid_constant__ Args a) {
   float4 u4[K::PQ];
 #pragma unroll
   for (int q = 0; q < K::PQ; ++q) {
-    const float* uq = a.u + h * HD + 4 * (pp + P * q);
-    u4[q] = make_float4(uq[0], uq[1], uq[2], uq[3]);
+    const In* uq = a.u + h * HD + 4 * (pp + P * q);
+    u4[q] = make_float4(to_f32(uq[0]), to_f32(uq[1]), to_f32(uq[2]), to_f32(uq[3]));
   }
 
   const int n_chunks = static_cast<int>((a.T + C - 1) / C);
-  if (TMA) {
+  if constexpr (TMA) {
     if (tid == 0) {
       mbar_init(&bar[0]);
       mbar_init(&bar[1]);
@@ -292,7 +327,7 @@ wkv6_keysplit_kernel(const __grid_constant__ Args a) {
     const long long t0 = static_cast<long long>(ch) * C;
     const int n = static_cast<int>(min(static_cast<long long>(C), a.T - t0));
     float* cur = smem + nb * K::BUF;
-    if (TMA) {
+    if constexpr (TMA) {
       mbar_wait(&bar[nb], static_cast<unsigned>((ch >> 1) & 1));
     } else {
       load_chunk<HD>(cur, a, base, t0, n);
@@ -314,16 +349,17 @@ wkv6_keysplit_kernel(const __grid_constant__ Args a) {
         part = fmaf(r4.w * u4[q].w, k4.w, part);
       }
 #pragma unroll
-      for (int off = P / 2; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+      for (int off = P / 2; off > 0; off >>= 1) part += __shfl_xor_sync(K::MASK, part, off);
       if (pp == 0 && pc < n) bonus[nb * C + pc] = part;
     }
     // the bonuses are visible, and every thread is done with chunk ch - 1,
     // so the other buffer may be refilled
     __syncthreads();
-    if (TMA && tid == 0 && ch + 1 < n_chunks) {
-      tma_chunk<HD>(smem + (nb ^ 1) * K::BUF, a, static_cast<int>(t0 + C), h, b, &bar[nb ^ 1]);
+    if constexpr (TMA) {
+      if (tid == 0 && ch + 1 < n_chunks)
+        tma_chunk<HD>(smem + (nb ^ 1) * K::BUF, a, static_cast<int>(t0 + C), h, b, &bar[nb ^ 1]);
     }
-    float* yt = yb + t0 * a.out.t;
+    In* yt = yb + t0 * a.out.t;
     int c = 0;
 #pragma unroll 1
     for (; c + SB <= n; c += SB)
@@ -342,31 +378,65 @@ wkv6_keysplit_kernel(const __grid_constant__ Args a) {
 }
 
 template <int HD>
-bool maps(Args& a, long long B) {
+bool maps(Args<float>& a, long long B) {
   for (int x = 0; x < 4; ++x) {
     if (rows_map(&a.map[x], a.src[x], B, a.H, a.T, HD, a.in, Cfg<HD>::C) != 1) return false;
   }
   return true;
 }
 
-template <int HD, bool TMA>
-cudaError_t launch_one(const Args& a, long long B, cudaStream_t stream) {
+template <int HD, bool TMA, class In>
+cudaError_t launch_one(const Args<In>& a, long long B, cudaStream_t stream) {
   using K = Cfg<HD>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      wkv6_keysplit_kernel<HD, TMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wkv6_keysplit_kernel<HD, TMA, In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(K::SMEM));
   if (attr != cudaSuccess) return attr;
   const dim3 grid(static_cast<unsigned>(a.H), static_cast<unsigned>(B));
-  wkv6_keysplit_kernel<HD, TMA><<<grid, K::NT, K::SMEM, stream>>>(a);
+  wkv6_keysplit_kernel<HD, TMA, In><<<grid, K::NT, K::SMEM, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t launch(Args& a, long long B, cudaStream_t stream) {
+template <int HD, class In>
+cudaError_t launch(Args<In>& a, long long B, cudaStream_t stream) {
   // the grid's limits, and TMA's 32-bit coordinates
   if (a.H > INT_MAX || B > 65535 || a.T > (1LL << 30)) return cudaErrorInvalidValue;
-  return maps<HD>(a, B) ? launch_one<HD, true>(a, B, stream)
-                        : launch_one<HD, false>(a, B, stream);
+  if constexpr (std::is_same<In, float>::value) {
+    if (maps<HD>(a, B)) return launch_one<HD, true>(a, B, stream);
+  }
+  return launch_one<HD, false>(a, B, stream);
+}
+
+template <class In>
+int wkv6(const In* r, const In* k, const In* v, const In* w, const In* u, const float* s0,
+         In* y, float* s_out, long long B, long long H, long long T, long long hd,
+         long long in_sb, long long in_sh, long long in_st, long long y_sb, long long y_sh,
+         long long y_st, cudaStream_t stream) {
+  Args<In> a = {};
+  a.src[0] = r;
+  a.src[1] = k;
+  a.src[2] = w;
+  a.src[3] = v;
+  a.u = u;
+  a.s0 = s0;
+  a.y = y;
+  a.s_out = s_out;
+  a.H = H;
+  a.T = T;
+  a.in = Strides{in_sb, in_sh, in_st};
+  a.out = Strides{y_sb, y_sh, y_st};
+  switch (hd) {
+    case 8:
+      return launch<8>(a, B, stream);
+    case 16:
+      return launch<16>(a, B, stream);
+    case 32:
+      return launch<32>(a, B, stream);
+    case 64:
+      return launch<64>(a, B, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -382,27 +452,20 @@ extern "C" int wkv6_f32(const float* r, const float* k, const float* v, const fl
                         long long in_sb, long long in_sh, long long in_st,
                         long long y_sb, long long y_sh, long long y_st,
                         cudaStream_t stream) {
-  Args a = {};
-  a.src[0] = r;
-  a.src[1] = k;
-  a.src[2] = w;
-  a.src[3] = v;
-  a.u = u;
-  a.s0 = s0;
-  a.y = y;
-  a.s_out = s_out;
-  a.H = H;
-  a.T = T;
-  a.in = Strides{in_sb, in_sh, in_st};
-  a.out = Strides{y_sb, y_sh, y_st};
-  switch (hd) {
-    case 16:
-      return launch<16>(a, B, stream);
-    case 64:
-      return launch<64>(a, B, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return wkv6(r, k, v, w, u, s0, y, s_out, B, H, T, hd, in_sb, in_sh, in_st, y_sb, y_sh, y_st,
+              stream);
+}
+
+// The same with bfloat16 r, k, v, w, u and y (s0 and s_out float32).
+extern "C" int wkv6_bf16(const __nv_bfloat16* r, const __nv_bfloat16* k,
+                         const __nv_bfloat16* v, const __nv_bfloat16* w,
+                         const __nv_bfloat16* u, const float* s0, __nv_bfloat16* y,
+                         float* s_out, long long B, long long H, long long T, long long hd,
+                         long long in_sb, long long in_sh, long long in_st,
+                         long long y_sb, long long y_sh, long long y_st,
+                         cudaStream_t stream) {
+  return wkv6(r, k, v, w, u, s0, y, s_out, B, H, T, hd, in_sb, in_sh, in_st, y_sb, y_sh, y_st,
+              stream);
 }
 
 // 1 when a (B, H, T, hd) view with these strides (in elements) is staged by

@@ -12,13 +12,16 @@ state's cotangent and returns the initial state's.
 r, k, v and w are (B, H, T, hd) views sharing one set of batch, head and
 time strides (head dims contiguous), so the model passes its (B, T, D)
 projections without a transposed copy; y and the gradients dr, dk, dv, dw
-have r's memory layout.  The wrappers raise on what the kernels do not take
-— a dtype other than float32, a head dim other than 16 or 64 — and never
-run the plain version themselves.  They record nothing for autograd, so
+have r's memory layout.  The forward takes r, k, v, w and u in float32 or
+bfloat16 (one dtype for all five; bfloat16 is widened as it is read, y is
+written in it, as the TPU kernel does) at head dims 8, 16, 32 and 64; the
+backward takes float32 at head dims 16 and 64 (``ops.WKV6`` widens saved
+bfloat16 inputs for it).  s0, ds and the states are float32.  The wrappers
+raise on anything else and never run the plain version themselves.  They record nothing for autograd, so
 they refuse an input that requires grad while autograd records:
 ``ops.WKV6`` is the differentiable entry (its forward and backward run with
 grad mode off).
-Both stage their chunks of r, k, w and v (and the backward's dy) by TMA
+Both stage float32 chunks of r, k, w and v (and the backward's dy) by TMA
 where every row is 16-byte aligned (:func:`rows_by_tma`; the model's views
 are), by plain loads otherwise; the backward raises where the CUDA
 driver refuses the map of aligned rows.
@@ -34,30 +37,37 @@ from repro_torch.kernels import _build
 
 SOURCE = "rwkv6_scan/csrc/wkv6.cu"
 BWD_SOURCE = "rwkv6_scan/csrc/wkv6_bwd.cu"
-HEAD_DIMS = (16, 64)
+HEAD_DIMS = (8, 16, 32, 64)
+BWD_HEAD_DIMS = (16, 64)
+DTYPES = (torch.float32, torch.bfloat16)
 # the backward's shape per head dim, as csrc/wkv6_bwd.cu compiles it
 # (Shape<hd>; ``bwd_shape`` reads it back): CTAs per cluster (the column
 # split), columns per thread, steps per chunk (the checkpoint stride)
 BWD_SHAPE = {16: dict(nc=1, j=2, c=16), 64: dict(nc=2, j=4, c=8)}
 _P, _LL = ctypes.c_void_p, ctypes.c_longlong
 _ARGTYPES = (_P,) * 8 + (_LL,) * 4 + (_LL,) * 6 + (_P,)
+_SYMBOL = {torch.float32: "wkv6_f32", torch.bfloat16: "wkv6_bf16"}
 _BWD_ARGTYPES = (_P,) * 16 + (_LL,) * 4 + (_LL,) * 9 + (_P,)
 
 
 def rows_by_tma(x: torch.Tensor) -> bool:
     """True where the kernel stages this (B, H, T, hd) CUDA view by TMA (its
     rows on 16 bytes and the driver takes the map), False where by plain
-    loads (csrc/wkv6.cu, ``rows_map``).  Builds the kernels."""
+    loads (csrc/wkv6.cu, ``rows_map``; bfloat16 always).  Builds the kernels."""
+    if x.dtype != torch.float32:
+        return False
     fn = _build.entry(SOURCE, "wkv6_rows_tma", (_P,) + (_LL,) * 7)
     b, h, t, hd = x.shape
     return bool(fn(x.data_ptr(), b, h, t, hd, *x.stride()[:3]))
 
 
-def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
+def _check(name: str, t: torch.Tensor, device: torch.device,
+           dtypes: tuple = (torch.float32,)) -> None:
     if t.device != device:
         raise ValueError(f"{name} must be on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"the WKV6 kernels take float32, got {name} {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: this WKV6 kernel takes {', '.join(map(str, dtypes))}, "
+                        f"got {t.dtype}")
     if torch.is_grad_enabled() and t.requires_grad:
         raise ValueError("the WKV6 kernels build no autograd graph: call ops.wkv6 "
                          "(ops.WKV6's backward is B.7's backward kernel) or run under "
@@ -72,22 +82,29 @@ def _check_state(name: str, s, b, h, hd, device) -> None:
                              f"{tuple(s.shape)}")
 
 
-def _check_scan(fn: str, r, k, v, w, u, s0) -> tuple[int, int, int, int]:
-    """Validate the forward's inputs; returns (B, H, T, hd)."""
+def check_head_dim(fn: str, hd: int, dims: tuple) -> None:
+    if hd not in dims:
+        raise ValueError(f"{fn} is built for head dims {dims}, got {hd}")
+
+
+def _check_scan(fn: str, r, k, v, w, u, s0, dims=HEAD_DIMS, dtypes=DTYPES
+                ) -> tuple[int, int, int, int]:
+    """Validate the inputs of a kernel built for head dims ``dims`` and
+    input dtypes ``dtypes``; returns (B, H, T, hd)."""
     if r.device.type != "cuda":
         raise ValueError(f"{fn} needs CUDA tensors, got r on {r.device}")
     dev = r.device
     b, h, t, hd = r.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{fn} is built for head dims {HEAD_DIMS}, got {hd}")
+    check_head_dim(fn, hd, dims)
+    _check("r", r, dev, dtypes)
     for name, x in (("r", r), ("k", k), ("v", v), ("w", w)):
-        _check(name, x, dev)
+        _check(name, x, dev, (r.dtype,))
         if x.shape != r.shape or x.stride() != r.stride():
             raise ValueError(f"{name} must have r's shape {tuple(r.shape)} and strides "
                              f"{r.stride()}, got {tuple(x.shape)} and {x.stride()}")
     if r.stride(3) != 1:
         raise ValueError(f"r, k, v, w need contiguous head dims, got strides {r.stride()}")
-    _check("u", u, dev)
+    _check("u", u, dev, (r.dtype,))
     if u.shape != (h, hd) or not u.is_contiguous():
         raise ValueError(f"u must be a contiguous {(h, hd)}, got {tuple(u.shape)}")
     _check_state("s0", s0, b, h, hd, dev)
@@ -97,9 +114,9 @@ def _check_scan(fn: str, r, k, v, w, u, s0) -> tuple[int, int, int, int]:
 def wkv6_scan(r, k, v, w, u, s0=None):
     """r, k, v, w: (B, H, T, hd); u: (H, hd); s0: (B, H, hd, hd) or None (zero).
 
-    Returns (y (B, H, T, hd), final state (B, H, hd, hd)), float32 on the
-    card.  Launches the B.7 kernel on the current stream and adds one to
-    ``wkv6_scan.launches``.
+    Returns (y (B, H, T, hd) in r's dtype, final state (B, H, hd, hd)
+    float32) on the card.  Launches the B.7 kernel on the current stream and
+    adds one to ``wkv6_scan.launches``.
     """
     b, h, t, hd = _check_scan("wkv6_scan", r, k, v, w, u, s0)
     dev = r.device
@@ -107,8 +124,8 @@ def wkv6_scan(r, k, v, w, u, s0=None):
     state = torch.empty((b, h, hd, hd), dtype=torch.float32, device=dev)
     if t == 0 or b * h == 0:
         return y, state.copy_(s0) if s0 is not None else state.zero_()
-    fn = _build.entry(SOURCE, "wkv6_f32", _ARGTYPES)
-    _build.launch(fn, "wkv6_f32", dev, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+    fn = _build.entry(SOURCE, _SYMBOL[r.dtype], _ARGTYPES)
+    _build.launch(fn, _SYMBOL[r.dtype], dev, r.data_ptr(), k.data_ptr(), v.data_ptr(),
                   w.data_ptr(), u.data_ptr(), _ptr(s0), y.data_ptr(), state.data_ptr(), b, h,
                   t, hd, *r.stride()[:3], *y.stride()[:3])
     wkv6_scan.launches += 1
@@ -131,7 +148,7 @@ def wkv6_bwd(r, k, v, w, u, dy, s0=None, ds=None):
     the start of every ``chunk(hd)`` steps but the first, B H (ceil(T /
     chunk) - 1) hd^2 floats; du's sums per batch.
     """
-    b, h, t, hd = _check_scan("wkv6_bwd", r, k, v, w, u, s0)
+    b, h, t, hd = _check_scan("wkv6_bwd", r, k, v, w, u, s0, BWD_HEAD_DIMS, (torch.float32,))
     dev = r.device
     _check("dy", dy, dev)
     if dy.shape != r.shape or dy.stride(3) != 1:

@@ -15,15 +15,23 @@ from torch.autograd.function import once_differentiable
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6_scan import kernel as _k
 from repro_torch.kernels.rwkv6_scan import ref as _r
+from repro_torch.kernels.rwkv6_scan.kernel import BWD_HEAD_DIMS, check_head_dim
+
+
+def _f32(x):
+    return None if x is None else x.float()
 
 
 class WKV6(torch.autograd.Function):
     """B.7 with its backward kernel, for CUDA tensors.  An output autograd
     does not reach (the final state, in training) has no cotangent: the
-    kernel takes it as zero."""
+    kernel takes it as zero.  The backward kernel takes float32: saved
+    bfloat16 inputs are widened for it, and each gradient comes back in its
+    input's dtype."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, s0):
+        check_head_dim("wkv6's backward", r.shape[-1], BWD_HEAD_DIMS)
         y, state = _k.wkv6_scan(r, k, v, w, u, s0)
         ctx.save_for_backward(r, k, v, w, u, s0)
         ctx.set_materialize_grads(False)
@@ -34,12 +42,14 @@ class WKV6(torch.autograd.Function):
     def backward(ctx, dy, ds):
         r, k, v, w, u, s0 = ctx.saved_tensors
         if dy is None:
-            dy = torch.zeros_like(r)
-        elif dy.stride(-1) != 1:
-            dy = dy.contiguous()
+            dy = torch.zeros_like(r, dtype=torch.float32)
+        elif dy.stride(-1) != 1 or dy.dtype != torch.float32:
+            dy = dy.float().contiguous()
         if ds is not None:
-            ds = ds.contiguous()
-        return _k.wkv6_bwd(r, k, v, w, u, dy, s0, ds)
+            ds = ds.float().contiguous()
+        ins = (r, k, v, w, u, s0)
+        grads = _k.wkv6_bwd(*map(_f32, ins[:5]), dy, _f32(s0), ds)
+        return tuple(None if g is None else g.to(x.dtype) for g, x in zip(grads, ins))
 
 
 def wkv6(r, k, v, w, u, s0=None):

@@ -7,7 +7,10 @@ buckets a tensor into a fixed ``bins``-bin grid with one ``searchsorted``
 and one ``scatter_add`` over the valid mask: no data-dependent shapes and no
 host synchronisation (``torch.bincount`` sizes its output from the data's
 maximum on the card, which waits for it), and the counts only *read* values
-the step computes.
+the step computes.  The train step's tap does not count on the device: it
+packs the :func:`transform`-ed values, and the sink buckets them when it
+drains with :func:`bucket_counts`, which gives ``hist_counts``'s counts for
+the same float32 values (the comparisons are exact in both).
 
 Bin conventions (the reference's, which are ``np.histogram``'s):
 
@@ -23,6 +26,7 @@ Bin conventions (the reference's, which are ``np.histogram``'s):
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -73,6 +77,24 @@ def _edges_np(spec: HistSpec) -> np.ndarray:
     left = lo * (f32(1) - i * r)
     inner = (i.astype(np.float64) * np.float64(hi * r) + left.astype(np.float64)).astype(f32)
     return np.concatenate([inner, [hi]]).astype(f32)
+
+
+@functools.cache
+def _edges_cached(spec: HistSpec) -> np.ndarray:
+    return _edges_np(spec)
+
+
+def bucket_counts(x: np.ndarray, spec: HistSpec) -> list[int]:
+    """:func:`hist_counts` on the host: the counts of float32 values that
+    are already :func:`transform`-ed, with the same rules (``side="right"``
+    search, ``x == hi`` into the last bin, out-of-range and NaN values
+    dropped)."""
+    e = _edges_cached(spec)
+    x = np.asarray(x, dtype=np.float32)
+    idx = np.searchsorted(e, x, side="right") - 1
+    idx = np.where(x == e[-1], spec.bins - 1, idx).clip(0, spec.bins - 1)
+    valid = (x >= e[0]) & (x <= e[-1])
+    return np.bincount(idx[valid], minlength=spec.bins).tolist()
 
 
 def edges(spec: HistSpec, device="cpu") -> torch.Tensor:

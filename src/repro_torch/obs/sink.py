@@ -5,18 +5,26 @@ training run.  Three ways in:
 
 * :meth:`MetricsSink.tap_pack` / :meth:`MetricsSink.tap_drain` — the
   batched tap ``build_train_step`` stages when the trainer is built with
-  ``obs=sink``.  ``tap_pack`` packs the step's record into ONE flat float32
-  payload on the device (a concatenation of the metrics the step already
-  computed: no synchronisation); ``trainer.step``/``trainer.run`` pop it
-  from the metrics with ``tap_drain`` and queue it, so the metrics callers
-  see are the same with the sink on or off.  The queued payloads reach the
-  host in ONE device-to-host copy when the stream is next read
+  ``obs=sink``.  ``tap_pack`` wraps the step's record (the metrics the step
+  already computed, as device tensors: no synchronisation);
+  ``trainer.step``/``trainer.run`` pop it from the metrics with
+  ``tap_drain`` and queue it, so the metrics callers see are the same with
+  the sink on or off.  The queued records reach the host as ONE flat
+  float32 payload in ONE device-to-host copy when the stream is next read
   (:meth:`barrier`, which :meth:`records`, :meth:`last`, :meth:`log`,
   :meth:`flush` and :meth:`close` call), one record per step in step
   order.  Vector fields (per-node losses, DR weights, histogram counts) are
   *decimated*: the step packs them only where :meth:`wants_vectors` says so,
   every :attr:`vector_every`-th step, decided from the host's own step
-  index.
+  index.  An ordinary step launches nothing: the layout of a record (its
+  fields' names, shapes and kinds) is worked out once per shape of record
+  and cached, and the tap keeps the step's 0-d metrics as they are (fresh
+  tensors that nothing updates in place) until the drain stacks every
+  queued record's in one ``torch.stack``.  Histograms are bucketed when the
+  sink drains, on the host, from the values the step handed over
+  (``hists``; a ``log10`` grid's transform is computed in the step with the
+  ops :func:`~repro_torch.obs.hist.hist_counts` uses, so the bins are
+  those the on-device count gives).
 
 * :meth:`MetricsSink.tap` — the live variant: the same pack, drained at
   once (one synchronisation per call), for loops that must see each step's
@@ -44,6 +52,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.obs.hist import bucket_counts, transform
 from repro_torch.obs.schema import SCHEMA_VERSION, validate_record
 
 
@@ -62,14 +71,30 @@ def _to_py(v) -> Any:
     return [cast(x) for x in arr.reshape(-1)]
 
 
+class _Layout(NamedTuple):
+    """How one shape of record queues and decodes: which fields are 0-d
+    tensors, which are other tensors and which host values, and the
+    record's fields in name order, each with where its value lands."""
+
+    scalars: tuple              # indices of the 0-d tensor fields
+    vectors: tuple              # indices of the other tensor fields
+    host: tuple                 # indices of the host fields
+    n_vec: int                  # floats of the vectors and histogram inputs
+    fields: tuple               # sorted ((name, where, offset, size, is_int,
+                                # HistSpec or None), ...); where: 0 the
+                                # scalars, 1 the vectors, 2 the host values
+
+
 class _Tap(NamedTuple):
-    """One step's packed record: the device payload, its layout, and the
+    """One step's record as queued: its 0-d tensors and its other tensors
+    (vectors, histogram inputs) on the step's device, its layout, and the
     fields that were host values already."""
 
     kind: str
     step: int
-    payload: torch.Tensor       # flat float32 on the step's device
-    layout: tuple               # ((name, size, is_int), ...)
+    scalars: list               # 0-d tensors, stacked at the drain
+    vectors: list               # the other tensors, flattened at the drain
+    layout: _Layout
     host: dict
 
 
@@ -94,6 +119,7 @@ class MetricsSink:
             raise ValueError("vector_every must be >= 1")
         self._ring: collections.deque = collections.deque(maxlen=ring)
         self._pending: list[_Tap] = []
+        self._layouts: dict = {}
         self.vector_every = int(vector_every)
         self.path = None
         self._file = None
@@ -108,28 +134,61 @@ class MetricsSink:
         """Whether step ``step``'s record carries the vector payload."""
         return step % self.vector_every == 0
 
-    @staticmethod
-    def _pack(kind: str, step: int, fields: dict) -> _Tap:
-        """Device tensors → one flat float32 payload (ints round-trip exactly
-        below 2**24: bin counts); host numbers ride beside it."""
-        parts, layout, host, device = [], [], {}, None
-        for k in sorted(fields):
-            v = fields[k]
-            if not isinstance(v, torch.Tensor):
-                host[k] = v
-                continue
-            device = v.device
-            layout.append((k, v.numel(), not (v.is_floating_point() or v.is_complex())))
-            parts.append(v.detach().reshape(-1).float())
-        payload = torch.cat(parts) if parts else torch.zeros(0, device=device)
-        return _Tap(kind, int(step), payload, tuple(layout), host)
+    def _layout(self, names: tuple, vals: list, hists: tuple) -> _Layout:
+        """The layout of a record with these fields (cached by their names,
+        tensor shapes and the histogram specs)."""
+        shapes = tuple(v.shape if isinstance(v, torch.Tensor) else None for v in vals)
+        key = (names, shapes, hists)
+        lay = self._layouts.get(key)
+        if lay is None:
+            def is_int(i):
+                return not (vals[i].is_floating_point() or vals[i].is_complex())
+
+            scalars = tuple(i for i, sh in enumerate(shapes) if sh is not None and len(sh) == 0)
+            vectors = tuple(i for i, sh in enumerate(shapes) if sh is not None and len(sh))
+            host = tuple(i for i, sh in enumerate(shapes) if sh is None)
+            fields = [(names[i], 0, j, 1, is_int(i), None) for j, i in enumerate(scalars)]
+            fields += [(names[i], 2, 0, 0, False, None) for i in host]
+            off = 0
+            for name, n, integral, spec in ([(names[i], vals[i].numel(), is_int(i), None)
+                                             for i in vectors]
+                                            + [(spec.field, n, False, spec) for spec, n in hists]):
+                fields.append((name, 1, off, n, integral, spec))
+                off += n
+            lay = _Layout(scalars, vectors, host, off, tuple(sorted(fields)))
+            self._layouts[key] = lay
+        return lay
+
+    def _pack(self, kind: str, step: int, fields: dict, hists: dict | None = None) -> _Tap:
+        """Queue a record's device tensors as they are, to be moved to the
+        host as one flat float32 payload at the drain (ints round-trip
+        exactly below 2**24: bin counts); host numbers ride beside it.
+        ``hists`` maps a :class:`~repro_torch.obs.hist.HistSpec` to the
+        tensor it buckets: its transformed values are queued and bucketed
+        at the drain."""
+        names, vals = tuple(fields), list(fields.values())
+        hist_vals = []
+        if hists:
+            with torch.no_grad():
+                hist_vals = [transform(spec, x) for spec, x in hists.items()]
+        lay = self._layout(names, vals, tuple((spec, x.numel()) for spec, x in
+                                              zip(hists or {}, hist_vals)))
+        return _Tap(kind, int(step), [vals[i] for i in lay.scalars],
+                    [vals[i] for i in lay.vectors] + hist_vals, lay,
+                    {names[i]: vals[i] for i in lay.host})
 
     def tap_pack(self, step: int, fields: dict, kind: str = "train", *,
-                 vectors: dict | None = None) -> dict:
-        """Pack this step's record for the stream: ``{"_tap": <packed>}``
-        for the train step to merge into the metrics it returns.  Pass
-        ``vectors`` only where :meth:`wants_vectors` holds."""
-        return {"_tap": self._pack(kind, step, {**fields, **(vectors or {})})}
+                 vectors: dict | None = None, hists: dict | None = None) -> dict:
+        """This step's record for the stream: ``{"_tap": <record>}`` for the
+        train step to merge into the metrics it returns.  The record keeps
+        the tensors it is given until the drain reads them: they must not
+        be updated in place meanwhile (the step's metrics are fresh
+        tensors).  Pass ``vectors`` and ``hists`` (HistSpec → the tensor it
+        buckets, whose counts land as ``spec.field``) only where
+        :meth:`wants_vectors` holds."""
+        if vectors:
+            fields = {**fields, **vectors}
+        return {"_tap": self._pack(kind, step, fields, hists)}
 
     def tap_drain(self, metrics: dict) -> dict:
         """Pop the ``_tap`` entry :meth:`tap_pack` added and queue it; returns
@@ -178,22 +237,43 @@ class MetricsSink:
     # -- reading back -----------------------------------------------------------
 
     def barrier(self) -> None:
-        """Move every queued tap to the host in one device-to-host copy and
-        push its records in step order (nothing to do, no synchronisation,
-        when none is queued)."""
+        """Move every queued tap to the host in one device-to-host copy (one
+        ``torch.stack`` of their 0-d tensors and one ``cat`` with the rest)
+        and push its records in step order (nothing to do, no
+        synchronisation, when none is queued)."""
         if not self._pending:
             return
         pending, self._pending = self._pending, []
-        flat = torch.cat([t.payload for t in pending]).cpu().numpy()
-        off = 0
+        with torch.no_grad():
+            scalars = [x for t in pending for x in t.scalars]
+            parts = ([torch.stack(scalars)] if scalars else []) + [
+                x.reshape(-1) for t in pending for x in t.vectors]
+            flat = (torch.cat(parts).float().cpu().numpy() if parts
+                    else np.zeros(0, np.float32))
+        # the scalars, then every vector in queue order; a record's fields
+        # in name order, as _make_record over sorted fields gives them
+        scal, vecs = flat[:len(scalars)].tolist(), flat[len(scalars):]
+        soff = voff = 0
         for t in pending:
-            fields = dict(t.host)
-            for name, size, is_int in t.layout:
-                chunk = flat[off:off + size]
-                off += size
-                cast = int if is_int else float
-                fields[name] = cast(chunk[0]) if size == 1 else [cast(x) for x in chunk]
-            self._push(self._make_record(t.kind, t.step, dict(sorted(fields.items()))))
+            rec = {"v": SCHEMA_VERSION, "kind": t.kind, "step": t.step}
+            for name, where, off, size, is_int, spec in t.layout.fields:
+                if where == 0:
+                    x = scal[soff + off]
+                    rec[name] = int(x) if is_int else x
+                elif where == 2:
+                    rec[name] = t.host[name]
+                else:
+                    chunk = vecs[voff + off:voff + off + size]
+                    if spec is not None:
+                        rec[name] = bucket_counts(chunk, spec)
+                    else:
+                        vals = chunk.tolist()
+                        if is_int:
+                            vals = [int(x) for x in vals]
+                        rec[name] = vals[0] if size == 1 else vals
+            soff += len(t.scalars)
+            voff += t.layout.n_vec
+            self._push(rec)
 
     def records(self, kind: str | None = None) -> list[dict]:
         self.barrier()

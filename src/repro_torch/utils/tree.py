@@ -49,8 +49,39 @@ def leaf_names(tree: dict) -> list[str]:
     return sorted(tree)
 
 
+def tree_size(tree: dict) -> int:
+    """Total number of elements across all leaves."""
+    return sum(x.numel() for x in tree.values())
+
+
 def tree_bytes(tree: dict) -> int:
     return sum(x.numel() * x.element_size() for x in tree.values())
+
+
+def tree_global_norm(tree: dict) -> torch.Tensor:
+    """sqrt(Σ_leaves Σ x²), each leaf squared and summed in float32."""
+    total = sum(tree[n].float().square().sum() for n in leaf_names(tree))
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def tree_stack_nodes(trees: list) -> dict:
+    """Stack a list of identical parameter dicts along a new leading node axis."""
+    return {n: torch.stack([t[n] for t in trees]) for n in trees[0]}
+
+
+def tree_unstack_nodes(tree: dict, k: int) -> list:
+    """Inverse of :func:`tree_stack_nodes`."""
+    return [{n: x[i] for n, x in tree.items()} for i in range(k)]
+
+
+def tree_node_mean(tree: dict) -> dict:
+    """Average over the leading node axis of every leaf."""
+    return {n: x.mean(0) for n, x in tree.items()}
+
+
+def tree_cast(tree: dict, dtype: torch.dtype) -> dict:
+    """Floating leaves cast to ``dtype``; other leaves as they are."""
+    return {n: x.to(dtype) if x.is_floating_point() else x for n, x in tree.items()}
 
 
 def tree_node_disagreement(tree: dict) -> torch.Tensor:

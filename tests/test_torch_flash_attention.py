@@ -270,3 +270,56 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
     want = torch.tensor([one, one + ulp, one + ulp, -(one + ulp), one + ulp, 0.0])
     torch.testing.assert_close(got[:5], want[:5], rtol=0, atol=0)
     assert abs(float(got[5]) - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
+
+
+# -- bfloat16 inputs and head dim 8 (the reference kernel's test domain) ---------
+
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # tests/test_kernel_flash_attention.py::test_bf16_inputs
+
+# b, h, kvh, s, t, hd, causal, window, softcap; the reference's bf16 case
+# first, then the card's bf16 cases at hd 8, 16 and 32 (tests/test_torch_kernel.py)
+BF16_CASES = [
+    (1, 2, 2, 64, 64, 32, True, None, None),
+    (1, 2, 1, 32, 32, 8, True, None, None),
+    (2, 4, 2, 64, 64, 16, True, 8, None),
+    (2, 4, 2, 64, 64, 16, True, 16, 20.0),
+    (1, 4, 4, 128, 128, 32, True, None, 20.0),
+]
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    """x rounded to bfloat16 (to nearest even) and widened back, as numpy."""
+    return torch.from_numpy(x).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_bf16_entry_point_and_kernel_arithmetic_match_reference(case):
+    """bfloat16 q, k, v: the port's entry point on the CPU (the plain
+    version) and the card kernel's arithmetic (the inputs widened, 3xTF32
+    products, the output rounded to bfloat16) against the reference's
+    Pallas kernel in interpret mode on the same bfloat16 inputs, at the
+    reference's 2e-2; every output is bfloat16."""
+    b, h, kvh, s, t, hd, causal, window, softcap = case
+    q, k, v = (_bf16(x) for x in _inputs(sum(case[:6]), b, h, kvh, s, t, hd))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    want = flash_attention_fwd(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                               block_q=32, block_k=32, interpret=True, **kw)
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want, np.float32)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, **kw)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+    out, _ = _emulated_fwd(tq.float(), tk.float(), tv.float(), _mm3, causal, window, softcap)
+    np.testing.assert_allclose(out.bfloat16().float().numpy(), want, **BF16_TOL)
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (8, 20.0)])
+def test_head_dim_8_kernel_arithmetic_matches_reference(window, softcap):
+    """hd 8, one k-step of m16n8k8: the card kernel's 3xTF32 arithmetic
+    against the reference's oracle and Pallas kernel at 2e-5."""
+    q, k, v = _inputs(8, 1, 2, 1, 32, 32, 8)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    out, _ = _emulated_fwd(*(torch.from_numpy(x) for x in (q, k, v)), _mm3, **kw)
+    for want in _both_refs(q, k, v, 16, 16, **kw):
+        np.testing.assert_allclose(out.numpy(), want, **TOL)

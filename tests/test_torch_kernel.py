@@ -490,26 +490,57 @@ def test_wkv6_takes_rows_off_16_byte_boundaries(cuda, hd):
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * float(want.abs().max()))
 
 
+def _bf16_close(got, want, atol):
+    """Within one bfloat16 ulp of the larger magnitude plus ``atol`` (the
+    float32 tolerance of the sums before the one rounding to bfloat16)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.float(), want.float()
+    m = torch.maximum(g.abs(), w.abs())
+    ulp = torch.where(m > 0, torch.exp2(torch.floor(torch.log2(m.clamp_min(1e-38))) - 7), 0)
+    assert bool(((g - w).abs() <= ulp + atol).all()), float((g - w).abs().max())
+
+
 @pytest.mark.parametrize("bad", ["bf16", "hd", "grad"])
 def test_serving_kernels_reject_what_they_do_not_take(cuda, bad):
-    """B.6's and B.7's wrappers refuse an input that requires grad while
-    autograd records (``ops.FlashAttention`` and ``ops.WKV6`` are the
-    differentiable entries); with grad mode off B.7's computes on it and
-    records nothing."""
+    """``bf16``: B.6's and B.7's forwards compute on bfloat16 inputs and
+    match their plain versions (within one bfloat16 ulp plus the float32
+    tolerance), while B.7's backward and a mix of dtypes still raise.
+    ``hd``: a head dim that neither is built for (24) raises.  ``grad``:
+    both wrappers refuse an input that requires grad while autograd records
+    (``ops.FlashAttention`` and ``ops.WKV6`` are the differentiable
+    entries); with grad mode off B.7's computes on it and records
+    nothing."""
     q, k, v = _flash_inputs(1, 2, 1, 16, 16, 16, 0, cuda, False)
     r, kk, vv, w, u = _wkv_inputs(1, 2, 8, 16, 0, cuda)
+    dy = torch.zeros(r.shape, dtype=torch.float32, device=cuda)
     if bad == "bf16":
-        q, r = q.bfloat16(), r.bfloat16()
-    elif bad == "hd":
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        r, kk, vv, w, u = (x.bfloat16() for x in (r, kk, vv, w, u))
+        out = fk.flash_attention_fwd(q, k, v)
+        y, s = wk.wkv6_scan(r, kk, vv, w, u)
+        torch.cuda.synchronize()
+        _bf16_close(out, attention_ref(q, k, v), SERVE_TOL["atol"])
+        y_p, s_p = wkv6_ref(r, kk, vv, w, u)
+        _bf16_close(y, y_p, 2e-5 * float(y_p.float().abs().max()))
+        assert s.dtype == torch.float32
+        torch.testing.assert_close(s, s_p, rtol=2e-5, atol=2e-5 * float(s_p.abs().max()))
+        with pytest.raises(TypeError):
+            wk.wkv6_bwd(r, kk, vv, w, u, dy)
+        with pytest.raises(TypeError):
+            fk.flash_attention_fwd(q, k.float(), v)
+        with pytest.raises(TypeError):
+            wk.wkv6_scan(r, kk.float(), vv, w, u)
+        return
+    if bad == "hd":
         q, k, v = _flash_inputs(1, 2, 1, 16, 16, 24, 0, cuda, False)
-        r, kk, vv, w, u = (x[..., :8] for x in (r, kk, vv, w, u))
+        r, kk, vv, w, u = _wkv_inputs(1, 2, 8, 24, 0, cuda)
+        dy = torch.zeros(r.shape, dtype=torch.float32, device=cuda)
     else:
         q, r = q.requires_grad_(), r.requires_grad_()
     with pytest.raises((TypeError, ValueError)):
         fk.flash_attention_fwd(q, k, v)
     with pytest.raises((TypeError, ValueError)):
         wk.wkv6_scan(r, kk, vv, w, u.contiguous())
-    dy = torch.zeros(r.shape, dtype=torch.float32, device=cuda)
     with pytest.raises((TypeError, ValueError)):
         wk.wkv6_bwd(r, kk, vv, w, u.contiguous(), dy)
     if bad == "grad":
@@ -518,6 +549,92 @@ def test_serving_kernels_reject_what_they_do_not_take(cuda, bad):
             grads = wk.wkv6_bwd(r, kk, vv, w, u.contiguous(), dy)
         assert not (y.requires_grad or s.requires_grad)
         assert not any(g.requires_grad for g in grads[:5]) and grads[5] is None
+
+
+# the reference kernels' test domain: B.6 at hd 8 (b, h, kvh, s, t) and B.7
+# at hd 8 and 32 (b, h, t), in float32 and bfloat16
+NEW_HD_FLASH = [(1, 2, 1, 32, 32), (2, 4, 2, 64, 64), (1, 7, 1, 65, 129)]
+NEW_HD_WKV = [(2, 1, 16), (2, 8, 33), (4, 64, 64), (1, 3, 67)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", NEW_HD_FLASH)
+@pytest.mark.parametrize("mask", [(True, None, None), (True, 8, 20.0), (False, None, None)])
+def test_flash_attention_head_dim_8_equals_plain(cuda, dtype, shape, mask):
+    """B.6 at hd 8 (one k-step of m16n8k8), float32 at SERVE_TOL and
+    bfloat16 within one bfloat16 ulp plus that tolerance, on the model's
+    strided views."""
+    b, h, kvh, s, t = shape
+    causal, window, softcap = mask
+    q, k, v = (x.to(dtype) for x in _flash_inputs(b, h, kvh, s, t, 8, s + t, cuda, True))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out = fk.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, **kw)
+    assert out.dtype == dtype and out.stride() == q.stride()
+    if dtype == torch.bfloat16:
+        _bf16_close(out, want, SERVE_TOL["atol"])
+    else:
+        torch.testing.assert_close(out, want, **SERVE_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [8, 32])
+@pytest.mark.parametrize("shape", NEW_HD_WKV)
+def test_wkv6_new_head_dims_equal_plain(cuda, dtype, hd, shape):
+    """B.7 at hd 8 (16 threads) and 32 (64 threads), from zero and from a
+    given state: y in float32 at rtol 2e-5 and atol 2e-5 max |y|, in
+    bfloat16 within one bfloat16 ulp plus that atol; the final state
+    float32 at the float32 tolerance."""
+    b, h, t = shape
+    r, k, v, w, u = (x.to(dtype) for x in _wkv_inputs(b, h, t, hd, b + h + t, cuda))
+    for s0 in (None, torch.randn((b, h, hd, hd), device=cuda)):
+        y, s = wk.wkv6_scan(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        y_p, s_p = wkv6_ref(r, k, v, w, u, s0)
+        atol = 2e-5 * float(y_p.float().abs().max())
+        if dtype == torch.bfloat16:
+            _bf16_close(y, y_p, atol)
+        else:
+            torch.testing.assert_close(y, y_p, rtol=2e-5, atol=atol)
+        torch.testing.assert_close(s, s_p, rtol=2e-5, atol=2e-5 * float(s_p.abs().max()))
+
+
+def test_bf16_inputs_train_through_the_float32_backwards(cuda):
+    """``ops.flash_attention`` and ``ops.wkv6`` on bfloat16 inputs that
+    require grad: one forward (bfloat16) and one backward (float32) launch
+    each, gradients in bfloat16 within 2e-2 (the reference's bfloat16
+    tolerance) of each one's largest value against autograd of the plain
+    versions on the same inputs widened to float32.  A head dim the
+    backward is not built for raises before the forward runs."""
+    q, k, v = (x.bfloat16().requires_grad_()
+               for x in _flash_inputs(1, 4, 2, 64, 64, 16, 5, cuda, True))
+    r, kk, vv, w, u, dy, s0, ds = _wkv_bwd_case(2, 4, 33, 16, "random", True, cuda, seed=3)
+    leaves = [x.detach().bfloat16().requires_grad_() for x in (r, kk, vv, w, u)]
+    launches = (fk.flash_attention_fwd.launches, fk.flash_attention_bwd.launches,
+                wk.wkv6_scan.launches, wk.wkv6_bwd.launches)
+    out = fops.flash_attention(q, k, v, window=16)
+    y, s = wops.wkv6(*leaves, s0)
+    grads = torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    wgrads = torch.autograd.grad((y.float() * dy).sum() + (s * ds).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (fk.flash_attention_fwd.launches, fk.flash_attention_bwd.launches,
+            wk.wkv6_scan.launches, wk.wkv6_bwd.launches) == tuple(n + 1 for n in launches)
+    assert out.dtype == y.dtype == torch.bfloat16
+    ref = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*ref, window=16).square().sum(), ref)
+    wref = [x.detach().float().requires_grad_() for x in leaves]
+    y_p, s_p = wkv6_ref(*wref, s0)
+    wwant = torch.autograd.grad((y_p * dy).sum() + (s_p * ds).sum(), wref)
+    for got, ref_g in zip((*grads, *wgrads), (*want, *wwant)):
+        assert got.dtype == torch.bfloat16
+        assert _rel(got.float(), ref_g) <= 2e-2, _rel(got.float(), ref_g)
+    q8 = torch.zeros((1, 2, 4, 8), device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="backward"):
+        fops.flash_attention(q8, q8.detach(), q8.detach())
+    r8 = torch.zeros((1, 2, 4, 8), device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="backward"):
+        wops.wkv6(r8, *(r8.detach() for _ in range(3)), torch.zeros((2, 8), device=cuda))
 
 
 WKV_BWD_REL = 1e-4  # each gradient against the plain version, relative to its largest |value|

@@ -10,6 +10,11 @@ the profiler scopes) against the reference's ``repro.obs``.
   value within 2 ulps of an edge (as the MoE routing tests check for ties).
 * The sink changes no bit: the metrics and the trajectory of a run with the
   sink and the sanitizer equal those of the run without them.
+* The tap's ops, counted under a ``TorchDispatchMode`` on the CPU, stay at
+  the queued design's: none on an ordinary step; ef_res's clamp and log10
+  and three views on a vector step (the sink stacks the queued records and
+  buckets the histograms when it drains, and ``bucket_counts`` gives
+  ``hist_counts``'s counts).
 * A 20-step fmnist run (K = 8, ring, Metropolis W) streams train records
   equal to the reference's: scalars at the trainer tests' trajectory
   tolerance (rtol 1e-5, atol 1e-6), vectors on the same decimated steps,
@@ -25,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import DecentralizedTrainer as RefTrainer
 from repro.core import RobustConfig as RefRobust
@@ -35,7 +41,7 @@ from repro.obs import MetricsSink as RefSink
 from repro.obs import hist as ref_hist
 from repro.obs import schema as ref_schema
 from repro_torch import convert
-from repro_torch.core import DecentralizedTrainer, RobustConfig, TrainerSpec, run_segments
+from repro_torch.core import DecentralizedTrainer, RobustConfig, TrainerSpec, drdsgd, run_segments
 from repro_torch.data import make_fmnist_like, pathological_noniid_partition
 from repro_torch.models import paper_nets as nets
 from repro_torch.obs import (
@@ -135,6 +141,21 @@ def test_hist_counts_equal_the_reference(spec):
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), want)
     assert int(got.sum()) < x.size  # the out-of-range values are dropped
+
+
+@pytest.mark.parametrize("spec", TRAIN_HISTOGRAMS, ids=lambda s: s.source)
+def test_drain_buckets_equal_the_device_counts(spec):
+    """The sink's drain-time bucketing (``bucket_counts`` on the
+    transformed float32 values) against ``hist_counts``: every edge, one
+    float32 ulp either side of it, out of range, NaN and infinities."""
+    e = port_hist.edges(spec).numpy()
+    near = np.concatenate([e, np.nextafter(e, np.float32(-np.inf)),
+                           np.nextafter(e, np.float32(np.inf)),
+                           [e[0] - 1, e[-1] + 1, np.nan, np.inf, -np.inf]]).astype(np.float32)
+    x = np.float32(10.0) ** near if spec.log10 else near
+    want = hist_counts(torch.from_numpy(x), spec).tolist()
+    got = port_hist.bucket_counts(port_hist.transform(spec, torch.from_numpy(x)).numpy(), spec)
+    assert got == want and sum(want) > spec.bins
 
 
 def test_hist_spec_validates_its_grid():
@@ -243,6 +264,50 @@ def test_sink_and_sanitizer_change_no_bit(fmnist):
     assert [r["step"] for r in recs if "loss_nodes" in r] == list(range(0, STEPS, 4))
     for r in recs:  # each record's scalars are the step's metrics
         assert r["loss_mean"] == float(off_ms["loss_mean"][r["step"]])
+
+
+class _CountOps(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func)
+        return func(*args, **(kwargs or {}))
+
+
+def test_tap_ops_stay_within_the_queued_design(fmnist, monkeypatch):
+    """The tap's dispatched ops per step (``_tap_fields`` and the queueing):
+    none on an ordinary step (the drain stacks the queued 0-d metrics); on
+    a vector step at most 2 ops that are not views (ef_res's clamp and
+    log10) and 5 in all (the histogram inputs' reshapes).  The old tap took
+    ~23 and ~88 (a detach and a reshape per field and a cat, and ~12 ops per
+    histogram).  The records keep their fields."""
+    counts, tap_fields = [], drdsgd._tap_fields
+
+    def counted(*args, **kw):
+        with _CountOps() as mode:
+            out = tap_fields(*args, **kw)
+        counts.append(mode.ops)
+        return out
+
+    monkeypatch.setattr(drdsgd, "_tap_fields", counted)
+    sink = MetricsSink(vector_every=2)
+    trainer = DecentralizedTrainer(nets.make_classifier_loss(nets.mlp_apply), nets.mlp_apply,
+                                   num_nodes=K, graph="ring", robust=RobustConfig(mu=6.0),
+                                   lr=LR, device="cpu", obs=sink)
+    state = trainer.init(convert.params_from_numpy(fmnist["params"], device="cpu"))
+    for batch in fmnist["batches"][:4]:
+        state, _ = trainer.step(state, batch)
+    vector_steps, ordinary = counts[0::2], counts[1::2]
+    for ops in ordinary:
+        assert ops == []
+    for ops in vector_steps:
+        assert len(ops) <= 5 and len([op for op in ops if not op.is_view]) <= 2, ops
+    recs = sink.records("train")
+    assert [sorted(r) for r in recs[1::2]] == [sorted(recs[1])] * 2
+    assert {f"hist_{s.source}" for s in TRAIN_HISTOGRAMS} | {"loss_nodes", "dr_weights"} \
+        <= set(recs[0]) - set(recs[1])
 
 
 def test_train_records_match_the_reference(fmnist, tmp_path):

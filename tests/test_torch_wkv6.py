@@ -127,7 +127,7 @@ def keysplit_wkv6(r, k, v, w, u, s0=None):
     in, numpy out: (y (B, H, T, hd), final S (B, H, hd, hd))."""
     r, k, v, w, u = (torch.from_numpy(x).double() for x in (r, k, v, w, u))
     b, h, t, hd = r.shape
-    rows, cols, chunk = {16: (4, 2, 32), 64: (8, 4, 32)}[hd]
+    rows, cols, chunk = {8: (4, 1, 16), 16: (4, 2, 32), 32: (4, 4, 32), 64: (8, 4, 32)}[hd]
     ng = hd // rows
     lanes = ng * hd // cols // chunk  # bonus lanes per step
     order = torch.tensor([[4 * (g + ng * q) + e for q in range(rows // 4) for e in range(4)]
@@ -155,7 +155,7 @@ def keysplit_wkv6(r, k, v, w, u, s0=None):
     return (torch.stack(ys, dim=2).float().numpy(), s.float().numpy())
 
 
-@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
 @pytest.mark.parametrize("decay", ["random", "init", "1e-6"])
 def test_keysplit_order_matches_reference(decay, hd):
     """The kernel's summation order (key-split partial sums joined by the
@@ -189,3 +189,27 @@ def test_dispatcher_runs_the_plain_version_on_cpu_only():
     assert y.shape == xs[0].shape and s.shape == (1, 2, 16, 16)
     with pytest.raises(ValueError, match="CUDA"):
         wk.wkv6_scan(*xs)
+
+
+BF16_TOL = dict(rtol=5e-2, atol=5e-2)  # tests/test_kernel_rwkv6.py::test_bf16
+
+
+@pytest.mark.parametrize("b,h,t,hd", [(1, 2, 32, 16), (2, 1, 16, 8), (1, 4, 64, 32)])
+def test_bf16_entry_point_and_kernel_arithmetic_match_reference(b, h, t, hd):
+    """bfloat16 r, k, v, w, u: the port's entry point on the CPU (the plain
+    version) and the card kernel's arithmetic (the inputs widened, its
+    summation order, y rounded to bfloat16) against the reference's Pallas
+    kernel in interpret mode on the same bfloat16 inputs, at the
+    reference's 5e-2; y is bfloat16, the final state float32."""
+    xs = [torch.from_numpy(x).bfloat16() for x in _case(b * 100 + t + 1, b, h, t, hd)]
+    want = wkv6_scan(*(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in xs),
+                     block_t=8, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want, np.float32)
+    y, s = ops.wkv6(*xs)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    np.testing.assert_allclose(y.float().numpy(), want, **BF16_TOL)
+    y_k, s_k = keysplit_wkv6(*(x.float().numpy() for x in xs))
+    np.testing.assert_allclose(torch.from_numpy(y_k).bfloat16().float().numpy(), want,
+                               **BF16_TOL)
+    np.testing.assert_allclose(s_k, s.numpy(), **TOL)

@@ -46,7 +46,7 @@ SHAPES64 = {"a": ("R", 4), "j": ("J", 2), "d": ("J", 8), "f": ("R", 16), "e": ("
             "b": ("SB", 2), "c": ("SB", 8)}
 EDITS = {
     "2": [("#pragma unroll 1\n    for (; c + SB <= n;", "#pragma unroll 2\n    for (; c + SB <= n;")],
-    "w": [("if (TMA && tid == 0 && ch + 1 < n_chunks) {", "if (false) {"),
+    "w": [("if (tid == 0 && ch + 1 < n_chunks)\n        tma_chunk", "if (false)\n        tma_chunk"),
           ("mbar_wait(&bar[nb], static_cast<unsigned>((ch >> 1) & 1));",
            "if (ch == 0) mbar_wait(&bar[nb], 0u);")],
 }
