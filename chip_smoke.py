@@ -105,8 +105,8 @@ version:
            compressed gossip stacks vs the CPU's plain versions with the
            same uniforms and W_r, at the printed tolerances.
   codecs   fig7's fmnist task (K = 8 ring, Metropolis W, DR-DSGD mu = 3, B =
-           55, lr 0.18, 400 steps, clipped at 2 as the figure's runner
-           clips, lr_compensate off): dense none (fused B.1), bf16, int8,
+           55, lr 0.18, 200 steps (the figure's 400, halved), clipped at 2
+           as the figure's runner clips, lr_compensate off): dense none (fused B.1), bf16, int8,
            int4, topk 2 % (EF, default gamma) and int8 on the kernel (B.2
            once per round), gossip topk and randk 2 % over the ring's
            matchings; the CNN (B = 40, lr 0.05) with int4 and topk 2 %, cut
@@ -117,20 +117,22 @@ version:
   schedules  fig8: B.2 grouped with qmax a 0-d tensor on the card equal to
            the float form and the plain version bit for bit (qmax 127, 7,
            42.5; the MLP's and the CNN's leaves) and timed beside it; the
-           linear rate on the card equal to hi + (lo - hi)·min(r/300, 1);
+           linear rate on the card equal to hi + (lo - hi)·min(r/150, 1);
            14 rounds of each scheduled kernel stack (dense and gossip EF,
            adaptive and linear) against the CPU with the same uniforms; one
            scheduled round synchronising no more than an unscheduled one
-           (CUDA's sync debug mode); then 600 fmnist steps of int8_fixed,
+           (CUDA's sync debug mode); then 300 fmnist steps (fig8's 600,
+           halved) of int8_fixed,
            int4_fixed, int8_adaptive (threshold 1, warmup 10) and
-           int8_linear (anneal 300) on the per-node quantizer, and of
+           int8_linear (anneal 150) on the per-node quantizer, and of
            int8_adaptive and int8_linear on the kernel quantizer over the
            dense and the gossip EF lowering (B.2 with the rate as qmax once
            per round: every launch counted as a tensor-qmax launch), each
            printing its rate at rounds 0, 10 and the last, its wire bits and
            worst-distribution accuracy.
   dynamics fig9's local-update rows and faults on fig7's task (K = 8 ring,
-           DR-DSGD mu = 3, B = 55, lr 0.18, clipped at 2, 400 steps): dense
+           DR-DSGD mu = 3, B = 55, lr 0.18, clipped at 2, 200 steps: the
+           figure's 400, halved): dense
            dropout 0.2 at H = 2 and 4 and at H = 4 with gradient tracking
            (its consensus rounds bill 2x the H = 4 run's, local rounds 0);
            dense stragglers 0.1 with outages 0.05 over windows of 10, with
@@ -346,6 +348,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense
+BF16_OPS_PER_S = 989e12     # H100 SXM bfloat16 on the tensor cores, dense
 K = 10
 CIFAR_STEPS = 50
 CIFAR_GOSSIP_STEPS = 20
@@ -698,15 +701,20 @@ def cuobjdump() -> str:
 
 
 # B.6's kernels that do matrix products: each must run them on the tensor
-# cores (bwd_reduce_kernel, the sum of the backward's partials, does none)
-TENSOR_CORE_KERNELS = {"flash_attention/csrc/flash_fwd.cu": ("flash_fwd_mma_kernel",),
+# cores (bwd_reduce_kernel, the sum of the backward's partials, does none),
+# the float32 ones as TF32 products, the forward's bfloat16 instances
+# (flash_fwd_bf16_kernel) as bfloat16 ones
+TENSOR_CORE_KERNELS = {"flash_attention/csrc/flash_fwd.cu": ("flash_fwd_mma_kernel",
+                                                             "flash_fwd_bf16_kernel"),
                        "flash_attention/csrc/flash_bwd.cu": ("bwd_mma_kernel",)}
 TF32_MMA = re.compile(r"\bHG?MMA\.[\w.]*TF32")
+BF16_MMA = re.compile(r"\bHG?MMA\.[\w.]*BF16")
 
 
-def tf32_mma_counts(lib: Path) -> dict[str, int]:
-    """{kernel function (mangled): its TF32 tensor-core instructions (HMMA or
-    HGMMA with a TF32 operand type)} in the SASS that cuobjdump prints."""
+def mma_counts(lib: Path, pattern=TF32_MMA) -> dict[str, int]:
+    """{kernel function (mangled): its tensor-core instructions of
+    ``pattern``'s operand type (HMMA or HGMMA; TF32 by default)} in the SASS
+    that cuobjdump prints."""
     sass = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     counts: dict[str, int] = {}
@@ -716,7 +724,7 @@ def tf32_mma_counts(lib: Path) -> dict[str, int]:
         if m:
             fn = m.group(1)
             counts[fn] = 0
-        elif fn is not None and TF32_MMA.search(line):
+        elif fn is not None and pattern.search(line):
             counts[fn] += 1
     return counts
 
@@ -724,14 +732,16 @@ def tf32_mma_counts(lib: Path) -> dict[str, int]:
 def phase_build() -> dict:
     """Builds every source, logs ptxas's registers and spills, and proves
     from the SASS that each of B.6's product kernels, at every head dim it
-    is built for, runs TF32 tensor-core instructions; raises if one has
-    none.  Returns {kernel function: TF32 instructions}."""
+    is built for, runs TF32 tensor-core instructions (the bfloat16 forward:
+    bfloat16 ones, and no TF32); raises if one has none.  Returns {kernel
+    function: tensor-core instructions}."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention.kernel import BWD_HEAD_DIMS, DTYPES, HEAD_DIMS
+    from repro_torch.kernels.flash_attention.kernel import BWD_HEAD_DIMS, HEAD_DIMS
 
-    # an instance per head dim, and the forward's per input dtype too
-    instances = {"flash_fwd_mma_kernel": (len(HEAD_DIMS) * len(DTYPES), HEAD_DIMS),
-                 "bwd_mma_kernel": (len(BWD_HEAD_DIMS), BWD_HEAD_DIMS)}
+    # an instance per head dim: (count, dims, the products' type)
+    instances = {"flash_fwd_mma_kernel": (len(HEAD_DIMS), HEAD_DIMS, TF32_MMA),
+                 "flash_fwd_bf16_kernel": (len(HEAD_DIMS), HEAD_DIMS, BF16_MMA),
+                 "bwd_mma_kernel": (len(BWD_HEAD_DIMS), BWD_HEAD_DIMS, TF32_MMA)}
     t0 = time.perf_counter()
     built = _build.build()
     log(f"[build] {', '.join(lib.name for lib, _ in built.values())} in "
@@ -742,14 +752,19 @@ def phase_build() -> dict:
                 log(f"[build] {source}: {line.strip()}")
     found = {}
     for source, names in TENSOR_CORE_KERNELS.items():
-        counts = tf32_mma_counts(built[source][0])
+        tf32 = mma_counts(built[source][0])
         for name in names:
+            want, dims, pattern = instances[name]
+            counts = tf32 if pattern is TF32_MMA else mma_counts(built[source][0], pattern)
             fns = {fn: n for fn, n in counts.items() if name in fn}
-            log(f"[build] {source}: TF32 tensor-core instructions of {name}: {fns}")
-            want, dims = instances[name]
+            kind = "TF32" if pattern is TF32_MMA else "bfloat16"
+            log(f"[build] {source}: {kind} tensor-core instructions of {name}: {fns}")
             if len(fns) != want or not all(fns.values()):
                 raise AssertionError(f"[build] {name} must be built {want} times (head dims "
-                                     f"{dims}) with TF32 HMMA/HGMMA in every instance: {fns}")
+                                     f"{dims}) with {kind} HMMA/HGMMA in every instance: {fns}")
+            if pattern is not TF32_MMA and any(tf32[fn] for fn in fns):
+                raise AssertionError(f"[build] {name} runs TF32 products: "
+                                     f"{ {fn: tf32[fn] for fn in fns} }")
             found.update(fns)
     return found
 
@@ -1669,11 +1684,11 @@ def phase_parity(spec_cls, cfg_cls) -> dict:
 FIG_K = 8                  # fig7/fig8: K = 8 ring, Metropolis W, DR-DSGD mu = 3
 FIG_MU = 3.0
 FIG_CLIP = 2.0             # run_decentralized's grad_clip, the figures' default
-FIG7_STEPS = 400
+FIG7_STEPS = 200           # fig7's 400 steps, halved to keep the smoke in its time
 FIG7_FMNIST = (55, 0.18)   # batch, lr (benchmarks/fig7_compression.py _TASK)
 FIG7_CIFAR = (40, 0.05)
 FIG7_RATIO = 0.02          # topk2pct
-FIG8_STEPS = 600
+FIG8_STEPS = 300           # fig8's 600 steps, halved likewise
 FIG8_ANNEAL = FIG8_STEPS // 2
 SCHED_PARITY_ROUNDS = 14   # past fig8's warmup of 10 rounds
 SCHED_RATE_RTOL = 1e-4     # adaptive rate, card vs CPU (res_norm's summation order)
@@ -1786,7 +1801,7 @@ def _fig_run(tag, name, spec, model, data, steps, want_counts, mixer=None) -> di
 
 def phase_codecs(spec_cls, cfg_cls) -> dict:
     """fig7: every codec on the fmnist task (K = 8 ring, DR-DSGD mu = 3, B =
-    55, lr 0.18, 400 steps, clipped at 2, lr_compensate off) over the dense
+    55, lr 0.18, 200 steps, clipped at 2, lr_compensate off) over the dense
     lowering — none (the fused B.1 step), bf16, int8, int4, topk 2 % (EF,
     default gamma), int8 on the kernel (B.2 once per round) — and topk and
     randk 2 % over the ring's gossip matchings; then the CNN (B = 40, lr
@@ -1905,7 +1920,7 @@ def _tensor_qmax_kernel(mlp_leaves, cnn_leaves) -> dict:
 
 def _linear_rates_on_card(cfg_cls) -> int:
     """The linear schedule's rate at round r, computed on the card, equals
-    hi + (lo - hi)·min(r / 300, 1) in float32 bit for bit."""
+    hi + (lo - hi)·min(r / FIG8_ANNEAL, 1) in float32 bit for bit."""
     import numpy as np
     import torch
 
@@ -2027,7 +2042,7 @@ def _sync_counts(cfg_cls) -> dict:
 
 def phase_schedules(spec_cls, cfg_cls, mlp_leaves, cnn_leaves) -> dict:
     """fig8: int8_fixed, int4_fixed, int8_adaptive (threshold 1.0, warmup
-    10) and int8_linear (anneal 300) on the per-node quantizer, 600 fmnist
+    10) and int8_linear (anneal 150) on the per-node quantizer, 300 fmnist
     steps (K = 8 ring, mu = 3, B = 55, lr 0.18, clipped at 2); then
     int8_adaptive and int8_linear on the kernel quantizer, over the dense
     lowering (grouped B.2 once per round, qmax the rate on the card) and
@@ -2062,7 +2077,8 @@ def phase_schedules(spec_cls, cfg_cls, mlp_leaves, cnn_leaves) -> dict:
 
 # -- faults, local updates and the federated hub (fig9, fig11) ----------------
 
-FIG9_STEPS = 400            # fig9/fig11's steps (benchmarks/fig9_dynamics.py, fig11_hub.py)
+FIG9_STEPS = 200            # fig9/fig11's 400 steps (benchmarks/fig9_dynamics.py,
+                            # fig11_hub.py), halved likewise
 FIG9_DROP = 0.2             # fig9's dropout under the local-update rows
 FIG9_FAULTS = dict(straggler_p=0.1, outage_p=0.05, outage_len=10)
 EF_LOCAL = (4, 2)           # the EF gossip row: re-base period B, local-update period H
@@ -2407,7 +2423,7 @@ def _dyn_parity(cfg_cls) -> dict:
 
 def phase_dynamics(spec_cls, cfg_cls) -> dict:
     """fig9's local-update rows and faults on fig9's task (K = 8 ring,
-    Metropolis W, DR-DSGD mu = 3, B = 55, lr 0.18, clipped at 2, 400 steps,
+    Metropolis W, DR-DSGD mu = 3, B = 55, lr 0.18, clipped at 2, 200 steps,
     lr_compensate off): dense dropout 0.2 at H = 2 and 4, and H = 4 with
     gradient tracking (its consensus rounds bill 2× the H = 4 run's, on the
     same W_r); dense stragglers 0.1 with outages 0.05 over windows of 10,
@@ -2572,16 +2588,16 @@ def _pairs(s: int, t: int, causal: bool, window) -> int:
     return n
 
 
-def _attention_bound(n_bytes: int, ops: int,
-                     tc_ops: int | None = None) -> tuple[float, str, float]:
+def _attention_bound(n_bytes: int, ops: int, tc_ops: int | None = None,
+                     tc_rate: float = TF32_OPS_PER_S) -> tuple[float, str, float]:
     """(bound ms, what bounds it, the CUDA cores' bound ms) of an attention
-    kernel whose float32 products run on the TF32 tensor cores: the larger
-    of the bytes at the HBM rate and ``tc_ops``, the TF32 products'
-    operations (by default 3 x ops: each float32 product as three TF32
-    products), at the TF32 rate; beside it the larger of the bytes and ops
-    at the float32 FMA rate."""
+    kernel whose products run on the tensor cores: the larger of the bytes
+    at the HBM rate and ``tc_ops``, the tensor-core products' operations
+    (by default 3 x ops: each float32 product as three TF32 products), at
+    ``tc_rate`` (TF32's by default); beside it the larger of the bytes and
+    ops at the float32 FMA rate."""
     tc_ops = 3 * ops if tc_ops is None else tc_ops
-    t_bytes, t_tc = n_bytes / HBM_BYTES_PER_S, tc_ops / TF32_OPS_PER_S
+    t_bytes, t_tc = n_bytes / HBM_BYTES_PER_S, tc_ops / tc_rate
     return (1e3 * max(t_bytes, t_tc), "bytes" if t_bytes >= t_tc else "operations",
             1e3 * max(t_bytes, ops / FP32_OPS_PER_S))
 
@@ -2590,16 +2606,18 @@ def flash_bound(b, h, kvh, s, t, hd, causal, window,
                 elem_bytes: int = 4) -> tuple[float, str, float]:
     """Least time of one B.6 call: q, k, v read and out written once at the
     HBM rate (``elem_bytes`` each: 2 for bfloat16), against 4 hd float
-    operations per unmasked pair (two for q.k, two for p.v) as the TF32
-    products the inputs' type needs, at the tensor cores' TF32 peak: in
-    float32 three for q.k and three for p.v (3xTF32); in bfloat16 a value
-    is its own TF32 big half, so one for q.k and two for p.v (P's two
-    halves times V).  Returns (bound ms, "bytes" or "operations", the bound
-    with the operations at the float32 FMA peak instead)."""
+    operations per unmasked pair (two for q.k, two for p.v) as the
+    tensor-core products the inputs' type needs: in float32 three TF32
+    products for q.k and three for p.v (3xTF32) at the TF32 peak; in
+    bfloat16 one bfloat16 product for q.k (exact in float32) and two for
+    p.v (P's bfloat16 high and low halves times V) at the bfloat16 peak.
+    Returns (bound ms, "bytes" or "operations", the bound with the
+    operations at the float32 FMA peak instead)."""
     n_bytes = elem_bytes * (2 * b * h * s * hd + 2 * b * kvh * t * hd)
     macs = 2 * b * h * hd * _pairs(s, t, causal, window)
-    products = 3 + 3 if elem_bytes == 4 else 1 + 2
-    return _attention_bound(n_bytes, 2 * macs, products * macs)
+    if elem_bytes == 4:
+        return _attention_bound(n_bytes, 2 * macs, (3 + 3) * macs)
+    return _attention_bound(n_bytes, 2 * macs, (1 + 2) * macs, BF16_OPS_PER_S)
 
 
 def wkv6_bound(b, h, t, hd, given_state: bool = False,
@@ -2661,11 +2679,12 @@ def need_tma(tag: str, **views) -> bool:
     return True
 
 
-def tma_audit(fn) -> dict:
+def tma_audit(fn, dtypes: list | None = None) -> dict:
     """Run ``fn`` with each call of B.6 from ``ops`` (the model's entry)
     checked first by :func:`need_tma` on the views it copies by TMA: the
-    forward's k and v, the backward's q, k, v, out and dout.  Returns the
-    calls checked, {"fwd": n, "bwd": n}."""
+    forward's k and v, the backward's q, k, v, out and dout; each forward's
+    q dtype is appended to ``dtypes`` when given.  Returns the calls
+    checked, {"fwd": n, "bwd": n}."""
     import types
 
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -2675,6 +2694,8 @@ def tma_audit(fn) -> dict:
 
     def fwd(q, k, v, **kw):
         calls["fwd"] += need_tma("B.6 forward in the step", k=k, v=v)
+        if dtypes is not None:
+            dtypes.append(q.dtype)
         return fk.flash_attention_fwd(q, k, v, **kw)
 
     def bwd(q, k, v, out, lse, dout, **kw):
@@ -2785,10 +2806,12 @@ def _serve_domain(gen) -> dict:
     16, 32) under each mask (causal, windows, a softcap, non-causal) and in
     float32 at hd 8; B.7 in float32 and bfloat16 at every reference shape
     (hd 8, 16, 32) and at rwkv6-7b's heads with hd 8 and 32, from zero and
-    from a given state (the final state float32 at SERVE_TOL).  Then one
-    bfloat16 case per kernel at the main path's serving shape timed: call,
-    device, plain, bound (bytes at 2 per element) and, for B.6, SDPA in
-    bfloat16."""
+    from a given state (the final state float32 at SERVE_TOL; in bfloat16
+    also bit-equal to the float32 kernel on the widened inputs).  Then one
+    bfloat16 case per kernel at the main path's serving shape timed, its
+    chunks or K/V tiles by TMA: call, device, plain, bound (bytes at 2 per
+    element) and, for B.6, SDPA in bfloat16; beside it, in the same call
+    and in turns, the float32 kernel on the same values widened."""
     import torch
     import torch.nn.functional as F
 
@@ -2803,7 +2826,8 @@ def _serve_domain(gen) -> dict:
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     out = {"flash_attention_fwd": dict(cases=0, max_abs_err_f32=0.0, max_ratio_bf16=0.0),
-           "wkv6_scan": dict(cases=0, max_abs_err_f32=0.0, max_ratio_bf16=0.0)}
+           "wkv6_scan": dict(cases=0, max_abs_err_f32=0.0, max_ratio_bf16=0.0,
+                             bitwise_vs_float32=0)}
 
     def note(name, err, bf16):
         rec = out[name]
@@ -2837,14 +2861,24 @@ def _serve_domain(gen) -> dict:
                 bf16 = dtype == torch.bfloat16
                 note("wkv6_scan", _domain_check(tag + " y", y, y_p, bf16, True), bf16)
                 _domain_check(tag + " state", st, st_p, False, True)
-    # one bfloat16 case per kernel, timed
+                if bf16:  # float32 steps on the widened chunks: the float32 kernel's bits
+                    y32, st32 = wk.wkv6_scan(*(x.float() for x in (r, k, v, w, u)), s0)
+                    if not (torch.equal(st, st32) and torch.equal(y, y32.to(dtype))):
+                        raise AssertionError(f"[serve-domain] {tag}: not bit-equal to the "
+                                             f"float32 kernel on the widened inputs")
+                    out["wkv6_scan"]["bitwise_vs_float32"] += 1
+    # one bfloat16 case per kernel, timed, beside the float32 path on the
+    # same values widened (rows 6 and 7), in turns: float32, bfloat16,
+    # bfloat16, float32
     tag, b, h, kvh, s, hd = DOMAIN_FLASH_TIMED
     q = randn(b, s, h, hd, dtype=torch.bfloat16).permute(0, 2, 1, 3)
     k, v = (randn(b, s, kvh, hd, dtype=torch.bfloat16).permute(0, 2, 1, 3) for _ in range(2))
+    need_tma(f"[serve-domain] B.6 {tag}", k=k, v=v)
     got, want = fk.flash_attention_fwd(q, k, v), attention_ref(q, k, v)
     err = _domain_check(tag, got, want, True, False)
     bound, by, _ = flash_bound(b, h, kvh, s, s, hd, True, None, elem_bytes=2)
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    q32, k32, v32 = q.float(), k.float(), v.float()
 
     def sdpa():
         return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
@@ -2853,28 +2887,61 @@ def _serve_domain(gen) -> dict:
     if sdpa_err > 2e-2:  # SDPA rounds P to bfloat16: the reference's bf16 tolerance
         raise AssertionError(f"[serve-domain] SDPA in bfloat16 disagrees with the plain "
                              f"version ({tag}): max abs err {sdpa_err}")
+    turns = _in_turns(
+        lambda: _time_call("flash_attention_fwd", lambda: fk.flash_attention_fwd(q32, k32, v32),
+                           lambda: attention_ref(q32, k32, v32), 50, 10),
+        lambda: _time_call("flash_attention_fwd", lambda: fk.flash_attention_fwd(q, k, v),
+                           lambda: attention_ref(q, k, v), 50, 10, names=FLASH_BF16_NAMES))
     out["flash_attention_fwd"]["timed"] = dict(
-        case=tag, bf16_ratio=err, library_max_abs_err=sdpa_err, **_time_call("flash_attention_fwd",
-                                         lambda: fk.flash_attention_fwd(q, k, v),
-                                         lambda: attention_ref(q, k, v), 50, 10),
+        case=tag, bf16_ratio=err, library_max_abs_err=sdpa_err, **turns["b"],
         bound_ms=bound, bound_by=by, library_ms=cuda_ms(sdpa, iters=50),
         library_device_ms=window_device_ms(sdpa, 50) or None,
-        library_backend="SDPA default dispatch, bfloat16, enable_gqa")
+        library_backend="SDPA default dispatch, bfloat16, enable_gqa",
+        float32_same_call=turns["a"], turns=turns["turns"])
     tag, b, h, t, hd = DOMAIN_WKV6_TIMED
     r, k, v = (randn(b, t, h, hd, dtype=torch.bfloat16).permute(0, 2, 1, 3) for _ in range(3))
     w = torch.rand((b, t, h, hd), generator=gen, device="cuda").to(torch.bfloat16).permute(
         0, 2, 1, 3)
     u = (0.5 * randn(h, hd)).to(torch.bfloat16)
+    if not all(wk.rows_by_tma(x) for x in (r, k, v, w)):
+        raise AssertionError(f"[serve-domain] B.7 {tag}: bfloat16 chunks not staged by TMA")
     (y, _), (y_p, _) = wk.wkv6_scan(r, k, v, w, u), wkv6_ref(r, k, v, w, u)
     err = _domain_check(tag, y, y_p, True, True)
     bound, by = wkv6_bound(b, h, t, hd, elem_bytes=2)
-    out["wkv6_scan"]["timed"] = dict(
-        case=tag, bf16_ratio=err, **_time_call("wkv6_scan", lambda: wk.wkv6_scan(r, k, v, w, u),
-                                         lambda: wkv6_ref(r, k, v, w, u), 50, 5),
-        bound_ms=bound, bound_by=by, library_ms=None)
+    f32 = [x.float() for x in (r, k, v, w, u)]
+    turns = _in_turns(
+        lambda: _time_call("wkv6_scan", lambda: wk.wkv6_scan(*f32), lambda: wkv6_ref(*f32), 50, 5),
+        lambda: _time_call("wkv6_scan", lambda: wk.wkv6_scan(r, k, v, w, u),
+                           lambda: wkv6_ref(r, k, v, w, u), 50, 5))
+    out["wkv6_scan"]["timed"] = dict(case=tag, bf16_ratio=err, **turns["b"], bound_ms=bound,
+                                     bound_by=by, library_ms=None,
+                                     float32_same_call=turns["a"], turns=turns["turns"])
+    for name in ("flash_attention_fwd", "wkv6_scan"):
+        rec = out[name]["timed"]
+        log(f"[serve-domain] {name} {rec['case']}: device bf16 {1e3 * rec['device_ms']:.2f} us, "
+            f"float32 {1e3 * rec['float32_same_call']['device_ms']:.2f} us (the same call), "
+            f"bound {1e3 * rec['bound_ms']:.2f} us; turns {rec['turns']}")
     out["wall_s"] = time.perf_counter() - t0
     log("[serve-domain] " + json.dumps(out))
     return out
+
+
+# B.6's bfloat16 instances, by the profiler's kernel name
+FLASH_BF16_NAMES = ("flash_fwd_bf16_kernel",)
+
+
+def _in_turns(time_a, time_b) -> dict:
+    """Two versions timed in turns a, b, b, a (each ``time_*`` returns a
+    _time_call record): each version's mean of its two records, and every
+    device reading in turn order."""
+    recs = [time_a(), time_b(), time_b(), time_a()]
+
+    def mean(pair):
+        keys = [key for key in pair[0] if isinstance(pair[0][key], float)]
+        return {**pair[0], **{key: (pair[0][key] + pair[1][key]) / 2 for key in keys}}
+
+    return dict(a=mean([recs[0], recs[3]]), b=mean([recs[1], recs[2]]),
+                turns=[("ab"[i in (1, 2)], r["device_ms"]) for i, r in enumerate(recs)])
 
 
 def _add_row(rec: dict, row: dict) -> None:
@@ -3246,6 +3313,138 @@ def phase_serve_parity(arch: str, prompt_len: int) -> dict:
     rec["tokens_identical"] = _same_tokens(f"serve-parity {arch}", tg.cpu(), tc, gaps, tol)
     rec["tokens_total"] = tc.numel()
     log("[serve-parity] " + json.dumps(rec))
+    return rec
+
+
+# qwen2-0.5b at compute_dtype=bfloat16: served at full width and depth as the
+# float32 serve phase runs it, and cut to 2 layers on the card vs the CPU
+SERVE_BF16 = ("qwen2_0_5b", 512, 64)        # arch, prompt, new tokens
+SERVE_BF16_PARITY = (2, 64)                 # layers, prompt (SERVE_PARITY_GEN new tokens)
+# card vs CPU in bfloat16, in bfloat16 ulps of the largest |value| of each
+# tensor compared (logits, every cache leaf).  Both sides are the port's
+# model, rounding at the same places; they take float32 sums in other
+# orders (cuBLAS and B.6 against the CPU's products), so a sum within
+# float32 noise of a rounding boundary lands on the neighbouring bfloat16
+# value and the next norm spreads that over its row: 1.2 ulps measured on
+# an H100 at this cut, up to 1.35 against the reference at the smoke width
+# (tests/test_torch_lm_bf16.py); a kernel fault moves whole rows by far more
+SERVE_BF16_ULPS = 4.0
+
+
+def bf16_ulps_of_max(got, want) -> float:
+    """max |got - want| in bfloat16 ulps of max |want|."""
+    largest = float(want.float().abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(largest)) - 7) if largest > 0 else 2.0 ** -133
+    return float((got.float() - want.float()).abs().max()) / ulp
+
+
+def phase_serve_bf16(f32: dict) -> dict:
+    """qwen2-0.5b served with ``compute_dtype=bfloat16`` at full width and
+    depth (batch 4, prompt 512, 64 new tokens, as the float32 serve phase
+    ``f32``): exactly one B.6 launch per attention layer per prefill, each
+    on bfloat16 q, k, v with K/V staged by TMA; prefill tok/s and decode
+    ms/token beside the float32 phase's.  Then cut to 2 layers, the same
+    seeded weights on the card (kernels) and the CPU (plain versions):
+    logits and cache within SERVE_BF16_ULPS, greedy tokens equal up to a
+    row's first step whose top-2 gap is under twice the measured logit
+    error (the near-tie rule of _routing_vs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import timed_generate
+
+    t_start = time.perf_counter()
+    arch, prompt_len, gen_len = SERVE_BF16
+    model = _serve_model(arch, compute_dtype=torch.bfloat16)
+    cfg = model.cfg
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_BATCH, prompt_len))).cuda()
+    per_prefill = sum(blk != "rwkv" for blk, _ in cfg._full_pattern())
+    rec = dict(arch=cfg.name, compute_dtype="bfloat16", n_layers=cfg.n_layers,
+               d_model=cfg.d_model, batch=SERVE_BATCH, prompt_len=prompt_len, gen_len=gen_len)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_counts()
+        tokens, stats = timed_generate(model, params, prompt, gen_len)
+        check_counts("serve-bf16", kernel_counts(), {"flash_attention_fwd": 2 * per_prefill})
+        rec.update(prefill_tok_s=stats["prefill"]["tok_s"],
+                   prefill_steady_s=stats["prefill"]["steady_s"],
+                   decode_ms_per_token=1e3 * stats["decode"]["steady_s"] / max(1, gen_len - 1),
+                   decode_tok_s=stats["decode"]["tok_s"],
+                   float32=dict(prefill_tok_s=f32["prefill_tok_s"],
+                                decode_ms_per_token=f32["decode_ms_per_token"]))
+        reset_counts()
+        dtypes: list = []
+        out = {}
+
+        def one_prefill():
+            out["run"] = _generate(model, params, prompt, gen_len, use_prefill=True)
+
+        audit = tma_audit(one_prefill, dtypes)
+        check_counts("serve-bf16 one prefill", kernel_counts(),
+                     {"flash_attention_fwd": per_prefill})
+        if audit["fwd"] != per_prefill or set(dtypes) != {torch.bfloat16}:
+            raise AssertionError(f"[serve-bf16] B.6 calls {audit}, q dtypes {set(dtypes)}: want "
+                                 f"{per_prefill} bfloat16 calls per prefill")
+        logits, _, toks, _ = out["run"]
+        if not torch.equal(toks, tokens):
+            raise AssertionError("[serve-bf16] timed_generate and a second greedy run differ")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("[serve-bf16] logits not finite")
+        rec.update(launches=2 * per_prefill, launches_per_prefill=per_prefill,
+                   bf16_launches_audited=len(dtypes), tokens_total=tokens.numel())
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, out
+    torch.cuda.empty_cache()
+    rec["parity"] = _serve_bf16_parity(arch)
+    rec["phase_s"] = time.perf_counter() - t_start
+    log("[serve-bf16] " + json.dumps(rec))
+    log(f"[serve-bf16] prefill {rec['prefill_tok_s']:.1f} tok/s in bfloat16, "
+        f"{f32['prefill_tok_s']:.1f} in float32; decode {rec['decode_ms_per_token']:.3f} "
+        f"ms/token in bfloat16, {f32['decode_ms_per_token']:.3f} in float32")
+    return rec
+
+
+def _serve_bf16_parity(arch: str) -> dict:
+    """``arch`` at compute_dtype=bfloat16 cut to SERVE_BF16_PARITY's layers,
+    full width: the card against the CPU (see phase_serve_bf16)."""
+    import numpy as np
+    import torch
+
+    layers, prompt_len = SERVE_BF16_PARITY
+    model = _serve_model(arch, n_layers=layers, compute_dtype=torch.bfloat16)
+    params = model.init(torch.Generator().manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, model.cfg.vocab, (SERVE_BATCH, prompt_len)))
+    runs = {}
+    with torch.inference_mode():
+        for device in ("cuda", "cpu"):
+            reset_counts()
+            p = params if device == "cpu" else {n: t.cuda() for n, t in params.items()}
+            runs[device] = _generate(model, p, prompt.to(device), SERVE_PARITY_GEN, True)
+            counts = kernel_counts()
+            want = {"flash_attention_fwd": layers} if device == "cuda" else {}
+            if device == "cuda":
+                check_counts(f"serve-bf16 parity {arch}", counts, want)
+            elif sum(c[1] for c in counts.values()) == 0 or sum(c[0] for c in counts.values()):
+                raise AssertionError(f"[serve-bf16] {arch} on the CPU: {counts}")
+    (lg, cg, tg, _), (lc, cc, tc, gaps) = runs["cuda"], runs["cpu"]
+    errs = {"logits": bf16_ulps_of_max(lg.cpu(), lc)}
+    got, want = _leaves(cg), _leaves(cc)
+    for name in want:
+        errs[name] = bf16_ulps_of_max(got[name].cpu(), want[name])
+    worst = max(errs, key=errs.get)
+    if errs[worst] > SERVE_BF16_ULPS:
+        raise AssertionError(f"[serve-bf16] {arch} {layers} layers, card vs CPU: {worst} "
+                             f"{errs[worst]} bf16 ulps of max |x| > {SERVE_BF16_ULPS}: {errs}")
+    logit_err = float((lg.cpu() - lc).abs().max())
+    rec = dict(n_layers=layers, prompt_len=prompt_len, ulps_of_max=errs, worst=worst,
+               logits_max_abs_err=logit_err,
+               tokens_identical=_same_tokens(f"serve-bf16 parity {arch}", tg.cpu(), tc, gaps,
+                                             2 * logit_err),
+               tokens_total=tc.numel())
+    log("[serve-bf16] parity " + json.dumps(rec))
     return rec
 
 
@@ -5891,6 +6090,7 @@ def main() -> int:
     rwkv = phase_serve("rwkv6_7b", 256, 32, "wkv6_scan", profile=False, end_to_end=False)
     phase_serve_parity("qwen2_0_5b", 64)
     phase_serve_parity("rwkv6_7b", 32)
+    serve_bf16 = phase_serve_bf16(qwen)
     moe_serve = phase_serve_moe()
     phase_mamba_layer()
     engine = phase_engine()
@@ -5941,6 +6141,10 @@ def main() -> int:
         **{kernel: {f"dynamics {name}": launches[kernel] for name, launches in masked_runs.items()}
            for kernel in ("masked_quantize_blockwise_grouped",
                           "masked_dequant_accumulate_grouped_")}}
+    # qwen2-0.5b served in bfloat16 (B.6's bfloat16 instances)
+    other_runs.setdefault("flash_attention_fwd", {}).update({
+        "serve-bf16 qwen2-0.5b, bfloat16": serve_bf16["launches"],
+        "serve-bf16 card vs CPU, 2 layers": SERVE_BF16_PARITY[0]})
     # A.11's paths: deepseek-moe-16b served and trained, musicgen-medium
     # trained at S = 320, the smoke families trained, jamba's int8 engine
     for kernel, runs in {

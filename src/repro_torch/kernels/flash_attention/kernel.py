@@ -6,8 +6,10 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention/kernel.py``
 reference differentiates its XLA attention instead), both built by
 :mod:`repro_torch.kernels._build`.  The sources' header notes give their
 bounds and designs: both run their products on the tensor cores, each
-float32 product as three TF32 products (``csrc/tc_tf32.cuh``), and their
-backward writes no float atomics, so its gradients repeat bit for bit.
+float32 product as three TF32 products (``csrc/tc_tf32.cuh``); the
+forward's bfloat16 instances take raw bfloat16 tiles staged by TMA and
+issue bfloat16 products (``csrc/tc_bf16.cuh``).  The backward writes no
+float atomics, so its gradients repeat bit for bit.
 
 The wrappers take the JAX op's layout, q (B, H, S, hd) and k, v (B, KVH, T,
 hd), as views with any batch, head and sequence strides (head dims
@@ -15,9 +17,10 @@ contiguous), so the model hands over its (B, S, KVH, G, hd) q and (B, T,
 KVH, hd) k/v without a transposed copy; outputs and gradients have their
 input's memory layout.  The forward writes the row log-sum-exp (B, H, S)
 when asked, which the backward recomputes the softmax from.  The forward
-takes q, k and v in float32 or bfloat16 (one dtype for the three; bfloat16
-is widened as it is read and the output written in it, as the TPU kernel
-does; lse is float32) at head dims 8, 16, 32, 64, 80 and 128; the backward
+takes q, k and v in float32 or bfloat16 (one dtype for the three; with
+bfloat16 every product and the softmax are float32 sums of exact products,
+as the TPU kernel's widened arithmetic, and the output is written in it;
+lse is float32) at head dims 8, 16, 32, 64, 80 and 128; the backward
 takes float32 at head dims 16, 32, 64, 80 and 128 (``ops.FlashAttention``
 widens saved bfloat16 inputs for it).  Each wrapper raises on anything
 else, and the forward on an input that requires grad while autograd
@@ -164,13 +167,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
 
 def rows_by_tma(x: torch.Tensor) -> bool:
     """Whether the kernels copy the rows of ``x`` (a (B, heads, rows, hd)
-    CUDA view) into shared memory by TMA rather than cp.async (float32) or
-    plain loads (bfloat16: never by TMA)."""
+    CUDA view, the forward's K or V, or the backward's float32 operands)
+    into shared memory by TMA rather than cp.async or, for bfloat16 rows
+    off 16 bytes, plain loads."""
     _check("x", x, x.device, DTYPES)
-    if x.dtype != torch.float32:
-        return False
-    fn = _build.entry(SOURCE, "flash_rows_tma", (_P,) + (_LL,) * 7)
-    return bool(fn(x.data_ptr(), *x.shape, *x.stride()[:3]))
+    fn = _build.entry(SOURCE, "flash_rows_tma", (_P,) + (_LL,) * 8)
+    return bool(fn(x.data_ptr(), *x.shape, *x.stride()[:3], x.element_size()))
 
 
 # launches since the last reset (the main path's proof of use)

@@ -1,4 +1,4 @@
-// Staging rows of a (B, H, T, hd) float32 view by TMA, shared by B.7's
+// Staging rows of a (B, H, T, hd) float32 or bfloat16 view by TMA, shared by B.7's
 // forward (wkv6.cu) and its backward (wkv6_bwd.cu): the mbarrier helpers,
 // one tensor copy of a box of rows, and the tensor map of a view given by
 // its strides (cuTensorMapEncodeTiled from the CUDA driver through the runtime,
@@ -103,6 +103,31 @@ int rows_map(CUtensorMap* map, const float* base, long long B, long long H, long
                              1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base), dims, strides,
+            box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+                 CUDA_SUCCESS
+             ? 1
+             : -1;
+}
+
+// The same for a bfloat16 view: rows on 16 bytes (strides multiples of 8
+// elements), boxes of hd x box_rows bfloat16 values.
+int rows_map_bf16(CUtensorMap* map, const void* base, long long B, long long H, long long T,
+                  long long hd, const Strides& s, int box_rows) {
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || s.b % 8 != 0 || s.h % 8 != 0 ||
+      s.t % 8 != 0)
+    return 0;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -1;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s.t) * 2,
+                                 static_cast<cuuint64_t>(s.h) * 2,
+                                 static_cast<cuuint64_t>(s.b) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(hd), static_cast<cuuint32_t>(box_rows), 1,
+                             1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
             box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
                  CUDA_SUCCESS

@@ -75,9 +75,20 @@
 // bfloat16.  As the TPU kernel does, bfloat16 r, k, v, w and u are widened
 // to float32 as they are read and y is rounded to bfloat16 (to nearest
 // even) as it is written; the arithmetic, s0 and the final state stay
-// float32.  A bfloat16 chunk comes by the plain loads of the template
-// without TMA, converted on the way into the same float32 buffers, so the
-// steps are the float32 kernel's.
+// float32.  A bfloat16 chunk lands raw by the same four TMA requests (a
+// bfloat16 map of each view: rows on 16 bytes, i.e. strides of multiples of
+// 8 elements) into one of two buffers at half the float32 bytes, one chunk
+// ahead, and the steps and the bonus pass read it as it lies: four values
+// by one 8-byte load, widened by two integer operations a pair (a bfloat16
+// is the high half of its float32).  The steps' shared-memory reads halve,
+// but each row is widened once per column group, about a quarter more
+// instructions per step in a scan at the SM's issue rate: it takes ~12 %
+// longer than float32.  Widening each chunk once into float32 buffers
+// cost more when measured, whole after it lands or a slice under each
+// batch of steps (PERF.md, the bfloat16 variants).  The steps' arithmetic
+// is the float32 kernel's, so y and the state match it bit for bit.  Rows
+// off 16 bytes come by the plain loads, widened on the way into float32
+// buffers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -124,10 +135,8 @@ struct Cfg {
   static constexpr int NQ = R / 4;          // float4 row groups per thread
   static constexpr int P = NT / C;          // lanes per step of the bonus pass
   static constexpr int PQ = HD / P / 4;     // float4 row groups per bonus lane
-  static constexpr int TILE = C * HD;       // floats of one tensor's chunk
-  static constexpr int BUF = 4 * TILE;      // floats of one buffer: r, k, w, v
-  // two buffers, two chunks of bonuses, two mbarriers
-  static constexpr size_t SMEM = sizeof(float) * (2 * BUF + 2 * C) + 2 * sizeof(uint64_t);
+  static constexpr int TILE = C * HD;       // values of one tensor's chunk
+  static constexpr int BUF = 4 * TILE;      // values of one buffer: r, k, w, v
   static_assert(R % 4 == 0 && HD % R == 0 && HD % J == 0, "tile");
   static_assert(NG <= 32 && 32 % NG == 0 && J <= NG, "a column group within a warp");
   static_assert((J & (J - 1)) == 0 && (NG & (NG - 1)) == 0 && (SB & (SB - 1)) == 0,
@@ -139,7 +148,7 @@ struct Cfg {
 
 template <class In>
 struct Args {
-  CUtensorMap map[4];  // r, k, w, v rows for TMA (the TMA template, float32)
+  CUtensorMap map[4];  // r, k, w, v rows for TMA (the TMA template)
   const In* src[4];    // r, k, w, v at (0, 0, 0, 0)
   const In* u;
   const float* s0;
@@ -162,22 +171,41 @@ __device__ __forceinline__ In from_f32(float x) {
 }
 
 // thread 0: the chunk of C rows from row t0 on of (head, batch) of every
-// map into buf (r, k, w, v, dense; rows past T zero-filled), counted on
-// bar.  A CTA barrier in front of it orders every read of buf before these
-// writes; the fence carries that order to the copy engine.
-template <int HD>
-__device__ __forceinline__ void tma_chunk(float* buf, const Args<float>& a, int t0, int head,
+// map into buf (r, k, w, v, dense, in the inputs' type; rows past T
+// zero-filled), counted on bar.  A CTA barrier in front of it orders every
+// read of buf before these writes; the fence carries that order to the copy
+// engine.
+template <int HD, class In>
+__device__ __forceinline__ void tma_chunk(In* buf, const Args<In>& a, int t0, int head,
                                           int batch, uint64_t* bar) {
   using K = Cfg<HD>;
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  mbar_expect(bar, static_cast<unsigned>(sizeof(float) * K::BUF));
+  mbar_expect(bar, static_cast<unsigned>(sizeof(In) * K::BUF));
 #pragma unroll
-  for (int x = 0; x < 4; ++x) tma_rows(buf + x * K::TILE, &a.map[x], t0, head, batch, bar);
+  for (int x = 0; x < 4; ++x)
+    tma_rows(reinterpret_cast<float*>(buf + x * K::TILE), &a.map[x], t0, head, batch, bar);
+}
+
+// four values from element 4 i of a chunk's row in shared memory (a
+// bfloat16 value is the high half of its float32: two integer operations
+// widen a pair), and one value
+__device__ __forceinline__ float4 load4(const float* row, int i) {
+  return reinterpret_cast<const float4*>(row)[i];
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* row, int i) {
+  const uint2 x = reinterpret_cast<const uint2*>(row)[i];
+  return make_float4(__uint_as_float(x.x << 16), __uint_as_float(x.x & 0xffff0000u),
+                     __uint_as_float(x.y << 16), __uint_as_float(x.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float load1(const float* row, int i) { return row[i]; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* row, int i) {
+  return __bfloat162float(row[i]);
 }
 
 // every thread: the chunk's n rows of r, k, w, v into buf with plain loads
-// (the layouts TMA does not take, and bfloat16, widened here); a CTA
-// barrier follows
+// (the layouts TMA does not take; bfloat16 widened here); a CTA barrier
+// follows
 template <int HD, class In>
 __device__ __forceinline__ void load_chunk(float* buf, const Args<In>& a, long long base,
                                            long long t0, int n) {
@@ -194,8 +222,8 @@ __device__ __forceinline__ float comp(const float4& v, int e) {
 
 // SB consecutive steps from step c of the chunk in cur: the state update
 // of this thread's tile and, once the lanes' sums are joined, y.
-template <int HD, int SB, class In>
-__device__ __forceinline__ void steps(float (&S)[Cfg<HD>::NQ][4][Cfg<HD>::J], const float* cur,
+template <int HD, int SB, class In, class Buf>
+__device__ __forceinline__ void steps(float (&S)[Cfg<HD>::NQ][4][Cfg<HD>::J], const Buf* cur,
                                       const float* bonus, int c, int g, int cg, int mcol,
                                       In* yt, long long yst) {
   using K = Cfg<HD>;
@@ -203,22 +231,23 @@ __device__ __forceinline__ void steps(float (&S)[Cfg<HD>::NQ][4][Cfg<HD>::J], co
   constexpr int LCOL = log2i(J);  // levels halving columns
   constexpr int LSTEP = log2i(SB) < log2i(NG) - LCOL ? log2i(SB) : log2i(NG) - LCOL;
   constexpr int LDUP = log2i(NG) - LCOL - LSTEP;  // levels left: a butterfly
-  const float* vv = cur + 3 * K::TILE;
+  const Buf* vv = cur + 3 * K::TILE;
   float acc[SB][J];
 #pragma unroll
   for (int s = 0; s < SB; ++s) {
-    const float4* r4 = reinterpret_cast<const float4*>(cur + (c + s) * HD);
-    const float4* k4 = reinterpret_cast<const float4*>(cur + K::TILE + (c + s) * HD);
-    const float4* w4 = reinterpret_cast<const float4*>(cur + 2 * K::TILE + (c + s) * HD);
+    const Buf* r4 = cur + (c + s) * HD;
+    const Buf* k4 = cur + K::TILE + (c + s) * HD;
+    const Buf* w4 = cur + 2 * K::TILE + (c + s) * HD;
     float vj[J];
 #pragma unroll
     for (int jj = 0; jj < J; ++jj) {
-      vj[jj] = vv[(c + s) * HD + J * cg + (jj ^ mcol)];
+      vj[jj] = load1(vv, (c + s) * HD + J * cg + (jj ^ mcol));
       acc[s][jj] = 0.f;
     }
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
-      const float4 rq = r4[g + NG * q], kq = k4[g + NG * q], wq = w4[g + NG * q];
+      const float4 rq = load4(r4, g + NG * q), kq = load4(k4, g + NG * q),
+                   wq = load4(w4, g + NG * q);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float ri = comp(rq, e), ki = comp(kq, e), wi = comp(wq, e);
@@ -269,7 +298,7 @@ __device__ __forceinline__ void steps(float (&S)[Cfg<HD>::NQ][4][Cfg<HD>::J], co
 #pragma unroll
     for (int e = 0; e < (SB >> LSTEP); ++e) {
       const int t = c + sbase + e;
-      yt[t * yst + j] = from_f32<In>(fmaf(vv[t * HD + j], bonus[t], val[e]));
+      yt[t * yst + j] = from_f32<In>(fmaf(load1(vv, t * HD + j), bonus[t], val[e]));
     }
   }
 }
@@ -279,8 +308,12 @@ __global__ void __launch_bounds__(Cfg<HD>::NT)
 wkv6_keysplit_kernel(const __grid_constant__ Args<In> a) {
   using K = Cfg<HD>;
   constexpr int J = K::J, C = K::C, NG = K::NG, NQ = K::NQ, P = K::P, SB = K::SB;
-  extern __shared__ __align__(128) float smem[];
-  float* bonus = smem + 2 * K::BUF;  // [2][C]
+  // the chunks as TMA lands them (bfloat16 stays raw), else as the loads
+  // widen them
+  using Buf = std::conditional_t<TMA, In, float>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Buf* smem = reinterpret_cast<Buf*>(smem_raw);                // [2][BUF]
+  float* bonus = reinterpret_cast<float*>(smem + 2 * K::BUF);  // [2][C]
   uint64_t* bar = reinterpret_cast<uint64_t*>(bonus + 2 * C);
 
   const int tid = threadIdx.x;
@@ -312,6 +345,28 @@ wkv6_keysplit_kernel(const __grid_constant__ Args<In> a) {
     const In* uq = a.u + h * HD + 4 * (pp + P * q);
     u4[q] = make_float4(to_f32(uq[0]), to_f32(uq[1]), to_f32(uq[2]), to_f32(uq[3]));
   }
+  // a chunk's bonuses, sum_i r_i u_i k_i per step, into slot nb (lanes
+  // past n compute on rows that are zero or stale and store nothing; every
+  // lane joins the shuffles)
+  auto bonus_pass = [&](const Buf* chunk, int nb, int n) {
+    float part = 0.f;
+#pragma unroll
+    for (int q = 0; q < K::PQ; ++q) {
+      const float4 r4 = load4(chunk + pc * HD, pp + P * q);
+      const float4 k4 = load4(chunk + K::TILE + pc * HD, pp + P * q);
+      part = fmaf(r4.x * u4[q].x, k4.x, part);
+      part = fmaf(r4.y * u4[q].y, k4.y, part);
+      part = fmaf(r4.z * u4[q].z, k4.z, part);
+      part = fmaf(r4.w * u4[q].w, k4.w, part);
+    }
+#pragma unroll
+    for (int off = P / 2; off > 0; off >>= 1) part += __shfl_xor_sync(K::MASK, part, off);
+    if (pp == 0 && pc < n) bonus[nb * C + pc] = part;
+  };
+  // the steps of chunk ch
+  auto steps_in = [&](int ch) {
+    return static_cast<int>(min(static_cast<long long>(C), a.T - static_cast<long long>(ch) * C));
+  };
 
   const int n_chunks = static_cast<int>((a.T + C - 1) / C);
   if constexpr (TMA) {
@@ -325,39 +380,22 @@ wkv6_keysplit_kernel(const __grid_constant__ Args<In> a) {
   for (int ch = 0; ch < n_chunks; ++ch) {
     const int nb = ch & 1;
     const long long t0 = static_cast<long long>(ch) * C;
-    const int n = static_cast<int>(min(static_cast<long long>(C), a.T - t0));
-    float* cur = smem + nb * K::BUF;
+    const int n = steps_in(ch);
+    Buf* cur = smem + nb * K::BUF;
     if constexpr (TMA) {
       mbar_wait(&bar[nb], static_cast<unsigned>((ch >> 1) & 1));
     } else {
       load_chunk<HD>(cur, a, base, t0, n);
       __syncthreads();
     }
-    // the chunk's bonuses, sum_i r_i u_i k_i per step (lanes past n compute
-    // on rows that are zero or stale and store nothing; every lane joins the
-    // shuffles)
-    {
-      const float4* rr = reinterpret_cast<const float4*>(cur + pc * HD);
-      const float4* kk = reinterpret_cast<const float4*>(cur + K::TILE + pc * HD);
-      float part = 0.f;
-#pragma unroll
-      for (int q = 0; q < K::PQ; ++q) {
-        const float4 r4 = rr[pp + P * q], k4 = kk[pp + P * q];
-        part = fmaf(r4.x * u4[q].x, k4.x, part);
-        part = fmaf(r4.y * u4[q].y, k4.y, part);
-        part = fmaf(r4.z * u4[q].z, k4.z, part);
-        part = fmaf(r4.w * u4[q].w, k4.w, part);
-      }
-#pragma unroll
-      for (int off = P / 2; off > 0; off >>= 1) part += __shfl_xor_sync(K::MASK, part, off);
-      if (pp == 0 && pc < n) bonus[nb * C + pc] = part;
-    }
+    bonus_pass(cur, nb, n);
     // the bonuses are visible, and every thread is done with chunk ch - 1,
     // so the other buffer may be refilled
     __syncthreads();
     if constexpr (TMA) {
       if (tid == 0 && ch + 1 < n_chunks)
-        tma_chunk<HD>(smem + (nb ^ 1) * K::BUF, a, static_cast<int>(t0 + C), h, b, &bar[nb ^ 1]);
+        tma_chunk<HD>(smem + (nb ^ 1) * K::BUF, a, static_cast<int>(t0 + C), h, b,
+                      &bar[nb ^ 1]);
     }
     In* yt = yb + t0 * a.out.t;
     int c = 0;
@@ -377,23 +415,30 @@ wkv6_keysplit_kernel(const __grid_constant__ Args<In> a) {
   }
 }
 
-template <int HD>
-bool maps(Args<float>& a, long long B) {
+template <int HD, class In>
+bool maps(Args<In>& a, long long B) {
   for (int x = 0; x < 4; ++x) {
-    if (rows_map(&a.map[x], a.src[x], B, a.H, a.T, HD, a.in, Cfg<HD>::C) != 1) return false;
+    const int ok = std::is_same<In, float>::value
+                       ? rows_map(&a.map[x], reinterpret_cast<const float*>(a.src[x]), B, a.H,
+                                  a.T, HD, a.in, Cfg<HD>::C)
+                       : rows_map_bf16(&a.map[x], a.src[x], B, a.H, a.T, HD, a.in, Cfg<HD>::C);
+    if (ok != 1) return false;
   }
   return true;
 }
 
 template <int HD, bool TMA, class In>
 cudaError_t launch_one(const Args<In>& a, long long B, cudaStream_t stream) {
-  using K = Cfg<HD>;
+  // two chunk buffers (raw bfloat16 by TMA, else float32), two chunks of
+  // bonuses, two mbarriers
+  constexpr size_t smem = sizeof(std::conditional_t<TMA, In, float>) * 2 * Cfg<HD>::BUF +
+                          sizeof(float) * 2 * Cfg<HD>::C + 2 * sizeof(uint64_t);
   static const cudaError_t attr = cudaFuncSetAttribute(
       wkv6_keysplit_kernel<HD, TMA, In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(K::SMEM));
+      static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid(static_cast<unsigned>(a.H), static_cast<unsigned>(B));
-  wkv6_keysplit_kernel<HD, TMA, In><<<grid, K::NT, K::SMEM, stream>>>(a);
+  wkv6_keysplit_kernel<HD, TMA, In><<<grid, Cfg<HD>::NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -401,9 +446,7 @@ template <int HD, class In>
 cudaError_t launch(Args<In>& a, long long B, cudaStream_t stream) {
   // the grid's limits, and TMA's 32-bit coordinates
   if (a.H > INT_MAX || B > 65535 || a.T > (1LL << 30)) return cudaErrorInvalidValue;
-  if constexpr (std::is_same<In, float>::value) {
-    if (maps<HD>(a, B)) return launch_one<HD, true>(a, B, stream);
-  }
+  if (maps<HD>(a, B)) return launch_one<HD, true>(a, B, stream);
   return launch_one<HD, false>(a, B, stream);
 }
 
@@ -470,9 +513,15 @@ extern "C" int wkv6_bf16(const __nv_bfloat16* r, const __nv_bfloat16* k,
 
 // 1 when a (B, H, T, hd) view with these strides (in elements) is staged by
 // TMA in this kernel, 0 when by plain loads (a row off 16 bytes, or the
-// driver refuses the map)
-extern "C" int wkv6_rows_tma(const float* base, long long B, long long H, long long T,
-                             long long hd, long long sb, long long sh, long long st) {
+// driver refuses the map); elem_bytes 4 (float32) or 2 (bfloat16)
+extern "C" int wkv6_rows_tma(const void* base, long long B, long long H, long long T,
+                             long long hd, long long sb, long long sh, long long st,
+                             long long elem_bytes) {
   CUtensorMap map;
-  return rows_map(&map, base, B, H, T, hd, Strides{sb, sh, st}, Cfg<64>::C) == 1 ? 1 : 0;
+  const Strides s{sb, sh, st};
+  return (elem_bytes == 4
+              ? rows_map(&map, static_cast<const float*>(base), B, H, T, hd, s, Cfg<64>::C)
+              : rows_map_bf16(&map, base, B, H, T, hd, s, Cfg<64>::C)) == 1
+             ? 1
+             : 0;
 }

@@ -21,10 +21,11 @@ raise on anything else and never run the plain version themselves.  They record 
 they refuse an input that requires grad while autograd records:
 ``ops.WKV6`` is the differentiable entry (its forward and backward run with
 grad mode off).
-Both stage float32 chunks of r, k, w and v (and the backward's dy) by TMA
-where every row is 16-byte aligned (:func:`rows_by_tma`; the model's views
-are), by plain loads otherwise; the backward raises where the CUDA
-driver refuses the map of aligned rows.
+Both stage chunks of r, k, w and v (and the backward's dy) by TMA where
+every row is 16-byte aligned (:func:`rows_by_tma`; the model's views are;
+the forward's bfloat16 chunks land raw and are widened in shared memory),
+by plain loads otherwise; the backward raises where the CUDA driver
+refuses the map of aligned rows.
 """
 
 from __future__ import annotations
@@ -51,14 +52,13 @@ _BWD_ARGTYPES = (_P,) * 16 + (_LL,) * 4 + (_LL,) * 9 + (_P,)
 
 
 def rows_by_tma(x: torch.Tensor) -> bool:
-    """True where the kernel stages this (B, H, T, hd) CUDA view by TMA (its
-    rows on 16 bytes and the driver takes the map), False where by plain
-    loads (csrc/wkv6.cu, ``rows_map``; bfloat16 always).  Builds the kernels."""
-    if x.dtype != torch.float32:
-        return False
-    fn = _build.entry(SOURCE, "wkv6_rows_tma", (_P,) + (_LL,) * 7)
+    """True where the kernel stages this (B, H, T, hd) float32 or bfloat16
+    CUDA view by TMA (its rows on 16 bytes and the driver takes the map),
+    False where by plain loads (csrc/wkv6.cu, ``rows_map``).  Builds the
+    kernels."""
+    fn = _build.entry(SOURCE, "wkv6_rows_tma", (_P,) + (_LL,) * 8)
     b, h, t, hd = x.shape
-    return bool(fn(x.data_ptr(), b, h, t, hd, *x.stride()[:3]))
+    return bool(fn(x.data_ptr(), b, h, t, hd, *x.stride()[:3], x.element_size()))
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device,

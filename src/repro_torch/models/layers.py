@@ -53,6 +53,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 # -- GLU MLP ------------------------------------------------------------------
 
+def sigmoid(x):
+    """``jax.nn.sigmoid``.  Below float32 the reference computes it as XLA
+    expands it, 1 / (1 + exp(-x)) with each step rounded to x's dtype
+    (``torch.sigmoid`` rounds once); float32 keeps ``torch.sigmoid``."""
+    return torch.sigmoid(x) if x.dtype == torch.float32 else 1 / (1 + torch.exp(-x))
+
+
+def silu(x):
+    """``jax.nn.silu``, x * sigmoid(x): below float32 the sigmoid is rounded
+    before the product, as in the reference (``F.silu`` rounds once);
+    float32 keeps ``F.silu``."""
+    return F.silu(x) if x.dtype == torch.float32 else x * sigmoid(x)
+
+
 def glu_mlp_decl(d_model: int, d_ff: int) -> dict:
     return {
         "w_gate": pr.normal((d_model, d_ff), ("embed", "mlp"), fan_in=d_model),
@@ -64,7 +78,7 @@ def glu_mlp_decl(d_model: int, d_ff: int) -> dict:
 def glu_mlp(p, x, compute_dtype=None):
     dt = compute_dtype or x.dtype
     x = x.to(dt)
-    gate = F.silu(x @ p["w_gate"].to(dt))
+    gate = silu(x @ p["w_gate"].to(dt))
     up = x @ p["w_up"].to(dt)
     return (gate * up) @ p["w_down"].to(dt)
 

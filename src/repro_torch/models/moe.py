@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import params as pr
 from repro_torch.models.config import ArchConfig, MoEConfig
-from repro_torch.models.layers import glu_mlp, glu_mlp_decl
+from repro_torch.models.layers import glu_mlp, glu_mlp_decl, silu
 from repro_torch.utils.tree import subtree
 
 
@@ -99,7 +99,7 @@ def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig):
 
     # expert GLU: (E, C, D) x (E, D, F)
     ex = subtree(p, "experts")
-    gate = F.silu(torch.bmm(buf, ex["w_gate"].to(dt)))
+    gate = silu(torch.bmm(buf, ex["w_gate"].to(dt)))
     up = torch.bmm(buf, ex["w_up"].to(dt))
     expert_out = torch.bmm(gate * up, ex["w_down"].to(dt))
 

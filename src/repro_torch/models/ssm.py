@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 from repro_torch.models import params as pr
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import sigmoid, silu
 from repro_torch.utils.tree import subtree
 
 _RWKV_LORA = 64
@@ -91,7 +92,7 @@ def _time_inputs(p, x, x_prev, cfg: ArchConfig):
     r = shift(p["mu_r"]) @ p["w_r"].to(dt)
     k = shift(p["mu_k"]) @ p["w_k"].to(dt)
     v = shift(p["mu_v"]) @ p["w_v"].to(dt)
-    g = F.silu(shift(p["mu_g"]) @ p["w_g"].to(dt))
+    g = silu(shift(p["mu_g"]) @ p["w_g"].to(dt))
     # data-dependent decay (the RWKV6 novelty)
     wx = shift(p["mu_w"]).float()
     wmod = torch.tanh(wx @ p["decay_a"].float()) @ p["decay_b"].float()
@@ -128,7 +129,7 @@ def _rwkv_chan_step(p, x_t, x_prev, cfg: ArchConfig):
 
     k = shift(p["mu_k"]) @ p["w_k"].to(dt)
     v = torch.square(F.relu(k)) @ p["w_v"].to(dt)
-    r = torch.sigmoid(shift(p["mu_r"]) @ p["w_r"].to(dt))
+    r = sigmoid(shift(p["mu_r"]) @ p["w_r"].to(dt))
     return r * v
 
 
@@ -260,9 +261,9 @@ def mamba_forward(p, x, cfg: ArchConfig, state=None):
     xz = x.to(dt_) @ p["in_proj"].to(dt_)
     u, z = torch.split(xz, [di, di], dim=-1)
     u, conv_state = _causal_conv(p, u, cfg, state["conv"])
-    u = F.silu(u)
+    u = silu(u)
     y, ssm_state = _mamba_ssm_scan(p, u, cfg, state["ssm"])
-    y = y.to(dt_) * F.silu(z)
+    y = y.to(dt_) * silu(z)
     out = y @ p["out_proj"].to(dt_)
     return out.to(x.dtype), {"conv": conv_state, "ssm": ssm_state}
 

@@ -600,6 +600,83 @@ def test_wkv6_new_head_dims_equal_plain(cuda, dtype, hd, shape):
         torch.testing.assert_close(s, s_p, rtol=2e-5, atol=2e-5 * float(s_p.abs().max()))
 
 
+# B.6's bfloat16 staging (K/V rings of 64-key tiles, q as one TMA box of G
+# heads by whole positions): b, h, kvh, s, t, hd, causal, window, softcap
+BF16_STAGING = [
+    (1, 7, 1, 70, 70, 64, True, None, None),      # G = 7, a last K/V tile of 6 keys
+    (2, 14, 2, 300, 300, 64, True, None, None),   # G = 7, rows past S in the last CTA
+    (2, 4, 4, 30, 30, 64, True, None, None),      # G = 1, one K/V tile: the ring's first alone
+    (1, 7, 1, 65, 129, 8, False, None, None),     # hd 8 zero-padded to one k16 step
+    (2, 14, 2, 200, 200, 16, True, 24, 20.0),     # hd 16, window, softcap
+    (1, 8, 2, 200, 200, 80, True, 64, None),      # hd 80: panels of 64 and 16
+    (1, 8, 4, 130, 130, 128, True, None, 50.0),   # hd 128: two panels of 64
+    (1, 128, 1, 40, 40, 128, True, None, None),   # G = 128: q's box too big, q by cp.async
+    (1, 128, 1, 40, 40, 64, True, None, None),    # the same at hd 64
+]
+
+
+def _lse_ref(q, k, v, causal, window, softcap):
+    """The row log-sum-exp of the plain version's float32 scores."""
+    g = q.shape[1] // k.shape[1]
+    s = q.float() @ k.float().repeat_interleave(g, 1).transpose(-1, -2) / q.shape[-1] ** 0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    i = torch.arange(q.shape[2], device=q.device)[:, None]
+    j = torch.arange(k.shape[2], device=q.device)[None]
+    ok = (i >= j) if causal else torch.ones_like(i >= j)
+    if window is not None:
+        ok = ok & (i - j < window)
+    return torch.logsumexp(torch.where(ok, s, torch.full_like(s, MASKED)), -1)
+
+
+@pytest.mark.parametrize("layout", ["model", "dense", "off16"])
+@pytest.mark.parametrize("case", BF16_STAGING)
+def test_flash_attention_bf16_staging_edges_equal_plain(cuda, case, layout):
+    """B.6's bfloat16 instances (bfloat16 products, raw tiles staged by TMA
+    on the model's strided views and dense ones, by plain loads where rows
+    are off 16 bytes, which no copy takes): the output within one bfloat16
+    ulp plus the float32 tolerance of the plain version, lse at the float32
+    tolerance of the plain log-sum-exp."""
+    b, h, kvh, s, t, hd, causal, window, softcap = case
+    q, k, v = (x.bfloat16() for x in _flash_inputs(b, h, kvh, s, t, hd, s + t + hd, cuda,
+                                                    layout == "model"))
+    if layout == "off16":  # every row one bfloat16 past a 16-byte boundary
+        q, k, v = (torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
+                   .copy_(x) for x in (q, k, v))
+    assert fk.rows_by_tma(k) == (layout != "off16")
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = fk.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.stride() == q.stride()
+    _bf16_close(out, attention_ref(q, k, v, **kw), SERVE_TOL["atol"])
+    torch.testing.assert_close(lse, _lse_ref(q, k, v, **kw), **SERVE_TOL)
+
+
+@pytest.mark.parametrize("layout", ["model", "off16"])
+@pytest.mark.parametrize("hd,t", [(64, 256), (64, 100), (32, 33), (16, 70), (8, 1)])
+def test_wkv6_bf16_is_bit_equal_to_float32_on_widened_inputs(cuda, hd, t, layout):
+    """B.7's bfloat16 instances widen each chunk (by TMA on the model's
+    views, a last chunk shorter than the double buffer's where T is ragged;
+    plain loads on rows off 16 bytes) and run the float32 kernel's steps:
+    y and the final state equal the float32 kernel's on the widened inputs
+    bit for bit, from zero and from a given state."""
+    b, h = 2, 8
+    r, k, v, w, u = (x.bfloat16() for x in _wkv_inputs(b, h, t, hd, t + hd, cuda))
+    if layout == "off16":  # rows of H hd + 1 values: off 16 bytes
+        def odd(x):
+            flat = torch.empty((b, t, h * hd + 1), dtype=x.dtype, device=cuda)[:, :, :h * hd]
+            return flat.unflatten(2, (h, hd)).permute(0, 2, 1, 3).copy_(x)
+
+        r, k, v, w = (odd(x) for x in (r, k, v, w))
+    assert wk.rows_by_tma(r) == (layout == "model")
+    for s0 in (None, torch.randn((b, h, hd, hd), device=cuda)):
+        y, s = wk.wkv6_scan(r, k, v, w, u, s0)
+        y32, s32 = wk.wkv6_scan(*(x.float() for x in (r, k, v, w, u)), s0)
+        torch.cuda.synchronize()
+        assert torch.equal(s, s32)
+        assert torch.equal(y, y32.bfloat16())
+
+
 def test_bf16_inputs_train_through_the_float32_backwards(cuda):
     """``ops.flash_attention`` and ``ops.wkv6`` on bfloat16 inputs that
     require grad: one forward (bfloat16) and one backward (float32) launch
