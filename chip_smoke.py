@@ -49,7 +49,8 @@ version:
            (K = 10, ER(p = 0.3) seed 0, Metropolis W, mu = 6, T = 300,
            lr = sqrt(K/T), B = 55, MLP 784-128-64-10): DR-DSGD with the
            uncompressed dense wire (SGD and the static W fused into B.1,
-           one grouped launch per step over every leaf: 300 launches), then
+           one grouped launch per step over every leaf: 300 launches, the
+           step captured in CUDA graphs, jit=True's default), then
            with the int8 error-feedback wire served by the CUDA quantizer
            (one grouped B.2 launch per round: 300); no plain version
            called; both must print the per-leaf launches' loss_step300,
@@ -105,7 +106,7 @@ version:
            compressed gossip stacks vs the CPU's plain versions with the
            same uniforms and W_r, at the printed tolerances.
   codecs   fig7's fmnist task (K = 8 ring, Metropolis W, DR-DSGD mu = 3, B =
-           55, lr 0.18, 200 steps (the figure's 400, halved), clipped at 2
+           55, lr 0.18, 100 steps (the figure's 400, quartered), clipped at 2
            as the figure's runner clips, lr_compensate off): dense none (fused B.1), bf16, int8,
            int4, topk 2 % (EF, default gamma) and int8 on the kernel (B.2
            once per round), gossip topk and randk 2 % over the ring's
@@ -121,18 +122,18 @@ version:
            14 rounds of each scheduled kernel stack (dense and gossip EF,
            adaptive and linear) against the CPU with the same uniforms; one
            scheduled round synchronising no more than an unscheduled one
-           (CUDA's sync debug mode); then 300 fmnist steps (fig8's 600,
-           halved) of int8_fixed,
+           (CUDA's sync debug mode); then 150 fmnist steps (fig8's 600,
+           quartered) of int8_fixed,
            int4_fixed, int8_adaptive (threshold 1, warmup 10) and
-           int8_linear (anneal 150) on the per-node quantizer, and of
+           int8_linear (anneal 75) on the per-node quantizer, and of
            int8_adaptive and int8_linear on the kernel quantizer over the
            dense and the gossip EF lowering (B.2 with the rate as qmax once
            per round: every launch counted as a tensor-qmax launch), each
            printing its rate at rounds 0, 10 and the last, its wire bits and
            worst-distribution accuracy.
   dynamics fig9's local-update rows and faults on fig7's task (K = 8 ring,
-           DR-DSGD mu = 3, B = 55, lr 0.18, clipped at 2, 200 steps: the
-           figure's 400, halved): dense
+           DR-DSGD mu = 3, B = 55, lr 0.18, clipped at 2, 100 steps: the
+           figure's 400, quartered): dense
            dropout 0.2 at H = 2 and 4 and at H = 4 with gradient tracking
            (its consensus rounds bill 2x the H = 4 run's, local rounds 0);
            dense stragglers 0.1 with outages 0.05 over windows of 10, with
@@ -157,7 +158,7 @@ version:
            the hub at H = 1 (disagreement at float noise at the end), FedAvg
            and SCAFFOLD at H = 4 (SCAFFOLD's consensus rounds bill 2x), and
            int8 FedAvg at H = 4 on the kernel quantizer (grouped B.2 over the
-           star W once per consensus round: 100 launches).
+           star W once per consensus round: 25 launches).
   ckpt     fig7's fmnist task (K = 8 ring) through the fused B.1 step, the
            EF int8 gossip wire re-based every 4 under dropout 0.2 and the
            memoryless int8 gossip wire under stragglers 0.1: saved at step
@@ -192,21 +193,35 @@ version:
            above off.  Each part's wall seconds.  The engine phase's
            float32 CLI run writes its JSONL under ``--log-dir``.
   bwd-kernel  B.6's backward against autograd of the plain version at
-           qwen2-0.5b's training shapes (B 2, H 14/2, hd 64, S = T = 64 and
-           512), deepseek-moe-16b's (B 2, H 16/16, S 64, hd 128) and
+           qwen2-0.5b's training shapes (the node axis's B 16 = K 8 x B 2
+           and B 2, H 14/2, hd 64, S = T = 64; B 2 at 512),
+           deepseek-moe-16b's (B 2, H 16/16, S 64, hd 128) and
            musicgen-medium's (B 2, H 24/24, S 320, hd 64), and at the
            serving shapes below, dq, dk and dv within
            BWD_REL of their largest |value|; times as below, with SDPA's
            backward as the yardstick (never on the path): its backend
            pinned (sdpa_yardstick), timed as a call and as device time.
+  compiled A.14's captured step against the eager one: the same weights
+           and batches through jit=False and jit=True in turns (eager,
+           captured, captured, eager) in one process, fmnist dense-none (300
+           steps) and qwen2-0.5b at full width and depth (K = 8, seq 64, 5
+           steps): final parameters and metrics bit-equal to the first eager
+           turn's, one captured program per trainer (the watchdog), exact
+           launches, the counters' launches of a profiled run equal to the
+           profiler's, the captured qwen2 step's peak memory no more than
+           the eager step's (within COMPILED_PEAK_MARGIN of a node-stacked
+           copy); ms per step, device ops per step, busy share, peak
+           memory per turn.
   train-lm qwen2-0.5b at full width and depth through the training CLI
            (train_lm's defaults: K = 8 ring, batch 2, seq 64, lr 0.01, clip
-           1), 20 steps: B.6 forward and backward 24 x 8 per step, grouped
-           B.1 once per step over the 14 leaves, no plain call; every
+           1; the step captured), 20 steps: B.6 forward and backward 24 per
+           step (the node axis: K x B = 16 rows in one launch per layer),
+           grouped B.1 once per step over the 14 leaves, no plain call; every
            metric finite, the first batch's loss lower after the run, ms
            per step, tokens per second, peak memory, one profiled step
-           (with B.6's device time in it).  Then seq 512 at K = 4, 5 steps
-           (multi-tile B.6 backward).
+           (with B.6's device time in it); the TMA audit around the run (the
+           warm-up step's and the capture's B.6 calls).  Then seq 512 at
+           K = 4, 5 steps (multi-tile B.6 backward).
   train-parity  qwen2-0.5b cut to 2 layers at full width, K = 4, 3 steps:
            the same weights and tokens on the card and on the CPU, losses
            and every leaf within TRAIN_PARITY_REL, updates within
@@ -232,7 +247,7 @@ version:
            every entry's update within RWKV_UPDATE_REL of the largest
            update, or within UPDATE_ULPS ulps of its own value).
   serve-kernel  flash attention (B.6) at qwen2-0.5b's prefill and training
-           shapes, at hd 80 and 128 with windows 4096 and 64 and gemma2's
+           shapes (B 2 and the folded B 16), at hd 80 and 128 with windows 4096 and 64 and gemma2's
            softcap 50, at G = 1, at a ragged S = 300, at the LM example's
            hd 32 (HD32_CASE; bwd-kernel too) and on A.11's paths
            (A11_FWD_CASES: deepseek-moe-16b's prefill and training shape at
@@ -858,7 +873,7 @@ def phase_kernel(mlp_leaves, cnn_leaves) -> dict:
         n_blk = qk.num_blocks(d, block_d)
         for name, (call, plain) in calls.items():
             ms = cuda_ms(call)
-            plain_ms = cuda_ms(plain)
+            plain_ms = cuda_ms(plain, iters=50, warmup=5)
             dev = device_time(call, 50, KERNELS[name][2])
             dev_ms = dev["device_ms"]
             bound, by = kernel_bound(name, k, d, n_blk)
@@ -1684,11 +1699,11 @@ def phase_parity(spec_cls, cfg_cls) -> dict:
 FIG_K = 8                  # fig7/fig8: K = 8 ring, Metropolis W, DR-DSGD mu = 3
 FIG_MU = 3.0
 FIG_CLIP = 2.0             # run_decentralized's grad_clip, the figures' default
-FIG7_STEPS = 200           # fig7's 400 steps, halved to keep the smoke in its time
+FIG7_STEPS = 100           # fig7's 400 steps, quartered to keep the smoke in its time
 FIG7_FMNIST = (55, 0.18)   # batch, lr (benchmarks/fig7_compression.py _TASK)
 FIG7_CIFAR = (40, 0.05)
 FIG7_RATIO = 0.02          # topk2pct
-FIG8_STEPS = 300           # fig8's 600 steps, halved likewise
+FIG8_STEPS = 150           # fig8's 600 steps, quartered likewise
 FIG8_ANNEAL = FIG8_STEPS // 2
 SCHED_PARITY_ROUNDS = 14   # past fig8's warmup of 10 rounds
 SCHED_RATE_RTOL = 1e-4     # adaptive rate, card vs CPU (res_norm's summation order)
@@ -1801,8 +1816,8 @@ def _fig_run(tag, name, spec, model, data, steps, want_counts, mixer=None) -> di
 
 def phase_codecs(spec_cls, cfg_cls) -> dict:
     """fig7: every codec on the fmnist task (K = 8 ring, DR-DSGD mu = 3, B =
-    55, lr 0.18, 200 steps, clipped at 2, lr_compensate off) over the dense
-    lowering — none (the fused B.1 step), bf16, int8, int4, topk 2 % (EF,
+    55, lr 0.18, FIG7_STEPS steps, clipped at 2, lr_compensate off) over the
+    dense lowering — none (the fused B.1 step), bf16, int8, int4, topk 2 % (EF,
     default gamma), int8 on the kernel (B.2 once per round) — and topk and
     randk 2 % over the ring's gossip matchings; then the CNN (B = 40, lr
     0.05, clipped at 2) with int4 and topk 2 %, cut from 400 to CIFAR_STEPS
@@ -2042,8 +2057,8 @@ def _sync_counts(cfg_cls) -> dict:
 
 def phase_schedules(spec_cls, cfg_cls, mlp_leaves, cnn_leaves) -> dict:
     """fig8: int8_fixed, int4_fixed, int8_adaptive (threshold 1.0, warmup
-    10) and int8_linear (anneal 150) on the per-node quantizer, 300 fmnist
-    steps (K = 8 ring, mu = 3, B = 55, lr 0.18, clipped at 2); then
+    10) and int8_linear (anneal FIG8_ANNEAL) on the per-node quantizer,
+    FIG8_STEPS fmnist steps (K = 8 ring, mu = 3, B = 55, lr 0.18, clipped at 2); then
     int8_adaptive and int8_linear on the kernel quantizer, over the dense
     lowering (grouped B.2 once per round, qmax the rate on the card) and
     the static EF gossip lowering (grouped B.2 once per round, grouped B.3
@@ -2077,8 +2092,8 @@ def phase_schedules(spec_cls, cfg_cls, mlp_leaves, cnn_leaves) -> dict:
 
 # -- faults, local updates and the federated hub (fig9, fig11) ----------------
 
-FIG9_STEPS = 200            # fig9/fig11's 400 steps (benchmarks/fig9_dynamics.py,
-                            # fig11_hub.py), halved likewise
+FIG9_STEPS = 100            # fig9/fig11's 400 steps (benchmarks/fig9_dynamics.py,
+                            # fig11_hub.py), quartered likewise
 FIG9_DROP = 0.2             # fig9's dropout under the local-update rows
 FIG9_FAULTS = dict(straggler_p=0.1, outage_p=0.05, outage_len=10)
 EF_LOCAL = (4, 2)           # the EF gossip row: re-base period B, local-update period H
@@ -2423,7 +2438,7 @@ def _dyn_parity(cfg_cls) -> dict:
 
 def phase_dynamics(spec_cls, cfg_cls) -> dict:
     """fig9's local-update rows and faults on fig9's task (K = 8 ring,
-    Metropolis W, DR-DSGD mu = 3, B = 55, lr 0.18, clipped at 2, 200 steps,
+    Metropolis W, DR-DSGD mu = 3, B = 55, lr 0.18, clipped at 2, FIG9_STEPS steps,
     lr_compensate off): dense dropout 0.2 at H = 2 and 4, and H = 4 with
     gradient tracking (its consensus rounds bill 2× the H = 4 run's, on the
     same W_r); dense stragglers 0.1 with outages 0.05 over windows of 10,
@@ -2638,6 +2653,8 @@ def wkv6_bound(b, h, t, hd, given_state: bool = False,
 # B.6 at the LM example's shape (examples/torch_train_lm_drdsgd.py's
 # defaults: batch 4, seq 128, d_model 256 over 8 heads of 32, 2 KV heads)
 HD32_CASE = "LM example: hd 32"
+# qwen2-0.5b's training step with the node axis: K = 8 nodes x batch 2 in B.6's batch
+FOLDED_CASE = "qwen2-0.5b train S 64, K = 8 folded"
 # B.6 on A.11's paths (tag, b, h, kvh, s, hd, window, softcap): deepseek-moe-16b's
 # static prefill (serve-moe) and training step (train-moe) at hd 128, and
 # musicgen-medium's 256 frames + 64 text tokens (frontend); the backward
@@ -2684,7 +2701,10 @@ def tma_audit(fn, dtypes: list | None = None) -> dict:
     checked first by :func:`need_tma` on the views it copies by TMA: the
     forward's k and v, the backward's q, k, v, out and dout; each forward's
     q dtype is appended to ``dtypes`` when given.  Returns the calls
-    checked, {"fwd": n, "bwd": n}."""
+    checked, {"fwd": n, "bwd": n}.  A replay of the trainer's captured step
+    calls no wrapper: audit a run that captures (train-lm wraps the CLI's
+    run: its eager warm-up step and its capture), or a ``jit=False``
+    step."""
     import types
 
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -2731,6 +2751,7 @@ def phase_serve_kernels() -> dict:
     flash_cases = [  # tag, b, h, kvh, s, hd, window, softcap
         ("qwen2-0.5b prefill", 4, 14, 2, 512, 64, None, None),
         ("qwen2-0.5b train S 64", 2, 14, 2, 64, 64, None, None),
+        (FOLDED_CASE, LM_NODES * LM_BATCH, 14, 2, LM_SEQ, 64, None, None),
         ("hd 80, window 4096", 2, 32, 8, 512, 80, 4096, None),
         ("hd 128, window 64, softcap 50", 2, 32, 16, 512, 128, 64, 50.0),
         ("G = 1", 2, 8, 8, 512, 64, None, None),
@@ -3595,14 +3616,15 @@ def phase_gossip_update_kernels(mlp_leaves) -> dict:
     # stacked: every fmnist leaf (K = 10, the paper's W) and every qwen2 leaf (K = 8 ring)
     lm_shapes = {n: tuple(t.shape) for n, t in _serve_model(LM_ARCH).param_shapes().items()}
     cases = [("mlp", leaf, K, (d,), w_fm) for leaf, d in mlp_leaves]
+    eta = torch.full((), 0.01, device="cuda")  # η as the train step hands it over: by pointer
     w_ring = metropolis_weights(ring_graph(LM_NODES))
     cases += [("qwen2", leaf, LM_NODES, shape, w_ring) for leaf, shape in sorted(lm_shapes.items())]
     for group, leaf, k, shape, w_np in cases:
         theta, grad = randn(k, *shape), randn(k, *shape)
         w = torch.from_numpy(np.asarray(w_np, np.float32)).cuda()
         s = torch.rand((k,), generator=gen, device="cuda") + 0.5
-        got = gk.gossip_update_stacked(theta, grad, w, s, eta=0.01)
-        want = gref.gossip_update_stacked_ref(theta, grad, w, s, eta=0.01)
+        got = gk.gossip_update_stacked(theta, grad, w, s, eta=eta)
+        want = gref.gossip_update_stacked_ref(theta, grad, w, s, eta=eta)
         err, rel = float((got - want).abs().max()), _rel_err(got, want)
         rec = out["gossip_update_stacked"]
         rec["max_abs_err"], rec["max_rel_err"] = max(rec["max_abs_err"], err), \
@@ -3613,8 +3635,8 @@ def phase_gossip_update_kernels(mlp_leaves) -> dict:
         del got, want
         big = theta.numel() > 1 << 26
         t = _time_call("gossip_update_stacked",
-                       lambda: gk.gossip_update_stacked(theta, grad, w, s, eta=0.01),
-                       lambda: gref.gossip_update_stacked_ref(theta, grad, w, s, eta=0.01),
+                       lambda: gk.gossip_update_stacked(theta, grad, w, s, eta=eta),
+                       lambda: gref.gossip_update_stacked_ref(theta, grad, w, s, eta=eta),
                        10 if big else 100, 3 if big else 20)
         bound, by = gossip_bound(k, theta.numel() // k, None)
         row = dict(group=group, leaf=leaf, k=k, d=theta.numel() // k, max_rel_err=rel, **t,
@@ -3657,23 +3679,24 @@ def _stacked_grouped(groups, gen, plain_ms) -> dict:
                    stacked_cols=gk.STACKED_COLS, node_nbr_pool=gk.NODE_NBR_POOL):
         raise AssertionError(f"[b1-kernel] gossip_update.cu's sizes {cfg} are not the wrapper's")
     out = dict(max_abs_err=0.0, max_rel_err=0.0, rows=[], **cfg)
+    eta = torch.full((), 0.01, device="cuda")  # η as the train step hands it over: by pointer
     for group, k, shapes, w_np in groups:
         thetas = [torch.randn((k, *shape), generator=gen, device="cuda") for shape in shapes]
         grads = [torch.randn((k, *shape), generator=gen, device="cuda") for shape in shapes]
         w = torch.from_numpy(np.asarray(w_np, np.float32)).cuda()
         s = torch.rand((k,), generator=gen, device="cuda") + 0.5
         before = gk.gossip_update_stacked_grouped.launches
-        got = gk.gossip_update_stacked_grouped(thetas, grads, w, s, eta=0.01)
+        got = gk.gossip_update_stacked_grouped(thetas, grads, w, s, eta=eta)
         launches = gk.gossip_update_stacked_grouped.launches - before
         if launches != len(gk.leaf_tables([t.numel() // k for t in thetas])):
             raise AssertionError(f"[b1-kernel] grouped stacked {group}: {launches} launches")
         for i in range(len(shapes)):
-            one = gk.gossip_update_stacked(thetas[i], grads[i], w, s, eta=0.01)
+            one = gk.gossip_update_stacked(thetas[i], grads[i], w, s, eta=eta)
             if not torch.equal(got[i], one):
                 raise AssertionError(f"[b1-kernel] grouped stacked {group} leaf {i} != the "
                                      f"one-leaf kernel (max abs err {_max_diff(got[i], one)})")
             del one
-            want = gref.gossip_update_stacked_ref(thetas[i], grads[i], w, s, eta=0.01)
+            want = gref.gossip_update_stacked_ref(thetas[i], grads[i], w, s, eta=eta)
             diff = (got[i] - want).abs_()  # float32: a qwen2 leaf in double would not fit
             err = float(diff.max())
             rel = err / max(float(want.abs().max()), 1e-30)
@@ -3689,11 +3712,11 @@ def _stacked_grouped(groups, gen, plain_ms) -> dict:
         iters = 5 if big else 200
 
         def grouped():
-            gk.gossip_update_stacked_grouped(thetas, grads, w, s, eta=0.01)
+            gk.gossip_update_stacked_grouped(thetas, grads, w, s, eta=eta)
 
         def one_leaf():
             for theta, grad in zip(thetas, grads):
-                gk.gossip_update_stacked(theta, grad, w, s, eta=0.01)
+                gk.gossip_update_stacked(theta, grad, w, s, eta=eta)
 
         readings = {"one_leaf": [], "grouped": []}
         for side in ("one_leaf", "grouped", "grouped", "one_leaf"):
@@ -3738,7 +3761,8 @@ def phase_flash_bwd_kernels() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(99)
     scrub = torch.empty(64 << 20, device="cuda")  # 256 MB written between cold calls: 5x L2
-    cases = [  # tag, b, h, kvh, s, hd, window, softcap
+    cases = [  # tag, b, h, kvh, s, hd, window, softcap; the first is the main path's
+        (FOLDED_CASE, LM_NODES * LM_BATCH, 14, 2, LM_SEQ, 64, None, None),
         ("qwen2-0.5b train S 64", 2, 14, 2, 64, 64, None, None),
         ("qwen2-0.5b train S 512", 2, 14, 2, 512, 64, None, None),
         ("qwen2-0.5b prefill", 4, 14, 2, 512, 64, None, None),
@@ -3816,14 +3840,25 @@ FLASH_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms
               "library_device_ms", "library_backend")
 
 
-def _lm_counts(nodes: int, steps: int, layers: int, leaves: int, pair=LM_PAIR) -> dict:
+def _lm_counts(nodes: int, steps: int, layers: int, leaves: int, pair=LM_PAIR,
+               folded: bool = False) -> dict:
     """Launches of one LM training run: the layers' kernel forward and
     backward (``pair``: B.6 on attention layers, RWKV_PAIR on rwkv layers)
-    on each of the ``layers`` that run it (_pair_layers) of every node, B.1
-    once per 16 leaves, every step."""
-    per = steps * nodes * layers
+    on each of the ``layers`` that run it (_pair_layers) of every node, or
+    once for all nodes where the forward takes the node axis (``folded``:
+    _folded), B.1 once per 16 leaves, every step."""
+    per = steps * layers * (1 if folded else nodes)
     return {pair[0]: per, pair[1]: per,
             "gossip_update_stacked_grouped": steps * -(-leaves // 16)}
+
+
+def _folded(cfg, pair=LM_PAIR) -> bool:
+    """Whether a training step of ``cfg`` launches B.6 once per layer for
+    all its nodes (a dense LM: the node axis folds K into B.6's batch)
+    rather than once per layer of every node."""
+    from repro_torch.models.transformer import node_axis_declined
+
+    return pair == LM_PAIR and node_axis_declined(cfg) is None
 
 
 def _pair_layers(cfg, pair=LM_PAIR) -> int:
@@ -3899,7 +3934,7 @@ def _lm_run_record(tag: str, trainer, state, model, nodes: int, seq: int, histor
 
     cfg = model.cfg
     check_counts(tag, counts, _lm_counts(nodes, len(history), _pair_layers(cfg, pair),
-                                         len(state.params), pair))
+                                         len(state.params), pair, _folded(cfg, pair)))
     for r in history:
         for key, x in r.items():
             if isinstance(x, float) and not math.isfinite(x):
@@ -3921,11 +3956,316 @@ def _lm_run_record(tag: str, trainer, state, model, nodes: int, seq: int, histor
     return rec
 
 
+COMPILED_TURNS = ("eager", "captured", "captured", "eager")  # in one process, alternated
+COMPILED_LM_STEPS = 5        # qwen2-0.5b steps of each turn, compared after the last
+# the captured qwen2 step's peak allocated memory may pass the eager step's by
+# this share of one node-stacked copy (158 MB of 15.8 GB at K = 8): what the
+# captured run keeps beside the step (the capture's stream and its library
+# workspaces, the packed inputs, the metrics buffer; 67 MB measured)
+COMPILED_PEAK_MARGIN = 0.01
+COMPILED_PROFILED = {"gossip_update_stacked_grouped": "gossip_update_stacked_grouped_kernel",
+                     "flash_attention_fwd": "flash_fwd_mma_kernel",
+                     "flash_attention_bwd": "bwd_mma_kernel"}  # counter -> its kernel's name
+COMPILED_PROFILE_TRIES = 3
+COMPILED_PROFILED_STEPS = (20, 2)  # the profiled run's steps: fmnist, qwen2-0.5b
+LEAD_FILL = "FillFunctor<short>"  # the lead fills' kernel, which no step launches
+
+
+def _busy_us(prof, skip: str) -> float:
+    """The device's busy time in a profile: the union of its device events'
+    intervals (a name holding ``skip`` left out), so overlapping events
+    count once."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and skip not in e.name)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy
+
+
+def _mode_profile(trainer, box, batches, names) -> dict:
+    """One run of the stacked ``batches`` (n steps) from ``box[0]``
+    (replaced) under the profiler, its window opened by PROFILE_LEAD int16
+    fills (see device_time; left out of the readings): wall and device-busy
+    ms per step, the busy share, device ops per step, and per kernel of
+    ``names`` (counter names of COMPILED_PROFILED) its launches in the
+    profile beside the launch counters'.  A window whose profile disagrees
+    with the counters is retried with 4x the fills, at most
+    COMPILED_PROFILE_TRIES times; then the phase fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    lead = torch.empty(1, dtype=torch.int16, device="cuda")
+    seen = []
+    for attempt in range(COMPILED_PROFILE_TRIES):
+        before = kernel_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD * 4 ** attempt):
+                lead.fill_(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            box[0], _ = trainer.run(box[0], batches)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        after = kernel_counts()
+        dev = [e for e in device_events(prof.key_averages()) if LEAD_FILL not in e.key]
+        busy_us = _busy_us(prof, LEAD_FILL)
+        launches = {n: (after[n][0] - before[n][0],
+                        sum(e.count for e in dev if COMPILED_PROFILED[n] in e.key))
+                    for n in names}
+        seen.append(launches)
+        if all(c == p for c, p in launches.values()):
+            n = batches[0].shape[0]
+            return dict(steps=n, wall_ms_per_step=1e3 * wall / n,
+                        device_busy_ms_per_step=busy_us / 1e3 / n,
+                        device_busy_share=busy_us / 1e6 / wall,
+                        device_ops_per_step=sum(e.count for e in dev) / n,
+                        launches_counter_vs_profiler=launches, windows=attempt + 1)
+    raise AssertionError(f"[compiled] the profiler's launches never matched the counters "
+                         f"(counter, profiler) per window: {seen}")
+
+
+def _update_rule(params, ref: dict, start: dict) -> dict:
+    """``params`` against ``ref`` (host copies) by the train-parity rule:
+    every entry within RWKV_UPDATE_REL of the largest update of ``ref``
+    from ``start`` (one node's initial leaves), or within UPDATE_ULPS
+    float32 ulps of its own value."""
+    import torch
+
+    largest = max(float((ref[n] - start[n].unsqueeze(0)).abs().max()) for n in ref)
+    outside, worst = 0, 0.0
+    for n in ref:
+        got = params[n].cpu()
+        diff = (got - ref[n]).abs()
+        ulp = torch.nextafter(ref[n].abs(), torch.tensor(math.inf)) - ref[n].abs()
+        bad = (diff > RWKV_UPDATE_REL * largest) & (diff > UPDATE_ULPS * ulp)
+        outside += int(bad.sum())
+        worst = max(worst, float(diff.max()) / largest)
+    return dict(largest_update=largest, worst_rel_to_largest_update=worst,
+                entries_outside=outside, rtol=RWKV_UPDATE_REL, ulps=UPDATE_ULPS)
+
+
+DIGEST_ROW = 1 << 24  # elements per digest row
+
+
+def _digests(params: dict) -> dict:
+    """Per leaf, a bitwise digest on the card: for each row of DIGEST_ROW
+    elements, the sum of the elements' 32-bit patterns times fixed odd
+    64-bit multipliers, wrapping mod 2**64 (a linear hash: two leaves whose
+    bits differ anywhere give a different row sum but for one chance in
+    2**64).  Bit-equality of node-stacked copies without a second copy on
+    the card or a host round trip of each."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2 ** 31 - 1)
+    mult = torch.randint(-2 ** 62, 2 ** 62, (DIGEST_ROW,), generator=gen, device="cuda",
+                         dtype=torch.int64) | 1
+    out = {}
+    for name, x in params.items():
+        bits = x.contiguous().view(torch.int32).reshape(-1)
+        rows = [bits[i:i + DIGEST_ROW] for i in range(0, bits.numel(), DIGEST_ROW)]
+        out[name] = tuple(int((r.long() * mult[:r.numel()]).sum()) for r in rows)
+    return out
+
+
+def _mode_turns(tag: str, build, init, batches, steps: int, names, copy_bytes: int,
+                start: dict, profiled_steps: int) -> dict:
+    """COMPILED_TURNS over one configuration: per turn ``build(jit)``'s
+    trainer runs ``steps`` steps of ``batches`` from ``init(trainer)`` (the
+    first alone: the eager step, or the warm-up and capture; the rest
+    timed), its final parameters (their _digests; the first eager turn's
+    leaves kept on the host, so that no turn holds a fourth node-stacked
+    copy on the card) and metrics held against the first eager turn's bit
+    for bit, or else by the train-parity rule (_update_rule, from
+    ``start``), then, in the first turn of each mode, ``profiled_steps``
+    more steps profiled (_mode_profile).  Each turn's record: ms per step
+    over the timed steps, peak memory above the turn's start (and in node-stacked parameter
+    copies of ``copy_bytes``) and peak reserved memory (between replays
+    the graph pool's blocks are reserved, not allocated), the programs the
+    watchdog saw, the launches of the run.  Returns {"turns": [...], "bitwise": per later turn,
+    "leaves": the counts a bit-equal turn has}."""
+    import torch
+
+    from repro_torch.obs import RecompileWatchdog
+
+    out, ref, ref_ms, profiled_modes = [], None, None, set()
+    for turn in COMPILED_TURNS:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = build(turn == "captured")
+        watch = RecompileWatchdog(label=f"compiled {tag}")
+        if turn == "captured":
+            watch.track("run", trainer._run, allowed=1)
+        reset_counts()
+        first = tuple(b[:1] for b in batches)
+        rest = tuple(b[1:steps] for b in batches)
+        box = [trainer.run(init(trainer), first)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # the states are handed over without a name: no step holds a fourth copy
+        state, ms0 = box.pop()
+        box.append(state)
+        del state
+        state, ms = trainer.run(box.pop(), rest)
+        torch.cuda.synchronize()
+        ms_step = 1e3 * (time.perf_counter() - t0) / (steps - 1)
+        counts = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        # the graph pool's blocks count as reserved, not allocated, between replays
+        peak_reserved = torch.cuda.max_memory_reserved() - base_reserved
+        ms = {k: torch.cat([ms0[k], ms[k]]).cpu() for k in ms}
+        rule, differ, digests = None, None, _digests(state.params)
+        if ref is None:
+            ref = {n: t.cpu() for n, t in state.params.items()}
+            ref_ms, ref_digests, equal = ms, digests, None
+        else:
+            equal = dict(params=sum(digests[n] == ref_digests[n] for n in ref),
+                         metrics=sum(bool(torch.equal(ms[k], ref_ms[k])) for k in ref_ms))
+            differ = dict(params=[n for n in ref if digests[n] != ref_digests[n]],
+                          metrics=[k for k in ref_ms if not torch.equal(ms[k], ref_ms[k])])
+            if equal["params"] != len(ref):
+                rule = _update_rule(state.params, ref, start)
+        programs = watch.check() if turn == "captured" else None
+        box = [state]
+        del state
+        profiled = None
+        if turn not in profiled_modes:  # one profiled run per mode
+            profiled_modes.add(turn)
+            profiled = _mode_profile(trainer, box, tuple(b[steps:steps + profiled_steps]
+                                                         for b in batches), names)
+        rec = dict(mode=turn, step=("captured" if trainer.captured
+                                    else f"eager ({trainer.capture_declined})"),
+                   steps=steps, ms_per_step=ms_step, peak_memory_gb=peak / 1e9,
+                   peak_node_stacked_copies=peak / copy_bytes, base_memory_gb=base / 1e9,
+                   peak_reserved_gb=peak_reserved / 1e9,
+                   programs=programs, bitwise_vs_first_eager=equal, differ=differ,
+                   update_rule=rule,
+                   launches={n: c[0] for n, c in counts.items() if c[0]},
+                   plain_calls=sum(c[1] for c in counts.values()), profile=profiled)
+        log(f"[compiled] {tag} {turn}: " + json.dumps(rec))
+        out.append(rec)
+        del box, trainer, watch
+    want_equal = dict(params=len(ref), metrics=len(ref_ms))
+    bitwise = [r["bitwise_vs_first_eager"] == want_equal for r in out[1:]]
+    return dict(turns=out, bitwise=bitwise, leaves=want_equal)
+
+
+def phase_compiled(spec_cls) -> dict:
+    """A.14's captured step on the card against the eager one, the same
+    weights and batches through ``jit=False`` and ``jit=True`` in
+    alternated turns (COMPILED_TURNS) in one process: fmnist dense-none
+    (fmnist_default: K = 10, 300 steps) and qwen2-0.5b at full width and
+    depth (train_lm's stack, K = 8, seq 64, COMPILED_LM_STEPS steps).  Held:
+    every turn's final parameters and metrics bit-equal to the first eager
+    turn's; one captured program per trainer (RecompileWatchdog); exact
+    launches, B.6 once per layer each way per qwen2 step, and the counters'
+    launches of a profiled run equal to the profiler's; the captured qwen2
+    turns' peak memory above the turn's start no more than the eager
+    turns' (COMPILED_PEAK_MARGIN).  fmnist is held bit for bit; qwen2, where
+    a turn is not bit-equal, to the train-parity rule, with the leaves and
+    metrics that differ logged.
+    Prints per turn ms per step, device ops per step, the busy share, peak
+    memory and the launches."""
+    import torch
+
+    from repro_torch.models import make_classifier_loss, make_lm_loss, mlp_apply
+
+    t_phase = time.perf_counter()
+    out = {}
+    exp, fed, _, fm_params = _fmnist()
+    fm_batches = tuple(torch.from_numpy(b).cuda() for b in _sample(
+        fed, exp.steps + COMPILED_PROFILED_STEPS[0], exp.batch_size, exp.seed))
+
+    def fm_build(jit):
+        return _spec(spec_cls, exp, "none", jit=jit).build(make_classifier_loss(mlp_apply),
+                                                           mlp_apply)
+
+    fm_copy = 4 * K * sum(x.numel() for x in fm_params.values())
+    fm = _mode_turns("fmnist dense-none", fm_build, lambda tr: tr.init(fm_params),
+                     fm_batches, exp.steps, ["gossip_update_stacked_grouped"], fm_copy,
+                     {n: t.cpu() for n, t in fm_params.items()}, COMPILED_PROFILED_STEPS[0])
+    model = _serve_model(LM_ARCH)
+    cfg = model.cfg
+    single = model.init(torch.Generator("cuda").manual_seed(0))
+    toks = torch.from_numpy(_lm_tokens(LM_NODES, COMPILED_LM_STEPS + COMPILED_PROFILED_STEPS[1],
+                                       cfg.vocab)).cuda()
+
+    def lm_build(jit):
+        return spec_cls(num_nodes=LM_NODES, graph="ring", lr=0.01, grad_clip=1.0,
+                        jit=jit).build(make_lm_loss(model))
+
+    lm_copy = 4 * LM_NODES * model.num_params()
+    lm = _mode_turns("qwen2-0.5b", lm_build, lambda tr: tr.init(single), (toks,),
+                     COMPILED_LM_STEPS, list(COMPILED_PROFILED), lm_copy,
+                     {n: t.cpu() for n, t in single.items()}, COMPILED_PROFILED_STEPS[1])
+    for tag, run, steps, want in (
+            ("fmnist dense-none", fm, exp.steps, {"gossip_update_stacked_grouped": exp.steps}),
+            ("qwen2-0.5b", lm, COMPILED_LM_STEPS,
+             _lm_counts(LM_NODES, COMPILED_LM_STEPS, cfg.n_layers, len(single),
+                        folded=_folded(cfg)))):
+        for r in run["turns"]:
+            check_counts(f"compiled {tag} {r['mode']}", {n: (r["launches"].get(n, 0), 0)
+                                                         for n in kernel_counts()}, want)
+            if r["plain_calls"]:
+                raise AssertionError(f"[compiled] {tag} {r['mode']}: a plain version ran")
+            if r["mode"] == "captured" and r["programs"] != {"run": 1}:
+                raise AssertionError(f"[compiled] {tag}: {r['programs']} programs captured")
+        eager = max(r["peak_node_stacked_copies"] for r in run["turns"] if r["mode"] == "eager")
+        captured = max(r["peak_node_stacked_copies"] for r in run["turns"]
+                       if r["mode"] == "captured")
+        out[tag] = dict(turns=run["turns"], bitwise=run["bitwise"], leaves=run["leaves"],
+                        peak_copies_eager=eager, peak_copies_captured=captured)
+        # at qwen2 the node-stacked copies are the step's memory (fmnist's are a
+        # few MB beside its batches): the captured step updates its one slot in
+        # place, so it holds no more than the eager step's θ, gradients and new θ
+        if tag == "qwen2-0.5b" and captured > eager + COMPILED_PEAK_MARGIN:
+            raise AssertionError(f"[compiled] {tag}: the captured step holds {captured:.3f} "
+                                 f"node-stacked copies at its peak, eager {eager:.3f}")
+        if all(run["bitwise"]):
+            continue
+        equal = [r["bitwise_vs_first_eager"] for r in run["turns"]]
+        if tag != "qwen2-0.5b":
+            raise AssertionError(f"[compiled] {tag}: a turn is not bit-equal to the first "
+                                 f"eager turn: {equal}")
+        # qwen2 only: held to the train-parity rule, the cause named: the
+        # leaves and metrics whose bits differ from the first eager turn's
+        differ = [(r["mode"], r["differ"]) for r in run["turns"][1:]]
+        rules = [r["update_rule"] for r in run["turns"] if r["update_rule"]]
+        log(f"[compiled] {tag}: not bit-equal to the first eager turn, held to the "
+            f"train-parity rule; the bits differ in (turn, leaves and metrics) {differ}; "
+            f"rule {rules}")
+        if any(r["entries_outside"] for r in rules):
+            raise AssertionError(f"[compiled] {tag}: a turn is neither bit-equal to the "
+                                 f"first eager turn {equal} nor within the train-parity "
+                                 f"rule {rules}")
+    del fm, lm, single, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[compiled] phase in {out['phase_s']:.1f} s: " + json.dumps(
+        {tag: dict(bitwise=rec["bitwise"], peak_copies=(rec["peak_copies_eager"],
+                                                        rec["peak_copies_captured"]),
+                   ms_per_step={r["mode"]: r["ms_per_step"] for r in rec["turns"][:2]})
+         for tag, rec in out.items() if tag != "phase_s"}))
+    return out
+
+
 def phase_train_lm(seq: int, nodes: int, steps: int, profile: bool) -> dict:
     """qwen2-0.5b at full width and depth through the training CLI
     (``python -m repro_torch.launch.train --arch qwen2_0_5b``, train_lm's
-    defaults otherwise), every launch counted; the first batch's loss before
-    and after the run; the steady ms per step; optionally one profiled step."""
+    defaults otherwise: the captured step), every launch counted; the first
+    batch's loss before and after the run; the steady ms per step;
+    optionally one profiled step.  The run is under :func:`tma_audit`,
+    which sees each B.6 call of the eager warm-up step and of the capture
+    (a replay calls no wrapper)."""
     import numpy as np
     import torch
 
@@ -3938,7 +4278,9 @@ def phase_train_lm(seq: int, nodes: int, steps: int, profile: bool) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    trainer, state, history = train.main(argv)
+    box = []
+    audit = tma_audit(lambda: box.append(train.main(argv)))
+    trainer, state, history = box.pop()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernel_counts()
@@ -3950,21 +4292,21 @@ def phase_train_lm(seq: int, nodes: int, steps: int, profile: bool) -> dict:
                          history, np.diff([r["wall_s"] for r in history])[1:], counts,
                          LM_PAIR, first, history[0]["loss_mean"])
     rec["wall_s"] = wall
+    rec["step"] = "captured" if trainer.captured else f"eager ({trainer.capture_declined})"
     if abs(rec["loss_first_step"] - rec["ln_vocab"]) > 1.5:
         raise AssertionError(f"[train-lm] a random model's loss should be near ln V: {rec}")
+    if not trainer.captured or trainer._run._cache_size() != 1:
+        raise AssertionError(f"[train-lm] the CLI's step is not one captured program: {rec}")
     batch = (first.cuda(),)
     box = [state]
     del state
-
-    def one_step():
-        box[0], _ = trainer.step(box[0], batch)
-
-    # one more step, each B.6 call's views checked: the model's own layouts
-    per_step = nodes * cfg.n_layers
-    rec["tma_audit"] = tma_audit(one_step)
-    if rec["tma_audit"] != {"fwd": per_step, "bwd": per_step}:
-        raise AssertionError(f"[train-lm] the TMA audit saw {rec['tma_audit']} B.6 calls, "
-                             f"not {per_step} of each")
+    # each B.6 call's views checked (the model's own layouts): one step's
+    # calls (the node axis: one per layer) in the warm-up and in the capture
+    per_run = 2 * cfg.n_layers
+    rec["tma_audit"] = audit
+    if audit != {"fwd": per_run, "bwd": per_run}:
+        raise AssertionError(f"[train-lm] the TMA audit saw {audit} B.6 calls, not {per_run} "
+                             f"of each (the warm-up step and the capture)")
     if profile:
         rec["profile"], prof = _lm_step_profile(trainer, box, batch, LM_PAIR)
         # the backward's launches in the step, against the bwd-kernel phase's
@@ -4021,7 +4363,8 @@ def _card_vs_cpu(tag: str, spec_cls, arch: str, cut: tuple, pair, update_rel: fl
         counts = kernel_counts()
         if device == "cuda":
             check_counts(tag, counts, _lm_counts(nodes, steps, _pair_layers(model.cfg, pair),
-                                                 len(state.params), pair))
+                                                 len(state.params), pair,
+                                                 _folded(model.cfg, pair)))
             launches = {n: c[0] for n, c in counts.items() if c[0]}
         elif sum(c[0] for c in counts.values()) or not sum(c[1] for c in counts.values()):
             raise AssertionError(f"[{tag}] the CPU run launched a kernel: {counts}")
@@ -4368,7 +4711,8 @@ def phase_examples() -> dict:
         model = lm.model_for("--full-width" in argv)
         cfg = model.cfg
         history = run("torch_train_lm_drdsgd " + " ".join(argv), lambda: lm.main(argv),
-                      _lm_counts(8, steps, cfg.n_layers, len(model.param_shapes())))
+                      _lm_counts(8, steps, cfg.n_layers, len(model.param_shapes()),
+                                 folded=_folded(cfg)))
         if not all(math.isfinite(h["loss_mean"]) for h in history):
             raise AssertionError(f"[examples] LM losses: {history}")
         out["torch_train_lm_drdsgd " + " ".join(argv)].update(
@@ -4571,6 +4915,23 @@ def _same_bits(tag: str, got, want) -> int:
     return n
 
 
+def _kept(state):
+    """A copy of ``state``'s tensors (host values as they are): a captured
+    trainer donates the state it returned to its next run, which writes
+    over it, so a state compared after that run is kept as a copy."""
+    import torch
+
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    if hasattr(state, "_fields"):
+        return type(state)(*(_kept(v) for v in state))
+    if isinstance(state, dict):
+        return {k: _kept(v) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(_kept(v) for v in state)
+    return state
+
+
 def _ckpt_dir(name: str) -> Path:
     path = ROOT / "build" / "chip_smoke" / "ckpt" / name
     shutil.rmtree(path, ignore_errors=True)
@@ -4638,6 +4999,7 @@ def phase_ckpt(spec_cls, cfg_cls) -> dict:
         tensors = _same_bits(f"ckpt {name} restored", restored, state)
         reset_counts()
         want, want_ms = trainer.run(state, rest)
+        want = _kept(want)  # the captured trainer's next run writes over it
         got, got_ms = trainer.run(restored, rest)
         counts = kernel_counts()
         if counts[kernel][0] == 0 or any(c[1] for c in counts.values()):
@@ -5561,7 +5923,8 @@ def phase_smoke_archs(spec_cls) -> dict:
                                               "--nodes", "4", "--log-every", "1"])
         torch.cuda.synchronize()
         check_counts(f"smoke-archs train {arch}", kernel_counts(),
-                     _lm_counts(4, 2, _pair_layers(cfg), len(state.params)))
+                     _lm_counts(4, 2, _pair_layers(cfg), len(state.params),
+                                folded=_folded(cfg)))
         if not all(math.isfinite(r["loss_mean"]) for r in history):
             raise AssertionError(f"[smoke-archs] train {arch}: {history}")
         rec["train_cli_losses"] = [r["loss_mean"] for r in history]
@@ -5662,9 +6025,12 @@ def sink_passes(spec_cls, exp, fed, params, kinds=("off", "on"),
     rounds = cfg["rounds"] if rounds is None else rounds
 
     def build(sink, tap: bool):
+        # the eager step in every kind (jit=False): the tap keeps a step
+        # eager, so the pair prices the sink, not the capture
         spec = spec_cls(num_nodes=exp.num_nodes, graph="erdos_renyi",
                         graph_kwargs={"p": exp.p, "seed": exp.seed}, mu=exp.mu, robust=True,
-                        lr=cfg["lr"], grad_clip=cfg["grad_clip"], seed=exp.seed, device="cuda")
+                        lr=cfg["lr"], grad_clip=cfg["grad_clip"], seed=exp.seed, device="cuda",
+                        jit=False)
         return spec.build(make_classifier_loss(mlp_apply), mlp_apply,
                           obs=sink if tap else None)
 
@@ -6031,6 +6397,14 @@ def phase_obs(spec_cls, cfg_cls) -> dict:
     return out
 
 
+def timed(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds logged as ``[time] <name>``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    log(f"[time] {name} {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6038,6 +6412,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.device import expandable_segments
+
+    expandable_segments()  # before any CUDA allocation: the allocator's reserve at full width
     from repro_torch.comm import CompressionConfig
     from repro_torch.core import TrainerSpec
     from repro_torch.models import cnn_init, mlp_init
@@ -6049,54 +6426,56 @@ def main() -> int:
         f"{sys.version.split()[0]}; {torch.cuda.get_device_name(0)}; {smi}; "
         f"TF32 off for matmul and cuDNN")
     t_start = time.perf_counter()
-    phase_build()
+    timed("build", phase_build)
     g = torch.Generator().manual_seed(0)
     mlp = leaf_dims(mlp_init(g))
     cnn = leaf_dims(cnn_init(g))
-    kern = phase_kernel(mlp, cnn)
-    b1 = phase_gossip_update_kernels(mlp)
-    fm, dense_params = phase_fmnist(TrainerSpec, CompressionConfig)
-    b1_nodes = phase_gossip_update_nodes(TrainerSpec)
-    gossip = phase_gossip(TrainerSpec, CompressionConfig, dense_params)
-    b45 = phase_b45_leaves(CompressionConfig)
-    b3 = phase_b3_leaves(CompressionConfig)
-    b2 = phase_b2_leaves(CompressionConfig)
-    phase_profile(TrainerSpec, CompressionConfig)
-    phase_cifar(TrainerSpec, CompressionConfig)
-    phase_parity(TrainerSpec, CompressionConfig)
+    kern = timed("kernel", phase_kernel, mlp, cnn)
+    b1 = timed("gossip_update_kernels", phase_gossip_update_kernels, mlp)
+    fm, dense_params = timed("fmnist", phase_fmnist, TrainerSpec, CompressionConfig)
+    b1_nodes = timed("gossip_update_nodes", phase_gossip_update_nodes, TrainerSpec)
+    gossip = timed("gossip", phase_gossip, TrainerSpec, CompressionConfig, dense_params)
+    b45 = timed("b45_leaves", phase_b45_leaves, CompressionConfig)
+    b3 = timed("b3_leaves", phase_b3_leaves, CompressionConfig)
+    b2 = timed("b2_leaves", phase_b2_leaves, CompressionConfig)
+    timed("profile", phase_profile, TrainerSpec, CompressionConfig)
+    timed("cifar", phase_cifar, TrainerSpec, CompressionConfig)
+    timed("parity", phase_parity, TrainerSpec, CompressionConfig)
     t_codecs = time.perf_counter()
-    phase_codecs(TrainerSpec, CompressionConfig)
-    sched = phase_schedules(TrainerSpec, CompressionConfig, mlp, cnn)
+    timed("codecs", phase_codecs, TrainerSpec, CompressionConfig)
+    sched = timed("schedules", phase_schedules, TrainerSpec, CompressionConfig, mlp, cnn)
     log(f"[done] codecs and schedules in {time.perf_counter() - t_codecs:.1f} s")
     t_dyn = time.perf_counter()
-    dyn = phase_dynamics(TrainerSpec, CompressionConfig)
-    hub = phase_hub(TrainerSpec, CompressionConfig)
+    dyn = timed("dynamics", phase_dynamics, TrainerSpec, CompressionConfig)
+    hub = timed("hub", phase_hub, TrainerSpec, CompressionConfig)
     log(f"[done] dynamics and hub in {time.perf_counter() - t_dyn:.1f} s")
-    phase_ckpt(TrainerSpec, CompressionConfig)
-    phase_optim(TrainerSpec)
-    phase_obs(TrainerSpec, CompressionConfig)
+    timed("ckpt", phase_ckpt, TrainerSpec, CompressionConfig)
+    timed("optim", phase_optim, TrainerSpec)
+    timed("obs", phase_obs, TrainerSpec, CompressionConfig)
     log(f"[done] paper training phases in {time.perf_counter() - t_start:.1f} s")
-    bwd = phase_flash_bwd_kernels()
-    lm = phase_train_lm(LM_SEQ, LM_NODES, LM_STEPS, profile=True)
-    phase_train_lm(*LM_LONG, profile=False)
-    phase_train_parity(TrainerSpec)
-    rwkv_train = phase_train_rwkv(TrainerSpec)
-    moe_train = phase_train_moe(TrainerSpec)
-    frontend = phase_frontend(TrainerSpec)
+    bwd = timed("flash_bwd_kernels", phase_flash_bwd_kernels)
+    compiled = timed("compiled", phase_compiled, TrainerSpec)
+    lm = timed("train_lm", phase_train_lm, LM_SEQ, LM_NODES, LM_STEPS, profile=True)
+    timed("train_lm S 512", phase_train_lm, *LM_LONG, profile=False)
+    timed("train_parity", phase_train_parity, TrainerSpec)
+    rwkv_train = timed("train_rwkv", phase_train_rwkv, TrainerSpec)
+    moe_train = timed("train_moe", phase_train_moe, TrainerSpec)
+    frontend = timed("frontend", phase_frontend, TrainerSpec)
     log(f"[done] training phases in {time.perf_counter() - t_start:.1f} s")
-    serve_kern = phase_serve_kernels()
-    qwen = phase_serve("qwen2_0_5b", 512, 64, "flash_attention_fwd", profile=True,
-                       end_to_end=True)
-    rwkv = phase_serve("rwkv6_7b", 256, 32, "wkv6_scan", profile=False, end_to_end=False)
-    phase_serve_parity("qwen2_0_5b", 64)
-    phase_serve_parity("rwkv6_7b", 32)
-    serve_bf16 = phase_serve_bf16(qwen)
-    moe_serve = phase_serve_moe()
-    phase_mamba_layer()
-    engine = phase_engine()
-    smoke = phase_smoke_archs(TrainerSpec)
+    serve_kern = timed("serve_kernels", phase_serve_kernels)
+    qwen = timed("serve qwen2", phase_serve, "qwen2_0_5b", 512, 64, "flash_attention_fwd",
+                 profile=True, end_to_end=True)
+    rwkv = timed("serve rwkv6", phase_serve, "rwkv6_7b", 256, 32, "wkv6_scan", profile=False,
+                 end_to_end=False)
+    timed("serve_parity qwen2", phase_serve_parity, "qwen2_0_5b", 64)
+    timed("serve_parity rwkv6", phase_serve_parity, "rwkv6_7b", 32)
+    serve_bf16 = timed("serve_bf16", phase_serve_bf16, qwen)
+    moe_serve = timed("serve_moe", phase_serve_moe)
+    timed("mamba_layer", phase_mamba_layer)
+    engine = timed("engine", phase_engine)
+    smoke = timed("smoke_archs", phase_smoke_archs, TrainerSpec)
     t_examples = time.perf_counter()
-    examples = phase_examples()
+    examples = timed("examples", phase_examples)
     log(f"[done] examples in {time.perf_counter() - t_examples:.1f} s")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     # launches on each kernel's main path: grouped B.2 the dense int8 fmnist
@@ -6141,6 +6520,14 @@ def main() -> int:
         **{kernel: {f"dynamics {name}": launches[kernel] for name, launches in masked_runs.items()}
            for kernel in ("masked_quantize_blockwise_grouped",
                           "masked_dequant_accumulate_grouped_")}}
+    # the captured step (compiled): its first captured turn's run on each
+    # configuration, counted by the replays
+    for tag, rec in compiled.items():
+        if tag == "phase_s":
+            continue
+        turn = next(r for r in rec["turns"] if r["mode"] == "captured")
+        for kernel, n in turn["launches"].items():
+            other_runs.setdefault(kernel, {})[f"compiled {tag}, captured"] = n
     # qwen2-0.5b served in bfloat16 (B.6's bfloat16 instances)
     other_runs.setdefault("flash_attention_fwd", {}).update({
         "serve-bf16 qwen2-0.5b, bfloat16": serve_bf16["launches"],
@@ -6202,7 +6589,7 @@ def main() -> int:
                           max_group_leaves=rec["max_group_leaves"],
                           stacked_cols=rec["stacked_cols"])
             err, launches = rec["max_abs_err"], path[name][name]
-        elif name == "flash_attention_bwd":  # one call at qwen2-0.5b's training shape
+        elif name == "flash_attention_bwd":  # one call at qwen2-0.5b's folded training shape
             row = bwd["rows"][0]
             timing = timing_keys(row, FLASH_KEYS)
             err, launches = bwd["max_abs_err"], path[name][name]

@@ -30,6 +30,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core import TrainerSpec
 from repro_torch.data import make_node_token_streams
+from repro_torch.device import expandable_segments
 from repro_torch.models import TransformerLM, make_lm_loss
 
 
@@ -107,6 +108,7 @@ def parse(argv=None):
 
 
 def main(argv=None, params=None) -> list[dict]:
+    expandable_segments()  # the allocator's reserve at full width (repro_torch.device)
     return train(parse(argv), params)
 
 

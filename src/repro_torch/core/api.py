@@ -19,10 +19,23 @@ or the federated hub; the gossip lowering comes in as a pre-built ``mixer``
 (``make_gossip_mixer``, ``DynamicGossipMixer``, wrapped in a
 ``LocalUpdateMixer`` where wanted), as in the reference.  ``mix_every`` > 1
 mixes every ``mix_every``-th step only.  ``loss_fn`` and ``predict_fn`` are node-stacked (see
-:mod:`repro_torch.models.paper_nets`).  PyTorch runs eagerly, so ``run`` is
-a loop over ``step`` that stacks the metrics on the device; there is no
-compiled scan to donate into.  Batches may be numpy arrays or tensors; they
-are moved to the trainer's device.
+:mod:`repro_torch.models.paper_nets`).  Batches may be numpy arrays or
+tensors; they are moved to the trainer's device.
+
+``jit=True`` (the default, the reference's field) runs the paper's main
+path as the reference's compiled step does: where
+:func:`~repro_torch.core.drdsgd.capture_declined` keeps the stack (plain
+SGD, a static uncompressed dense W, a round every step, no ``obs``, no
+``sanitize``, and a loss that batches its nodes), ``step`` and ``run``
+replay the fused step (B.1) from CUDA graphs on the card, with the carry
+donated: the state a run is given gives up its parameters, and a state
+kept from an earlier run is written over
+(:mod:`repro_torch.core.captured`).  On the CPU the same capturable form
+runs eagerly, and states are copied in and out.  ``capture_declined``
+names why any other stack runs the eager step (None where the step is
+captured); ``_run`` carries ``_cache_size``, the programs captured, for
+:class:`repro_torch.obs.RecompileWatchdog`.  ``jit=False`` runs the eager
+step on every stack, and ``run`` is a loop over it.
 
 ``obs`` (a :class:`repro_torch.obs.MetricsSink`) streams one ``train``
 record per step: ``step`` and ``run`` pop the step's packed record from its
@@ -45,12 +58,14 @@ import torch
 
 from repro_torch.comm import CompressionConfig
 from repro_torch.comm.protocol import Mixer
+from repro_torch.core.captured import CapturedRun
 from repro_torch.core.consensus import make_dense_mixer, make_identity_mixer
 from repro_torch.core.drdsgd import (
     DecentralizedState,
     TrainStepConfig,
     build_eval_step,
     build_train_step,
+    capture_declined,
     init_state,
     replicate_params,
 )
@@ -69,6 +84,40 @@ from repro_torch.optim import Optimizer, sgd
 
 def _stack_metrics(ms: list[dict]) -> dict:
     return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+
+class _EagerRun:
+    """Steps ``lo..hi-1`` of stacked batches through the eager step, the
+    metrics stacked on the device; ``obs`` (a sink, or None) gets each
+    step's packed record.  With ``jit=True`` on a declined stack it carries
+    ``_cache_size``: no program is captured."""
+
+    def __init__(self, train_step, obs, jit: bool):
+        self._step, self._obs = train_step, obs
+        if jit:
+            self._cache_size = lambda: 0
+
+    def segment(self, state, batches, lo: int, hi: int):
+        ms = []
+        for t in range(lo, hi):
+            state, m = self._step(state, tuple(b[t] for b in batches))
+            ms.append(m if self._obs is None else self._obs.tap_drain(m))
+        return state, _stack_metrics(ms)
+
+
+class _Run:
+    """The trainer's ``_run(state, batches)``: every step of the stacked
+    batches (the reference's jitted scan), with the runner's
+    ``_cache_size`` where it has one."""
+
+    def __init__(self, runner, device: torch.device):
+        self._runner, self._device = runner, device
+        if hasattr(runner, "_cache_size"):
+            self._cache_size = runner._cache_size
+
+    def __call__(self, state, batches):
+        batches = tuple(torch.as_tensor(b).to(self._device) for b in batches)
+        return self._runner.segment(state, batches, 0, batches[0].shape[0])
 
 
 def run_segments(trainer: "DecentralizedTrainer", state, sample_batch,
@@ -141,6 +190,9 @@ class DecentralizedTrainer:
     sanitize: bool = False                # in-step invariant checks
                                           # (repro_torch.analysis.sanitize),
                                           # raised at a segment's end
+    jit: bool = True                      # capture the step in CUDA graphs
+                                          # where capture_declined keeps the
+                                          # stack; False = the eager step
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -192,6 +244,14 @@ class DecentralizedTrainer:
         self._train_step = build_train_step(self.loss_fn, self.optimizer,
                                             self.mixer, step_cfg, obs=self.obs,
                                             sanitize=self._checks)
+        self.capture_declined = "jit=False" if not self.jit else capture_declined(
+            self.loss_fn, self.optimizer, self.mixer, self.mix_every, obs=self.obs,
+            sanitize=self.sanitize)
+        if self.capture_declined is None:
+            self._runner = CapturedRun(self._train_step, self.optimizer.sgd_lr, self.device)
+        else:
+            self._runner = _EagerRun(self._train_step, self.obs, self.jit)
+        self._run = _Run(self._runner, self.device)
         if self.predict_fn is not None:
             self._eval_step = build_eval_step(self.predict_fn)
 
@@ -228,10 +288,20 @@ class DecentralizedTrainer:
         params = {n: self._to_device(node_params[n]) for n in sorted(node_params)}
         return init_state(params, self.optimizer, mixer=self.mixer)
 
+    @property
+    def captured(self) -> bool:
+        """Whether ``step`` and ``run`` take the captured step."""
+        return self.capture_declined is None
+
     def step(self, state: DecentralizedState, batch):
         """One train step on a (K, B, ...) batch; metrics are 0-d tensors.
-        With ``sanitize`` it reads the checks' flags after the step."""
-        state, metrics = self._train_step(state, self._batch(batch))
+        With ``sanitize`` it reads the checks' flags after the step.  A
+        captured trainer runs it as a run of one step."""
+        batch = self._batch(batch)
+        if self.captured:
+            state, ms = self._runner.segment(state, tuple(b.unsqueeze(0) for b in batch), 0, 1)
+            return state, {k: v[0] for k, v in ms.items()}
+        state, metrics = self._train_step(state, batch)
         self._throw()
         return state, self._drain_tap(metrics)
 
@@ -246,10 +316,10 @@ class DecentralizedTrainer:
         ragged) and ``on_epoch(epoch_index, state, epoch_metrics)`` runs
         between them, each metric of the epoch stacked to (its steps,);
         without a split (no hook, no ``epoch_steps``, or ``epoch_steps >=
-        steps``) it runs once after the last step with index 0.  The loop
-        is the same eager loop either way, so the split changes no bit.
-        With ``sanitize``, each epoch's checks are read at its end, before
-        ``on_epoch``.
+        steps``) it runs once after the last step with index 0.  The steps
+        are the same steps either way (eager, or replays of the captured
+        step), so the split changes no bit.  With ``sanitize``, each epoch's
+        checks are read at its end, before ``on_epoch``.
         """
         batches = self._batch(batches)
         total = batches[0].shape[0]
@@ -259,17 +329,20 @@ class DecentralizedTrainer:
             raise ValueError(f"steps={steps} > stacked batches T={total}")
         if on_epoch is None or epoch_steps is None or epoch_steps >= steps:
             epoch_steps = steps
-        chunks = []
+        chunks, box = [], [state]  # the box holds the only reference between epochs
+        del state
         for e, start in enumerate(range(0, steps, epoch_steps)):
-            ms = []
-            for t in range(start, min(start + epoch_steps, steps)):
-                state, m = self._train_step(state, tuple(b[t] for b in batches))
-                ms.append(self._drain_tap(m))
+            # handed over without a name here: the runner frees (or, captured,
+            # takes over) the epoch's first state after its first step
+            state, ms = self._runner.segment(box.pop(), batches, start,
+                                             min(start + epoch_steps, steps))
             self._throw()
-            chunks.append(_stack_metrics(ms))
+            chunks.append(ms)
             if on_epoch is not None:
                 on_epoch(e, state, chunks[-1])
-        return state, {key: torch.cat([c[key] for c in chunks]) for key in chunks[0]}
+            box.append(state)
+            del state
+        return box.pop(), {key: torch.cat([c[key] for c in chunks]) for key in chunks[0]}
 
     def eval_per_node(self, state: DecentralizedState, x, y) -> torch.Tensor:
         if self.predict_fn is None:

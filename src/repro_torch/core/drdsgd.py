@@ -127,25 +127,68 @@ def _node_scale(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape((-1,) + (1,) * (like.ndim - 1)).to(like.dtype)
 
 
-def _fused_w(optimizer: Optimizer, mixer: Mixer, mix_every: int):
-    """The (K, K) W of the fused SGD + dense-mixing step, or None where the
-    step is not plain SGD followed by a static uncompressed dense round in
-    float32 on every step (B.1 computes in float32; a bfloat16
-    ``compute_dtype`` rounds the round's inputs).  A wrapper mixer
+def _fused_declined(optimizer: Optimizer, mixer: Mixer, mix_every: int) -> str | None:
+    """Why the step does not fuse SGD and the round into B.1 (None where it
+    does): the step must be plain SGD followed by a static uncompressed
+    dense round in float32 on every step (B.1 computes in float32; a
+    bfloat16 ``compute_dtype`` rounds the round's inputs).  A wrapper mixer
     (``LocalUpdateMixer``, ``RepeatMixer``: not a ``ComposedMixer``) and a
     consensus period ``mix_every`` > 1 are declined, since B.1 mixes on
     every call; so is any K above the stacked B.1 kernel's ``MAX_NODES``
-    (64).  A declined step takes the unfused path (the optimizer, then the
-    mixer), on every device, so the card and the CPU run one semantics."""
-    if optimizer.sgd_lr is None or mix_every > 1 or not isinstance(mixer, ComposedMixer):
-        return None
-    if mixer.traced_wire or not isinstance(mixer.transport, DenseTransport) \
-            or not isinstance(mixer.wire, IdentityWire) \
-            or mixer.transport.compute_dtype != torch.float32:
-        return None
+    (64)."""
+    if optimizer.sgd_lr is None:
+        return "the optimizer is not plain SGD"
+    if mix_every > 1:
+        return f"mix_every = {mix_every}: the off-steps skip the round"
+    if not isinstance(mixer, ComposedMixer):
+        return f"a wrapper mixer ({type(mixer).__name__})"
+    if getattr(mixer, "_dynamic", False):
+        return "a time-varying topology (dynamics)"
+    if not isinstance(mixer.wire, IdentityWire):
+        kind = mixer.compression.kind if mixer.compression is not None else "masked"
+        return f"a compressed wire ({kind})"
+    if not isinstance(mixer.transport, DenseTransport):
+        return f"the {type(mixer.transport).__name__}"
+    if mixer.traced_wire:
+        return "a traced wire"
+    if mixer.transport.compute_dtype != torch.float32:
+        return f"a {mixer.transport.compute_dtype} compute dtype"
     if mixer.w.shape[0] > MAX_NODES:
+        return f"K = {mixer.w.shape[0]} above the stacked B.1 kernel's {MAX_NODES} nodes"
+    return None
+
+
+def _fused_w(optimizer: Optimizer, mixer: Mixer, mix_every: int):
+    """The (K, K) W of the fused SGD + dense-mixing step (B.1), or None
+    where :func:`_fused_declined` declines the stack.  A declined step
+    takes the unfused path (the optimizer, then the mixer), on every
+    device, so the card and the CPU run one semantics."""
+    if _fused_declined(optimizer, mixer, mix_every) is not None:
         return None
     return mixer.w
+
+
+def capture_declined(loss_fn, optimizer: Optimizer, mixer: Mixer, mix_every: int, *,
+                     obs=None, sanitize: bool = False) -> str | None:
+    """Why the trainer does not capture its step in CUDA graphs (None where
+    it does; the CPU then runs the same capturable form eagerly).  The
+    captured step is the fused one (:func:`_fused_declined`): plain SGD and a
+    static uncompressed dense W on every step.  The telemetry tap and the
+    sanitizer's checks read the step on the host's schedule, and a loss
+    that carries ``capture_declined`` (an LM family whose node-stacked loss
+    still loops over the nodes) says why itself; each of those steps runs
+    eagerly."""
+    if obs is not None:
+        return "a telemetry sink (obs) taps the step"
+    if sanitize:
+        return "sanitize stages its checks in the step"
+    reason = getattr(loss_fn, "capture_declined", None)
+    if reason:
+        return reason
+    reason = _fused_declined(optimizer, mixer, mix_every)
+    if reason is None and _step_faults(mixer) is not None:
+        return "straggler_skips_compute reads the round's faults"
+    return reason
 
 
 def _step_faults(mixer: Mixer):
@@ -224,16 +267,23 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
     if sanitize is not None:
         from repro_torch.analysis.sanitize import step_checks
 
-    def train_step(state: DecentralizedState, batch):
+    def check_comm(state):
         if not isinstance(state.comm, CommState):
             raise ValueError(
                 "DecentralizedState.comm must be the mixer's CommState — "
                 "build the state with init_state(params, optimizer, mixer=mixer)")
-        names = leaf_names(state.params)
+
+    def grads_and_weights(state, batch, names):
+        """The per-node losses and gradients (clipped), the robust scale and
+        the mixture weights."""
         with scope("obs:grad"):
             leaves = [state.params[n].detach().requires_grad_(True) for n in names]
             losses = loss_fn(dict(zip(names, leaves)), batch)
-            grads = dict(zip(names, torch.autograd.grad(losses.sum(), leaves)))
+            # B.1 and the in-place clip take contiguous gradients; a leaf used
+            # twice (a tied embedding: a gather and a transposed product) may
+            # get a transposed one from autograd's sum
+            grads = {n: g if g.is_contiguous() else g.contiguous()
+                     for n, g in zip(names, torch.autograd.grad(losses.sum(), leaves))}
             losses = losses.detach()
             if cfg.grad_clip is not None:
                 grads, _ = clip_by_global_norm(grads, cfg.grad_clip, nodes=True,
@@ -248,40 +298,16 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
                 _, up = comm_topology.round_fault_masks(step_faults, state.comm.rounds,
                                                         losses.shape[0], losses.device)
                 scale = scale * up
-        # mix_every > 1: off-steps skip the mixer (state.step is a host int)
-        is_mix_step = state.step % cfg.mix_every == cfg.mix_every - 1
-        if fused_w is not None:
-            # scale, SGD and the dense consensus round: one pass over every
-            # leaf of a dtype (one B.1 launch per step on the card)
-            with scope("obs:local_update"), scope("obs:consensus"):
-                eta = optimizer.sgd_lr(state.step)
-                mixed = {}
-                for group in _dtype_groups(state.params, names):
-                    outs = gossip_update_stacked_grouped(
-                        [state.params[n] for n in group], [grads[n] for n in group],
-                        fused_w, scale, eta=eta)
-                    mixed.update(zip(group, outs))
-                mixed = {n: mixed[n] for n in names}
-                del grads  # a node-stacked copy of the parameters: free it before the metrics
-                opt_state, comm = state.opt_state, mixer.round_state(state.params, state.comm)
-        else:
-            # --- local optimizer step (plain SGD in the paper)
-            with scope("obs:local_update"):
-                scaled = {n: g * _node_scale(scale, g) for n, g in grads.items()}
-                updated, opt_state = optimizer.update(scaled, state.opt_state,
-                                                      state.params, state.step)
-            # --- consensus: the only cross-node communication of the algorithm
-            with scope("obs:consensus"):
-                if is_mix_step:  # repro: noqa[RPR001] (a host bool: step is a host int)
-                    mixed, comm = mixer(updated, state.comm, round=state.step)
-                else:
-                    mixed, comm = updated, state.comm
+        return losses, grads, scale, lam
+
+    def finish(state, losses, scale, lam, mixed, opt_state, comm, is_mix_step):
+        """The sanitizer's checks, the metrics and the tap; the new state."""
         if sanitize is not None:
             with scope("obs:sanitize"):
                 step_checks(mixer, state.comm, mixed, comm, sanitize, state.step)
         # wire bytes this step: the round's measured wire on time-varying
         # stacks, else the static estimate; 0 on a step that skips the mixer
-        if is_mix_step:  # repro: noqa[RPR001] (a host bool, as above)
+        if is_mix_step:  # repro: noqa[RPR001] (a host bool: step is a host int)
             wire = comm.metrics.wire_bits
             comm_bytes = (comm.wire_bits / 8.0 if mixer.traced_wire
                           else scalar(mixer.bytes_per_round(state.params), losses.device))
@@ -307,6 +333,54 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
                 metrics.update(_tap_fields(obs, state.step, metrics, comm, losses, lam))
         return DecentralizedState(mixed, opt_state, state.step + 1, comm), metrics
 
+    def fused_step(state: DecentralizedState, batch, eta: torch.Tensor, out=None):
+        """The fused step (scale, SGD and the dense round in B.1) with η a
+        0-d float32 tensor on the parameters' device and ``out`` None or a
+        dict of leaves the new parameters are written to (the parameters
+        themselves, updated in place, or storages of their own): the form
+        the trainer's CUDA graph captures.  Nothing reads the parameters
+        after B.1 (the round's bookkeeping reads their shapes only)."""
+        check_comm(state)
+        names = leaf_names(state.params)
+        losses, grads, scale, lam = grads_and_weights(state, batch, names)
+        # scale, SGD and the dense consensus round: one pass over every
+        # leaf of a dtype (one B.1 launch per step on the card)
+        with scope("obs:local_update"), scope("obs:consensus"):
+            mixed = {}
+            for group in _dtype_groups(state.params, names):
+                outs = gossip_update_stacked_grouped(
+                    [state.params[n] for n in group], [grads[n] for n in group],
+                    fused_w, scale, eta=eta, out=None if out is None else [out[n] for n in group])
+                mixed.update(zip(group, outs))
+            mixed = {n: mixed[n] for n in names}
+            del grads  # a node-stacked copy of the parameters: free it before the metrics
+            comm = mixer.round_state(state.params, state.comm)
+        return finish(state, losses, scale, lam, mixed, state.opt_state, comm, True)
+
+    def train_step(state: DecentralizedState, batch):
+        if fused_w is not None:
+            eta = scalar(optimizer.sgd_lr(state.step), next(iter(state.params.values())).device)
+            return fused_step(state, batch, eta)
+        check_comm(state)
+        names = leaf_names(state.params)
+        losses, grads, scale, lam = grads_and_weights(state, batch, names)
+        # mix_every > 1: off-steps skip the mixer (state.step is a host int)
+        is_mix_step = state.step % cfg.mix_every == cfg.mix_every - 1
+        # --- local optimizer step (plain SGD in the paper)
+        with scope("obs:local_update"):
+            scaled = {n: g * _node_scale(scale, g) for n, g in grads.items()}
+            updated, opt_state = optimizer.update(scaled, state.opt_state,
+                                                  state.params, state.step)
+        # --- consensus: the only cross-node communication of the algorithm
+        with scope("obs:consensus"):
+            if is_mix_step:  # repro: noqa[RPR001] (a host bool: step is a host int)
+                mixed, comm = mixer(updated, state.comm, round=state.step)
+            else:
+                mixed, comm = updated, state.comm
+        return finish(state, losses, scale, lam, mixed, opt_state, comm, is_mix_step)
+
+    # the capturable form, where the step fuses into B.1
+    train_step.fused = fused_step if fused_w is not None else None
     return train_step
 
 

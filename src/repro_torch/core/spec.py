@@ -187,6 +187,7 @@ class TrainerSpec:
     outage_len: int = 10
     straggler_skips_compute: bool = False  # down nodes lose their gradient too
     seed: int = 0
+    jit: bool = True                      # capture the step (DecentralizedTrainer.jit)
     sanitize: bool = False                # in-step invariant checks
     device: str = "cuda"
 
@@ -254,6 +255,7 @@ class TrainerSpec:
             device=self.device,
             obs=obs,
             sanitize=self.sanitize,
+            jit=self.jit,
         )
 
     # -- CLI integration ------------------------------------------------------

@@ -465,15 +465,16 @@ cudaError_t launch(Args a, float* dk, float* dv, Strides dks, Strides dvs, float
     a.dvs = dvs;
   }
   constexpr size_t smem = Tile<HD>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
+  // set on the first launch only (a static per instance), as wkv6.cu does
+  static const cudaError_t attr = cudaFuncSetAttribute(
       bwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   const int kv_tiles = (a.T + BK - 1) / BK;
   const int q_tiles = static_cast<int>((static_cast<long long>(a.G) * a.S + BQ - 1) / BQ);
   const dim3 grid(static_cast<unsigned>(kv_tiles * a.H + q_tiles * KVH),
                   static_cast<unsigned>(B));
   bwd_mma_kernel<HD><<<grid, THREADS, smem, stream>>>(a, kv_tiles, q_tiles);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.G == 1) return err;
 
   const long long n = B * KVH * a.T * HD;

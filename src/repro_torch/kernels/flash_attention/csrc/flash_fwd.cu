@@ -577,21 +577,30 @@ __global__ void __launch_bounds__(THREADS)
 
 // --- launch ------------------------------------------------------------------
 
-// one CTA per (BM packed query rows, KV head, batch)
+// one CTA per (BM packed query rows, KV head, batch); the caller has set the
+// kernel's shared-memory attribute once (smem_attribute)
 template <class A>
 cudaError_t launch_grid(void (*kernel)(const A), size_t smem, const A& a, long long B,
                         long long KVH, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((static_cast<long long>(a.G) * a.S + BM - 1) / BM),
                   static_cast<unsigned>(KVH), static_cast<unsigned>(B));
   kernel<<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// a kernel's dynamic shared-memory size, set on its first launch only (a
+// static per instance): no attribute call on later launches, which a CUDA
+// graph captures
+template <class A>
+cudaError_t smem_attribute(void (*kernel)(const A), size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 template <int HD>
 cudaError_t launch(const Args& a, long long B, long long KVH, cudaStream_t stream) {
+  static const cudaError_t attr = smem_attribute(flash_fwd_mma_kernel<HD>, Tile<HD>::SMEM);
+  if (attr != cudaSuccess) return attr;
   return launch_grid(flash_fwd_mma_kernel<HD>, Tile<HD>::SMEM, a, B, KVH, stream);
 }
 
@@ -633,6 +642,8 @@ cudaError_t launch_bf16(ArgsBf& a, long long B, long long KVH, cudaStream_t stre
   const bool q_map = a.G * a.q_pos <= QROWS &&
                      bf16_maps<HD>(a.tq, a.q, B, a.H, a.S, a.qs, true, a.G, a.q_pos);
   a.q_mode = q_map ? STAGE_TMA : rows_aligned16_bf16(a.q, a.qs) ? STAGE_CP_ASYNC : STAGE_PLAIN;
+  static const cudaError_t attr = smem_attribute(flash_fwd_bf16_kernel<HD>, BfCfg<HD>::SMEM);
+  if (attr != cudaSuccess) return attr;
   return launch_grid(flash_fwd_bf16_kernel<HD>, BfCfg<HD>::SMEM, a, B, KVH, stream);
 }
 

@@ -21,8 +21,18 @@
 //       with theta, g (K, D_l) per leaf l, W (K, K) and s (K,).
 //
 // eta is a runtime argument (SGD's schedule gives it per step), not a
-// compile-time constant as on the TPU; W, the weights and the scales are
-// read from device memory, so nothing waits for the host.
+// compile-time constant as on the TPU: a float argument of the per-node
+// form, and read from device memory (a 0-d float32 tensor, once per CTA) by
+// the stacked form, so a captured CUDA graph of the train step replays each
+// step's eta as the host wrote it before the replay.  W, the weights and
+// the scales are read from device memory, so nothing waits for the host.
+// The stacked form writes into output leaves the caller gives, which may be
+// theta itself (the captured train step updates its parameters in place):
+// every node's output column reads every node's input column, and the one
+// thread that owns a column loads all K rows of it before it stores any, so
+// no thread reads a column another has written.  theta is read by plain
+// (coherent) loads, not the read-only path's __ldg, since the kernel may
+// write it.
 //
 // Arithmetic.  Each elementwise product and difference is rounded once, in
 // the order of the plain PyTorch version (ref.py) — (eta s) g for the
@@ -155,15 +165,25 @@ gossip_update_kernel(const __grid_constant__ NodeTable<T> t) {
 
 // -- the stacked form, grouped ---------------------------------------------------
 
+// one load: by the read-only path (RO), or a plain coherent one (memory the
+// kernel may write)
+template <bool RO, typename U>
+__device__ __forceinline__ U ld(const U* p) {
+  return RO ? __ldg(p) : *p;
+}
+
 // V consecutive elements at p (aligned to V elements) as float32
-__device__ __forceinline__ void load_v(const float* p, float (&o)[1]) { o[0] = __ldg(p); }
+template <bool RO>
+__device__ __forceinline__ void load_v(const float* p, float (&o)[1]) { o[0] = ld<RO>(p); }
+template <bool RO>
 __device__ __forceinline__ void load_v(const float* p, float (&o)[2]) {
-  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+  const float2 v = ld<RO>(reinterpret_cast<const float2*>(p));
   o[0] = v.x;
   o[1] = v.y;
 }
+template <bool RO>
 __device__ __forceinline__ void load_v(const float* p, float (&o)[4]) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 v = ld<RO>(reinterpret_cast<const float4*>(p));
   o[0] = v.x;
   o[1] = v.y;
   o[2] = v.z;
@@ -172,16 +192,19 @@ __device__ __forceinline__ void load_v(const float* p, float (&o)[4]) {
 // a bfloat16 is the high half of its float32: element 2m is word m's low half
 __device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+template <bool RO>
 __device__ __forceinline__ void load_v(const __nv_bfloat16* p, float (&o)[1]) {
   o[0] = __bfloat162float(*p);
 }
+template <bool RO>
 __device__ __forceinline__ void load_v(const __nv_bfloat16* p, float (&o)[2]) {
-  const unsigned w = __ldg(reinterpret_cast<const unsigned*>(p));
+  const unsigned w = ld<RO>(reinterpret_cast<const unsigned*>(p));
   o[0] = bf16_lo(w);
   o[1] = bf16_hi(w);
 }
+template <bool RO>
 __device__ __forceinline__ void load_v(const __nv_bfloat16* p, float (&o)[4]) {
-  const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+  const uint2 w = ld<RO>(reinterpret_cast<const uint2*>(p));
   o[0] = bf16_lo(w.x);
   o[1] = bf16_hi(w.x);
   o[2] = bf16_lo(w.y);
@@ -230,7 +253,7 @@ struct StackedTable {
   StackedLeaf<T> leaf[kMaxLeaves];
   const float* w;      // (K, K)
   const float* scale;  // (K,)
-  float eta;
+  const float* eta;    // ()
   int k;
   int n;
 };
@@ -244,8 +267,8 @@ __device__ __forceinline__ void load_cols(const StackedLeaf<T>& L, int k, long l
   for (int j = 0; j < KMAX; ++j) {
     if (j < k) {
       float a[W], b[W];
-      load_v(L.theta + j * L.d + c, a);
-      load_v(L.grad + j * L.d + c, b);
+      load_v<false>(L.theta + j * L.d + c, a);  // out may be theta
+      load_v<true>(L.grad + j * L.d + c, b);
 #pragma unroll
       for (int v = 0; v < W; ++v) {
         th[j][v] = a[v];
@@ -308,6 +331,7 @@ gossip_update_stacked_grouped_kernel(const __grid_constant__ StackedTable<T> t) 
   while (l + 1 < t.n && cta >= t.leaf[l + 1].cta_begin) ++l;
   const StackedLeaf<T>& L = t.leaf[l];
   const int k = t.k;
+  const float eta = __ldg(t.eta);
   const long long c0 = (cta - L.cta_begin) * kCols;
   for (int i = threadIdx.x; i < k * k; i += kThreads) w_s[(i / k) * KMAX + i % k] = __ldg(t.w + i);
   for (int i = threadIdx.x; i < k; i += kThreads) {
@@ -326,7 +350,7 @@ gossip_update_stacked_grouped_kernel(const __grid_constant__ StackedTable<T> t) 
       const long long c = cv + static_cast<long long>(p) * kThreads * V;
       if (c >= L.d) break;
       load_cols<T, KMAX, V, V>(L, k, c, th, gr);
-      mix_cols<T, KMAX, V, V>(L, k, c, t.eta, w_s, s_s, th, gr);
+      mix_cols<T, KMAX, V, V>(L, k, c, eta, w_s, s_s, th, gr);
     }
     return;
   }
@@ -335,7 +359,7 @@ gossip_update_stacked_grouped_kernel(const __grid_constant__ StackedTable<T> t) 
     const long long c = c1 + static_cast<long long>(p) * kThreads;
     if (c >= L.d) break;
     load_cols<T, KMAX, V, 1>(L, k, c, th, gr);
-    mix_cols<T, KMAX, V, 1>(L, k, c, t.eta, w_s, s_s, th, gr);
+    mix_cols<T, KMAX, V, 1>(L, k, c, eta, w_s, s_s, th, gr);
   }
 }
 
@@ -381,8 +405,9 @@ int launch_stacked(const StackedTable<T>& t, long long ctas, cudaStream_t stream
 
 template <typename T>
 int stacked_grouped(const long long* desc, int n, const float* w, const float* scale, int k,
-                    float eta, cudaStream_t stream) {
-  if (n <= 0 || n > kMaxLeaves || k <= 0 || k > kMaxNodes) return cudaErrorInvalidValue;
+                    const float* eta, cudaStream_t stream) {
+  if (n <= 0 || n > kMaxLeaves || k <= 0 || k > kMaxNodes || eta == nullptr)
+    return cudaErrorInvalidValue;
   const int kmax = k <= 8 ? 8 : (k <= 16 ? 16 : (k <= 32 ? 32 : 64));
   const int v = vec_width(kmax);
   StackedTable<T> t = {};
@@ -448,16 +473,16 @@ extern "C" int gossip_update_nodes_bf16(const long long* desc, int n, const long
 // The stacked form over n <= kMaxLeaves leaves of K <= kMaxNodes nodes each.
 // desc holds, per leaf, kStackedDesc longs: theta, grad, out ((K, d)
 // row-major, of the entry point's dtype), d, and the prefix count of CTAs
-// (ceil(d / kCols) per leaf) before it.  w (K, K) and scale (K,) float32 on
-// the device.  Launches on `stream`; returns a cudaError_t.
+// (ceil(d / kCols) per leaf) before it.  w (K, K), scale (K,) and eta ()
+// float32 on the device.  Launches on `stream`; returns a cudaError_t.
 extern "C" int gossip_update_stacked_grouped_f32(const long long* desc, int n, const float* w,
-                                                 const float* scale, int k, float eta,
+                                                 const float* scale, int k, const float* eta,
                                                  cudaStream_t stream) {
   return stacked_grouped<float>(desc, n, w, scale, k, eta, stream);
 }
 
 extern "C" int gossip_update_stacked_grouped_bf16(const long long* desc, int n, const float* w,
-                                                  const float* scale, int k, float eta,
+                                                  const float* scale, int k, const float* eta,
                                                   cudaStream_t stream) {
   return stacked_grouped<__nv_bfloat16>(desc, n, w, scale, k, eta, stream);
 }

@@ -15,7 +15,12 @@ neighbours' rows stacked (N, D), a one-leaf group of the same kernel;
 leaf of a group in one launch (the form the train step runs, once per
 step; up to :data:`MAX_GROUP_LEAVES` leaves per launch, a larger group
 split by :func:`leaf_tables`); and :func:`gossip_update_stacked`, one leaf,
-a one-leaf group of the same kernel.  Each takes float32 or bfloat16
+a one-leaf group of the same kernel.  The stacked forms read η through a
+pointer (a 0-d float32 tensor on the card; a float is written to one
+first) and write into given ``out`` leaves where the caller has them (θ
+itself, in place, as the train step's captured graph updates its
+parameters), so the train step can be captured in a CUDA graph that reads
+each step's η.  Each takes float32 or bfloat16
 parameters and float32 weights and scales on the card, raises on anything
 its kernel does not take (it never runs the plain version itself) and adds
 one to a ``.launches`` for each launch: the per-node kernel's launches,
@@ -41,7 +46,7 @@ MAX_NEIGHBORS = MAX_NODES - 1  # the per-node form's largest N
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _NODE_ARGS = (_P, _I, _P, _I, _P, _P, _F, _P)
-_GROUPED_ARGS = (_P, _I, _P, _P, _I, _F, _P)
+_GROUPED_ARGS = (_P, _I, _P, _P, _I, _P, _P)
 
 
 def stacked_ctas(d: int) -> int:
@@ -181,7 +186,32 @@ def gossip_update(theta: torch.Tensor, grad: torch.Tensor, neighbors: torch.Tens
     return out
 
 
-def _stacked_grouped(thetas, grads, w, scale, eta, name):
+def eta_tensor(eta, device: torch.device) -> torch.Tensor:
+    """η as the stacked kernel reads it: a 0-d float32 tensor on ``device``
+    (a float is written to one by a fill, not a host-to-device copy)."""
+    if isinstance(eta, torch.Tensor):
+        return eta
+    return torch.full((), float(eta), dtype=torch.float32, device=device)
+
+
+def _check_out(name: str, out, thetas, grads) -> None:
+    """``out``: one leaf per θ, of θ's shape, dtype and device, contiguous:
+    θ itself (the update in place: each thread reads every node's column
+    before it writes that column), or in a storage no θ or g shares."""
+    if len(out) != len(thetas):
+        raise ValueError(f"{name} takes one out leaf per theta, got {len(out)} for "
+                         f"{len(thetas)}")
+    inputs = {t.untyped_storage().data_ptr() for t in (*thetas, *grads)}
+    for o, theta in zip(out, thetas):
+        _check("out", o, theta.device, theta.dtype, theta.shape)
+        if o.data_ptr() == theta.data_ptr():
+            continue
+        if o.untyped_storage().data_ptr() in inputs:
+            raise ValueError(f"{name}: an out leaf shares a storage with a theta it is not "
+                             "or with a grad; out is each theta itself or apart from them")
+
+
+def _stacked_grouped(thetas, grads, w, scale, eta, name, out=None):
     if not thetas or len(thetas) != len(grads):
         raise ValueError(f"{name} takes one or more leaves and one gradient per leaf, got "
                          f"{len(thetas)} thetas and {len(grads)} grads")
@@ -201,7 +231,13 @@ def _stacked_grouped(thetas, grads, w, scale, eta, name):
         _check("grad", grad, dev, dtype, theta.shape)
     _check("w", w, dev, torch.float32, (k, k))
     _check("scale", scale, dev, torch.float32, (k,))
-    outs = [torch.empty_like(theta) for theta in thetas]
+    eta = eta_tensor(eta, dev)
+    _check("eta", eta, dev, torch.float32, ())
+    if out is None:
+        outs = [torch.empty_like(theta) for theta in thetas]
+    else:
+        _check_out(name, out, thetas, grads)
+        outs = list(out)
     dims = [theta.numel() // k for theta in thetas]
     symbol = f"gossip_update_stacked_grouped_{suffix}"
     launched = 0
@@ -211,29 +247,34 @@ def _stacked_grouped(thetas, grads, w, scale, eta, name):
             begin)])
         _build.launch(_build.entry(SOURCE, symbol, _GROUPED_ARGS), symbol, dev,
                       ctypes.addressof(desc), len(table), w.data_ptr(), scale.data_ptr(), k,
-                      float(eta))
+                      eta.data_ptr())
         launched += 1
     return outs, launched
 
 
 def gossip_update_stacked_grouped(thetas, grads, w: torch.Tensor, scale: torch.Tensor, *,
-                                  eta: float) -> list[torch.Tensor]:
+                                  eta, out=None) -> list[torch.Tensor]:
     """Every leaf of a group at once: ``thetas``, ``grads`` lists of (K,
-    ...) contiguous leaves of one dtype (float32 or bfloat16), w (K, K) and
-    scale (K,) float32 -> [``W @ (θ_l − η·(s⊙g_l))``], one new tensor per
-    leaf in θ_l's shape.  One launch per :data:`MAX_GROUP_LEAVES` leaves,
-    each adding one to ``gossip_update_stacked_grouped.launches``."""
+    ...) contiguous leaves of one dtype (float32 or bfloat16), w (K, K),
+    scale (K,) and eta () float32 (or a float) -> [``W @ (θ_l −
+    η·(s⊙g_l))``], one tensor per leaf in θ_l's shape: new ones, or the
+    leaves of ``out`` (contiguous, θ_l's shape and dtype: θ_l itself, the
+    update in place, or no storage shared with θ or g), written and
+    returned.  One launch per
+    :data:`MAX_GROUP_LEAVES` leaves, each adding one to
+    ``gossip_update_stacked_grouped.launches``."""
     outs, launched = _stacked_grouped(thetas, grads, w, scale, eta,
-                                      "gossip_update_stacked_grouped")
+                                      "gossip_update_stacked_grouped", out)
     gossip_update_stacked_grouped.launches += launched
     return outs
 
 
 def gossip_update_stacked(theta: torch.Tensor, grad: torch.Tensor, w: torch.Tensor,
-                          scale: torch.Tensor, *, eta: float) -> torch.Tensor:
-    """theta, grad: (K, ...) contiguous; w: (K, K) and scale (K,) float32
-    -> ``W @ (θ − η·(s⊙g))`` (K, ...) in θ's dtype.  A one-leaf group of
-    the grouped kernel; adds one to ``gossip_update_stacked.launches``."""
+                          scale: torch.Tensor, *, eta) -> torch.Tensor:
+    """theta, grad: (K, ...) contiguous; w: (K, K), scale (K,) and eta ()
+    float32 (or a float) -> ``W @ (θ − η·(s⊙g))`` (K, ...) in θ's dtype.  A
+    one-leaf group of the grouped kernel; adds one to
+    ``gossip_update_stacked.launches``."""
     [out], launched = _stacked_grouped([theta], [grad], w, scale, eta, "gossip_update_stacked")
     gossip_update_stacked.launches += launched
     return out

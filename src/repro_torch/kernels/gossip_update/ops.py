@@ -4,7 +4,11 @@
 Each dispatcher takes the plain PyTorch version only for tensors on the
 CPU, and counts those calls in ``.plain_calls``; for CUDA tensors it
 launches the hand-written kernel (B.1) or raises — there is no fallback.
-η is a runtime argument: SGD's schedule gives it per step.
+η is a runtime argument: SGD's schedule gives it per step.  The stacked
+forms take it as a float or a 0-d float32 tensor on the parameters'
+device (the kernel reads it through a pointer: the train step's captured
+graph replays the η written before each replay), and the grouped one
+writes into ``out`` leaves where given.
 """
 
 from __future__ import annotations
@@ -74,23 +78,25 @@ def _at(tree, path):
     return tree
 
 
-def gossip_update_stacked(theta, grad, w, scale, *, eta: float):
+def gossip_update_stacked(theta, grad, w, scale, *, eta):
     """Every node of a node-stacked leaf: theta, grad (K, ...); w (K, K);
-    scale (K,).  Returns ``W @ (θ − η·(s⊙g))`` (K, ...)."""
+    scale (K,); eta a float or a 0-d float32 tensor.  Returns ``W @ (θ −
+    η·(s⊙g))`` (K, ...)."""
     if _build.route("gossip_update_stacked", theta):
         return _k.gossip_update_stacked(theta, grad, w, scale, eta=eta)
     gossip_update_stacked.plain_calls += 1
     return _r.gossip_update_stacked_ref(theta, grad, w, scale, eta=eta)
 
 
-def gossip_update_stacked_grouped(thetas, grads, w, scale, *, eta: float):
+def gossip_update_stacked_grouped(thetas, grads, w, scale, *, eta, out=None):
     """:func:`gossip_update_stacked` over every leaf of a group (lists of
     (K, ...) ``thetas`` and ``grads`` of one dtype): one launch on the card.
-    Returns one new tensor per leaf."""
+    Returns one tensor per leaf: new ones, or the leaves of ``out``,
+    written."""
     if _build.route("gossip_update_stacked_grouped", w):
-        return _k.gossip_update_stacked_grouped(thetas, grads, w, scale, eta=eta)
+        return _k.gossip_update_stacked_grouped(thetas, grads, w, scale, eta=eta, out=out)
     gossip_update_stacked_grouped.plain_calls += 1
-    return _r.gossip_update_stacked_grouped_ref(thetas, grads, w, scale, eta=eta)
+    return _r.gossip_update_stacked_grouped_ref(thetas, grads, w, scale, eta=eta, out=out)
 
 
 # how often the plain version served a call (CPU tensors only)

@@ -8,7 +8,10 @@ order of the port's unfused train step — the robust scale ``g·s``, SGD's
 ``θ − η·(g·s)``, then the dense mixer's ``W @ u`` in float32 — so a step
 that calls it computes the same bits as one that calls the optimizer and the
 mixer; ``gossip_update_stacked_grouped_ref`` is it over every leaf of a
-group, in order.  The CPU path of the port and the tests use them; on the
+group, in order.  The stacked forms take η as a float or a 0-d float32
+tensor (the kernel's pointer), multiplied in float32 and rounded once to
+θ's dtype as SGD's float step size is, and write into ``out`` where
+given.  The CPU path of the port and the tests use them; on the
 card they serve only as the kernel's yardstick.
 """
 
@@ -28,17 +31,26 @@ def gossip_update_ref(theta, grad, neighbors, weights, scale, *, eta: float):
     return acc.to(theta.dtype)
 
 
-def gossip_update_stacked_ref(theta, grad, w, scale, *, eta: float):
-    """theta, grad: (K, ...); w: (K, K); scale: (K,).
+def gossip_update_stacked_ref(theta, grad, w, scale, *, eta, out=None):
+    """theta, grad: (K, ...); w: (K, K); scale: (K,); eta a float or a 0-d
+    float32 tensor.
 
-    Returns ``W @ (θ − η·(s⊙g))`` over the leading node axis, in θ's dtype."""
+    Returns ``W @ (θ − η·(s⊙g))`` over the leading node axis, in θ's dtype
+    (into ``out`` where given)."""
     k = theta.shape[0]
     s = scale.reshape((-1,) + (1,) * (grad.ndim - 1)).to(grad.dtype)
-    u = theta - eta * (grad * s).to(theta.dtype)
-    return (w @ u.reshape(k, -1).float()).reshape(theta.shape).to(theta.dtype)
+    gs = (grad * s).to(theta.dtype)
+    if isinstance(eta, torch.Tensor):
+        step = (eta.float() * gs.float()).to(theta.dtype)
+    else:
+        step = eta * gs
+    u = theta - step
+    new = (w @ u.reshape(k, -1).float()).reshape(theta.shape).to(theta.dtype)
+    return new if out is None else out.copy_(new)
 
 
-def gossip_update_stacked_grouped_ref(thetas, grads, w, scale, *, eta: float):
+def gossip_update_stacked_grouped_ref(thetas, grads, w, scale, *, eta, out=None):
     """[:func:`gossip_update_stacked_ref` of each leaf], in order."""
-    return [gossip_update_stacked_ref(theta, grad, w, scale, eta=eta)
-            for theta, grad in zip(thetas, grads)]
+    outs = [None] * len(thetas) if out is None else out
+    return [gossip_update_stacked_ref(theta, grad, w, scale, eta=eta, out=o)
+            for theta, grad, o in zip(thetas, grads, outs)]

@@ -34,14 +34,23 @@ the full final state (parameters and ``CommState``) with
 ``repro_torch.checkpoint.save_train_state`` at ``DIR/step_<steps>``;
 ``restore_train_state(DIR, device=...)`` reads it back.
 
+The first line says how the step runs: ``step: captured`` where the
+trainer replays its step from CUDA graphs (``jit=True`` on a stack
+``capture_declined`` keeps: plain SGD over the static dense W, no
+telemetry tap, no sanitizer, a loss that batches its nodes), else ``step:
+eager (<why>)``.
+
 Telemetry (``repro_torch.obs``): every run streams through a
-:class:`~repro_torch.obs.MetricsSink` — the train step's tap delivers one
-``train`` record per optimizer step (scalar metrics; per-node losses, DR
-weights and histogram counts every ``--tap-vectors-every`` steps), the eval
-hook writes the paper's fairness metrics as ``eval`` records, and
-``run_segments`` rolls up wall-clock phase timings as ``perf`` records.
-The console lines are formatters over those same records; ``--log-dir``
-also writes them as schema-versioned JSONL (``python -m
+:class:`~repro_torch.obs.MetricsSink` — with ``--log-dir`` the train
+step's tap delivers one ``train`` record per optimizer step (scalar
+metrics; per-node losses, DR weights and histogram counts every
+``--tap-vectors-every`` steps; the tap keeps the step eager), without it
+the CLI logs each segment's last step's metrics as its ``train``
+record (the step then runs captured where it can); the eval hook writes
+the paper's fairness metrics as ``eval`` records, and ``run_segments``
+rolls up wall-clock phase timings as ``perf`` records.  The console lines
+are formatters over those same records; ``--log-dir`` also writes them as
+schema-versioned JSONL (``python -m
 repro_torch.obs.schema`` validates; ``python -m repro_torch.obs report
 <log-dir>`` renders the fairness/comm summary and replays the run's fault
 events on its device), and ``--profile`` wraps the run in
@@ -82,6 +91,7 @@ import torch
 from repro_torch.checkpoint import save_train_state
 from repro_torch.configs import cifar_default, fmnist_default, get_arch
 from repro_torch.core import TrainerSpec, add_obs_cli_args, run_segments
+from repro_torch.device import expandable_segments
 from repro_torch.data import (
     make_cifar_like,
     make_fmnist_like,
@@ -112,6 +122,29 @@ def _dynamics_meta(spec) -> dict:
                 ef_rebase_threshold=spec.ef_rebase_threshold)
 
 
+def _tap(args, sink: MetricsSink):
+    """The trainer's sink: the sink where its records go to ``--log-dir``,
+    else None (no tap in the step; :func:`_train_record` logs the console's
+    records)."""
+    return sink if args.log_dir else None
+
+
+def _step_line(trainer) -> str:
+    """How the trainer's step runs: captured, or eager and why."""
+    why = trainer.capture_declined
+    return "step: captured" if why is None else f"step: eager ({why})"
+
+
+def _train_record(trainer, sink: MetricsSink, step: int, ms: dict) -> dict:
+    """The segment's last ``train`` record: the tap's where the trainer
+    taps, else the segment's last step's metrics, logged here (one
+    device-to-host copy)."""
+    if trainer.obs is not None:
+        return dict(sink.last("train"))
+    vals = torch.stack([v[-1] for v in ms.values()]).tolist()
+    return dict(sink.log("train", step, **dict(zip(ms, vals))))
+
+
 def _run(args, trainer, params, sample_batch, steps: int, on_segment, sink: MetricsSink):
     """``run_segments`` from ``trainer.init(params)`` with the perf rollup,
     under ``--profile``.  The initial state is handed over without a name
@@ -134,7 +167,8 @@ def train_lm(args, sink: MetricsSink):
     model = TransformerLM(cfg)
     spec = TrainerSpec.from_args(args, num_nodes=8, lr=0.01, grad_clip=1.0, graph="ring")
     k = spec.num_nodes
-    trainer = spec.build(make_lm_loss(model), obs=sink)
+    trainer = spec.build(make_lm_loss(model), obs=_tap(args, sink))
+    print(_step_line(trainer), flush=True)
     print(format_meta(sink.log(
         "meta", 0, arch=cfg.name, params=model.num_params(), nodes=k,
         rho=round(trainer.rho, 4), mu=spec.mu, robust=spec.robust, compress=args.compress,
@@ -157,9 +191,9 @@ def train_lm(args, sink: MetricsSink):
     compressed = trainer.compression is not None
 
     def on_segment(step, seg_state, ms):
-        # the console line and the history entry are the record the step's
-        # tap delivered for this step
-        rec = dict(sink.last("train"))
+        # the console line and the history entry are the segment's last
+        # train record (the step's tap's, with --log-dir)
+        rec = _train_record(trainer, sink, step, ms)
         rec["wall_s"] = time.perf_counter() - t0
         history.append(rec)
         print(format_train(rec, compressed=compressed), flush=True)
@@ -184,7 +218,8 @@ def train_paper(args, sink: MetricsSink):
     k = spec.num_nodes
     fed = pathological_noniid_partition(ds, k, seed=args.seed)
     x_nodes, y_nodes = fed.per_node_test_sets(n_per_node=200, seed=args.seed)
-    trainer = spec.build(make_classifier_loss(apply_fn), apply_fn, obs=sink)
+    trainer = spec.build(make_classifier_loss(apply_fn), apply_fn, obs=_tap(args, sink))
+    print(_step_line(trainer), flush=True)
     rng = np.random.default_rng(args.seed)
     bsz = args.batch_per_node or exp.batch_size
     print(format_meta(sink.log(
@@ -218,6 +253,7 @@ def _save(args, steps: int, state) -> None:
 
 
 def main(argv=None):
+    expandable_segments()  # before any CUDA allocation (repro_torch.device)
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default=None, help="assigned architecture id")

@@ -41,7 +41,7 @@ from repro_torch.kernels.quant_gossip import ops as qops
 from repro_torch.kernels.quant_gossip.kernel import num_blocks
 from repro_torch.models import params as pr
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, linear, node_broadcast
 
 MASKED = -1e30
 
@@ -108,37 +108,48 @@ def chunked_attention(q, k, v, *, window=None, softcap_val=None):
 
 
 def _project_qkv(p, x, cfg: ArchConfig, positions):
+    """q (..., S, H, hd), k and v (..., S, KVH, hd) of x (..., S, D): x (B,
+    S, D), or (K, B, S, D) with the node axis on the weights (wq (K, D, H,
+    hd), ...)."""
     dt = cfg.compute_dtype
-    b, s, d = x.shape
+    lead, d = x.shape[:-1], x.shape[-1]
+    node = p["wq"].shape[:-3]  # (K,) with the node axis, else ()
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     x = x.to(dt)
-    q = (x @ p["wq"].to(dt).reshape(d, h * hd)).reshape(b, s, h, hd)
-    k = (x @ p["wk"].to(dt).reshape(d, kvh * hd)).reshape(b, s, kvh, hd)
-    v = (x @ p["wv"].to(dt).reshape(d, kvh * hd)).reshape(b, s, kvh, hd)
+    q = linear(x, p["wq"].to(dt).reshape(node + (d, h * hd))).reshape(lead + (h, hd))
+    k = linear(x, p["wk"].to(dt).reshape(node + (d, kvh * hd))).reshape(lead + (kvh, hd))
+    v = linear(x, p["wv"].to(dt).reshape(node + (d, kvh * hd))).reshape(lead + (kvh, hd))
     if cfg.qkv_bias:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
+        q = q + node_broadcast(p["bq"], 2, q.ndim).to(dt)
+        k = k + node_broadcast(p["bk"], 2, k.ndim).to(dt)
+        v = v + node_broadcast(p["bv"], 2, v.ndim).to(dt)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def _out_proj(p, out):
-    b, s, h, hd = out.shape
-    return out.reshape(b, s, h * hd) @ p["wo"].to(out.dtype).reshape(h * hd, -1)
+    """(..., S, H, hd) -> (..., S, D) through wo (H, hd, D), or (K, H, hd, D)
+    with the node axis."""
+    h, hd = out.shape[-2:]
+    wo = p["wo"].to(out.dtype)
+    return linear(out.reshape(out.shape[:-2] + (h * hd,)),
+                  wo.reshape(wo.shape[:-3] + (h * hd, -1)))
 
 
 def attention_forward(p, x, cfg: ArchConfig, *, kind: str, return_kv: bool = False):
-    """Prefill path. x: (B, S, D); positions 0..S-1."""
-    b, s, _ = x.shape
+    """Prefill path. x: (B, S, D); positions 0..S-1.  With the node axis on
+    the weights, x (K, B, S, D): every node's rows go to one launch of the
+    kernel as a batch of K·B, since attention has no weights of its own."""
+    s = x.shape[-2]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
     window = cfg.sliding_window if kind == "swa" else None
-    out = chunked_attention(q.reshape(b, s, kvh, h // kvh, hd), k, v, window=window,
+    out = chunked_attention(q.reshape(-1, s, kvh, h // kvh, hd), k.reshape(-1, s, kvh, hd),
+                            v.reshape(-1, s, kvh, hd), window=window,
                             softcap_val=cfg.attn_softcap)
-    proj = _out_proj(p, out.reshape(b, s, h, hd))
+    proj = _out_proj(p, out.reshape(q.shape))
     if return_kv:
         return proj, {"k": k, "v": v}
     return proj

@@ -3,6 +3,14 @@ port of ``repro.models.layers``).
 
 Each function takes the dict of one module's leaves (``{"scale": ...}``,
 ``{"w_gate": ..., "w_up": ..., "w_down": ...}``).
+
+The node axis: where the leaves carry a leading node axis K (the
+decentralized trainer's node-stacked parameters) and the activations a
+leading K too, each function computes every node's own result at once, as
+the reference's ``vmap`` over nodes does: products are batched over K
+(:func:`linear`), a norm's scale and a bias broadcast per node
+(:func:`node_broadcast`), and nothing mixes nodes.  A leaf has the node
+axis when its rank is one above its declared rank.
 """
 
 from __future__ import annotations
@@ -18,10 +26,30 @@ def rmsnorm_decl(d: int) -> dict:
     return {"scale": pr.ones((d,), ("embed",))}
 
 
+def node_broadcast(w: torch.Tensor, rank: int, ndim: int) -> torch.Tensor:
+    """A leaf of declared rank ``rank`` as it broadcasts against activations
+    of rank ``ndim``: unchanged without the node axis; with it, w (K,
+    *shape) becomes (K, 1, ..., 1, *shape), node i's leaf against node i's
+    rows."""
+    if w.ndim == rank:
+        return w
+    return w.reshape(w.shape[:1] + (1,) * (ndim - w.ndim) + w.shape[1:])
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (..., D) and w (D, N); with the node axis, x (K, ...,
+    D) and w (K, D, N): one product batched over the K nodes, node i's rows
+    against node i's weight."""
+    if w.ndim == 2:
+        return x @ w
+    k, d, n = w.shape
+    return torch.bmm(x.reshape(k, -1, d), w).reshape(x.shape[:-1] + (n,))
+
+
 def rmsnorm(p, x, eps: float = 1e-6):
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
-    out = x32 * torch.rsqrt(var + eps) * p["scale"].float()
+    out = x32 * torch.rsqrt(var + eps) * node_broadcast(p["scale"], 1, x.ndim).float()
     return out.to(x.dtype)
 
 
@@ -78,9 +106,9 @@ def glu_mlp_decl(d_model: int, d_ff: int) -> dict:
 def glu_mlp(p, x, compute_dtype=None):
     dt = compute_dtype or x.dtype
     x = x.to(dt)
-    gate = silu(x @ p["w_gate"].to(dt))
-    up = x @ p["w_up"].to(dt)
-    return (gate * up) @ p["w_down"].to(dt)
+    gate = silu(linear(x, p["w_gate"].to(dt)))
+    up = linear(x, p["w_up"].to(dt))
+    return linear(gate * up, p["w_down"].to(dt))
 
 
 # -- embeddings ---------------------------------------------------------------
@@ -90,20 +118,33 @@ def embedding_decl(vocab: int, d_model: int) -> dict:
 
 
 def embed(p, tokens, compute_dtype=None):
-    out = p["table"][tokens]
+    """The rows of ``tokens``; with the node axis, table (K, V, D) and tokens
+    (K, ...): node i's tokens from node i's table."""
+    table = p["table"]
+    if table.ndim == 3:
+        k = table.shape[0]
+        node = torch.arange(k, device=tokens.device).reshape((k,) + (1,) * (tokens.ndim - 1))
+        out = table[node, tokens]
+    else:
+        out = table[tokens]
     return out.to(compute_dtype) if compute_dtype else out
 
 
 # -- the LM loss ----------------------------------------------------------------
 
 def _chunk_xent(xc, table, yc, mc, cap):
-    """Summed cross-entropy of one chunk and its count of unmasked positions."""
-    logits = xc.float() @ table.float().t()
+    """Summed cross-entropy of one chunk and its count of unmasked positions;
+    with the node axis (table (K, V, D), the chunk (K, B, c, D)) each is
+    (K,), one per node."""
+    logits = linear(xc.float(), table.float().transpose(-1, -2))
     if cap is not None:
         logits = cap * torch.tanh(logits / cap)
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, yc[..., None])[..., 0]
-    return ((lse - gold) * mc).sum(), mc.sum()
+    ce = (lse - gold) * mc
+    if table.ndim == 3:
+        return ce.flatten(1).sum(1), mc.flatten(1).sum(1)
+    return ce.sum(), mc.sum()
 
 
 def chunked_logits_xent(x, emb_table, labels, mask=None, chunk: int = 512,
@@ -112,21 +153,23 @@ def chunked_logits_xent(x, emb_table, labels, mask=None, chunk: int = 512,
 
     Loops over sequence chunks of ``chunk`` positions (the last one may be
     shorter); each computes its logits (B, c, V) and its CE contribution.
-    Returns the mean CE over unmasked positions.  Where a gradient is taken
+    Returns the mean CE over unmasked positions.  With the node axis (x (K,
+    B, S, D), emb_table (K, V, D), labels (K, B, S)) it returns the (K,)
+    per-node means: a chunk cuts the sequence, never the nodes.  Where a gradient is taken
     and the sequence has more than one chunk, each chunk's logits are
     recomputed in the backward pass (``torch.utils.checkpoint``), so autograd
     keeps no chunk's logits alive.
     """
-    b, s, _ = x.shape
+    s = x.shape[-2]
     chunk = min(chunk, s)
-    mask = torch.ones((b, s), device=x.device) if mask is None else mask.float()
+    mask = torch.ones(x.shape[:-1], device=x.device) if mask is None else mask.float()
     labels = labels.long()
     starts = range(0, s, chunk)
     recompute = torch.is_grad_enabled() and len(starts) > 1
     total = count = 0.0
     for lo in starts:
-        args = (x[:, lo:lo + chunk], emb_table, labels[:, lo:lo + chunk],
-                mask[:, lo:lo + chunk], logit_softcap_val)
+        args = (x[..., lo:lo + chunk, :], emb_table, labels[..., lo:lo + chunk],
+                mask[..., lo:lo + chunk], logit_softcap_val)
         dl, dc = (checkpoint(_chunk_xent, *args, use_reentrant=False) if recompute
                   else _chunk_xent(*args))
         total, count = total + dl, count + dc

@@ -30,7 +30,10 @@ computes them in plain JAX.  The layers run as a Python loop over the head
 layers and the groups; the reference's ``lax.scan`` has no counterpart,
 and neither has its ``remat``, which changes memory and not values.
 :func:`make_lm_loss` is the node-stacked loss the decentralized trainer
-takes.
+takes: for the dense LMs (:func:`node_axis_declined`) one forward of all K
+nodes, node-stacked leaves against (K, B, S+1) tokens, with attention's
+K·B rows in one launch of B.6 per layer; for the other families a loop
+over the nodes.
 
 Parameters are the port's flat dict (``"groups/l0/mix/wq"``, with the
 groups' leading axis as in the reference).
@@ -171,7 +174,7 @@ class TransformerLM:
         cfg = self.cfg
         toks = batch["tokens"]
         if drop_last_token:
-            toks = toks[:, :-1]
+            toks = toks[..., :-1]
         x = embed(subtree(params, "embedding"), toks, cfg.compute_dtype)
         if cfg.frontend == "token":
             return x, 0
@@ -180,14 +183,17 @@ class TransformerLM:
 
     def _layers(self, params):
         """[(block, ffn, the layer's leaves, where its cache lives)] in order:
-        the head layers, then each group's pattern."""
+        the head layers, then each group's pattern.  Node-stacked params
+        (the node axis: every leaf (K, ...)) keep K first: the group axis
+        of the groups' leaves is then axis 1."""
         cfg = self.cfg
         out = []
         for i, (blk, ffn) in enumerate(cfg.head_layers()):
             out.append((blk, ffn, subtree(params, f"head_layers/h{i}"), ("head", i, None)))
+        axis = params["embedding/table"].ndim - 2  # 1 with the node axis, else 0
         # one unbind per leaf: its backward stacks the groups' gradients
         # once, where indexing would scatter each into a zeroed full leaf
-        group = [(blk, ffn, {n: t.unbind(0) for n, t in
+        group = [(blk, ffn, {n: t.unbind(axis) for n, t in
                              subtree(params, f"groups/l{i}").items()})
                  for i, (blk, ffn) in enumerate(cfg.group_pattern())]
         for g in range(cfg.n_groups):
@@ -218,7 +224,7 @@ class TransformerLM:
         if blk in ("attn", "swa"):
             out, st = attention_forward(mix, h, cfg, kind=blk, return_kv=True)
             window = cfg.sliding_window if blk == "swa" else None
-            if window is not None and st["k"].shape[1] > window:
+            if want_cache and window is not None and st["k"].shape[1] > window:
                 st = {k: v[:, -window:] for k, v in st.items()}
         elif blk == "mamba":
             out, st = mamba_forward(mix, h, cfg)
@@ -274,11 +280,14 @@ class TransformerLM:
         text positions, plus the MoE aux loss.
 
         batch: {"tokens": (B, S+1) int[, "embeddings": (B, P, D)]};
-        positions 0..S-1 are the inputs and 1..S the labels.
+        positions 0..S-1 are the inputs and 1..S the labels.  A dense LM
+        (:func:`node_axis_declined`) also takes node-stacked params with
+        tokens (K, B, S+1) and returns the (K,) per-node losses, each node
+        on its own leaves and rows.
         """
         x, aux, prefix, _ = self._forward(params, batch, False, drop_last_token=True)
-        ce = chunked_logits_xent(x[:, prefix:], self._unembed_table(params),
-                                 batch["tokens"][:, 1:], chunk=self.cfg.logits_chunk,
+        ce = chunked_logits_xent(x[..., prefix:, :], self._unembed_table(params),
+                                 batch["tokens"][..., 1:], chunk=self.cfg.logits_chunk,
                                  logit_softcap_val=self.cfg.logit_softcap)
         return ce + aux
 
@@ -360,17 +369,29 @@ class TransformerLM:
         return _logits(x[:, 0], self._unembed_table(params), cfg.logit_softcap), cache
 
 
-def make_lm_loss(model: TransformerLM):
-    """The node-stacked LM loss the decentralized trainer takes (the
-    reference vmaps ``model.loss`` over the node axis).
+def node_axis_declined(cfg: ArchConfig) -> str | None:
+    """None where the LM's forward takes the node axis (every layer attn or
+    swa with a dense FFN, and a token frontend: qwen2, h2o-danube, gemma2,
+    llama3), else why its node-stacked loss loops over the nodes (MoE's
+    expert capacity is per node; the Mamba and RWKV blocks and the stub
+    frontends are not batched over nodes yet)."""
+    blocks = sorted({blk for blk, _ in cfg._full_pattern()} - {"attn", "swa"})
+    ffns = sorted({ffn for _, ffn in cfg._full_pattern()} - {"dense"})
+    if cfg.frontend != "token":
+        return f"the {cfg.frontend} frontend"
+    if blocks:
+        return f"{'/'.join(blocks)} blocks"
+    if ffns:
+        return f"{'/'.join(ffns)} FFNs"
+    return None
 
-    ``loss_fn(params, (tokens,))`` or ``loss_fn(params, (tokens,
-    embeddings))`` with every leaf (K, ...), tokens (K, B, S+1) and the stub
-    frontends' embeddings (K, B, P, D) returns the (K,) per-node losses
-    (CE + aux): each leaf is unbound into K views and node i's loss runs on
-    its own views and batch rows.  The backward of the unbind stacks the K
-    nodes' gradients into one (K, ...) tensor per leaf.
-    """
+
+def node_loop_loss(model: TransformerLM):
+    """The node-stacked loss as a loop over the nodes: each leaf is unbound
+    into K views and node i's loss runs on its own views and batch rows
+    (the families :func:`node_axis_declined` declines).  The backward of
+    the unbind stacks the K nodes' gradients into one (K, ...) tensor per
+    leaf."""
 
     def loss_fn(params, batch):
         tokens, *rest = batch
@@ -384,4 +405,28 @@ def make_lm_loss(model: TransformerLM):
             losses.append(model.loss(dict(zip(names, node)), node_batch))
         return torch.stack(losses)
 
+    return loss_fn
+
+
+def make_lm_loss(model: TransformerLM):
+    """The node-stacked LM loss the decentralized trainer takes (the
+    reference vmaps ``model.loss`` over the node axis).
+
+    ``loss_fn(params, (tokens,))`` or ``loss_fn(params, (tokens,
+    embeddings))`` with every leaf (K, ...), tokens (K, B, S+1) and the stub
+    frontends' embeddings (K, B, P, D) returns the (K,) per-node losses
+    (CE + aux).  A dense LM runs all K nodes in one forward (the node axis:
+    batched products, one B.6 launch per layer for the K·B rows); the
+    others run :func:`node_loop_loss`, and their loss carries
+    ``capture_declined``, the reason the trainer does not capture their
+    step (the loop's families are not checked under capture yet).
+    """
+    reason = node_axis_declined(model.cfg)
+    if reason is None:
+        def loss_fn(params, batch):
+            return model.loss(params, {"tokens": batch[0]})
+
+        return loss_fn
+    loss_fn = node_loop_loss(model)
+    loss_fn.capture_declined = f"the per-node loop of the LM loss ({reason})"
     return loss_fn

@@ -22,9 +22,11 @@
   and riding the tap's decimated vector payload.
 * **Run report + regression gate** (:mod:`repro_torch.obs.report`):
   ``python -m repro_torch.obs report|compare``.
-
-The reference's recompile watchdog counts JAX's compiled programs; eager
-PyTorch compiles no program per shape, so it has no counterpart here.
+* **Recompile watchdog** (:mod:`repro_torch.obs.watchdog`): counts of the
+  trainer's captured programs (:class:`RecompileWatchdog`, over
+  ``_cache_size()``) and a process-wide capture counter
+  (:func:`expect_compiles`), where the reference counts JAX's compiled
+  programs.
 """
 
 from repro_torch.obs.hist import TRAIN_HISTOGRAMS, HistSpec, hist_counts
@@ -63,6 +65,13 @@ from repro_torch.obs.trace import (
     to_chrome_events,
     trainer_trace_events,
 )
+from repro_torch.obs.watchdog import (
+    CompileCounter,
+    RecompileError,
+    RecompileWatchdog,
+    expect_compiles,
+    jit_cache_size,
+)
 
 __all__ = [
     "SCHEMA_VERSION", "validate_jsonl", "validate_record",
@@ -74,4 +83,6 @@ __all__ = [
     "merge_with_profile",
     "load_records", "summarize_run", "serve_latency_summary",
     "render_text", "render_html",
+    "RecompileWatchdog", "RecompileError", "CompileCounter",
+    "expect_compiles", "jit_cache_size",
 ]

@@ -1,0 +1,272 @@
+"""The trainer's captured step (``jit=True``) on the CPU, where it runs the
+capturable form the card captures (the same slot, B.1's ``out`` and η as
+a tensor) eagerly.
+
+- 20 fmnist dense-none steps (the paper's MLP, K = 10, ER(0.3)) and 3
+  qwen2 smoke steps (K = 4 ring, ``train_lm``'s lr and clip) with
+  ``jit=True`` equal ``jit=False`` bit for bit: every parameter, every
+  metric, ``step`` and ``comm.rounds``; also through ``step``, through
+  epochs with a hook, past the metrics buffer's columns, and under a
+  decaying SGD schedule over more steps than one packing of inputs.
+  These comparisons run on one intra-op thread (``one_thread``).
+- The caller's state is left untouched on the CPU (copied in, the result
+  copied out), so one initial state serves several runs.
+- The capture predicate declines, each with its reason: the int8 wire,
+  a time-varying topology (dynamics), Adam, ``mix_every`` = 2, a sink
+  (``obs``) and ``sanitize``; ``jit=False`` says so; the CLI's first line
+  says how the step runs.
+- B.1's plain version with η a 0-d float32 tensor and ``out`` leaves
+  against the reference's Pallas kernel in interpret mode, row by row, at
+  the tolerance of ``tests/test_torch_gossip_update.py`` (rtol 1e-5, atol
+  1e-5); the out leaves are written and returned, and equal the float-η
+  call bit for bit; ``out`` the θ leaves themselves (in place) gives the
+  same bits.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.gossip_update.ops import gossip_update_flat as ref_flat
+from repro_torch.comm import CompressionConfig
+from repro_torch.configs import get_arch
+from repro_torch.core import DecentralizedTrainer, TrainerSpec
+from repro_torch.core import captured as cap
+from repro_torch.data import make_fmnist_like, make_node_token_streams
+from repro_torch.data import pathological_noniid_partition
+from repro_torch.graphs import metropolis_weights, ring_graph
+from repro_torch.kernels.gossip_update import ops
+from repro_torch.models import TransformerLM, make_lm_loss
+from repro_torch.models import paper_nets as nets
+from repro_torch.obs import MetricsSink
+from repro_torch.optim import adam, sgd
+
+K, STEPS = 10, 20
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread while two runs are compared bit for bit: with
+    several, MKL may pick its threads by the machine's load, and a product
+    then sums in another order from one run to the next, in either mode."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def fmnist():
+    fed = pathological_noniid_partition(make_fmnist_like(), K, seed=0)
+    rng = np.random.default_rng(0)
+    draws = [fed.sample_batch(rng, 16) for _ in range(STEPS)]
+    batches = tuple(np.stack(parts) for parts in zip(*draws))
+    return batches, nets.mlp_init(torch.Generator().manual_seed(0))
+
+
+def _fmnist_trainer(jit: bool, **kw):
+    return DecentralizedTrainer(nets.make_classifier_loss(nets.mlp_apply), nets.mlp_apply,
+                                num_nodes=K, graph_kwargs={"p": 0.3, "seed": 0}, lr=0.2,
+                                device="cpu", jit=jit, **kw)
+
+
+def _same(a, ma, b, mb) -> None:
+    assert sorted(a.params) == sorted(b.params)
+    for n in a.params:
+        assert torch.equal(a.params[n], b.params[n]), n
+    assert sorted(ma) == sorted(mb)
+    for k in ma:
+        assert ma[k].shape == mb[k].shape and torch.equal(ma[k], mb[k]), k
+    assert (a.step, a.comm.rounds, a.comm.key) == (b.step, b.comm.rounds, b.comm.key)
+    for f in ("res_norm", "res_ref", "wire_bits"):
+        assert torch.equal(getattr(a.comm, f), getattr(b.comm, f)), f
+
+
+def test_fmnist_captured_equals_eager(fmnist, one_thread):
+    batches, params = fmnist
+    out = {}
+    for jit in (False, True):
+        trainer = _fmnist_trainer(jit)
+        assert trainer.captured == jit
+        state, ms = trainer.run(trainer.init(params), batches)
+        out[jit] = (state, ms)
+    _same(*out[False], *out[True])
+    assert out[True][0].step == STEPS and out[True][0].comm.rounds == STEPS
+
+
+def test_fmnist_step_epochs_and_metric_columns(fmnist, monkeypatch, one_thread):
+    """``step`` after a run, a run in epochs with a hook, and a run longer
+    than the metrics buffer (cut to 4 columns here) and than one packing of
+    inputs (cut to 3 steps) equal the eager ones."""
+    batches, params = fmnist
+    monkeypatch.setattr(cap, "METRIC_COLS", 4)
+    monkeypatch.setattr(cap, "PACK_STEPS", 3)
+    first = tuple(b[0] for b in batches)
+    out = {}
+    for jit in (False, True):
+        trainer = _fmnist_trainer(jit)
+        seen = []
+        state, ms = trainer.run(
+            trainer.init(params), batches, steps=11, epoch_steps=5,
+            on_epoch=lambda e, st, m: seen.append((e, st.step, len(m["loss_mean"]))))
+        state, m1 = trainer.step(state, first)
+        out[jit] = (state, ms, m1, seen)
+    (a, ma, m1a, sa), (b, mb, m1b, sb) = out[False], out[True]
+    _same(a, ma, b, mb)
+    assert sa == sb == [(0, 5, 5), (1, 10, 5), (2, 11, 1)]
+    assert all(v.ndim == 0 for v in m1b.values())
+    assert all(torch.equal(m1a[k], m1b[k]) for k in m1a)
+
+
+def test_fmnist_decaying_schedule_captured_equals_eager(fmnist, monkeypatch, one_thread):
+    """A decaying SGD schedule over more steps than one packing of inputs
+    (cut to 3 steps): each step's η, packed beside its batch, is the
+    schedule's, bit for bit as the eager step's (an η taken at the warm-up
+    or at the wrong offset would not give these bits)."""
+    batches, params = fmnist
+    monkeypatch.setattr(cap, "PACK_STEPS", 3)
+    out = {}
+    for jit in (False, True):
+        trainer = _fmnist_trainer(jit, optimizer=sgd(lambda t: 0.4 / (1.0 + 0.3 * t)))
+        assert trainer.captured == jit
+        out[jit] = trainer.run(trainer.init(params), batches, steps=11)
+    _same(*out[False], *out[True])
+    flat = _fmnist_trainer(True, optimizer=sgd(0.4))
+    state, _ = flat.run(flat.init(params), batches, steps=11)
+    assert not all(torch.equal(state.params[n], out[True][0].params[n]) for n in params)
+
+
+def test_caller_state_untouched_on_the_cpu(fmnist, one_thread):
+    batches, params = fmnist
+    trainer = _fmnist_trainer(True)
+    s0 = trainer.init(params)
+    kept = {n: t.clone() for n, t in s0.params.items()}
+    s1, m1 = trainer.run(s0, batches, steps=6)
+    s2, m2 = trainer.run(s0, batches, steps=6)
+    for n in kept:
+        assert torch.equal(s0.params[n], kept[n])
+        assert s1.params[n] is not s2.params[n]
+        assert torch.equal(s1.params[n], s2.params[n])
+    assert s0.step == 0 and s0.comm.rounds == 0
+    assert all(torch.equal(m1[k], m2[k]) for k in m1)
+    s3, _ = trainer.run(s1, batches, steps=3)
+    assert s3.step == 9 and all(torch.equal(s1.params[n], s2.params[n]) for n in kept)
+    assert trainer._run._cache_size() == 1
+
+
+def test_qwen2_smoke_captured_equals_eager(one_thread):
+    k, steps = 4, 3
+    model = TransformerLM(get_arch("qwen2_0_5b", smoke=True))
+    params = model.init(torch.Generator().manual_seed(0))
+    streams = make_node_token_streams(k, model.cfg.vocab, seed=0)
+    toks = np.stack([np.stack([s.next_batch(2, 32) for s in streams]) for _ in range(steps)])
+    out = {}
+    for jit in (False, True):
+        trainer = TrainerSpec(num_nodes=k, graph="ring", lr=0.01, grad_clip=1.0, device="cpu",
+                              jit=jit).build(make_lm_loss(model))
+        assert trainer.captured == jit
+        out[jit] = trainer.run(trainer.init(params), (toks,))
+    _same(*out[False], *out[True])
+    assert out[True][0].step == steps and out[True][0].comm.rounds == steps
+
+
+def _tiny_loss():
+    return nets.make_classifier_loss(nets.mlp_apply)
+
+
+@pytest.mark.parametrize("case,words", [
+    ("int8", "int8"), ("dynamics", "time-varying"), ("adam", "not plain SGD"),
+    ("mix_every", "mix_every = 2"), ("sink", "sink"), ("sanitize", "sanitize"),
+    ("jit", "jit=False")])
+def test_capture_predicate_declines_with_reason(case, words):
+    kw = dict(num_nodes=4, graph="ring", lr=0.1, device="cpu")
+    if case == "dynamics":
+        trainer = TrainerSpec(topology="dropout", drop_p=0.2, **kw).build(_tiny_loss())
+    else:
+        extra = {"int8": dict(compression=CompressionConfig(kind="int8")),
+                 "adam": dict(optimizer=adam(1e-3)), "mix_every": dict(mix_every=2),
+                 "sink": dict(obs=MetricsSink()), "sanitize": dict(sanitize=True),
+                 "jit": dict(jit=False)}[case]
+        trainer = DecentralizedTrainer(_tiny_loss(), **kw, **extra)
+    assert not trainer.captured
+    assert words in trainer.capture_declined, trainer.capture_declined
+    if case == "jit":
+        assert not hasattr(trainer._run, "_cache_size")
+    else:
+        assert trainer._run._cache_size() == 0
+
+
+def test_capture_predicate_keeps_the_fused_stack():
+    trainer = DecentralizedTrainer(_tiny_loss(), num_nodes=4, graph="ring", lr=0.1, device="cpu")
+    assert trainer.captured and trainer.capture_declined is None
+    lm = TransformerLM(get_arch("rwkv6_7b", smoke=True))
+    looped = DecentralizedTrainer(make_lm_loss(lm), num_nodes=4, graph="ring", device="cpu")
+    assert "per-node loop" in looped.capture_declined
+
+
+@pytest.mark.parametrize("argv,line", [
+    ([], "step: captured"),
+    (["--log-dir", "LOG"], "step: eager (a telemetry sink (obs) taps the step)")])
+def test_cli_says_how_the_step_runs(argv, line, tmp_path, capsys):
+    from repro_torch.launch import train
+
+    argv = [str(tmp_path) if a == "LOG" else a for a in argv]
+    train.main(["--paper", "fmnist", "--device", "cpu", "--steps", "2", "--nodes", "4",
+                "--log-every", "1", *argv])
+    assert capsys.readouterr().out.splitlines()[0] == line
+
+
+@pytest.mark.parametrize("d", [64, 1000])
+def test_stacked_eta_tensor_and_out_match_reference_kernel(d):
+    k, eta = 6, 0.05
+    g = ring_graph(k)
+    w = metropolis_weights(g)
+    rng = np.random.default_rng(d + 1)
+    thetas, grads = (rng.standard_normal((k, d)).astype(np.float32) for _ in range(2))
+    scales = rng.uniform(0.5, 2.0, size=k).astype(np.float32)
+    args = ([torch.from_numpy(thetas)], [torch.from_numpy(grads)],
+            torch.from_numpy(w.astype(np.float32)), torch.from_numpy(scales))
+    out = [torch.full((k, d), float("nan"))]
+    eta_t = torch.tensor(eta, dtype=torch.float32)
+    got = ops.gossip_update_stacked_grouped(*args, eta=eta_t, out=out)
+    assert got[0] is out[0]
+    assert torch.equal(got[0], ops.gossip_update_stacked_grouped(*args, eta=eta)[0])
+    updated = thetas - np.float32(eta) * scales[:, None] * grads  # what each neighbour sends
+    for i in range(k):
+        nbr_ids = g.neighbors(i)
+        weights = np.concatenate([[w[i, i]], w[i, nbr_ids]]).astype(np.float32)
+        want = ref_flat(jnp.asarray(thetas[i]), jnp.asarray(grads[i]),
+                        jnp.asarray(updated[nbr_ids]), jnp.asarray(weights),
+                        jnp.float32(scales[i]), eta=eta, interpret=True)
+        np.testing.assert_allclose(out[0][i].numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_stacked_out_in_place_equals_new_leaves():
+    """``out`` the θ leaves themselves (the captured step's update in place):
+    the same bits as new leaves, written into θ and returned."""
+    rng = np.random.default_rng(5)
+    k = 5
+    thetas = [torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32))
+              for d in (7, 300)]
+    grads = [torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)) for t in thetas]
+    w = torch.from_numpy(metropolis_weights(ring_graph(k)).astype(np.float32))
+    s = torch.from_numpy(rng.uniform(0.5, 2.0, size=k).astype(np.float32))
+    eta = torch.tensor(0.05)
+    want = ops.gossip_update_stacked_grouped(thetas, grads, w, s, eta=eta)
+    got = ops.gossip_update_stacked_grouped(thetas, grads, w, s, eta=eta, out=thetas)
+    assert all(g is t for g, t in zip(got, thetas))
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+
+
+def test_stacked_eta_tensor_follows_the_schedule_in_bfloat16():
+    """A bfloat16 leaf: η as a tensor gives the float η's bits (f32(η)
+    times the bfloat16 g·s, rounded once to bfloat16)."""
+    rng = np.random.default_rng(9)
+    theta, grad = (torch.from_numpy(rng.standard_normal((3, 50)).astype(np.float32))
+                   .to(torch.bfloat16) for _ in range(2))
+    w, s = torch.eye(3), torch.tensor([0.7, 1.3, 2.1])
+    for eta in (0.1, 0.0371, 3e-4):
+        a = ops.gossip_update_stacked(theta, grad, w, s, eta=eta)
+        b = ops.gossip_update_stacked(theta, grad, w, s, eta=torch.tensor(eta))
+        assert torch.equal(a, b), eta

@@ -78,6 +78,18 @@ equal their plain versions bit for bit; the EF gossip wire inside
 the EF clock; the int8 hub launches one grouped B.2 per round and equals
 the CPU's round.
 
+The captured step (A.14): B.1 grouped with η read through a pointer (a
+0-d float32 tensor) and writing into given ``out`` leaves equals the same
+kernel with a float η bit for bit (and its plain version within
+STACKED_REL), and reads η when it runs, also with ``out`` the θ leaves
+themselves (in place); a captured fmnist dense-none run of 20 steps
+equals the eager run bit for bit, the state a run returned is written
+over by the next run and a handed-over state's storage is freed (the
+carry is donated), and a stale or freed one is refused; 70 captured steps
+under a decaying SGD schedule equal the eager ones bit for bit; runs of
+several segment lengths are one captured program, and the launch counters
+count each replay's B.1 launch.
+
 Run it on a machine with a card with ``PYTHONPATH=src python -m pytest -q
 tests/test_torch_kernel.py``.
 """
@@ -1779,3 +1791,139 @@ def test_int8_hub_round_on_the_card_equals_the_cpu(cuda):
     for n in cpu:
         assert float((card[n] - cpu[n]).abs().max()) <= 1.5e-4 * largest, n
         assert torch.equal(card_hat[n], cpu_hat[n]), n
+
+
+# -- the captured step (A.14): B.1 with η by pointer and out=, the CUDA graphs
+
+def test_grouped_stacked_eta_by_pointer_and_out(cuda):
+    """η a 0-d float32 tensor and the outputs given: bit-equal to the float-η
+    call, written into ``out`` (their storage kept), within STACKED_REL of
+    the plain version; a new η written on the stream is what the kernel
+    reads, and the call makes no host sync; ``out`` the θ leaves
+    themselves (in place) gives the same bits, and an out leaf that shares
+    a grad's storage is refused."""
+    thetas, grads, w, s = _stacked_group(8, [896, 151936 * 8, 7], 4, torch.float32, cuda)
+    want = gk.gossip_update_stacked_grouped(thetas, grads, w, s, eta=0.01)
+    eta = torch.full((), 0.01, dtype=torch.float32, device=cuda)
+    out = [torch.full_like(t, float("nan")) for t in thetas]
+    ptrs = [o.data_ptr() for o in out]
+    got = gk.gossip_update_stacked_grouped(thetas, grads, w, s, eta=eta, out=out)
+    assert [g.data_ptr() for g in got] == ptrs
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    plain = gref.gossip_update_stacked_grouped_ref(thetas, grads, w, s, eta=eta)
+    for a, b in zip(got, plain):
+        assert float((a - b).abs().max()) <= STACKED_REL * float(b.abs().max())
+    # a new value written on the stream, read by the kernel with no host sync
+    eta.fill_(0.5)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gk.gossip_update_stacked_grouped(thetas, grads, w, s, eta=eta, out=out)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    half = gk.gossip_update_stacked_grouped(thetas, grads, w, s, eta=0.5)
+    assert all(torch.equal(a, b) for a, b in zip(out, half))
+    # out the θ leaves themselves: the update in place, the same bits
+    inplace = [t.clone() for t in thetas]
+    got = gk.gossip_update_stacked_grouped(inplace, grads, w, s, eta=eta, out=inplace)
+    assert all(g is t for g, t in zip(got, inplace))
+    assert all(torch.equal(a, b) for a, b in zip(inplace, half))
+    with pytest.raises(ValueError, match="apart"):
+        gk.gossip_update_stacked_grouped(thetas, grads, w, s, eta=eta, out=grads)
+
+
+def _fmnist_trainers(k: int = 10, steps: int = 20, optimizer=None):
+    from repro_torch.core import DecentralizedTrainer
+    from repro_torch.data import make_fmnist_like, pathological_noniid_partition
+    from repro_torch.models import paper_nets as nets
+
+    fed = pathological_noniid_partition(make_fmnist_like(n_train=2000, n_test=200), k, seed=0)
+    rng = np.random.default_rng(0)
+    draws = [fed.sample_batch(rng, 32) for _ in range(steps)]
+    batches = tuple(np.stack(parts) for parts in zip(*draws))
+    params = nets.mlp_init(torch.Generator().manual_seed(0))
+
+    def build(jit):
+        return DecentralizedTrainer(nets.make_classifier_loss(nets.mlp_apply), nets.mlp_apply,
+                                    num_nodes=k, graph_kwargs={"p": 0.3, "seed": 0}, lr=0.2,
+                                    optimizer=optimizer, device="cuda", jit=jit)
+
+    return build, batches, params
+
+
+def test_captured_fmnist_run_equals_eager_and_donates(cuda):
+    build, batches, params = _fmnist_trainers()
+    eager = build(False)
+    e_state, e_ms = eager.run(eager.init(params), batches)
+    trainer = build(True)
+    assert trainer.captured
+    before = gk.gossip_update_stacked_grouped.launches
+    s0 = trainer.init(params)
+    s1, ms1 = trainer.run(s0, tuple(b[:10] for b in batches))
+    # the first state gave up its parameters: their storage is freed
+    assert all(x.untyped_storage().nbytes() == 0 for x in s0.params.values())
+    kept = {n: t.clone() for n, t in s1.params.items()}
+    s2, ms2 = trainer.run(s1, tuple(b[10:] for b in batches))
+    torch.cuda.synchronize()
+    assert gk.gossip_update_stacked_grouped.launches - before == 20
+    for n in e_state.params:
+        assert torch.equal(s2.params[n], e_state.params[n]), n
+    for k in e_ms:
+        assert torch.equal(torch.cat([ms1[k], ms2[k]]), e_ms[k]), k
+    assert (s2.step, s2.comm.rounds) == (20, 20)
+    # the carry was donated: s1's parameters are the slot, which holds the
+    # newest state now, and s1 (its step behind the slot's) is refused
+    assert all(s1.params[n] is s2.params[n] for n in kept)
+    assert not all(torch.equal(s1.params[n], kept[n]) for n in kept)
+    with pytest.raises(RuntimeError, match="written over"):
+        trainer.run(s1, tuple(b[:1] for b in batches))
+    s3, _ = trainer.run(s2, tuple(b[:1] for b in batches))
+    with pytest.raises(RuntimeError, match="donated"):
+        trainer.run(s2, tuple(b[:1] for b in batches))
+    with pytest.raises(RuntimeError, match="donated"):
+        trainer.run(s0, tuple(b[:1] for b in batches))
+    assert s3.step == 21 and trainer._run._cache_size() == 1
+
+
+def test_captured_run_follows_a_decaying_schedule(cuda):
+    """A decaying SGD schedule over 70 steps, more than one packing of
+    inputs (PACK_STEPS): the captured run equals the eager one bit for bit
+    (η is read by B.1 through its pointer each replay, not baked at the
+    capture), and differs from a run at the schedule's first η."""
+    from repro_torch.core import captured as cap
+    from repro_torch.optim import sgd
+
+    steps = 70
+    assert steps > cap.PACK_STEPS
+    build, batches, params = _fmnist_trainers(
+        steps=steps, optimizer=sgd(lambda t: 0.4 / (1.0 + 0.05 * t)))
+    eager = build(False)
+    e_state, e_ms = eager.run(eager.init(params), batches)
+    trainer = build(True)
+    assert trainer.captured
+    state, ms = trainer.run(trainer.init(params), batches)
+    for n in e_state.params:
+        assert torch.equal(state.params[n], e_state.params[n]), n
+    for k in e_ms:
+        assert torch.equal(ms[k], e_ms[k]), k
+    flat_build, _, _ = _fmnist_trainers(steps=1, optimizer=sgd(0.4))
+    flat = flat_build(True)
+    f_state, _ = flat.run(flat.init(params), batches)
+    assert not all(torch.equal(f_state.params[n], state.params[n]) for n in params)
+
+
+def test_captured_run_is_one_program_over_segment_lengths(cuda):
+    from repro_torch.obs import RecompileWatchdog
+
+    build, batches, params = _fmnist_trainers()
+    trainer = build(True)
+    watch = RecompileWatchdog(label="segments").track("run", trainer._run, allowed=1)
+    state = trainer.init(params)
+    before = gk.gossip_update_stacked_grouped.launches
+    for lo, hi in ((0, 3), (3, 8), (8, 9), (9, 16)):
+        state, ms = trainer.run(state, tuple(b[lo:hi] for b in batches))
+        assert ms["loss_mean"].shape == (hi - lo,)
+    state, _ = trainer.step(state, tuple(b[16] for b in batches))
+    torch.cuda.synchronize()
+    assert watch.check() == {"run": 1} and trainer._run._cache_size() == 1
+    assert gk.gossip_update_stacked_grouped.launches - before == 17
+    assert state.step == 17
