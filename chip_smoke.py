@@ -15,7 +15,7 @@ and holds every CUDA kernel of those paths against its plain PyTorch
 version:
 
   build    nvcc-compiles every kernel source under src/ (one nvcc per
-           source, all six started together), and proves from cuobjdump's
+           source, all seven started together), and proves from cuobjdump's
            SASS that each of B.6's product kernels, at every head dim, runs
            TF32 tensor-core instructions (HMMA/HGMMA .TF32).
   kernel   the four quant_gossip kernels against their plain versions at
@@ -37,6 +37,12 @@ version:
            mask, src and qmax; and a grouped call timed
            against the one-leaf calls of every leaf of the MLP and of the
            CNN, in turns, with the cluster size and the leaf cap as built.
+           Then the wire's noise (csrc/philox.cu, Philox-4x32-10, the
+           round read through a pointer) against its plain version bit for
+           bit: the MLP's 6 leaves and the CNN's 12 at K = 10, qwen2-0.5b's
+           14 at K = 2, ragged leaves (21, 1 and 45 elements), 20 leaves (2
+           launches), a round and a key past 2**32 and a matching; one
+           call per group timed against its bound (4 bytes per element).
   b1-kernel  the gossip update (B.1) against its plain version: the
            per-node form on the reference's test cases (d 7 .. 131072, 0-5
            neighbours, float32 and bfloat16) bit for bit, the node-stacked
@@ -52,9 +58,11 @@ version:
            one grouped launch per step over every leaf: 300 launches, the
            step captured in CUDA graphs, jit=True's default), then
            with the int8 error-feedback wire served by the CUDA quantizer
-           (one grouped B.2 launch per round: 300); no plain version
-           called; both must print the per-leaf launches' loss_step300,
-           acc_worst_dist and acc_avg to the bit (PER_LEAF_DENSE).
+           (one Philox and one grouped B.2 launch per round: 300 each, the
+           step captured); no plain version called; both must print the
+           pinned loss_step300, acc_worst_dist and acc_avg to the bit
+           (PER_LEAF_DENSE: B.1 once per leaf, and the one-leaf int8 wire
+           of tests/pin_noise.py).
   b1-nodes one fmnist dense step recomputed node by node through
            gossip_update_tree (B.1's per-node form, one launch per node
            over its 6 leaves: 10 launches) and held against the fused step,
@@ -68,21 +76,25 @@ version:
            do), 300 steps on each of four stacks: uncompressed static gossip
            (params within 1e-5 of the dense run's after 20 steps, 1e-3 after
            300: the two sum in another order), the static int8 EF
-           wire (grouped B.2 once per round: 300 launches, and grouped B.3
-           once per matching: 300 x 5; it must print
-           the per-leaf B.3 wire's loss_step300, acc_worst_dist and acc_avg
-           to the bit, PER_LEAF_TRAJECTORIES), and dropout p = 0.2 with the
-           memoryless masked
-           int8 wire (grouped B.4 + B.5: 300 x 5 launches each) and the EF
-           wire re-based every 4 rounds (grouped B.4 once per round, B.5
-           once per matching of a delta round); every count of launches is
-           checked, and both dropout stacks must print the one-leaf
-           wire's loss_step300, acc_worst_dist and acc_avg to the bit
+           wire (the step captured; Philox and grouped B.2 once per round:
+           300 launches each, and grouped B.3 once per matching: 300 x 5;
+           it must print the per-leaf wire's loss_step300, acc_worst_dist
+           and acc_avg to the bit, PER_LEAF_TRAJECTORIES), and dropout p =
+           0.2 with the memoryless masked
+           int8 wire (Philox, grouped B.4 + B.5: 300 x 5 launches each) and
+           the EF wire re-based every 4 rounds (Philox and grouped B.4 once
+           per round, B.5 once per matching of a delta round); every count
+           of launches is checked, and both dropout stacks must print the
+           pinned loss_step300, acc_worst_dist and acc_avg to the bit
            (ONE_LEAF_TRAJECTORIES).  Then the CNN
            (cifar_default, clipped at norm 2) on the static int8 EF gossip
            wire for 20 steps with cuDNN held deterministic, so B.3 runs on
-           512,000-wide rows; its losses must be the per-leaf B.3 wire's to
-           the bit (PER_LEAF_CIFAR).
+           512,000-wide rows; its losses must be the per-leaf wire's to
+           the bit (PER_LEAF_CIFAR).  The pins are what
+           tests/pin_noise.py prints from the wire as it was before it was
+           grouped: the eager step (jit=False), each round leaf by leaf
+           through the one-leaf kernels, each leaf's noise drawn alone by
+           the plain Philox.
   b45-leaves  one memoryless dropout round on the fmnist MLP through the
            mixer (grouped B.4/B.5, 5 launches each) and leaf by leaf through
            masked_quant_gossip_round (the one-leaf calls, 6 x 5 launches
@@ -204,14 +216,22 @@ version:
   compiled A.14's captured step against the eager one: the same weights
            and batches through jit=False and jit=True in turns (eager,
            captured, captured, eager) in one process, fmnist dense-none (300
-           steps) and qwen2-0.5b at full width and depth (K = 8, seq 64, 5
-           steps): final parameters and metrics bit-equal to the first eager
-           turn's, one captured program per trainer (the watchdog), exact
-           launches, the counters' launches of a profiled run equal to the
-           profiler's, the captured qwen2 step's peak memory no more than
-           the eager step's (within COMPILED_PEAK_MARGIN of a node-stacked
-           copy); ms per step, device ops per step, busy share, peak
-           memory per turn.
+           steps, the fused step), the unfused step on fmnist (100 steps
+           each: the dense int8 EF wire through B.2, static gossip with it
+           (B.2 and B.3), the dense int8 wire under fig8's adaptive
+           schedule, Nesterov momentum and Adam over the dense W),
+           qwen2-0.5b at full width and depth (K = 8, seq 64, 5 steps, the
+           fused step) and with Nesterov momentum and the dense int8 EF
+           wire (K = 4, ring, 5 steps): the final carry (parameters,
+           optimizer state, CommState tensors), host fields and metrics
+           bit-equal to the first eager turn's, one captured program per
+           trainer (the watchdog), exact launches (one Philox and one B.2
+           per round, B.3 per matching, B.2 reading qmax on the card under
+           the schedule), the counters' launches of a profiled run equal
+           to the profiler's, the captured qwen2 steps' peak memory no
+           more than the eager steps' (within COMPILED_PEAK_MARGIN of a
+           node-stacked copy); ms per step, device ops per step, busy
+           share, peak memory per turn.
   train-lm qwen2-0.5b at full width and depth through the training CLI
            (train_lm's defaults: K = 8 ring, batch 2, seq 64, lr 0.01, clip
            1; the step captured), 20 steps: B.6 forward and backward 24 per
@@ -436,6 +456,12 @@ KERNELS = {
     # the backward of B.7: the reference differentiates its XLA scan
     "wkv6_bwd": (SRC + "rwkv6_scan/csrc/wkv6_bwd.cu", TPU + "rwkv6_scan/kernel.py:65",
                  ("wkv6_bwd_kernel", "wkv6_du_kernel")),
+    # the wire's noise, the port's own kernel: no TPU kernel, the reference
+    # draws jax.random (threefry) inside its jitted step
+    "uniforms_grouped": (SRC + "quant_gossip/csrc/philox.cu",
+                         "none on the TPU: jax.random inside the step, "
+                         "src/repro/comm/composed.py:492",
+                         ("philox_uniforms_kernel",)),
 }
 QUANT = tuple(KERNELS)[:8]   # the quant_gossip wrappers
 GROUPED = QUANT[4:]
@@ -444,32 +470,36 @@ ONE_LEAF = {"masked_quantize_blockwise_grouped": "masked_quantize_blockwise",
             "dequant_accumulate_grouped_": "dequant_accumulate",
             "quantize_blockwise_grouped": "quantize_blockwise"}
 # (loss_step300, acc_worst_dist, acc_avg) that these stacks printed on an
-# H100 in four runs of the one-leaf masked wire, to the bit: the grouped
-# wire changes no bit
+# H100 in two runs of one call of tests/pin_noise.py through the one-leaf
+# masked wire (B.4 and B.5 per leaf and matching, each leaf's noise drawn
+# alone by the plain Philox, the eager step): the grouped wire with the
+# Philox kernel prints them to the bit
 ONE_LEAF_TRAJECTORIES = {
-    "dropout0.2-int8-kernel-memoryless": (0.40981656312942505, 0.5399999618530273,
-                                          0.7120000123977661),
-    "dropout0.2-int8-kernel-ef-B4": (0.43094539642333984, 0.39499998092651367,
-                                     0.7059999704360962),
+    "dropout0.2-int8-kernel-memoryless": (0.408834844827652, 0.5450000166893005,
+                                          0.715499997138977),
+    "dropout0.2-int8-kernel-ef-B4": (0.4309670627117157, 0.39499998092651367,
+                                     0.7054999470710754),
 }
-# the same three of the static int8 EF stack, which the per-leaf B.3 printed
-# on an H100 in two runs of one call: grouped B.3 changes no bit
+# the same three of the static int8 EF stack, through the per-leaf wire in
+# the same runs (one-leaf B.2 and B.3, plain noise per leaf): grouped B.2
+# and B.3, the Philox kernel and the captured step change no bit
 PER_LEAF_TRAJECTORIES = {
-    "gossip-int8-kernel-ef": (0.4425765573978424, 0.5349999666213989, 0.7104999423027039),
+    "gossip-int8-kernel-ef": (0.4425292909145355, 0.5299999713897705, 0.7099999189376831),
 }
-# the same three of the fmnist dense runs, uncompressed (the fused step,
-# B.1 once per leaf) and int8 EF (B.2 once per leaf), which the parent
-# printed on an H100 in two runs of one call: grouped B.1 and B.2 change no
-# bit
+# the same three of the fmnist dense runs: uncompressed (the fused step,
+# which an earlier tree printed through B.1 once per leaf, no noise) and
+# int8 EF (the one-leaf B.2 with plain noise per leaf, tests/pin_noise.py's
+# runs): grouped B.1 and B.2, the Philox kernel and the captured steps
+# change no bit
 PER_LEAF_DENSE = {
     "none": (0.4424481987953186, 0.5299999713897705, 0.7099999189376831),
-    "int8-kernel": (0.442539781332016, 0.5349999666213989, 0.7104999423027039),
+    "int8-kernel": (0.4425012171268463, 0.5299999713897705, 0.7099999189376831),
 }
 # (loss_step0, loss_last, loss_worst_max) of the CIFAR static EF gossip run
-# (20 steps) through the per-leaf B.3 with cuDNN held deterministic, the
-# same in two runs of one call on an H100; without that cuDNN's convolution
-# backward moves loss_last between runs (1.733568549156189, 1.73506760597229)
-PER_LEAF_CIFAR = (2.761140823364258, 1.7332394123077393, 3.964625358581543)
+# (20 steps) with cuDNN held deterministic, the per-leaf wire's (as for
+# PER_LEAF_TRAJECTORIES) in two runs of tests/pin_noise.py on an H100;
+# without that cuDNN's convolution backward moves loss_last between runs
+PER_LEAF_CIFAR = (2.761140823364258, 1.7315807342529297, 3.964625358581543)
 
 
 def log(msg: str) -> None:
@@ -668,6 +698,7 @@ def _counters() -> dict:
     # B.6's and B.7's dispatchers count the plain version's calls of both directions
     out["flash_attention_bwd"] = (fk.flash_attention_bwd, fops.flash_attention)
     out["wkv6_bwd"] = (wk.wkv6_bwd, wops.wkv6)
+    out["uniforms_grouped"] = (qk.uniforms_grouped, qops.uniforms_grouped)
     return out
 
 
@@ -896,7 +927,84 @@ def phase_kernel(mlp_leaves, cnn_leaves) -> dict:
                 f"bound {1e3 * v['bound_ms']:.3f} us; equal to plain everywhere "
                 f"(max abs err {rec['max_abs_err']})")
     out.update(_grouped_kernels(mlp_leaves, cnn_leaves, fmnist_srcs, gen))
+    out.update(_philox_kernel(mlp_leaves, cnn_leaves))
     return out
+
+
+def _philox_kernel(mlp_leaves, cnn_leaves) -> dict:
+    """The wire's uniforms (csrc/philox.cu) against their plain version on
+    the card, bit for bit: the MLP's 6 leaves and the CNN's 12 at K = 10,
+    qwen2-0.5b's 14 leaves at K = COMPILED_LM_UNFUSED_NODES, the shapes
+    the compiled phase's qwen2 int8 EF turn draws at (each leaf's plain
+    draw alone: the draw is a pure function of its coordinates), leaves of
+    21 and 1 elements (not multiples of 4), a split of 20 leaves over the
+    16 of a launch (2 launches), a round past 2**32, a key past 2**32 and
+    a matching.  Times one call per group (device under the profiler,
+    call back to back) beside its bound: 4 bytes written per element at
+    HBM_BYTES_PER_S.  No PyTorch call draws this function (library null)."""
+    import torch
+
+    from repro_torch.kernels.quant_gossip import kernel as qk
+    from repro_torch.kernels.quant_gossip import ref as qref
+
+    def like(k, shape):  # the shape and device, no storage
+        return torch.empty((), device="cuda").expand((k, *shape))
+
+    lm = _serve_model(LM_ARCH)
+    groups = {"mlp": [like(K, (d,)) for _, d in mlp_leaves],
+              "cnn": [like(K, (d,)) for _, d in cnn_leaves],
+              "qwen2": [like(COMPILED_LM_UNFUSED_NODES, tuple(t.shape))
+                        for t in lm.param_shapes().values()],
+              "ragged": [like(3, (7,)), like(1, (1,)), like(5, (9,))],
+              "split": [like(2, (n,)) for n in range(1, 21)]}
+    coords = {"mlp": (0, 0, 0), "cnn": (5, 17, 0), "qwen2": (0, 3, 0),
+              "ragged": (2 ** 40 + 99, 2 ** 32 + 5, 3), "split": (7, 123, 2)}
+    rec = dict(max_abs_err=0.0, rows=[], max_group_leaves=qk.philox_config()["max_group_leaves"],
+               threads=qk.philox_config()["threads"])
+    if (rec["max_group_leaves"], rec["threads"]) != (qk.MAX_GROUP_LEAVES, qk.PHILOX_THREADS):
+        raise AssertionError(f"[kernel] uniforms_grouped is built with {rec}, the wrapper "
+                             f"states ({qk.MAX_GROUP_LEAVES}, {qk.PHILOX_THREADS})")
+    for group, xs in groups.items():
+        key, rnd, matching = coords[group]
+        r = torch.full((), rnd, dtype=torch.int64, device="cuda")
+        reset_counts()
+        got = qk.uniforms_grouped(xs, key, r, matching=matching)
+        launches = qk.uniforms_grouped.launches
+        want_launches = -(-len(xs) // qk.MAX_GROUP_LEAVES)
+        if launches != want_launches:
+            raise AssertionError(f"[kernel] uniforms_grouped {group}: {launches} launches, "
+                                 f"want {want_launches}")
+        for i, (x, u) in enumerate(zip(xs, got)):
+            want = qref.uniforms_grouped_ref([x], key, r, matching=matching, leaves=[i])[0]
+            err = _max_diff(u, want)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if u.shape != x.shape or not torch.equal(u, want):
+                raise AssertionError(f"[kernel] uniforms_grouped {group} leaf {i} "
+                                     f"{tuple(x.shape)}: kernel != plain (max abs err {err})")
+            del want
+        del got
+        torch.cuda.synchronize()
+        if group not in ("mlp", "cnn", "qwen2"):
+            continue
+        call = lambda: qk.uniforms_grouped(xs, key, r, matching=matching)
+        plain = lambda: qref.uniforms_grouped_ref(xs, key, r, matching=matching)
+        big = group == "qwen2"
+        ms = cuda_ms(call, iters=20 if big else 200, warmup=3 if big else 20)
+        plain_ms = cuda_ms(plain, iters=2 if big else 20, warmup=1 if big else 3)
+        dev = device_time(call, 10 if big else 50, KERNELS["uniforms_grouped"][2])
+        n = sum(x.numel() for x in xs)
+        bound = 1e3 * 4 * n / HBM_BYTES_PER_S
+        row = dict(group=group, leaves=len(xs), k=xs[0].shape[0], elements=n, ms=ms, **dev,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=None)
+        rec["rows"].append(row)
+        log(f"[kernel] uniforms_grouped {group:6s} {len(xs):2d} leaves K={xs[0].shape[0]:2d} "
+            f"{n:11d} elements device {1e3 * dev['device_ms']:10.2f} us  call "
+            f"{1e3 * ms:10.2f} us  plain {1e3 * plain_ms:12.2f} us  bound {1e3 * bound:9.3f} us")
+        torch.cuda.empty_cache()
+    rec["per_step"] = {r["group"]: r for r in rec["rows"]}
+    log(f"[kernel] uniforms_grouped: equal to plain everywhere (max abs err "
+        f"{rec['max_abs_err']})")
+    return {"uniforms_grouped": rec}
 
 
 def _max_diff(a, b) -> float:
@@ -1188,14 +1296,16 @@ def phase_fmnist(spec_cls, cfg_cls) -> tuple[dict, dict]:
         # the uncompressed dense step is SGD + the static W: fused into B.1,
         # one launch per step over every leaf; the int8 wire quantizes every
         # leaf of a round in one B.2 launch
-        check_counts(f"fmnist {wire}", counts, {"quantize_blockwise_grouped": exp.steps}
-                     if wire == "int8-kernel" else {"gossip_update_stacked_grouped": exp.steps})
+        check_counts(f"fmnist {wire}", counts,
+                     {"quantize_blockwise_grouped": exp.steps, "uniforms_grouped": exp.steps}
+                     if wire == "int8-kernel" else {"gossip_update_stacked_grouped": exp.steps,
+                                                    "uniforms_grouped": 0})
         got = (rec["loss_step300"], rec["acc_worst_dist"], rec["acc_avg"])
         if got != PER_LEAF_DENSE[wire]:
             raise AssertionError(f"[fmnist] {wire}: (loss_step300, acc_worst_dist, acc_avg) = "
-                                 f"{got}, the per-leaf launches printed {PER_LEAF_DENSE[wire]}")
-        log(f"[fmnist] {wire}: loss_step300, acc_worst_dist and acc_avg are the per-leaf "
-            f"launches' to the bit")
+                                 f"{got}, the pinned run printed {PER_LEAF_DENSE[wire]}")
+        log(f"[fmnist] {wire}: loss_step300, acc_worst_dist and acc_avg are the pinned "
+            f"run's to the bit")
         out[wire] = rec
         if wire == "none":
             dense_params = state.params
@@ -1234,18 +1344,23 @@ def _gossip_launches(stack: str, steps: int, leaves: int, matchings: int) -> dic
     """The static EF wire: one grouped B.2 per round (per 16 leaves), one
     grouped B.3 per matching; the masked wires: one grouped B.4 per
     matching (memoryless) or per round (EF), one grouped B.5 per matching of
-    a round that sends payloads."""
+    a round that sends payloads; the noise (one Philox launch per 16
+    leaves) drawn where B.2 or B.4 quantizes."""
+    groups = -(-leaves // 16)
     if stack == "gossip-int8-kernel-ef":
-        return {"quantize_blockwise_grouped": steps * -(-leaves // 16),
-                "dequant_accumulate_grouped_": steps * matchings}
+        return {"quantize_blockwise_grouped": steps * groups,
+                "dequant_accumulate_grouped_": steps * matchings,
+                "uniforms_grouped": steps * groups}
     if stack == "dropout0.2-int8-kernel-memoryless":
         return {"masked_quantize_blockwise_grouped": steps * matchings,
-                "masked_dequant_accumulate_grouped_": steps * matchings}
+                "masked_dequant_accumulate_grouped_": steps * matchings,
+                "uniforms_grouped": steps * matchings * groups}
     if stack == "dropout0.2-int8-kernel-ef-B4":
         delta_rounds = sum(1 for r in range(steps) if r % REBASE_EVERY != REBASE_EVERY - 1)
         return {"masked_quantize_blockwise_grouped": steps,
-                "masked_dequant_accumulate_grouped_": delta_rounds * matchings}
-    return {}
+                "masked_dequant_accumulate_grouped_": delta_rounds * matchings,
+                "uniforms_grouped": steps * groups}
+    return {"uniforms_grouped": 0}
 
 
 def phase_gossip(spec_cls, cfg_cls, dense_params) -> dict:
@@ -1267,7 +1382,7 @@ def phase_gossip(spec_cls, cfg_cls, dense_params) -> dict:
         pinned = {**ONE_LEAF_TRAJECTORIES, **PER_LEAF_TRAJECTORIES}
         if stack in pinned:
             got = (rec["loss_step300"], rec["acc_worst_dist"], rec["acc_avg"])
-            wire = "one-leaf" if stack in ONE_LEAF_TRAJECTORIES else "per-leaf B.3"
+            wire = "one-leaf masked" if stack in ONE_LEAF_TRAJECTORIES else "per-leaf"
             if got != pinned[stack]:
                 raise AssertionError(f"[gossip] {stack}: (loss_step300, acc_worst_dist, "
                                      f"acc_avg) = {got}, the {wire} wire printed "
@@ -1311,7 +1426,7 @@ def phase_b45_leaves(cfg_cls) -> dict:
     torch.cuda.synchronize()
     check_counts("b45-leaves grouped", kernel_counts(),
                  {"masked_quantize_blockwise_grouped": m,
-                  "masked_dequant_accumulate_grouped_": m})
+                  "masked_dequant_accumulate_grouped_": m, "uniforms_grouped": m})
     self_w, match_ws, masks = gather_round_vectors(mixer.topo.round_w(state.rounds),
                                                    mixer.transport.perm_idx)
     reset_counts()
@@ -1328,7 +1443,8 @@ def phase_b45_leaves(cfg_cls) -> dict:
     counts = kernel_counts()
     check_counts("b45-leaves one-leaf", counts,
                  {"masked_quantize_blockwise": len(theta) * m,
-                  "masked_dequant_accumulate": len(theta) * m})
+                  "masked_dequant_accumulate": len(theta) * m,
+                  "uniforms_grouped": len(theta) * m})  # each leaf's noise drawn alone
     rec = dict(matchings=m, leaves=len(theta), equal=equal,
                launches={n: c[0] for n, c in counts.items() if c[0]})
     log("[b45-leaves] " + json.dumps(rec))
@@ -1383,9 +1499,11 @@ def phase_b3_leaves(cfg_cls) -> dict:
         counts[tag] = kernel_counts()
         runs[tag] = (t, state)
     check_counts("b3-leaves grouped", counts["grouped"],
-                 {"quantize_blockwise_grouped": 2, "dequant_accumulate_grouped_": 2 * m})
+                 {"quantize_blockwise_grouped": 2, "dequant_accumulate_grouped_": 2 * m,
+                  "uniforms_grouped": 2})
     check_counts("b3-leaves per-leaf", counts["per-leaf"],
-                 {"quantize_blockwise_grouped": 2, "dequant_accumulate": 2 * leaves * m})
+                 {"quantize_blockwise_grouped": 2, "dequant_accumulate": 2 * leaves * m,
+                  "uniforms_grouped": 2})
     (ta, sa), (tb, sb) = runs["grouped"], runs["per-leaf"]
     equal = {n: bool(torch.equal(ta[n], tb[n]) and torch.equal(sa.hat[n], sb.hat[n])
                      and torch.equal(sa.hat_mix[n], sb.hat_mix[n])) for n in theta}
@@ -1428,8 +1546,10 @@ def phase_b2_leaves(cfg_cls) -> dict:
         torch.cuda.synchronize()
         counts[tag] = kernel_counts()
         runs[tag] = (t, state)
-    check_counts("b2-leaves grouped", counts["grouped"], {"quantize_blockwise_grouped": 2})
-    check_counts("b2-leaves per-leaf", counts["per-leaf"], {"quantize_blockwise": 2 * leaves})
+    check_counts("b2-leaves grouped", counts["grouped"],
+                 {"quantize_blockwise_grouped": 2, "uniforms_grouped": 2})
+    check_counts("b2-leaves per-leaf", counts["per-leaf"],
+                 {"quantize_blockwise": 2 * leaves, "uniforms_grouped": 2})
     (ta, sa), (tb, sb) = runs["grouped"], runs["per-leaf"]
     equal = {n: bool(torch.equal(ta[n], tb[n]) and torch.equal(sa.hat[n], sb.hat[n]))
              for n in theta}
@@ -1468,10 +1588,12 @@ def _gossip_vs_dense(spec_cls, exp, batches, params, gossip_state, dense_params,
             f"max_abs_param_diff_vs_dense_{exp.steps}_steps": d_run}
 
 
-def _gossip_cifar(spec_cls, cfg_cls) -> dict:
+def _gossip_cifar(spec_cls, cfg_cls, jit: bool = True, pinned: bool = True) -> dict:
     """The CNN on the static int8 EF gossip wire: B.3 on 512,000-wide rows,
-    with cuDNN held deterministic so that the run prints the per-leaf B.3's
-    losses to the bit (PER_LEAF_CIFAR)."""
+    with cuDNN held deterministic so that the run prints the per-leaf
+    wire's losses to the bit (PER_LEAF_CIFAR; ``pinned=False`` leaves them
+    unchecked: ``tests/pin_noise.py`` prints them with ``jit=False``, through
+    the per-leaf wire and through this one)."""
     import torch
 
     from repro_torch.configs import cifar_default
@@ -1488,7 +1610,7 @@ def _gossip_cifar(spec_cls, cfg_cls) -> dict:
     mixer = _gossip_mixer("gossip-int8-kernel-ef", decomp, w, exp.seed, cfg_cls)
     spec = spec_cls(num_nodes=K, graph="erdos_renyi", graph_kwargs={"p": exp.p, "seed": exp.seed},
                     mu=exp.mu, lr=exp.lr, grad_clip=CIFAR_GRAD_CLIP, compress=mixer.compression,
-                    device="cuda")
+                    device="cuda", jit=jit)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -1507,11 +1629,13 @@ def _gossip_cifar(spec_cls, cfg_cls) -> dict:
                launches={n: c[0] for n, c in counts.items() if c[0]})
     log("[gossip] " + json.dumps(rec))
     got = (rec["loss_step0"], rec["loss_last"], rec["loss_worst_max"])
+    if not pinned:
+        return rec
     if got != PER_LEAF_CIFAR:
         raise AssertionError(f"[gossip] cifar: (loss_step0, loss_last, loss_worst_max) = {got}, "
-                             f"the per-leaf B.3 wire printed {PER_LEAF_CIFAR}")
-    log("[gossip] cifar: loss_step0, loss_last and loss_worst_max are the per-leaf B.3 "
-        "wire's to the bit")
+                             f"the per-leaf wire printed {PER_LEAF_CIFAR}")
+    log("[gossip] cifar: loss_step0, loss_last and loss_worst_max are the per-leaf wire's "
+        "to the bit")
     return rec
 
 
@@ -1587,7 +1711,8 @@ def phase_cifar(spec_cls, cfg_cls) -> dict:
                     compress=cfg_cls(kind="int8", use_kernel=True), device="cuda")
     trainer, state, ms, ms_step, counts = _train(
         spec, make_classifier_loss(cnn_apply), cnn_apply, params, batches, CIFAR_STEPS, warm)
-    check_counts("cifar", counts, {"quantize_blockwise_grouped": CIFAR_STEPS})
+    check_counts("cifar", counts, {"quantize_blockwise_grouped": CIFAR_STEPS,
+                                   "uniforms_grouped": CIFAR_STEPS})
     rec = dict(wire="int8-kernel", steps=CIFAR_STEPS, batch=exp.batch_size,
                grad_clip=CIFAR_GRAD_CLIP, loss_step0=float(ms["loss_mean"][0]),
                loss_last=float(ms["loss_mean"][-1]),
@@ -1830,9 +1955,11 @@ def phase_codecs(spec_cls, cfg_cls) -> dict:
              "int4": cfg_cls(kind="int4"),
              "topk2pct": cfg_cls(kind="topk", ratio=FIG7_RATIO),
              "int8-kernel": cfg_cls(kind="int8", use_kernel=True)}
+    noise = {"uniforms_grouped": FIG7_STEPS}  # every codec's round draws (6 leaves)
     for name, cfg in dense.items():
         want = {"none": {"gossip_update_stacked_grouped": FIG7_STEPS},
-                "int8-kernel": {"quantize_blockwise_grouped": FIG7_STEPS}}.get(name, {})
+                "int8-kernel": {"quantize_blockwise_grouped": FIG7_STEPS, **noise}
+                }.get(name, noise)
         out[f"dense-{name}"] = _fig_run("codecs", f"dense-{name}",
                                         _fig_spec(spec_cls, cfg, FIG7_FMNIST), "mlp", data,
                                         FIG7_STEPS, want)
@@ -1841,13 +1968,13 @@ def phase_codecs(spec_cls, cfg_cls) -> dict:
         mixer = CompressedGossipMixer(decomp, cfg_cls(kind=kind, ratio=FIG7_RATIO))
         name = f"gossip-{kind}2pct"
         out[name] = _fig_run("codecs", name, _fig_spec(spec_cls, mixer.compression, FIG7_FMNIST),
-                             "mlp", data, FIG7_STEPS, {}, mixer=mixer)
+                             "mlp", data, FIG7_STEPS, noise, mixer=mixer)
     cifar = _fig_data("cnn", CIFAR_STEPS, FIG7_CIFAR[0])
     for name, cfg in (("int4", cfg_cls(kind="int4")),
                       ("topk2pct", cfg_cls(kind="topk", ratio=FIG7_RATIO))):
         out[f"cifar-{name}"] = _fig_run("codecs", f"cifar-dense-{name}",
                                         _fig_spec(spec_cls, cfg, FIG7_CIFAR), "cnn", cifar,
-                                        CIFAR_STEPS, {})
+                                        CIFAR_STEPS, {"uniforms_grouped": CIFAR_STEPS})
     return out
 
 
@@ -2075,13 +2202,13 @@ def phase_schedules(spec_cls, cfg_cls, mlp_leaves, cnn_leaves) -> dict:
             "int8_linear": _sched_cfg(cfg_cls, "linear")}
     for name, cfg in runs.items():
         out[name] = _fig_run("schedules", name, _fig_spec(spec_cls, cfg, FIG7_FMNIST), "mlp",
-                             data, FIG8_STEPS, {})
+                             data, FIG8_STEPS, {"uniforms_grouped": FIG8_STEPS})
     matchings = _ring_decomp().num_rounds
     for stack in ("dense", "gossip"):
         for kind in ("adaptive", "linear"):
             cfg = _sched_cfg(cfg_cls, kind, use_kernel=True)
             mixer = _sched_mixer(stack, cfg, "cuda") if stack == "gossip" else None
-            want = {"quantize_blockwise_grouped": FIG8_STEPS}
+            want = {"quantize_blockwise_grouped": FIG8_STEPS, "uniforms_grouped": FIG8_STEPS}
             if stack == "gossip":
                 want["dequant_accumulate_grouped_"] = FIG8_STEPS * matchings
             name = f"{stack}-int8-kernel-{kind}"
@@ -2494,7 +2621,8 @@ def phase_dynamics(spec_cls, cfg_cls) -> dict:
     name = f"gossip-straggler{straggler.straggler_p:g}-int8-kernel-memoryless"
     rec = _dyn_run("dynamics", name, _fig_spec(spec_cls, mixer.compression, FIG7_FMNIST),
                    data, n, {"masked_quantize_blockwise_grouped": n * matchings,
-                    "masked_dequant_accumulate_grouped_": n * matchings}, mixer=mixer)
+                    "masked_dequant_accumulate_grouped_": n * matchings,
+                    "uniforms_grouped": n * matchings}, mixer=mixer)
     rec["rates"] = _observed_rates(f"dynamics {name}", n, faults=straggler)
     rec["b45_straggler_rounds"] = _b45_on_straggler_rounds("dynamics", mixer,
                                                            rec["final"].params, n, straggler)
@@ -2508,12 +2636,14 @@ def phase_dynamics(spec_cls, cfg_cls) -> dict:
     name = f"gossip-dropout{FIG9_DROP:g}-int8-kernel-ef-B{b}-H{h}"
     rec = _dyn_run("dynamics", name, _fig_spec(spec_cls, mixer.compression, FIG7_FMNIST),
                    data, n, {"masked_quantize_blockwise_grouped": ef_rounds,
-                    "masked_dequant_accumulate_grouped_": delta_rounds * matchings},
+                    "masked_dequant_accumulate_grouped_": delta_rounds * matchings,
+                    "uniforms_grouped": ef_rounds},
                    mixer=mixer, period=h)
     # the EF clock: consensus round c (step c·H + H − 1) is a re-base when
-    # c % B == B − 1 and launches B.4 alone; a delta round adds B.5 per matching
+    # c % B == B − 1 and launches the noise and B.4 alone; a delta round adds
+    # B.5 per matching
     for c in range(ef_rounds):
-        want = {"masked_quantize_blockwise_grouped": 1}
+        want = {"masked_quantize_blockwise_grouped": 1, "uniforms_grouped": 1}
         if c % b != b - 1:
             want["masked_dequant_accumulate_grouped_"] = matchings
         if rec["step_launches"][c * h + h - 1] != want:
@@ -2577,7 +2707,7 @@ def phase_hub(spec_cls, cfg_cls) -> dict:
             f"hub-H{HUB_H}-fedavg-int8-kernel": (
                 dict(topology="hub", local_updates=HUB_H),
                 cfg_cls(kind="int8", use_kernel=True), HUB_H,
-                {"quantize_blockwise_grouped": n // HUB_H})}
+                {"quantize_blockwise_grouped": n // HUB_H, "uniforms_grouped": n // HUB_H})}
     for name, (kw, compress, period, want) in rows.items():
         out[name] = _dyn_run("hub", name, _fig_spec(spec_cls, compress, FIG7_FMNIST, **kw),
                              data, n, want, period=period)
@@ -3958,6 +4088,16 @@ def _lm_run_record(tag: str, trainer, state, model, nodes: int, seq: int, histor
 
 COMPILED_TURNS = ("eager", "captured", "captured", "eager")  # in one process, alternated
 COMPILED_LM_STEPS = 5        # qwen2-0.5b steps of each turn, compared after the last
+# the unfused step's turns on fmnist_default (A.14 (a) and (b)): steps per
+# turn (more than one packing of captured.PACK_STEPS = 64), and the stacks
+COMPILED_FM_STEPS = 100
+COMPILED_FM_STACKS = ("dense-int8-kernel-ef", "gossip-int8-kernel-ef",
+                      "dense-int8-kernel-adaptive", "nesterov", "adam")
+# qwen2-0.5b with Nesterov momentum (beta 0.9) and the dense int8 EF wire
+# through B.2: the largest of K = 8, 4, 2 at which the eager step fits the
+# card (PERF.md §6: ~7.6 node-stacked float32 copies of 1.98 GB per node at
+# its peak, 60 GB at K = 4, 120 GB at K = 8); the ring at K = 4
+COMPILED_LM_UNFUSED_NODES = 4
 # the captured qwen2 step's peak allocated memory may pass the eager step's by
 # this share of one node-stacked copy (158 MB of 15.8 GB at K = 8): what the
 # captured run keeps beside the step (the capture's stream and its library
@@ -3965,7 +4105,11 @@ COMPILED_LM_STEPS = 5        # qwen2-0.5b steps of each turn, compared after the
 COMPILED_PEAK_MARGIN = 0.01
 COMPILED_PROFILED = {"gossip_update_stacked_grouped": "gossip_update_stacked_grouped_kernel",
                      "flash_attention_fwd": "flash_fwd_mma_kernel",
-                     "flash_attention_bwd": "bwd_mma_kernel"}  # counter -> its kernel's name
+                     "flash_attention_bwd": "bwd_mma_kernel",
+                     "uniforms_grouped": "philox_uniforms_kernel",
+                     "quantize_blockwise_grouped": "masked_quantize_grouped_kernel",
+                     "dequant_accumulate_grouped_": "masked_dequant_acc_grouped_kernel",
+                     }  # counter -> its kernel's name
 COMPILED_PROFILE_TRIES = 3
 COMPILED_PROFILED_STEPS = (20, 2)  # the profiled run's steps: fmnist, qwen2-0.5b
 LEAD_FILL = "FillFunctor<short>"  # the lead fills' kernel, which no step launches
@@ -4009,7 +4153,10 @@ def _mode_profile(trainer, box, batches, names) -> dict:
                 lead.fill_(0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            box[0], _ = trainer.run(box[0], batches)
+            # handed over without a name: the run frees its first state
+            state, _ = trainer.run(box.pop(), batches)
+            box.append(state)
+            del state
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         after = kernel_counts()
@@ -4059,7 +4206,8 @@ def _digests(params: dict) -> dict:
     64-bit multipliers, wrapping mod 2**64 (a linear hash: two leaves whose
     bits differ anywhere give a different row sum but for one chance in
     2**64).  Bit-equality of node-stacked copies without a second copy on
-    the card or a host round trip of each."""
+    the card or a host round trip of each.  32-bit leaves (float32; an
+    int64 leaf as its two words)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(2 ** 31 - 1)
@@ -4067,7 +4215,7 @@ def _digests(params: dict) -> dict:
                          dtype=torch.int64) | 1
     out = {}
     for name, x in params.items():
-        bits = x.contiguous().view(torch.int32).reshape(-1)
+        bits = x.contiguous().reshape(-1).view(torch.int32)
         rows = [bits[i:i + DIGEST_ROW] for i in range(0, bits.numel(), DIGEST_ROW)]
         out[name] = tuple(int((r.long() * mult[:r.numel()]).sum()) for r in rows)
     return out
@@ -4080,17 +4228,22 @@ def _mode_turns(tag: str, build, init, batches, steps: int, names, copy_bytes: i
     first alone: the eager step, or the warm-up and capture; the rest
     timed), its final parameters (their _digests; the first eager turn's
     leaves kept on the host, so that no turn holds a fourth node-stacked
-    copy on the card) and metrics held against the first eager turn's bit
-    for bit, or else by the train-parity rule (_update_rule, from
+    copy on the card), its optimizer state and CommState tensors (the
+    _digests of every tensor of the carry, captured._tensors), host fields
+    and metrics held against the first eager turn's bit for bit, or else
+    the parameters by the train-parity rule (_update_rule, from
     ``start``), then, in the first turn of each mode, ``profiled_steps``
     more steps profiled (_mode_profile).  Each turn's record: ms per step
     over the timed steps, peak memory above the turn's start (and in node-stacked parameter
     copies of ``copy_bytes``) and peak reserved memory (between replays
     the graph pool's blocks are reserved, not allocated), the programs the
-    watchdog saw, the launches of the run.  Returns {"turns": [...], "bitwise": per later turn,
-    "leaves": the counts a bit-equal turn has}."""
+    watchdog saw, the launches of the run (and B.2's with qmax read on the
+    card).  Returns {"turns": [...], "bitwise": per later turn, "leaves":
+    the counts a bit-equal turn has}."""
     import torch
 
+    from repro_torch.core.captured import _tensors
+    from repro_torch.kernels.quant_gossip import kernel as qk
     from repro_torch.obs import RecompileWatchdog
 
     out, ref, ref_ms, profiled_modes = [], None, None, set()
@@ -4122,16 +4275,19 @@ def _mode_turns(tag: str, build, init, batches, steps: int, names, copy_bytes: i
         # the graph pool's blocks count as reserved, not allocated, between replays
         peak_reserved = torch.cuda.max_memory_reserved() - base_reserved
         ms = {k: torch.cat([ms0[k], ms[k]]).cpu() for k in ms}
-        rule, differ, digests = None, None, _digests(state.params)
+        tensor_qmax = qk.quantize_blockwise_grouped.tensor_qmax_launches
+        rule, differ, digests = None, None, _digests(_tensors(state))
+        host = (state.step, state.comm.key, state.comm.rounds)
         if ref is None:
             ref = {n: t.cpu() for n, t in state.params.items()}
-            ref_ms, ref_digests, equal = ms, digests, None
+            ref_ms, ref_digests, ref_host, equal = ms, digests, host, None
         else:
-            equal = dict(params=sum(digests[n] == ref_digests[n] for n in ref),
-                         metrics=sum(bool(torch.equal(ms[k], ref_ms[k])) for k in ref_ms))
-            differ = dict(params=[n for n in ref if digests[n] != ref_digests[n]],
+            equal = dict(carry=sum(digests.get(p) == d for p, d in ref_digests.items()),
+                         metrics=sum(bool(torch.equal(ms[k], ref_ms[k])) for k in ref_ms),
+                         host=int(host == ref_host))
+            differ = dict(carry=[p for p, d in ref_digests.items() if digests.get(p) != d],
                           metrics=[k for k in ref_ms if not torch.equal(ms[k], ref_ms[k])])
-            if equal["params"] != len(ref):
+            if any(p.startswith("params/") for p in differ["carry"]):
                 rule = _update_rule(state.params, ref, start)
         programs = watch.check() if turn == "captured" else None
         box = [state]
@@ -4147,106 +4303,193 @@ def _mode_turns(tag: str, build, init, batches, steps: int, names, copy_bytes: i
                    peak_node_stacked_copies=peak / copy_bytes, base_memory_gb=base / 1e9,
                    peak_reserved_gb=peak_reserved / 1e9,
                    programs=programs, bitwise_vs_first_eager=equal, differ=differ,
-                   update_rule=rule,
+                   update_rule=rule, tensor_qmax_launches=tensor_qmax,
                    launches={n: c[0] for n, c in counts.items() if c[0]},
                    plain_calls=sum(c[1] for c in counts.values()), profile=profiled)
         log(f"[compiled] {tag} {turn}: " + json.dumps(rec))
         out.append(rec)
         del box, trainer, watch
-    want_equal = dict(params=len(ref), metrics=len(ref_ms))
+    want_equal = dict(carry=len(ref_digests), metrics=len(ref_ms), host=1)
     bitwise = [r["bitwise_vs_first_eager"] == want_equal for r in out[1:]]
     return dict(turns=out, bitwise=bitwise, leaves=want_equal)
 
 
-def phase_compiled(spec_cls) -> dict:
+def _compiled_fm_stack(spec_cls, cfg_cls, stack: str, exp, jit: bool):
+    """fmnist_default's trainer on ``stack`` (COMPILED_FM_STACKS), its names
+    profiled and its launches per step: the dense int8 EF wire through B.2,
+    static 5-matching gossip with it (B.2 and B.3), the dense int8 wire
+    under fig8's adaptive schedule (B.2 reading qmax through its pointer),
+    and Nesterov momentum and Adam (phase_optim's) on the uncompressed
+    dense W (no kernel).  One Philox launch per round with a wire."""
+    from repro_torch.models import make_classifier_loss, mlp_apply
+
+    kernel_int8 = cfg_cls(kind="int8", use_kernel=True)
+    mixer, optimizer, compress = None, None, "none"
+    if stack == "dense-int8-kernel-ef":
+        compress = kernel_int8
+    elif stack == "dense-int8-kernel-adaptive":
+        compress = _sched_cfg(cfg_cls, "adaptive", use_kernel=True)
+    elif stack == "gossip-int8-kernel-ef":
+        from repro_torch.graphs import build_graph, metropolis_weights
+
+        w = metropolis_weights(build_graph("erdos_renyi", K, p=exp.p, seed=exp.seed))
+        mixer = _gossip_mixer(stack, _matchings(exp.p, exp.seed), w, exp.seed, cfg_cls)
+        compress = mixer.compression
+    else:
+        optimizer = _optimizer("nesterov" if stack == "nesterov" else "adam-warmup-cosine-wd")
+    trainer = _spec(spec_cls, exp, compress, jit=jit).build(
+        make_classifier_loss(mlp_apply), mlp_apply, mixer=mixer, optimizer=optimizer)
+    per_step = {"uniforms_grouped": 0 if compress == "none" else 1}
+    if compress != "none":
+        per_step["quantize_blockwise_grouped"] = 1
+    if mixer is not None:
+        per_step["dequant_accumulate_grouped_"] = _matchings(exp.p, exp.seed).num_rounds
+    return trainer, [n for n, c in per_step.items() if c], per_step
+
+
+def _compiled_checks(tag: str, run: dict, want: dict, gate_memory: bool,
+                     tensor_qmax: int | None = None) -> dict:
+    """One configuration's turns held: exact launches, no plain version,
+    one program per captured turn, B.2's tensor-qmax launches where given,
+    the captured peak within COMPILED_PEAK_MARGIN of the eager one where
+    ``gate_memory``, and every later turn bit-equal to the first eager
+    turn's.  Returns the configuration's record."""
+    for r in run["turns"]:
+        check_counts(f"compiled {tag} {r['mode']}", {n: (r["launches"].get(n, 0), 0)
+                                                     for n in kernel_counts()}, want)
+        if r["plain_calls"]:
+            raise AssertionError(f"[compiled] {tag} {r['mode']}: a plain version ran")
+        if r["mode"] == "captured" and r["programs"] != {"run": 1}:
+            raise AssertionError(f"[compiled] {tag}: {r['programs']} programs captured")
+        if tensor_qmax is not None and r["tensor_qmax_launches"] != tensor_qmax:
+            raise AssertionError(f"[compiled] {tag} {r['mode']}: B.2 read qmax on the card "
+                                 f"{r['tensor_qmax_launches']} times, want {tensor_qmax}")
+    eager = max(r["peak_node_stacked_copies"] for r in run["turns"] if r["mode"] == "eager")
+    captured = max(r["peak_node_stacked_copies"] for r in run["turns"]
+                   if r["mode"] == "captured")
+    rec = dict(turns=run["turns"], bitwise=run["bitwise"], leaves=run["leaves"],
+               peak_copies_eager=eager, peak_copies_captured=captured)
+    # at qwen2 the node-stacked copies are the step's memory (fmnist's are a
+    # few MB beside its batches): the captured step updates its one slot in
+    # place, so it holds no more than the eager step
+    if gate_memory and captured > eager + COMPILED_PEAK_MARGIN:
+        raise AssertionError(f"[compiled] {tag}: the captured step holds {captured:.3f} "
+                             f"node-stacked copies at its peak, eager {eager:.3f}")
+    return rec
+
+
+def phase_compiled(spec_cls, cfg_cls) -> dict:
     """A.14's captured step on the card against the eager one, the same
     weights and batches through ``jit=False`` and ``jit=True`` in
     alternated turns (COMPILED_TURNS) in one process: fmnist dense-none
-    (fmnist_default: K = 10, 300 steps) and qwen2-0.5b at full width and
-    depth (train_lm's stack, K = 8, seq 64, COMPILED_LM_STEPS steps).  Held:
-    every turn's final parameters and metrics bit-equal to the first eager
-    turn's; one captured program per trainer (RecompileWatchdog); exact
-    launches, B.6 once per layer each way per qwen2 step, and the counters'
-    launches of a profiled run equal to the profiler's; the captured qwen2
-    turns' peak memory above the turn's start no more than the eager
-    turns' (COMPILED_PEAK_MARGIN).  fmnist is held bit for bit; qwen2, where
-    a turn is not bit-equal, to the train-parity rule, with the leaves and
-    metrics that differ logged.
+    (fmnist_default: K = 10, 300 steps: the fused B.1 step), the unfused
+    step's stacks of COMPILED_FM_STACKS (100 steps each), qwen2-0.5b at
+    full width and depth (train_lm's stack, K = 8, seq 64,
+    COMPILED_LM_STEPS steps: the fused step), and qwen2-0.5b with Nesterov
+    momentum and the dense int8 EF wire (COMPILED_LM_UNFUSED_NODES nodes).
+    Held: every turn's final carry (parameters, optimizer state, CommState
+    tensors), host fields and metrics bit-equal to the first eager turn's;
+    one captured program per trainer (RecompileWatchdog); exact launches
+    (one Philox launch per round with a wire, B.2 per round, B.3 per
+    matching, B.6 once per layer each way per qwen2 step), and the
+    counters' launches of a profiled run equal to the profiler's; the
+    captured qwen2 turns' peak memory above the turn's start no more than
+    the eager turns' (COMPILED_PEAK_MARGIN).  fmnist is held bit for bit;
+    the fused qwen2 turns, where a turn is not bit-equal, to the
+    train-parity rule, with the leaves and metrics that differ logged.
     Prints per turn ms per step, device ops per step, the busy share, peak
     memory and the launches."""
     import torch
 
     from repro_torch.models import make_classifier_loss, make_lm_loss, mlp_apply
+    from repro_torch.optim import momentum
 
     t_phase = time.perf_counter()
     out = {}
     exp, fed, _, fm_params = _fmnist()
     fm_batches = tuple(torch.from_numpy(b).cuda() for b in _sample(
         fed, exp.steps + COMPILED_PROFILED_STEPS[0], exp.batch_size, exp.seed))
+    fm_copy = 4 * K * sum(x.numel() for x in fm_params.values())
+    fm_start = {n: t.cpu() for n, t in fm_params.items()}
 
     def fm_build(jit):
         return _spec(spec_cls, exp, "none", jit=jit).build(make_classifier_loss(mlp_apply),
                                                            mlp_apply)
 
-    fm_copy = 4 * K * sum(x.numel() for x in fm_params.values())
     fm = _mode_turns("fmnist dense-none", fm_build, lambda tr: tr.init(fm_params),
                      fm_batches, exp.steps, ["gossip_update_stacked_grouped"], fm_copy,
-                     {n: t.cpu() for n, t in fm_params.items()}, COMPILED_PROFILED_STEPS[0])
+                     fm_start, COMPILED_PROFILED_STEPS[0])
+    out["fmnist dense-none"] = _compiled_checks(
+        "fmnist dense-none", fm, {"gossip_update_stacked_grouped": exp.steps,
+                                  "uniforms_grouped": 0}, gate_memory=False)
+    for stack in COMPILED_FM_STACKS:
+        tag = f"fmnist {stack}"
+        _, names, per_step = _compiled_fm_stack(spec_cls, cfg_cls, stack, exp, False)
+        run = _mode_turns(tag, lambda jit, st=stack: _compiled_fm_stack(
+                              spec_cls, cfg_cls, st, exp, jit)[0],
+                          lambda tr: tr.init(fm_params), fm_batches, COMPILED_FM_STEPS, names,
+                          fm_copy, fm_start, COMPILED_PROFILED_STEPS[0])
+        out[tag] = _compiled_checks(
+            tag, run, {n: c * COMPILED_FM_STEPS for n, c in per_step.items()},
+            gate_memory=False,
+            tensor_qmax=COMPILED_FM_STEPS if stack.endswith("adaptive") else None)
     model = _serve_model(LM_ARCH)
     cfg = model.cfg
     single = model.init(torch.Generator("cuda").manual_seed(0))
-    toks = torch.from_numpy(_lm_tokens(LM_NODES, COMPILED_LM_STEPS + COMPILED_PROFILED_STEPS[1],
-                                       cfg.vocab)).cuda()
+    lm_start = {n: t.cpu() for n, t in single.items()}
+    for tag, nodes, graph, optimizer, compress in (
+            ("qwen2-0.5b", LM_NODES, "ring", None, "none"),
+            ("qwen2-0.5b nesterov int8-kernel-ef", COMPILED_LM_UNFUSED_NODES,
+             "ring" if COMPILED_LM_UNFUSED_NODES > 2 else "complete",
+             lambda: momentum(0.01, beta=0.9, nesterov=True),
+             cfg_cls(kind="int8", use_kernel=True))):
+        toks = torch.from_numpy(_lm_tokens(nodes, COMPILED_LM_STEPS + COMPILED_PROFILED_STEPS[1],
+                                           cfg.vocab)).cuda()
 
-    def lm_build(jit):
-        return spec_cls(num_nodes=LM_NODES, graph="ring", lr=0.01, grad_clip=1.0,
-                        jit=jit).build(make_lm_loss(model))
+        def lm_build(jit, nodes=nodes, graph=graph, optimizer=optimizer, compress=compress):
+            return spec_cls(num_nodes=nodes, graph=graph, lr=0.01, grad_clip=1.0,
+                            compress=compress, jit=jit).build(
+                make_lm_loss(model), optimizer=optimizer() if optimizer else None)
 
-    lm_copy = 4 * LM_NODES * model.num_params()
-    lm = _mode_turns("qwen2-0.5b", lm_build, lambda tr: tr.init(single), (toks,),
-                     COMPILED_LM_STEPS, list(COMPILED_PROFILED), lm_copy,
-                     {n: t.cpu() for n, t in single.items()}, COMPILED_PROFILED_STEPS[1])
-    for tag, run, steps, want in (
-            ("fmnist dense-none", fm, exp.steps, {"gossip_update_stacked_grouped": exp.steps}),
-            ("qwen2-0.5b", lm, COMPILED_LM_STEPS,
-             _lm_counts(LM_NODES, COMPILED_LM_STEPS, cfg.n_layers, len(single),
-                        folded=_folded(cfg)))):
-        for r in run["turns"]:
-            check_counts(f"compiled {tag} {r['mode']}", {n: (r["launches"].get(n, 0), 0)
-                                                         for n in kernel_counts()}, want)
-            if r["plain_calls"]:
-                raise AssertionError(f"[compiled] {tag} {r['mode']}: a plain version ran")
-            if r["mode"] == "captured" and r["programs"] != {"run": 1}:
-                raise AssertionError(f"[compiled] {tag}: {r['programs']} programs captured")
-        eager = max(r["peak_node_stacked_copies"] for r in run["turns"] if r["mode"] == "eager")
-        captured = max(r["peak_node_stacked_copies"] for r in run["turns"]
-                       if r["mode"] == "captured")
-        out[tag] = dict(turns=run["turns"], bitwise=run["bitwise"], leaves=run["leaves"],
-                        peak_copies_eager=eager, peak_copies_captured=captured)
-        # at qwen2 the node-stacked copies are the step's memory (fmnist's are a
-        # few MB beside its batches): the captured step updates its one slot in
-        # place, so it holds no more than the eager step's θ, gradients and new θ
-        if tag == "qwen2-0.5b" and captured > eager + COMPILED_PEAK_MARGIN:
-            raise AssertionError(f"[compiled] {tag}: the captured step holds {captured:.3f} "
-                                 f"node-stacked copies at its peak, eager {eager:.3f}")
-        if all(run["bitwise"]):
+        fused = compress == "none"
+        want = _lm_counts(nodes, COMPILED_LM_STEPS, cfg.n_layers, len(single),
+                          folded=_folded(cfg))
+        if fused:
+            want["uniforms_grouped"] = 0
+            names = list(LM_PAIR) + ["gossip_update_stacked_grouped"]
+        else:
+            del want["gossip_update_stacked_grouped"]
+            want.update(uniforms_grouped=COMPILED_LM_STEPS * -(-len(single) // 16),
+                        quantize_blockwise_grouped=COMPILED_LM_STEPS * -(-len(single) // 16))
+            names = list(LM_PAIR) + ["uniforms_grouped", "quantize_blockwise_grouped"]
+        run = _mode_turns(tag, lm_build, lambda tr: tr.init(single), (toks,), COMPILED_LM_STEPS,
+                          names, 4 * nodes * model.num_params(), lm_start,
+                          COMPILED_PROFILED_STEPS[1])
+        out[tag] = _compiled_checks(tag, run, want, gate_memory=True)
+        del run, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+    for tag, rec in out.items():
+        if all(rec["bitwise"]):
             continue
-        equal = [r["bitwise_vs_first_eager"] for r in run["turns"]]
+        equal = [r["bitwise_vs_first_eager"] for r in rec["turns"]]
         if tag != "qwen2-0.5b":
             raise AssertionError(f"[compiled] {tag}: a turn is not bit-equal to the first "
-                                 f"eager turn: {equal}")
-        # qwen2 only: held to the train-parity rule, the cause named: the
-        # leaves and metrics whose bits differ from the first eager turn's
-        differ = [(r["mode"], r["differ"]) for r in run["turns"][1:]]
-        rules = [r["update_rule"] for r in run["turns"] if r["update_rule"]]
+                                 f"eager turn: {equal}; differ {[r['differ'] for r in rec['turns']]}")
+        # the fused qwen2 turns only: held to the train-parity rule, the cause
+        # named: the leaves and metrics whose bits differ from the first eager
+        # turn's
+        differ = [(r["mode"], r["differ"]) for r in rec["turns"][1:]]
+        rules = [r["update_rule"] for r in rec["turns"] if r["update_rule"]]
         log(f"[compiled] {tag}: not bit-equal to the first eager turn, held to the "
             f"train-parity rule; the bits differ in (turn, leaves and metrics) {differ}; "
             f"rule {rules}")
-        if any(r["entries_outside"] for r in rules):
+        if any(r["entries_outside"] for r in rules) or any(
+                p for _, d in differ for p in d["carry"] if not p.startswith("params/")):
             raise AssertionError(f"[compiled] {tag}: a turn is neither bit-equal to the "
                                  f"first eager turn {equal} nor within the train-parity "
                                  f"rule {rules}")
-    del fm, lm, single, toks
+    del fm, single
     gc.collect()
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
@@ -4358,7 +4601,10 @@ def _card_vs_cpu(tag: str, spec_cls, arch: str, cut: tuple, pair, update_rel: fl
         reset_counts()
         t0 = time.perf_counter()
         state, ms = trainer.run(trainer.init(params), batches)
-        runs[device] = ({n: t.cpu() for n, t in state.params.items()}, ms["loss_mean"].cpu(),
+        # both runs' parameters end up on the card (a copy of the card's
+        # own), where the comparison below runs
+        runs[device] = ({n: t.clone() if device == "cuda" else t
+                         for n, t in state.params.items()}, ms["loss_mean"].cpu(),
                         time.perf_counter() - t0)
         counts = kernel_counts()
         if device == "cuda":
@@ -4370,7 +4616,13 @@ def _card_vs_cpu(tag: str, spec_cls, arch: str, cut: tuple, pair, update_rel: fl
             raise AssertionError(f"[{tag}] the CPU run launched a kernel: {counts}")
         del state, trainer
     (p_g, l_g, s_g), (p_c, l_c, s_c) = runs["cuda"], runs["cpu"]
-    upd_g, upd_c = ({n: p[n] - params[n].unsqueeze(0) for n in p_c} for p in (p_g, p_c))
+    # the comparison runs on the card: elementwise operations and maxima,
+    # so the numbers are the host's, without the host's passes over the
+    # node-stacked copies (several GB at full width)
+    t_cmp = time.perf_counter()
+    p_c = {n: t.to("cuda") for n, t in p_c.items()}
+    start = {n: t.to("cuda") for n, t in params.items()}
+    upd_g, upd_c = ({n: p[n] - start[n].unsqueeze(0) for n in p_c} for p in (p_g, p_c))
     largest = max(float(u.abs().max()) for u in upd_c.values())
     own = {n: _rel_err(upd_g[n], upd_c[n]) for n in p_c}
     worst = max(own, key=own.get)
@@ -4380,8 +4632,8 @@ def _card_vs_cpu(tag: str, spec_cls, arch: str, cut: tuple, pair, update_rel: fl
         beyond = diff > update_rel * largest
         if ulps and bool(beyond.any()):
             theta = p_c[n].abs()
-            in_ulps = diff[beyond] / (torch.nextafter(theta, torch.tensor(math.inf)) -
-                                      theta)[beyond]
+            in_ulps = diff[beyond] / (torch.nextafter(
+                theta, torch.tensor(math.inf, device=theta.device)) - theta)[beyond]
             worst_ulps = max(worst_ulps, float(in_ulps.max()))
             by_ulp += int((in_ulps <= ulps).sum())
             beyond[beyond.clone()] = in_ulps > ulps
@@ -4396,6 +4648,8 @@ def _card_vs_cpu(tag: str, spec_cls, arch: str, cut: tuple, pair, update_rel: fl
                worst_ulps_beyond_rtol=worst_ulps, entries_outside=over,
                losses_card=l_g.tolist(), losses_cpu=l_c.tolist(), card_s=s_g, cpu_s=s_c,
                launches=launches)
+    del p_g, p_c, start, upd_g, upd_c
+    rec["compare_s"] = time.perf_counter() - t_cmp
     log(f"[{tag}] card vs CPU: " + json.dumps(rec))
     if not (rec["loss_rel_err"] <= TRAIN_PARITY_REL and rec["leaf_rel_err"] <= TRAIN_PARITY_REL
             and over == 0):
@@ -4870,7 +5124,7 @@ def phase_gossip_update_nodes(spec_cls) -> dict:
 
 # -- checkpoints (A.10) and the serving engine (A.12) --------------------------
 
-CKPT_SAVE, CKPT_STEPS = 150, 300   # save at step 150 of a 300-step run
+CKPT_SAVE, CKPT_STEPS = 50, 100    # save at step 50 of a 100-step run
 CKPT_LM = (2, 4)                   # qwen2-0.5b layers, nodes of the round-tripped LM state
 ENGINE_ARCH = "qwen2_0_5b"
 ENGINE_ARGS = ("--batch", "4", "--page-size", "8", "--rate", "2.0", "--horizon", "8")
@@ -4940,7 +5194,7 @@ def _ckpt_dir(name: str) -> Path:
 
 def phase_ckpt(spec_cls, cfg_cls) -> dict:
     """A.10 on the card: three fmnist stacks of fig7's task (K = 8 ring) run
-    300 steps, saved at step 150 with save_train_state, restored with
+    CKPT_STEPS steps, saved at step CKPT_SAVE with save_train_state, restored with
     restore_train_state and continued: the dense wire through the fused
     B.1 step, the EF int8 gossip wire re-based every 4 under dropout 0.2
     (hat, hat_mix, ef_rounds) and the memoryless int8 gossip wire under
@@ -5965,6 +6219,7 @@ def _a11_train_runs(moe_train, frontend, smoke):
 
 # -- A.13: the tooling on the card ----------------------------------------------
 
+OBS_STEPS = 100              # fmnist's 300 steps, cut: the CLI run and the int8 wire
 OBS_GOSSIP_STEPS = 100       # the straggler-masked memoryless gossip run
 OBS_INJECT = (8, 5)          # steps of an injected-violation run, the injected step
 OBS_STRAGGLER_P = 0.2
@@ -5988,11 +6243,12 @@ def _validated(tag: str, path: Path) -> dict:
 
 # benchmarks/bench_trainer.py's sink-off / sink-on pair: fmnist_default's K
 # = 10 ER(0.3) graph, mu 6, lr 0.1, clip 2, batch 32, 200 steps in segments
-# of 50 through run_segments, in alternated rounds; the ceiling this run
+# of 50 through run_segments, in 6 alternated rounds (bench_trainer.py's
+# 10 cut to keep the smoke within its time); the ceiling this run
 # asserts on the median of the rounds' paired readings, above the
 # reference's 3 % budget (one pass of a mode differs from the next by up
 # to ~20 % on a shared host) and below the +16 % of the fault it guards
-SINK_BENCH = dict(lr=0.1, grad_clip=2.0, batch=32, steps=200, seg=50, rounds=10)
+SINK_BENCH = dict(lr=0.1, grad_clip=2.0, batch=32, steps=200, seg=50, rounds=6)
 SINK_OVERHEAD_CEILING_PCT = 10.0
 # where the sink sits in a pass: off, no sink; on, the trainer's tap and
 # run_segments' per-segment work (one synchronisation, one drain and one
@@ -6174,16 +6430,17 @@ def _injected(tag, trainer, params, batches, check, inject) -> dict:
 def phase_obs(spec_cls, cfg_cls) -> dict:
     """A.13 on the card, through the user entry points.
 
-    1. ``train --paper fmnist --log-dir D --profile --sanitize``
-       (fmnist_default: K = 10, 300 steps, the fused step through grouped
-       B.1): the JSONL passes the port's validator with 300 train records,
-       vectors on every 8th and one perf record per segment; B.1 launched
-       300 times (the launch counter); the Chrome trace holds B.1's kernel
+    1. ``train --paper fmnist --steps OBS_STEPS --log-dir D --profile
+       --sanitize`` (fmnist_default, K = 10, its 300 steps cut; the fused
+       step through grouped B.1): the JSONL passes the port's validator
+       with one train record per step, vectors on every 8th and one perf
+       record per segment; B.1 launched once per step (the launch
+       counter); the Chrome trace holds B.1's kernel
        and the step's obs: ranges.  Then the same weights and batches
        through the trainer API with the sink off, on, on, off: the metrics
        and the final parameters bit-equal, and each run's seconds.
-    2. The int8 wire on the kernel quantizer (grouped B.2 once per step,
-       300) with the sink and the sanitizer, through the trainer API (the
+    2. The int8 wire on the kernel quantizer (Philox and grouped B.2 once
+       per step) with the sink and the sanitizer, through the trainer API (the
        CLI's ``--compress int8`` is the reference's plain codec and never
        reaches B.2): no check fires; then runs of OBS_INJECT steps with one
        violation each injected at its step (a W row off by 1e-2, a NaN in
@@ -6217,14 +6474,16 @@ def phase_obs(spec_cls, cfg_cls) -> dict:
     t_phase = time.perf_counter()
     out = {}
     exp, fed, batches, params = _fmnist()
-    steps = exp.steps
+    steps = OBS_STEPS
+    batches = tuple(b[:steps] for b in batches)
 
     # 1. the dense wire through B.1: the CLI with the sink, the profiler and
     #    the sanitizer
     t0 = time.perf_counter()
     d1 = _obs_dir("fmnist-dense")
     reset_counts()
-    train.main(["--paper", "fmnist", "--log-dir", str(d1), "--profile", "--sanitize"])
+    train.main(["--paper", "fmnist", "--steps", str(steps), "--log-dir", str(d1), "--profile",
+                "--sanitize"])
     torch.cuda.synchronize()
     counts = kernel_counts()
     check_counts("obs fmnist --log-dir --profile --sanitize", counts,
@@ -6295,7 +6554,7 @@ def phase_obs(spec_cls, cfg_cls) -> dict:
         torch.cuda.synchronize()
         counts = kernel_counts()
     check_counts("obs fmnist int8 kernel wire, sanitized", counts,
-                 {"quantize_blockwise_grouped": steps})
+                 {"quantize_blockwise_grouped": steps, "uniforms_grouped": steps})
     if _validated("fmnist int8", d2 / "telemetry.jsonl")["kinds"].get("train") != steps:
         raise AssertionError("[obs] fmnist int8: not one train record per step")
     rec = dict(steps=steps, fired={}, launches={n: c[0] for n, c in counts.items() if c[0]})
@@ -6360,7 +6619,8 @@ def phase_obs(spec_cls, cfg_cls) -> dict:
         counts = kernel_counts()
     check_counts("obs gossip stragglers", counts,
                  {"masked_quantize_blockwise_grouped": n * matchings,
-                  "masked_dequant_accumulate_grouped_": n * matchings})
+                  "masked_dequant_accumulate_grouped_": n * matchings,
+                  "uniforms_grouped": n * matchings})
     _validated("gossip stragglers", d3 / "telemetry.jsonl")
     report_out = io.StringIO()
     with contextlib.redirect_stdout(report_out):
@@ -6454,7 +6714,7 @@ def main() -> int:
     timed("obs", phase_obs, TrainerSpec, CompressionConfig)
     log(f"[done] paper training phases in {time.perf_counter() - t_start:.1f} s")
     bwd = timed("flash_bwd_kernels", phase_flash_bwd_kernels)
-    compiled = timed("compiled", phase_compiled, TrainerSpec)
+    compiled = timed("compiled", phase_compiled, TrainerSpec, CompressionConfig)
     lm = timed("train_lm", phase_train_lm, LM_SEQ, LM_NODES, LM_STEPS, profile=True)
     timed("train_lm S 512", phase_train_lm, *LM_LONG, profile=False)
     timed("train_parity", phase_train_parity, TrainerSpec)
@@ -6491,6 +6751,12 @@ def main() -> int:
             "masked_dequant_accumulate_grouped_": memoryless,
             "dequant_accumulate_grouped_": gossip["gossip-int8-kernel-ef"]["launches"],
             "quantize_blockwise_grouped": fm["int8-kernel"]["launches"]}
+    # the wire's noise: every round of a compressed wire; the fmnist int8
+    # runs and the gossip stacks beside the compiled phase's
+    other_runs = {"uniforms_grouped": {
+        "fmnist int8-kernel": fm["int8-kernel"]["launches"]["uniforms_grouped"],
+        **{f"gossip {n}": gossip[n]["launches"].get("uniforms_grouped", 0)
+           for n in GOSSIP_STACKS}}}
     # B.1 per node: its own path (b1-nodes); stacked, grouped: the fmnist
     # dense run (and the qwen2-0.5b training run); one leaf at a time:
     # b1-leaves; B.6's backward: the qwen2-0.5b training run
@@ -6508,7 +6774,7 @@ def main() -> int:
     # the faulted memoryless wire and the EF wire under local updates (dynamics)
     masked_runs = {name: rec["launches"] for name, rec in dyn.items()
                    if name.startswith("gossip-")}
-    other_runs = {
+    other_runs.update({
         "quantize_blockwise_grouped": {
             "gossip-int8-kernel-ef": gossip["gossip-int8-kernel-ef"]["launches"][
                 "quantize_blockwise_grouped"],
@@ -6519,7 +6785,7 @@ def main() -> int:
             "train-lm": lm["launches"]["gossip_update_stacked_grouped"]},
         **{kernel: {f"dynamics {name}": launches[kernel] for name, launches in masked_runs.items()}
            for kernel in ("masked_quantize_blockwise_grouped",
-                          "masked_dequant_accumulate_grouped_")}}
+                          "masked_dequant_accumulate_grouped_")}})
     # the captured step (compiled): its first captured turn's run on each
     # configuration, counted by the replays
     for tag, rec in compiled.items():
@@ -6599,6 +6865,16 @@ def main() -> int:
             timing["hd16"] = timing_keys(rows[1], FLASH_KEYS[:6])
             err = rwkv_train[name]["max_abs_err"]
             launches = rwkv_train["full_width"]["launches"][name]
+        elif name == "uniforms_grouped":
+            # one call over the fmnist MLP's leaves (the path: a round of the
+            # dense int8 EF wire), and over the CNN's and qwen2-0.5b's
+            rec = kern[name]
+            timing = dict(timing_keys(rec["per_step"]["mlp"], FLASH_KEYS[:6]),
+                          cnn=rec["per_step"]["cnn"], qwen2=rec["per_step"]["qwen2"],
+                          max_group_leaves=rec["max_group_leaves"])
+            err = rec["max_abs_err"]
+            launches = next(r for r in compiled["fmnist dense-int8-kernel-ef"]["turns"]
+                            if r["mode"] == "captured")["launches"][name]
         elif name in QUANT:
             step = kern[name]["per_step"]["mlp"]
             bound_by = {r["bound_by"] for r in kern[name]["rows"] if r["group"] == "mlp"}

@@ -19,9 +19,21 @@ choco+clock × sched×gossip  :meth:`_clocked_gossip_call` (delta/re-base
 ==========================  ==============================================
 
 A codec wire with a rate schedule takes the round's rate (a 0-d tensor on
-the device, from ``res_norm``, ``res_ref`` and ``rounds``) into its encode
-pass and its consensus step γ, advances ``res_ref`` after the round and
-bills the round's ``wire_bits`` at that rate (``traced_wire``).
+the device, from ``res_norm``, ``res_ref`` and the schedule's host part of
+the round) into its encode pass and its consensus step γ, advances
+``res_ref`` after the round and bills the round's ``wire_bits`` at that
+rate (``traced_wire``).
+
+The static codec rounds (``_dense_round``, ``_gossip_round``) read nothing
+on the host that changes from round to round: they take the round as a
+:class:`~repro_torch.comm.protocol.RoundClock` (the round as a 0-d int64,
+the wire's noise drawn at it on the device, and the schedule's host part
+as a 0-d float32), which ``__call__`` fills from ``CommState.rounds``
+unless the caller passes it (the trainer's captured step packs it per
+step).  With ``inplace=True`` they write the new parameters into the
+leaves of ``theta`` and the dense round its new θ̂ into the leaves of
+``CommState.hat``, where the trainer's captured step holds its state: the
+same operations, so the same bits, without a second copy of either.
 
 Where the reference runs one ``ppermute`` per matching inside
 ``shard_map``, the port gathers along the node axis (``src`` per matching;
@@ -51,6 +63,7 @@ import torch
 from repro_torch.comm.protocol import (
     CommState,
     Mixer,
+    RoundClock,
     params_device,
     scalar,
     trivial_comm_state,
@@ -85,6 +98,23 @@ def _step(xf, gamma, delta):
     if isinstance(gamma, float) and gamma == 1.0:  # repro: noqa[RPR001] (a host float)
         return xf + delta
     return xf + gamma * delta
+
+
+def _stepped(x, xf, gamma, delta, inplace: bool):
+    """θ + γ·Δ in ``x``'s dtype and shape (``xf`` its (K, D) float32 view or
+    copy): a new tensor, or with ``inplace`` written into ``x`` itself (the
+    same operations, so the same bits) and ``x`` returned."""
+    if not inplace:  # repro: noqa[RPR001] (a host bool)
+        return _step(xf, gamma, delta).reshape(x.shape).to(x.dtype)
+    view = x.dtype == torch.float32 and x.is_contiguous() and xf.data_ptr() == x.data_ptr()
+    if view:  # repro: noqa[RPR001] (host metadata: xf is x's float32 view)
+        if isinstance(gamma, float) and gamma == 1.0:  # repro: noqa[RPR001] (a host float)
+            xf.add_(delta)
+        else:
+            xf.add_(gamma * delta)
+    else:
+        x.copy_(_step(xf, gamma, delta).reshape(x.shape))
+    return x
 
 
 def _gather_payload(payload, src):
@@ -167,7 +197,9 @@ class ComposedMixer(Mixer):
     def _rate(self, state: CommState):
         """The codec rate of the round about to run (None = static): the
         sanitizer's rate-in-container hook."""
-        return self.wire.rate(state) if isinstance(self.wire, CodecWire) else None
+        if not isinstance(self.wire, CodecWire):
+            return None
+        return self.wire.rate(state, self.clock(state.rounds, state.res_norm.device).part)
 
     def _round_w(self, state: CommState) -> torch.Tensor:
         """The W of the codec-dense round about to run: static, or the
@@ -176,6 +208,18 @@ class ComposedMixer(Mixer):
         if self._dynamic:
             return self.topo.round_w(state.rounds)
         return self.w
+
+    def host_part(self, rounds: int) -> float:
+        """The wire's rate-schedule host part of round ``rounds`` (0.0
+        without a scheduled codec wire)."""
+        return self.wire.host_part(rounds) if isinstance(self.wire, CodecWire) else 0.0
+
+    def clock(self, rounds: int, device) -> RoundClock:
+        """The :class:`RoundClock` of round ``rounds``, filled on ``device``
+        (the eager step's; the captured step packs the same values)."""
+        rounds = int(rounds)  # repro: noqa[RPR002] (a host int)
+        return RoundClock(torch.full((), rounds, dtype=torch.int64, device=device),
+                          scalar(self.host_part(rounds), device))
 
     def _senders(self, w):
         """Wire-accounting senders: every node on the static dense
@@ -267,14 +311,21 @@ class ComposedMixer(Mixer):
 
     # -- the protocol ----------------------------------------------------------
 
-    def __call__(self, theta, state: CommState, *, round=None):
+    def __call__(self, theta, state: CommState, *, round=None, clock: RoundClock | None = None,
+                 inplace: bool = False):
+        """One round.  ``clock``: the round on the device (None: filled from
+        ``state.rounds``); ``inplace``: the static codec rounds may write
+        into ``theta``'s leaves (and the dense round into ``state.hat``'s).
+        Other rounds read ``state.rounds`` and return new leaves."""
         with scope(f"obs:consensus/{type(self).__name__}"):
             if isinstance(self.wire, CodecWire):
                 if self._is_gossip and getattr(self.wire, "clock", None) is not None:
                     return self._clocked_gossip_call(theta, state)
+                if clock is None:
+                    clock = self.clock(state.rounds, params_device(theta))
                 if self._is_gossip:
-                    return self._gossip_round(theta, state)
-                return self._dense_round(theta, state)
+                    return self._gossip_round(theta, state, clock=clock, inplace=inplace)
+                return self._dense_round(theta, state, clock=clock, inplace=inplace)
             if self._dynamic:
                 if self._is_gossip:
                     return self._dynamic_gossip_call(theta, state)
@@ -319,8 +370,9 @@ class ComposedMixer(Mixer):
         xfs = [theta[n].reshape(theta[n].shape[0], -1).float() for n in names]
         accs = [xf * self_w[:, None] for xf in xfs]
         qmax, block_d = float(wire._qmax), wire.quantized.block_d
+        round_t = self.clock(state.rounds, self_w.device).round
         for m, (pw, mk, src) in enumerate(zip(match_ws, masks, self.transport.srcs)):
-            us = [wire.uniforms(state.key, state.rounds, i, m, xf) for i, xf in enumerate(xfs)]
+            us = wire.round_uniforms(state, round_t, xfs, m)
             payloads = masked_quantize_blockwise_grouped(xfs, us, mk, qmax=qmax,
                                                          block_d=block_d)
             masked_dequant_accumulate_grouped_(accs, payloads, pw, mk, src=src)
@@ -329,29 +381,32 @@ class ComposedMixer(Mixer):
 
     # -- codec-wire rounds -----------------------------------------------------
 
-    def _dense_round(self, theta, state: CommState):
+    def _dense_round(self, theta, state: CommState, clock: RoundClock,
+                     inplace: bool = False):
         """One compressed dense round: every node encodes each leaf (its
         innovation against θ̂ in EF mode) at the round's rate, the public
-        copies are mixed by W, and θ moves by γ(Σ_j W_ij θ̂_j − θ̂_i).  An
-        encode pass over every leaf (one B.2 launch on the card, a
-        schedule's rate read there), then a mix pass; the uniforms are drawn
-        per (key, round, leaf), so this is the leaf-by-leaf round bit for
-        bit."""
+        copies are mixed by W, and θ moves by γ(Σ_j W_ij θ̂_j − θ̂_i).  A
+        draw of the round's noise (one Philox launch on the card), an encode
+        pass over every leaf (one B.2 launch, a schedule's rate read there),
+        then a mix pass; the uniforms are a pure function of (key, round,
+        leaf), so this is the leaf-by-leaf round bit for bit.  ``inplace``
+        writes θ into ``theta``'s leaves and θ̂ into ``state.hat``'s."""
         w = self._round_w(state)
-        rate = self.wire.rate(state)
+        rate = self.wire.rate(state, clock.part)
         gamma = self.wire.gamma_for(rate)
         names = leaf_names(theta)
         xfs, hats, res_sq = self._flat_leaves(theta, state, w.device)
-        us = [self.wire.uniforms(state.key, state.rounds, i, xf) for i, xf in enumerate(xfs)]
-        encoded = self.wire.encode_leaves(xfs, hats, us, rate)
+        us = self.wire.round_uniforms(state, clock.round, xfs)
+        encoded = self.wire.encode_leaves(xfs, hats, us, rate, inplace=inplace)
+        del us
         out_theta, out_hat = {}, {}
         for name, xf, (_, public, new_hat) in zip(names, xfs, encoded):
             shape = theta[name].shape
-            out = _step(xf, gamma, w @ public - public)
-            out_theta[name] = out.reshape(shape).to(theta[name].dtype)
+            out_theta[name] = _stepped(theta[name], xf, gamma, w @ public - public, inplace)
             if self.ef:
-                out_hat[name] = new_hat.reshape(shape)
-        res_norm, res_ref, rounds = self.wire.next_sched_state(state, torch.sqrt(res_sq))
+                out_hat[name] = state.hat[name] if inplace else new_hat.reshape(shape)
+        res_norm, res_ref, rounds = self.wire.next_sched_state(state, torch.sqrt(res_sq),
+                                                               clock.part)
         # _replace, not CommState(...): fields this round does not own must
         # thread through untouched
         return out_theta, state._replace(
@@ -359,16 +414,18 @@ class ComposedMixer(Mixer):
             rounds=rounds, wire_bits=self.wire.round_wire_bits(
                 theta, rate, self._senders(w), self.k, w.device))
 
-    def _gossip_round(self, theta, state: CommState, *, self_w=None,
-                      match_ws=None, masks=None, senders=None):
+    def _gossip_round(self, theta, state: CommState, *, clock: RoundClock, self_w=None,
+                      match_ws=None, masks=None, senders=None, inplace: bool = False):
         """One compressed gossip round over the matching decomposition.
 
         The static stack calls this with no overrides (frozen decomposition
-        weights, every matching link active).  The clocked dynamic stack
-        passes the per-round vectors gathered from W_r: ``self_w`` (K,),
-        ``match_ws``/``masks`` per matching, and the active-link count
-        ``senders`` for wire accounting.  With all-ones masks the masked
-        paths are bit-identical to the unmasked ones.
+        weights, every matching link active) and the round's ``clock``.
+        The clocked dynamic stack passes the per-round vectors gathered from
+        W_r: ``self_w`` (K,), ``match_ws``/``masks`` per matching, and the
+        active-link count ``senders`` for wire accounting.  With all-ones
+        masks the masked paths are bit-identical to the unmasked ones.
+        ``inplace`` writes θ into ``theta``'s leaves (θ̂ and the mix cache
+        are new leaves: the accumulate reads the old θ̂).
         """
         t = self.transport
         ef = self.ef
@@ -376,14 +433,15 @@ class ComposedMixer(Mixer):
             self_w = t.self_w
         if match_ws is None:
             match_ws = t.match_ws
-        rate = self.wire.rate(state)
+        rate = self.wire.rate(state, clock.part)
         gamma = self.wire.gamma_for(rate)
         send = _send_mask(masks) if masks is not None else None
         names = leaf_names(theta)
         xfs, hats, res_sq = self._flat_leaves(theta, state, self_w.device)
-        us = [self.wire.uniforms(state.key, state.rounds, i, xf) for i, xf in enumerate(xfs)]
+        us = self.wire.round_uniforms(state, clock.round, xfs)
         # encode pass: every leaf (one B.2 launch per round, B.4 where masked)
         encoded = self.wire.encode_leaves(xfs, hats, us, rate, send_mask=send)
+        del us
         # EF: s_i += W_ii q_i + Σ_m W_i,src(i)·dequant(recv) keeps
         # s_i = Σ_j W_ij θ̂_j current; memoryless: the same combine of the
         # fresh C(θ) messages.  Only the payload crosses the wire.
@@ -401,13 +459,14 @@ class ComposedMixer(Mixer):
         out_theta, out_hat, out_mix = {}, {}, {}
         for n, xf, acc, (_, public, new_hat) in zip(names, xfs, accs, encoded):
             shape = theta[n].shape
-            out_theta[n] = _step(xf, gamma, acc - public).reshape(shape).to(theta[n].dtype)
+            out_theta[n] = _stepped(theta[n], xf, gamma, acc - public, inplace)
             if ef:
                 out_hat[n] = new_hat.reshape(shape)
                 out_mix[n] = acc.reshape(shape)
         if senders is None:
             senders = self._sends()
-        res_norm, res_ref, rounds = self.wire.next_sched_state(state, torch.sqrt(res_sq))
+        res_norm, res_ref, rounds = self.wire.next_sched_state(state, torch.sqrt(res_sq),
+                                                               clock.part)
         # _replace so fields this round does not own thread through
         return out_theta, state._replace(
             hat=out_hat if ef else (), hat_mix=out_mix if ef else (),
@@ -479,6 +538,7 @@ class ComposedMixer(Mixer):
         w = self.topo.round_w(state.rounds)
         self_w, match_ws, masks = gather_round_vectors(w, self.transport.perm_idx)
         senders = active_sends(masks)
+        clock = self.clock(state.rounds, self_w.device)
         if self.adaptive:
             # drift-triggered re-base: measure the cache staleness against
             # this round's W before mixing.  PyTorch runs eagerly, so the
@@ -489,15 +549,16 @@ class ComposedMixer(Mixer):
             b = self.ef_rebase_every
             rebase = b == 1 or (b >= 2 and state.ef_rounds % b == b - 1)
         if rebase:  # repro: noqa[RPR001] (a host bool: eager torch, see above)
-            t2, s2 = self._rebase_round(theta, state, self_w, match_ws, masks, senders)
+            t2, s2 = self._rebase_round(theta, state, self_w, match_ws, masks, senders, clock)
         else:
-            t2, s2 = self._gossip_round(theta, state, self_w=self_w, match_ws=match_ws,
-                                        masks=masks, senders=senders)
+            t2, s2 = self._gossip_round(theta, state, clock=clock, self_w=self_w,
+                                        match_ws=match_ws, masks=masks, senders=senders)
         if self.adaptive:
             s2 = s2._replace(ef_drift=drift)
         return t2, s2._replace(ef_rounds=state.ef_rounds + 1)
 
-    def _rebase_round(self, theta, state: CommState, self_w, match_ws, masks, senders):
+    def _rebase_round(self, theta, state: CommState, self_w, match_ws, masks, senders,
+                      clock: RoundClock):
         """Codec step + full-precision θ̂ exchange rebuilding the cache.
 
         The innovation is still encoded (θ̂ must keep tracking θ; masked
@@ -507,11 +568,11 @@ class ComposedMixer(Mixer):
         """
         send = _send_mask(masks)
         srcs = self.transport.srcs
-        rate = self.wire.rate(state)
+        rate = self.wire.rate(state, clock.part)
         gamma = self.wire.gamma_for(rate)
         names = leaf_names(theta)
         xfs, hats, res_sq = self._flat_leaves(theta, state, self_w.device)
-        us = [self.wire.uniforms(state.key, state.rounds, i, xf) for i, xf in enumerate(xfs)]
+        us = self.wire.round_uniforms(state, clock.round, xfs)
         encoded = self.wire.encode_leaves(xfs, hats, us, rate, send_mask=send)
         out_theta, out_hat, out_mix = {}, {}, {}
         for n, xf, (_, _, new_hat) in zip(names, xfs, encoded):
@@ -524,7 +585,8 @@ class ComposedMixer(Mixer):
             out_mix[n] = acc.reshape(shape)
         # full-precision wire: active links × per-node f32 payload
         full_bits = 32.0 * sum(x.numel() // self.k for x in theta.values())
-        res_norm, res_ref, rounds = self.wire.next_sched_state(state, torch.sqrt(res_sq))
+        res_norm, res_ref, rounds = self.wire.next_sched_state(state, torch.sqrt(res_sq),
+                                                               clock.part)
         return out_theta, state._replace(
             hat=out_hat, hat_mix=out_mix, res_norm=res_norm, res_ref=res_ref,
             rounds=rounds, wire_bits=wire_bits(senders, full_bits, None))

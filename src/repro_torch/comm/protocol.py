@@ -85,6 +85,23 @@ class CommState(NamedTuple):
                            rounds=self.rounds)
 
 
+class RoundClock(NamedTuple):
+    """The round a mixer is about to run, as the device reads it.
+
+    round: 0-d int64 — ``CommState.rounds`` (the wire's noise is drawn at it).
+    part:  0-d float32 — the wire's rate-schedule host part of that round
+           (``CompressionSchedule.host_part``; 0 without a schedule).
+
+    A mixer reads only these two fields, so the trainer hands it its step's
+    ``StepScalars`` (``core/drdsgd.py``), whose last two fields they are:
+    fills in the eager step, values packed per step beside the batch in the
+    captured step, so a replay reads its own round's.
+    """
+
+    round: torch.Tensor
+    part: torch.Tensor
+
+
 def scalar(value: float, device) -> torch.Tensor:
     """A 0-d float32 tensor on ``device`` (a fill, not a host-to-device copy)."""
     return torch.full((), value, dtype=torch.float32, device=device)

@@ -10,12 +10,18 @@ The rate is a 0-d float32 tensor on the parameters' device, as the
 reference's is a traced scalar: the quantizers hand it to the kernels as it
 is (``repro_torch.kernels.quant_gossip`` reads qmax on the card), so a
 scheduled round never copies the rate to the host nor waits for the card.
-``rounds`` is a host int, as the port's ``CommState`` keeps it, so the
-warmup and the linear ramp are host arithmetic (float32 on numpy, the
-reference's float32 operations) and only the adaptive rule runs on the
-device.  The rate is clipped to ``[lo, hi]``; for the quantizers that range
-is checked to lie inside ``[1, 127]`` at construction, which is what keeps
-a tensor qmax inside the int8 container without a check per launch.
+``rounds`` is a host int, as the port's ``CommState`` keeps it.  What the
+rate takes from it is one float32 per round, the schedule's *host part*
+(:meth:`CompressionSchedule.host_part`: the constant rate, the linear
+ramp's rate in the reference's float32 arithmetic on numpy, or the
+adaptive rule's warm-up flag), which the round reads as a 0-d float32
+tensor (``part``): a fill in the eager step, a value packed per step where
+the trainer replays its step from a CUDA graph.  So the rate and
+``update_ref`` run on the device without a host branch on the round, and a
+captured round reads its own round's rate.  The rate is clipped to
+``[lo, hi]``; for the quantizers that range is checked to lie inside
+``[1, 127]`` at construction, which is what keeps a tensor qmax inside the
+int8 container without a check per launch.
 """
 
 from __future__ import annotations
@@ -104,23 +110,40 @@ class CompressionSchedule:
         self._hi32, self._lo32 = np.float32(self.hi), np.float32(self.lo)
         self._dropped = (np.float32(1.0) - self._hi32) * np.float32(cfg.threshold)
 
-    def rate(self, rounds: int, res_norm: torch.Tensor, res_ref: torch.Tensor) -> torch.Tensor:
-        """The rate for the round about to run.
-
-        Args:
-          rounds: compressed rounds completed so far (host int).
-          res_norm: innovation norm ‖θ − θ̂‖ offered on the previous round.
-          res_ref: reference norm latched after warmup (0 until then).
-        """
-        cfg, dev = self.cfg, res_norm.device
+    def host_part(self, rounds: int) -> float:
+        """The round's host part: the rate of a constant or linear schedule
+        (the ramp t = clip(rounds / anneal_rounds, 0, 1) in float32, as the
+        reference computes it), and for an adaptive one 1.0 while
+        ``rounds`` is inside the warmup, else 0.0.  A float32 value."""
+        cfg = self.cfg
         if cfg.kind == "constant":
-            return scalar(float(self._hi32), dev)
+            return float(self._hi32)
         if cfg.kind == "linear":
             t = np.clip(np.float32(rounds) / np.float32(cfg.anneal_rounds),
                         np.float32(0.0), np.float32(1.0))
-            return scalar(float(self._hi32 + (self._lo32 - self._hi32) * t), dev)
-        if rounds < cfg.warmup_rounds:
-            return scalar(float(self._hi32), dev)
+            return float(self._hi32 + (self._lo32 - self._hi32) * t)
+        return 1.0 if rounds < cfg.warmup_rounds else 0.0
+
+    def _part(self, rounds, part, device) -> torch.Tensor:
+        return scalar(self.host_part(rounds), device) if part is None else part
+
+    def rate(self, rounds: int, res_norm: torch.Tensor, res_ref: torch.Tensor,
+             part: torch.Tensor | None = None) -> torch.Tensor:
+        """The rate for the round about to run.
+
+        Args:
+          rounds: compressed rounds completed so far (host int); read only
+            where ``part`` is None.
+          res_norm: innovation norm ‖θ − θ̂‖ offered on the previous round.
+          res_ref: reference norm latched after warmup (0 until then).
+          part: the round's :meth:`host_part` as a 0-d float32 tensor on
+            the device (None: a fill of it from ``rounds``).
+        """
+        cfg, dev = self.cfg, res_norm.device
+        part = self._part(rounds, part, dev)
+        if cfg.kind != "adaptive":
+            return part
+        hi = scalar(float(self._hi32), dev)
         # adaptive: the constant-resolution rule of the reference
         frac = res_norm / torch.clamp_min(res_ref, _TINY)
         if self.sparsifier:
@@ -129,9 +152,10 @@ class CompressionSchedule:
             r = 1.0 - scalar(float(self._dropped), dev) / torch.clamp_min(frac, _TINY)
         else:
             # qmax ∝ innovation norm: one bit fewer per halving
-            r = scalar(float(self._hi32), dev) * frac / scalar(cfg.threshold, dev)
+            r = hi * frac / scalar(cfg.threshold, dev)
         r = torch.clamp(r, float(self._lo32), float(self._hi32))
-        return torch.where(res_ref > 0, r, scalar(float(self._hi32), dev))
+        # the warmup (part 1) runs at hi, as does a round before the latch
+        return torch.where((part == 0) & (res_ref > 0), r, hi)
 
     def gamma_for(self, gamma: float, rate):
         """The round's consensus step: ``gamma`` (a host float, so the
@@ -142,10 +166,11 @@ class CompressionSchedule:
         return torch.minimum(scalar(gamma, rate.device), 2.0 * rate)
 
     def update_ref(self, rounds: int, res_norm: torch.Tensor,
-                   res_ref: torch.Tensor) -> torch.Tensor:
+                   res_ref: torch.Tensor, part: torch.Tensor | None = None) -> torch.Tensor:
         """The reference norm after a round observing ``res_norm``: the
         first post-warmup observation is latched; constant and linear
-        schedules keep the field as it is."""
-        if self.cfg.kind != "adaptive" or rounds < self.cfg.warmup_rounds:
+        schedules keep the field as it is.  ``part`` as in :meth:`rate`."""
+        if self.cfg.kind != "adaptive":
             return res_ref
-        return torch.where(res_ref == 0, res_norm, res_ref)
+        part = self._part(rounds, part, res_norm.device)
+        return torch.where((part == 0) & (res_ref == 0), res_norm, res_ref)

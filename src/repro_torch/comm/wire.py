@@ -21,19 +21,22 @@ so adding a wire never perturbs fields it does not own.
                            matching, the CUDA kernels B.4/B.5 on the card).
 
 Stochastic-rounding noise: the uniforms of round r and leaf i (and, on the
-masked wire, matching m) come from a ``torch.Generator`` seeded with a hash
-of (``CommState.key``, r, i[, m]), drawn on the parameters' device — a pure
-function of the round, like the reference's ``fold_in`` chain, though not
-the same numbers.  ``uniforms`` (a callable ``(round, leaf_idx, shape) ->
-array``, or ``(round, leaf_idx, matching_idx, shape)`` on the masked wire)
-replaces that draw; the parity tests inject the reference's own uniforms
-through it.
+masked wire, matching m) are Philox-4x32-10 of (``CommState.key``, r, i, m,
+element) (``repro_torch.kernels.quant_gossip.ops.uniforms_grouped``: one
+launch per 16 leaves on the card, the round read there from a 0-d int64
+tensor, the plain version on the CPU) — a pure function of the round, like
+the reference's ``fold_in`` chain, though not the same numbers.  Every
+codec draws from it, eagerly and in a captured step alike, so a replayed
+step draws its own round's noise.  ``uniforms`` (a callable ``(round,
+leaf_idx, shape) -> array``, or ``(round, leaf_idx, matching_idx, shape)``
+on the masked wire, called with the host round) replaces that draw; the
+parity tests inject the reference's own uniforms through it.  A host
+callable cannot be replayed, so a trainer whose wire has one runs eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import math
 from typing import Callable
 
@@ -82,24 +85,33 @@ def _leaf_payload_bytes(compressor, params, k: int) -> int:
     return sum(compressor.payload_bytes(x.numel() // k) for x in params.values())
 
 
-def _noise_seed(*parts: int) -> int:
-    digest = hashlib.blake2b(":".join(str(p) for p in parts).encode(),
-                             digest_size=8).digest()
-    return int.from_bytes(digest, "little") >> 1  # manual_seed takes < 2**63
+def _round_tensor(rounds, device) -> torch.Tensor:
+    """The round as the noise reads it: a 0-d int64 tensor on ``device``
+    (a fill of a host int)."""
+    if isinstance(rounds, torch.Tensor):
+        return rounds
+    return torch.full((), int(rounds), dtype=torch.int64, device=device)
 
 
-def _uniforms(hook, key: int, index: tuple, x: torch.Tensor) -> torch.Tensor:
-    """U[0, 1) noise shaped like ``x`` on ``x``'s device: ``hook(*index,
-    shape)`` when a hook is set, else a generator seeded from (key,
-    *index)."""
+def _draw(hook, key: int, rounds, round_t, xs, index, matching=None) -> list:
+    """U[0, 1) noise shaped like each of ``xs`` on their device, the j-th
+    drawn as leaf ``index[j]`` of the round: ``hook(rounds, leaf[,
+    matching], shape)`` per leaf when a hook is set (``rounds`` the host
+    int), else one Philox draw of the group at the round ``round_t`` (a 0-d
+    int64 tensor, or a host int filled into one)."""
     if hook is not None:
-        u = hook(*index, tuple(x.shape))
-        if not isinstance(u, torch.Tensor):
-            u = torch.from_numpy(np.array(u, dtype=np.float32))
-        return u.to(device=x.device, dtype=torch.float32)
-    gen = torch.Generator(device=x.device)
-    gen.manual_seed(_noise_seed(key, *index))
-    return torch.rand(x.shape, generator=gen, dtype=torch.float32, device=x.device)
+        out = []
+        for x, i in zip(xs, index):
+            where = (rounds, i) if matching is None else (rounds, i, matching)
+            u = hook(*where, tuple(x.shape))
+            if not isinstance(u, torch.Tensor):
+                u = torch.from_numpy(np.array(u, dtype=np.float32))
+            out.append(u.to(device=x.device, dtype=torch.float32))
+        return out
+    from repro_torch.kernels.quant_gossip.ops import uniforms_grouped
+
+    return uniforms_grouped(xs, int(key), _round_tensor(round_t, xs[0].device),
+                            matching=0 if matching is None else matching, leaves=list(index))
 
 
 def wire_bits(senders, per_node_bits, device) -> torch.Tensor:
@@ -144,6 +156,12 @@ class Wire:
     compression: CompressionConfig | None = None
     ef = False
     traced_wire = False
+    _uniforms: UniformsFn | None = None  # the noise hook, on the codec wires
+
+    @property
+    def hooked(self) -> bool:
+        """Whether a ``uniforms`` hook replaces the wire's own noise."""
+        return self._uniforms is not None
 
     def init_fields(self, params, incremental: bool = False) -> dict:
         return {}
@@ -179,12 +197,14 @@ class CodecWire(Wire):
 
     # -- schedule / accounting -------------------------------------------------
 
-    def rate(self, state: CommState):
+    def rate(self, state: CommState, part: torch.Tensor | None = None):
         """The codec rate of the round about to run: a 0-d float32 tensor on
-        the parameters' device, or None without a schedule."""
+        the parameters' device, or None without a schedule.  ``part`` is the
+        round's :meth:`host_part` on the device (None: filled from
+        ``state.rounds``)."""
         if self.schedule is None:
             return None
-        return self.schedule.rate(state.rounds, state.res_norm, state.res_ref)
+        return self.schedule.rate(state.rounds, state.res_norm, state.res_ref, part)
 
     def gamma_for(self, rate):
         """The round's consensus step: the config-resolved γ (a host float),
@@ -193,9 +213,10 @@ class CodecWire(Wire):
             return self.gamma
         return self.schedule.gamma_for(self.gamma, rate)
 
-    def next_sched_state(self, state: CommState, res_norm):
-        """(res_norm', res_ref', rounds') after a round observing res_norm."""
-        res_ref = (self.schedule.update_ref(state.rounds, res_norm, state.res_ref)
+    def next_sched_state(self, state: CommState, res_norm, part: torch.Tensor):
+        """(res_norm', res_ref', rounds') after a round observing res_norm;
+        ``part`` the round's :meth:`host_part` on the device."""
+        res_ref = (self.schedule.update_ref(state.rounds, res_norm, state.res_ref, part)
                    if self.schedule is not None else state.res_ref)
         return res_norm, res_ref, state.rounds + 1
 
@@ -208,10 +229,23 @@ class CodecWire(Wire):
             per_node = per_node + self.compressor.payload_bits(x.numel() // k, rate)
         return wire_bits(senders, per_node, device)
 
-    def uniforms(self, key: int, rounds: int, leaf_idx: int, x: torch.Tensor):
+    def host_part(self, rounds: int) -> float:
+        """The rate schedule's host part of round ``rounds`` (0.0 without a
+        schedule)."""
+        return self.schedule.host_part(rounds) if self.schedule is not None else 0.0
+
+    def uniforms(self, key: int, rounds, leaf_idx: int, x: torch.Tensor):
         """U[0, 1) noise shaped like ``x`` for leaf ``leaf_idx`` of round
-        ``rounds``, on ``x``'s device."""
-        return _uniforms(self._uniforms, key, (rounds, leaf_idx), x)
+        ``rounds`` (a host int, or a 0-d int64 tensor without a hook), on
+        ``x``'s device: the same numbers as the leaf's share of
+        :meth:`round_uniforms`."""
+        return _draw(self._uniforms, key, rounds, rounds, [x], [leaf_idx])[0]
+
+    def round_uniforms(self, state: CommState, round_t: torch.Tensor, xs) -> list:
+        """The noise of every leaf of the round ``state`` is about to run,
+        leaf i shaped like ``xs[i]``: one draw at ``round_t`` (the round on
+        the device), or the hook's per leaf at the host ``state.rounds``."""
+        return _draw(self._uniforms, state.key, state.rounds, round_t, xs, range(len(xs)))
 
     def compress_block(self, x, u, rate=None, send_mask=None):
         """Encode one (K, d) block, optionally sender-masked.
@@ -239,28 +273,35 @@ class CodecWire(Wire):
         payload = self.compress_block(x - hat if self.ef else x, u, rate, send_mask)
         return self._decoded(x, hat, payload)
 
-    def encode_leaves(self, xs, hats, us, rate=None, send_mask=None):
+    def encode_leaves(self, xs, hats, us, rate=None, send_mask=None, inplace: bool = False):
         """:meth:`encode_leaf` of every leaf: [(payload, public', hat')].
 
         With a codec that quantizes a group at once (the kernel quantizer:
         one B.2 launch per round on the card, one B.4 launch under a send
         mask) every leaf is encoded by one call; the payloads are the
-        one-leaf calls' bit for bit.
+        one-leaf calls' bit for bit.  ``inplace`` (EF) adds each decoded
+        innovation into its θ̂ block itself, once the block's innovation is
+        encoded: the caller reads no old θ̂ after this call.
         """
         grouped = getattr(self.compressor, "compress_grouped" if send_mask is None
                           else "compress_masked_grouped", None)
         if grouped is None:
-            return [self.encode_leaf(x, h, u, rate, send_mask) for x, h, u in zip(xs, hats, us)]
+            return [self._decoded(x, h, self.compress_block(x - h if self.ef else x, u, rate,
+                                                            send_mask), inplace)
+                    for x, h, u in zip(xs, hats, us)]
         blocks = [x - h for x, h in zip(xs, hats)] if self.ef else xs
         payloads = grouped(blocks, us, rate=rate) if send_mask is None \
             else grouped(blocks, us, send_mask, rate=rate)
-        return [self._decoded(x, h, p) for x, h, p in zip(xs, hats, payloads)]
+        del blocks
+        return [self._decoded(x, h, p, inplace) for x, h, p in zip(xs, hats, payloads)]
 
-    def _decoded(self, x, hat, payload):
-        """(payload, public', hat') of one leaf from its payload."""
+    def _decoded(self, x, hat, payload, inplace: bool = False):
+        """(payload, public', hat') of one leaf from its payload; with
+        ``inplace`` (EF) θ̂' is ``hat`` itself, the innovation added in
+        place."""
         public = self.compressor.decompress(payload, x.shape[1])
         if self.ef:
-            new_hat = hat + public
+            new_hat = hat.add_(public) if inplace else hat + public
             return payload, new_hat, new_hat
         return payload, public, ()
 
@@ -330,10 +371,17 @@ class MaskedQuantWire(Wire):
     def init_fields(self, params, incremental: bool = False) -> dict:
         return {"key": int(self.quantized.seed)}
 
-    def uniforms(self, key: int, rounds: int, leaf_idx: int, matching: int,
+    def uniforms(self, key: int, rounds, leaf_idx: int, matching: int,
                  x: torch.Tensor):
         """U[0, 1) noise shaped like ``x`` for (round, leaf, matching)."""
-        return _uniforms(self._uniforms, key, (rounds, leaf_idx, matching), x)
+        return _draw(self._uniforms, key, rounds, rounds, [x], [leaf_idx], matching)[0]
+
+    def round_uniforms(self, state: CommState, round_t: torch.Tensor, xs,
+                       matching: int) -> list:
+        """The noise of every leaf for one matching of the round ``state``
+        is about to run (see :meth:`CodecWire.round_uniforms`)."""
+        return _draw(self._uniforms, state.key, state.rounds, round_t, xs, range(len(xs)),
+                     matching)
 
     def leaf_bits(self, d: int) -> float:
         """Effective wire bits per node for one leaf: ceil(log2(2qmax+1))

@@ -22,15 +22,17 @@ mixes every ``mix_every``-th step only.  ``loss_fn`` and ``predict_fn`` are node
 :mod:`repro_torch.models.paper_nets`).  Batches may be numpy arrays or
 tensors; they are moved to the trainer's device.
 
-``jit=True`` (the default, the reference's field) runs the paper's main
-path as the reference's compiled step does: where
-:func:`~repro_torch.core.drdsgd.capture_declined` keeps the stack (plain
-SGD, a static uncompressed dense W, a round every step, no ``obs``, no
-``sanitize``, and a loss that batches its nodes), ``step`` and ``run``
-replay the fused step (B.1) from CUDA graphs on the card, with the carry
-donated: the state a run is given gives up its parameters, and a state
-kept from an earlier run is written over
-(:mod:`repro_torch.core.captured`).  On the CPU the same capturable form
+``jit=True`` (the default, the reference's field) runs the step as the
+reference's compiled step does: where
+:func:`~repro_torch.core.drdsgd.capture_declined` keeps the stack (any
+optimizer of :mod:`repro_torch.optim`, a static dense or gossip round with
+any codec wire and rate schedule, a round every step, no ``obs``, no
+``sanitize``, no noise hook, and a loss that batches its nodes), ``step``
+and ``run`` replay the step (the fused B.1 step for plain SGD over an
+uncompressed dense W, else the optimizer and the round) from CUDA graphs on
+the card, with the carry donated: the state a run is given gives up its
+parameters, optimizer state and θ̂, and a state kept from an earlier run is
+written over (:mod:`repro_torch.core.captured`).  On the CPU the same capturable form
 runs eagerly, and states are copied in and out.  ``capture_declined``
 names why any other stack runs the eager step (None where the step is
 captured); ``_run`` carries ``_cache_size``, the programs captured, for
@@ -248,7 +250,7 @@ class DecentralizedTrainer:
             self.loss_fn, self.optimizer, self.mixer, self.mix_every, obs=self.obs,
             sanitize=self.sanitize)
         if self.capture_declined is None:
-            self._runner = CapturedRun(self._train_step, self.optimizer.sgd_lr, self.device)
+            self._runner = CapturedRun(self._train_step, self.device)
         else:
             self._runner = _EagerRun(self._train_step, self.obs, self.jit)
         self._run = _Run(self._runner, self.device)

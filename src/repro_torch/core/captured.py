@@ -1,42 +1,54 @@
-"""The trainer's captured step: the fused DR-DSGD step replayed from CUDA
-graphs (the port of the reference's ``jax.jit`` of its step and its
+"""The trainer's captured step: the DR-DSGD step replayed from CUDA graphs
+(the port of the reference's ``jax.jit`` of its step and its
 ``jax.lax.scan`` over the steps with the carry donated,
 ``repro/core/api.py``).
 
 Where :func:`~repro_torch.core.drdsgd.capture_declined` keeps the stack
-(plain SGD, a static uncompressed dense W, a round on every step, no
-telemetry tap, no sanitizer), :class:`CapturedRun` runs the fused step
-(``train_step.fused``: the gradients, the robust scale and one B.1 launch
-per 16 leaves) from one CUDA graph per program on the card, and the same capturable
-form eagerly on the CPU, so the CPU tests hold the code the card captures.
+(any optimizer with a device form, a static dense or gossip round with any
+wire on every step, no telemetry tap, no sanitizer, no noise hook),
+:class:`CapturedRun` runs the step's capturable form
+(``train_step.capturable``: the fused B.1 step where it applies, else the
+optimizer and the mixer's round) from one CUDA graph per program on the
+card, and the same form eagerly on the CPU, so the CPU tests hold the code
+the card captures.
 
-* **One slot, updated in place.**  The slot is a node-stacked copy of the
-  parameters with the ``CommState``'s tensors beside it.  The graph reads
-  the slot, and B.1 writes the new parameters back into it (its ``out``
-  is θ: each of its threads reads every node's column before it writes
-  that column).  The gradients and the activations live in the graph's
-  pool.  The step so holds the parameters and their gradients, with the
-  activations during the backward: no more than the eager step, which
-  allocates its new parameters after the backward (three node-stacked
-  copies at its peak).
+* **One slot, updated in place.**  The slot holds the carry's tensors: the
+  node-stacked parameters, the optimizer state (``MomentumState``,
+  ``AdamState``) and every tensor of the ``CommState`` (θ̂ and the mix cache
+  ``hat`` and ``hat_mix`` leaf by leaf).  The graph reads the slot and the
+  form writes the new parameters, the optimizer state and the dense codec
+  round's θ̂ back into it (``inplace=True``: B.1's ``out`` is θ, each of its
+  threads reading every node's column before it writes that column; the
+  optimizers and the codec rounds run the eager step's operations into the
+  given tensors); what a form makes out of place (the gossip round's θ̂ and
+  mix cache, the ``CommState``'s scalars) is computed in the graph's pool
+  and copied into the slot.  The gradients, the activations and the round's
+  buffers live in the graph's pool.  So the step holds no more than the
+  eager step, which keeps the old state beside the new one until it
+  returns.
 * **The carry is donated.**  On the card the state a run returns holds
   the slot, and the next run writes over it, as a donated JAX buffer is
   consumed.  A state the trainer did not return (the first one, a
-  restored one) gives up its parameters: the first step's input once that
-  step has read it, a later one once it is copied into the slot, their
-  storages freed, so a caller that keeps its name holds no extra copy.
-  The first step's new parameters become the slot.  Passing a state whose
-  parameters were freed, or a state that holds the slot but is not the
-  one the trainer returned last (its ``step`` or host counters are
-  behind the slot's), raises.  On the CPU the state is copied in and the
-  result copied out, as JAX ignores donation on its CPU backend.
-* **Inputs.**  One byte buffer per program holds a step's inputs: the
-  metrics column (int64), η (float32, read by B.1 through a pointer) and
-  the batch leaves, each at a 512-byte offset.  A run packs its steps'
-  inputs on the device, :data:`PACK_STEPS` at a time (the η and column
-  values in one host-to-device copy each time), then each step costs one
-  device copy into the buffer and the replay, and never waits for the
-  device.
+  restored one) gives up its parameters, optimizer state and θ̂: the first
+  step runs in place on them (where each lies contiguous in a storage of
+  its own) and they become the slot, so that step holds no more than a
+  captured one; a tensor that step makes anew takes its old one's place,
+  whose storage is freed, as are a later state's once it is copied into
+  the slot.  So a caller that keeps the state's name holds no extra copy.
+  Passing a state whose tensors were freed, or a state that holds the slot
+  but is not the one the trainer returned last (its ``step`` or host
+  counters are behind the slot's), raises.  On the CPU the state is copied
+  in and the result copied out, as JAX ignores donation on its CPU backend.
+* **Inputs.**  One byte buffer per program holds a step's inputs: its
+  head holds the metrics column and the round (int64) and η, Adam's
+  ``bc1`` and ``bc2`` and the rate schedule's host part (float32): the
+  form's :class:`~repro_torch.core.drdsgd.StepScalars`, read on the card
+  (B.1 reads η, B.2 a schedule's rate and the Philox kernel the round
+  through pointers); the batch leaves follow, each at a 512-byte offset.
+  A run packs its steps' inputs on the device, :data:`PACK_STEPS` at a
+  time (the head's values, from ``train_step.host_scalars``, in one
+  host-to-device copy each time), then each step costs one device copy
+  into the buffer and the replay, and never waits for the device.
 * **Metrics.**  Each replay writes the step's metrics into one column of a
   (metrics, :data:`METRIC_COLS`) float32 device buffer; a run copies the
   columns out every :data:`METRIC_COLS` steps and at its end.
@@ -44,10 +56,10 @@ form eagerly on the CPU, so the CPU tests hold the code the card captures.
   (``rounds``) advance on every replay by what the captured step advanced
   them by.
 * **Warm-up.**  The first step of each program runs eagerly (the same
-  fused step: the first program's new parameters become the slot, a later
-  program's update the slot in place), on the stream the capture then
-  uses, as PyTorch's graph capture asks: it builds the kernels and makes
-  every first-use CUDA call (the tensor-map encoder's lookup, the kernels'
+  form: the first program's new state becomes the slot, a later program's
+  updates the slot in place), on the stream the capture then uses, as
+  PyTorch's graph capture asks: it builds the kernels and makes every
+  first-use CUDA call (the tensor-map encoder's lookup, the kernels'
   attributes, cuBLAS's handle and workspace) before the capture.
   ``torch.cuda.graph`` then gives the cache's free blocks back to the
   device, so the graph's pool can take the memory the warm-up's gradients
@@ -57,9 +69,9 @@ form eagerly on the CPU, so the CPU tests hold the code the card captures.
   launch_counters`), takes them back (a capture launches nothing) and adds
   them on every replay.
 * **Programs.**  One program per batch signature (the shapes and dtypes of
-  the step's batch leaves); a new signature captures a new pair of graphs
-  into the same pool.  ``programs`` counts them (the watchdog's
-  ``_cache_size``), and each capture is published to
+  the step's batch leaves); a new signature captures a new graph into the
+  same pool.  ``programs`` counts them (the watchdog's ``_cache_size``),
+  and each capture is published to
   :func:`repro_torch.obs.watchdog.record_capture`.
 
 No failure falls back to the eager step: a warm-up, capture or replay
@@ -72,15 +84,63 @@ import numpy as np
 import torch
 
 from repro_torch.comm.protocol import CommState
-from repro_torch.core.drdsgd import DecentralizedState
+from repro_torch.core.drdsgd import DecentralizedState, StepScalars, step_scalars
 from repro_torch.kernels import launch_counters
 from repro_torch.obs import watchdog
-from repro_torch.utils.tree import leaf_names
 
 ALIGN = 512          # byte offset of every input leaf (the allocator's alignment)
 METRIC_COLS = 1024   # steps whose metrics the device buffer holds
 PACK_STEPS = 64      # steps whose inputs a run packs at a time
-_COL, _ETA = 0, 8    # byte offsets of the metrics column and of η in the input buffer
+# byte offsets in the input buffer's head: the metrics column and the round
+# (int64), η, bc1, bc2 and the schedule's host part (float32)
+_COL, _ROUND, _ETA, _BC1, _BC2, _PART = 0, 8, 16, 20, 24, 28
+_HEAD = 32
+
+
+def _walk(path: str, tree, fn):
+    """``tree`` with each tensor t at ``path`` replaced by ``fn(path, t)``:
+    dicts by key, tuples by position (so a restored optimizer state, a plain
+    tuple, has its typed state's paths), anything else kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: _walk(f"{path}/{k}", v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_walk(f"{path}/{i}", v, fn) for i, v in enumerate(tree)]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def _tensors(state: DecentralizedState) -> dict:
+    """The carry's tensors by path: the parameters, the optimizer state and
+    the ``CommState``'s tensor fields (a dict field leaf by leaf)."""
+    out = {}
+
+    def take(path, t):
+        out[path] = t
+        return t
+
+    for name in ("params", "opt_state", "comm"):
+        _walk(name, getattr(state, name), take)
+    return out
+
+
+def _rebuild(state: DecentralizedState, flat: dict) -> DecentralizedState:
+    """``state`` with every tensor of its carry replaced by ``flat``'s at
+    its path."""
+    return state._replace(**{name: _walk(name, getattr(state, name), lambda p, _: flat[p])
+                             for name in ("params", "opt_state", "comm")})
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def _exclusive(tensors) -> bool:
+    """Each tensor contiguous and in a storage of its own: a step may write
+    into them in place."""
+    ptrs = {_storage(t) for t in tensors}
+    return len(ptrs) == len(tensors) and all(t.is_contiguous() for t in tensors)
 
 
 class _Program:
@@ -96,7 +156,13 @@ class _Program:
         self.batch = tuple(self.inbuf[o:o + n].view(dtype).view(shape)
                            for o, n, shape, dtype in self.layout)
         self.col = self.inbuf[_COL:_COL + 8].view(torch.int64)
-        self.eta = self.inbuf[_ETA:_ETA + 4].view(torch.float32)[0]
+
+        def f32(o):
+            return self.inbuf[o:o + 4].view(torch.float32)[0]
+
+        self.scalars = StepScalars(eta=f32(_ETA), bc1=f32(_BC1), bc2=f32(_BC2),
+                                   round=self.inbuf[_ROUND:_ROUND + 8].view(torch.int64)[0],
+                                   part=f32(_PART))
         self.graph = None    # the captured step, on the card
         self.deltas = None   # [(wrapper, attribute, increment)] per replay
 
@@ -107,18 +173,19 @@ class CapturedRun:
     keeps): :meth:`segment` runs steps ``lo..hi-1`` of stacked batches;
     ``_cache_size()`` is the programs captured."""
 
-    def __init__(self, train_step, sgd_lr, device: torch.device):
-        self._fused = train_step.fused
-        self._lr = sgd_lr
+    def __init__(self, train_step, device: torch.device):
+        self._form = train_step.capturable
+        self._scalars = train_step.host_scalars
         self.device = device
         self._card = device.type == "cuda"
         self._programs: dict = {}
-        self._slot = None       # (params dict, {CommState field: tensor})
+        self._slot = None       # {path: tensor} of the carry (see _tensors)
         self._at = None         # (step, host ints) of the state the slot holds
         self._comm = None       # a CommState for the body's host fields
         self._keys = None       # the metrics' names, in order
         self._mbuf = None       # (metrics, METRIC_COLS) float32
         self._ints = None       # {CommState host-int field: advance per step}
+        self._template = None   # a state of the carry's structure
         self._pool = None
         self._stream = torch.cuda.Stream(device) if self._card else None
 
@@ -132,40 +199,34 @@ class CapturedRun:
     # -- the state ---------------------------------------------------------------
 
     @staticmethod
-    def _comm_tensors(comm) -> dict:
-        """The ``CommState``'s tensor fields; raises on a field the captured
-        step does not carry (a dict of tensors: an EF wire's copies)."""
-        if not isinstance(comm, CommState):
+    def _carry(state: DecentralizedState) -> dict:
+        """The carry's tensors (:func:`_tensors`); raises where the state's
+        ``comm`` is not a ``CommState``."""
+        if not isinstance(state.comm, CommState):
             raise ValueError("DecentralizedState.comm must be the mixer's CommState")
-        out = {}
-        for f in CommState._fields:
-            v = getattr(comm, f)
-            if isinstance(v, torch.Tensor):
-                out[f] = v
-            elif not (isinstance(v, int) or v == ()):
-                raise ValueError(f"the captured step carries tensors and host ints in its "
-                                 f"CommState; {f} holds a {type(v).__name__}")
-        return out
+        return _tensors(state)
 
     def _stamp(self, state: DecentralizedState) -> tuple:
         return state.step, tuple(getattr(state.comm, f) for f in self._ints)
 
     def _held(self, state: DecentralizedState) -> bool:
-        """Whether ``state`` holds the slot.  Raises where its parameters
+        """Whether ``state`` holds the slot.  Raises where its donated
+        tensors (every tensor of the carry but the ``CommState``'s scalars)
         were given up, or where it holds the slot (or part of it) but is not
         the state the slot holds now: one returned before later steps wrote
         over the slot."""
-        if any(x.numel() and x.untyped_storage().nbytes() == 0 for x in state.params.values()):
-            raise RuntimeError("this state's parameters were donated to a step of the captured "
+        donated = {p: t for p, t in self._carry(state).items() if t.ndim}
+        if any(t.numel() and t.untyped_storage().nbytes() == 0 for t in donated.values()):
+            raise RuntimeError("this state's tensors were donated to a step of the captured "
                                "run and freed: pass the state the trainer returned last")
         if self._slot is None:
             return False
-        params = self._slot[0]
-        mine = [x is params.get(n) for n, x in state.params.items()]
+        mine = [t is self._slot.get(p) for p, t in donated.items()]
         if not any(mine):
             return False
-        if not all(mine) or len(mine) != len(params) or self._stamp(state) != self._at:
-            raise RuntimeError(f"this state's parameters were donated to the captured run and "
+        slot = {p for p, t in self._slot.items() if t.ndim}
+        if not all(mine) or set(donated) != slot or self._stamp(state) != self._at:
+            raise RuntimeError(f"this state's tensors were donated to the captured run and "
                                f"written over (it is at step {state.step}, the run at step "
                                f"{self._at[0]}): pass the state the trainer returned last")
         return True
@@ -177,91 +238,111 @@ class CapturedRun:
         donation there)."""
         if not self._card:
             return
-        held = {x.untyped_storage().data_ptr() for x in self._slot[0].values()}
-        for x in tensors:
-            if x.untyped_storage().data_ptr() not in held:
-                x.untyped_storage().resize_(0)
+        held = {_storage(t) for t in self._slot.values()}
+        for t in tensors:
+            if _storage(t) not in held:
+                t.untyped_storage().resize_(0)
 
     def _take(self, state: DecentralizedState) -> None:
         """Put ``state`` into the slot: copied in unless it holds the slot."""
-        if state.opt_state not in ((), None):
-            raise ValueError("the captured step is plain SGD, which keeps no optimizer state")
-        comm = self._comm_tensors(state.comm)
-        params, comm_t = self._slot
-        if not self._held(state):
-            if leaf_names(state.params) != leaf_names(params):
-                raise ValueError(f"the captured step was built for leaves "
-                                 f"{leaf_names(params)}, got {leaf_names(state.params)}")
-            for n, x in state.params.items():
-                if x.shape != params[n].shape or x.dtype != params[n].dtype:
-                    raise ValueError(f"{n}: the captured step holds {tuple(params[n].shape)} "
-                                     f"{params[n].dtype}, got {tuple(x.shape)} {x.dtype}")
-                params[n].copy_(x)
-            self._give_up(state.params.values())
-        if set(comm) != set(comm_t):
-            raise ValueError(f"the captured step carries CommState tensors {sorted(comm_t)}, "
-                             f"got {sorted(comm)}")
-        for f, t in comm_t.items():
-            if comm[f] is not t:
-                t.copy_(comm[f])
+        flat = self._carry(state)
+        if set(flat) != set(self._slot):
+            raise ValueError(f"the captured step carries {sorted(self._slot)}, got "
+                             f"{sorted(flat)}")
+        for p, t in flat.items():
+            s = self._slot[p]
+            if t.shape != s.shape or t.dtype != s.dtype:
+                raise ValueError(f"{p}: the captured step holds {tuple(s.shape)} {s.dtype}, "
+                                 f"got {tuple(t.shape)} {t.dtype}")
+        held = self._held(state)
+        for p, t in flat.items():
+            if t is not self._slot[p]:
+                self._slot[p].copy_(t)
+        if not held:
+            self._give_up([t for t in flat.values() if t.ndim])
         self._comm = state.comm
         self._at = self._stamp(state)
 
     def _state(self, state: DecentralizedState, n: int) -> DecentralizedState:
         """The state after ``n`` replays from ``state``: the slot, the host
         fields advanced (copies of the slot on the CPU)."""
-        params, comm_t = self._slot
-        if not self._card:
-            params = {k: x.clone() for k, x in params.items()}
-            comm_t = {f: t.clone() for f, t in comm_t.items()}
+        flat = self._slot if self._card else {p: t.clone() for p, t in self._slot.items()}
         ints = {f: getattr(state.comm, f) + n * d for f, d in self._ints.items()}
-        new = DecentralizedState(dict(params), state.opt_state, state.step + n,
-                                 state.comm._replace(**comm_t, **ints))
+        new = _rebuild(self._template._replace(step=state.step + n,
+                                               comm=state.comm._replace(**ints)), flat)
         self._at = self._stamp(new)
         return new
+
+    def _slot_state(self) -> DecentralizedState:
+        """The state the slot holds, with the host fields of the last one."""
+        return _rebuild(self._template._replace(step=self._at[0], comm=self._comm), self._slot)
+
+    def _copy_in(self, new: DecentralizedState) -> None:
+        """The step's new carry tensors into the slot's (those the form did
+        not write in place)."""
+        for p, t in _tensors(new).items():
+            if t is not self._slot[p]:
+                self._slot[p].copy_(t)
+
+    @staticmethod
+    def _own(flat: dict, given) -> dict:
+        """The first step's new carry as the slot: each tensor whose storage
+        another carry tensor or a tensor of the given state holds (a field
+        the round passed through) cloned, so that the slot's tensors share
+        nothing."""
+        seen = {_storage(t) for t in given}
+        out = {}
+        for p, t in flat.items():
+            if _storage(t) in seen:
+                t = t.clone()
+            seen.add(_storage(t))
+            out[p] = t
+        return out
 
     # -- warm-up and capture -----------------------------------------------------
 
     def _warm_up(self, state, batch):
-        """One eager step (on the capture's stream on the card), the fused
-        step as the eager trainer runs it.  The first program's new
-        parameters become the slot (B.1 allocates them where the eager step
-        does: after the backward, so the step holds no more than the eager
-        step's copies); a later program's step runs on the slot and
-        updates it in place.  The metrics must be 0-d float32 tensors, as
-        the captured step stacks them."""
+        """One eager step (on the capture's stream on the card), the form
+        the graph captures.  The first program's step runs in place on the
+        given state on the card (its tensors donated; out of place where
+        two share a storage, and on the CPU, where the caller's state is
+        left as it is), and its new state becomes the slot; a later
+        program's step runs on the slot and updates it in place.  The
+        metrics must be 0-d float32 tensors, as the captured step stacks
+        them."""
         before = state.comm
         if self._slot is None:
             self._held(state)  # a freed state raises
-            given, out = list(state.params.values()), None
+            given = list(self._carry(state).values())
+            inplace = self._card and _exclusive([t for t in given if t.ndim])
+            if inplace:  # the donated tensors become the slot as they are
+                given = [t for t in given if not t.ndim]
         else:
             self._take(state)
-            state = self._slot_state()
-            given, out = [], self._slot[0]
-        eta = torch.full((), self._lr(state.step), dtype=torch.float32, device=self.device)
+            state, given, inplace = self._slot_state(), [], True
+        sc = step_scalars(self._scalars(state.step, state.comm.rounds), self.device)
         if self._card:
             main = torch.cuda.current_stream(self.device)
             self._stream.wait_stream(main)
             with torch.cuda.stream(self._stream):
-                new, m = self._fused(state, batch, eta, out=out)
+                new, m = self._form(state, batch, sc, inplace=inplace)
             main.wait_stream(self._stream)
             # allocated on the capture's stream, used on the caller's from here
-            for t in (*new.params.values(), *m.values(),
-                      *self._comm_tensors(new.comm).values()):
+            for t in (*_tensors(new).values(), *m.values()):
                 t.record_stream(main)
         else:
-            new, m = self._fused(state, batch, eta, out=out)
+            new, m = self._form(state, batch, sc, inplace=inplace)
         if self._ints is None:  # the host ints' advance per step
             self._ints = {f: getattr(new.comm, f) - getattr(before, f)
                           for f in CommState._fields if type(getattr(before, f)) is int}
         if self._slot is None:
-            self._slot = (dict(new.params), {f: t.clone() for f, t in
-                                             self._comm_tensors(new.comm).items()})
-            self._give_up(given)  # the step's input, consumed
+            self._slot = self._own(self._carry(new), given)
+            self._template = new
+            # the step's input, consumed: what the slot does not hold is freed
+            self._give_up([t for t in self._carry(state).values() if t.ndim])
         else:
-            self._copy_comm(new.comm)
-        state = new._replace(params=dict(self._slot[0]),
-                             comm=new.comm._replace(**self._slot[1]))
+            self._copy_in(new)
+        state = _rebuild(new, self._slot)
         self._comm, self._at = state.comm, self._stamp(state)
         bad = {k: (tuple(v.shape), v.dtype) for k, v in m.items()
                if not (isinstance(v, torch.Tensor) and v.ndim == 0 and v.dtype == torch.float32)}
@@ -273,22 +354,11 @@ class CapturedRun:
                                      device=self.device)
         return state, m
 
-    def _slot_state(self) -> DecentralizedState:
-        """The state the slot holds, with the host fields of the last one."""
-        params, comm_t = self._slot
-        return DecentralizedState(params, (), self._at[0], self._comm._replace(**comm_t))
-
-    def _copy_comm(self, comm) -> None:
-        """The step's new ``CommState`` tensors into the slot's."""
-        for f, t in self._slot[1].items():
-            if getattr(comm, f) is not t:
-                t.copy_(getattr(comm, f))
-
     def _body(self, prog: _Program):
         """The step from the slot into the slot, its metrics into the
         buffer's column ``prog.col``: what the graph captures."""
-        new, m = self._fused(self._slot_state(), prog.batch, prog.eta, out=self._slot[0])
-        self._copy_comm(new.comm)
+        new, m = self._form(self._slot_state(), prog.batch, prog.scalars, inplace=True)
+        self._copy_in(new)
         self._mbuf.index_copy_(1, prog.col, torch.stack([m[k] for k in self._keys])[:, None])
 
     def _capture(self, prog: _Program) -> None:
@@ -312,23 +382,28 @@ class CapturedRun:
 
     # -- replays -----------------------------------------------------------------
 
-    def _pack(self, prog: _Program, batches, lo: int, hi: int, step0: int,
+    def _pack(self, prog: _Program, batches, lo: int, hi: int, step0: int, rounds0: int,
               i0: int) -> torch.Tensor:
         """Steps lo..hi-1's inputs, one row of ``prog.inbuf``'s bytes each;
-        the step at ``lo`` is the run's ``i0``-th replay, at step ``step0``."""
+        the step at ``lo`` is the run's ``i0``-th replay, at step ``step0``
+        and round ``rounds0``."""
         n = hi - lo
         packed = torch.empty((n, prog.inbuf.numel()), dtype=torch.uint8, device=self.device)
         for (off, nb, _, _), b in zip(prog.layout, batches):
             packed[:, off:off + nb].copy_(b[lo:hi].reshape(n, -1).view(torch.uint8))
-        head = np.zeros((n, 16), dtype=np.uint8)
+        adv = self._ints.get("rounds", 0)
+        vals = [self._scalars(step0 + i, rounds0 + i * adv) for i in range(n)]
+        head = np.zeros((n, _HEAD), dtype=np.uint8)
         head[:, _COL:_COL + 8] = ((i0 + np.arange(n, dtype=np.int64)) % METRIC_COLS
                                   )[:, None].view(np.uint8)
-        etas = np.array([self._lr(step0 + i) for i in range(n)], dtype=np.float32)
-        head[:, _ETA:_ETA + 4] = etas[:, None].view(np.uint8)
+        head[:, _ROUND:_ROUND + 8] = np.array([v[3] for v in vals], dtype=np.int64
+                                              )[:, None].view(np.uint8)
+        head[:, _ETA:_PART + 4] = np.array([(v[0], v[1], v[2], v[4]) for v in vals],
+                                           dtype=np.float32).view(np.uint8)
         head_t = torch.from_numpy(head)
         if self._card:
             head_t = head_t.pin_memory().to(self.device, non_blocking=True)
-        packed[:, :16].copy_(head_t)
+        packed[:, :_HEAD].copy_(head_t)
         return packed
 
     def _replay(self, prog: _Program) -> None:
@@ -358,7 +433,8 @@ class CapturedRun:
             for i in range(hi - lo):
                 if i % PACK_STEPS == 0:
                     packed = self._pack(prog, batches, lo + i, min(lo + i + PACK_STEPS, hi),
-                                        state.step + i, i)
+                                        state.step + i, state.comm.rounds
+                                        + i * self._ints.get("rounds", 0), i)
                 prog.inbuf.copy_(packed[i % PACK_STEPS])
                 self._replay(prog)
                 if i % METRIC_COLS == METRIC_COLS - 1 or i == hi - lo - 1:

@@ -18,13 +18,27 @@ static uncompressed dense round (``DenseMixer``), steps 2–4 are one call of
 the fused gossip update over every leaf, ``W @ (θ − η·(s⊙g))`` (B.1 on the
 card: one launch per step, per 16 leaves and per dtype of the leaves): it
 reads θ and g once and writes the mixed parameters once, where the unfused
-step holds the scaled gradients, SGD's update and the mixer's output beside
-them.  Its plain version computes in the unfused order, so both give the
-same bits on the CPU; the metrics and the ``CommState`` are the same either
-way.  Every other stack — a wrapper mixer (local updates, repeated rounds),
-a consensus period ``mix_every`` > 1, and any K above the stacked kernel's
-64 nodes — runs the unfused step.  Per-node clipping scales the fresh
-gradients in place.
+step holds SGD's update and the mixer's output beside them.  Its plain
+version computes in the unfused order, so both give the same bits on the
+CPU; the metrics and the ``CommState`` are the same either way.  Every
+other stack — another optimizer, a compressed wire, gossip, a wrapper
+mixer (local updates, repeated rounds), a consensus period ``mix_every`` >
+1, and any K above the stacked kernel's 64 nodes — runs the unfused step.
+Per-node clipping and the robust scale scale the fresh gradients in place.
+
+Both steps have a capturable form (``train_step.capturable``), which the
+eager step runs and the trainer's CUDA graph captures
+(:mod:`repro_torch.core.captured`): it reads nothing that changes from step
+to step on the host, but takes the step's scalars as 0-d tensors
+(:class:`StepScalars`: η and Adam's bias corrections, the round the mixer
+runs and its rate schedule's host part), which ``train_step.host_scalars``
+computes on the host and the eager step fills.  With ``inplace=True`` the
+form writes the new parameters (B.1's ``out``, the optimizer, the static
+codec rounds) and the optimizer state and θ̂ (the dense codec round) into
+the state's own tensors: the captured step's slot.  The same operations
+run either way, so the eager step, the capturable form and its replays give
+the same bits.  :func:`capture_declined` says which stacks the trainer
+captures.
 
 ``TrainStepConfig.mix_every`` > 1 mixes only on the steps ``mix_every − 1,
 2·mix_every − 1, ...``: the off-steps skip the mixer, pass the
@@ -65,8 +79,13 @@ import torch
 from repro_torch.comm import CompressionConfig
 from repro_torch.comm import topology as comm_topology
 from repro_torch.comm.composed import ComposedMixer
-from repro_torch.comm.protocol import CommState, Mixer, scalar, trivial_comm_state
-from repro_torch.comm.transport import DenseTransport
+from repro_torch.comm.protocol import (
+    CommState,
+    Mixer,
+    scalar,
+    trivial_comm_state,
+)
+from repro_torch.comm.transport import DenseTransport, StarTransport
 from repro_torch.comm.wire import IdentityWire
 from repro_torch.core.robust import (
     RobustConfig,
@@ -82,6 +101,38 @@ from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.utils.tree import leaf_names, tree_node_disagreement
 
 LossFn = Callable[[Any, Any], torch.Tensor]  # (params, batch) -> (K,) losses
+
+
+class StepScalars(NamedTuple):
+    """A step's scalars as 0-d tensors on the parameters' device: what the
+    capturable form reads in place of host numbers.
+
+    eta:   float32 — the optimizer's step size (B.1's η on the fused step).
+    bc1:   float32 — Adam's 1 − b1^(step+1) (1 for the other optimizers).
+    bc2:   float32 — Adam's 1 − b2^(step+1).
+    round: int64 — the round the mixer runs (``CommState.rounds``).
+    part:  float32 — the wire's rate-schedule host part of that round.
+
+    The last two are a ``RoundClock``'s fields: the mixer takes the
+    scalars as its round's clock.
+    """
+
+    eta: torch.Tensor
+    bc1: torch.Tensor
+    bc2: torch.Tensor
+    round: torch.Tensor
+    part: torch.Tensor
+
+
+SCALAR_DTYPES = StepScalars(torch.float32, torch.float32, torch.float32, torch.int64,
+                            torch.float32)
+
+
+def step_scalars(values, device) -> StepScalars:
+    """:class:`StepScalars` filled on ``device`` from ``values``
+    (``train_step.host_scalars``'s tuple)."""
+    return StepScalars(*(torch.full((), v, dtype=dt, device=device)
+                         for v, dt in zip(values, SCALAR_DTYPES)))
 
 
 class DecentralizedState(NamedTuple):
@@ -168,16 +219,41 @@ def _fused_w(optimizer: Optimizer, mixer: Mixer, mix_every: int):
     return mixer.w
 
 
+def _unfused_declined(optimizer: Optimizer, mixer: Mixer, mix_every: int) -> str | None:
+    """Why the unfused step (the optimizer, then one round of the mixer)
+    has no capturable form (None where it has): the optimizer must have a
+    device form (``apply``), and a static ``ComposedMixer`` round must run
+    on every step, its wire drawing its own noise.  A wrapper mixer, a
+    time-varying topology (dynamics: the clocked EF gossip stack is one)
+    and the hub branch on their host clocks; a ``uniforms`` hook is a host
+    callable."""
+    if optimizer.apply is None:
+        return "the optimizer has no device form (an Optimizer(init, update))"
+    if mix_every > 1:
+        return f"mix_every = {mix_every}: the off-steps skip the round"
+    if not isinstance(mixer, ComposedMixer):
+        return f"a wrapper mixer ({type(mixer).__name__})"
+    if getattr(mixer, "_dynamic", False):
+        return "a time-varying topology (dynamics)"
+    if isinstance(mixer.transport, StarTransport):
+        return "the hub (StarTransport)"
+    if mixer.wire.hooked:
+        return "a uniforms hook (a host callable) draws the wire's noise"
+    return None
+
+
 def capture_declined(loss_fn, optimizer: Optimizer, mixer: Mixer, mix_every: int, *,
                      obs=None, sanitize: bool = False) -> str | None:
     """Why the trainer does not capture its step in CUDA graphs (None where
     it does; the CPU then runs the same capturable form eagerly).  The
-    captured step is the fused one (:func:`_fused_declined`): plain SGD and a
-    static uncompressed dense W on every step.  The telemetry tap and the
-    sanitizer's checks read the step on the host's schedule, and a loss
-    that carries ``capture_declined`` (an LM family whose node-stacked loss
-    still loops over the nodes) says why itself; each of those steps runs
-    eagerly."""
+    captured step is the fused one where it applies
+    (:func:`_fused_declined`), else the unfused one
+    (:func:`_unfused_declined`): any optimizer with a device form, then a
+    static dense or gossip round, with any codec wire, on every step.  The
+    telemetry tap and the sanitizer's checks read the step on the host's
+    schedule, and a loss that carries ``capture_declined`` (an LM family
+    whose node-stacked loss still loops over the nodes) says why itself;
+    each of those steps runs eagerly."""
     if obs is not None:
         return "a telemetry sink (obs) taps the step"
     if sanitize:
@@ -185,7 +261,8 @@ def capture_declined(loss_fn, optimizer: Optimizer, mixer: Mixer, mix_every: int
     reason = getattr(loss_fn, "capture_declined", None)
     if reason:
         return reason
-    reason = _fused_declined(optimizer, mixer, mix_every)
+    if _fused_declined(optimizer, mixer, mix_every) is not None:
+        reason = _unfused_declined(optimizer, mixer, mix_every)
     if reason is None and _step_faults(mixer) is not None:
         return "straggler_skips_compute reads the round's faults"
     return reason
@@ -220,6 +297,14 @@ def _owned(grads: dict) -> bool:
     scale in place."""
     ptrs = {g.untyped_storage().data_ptr() for g in grads.values()}
     return len(ptrs) == len(grads) and all(g.is_contiguous() for g in grads.values())
+
+
+def _scaled(grads: dict, scale: torch.Tensor) -> dict:
+    """Each node's gradient times its robust scale: in place where the step
+    owns the gradients (the same products)."""
+    if _owned(grads):
+        return {n: g.mul_(_node_scale(scale, g)) for n, g in grads.items()}
+    return {n: g * _node_scale(scale, g) for n, g in grads.items()}
 
 
 def _tap_fields(obs, step: int, metrics: dict, comm, losses, lam) -> dict:
@@ -264,6 +349,8 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
             "spelling: it keeps CommState.rounds ticking every step)")
     fused_w = _fused_w(optimizer, mixer, cfg.mix_every)
     step_faults = _step_faults(mixer)
+    composed = isinstance(mixer, ComposedMixer)
+    n_opt = len(optimizer.scalars(0)) if optimizer.scalars is not None else 0
     if sanitize is not None:
         from repro_torch.analysis.sanitize import step_checks
 
@@ -333,16 +420,25 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
                 metrics.update(_tap_fields(obs, state.step, metrics, comm, losses, lam))
         return DecentralizedState(mixed, opt_state, state.step + 1, comm), metrics
 
-    def fused_step(state: DecentralizedState, batch, eta: torch.Tensor, out=None):
-        """The fused step (scale, SGD and the dense round in B.1) with η a
-        0-d float32 tensor on the parameters' device and ``out`` None or a
-        dict of leaves the new parameters are written to (the parameters
-        themselves, updated in place, or storages of their own): the form
-        the trainer's CUDA graph captures.  Nothing reads the parameters
-        after B.1 (the round's bookkeeping reads their shapes only)."""
+    def host_scalars(step: int, rounds: int) -> tuple:
+        """The step's scalars as host numbers, in :class:`StepScalars`'s
+        order: the optimizer's (η, and Adam's bias corrections) at ``step``,
+        the round ``rounds`` and the wire's rate-schedule host part of it."""
+        opt = optimizer.scalars(step) if optimizer.scalars is not None else (0.0,)
+        bc = opt[1:3] if len(opt) == 3 else (1.0, 1.0)
+        part = mixer.host_part(rounds) if composed else 0.0
+        return (opt[0], *bc, int(rounds), part)
+
+    def fused_step(state: DecentralizedState, batch, sc: StepScalars, inplace: bool = False):
+        """The fused step (scale, SGD and the dense round in B.1), η read
+        from ``sc.eta``; ``inplace`` makes the parameters B.1's ``out``
+        (updated in place: each of its threads reads every node's column
+        before it writes that column).  Nothing reads the parameters after
+        B.1 (the round's bookkeeping reads their shapes only)."""
         check_comm(state)
         names = leaf_names(state.params)
         losses, grads, scale, lam = grads_and_weights(state, batch, names)
+        out = state.params if inplace else None
         # scale, SGD and the dense consensus round: one pass over every
         # leaf of a dtype (one B.1 launch per step on the card)
         with scope("obs:local_update"), scope("obs:consensus"):
@@ -350,17 +446,20 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
             for group in _dtype_groups(state.params, names):
                 outs = gossip_update_stacked_grouped(
                     [state.params[n] for n in group], [grads[n] for n in group],
-                    fused_w, scale, eta=eta, out=None if out is None else [out[n] for n in group])
+                    fused_w, scale, eta=sc.eta,
+                    out=None if out is None else [out[n] for n in group])
                 mixed.update(zip(group, outs))
             mixed = {n: mixed[n] for n in names}
             del grads  # a node-stacked copy of the parameters: free it before the metrics
             comm = mixer.round_state(state.params, state.comm)
         return finish(state, losses, scale, lam, mixed, state.opt_state, comm, True)
 
-    def train_step(state: DecentralizedState, batch):
-        if fused_w is not None:
-            eta = scalar(optimizer.sgd_lr(state.step), next(iter(state.params.values())).device)
-            return fused_step(state, batch, eta)
+    def unfused_step(state: DecentralizedState, batch, sc: StepScalars, inplace: bool = False):
+        """The optimizer, then the mixer's round, reading the step's scalars
+        from ``sc``; ``inplace`` lets the optimizer and a static codec round
+        write into the state's own tensors.  An optimizer without a device
+        form and a wrapper mixer read the host step and round instead (their
+        stacks run eagerly)."""
         check_comm(state)
         names = leaf_names(state.params)
         losses, grads, scale, lam = grads_and_weights(state, batch, names)
@@ -368,19 +467,37 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
         is_mix_step = state.step % cfg.mix_every == cfg.mix_every - 1
         # --- local optimizer step (plain SGD in the paper)
         with scope("obs:local_update"):
-            scaled = {n: g * _node_scale(scale, g) for n, g in grads.items()}
-            updated, opt_state = optimizer.update(scaled, state.opt_state,
-                                                  state.params, state.step)
+            scaled = _scaled(grads, scale)
+            del grads
+            if optimizer.apply is not None:
+                updated, opt_state = optimizer.apply(scaled, state.opt_state, state.params,
+                                                     (sc.eta, sc.bc1, sc.bc2)[:n_opt], inplace)
+            else:
+                updated, opt_state = optimizer.update(scaled, state.opt_state,
+                                                      state.params, state.step)
+            del scaled  # the gradients: free them before the round
         # --- consensus: the only cross-node communication of the algorithm
         with scope("obs:consensus"):
-            if is_mix_step:  # repro: noqa[RPR001] (a host bool: step is a host int)
-                mixed, comm = mixer(updated, state.comm, round=state.step)
-            else:
+            if not is_mix_step:  # repro: noqa[RPR001] (a host bool: step is a host int)
                 mixed, comm = updated, state.comm
+            elif composed:
+                mixed, comm = mixer(updated, state.comm, round=state.step, clock=sc,
+                                    inplace=inplace)
+            else:
+                mixed, comm = mixer(updated, state.comm, round=state.step)
         return finish(state, losses, scale, lam, mixed, opt_state, comm, is_mix_step)
 
-    # the capturable form, where the step fuses into B.1
-    train_step.fused = fused_step if fused_w is not None else None
+    form = fused_step if fused_w is not None else unfused_step
+
+    def train_step(state: DecentralizedState, batch):
+        check_comm(state)
+        device = next(iter(state.params.values())).device
+        return form(state, batch, step_scalars(host_scalars(state.step, state.comm.rounds),
+                                               device))
+
+    # the capturable form, and the host function of its scalars
+    train_step.capturable = form
+    train_step.host_scalars = host_scalars
     return train_step
 
 

@@ -26,7 +26,7 @@ KERNELS_DIR = Path(__file__).resolve().parent
 SOURCES = ("quant_gossip/csrc/masked_grouped.cu", "flash_attention/csrc/flash_fwd.cu",
            "flash_attention/csrc/flash_bwd.cu", "rwkv6_scan/csrc/wkv6.cu",
            "rwkv6_scan/csrc/wkv6_bwd.cu",
-           "gossip_update/csrc/gossip_update.cu")
+           "gossip_update/csrc/gossip_update.cu", "quant_gossip/csrc/philox.cu")
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

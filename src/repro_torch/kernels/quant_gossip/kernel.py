@@ -13,7 +13,13 @@ wrapper                                    TPU kernel     source
 ``dequant_accumulate`` (one leaf)          B.3 (``:125``) ``csrc/masked_grouped.cu``
 ``masked_dequant_accumulate_grouped_``     B.5 (``:187``) ``csrc/masked_grouped.cu``
 ``masked_dequant_accumulate`` (one leaf)   B.5 (``:187``) ``csrc/masked_grouped.cu``
+``uniforms_grouped``                       none           ``csrc/philox.cu``
 =========================================  =============  ========================
+
+``uniforms_grouped`` is the port's own kernel: the wire's stochastic-rounding
+uniforms of a round, drawn on the card by Philox-4x32-10 with the round read
+through a pointer (the reference draws ``jax.random`` inside its jitted
+step; ``csrc/philox.cu`` says why the port has a kernel for it).
 
 The source's header note gives its bound and design.  It is built and
 loaded by :mod:`repro_torch.kernels._build`, together with every other
@@ -46,6 +52,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = "quant_gossip/csrc/masked_grouped.cu"
+PHILOX_SOURCE = "quant_gossip/csrc/philox.cu"
 NVCC_FLAGS = _build.NVCC_FLAGS
 build = _build.build
 
@@ -54,6 +61,8 @@ CLUSTER_SIZE = 16        # CTAs per B.4 thread-block cluster
 MAX_GROUP_LEAVES = 16    # leaves per grouped launch (the CNN has 12)
 MIN_SHARE = 8192         # B.4: a segment this long or shorter is one CTA's
 ACC_CHUNK = 4096         # B.5: elements per CTA
+PHILOX_THREADS = 256     # csrc/philox.cu: threads per CTA (four elements each)
+PHILOX_MAX_ELEMENTS = 1 << 34  # a leaf's element index >> 2 must fit 32 bits
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -64,6 +73,7 @@ _SYMBOLS = {
     "masked_dequant_accumulate_grouped_f32": (_P, ctypes.c_int, _P, _P, _P, _LL, _LL, _P),
     "dequant_accumulate_grouped_f32": (_P, ctypes.c_int, _P, _P, _LL, _LL, _P),
 }
+_PHILOX_ARGS = (_P, ctypes.c_int, ctypes.c_ulonglong, _P, ctypes.c_int, _P)
 
 
 def _pick_block(d: int, block_d: int) -> int:
@@ -91,6 +101,21 @@ def config() -> dict:
     fn(ctypes.addressof(out))
     return dict(zip(("cluster_size", "max_group_leaves", "min_share", "acc_chunk",
                      "smem_cap_floats"), out))
+
+
+def philox_config() -> dict:
+    """The uniforms kernel's fixed sizes as compiled (builds the sources)."""
+    fn = _build.entry(PHILOX_SOURCE, "philox_config", (_P,))
+    fn.restype = None
+    out = (_LL * 2)()
+    fn(ctypes.addressof(out))
+    return dict(zip(("threads", "max_group_leaves"), out))
+
+
+def philox_ctas(n: int) -> int:
+    """The uniforms kernel's CTAs for a leaf of ``n`` elements: one thread per
+    four elements."""
+    return -(-(-(-n // 4)) // PHILOX_THREADS)
 
 
 def quantize_clusters(k: int, d: int, block_d: int) -> int:
@@ -372,6 +397,63 @@ def masked_dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.
     return out
 
 
+def check_uniforms_args(name: str, xs, key: int, round: torch.Tensor, matching: int,
+                        leaves) -> list[int]:
+    """The leaf indices of a uniforms call (``leaves``, or 0..n-1); raises on
+    what the kernel and its plain version do not take."""
+    if not xs:
+        raise ValueError(f"{name} takes one or more leaves")
+    leaves = list(range(len(xs))) if leaves is None else [int(i) for i in leaves]
+    if len(leaves) != len(xs):
+        raise ValueError(f"{name}: {len(xs)} leaves but {len(leaves)} leaf indices")
+    if not isinstance(round, torch.Tensor) or round.ndim != 0 or round.dtype != torch.int64:
+        raise TypeError(f"{name} reads the round from a 0-d int64 tensor, got {round!r}")
+    if round.device != xs[0].device:
+        raise ValueError(f"{name}: the round must be on {xs[0].device}, got {round.device}")
+    if not 0 <= int(matching) < 2 ** 31:
+        raise ValueError(f"{name}: matching must be in [0, 2**31), got {matching}")
+    for x, i in zip(xs, leaves):
+        if x.device != xs[0].device:
+            raise ValueError(f"{name}: every leaf must be on {xs[0].device}, got {x.device}")
+        if not 0 <= i < 2 ** 32:
+            raise ValueError(f"{name}: a leaf index must be in [0, 2**32), got {i}")
+        if x.numel() >= PHILOX_MAX_ELEMENTS:
+            raise ValueError(f"{name}: a leaf of {x.numel()} elements passes the counter's "
+                             f"{PHILOX_MAX_ELEMENTS}")
+    if not isinstance(key, int):
+        raise TypeError(f"{name}: the key is a host int, got {type(key).__name__}")
+    return leaves
+
+
+def uniforms_grouped(xs, key: int, round: torch.Tensor, *, matching: int = 0,
+                     leaves=None) -> list:
+    """The round's U[0, 1) noise of every leaf of a group: one float32
+    tensor shaped like each of ``xs`` (CUDA tensors; only their shapes and
+    device are read), views into one allocation with every leaf on 16
+    bytes.  ``key`` is ``CommState.key`` (a host int, taken mod 2**64),
+    ``round`` a 0-d int64 tensor on the card read there, ``matching`` the
+    masked wire's matching (0 elsewhere) and ``leaves`` each leaf's index in
+    the round (default 0..n-1).  One launch per :data:`MAX_GROUP_LEAVES`
+    leaves, each adding one to ``uniforms_grouped.launches``."""
+    leaves = check_uniforms_args("uniforms_grouped", xs, key, round, matching, leaves)
+    dev = xs[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"uniforms_grouped kernel needs CUDA tensors, got {dev}")
+    sizes = [x.numel() for x in xs]
+    offs, total = _aligned_offsets(sizes, 4)
+    flat = torch.empty(max(total, 1), dtype=torch.float32, device=dev)
+    outs = [flat[o:o + n].view(x.shape) for o, n, x in zip(offs, sizes, xs)]
+    symbol = "philox_uniforms_grouped_f32"
+    fn = _build.entry(PHILOX_SOURCE, symbol, _PHILOX_ARGS)
+    for table in leaf_tables([philox_ctas(n) for n in sizes]):
+        desc = (_LL * (4 * len(table)))(*[v for leaf, begin in table for v in (
+            outs[leaf].data_ptr(), sizes[leaf], leaves[leaf], begin)])
+        _build.launch(fn, symbol, dev, ctypes.addressof(desc), len(table),
+                      key & (2 ** 64 - 1), round.data_ptr(), int(matching))
+        uniforms_grouped.launches += 1
+    return outs
+
+
 # launches of each kernel since the last reset (the main path's proof of use)
 quantize_blockwise.launches = 0
 quantize_blockwise_grouped.launches = 0
@@ -382,3 +464,4 @@ dequant_accumulate.launches = 0
 dequant_accumulate_grouped_.launches = 0
 masked_dequant_accumulate.launches = 0
 masked_dequant_accumulate_grouped_.launches = 0
+uniforms_grouped.launches = 0

@@ -36,9 +36,11 @@ the full final state (parameters and ``CommState``) with
 
 The first line says how the step runs: ``step: captured`` where the
 trainer replays its step from CUDA graphs (``jit=True`` on a stack
-``capture_declined`` keeps: plain SGD over the static dense W, no
+``capture_declined`` keeps: any optimizer, a static dense or gossip round
+with any ``--compress`` codec and ``--compress-schedule`` on every step, no
 telemetry tap, no sanitizer, a loss that batches its nodes), else ``step:
-eager (<why>)``.
+eager (<why>)``: ``--mix-every`` > 1, local updates, a time-varying
+topology, faults and the hub run eagerly.
 
 Telemetry (``repro_torch.obs``): every run streams through a
 :class:`~repro_torch.obs.MetricsSink` — with ``--log-dir`` the train

@@ -4,13 +4,27 @@
 An :class:`Optimizer` is an (init, update) pair mirroring the reference:
 ``update(grads, opt_state, params, step) -> (params', state')``, with
 ``step`` the train state's host int.  Updates are out of place, so a state
-handed to ``update`` stays valid.  :func:`sgd` records its schedule on the
-optimizer (``sgd_lr``), which is how the train step recognises plain SGD and
-fuses it with dense mixing (``core/drdsgd.py``); :func:`momentum`,
-:func:`adam` and :func:`chain_clip` leave ``sgd_lr`` unset, so their steps
-run unfused (the optimizer, then the mixer), as in the reference.  Adam's
-bias corrections are computed in float32 on the host, as the reference
-computes them (``t = float32(step) + 1``, ``b ** t``).
+handed to ``update`` stays valid.
+
+Each optimizer here also splits its update in two, so that a step can run
+it without reading the step on the host (the trainer's captured step):
+``scalars(step)``, one host function giving the step's scalars in float32
+(η, and for Adam its bias corrections ``bc1``, ``bc2``: ``t =
+float32(step) + 1``, ``1 − b ** t``, as the reference computes them on its
+traced step), and ``apply(grads, opt_state, params, scalars, inplace)``,
+the update reading them as 0-d float32 tensors on the parameters' device.
+``update`` is ``apply`` of the step's scalars as fills, so both give the
+same bits; ``inplace=True`` writes the new parameters and state into the
+given tensors (the same operations: the captured step's slot).  A scalar
+meets a leaf of another dtype in float32 and is rounded once to the leaf's
+dtype, as a Python number would.  An ``Optimizer(init, update)`` built by
+hand has neither, and its step runs eagerly.
+
+:func:`sgd` records its schedule on the optimizer (``sgd_lr``), which is
+how the train step recognises plain SGD and fuses it with dense mixing
+(``core/drdsgd.py``); :func:`momentum`, :func:`adam` and :func:`chain_clip`
+leave ``sgd_lr`` unset, so their steps run unfused (the optimizer, then the
+mixer), as in the reference.
 """
 
 from __future__ import annotations
@@ -18,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]  # step -> lr
@@ -34,6 +49,53 @@ class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, int], tuple[Any, Any]]
     sgd_lr: Schedule | None = None  # plain SGD's step size per step; None otherwise
+    # step -> the step's float32 scalars (η first); None: update only
+    scalars: Callable[[int], tuple] | None = None
+    # (grads, state, params, scalars as 0-d tensors, inplace) -> (params', state')
+    apply: Callable[..., tuple[Any, Any]] | None = None
+
+
+def _f32(*values) -> tuple:
+    return tuple(float(np.float32(v)) for v in values)
+
+
+def _split(scalars, apply) -> Callable:
+    """``update(grads, state, params, step)``: ``apply`` of the step's
+    ``scalars`` as fills on the parameters' device."""
+
+    def update(grads, state, params, step):
+        dev = next(iter(params.values())).device
+        ts = tuple(torch.full((), v, dtype=torch.float32, device=dev) for v in scalars(step))
+        return apply(grads, state, params, ts, False)
+
+    return update
+
+
+def _times(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """s·x for a 0-d float32 ``s``, in x's dtype (a non-float32 x multiplied
+    in float32 and rounded once, as a Python scalar is)."""
+    return s * x if x.dtype == torch.float32 else (s * x.float()).to(x.dtype)
+
+
+def _over(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """x / s for a 0-d float32 ``s``, in x's dtype (see :func:`_times`)."""
+    return x / s if x.dtype == torch.float32 else (x.float() / s).to(x.dtype)
+
+
+def _into(x: torch.Tensor, inplace: bool) -> torch.Tensor:
+    """Where an update of ``x`` is written: ``x`` itself where ``inplace``,
+    else a new tensor like it (the same operations either way)."""
+    return x if inplace else torch.empty_like(x)
+
+
+def _decayed(x: torch.Tensor, beta: float, add: torch.Tensor, inplace: bool) -> torch.Tensor:
+    """beta·x + add, into ``x`` itself where ``inplace``."""
+    return torch.mul(x, beta, out=_into(x, inplace)).add_(add)
+
+
+def _descend(p: torch.Tensor, step: torch.Tensor, inplace: bool) -> torch.Tensor:
+    """p − step, into p itself where ``inplace``."""
+    return torch.sub(p, step, out=_into(p, inplace))
 
 
 def sgd(lr) -> Optimizer:
@@ -43,11 +105,15 @@ def sgd(lr) -> Optimizer:
     def init(params):
         return ()
 
-    def update(grads, state, params, step):
-        eta = sched(step)
-        return {n: p - eta * grads[n].to(p.dtype) for n, p in params.items()}, state
+    def scalars(step):
+        return _f32(sched(step))
 
-    return Optimizer(init, update, sgd_lr=sched)
+    def apply(grads, state, params, sc, inplace):
+        (eta,) = sc
+        return {n: _descend(p, _times(eta, grads[n].to(p.dtype)), inplace)
+                for n, p in params.items()}, state
+
+    return Optimizer(init, _split(scalars, apply), sgd_lr=sched, scalars=scalars, apply=apply)
 
 
 class MomentumState(NamedTuple):
@@ -61,14 +127,22 @@ def momentum(lr, beta: float = 0.9, nesterov: bool = False) -> Optimizer:
     def init(params):
         return MomentumState({n: torch.zeros_like(p) for n, p in params.items()})
 
-    def update(grads, state, params, step):
-        eta = sched(step)
-        vel = {n: beta * v + grads[n].to(v.dtype) for n, v in state.velocity.items()}
-        upd = ({n: beta * v + grads[n].to(v.dtype) for n, v in vel.items()} if nesterov
-               else vel)
-        return {n: p - eta * upd[n] for n, p in params.items()}, MomentumState(vel)
+    def scalars(step):
+        return _f32(sched(step))
 
-    return Optimizer(init, update)
+    def apply(grads, state, params, sc, inplace):
+        (eta,) = sc
+        state = MomentumState(*state)  # a restored state is a plain tuple
+        vel = {n: _decayed(v, beta, grads[n].to(v.dtype), inplace)
+               for n, v in state.velocity.items()}
+        new = {}
+        for n, p in params.items():
+            upd = beta * vel[n] + grads[n].to(vel[n].dtype) if nesterov else vel[n]
+            new[n] = _descend(p, _times(eta, upd), inplace)
+            del upd
+        return new, MomentumState(vel)
+
+    return Optimizer(init, _split(scalars, apply), scalars=scalars, apply=apply)
 
 
 class AdamState(NamedTuple):
@@ -94,22 +168,26 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return AdamState(mu={n: torch.zeros_like(p) for n, p in params.items()},
                          nu={n: torch.zeros_like(p) for n, p in params.items()})
 
-    def update(grads, state, params, step):
-        eta = sched(step)
-        bc1, bc2 = _bias_corrections(b1, b2, step)
-        mu = {n: b1 * m + (1 - b1) * grads[n].to(m.dtype) for n, m in state.mu.items()}
-        nu = {n: b2 * v + (1 - b2) * grads[n].to(v.dtype).square()
+    def scalars(step):
+        return _f32(sched(step), *_bias_corrections(b1, b2, step))
+
+    def apply(grads, state, params, sc, inplace):
+        eta, bc1, bc2 = sc
+        state = AdamState(*state)  # a restored state is a plain tuple
+        mu = {n: _decayed(m, b1, (1 - b1) * grads[n].to(m.dtype), inplace)
+              for n, m in state.mu.items()}
+        nu = {n: _decayed(v, b2, (1 - b2) * grads[n].to(v.dtype).square(), inplace)
               for n, v in state.nu.items()}
 
         def step_fn(n, p):
-            upd = (mu[n] / bc1) / (torch.sqrt(nu[n] / bc2) + eps)
+            upd = _over(_over(mu[n], bc1), torch.sqrt(_over(nu[n], bc2)) + eps)
             if weight_decay:
                 upd = upd + weight_decay * p
-            return p - eta * upd
+            return _descend(p, _times(eta, upd), inplace)
 
         return {n: step_fn(n, p) for n, p in params.items()}, AdamState(mu, nu)
 
-    return Optimizer(init, update)
+    return Optimizer(init, _split(scalars, apply), scalars=scalars, apply=apply)
 
 
 def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float, *,
@@ -146,4 +224,11 @@ def chain_clip(opt: Optimizer, max_norm: float) -> Optimizer:
         grads, _ = clip_by_global_norm(grads, max_norm)
         return opt.update(grads, state, params, step)
 
-    return Optimizer(opt.init, update)
+    if opt.apply is None:
+        return Optimizer(opt.init, update)
+
+    def apply(grads, state, params, sc, inplace):
+        grads, _ = clip_by_global_norm(grads, max_norm)
+        return opt.apply(grads, state, params, sc, inplace)
+
+    return Optimizer(opt.init, update, scalars=opt.scalars, apply=apply)

@@ -1,8 +1,9 @@
 """The captured step's memory on the card, in the allocator configuration
 the process starts with: ``chip_smoke.py``'s compiled phase (fmnist
-dense-none, K = 10, 300 steps, and qwen2-0.5b at full width and depth,
-K = 8, seq 64, 5 steps; eager and captured turns alternated, every check
-of the phase held).
+dense-none, K = 10, 300 steps, the unfused step's fmnist stacks, 100 steps
+each, and qwen2-0.5b at full width and depth, K = 8, seq 64, 5 steps, and
+with Nesterov momentum and the dense int8 EF wire; eager and captured
+turns alternated, every check of the phase held).
 
     python3 tests/captured_memory_probe.py
     PYTORCH_CUDA_ALLOC_CONF=expandable_segments:False python3 tests/captured_memory_probe.py
@@ -37,6 +38,7 @@ def main() -> int:
 
     expandable_segments()  # leaves a configuration the caller set
     import chip_smoke as cs
+    from repro_torch.comm import CompressionConfig
     from repro_torch.core import TrainerSpec
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -44,7 +46,7 @@ def main() -> int:
     print(cs.nvidia_smi(), flush=True)
     print(f"PYTORCH_CUDA_ALLOC_CONF={os.environ['PYTORCH_CUDA_ALLOC_CONF']}", flush=True)
     cs.phase_build()
-    out = cs.phase_compiled(TrainerSpec)
+    out = cs.phase_compiled(TrainerSpec, CompressionConfig)
     for tag, rec in out.items():
         if tag == "phase_s":
             continue

@@ -1,6 +1,6 @@
 """The trainer's captured step (``jit=True``) on the CPU, where it runs the
-capturable form the card captures (the same slot, B.1's ``out`` and η as
-a tensor) eagerly.
+capturable form the card captures (the same slot, written in place, and
+the step's scalars read from the packed input buffer) eagerly.
 
 - 20 fmnist dense-none steps (the paper's MLP, K = 10, ER(0.3)) and 3
   qwen2 smoke steps (K = 4 ring, ``train_lm``'s lr and clip) with
@@ -9,12 +9,26 @@ a tensor) eagerly.
   epochs with a hook, past the metrics buffer's columns, and under a
   decaying SGD schedule over more steps than one packing of inputs.
   These comparisons run on one intra-op thread (``one_thread``).
+- The unfused step, captured: on a small MLP (K = 6 ring) every codec
+  wire (the dense int8 EF wire through the kernel quantizer, int4
+  memoryless, topk and randk EF, bf16), static-gossip int8 EF, the int8
+  wire under linear and adaptive schedules, Nesterov momentum, Adam under
+  ``linear_warmup_cosine``, ``chain_clip`` and K = 65 give ``jit=True``
+  equal to ``jit=False`` bit for bit (parameters, optimizer state, every
+  ``CommState`` field, every metric) through epochs with a hook, past
+  ``PACK_STEPS`` and through ``step``; so does the fmnist dense int8 EF
+  stack over 20 steps; the capturable form makes no call that reads a
+  device value on the host (a CUDA graph cannot replay one); a run saved
+  mid-way from a captured trainer (momentum and the EF wire), restored and
+  continued captured equals the uninterrupted eager run bit for bit.
 - The caller's state is left untouched on the CPU (copied in, the result
   copied out), so one initial state serves several runs.
-- The capture predicate declines, each with its reason: the int8 wire,
-  a time-varying topology (dynamics), Adam, ``mix_every`` = 2, a sink
-  (``obs``) and ``sanitize``; ``jit=False`` says so; the CLI's first line
-  says how the step runs.
+- The capture predicate declines, each with its reason: a wrapper mixer
+  (``LocalUpdateMixer``), a time-varying topology (dynamics), a
+  ``uniforms`` hook, ``mix_every`` = 2, a sink (``obs``) and
+  ``sanitize``; ``jit=False`` says so; it keeps plain SGD, every codec,
+  schedule and optimizer above and K > 64; the CLI's first line says how
+  the step runs.
 - B.1's plain version with η a 0-d float32 tensor and ``out`` leaves
   against the reference's Pallas kernel in interpret mode, row by row, at
   the tolerance of ``tests/test_torch_gossip_update.py`` (rtol 1e-5, atol
@@ -28,19 +42,26 @@ import numpy as np
 import pytest
 import torch
 
+from torch.utils._python_dispatch import TorchDispatchMode
+
 from repro.kernels.gossip_update.ops import gossip_update_flat as ref_flat
-from repro_torch.comm import CompressionConfig
+from repro_torch.checkpoint import restore_train_state, save_train_state
+from repro_torch.comm import CompressionConfig, ScheduleConfig
 from repro_torch.configs import get_arch
 from repro_torch.core import DecentralizedTrainer, TrainerSpec
 from repro_torch.core import captured as cap
+from repro_torch.core.consensus import make_dense_mixer, make_gossip_mixer
+from repro_torch.core.drdsgd import step_scalars
 from repro_torch.data import make_fmnist_like, make_node_token_streams
 from repro_torch.data import pathological_noniid_partition
+from repro_torch.dynamics import LocalUpdateMixer
 from repro_torch.graphs import metropolis_weights, ring_graph
+from repro_torch.graphs.mixing import permutation_decomposition
 from repro_torch.kernels.gossip_update import ops
 from repro_torch.models import TransformerLM, make_lm_loss
 from repro_torch.models import paper_nets as nets
 from repro_torch.obs import MetricsSink
-from repro_torch.optim import adam, sgd
+from repro_torch.optim import adam, chain_clip, linear_warmup_cosine, momentum, sgd
 
 K, STEPS = 10, 20
 
@@ -175,19 +196,181 @@ def _tiny_loss():
     return nets.make_classifier_loss(nets.mlp_apply)
 
 
+SMALL_K, SMALL_STEPS = 6, 9
+SMALL_MLP = dict(input_dim=20, hidden=(12,), num_classes=5)  # leaves of 12, 240, 5, 60
+INT8_KERNEL = CompressionConfig(kind="int8", use_kernel=True)
+
+
+def _small_w(k: int = SMALL_K):
+    return metropolis_weights(ring_graph(k))
+
+
+# the unfused stacks the trainer captures: DecentralizedTrainer fields
+STACKS = {
+    "dense-int8-kernel-ef": lambda: dict(compression=INT8_KERNEL),
+    "dense-int4-memoryless": lambda: dict(
+        compression=CompressionConfig(kind="int4", error_feedback=False)),
+    "dense-topk-ef": lambda: dict(compression=CompressionConfig(kind="topk", ratio=0.1)),
+    "dense-randk-ef": lambda: dict(compression=CompressionConfig(kind="randk", ratio=0.1)),
+    "dense-bf16": lambda: dict(compression=CompressionConfig(kind="bf16")),
+    "gossip-int8-kernel-ef": lambda: dict(
+        compression=INT8_KERNEL,
+        mixer=make_gossip_mixer(permutation_decomposition(_small_w()), INT8_KERNEL,
+                                device="cpu")),
+    "dense-int8-linear": lambda: dict(compression=CompressionConfig(
+        kind="int8", schedule=ScheduleConfig(kind="linear", anneal_rounds=6))),
+    "dense-int8-adaptive": lambda: dict(compression=CompressionConfig(
+        kind="int8", schedule=ScheduleConfig(kind="adaptive", warmup_rounds=3))),
+    "nesterov": lambda: dict(optimizer=momentum(0.05, nesterov=True)),
+    "adam-warmup-cosine": lambda: dict(
+        optimizer=adam(linear_warmup_cosine(1e-2, 3, SMALL_STEPS), eps=1e-6)),
+    "chain-clip-momentum": lambda: dict(optimizer=chain_clip(momentum(0.05), 0.5)),
+    "k65-sgd": lambda: dict(num_nodes=65),
+}
+
+
+def _small_data(k: int, steps: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((steps, k, 8, SMALL_MLP["input_dim"])).astype(np.float32)
+    y = rng.integers(0, SMALL_MLP["num_classes"], size=(steps, k, 8)).astype(np.int32)
+    return (x, y), nets.mlp_init(torch.Generator().manual_seed(seed), **SMALL_MLP)
+
+
+def _small_trainer(stack: str, jit: bool, **kw):
+    fields = dict(num_nodes=SMALL_K, graph="ring", lr=0.1, device="cpu", jit=jit)
+    fields.update(STACKS[stack]())
+    fields.update(kw)
+    return DecentralizedTrainer(_tiny_loss(), **fields)
+
+
+def _carry(state) -> dict:
+    """Every tensor of the state's carry by path, and its host fields."""
+    return cap._tensors(state), (state.step, state.comm.key, state.comm.rounds,
+                                 state.comm.ef_rounds)
+
+
+def _same_carry(a, ma, b, mb) -> None:
+    (ta, ha), (tb, hb) = _carry(a), _carry(b)
+    assert ha == hb
+    assert sorted(ta) == sorted(tb)
+    for p in ta:
+        assert ta[p].dtype == tb[p].dtype and torch.equal(ta[p], tb[p]), p
+    assert sorted(ma) == sorted(mb)
+    for k in ma:
+        assert ma[k].shape == mb[k].shape and torch.equal(ma[k], mb[k]), k
+
+
+@pytest.mark.parametrize("stack", list(STACKS))
+def test_unfused_stacks_captured_equal_eager(stack, monkeypatch, one_thread):
+    """A run in epochs with a hook, past the input packing (cut to 3 steps)
+    and the metrics buffer (cut to 4 columns), then ``step``: the captured
+    step's parameters, optimizer state, CommState and metrics are the eager
+    step's bit for bit."""
+    monkeypatch.setattr(cap, "PACK_STEPS", 3)
+    monkeypatch.setattr(cap, "METRIC_COLS", 4)
+    k = STACKS[stack]().get("num_nodes", SMALL_K)
+    batches, params = _small_data(k, SMALL_STEPS)
+    first = tuple(b[0] for b in batches)
+    out = {}
+    for jit in (False, True):
+        trainer = _small_trainer(stack, jit)
+        assert trainer.captured == jit, trainer.capture_declined
+        seen = []
+        state, ms = trainer.run(
+            trainer.init(params), batches, steps=8, epoch_steps=3,
+            on_epoch=lambda e, st, m: seen.append((e, st.step, len(m["loss_mean"]))))
+        state, m1 = trainer.step(state, first)
+        out[jit] = (state, {**ms, **{f"step/{k}": v for k, v in m1.items()}}, seen)
+    (a, ma, sa), (b, mb, sb) = out[False], out[True]
+    _same_carry(a, ma, b, mb)
+    assert sa == sb == [(0, 3, 3), (1, 6, 3), (2, 8, 2)]
+    assert b.step == 9 and b.comm.rounds == 9
+
+
+class _HostReads(TorchDispatchMode):
+    """Records every op that reads a device value on the host or makes a
+    tensor from host data: neither can be replayed from a CUDA graph."""
+
+    HOST = ("_local_scalar_dense", "item", "nonzero", "equal", "is_nonzero", "lift_fresh",
+            "masked_select", "unique")
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.__name__.split(".")[0]
+        if name in self.HOST or name.startswith("_unique"):
+            self.seen.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("stack", list(STACKS))
+def test_capturable_form_reads_nothing_on_the_host(stack):
+    """The form the trainer captures, on the slot in place, its scalars
+    packed as 0-d tensors: no op reads the device on the host."""
+    k = STACKS[stack]().get("num_nodes", SMALL_K)
+    batches, params = _small_data(k, 2)
+    trainer = _small_trainer(stack, True)
+    state, _ = trainer._train_step(trainer.init(params), trainer._batch(tuple(b[0] for b in
+                                                                         batches)))
+    step = trainer._train_step
+    sc = step_scalars(step.host_scalars(state.step, state.comm.rounds), trainer.device)
+    batch = trainer._batch(tuple(b[1] for b in batches))
+    with _HostReads() as mode:
+        step.capturable(state, batch, sc, inplace=True)
+    assert mode.seen == [], mode.seen
+
+
+def test_fmnist_int8_ef_captured_equals_eager(fmnist, one_thread):
+    """The paper's fmnist stack with the dense int8 EF wire through the
+    kernel quantizer (its plain version here), 20 steps."""
+    batches, params = fmnist
+    out = {}
+    for jit in (False, True):
+        trainer = _fmnist_trainer(jit, compression=INT8_KERNEL)
+        assert trainer.captured == jit
+        out[jit] = trainer.run(trainer.init(params), batches)
+    _same_carry(*out[False], *out[True])
+
+
+def test_checkpoint_round_trip_captured_equals_eager(tmp_path, one_thread):
+    """Momentum and the dense int8 EF wire: 5 captured steps, saved,
+    restored and 5 more captured steps equal 10 eager steps bit for bit."""
+    batches, params = _small_data(SMALL_K, 10)
+    stack = dict(optimizer=momentum(0.05, nesterov=True), compression=INT8_KERNEL)
+    eager = _small_trainer("dense-int8-kernel-ef", False, **stack)
+    want = eager.run(eager.init(params), batches)
+    first = _small_trainer("dense-int8-kernel-ef", True, **stack)
+    half = tuple(b[:5] for b in batches)
+    state, m0 = first.run(first.init(params), half)
+    save_train_state(str(tmp_path), state.step, state)
+    restored, step = restore_train_state(str(tmp_path), device="cpu")
+    assert step == 5
+    second = _small_trainer("dense-int8-kernel-ef", True, **stack)
+    assert first.captured and second.captured
+    got, m1 = second.run(restored, tuple(b[5:] for b in batches))
+    _same_carry(want[0], want[1], got, {k: torch.cat([m0[k], m1[k]]) for k in m0})
+
+
 @pytest.mark.parametrize("case,words", [
-    ("int8", "int8"), ("dynamics", "time-varying"), ("adam", "not plain SGD"),
+    ("local", "wrapper mixer"), ("dynamics", "time-varying"), ("hook", "uniforms hook"),
     ("mix_every", "mix_every = 2"), ("sink", "sink"), ("sanitize", "sanitize"),
     ("jit", "jit=False")])
 def test_capture_predicate_declines_with_reason(case, words):
     kw = dict(num_nodes=4, graph="ring", lr=0.1, device="cpu")
+    w = metropolis_weights(ring_graph(4))
     if case == "dynamics":
         trainer = TrainerSpec(topology="dropout", drop_p=0.2, **kw).build(_tiny_loss())
     else:
-        extra = {"int8": dict(compression=CompressionConfig(kind="int8")),
-                 "adam": dict(optimizer=adam(1e-3)), "mix_every": dict(mix_every=2),
-                 "sink": dict(obs=MetricsSink()), "sanitize": dict(sanitize=True),
-                 "jit": dict(jit=False)}[case]
+        extra = {"local": lambda: dict(mixer=LocalUpdateMixer(
+                     make_dense_mixer(w, device="cpu"), 2)),
+                 "hook": lambda: dict(compression=INT8_KERNEL, mixer=make_dense_mixer(
+                     w, INT8_KERNEL, device="cpu",
+                     uniforms=lambda r, i, shape: np.full(shape, 0.5, np.float32))),
+                 "mix_every": lambda: dict(mix_every=2),
+                 "sink": lambda: dict(obs=MetricsSink()), "sanitize": lambda: dict(sanitize=True),
+                 "jit": lambda: dict(jit=False)}[case]()
         trainer = DecentralizedTrainer(_tiny_loss(), **kw, **extra)
     assert not trainer.captured
     assert words in trainer.capture_declined, trainer.capture_declined
@@ -200,6 +383,11 @@ def test_capture_predicate_declines_with_reason(case, words):
 def test_capture_predicate_keeps_the_fused_stack():
     trainer = DecentralizedTrainer(_tiny_loss(), num_nodes=4, graph="ring", lr=0.1, device="cpu")
     assert trainer.captured and trainer.capture_declined is None
+    assert trainer._train_step.capturable.__name__ == "fused_step"
+    for stack in STACKS:  # every codec, schedule and optimizer, and K > 64: the unfused step
+        kept = _small_trainer(stack, True)
+        assert kept.captured, (stack, kept.capture_declined)
+        assert kept._train_step.capturable.__name__ == "unfused_step", stack
     lm = TransformerLM(get_arch("rwkv6_7b", smoke=True))
     looped = DecentralizedTrainer(make_lm_loss(lm), num_nodes=4, graph="ring", device="cpu")
     assert "per-node loop" in looped.capture_declined
@@ -207,6 +395,7 @@ def test_capture_predicate_keeps_the_fused_stack():
 
 @pytest.mark.parametrize("argv,line", [
     ([], "step: captured"),
+    (["--compress", "int8"], "step: captured"),
     (["--log-dir", "LOG"], "step: eager (a telemetry sink (obs) taps the step)")])
 def test_cli_says_how_the_step_runs(argv, line, tmp_path, capsys):
     from repro_torch.launch import train

@@ -90,6 +90,17 @@ under a decaying SGD schedule equal the eager ones bit for bit; runs of
 several segment lengths are one captured program, and the launch counters
 count each replay's B.1 launch.
 
+The wire's noise (A.14 (a)): the Philox kernel (``uniforms_grouped``)
+equals its plain version bit for bit on the MLP's and the CNN's leaves,
+leaves of sizes that are not multiples of 4, a group over the 16 leaves of
+a launch, rounds and keys past 2**32 and a matching; it reads the round
+through its pointer when it runs (a captured graph replayed at another
+round draws that round's noise) and makes no host sync.  The unfused
+step captured: the fmnist dense int8 EF stack (B.2), static gossip with
+it (B.2, B.3) and Adam over the dense W, 70 steps each, equal the eager
+runs bit for bit (parameters, optimizer state, every CommState tensor,
+metrics) with one Philox launch per round, and the run donates its carry.
+
 Run it on a machine with a card with ``PYTHONPATH=src python -m pytest -q
 tests/test_torch_kernel.py``.
 """
@@ -1859,8 +1870,9 @@ def test_captured_fmnist_run_equals_eager_and_donates(cuda):
     before = gk.gossip_update_stacked_grouped.launches
     s0 = trainer.init(params)
     s1, ms1 = trainer.run(s0, tuple(b[:10] for b in batches))
-    # the first state gave up its parameters: their storage is freed
-    assert all(x.untyped_storage().nbytes() == 0 for x in s0.params.values())
+    # the first state gave up its parameters: the first step ran on them in
+    # place (B.1's out), and they are the slot
+    assert all(s0.params[n] is s1.params[n] for n in s0.params)
     kept = {n: t.clone() for n, t in s1.params.items()}
     s2, ms2 = trainer.run(s1, tuple(b[10:] for b in batches))
     torch.cuda.synchronize()
@@ -1927,3 +1939,116 @@ def test_captured_run_is_one_program_over_segment_lengths(cuda):
     assert watch.check() == {"run": 1} and trainer._run._cache_size() == 1
     assert gk.gossip_update_stacked_grouped.launches - before == 17
     assert state.step == 17
+
+
+# -- the wire's noise (A.14 (a)): the Philox kernel, and the unfused step captured
+
+PHILOX_GROUPS = {
+    "mlp": [(10, d) for d in PAPER_D[:6]],
+    "cnn": [(10, d) for d in PAPER_D[6:]],
+    "ragged": [(3, 7), (1, 1), (5, 9), (2, 2, 3)],
+    "split": [(2, n) for n in range(1, 21)],
+}
+
+
+@pytest.mark.parametrize("group", list(PHILOX_GROUPS))
+@pytest.mark.parametrize("key,rnd,matching", [(0, 0, 0), (2 ** 40 + 99, 2 ** 32 + 5, 3)])
+def test_philox_uniforms_equal_plain(cuda, group, key, rnd, matching):
+    xs = [torch.empty(shape, device=cuda) for shape in PHILOX_GROUPS[group]]
+    r = torch.full((), rnd, dtype=torch.int64, device=cuda)
+    before = qk.uniforms_grouped.launches
+    got = qk.uniforms_grouped(xs, key, r, matching=matching)
+    want = ref.uniforms_grouped_ref(xs, key, r, matching=matching)
+    torch.cuda.synchronize()
+    assert qk.uniforms_grouped.launches - before == -(-len(xs) // qk.MAX_GROUP_LEAVES)
+    for x, a, b in zip(xs, got, want):
+        assert a.shape == x.shape and a.dtype == torch.float32
+        assert torch.equal(a, b)
+        assert a.data_ptr() % 16 == 0
+    alone = qk.uniforms_grouped(xs[-1:], key, r, matching=matching, leaves=[len(xs) - 1])[0]
+    assert torch.equal(alone, got[-1])
+
+
+def test_philox_reads_the_round_when_it_runs(cuda):
+    """The round by pointer: a graph captured at round 3 and replayed after
+    the round tensor is set to 11 draws round 11's noise; no host sync."""
+    xs = [torch.empty((10, d), device=cuda) for d in PAPER_D[:6]]
+    r = torch.full((), 3, dtype=torch.int64, device=cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        qk.uniforms_grouped(xs, 5, r)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        qk.uniforms_grouped(xs, 5, r)  # warm-up on the capture's stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = qk.uniforms_grouped(xs, 5, r)
+    r.fill_(11)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = ref.uniforms_grouped_ref(xs, 5, r)
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.parametrize("stack", ["dense-int8-kernel-ef", "gossip-int8-kernel-ef", "adam"])
+def test_captured_unfused_run_equals_eager(cuda, stack):
+    """70 captured steps (past a packing of inputs) equal the eager ones bit
+    for bit in the whole carry and the metrics; one Philox launch and one
+    B.2 launch per round with the int8 wire, B.3 per matching on gossip."""
+    from repro_torch.comm import CompressedGossipMixer, CompressionConfig
+    from repro_torch.core import captured as cap
+    from repro_torch.graphs import build_graph, metropolis_weights, permutation_decomposition
+    from repro_torch.optim import adam
+
+    steps, k = 70, 10
+    cfg = CompressionConfig(kind="int8", use_kernel=True)
+    optimizer = adam(1e-3, eps=1e-6) if stack == "adam" else None
+    build0, batches, params = _fmnist_trainers(k=k, steps=steps, optimizer=optimizer)
+    decomp = permutation_decomposition(metropolis_weights(
+        build_graph("erdos_renyi", k, p=0.3, seed=0)))
+
+    def build(jit):
+        trainer = build0(jit)
+        if stack == "adam":
+            return trainer
+        mixer = CompressedGossipMixer(decomp, cfg, device="cuda") if stack.startswith("gossip") \
+            else None
+        from repro_torch.core import DecentralizedTrainer
+
+        return DecentralizedTrainer(trainer.loss_fn, trainer.predict_fn, num_nodes=k,
+                                    graph_kwargs={"p": 0.3, "seed": 0}, lr=0.2,
+                                    compression=cfg, mixer=mixer, device="cuda", jit=jit)
+
+    eager = build(False)
+    e_state, e_ms = eager.run(eager.init(params), batches)
+    trainer = build(True)
+    assert trainer.captured, trainer.capture_declined
+    counts = (qk.uniforms_grouped.launches, qk.quantize_blockwise_grouped.launches,
+              qk.dequant_accumulate_grouped_.launches)
+    s0 = trainer.init(params)
+    state, ms = trainer.run(s0, batches)
+    torch.cuda.synchronize()
+    got = (qk.uniforms_grouped.launches - counts[0],
+           qk.quantize_blockwise_grouped.launches - counts[1],
+           qk.dequant_accumulate_grouped_.launches - counts[2])
+    wire = 0 if stack == "adam" else steps
+    assert got == (wire, wire, steps * decomp.num_rounds if stack.startswith("gossip") else 0)
+    # the first state was donated: each of its tensors is the slot's (the
+    # step ran on it in place) or freed (the step made it anew)
+    have = cap._tensors(state)
+    assert all(x is have[p] or x.untyped_storage().nbytes() == 0
+               for p, x in cap._tensors(s0).items() if x.ndim)
+    assert any(x is have[p] for p, x in cap._tensors(s0).items() if x.ndim)
+    with pytest.raises(RuntimeError, match="donated"):
+        trainer.run(s0, tuple(b[:1] for b in batches))
+    want = cap._tensors(e_state)
+    assert sorted(want) == sorted(have)
+    for p in want:
+        assert torch.equal(have[p], want[p]), p
+    for key in e_ms:
+        assert torch.equal(ms[key], e_ms[key]), key
+    assert (state.step, state.comm.rounds) == (steps, steps)

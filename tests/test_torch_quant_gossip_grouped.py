@@ -280,7 +280,7 @@ def _old_encode(self, x, hat, u, send):
 
 
 def _old_gossip_round(self, theta, state, *, self_w=None, match_ws=None, masks=None,
-                      senders=None):
+                      senders=None, clock=None):
     """The EF wire's masked delta round as it was: leaf by leaf, one-leaf
     calls (the dynamic stacks always pass masks)."""
     t = self.transport
@@ -314,7 +314,7 @@ def _old_gossip_round(self, theta, state, *, self_w=None, match_ws=None, masks=N
         wire_bits=self.wire.round_wire_bits(theta, None, senders, self.k, res_sq.device))
 
 
-def _old_rebase_round(self, theta, state, self_w, match_ws, masks, senders):
+def _old_rebase_round(self, theta, state, self_w, match_ws, masks, senders, clock=None):
     """The EF wire's re-base round as it was: leaf by leaf."""
     from repro_torch.comm.wire import wire_bits
 
@@ -625,7 +625,7 @@ def test_unmasked_encode_leaves_equal_the_per_leaf_encodes(ef, kernel):
             assert hat == hat1 == ()
 
 
-def _old_dense_round(self, theta, state):
+def _old_dense_round(self, theta, state, **_):
     """The compressed dense round as it was: leaf by leaf, each leaf's
     uniforms, encode and W product in turn."""
     w = self._round_w(state)
