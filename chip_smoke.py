@@ -41,8 +41,10 @@ version:
            round read through a pointer) against its plain version bit for
            bit: the MLP's 6 leaves and the CNN's 12 at K = 10, qwen2-0.5b's
            14 at K = 2, ragged leaves (21, 1 and 45 elements), 20 leaves (2
-           launches), a round and a key past 2**32 and a matching; one
-           call per group timed against its bound (4 bytes per element).
+           launches), a round and a key past 2**32 and a matching, and the
+           dynamics' coins at fig9's shapes (five streams in one launch,
+           the outage stream through a round divisor); one call per group
+           timed against its bound (4 bytes per element).
   b1-kernel  the gossip update (B.1) against its plain version: the
            per-node form on the reference's test cases (d 7 .. 131072, 0-5
            neighbours, float32 and bfloat16) bit for bit, the node-stacked
@@ -83,7 +85,8 @@ version:
            0.2 with the memoryless masked
            int8 wire (Philox, grouped B.4 + B.5: 300 x 5 launches each) and
            the EF wire re-based every 4 rounds (Philox and grouped B.4 once
-           per round, B.5 once per matching of a delta round); every count
+           per round, B.5 once per matching of a delta round), each with the
+           dropout coins (one Philox launch per round), both captured; every count
            of launches is checked, and both dropout stacks must print the
            pinned loss_step300, acc_worst_dist and acc_avg to the bit
            (ONE_LEAF_TRAJECTORIES).  Then the CNN
@@ -145,7 +148,10 @@ version:
            worst-distribution accuracy.
   dynamics fig9's local-update rows and faults on fig7's task (K = 8 ring,
            DR-DSGD mu = 3, B = 55, lr 0.18, clipped at 2, 100 steps: the
-           figure's 400, quartered): dense
+           figure's 400, quartered), every row through the captured step
+           (the coins drawn on the card: one Philox launch per draw of a
+           round's W_r or fault masks, counted; the run's W_r and fault
+           masks on the card bit-equal to the CPU's over its rounds): dense
            dropout 0.2 at H = 2 and 4 and at H = 4 with gradient tracking
            (its consensus rounds bill 2x the H = 4 run's, local rounds 0);
            dense stragglers 0.1 with outages 0.05 over windows of 10, with
@@ -166,7 +172,7 @@ version:
            hub under H = 4, a repeated dense round) on the card against the
            CPU with the same fault masks, W_r and uniforms, within
            DYN_UPDATE_REL of the round's largest update, wire bits equal.
-  hub      fig11 without its hierarchical row: gossip over the static ring,
+  hub      fig11 without its hierarchical row, captured: gossip over the static ring,
            the hub at H = 1 (disagreement at float noise at the end), FedAvg
            and SCAFFOLD at H = 4 (SCAFFOLD's consensus rounds bill 2x), and
            int8 FedAvg at H = 4 on the kernel quantizer (grouped B.2 over the
@@ -231,7 +237,19 @@ version:
            to the profiler's, the captured qwen2 steps' peak memory no
            more than the eager steps' (within COMPILED_PEAK_MARGIN of a
            node-stacked copy); ms per step, device ops per step, busy
-           share, peak memory per turn.
+           share, peak memory per turn.  Then A.14 (c), one graph per
+           branch the host chooses (the watchdog's programs: the distinct
+           branches met): fig9/fig11's stacks on their task (K = 8 ring,
+           100 steps a turn: dense dropout under H = 4 with gradient
+           tracking, stragglers and outages skipping compute, the
+           memoryless int8 gossip under stragglers, the EF int8 gossip
+           re-based every 4 under H = 2 and with the adaptive trigger,
+           geometric re-draws, int8 FedAvg at H = 4, the hub at H = 1,
+           mix_every = 2, RepeatMixer(gossip int8 EF, 2)) and qwen2-0.5b
+           at full width and depth over the EF int8 gossip under dropout
+           0.2 re-based every 4 (K = COMPILED_LM_DYN_NODES, 8 steps: both
+           graphs replay), held as above, the coins' Philox launches
+           counted.
   train-lm qwen2-0.5b at full width and depth through the training CLI
            (train_lm's defaults: K = 8 ring, batch 2, seq 64, lr 0.01, clip
            1; the step captured), 20 steps: B.6 forward and backward 24 per
@@ -472,13 +490,14 @@ ONE_LEAF = {"masked_quantize_blockwise_grouped": "masked_quantize_blockwise",
 # (loss_step300, acc_worst_dist, acc_avg) that these stacks printed on an
 # H100 in two runs of one call of tests/pin_noise.py through the one-leaf
 # masked wire (B.4 and B.5 per leaf and matching, each leaf's noise drawn
-# alone by the plain Philox, the eager step): the grouped wire with the
-# Philox kernel prints them to the bit
+# alone by the plain Philox, the dropout W_r from the plain Philox coins,
+# the eager step): the grouped wire with the Philox kernel, captured,
+# prints them to the bit
 ONE_LEAF_TRAJECTORIES = {
-    "dropout0.2-int8-kernel-memoryless": (0.408834844827652, 0.5450000166893005,
-                                          0.715499997138977),
-    "dropout0.2-int8-kernel-ef-B4": (0.4309670627117157, 0.39499998092651367,
-                                     0.7054999470710754),
+    "dropout0.2-int8-kernel-memoryless": (0.5014004111289978, 0.4350000023841858,
+                                          0.6884999871253967),
+    "dropout0.2-int8-kernel-ef-B4": (0.4852026402950287, 0.5199999809265137,
+                                     0.7020000219345093),
 }
 # the same three of the static int8 EF stack, through the per-leaf wire in
 # the same runs (one-leaf B.2 and B.3, plain noise per leaf): grouped B.2
@@ -939,11 +958,16 @@ def _philox_kernel(mlp_leaves, cnn_leaves) -> dict:
     draw alone: the draw is a pure function of its coordinates), leaves of
     21 and 1 elements (not multiples of 4), a split of 20 leaves over the
     16 of a launch (2 launches), a round past 2**32, a key past 2**32 and
-    a matching.  Times one call per group (device under the profiler,
-    call back to back) beside its bound: 4 bytes written per element at
-    HBM_BYTES_PER_S.  No PyTorch call draws this function (library null)."""
+    a matching; and the dynamics' coins at fig9's shapes (K = 8: the
+    fault links, stragglers and outages, the last at its window through
+    a round divisor of 10, a dropout schedule's links and a geometric
+    re-draw's points, at their stream leaves, in one launch).  Times one
+    call per group (device under the profiler, call back to back) beside
+    its bound: 4 bytes written per element at HBM_BYTES_PER_S.  No PyTorch
+    call draws this function (library null)."""
     import torch
 
+    from repro_torch.dynamics import coins
     from repro_torch.kernels.quant_gossip import kernel as qk
     from repro_torch.kernels.quant_gossip import ref as qref
 
@@ -951,14 +975,21 @@ def _philox_kernel(mlp_leaves, cnn_leaves) -> dict:
         return torch.empty((), device="cuda").expand((k, *shape))
 
     lm = _serve_model(LM_ARCH)
+    coin_streams = (coins.LINKS, coins.STRAGGLERS, coins.OUTAGES, coins.DROPOUT, coins.GEOMETRIC)
     groups = {"mlp": [like(K, (d,)) for _, d in mlp_leaves],
               "cnn": [like(K, (d,)) for _, d in cnn_leaves],
               "qwen2": [like(COMPILED_LM_UNFUSED_NODES, tuple(t.shape))
                         for t in lm.param_shapes().values()],
               "ragged": [like(3, (7,)), like(1, (1,)), like(5, (9,))],
-              "split": [like(2, (n,)) for n in range(1, 21)]}
+              "split": [like(2, (n,)) for n in range(1, 21)],
+              "coins": [like(FIG_K, (FIG_K,)), like(1, (FIG_K,)), like(1, (FIG_K,)),
+                        like(FIG_K, (FIG_K,)), like(FIG_K, (2,))]}
     coords = {"mlp": (0, 0, 0), "cnn": (5, 17, 0), "qwen2": (0, 3, 0),
-              "ragged": (2 ** 40 + 99, 2 ** 32 + 5, 3), "split": (7, 123, 2)}
+              "ragged": (2 ** 40 + 99, 2 ** 32 + 5, 3), "split": (7, 123, 2),
+              "coins": (coins.coin_key(0), 37, 0)}
+    # the coins' leaves and round divisors (the outage stream at its window)
+    extra = {"coins": dict(leaves=list(coin_streams),
+                           divisors=[1, 1, FIG9_FAULTS["outage_len"], 1, 1])}
     rec = dict(max_abs_err=0.0, rows=[], max_group_leaves=qk.philox_config()["max_group_leaves"],
                threads=qk.philox_config()["threads"])
     if (rec["max_group_leaves"], rec["threads"]) != (qk.MAX_GROUP_LEAVES, qk.PHILOX_THREADS):
@@ -967,15 +998,17 @@ def _philox_kernel(mlp_leaves, cnn_leaves) -> dict:
     for group, xs in groups.items():
         key, rnd, matching = coords[group]
         r = torch.full((), rnd, dtype=torch.int64, device="cuda")
+        kw = extra.get(group, {})
         reset_counts()
-        got = qk.uniforms_grouped(xs, key, r, matching=matching)
+        got = qk.uniforms_grouped(xs, key, r, matching=matching, **kw)
         launches = qk.uniforms_grouped.launches
         want_launches = -(-len(xs) // qk.MAX_GROUP_LEAVES)
         if launches != want_launches:
             raise AssertionError(f"[kernel] uniforms_grouped {group}: {launches} launches, "
                                  f"want {want_launches}")
         for i, (x, u) in enumerate(zip(xs, got)):
-            want = qref.uniforms_grouped_ref([x], key, r, matching=matching, leaves=[i])[0]
+            one = {f: [v[i]] for f, v in kw.items()} if kw else dict(leaves=[i])
+            want = qref.uniforms_grouped_ref([x], key, r, matching=matching, **one)[0]
             err = _max_diff(u, want)
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             if u.shape != x.shape or not torch.equal(u, want):
@@ -984,10 +1017,10 @@ def _philox_kernel(mlp_leaves, cnn_leaves) -> dict:
             del want
         del got
         torch.cuda.synchronize()
-        if group not in ("mlp", "cnn", "qwen2"):
+        if group not in ("mlp", "cnn", "qwen2", "coins"):
             continue
-        call = lambda: qk.uniforms_grouped(xs, key, r, matching=matching)
-        plain = lambda: qref.uniforms_grouped_ref(xs, key, r, matching=matching)
+        call = lambda: qk.uniforms_grouped(xs, key, r, matching=matching, **kw)
+        plain = lambda: qref.uniforms_grouped_ref(xs, key, r, matching=matching, **kw)
         big = group == "qwen2"
         ms = cuda_ms(call, iters=20 if big else 200, warmup=3 if big else 20)
         plain_ms = cuda_ms(plain, iters=2 if big else 20, warmup=1 if big else 3)
@@ -1345,7 +1378,8 @@ def _gossip_launches(stack: str, steps: int, leaves: int, matchings: int) -> dic
     grouped B.3 per matching; the masked wires: one grouped B.4 per
     matching (memoryless) or per round (EF), one grouped B.5 per matching of
     a round that sends payloads; the noise (one Philox launch per 16
-    leaves) drawn where B.2 or B.4 quantizes."""
+    leaves) drawn where B.2 or B.4 quantizes, and the dropout schedule's
+    coins (one Philox launch per round)."""
     groups = -(-leaves // 16)
     if stack == "gossip-int8-kernel-ef":
         return {"quantize_blockwise_grouped": steps * groups,
@@ -1354,12 +1388,12 @@ def _gossip_launches(stack: str, steps: int, leaves: int, matchings: int) -> dic
     if stack == "dropout0.2-int8-kernel-memoryless":
         return {"masked_quantize_blockwise_grouped": steps * matchings,
                 "masked_dequant_accumulate_grouped_": steps * matchings,
-                "uniforms_grouped": steps * matchings * groups}
+                "uniforms_grouped": steps * matchings * groups + steps}
     if stack == "dropout0.2-int8-kernel-ef-B4":
         delta_rounds = sum(1 for r in range(steps) if r % REBASE_EVERY != REBASE_EVERY - 1)
         return {"masked_quantize_blockwise_grouped": steps,
                 "masked_dequant_accumulate_grouped_": delta_rounds * matchings,
-                "uniforms_grouped": steps * groups}
+                "uniforms_grouped": steps * groups + steps}
     return {"uniforms_grouped": 0}
 
 
@@ -1424,9 +1458,10 @@ def phase_b45_leaves(cfg_cls) -> dict:
     reset_counts()
     mixed, _ = mixer(theta, state)
     torch.cuda.synchronize()
+    # the wire's noise per matching, and the round's dropout coins (one draw)
     check_counts("b45-leaves grouped", kernel_counts(),
                  {"masked_quantize_blockwise_grouped": m,
-                  "masked_dequant_accumulate_grouped_": m, "uniforms_grouped": m})
+                  "masked_dequant_accumulate_grouped_": m, "uniforms_grouped": m + 1})
     self_w, match_ws, masks = gather_round_vectors(mixer.topo.round_w(state.rounds),
                                                    mixer.transport.perm_idx)
     reset_counts()
@@ -2248,6 +2283,9 @@ def _dyn_run(tag, name, spec, data, steps, want_counts, mixer=None, period=1) ->
 
     batches, (x_nodes, y_nodes), params = data
     trainer = spec.build(make_classifier_loss(mlp_apply), mlp_apply, mixer=mixer)
+    if not trainer.captured:
+        raise AssertionError(f"[{tag}] {name}: the step is not captured "
+                             f"({trainer.capture_declined})")
     trainer.run(trainer.init(params), tuple(b[:3] for b in batches))
     state = trainer.init(params)
     torch.cuda.synchronize()
@@ -2280,7 +2318,8 @@ def _dyn_run(tag, name, spec, data, steps, want_counts, mixer=None, period=1) ->
     loss0 = float(ms["loss_mean"][0])
     loss_end = _loss_on(trainer, state, tuple(b[0] for b in batches))
     stats = trainer.eval_local_distributions(state, x_nodes, y_nodes)
-    rec = dict(run=name, steps=steps, period=period, loss_step0=loss0, loss_end=loss_end,
+    rec = dict(run=name, step="captured", programs=trainer._run._cache_size(), steps=steps,
+               period=period, loss_step0=loss0, loss_end=loss_end,
                acc_worst_dist=stats["acc_worst_dist"], acc_avg=stats["acc_avg"],
                comm_bytes_total=float(ms["comm_bytes"].double().sum()),
                disagreement_final=float(ms["disagreement"][-1]),
@@ -2309,7 +2348,7 @@ def _observed_rates(tag, steps: int, drop_p: float = 0.0, faults=None) -> dict:
     """The card's own coins over the run's ``steps`` rounds, replayed from
     the configs: the link-keep share of the ring's links under dropout, and
     per stream the straggler share (per round) and the outage share (per
-    window) — the streams are independent generators, so each is replayed
+    window) — each stream is its own Philox leaf, so each is replayed
     alone."""
     import numpy as np
 
@@ -2343,6 +2382,59 @@ def _observed_rates(tag, steps: int, drop_p: float = 0.0, faults=None) -> dict:
         out["link_keep"] = dict(observed=float(keep[:, iu[0], iu[1]][:, links].mean()),
                                 configured=p_up * p_up * (1 - faults.link_drop_p))
     return out
+
+
+def _cpu_twin(sched):
+    """The same schedule (its class, W, rate, radius and seed) on the CPU."""
+    from repro_torch.dynamics import (
+        DropoutSchedule,
+        GeometricRedrawSchedule,
+        RoundRobinSchedule,
+        StaticSchedule,
+    )
+
+    if isinstance(sched, DropoutSchedule):
+        return DropoutSchedule(sched.base_weights(), sched.p, seed=sched.seed, device="cpu")
+    if isinstance(sched, GeometricRedrawSchedule):
+        return GeometricRedrawSchedule(sched.k, sched.radius, seed=sched.seed, device="cpu")
+    if isinstance(sched, RoundRobinSchedule):
+        return RoundRobinSchedule(sched.base_weights(), device="cpu")
+    if type(sched) is StaticSchedule:
+        return StaticSchedule(sched.base_weights(), device="cpu")
+    raise ValueError(f"no CPU twin for {type(sched).__name__}")
+
+
+def _coins_card_vs_cpu(tag, mixer, rounds: int) -> dict:
+    """The run's fault masks and W_r on the card over its ``rounds``
+    rounds (the run's own topology, wrappers peeled; each round drawn at
+    the round as a 0-d tensor on the card, as the captured step draws it)
+    against ``replay_fault_masks`` and the same schedule's ``round_weights``
+    (faults applied) on the CPU: bit-equal, the Philox coins being the
+    same on both devices."""
+    import torch
+
+    from repro_torch.comm.topology import ScheduledTopology
+    from repro_torch.dynamics import replay_fault_masks
+
+    while getattr(mixer, "topo", None) is None:
+        mixer = mixer.inner
+    topo = mixer.topo
+    cpu = ScheduledTopology(_cpu_twin(topo.schedule), topo.faults)
+    differ = []
+    for r in range(rounds):
+        got = topo.round_w(torch.full((), r, dtype=torch.int64, device="cuda")).cpu()
+        if not torch.equal(got, cpu.round_w(r)):
+            differ.append(r)
+    masks_equal = None
+    if topo.faults is not None:
+        card = replay_fault_masks(topo.faults, range(rounds), FIG_K, "cuda")
+        host = replay_fault_masks(topo.faults, range(rounds), FIG_K, "cpu")
+        masks_equal = all((a == b).all() for a, b in zip(card, host))
+    rec = dict(rounds=rounds, w_rounds_differ=differ, fault_masks_equal=masks_equal)
+    log(f"[{tag}] coins card vs CPU: " + json.dumps(rec))
+    if differ or masks_equal is False:
+        raise AssertionError(f"[{tag}] the card's coins are not the CPU's: {rec}")
+    return rec
 
 
 def _time_grouped(name, call, plain, dims, block_d: int) -> dict:
@@ -2590,24 +2682,27 @@ def phase_dynamics(spec_cls, cfg_cls) -> dict:
     w = metropolis_weights(build_graph("ring", FIG_K))
     matchings = _ring_decomp().num_rounds
     n = FIG9_STEPS
+    # (fields, H, the coins' Philox draws per consensus round: the round's W_r,
+    # again for the tracker exchange, and the up vector of straggler_skips_compute)
     dense = {
         f"dropout{FIG9_DROP:g}-H2": (dict(topology="dropout", drop_p=FIG9_DROP, local_updates=2),
-                                     2),
+                                     2, 1),
         f"dropout{FIG9_DROP:g}-H4": (dict(topology="dropout", drop_p=FIG9_DROP, local_updates=4),
-                                     4),
+                                     4, 1),
         f"dropout{FIG9_DROP:g}-H4-gt": (dict(topology="dropout", drop_p=FIG9_DROP,
-                                             local_updates=4, gradient_tracking=True), 4),
-        "faults": (dict(FIG9_FAULTS), 1),
-        "faults-skips-compute": (dict(FIG9_FAULTS, straggler_skips_compute=True), 1),
+                                             local_updates=4, gradient_tracking=True), 4, 2),
+        "faults": (dict(FIG9_FAULTS), 1, 1),
+        "faults-skips-compute": (dict(FIG9_FAULTS, straggler_skips_compute=True), 1, 2),
     }
     fault_cfg = FaultConfig(seed=0, **FIG9_FAULTS)
-    for name, (kw, period) in dense.items():
+    for name, (kw, period, draws) in dense.items():
         rec = _dyn_run("dynamics", f"dense-{name}",
-                       _fig_spec(spec_cls, "none", FIG7_FMNIST, **kw), data, n, {},
-                       period=period)
+                       _fig_spec(spec_cls, "none", FIG7_FMNIST, **kw), data, n,
+                       {"uniforms_grouped": n // period * draws}, period=period)
         rec["rates"] = _observed_rates(f"dynamics {name}", n, kw.get("drop_p", 0.0),
                                        fault_cfg if "straggler_p" in kw else None)
         log(f"[dynamics] dense-{name} fault rates: " + json.dumps(rec["rates"]))
+        rec["coins_card_vs_cpu"] = _coins_card_vs_cpu(f"dynamics dense-{name}", rec["mixer"], n)
         out[f"dense-{name}"] = rec
     # gradient tracking bills 2x a consensus round: the GT and the plain H = 4
     # runs share the schedule's seed, so their consensus rounds share W_r
@@ -2622,8 +2717,9 @@ def phase_dynamics(spec_cls, cfg_cls) -> dict:
     rec = _dyn_run("dynamics", name, _fig_spec(spec_cls, mixer.compression, FIG7_FMNIST),
                    data, n, {"masked_quantize_blockwise_grouped": n * matchings,
                     "masked_dequant_accumulate_grouped_": n * matchings,
-                    "uniforms_grouped": n * matchings}, mixer=mixer)
+                    "uniforms_grouped": n * matchings + n}, mixer=mixer)
     rec["rates"] = _observed_rates(f"dynamics {name}", n, faults=straggler)
+    rec["coins_card_vs_cpu"] = _coins_card_vs_cpu(f"dynamics {name}", mixer, n)
     rec["b45_straggler_rounds"] = _b45_on_straggler_rounds("dynamics", mixer,
                                                            rec["final"].params, n, straggler)
     out[name] = rec
@@ -2637,13 +2733,13 @@ def phase_dynamics(spec_cls, cfg_cls) -> dict:
     rec = _dyn_run("dynamics", name, _fig_spec(spec_cls, mixer.compression, FIG7_FMNIST),
                    data, n, {"masked_quantize_blockwise_grouped": ef_rounds,
                     "masked_dequant_accumulate_grouped_": delta_rounds * matchings,
-                    "uniforms_grouped": ef_rounds},
+                    "uniforms_grouped": 2 * ef_rounds},
                    mixer=mixer, period=h)
     # the EF clock: consensus round c (step c·H + H − 1) is a re-base when
-    # c % B == B − 1 and launches the noise and B.4 alone; a delta round adds
-    # B.5 per matching
+    # c % B == B − 1 and launches the coins, the noise and B.4 alone; a delta
+    # round adds B.5 per matching
     for c in range(ef_rounds):
-        want = {"masked_quantize_blockwise_grouped": 1, "uniforms_grouped": 1}
+        want = {"masked_quantize_blockwise_grouped": 1, "uniforms_grouped": 2}
         if c % b != b - 1:
             want["masked_dequant_accumulate_grouped_"] = matchings
         if rec["step_launches"][c * h + h - 1] != want:
@@ -2653,6 +2749,7 @@ def phase_dynamics(spec_cls, cfg_cls) -> dict:
         raise AssertionError(f"[dynamics] {name}: clocks {rec['final'].comm.ef_rounds}, "
                              f"{rec['final'].comm.rounds}")
     rec["rates"] = _observed_rates(f"dynamics {name}", n, FIG9_DROP)
+    rec["coins_card_vs_cpu"] = _coins_card_vs_cpu(f"dynamics {name}", mixer, n)
     out[name] = rec
     return out
 
@@ -4109,7 +4206,29 @@ COMPILED_PROFILED = {"gossip_update_stacked_grouped": "gossip_update_stacked_gro
                      "uniforms_grouped": "philox_uniforms_kernel",
                      "quantize_blockwise_grouped": "masked_quantize_grouped_kernel",
                      "dequant_accumulate_grouped_": "masked_dequant_acc_grouped_kernel",
+                     # B.2 is B.4's kernel and B.3 B.5's: a stack launches one of each pair
+                     "masked_quantize_blockwise_grouped": "masked_quantize_grouped_kernel",
+                     "masked_dequant_accumulate_grouped_": "masked_dequant_acc_grouped_kernel",
                      }  # counter -> its kernel's name
+# A.14 (c): fig9/fig11's dynamics, hub, local-update and EF-gossip stacks on
+# their task (K = 8 ring, Metropolis W, DR-DSGD mu = 3, the paper's MLP),
+# COMPILED_DYN_STEPS steps a turn, one graph per branch the host chooses
+COMPILED_DYN_STEPS = 100
+COMPILED_DYN_STACKS = ("dense-dropout0.2-H4-gt", "dense-faults-skips-compute",
+                       "gossip-straggler0.1-int8-kernel-memoryless",
+                       "gossip-dropout0.2-int8-kernel-ef-B4-H2",
+                       "gossip-dropout0.2-int8-kernel-ef-adaptive", "dense-geometric",
+                       "hub-H4-fedavg-int8-kernel", "hub-H1", "dense-mix-every-2",
+                       "repeat-gossip-int8-kernel-ef-2")
+COMPILED_EF_THRESHOLD = 0.5   # the adaptive re-base's drift threshold (its drift passes it
+                              # every few rounds on this task)
+# qwen2-0.5b, SGD over DynamicGossipMixer(DropoutSchedule(W, 0.2), int8 EF kernel
+# wire, ef_rebase_every = 4): the largest of K = 8, 4 and 2 at which the eager
+# step fits the card (PERF.md §6: ~7.6 node-stacked float32 copies of 1.98 GB
+# per node at its peak, ~60 GB at K = 4, ~120 GB at K = 8); the ring at K = 4;
+# 8 steps a turn, so that both the delta and the re-base graphs replay
+COMPILED_LM_DYN_NODES = 4
+COMPILED_LM_DYN_STEPS = 8
 COMPILED_PROFILE_TRIES = 3
 COMPILED_PROFILED_STEPS = (20, 2)  # the profiled run's steps: fmnist, qwen2-0.5b
 LEAD_FILL = "FillFunctor<short>"  # the lead fills' kernel, which no step launches
@@ -4222,7 +4341,7 @@ def _digests(params: dict) -> dict:
 
 
 def _mode_turns(tag: str, build, init, batches, steps: int, names, copy_bytes: int,
-                start: dict, profiled_steps: int) -> dict:
+                start: dict, profiled_steps: int, want_programs: int = 1) -> dict:
     """COMPILED_TURNS over one configuration: per turn ``build(jit)``'s
     trainer runs ``steps`` steps of ``batches`` from ``init(trainer)`` (the
     first alone: the eager step, or the warm-up and capture; the rest
@@ -4238,8 +4357,9 @@ def _mode_turns(tag: str, build, init, batches, steps: int, names, copy_bytes: i
     copies of ``copy_bytes``) and peak reserved memory (between replays
     the graph pool's blocks are reserved, not allocated), the programs the
     watchdog saw, the launches of the run (and B.2's with qmax read on the
-    card).  Returns {"turns": [...], "bitwise": per later turn, "leaves":
-    the counts a bit-equal turn has}."""
+    card).  ``want_programs``: the graphs a captured turn may capture (one
+    per branch it meets).  Returns {"turns": [...], "bitwise": per later turn,
+    "leaves": the counts a bit-equal turn has}."""
     import torch
 
     from repro_torch.core.captured import _tensors
@@ -4256,7 +4376,7 @@ def _mode_turns(tag: str, build, init, batches, steps: int, names, copy_bytes: i
         trainer = build(turn == "captured")
         watch = RecompileWatchdog(label=f"compiled {tag}")
         if turn == "captured":
-            watch.track("run", trainer._run, allowed=1)
+            watch.track("run", trainer._run, allowed=want_programs)
         reset_counts()
         first = tuple(b[:1] for b in batches)
         rest = tuple(b[1:steps] for b in batches)
@@ -4277,7 +4397,7 @@ def _mode_turns(tag: str, build, init, batches, steps: int, names, copy_bytes: i
         ms = {k: torch.cat([ms0[k], ms[k]]).cpu() for k in ms}
         tensor_qmax = qk.quantize_blockwise_grouped.tensor_qmax_launches
         rule, differ, digests = None, None, _digests(_tensors(state))
-        host = (state.step, state.comm.key, state.comm.rounds)
+        host = (state.step, state.comm.key, state.comm.rounds, state.comm.ef_rounds)
         if ref is None:
             ref = {n: t.cpu() for n, t in state.params.items()}
             ref_ms, ref_digests, ref_host, equal = ms, digests, host, None
@@ -4311,7 +4431,7 @@ def _mode_turns(tag: str, build, init, batches, steps: int, names, copy_bytes: i
         del box, trainer, watch
     want_equal = dict(carry=len(ref_digests), metrics=len(ref_ms), host=1)
     bitwise = [r["bitwise_vs_first_eager"] == want_equal for r in out[1:]]
-    return dict(turns=out, bitwise=bitwise, leaves=want_equal)
+    return dict(turns=out, bitwise=bitwise, leaves=want_equal, metrics=ref_ms)
 
 
 def _compiled_fm_stack(spec_cls, cfg_cls, stack: str, exp, jit: bool):
@@ -4348,9 +4468,10 @@ def _compiled_fm_stack(spec_cls, cfg_cls, stack: str, exp, jit: bool):
 
 
 def _compiled_checks(tag: str, run: dict, want: dict, gate_memory: bool,
-                     tensor_qmax: int | None = None) -> dict:
+                     tensor_qmax: int | None = None, programs: int = 1) -> dict:
     """One configuration's turns held: exact launches, no plain version,
-    one program per captured turn, B.2's tensor-qmax launches where given,
+    ``programs`` programs per captured turn (one per branch met), B.2's
+    tensor-qmax launches where given,
     the captured peak within COMPILED_PEAK_MARGIN of the eager one where
     ``gate_memory``, and every later turn bit-equal to the first eager
     turn's.  Returns the configuration's record."""
@@ -4359,7 +4480,7 @@ def _compiled_checks(tag: str, run: dict, want: dict, gate_memory: bool,
                                                      for n in kernel_counts()}, want)
         if r["plain_calls"]:
             raise AssertionError(f"[compiled] {tag} {r['mode']}: a plain version ran")
-        if r["mode"] == "captured" and r["programs"] != {"run": 1}:
+        if r["mode"] == "captured" and r["programs"] != {"run": programs}:
             raise AssertionError(f"[compiled] {tag}: {r['programs']} programs captured")
         if tensor_qmax is not None and r["tensor_qmax_launches"] != tensor_qmax:
             raise AssertionError(f"[compiled] {tag} {r['mode']}: B.2 read qmax on the card "
@@ -4376,6 +4497,109 @@ def _compiled_checks(tag: str, run: dict, want: dict, gate_memory: bool,
         raise AssertionError(f"[compiled] {tag}: the captured step holds {captured:.3f} "
                              f"node-stacked copies at its peak, eager {eager:.3f}")
     return rec
+
+
+def _compiled_dyn_stack(spec_cls, cfg_cls, stack: str, jit: bool, n: int):
+    """fig9/fig11's ``stack`` (COMPILED_DYN_STACKS) on its task: the
+    trainer, the counters its profile holds and its launches over ``n``
+    steps: the coins (one Philox draw per round of a dropout, geometric or
+    faulted topology; again for the tracker exchange and for
+    straggler_skips_compute's up vector), the wire's noise (one Philox draw
+    per round, per matching on the memoryless wire), B.4 per matching
+    (memoryless) or per round (EF), B.5 per matching of a delta round (and
+    of every adaptive round, which runs both accumulations), B.2 per round
+    and B.3 per matching (static EF under RepeatMixer: two rounds a step),
+    B.2 per consensus round (int8 FedAvg)."""
+    from repro_torch.core.consensus import make_gossip_mixer, repeat_mixer
+    from repro_torch.dynamics import (
+        DropoutSchedule,
+        DynamicGossipMixer,
+        FaultConfig,
+        LocalUpdateMixer,
+        StaticSchedule,
+    )
+    from repro_torch.graphs import build_graph, metropolis_weights
+    from repro_torch.models import make_classifier_loss, mlp_apply
+
+    w = metropolis_weights(build_graph("ring", FIG_K))
+    m = _ring_decomp().num_rounds
+    kernel_int8 = cfg_cls(kind="int8", use_kernel=True)
+    mixer, compress, kw = None, "none", {}
+    b, h = EF_LOCAL
+    if stack == "dense-dropout0.2-H4-gt":
+        kw = dict(topology="dropout", drop_p=FIG9_DROP, local_updates=4, gradient_tracking=True)
+        want = {"uniforms_grouped": 2 * (n // 4)}
+    elif stack == "dense-faults-skips-compute":
+        kw = dict(FIG9_FAULTS, straggler_skips_compute=True)
+        want = {"uniforms_grouped": 2 * n}
+    elif stack == "gossip-straggler0.1-int8-kernel-memoryless":
+        mixer = DynamicGossipMixer(
+            StaticSchedule(w, device="cuda"),
+            faults=FaultConfig(straggler_p=FIG9_FAULTS["straggler_p"], seed=0),
+            quantized=cfg_cls(kind="int8", use_kernel=True, error_feedback=False))
+        want = {"masked_quantize_blockwise_grouped": n * m,
+                "masked_dequant_accumulate_grouped_": n * m, "uniforms_grouped": n * m + n}
+    elif stack == "gossip-dropout0.2-int8-kernel-ef-B4-H2":
+        mixer = LocalUpdateMixer(DynamicGossipMixer(
+            DropoutSchedule(w, FIG9_DROP, seed=0, device="cuda"), quantized=kernel_int8,
+            ef_rebase_every=b), h)
+        rounds = n // h
+        want = {"masked_quantize_blockwise_grouped": rounds,
+                "masked_dequant_accumulate_grouped_":
+                    m * sum(1 for c in range(rounds) if c % b != b - 1),
+                "uniforms_grouped": 2 * rounds}
+    elif stack == "gossip-dropout0.2-int8-kernel-ef-adaptive":
+        mixer = DynamicGossipMixer(DropoutSchedule(w, FIG9_DROP, seed=0, device="cuda"),
+                                   quantized=kernel_int8,
+                                   ef_rebase_threshold=COMPILED_EF_THRESHOLD)
+        want = {"masked_quantize_blockwise_grouped": n,
+                "masked_dequant_accumulate_grouped_": n * m, "uniforms_grouped": 2 * n}
+    elif stack == "dense-geometric":
+        kw = dict(topology="geometric")
+        want = {"uniforms_grouped": n}
+    elif stack == "hub-H4-fedavg-int8-kernel":
+        kw, compress = dict(topology="hub", local_updates=HUB_H), kernel_int8
+        want = {"quantize_blockwise_grouped": n // HUB_H, "uniforms_grouped": n // HUB_H}
+    elif stack == "hub-H1":
+        kw, want = dict(topology="hub"), {}
+    elif stack == "dense-mix-every-2":
+        kw, want = dict(mix_every=2), {}
+    elif stack == "repeat-gossip-int8-kernel-ef-2":
+        mixer = repeat_mixer(make_gossip_mixer(_ring_decomp(), kernel_int8, device="cuda"), 2)
+        want = {"uniforms_grouped": 2 * n, "quantize_blockwise_grouped": 2 * n,
+                "dequant_accumulate_grouped_": 2 * n * m}
+    else:
+        raise ValueError(stack)
+    if mixer is not None:
+        compress = mixer.compression or "none"
+    trainer = _fig_spec(spec_cls, compress, FIG7_FMNIST, jit=jit, **kw).build(
+        make_classifier_loss(mlp_apply), mlp_apply, mixer=mixer)
+    return trainer, [k for k in want if k in COMPILED_PROFILED], want
+
+
+def _adaptive_rebases(trainer, params, batches, steps: int):
+    """The re-base rounds of ``steps`` eager steps of the adaptive EF stack,
+    counted from each round's ``ef_drift`` against COMPILED_EF_THRESHOLD
+    (the select's own test), and the steps' ``wire_bits`` metric."""
+    import torch
+
+    state, rebases, bits = trainer.init(params), 0, []
+    for t in range(steps):
+        state, m = trainer.step(state, tuple(b[t] for b in batches))
+        rebases += float(state.comm.ef_drift) > COMPILED_EF_THRESHOLD
+        bits.append(m["wire_bits"])
+    return rebases, torch.stack(bits).cpu()
+
+
+def _branches_met(trainer, state, steps: int) -> int:
+    """The distinct branches of ``steps`` steps from ``state`` (the host
+    function's): the graphs a captured run of them captures."""
+    met, step, comm = set(), state.step, state.comm
+    for _ in range(steps):
+        branch, comm = trainer._train_step.host_branch(step, comm)
+        met.add(branch)
+        step += 1
+    return len(met)
 
 
 def phase_compiled(spec_cls, cfg_cls) -> dict:
@@ -4433,39 +4657,104 @@ def phase_compiled(spec_cls, cfg_cls) -> dict:
             tag, run, {n: c * COMPILED_FM_STEPS for n, c in per_step.items()},
             gate_memory=False,
             tensor_qmax=COMPILED_FM_STEPS if stack.endswith("adaptive") else None)
+    # A.14 (c): fig9/fig11's stacks, one graph per branch met
+    t_dyn = time.perf_counter()
+    dyn_batches, _, dyn_params = _fig_data("mlp", COMPILED_DYN_STEPS + COMPILED_PROFILED_STEPS[0],
+                                           FIG7_FMNIST[0])
+    dyn_batches = tuple(torch.from_numpy(b).cuda() for b in dyn_batches)
+    dyn_copy = 4 * FIG_K * sum(x.numel() for x in dyn_params.values())
+    dyn_start = {n: t.cpu() for n, t in dyn_params.items()}
+    for stack in COMPILED_DYN_STACKS:
+        tag = f"fig9 {stack}"
+        probe, names, want = _compiled_dyn_stack(spec_cls, cfg_cls, stack, False,
+                                                 COMPILED_DYN_STEPS)
+        programs = _branches_met(probe, probe.init(dyn_params), COMPILED_DYN_STEPS)
+        adaptive = stack.endswith("adaptive")
+        if adaptive:  # the drift select's two sides, from an eager run of the turn's steps
+            rebases, rebase_bits = _adaptive_rebases(probe, dyn_params, dyn_batches,
+                                                     COMPILED_DYN_STEPS)
+        del probe
+        run = _mode_turns(tag, lambda jit, st=stack: _compiled_dyn_stack(
+                              spec_cls, cfg_cls, st, jit, COMPILED_DYN_STEPS)[0],
+                          lambda tr: tr.init(dyn_params), dyn_batches, COMPILED_DYN_STEPS,
+                          names, dyn_copy, dyn_start, COMPILED_PROFILED_STEPS[0],
+                          want_programs=programs)
+        out[tag] = _compiled_checks(tag, run, want, gate_memory=False, programs=programs)
+        out[tag]["programs"] = programs
+        if adaptive:
+            # some rounds re-base and some do not, and the turns billed the
+            # same rounds at full precision (every later turn's metrics are
+            # the first eager turn's bit for bit)
+            if not 0 < rebases < COMPILED_DYN_STEPS or not torch.equal(
+                    rebase_bits, run["metrics"]["wire_bits"]):
+                raise AssertionError(f"[compiled] {tag}: {rebases} of {COMPILED_DYN_STEPS} "
+                                     f"rounds re-based, or the turn's wire_bits differ")
+            out[tag]["rebase_rounds"] = rebases
+            log(f"[compiled] {tag}: {rebases} of {COMPILED_DYN_STEPS} rounds re-based")
+    log(f"[compiled] fig9/fig11 stacks in {time.perf_counter() - t_dyn:.1f} s")
     model = _serve_model(LM_ARCH)
     cfg = model.cfg
     single = model.init(torch.Generator("cuda").manual_seed(0))
     lm_start = {n: t.cpu() for n, t in single.items()}
+    lm_dyn = "qwen2-0.5b dropout0.2 int8-kernel-ef-B4"
     for tag, nodes, graph, optimizer, compress in (
             ("qwen2-0.5b", LM_NODES, "ring", None, "none"),
             ("qwen2-0.5b nesterov int8-kernel-ef", COMPILED_LM_UNFUSED_NODES,
              "ring" if COMPILED_LM_UNFUSED_NODES > 2 else "complete",
              lambda: momentum(0.01, beta=0.9, nesterov=True),
-             cfg_cls(kind="int8", use_kernel=True))):
-        toks = torch.from_numpy(_lm_tokens(nodes, COMPILED_LM_STEPS + COMPILED_PROFILED_STEPS[1],
+             cfg_cls(kind="int8", use_kernel=True)),
+            (lm_dyn, COMPILED_LM_DYN_NODES, "ring" if COMPILED_LM_DYN_NODES > 2 else "complete",
+             None, "dynamic")):
+        steps = COMPILED_LM_DYN_STEPS if tag == lm_dyn else COMPILED_LM_STEPS
+        toks = torch.from_numpy(_lm_tokens(nodes, steps + COMPILED_PROFILED_STEPS[1],
                                            cfg.vocab)).cuda()
 
         def lm_build(jit, nodes=nodes, graph=graph, optimizer=optimizer, compress=compress):
+            mixer = None
+            if compress == "dynamic":  # SGD over the EF gossip under dropout, re-based every 4
+                from repro_torch.dynamics import DropoutSchedule, DynamicGossipMixer
+                from repro_torch.graphs import build_graph, metropolis_weights
+
+                w = metropolis_weights(build_graph(graph, nodes))
+                mixer = DynamicGossipMixer(DropoutSchedule(w, FIG9_DROP, seed=0, device="cuda"),
+                                           quantized=cfg_cls(kind="int8", use_kernel=True),
+                                           ef_rebase_every=REBASE_EVERY)
+                compress = mixer.compression
             return spec_cls(num_nodes=nodes, graph=graph, lr=0.01, grad_clip=1.0,
                             compress=compress, jit=jit).build(
-                make_lm_loss(model), optimizer=optimizer() if optimizer else None)
+                make_lm_loss(model), optimizer=optimizer() if optimizer else None, mixer=mixer)
 
         fused = compress == "none"
-        want = _lm_counts(nodes, COMPILED_LM_STEPS, cfg.n_layers, len(single),
-                          folded=_folded(cfg))
+        want = _lm_counts(nodes, steps, cfg.n_layers, len(single), folded=_folded(cfg))
+        groups = -(-len(single) // 16)
+        programs = 1
         if fused:
             want["uniforms_grouped"] = 0
             names = list(LM_PAIR) + ["gossip_update_stacked_grouped"]
+        elif tag == lm_dyn:
+            # per round: the coins and the noise, B.4 once, B.5 per matching of a
+            # delta round; two branches
+            from repro_torch.graphs import build_graph, metropolis_weights
+            from repro_torch.graphs.mixing import permutation_decomposition
+
+            del want["gossip_update_stacked_grouped"]
+            delta = sum(1 for r in range(steps) if r % REBASE_EVERY != REBASE_EVERY - 1)
+            m = permutation_decomposition(metropolis_weights(build_graph(graph, nodes))).num_rounds
+            want.update(uniforms_grouped=steps * (1 + groups),
+                        masked_quantize_blockwise_grouped=steps * groups,
+                        masked_dequant_accumulate_grouped_=m * delta * groups)
+            names = list(LM_PAIR) + ["uniforms_grouped", "masked_quantize_blockwise_grouped",
+                                     "masked_dequant_accumulate_grouped_"]
+            programs = 2
         else:
             del want["gossip_update_stacked_grouped"]
-            want.update(uniforms_grouped=COMPILED_LM_STEPS * -(-len(single) // 16),
-                        quantize_blockwise_grouped=COMPILED_LM_STEPS * -(-len(single) // 16))
+            want.update(uniforms_grouped=steps * groups,
+                        quantize_blockwise_grouped=steps * groups)
             names = list(LM_PAIR) + ["uniforms_grouped", "quantize_blockwise_grouped"]
-        run = _mode_turns(tag, lm_build, lambda tr: tr.init(single), (toks,), COMPILED_LM_STEPS,
+        run = _mode_turns(tag, lm_build, lambda tr: tr.init(single), (toks,), steps,
                           names, 4 * nodes * model.num_params(), lm_start,
-                          COMPILED_PROFILED_STEPS[1])
-        out[tag] = _compiled_checks(tag, run, want, gate_memory=True)
+                          COMPILED_PROFILED_STEPS[1], want_programs=programs)
+        out[tag] = _compiled_checks(tag, run, want, gate_memory=True, programs=programs)
         del run, toks
         gc.collect()
         torch.cuda.empty_cache()
@@ -6617,10 +6906,11 @@ def phase_obs(spec_cls, cfg_cls) -> dict:
         finally:
             comm_topology.round_fault_masks = seam
         counts = kernel_counts()
+    # the noise per matching; the coins per round, again for the sanitizer's W_r
     check_counts("obs gossip stragglers", counts,
                  {"masked_quantize_blockwise_grouped": n * matchings,
                   "masked_dequant_accumulate_grouped_": n * matchings,
-                  "uniforms_grouped": n * matchings})
+                  "uniforms_grouped": n * matchings + 2 * n})
     _validated("gossip stragglers", d3 / "telemetry.jsonl")
     report_out = io.StringIO()
     with contextlib.redirect_stdout(report_out):

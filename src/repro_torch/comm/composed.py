@@ -24,22 +24,26 @@ the round) into its encode pass and its consensus step γ, advances
 ``res_ref`` after the round and bills the round's ``wire_bits`` at that
 rate (``traced_wire``).
 
-The static codec rounds (``_dense_round``, ``_gossip_round``) read nothing
-on the host that changes from round to round: they take the round as a
-:class:`~repro_torch.comm.protocol.RoundClock` (the round as a 0-d int64,
-the wire's noise drawn at it on the device, and the schedule's host part
+No round reads anything on the host that changes from round to round:
+each takes the round as a :class:`~repro_torch.comm.protocol.RoundClock`
+(the round as a 0-d int64, at which the wire's noise, the schedule's W_r
+and the fault coins are drawn on the device, and the schedule's host part
 as a 0-d float32), which ``__call__`` fills from ``CommState.rounds``
 unless the caller passes it (the trainer's captured step packs it per
-step).  With ``inplace=True`` they write the new parameters into the
-leaves of ``theta`` and the dense round its new θ̂ into the leaves of
-``CommState.hat``, where the trainer's captured step holds its state: the
-same operations, so the same bits, without a second copy of either.
+step).  With ``inplace=True`` the static codec rounds write the new
+parameters into the leaves of ``theta`` and the dense round its new θ̂
+into the leaves of ``CommState.hat``, where the trainer's captured step
+holds its state: the same operations, so the same bits, without a second
+copy of either.
 
 Where the reference runs one ``ppermute`` per matching inside
 ``shard_map``, the port gathers along the node axis (``src`` per matching;
 ``comm/transport.py``).  The reference's ``lax.cond`` on the re-base clock
-becomes a host branch on the host int ``ef_rounds``; the adaptive re-base
-reads the cache drift on the host, one sync per round.  The star transport
+becomes a branch the host chooses from the host int ``ef_rounds``
+(:meth:`ComposedMixer.plan`, passed in as ``branch``: one captured graph
+per branch); the adaptive re-base runs the encode once, both
+accumulations, and selects θ, the mix cache and the wire bits on the
+device with ``torch.where`` on the drift (no sync).  The star transport
 (the hub) runs the identity wire as an exact node mean; codec wires on the
 hub ride the dense transport with the star W (``make_hub_mixer``).  Fault
 replay lives in the scheduled topology, so every dynamic stack above mixes
@@ -201,18 +205,37 @@ class ComposedMixer(Mixer):
             return None
         return self.wire.rate(state, self.clock(state.rounds, state.res_norm.device).part)
 
-    def _round_w(self, state: CommState) -> torch.Tensor:
+    def _round_w(self, state: CommState, round=None) -> torch.Tensor:
         """The W of the codec-dense round about to run: static, or the
         schedule's matrix for this round (EF composes with a moving W on
-        this lowering because it re-mixes the full public copies)."""
+        this lowering because it re-mixes the full public copies) at
+        ``round`` (the clock's round; None: ``state.rounds``)."""
         if self._dynamic:
-            return self.topo.round_w(state.rounds)
+            return self.topo.round_w(state.rounds if round is None else round)
         return self.w
 
     def host_part(self, rounds: int) -> float:
         """The wire's rate-schedule host part of round ``rounds`` (0.0
         without a scheduled codec wire)."""
         return self.wire.host_part(rounds) if isinstance(self.wire, CodecWire) else 0.0
+
+    @property
+    def _clocked(self) -> bool:
+        return self._is_gossip and getattr(self.wire, "clock", None) is not None
+
+    def plan(self, state: CommState):
+        """The branch the round about to run takes, chosen on the host, and
+        the state's host ints after it: the clocked EF stack's fixed
+        re-base decision (``ef_rounds % B == B − 1``, True where it
+        re-bases), None on every other stack (one form; the adaptive
+        re-base selects on the device)."""
+        if not self._clocked:
+            return None, state._replace(rounds=state.rounds + 1)
+        after = state._replace(rounds=state.rounds + 1, ef_rounds=state.ef_rounds + 1)
+        if self.adaptive:
+            return None, after
+        b = self.ef_rebase_every
+        return b == 1 or (b >= 2 and state.ef_rounds % b == b - 1), after
 
     def clock(self, rounds: int, device) -> RoundClock:
         """The :class:`RoundClock` of round ``rounds``, filled on ``device``
@@ -296,13 +319,14 @@ class ComposedMixer(Mixer):
             return t.apply_w(self.w, theta)
         return gossip_mix_local(theta, t.self_w, t.match_ws, t.srcs)
 
-    def mix_tree(self, tree, state: CommState):
+    def mix_tree(self, tree, state: CommState, clock: RoundClock | None = None):
         """Consensus applied to an arbitrary dict with this round's topology
-        (no state advance, no codec).  Codec wires do not implement this."""
+        (no state advance, no codec), the round read from ``clock`` (None:
+        ``state.rounds``).  Codec wires do not implement this."""
         if isinstance(self.wire, CodecWire):
             raise NotImplementedError
         if self._dynamic:
-            w = self.topo.round_w(state.rounds)
+            w = self.topo.round_w(state.rounds if clock is None else clock.round)
             if isinstance(self.transport, DenseTransport):
                 return self.transport.apply_w(w, tree)
             self_w, match_ws, _ = gather_round_vectors(w, self.transport.perm_idx)
@@ -312,41 +336,44 @@ class ComposedMixer(Mixer):
     # -- the protocol ----------------------------------------------------------
 
     def __call__(self, theta, state: CommState, *, round=None, clock: RoundClock | None = None,
-                 inplace: bool = False):
+                 inplace: bool = False, branch=None):
         """One round.  ``clock``: the round on the device (None: filled from
         ``state.rounds``); ``inplace``: the static codec rounds may write
-        into ``theta``'s leaves (and the dense round into ``state.hat``'s).
-        Other rounds read ``state.rounds`` and return new leaves."""
+        into ``theta``'s leaves (and the dense round into ``state.hat``'s);
+        ``branch``: the round's branch from :meth:`plan` (None: chosen here
+        from the state's host ints).  Other rounds return new leaves."""
         with scope(f"obs:consensus/{type(self).__name__}"):
+            if not (isinstance(self.wire, CodecWire) or self._dynamic):
+                return super().__call__(theta, state, round=round)
+            if clock is None:
+                clock = self.clock(state.rounds, params_device(theta))
             if isinstance(self.wire, CodecWire):
-                if self._is_gossip and getattr(self.wire, "clock", None) is not None:
-                    return self._clocked_gossip_call(theta, state)
-                if clock is None:
-                    clock = self.clock(state.rounds, params_device(theta))
+                if self._clocked:
+                    if branch is None:
+                        branch = self.plan(state)[0]
+                    return self._clocked_gossip_call(theta, state, clock, branch)
                 if self._is_gossip:
                     return self._gossip_round(theta, state, clock=clock, inplace=inplace)
                 return self._dense_round(theta, state, clock=clock, inplace=inplace)
-            if self._dynamic:
-                if self._is_gossip:
-                    return self._dynamic_gossip_call(theta, state)
-                return self._dynamic_dense_call(theta, state)
-            return super().__call__(theta, state, round=round)
+            if self._is_gossip:
+                return self._dynamic_gossip_call(theta, state, clock)
+            return self._dynamic_dense_call(theta, state, clock)
 
     # -- identity-wire dynamic rounds ------------------------------------------
 
-    def _dynamic_dense_call(self, theta, state: CommState):
-        w = self.topo.round_w(state.rounds)
+    def _dynamic_dense_call(self, theta, state: CommState, clock: RoundClock):
+        w = self.topo.round_w(clock.round)
         mixed = self.transport.apply_w(w, theta)
         per_node_bits = 8.0 * (tree_bytes(theta) // self.k)
         return mixed, state._replace(rounds=state.rounds + 1,
                                      wire_bits=active_links(w) * per_node_bits)
 
-    def _dynamic_gossip_call(self, theta, state: CommState):
+    def _dynamic_gossip_call(self, theta, state: CommState, clock: RoundClock):
         t = self.transport
-        w = self.topo.round_w(state.rounds)
+        w = self.topo.round_w(clock.round)
         self_w, match_ws, masks = gather_round_vectors(w, t.perm_idx)
         if isinstance(self.wire, MaskedQuantWire):
-            mixed = self._quantized_gossip(theta, state, self_w, match_ws, masks)
+            mixed = self._quantized_gossip(theta, state, self_w, match_ws, masks, clock=clock)
             per_node_bits = sum(self.wire.leaf_bits(x.numel() // self.k)
                                 for x in theta.values())
         else:
@@ -355,11 +382,13 @@ class ComposedMixer(Mixer):
         return mixed, state._replace(rounds=state.rounds + 1,
                                      wire_bits=active_sends(masks) * per_node_bits)
 
-    def _quantized_gossip(self, theta, state, self_w, match_ws, masks):
+    def _quantized_gossip(self, theta, state, self_w, match_ws, masks,
+                          clock: RoundClock | None = None):
         """Every matching, every leaf at once: masked quantize of θ with fresh
-        uniforms per (leaf, matching), gather, masked dequantize-accumulate
-        (one B.4 and one B.5 launch per matching on the card).  The leaves
-        are independent, so this is the leaf-by-leaf round bit for bit."""
+        uniforms per (leaf, matching) at the clock's round (None:
+        ``state.rounds``), gather, masked dequantize-accumulate (one B.4
+        and one B.5 launch per matching on the card).  The leaves are
+        independent, so this is the leaf-by-leaf round bit for bit."""
         from repro_torch.kernels.quant_gossip.ops import (
             masked_dequant_accumulate_grouped_,
             masked_quantize_blockwise_grouped,
@@ -370,7 +399,7 @@ class ComposedMixer(Mixer):
         xfs = [theta[n].reshape(theta[n].shape[0], -1).float() for n in names]
         accs = [xf * self_w[:, None] for xf in xfs]
         qmax, block_d = float(wire._qmax), wire.quantized.block_d
-        round_t = self.clock(state.rounds, self_w.device).round
+        round_t = (self.clock(state.rounds, self_w.device) if clock is None else clock).round
         for m, (pw, mk, src) in enumerate(zip(match_ws, masks, self.transport.srcs)):
             us = wire.round_uniforms(state, round_t, xfs, m)
             payloads = masked_quantize_blockwise_grouped(xfs, us, mk, qmax=qmax,
@@ -391,7 +420,7 @@ class ComposedMixer(Mixer):
         then a mix pass; the uniforms are a pure function of (key, round,
         leaf), so this is the leaf-by-leaf round bit for bit.  ``inplace``
         writes θ into ``theta``'s leaves and θ̂ into ``state.hat``'s."""
-        w = self._round_w(state)
+        w = self._round_w(state, clock.round)
         rate = self.wire.rate(state, clock.part)
         gamma = self.wire.gamma_for(rate)
         names = leaf_names(theta)
@@ -428,50 +457,81 @@ class ComposedMixer(Mixer):
         are new leaves: the accumulate reads the old θ̂).
         """
         t = self.transport
-        ef = self.ef
         if self_w is None:
             self_w = t.self_w
         if match_ws is None:
             match_ws = t.match_ws
-        rate = self.wire.rate(state, clock.part)
-        gamma = self.wire.gamma_for(rate)
         send = _send_mask(masks) if masks is not None else None
-        names = leaf_names(theta)
-        xfs, hats, res_sq = self._flat_leaves(theta, state, self_w.device)
-        us = self.wire.round_uniforms(state, clock.round, xfs)
-        # encode pass: every leaf (one B.2 launch per round, B.4 where masked)
-        encoded = self.wire.encode_leaves(xfs, hats, us, rate, send_mask=send)
-        del us
-        # EF: s_i += W_ii q_i + Σ_m W_i,src(i)·dequant(recv) keeps
-        # s_i = Σ_j W_ij θ̂_j current; memoryless: the same combine of the
-        # fresh C(θ) messages.  Only the payload crosses the wire.
-        if ef:
-            accs = [state.hat_mix[n].reshape(xf.shape) + self_w[:, None] * (public - h)
-                    for n, xf, h, (_, public, _) in zip(names, xfs, hats, encoded)]
-        else:
-            accs = [self_w[:, None] * public for _, public, _ in encoded]
-        payloads = [payload for payload, _, _ in encoded]
-        # accumulate pass: per matching, every leaf (one B.3 launch on the
-        # static wire, one B.5 where masked)
-        for m, (pw, src) in enumerate(zip(match_ws, t.srcs)):
-            accs = self._accumulate_leaves(accs, payloads, pw, src,
-                                           mask=masks[m] if masks is not None else None)
-        out_theta, out_hat, out_mix = {}, {}, {}
-        for n, xf, acc, (_, public, new_hat) in zip(names, xfs, accs, encoded):
-            shape = theta[n].shape
-            out_theta[n] = _stepped(theta[n], xf, gamma, acc - public, inplace)
-            if ef:
-                out_hat[n] = new_hat.reshape(shape)
-                out_mix[n] = acc.reshape(shape)
+        rate, xfs, hats, res_sq, encoded = self._encoded_round(theta, state, clock,
+                                                               self_w.device, send)
+        accs = self._delta_accs(theta, state, xfs, hats, encoded, self_w, match_ws, masks)
+        out_theta, out_hat, out_mix = self._mixed(theta, xfs, rate, accs, encoded, inplace)
         if senders is None:
             senders = self._sends()
         res_norm, res_ref, rounds = self.wire.next_sched_state(state, torch.sqrt(res_sq),
                                                                clock.part)
         # _replace so fields this round does not own thread through
         return out_theta, state._replace(
-            hat=out_hat if ef else (), hat_mix=out_mix if ef else (),
+            hat=out_hat if self.ef else (), hat_mix=out_mix if self.ef else (),
             res_norm=res_norm, res_ref=res_ref, rounds=rounds,
             wire_bits=self.wire.round_wire_bits(theta, rate, senders, self.k, res_sq.device))
+
+    def _encoded_round(self, theta, state: CommState, clock: RoundClock, device, send=None):
+        """The codec step every gossip round shares: the rate, each leaf's
+        (K, d) float32 block and θ̂ block, the EF residual, and every leaf's
+        (payload, public', θ̂') drawn at ``clock``'s round under the send
+        mask (one B.2 launch per round, B.4 where masked)."""
+        rate = self.wire.rate(state, clock.part)
+        xfs, hats, res_sq = self._flat_leaves(theta, state, device)
+        us = self.wire.round_uniforms(state, clock.round, xfs)
+        encoded = self.wire.encode_leaves(xfs, hats, us, rate, send_mask=send)
+        return rate, xfs, hats, res_sq, encoded
+
+    def _delta_accs(self, theta, state: CommState, xfs, hats, encoded, self_w, match_ws,
+                    masks):
+        """The delta round's mix of every leaf.  EF: s_i += W_ii q_i +
+        Σ_m W_i,src(i)·dequant(recv) keeps s_i = Σ_j W_ij θ̂_j current;
+        memoryless: the same combine of the fresh C(θ) messages.  Only the
+        payload crosses the wire: per matching, every leaf is accumulated
+        (one B.3 launch on the static wire, one B.5 where masked)."""
+        if self.ef:
+            accs = [state.hat_mix[n].reshape(xf.shape) + self_w[:, None] * (public - h)
+                    for n, xf, h, (_, public, _) in zip(leaf_names(theta), xfs, hats,
+                                                         encoded)]
+        else:
+            accs = [self_w[:, None] * public for _, public, _ in encoded]
+        payloads = [payload for payload, _, _ in encoded]
+        for m, (pw, src) in enumerate(zip(match_ws, self.transport.srcs)):
+            accs = self._accumulate_leaves(accs, payloads, pw, src,
+                                           mask=masks[m] if masks is not None else None)
+        return accs
+
+    def _rebase_acc(self, new_hat, self_w, match_ws, masks):
+        """The re-base round's mix of one leaf: s_i = Σ_j W_ij(r) θ̂_j from
+        the fresh public copies, gathered over the masked matchings."""
+        acc = self_w[:, None] * new_hat
+        for pw, mk, src in zip(match_ws, masks, self.transport.srcs):
+            acc = acc + (pw * mk)[:, None] * new_hat[src]
+        return acc
+
+    def _mixed(self, theta, xfs, rate, accs, encoded, inplace: bool = False):
+        """θ + γ·(s − public') of every leaf (written into ``theta``'s leaves
+        with ``inplace``), and on EF wires θ̂' and the mix cache s."""
+        gamma = self.wire.gamma_for(rate)
+        out_theta, out_hat, out_mix = {}, {}, {}
+        for n, xf, acc, (_, public, new_hat) in zip(leaf_names(theta), xfs, accs, encoded):
+            shape = theta[n].shape
+            out_theta[n] = _stepped(theta[n], xf, gamma, acc - public, inplace)
+            if self.ef:
+                out_hat[n] = new_hat.reshape(shape)
+                out_mix[n] = acc.reshape(shape)
+        return out_theta, out_hat, out_mix
+
+    def _full_bits(self, theta, senders) -> torch.Tensor:
+        """The re-base round's full-precision wire: active links × each
+        node's float32 payload."""
+        return wire_bits(senders, 32.0 * sum(x.numel() // self.k for x in theta.values()),
+                         None)
 
     def _flat_leaves(self, theta, state, device):
         """Each leaf as a (K, d) float32 block, its θ̂ block (EF wires; None
@@ -534,28 +594,52 @@ class ComposedMixer(Mixer):
             total = total + (sf - w @ hf).square().sum()
         return torch.sqrt(total)
 
-    def _clocked_gossip_call(self, theta, state: CommState):
-        w = self.topo.round_w(state.rounds)
+    def _clocked_gossip_call(self, theta, state: CommState, clock: RoundClock, rebase):
+        """The clocked EF round at ``clock``'s round: the delta round, or
+        the re-base round where ``rebase`` (the host's branch) says so; the
+        adaptive trigger selects between the two on the device."""
+        w = self.topo.round_w(clock.round)
         self_w, match_ws, masks = gather_round_vectors(w, self.transport.perm_idx)
         senders = active_sends(masks)
-        clock = self.clock(state.rounds, self_w.device)
         if self.adaptive:
-            # drift-triggered re-base: measure the cache staleness against
-            # this round's W before mixing.  PyTorch runs eagerly, so the
-            # branch reads the drift on the host: one sync per round.
-            drift = self._cache_drift(w, state.hat, state.hat_mix)
-            rebase = float(drift) > self.ef_rebase_threshold  # repro: noqa[RPR002]
-        else:
-            b = self.ef_rebase_every
-            rebase = b == 1 or (b >= 2 and state.ef_rounds % b == b - 1)
-        if rebase:  # repro: noqa[RPR001] (a host bool: eager torch, see above)
+            t2, s2 = self._adaptive_round(theta, state, w, self_w, match_ws, masks, senders,
+                                          clock)
+        elif rebase:  # repro: noqa[RPR001] (a host bool: the branch the host chose)
             t2, s2 = self._rebase_round(theta, state, self_w, match_ws, masks, senders, clock)
         else:
             t2, s2 = self._gossip_round(theta, state, clock=clock, self_w=self_w,
                                         match_ws=match_ws, masks=masks, senders=senders)
-        if self.adaptive:
-            s2 = s2._replace(ef_drift=drift)
         return t2, s2._replace(ef_rounds=state.ef_rounds + 1)
+
+    def _adaptive_round(self, theta, state: CommState, w, self_w, match_ws, masks, senders,
+                        clock: RoundClock):
+        """The drift-triggered round, chosen on the device: the cache drift
+        ‖s − W_r θ̂‖_F against this round's W before mixing, one encode of
+        the innovation (both modes encode it with the same noise and send
+        mask, so θ̂ is the same), the delta round's accumulation (B.5 per
+        matching) and the re-base round's (the fresh public copies
+        gathered), then θ, the mix cache and the wire bits of the re-base
+        round where drift > threshold, of the delta round elsewhere
+        (``torch.where`` copies the chosen bits).  ``ef_drift`` keeps the
+        drift."""
+        drift = self._cache_drift(w, state.hat, state.hat_mix)
+        # against the (float64) threshold in float64, not rounded to float32
+        rebase = drift.double() > self.ef_rebase_threshold
+        rate, xfs, hats, res_sq, encoded = self._encoded_round(
+            theta, state, clock, self_w.device, _send_mask(masks))
+        deltas = self._delta_accs(theta, state, xfs, hats, encoded, self_w, match_ws, masks)
+        accs = [torch.where(rebase, self._rebase_acc(new_hat, self_w, match_ws, masks), delta)
+                for delta, (_, _, new_hat) in zip(deltas, encoded)]
+        del deltas
+        out_theta, out_hat, out_mix = self._mixed(theta, xfs, rate, accs, encoded)
+        bits = torch.where(rebase, self._full_bits(theta, senders),
+                           self.wire.round_wire_bits(theta, rate, senders, self.k,
+                                                     res_sq.device))
+        res_norm, res_ref, rounds = self.wire.next_sched_state(state, torch.sqrt(res_sq),
+                                                               clock.part)
+        return out_theta, state._replace(
+            hat=out_hat, hat_mix=out_mix, res_norm=res_norm, res_ref=res_ref, rounds=rounds,
+            wire_bits=bits, ef_drift=drift)
 
     def _rebase_round(self, theta, state: CommState, self_w, match_ws, masks, senders,
                       clock: RoundClock):
@@ -566,27 +650,12 @@ class ComposedMixer(Mixer):
         wire this round — the matchings move the fresh public copies
         instead, and s_i = Σ_j W_ij(r) θ̂_j is exact under the current W.
         """
-        send = _send_mask(masks)
-        srcs = self.transport.srcs
-        rate = self.wire.rate(state, clock.part)
-        gamma = self.wire.gamma_for(rate)
-        names = leaf_names(theta)
-        xfs, hats, res_sq = self._flat_leaves(theta, state, self_w.device)
-        us = self.wire.round_uniforms(state, clock.round, xfs)
-        encoded = self.wire.encode_leaves(xfs, hats, us, rate, send_mask=send)
-        out_theta, out_hat, out_mix = {}, {}, {}
-        for n, xf, (_, _, new_hat) in zip(names, xfs, encoded):
-            acc = self_w[:, None] * new_hat
-            for pw, mk, src in zip(match_ws, masks, srcs):
-                acc = acc + (pw * mk)[:, None] * new_hat[src]
-            shape = theta[n].shape
-            out_theta[n] = _step(xf, gamma, acc - new_hat).reshape(shape).to(theta[n].dtype)
-            out_hat[n] = new_hat.reshape(shape)
-            out_mix[n] = acc.reshape(shape)
-        # full-precision wire: active links × per-node f32 payload
-        full_bits = 32.0 * sum(x.numel() // self.k for x in theta.values())
+        rate, xfs, _, res_sq, encoded = self._encoded_round(theta, state, clock, self_w.device,
+                                                            _send_mask(masks))
+        accs = [self._rebase_acc(new_hat, self_w, match_ws, masks) for _, _, new_hat in encoded]
+        out_theta, out_hat, out_mix = self._mixed(theta, xfs, rate, accs, encoded)
         res_norm, res_ref, rounds = self.wire.next_sched_state(state, torch.sqrt(res_sq),
                                                                clock.part)
         return out_theta, state._replace(
             hat=out_hat, hat_mix=out_mix, res_norm=res_norm, res_ref=res_ref,
-            rounds=rounds, wire_bits=wire_bits(senders, full_bits, None))
+            rounds=rounds, wire_bits=self._full_bits(theta, senders))

@@ -14,7 +14,9 @@ whatever the wire codec.
 Host-side fields are Python numbers (``key``: the wire's seed, ``rounds``,
 ``ef_rounds``);
 per-round measurements are 0-d float32 tensors on the parameters' device, so
-a training loop never waits on the device to read them.
+a training loop never waits on the device to read them.  A round reads the
+host ints only through :meth:`Mixer.plan` (which branch it takes, and the
+host ints after it); its tensors read the round from a :class:`RoundClock`.
 """
 
 from __future__ import annotations
@@ -114,6 +116,14 @@ def trivial_comm_state(seed: int = 0, device="cpu") -> CommState:
                      res_ref=zero, rounds=0, wire_bits=zero)
 
 
+def round_tensor(round, device) -> torch.Tensor:
+    """The round as a device reads it: a 0-d int64 tensor on ``device`` (a
+    tensor as it is, a host int filled into one)."""
+    if isinstance(round, torch.Tensor):
+        return round
+    return torch.full((), int(round), dtype=torch.int64, device=device)
+
+
 def params_device(params: dict) -> torch.device:
     return next(iter(params.values())).device
 
@@ -147,12 +157,28 @@ class Mixer:
     def _mix(self, theta):
         raise NotImplementedError
 
-    def mix_tree(self, tree, state: CommState):
+    def mix_tree(self, tree, state: CommState, clock: RoundClock | None = None):
         """Pure consensus applied to an arbitrary dict (no state advance, no
         codec) — the gradient-tracking tracker exchange of
-        :class:`repro_torch.dynamics.LocalUpdateMixer`.  Compressed mixers
-        do not implement this (their wire is entangled with their state)."""
+        :class:`repro_torch.dynamics.LocalUpdateMixer`, at ``clock``'s round.
+        Compressed mixers do not implement this (their wire is entangled
+        with their state)."""
         return self._mix(tree)
+
+    def plan(self, state: CommState):
+        """The branch the round about to run takes and the state's host ints
+        after it, from ``state``'s host ints alone (no tensor is read): the
+        host's half of a round whose form depends on its clock, as the
+        reference's ``lax.cond`` is.  The base round has one form (None)
+        and advances ``rounds`` by one; wrappers and the clocked EF stack
+        override it, and their ``__call__`` takes the branch back as
+        ``branch``."""
+        return None, state._replace(rounds=state.rounds + 1)
+
+    def host_part(self, rounds: int) -> float:
+        """The wire's rate-schedule host part of round ``rounds`` (0.0: no
+        scheduled codec wire)."""
+        return 0.0
 
     def round_state(self, theta, state: CommState) -> CommState:
         """The state after one full-precision round over ``theta``'s shapes
@@ -164,6 +190,9 @@ class Mixer:
                              state.res_norm.device),
         )
 
-    def __call__(self, theta, state: CommState, *, round=None):
-        """One consensus round: ``theta', comm' = mixer(theta, comm, round=i)``."""
+    def __call__(self, theta, state: CommState, *, round=None, clock: RoundClock | None = None,
+                 branch=None, inplace: bool = False):
+        """One consensus round: ``theta', comm' = mixer(theta, comm, round=i)``.
+        Every mixer takes the round's ``clock``, :meth:`plan`'s ``branch``
+        and ``inplace``; the base round has one form and reads none of them."""
         return self._mix(theta), self.round_state(theta, state)

@@ -16,9 +16,16 @@ layers (see ``comm/composed.py``).
 
 Every round's fault masks come from :func:`round_fault_masks`, the one place
 the topology and the train step's ``straggler_skips_compute`` draw them.
-Per-round quantities (W_r, the gathered weights and masks, the active-link
-counts) stay on the parameters' device: nothing here reads a device value
-back to the host.
+``round_w`` takes the round as a 0-d int64 tensor on the device (a host int
+is filled into one), which the schedule and the fault coins read there, so
+a captured step computes the W_r of the round it replays.  Per-round
+quantities (W_r, the gathered weights and masks, the active-link counts)
+stay on the parameters' device: nothing here reads a device value back to
+the host, but for two eager-only stacks that hand the round to host code:
+a schedule class the port does not define, and a replaced
+:func:`round_fault_masks` seam (the tests inject the reference's masks
+through it), which get the round as a host int.  The trainer captures
+neither (:func:`repro_torch.core.drdsgd.capture_declined`).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.comm.protocol import round_tensor
 from repro_torch.device import resolve_device
 from repro_torch.graphs.mixing import renormalize_masked_weights
 
@@ -61,13 +69,32 @@ def active_sends(masks) -> torch.Tensor:
     return sends
 
 
-def round_fault_masks(faults, rounds: int, k: int, device):
+def round_fault_masks(faults, round, k: int, device):
     """The round's (keep (K, K), up (K,)) fault masks on ``device``:
-    :func:`repro_torch.dynamics.faults.fault_keep_matrix`.  Tests replace
-    this function to inject the reference's replayed masks."""
+    :func:`repro_torch.dynamics.faults.fault_keep_matrix` at ``round`` (a
+    0-d int64 tensor on ``device``, or a host int).  Tests replace this
+    function to inject the reference's replayed masks; a replacement is
+    handed the round as a host int."""
     from repro_torch.dynamics.faults import fault_keep_matrix
 
-    return fault_keep_matrix(faults, rounds, k, device)
+    return fault_keep_matrix(faults, round, k, device)
+
+
+_ROUND_FAULT_MASKS = round_fault_masks  # the seam as defined here
+
+
+def seam_replaced() -> bool:
+    """Whether :func:`round_fault_masks` was replaced (a host callable that
+    a captured step could not replay)."""
+    return round_fault_masks is not _ROUND_FAULT_MASKS
+
+
+def fault_masks(faults, round, k: int, device):
+    """:func:`round_fault_masks` through the seam as it stands: the round
+    tensor to the port's own, the round as a host int to a replacement."""
+    if seam_replaced():  # a host callable: the round as a host int (eager stacks only)
+        round = int(round)  # repro: noqa[RPR002]
+    return round_fault_masks(faults, round, k, device)
 
 
 class Topology:
@@ -81,8 +108,9 @@ class Topology:
     time_varying: bool = False
     k: int
 
-    def round_w(self, rounds: int) -> torch.Tensor:
-        """The (K, K) doubly-stochastic W of round ``rounds``."""
+    def round_w(self, round) -> torch.Tensor:
+        """The (K, K) doubly-stochastic W of round ``round`` (a 0-d int64
+        tensor on the device, or a host int)."""
         raise NotImplementedError
 
     def base_weights(self) -> np.ndarray:
@@ -105,7 +133,7 @@ class StaticTopology(Topology):
         self.k = int(self._w_np.shape[0])
         self.w = torch.as_tensor(self._w_np, dtype=torch.float32).to(resolve_device(device))
 
-    def round_w(self, rounds) -> torch.Tensor:
+    def round_w(self, round) -> torch.Tensor:
         return self.w
 
     def base_weights(self) -> np.ndarray:
@@ -119,19 +147,28 @@ class ScheduledTopology(Topology):
     (:func:`round_fault_masks`), so a run replays the same keep-mask
     sequence; the masked W is renormalised back to doubly stochastic on the
     device.  ``faults`` is kept only when enabled (None otherwise).
+    ``foreign`` names a schedule class the port does not define (None for
+    the port's own), which is handed the round as a host int.
     """
 
     time_varying = True
 
     def __init__(self, schedule, faults=None):
+        from repro_torch.dynamics.schedule import PORT_SCHEDULES
+
         self.schedule = schedule
         self.faults = faults if (faults is not None and faults.enabled) else None
         self.k = schedule.k
+        self.foreign = (None if type(schedule) in PORT_SCHEDULES
+                        else f"a schedule class the port does not define "
+                             f"({type(schedule).__name__})")
 
-    def round_w(self, rounds: int) -> torch.Tensor:
-        w = self.schedule.round_weights(rounds)
+    def round_w(self, round) -> torch.Tensor:
+        r = round_tensor(round, self.schedule.device)
+        # a foreign schedule is handed a host int (its stacks run eagerly)
+        w = self.schedule.round_weights(int(r) if self.foreign else r)  # repro: noqa[RPR002]
         if self.faults is not None:
-            keep, _ = round_fault_masks(self.faults, rounds, self.k, w.device)
+            keep, _ = fault_masks(self.faults, r, self.k, w.device)
             w = renormalize_masked_weights(w, keep)
         return w
 
@@ -157,7 +194,7 @@ class StarTopology(Topology):
         self._w_np = np.full((self.k, self.k), 1.0 / self.k, np.float64)
         self.w = torch.as_tensor(self._w_np, dtype=torch.float32).to(resolve_device(device))
 
-    def round_w(self, rounds) -> torch.Tensor:
+    def round_w(self, round) -> torch.Tensor:
         return self.w
 
     def base_weights(self) -> np.ndarray:

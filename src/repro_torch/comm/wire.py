@@ -48,7 +48,7 @@ from repro_torch.comm.compressors import (
     KernelInt8Quantizer,
     make_compressor,
 )
-from repro_torch.comm.protocol import CommState, scalar
+from repro_torch.comm.protocol import CommState, round_tensor, scalar
 from repro_torch.comm.schedule import CompressionSchedule
 
 
@@ -85,14 +85,6 @@ def _leaf_payload_bytes(compressor, params, k: int) -> int:
     return sum(compressor.payload_bytes(x.numel() // k) for x in params.values())
 
 
-def _round_tensor(rounds, device) -> torch.Tensor:
-    """The round as the noise reads it: a 0-d int64 tensor on ``device``
-    (a fill of a host int)."""
-    if isinstance(rounds, torch.Tensor):
-        return rounds
-    return torch.full((), int(rounds), dtype=torch.int64, device=device)
-
-
 def _draw(hook, key: int, rounds, round_t, xs, index, matching=None) -> list:
     """U[0, 1) noise shaped like each of ``xs`` on their device, the j-th
     drawn as leaf ``index[j]`` of the round: ``hook(rounds, leaf[,
@@ -110,7 +102,7 @@ def _draw(hook, key: int, rounds, round_t, xs, index, matching=None) -> list:
         return out
     from repro_torch.kernels.quant_gossip.ops import uniforms_grouped
 
-    return uniforms_grouped(xs, int(key), _round_tensor(round_t, xs[0].device),
+    return uniforms_grouped(xs, int(key), round_tensor(round_t, xs[0].device),
                             matching=0 if matching is None else matching, leaves=list(index))
 
 

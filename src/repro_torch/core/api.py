@@ -25,12 +25,16 @@ tensors; they are moved to the trainer's device.
 ``jit=True`` (the default, the reference's field) runs the step as the
 reference's compiled step does: where
 :func:`~repro_torch.core.drdsgd.capture_declined` keeps the stack (any
-optimizer of :mod:`repro_torch.optim`, a static dense or gossip round with
-any codec wire and rate schedule, a round every step, no ``obs``, no
-``sanitize``, no noise hook, and a loss that batches its nodes), ``step``
-and ``run`` replay the step (the fused B.1 step for plain SGD over an
-uncompressed dense W, else the optimizer and the round) from CUDA graphs on
-the card, with the carry donated: the state a run is given gives up its
+optimizer of :mod:`repro_torch.optim`, any of the port's mixers — a static
+or time-varying topology with or without faults, dense, gossip or the
+hub, any codec wire and rate schedule, local updates with or without
+gradient tracking, repeated rounds, ``mix_every`` — no ``obs``, no
+``sanitize``, no noise hook or replaced fault seam, and a loss that
+batches its nodes), ``step`` and ``run`` replay the step (the fused B.1
+step for plain SGD over an uncompressed dense W, else the optimizer and
+the round) from CUDA graphs on the card, one graph per branch the host
+chooses from its clocks (local or consensus round, mix step, re-base),
+with the carry donated: the state a run is given gives up its
 parameters, optimizer state and θ̂, and a state kept from an earlier run is
 written over (:mod:`repro_torch.core.captured`).  On the CPU the same capturable form
 runs eagerly, and states are copied in and out.  ``capture_declined``

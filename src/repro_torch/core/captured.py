@@ -4,8 +4,10 @@
 ``repro/core/api.py``).
 
 Where :func:`~repro_torch.core.drdsgd.capture_declined` keeps the stack
-(any optimizer with a device form, a static dense or gossip round with any
-wire on every step, no telemetry tap, no sanitizer, no noise hook),
+(any optimizer with a device form, any of the port's mixers — static or
+time-varying, faulted, dense, gossip or hub, any wire, under
+``LocalUpdateMixer`` or ``RepeatMixer``, every step or every
+``mix_every``-th — no telemetry tap, no sanitizer, no noise hook),
 :class:`CapturedRun` runs the step's capturable form
 (``train_step.capturable``: the fused B.1 step where it applies, else the
 optimizer and the mixer's round) from one CUDA graph per program on the
@@ -52,12 +54,19 @@ the card captures.
 * **Metrics.**  Each replay writes the step's metrics into one column of a
   (metrics, :data:`METRIC_COLS`) float32 device buffer; a run copies the
   columns out every :data:`METRIC_COLS` steps and at its end.
-* **Host fields.**  ``step`` and the ``CommState``'s host ints
-  (``rounds``) advance on every replay by what the captured step advanced
-  them by.
+* **Branches and host fields.**  ``train_step.host_branch`` gives each
+  step's branch (whether it mixes, each wrapper's consensus test, each
+  clocked EF round's re-base: what the reference decides with
+  ``lax.cond``) and the ``CommState``'s host ints after it (``rounds``,
+  ``ef_rounds``), from the step and the host ints before it.  A run walks
+  it step by step: each step replays its own branch's graph, and its
+  inputs are packed at its own step and round.
 * **Warm-up.**  The first step of each program runs eagerly (the same
   form: the first program's new state becomes the slot, a later program's
-  updates the slot in place), on the stream the capture then uses, as
+  updates the slot in place; a branch met late, in the middle of a run or
+  after a restore, is warmed up where it first appears), and the host
+  ints it advanced are held against the host function's (a mismatch
+  raises), on the stream the capture then uses, as
   PyTorch's graph capture asks: it builds the kernels and makes every
   first-use CUDA call (the tensor-map encoder's lookup, the kernels'
   attributes, cuBLAS's handle and workspace) before the capture.
@@ -68,10 +77,18 @@ the card captures.
   counter increments its capture made (:func:`repro_torch.kernels.
   launch_counters`), takes them back (a capture launches nothing) and adds
   them on every replay.
-* **Programs.**  One program per batch signature (the shapes and dtypes of
-  the step's batch leaves); a new signature captures a new graph into the
-  same pool.  ``programs`` counts them (the watchdog's ``_cache_size``),
-  and each capture is published to
+* **Programs.**  One program per (batch signature, branch): the branch
+  graphs of a signature share its input buffer and layout, and every graph
+  captures into one pool, one after another, so the pool holds the
+  largest graph's buffers, not their sum.  Graphs replay in an order other
+  than their capture order, which is safe because nothing a graph
+  allocates outlives its replay: the slot, the input buffers and the
+  metrics buffer lie outside the pool.  A program met after others were
+  captured first releases them and their pool (one synchronisation), so
+  that its eager warm-up runs in the memory the pool held, as the first
+  warm-up did; then every program is captured again.  ``programs`` counts
+  the graphs (the watchdog's ``_cache_size``), and each capture (a
+  recapture too) is published to
   :func:`repro_torch.obs.watchdog.record_capture`.
 
 No failure falls back to the eager step: a warm-up, capture or replay
@@ -79,6 +96,8 @@ that fails raises.
 """
 
 from __future__ import annotations
+
+import gc
 
 import numpy as np
 import torch
@@ -132,6 +151,12 @@ def _rebuild(state: DecentralizedState, flat: dict) -> DecentralizedState:
                              for name in ("params", "opt_state", "comm")})
 
 
+def _host_ints(comm) -> tuple:
+    """The ``CommState``'s host-int fields, (name, value) in field order."""
+    return tuple((f, getattr(comm, f)) for f in CommState._fields
+                 if type(getattr(comm, f)) is int)
+
+
 def _storage(t: torch.Tensor) -> int:
     return t.untyped_storage().data_ptr()
 
@@ -144,7 +169,8 @@ def _exclusive(tensors) -> bool:
 
 
 class _Program:
-    """One captured program: the step at one batch signature."""
+    """The step at one batch signature: its input buffer, and one captured
+    graph per branch."""
 
     def __init__(self, shapes, device):
         self.layout, off = [], ALIGN
@@ -163,19 +189,21 @@ class _Program:
         self.scalars = StepScalars(eta=f32(_ETA), bc1=f32(_BC1), bc2=f32(_BC2),
                                    round=self.inbuf[_ROUND:_ROUND + 8].view(torch.int64)[0],
                                    part=f32(_PART))
-        self.graph = None    # the captured step, on the card
-        self.deltas = None   # [(wrapper, attribute, increment)] per replay
+        # branch -> (the captured step on the card, else None; [(wrapper,
+        # attribute, increment)] per replay), or None while to be captured
+        self.graphs: dict = {}
 
 
 class CapturedRun:
     """The captured step of a :class:`~repro_torch.core.DecentralizedTrainer`
     (``jit=True`` on a stack :func:`~repro_torch.core.drdsgd.capture_declined`
     keeps): :meth:`segment` runs steps ``lo..hi-1`` of stacked batches;
-    ``_cache_size()`` is the programs captured."""
+    ``_cache_size()`` is the programs (graphs) captured."""
 
     def __init__(self, train_step, device: torch.device):
         self._form = train_step.capturable
         self._scalars = train_step.host_scalars
+        self._branch = train_step.host_branch
         self.device = device
         self._card = device.type == "cuda"
         self._programs: dict = {}
@@ -184,14 +212,13 @@ class CapturedRun:
         self._comm = None       # a CommState for the body's host fields
         self._keys = None       # the metrics' names, in order
         self._mbuf = None       # (metrics, METRIC_COLS) float32
-        self._ints = None       # {CommState host-int field: advance per step}
         self._template = None   # a state of the carry's structure
         self._pool = None
         self._stream = torch.cuda.Stream(device) if self._card else None
 
     @property
     def programs(self) -> int:
-        return len(self._programs)
+        return sum(len(prog.graphs) for prog in self._programs.values())
 
     def _cache_size(self) -> int:
         return self.programs
@@ -206,8 +233,9 @@ class CapturedRun:
             raise ValueError("DecentralizedState.comm must be the mixer's CommState")
         return _tensors(state)
 
-    def _stamp(self, state: DecentralizedState) -> tuple:
-        return state.step, tuple(getattr(state.comm, f) for f in self._ints)
+    @staticmethod
+    def _stamp(state: DecentralizedState) -> tuple:
+        return state.step, _host_ints(state.comm)
 
     def _held(self, state: DecentralizedState) -> bool:
         """Whether ``state`` holds the slot.  Raises where its donated
@@ -263,19 +291,20 @@ class CapturedRun:
         self._comm = state.comm
         self._at = self._stamp(state)
 
-    def _state(self, state: DecentralizedState, n: int) -> DecentralizedState:
-        """The state after ``n`` replays from ``state``: the slot, the host
-        fields advanced (copies of the slot on the CPU)."""
+    def _state(self, step: int, comm) -> DecentralizedState:
+        """The state the slot holds, at ``step`` with ``comm``'s host ints
+        (copies of the slot on the CPU)."""
         flat = self._slot if self._card else {p: t.clone() for p, t in self._slot.items()}
-        ints = {f: getattr(state.comm, f) + n * d for f, d in self._ints.items()}
-        new = _rebuild(self._template._replace(step=state.step + n,
-                                               comm=state.comm._replace(**ints)), flat)
-        self._at = self._stamp(new)
+        new = _rebuild(self._template._replace(step=step, comm=comm), flat)
+        self._comm, self._at = new.comm, self._stamp(new)
         return new
 
-    def _slot_state(self) -> DecentralizedState:
-        """The state the slot holds, with the host fields of the last one."""
-        return _rebuild(self._template._replace(step=self._at[0], comm=self._comm), self._slot)
+    def _slot_state(self, step: int | None = None, comm=None) -> DecentralizedState:
+        """The state the slot holds, at ``step`` with ``comm``'s host ints
+        (default: those of the last one)."""
+        step = self._at[0] if step is None else step
+        return _rebuild(self._template._replace(step=step, comm=self._comm if comm is None
+                                                else comm), self._slot)
 
     def _copy_in(self, new: DecentralizedState) -> None:
         """The step's new carry tensors into the slot's (those the form did
@@ -301,16 +330,16 @@ class CapturedRun:
 
     # -- warm-up and capture -----------------------------------------------------
 
-    def _warm_up(self, state, batch):
-        """One eager step (on the capture's stream on the card), the form
-        the graph captures.  The first program's step runs in place on the
-        given state on the card (its tensors donated; out of place where
-        two share a storage, and on the CPU, where the caller's state is
-        left as it is), and its new state becomes the slot; a later
-        program's step runs on the slot and updates it in place.  The
-        metrics must be 0-d float32 tensors, as the captured step stacks
+    def _warm_up(self, state, batch, branch, after):
+        """One eager step of ``branch`` (on the capture's stream on the
+        card), the form the graph captures.  The first program's step runs
+        in place on the given state on the card (its tensors donated; out of
+        place where two share a storage, and on the CPU, where the caller's
+        state is left as it is), and its new state becomes the slot; a
+        later program's step runs on the slot and updates it in place.  The
+        host ints it advanced must be ``after``'s (the host function's).
+        The metrics must be 0-d float32 tensors, as the captured step stacks
         them."""
-        before = state.comm
         if self._slot is None:
             self._held(state)  # a freed state raises
             given = list(self._carry(state).values())
@@ -318,23 +347,23 @@ class CapturedRun:
             if inplace:  # the donated tensors become the slot as they are
                 given = [t for t in given if not t.ndim]
         else:
-            self._take(state)
-            state, given, inplace = self._slot_state(), [], True
+            given, inplace = [], True
         sc = step_scalars(self._scalars(state.step, state.comm.rounds), self.device)
         if self._card:
             main = torch.cuda.current_stream(self.device)
             self._stream.wait_stream(main)
             with torch.cuda.stream(self._stream):
-                new, m = self._form(state, batch, sc, inplace=inplace)
+                new, m = self._form(state, batch, sc, inplace=inplace, branch=branch)
             main.wait_stream(self._stream)
             # allocated on the capture's stream, used on the caller's from here
             for t in (*_tensors(new).values(), *m.values()):
                 t.record_stream(main)
         else:
-            new, m = self._form(state, batch, sc, inplace=inplace)
-        if self._ints is None:  # the host ints' advance per step
-            self._ints = {f: getattr(new.comm, f) - getattr(before, f)
-                          for f in CommState._fields if type(getattr(before, f)) is int}
+            new, m = self._form(state, batch, sc, inplace=inplace, branch=branch)
+        want = (state.step + 1, _host_ints(after))
+        if self._stamp(new) != want:
+            raise RuntimeError(f"the step of branch {branch} advanced the host fields to "
+                               f"{self._stamp(new)}, the host function to {want}")
         if self._slot is None:
             self._slot = self._own(self._carry(new), given)
             self._template = new
@@ -354,47 +383,69 @@ class CapturedRun:
                                      device=self.device)
         return state, m
 
-    def _body(self, prog: _Program):
-        """The step from the slot into the slot, its metrics into the
-        buffer's column ``prog.col``: what the graph captures."""
-        new, m = self._form(self._slot_state(), prog.batch, prog.scalars, inplace=True)
+    def _body(self, prog: _Program, branch) -> None:
+        """The step of ``branch`` from the slot into the slot, its metrics
+        into the buffer's column ``prog.col``: what the graph captures."""
+        new, m = self._form(self._slot_state(), prog.batch, prog.scalars, inplace=True,
+                            branch=branch)
         self._copy_in(new)
         self._mbuf.index_copy_(1, prog.col, torch.stack([m[k] for k in self._keys])[:, None])
 
-    def _capture(self, prog: _Program) -> None:
-        """The graph of ``prog`` on the card, with the counter increments its
-        capture made; nothing to capture on the CPU, where :meth:`_replay`
-        runs the same body eagerly."""
+    def _release(self) -> None:
+        """Drop every captured graph and their pool (on the card, once one
+        exists), to be captured again by :meth:`_capture_all`: a warm-up
+        then has the memory the pool held.  Waits for the replays in
+        flight."""
+        if self._pool is None:
+            return
+        torch.cuda.synchronize(self.device)
+        for prog in self._programs.values():
+            for branch in prog.graphs:
+                prog.graphs[branch] = None
+        self._pool = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def _capture_all(self) -> None:
+        """Capture every program that has no graph."""
+        for prog in self._programs.values():
+            for branch, graph in prog.graphs.items():
+                if graph is None:
+                    self._capture(prog, branch)
+
+    def _capture(self, prog: _Program, branch) -> None:
+        """The graph of ``branch`` at ``prog``'s signature on the card, with
+        the counter increments its capture made; nothing to capture on the
+        CPU, where :meth:`_replay` runs the same body eagerly."""
+        graph, deltas = None, []
         if self._card:
             counters = launch_counters()
             before = [getattr(fn, a) for fn, a in counters]
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-                self._body(prog)
+                self._body(prog, branch)
             if self._pool is None:
                 self._pool = graph.pool()
-            prog.graph = graph
-            prog.deltas = [(fn, a, getattr(fn, a) - v) for (fn, a), v in zip(counters, before)
-                           if getattr(fn, a) != v]
+            deltas = [(fn, a, getattr(fn, a) - v) for (fn, a), v in zip(counters, before)
+                      if getattr(fn, a) != v]
             for (fn, a), v in zip(counters, before):  # a capture launches nothing
                 setattr(fn, a, v)
+        prog.graphs[branch] = (graph, deltas)
         watchdog.record_capture("train_step")
 
     # -- replays -----------------------------------------------------------------
 
-    def _pack(self, prog: _Program, batches, lo: int, hi: int, step0: int, rounds0: int,
-              i0: int) -> torch.Tensor:
-        """Steps lo..hi-1's inputs, one row of ``prog.inbuf``'s bytes each;
-        the step at ``lo`` is the run's ``i0``-th replay, at step ``step0``
-        and round ``rounds0``."""
-        n = hi - lo
+    def _pack(self, prog: _Program, batches, steps: list, n0: int) -> torch.Tensor:
+        """The inputs of ``steps`` ([(batch index, step, round, branch)], at
+        consecutive batch indices), one row of ``prog.inbuf``'s bytes each;
+        the first is the ``n0``-th replay since the metrics were read."""
+        n, lo = len(steps), steps[0][0]
         packed = torch.empty((n, prog.inbuf.numel()), dtype=torch.uint8, device=self.device)
         for (off, nb, _, _), b in zip(prog.layout, batches):
-            packed[:, off:off + nb].copy_(b[lo:hi].reshape(n, -1).view(torch.uint8))
-        adv = self._ints.get("rounds", 0)
-        vals = [self._scalars(step0 + i, rounds0 + i * adv) for i in range(n)]
+            packed[:, off:off + nb].copy_(b[lo:lo + n].reshape(n, -1).view(torch.uint8))
+        vals = [self._scalars(step, rounds) for _, step, rounds, _ in steps]
         head = np.zeros((n, _HEAD), dtype=np.uint8)
-        head[:, _COL:_COL + 8] = ((i0 + np.arange(n, dtype=np.int64)) % METRIC_COLS
+        head[:, _COL:_COL + 8] = ((n0 + np.arange(n, dtype=np.int64)) % METRIC_COLS
                                   )[:, None].view(np.uint8)
         head[:, _ROUND:_ROUND + 8] = np.array([v[3] for v in vals], dtype=np.int64
                                               )[:, None].view(np.uint8)
@@ -406,39 +457,59 @@ class CapturedRun:
         packed[:, :_HEAD].copy_(head_t)
         return packed
 
-    def _replay(self, prog: _Program) -> None:
-        if prog.graph is None:
-            self._body(prog)
+    def _replay(self, prog: _Program, branch) -> None:
+        graph, deltas = prog.graphs[branch]
+        if graph is None:
+            self._body(prog, branch)
             return
-        prog.graph.replay()
-        for fn, a, d in prog.deltas:
+        graph.replay()
+        for fn, a, d in deltas:
             setattr(fn, a, getattr(fn, a) + d)
+
+    def _flush(self, prog: _Program, batches, pending: list, parts: list) -> None:
+        """Replay ``pending`` (consecutive steps, each with its branch's
+        graph), their inputs packed :data:`PACK_STEPS` at a time, and append
+        their metrics' columns to ``parts``."""
+        for c0 in range(0, len(pending), PACK_STEPS):
+            chunk = pending[c0:c0 + PACK_STEPS]
+            packed = self._pack(prog, batches, chunk, c0)
+            for j, (_, _, _, branch) in enumerate(chunk):
+                prog.inbuf.copy_(packed[j])
+                self._replay(prog, branch)
+                n = c0 + j
+                if n % METRIC_COLS == METRIC_COLS - 1 or n == len(pending) - 1:
+                    parts.append(self._mbuf[:, :n % METRIC_COLS + 1].clone())
 
     def segment(self, state: DecentralizedState, batches, lo: int, hi: int):
         """Steps ``lo..hi-1`` of ``batches`` (every leaf (T, ...) on the
         trainer's device) from ``state``; returns (state, metrics), every
-        metric stacked to (hi - lo,)."""
+        metric stacked to (hi - lo,).  Each step's branch and host ints come
+        from the host function; a step whose (signature, branch) has a
+        graph replays it, any other is warmed up there and captured."""
         sig = tuple((tuple(b.shape[1:]), b.dtype) for b in batches)
         prog = self._programs.get(sig)
-        parts = []
-        if prog is None:  # this program's first step, eager: the warm-up
-            state, m = self._warm_up(state, tuple(b[lo] for b in batches))
-            parts.append(torch.stack([m[k] for k in self._keys])[:, None])
-            lo += 1
-            prog = _Program(sig, self.device)
-            self._capture(prog)
-            self._programs[sig] = prog
-        self._take(state)
-        if lo < hi:
-            for i in range(hi - lo):
-                if i % PACK_STEPS == 0:
-                    packed = self._pack(prog, batches, lo + i, min(lo + i + PACK_STEPS, hi),
-                                        state.step + i, state.comm.rounds
-                                        + i * self._ints.get("rounds", 0), i)
-                prog.inbuf.copy_(packed[i % PACK_STEPS])
-                self._replay(prog)
-                if i % METRIC_COLS == METRIC_COLS - 1 or i == hi - lo - 1:
-                    parts.append(self._mbuf[:, :i % METRIC_COLS + 1].clone())
-        state = self._state(state, hi - lo)
+        if self._slot is not None:
+            self._take(state)
+        step, comm = state.step, state.comm
+        parts, pending = [], []
+        for i in range(lo, hi):
+            branch, after = self._branch(step, comm)
+            if prog is not None and branch in prog.graphs:
+                pending.append((i, step, comm.rounds, branch))
+            else:  # this (signature, branch)'s first step, eager: the warm-up
+                self._flush(prog, batches, pending, parts)
+                pending = []
+                self._release()
+                if self._slot is not None:
+                    state = self._slot_state(step, comm)
+                state, m = self._warm_up(state, tuple(b[i] for b in batches), branch, after)
+                parts.append(torch.stack([m[k] for k in self._keys])[:, None])
+                if prog is None:
+                    prog = self._programs[sig] = _Program(sig, self.device)
+                prog.graphs[branch] = None
+                self._capture_all()
+            step, comm = step + 1, after
+        self._flush(prog, batches, pending, parts)
+        state = self._state(step, comm)
         ms = torch.cat(parts, 1)
         return state, {k: ms[j] for j, k in enumerate(self._keys)}

@@ -32,7 +32,13 @@ from repro_torch.comm import (
     CompressionConfig,
 )
 from repro_torch.comm.composed import ComposedMixer
-from repro_torch.comm.protocol import CommState, Mixer, params_device, scalar
+from repro_torch.comm.protocol import (
+    CommState,
+    Mixer,
+    RoundClock,
+    params_device,
+    scalar,
+)
 from repro_torch.comm.topology import StarTopology, StaticTopology
 from repro_torch.comm.transport import DenseTransport, GossipTransport, StarTransport
 from repro_torch.comm.wire import IdentityWire, UniformsFn
@@ -123,12 +129,26 @@ def make_hub_mixer(k: int, compression: CompressionConfig | None = None, *,
     return HubMixer(k, device=device)
 
 
+def scheduled(mixer) -> bool:
+    """Whether ``mixer`` (wrappers peeled) has a codec wire with a rate
+    schedule, whose host part moves from round to round."""
+    while mixer is not None:
+        if getattr(getattr(mixer, "wire", None), "schedule", None) is not None:
+            return True
+        mixer = getattr(mixer, "inner", None)
+    return False
+
+
 class RepeatMixer(Mixer):
     """θ ← θ·W^rounds: several consensus rounds per optimizer step.
 
     Theorem 1's consensus term contracts like ρ^rounds, so m rounds on a
     sparse graph can stand in for a denser graph at m× the wire.
-    ``wire_bits`` sums the inner rounds' bits.
+    ``wire_bits`` sums the inner rounds' bits.  Inner round j runs at the
+    clock's round + j·(the inner rounds' advance), computed on the device,
+    with its own branch from :meth:`plan`.  Under a rate schedule the later
+    inner rounds fill their clocks from the host ints (those stacks run
+    eagerly: ``repro_torch.core.drdsgd.capture_declined``).
     """
 
     def __init__(self, mixer: Mixer, rounds: int):
@@ -136,6 +156,7 @@ class RepeatMixer(Mixer):
             raise ValueError("rounds must be >= 1")
         self.inner = mixer
         self.rounds = rounds
+        self._scheduled = scheduled(mixer)
 
     @property
     def compression(self):
@@ -148,10 +169,34 @@ class RepeatMixer(Mixer):
     def init_state(self, params) -> CommState:
         return self.inner.init_state(params)
 
-    def __call__(self, theta, state: CommState, *, round=None):
-        total_bits = scalar(0.0, params_device(theta))
+    def host_part(self, rounds: int) -> float:
+        return self.inner.host_part(rounds)
+
+    def plan(self, state: CommState):
+        """The inner rounds' branches, in order, and the host ints after
+        them."""
+        branches = []
         for _ in range(self.rounds):
-            theta, state = self.inner(theta, state, round=round)
+            branch, state = self.inner.plan(state)
+            branches.append(branch)
+        return tuple(branches), state
+
+    def __call__(self, theta, state: CommState, *, round=None, clock=None, branch=None,
+                 inplace: bool = False):
+        if branch is None:
+            branch = self.plan(state)[0]
+        rounds0 = state.rounds
+        total_bits = scalar(0.0, params_device(theta))
+        for j in range(self.rounds):
+            if clock is not None and j > 0:
+                # inner round j at the clock's round + (the rounds run so
+                # far); a scheduled wire's later rounds fill their clocks
+                # from the host ints (those stacks run eagerly)
+                clock = None if self._scheduled else RoundClock(
+                    clock.round + (state.rounds - rounds0), clock.part)
+                rounds0 = state.rounds
+            theta, state = self.inner(theta, state, round=round, clock=clock,
+                                      branch=branch[j], inplace=inplace)
             total_bits = total_bits + state.wire_bits
         # wire_bits is per-step accounting: sum the inner rounds
         return theta, state._replace(wire_bits=total_bits)

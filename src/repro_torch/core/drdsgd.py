@@ -32,21 +32,25 @@ eager step runs and the trainer's CUDA graph captures
 to step on the host, but takes the step's scalars as 0-d tensors
 (:class:`StepScalars`: η and Adam's bias corrections, the round the mixer
 runs and its rate schedule's host part), which ``train_step.host_scalars``
-computes on the host and the eager step fills.  With ``inplace=True`` the
-form writes the new parameters (B.1's ``out``, the optimizer, the static
-codec rounds) and the optimizer state and θ̂ (the dense codec round) into
-the state's own tensors: the captured step's slot.  The same operations
-run either way, so the eager step, the capturable form and its replays give
-the same bits.  :func:`capture_declined` says which stacks the trainer
-captures.
+computes on the host and the eager step fills, and the step's branch, a
+host key (``train_step.host_branch``: whether the step mixes, then each
+wrapper's consensus test and each clocked EF round's re-base decision, in
+order, from the step and the ``CommState``'s host ints, which it also
+advances), where the reference uses ``lax.cond``.  The round is read only
+from ``StepScalars.round``.  With ``inplace=True`` the form writes the new
+parameters (B.1's ``out``, the optimizer, the static codec rounds) and the
+optimizer state and θ̂ (the dense codec round) into the state's own
+tensors: the captured step's slot.  The same operations run either way, so
+the eager step, the capturable form and its replays give the same bits.
+:func:`capture_declined` says which stacks the trainer captures.
 
 ``TrainStepConfig.mix_every`` > 1 mixes only on the steps ``mix_every − 1,
 2·mix_every − 1, ...``: the off-steps skip the mixer, pass the
 ``CommState`` through unchanged and report 0 ``comm_bytes`` and
 ``wire_bits``.  A fault process with ``straggler_skips_compute`` (found by
 peeling ``LocalUpdateMixer`` and ``RepeatMixer`` off the mixer) multiplies
-the robust scale by the round's node-up vector, replayed on the device from
-``state.comm.rounds`` before the round.
+the robust scale by the round's node-up vector, drawn on the device at
+``StepScalars.round`` (the round the mixer consumes).
 
 The metrics stay on the device as 0-d tensors; nothing in a step waits for
 the device.  Every step reports ``disagreement`` (the reference's optional
@@ -85,7 +89,7 @@ from repro_torch.comm.protocol import (
     scalar,
     trivial_comm_state,
 )
-from repro_torch.comm.transport import DenseTransport, StarTransport
+from repro_torch.comm.transport import DenseTransport
 from repro_torch.comm.wire import IdentityWire
 from repro_torch.core.robust import (
     RobustConfig,
@@ -219,27 +223,39 @@ def _fused_w(optimizer: Optimizer, mixer: Mixer, mix_every: int):
     return mixer.w
 
 
-def _unfused_declined(optimizer: Optimizer, mixer: Mixer, mix_every: int) -> str | None:
-    """Why the unfused step (the optimizer, then one round of the mixer)
-    has no capturable form (None where it has): the optimizer must have a
-    device form (``apply``), and a static ``ComposedMixer`` round must run
-    on every step, its wire drawing its own noise.  A wrapper mixer, a
-    time-varying topology (dynamics: the clocked EF gossip stack is one)
-    and the hub branch on their host clocks; a ``uniforms`` hook is a host
-    callable."""
+def _mixer_declined(mixer: Mixer) -> str | None:
+    """Why the mixer's rounds cannot be captured (None where they can),
+    wrappers peeled: every mixer a class of the port's (a class of the
+    caller's may read its round on the host), no schedule class or fault seam that
+    takes the round as a host int, no noise hook, and no rate schedule
+    under ``RepeatMixer`` (its later rounds' host parts)."""
+    m = mixer
+    while m is not None:
+        if not type(m).__module__.startswith("repro_torch."):
+            return f"a mixer the port does not define ({type(m).__name__})"
+        if getattr(m, "_scheduled", False) and getattr(m, "rounds", 1) > 1:
+            return "a rate schedule under RepeatMixer reads its later rounds' host parts"
+        topo = getattr(m, "topo", None)
+        if getattr(topo, "foreign", None):
+            return topo.foreign
+        if getattr(topo, "faults", None) is not None and comm_topology.seam_replaced():
+            return "a replaced fault seam (round_fault_masks) takes the round on the host"
+        if getattr(getattr(m, "wire", None), "hooked", False):
+            return "a uniforms hook (a host callable) draws the wire's noise"
+        m = getattr(m, "inner", None)
+    return None
+
+
+def _unfused_declined(optimizer: Optimizer, mixer: Mixer) -> str | None:
+    """Why the unfused step (the optimizer, then the mixer's round on the
+    mix steps) has no capturable form (None where it has): the optimizer
+    must have a device form (``apply``) and the mixer's rounds must be
+    capturable (:func:`_mixer_declined`).  Every other choice the step
+    makes (``mix_every``, a wrapper's consensus test, the clocked EF
+    stack's re-base) is a branch the host chooses."""
     if optimizer.apply is None:
         return "the optimizer has no device form (an Optimizer(init, update))"
-    if mix_every > 1:
-        return f"mix_every = {mix_every}: the off-steps skip the round"
-    if not isinstance(mixer, ComposedMixer):
-        return f"a wrapper mixer ({type(mixer).__name__})"
-    if getattr(mixer, "_dynamic", False):
-        return "a time-varying topology (dynamics)"
-    if isinstance(mixer.transport, StarTransport):
-        return "the hub (StarTransport)"
-    if mixer.wire.hooked:
-        return "a uniforms hook (a host callable) draws the wire's noise"
-    return None
+    return _mixer_declined(mixer)
 
 
 def capture_declined(loss_fn, optimizer: Optimizer, mixer: Mixer, mix_every: int, *,
@@ -248,12 +264,14 @@ def capture_declined(loss_fn, optimizer: Optimizer, mixer: Mixer, mix_every: int
     it does; the CPU then runs the same capturable form eagerly).  The
     captured step is the fused one where it applies
     (:func:`_fused_declined`), else the unfused one
-    (:func:`_unfused_declined`): any optimizer with a device form, then a
-    static dense or gossip round, with any codec wire, on every step.  The
-    telemetry tap and the sanitizer's checks read the step on the host's
-    schedule, and a loss that carries ``capture_declined`` (an LM family
-    whose node-stacked loss still loops over the nodes) says why itself;
-    each of those steps runs eagerly."""
+    (:func:`_unfused_declined`): any optimizer with a device form, then any
+    of the port's mixers (static or time-varying, faulted, dense, gossip or
+    hub, any codec wire, wrapped in ``LocalUpdateMixer`` or
+    ``RepeatMixer``), on every step or every ``mix_every``-th, one graph per
+    branch the host chooses.  The telemetry tap and the sanitizer's checks
+    read the step on the host's schedule, and a loss that carries
+    ``capture_declined`` (an LM family whose node-stacked loss still loops
+    over the nodes) says why itself; each of those steps runs eagerly."""
     if obs is not None:
         return "a telemetry sink (obs) taps the step"
     if sanitize:
@@ -261,11 +279,9 @@ def capture_declined(loss_fn, optimizer: Optimizer, mixer: Mixer, mix_every: int
     reason = getattr(loss_fn, "capture_declined", None)
     if reason:
         return reason
-    if _fused_declined(optimizer, mixer, mix_every) is not None:
-        reason = _unfused_declined(optimizer, mixer, mix_every)
-    if reason is None and _step_faults(mixer) is not None:
-        return "straggler_skips_compute reads the round's faults"
-    return reason
+    if _fused_declined(optimizer, mixer, mix_every) is None:
+        return None
+    return _unfused_declined(optimizer, mixer)
 
 
 def _step_faults(mixer: Mixer):
@@ -349,7 +365,6 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
             "spelling: it keeps CommState.rounds ticking every step)")
     fused_w = _fused_w(optimizer, mixer, cfg.mix_every)
     step_faults = _step_faults(mixer)
-    composed = isinstance(mixer, ComposedMixer)
     n_opt = len(optimizer.scalars(0)) if optimizer.scalars is not None else 0
     if sanitize is not None:
         from repro_torch.analysis.sanitize import step_checks
@@ -360,7 +375,7 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
                 "DecentralizedState.comm must be the mixer's CommState — "
                 "build the state with init_state(params, optimizer, mixer=mixer)")
 
-    def grads_and_weights(state, batch, names):
+    def grads_and_weights(state, batch, names, sc: StepScalars):
         """The per-node losses and gradients (clipped), the robust scale and
         the mixture weights."""
         with scope("obs:grad"):
@@ -380,10 +395,10 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
             scale = robust_scale(losses, cfg.robust)   # (K,)
             lam = mixture_weights(losses, cfg.robust)  # (K,) adversarial λ*
             if step_faults is not None:
-                # a down node loses its gradient: the round's up vector, replayed
-                # from the clock before the round (the round the mixer consumes)
-                _, up = comm_topology.round_fault_masks(step_faults, state.comm.rounds,
-                                                        losses.shape[0], losses.device)
+                # a down node loses its gradient: the round's up vector, drawn at
+                # the step's round (the round the mixer consumes)
+                _, up = comm_topology.fault_masks(step_faults, sc.round, losses.shape[0],
+                                                  losses.device)
                 scale = scale * up
         return losses, grads, scale, lam
 
@@ -426,18 +441,30 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
         the round ``rounds`` and the wire's rate-schedule host part of it."""
         opt = optimizer.scalars(step) if optimizer.scalars is not None else (0.0,)
         bc = opt[1:3] if len(opt) == 3 else (1.0, 1.0)
-        part = mixer.host_part(rounds) if composed else 0.0
+        part = mixer.host_part(rounds)
         return (opt[0], *bc, int(rounds), part)
 
-    def fused_step(state: DecentralizedState, batch, sc: StepScalars, inplace: bool = False):
+    def host_branch(step: int, comm: CommState):
+        """The step's branch, a host key — (whether the step mixes, the
+        mixer's branch from ``Mixer.plan``: each wrapper's consensus test
+        and each clocked EF round's re-base, in order) — and the
+        ``CommState`` with its host ints after the step."""
+        if step % cfg.mix_every != cfg.mix_every - 1:  # repro: noqa[RPR001] (host ints)
+            return (False, None), comm
+        branch, after = mixer.plan(comm)
+        return (True, branch), after
+
+    def fused_step(state: DecentralizedState, batch, sc: StepScalars, inplace: bool = False,
+                   branch=None):
         """The fused step (scale, SGD and the dense round in B.1), η read
         from ``sc.eta``; ``inplace`` makes the parameters B.1's ``out``
         (updated in place: each of its threads reads every node's column
         before it writes that column).  Nothing reads the parameters after
-        B.1 (the round's bookkeeping reads their shapes only)."""
+        B.1 (the round's bookkeeping reads their shapes only).  It mixes on
+        every step, so its one branch is ``(True, None)``."""
         check_comm(state)
         names = leaf_names(state.params)
-        losses, grads, scale, lam = grads_and_weights(state, batch, names)
+        losses, grads, scale, lam = grads_and_weights(state, batch, names, sc)
         out = state.params if inplace else None
         # scale, SGD and the dense consensus round: one pass over every
         # leaf of a dtype (one B.1 launch per step on the card)
@@ -454,17 +481,21 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
             comm = mixer.round_state(state.params, state.comm)
         return finish(state, losses, scale, lam, mixed, state.opt_state, comm, True)
 
-    def unfused_step(state: DecentralizedState, batch, sc: StepScalars, inplace: bool = False):
+    def unfused_step(state: DecentralizedState, batch, sc: StepScalars, inplace: bool = False,
+                     branch=None):
         """The optimizer, then the mixer's round, reading the step's scalars
-        from ``sc``; ``inplace`` lets the optimizer and a static codec round
-        write into the state's own tensors.  An optimizer without a device
-        form and a wrapper mixer read the host step and round instead (their
-        stacks run eagerly)."""
+        from ``sc`` and its branch from ``branch`` (:func:`host_branch`'s
+        key; None: chosen here from the state's host fields); ``inplace``
+        lets the optimizer and a static codec round write into the state's
+        own tensors.  An optimizer without a device form reads the host step
+        instead (its stacks run eagerly)."""
         check_comm(state)
         names = leaf_names(state.params)
-        losses, grads, scale, lam = grads_and_weights(state, batch, names)
-        # mix_every > 1: off-steps skip the mixer (state.step is a host int)
-        is_mix_step = state.step % cfg.mix_every == cfg.mix_every - 1
+        losses, grads, scale, lam = grads_and_weights(state, batch, names, sc)
+        # mix_every > 1: off-steps skip the mixer (a branch the host chose)
+        if branch is None:
+            branch = host_branch(state.step, state.comm)[0]
+        is_mix_step, mixer_branch = branch
         # --- local optimizer step (plain SGD in the paper)
         with scope("obs:local_update"):
             scaled = _scaled(grads, scale)
@@ -480,11 +511,9 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
         with scope("obs:consensus"):
             if not is_mix_step:  # repro: noqa[RPR001] (a host bool: step is a host int)
                 mixed, comm = updated, state.comm
-            elif composed:
-                mixed, comm = mixer(updated, state.comm, round=state.step, clock=sc,
-                                    inplace=inplace)
             else:
-                mixed, comm = mixer(updated, state.comm, round=state.step)
+                mixed, comm = mixer(updated, state.comm, round=state.step, clock=sc,
+                                    inplace=inplace, branch=mixer_branch)
         return finish(state, losses, scale, lam, mixed, opt_state, comm, is_mix_step)
 
     form = fused_step if fused_w is not None else unfused_step
@@ -493,11 +522,13 @@ def build_train_step(loss_fn: LossFn, optimizer: Optimizer, mixer: Mixer,
         check_comm(state)
         device = next(iter(state.params.values())).device
         return form(state, batch, step_scalars(host_scalars(state.step, state.comm.rounds),
-                                               device))
+                                               device),
+                    branch=host_branch(state.step, state.comm)[0])
 
-    # the capturable form, and the host function of its scalars
+    # the capturable form, and the host functions of its scalars and branch
     train_step.capturable = form
     train_step.host_scalars = host_scalars
+    train_step.host_branch = host_branch
     return train_step
 
 

@@ -18,30 +18,29 @@ Semantics:
   rounds with probability ``outage_p`` per window (the coin is drawn per
   ``rounds // outage_len`` window).
 
-The coins are a pure function of the round: each stream (links, stragglers)
-comes from a ``torch.Generator`` on the device seeded with a blake2b hash
-of (seed, round), and the outage stream from one seeded with a hash of
-(seed ^ 0x5DEECE66, window).  A run therefore replays the same fault
-sequence, and the dense and gossip lowerings see the same faults.  These
-are not the reference's bits (it folds the round into a JAX key), and a
-CUDA generator's bits differ from a CPU generator's; the tests hold the
-sampler on its rates and inject the reference's replayed masks where they
-compare arithmetic.  ``rounds`` is a host int, so no round reads the
-device.
+The coins are a pure function of (seed, stream, round): one Philox draw
+per round on the device (:mod:`repro_torch.dynamics.coins`: the links,
+stragglers and outages streams in one launch on the card, the outage
+stream at its window ``round // outage_len``), with the round read on the
+device from a 0-d int64 tensor, so a captured step draws the faults of the
+round it replays.  A run therefore replays the same fault sequence, the
+dense and gossip lowerings see the same faults, and the CPU draws the same
+masks as the card.  These are not the reference's bits (it folds the round
+into a JAX key); the tests hold the sampler on its rates and inject the
+reference's replayed masks where they compare arithmetic.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 
 import numpy as np
 import torch
 
+from repro_torch.comm.protocol import round_tensor
 from repro_torch.device import resolve_device
+from repro_torch.dynamics import coins
 from repro_torch.graphs.mixing import symmetric_uniform
-
-OUTAGE_SEED_XOR = 0x5DEECE66  # the reference's outage-stream seed constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,36 +84,32 @@ class FaultConfig:
                 or self.outage_p > 0)
 
 
-def _generator(device: torch.device, stream: str, seed: int, index: int) -> torch.Generator:
-    digest = hashlib.blake2b(f"faults-{stream}:{seed}:{index}".encode(),
-                             digest_size=8).digest()
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int.from_bytes(digest, "little") >> 1)  # manual_seed takes < 2**63
-    return gen
-
-
-def fault_keep_matrix(cfg: FaultConfig, rounds: int, k: int, device="cuda"):
+def fault_keep_matrix(cfg: FaultConfig, round, k: int, device="cuda"):
     """The round's symmetric (K, K) link keep mask and (K,) node-up vector.
 
-    Both are float32 in {0, 1} on ``device`` (``keep``'s diagonal is
-    meaningless); a link is kept iff its own coin passes and both endpoints
-    are up.
+    ``round`` is a 0-d int64 tensor on ``device`` (a host int is filled
+    into one).  Both masks are float32 in {0, 1} on ``device`` (``keep``'s
+    diagonal is meaningless); a link is kept iff its own coin passes and
+    both endpoints are up.  One Philox launch on the card draws every
+    enabled stream.
     """
     dev = resolve_device(device)
+    r = round_tensor(round, dev)
+    streams = [(name, shape, stream, div) for name, p, shape, stream, div in (
+        ("link", cfg.link_drop_p, (k, k), coins.LINKS, 1),
+        ("straggler", cfg.straggler_p, (k,), coins.STRAGGLERS, 1),
+        ("outage", cfg.outage_p, (k,), coins.OUTAGES, cfg.outage_len)) if p > 0]
+    drawn = dict(zip([s[0] for s in streams], coins.draw(
+        cfg.seed, r, [s[1] for s in streams], [s[2] for s in streams],
+        [s[3] for s in streams]))) if streams else {}
     keep = torch.ones((k, k), dtype=torch.float32, device=dev)
-    if cfg.link_drop_p > 0:
-        u = symmetric_uniform(_generator(dev, "link", cfg.seed, rounds), k)
-        keep = keep * (u >= cfg.link_drop_p).float()
+    if "link" in drawn:
+        keep = keep * (symmetric_uniform(drawn["link"]) >= cfg.link_drop_p).float()
     up = torch.ones((k,), dtype=torch.float32, device=dev)
-    if cfg.straggler_p > 0:
-        us = torch.rand((k,), generator=_generator(dev, "straggler", cfg.seed, rounds),
-                        dtype=torch.float32, device=dev)
-        up = up * (us >= cfg.straggler_p).float()
-    if cfg.outage_p > 0:
-        window = rounds // cfg.outage_len
-        gen = _generator(dev, "outage", cfg.seed ^ OUTAGE_SEED_XOR, window)
-        uo = torch.rand((k,), generator=gen, dtype=torch.float32, device=dev)
-        up = up * (uo >= cfg.outage_p).float()
+    if "straggler" in drawn:
+        up = up * (drawn["straggler"] >= cfg.straggler_p).float()
+    if "outage" in drawn:
+        up = up * (drawn["outage"] >= cfg.outage_p).float()
     keep = keep * up[:, None] * up[None, :]
     return keep, up
 
@@ -122,11 +117,11 @@ def fault_keep_matrix(cfg: FaultConfig, rounds: int, k: int, device="cuda"):
 def replay_fault_masks(cfg: FaultConfig, rounds, k: int, device="cuda"):
     """Replay the fault process for an array of round indices at once.
 
-    The process is a pure function of the round, so a past run's masks
-    rebuild exactly from its config on the device that drew them (a CUDA
-    generator's bits are not a CPU generator's).  Each round goes through
-    :func:`repro_torch.comm.topology.round_fault_masks`, the seam the
-    mixers use.  Returns numpy ``(keep (R, K, K), up (R, K))``.
+    The process is a pure function of (seed, round) whose coins are the same
+    on every device, so a past run's masks rebuild exactly from its config
+    on any device: a card run's masks replay on the CPU.  Each round goes
+    through :func:`repro_torch.comm.topology.round_fault_masks`, the seam
+    the mixers use.  Returns numpy ``(keep (R, K, K), up (R, K))``.
     """
     from repro_torch.comm import topology
 

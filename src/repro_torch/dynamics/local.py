@@ -22,8 +22,11 @@ clock: ``CommState.rounds`` counts optimizer steps (the inner mixer's
 increment is overwritten), so a wrapped topology, fault process or rate
 schedule advances on the step clock; the EF gossip stack keeps its own
 clock of executed rounds in ``ef_rounds``.  Consensus runs on the rounds
-``H − 1, 2H − 1, ...``: a branch on the host int ``rounds`` where the
-reference uses ``lax.cond``.
+``H − 1, 2H − 1, ...``: a branch the host chooses from the host int
+``rounds`` (:meth:`LocalUpdateMixer.plan`, passed back as ``branch``; the
+trainer captures one graph per branch) where the reference uses
+``lax.cond``.  The inner round and the tracker exchange read the round
+from the step's clock.
 
 Wire: local rounds report 0 bits; gradient tracking doubles a consensus
 round's bits (the tracker Δ is exchanged full-precision beside θ), which is
@@ -96,23 +99,42 @@ class LocalUpdateMixer(Mixer):
         b = self.inner.bytes_per_round(params)
         return 2 * b if self.gt else b
 
+    def host_part(self, rounds: int) -> float:
+        return self.inner.host_part(rounds)
+
+    def plan(self, state: CommState):
+        """(consensus, the inner round's branch) — (False, None) on a local
+        round — and the host ints after the round: ``rounds`` one on, the
+        inner round's other clocks (``ef_rounds``) on a consensus round."""
+        if state.rounds % self.period != self.period - 1:  # repro: noqa[RPR001] (host ints)
+            return (False, None), state._replace(rounds=state.rounds + 1)
+        inner, after = self.inner.plan(state)
+        return (True, inner), after._replace(rounds=state.rounds + 1)
+
     # -- the wrapper ----------------------------------------------------------
 
-    def __call__(self, theta, state: CommState, *, round=None):
+    def __call__(self, theta, state: CommState, *, round=None, clock=None, branch=None,
+                 inplace: bool = False):
+        """One round: local, or the inner consensus round, as ``branch``
+        (:meth:`plan`'s; None: chosen here from ``state.rounds``) says,
+        reading the round from ``clock`` (None: the inner mixer fills it)."""
+        if branch is None:
+            branch = self.plan(state)[0]
+        consensus, inner_branch = branch
         track = state.track
         if self.gt:
             corr, anchor = track
             theta = {n: (x.float() + corr[n]).to(x.dtype) for n, x in theta.items()}
-        consensus = state.rounds % self.period == self.period - 1
-        if not consensus:  # repro: noqa[RPR001] (rounds is a host int: eager torch)
+        if not consensus:  # repro: noqa[RPR001] (a host bool: the branch the host chose)
             return theta, state._replace(
                 rounds=state.rounds + 1, track=track,
                 wire_bits=scalar(0.0, params_device(theta)))
-        mixed, st2 = self.inner(theta, state, round=round)
+        mixed, st2 = self.inner(theta, state, round=round, clock=clock,
+                                branch=inner_branch, inplace=inplace and not self.gt)
         if self.gt:
             delta = {n: x.float() - anchor[n] for n, x in theta.items()}
             with scope("obs:consensus/tracker_exchange"):
-                wdelta = self.inner.mix_tree(delta, state)
+                wdelta = self.inner.mix_tree(delta, state, clock)
             corr2 = {n: corr[n] + (wdelta[n] - delta[n]) / self.period for n in corr}
             st2 = st2._replace(track=(corr2, _f32_copy(mixed)), wire_bits=2.0 * st2.wire_bits)
         else:

@@ -158,8 +158,10 @@ class DynamicCompressedGossipMixer(CompressedGossipMixer):
     ``ef_rebase_every`` (B): 0 never re-bases (only valid for a static
     schedule), 1 re-bases every round.  ``ef_rebase_threshold`` > 0
     replaces the fixed clock with the drift proxy ‖s − W_r θ̂‖_F, measured
-    each round (read on the host: one sync per round) and kept in
-    ``CommState.ef_drift``.
+    each round and kept in ``CommState.ef_drift``: both modes' accumulations
+    run and the round's outputs are selected on the device (no sync).  The
+    fixed clock's mode is a branch the host chooses from ``ef_rounds``
+    (``plan``).
     """
 
     def __init__(self, schedule: TopologySchedule, compression: CompressionConfig,

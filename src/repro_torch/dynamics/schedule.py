@@ -19,22 +19,24 @@ each round.
   square every round and connect within ``radius``; Metropolis weights are
   re-derived on the device.  Dense lowering only (the support moves).
 
-Randomness is a pure function of the round: round r's coins come from a
-``torch.Generator`` on the schedule's device seeded with a hash of
-(seed, r), so a run replays the same topology sequence.  These are not the
-reference's bits (it folds the round into a JAX key); the tests hold the
-sampler on its rates and inject the reference's W_r where they compare
-arithmetic.
+Randomness is a pure function of (seed, round): round r's coins are one
+Philox draw on the device (:mod:`repro_torch.dynamics.coins`), the round
+read there from a 0-d int64 tensor, so a run replays the same topology
+sequence, a captured step draws the W_r of the round it replays, and the
+CPU draws the same W_r as the card.  ``round_weights`` takes that tensor
+(a host int is filled into one).  These are not the reference's bits (it
+folds the round into a JAX key); the tests hold the sampler on its rates
+and inject the reference's W_r where they compare arithmetic.
 """
 
 from __future__ import annotations
 
-import hashlib
-
 import numpy as np
 import torch
 
+from repro_torch.comm.protocol import round_tensor
 from repro_torch.device import resolve_device
+from repro_torch.dynamics import coins
 from repro_torch.graphs.mixing import (
     MixingDecomposition,
     metropolis_weights_traced,
@@ -42,11 +44,6 @@ from repro_torch.graphs.mixing import (
     renormalize_masked_weights,
     symmetric_uniform,
 )
-
-
-def _round_seed(seed: int, rounds: int) -> int:
-    digest = hashlib.blake2b(f"topology:{seed}:{rounds}".encode(), digest_size=8).digest()
-    return int.from_bytes(digest, "little") >> 1  # manual_seed takes < 2**63
 
 
 class TopologySchedule:
@@ -67,8 +64,9 @@ class TopologySchedule:
     static_support = True
     seed = 0
 
-    def round_weights(self, rounds: int) -> torch.Tensor:
-        """The (K, K) doubly-stochastic W of round ``rounds``."""
+    def round_weights(self, round) -> torch.Tensor:
+        """The (K, K) doubly-stochastic W of round ``round`` (a 0-d int64
+        tensor on ``device``; a host int is filled into one)."""
         raise NotImplementedError
 
     def base_weights(self) -> np.ndarray:
@@ -84,11 +82,6 @@ class TopologySchedule:
                 "only the dense lowering can run it")
         return permutation_decomposition(self.base_weights())
 
-    def _round_generator(self, rounds: int) -> torch.Generator:
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(_round_seed(self.seed, rounds))
-        return gen
-
 
 class StaticSchedule(TopologySchedule):
     """Constant topology — the frozen-graph baseline as a schedule."""
@@ -99,7 +92,7 @@ class StaticSchedule(TopologySchedule):
         self.w = torch.as_tensor(self._w_np, dtype=torch.float32).to(self.device)
         self.k = int(self.w.shape[0])
 
-    def round_weights(self, rounds: int) -> torch.Tensor:
+    def round_weights(self, round) -> torch.Tensor:
         return self.w
 
     def base_weights(self) -> np.ndarray:
@@ -109,9 +102,10 @@ class StaticSchedule(TopologySchedule):
 class RoundRobinSchedule(TopologySchedule):
     """One matching of the edge colouring per round, cycled round-robin.
 
-    Round r exchanges only along matching ``r % M``; the matched pairs keep
-    their base pairwise weight and return the unmatched mass to the
-    diagonal, so each W_r is doubly stochastic.
+    Round r exchanges only along matching ``r % M`` (picked out of the
+    stack on the device); the matched pairs keep their base pairwise weight
+    and return the unmatched mass to the diagonal, so each W_r is doubly
+    stochastic.
     """
 
     def __init__(self, w: np.ndarray, *, device="cuda"):
@@ -136,8 +130,11 @@ class RoundRobinSchedule(TopologySchedule):
     def num_matchings(self) -> int:
         return int(self._stack.shape[0])
 
-    def round_weights(self, rounds: int) -> torch.Tensor:
-        return self._stack[rounds % self._stack.shape[0]]
+    def round_weights(self, round) -> torch.Tensor:
+        r = round_tensor(round, self.device)
+        # a (1,) index (a 0-d index would be read on the host)
+        idx = torch.remainder(r, self._stack.shape[0]).reshape(1)
+        return torch.index_select(self._stack, 0, idx)[0]
 
     def base_weights(self) -> np.ndarray:
         return self._w_np
@@ -164,10 +161,11 @@ class DropoutSchedule(TopologySchedule):
         self.p = float(p)
         self.seed = seed
 
-    def round_weights(self, rounds: int) -> torch.Tensor:
+    def round_weights(self, round) -> torch.Tensor:
         if self.p == 0.0:
             return self.w
-        u = symmetric_uniform(self._round_generator(rounds), self.k)
+        r = round_tensor(round, self.device)
+        u = symmetric_uniform(coins.draw(self.seed, r, [(self.k, self.k)], [coins.DROPOUT])[0])
         keep = (u >= self.p).float()
         return renormalize_masked_weights(self.w, keep)
 
@@ -196,9 +194,9 @@ class GeometricRedrawSchedule(TopologySchedule):
         self.seed = seed
         self.device = resolve_device(device)
 
-    def round_weights(self, rounds: int) -> torch.Tensor:
-        pts = torch.rand((self.k, 2), generator=self._round_generator(rounds),
-                         dtype=torch.float32, device=self.device)
+    def round_weights(self, round) -> torch.Tensor:
+        r = round_tensor(round, self.device)
+        pts = coins.draw(self.seed, r, [(self.k, 2)], [coins.GEOMETRIC])[0]
         d2 = (pts[:, None, :] - pts[None, :, :]).square().sum(dim=-1)
         adj = (d2 < self.radius ** 2).float()
         adj = adj * (1.0 - torch.eye(self.k, dtype=torch.float32, device=self.device))
@@ -206,6 +204,10 @@ class GeometricRedrawSchedule(TopologySchedule):
 
     def base_weights(self) -> np.ndarray:
         raise ValueError("geometric re-draw has no static base support")
+
+
+# the schedules the port defines: each reads the round on the device
+PORT_SCHEDULES = (StaticSchedule, RoundRobinSchedule, DropoutSchedule, GeometricRedrawSchedule)
 
 
 def make_schedule(kind: str, *, w: np.ndarray | None = None,

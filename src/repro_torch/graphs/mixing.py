@@ -18,7 +18,8 @@ the node axis (``src = perm``), where the reference runs one ``ppermute``.
 
 The torch functions (``metropolis_weights_traced``,
 ``renormalize_masked_weights``, ``symmetric_uniform``) build a round's W on
-the caller's device for the time-varying schedules (``repro_torch.dynamics``).
+the caller's device for the time-varying schedules (``repro_torch.dynamics``),
+from coins the caller draws (``repro_torch.dynamics.coins``).
 """
 
 from __future__ import annotations
@@ -61,6 +62,21 @@ def lazy_metropolis_weights(graph: Graph, laziness: float = 0.5) -> np.ndarray:
     return (1.0 - laziness) * np.eye(graph.num_nodes) + laziness * w
 
 
+def _row_sums(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of a (K, K) float32 matrix in one fixed order on every
+    device: the columns zero-padded to a power of two and summed by a
+    pairwise tree, each level one elementwise add (a reduction kernel's
+    order differs between the CPU and the card), so that a round's W is
+    the same bits wherever it is computed."""
+    width = 1 << max(x.shape[1] - 1, 0).bit_length()
+    if width != x.shape[1]:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[1]))
+    while x.shape[1] > 1:
+        half = x.shape[1] // 2
+        x = x[:, :half] + x[:, half:]
+    return x[:, 0]
+
+
 def metropolis_weights_traced(adj: torch.Tensor) -> torch.Tensor:
     """Float32 twin of :func:`metropolis_weights` on ``adj``'s device, for
     graphs that change every round.  ``adj`` is a (K, K) symmetric 0/1
@@ -70,7 +86,7 @@ def metropolis_weights_traced(adj: torch.Tensor) -> torch.Tensor:
     a = adj.float() * (1.0 - eye)
     deg = a.sum(dim=1)
     w = a / (1.0 + torch.maximum(deg[:, None], deg[None, :]))
-    return w + torch.diag(1.0 - w.sum(dim=1))
+    return w + torch.diag(1.0 - _row_sums(w))
 
 
 def renormalize_masked_weights(w: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -83,22 +99,22 @@ def renormalize_masked_weights(w: torch.Tensor, keep: torch.Tensor) -> torch.Ten
         W'_ii = W_ii + Σ_j W_ij · (1 − keep_ij)
 
     W' stays symmetric with exact row sums.  With ``keep ≡ 1`` the result is
-    bit-identical to ``w``.
+    bit-identical to ``w``.  The returned mass is summed in one fixed order
+    (:func:`_row_sums`), the same bits on the CPU and the card.
     """
     k = w.shape[0]
     eye = torch.eye(k, dtype=torch.float32, device=w.device)
     off = w * (1.0 - eye)
     kept = off * keep.float()
-    returned = (off - kept).sum(dim=1)
+    returned = _row_sums(off - kept)
     return kept + torch.diag(torch.diagonal(w) + returned)
 
 
-def symmetric_uniform(gen: torch.Generator, k: int) -> torch.Tensor:
-    """Symmetric (K, K) U[0,1) matrix with a zero diagonal: one draw per
-    unordered pair, from ``gen`` on ``gen``'s device.  The dense and gossip
-    lowerings read their link coins from this one matrix, so they agree on
-    which links dropped."""
-    u = torch.rand((k, k), generator=gen, dtype=torch.float32, device=gen.device)
+def symmetric_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Symmetric (K, K) U[0,1) matrix with a zero diagonal from a (K, K)
+    draw ``u``: one coin per unordered pair, from ``u``'s upper triangle.
+    The dense and gossip lowerings read their link coins from this one
+    matrix, so they agree on which links dropped."""
     upper = torch.triu(u, 1)
     return upper + upper.T
 

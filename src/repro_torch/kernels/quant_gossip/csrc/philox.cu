@@ -12,11 +12,17 @@
 // pointer, at every launch.
 //
 // For element e of leaf l (its (K, D) block flattened) in round r, with
-// matching m (0 off the masked wire) and key k (CommState.key):
+// matching m (0 off the masked wire), key k (CommState.key) and the leaf's
+// round divisor d (1 for the wire's noise):
 //
 //     key     = (k mod 2^32, (k >> 32) mod 2^32)
-//     counter = (e >> 2, l, m, r mod 2^32)
+//     counter = (e >> 2, l, m, floor(r / d) mod 2^32)
 //     u[e]    = (word (e mod 4) of Philox(counter, key) >> 8) * 2^-24
+//
+// The dynamics' fault and topology coins draw from the same kernel
+// (repro_torch/dynamics/coins.py), one leaf per stream at leaf indices the
+// wire never uses; the divisor keys the outage stream by its window
+// floor(r / outage_len), so that one launch draws every coin of a round.
 //
 // which is exact in float32 and lies in [0, 1).  Every (key, round, leaf,
 // matching, element) has its own counter, so a leaf drawn alone equals the
@@ -47,12 +53,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxLeaves = 16;
-constexpr int kDesc = 4;  // longs per leaf in a descriptor
+constexpr int kDesc = 5;  // longs per leaf in a descriptor
 
 struct PhiloxLeaf {
   float* out;
   long long n;           // elements
   long long cta_begin;   // CTAs of the launch's earlier leaves
+  long long divisor;     // the round's divisor (>= 1): the counter's last word is r / divisor
   unsigned index;        // the leaf's index in the round (the counter's second word)
   int vec;               // 16-byte stores
 };
@@ -96,8 +103,11 @@ __global__ void __launch_bounds__(kThreads) philox_uniforms_kernel(const __grid_
   const long long g = (b - t.leaf[l].cta_begin) * kThreads + threadIdx.x;  // e >> 2
   const long long e = 4 * g;
   if (e >= n) return;
+  const long long r = *t.round;
+  const long long d = t.leaf[l].divisor;
+  const long long q = d == 1 ? r : r / d - (r % d < 0 ? 1 : 0);  // floor(r / d)
   unsigned c[4] = {static_cast<unsigned>(g), t.leaf[l].index, t.matching,
-                   static_cast<unsigned>(static_cast<unsigned long long>(*t.round))};
+                   static_cast<unsigned>(static_cast<unsigned long long>(q))};
   philox4x32_10(c, t.k0, t.k1);
   const float v[4] = {unit(c[0]), unit(c[1]), unit(c[2]), unit(c[3])};
   if (e + 4 <= n && t.leaf[l].vec) {
@@ -122,11 +132,11 @@ extern "C" void philox_config(long long* out) {
 
 // The uniforms of n <= kMaxLeaves leaves of one round.  desc holds, per
 // leaf, kDesc longs: out (float32, its elements), the element count, the
-// leaf's index in the round, and the prefix count of CTAs before it (per
-// leaf: ceil(ceil(count / 4) / kThreads)).  key: the wire's key, both
-// words; round: one int64 on the card; matching: the matching (0 off the
-// masked wire).  Launches on `stream`; returns the cudaError_t (0 on
-// success).
+// leaf's index in the round, the prefix count of CTAs before it (per
+// leaf: ceil(ceil(count / 4) / kThreads)) and its round divisor (>= 1).
+// key: the wire's key, both words; round: one int64 on the card; matching:
+// the matching (0 off the masked wire).  Launches on `stream`; returns the
+// cudaError_t (0 on success).
 extern "C" int philox_uniforms_grouped_f32(const long long* desc, int n, unsigned long long key,
                                            const long long* round, int matching, void* stream) {
   if (n <= 0 || n > kMaxLeaves || round == nullptr || matching < 0) {
@@ -146,7 +156,9 @@ extern "C" int philox_uniforms_grouped_f32(const long long* desc, int n, unsigne
     L.n = e[1];
     L.index = static_cast<unsigned>(e[2]);
     L.cta_begin = e[3];
-    if (L.n <= 0 || L.n >= (1LL << 34) || e[2] < 0 || e[2] > UINT_MAX || L.cta_begin != ctas) {
+    L.divisor = e[4];
+    if (L.n <= 0 || L.n >= (1LL << 34) || e[2] < 0 || e[2] > UINT_MAX || L.cta_begin != ctas ||
+        L.divisor < 1) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     L.vec = aligned(L.out, 16);

@@ -398,14 +398,20 @@ def masked_dequant_accumulate(acc: torch.Tensor, q: torch.Tensor, scales: torch.
 
 
 def check_uniforms_args(name: str, xs, key: int, round: torch.Tensor, matching: int,
-                        leaves) -> list[int]:
-    """The leaf indices of a uniforms call (``leaves``, or 0..n-1); raises on
-    what the kernel and its plain version do not take."""
+                        leaves, divisors=None) -> tuple[list[int], list[int]]:
+    """The leaf indices (``leaves``, or 0..n-1) and round divisors
+    (``divisors``, or all 1) of a uniforms call; raises on what the kernel
+    and its plain version do not take."""
     if not xs:
         raise ValueError(f"{name} takes one or more leaves")
     leaves = list(range(len(xs))) if leaves is None else [int(i) for i in leaves]
     if len(leaves) != len(xs):
         raise ValueError(f"{name}: {len(xs)} leaves but {len(leaves)} leaf indices")
+    divisors = [1] * len(xs) if divisors is None else [int(d) for d in divisors]
+    if len(divisors) != len(xs):
+        raise ValueError(f"{name}: {len(xs)} leaves but {len(divisors)} round divisors")
+    if not all(1 <= d < 2 ** 63 for d in divisors):
+        raise ValueError(f"{name}: a round divisor must be in [1, 2**63), got {divisors}")
     if not isinstance(round, torch.Tensor) or round.ndim != 0 or round.dtype != torch.int64:
         raise TypeError(f"{name} reads the round from a 0-d int64 tensor, got {round!r}")
     if round.device != xs[0].device:
@@ -422,20 +428,23 @@ def check_uniforms_args(name: str, xs, key: int, round: torch.Tensor, matching: 
                              f"{PHILOX_MAX_ELEMENTS}")
     if not isinstance(key, int):
         raise TypeError(f"{name}: the key is a host int, got {type(key).__name__}")
-    return leaves
+    return leaves, divisors
 
 
 def uniforms_grouped(xs, key: int, round: torch.Tensor, *, matching: int = 0,
-                     leaves=None) -> list:
+                     leaves=None, divisors=None) -> list:
     """The round's U[0, 1) noise of every leaf of a group: one float32
     tensor shaped like each of ``xs`` (CUDA tensors; only their shapes and
     device are read), views into one allocation with every leaf on 16
     bytes.  ``key`` is ``CommState.key`` (a host int, taken mod 2**64),
     ``round`` a 0-d int64 tensor on the card read there, ``matching`` the
-    masked wire's matching (0 elsewhere) and ``leaves`` each leaf's index in
-    the round (default 0..n-1).  One launch per :data:`MAX_GROUP_LEAVES`
-    leaves, each adding one to ``uniforms_grouped.launches``."""
-    leaves = check_uniforms_args("uniforms_grouped", xs, key, round, matching, leaves)
+    masked wire's matching (0 elsewhere), ``leaves`` each leaf's index in
+    the round (default 0..n-1) and ``divisors`` each leaf's round divisor
+    (default 1: leaf l is drawn at floor(round / divisors[l])).  One launch
+    per :data:`MAX_GROUP_LEAVES` leaves, each adding one to
+    ``uniforms_grouped.launches``."""
+    leaves, divisors = check_uniforms_args("uniforms_grouped", xs, key, round, matching, leaves,
+                                           divisors)
     dev = xs[0].device
     if dev.type != "cuda":
         raise ValueError(f"uniforms_grouped kernel needs CUDA tensors, got {dev}")
@@ -446,8 +455,8 @@ def uniforms_grouped(xs, key: int, round: torch.Tensor, *, matching: int = 0,
     symbol = "philox_uniforms_grouped_f32"
     fn = _build.entry(PHILOX_SOURCE, symbol, _PHILOX_ARGS)
     for table in leaf_tables([philox_ctas(n) for n in sizes]):
-        desc = (_LL * (4 * len(table)))(*[v for leaf, begin in table for v in (
-            outs[leaf].data_ptr(), sizes[leaf], leaves[leaf], begin)])
+        desc = (_LL * (5 * len(table)))(*[v for leaf, begin in table for v in (
+            outs[leaf].data_ptr(), sizes[leaf], leaves[leaf], begin, divisors[leaf])])
         _build.launch(fn, symbol, dev, ctypes.addressof(desc), len(table),
                       key & (2 ** 64 - 1), round.data_ptr(), int(matching))
         uniforms_grouped.launches += 1

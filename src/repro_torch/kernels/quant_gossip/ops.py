@@ -108,15 +108,19 @@ def masked_dequant_accumulate_grouped_(accs, payloads, w: torch.Tensor, mask: to
     return _r.masked_dequant_accumulate_grouped_ref_(accs, payloads, w, mask, src=src)
 
 
-def uniforms_grouped(xs, key: int, round: torch.Tensor, *, matching: int = 0, leaves=None):
+def uniforms_grouped(xs, key: int, round: torch.Tensor, *, matching: int = 0, leaves=None,
+                     divisors=None):
     """The round's U[0, 1) noise of every leaf of a group (one float32
     tensor shaped like each of ``xs``), a pure function of (key, round,
     leaf, matching, element): one Philox launch per 16 leaves on the card,
-    the round read there from the 0-d int64 ``round``."""
+    the round read there from the 0-d int64 ``round`` (leaf l at
+    floor(round / divisors[l]) where ``divisors`` is given)."""
     if _build.route("uniforms_grouped", xs[0]):
-        return _k.uniforms_grouped(xs, key, round, matching=matching, leaves=leaves)
+        return _k.uniforms_grouped(xs, key, round, matching=matching, leaves=leaves,
+                                   divisors=divisors)
     uniforms_grouped.plain_calls += 1
-    return _r.uniforms_grouped_ref(xs, key, round, matching=matching, leaves=leaves)
+    return _r.uniforms_grouped_ref(xs, key, round, matching=matching, leaves=leaves,
+                                   divisors=divisors)
 
 
 # how often each plain version served a call (CPU tensors only)

@@ -168,18 +168,21 @@ def philox4x32_10_ref(c: list, k0, k1) -> list:
 
 
 def uniforms_grouped_ref(xs, key: int, round: torch.Tensor, *, matching: int = 0,
-                         leaves=None) -> list:
+                         leaves=None, divisors=None) -> list:
     """The kernel's uniforms of every leaf of a group, one float32 tensor
     shaped like each of ``xs``: element e of leaf l is word (e mod 4) of
-    Philox((e >> 2, l, matching, round mod 2**32), key) >> 8, times 2**-24.
+    Philox((e >> 2, l, matching, floor(round / d_l) mod 2**32), key) >> 8,
+    times 2**-24, with d_l the leaf's round divisor (1 by default).
     ``round`` is read as a tensor (never on the host).  Each leaf's counters
     run in one pass on the card and in passes of :data:`CPU_PASS` on the
     CPU."""
-    leaves = check_uniforms_args("uniforms_grouped_ref", xs, key, round, matching, leaves)
+    leaves, divisors = check_uniforms_args("uniforms_grouped_ref", xs, key, round, matching,
+                                           leaves, divisors)
     key &= 2 ** 64 - 1
-    r = (round & _LO32).reshape(1)
     outs = []
-    for x, leaf in zip(xs, leaves):
+    for x, leaf, d in zip(xs, leaves, divisors):
+        r = ((round if d == 1 else torch.div(round, d, rounding_mode="floor")) & _LO32
+             ).reshape(1)
         n = x.numel()
         counters = -(-n // 4)
         step = CPU_PASS if x.device.type == "cpu" else max(counters, 1)

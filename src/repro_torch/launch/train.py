@@ -36,11 +36,12 @@ the full final state (parameters and ``CommState``) with
 
 The first line says how the step runs: ``step: captured`` where the
 trainer replays its step from CUDA graphs (``jit=True`` on a stack
-``capture_declined`` keeps: any optimizer, a static dense or gossip round
-with any ``--compress`` codec and ``--compress-schedule`` on every step, no
-telemetry tap, no sanitizer, a loss that batches its nodes), else ``step:
-eager (<why>)``: ``--mix-every`` > 1, local updates, a time-varying
-topology, faults and the hub run eagerly.
+``capture_declined`` keeps: any optimizer, any ``--topology`` (static,
+round-robin, dropout, geometric, the hub) with or without faults, any
+``--compress`` codec and ``--compress-schedule``, ``--local-updates``
+with or without ``--gradient-tracking``, ``--mix-every``, one graph per
+branch the host chooses; no telemetry tap, no sanitizer, a loss that
+batches its nodes), else ``step: eager (<why>)``.
 
 Telemetry (``repro_torch.obs``): every run streams through a
 :class:`~repro_torch.obs.MetricsSink` — with ``--log-dir`` the train

@@ -19,7 +19,8 @@ The port of ``repro.obs.report``.  ``python -m repro_torch.obs report
 * **events** — trainer round events (fault / EF re-base / rate switch)
   re-derived host-side via
   :func:`repro_torch.obs.trace.trainer_trace_events` from the ``meta``
-  record's fault config, replayed on the run's device.
+  record's fault config, replayed on the run's device (the coins are the
+  same on every device).
 
 Output is terminal text or a static self-contained HTML page (``--html``).
 

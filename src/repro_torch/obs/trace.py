@@ -16,9 +16,10 @@ The port of ``repro.obs.trace``.  Two producers, one consumer:
   EF re-base firings come from the tapped ``ef_rounds``/``ef_drift``
   counters, and codec rate switches from the per-round ``wire_bits``.
   The replay runs :func:`repro_torch.dynamics.faults.replay_fault_masks`
-  on the device the run used: a CUDA generator's bits are not a CPU
-  generator's, so a card run replayed on the CPU would name the wrong
-  rounds.  A missing device raises; there is no CPU fallback.
+  on the device it is given (the run's, by default): the fault coins are
+  Philox draws that give the same bits on every device, so a card run's
+  masks replay on the CPU too (``device="cpu"``).  A device that is not
+  there raises; nothing falls back to another.
 
 Consumers render the events as text (``python -m repro_torch.obs report``)
 or as Chrome/perfetto trace-event JSON (:func:`export_chrome_trace`),
@@ -53,9 +54,10 @@ def trainer_trace_events(records, *, faults=None, num_nodes: int | None = None,
     ``records`` is any record iterable (non-``train`` kinds are ignored).
     ``faults`` is the run's :class:`~repro_torch.dynamics.FaultConfig` (or
     None); ``num_nodes`` sizes the replay (defaults to ``len(loss_nodes)``
-    of the first record that has one); ``device`` is the device the run
-    drew its fault coins on (the ``meta`` record's ``device``), where the
-    replay runs.  Returned events are schema-valid ``trace`` records;
+    of the first record that has one); ``device`` is where the replay runs
+    (the ``meta`` record's ``device`` by default; the coins are the same on
+    every device, so a card run replays on the CPU as well).  Returned
+    events are schema-valid ``trace`` records;
     ``step`` is the optimizer step (== ``CommState.rounds``).
 
     ``rate_switch`` events are only derived when the live link set is

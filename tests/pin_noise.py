@@ -10,7 +10,9 @@ one-leaf B.2 and B.3; ``_old_quantized_gossip``, one-leaf B.4 and B.5 per
 matching; ``_old_gossip_round`` and ``_old_rebase_round``, one-leaf B.4
 and B.5), with each leaf's noise drawn alone by the plain Philox
 (``ref.uniforms_grouped_ref`` on the card, through the wire's ``uniforms``
-hook).  The stacks: the dense int8 EF fmnist stack, the static int8 EF
+hook) and the dropout stacks' W_r from the plain Philox coins (the
+schedule's draw, ``repro_torch.dynamics.coins.draw``, replaced by
+``ref.uniforms_grouped_ref`` at the same key, streams and round).  The stacks: the dense int8 EF fmnist stack, the static int8 EF
 gossip stack, the memoryless dropout and the EF-B4 masked gossip stacks,
 each printing (loss_step300, acc_worst_dist, acc_avg); and the CIFAR
 static EF gossip run (20 steps, cuDNN deterministic) printing (loss_step0,
@@ -18,9 +20,10 @@ loss_last, loss_worst_max).  Each one-leaf run twice, so that a difference
 between runs shows, then the same stack once through the grouped wire
 with the Philox kernel (the smoke's wire, eager here), for comparison.
 
-    python tests/pin_noise.py [ROOT]
+    python tests/pin_noise.py [ROOT [STACK ...]]
 
-ROOT is the checkout to measure (default: this one).  Prints ``PINNOISE``
+ROOT is the checkout to measure (default: this one); STACKs (default: all
+five) pick the runs (``cifar`` names the CIFAR run).  Prints ``PINNOISE``
 lines, one per run, with the path and the launches.  Needs a CUDA device
 and nvcc.
 """
@@ -38,8 +41,19 @@ import test_torch_quant_gossip_grouped as old  # noqa: E402
 from repro_torch.comm import CompressionConfig  # noqa: E402
 from repro_torch.core import TrainerSpec  # noqa: E402
 from repro_torch.core.consensus import make_dense_mixer  # noqa: E402
+from repro_torch.dynamics import coins  # noqa: E402
 from repro_torch.graphs import build_graph, metropolis_weights  # noqa: E402
 from repro_torch.kernels.quant_gossip import ref as qref  # noqa: E402
+
+picked = set(sys.argv[2:])
+kernel_coins = coins.draw
+
+
+def plain_coins(seed, round, shapes, streams, divisors=None):
+    """The coins drawn by the plain Philox (the schedule's draw)."""
+    like = [torch.empty(shape, device=round.device) for shape in shapes]
+    return qref.uniforms_grouped_ref(like, coins.coin_key(seed), round, leaves=list(streams),
+                                     divisors=divisors)
 
 
 def plain_noise(key: int):
@@ -87,7 +101,10 @@ cfg = CompressionConfig(kind="int8", use_kernel=True)
 stacks = ["dense-int8-kernel", "gossip-int8-kernel-ef", "dropout0.2-int8-kernel-memoryless",
           "dropout0.2-int8-kernel-ef-B4"]
 for stack in stacks:
+    if picked and stack not in picked:
+        continue
     for path in ("one-leaf", "one-leaf", "grouped"):
+        coins.draw = plain_coins if path == "one-leaf" else kernel_coins
         if stack == "dense-int8-kernel":
             mixer = make_dense_mixer(w, compression=cfg, device="cuda")
         else:
@@ -101,10 +118,11 @@ for stack in stacks:
             rec["loss_step300"], rec["acc_worst_dist"], rec["acc_avg"]],
             "launches": rec["launches"]}), flush=True)
 
+coins.draw = kernel_coins
 # the CIFAR run builds its mixer through cs._gossip_mixer and checks the
 # grouped wire's launches: the one-leaf runs swap the mixer and record them
 grouped_mixer, check_counts, seen = cs._gossip_mixer, cs.check_counts, {}
-for path in ("one-leaf", "one-leaf", "grouped"):
+for path in ("one-leaf", "one-leaf", "grouped") if not picked or "cifar" in picked else ():
     if path == "one-leaf":
         cs._gossip_mixer = lambda stack, *a, **kw: one_leaf(grouped_mixer(stack, *a, **kw), stack)
         cs.check_counts = lambda tag, counts, want: seen.update(

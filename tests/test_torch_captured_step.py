@@ -21,14 +21,30 @@ the step's scalars read from the packed input buffer) eagerly.
   device value on the host (a CUDA graph cannot replay one); a run saved
   mid-way from a captured trainer (momentum and the EF wire), restored and
   continued captured equals the uninterrupted eager run bit for bit.
+- The dynamic stacks, captured with one graph per branch the host
+  chooses (fig9/fig11's stacks on a small MLP, K = 8 ring): dense dropout
+  0.2 under ``LocalUpdateMixer`` H = 4 with gradient tracking, dense
+  stragglers and outages with ``straggler_skips_compute``, the memoryless
+  int8 gossip wire under stragglers, the int8 EF gossip re-based every 4
+  under dropout inside H = 2, the same EF gossip with the adaptive
+  trigger, geometric re-draws, round-robin gossip, int8 FedAvg at H = 4,
+  the hub at H = 1, SCAFFOLD at H = 4, ``mix_every`` = 2 and
+  ``RepeatMixer(gossip int8 EF, 2)`` give ``jit=True`` equal to
+  ``jit=False`` bit for bit (the whole carry, the host ints, every
+  metric), with one program per distinct branch met; their capturable
+  form reads nothing on the host; a run whose branches replay out of
+  their capture order (local, delta, local, re-base, ...) and a
+  checkpoint restored in the middle of a local-update period equal the
+  eager runs bit for bit.
 - The caller's state is left untouched on the CPU (copied in, the result
   copied out), so one initial state serves several runs.
-- The capture predicate declines, each with its reason: a wrapper mixer
-  (``LocalUpdateMixer``), a time-varying topology (dynamics), a
-  ``uniforms`` hook, ``mix_every`` = 2, a sink (``obs``) and
-  ``sanitize``; ``jit=False`` says so; it keeps plain SGD, every codec,
-  schedule and optimizer above and K > 64; the CLI's first line says how
-  the step runs.
+- The capture predicate declines, each with its reason: a replaced fault
+  seam (``round_fault_masks``), a schedule class the port does not
+  define, a ``uniforms`` hook, an ``Optimizer(init, update)`` with no
+  device form, a sink (``obs``) and ``sanitize``; ``jit=False`` says so;
+  it keeps plain SGD, every codec, schedule and optimizer above and K >
+  64; the CLI's first line says how the step runs (the dynamics and hub
+  commands captured too).
 - B.1's plain version with η a 0-d float32 tensor and ``out`` leaves
   against the reference's Pallas kernel in interpret mode, row by row, at
   the tolerance of ``tests/test_torch_gossip_update.py`` (rtol 1e-5, atol
@@ -47,21 +63,31 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro.kernels.gossip_update.ops import gossip_update_flat as ref_flat
 from repro_torch.checkpoint import restore_train_state, save_train_state
 from repro_torch.comm import CompressionConfig, ScheduleConfig
+from repro_torch.comm import topology as comm_topology
 from repro_torch.configs import get_arch
 from repro_torch.core import DecentralizedTrainer, TrainerSpec
 from repro_torch.core import captured as cap
-from repro_torch.core.consensus import make_dense_mixer, make_gossip_mixer
+from repro_torch.core.consensus import make_dense_mixer, make_gossip_mixer, repeat_mixer
 from repro_torch.core.drdsgd import step_scalars
 from repro_torch.data import make_fmnist_like, make_node_token_streams
 from repro_torch.data import pathological_noniid_partition
-from repro_torch.dynamics import LocalUpdateMixer
+from repro_torch.dynamics import (
+    DropoutSchedule,
+    DynamicDenseMixer,
+    DynamicGossipMixer,
+    DynamicsConfig,
+    FaultConfig,
+    LocalUpdateMixer,
+    RoundRobinSchedule,
+    StaticSchedule,
+)
 from repro_torch.graphs import metropolis_weights, ring_graph
 from repro_torch.graphs.mixing import permutation_decomposition
 from repro_torch.kernels.gossip_update import ops
 from repro_torch.models import TransformerLM, make_lm_loss
 from repro_torch.models import paper_nets as nets
 from repro_torch.obs import MetricsSink
-from repro_torch.optim import adam, chain_clip, linear_warmup_cosine, momentum, sgd
+from repro_torch.optim import Optimizer, adam, chain_clip, linear_warmup_cosine, momentum, sgd
 
 K, STEPS = 10, 20
 
@@ -287,6 +313,181 @@ def test_unfused_stacks_captured_equal_eager(stack, monkeypatch, one_thread):
     assert b.step == 9 and b.comm.rounds == 9
 
 
+DYN_K = 8
+EF_ADAPTIVE = 0.05  # a threshold this run's drift crosses both ways
+
+
+def _dyn_w():
+    return metropolis_weights(ring_graph(DYN_K))
+
+
+# fig9/fig11's stacks, small: DecentralizedTrainer fields
+DYN_STACKS = {
+    "dense-dropout-H4-gt": lambda: dict(dynamics=DynamicsConfig(
+        topology="dropout", drop_p=0.2, local_updates=4, gradient_tracking=True)),
+    "dense-faults-skips-compute": lambda: dict(dynamics=DynamicsConfig(faults=FaultConfig(
+        straggler_p=0.1, outage_p=0.05, outage_len=10, straggler_skips_compute=True))),
+    "gossip-int8-memoryless-stragglers": lambda: dict(mixer=DynamicGossipMixer(
+        StaticSchedule(_dyn_w(), device="cpu"), faults=FaultConfig(straggler_p=0.1),
+        quantized=CompressionConfig(kind="int8", use_kernel=True, error_feedback=False))),
+    "gossip-int8-ef-B4-dropout-H2": lambda: dict(mixer=LocalUpdateMixer(DynamicGossipMixer(
+        DropoutSchedule(_dyn_w(), 0.2, device="cpu"), quantized=INT8_KERNEL,
+        ef_rebase_every=4), 2)),
+    "gossip-int8-ef-adaptive": lambda: dict(mixer=DynamicGossipMixer(
+        DropoutSchedule(_dyn_w(), 0.2, device="cpu"), quantized=INT8_KERNEL,
+        ef_rebase_threshold=EF_ADAPTIVE)),
+    "dense-geometric": lambda: dict(dynamics=DynamicsConfig(topology="geometric")),
+    "gossip-round-robin": lambda: dict(mixer=DynamicGossipMixer(
+        RoundRobinSchedule(_dyn_w(), device="cpu"))),
+    "hub-int8-fedavg-H4": lambda: dict(dynamics=DynamicsConfig(topology="hub", local_updates=4),
+                                       compression=INT8_KERNEL),
+    "hub-H1": lambda: dict(dynamics=DynamicsConfig(topology="hub")),
+    "hub-scaffold-H4": lambda: dict(dynamics=DynamicsConfig(
+        topology="hub", local_updates=4, gradient_tracking=True)),
+    "mix-every-2": lambda: dict(mix_every=2),
+    "repeat-gossip-int8-ef-2": lambda: dict(mixer=repeat_mixer(make_gossip_mixer(
+        permutation_decomposition(_dyn_w()), INT8_KERNEL, device="cpu"), 2)),
+}
+
+
+def _dyn_trainer(stack: str, jit: bool):
+    fields = dict(num_nodes=DYN_K, graph="ring", lr=0.1, device="cpu", jit=jit)
+    fields.update(DYN_STACKS[stack]())
+    if fields.get("mixer") is not None and fields["mixer"].compression is not None:
+        fields.setdefault("compression", fields["mixer"].compression)
+    return DecentralizedTrainer(_tiny_loss(), **fields)
+
+
+def _branches(trainer, state, steps: int) -> list:
+    """The branch of each of ``steps`` steps from ``state``, by the host
+    function."""
+    out, step, comm = [], state.step, state.comm
+    for _ in range(steps):
+        branch, comm = trainer._train_step.host_branch(step, comm)
+        out.append(branch)
+        step += 1
+    return out
+
+
+@pytest.mark.parametrize("stack", list(DYN_STACKS))
+def test_dynamic_stacks_captured_equal_eager(stack, monkeypatch, one_thread):
+    """A run in epochs with a hook, past the input packing (cut to 3 steps)
+    and the metrics buffer (cut to 4 columns), then ``step``: the captured
+    step's carry (parameters, optimizer state, every CommState tensor: θ̂,
+    the mix cache, the tracker), host ints and metrics are the eager
+    step's bit for bit, with one program per distinct branch met."""
+    monkeypatch.setattr(cap, "PACK_STEPS", 3)
+    monkeypatch.setattr(cap, "METRIC_COLS", 4)
+    batches, params = _small_data(DYN_K, 10)
+    first = tuple(b[0] for b in batches)
+    out = {}
+    for jit in (False, True):
+        trainer = _dyn_trainer(stack, jit)
+        assert trainer.captured == jit, trainer.capture_declined
+        state = trainer.init(params)
+        met = set(_branches(trainer, state, 10))
+        state, ms = trainer.run(state, batches, steps=9, epoch_steps=4,
+                                on_epoch=lambda e, st, m: None)
+        state, m1 = trainer.step(state, first)
+        out[jit] = (state, {**ms, **{f"step/{k}": v for k, v in m1.items()}})
+        if jit:
+            assert trainer._run._cache_size() == len(met), (met, trainer._run._cache_size())
+    _same_carry(*out[False], *out[True])
+    assert out[True][0].step == 10
+
+
+@pytest.mark.parametrize("stack", list(DYN_STACKS))
+def test_dynamic_capturable_form_reads_nothing_on_the_host(stack):
+    """Each of the first steps' branches of the form the trainer captures,
+    on the slot in place, its scalars packed as 0-d tensors: no op reads
+    the device on the host."""
+    batches, params = _small_data(DYN_K, 6)
+    trainer = _dyn_trainer(stack, True)
+    step = trainer._train_step
+    state = trainer.init(params)
+    for t in range(5):
+        branch = step.host_branch(state.step, state.comm)[0]
+        sc = step_scalars(step.host_scalars(state.step, state.comm.rounds), trainer.device)
+        batch = trainer._batch(tuple(b[t] for b in batches))
+        with _HostReads() as mode:
+            state, _ = step.capturable(state, batch, sc, inplace=t > 0, branch=branch)
+        assert mode.seen == [], (t, branch, mode.seen)
+
+
+def test_adaptive_rebase_takes_both_sides(one_thread):
+    """The adaptive re-base's device select is taken both ways in the
+    parity run's 10 rounds: counted from each eager round's ``ef_drift``
+    against the threshold, some rounds but not all re-base, and the
+    captured run's per-step ``wire_bits`` are the eager steps' bit for bit
+    (so it billed the same rounds at full precision)."""
+    batches, params = _small_data(DYN_K, 10)
+    eager = _dyn_trainer("gossip-int8-ef-adaptive", False)
+    state, drifts, bits = eager.init(params), [], []
+    for t in range(10):
+        state, m = eager.step(state, tuple(b[t] for b in batches))
+        drifts.append(float(state.comm.ef_drift))
+        bits.append(m["wire_bits"])
+    rebases = sum(d > EF_ADAPTIVE for d in drifts)
+    assert 0 < rebases < 10, drifts
+    captured = _dyn_trainer("gossip-int8-ef-adaptive", True)
+    assert captured.captured
+    _, ms = captured.run(captured.init(params), batches)
+    assert torch.equal(ms["wire_bits"], torch.stack(bits))
+
+
+def test_branches_replayed_out_of_capture_order_equal_eager(one_thread):
+    """The int8 EF gossip under dropout, re-based every 2 executed rounds,
+    inside H = 2: the graphs are captured local, delta, re-base, and
+    replayed local, delta, local, re-base, local, delta, ... across two
+    runs; the carry and metrics equal the eager runs' bit for bit."""
+    def mixer():
+        return LocalUpdateMixer(DynamicGossipMixer(
+            DropoutSchedule(_dyn_w(), 0.2, device="cpu"), quantized=INT8_KERNEL,
+            ef_rebase_every=2), 2)
+
+    batches, params = _small_data(DYN_K, 12)
+    out = {}
+    for jit in (False, True):
+        trainer = DecentralizedTrainer(_tiny_loss(), num_nodes=DYN_K, graph="ring", lr=0.1,
+                                       device="cpu", jit=jit, mixer=mixer(),
+                                       compression=INT8_KERNEL)
+        state = trainer.init(params)
+        branches = _branches(trainer, state, 12)
+        assert branches[:5] == [(True, (False, None)), (True, (True, False)),
+                                (True, (False, None)), (True, (True, True)),
+                                (True, (False, None))]
+        state, m0 = trainer.run(state, tuple(b[:3] for b in batches))
+        if jit:
+            assert trainer._run._cache_size() == 2
+        state, m1 = trainer.run(state, tuple(b[3:] for b in batches))
+        out[jit] = (state, {k: torch.cat([m0[k], m1[k]]) for k in m0})
+        if jit:
+            assert trainer._run._cache_size() == 3
+    _same_carry(*out[False], *out[True])
+    assert out[True][0].comm.ef_rounds == 6 and out[True][0].comm.rounds == 12
+
+
+def test_checkpoint_mid_period_captured_equals_eager(tmp_path, one_thread):
+    """Dense dropout under LocalUpdateMixer H = 4 with gradient tracking: 5
+    captured steps (one into the second period), saved, restored and 6
+    more captured steps (the restored run starts on a local branch, its
+    consensus graph captured where it first appears) equal 11 eager steps
+    bit for bit, the tracker included."""
+    batches, params = _small_data(DYN_K, 11)
+    eager = _dyn_trainer("dense-dropout-H4-gt", False)
+    want = eager.run(eager.init(params), batches)
+    first = _dyn_trainer("dense-dropout-H4-gt", True)
+    state, m0 = first.run(first.init(params), tuple(b[:5] for b in batches))
+    save_train_state(str(tmp_path), state.step, state)
+    restored, step = restore_train_state(str(tmp_path), device="cpu")
+    assert step == 5 and restored.comm.rounds == 5 and restored.comm.track != ()
+    second = _dyn_trainer("dense-dropout-H4-gt", True)
+    assert second.captured
+    got, m1 = second.run(restored, tuple(b[5:] for b in batches))
+    assert second._run._cache_size() == 2
+    _same_carry(want[0], want[1], got, {k: torch.cat([m0[k], m1[k]]) for k in m0})
+
+
 class _HostReads(TorchDispatchMode):
     """Records every op that reads a device value on the host or makes a
     tensor from host data: neither can be replayed from a CUDA graph."""
@@ -353,22 +554,29 @@ def test_checkpoint_round_trip_captured_equals_eager(tmp_path, one_thread):
     _same_carry(want[0], want[1], got, {k: torch.cat([m0[k], m1[k]]) for k in m0})
 
 
+class _ForeignSchedule(StaticSchedule):
+    """A schedule class the port does not define: it is handed the round as
+    a host int, so its stack runs eagerly."""
+
+
 @pytest.mark.parametrize("case,words", [
-    ("local", "wrapper mixer"), ("dynamics", "time-varying"), ("hook", "uniforms hook"),
-    ("mix_every", "mix_every = 2"), ("sink", "sink"), ("sanitize", "sanitize"),
-    ("jit", "jit=False")])
-def test_capture_predicate_declines_with_reason(case, words):
+    ("seam", "replaced fault seam"), ("schedule", "_ForeignSchedule"),
+    ("hook", "uniforms hook"), ("optimizer", "no device form"), ("sink", "sink"),
+    ("sanitize", "sanitize"), ("jit", "jit=False")])
+def test_capture_predicate_declines_with_reason(case, words, monkeypatch):
     kw = dict(num_nodes=4, graph="ring", lr=0.1, device="cpu")
     w = metropolis_weights(ring_graph(4))
-    if case == "dynamics":
-        trainer = TrainerSpec(topology="dropout", drop_p=0.2, **kw).build(_tiny_loss())
+    if case == "seam":
+        monkeypatch.setattr(comm_topology, "round_fault_masks",
+                            lambda cfg, r, k, device: (torch.ones(k, k), torch.ones(k)))
+        trainer = TrainerSpec(straggler_p=0.1, **kw).build(_tiny_loss())
     else:
-        extra = {"local": lambda: dict(mixer=LocalUpdateMixer(
-                     make_dense_mixer(w, device="cpu"), 2)),
+        extra = {"schedule": lambda: dict(mixer=DynamicDenseMixer(
+                     _ForeignSchedule(w, device="cpu"))),
                  "hook": lambda: dict(compression=INT8_KERNEL, mixer=make_dense_mixer(
                      w, INT8_KERNEL, device="cpu",
                      uniforms=lambda r, i, shape: np.full(shape, 0.5, np.float32))),
-                 "mix_every": lambda: dict(mix_every=2),
+                 "optimizer": lambda: dict(optimizer=Optimizer(sgd(0.1).init, sgd(0.1).update)),
                  "sink": lambda: dict(obs=MetricsSink()), "sanitize": lambda: dict(sanitize=True),
                  "jit": lambda: dict(jit=False)}[case]()
         trainer = DecentralizedTrainer(_tiny_loss(), **kw, **extra)
@@ -396,6 +604,9 @@ def test_capture_predicate_keeps_the_fused_stack():
 @pytest.mark.parametrize("argv,line", [
     ([], "step: captured"),
     (["--compress", "int8"], "step: captured"),
+    (["--topology", "dropout", "--drop-p", "0.2", "--local-updates", "4",
+      "--gradient-tracking", "--straggler-p", "0.1"], "step: captured"),
+    (["--topology", "hub", "--local-updates", "4"], "step: captured"),
     (["--log-dir", "LOG"], "step: eager (a telemetry sink (obs) taps the step)")])
 def test_cli_says_how_the_step_runs(argv, line, tmp_path, capsys):
     from repro_torch.launch import train

@@ -2,11 +2,12 @@
 reference's ``repro.dynamics``.
 
 Deterministic schedules (static, round-robin, dropout at p = 0) must give
-the reference's W_r bit for bit.  The port draws dropout coins from a
-``torch.Generator`` where the reference folds the round into a JAX key, so
-its sampler is held on its rates: over 2,000 rounds the kept-link fraction
-lies within 4σ of 1 − p, and every W_r is symmetric and doubly stochastic
-(1e-6).  The mixers' arithmetic is held on the reference's own W_r and
+the reference's W_r bit for bit.  The port draws dropout coins from its
+Philox coins (``repro_torch.dynamics.coins``: a pure function of (seed,
+stream, round), the same on the CPU and the card) where the reference
+folds the round into a JAX key, so its sampler is held on its rates: over
+2,000 rounds the kept-link fraction lies within 4σ of 1 − p, and every
+W_r is symmetric and doubly stochastic (1e-6).  The mixers' arithmetic is held on the reference's own W_r and
 uniforms, injected through :class:`ReplaySchedule` (defined here, not in
 the package) and the wire's ``uniforms`` hook: θ and θ̂ agree per round at
 rtol 1e-6, atol 1e-6 (float32 summation order of the W product), the

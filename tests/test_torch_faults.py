@@ -1,11 +1,13 @@
 """The port's fault process (``repro_torch.dynamics.faults``) and the faulted
 mixers and train step against the reference's ``repro.dynamics.faults``.
 
-The port draws its coins from ``torch.Generator`` streams where the
-reference folds the round into a JAX key, so the two never share bits.  The
-port's sampler is held on its rates (straggler, outage and link keep within
-3σ over 2,000 rounds) and on its structure (symmetric keep, a link kept only
-between two up nodes, outage windows shared, a pure function of the round).
+The port draws its coins from Philox streams on the device
+(``repro_torch.dynamics.coins``: one leaf per stream, the round read from a
+0-d tensor, the outage stream at its window) where the reference folds the
+round into a JAX key, so the two never share bits.  The port's sampler is
+held on its rates (straggler, outage and link keep within 3σ over 2,000
+rounds) and on its structure (symmetric keep, a link kept only between two
+up nodes, outage windows shared, a pure function of the round).
 Everything that compares arithmetic injects the reference's own
 ``replay_fault_masks`` into the port through its one seam,
 ``repro_torch.comm.topology.round_fault_masks``: the faulted W_r equals the

@@ -1667,23 +1667,39 @@ def test_mix_every_run_on_the_card_equals_the_cpu(cuda):
 
 
 def test_fault_masks_on_the_card_follow_the_card_generator(cuda):
-    """The masks are drawn on the card (its generator gives other bits than
-    the CPU's, so the structure is held): symmetric keep, links only
-    between up nodes, a pure function of the round, no host sync."""
-    from repro_torch.dynamics import FaultConfig, fault_keep_matrix
+    """The masks are drawn on the card by the Philox coins (one launch per
+    round, the round read there), with no host sync, and are the CPU's bit
+    for bit, at a host round, at the round as a 0-d tensor and at rounds
+    past an outage window; so are a dropout and a geometric schedule's
+    W_r."""
+    from repro_torch.dynamics import (
+        DropoutSchedule,
+        FaultConfig,
+        GeometricRedrawSchedule,
+        fault_keep_matrix,
+    )
+    from repro_torch.graphs import build_graph, metropolis_weights
 
     cfg = FaultConfig(link_drop_p=0.3, straggler_p=0.2, outage_p=0.2, outage_len=4, seed=1)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
+        before = qk.uniforms_grouped.launches
         keep, up = fault_keep_matrix(cfg, 3, 12, device=cuda)
+        assert qk.uniforms_grouped.launches == before + 1
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert keep.device.type == up.device.type == "cuda"
-    assert torch.equal(keep, keep.T)
-    assert torch.equal(keep * up[:, None] * up[None, :], keep)
-    keep2, up2 = fault_keep_matrix(cfg, 3, 12, device=cuda)
-    assert torch.equal(keep, keep2) and torch.equal(up, up2)
+    w = metropolis_weights(build_graph("erdos_renyi", 12, p=0.4, seed=3))
+    drop = {d: DropoutSchedule(w, 0.3, seed=5, device=d) for d in (cuda, "cpu")}
+    geo = {d: GeometricRedrawSchedule(12, radius=0.5, seed=5, device=d) for d in (cuda, "cpu")}
+    for r in (0, 3, 4, 7, 2 ** 33 + 5):
+        want = fault_keep_matrix(cfg, r, 12, device="cpu")
+        for rr in (r, torch.tensor(r, device=cuda)):
+            got = fault_keep_matrix(cfg, rr, 12, device=cuda)
+            assert all(torch.equal(g.cpu(), x) for g, x in zip(got, want)), r
+        assert torch.equal(drop[cuda].round_weights(r).cpu(), drop["cpu"].round_weights(r)), r
+        assert torch.equal(geo[cuda].round_weights(r).cpu(), geo["cpu"].round_weights(r)), r
 
 
 def test_faulted_memoryless_round_on_the_card_masks_straggler_rows(cuda):

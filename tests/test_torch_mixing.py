@@ -6,8 +6,9 @@ matchings and the same float64 weights for every graph builder, seed and K.
 ``metropolis_weights_traced`` and ``renormalize_masked_weights`` are float32
 on the caller's device in the port and jnp in the reference: held at rtol
 1e-6 on the same inputs, and bitwise at keep ≡ 1 (the renormalization
-returns exactly W).  The port's ``symmetric_uniform`` draws from a
-``torch.Generator``, so it is held on its properties, not on bits.
+returns exactly W).  The port's ``symmetric_uniform`` folds a (K, K) draw
+(the dynamics' Philox coins) into one coin per unordered pair, so it is
+held on its properties, not on bits.
 """
 
 import jax.numpy as jnp
@@ -102,13 +103,15 @@ def test_renormalize_masked_weights_matches_reference(k, seed):
 
 
 def test_symmetric_uniform_properties():
-    gen = torch.Generator().manual_seed(3)
-    u = mixing.symmetric_uniform(gen, 12)
+    draw = torch.rand((12, 12), generator=torch.Generator().manual_seed(3))
+    u = mixing.symmetric_uniform(draw)
     assert u.dtype == torch.float32 and u.shape == (12, 12)
     assert torch.equal(u, u.T)
     assert torch.all(torch.diagonal(u) == 0)
     off = u[~torch.eye(12, dtype=torch.bool)]
     assert bool(((off >= 0) & (off < 1)).all())
-    # one draw per unordered pair, a pure function of the generator's seed
-    assert torch.equal(u, mixing.symmetric_uniform(torch.Generator().manual_seed(3), 12))
-    assert not torch.equal(u, mixing.symmetric_uniform(torch.Generator().manual_seed(4), 12))
+    # one coin per unordered pair, from the draw's upper triangle alone
+    assert torch.equal(torch.triu(u, 1), torch.triu(draw, 1))
+    assert torch.equal(u, mixing.symmetric_uniform(draw + torch.tril(torch.ones(12, 12))))
+    other = torch.rand((12, 12), generator=torch.Generator().manual_seed(4))
+    assert not torch.equal(u, mixing.symmetric_uniform(other))

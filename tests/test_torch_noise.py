@@ -14,6 +14,10 @@ plain version runs here; the kernel is held against it on the card in
   leaf drawn alone equals the same leaf drawn in a group, the order of
   draws changes nothing, and another round, leaf, matching or key gives
   other draws.
+- A leaf's round divisor d draws it at floor(round / d) (the dynamics'
+  outage coins, keyed by their window): the numpy reference at that round,
+  leaf by leaf in a group of mixed divisors, past 2**32 windows, with
+  negative rounds floored; a divisor below 1 is refused.
 - 10**6 draws lie in [0, 1), their mean and variance within 5 sigma of
   U[0, 1)'s.
 - The wires draw from it (no hook), the one-leaf and the round's draws
@@ -120,6 +124,23 @@ def test_other_coordinates_give_other_draws(field):
 
     a, b = draw(**base), draw(**{**base, field: base[field] + 1})
     assert (a != b).float().mean() > 0.99
+
+
+@pytest.mark.parametrize("rnd", [0, 9, 10, 123457, 10 * 2 ** 32 + 31, -1, -11])
+def test_round_divisor_draws_at_the_window(rnd):
+    xs = [torch.empty(3, 7), torch.empty(10), torch.empty(2, 2)]
+    divisors = [1, 10, 2 ** 40]
+    got = ops.uniforms_grouped(xs, 2 ** 33 + 5, _round(rnd), leaves=[4, 2 ** 32 - 254, 7],
+                               divisors=divisors)
+    for x, u, leaf, d in zip(xs, got, [4, 2 ** 32 - 254, 7], divisors):
+        want = np_uniforms(x.numel(), 2 ** 33 + 5, rnd // d, leaf).reshape(x.shape)
+        np.testing.assert_array_equal(u.numpy(), want)
+    alone = ops.uniforms_grouped([xs[1]], 2 ** 33 + 5, _round(rnd // 10),
+                                 leaves=[2 ** 32 - 254])[0]
+    assert torch.equal(alone, got[1])
+    for bad in ([1, 0, 1], [1, 1]):
+        with pytest.raises(ValueError, match="divisor"):
+            ops.uniforms_grouped(xs, 1, _round(rnd), divisors=bad)
 
 
 def test_moments_of_a_million_draws():

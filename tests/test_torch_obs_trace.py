@@ -1,8 +1,8 @@
 """The port's trace events (``repro_torch.obs.trace``) against the
 reference's ``repro.obs.trace``.
 
-The fault coins are the port's own (``torch.Generator`` streams; a CUDA
-generator's bits are not a CPU generator's), so the fault events are held
+The fault coins are the port's own (Philox streams, the same bits on every
+device, not the reference's), so the fault events are held
 on the reference's replayed masks, injected through the port's one seam
 ``comm/topology.py::round_fault_masks``, which the port's replay goes
 through.  The EF re-base and rate-switch derivations and the Chrome export
@@ -73,7 +73,7 @@ def test_fault_replay_infers_num_nodes_and_needs_the_run_device():
     assert all(e["event"] == "fault" and max(e["down_nodes"], default=0) < 5 for e in events)
     with pytest.raises(ValueError, match="num_nodes"):
         port_trace.trainer_trace_events([_train_rec(0)], faults=cfg, device="cpu")
-    if not torch.cuda.is_available():  # a card run's faults never replay on the CPU
+    if not torch.cuda.is_available():  # a replay asked on a card that is not there raises
         with pytest.raises(RuntimeError, match="CUDA"):
             port_trace.trainer_trace_events(with_vec, faults=cfg, device="cuda")
         meta = {"v": SCHEMA_VERSION, "kind": "meta", "step": 0, "nodes": 5,

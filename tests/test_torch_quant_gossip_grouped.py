@@ -247,8 +247,10 @@ def test_leaf_tables_leave_out_empty_leaves_and_q_offsets_are_aligned():
 
 # -- the gossip rounds: matching-outer and two-pass against the old loops ------
 
-def _old_quantized_gossip(self, theta, state, self_w, match_ws, masks):
-    """The memoryless round as it was: every leaf, every matching."""
+def _old_quantized_gossip(self, theta, state, self_w, match_ws, masks, clock=None):
+    """The memoryless round as it was: every leaf, every matching (its
+    noise at the host ``state.rounds``; the clock is the new round's
+    argument, which the eager rounds here fill from that int)."""
     from repro_torch.kernels.quant_gossip.ops import masked_quant_gossip_round
 
     wire = self.wire
